@@ -1,0 +1,108 @@
+"""State carried between the JAX package and the port, as plain arrays.
+
+This system's "weights" are the application tables (per-class recalls,
+latencies, sizes, priors) and the SneakPeek training sets.  The
+``*_to_arrays`` functions read them from any object with the reference's
+attributes — a ``repro`` object or a ``repro_torch`` one — into numpy
+arrays; the ``*_from_arrays`` functions build the port's objects from
+them, so both sides compute on identical state.
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import numpy as np
+
+from repro_torch.core.accuracy import ModelProfile
+from repro_torch.core.dirichlet import DirichletPrior
+from repro_torch.core.sneakpeek import KNNSneakPeek
+from repro_torch.core.types import Application
+
+__all__ = [
+    "application_to_arrays",
+    "application_from_arrays",
+    "knn_sneakpeek_to_arrays",
+    "knn_sneakpeek_from_arrays",
+]
+
+
+def application_to_arrays(app) -> dict:
+    """The plain-array form of an application (``application_from_arrays``'
+    keyword arguments)."""
+    models = app.models
+    for m in models:
+        if m.latency_model is not None or m.is_short_circuit:
+            raise ValueError(
+                f"variant {m.name!r}: only plain profiled variants convert"
+            )
+    return {
+        "name": app.name,
+        "recalls": np.stack([np.asarray(m.recalls, dtype=np.float64) for m in models]),
+        "latency_s": np.array([m.latency_s for m in models], dtype=np.float64),
+        "load_latency_s": np.array([m.load_latency_s for m in models], dtype=np.float64),
+        "memory_bytes": np.array([m.memory_bytes for m in models], dtype=np.int64),
+        "penalty": app.penalty,
+        "prior_alpha": np.asarray(app.prior.alpha, dtype=np.float64),
+        "expected_freqs": (
+            None if app.expected_freqs is None
+            else np.asarray(app.expected_freqs, dtype=np.float64)
+        ),
+        "model_names": [m.name for m in models],
+    }
+
+
+def application_from_arrays(
+    name: str,
+    recalls: np.ndarray,
+    latency_s: np.ndarray,
+    load_latency_s: np.ndarray,
+    memory_bytes: np.ndarray,
+    penalty: str,
+    prior_alpha: np.ndarray,
+    expected_freqs: np.ndarray | None,
+    model_names: Sequence[str],
+) -> Application:
+    """An ``Application`` of the port from its plain arrays: ``recalls``
+    (M, C), the per-variant vectors (M,), the prior's concentration (C,)."""
+    recalls = np.asarray(recalls, dtype=np.float64)
+    m = len(model_names)
+    if recalls.ndim != 2 or recalls.shape[0] != m:
+        raise ValueError(f"recalls must be ({m}, C), got {recalls.shape}")
+    models = [
+        ModelProfile(
+            name=model_names[i],
+            recalls=recalls[i],
+            latency_s=float(latency_s[i]),
+            load_latency_s=float(load_latency_s[i]),
+            memory_bytes=int(memory_bytes[i]),
+        )
+        for i in range(m)
+    ]
+    return Application(
+        name=name,
+        models=models,
+        penalty=penalty,
+        prior=DirichletPrior(np.asarray(prior_alpha, dtype=np.float64)),
+        expected_freqs=expected_freqs,
+    )
+
+
+def knn_sneakpeek_to_arrays(sp) -> dict:
+    """The training and holdout split of a k-NN SneakPeek model as arrays
+    (``knn_sneakpeek_from_arrays``' keyword arguments, without ``device``)."""
+    return {
+        "train_x": np.asarray(sp.train_x, dtype=np.float32),
+        "train_y": np.asarray(sp.train_y, dtype=np.int32),
+        "hold_x": np.asarray(sp._hold_x, dtype=np.float32),
+        "hold_y": np.asarray(sp._hold_y, dtype=np.int32),
+        "num_classes": int(sp.num_classes),
+        "k": int(sp.k),
+    }
+
+
+def knn_sneakpeek_from_arrays(train_x, train_y, hold_x, hold_y, num_classes: int,
+                              k: int, device=None, name: str = "knn") -> KNNSneakPeek:
+    """A port ``KNNSneakPeek`` over exactly this split, its training set on
+    ``device`` (the card unless ``"cpu"`` is named)."""
+    return KNNSneakPeek.from_split(train_x, train_y, hold_x, hold_y, num_classes,
+                                   k=k, name=name, device=device)

@@ -1,0 +1,207 @@
+"""Discrete-event simulation of the serving loop (drives the evaluation).
+
+The port of ``repro.core.simulator`` for one worker:
+
+  * ``run_window`` — one scheduling window (default 100 ms) of enqueued
+    requests, scheduled at window close, scored with *oracle* utilities
+    (Eq. 9 with one-hot true-label theta) and realized completion times
+    from the worker timeline.  Deterministic.
+  * ``Simulation`` — multi-window streaming execution over a persistent
+    ``StreamingState``: backlog and model residency carry across windows,
+    with sampled per-request outcomes (correct with probability
+    recall[true_label]) drawn from a seeded numpy generator, the
+    reference's stream.
+
+Both take ``device=``: the k-NN search and the batched equations run
+there (the card unless ``"cpu"`` is named).  Multi-worker pools,
+capacity-limited residency, stacked windows and the compiled pipeline are
+not ported yet and raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Mapping, Sequence
+
+import numpy as np
+
+from repro_torch.core.evaluation import EvalResult, evaluate
+from repro_torch.core.scheduler import (
+    SchedulerPolicy,
+    effective_apps,
+    not_ported,
+    schedule_window,
+)
+from repro_torch.core.streaming import StreamingState
+from repro_torch.core.types import Application, Request, Schedule
+from repro_torch.device import resolve_device
+
+__all__ = ["WindowResult", "run_window", "Simulation"]
+
+
+@dataclasses.dataclass
+class WindowResult:
+    """One scheduled + oracle-scored window (``run_window`` output)."""
+
+    schedule: Schedule
+    result: EvalResult
+    overhead_s: float
+
+    @property
+    def mean_utility(self) -> float:
+        """Mean oracle utility of the window (Eq. 3 objective)."""
+        return self.result.mean_utility
+
+
+def run_window(
+    policy: SchedulerPolicy,
+    requests: Sequence[Request],
+    apps: Mapping[str, Application],
+    now: float,
+    sneakpeeks=None,
+    short_circuit: bool = False,
+    device=None,
+) -> WindowResult:
+    """Schedule one window and score it with oracle accuracies."""
+    dev = resolve_device(device)
+    sched, eff_apps = schedule_window(
+        policy, requests, apps, now, sneakpeeks=sneakpeeks,
+        short_circuit=short_circuit, device=dev,
+    )
+    res = evaluate(sched, eff_apps, now, acc_mode="oracle", device=dev)
+    return WindowResult(schedule=sched, result=res, overhead_s=sched.scheduling_overhead_s)
+
+
+class Simulation:
+    """Streaming multi-window simulation with sampled inference outcomes.
+
+    Scheduling happens at window close against the CARRIED state: the
+    worker's next batch starts at ``max(busy_until, window_close)`` and a
+    model left resident by an earlier window is not re-charged its swap
+    latency.  ``evaluate(..., state=...)`` commits realized executions
+    back to the state.
+
+    Args:
+      num_workers: pool size of the carried state (single-worker policies
+        only ever use worker 0; idle workers count toward utilization).
+      device: where the SneakPeek stage and the batched equations run.
+      workers, memory_capacity_bytes, prebatch, pipeline, chunk, shard:
+        the reference's multi-worker, capacity, stacked-window and
+        compiled-pipeline options; not ported yet, they raise.
+    """
+
+    def __init__(
+        self,
+        policy: SchedulerPolicy,
+        apps: Mapping[str, Application],
+        window_s: float = 0.1,
+        sneakpeeks=None,
+        short_circuit: bool = False,
+        seed: int = 0,
+        num_workers: int = 1,
+        device=None,
+        workers=None,
+        memory_capacity_bytes: int | None = None,
+        prebatch: int = 0,
+        pipeline: bool = False,
+        chunk: int | None = None,
+        shard=False,
+    ):
+        for option, value in (
+            ("workers", workers), ("memory_capacity_bytes", memory_capacity_bytes),
+            ("prebatch", prebatch), ("pipeline", pipeline), ("chunk", chunk),
+            ("shard", shard),
+        ):
+            if value:
+                not_ported(option)
+        self.policy = policy
+        self.apps = dict(apps)
+        self.window_s = window_s
+        self.sneakpeeks = sneakpeeks
+        self.short_circuit = short_circuit
+        self.device = resolve_device(device)
+        self.rng = np.random.default_rng(seed)
+        self.state = StreamingState(num_workers=max(1, num_workers), now=0.0)
+        # Scheduled against a fixed app map: short-circuit augmentation is
+        # deterministic, so it must not be rebuilt per window (fresh
+        # Application objects would also defeat AppArrays memoization).
+        self._eff_apps = effective_apps(self.apps, sneakpeeks, short_circuit)
+        self.log: list[dict] = []
+
+    @property
+    def backlog_t(self) -> float:
+        """Busiest worker's busy-until time."""
+        return max(tl.t for _, tl in self.state.items())
+
+    def _window_batches(self, requests: Sequence[Request], horizon_s: float | None):
+        requests = sorted(requests, key=lambda r: r.arrival_s)
+        t_end = horizon_s if horizon_s is not None else requests[-1].arrival_s
+        n_windows = int(np.ceil((t_end + 1e-9) / self.window_s)) or 1
+        idx = 0
+        out: list[tuple[int, list[Request]]] = []
+        for w in range(n_windows):
+            window_close = (w + 1) * self.window_s
+            batch = []
+            while idx < len(requests) and requests[idx].arrival_s <= window_close:
+                batch.append(requests[idx])
+                idx += 1
+            if batch:
+                out.append((w, batch))
+        return out
+
+    def run(self, requests: Sequence[Request], horizon_s: float | None = None) -> dict:
+        """Consume a request trace; returns aggregate realized metrics."""
+        if not requests:
+            return {"utility": 0.0, "accuracy": 0.0, "violations": 0, "count": 0}
+        from repro_torch.core.sneakpeek import attach_sneakpeek
+
+        total_u, total_correct, violations, count = 0.0, 0.0, 0, 0
+        for w, batch in self._window_batches(requests, horizon_s):
+            # SneakPeek stage (exactly once per request — the evidence
+            # draw may be stochastic).
+            if self.sneakpeeks:
+                attach_sneakpeek(batch, self.apps, self.sneakpeeks, device=self.device)
+            window_close = (w + 1) * self.window_s
+            carried = self.state.backlog_s(window_close)
+            sched, eff_apps = schedule_window(
+                self.policy, batch, self._eff_apps, window_close,
+                state=self.state, device=self.device,
+            )
+            # The state owns the pool: every timeline (idle or not)
+            # counts toward the logged utilization.
+            res = evaluate(
+                sched, eff_apps, window_close, acc_mode="oracle", state=self.state,
+                device=self.device,
+            )
+            # Sample realized outcomes for accuracy accounting.
+            for e, u in zip(sched.sorted_entries(), res.utilities):
+                r = e.request
+                profile = eff_apps[r.app].model(e.model)
+                p_correct = (
+                    profile.recalls[r.true_label]
+                    if r.true_label is not None
+                    else profile.profiled_accuracy()
+                )
+                correct = self.rng.random() < p_correct
+                total_correct += float(correct)
+                total_u += u
+                if e.est_completion_s > r.deadline_s:
+                    violations += 1
+                count += 1
+            self.log.append(
+                {
+                    "window": w,
+                    "n": len(batch),
+                    "utility": res.mean_utility,
+                    "violations": res.violations,
+                    "overhead_s": sched.scheduling_overhead_s,
+                    "backlog_s": carried,
+                    "utilization": res.utilization,
+                }
+            )
+        return {
+            "utility": total_u / max(1, count),
+            "accuracy": total_correct / max(1, count),
+            "violations": violations,
+            "violation_rate": violations / max(1, count),
+            "count": count,
+        }
