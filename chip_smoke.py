@@ -3,13 +3,22 @@
 
     python3 chip_smoke.py            # the full check, on one card
 
-Builds the port's CUDA kernels from the checkout's sources, holds each
-against its plain PyTorch version at the main path's shapes and times
-both, then drives the main path: a SneakPeek ``Simulation`` over a
-stream of 4096-request windows against k-NN training sets of 100,000
-points per application, plus one window of each other policy.  Every
-check raises on failure.  The last two lines of standard output are the
-kernel table and ``{"ok": true, "device": {...}}``.
+Builds the port's four CUDA kernels from the checkout's sources, holds
+each against its plain PyTorch version at its path's shapes and times
+both, then drives two paths of the port on the card:
+
+* scheduling (phases 3-5): a SneakPeek ``Simulation`` over a stream of
+  4096-request windows against k-NN training sets of 100,000 points per
+  application (K2, K1), plus one window of each other policy;
+* serving (phases 6-9): K3 and K4 against their plain versions, a
+  2-layer float32 model at tinyllama's widths on the card against the
+  host, then ``EdgeServer`` serving 64 requests on tinyllama-1.1b at full
+  width (22 layers, bf16) and a 4-layer variant, SneakPeek over a k-NN
+  model, prefill through K3 and decode through K4.
+
+Every check raises on failure.  The last three lines of standard output
+are the card's name and power limit, the kernel table and
+``{"ok": true, "device": {...}}``.
 
 Imports nothing of the JAX package.  Exits non-zero, printing no
 result, when CUDA is absent or the port's sources are not beside it.
@@ -29,6 +38,7 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12  # CUDA cores, no tensor cores (no TF32)
 FP64_FLOP_PER_S = 34e12  # CUDA cores
+BF16_FLOP_PER_S = 989e12  # tensor cores, dense
 
 
 def parse_args(argv):
@@ -40,6 +50,8 @@ def parse_args(argv):
     p.add_argument("--windows", type=int, default=8, help="windows of the main-path trace")
     p.add_argument("--k", type=int, default=5, help="k-NN neighbours")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--serve-requests", type=int, default=64,
+                   help="requests of the serving main path (phase 9)")
     return p.parse_args(argv)
 
 
@@ -268,6 +280,384 @@ def small_reference_check(seed):
     print("  small window, 5 policies: card decisions == host plain-path decisions")
 
 
+# Tolerances of tests/test_kernels.py:15, by input type.
+ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+
+
+def _close(out, ref, tol: float, what: str) -> float:
+    """max |out - ref|, after requiring finite values and |out - ref| <=
+    tol + tol * |ref| everywhere (assert_allclose with atol = rtol = tol)."""
+    import torch
+
+    require(bool(torch.isfinite(out.float()).all()), f"{what}: non-finite values")
+    diff = (out.float() - ref.float()).abs()
+    bad = int((diff > tol + tol * ref.float().abs()).sum())
+    require(bad == 0, f"{what}: {bad} values outside {tol}")
+    return float(diff.max())
+
+
+def _flash_plain(q, k, v, window):
+    """K3's plain version, model layout in and out."""
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    b, sq, hq, d = q.shape
+    hkv = k.shape[2]
+    qk = q.reshape(b, sq, hkv, hq // hkv, d).permute(0, 2, 3, 1, 4)
+    out = flash_attention_ref(qk, k.transpose(1, 2), v.transpose(1, 2), window=window)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, d)
+
+
+def _decode_plain(q, k, v, lengths, window):
+    """K4's plain version, model layout in and out."""
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+
+    b, _, hq, d = q.shape
+    hkv = k.shape[2]
+    out = decode_attention_ref(q.reshape(b, hkv, hq // hkv, d), k.transpose(1, 2),
+                               v.transpose(1, 2), lengths, window=window)
+    return out.reshape(b, 1, hq, d)
+
+
+def check_flash(seed):
+    """K3 against its plain version: the sweep of tests/test_kernels.py:22
+    in f32 and bf16, then the serving shape, timed."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 6)
+    sweep = [(2, 128, 4, 4, 32, 0), (1, 256, 8, 2, 64, 0), (2, 96, 4, 1, 32, 0),
+             (1, 256, 4, 2, 32, 64), (1, 130, 2, 2, 16, 32)]
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        errs = []
+        for b, s, hq, hkv, d, window in sweep:
+            q = torch.randn((b, s, hq, d), generator=gen, device="cuda").to(dtype)
+            k, v = (torch.randn((b, s, hkv, d), generator=gen, device="cuda").to(dtype)
+                    for _ in range(2))
+            out = flash_ops.flash_attention(q, k, v, window=window)
+            errs.append(_close(out, _flash_plain(q, k, v, window), ATTN_TOL[name],
+                               f"K3 {name} {(b, s, hq, hkv, d, window)}"))
+        print(f"  K3 {name}: 5 configurations of tests/test_kernels.py within "
+              f"{ATTN_TOL[name]}, max |d| {max(errs):.3g}")
+
+    b, s, hq, hkv, d = 8, 1024, 32, 4, 64
+    q = torch.randn((b, s, hq, d), generator=gen, device="cuda").to(torch.bfloat16)
+    k, v = (torch.randn((b, s, hkv, d), generator=gen, device="cuda").to(torch.bfloat16)
+            for _ in range(2))
+    out = flash_ops.flash_attention(q, k, v)
+    err = _close(out, _flash_plain(q, k, v, 0), ATTN_TOL["bfloat16"], "K3 serving shape")
+    call = lambda: flash_ops.flash_attention(q, k, v)  # noqa: E731
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+    def library():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+
+    torch.testing.assert_close(library().transpose(1, 2).float(), out.float(),
+                               atol=ATTN_TOL["bfloat16"], rtol=ATTN_TOL["bfloat16"])
+    flops = 2 * b * hq * s * s * d  # causal: half of QK^T and PV over the square
+    bytes_moved = 2 * (2 * b * s * hq * d + 2 * b * s * hkv * d)
+    t = {
+        "ms": device_ms(call, "flash_attention", iters=10),
+        "call_ms": timed_ms(call, iters=10),
+        "plain_ms": timed_ms(lambda: _flash_plain(q, k, v, 0), iters=3, warmup=1),
+        "library_ms": timed_ms(library, iters=10),
+        "bound_ms": max(flops / BF16_FLOP_PER_S, bytes_moved / HBM_BYTES_PER_S) * 1e3,
+        "bound_by": ("operations" if flops / BF16_FLOP_PER_S > bytes_moved / HBM_BYTES_PER_S
+                     else "bytes"),
+        "max_abs_err": err,
+        "shape": f"B={b} S={s} Hq={hq} Hkv={hkv} D={d} bf16 causal",
+    }
+    print(f"  K3 serving shape {t['shape']}: max |d| {err:.3g} (tolerance 2e-2); "
+          "SDPA agrees within 2e-2")
+    return t
+
+
+def check_decode(seed):
+    """K4 against its plain version: the sweep of tests/test_kernels.py:65
+    in f32 and bf16, then the serving shape with mixed lengths, timed."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention import ops as decode_ops
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 7)
+    sweep = [(2, 2, 4, 256, 32, 0), (3, 1, 8, 300, 64, 0), (2, 4, 1, 128, 32, 0),
+             (2, 2, 2, 256, 32, 64)]
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        errs = []
+        for b, hkv, g, s, d, window in sweep:
+            q = torch.randn((b, 1, hkv * g, d), generator=gen, device="cuda").to(dtype)
+            k, v = (torch.randn((b, s, hkv, d), generator=gen, device="cuda").to(dtype)
+                    for _ in range(2))
+            lengths = torch.randint(max(window, 1), s + 1, (b,), generator=gen, device="cuda",
+                                    dtype=torch.int32)
+            out = decode_ops.decode_attention(q, k, v, lengths, window=window)
+            errs.append(_close(out, _decode_plain(q, k, v, lengths, window), ATTN_TOL[name],
+                               f"K4 {name} {(b, hkv, g, s, d, window)}"))
+        print(f"  K4 {name}: 4 configurations of tests/test_kernels.py within "
+              f"{ATTN_TOL[name]}, max |d| {max(errs):.3g}")
+
+    b, hkv, g, d, s = 8, 4, 8, 64, 1040
+    q = torch.randn((b, 1, hkv * g, d), generator=gen, device="cuda").to(torch.bfloat16)
+    k, v = (torch.randn((b, s, hkv, d), generator=gen, device="cuda").to(torch.bfloat16)
+            for _ in range(2))
+    lengths = torch.tensor([1040, 129, 700, 1024, 300, 1039, 512, 890], dtype=torch.int32,
+                           device="cuda")
+    out = decode_ops.decode_attention(q, k, v, lengths)
+    err = _close(out, _decode_plain(q, k, v, lengths, 0), ATTN_TOL["bfloat16"],
+                 "K4 serving shape")
+    call = lambda: decode_ops.decode_attention(q, k, v, lengths)  # noqa: E731
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    mask = (torch.arange(s, device="cuda")[None, :] < lengths[:, None])[:, None, None, :]
+
+    def library():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)
+
+    torch.testing.assert_close(library().transpose(1, 2).float(), out.float(),
+                               atol=ATTN_TOL["bfloat16"], rtol=ATTN_TOL["bfloat16"])
+    valid = int(lengths.sum())
+    bytes_moved = 2 * (2 * valid * hkv * d + 2 * b * hkv * g * d) + 4 * b
+    flops = 4 * valid * hkv * g * d
+    t = {
+        "ms": device_ms(call, "decode_", iters=50),
+        "call_ms": timed_ms(call, iters=50),
+        "plain_ms": timed_ms(lambda: _decode_plain(q, k, v, lengths, 0), iters=10),
+        "library_ms": timed_ms(library, iters=50),
+        "bound_ms": max(flops / BF16_FLOP_PER_S, bytes_moved / HBM_BYTES_PER_S) * 1e3,
+        "bound_by": ("operations" if flops / BF16_FLOP_PER_S > bytes_moved / HBM_BYTES_PER_S
+                     else "bytes"),
+        "max_abs_err": err,
+        "shape": f"B={b} Hkv={hkv} G={g} D={d} S={s} bf16 lengths={lengths.tolist()}",
+    }
+    print(f"  K4 serving shape {t['shape']}: max |d| {err:.3g} (tolerance 2e-2); "
+          "SDPA agrees within 2e-2")
+    return t
+
+
+def check_model_card_vs_host(seed):
+    """A 2-layer float32 model at tinyllama's widths, one set of weights:
+    prefill and 4 decode steps on the card (K3, K4) against the host
+    (plain versions).  Tolerance 1e-3: float32 sums over d_model 2048 and
+    d_ff 5632 taken in other orders, two layers deep."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import LM
+
+    tol = 1e-3
+    require(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on for float32 matmuls")
+    cfg = dataclasses.replace(ARCHS["tinyllama-1.1b"], num_layers=2, dtype="float32")
+    lm = LM(cfg)
+    card = lm.init(seed=seed, device="cuda")
+    host = LM(cfg).init(seed=seed, device="cuda").to("cpu")
+    tokens = torch.randint(0, cfg.vocab_size, (2, 77),
+                           generator=torch.Generator().manual_seed(seed))
+    steps = 4
+    lc, cc = lm.prefill(card, tokens.cuda(), max_len=tokens.shape[1] + steps)
+    lh, ch = lm.prefill(host, tokens, max_len=tokens.shape[1] + steps)
+    errs, checked = [], 0
+    for step in range(steps + 1):
+        lc_host = lc.cpu()
+        errs.append(_close(lc_host, lh, tol, f"model logits, step {step}"))
+        top2 = torch.topk(lh, 2, dim=-1).values
+        clear = (top2[:, 0] - top2[:, 1]) > tol
+        require(torch.equal(lc_host.argmax(-1)[clear], lh.argmax(-1)[clear]),
+                f"greedy tokens differ at step {step}")
+        checked += int(clear.sum())
+        if step < steps:
+            tok = lh.argmax(dim=-1, keepdim=True)
+            lc, cc = lm.decode_step(card, cc, tok.cuda())
+            lh, ch = lm.decode_step(host, ch, tok)
+    for name in ("k", "v"):
+        errs.append(_close(cc["layers"][1][name].cpu(), ch["layers"][1][name], tol,
+                           f"cache {name}"))
+    print(f"  tinyllama widths, 2 layers, f32: prefill of 2 x 77 tokens and {steps} decode "
+          f"steps, logits and caches within {tol} (max |d| {max(errs):.3g}); greedy tokens "
+          f"equal on the {checked} of {2 * (steps + 1)} picks with a top-2 margin over {tol}")
+    del card, host
+
+
+def _two_class_set(rng, n, dim, sep):
+    """n points of two Gaussian classes, unit variance, centres at -sep and
+    +sep in every one of ``dim`` coordinates."""
+    import numpy as np
+
+    labels = rng.integers(0, 2, n)
+    centres = np.stack([np.full(dim, -sep), np.full(dim, sep)])
+    return (centres[labels] + rng.normal(size=(n, dim))).astype(np.float32), labels
+
+
+def serve_main_path(args):
+    """Phase 9: ``EdgeServer`` serving tinyllama-1.1b at full width and a
+    4-layer variant; returns the launch counts of the served run."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import kernels
+    from repro_torch.configs import ARCHS
+    from repro_torch.core.scheduler import make_policy
+    from repro_torch.core.sneakpeek import KNNSneakPeek
+    from repro_torch.core.types import Application, Request
+    from repro_torch.serving.backends import ProfiledBackend
+    from repro_torch.serving.runtime import LMExecutor
+    from repro_torch.serving.server import EdgeServer
+
+    full = ARCHS["tinyllama-1.1b"]
+    variants = {
+        "tinyllama-1.1b": (full, 0),
+        "tinyllama-1.1b-4l": (dataclasses.replace(full, name="tinyllama-1.1b-4l",
+                                                  num_layers=4), 1),
+    }
+    # Recalls as examples/edge_serving.py gives them: tinyllama's, and
+    # mamba2-130m's for the smaller variant.
+    recalls = {"tinyllama-1.1b": [0.84, 0.82], "tinyllama-1.1b-4l": [0.72, 0.70]}
+    new_tokens = 16
+    vocab = full.vocab_size
+
+    def prompt_fn(req):
+        rng = np.random.default_rng(req.rid)
+        return rng.integers(0, vocab, int(rng.integers(128, 1025))).astype(np.int32)
+
+    t0 = time.perf_counter()
+    warm = np.random.default_rng(args.seed).integers(0, vocab, (8, 512)).astype(np.int32)
+    # A first batch pays one-time costs (library initialisation, lazily
+    # loaded kernels): warm up on one backend, fit the profiles on another
+    # serving the same weights (LM.init draws them from per-path seeds).
+    warmup = ProfiledBackend(variants, new_tokens=new_tokens, device="cuda")
+    backend = ProfiledBackend(variants, new_tokens=new_tokens, device="cuda")
+    for b in (warmup, backend):
+        for name in variants:
+            for bsz in (1, 8):
+                b.run_batch(name, warm[:bsz], list(range(bsz)))
+    del warmup
+    profiles = [backend.profile(name, recalls[name]) for name in variants]
+    for p in profiles:
+        fixed, per_item = p.latency_model
+        print(f"  profile {p.name}: {fixed:.6f} s + {per_item:.6f} s per request "
+              f"(512-token prompts, {new_tokens} new tokens), weights "
+              f"{p.memory_bytes / 1e9:.3f} GB, load {p.load_latency_s:.6f} s")
+    print(f"    set-up (weights on the card, warm-up batches) {time.perf_counter() - t0:.2f} s")
+
+    rng = np.random.default_rng(args.seed + 9)
+    train_x, train_y = _two_class_set(rng, 20_000, 32, 0.25)
+    sneak = KNNSneakPeek(train_x, train_y, 2, k=args.k, device="cuda")
+
+    def trace(rid0):
+        trng = np.random.default_rng(args.seed + 10)
+        feats, labels = _two_class_set(trng, args.serve_requests, 32, 0.25)
+        slack = trng.choice([0.2, 0.5, 1.0], size=args.serve_requests)
+        return [Request(rid=rid0 + i, app="assistant", arrival_s=0.01 * i,
+                        deadline_s=0.01 * i + float(slack[i]), features=feats[i],
+                        true_label=int(labels[i]))
+                for i in range(args.serve_requests)]
+
+    def serve(models, reqs):
+        app = Application(name="assistant", models=models, penalty="sigmoid")
+        server = EdgeServer({"assistant": app}, make_policy("SneakPeek"),
+                            executor=LMExecutor(backend=backend),
+                            sneakpeeks={"assistant": sneak}, prompt_fn=prompt_fn,
+                            device="cuda")
+        t = time.perf_counter()
+        outs, stats = server.run(reqs)
+        torch.cuda.synchronize()
+        return outs, stats, time.perf_counter() - t
+
+    def counted(models, reqs):
+        """Serve with every launch count set to 0 just before; check the
+        outputs and that K3 ran once per layer of every batch's prefill and
+        K4 once per layer of each of its decode steps."""
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        outs, stats, wall = serve(models, reqs)
+        launches = kernels.launch_counts()
+        reports = [r for o in outs for r in (o["reports"] or [])]
+        layers = {name: cfg.num_layers for name, (cfg, _) in variants.items()}
+        want_flash = sum(layers[r.model] for r in reports)
+        want_decode = sum(layers[r.model] * (new_tokens - 1) for r in reports)
+        prefill_s = sum(r.prefill_s for r in reports)
+        decode_s = sum(r.decode_s for r in reports)
+        tokens = sum(r.tokens.size for r in reports)
+        by_model = {name: sum(r.batch_size for r in reports if r.model == name)
+                    for name in variants}
+        print(f"    windows={stats.windows} requests={stats.requests} "
+              f"mean_utility={stats.mean_utility:.6f} violations={stats.violations} "
+              f"swaps={stats.swaps} batches={len(reports)} requests per model {by_model}")
+        print(f"    prefill {prefill_s:.6f} s, decode {decode_s:.6f} s, {tokens} tokens "
+              f"generated, {tokens / (prefill_s + decode_s):.1f} tokens/s over execution; "
+              f"wall {wall:.3f} s (scheduling {stats.sched_wall_s:.6f} s)")
+        print("    batches (model, size, prefill s, decode s): " + " ".join(
+            f"({r.model.removeprefix('tinyllama-1.1b') or 'full'}, {r.batch_size}, "
+            f"{r.prefill_s:.4f}, {r.decode_s:.4f})" for r in reports))
+        print(f"    launches: {launches}")
+        require(stats.requests == len(reqs), "not every request was served")
+        require(sum(by_model.values()) == len(reqs), "a request ran on no model")
+        require(0.0 <= stats.mean_utility <= 1.0, f"mean utility {stats.mean_utility}")
+        for r in reports:
+            require(r.tokens.shape == (r.batch_size, new_tokens), f"tokens {r.tokens.shape}")
+            require(bool(((r.tokens >= 0) & (r.tokens < vocab)).all()),
+                    "token outside the vocab")
+        require(launches.get("flash_attention", 0) == want_flash,
+                f"flash_attention launched {launches.get('flash_attention')} times, "
+                f"expected {want_flash}")
+        require(launches.get("decode_attention", 0) == want_decode,
+                f"decode_attention launched {launches.get('decode_attention')} times, "
+                f"expected {want_decode}")
+        require(launches.get("knn_topk", 0) > 0, "serving launched no k-NN kernel")
+        require(launches.get("utility_scores", 0) > 0, "serving launched no utility kernel")
+        return launches, by_model
+
+    launches, _ = counted(profiles, trace(0))
+    # The policy may route every request to the 4-layer variant when the
+    # full one's measured latency misses the deadlines; the same traffic
+    # with the full-width variant alone serves every request at 22 layers.
+    print("    the same traffic, tinyllama-1.1b (22 layers) the only variant:")
+    _, by_model = counted(profiles[:1], trace(20_000))
+    require(by_model["tinyllama-1.1b"] == args.serve_requests,
+            "the full-width variant did not serve every request")
+
+    # The same traffic again under the profiler: the card's busy share.
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _, _, traced_wall = serve(profiles, trace(10_000))
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    busy_us, end = 0.0, float("-inf")
+    for lo, hi in spans:
+        lo = max(lo, end)
+        if hi > lo:
+            busy_us += hi - lo
+        end = max(end, hi)
+    busy = busy_us / 1e6 / traced_wall
+    by_kind, by_name = {}, {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        name = e.name
+        low = name.lower()
+        kind_ = next((k for k, keys in (
+            ("flash_attention", ("flash_attention",)), ("decode_attention", ("decode_",)),
+            ("knn", ("knn_",)), ("utility", ("utility_",)),
+            ("matmul", ("nvjet", "gemm", "cutlass", "xmma")), ("copy", ("memcpy", "memset")),
+        ) if any(key in low for key in keys)), "other")
+        us = e.time_range.elapsed_us()
+        by_kind[kind_] = by_kind.get(kind_, 0.0) + us / 1e6
+        by_name[name[:60]] = by_name.get(name[:60], 0.0) + us / 1e6
+    print(f"    under torch.profiler: wall {traced_wall:.3f} s, card busy {busy_us / 1e6:.6f} s "
+          f"({100 * busy:.2f} %); device seconds by kind: "
+          + ", ".join(f"{k} {v:.6f}" for k, v in sorted(by_kind.items(), key=lambda x: -x[1])))
+    top = sorted(by_name.items(), key=lambda x: -x[1])[:8]
+    print("    top kernels: " + "; ".join(f"{n} {v:.6f} s" for n, v in top))
+    return launches
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
     import torch
@@ -381,26 +771,43 @@ def main(argv=None) -> int:
               f"violations={res.result.violations} sched={res.overhead_s:.4f} s "
               f"wall={time.perf_counter() - t0:.3f} s launches={kernels.launch_counts()}")
 
-    table = {"kernels": [
-        {"name": "knn_topk", "route": "cuda",
-         "source": "src/repro_torch/kernels/knn/csrc/knn.cu",
-         "replaces": "src/repro/kernels/knn/kernel.py:92",
-         "launches": launches["knn_topk"], "max_abs_err": knn_t["max_abs_err"],
-         "ms": knn_t["ms"], "plain_ms": knn_t["plain_ms"], "bound_ms": knn_t["bound_ms"],
-         "bound_by": knn_t["bound_by"], "library_ms": knn_t["library_ms"],
-         "shape": knn_t["shape"]},
-        {"name": "utility_scores", "route": "cuda",
-         "source": "src/repro_torch/kernels/utility/csrc/utility.cu",
-         "replaces": "src/repro/kernels/utility/kernel.py:56",
-         "launches": launches["utility_scores"], "max_abs_err": util_t["max_abs_err"],
-         "ms": util_t["ms"], "plain_ms": util_t["plain_ms"], "bound_ms": util_t["bound_ms"],
-         "bound_by": util_t["bound_by"], "library_ms": util_t["library_ms"],
-         "shape": util_t["shape"]},
-    ]}
     for t, name in ((knn_t, "knn_topk"), (util_t, "utility_scores")):
         print(f"    {name} at {t['shape']}: kernel {t['ms']:.6f} ms on the device, "
               f"{t['call_ms']:.6f} ms per wrapper call back to back, plain "
               f"{t['plain_ms']:.6f} ms, bound {t['bound_ms']:.6f} ms ({t['bound_by']})")
+    print(f"    phases 1-5 {time.perf_counter() - t_start:.1f} s")
+
+    print("[6] prefill flash-attention kernel (K3) against its plain version")
+    flash_t = check_flash(args.seed)
+    print("[7] flash-decode kernel (K4) against its plain version")
+    decode_t = check_decode(args.seed)
+    for t, name in ((flash_t, "flash_attention"), (decode_t, "decode_attention")):
+        print(f"    {name} at {t['shape']}: kernel {t['ms']:.6f} ms on the device, "
+              f"{t['call_ms']:.6f} ms per wrapper call back to back, plain "
+              f"{t['plain_ms']:.6f} ms, SDPA {t['library_ms']:.6f} ms, bound "
+              f"{t['bound_ms']:.6f} ms ({t['bound_by']})")
+    print("[8] whole model, card against host")
+    check_model_card_vs_host(args.seed)
+    print(f"[9] serving main path: EdgeServer, SneakPeek, {args.serve_requests} requests on "
+          "tinyllama-1.1b (22 layers, bf16) and a 4-layer variant")
+    serve_launches = serve_main_path(args)
+
+    rows = [
+        ("knn_topk", "knn/csrc/knn.cu", "knn/kernel.py:92", launches, knn_t),
+        ("utility_scores", "utility/csrc/utility.cu", "utility/kernel.py:56", launches, util_t),
+        ("flash_attention", "flash_attention/csrc/flash_attention.cu",
+         "flash_attention/kernel.py:89", serve_launches, flash_t),
+        ("decode_attention", "decode_attention/csrc/decode_attention.cu",
+         "decode_attention/kernel.py:71", serve_launches, decode_t),
+    ]
+    table = {"kernels": [
+        {"name": name, "route": "cuda", "source": f"src/repro_torch/kernels/{source}",
+         "replaces": f"src/repro/kernels/{replaces}", "launches": counts[name],
+         "max_abs_err": t["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
+         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+         "shape": t["shape"]}
+        for name, source, replaces, counts, t in rows
+    ]}
     print(f"    total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps(table))

@@ -2,10 +2,11 @@
 
 The JAX package (``repro``) is the reference; this package imports
 nothing of it and mirrors its module layout (``core``, ``data``,
-``kernels``).  Batched math runs as torch tensors on an explicit device,
-the card unless a caller names the CPU (``device.resolve_device``); the
-k-NN search and the Eq. 2 utility tiles are hand-written CUDA kernels
-(``kernels/knn/csrc/knn.cu``, ``kernels/utility/csrc/utility.cu``).
+``configs``, ``models``, ``serving``, ``kernels``).  Batched math runs as
+torch tensors on an explicit device, the card unless a caller names the
+CPU (``device.resolve_device``).  The k-NN search, the Eq. 2 utility
+tiles, prefill attention and decode attention are hand-written CUDA
+kernels (``kernels/{knn,utility,flash_attention,decode_attention}/csrc``).
 """
 from repro_torch.device import KNN_DTYPE, SCHED_DTYPE, resolve_device
 

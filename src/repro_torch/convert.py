@@ -1,9 +1,10 @@
 """State carried between the JAX package and the port, as plain arrays.
 
-This system's "weights" are the application tables (per-class recalls,
-latencies, sizes, priors) and the SneakPeek training sets.  The
-``*_to_arrays`` functions read them from any object with the reference's
-attributes — a ``repro`` object or a ``repro_torch`` one — into numpy
+The scheduler's "weights" are the application tables (per-class
+recalls, latencies, sizes, priors) and the SneakPeek training sets; the
+served language models' are their parameter trees.  The ``*_to_arrays``
+functions read them from any object with the reference's attributes or
+layout — a ``repro`` object or a ``repro_torch`` one — into numpy
 arrays; the ``*_from_arrays`` functions build the port's objects from
 them, so both sides compute on identical state.
 """
@@ -12,17 +13,23 @@ from __future__ import annotations
 from typing import Sequence
 
 import numpy as np
+import torch
 
 from repro_torch.core.accuracy import ModelProfile
 from repro_torch.core.dirichlet import DirichletPrior
 from repro_torch.core.sneakpeek import KNNSneakPeek
 from repro_torch.core.types import Application
+from repro_torch.device import resolve_device
+from repro_torch.models.kvcache import model_dtype
+from repro_torch.models.transformer import TransformerParams
 
 __all__ = [
     "application_to_arrays",
     "application_from_arrays",
     "knn_sneakpeek_to_arrays",
     "knn_sneakpeek_from_arrays",
+    "lm_params_to_arrays",
+    "lm_params_from_arrays",
 ]
 
 
@@ -106,3 +113,35 @@ def knn_sneakpeek_from_arrays(train_x, train_y, hold_x, hold_y, num_classes: int
     ``device`` (the card unless ``"cpu"`` is named)."""
     return KNNSneakPeek.from_split(train_x, train_y, hold_x, hold_y, num_classes,
                                    k=k, name=name, device=device)
+
+
+def _tree_map(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _tree_map(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tree_map(v, fn) for v in tree]
+    return fn(tree)
+
+
+def lm_params_from_arrays(cfg, tree, device=None) -> TransformerParams:
+    """The port's weights from the reference's parameter tree.
+
+    ``tree`` is ``repro``'s ``LM.init`` layout with numpy (or any
+    array-like) leaves: ``{"embed", "blocks": [one stack per pattern
+    position, layers on axis 0], "tail", "final_norm", "lm_head"}``.  The
+    leading layer axis is unstacked into one module per layer; leaves are
+    cast to the config's dtype and placed on ``device`` (the card unless
+    ``"cpu"`` is named)."""
+    dev = resolve_device(device)
+    dtype = model_dtype(cfg)
+
+    def leaf(a):  # through float32, which holds a bfloat16 leaf exactly
+        return torch.as_tensor(np.array(a, dtype=np.float32)).to(device=dev, dtype=dtype)
+
+    return TransformerParams(cfg, _tree_map(tree, leaf))
+
+
+def lm_params_to_arrays(params: TransformerParams) -> dict:
+    """The reference's parameter tree of the port's weights, as float32
+    numpy arrays (the inverse of ``lm_params_from_arrays``)."""
+    return _tree_map(params.to_tree(), lambda t: t.detach().float().cpu().numpy())

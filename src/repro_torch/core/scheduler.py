@@ -166,11 +166,12 @@ NOT_PORTED: dict[str, str] = {
 }
 
 
-def not_ported(option: str):
-    """Raise for a reference option this port does not have yet."""
+def not_ported(option: str, table: Mapping[str, str] = NOT_PORTED):
+    """Raise for a reference option this port does not have yet; ``table``
+    maps each option to its ROADMAP item (the scheduler's by default)."""
     raise NotImplementedError(
         f"{option!r} is not ported to repro_torch yet: see ROADMAP.md, "
-        f"'Modules to port', {NOT_PORTED[option]}"
+        f"'Modules to port', {table[option]}"
     )
 
 

@@ -1,0 +1,104 @@
+"""Wrapper of the flash-decode kernel (K4), the port of
+``repro.kernels.decode_attention.ops``.
+
+Model layout in and out: q (B, 1, Hq, D), caches (B, S, Hkv, D),
+``lengths`` (B,) int32 valid positions per row.  Tensors on the CPU take
+the plain version (``ref.py``, in the kernel's layout); CUDA tensors
+launch ``csrc/decode_attention.cu`` (the split-cache pass and, with more
+than one slice, its combine pass) on the current stream, or raise.
+There is no other route.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import LaunchCounter, nvcc
+from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+from repro_torch.kernels.flash_attention.ops import DTYPES, HEAD_DIMS
+
+__all__ = ["decode_attention", "counter", "MAX_GROUP"]
+
+counter = LaunchCounter("decode_attention")
+
+MAX_GROUP = 32  # query heads per KV head held in shared memory
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+def _check_args(q, k_cache, v_cache, lengths, window):
+    if q.ndim != 4 or q.shape[1] != 1 or k_cache.ndim != 4 or k_cache.shape != v_cache.shape:
+        raise ValueError(f"q (B, 1, Hq, D), caches (B, S, Hkv, D): got {tuple(q.shape)}, "
+                         f"{tuple(k_cache.shape)}, {tuple(v_cache.shape)}")
+    b, _, hq, d = q.shape
+    _, _, hkv, dk = k_cache.shape
+    if k_cache.shape[0] != b or dk != d or hkv == 0 or hq % hkv:
+        raise ValueError(f"q {tuple(q.shape)} and caches {tuple(k_cache.shape)} disagree")
+    if lengths.shape != (b,) or lengths.dtype != torch.int32:
+        raise ValueError(f"lengths must be ({b},) int32, got {tuple(lengths.shape)} "
+                         f"{lengths.dtype}")
+    if window < 0:
+        raise ValueError(f"window must be >= 0, got {window}")
+    for name, t in (("k_cache", k_cache), ("v_cache", v_cache)):
+        if t.dtype != q.dtype:
+            raise TypeError(f"{name} is {t.dtype}, q is {q.dtype}")
+    for name, t in (("k_cache", k_cache), ("v_cache", v_cache), ("lengths", lengths)):
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+
+
+def decode_attention(q, k_cache, v_cache, lengths, *, window: int = 0, scale=None):
+    """One query token per row against its cache, (B, 1, Hq, D).
+
+    ``lengths[b]`` (at most S) positions of row b are valid; the new
+    token's K/V must already be written at ``lengths[b] - 1``."""
+    _check_args(q, k_cache, v_cache, lengths, window)
+    b, _, hq, d = q.shape
+    s, hkv = k_cache.shape[1], k_cache.shape[2]
+    g = hq // hkv
+    scale = d ** -0.5 if scale is None else float(scale)
+    if q.device.type == "cpu":
+        out = decode_attention_ref(q.reshape(b, hkv, g, d), k_cache.transpose(1, 2),
+                                   v_cache.transpose(1, 2), lengths, window=window,
+                                   scale=scale)
+        return out.reshape(b, 1, hq, d)
+    if q.device.type != "cuda":
+        raise ValueError(f"decode_attention runs on CUDA or the CPU, not {q.device}")
+    if q.dtype not in DTYPES:
+        raise TypeError(f"the flash-decode kernel takes float32 or bfloat16, got {q.dtype}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"the flash-decode kernel takes D in {HEAD_DIMS}, got {d}")
+    if g > MAX_GROUP:
+        raise ValueError(f"the flash-decode kernel takes G <= {MAX_GROUP}, got {g}")
+    for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache),
+                    ("lengths", lengths)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    lib = nvcc.library("decode_attention")
+    lib.decode_split_count.argtypes = [_I, _I, _I, _I]
+    lib.decode_split_count.restype = _I
+    fn = lib.decode_attention_fwd
+    fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                   ctypes.c_float, _I, _P]
+    fn.restype = _I
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    splits = lib.decode_split_count(b, hkv, s, sms)
+    out = torch.empty_like(q)
+    part_m = part_l = part_acc = None
+    if splits > 1:  # per-slice (m, l, acc), combined by the second kernel
+        part_m = torch.empty((b * hq, splits), dtype=torch.float32, device=q.device)
+        part_l = torch.empty_like(part_m)
+        part_acc = torch.empty((b * hq, splits, d), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lengths.data_ptr(),
+                 out.data_ptr(),
+                 None if part_m is None else part_m.data_ptr(),
+                 None if part_l is None else part_l.data_ptr(),
+                 None if part_acc is None else part_acc.data_ptr(),
+                 DTYPES[q.dtype], b, s, hkv, g, d, window, scale, splits, stream)
+    counter.add()
+    nvcc.check(lib, err, "decode_attention")
+    return out

@@ -55,6 +55,12 @@ SOURCES: dict[str, Source] = {
     "utility": Source(
         "utility", _KERNELS_DIR / "utility" / "csrc" / "utility.cu", ("--fmad=false",)
     ),
+    "flash_attention": Source(
+        "flash_attention", _KERNELS_DIR / "flash_attention" / "csrc" / "flash_attention.cu"
+    ),
+    "decode_attention": Source(
+        "decode_attention", _KERNELS_DIR / "decode_attention" / "csrc" / "decode_attention.cu"
+    ),
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

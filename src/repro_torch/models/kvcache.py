@@ -1,0 +1,47 @@
+"""Decode caches: preallocated tensors, one (k, v) pair per layer.
+
+The counterpart of ``repro.models.kvcache``.  The reference's cache
+mirrors its stacked parameter tree (one stacked array per pattern
+position plus a tail); the port keeps a list with one ``{"k", "v"}``
+dict of (B, max_len, Hkv, Dh) tensors per layer, in layer order, and the
+position as a Python int.  Decode writes each new token's K/V into these
+tensors IN PLACE (``models.attention.attn_decode``), where the reference
+builds new arrays with ``dynamic_update_slice``.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.models.blocks import cache_spec
+
+__all__ = ["init_cache", "cache_bytes", "model_dtype"]
+
+
+def model_dtype(cfg) -> torch.dtype:
+    """The activation, weight and cache type of a config."""
+    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+def init_cache(cfg, batch: int, max_len: int, start_pos: int = 0, device=None) -> dict:
+    """Zero caches for every layer on ``device`` (the card unless ``"cpu"``),
+    ``{"layers": [{"k": ..., "v": ...}, ...], "pos": start_pos}``."""
+    dev = resolve_device(device)
+    layers = []
+    for i in range(cfg.num_layers):
+        tpl = cache_spec(cfg, cfg.layer_kind(i), batch, max_len)
+        layers.append({name: torch.zeros(shape, dtype=dtype, device=dev)
+                       for name, (shape, dtype) in tpl.items()})
+    return {"layers": layers, "pos": int(start_pos)}
+
+
+def cache_bytes(cfg, batch: int, max_len: int) -> int:
+    """Bytes of the caches, plus the reference's 4-byte int32 position."""
+    total = 4
+    for i in range(cfg.num_layers):
+        for shape, dtype in cache_spec(cfg, cfg.layer_kind(i), batch, max_len).values():
+            n = 1
+            for s in shape:
+                n *= s
+            total += n * dtype.itemsize
+    return total

@@ -1,0 +1,162 @@
+"""Full-model assembly: embed -> layers -> final norm -> logits.
+
+The counterpart of ``repro.models.transformer``.  The reference scans
+its layers over parameters stacked on a leading "layers" axis (one
+stack per pattern position, plus unrolled tail layers); the port holds
+one module per layer in a ``ModuleList``, in layer order, and runs them
+in a Python loop.  ``TransformerParams`` converts between the two: it is
+built from a tree in the reference's stacked layout and gives one back
+(``to_tree``).
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.models import blocks
+from repro_torch.models.kvcache import model_dtype
+from repro_torch.models.layers import (
+    embed_spec,
+    embed_tokens,
+    logits_from_embed,
+    rmsnorm,
+    rmsnorm_spec,
+)
+from repro_torch.models.spec import P, stack
+
+__all__ = ["model_spec", "TransformerParams", "forward", "prefill", "decode_step"]
+
+
+def model_spec(cfg) -> dict:
+    """The reference's parameter tree (``repro.models.transformer.model_spec``)."""
+    spec: dict = {"embed": embed_spec(cfg.vocab_size, cfg.d_model)}
+    spec["blocks"] = [
+        stack(blocks.block_spec(cfg, kind), cfg.n_periods) for kind in cfg.pattern
+    ]
+    spec["tail"] = [
+        blocks.block_spec(cfg, cfg.layer_kind(cfg.n_periods * cfg.period + i))
+        for i in range(cfg.n_tail)
+    ]
+    spec["final_norm"] = rmsnorm_spec(cfg.d_model)
+    if not cfg.tie_embeddings:
+        spec["lm_head"] = P((cfg.vocab_size, cfg.d_model), ("vocab", "embed"), init="small")
+    return spec
+
+
+def _module(tree: dict) -> nn.Module:
+    """A module whose attributes are the tree's keys: sub-dicts become
+    submodules, tensors frozen parameters."""
+    m = nn.Module()
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            m.add_module(key, _module(val))
+        else:
+            m.register_parameter(key, nn.Parameter(val, requires_grad=False))
+    return m
+
+
+def _tensors(m: nn.Module) -> dict:
+    out = {name: p.data for name, p in m.named_parameters(recurse=False)}
+    out.update({name: _tensors(child) for name, child in m.named_children()})
+    return out
+
+
+def _map(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
+class TransformerParams(nn.Module):
+    """The weights of one LM: ``embed``, ``layers`` (one module per layer),
+    ``final_norm`` and, untied, ``lm_head``."""
+
+    def __init__(self, cfg, tree: dict):
+        super().__init__()
+        self.cfg = cfg
+        self.embed = _module(tree["embed"])
+        self.layers = nn.ModuleList()
+        for i in range(cfg.num_layers):
+            if i < cfg.n_periods * cfg.period:
+                stacked = tree["blocks"][i % cfg.period]
+                layer = _map(stacked, lambda t, p=i // cfg.period: t[p])
+            else:
+                layer = tree["tail"][i - cfg.n_periods * cfg.period]
+            self.layers.append(_module(layer))
+        self.final_norm = _module(tree["final_norm"])
+        if "lm_head" in tree:
+            self.lm_head = nn.Parameter(tree["lm_head"], requires_grad=False)
+        else:
+            self.lm_head = None
+
+    def to_tree(self) -> dict:
+        """The reference's stacked layout (the inverse of the constructor)."""
+        cfg = self.cfg
+        layers = [_tensors(m) for m in self.layers]
+        full = cfg.n_periods * cfg.period
+        tree = {
+            "embed": _tensors(self.embed),
+            "blocks": [_stack_trees(layers[j:full:cfg.period]) for j in range(cfg.period)],
+            "tail": layers[full:],
+            "final_norm": _tensors(self.final_norm),
+        }
+        if self.lm_head is not None:
+            tree["lm_head"] = self.lm_head.data
+        return tree
+
+
+def _stack_trees(trees: list) -> dict:
+    """One tree whose leaves stack the given trees' leaves on a new axis 0."""
+    return {
+        k: _stack_trees([t[k] for t in trees]) if isinstance(v, dict)
+        else torch.stack([t[k] for t in trees])
+        for k, v in trees[0].items()
+    }
+
+
+def _kinds(cfg):
+    return [cfg.layer_kind(i) for i in range(cfg.num_layers)]
+
+
+def _logits(params, cfg, x):
+    table = params.lm_head if params.lm_head is not None else params.embed.embedding
+    return logits_from_embed(table, x, cfg.logit_softcap)
+
+
+def _embed(params, cfg, tokens):
+    x = embed_tokens(params.embed, tokens, scale_by_dim=cfg.embed_scale)
+    return x.to(model_dtype(cfg))
+
+
+def forward(params, tokens, cfg):
+    """Causal LM forward.  tokens: (B, S) int -> logits (B, S, V)."""
+    x = _embed(params, cfg, tokens)
+    for layer, kind in zip(params.layers, _kinds(cfg)):
+        x = blocks.block_full(layer, x, cfg, kind)
+    return _logits(params, cfg, rmsnorm(params.final_norm, x))
+
+
+def prefill(params, tokens, cfg, max_len: int):
+    """Process a full prompt; returns (logits at the last position (B, V),
+    cache) with ``cache = {"layers": [...], "pos": S}``."""
+    x = _embed(params, cfg, tokens)
+    caches = []
+    for layer, kind in zip(params.layers, _kinds(cfg)):
+        x, cache = blocks.block_prefill(layer, x, cfg, kind, max_len)
+        caches.append(cache)
+    x = rmsnorm(params.final_norm, x[:, -1:, :])[:, 0]
+    return _logits(params, cfg, x), {"layers": caches, "pos": int(tokens.shape[1])}
+
+
+def decode_step(params, cache, tokens, cfg):
+    """One decode step.  tokens: (B, 1) int; the cache from ``prefill`` or
+    ``kvcache.init_cache``, written in place and returned with ``pos``
+    advanced.  Returns (logits (B, V), cache)."""
+    pos = cache["pos"]
+    x = _embed(params, cfg, tokens)
+    new_layers = []
+    for layer, c, kind in zip(params.layers, cache["layers"], _kinds(cfg)):
+        x, c = blocks.block_decode(layer, x, c, pos, cfg, kind)
+        new_layers.append(c)
+    x = rmsnorm(params.final_norm, x)
+    return _logits(params, cfg, x[:, -1, :]), {"layers": new_layers, "pos": pos + 1}

@@ -13,6 +13,10 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels.decode_attention import ops as decode_ops
+from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.knn import ops as knn_ops
 from repro_torch.kernels.knn.ref import knn_topk_ref
 from repro_torch.kernels.utility import ops as util_ops
@@ -21,6 +25,9 @@ from repro_torch.kernels.utility.ref import utility_scores_ref
 pytestmark = pytest.mark.cuda
 
 PENALTIES = ["step", "linear", "sigmoid", "none"]
+# The kernels against their plain versions on the card, as
+# tests/test_kernels.py holds the Pallas kernels against their oracles.
+ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
 
 @pytest.fixture
@@ -100,3 +107,133 @@ def test_utility_kernel_matches_plain(cuda, penalty, r, m, shared):
             assert float((mk - mr).abs().max()) <= 1e-6
     u_only, none = util_ops.utility_scores(a, d, e, penalty, with_means=False)
     assert none is None and torch.equal(u_only, uk)
+
+
+# ------------------------------------------------ prefill attention (K3)
+
+
+def _flash_plain(q, k, v, window):
+    """The plain version, model layout in and out."""
+    b, sq, hq, d = q.shape
+    hkv = k.shape[2]
+    qk = q.reshape(b, sq, hkv, hq // hkv, d).permute(0, 2, 3, 1, 4)
+    out = flash_attention_ref(qk, k.transpose(1, 2), v.transpose(1, 2), window=window)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, d)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,d,window", [
+    (2, 128, 128, 4, 4, 32, 0), (1, 256, 256, 8, 2, 64, 0), (2, 96, 96, 4, 1, 32, 0),
+    (1, 256, 256, 4, 2, 32, 64), (1, 130, 130, 2, 2, 16, 32),  # tests/test_kernels.py:22
+    (2, 37, 300, 8, 2, 64, 0), (1, 200, 200, 4, 1, 128, 0), (1, 65, 65, 32, 4, 64, 100),
+    (3, 1, 50, 8, 8, 16, 0),
+])
+def test_flash_attention_kernel_matches_plain(cuda, b, sq, skv, hq, hkv, d, window, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(sq * 1000 + skv)
+    q = torch.randn((b, sq, hq, d), generator=gen, device=cuda).to(dtype)
+    k, v = (torch.randn((b, skv, hkv, d), generator=gen, device=cuda).to(dtype)
+            for _ in range(2))
+    before = flash_ops.counter.count
+    out = flash_ops.flash_attention(q, k, v, window=window)
+    torch.cuda.synchronize()
+    assert flash_ops.counter.count == before + 1
+    ref = _flash_plain(q, k, v, window)
+    assert out.dtype == dtype and out.shape == q.shape
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+
+
+def test_flash_attention_kernel_is_causal(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v = (torch.randn((1, 150, 2, 64), generator=gen, device=cuda) for _ in range(3))
+    out1 = flash_ops.flash_attention(q, k, v)
+    k2, v2 = k.clone(), v.clone()
+    k2[:, 70:] = 999.0
+    v2[:, 70:] = -999.0
+    out2 = flash_ops.flash_attention(q, k2, v2)
+    torch.testing.assert_close(out1[:, :70], out2[:, :70], atol=1e-6, rtol=0)
+
+
+# ---------------------------------------------------------- flash decode (K4)
+
+
+def _decode_plain(q, k, v, lengths, window):
+    b, _, hq, d = q.shape
+    hkv = k.shape[2]
+    out = decode_attention_ref(q.reshape(b, hkv, hq // hkv, d), k.transpose(1, 2),
+                               v.transpose(1, 2), lengths, window=window)
+    return out.reshape(b, 1, hq, d)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,hkv,g,s,d,window", [
+    (2, 2, 4, 256, 32, 0), (3, 1, 8, 300, 64, 0), (2, 4, 1, 128, 32, 0),
+    (2, 2, 2, 256, 32, 64),  # tests/test_kernels.py:65
+    (8, 4, 8, 1040, 64, 0), (1, 1, 16, 5000, 128, 0), (4, 2, 8, 70, 16, 20),
+])
+def test_decode_attention_kernel_matches_plain(cuda, b, hkv, g, s, d, window, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(b * 10000 + s)
+    q = torch.randn((b, 1, hkv * g, d), generator=gen, device=cuda).to(dtype)
+    k, v = (torch.randn((b, s, hkv, d), generator=gen, device=cuda).to(dtype)
+            for _ in range(2))
+    lengths = torch.randint(max(window, 1), s + 1, (b,), generator=gen, device=cuda,
+                            dtype=torch.int32)
+    lengths[0] = s  # one full row
+    before = decode_ops.counter.count
+    out = decode_ops.decode_attention(q, k, v, lengths, window=window)
+    torch.cuda.synchronize()
+    assert decode_ops.counter.count == before + 1
+    ref = _decode_plain(q, k, v, lengths, window)
+    assert out.dtype == dtype and out.shape == q.shape
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+
+
+def test_decode_attention_kernel_respects_lengths(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    q = torch.randn((2, 1, 8, 64), generator=gen, device=cuda)
+    k, v = (torch.randn((2, 700, 2, 64), generator=gen, device=cuda) for _ in range(2))
+    lengths = torch.tensor([333, 1], dtype=torch.int32, device=cuda)
+    out1 = decode_ops.decode_attention(q, k, v, lengths)
+    k2, v2 = k.clone(), v.clone()
+    k2[0, 333:] = 555.0
+    v2[0, 333:] = -555.0
+    k2[1, 1:] = 555.0
+    v2[1, 1:] = -555.0
+    out2 = decode_ops.decode_attention(q, k2, v2, lengths)
+    torch.testing.assert_close(out1, out2, atol=1e-6, rtol=0)
+
+
+# ------------------------------------------------------------- the model
+
+
+def test_lm_on_the_card_matches_the_host(cuda):
+    """A 2-layer float32 model at tinyllama's widths: prefill and decode on
+    the card (K3, K4) against the same weights on the host (plain
+    versions).  Tolerance: float32 sums over d_model 2048 and d_ff 5632 in
+    other orders, two layers deep."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import LM
+
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cfg = dataclasses.replace(ARCHS["tinyllama-1.1b"], num_layers=2, dtype="float32")
+        lm = LM(cfg)
+        params = lm.init(seed=0, device=cuda)
+        host = LM(cfg).init(seed=0, device=cuda).to("cpu")
+        tokens = torch.randint(0, cfg.vocab_size, (2, 45), generator=torch.Generator().manual_seed(0))
+        lc, cc = lm.prefill(params, tokens.to(cuda), max_len=49)
+        lh, ch = lm.prefill(host, tokens, max_len=49)
+        torch.testing.assert_close(lc.cpu(), lh, atol=1e-3, rtol=1e-3)
+        for t in range(4):
+            tok = lh.argmax(dim=-1, keepdim=True)
+            lc, cc = lm.decode_step(params, cc, tok.to(cuda))
+            lh, ch = lm.decode_step(host, ch, tok)
+            torch.testing.assert_close(lc.cpu(), lh, atol=1e-3, rtol=1e-3)
+        torch.testing.assert_close(cc["layers"][1]["k"].cpu(), ch["layers"][1]["k"],
+                                   atol=1e-3, rtol=1e-3)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev

@@ -2,7 +2,9 @@
 
 On the CPU the port's wrappers run their plain PyTorch versions; those are
 held here against the Pallas kernels in interpret mode and against their
-jnp and numpy references, on the shapes of tests/test_kernels.py.  The
+jnp and numpy references, on the shapes of tests/test_kernels.py: K1
+(Eq. 2 utility), K2 (k-NN), K3 (prefill flash attention) and K4 (flash
+decode).  The
 CUDA kernels themselves run only on a card: tests/test_torch_cuda.py
 holds them against these plain versions there.
 """
@@ -11,15 +13,28 @@ import pytest
 import torch
 
 from repro.core.fastpath import sequential_mean, utility_matrix
+from repro.kernels.decode_attention.kernel import decode_attention_pallas
+from repro.kernels.flash_attention.ops import flash_attention as pallas_flash_attention
 from repro.kernels.knn.ops import knn_class_votes, knn_topk
 from repro.kernels.utility.ops import utility_scores as pallas_utility_scores
 from repro_torch.device import resolve_device
+from repro_torch.kernels.decode_attention import ops as decode_ops
+from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.knn import ops as knn_ops
 from repro_torch.kernels.utility import ops as util_ops
 
 PENALTIES = ["step", "linear", "sigmoid", "none"]
 KNN_SHAPES = [(16, 256, 8, 5, 3), (37, 700, 16, 1, 4), (128, 512, 32, 8, 6), (5, 40, 4, 5, 2)]
 UTILITY_SHAPES = [(7, 3), (64, 5), (300, 8)]
+# The sweeps of tests/test_kernels.py: (b, s, hq, hkv, d, window) for K3,
+# (b, hkv, g, s, d, window, block_k) for K4.
+FLASH_SHAPES = [(2, 128, 4, 4, 32, 0), (1, 256, 8, 2, 64, 0), (2, 96, 4, 1, 32, 0),
+                (1, 256, 4, 2, 32, 64), (1, 130, 2, 2, 16, 32)]
+DECODE_SHAPES = [(2, 2, 4, 256, 32, 0, 64), (3, 1, 8, 300, 64, 0, 128),
+                 (2, 4, 1, 128, 32, 0, 32), (2, 2, 2, 256, 32, 64, 64)]
+# f32 agrees with the Pallas kernels up to summation order over at most a
+# few hundred keys; bf16 as tests/test_kernels.py holds its kernels.
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
 
 def _knn_inputs(q, n, d, k, nc):
@@ -155,6 +170,127 @@ def test_utility_without_means_and_bad_inputs():
         util_ops.utility_scores(a, d, e.float(), "linear")
 
 
+# ------------------------------------------------ prefill attention (K3)
+
+
+def _as_jnp(x, dtype):
+    import jax.numpy as jnp
+
+    return jnp.asarray(x, jnp.bfloat16 if dtype == "bfloat16" else jnp.float32)
+
+
+def _port(x, dtype):
+    return torch.as_tensor(np.array(x, np.float32)).to(getattr(torch, dtype))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,hq,hkv,d,window", FLASH_SHAPES)
+def test_flash_plain_matches_pallas(b, s, hq, hkv, d, window, dtype):
+    """The plain version against flash_attention_pallas (interpret mode),
+    model layout in and out, on the inputs rounded to ``dtype``."""
+    rng = np.random.default_rng([b, s, hq, hkv, d, window])
+    q, k, v = (rng.normal(size=(b, s, h, d)) for h in (hq, hkv, hkv))
+    ref = pallas_flash_attention(*(_as_jnp(x, dtype) for x in (q, k, v)), window=window,
+                                 interpret=True, use_kernel=True)
+    out = flash_ops.flash_attention(*(_port(_as_jnp(x, dtype), dtype) for x in (q, k, v)),
+                                    window=window)
+    assert out.dtype == getattr(torch, dtype) and out.shape == (b, s, hq, d)
+    np.testing.assert_allclose(out.float().numpy(), np.asarray(ref, np.float32),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+
+
+def test_flash_plain_causality():
+    """Future keys do not move the output (tests/test_kernels.py:49)."""
+    rng = np.random.default_rng(0)
+    q, k, v = (torch.as_tensor(rng.normal(size=(1, 64, 2, 16)), dtype=torch.float32)
+               for _ in range(3))
+    out1 = flash_ops.flash_attention(q, k, v)
+    k2, v2 = k.clone(), v.clone()
+    k2[:, 40:] = 999.0
+    v2[:, 40:] = -999.0
+    out2 = flash_ops.flash_attention(q, k2, v2)
+    np.testing.assert_allclose(out1[:, :40].numpy(), out2[:, :40].numpy(), atol=1e-6)
+
+
+def test_flash_offset_queries_match_pallas():
+    """Sq < Skv: query i sits at position Skv - Sq + i (kernel.py:42)."""
+    rng = np.random.default_rng(5)
+    q = rng.normal(size=(2, 5, 4, 16))
+    k, v = rng.normal(size=(2, 2, 37, 16)), rng.normal(size=(2, 2, 37, 16))
+    qk = q.reshape(2, 5, 2, 2, 16).transpose(0, 2, 3, 1, 4)
+    from repro.kernels.flash_attention.kernel import flash_attention_pallas
+
+    ref = flash_attention_pallas(*(_as_jnp(x, "float32") for x in (qk, k, v)),
+                                 block_q=16, block_k=16, interpret=True)
+    out = flash_ops.flash_attention(torch.as_tensor(q, dtype=torch.float32),
+                                    torch.as_tensor(k.transpose(0, 2, 1, 3), dtype=torch.float32),
+                                    torch.as_tensor(v.transpose(0, 2, 1, 3), dtype=torch.float32))
+    ref = np.asarray(ref).transpose(0, 3, 1, 2, 4).reshape(2, 5, 4, 16)
+    np.testing.assert_allclose(out.numpy(), ref, atol=TOL["float32"], rtol=TOL["float32"])
+
+
+# ---------------------------------------------------------- flash decode (K4)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,hkv,g,s,d,window,block_k", DECODE_SHAPES)
+def test_decode_plain_matches_pallas(b, hkv, g, s, d, window, block_k, dtype):
+    """The plain version against decode_attention_pallas (interpret mode)
+    with per-row lengths, model layout at the wrapper."""
+    rng = np.random.default_rng([b, hkv, g, s, d, window])
+    q = rng.normal(size=(b, hkv, g, d))
+    k, v = rng.normal(size=(b, hkv, s, d)), rng.normal(size=(b, hkv, s, d))
+    lengths = rng.integers(max(window, 1), s + 1, size=b).astype(np.int32)
+    qj, kj, vj = (_as_jnp(x, dtype) for x in (q, k, v))
+    ref = decode_attention_pallas(qj, kj, vj, _as_jnp(lengths, "float32").astype("int32"),
+                                  window=window, block_k=block_k)
+    out = decode_ops.decode_attention(
+        _port(qj, dtype).reshape(b, 1, hkv * g, d),
+        _port(kj, dtype).transpose(1, 2).contiguous(),
+        _port(vj, dtype).transpose(1, 2).contiguous(),
+        torch.as_tensor(lengths), window=window)
+    assert out.dtype == getattr(torch, dtype) and out.shape == (b, 1, hkv * g, d)
+    np.testing.assert_allclose(out.float().numpy().reshape(b, hkv, g, d),
+                               np.asarray(ref, np.float32), atol=TOL[dtype], rtol=TOL[dtype])
+
+
+def test_decode_plain_respects_length_mask():
+    """Positions at or past the length do not move the output
+    (tests/test_kernels.py:92)."""
+    rng = np.random.default_rng(1)
+    q = torch.as_tensor(rng.normal(size=(1, 1, 2, 16)), dtype=torch.float32)
+    k = torch.as_tensor(rng.normal(size=(1, 64, 1, 16)), dtype=torch.float32)
+    v = torch.as_tensor(rng.normal(size=(1, 64, 1, 16)), dtype=torch.float32)
+    lengths = torch.tensor([32], dtype=torch.int32)
+    o1 = decode_ops.decode_attention(q, k, v, lengths)
+    k2, v2 = k.clone(), v.clone()
+    k2[:, 32:] = 555.0
+    v2[:, 32:] = -555.0
+    o2 = decode_ops.decode_attention(q, k2, v2, lengths)
+    np.testing.assert_allclose(o1.numpy(), o2.numpy(), atol=1e-6)
+
+
+def test_attention_wrappers_reject_bad_inputs():
+    q = torch.zeros((1, 4, 4, 16))
+    kv = torch.zeros((1, 4, 3, 16))
+    with pytest.raises(ValueError):
+        flash_ops.flash_attention(q, kv, kv)  # 4 query heads over 3 KV heads
+    with pytest.raises(ValueError):
+        flash_ops.flash_attention(torch.zeros((1, 8, 4, 16)), torch.zeros((1, 4, 2, 16)),
+                                  torch.zeros((1, 4, 2, 16)))  # Sq > Skv
+    with pytest.raises(NotImplementedError):
+        flash_ops.flash_attention(q, q, q, causal=False)
+    with pytest.raises(TypeError):
+        flash_ops.flash_attention(q, q.double(), q.double())
+    cache = torch.zeros((2, 8, 2, 16))
+    with pytest.raises(ValueError):
+        decode_ops.decode_attention(torch.zeros((2, 1, 4, 16)), cache, cache,
+                                    torch.tensor([3, 4]))  # int64 lengths
+    with pytest.raises(ValueError):
+        decode_ops.decode_attention(torch.zeros((2, 2, 4, 16)), cache, cache,
+                                    torch.tensor([3, 4], dtype=torch.int32))
+
+
 # ------------------------------------------------------------ no fallback
 
 
@@ -178,3 +314,9 @@ def test_no_cpu_fallback_without_cuda():
     with pytest.raises(ValueError, match="CUDA or the CPU"):
         knn_ops.knn_topk(q, x, torch.empty(5, device="meta"),
                          torch.empty(5, dtype=torch.int32, device="meta"), 2)
+    qm = torch.empty((1, 4, 2, 16), device="meta")
+    with pytest.raises(ValueError, match="CUDA or the CPU"):
+        flash_ops.flash_attention(qm, qm, qm)
+    with pytest.raises(ValueError, match="CUDA or the CPU"):
+        decode_ops.decode_attention(torch.empty((1, 1, 2, 16), device="meta"), qm, qm,
+                                    torch.empty(1, dtype=torch.int32, device="meta"))

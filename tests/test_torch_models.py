@@ -1,0 +1,316 @@
+"""The port's language models (repro_torch.models) against the JAX package's.
+
+Both packages compute on identical weights: the JAX ``LM.init(seed)``
+tree goes through numpy into the port with
+``convert.lm_params_from_arrays``.  Inputs are made with numpy from a
+seed.  Everything runs in float32 on the CPU, where the port's attention
+takes the plain versions of K3 and K4; the reference computes the same
+functions in jnp (chunked online softmax for prefill, one masked softmax
+for decode).  Three configurations: reduced tinyllama (4 query heads
+over 2 KV heads, G = 2); a GQA variant with 8 query heads over 2 (G = 4)
+at a sequence length that is no multiple of the reference's 16-key
+chunks; and a variant with every optional layer of the ``attn:mlp``
+kind switched on (GeGLU, scaled and tied embeddings, q/k norms,
+post-norms, logit soft-capping), as the gemma configs use them.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import ARCHS as J_ARCHS
+from repro.models import LM as JLM
+from repro.models import attention as j_attn
+from repro.models import layers as j_layers
+from repro.models.kvcache import cache_bytes as j_cache_bytes
+from repro.serving.backends import weight_bytes as j_weight_bytes
+from repro_torch import convert
+from repro_torch.configs import ARCHS, ModelConfig
+from repro_torch.models import LM
+from repro_torch.models import attention as t_attn
+from repro_torch.models import layers as t_layers
+from repro_torch.models.kvcache import cache_bytes
+from repro_torch.serving.backends import weight_bytes
+
+# Float32 on both sides; the sums of a layer (d_model 64, d_ff 128, up to
+# 37 keys) are taken in other orders, and a few layers compound them.
+LAYER_TOL = 1e-5
+MODEL_TOL = 5e-5
+
+CONFIGS = {
+    "reduced": {},
+    "gqa4-ragged": {"num_heads": 8, "num_kv_heads": 2},
+    "all-options": {"activation": "geglu", "embed_scale": True, "tie_embeddings": True,
+                    "qk_norm": True, "post_norms": True, "logit_softcap": 30.0},
+}
+SEQ = {"reduced": 16, "gqa4-ragged": 37, "all-options": 21}
+
+
+def _port_cfg(jcfg) -> ModelConfig:
+    return ModelConfig(**dataclasses.asdict(jcfg))
+
+
+@pytest.fixture(scope="module", params=list(CONFIGS))
+def pair(request):
+    """(name, JAX cfg, JAX LM, JAX params, port cfg, port LM, port params)."""
+    jcfg = dataclasses.replace(J_ARCHS["tinyllama-1.1b"].reduced(), **CONFIGS[request.param])
+    jlm = JLM(jcfg)
+    jparams = jlm.init(seed=3)
+    cfg = _port_cfg(jcfg)
+    params = convert.lm_params_from_arrays(cfg, jax.tree.map(np.asarray, jparams), device="cpu")
+    return request.param, jcfg, jlm, jparams, cfg, LM(cfg), params
+
+
+def _close(a, b, tol):
+    np.testing.assert_allclose(np.asarray(a, np.float32), np.asarray(b, np.float32),
+                               atol=tol, rtol=tol)
+
+
+def _tokens(cfg, b, s, seed):
+    return np.random.default_rng(seed).integers(0, cfg.vocab_size, (b, s)).astype(np.int32)
+
+
+def _stacked_cache(cache, name):
+    """The port's per-layer caches stacked as the reference's one period."""
+    return torch.stack([layer[name] for layer in cache["layers"]]).numpy()
+
+
+# ---------------------------------------------------------------- layers
+
+
+class _Leaves:
+    def __init__(self, **kw):
+        self.__dict__.update({k: torch.as_tensor(v) for k, v in kw.items()})
+
+
+def test_rmsnorm_matches_reference():
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(3, 5, 64)).astype(np.float32) * 3
+    scale = rng.normal(size=64).astype(np.float32) * 0.1
+    ref = j_layers.rmsnorm({"scale": jnp.asarray(scale)}, jnp.asarray(x))
+    out = t_layers.rmsnorm(_Leaves(scale=scale), torch.as_tensor(x))
+    _close(out, ref, LAYER_TOL)
+
+
+def test_rope_matches_reference():
+    """Split halves (not interleaved), angles in float32, positions as a
+    prompt of 200 tokens sees them."""
+    rng = np.random.default_rng(1)
+    x = rng.normal(size=(2, 7, 4, 16)).astype(np.float32)
+    pos = rng.integers(0, 200, size=(2, 7))
+    ref = j_layers.rope(jnp.asarray(x), jnp.asarray(pos, jnp.int32))
+    out = t_layers.rope(torch.as_tensor(x), torch.as_tensor(pos))
+    _close(out, ref, LAYER_TOL)
+
+
+@pytest.mark.parametrize("activation,gated", [("swiglu", True), ("geglu", True),
+                                              ("gelu", False)])
+def test_mlp_matches_reference(activation, gated):
+    rng = np.random.default_rng(2)
+    x = rng.normal(size=(2, 5, 32)).astype(np.float32)
+    w = {"w_up": rng.normal(size=(32, 48)) / 6, "w_down": rng.normal(size=(48, 32)) / 7}
+    if gated:
+        w["w_gate"] = rng.normal(size=(32, 48)) / 6
+    w = {k: v.astype(np.float32) for k, v in w.items()}
+    ref = j_layers.mlp({k: jnp.asarray(v) for k, v in w.items()}, jnp.asarray(x), activation)
+    out = t_layers.mlp(_Leaves(**w), torch.as_tensor(x), activation)
+    _close(out, ref, LAYER_TOL)
+
+
+# ---------------------------------------------------------------- attention
+
+
+def _x(cfg, b, s, seed):
+    return np.random.default_rng(seed).normal(size=(b, s, cfg.d_model)).astype(np.float32)
+
+
+@pytest.mark.parametrize("pair", ["reduced", "gqa4-ragged"], indirect=True)
+def test_attn_forward_matches_reference(pair):
+    name, jcfg, _, jparams, cfg, _, params = pair
+    x = _x(cfg, 2, SEQ[name], 4)
+    jp = jax.tree.map(lambda t: t[1], jparams["blocks"][0]["attn"])  # layer 1
+    y_ref, (k_ref, v_ref) = j_attn.attn_forward(jp, jnp.asarray(x), jcfg)
+    y, (k, v) = t_attn.attn_forward(params.layers[1].attn, torch.as_tensor(x), cfg)
+    _close(y, y_ref, LAYER_TOL)
+    _close(k, k_ref, LAYER_TOL)
+    _close(v, v_ref, LAYER_TOL)
+
+
+@pytest.mark.parametrize("pair", ["reduced", "gqa4-ragged"], indirect=True)
+def test_attn_decode_matches_reference(pair):
+    """One token at position 9 against caches whose first 9 slots hold
+    random keys: the output, and the new K/V written at slot 9 (in place
+    in the port)."""
+    name, jcfg, _, jparams, cfg, _, params = pair
+    rng = np.random.default_rng(5)
+    smax, pos = 20, 9
+    shape = (2, smax, cfg.num_kv_heads, cfg.head_dim)
+    kc, vc = (np.where(np.arange(smax)[None, :, None, None] < pos,
+                       rng.normal(size=shape), 0.0).astype(np.float32) for _ in range(2))
+    x = _x(cfg, 2, 1, 6)
+    jp = jax.tree.map(lambda t: t[0], jparams["blocks"][0]["attn"])
+    y_ref, (kc_ref, vc_ref) = j_attn.attn_decode(
+        jp, jnp.asarray(x), (jnp.asarray(kc), jnp.asarray(vc)), jnp.asarray(pos, jnp.int32), jcfg)
+    kt, vt = torch.as_tensor(kc.copy()), torch.as_tensor(vc.copy())
+    y, (k_out, v_out) = t_attn.attn_decode(params.layers[0].attn, torch.as_tensor(x),
+                                           (kt, vt), pos, cfg)
+    assert k_out is kt and v_out is vt  # written in place
+    _close(y, y_ref, LAYER_TOL)
+    _close(kt, kc_ref, LAYER_TOL)
+    _close(vt, vc_ref, LAYER_TOL)
+
+
+# ---------------------------------------------------------------- LM
+
+
+def test_lm_forward_matches_reference(pair):
+    name, _, jlm, jparams, cfg, lm, params = pair
+    tokens = _tokens(cfg, 2, SEQ[name], 7)
+    ref, _ = jlm.forward(jparams, jnp.asarray(tokens))
+    out = lm.forward(params, torch.as_tensor(tokens))
+    _close(out, ref, MODEL_TOL)
+
+
+def test_lm_prefill_and_decode_match_reference(pair):
+    """Prefill logits and caches, then three decode steps fed the same
+    tokens: logits, caches and positions agree at every step."""
+    name, _, jlm, jparams, cfg, lm, params = pair
+    s = SEQ[name]
+    tokens = _tokens(cfg, 2, s, 8)
+    max_len = s + 4
+    logits_ref, cache_ref = jlm.prefill(jparams, jnp.asarray(tokens), max_len=max_len)
+    logits, cache = lm.prefill(params, torch.as_tensor(tokens), max_len=max_len)
+    _close(logits, logits_ref, MODEL_TOL)
+    assert cache["pos"] == int(cache_ref["pos"]) == s
+    for kv in ("k", "v"):
+        _close(_stacked_cache(cache, kv), cache_ref["blocks"][0][kv], MODEL_TOL)
+    step_tokens = _tokens(cfg, 2, 3, 9)
+    for t in range(3):
+        tok = step_tokens[:, t:t + 1]
+        logits_ref, cache_ref = jlm.decode_step(jparams, cache_ref, jnp.asarray(tok))
+        logits, cache = lm.decode_step(params, cache, torch.as_tensor(tok))
+        _close(logits, logits_ref, MODEL_TOL)
+        assert cache["pos"] == int(cache_ref["pos"]) == s + t + 1
+        for kv in ("k", "v"):
+            _close(_stacked_cache(cache, kv), cache_ref["blocks"][0][kv], MODEL_TOL)
+
+
+@pytest.mark.parametrize("pair", ["reduced"], indirect=True)
+def test_lm_generate_matches_reference(pair):
+    """Greedy tokens equal wherever the top-2 logit margin along the
+    reference's path exceeds the tolerance (up to each row's first near
+    tie; the margins are read from the port, teacher-forced with the
+    reference's tokens, which agree with the reference's logits to
+    MODEL_TOL by the test above)."""
+    name, _, jlm, jparams, cfg, lm, params = pair
+    tokens = _tokens(cfg, 3, SEQ[name], 10)
+    steps = 5
+    ref = np.asarray(jlm.generate(jparams, jnp.asarray(tokens), steps))
+    out = lm.generate(params, torch.as_tensor(tokens), steps).numpy()
+    logits, cache = lm.prefill(params, torch.as_tensor(tokens), max_len=tokens.shape[1] + steps)
+    margins = []
+    for t in range(steps):
+        top2 = torch.sort(logits, dim=-1).values[:, -2:].numpy()
+        margins.append(top2[:, 1] - top2[:, 0])
+        if t < steps - 1:
+            logits, cache = lm.decode_step(params, cache, torch.as_tensor(ref[:, t:t + 1].copy()))
+    clear = np.cumprod(np.stack(margins, axis=1) > 2 * MODEL_TOL, axis=1).astype(bool)
+    assert clear.any()
+    np.testing.assert_array_equal(out[clear], ref[clear])
+
+
+# ---------------------------------------------------------------- sizes and init
+
+
+@pytest.mark.parametrize("arch", sorted(J_ARCHS))
+def test_model_config_copy_matches_reference(arch):
+    """The port's copy of ModelConfig counts parameters as the reference's
+    does for every architecture, full and reduced."""
+    jcfg = J_ARCHS[arch]
+    cfg = _port_cfg(jcfg)
+    assert cfg == _port_cfg(jcfg) and cfg.param_count() == jcfg.param_count()
+    assert cfg.active_param_count() == jcfg.active_param_count()
+    assert _port_cfg(jcfg.reduced()) == cfg.reduced()
+
+
+@pytest.mark.parametrize("arch", sorted(ARCHS))
+@pytest.mark.parametrize("reduced", [False, True], ids=["full", "reduced"])
+def test_registry_sizes_match_reference(arch, reduced):
+    """param_count, weight_bytes (the SwapManager's sizes) and cache_bytes
+    equal the reference's for every config the port can run."""
+    cfg, jcfg = ARCHS[arch], J_ARCHS[arch]
+    if reduced:
+        cfg, jcfg = cfg.reduced(), jcfg.reduced()
+    assert cfg.param_count() == jcfg.param_count()
+    assert weight_bytes(cfg) == j_weight_bytes(jcfg)
+    assert cache_bytes(cfg, 3, 40) == j_cache_bytes(jcfg, 3, 40)
+    assert LM(cfg).num_params() == JLM(jcfg).num_params()
+
+
+def test_lm_init_follows_reference_laws():
+    """Shapes of the reference's tree; zeros for norm scales; 0.02 for the
+    embedding and head; 1/sqrt(fan-in) otherwise, cut at +-2 sigma;
+    deterministic per seed."""
+    cfg = ARCHS["tinyllama-1.1b"].reduced()
+    jcfg = J_ARCHS["tinyllama-1.1b"].reduced()
+    params = LM(cfg).init(seed=0, device="cpu")
+    tree = convert.lm_params_to_arrays(params)
+    jtree = jax.tree.map(np.asarray, JLM(jcfg).init(seed=0))
+    assert (jax.tree.structure(tree) == jax.tree.structure(jtree))
+    for a, b in zip(jax.tree.leaves(tree), jax.tree.leaves(jtree)):
+        assert a.shape == b.shape and a.dtype == b.dtype
+    blocks = tree["blocks"][0]
+    assert not blocks["pre_norm"]["scale"].any() and not tree["final_norm"]["scale"].any()
+    trunc_std = 0.8796  # std of a standard normal cut at +-2
+    for leaf, std in ((tree["embed"]["embedding"], 0.02), (tree["lm_head"], 0.02),
+                      (blocks["attn"]["wq"], cfg.d_model ** -0.5),
+                      (blocks["mlp"]["w_down"], cfg.d_ff ** -0.5)):
+        assert np.abs(leaf).max() <= 2 * std * (1 + 1e-6)
+        assert abs(leaf.std() / (std * trunc_std) - 1) < 0.05
+    again = convert.lm_params_to_arrays(LM(cfg).init(seed=0, device="cpu"))
+    other = convert.lm_params_to_arrays(LM(cfg).init(seed=1, device="cpu"))
+    np.testing.assert_array_equal(again["lm_head"], tree["lm_head"])
+    assert not np.array_equal(other["lm_head"], tree["lm_head"])
+
+
+def test_lm_params_round_trip(pair):
+    _, _, _, jparams, cfg, _, params = pair
+    back = convert.lm_params_to_arrays(params)
+    for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(jax.tree.map(np.asarray, jparams))):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_bf16_config_runs_on_cpu():
+    """The declared bf16 dtype reaches weights, activations and caches."""
+    cfg = dataclasses.replace(ARCHS["tinyllama-1.1b"].reduced(), dtype="bfloat16")
+    lm = LM(cfg)
+    params = lm.init(seed=0, device="cpu")
+    logits, cache = lm.prefill(params, torch.as_tensor(_tokens(cfg, 2, 9, 11)), max_len=12)
+    assert params.lm_head.dtype == torch.bfloat16 and logits.dtype == torch.bfloat16
+    assert cache["layers"][0]["k"].dtype == torch.bfloat16
+    logits, cache = lm.decode_step(params, cache, torch.zeros((2, 1), dtype=torch.int64))
+    assert torch.isfinite(logits.float()).all() and cache["pos"] == 10
+
+
+def test_unported_layer_kinds_raise():
+    base = ARCHS["tinyllama-1.1b"].reduced()
+    for kind in ("local:mlp", "ssd:none", "rglru:mlp"):
+        cfg = dataclasses.replace(base, pattern=(kind,), window_size=16, ssd_state=16,
+                                  lru_width=64)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            LM(cfg)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        LM(dataclasses.replace(base, kv_quant=True))
+
+
+def test_lm_init_needs_cuda_unless_cpu_is_named():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a card")
+    lm = LM(ARCHS["tinyllama-1.1b"].reduced())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        lm.init(seed=0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        lm.init_cache(1, 8)

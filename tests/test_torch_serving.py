@@ -1,0 +1,220 @@
+"""The port's serving plane (repro_torch.serving) against the JAX package's.
+
+The same application, request trace, SneakPeek training set and model
+weights go through the reference's ``EdgeServer`` (``LMExecutor`` over
+its ``ProfiledBackend``) and the port's, on the CPU (``device="cpu"``):
+the served statistics must be equal (mean utility bit for bit), every
+executed batch must hold the same requests on the same model, and the
+generated tokens must be equal wherever the reference's top-2 logit
+margin exceeds the tolerance.  The weights are the reference's
+``LM.init(seed)``, carried into the port's backend with
+``convert.lm_params_from_arrays``.  Also checked: the swap manager, the
+options the port does not have yet, and the CUDA rule of the entry
+points.
+"""
+import dataclasses
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import ARCHS as J_ARCHS
+from repro.core import Application as JApplication
+from repro.core import ModelProfile as JModelProfile
+from repro.core import Request as JRequest
+from repro.core import make_policy as j_make_policy
+from repro.core.sneakpeek import KNNSneakPeek as JKNNSneakPeek
+from repro.serving import EdgeServer as JEdgeServer
+from repro.serving import LMExecutor as JLMExecutor
+from repro.serving.runtime import SwapManager as JSwapManager
+from repro_torch import convert
+from repro_torch.configs import ModelConfig
+from repro_torch.core.accuracy import ModelProfile
+from repro_torch.core.scheduler import make_policy
+from repro_torch.core.sneakpeek import KNNSneakPeek
+from repro_torch.core.types import Application, Request
+from repro_torch.serving.backends import ExecutorBackend, ProfiledBackend
+from repro_torch.serving.runtime import LMExecutor, SwapManager
+from repro_torch.serving.server import EdgeServer
+
+NEW_TOKENS = 3
+# Float32 logits of a few layers, summed in other orders (as in
+# tests/test_torch_models.py).
+TOKEN_TOL = 1e-4
+FEATURE_DIM = 8
+_BASE = J_ARCHS["tinyllama-1.1b"].reduced()
+J_VARIANTS = {
+    "tiny-small": (_BASE, 0),
+    "tiny-large": (dataclasses.replace(_BASE, num_layers=3), 1),
+}
+PROFILES = [("tiny-small", [0.72, 0.70], 0.010, 0.02), ("tiny-large", [0.84, 0.82], 0.030, 0.06)]
+
+
+def _port_variants():
+    return {name: (ModelConfig(**dataclasses.asdict(cfg)), seed)
+            for name, (cfg, seed) in J_VARIANTS.items()}
+
+
+def _apps(profile_cls, app_cls):
+    models = [profile_cls(n, recalls=r, latency_s=lat, load_latency_s=load)
+              for n, r, lat, load in PROFILES]
+    return {"assistant": app_cls(name="assistant", models=models, penalty="sigmoid")}
+
+
+def _features(rng, labels):
+    centres = np.stack([np.full(FEATURE_DIM, -0.6), np.full(FEATURE_DIM, 0.6)])
+    return (centres[labels] + rng.normal(size=(len(labels), FEATURE_DIM))).astype(np.float32)
+
+
+def _trace(request_cls, n=16, seed=0):
+    rng = np.random.default_rng(seed)
+    labels = rng.integers(0, 2, n)
+    feats = _features(rng, labels)
+    slack = rng.choice([0.2, 0.5, 1.0], size=n)
+    return [request_cls(rid=i, app="assistant", arrival_s=0.01 * i,
+                        deadline_s=0.01 * i + float(slack[i]), features=feats[i],
+                        true_label=int(labels[i]))
+            for i in range(n)]
+
+
+def prompt_fn(req):
+    """Seeded per request; two prompt lengths, so batches are right-padded."""
+    length = 8 if req.rid % 3 else 12
+    return np.random.default_rng(req.rid).integers(0, _BASE.vocab_size, length).astype(np.int32)
+
+
+@pytest.fixture(scope="module")
+def knn_split():
+    rng = np.random.default_rng(7)
+    y = rng.integers(0, 2, 400).astype(np.int32)
+    return _features(rng, y), y
+
+
+def _executors():
+    """(reference executor, port executor) serving identical weights."""
+    jexec = JLMExecutor(J_VARIANTS, new_tokens=NEW_TOKENS)
+    backend = ProfiledBackend(_port_variants(), new_tokens=NEW_TOKENS, device="cpu")
+    for name in J_VARIANTS:
+        _, jparams = jexec.backend._get(name)
+        backend.set_params(name, convert.lm_params_from_arrays(
+            backend.variants[name][0], jax.tree.map(np.asarray, jparams), device="cpu"))
+    return jexec, LMExecutor(backend=backend)
+
+
+def _margins(jexec, report):
+    """The reference's top-2 logit margins (B, new_tokens) along its own
+    greedy tokens, from its backend's compiled prefill and decode steps."""
+    backend = jexec.backend
+    _, params = backend._get(report.model)
+    rids = report.request_ids
+    prompts = JLMExecutor._pad([_Entry(rid) for rid in rids], prompt_fn)
+    logits, cache = backend._prefill_jit[report.model](params, prompts)
+    out = []
+    for t in range(NEW_TOKENS):
+        top2 = np.sort(np.asarray(logits), axis=-1)[:, -2:]
+        out.append(top2[:, 1] - top2[:, 0])
+        if t < NEW_TOKENS - 1:
+            logits, cache = backend._decode_jit[report.model](
+                params, cache, report.tokens[:, t:t + 1])
+    return np.stack(out, axis=1)
+
+
+class _Entry:
+    def __init__(self, rid):
+        self.request = JRequest(rid=rid, app="assistant", arrival_s=0.0, deadline_s=0.0)
+
+
+@pytest.mark.parametrize("policy", ["Grouped", "SneakPeek"])
+def test_edge_server_matches_reference(policy, knn_split):
+    x, y = knn_split
+    jexec, texec = _executors()
+    jsneaks = tsneaks = None
+    if policy == "SneakPeek":
+        jsneaks = {"assistant": JKNNSneakPeek(x, y, 2, k=5, backend="numpy")}
+        tsneaks = {"assistant": KNNSneakPeek(x, y, 2, k=5, device="cpu")}
+    with JEdgeServer(_apps(JModelProfile, JApplication), j_make_policy(policy),
+                     executor=jexec, sneakpeeks=jsneaks, prompt_fn=prompt_fn) as jsrv:
+        jouts, jstats = jsrv.run(_trace(JRequest))
+    tsrv = EdgeServer(_apps(ModelProfile, Application), make_policy(policy), executor=texec,
+                      sneakpeeks=tsneaks, prompt_fn=prompt_fn, device="cpu")
+    touts, tstats = tsrv.run(_trace(Request))
+
+    for key in ("windows", "requests", "violations", "swaps"):
+        assert getattr(tstats, key) == getattr(jstats, key), key
+    assert tstats.mean_utility == jstats.mean_utility
+    assert tstats.worker_busy_s == jstats.worker_busy_s
+    assert tstats.profile_provenance == jstats.profile_provenance
+    jreports = [r for o in jouts for r in o["reports"]]
+    treports = [r for o in touts for r in o["reports"]]
+    assert len(treports) == len(jreports) > 1
+    assert {r.model for r in treports} == set(J_VARIANTS)
+    compared = 0
+    for tr, jr in zip(treports, jreports):
+        assert (tr.request_ids, tr.model, tr.batch_size, tr.swap_s) == \
+            (jr.request_ids, jr.model, jr.batch_size, jr.swap_s)
+        assert tr.tokens.shape == jr.tokens.shape == (jr.batch_size, NEW_TOKENS)
+        clear = np.cumprod(_margins(jexec, jr) > TOKEN_TOL, axis=1).astype(bool)
+        np.testing.assert_array_equal(tr.tokens[clear], jr.tokens[clear])
+        compared += int(clear.sum())
+    assert compared > 0
+
+
+def test_lm_executor_matches_reference():
+    """One padded batch through both executors: swap charges, timing
+    fields and greedy tokens; class predictions from the option logits."""
+    jexec, texec = _executors()
+    entries = [_Entry(rid) for rid in (3, 4, 5)]
+    prompts = JLMExecutor._pad(entries, prompt_fn)
+    np.testing.assert_array_equal(LMExecutor._pad(entries, prompt_fn), prompts)
+    ids = np.array([5, 17, 101])
+    for name in ("tiny-large", "tiny-small", "tiny-large"):
+        jr = jexec.run_batch(name, prompts, [3, 4, 5], ids)
+        tr = texec.run_batch(name, prompts, [3, 4, 5], ids)
+        assert tr.swap_s == jr.swap_s and tr.batch_size == 3
+        assert tr.prefill_s > 0 and tr.decode_s > 0
+        clear = np.cumprod(_margins(jexec, jr) > TOKEN_TOL, axis=1).astype(bool)
+        np.testing.assert_array_equal(tr.tokens[clear], jr.tokens[clear])
+        assert [int(p) for p in tr.predictions] == [int(p) for p in jr.predictions]
+    assert texec.swaps.swap_count == jexec.swaps.swap_count == 2
+    for name in J_VARIANTS:
+        assert texec.backend.model_bytes(name) == jexec.backend.model_bytes(name)
+        assert texec.backend.swap_cost(name) == jexec.backend.swap_cost(name)
+        assert texec.backend.profile(name, [0.5, 0.5]).provenance == "profiled"
+
+
+def test_swap_manager_matches_reference():
+    """LRU residency under a byte capacity: the same charges and evictions."""
+    sizes = {"a": 5, "b": 4, "c": 3, "d": 9}
+    loads = {"a": 0.5, "b": 0.4, "c": 0.3, "d": 0.9}
+    seq = ["a", "b", "a", "c", "d", "b", "b", "a", "c", "d", "d", "a"]
+    for capacity in (None, 8, 12):
+        j, t = JSwapManager(capacity, sizes, loads), SwapManager(capacity, sizes, loads)
+        for name in seq:
+            assert t.load(name) == j.load(name)
+            assert t.resident_bytes() == j.resident_bytes()
+        assert (t.swap_count, t.evictions) == (j.swap_count, j.evictions)
+
+
+@pytest.mark.parametrize("option,value", [
+    ("workers", [0, 1]), ("memory_capacity_bytes", 10**9), ("pipeline", True), ("chunk", 4),
+    ("shard", True), ("preempt", True), ("faults", object()), ("health", True),
+    ("overlap", True), ("lane", "process"), ("backend", ExecutorBackend({})),
+])
+def test_unported_server_options_raise(option, value):
+    apps = _apps(ModelProfile, Application)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        EdgeServer(apps, make_policy("Grouped"), device="cpu", **{option: value})
+
+
+def test_serving_entry_points_need_cuda_unless_cpu_is_named():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a card")
+    calls = [
+        lambda: ProfiledBackend(_port_variants()),
+        lambda: LMExecutor(_port_variants()),
+        lambda: EdgeServer(_apps(ModelProfile, Application), make_policy("Grouped")),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
