@@ -3,18 +3,20 @@
 
     python3 chip_smoke.py            # the full check, on one card
 
-Builds the port's four CUDA kernels from the checkout's sources, holds
+Builds the port's five CUDA kernels from the checkout's sources, holds
 each against its plain PyTorch version at its path's shapes and times
 both, then drives two paths of the port on the card:
 
 * scheduling (phases 3-5): a SneakPeek ``Simulation`` over a stream of
   4096-request windows against k-NN training sets of 100,000 points per
   application (K2, K1), plus one window of each other policy;
-* serving (phases 6-9): K3 and K4 against their plain versions, a
-  2-layer float32 model at tinyllama's widths on the card against the
-  host, then ``EdgeServer`` serving 64 requests on tinyllama-1.1b at full
-  width (22 layers, bf16) and a 4-layer variant, SneakPeek over a k-NN
-  model, prefill through K3 and decode through K4.
+* serving (phases 6-9): K3, K4 and K5 against their plain versions,
+  2-layer float32 models at tinyllama's and mamba2's widths on the card
+  against the host, then ``EdgeServer`` serving 64 requests with
+  SneakPeek over a k-NN model on two families at full width,
+  mamba2-130m (24 SSD layers, prefill scan through K5) and
+  tinyllama-1.1b (22 attention layers, prefill through K3, decode
+  through K4), all bf16, and the same traffic on each family alone.
 
 Every check raises on failure.  The last three lines of standard output
 are the card's name and power limit, the kernel table and
@@ -284,15 +286,17 @@ def small_reference_check(seed):
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
 
-def _close(out, ref, tol: float, what: str) -> float:
+def _close(out, ref, tol: float, what: str, rtol: float | None = None) -> float:
     """max |out - ref|, after requiring finite values and |out - ref| <=
-    tol + tol * |ref| everywhere (assert_allclose with atol = rtol = tol)."""
+    tol + rtol * |ref| everywhere (assert_allclose with atol = tol and
+    rtol, which defaults to tol)."""
     import torch
 
+    rtol = tol if rtol is None else rtol
     require(bool(torch.isfinite(out.float()).all()), f"{what}: non-finite values")
     diff = (out.float() - ref.float()).abs()
-    bad = int((diff > tol + tol * ref.float().abs()).sum())
-    require(bad == 0, f"{what}: {bad} values outside {tol}")
+    bad = int((diff > tol + rtol * ref.float().abs()).sum())
+    require(bad == 0, f"{what}: {bad} values outside atol {tol}, rtol {rtol}")
     return float(diff.max())
 
 
@@ -437,11 +441,98 @@ def check_decode(seed):
     return t
 
 
-def check_model_card_vs_host(seed):
-    """A 2-layer float32 model at tinyllama's widths, one set of weights:
-    prefill and 4 decode steps on the card (K3, K4) against the host
-    (plain versions).  Tolerance 1e-3: float32 sums over d_model 2048 and
-    d_ff 5632 taken in other orders, two layers deep."""
+# K5 against its plain version: tests/test_kernels.py:192.
+SSD_ATOL, SSD_RTOL = 2e-4, 1e-3
+
+
+def _ssd_inputs(gen, b, s, h, p, n):
+    """Model-facing K5 inputs on the card, drawn as tests/test_kernels.py:185
+    draws them: x, dt (positive), a_log, B and C."""
+    import torch
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    return (randn(b, s, h, p), randn(b, s, h).abs() * 0.5 + 0.1, randn(h) * 0.3,
+            randn(b, s, n) * 0.3, randn(b, s, n) * 0.3)
+
+
+def check_ssd(seed):
+    """K5 against its plain version: the sweep of tests/test_kernels.py:181,
+    a length that is no multiple of the chunk through ``models.ssd``'s
+    padding (card against host), then the serving shape, timed."""
+    import torch
+
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.kernels.ssd.ref import ssd_chunk_ref
+    from repro_torch.models.ssd import ssd_scan
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 8)
+
+    def plain(x, dt, a_log, bm, cm, chunk):
+        dt = dt.float()
+        return ssd_chunk_ref(x * dt[..., None], dt * -torch.exp(a_log), bm, cm, chunk)
+
+    errs = []
+    for b, s, h, p, n, chunk in [(2, 64, 4, 8, 16, 16), (1, 128, 2, 16, 8, 32),
+                                 (2, 48, 8, 8, 32, 16)]:
+        args = _ssd_inputs(gen, b, s, h, p, n)
+        y, st = ssd_ops.ssd(*args, chunk=chunk)
+        y_ref, st_ref = plain(*args, chunk)
+        what = f"K5 {(b, s, h, p, n, chunk)}"
+        errs.append(max(_close(y, y_ref, SSD_ATOL, what + " y", SSD_RTOL),
+                        _close(st, st_ref, SSD_ATOL, what + " state", SSD_RTOL)))
+    print(f"  K5: 3 configurations of tests/test_kernels.py within atol {SSD_ATOL}, rtol "
+          f"{SSD_RTOL}, max |d| {max(errs):.3g}")
+
+    x, dt, a_log, bm, cm = _ssd_inputs(gen, 3, 300, 24, 64, 128)
+    a = -torch.exp(a_log)
+    args = (x, dt, a, bm[:, :, None], cm[:, :, None])
+    y, st = ssd_scan(*args, 128)
+    y_host, st_host = ssd_scan(*(t.cpu() for t in args), 128)
+    err = max(_close(y.cpu(), y_host, SSD_ATOL, "K5 ragged y", SSD_RTOL),
+              _close(st.cpu(), st_host, SSD_ATOL, "K5 ragged state", SSD_RTOL))
+    print(f"  K5 through models.ssd.ssd_scan, B=3 S=300 (padded to 384 with dt = 0) H=24 "
+          f"P=64 N=128: y and final state card against host, max |d| {err:.3g}")
+
+    b, s, h, p, n, chunk = 8, 1024, 24, 64, 128, 128
+    args = _ssd_inputs(gen, b, s, h, p, n)
+    y, st = ssd_ops.ssd(*args, chunk=chunk)
+    y_ref, st_ref = plain(*args, chunk)
+    err = max(_close(y, y_ref, SSD_ATOL, "K5 serving shape y", SSD_RTOL),
+              _close(st, st_ref, SSD_ATOL, "K5 serving shape state", SSD_RTOL))
+    x, dt, a_log, bm, cm = args
+    dA = (dt * -torch.exp(a_log)).contiguous()
+    xdt = (x * dt[..., None]).contiguous()
+    call = lambda: ssd_ops.ssd_chunk_scan(xdt, dA, bm, cm, chunk)  # noqa: E731
+    nc, tri = s // chunk, chunk * (chunk + 1) // 2
+    # Causal work: scores C.B^T once per (batch row, chunk) over the lower
+    # triangle (ngroups = 1), then per head y_diag over the triangle,
+    # y_off and the state update, l.P.N each; multiply-adds count 2.
+    flops = 2 * b * nc * tri * n + 2 * b * h * nc * (tri * p + 2 * chunk * p * n)
+    bytes_moved = 4 * (2 * b * s * h * p + b * s * h + 2 * b * s * n + b * h * p * n)
+    t = {
+        "ms": device_ms(call, "ssd_chunk_scan", iters=10),
+        "call_ms": timed_ms(call, iters=10),
+        "plain_ms": timed_ms(lambda: ssd_chunk_ref(xdt, dA, bm, cm, chunk), iters=3, warmup=1),
+        "library_ms": None,  # no single PyTorch call computes the SSD scan
+        "bound_ms": max(flops / FP32_FLOP_PER_S, bytes_moved / HBM_BYTES_PER_S) * 1e3,
+        "bound_by": ("operations" if flops / FP32_FLOP_PER_S > bytes_moved / HBM_BYTES_PER_S
+                     else "bytes"),
+        "max_abs_err": err,
+        "shape": f"B={b} S={s} H={h} P={p} N={n} chunk={chunk} f32",
+    }
+    print(f"  K5 serving shape {t['shape']}: y and final state within atol {SSD_ATOL}, rtol "
+          f"{SSD_RTOL}, max |d| {err:.3g}; {flops / 1e9:.3f} GFLOP, {bytes_moved / 1e6:.1f} MB")
+    return t
+
+
+def check_model_card_vs_host(seed, arch, seq, caches):
+    """A 2-layer float32 model at ``arch``'s widths, one set of weights:
+    prefill of 2 x ``seq`` tokens and 4 decode steps on the card (the
+    kernels) against the host (plain versions), logits and the last
+    layer's ``caches``.  Tolerance 1e-3: float32 sums over the model's
+    widths taken in other orders, two layers deep."""
     import dataclasses
 
     import torch
@@ -451,11 +542,11 @@ def check_model_card_vs_host(seed):
 
     tol = 1e-3
     require(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on for float32 matmuls")
-    cfg = dataclasses.replace(ARCHS["tinyllama-1.1b"], num_layers=2, dtype="float32")
+    cfg = dataclasses.replace(ARCHS[arch], num_layers=2, dtype="float32")
     lm = LM(cfg)
     card = lm.init(seed=seed, device="cuda")
     host = LM(cfg).init(seed=seed, device="cuda").to("cpu")
-    tokens = torch.randint(0, cfg.vocab_size, (2, 77),
+    tokens = torch.randint(0, cfg.vocab_size, (2, seq),
                            generator=torch.Generator().manual_seed(seed))
     steps = 4
     lc, cc = lm.prefill(card, tokens.cuda(), max_len=tokens.shape[1] + steps)
@@ -473,12 +564,13 @@ def check_model_card_vs_host(seed):
             tok = lh.argmax(dim=-1, keepdim=True)
             lc, cc = lm.decode_step(card, cc, tok.cuda())
             lh, ch = lm.decode_step(host, ch, tok)
-    for name in ("k", "v"):
+    for name in caches:
         errs.append(_close(cc["layers"][1][name].cpu(), ch["layers"][1][name], tol,
                            f"cache {name}"))
-    print(f"  tinyllama widths, 2 layers, f32: prefill of 2 x 77 tokens and {steps} decode "
-          f"steps, logits and caches within {tol} (max |d| {max(errs):.3g}); greedy tokens "
-          f"equal on the {checked} of {2 * (steps + 1)} picks with a top-2 margin over {tol}")
+    print(f"  {arch} widths, 2 layers, f32: prefill of 2 x {seq} tokens and {steps} decode "
+          f"steps, logits and caches {caches} within {tol} (max |d| {max(errs):.3g}); greedy "
+          f"tokens equal on the {checked} of {2 * (steps + 1)} picks with a top-2 margin over "
+          f"{tol}")
     del card, host
 
 
@@ -493,10 +585,11 @@ def _two_class_set(rng, n, dim, sep):
 
 
 def serve_main_path(args):
-    """Phase 9: ``EdgeServer`` serving tinyllama-1.1b at full width and a
-    4-layer variant; returns the launch counts of the served run."""
-    import dataclasses
-
+    """Phase 9: ``EdgeServer`` serving one application from mamba2-130m and
+    tinyllama-1.1b at full width, then the same traffic on each family
+    alone.  Every launch count is set to 0 just before each run and read
+    just after; each run's launches must be exactly what its batches need.
+    Returns the launches of the two-family run, the main path."""
     import numpy as np
     import torch
     from torch.autograd import DeviceType
@@ -511,17 +604,14 @@ def serve_main_path(args):
     from repro_torch.serving.runtime import LMExecutor
     from repro_torch.serving.server import EdgeServer
 
-    full = ARCHS["tinyllama-1.1b"]
-    variants = {
-        "tinyllama-1.1b": (full, 0),
-        "tinyllama-1.1b-4l": (dataclasses.replace(full, name="tinyllama-1.1b-4l",
-                                                  num_layers=4), 1),
-    }
-    # Recalls as examples/edge_serving.py gives them: tinyllama's, and
-    # mamba2-130m's for the smaller variant.
-    recalls = {"tinyllama-1.1b": [0.84, 0.82], "tinyllama-1.1b-4l": [0.72, 0.70]}
+    mamba, llama = "mamba2-130m", "tinyllama-1.1b"
+    variants = {mamba: (ARCHS[mamba], 0), llama: (ARCHS[llama], 1)}
+    # Recalls as examples/edge_serving.py gives them.
+    recalls = {mamba: [0.72, 0.70], llama: [0.84, 0.82]}
     new_tokens = 16
-    vocab = full.vocab_size
+    # Prompt tokens below the smaller vocabulary (tinyllama's 32,000), so
+    # every prompt is valid for both families.
+    vocab = min(cfg.vocab_size for cfg, _ in variants.values())
 
     def prompt_fn(req):
         rng = np.random.default_rng(req.rid)
@@ -539,8 +629,8 @@ def serve_main_path(args):
             for bsz in (1, 8):
                 b.run_batch(name, warm[:bsz], list(range(bsz)))
     del warmup
-    profiles = [backend.profile(name, recalls[name]) for name in variants]
-    for p in profiles:
+    profiles = {name: backend.profile(name, recalls[name]) for name in variants}
+    for p in profiles.values():
         fixed, per_item = p.latency_model
         print(f"  profile {p.name}: {fixed:.6f} s + {per_item:.6f} s per request "
               f"(512-token prompts, {new_tokens} new tokens), weights "
@@ -560,8 +650,9 @@ def serve_main_path(args):
                         true_label=int(labels[i]))
                 for i in range(args.serve_requests)]
 
-    def serve(models, reqs):
-        app = Application(name="assistant", models=models, penalty="sigmoid")
+    def serve(names, reqs):
+        app = Application(name="assistant", models=[profiles[n] for n in names],
+                          penalty="sigmoid")
         server = EdgeServer({"assistant": app}, make_policy("SneakPeek"),
                             executor=LMExecutor(backend=backend),
                             sneakpeeks={"assistant": sneak}, prompt_fn=prompt_fn,
@@ -571,62 +662,66 @@ def serve_main_path(args):
         torch.cuda.synchronize()
         return outs, stats, time.perf_counter() - t
 
-    def counted(models, reqs):
-        """Serve with every launch count set to 0 just before; check the
-        outputs and that K3 ran once per layer of every batch's prefill and
-        K4 once per layer of each of its decode steps."""
+    layers = {name: cfg.num_layers for name, (cfg, _) in variants.items()}
+
+    def counted(label, names, reqs):
+        """Serve; check the outputs and that this run launched K5 once per
+        layer of every mamba2 batch's prefill, K3 once per layer of every
+        tinyllama batch's prefill and K4 once per layer of each of its
+        decode steps.  Returns the run's requests per model and its
+        launches."""
         torch.cuda.synchronize()
         kernels.reset_launch_counts()
-        outs, stats, wall = serve(models, reqs)
+        outs, stats, wall = serve(names, reqs)
         launches = kernels.launch_counts()
         reports = [r for o in outs for r in (o["reports"] or [])]
-        layers = {name: cfg.num_layers for name, (cfg, _) in variants.items()}
-        want_flash = sum(layers[r.model] for r in reports)
-        want_decode = sum(layers[r.model] * (new_tokens - 1) for r in reports)
+        want_ssd = sum(layers[mamba] for r in reports if r.model == mamba)
+        want_flash = sum(layers[llama] for r in reports if r.model == llama)
+        want_decode = (new_tokens - 1) * want_flash
         prefill_s = sum(r.prefill_s for r in reports)
         decode_s = sum(r.decode_s for r in reports)
         tokens = sum(r.tokens.size for r in reports)
         by_model = {name: sum(r.batch_size for r in reports if r.model == name)
                     for name in variants}
-        print(f"    windows={stats.windows} requests={stats.requests} "
+        print(f"    {label}: windows={stats.windows} requests={stats.requests} "
               f"mean_utility={stats.mean_utility:.6f} violations={stats.violations} "
               f"swaps={stats.swaps} batches={len(reports)} requests per model {by_model}")
         print(f"    prefill {prefill_s:.6f} s, decode {decode_s:.6f} s, {tokens} tokens "
               f"generated, {tokens / (prefill_s + decode_s):.1f} tokens/s over execution; "
               f"wall {wall:.3f} s (scheduling {stats.sched_wall_s:.6f} s)")
         print("    batches (model, size, prefill s, decode s): " + " ".join(
-            f"({r.model.removeprefix('tinyllama-1.1b') or 'full'}, {r.batch_size}, "
-            f"{r.prefill_s:.4f}, {r.decode_s:.4f})" for r in reports))
+            f"({r.model}, {r.batch_size}, {r.prefill_s:.4f}, {r.decode_s:.4f})"
+            for r in reports))
         print(f"    launches: {launches}")
         require(stats.requests == len(reqs), "not every request was served")
         require(sum(by_model.values()) == len(reqs), "a request ran on no model")
         require(0.0 <= stats.mean_utility <= 1.0, f"mean utility {stats.mean_utility}")
         for r in reports:
             require(r.tokens.shape == (r.batch_size, new_tokens), f"tokens {r.tokens.shape}")
-            require(bool(((r.tokens >= 0) & (r.tokens < vocab)).all()),
+            require(bool(((r.tokens >= 0) & (r.tokens < variants[r.model][0].vocab_size)).all()),
                     "token outside the vocab")
-        require(launches.get("flash_attention", 0) == want_flash,
-                f"flash_attention launched {launches.get('flash_attention')} times, "
-                f"expected {want_flash}")
-        require(launches.get("decode_attention", 0) == want_decode,
-                f"decode_attention launched {launches.get('decode_attention')} times, "
-                f"expected {want_decode}")
+        for name, want in (("ssd", want_ssd), ("flash_attention", want_flash),
+                           ("decode_attention", want_decode)):
+            require(launches.get(name, 0) == want,
+                    f"{label}: {name} launched {launches.get(name)} times, expected {want}")
         require(launches.get("knn_topk", 0) > 0, "serving launched no k-NN kernel")
         require(launches.get("utility_scores", 0) > 0, "serving launched no utility kernel")
-        return launches, by_model
+        return by_model, launches
 
-    launches, _ = counted(profiles, trace(0))
-    # The policy may route every request to the 4-layer variant when the
-    # full one's measured latency misses the deadlines; the same traffic
-    # with the full-width variant alone serves every request at 22 layers.
-    print("    the same traffic, tinyllama-1.1b (22 layers) the only variant:")
-    _, by_model = counted(profiles[:1], trace(20_000))
-    require(by_model["tinyllama-1.1b"] == args.serve_requests,
-            "the full-width variant did not serve every request")
+    _, launches = counted("two families", [mamba, llama], trace(0))
+    for name in ("ssd", "flash_attention", "decode_attention", "knn_topk", "utility_scores"):
+        require(launches.get(name, 0) > 0, f"the two-family run launched no {name} kernel")
+    # The policy may route every request to one family; the same traffic
+    # on each family alone sends every batch through its kernels.
+    for rid0, name in ((20_000, mamba), (30_000, llama)):
+        by_model, _ = counted(f"{name} ({layers[name]} layers) the only variant", [name],
+                              trace(rid0))
+        require(by_model[name] == args.serve_requests,
+                f"{name} alone did not serve every request")
 
-    # The same traffic again under the profiler: the card's busy share.
+    # The two-family traffic again under the profiler: the card's busy share.
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        _, _, traced_wall = serve(profiles, trace(10_000))
+        _, _, traced_wall = serve([mamba, llama], trace(10_000))
     spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
                    if e.device_type == DeviceType.CUDA)
     busy_us, end = 0.0, float("-inf")
@@ -643,6 +738,7 @@ def serve_main_path(args):
         name = e.name
         low = name.lower()
         kind_ = next((k for k, keys in (
+            ("ssd", ("ssd_chunk_scan",)),
             ("flash_attention", ("flash_attention",)), ("decode_attention", ("decode_",)),
             ("knn", ("knn_",)), ("utility", ("utility_",)),
             ("matmul", ("nvjet", "gemm", "cutlass", "xmma")), ("copy", ("memcpy", "memset")),
@@ -650,8 +746,8 @@ def serve_main_path(args):
         us = e.time_range.elapsed_us()
         by_kind[kind_] = by_kind.get(kind_, 0.0) + us / 1e6
         by_name[name[:60]] = by_name.get(name[:60], 0.0) + us / 1e6
-    print(f"    under torch.profiler: wall {traced_wall:.3f} s, card busy {busy_us / 1e6:.6f} s "
-          f"({100 * busy:.2f} %); device seconds by kind: "
+    print(f"    two families under torch.profiler: wall {traced_wall:.3f} s, card busy "
+          f"{busy_us / 1e6:.6f} s ({100 * busy:.2f} %); device seconds by kind: "
           + ", ".join(f"{k} {v:.6f}" for k, v in sorted(by_kind.items(), key=lambda x: -x[1])))
     top = sorted(by_name.items(), key=lambda x: -x[1])[:8]
     print("    top kernels: " + "; ".join(f"{n} {v:.6f} s" for n, v in top))
@@ -786,10 +882,18 @@ def main(argv=None) -> int:
               f"{t['call_ms']:.6f} ms per wrapper call back to back, plain "
               f"{t['plain_ms']:.6f} ms, SDPA {t['library_ms']:.6f} ms, bound "
               f"{t['bound_ms']:.6f} ms ({t['bound_by']})")
-    print("[8] whole model, card against host")
-    check_model_card_vs_host(args.seed)
+    print("[7b] Mamba-2 SSD chunk-scan kernel (K5) against its plain version")
+    ssd_t = check_ssd(args.seed)
+    print(f"    ssd at {ssd_t['shape']}: kernel {ssd_t['ms']:.6f} ms on the device, "
+          f"{ssd_t['call_ms']:.6f} ms per wrapper call back to back, plain "
+          f"{ssd_t['plain_ms']:.6f} ms, no library call, bound {ssd_t['bound_ms']:.6f} ms "
+          f"({ssd_t['bound_by']})")
+    print(f"    phases 6-7b {time.perf_counter() - t_start:.1f} s")
+    print("[8] whole models, card against host")
+    check_model_card_vs_host(args.seed, "tinyllama-1.1b", 77, ("k", "v"))
+    check_model_card_vs_host(args.seed, "mamba2-130m", 200, ("conv", "state"))
     print(f"[9] serving main path: EdgeServer, SneakPeek, {args.serve_requests} requests on "
-          "tinyllama-1.1b (22 layers, bf16) and a 4-layer variant")
+          "mamba2-130m (24 layers) and tinyllama-1.1b (22 layers), bf16, then on each alone")
     serve_launches = serve_main_path(args)
 
     rows = [
@@ -799,6 +903,7 @@ def main(argv=None) -> int:
          "flash_attention/kernel.py:89", serve_launches, flash_t),
         ("decode_attention", "decode_attention/csrc/decode_attention.cu",
          "decode_attention/kernel.py:71", serve_launches, decode_t),
+        ("ssd", "ssd/csrc/ssd.cu", "ssd/kernel.py:91", serve_launches, ssd_t),
     ]
     table = {"kernels": [
         {"name": name, "route": "cuda", "source": f"src/repro_torch/kernels/{source}",

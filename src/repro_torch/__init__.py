@@ -5,8 +5,8 @@ nothing of it and mirrors its module layout (``core``, ``data``,
 ``configs``, ``models``, ``serving``, ``kernels``).  Batched math runs as
 torch tensors on an explicit device, the card unless a caller names the
 CPU (``device.resolve_device``).  The k-NN search, the Eq. 2 utility
-tiles, prefill attention and decode attention are hand-written CUDA
-kernels (``kernels/{knn,utility,flash_attention,decode_attention}/csrc``).
+tiles, prefill attention, decode attention and the Mamba-2 SSD chunk
+scan are hand-written CUDA kernels (``kernels/{knn,utility,flash_attention,decode_attention,ssd}/csrc``).
 """
 from repro_torch.device import KNN_DTYPE, SCHED_DTYPE, resolve_device
 

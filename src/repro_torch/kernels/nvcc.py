@@ -61,6 +61,7 @@ SOURCES: dict[str, Source] = {
     "decode_attention": Source(
         "decode_attention", _KERNELS_DIR / "decode_attention" / "csrc" / "decode_attention.cu"
     ),
+    "ssd": Source("ssd", _KERNELS_DIR / "ssd" / "csrc" / "ssd.cu"),
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -1,10 +1,12 @@
-"""Language models of the port: ``model.LM`` over the dense ``attn:mlp`` stack.
+"""Language models of the port: ``model.LM`` over ``attn:mlp`` and ``ssd:none`` stacks.
 
 Each module mirrors its namesake in the JAX package (``repro.models``).
 Attention runs through the port's kernels: prefill through K3
 (``kernels.flash_attention``), decode through K4
-(``kernels.decode_attention``); projections, MLPs and the readout are
-``torch.matmul``, as the reference left them to XLA.
+(``kernels.decode_attention``); the Mamba-2 SSD mixer's chunked prefill
+scan runs through K5 (``kernels.ssd``), its decode step in plain
+PyTorch; projections, MLPs and the readout are ``torch.matmul``, as the
+reference left them to XLA.
 """
 from repro_torch.models.model import LM
 

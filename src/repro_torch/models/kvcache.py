@@ -1,12 +1,15 @@
-"""Decode caches: preallocated tensors, one (k, v) pair per layer.
+"""Decode caches: preallocated tensors, one dict per layer.
 
 The counterpart of ``repro.models.kvcache``.  The reference's cache
 mirrors its stacked parameter tree (one stacked array per pattern
-position plus a tail); the port keeps a list with one ``{"k", "v"}``
-dict of (B, max_len, Hkv, Dh) tensors per layer, in layer order, and the
-position as a Python int.  Decode writes each new token's K/V into these
-tensors IN PLACE (``models.attention.attn_decode``), where the reference
-builds new arrays with ``dynamic_update_slice``.
+position plus a tail); the port keeps a list with one dict per layer, in
+layer order, and the position as a Python int.  An attention layer's
+dict is ``{"k", "v"}`` of (B, max_len, Hkv, Dh) tensors, an SSD layer's
+``{"conv": (B, W-1, d_xbc), "state": (B, H, P, N) float32}``
+(``blocks.cache_spec``).  Decode writes each new token's K/V, and each
+SSD layer's conv window and state, into these tensors IN PLACE
+(``models.attention.attn_decode``, ``models.ssd.ssd_decode_step``),
+where the reference builds new arrays.
 """
 from __future__ import annotations
 
@@ -25,7 +28,8 @@ def model_dtype(cfg) -> torch.dtype:
 
 def init_cache(cfg, batch: int, max_len: int, start_pos: int = 0, device=None) -> dict:
     """Zero caches for every layer on ``device`` (the card unless ``"cpu"``),
-    ``{"layers": [{"k": ..., "v": ...}, ...], "pos": start_pos}``."""
+    ``{"layers": [{"k": ..., "v": ...} or {"conv": ..., "state": ...}, ...],
+    "pos": start_pos}``."""
     dev = resolve_device(device)
     layers = []
     for i in range(cfg.num_layers):

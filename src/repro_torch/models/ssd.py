@@ -1,0 +1,189 @@
+"""Mamba-2 SSD (state-space duality) mixer: chunked prefill and O(1) decode.
+
+The counterpart of ``repro.models.ssd``.  Layout as the reference's:
+x (B, S, H, P) heads by head dim; B and C (B, S, G, N) state projections
+shared by the H / G heads of a group; A one scalar per head.  The
+chunked scan of a prefill runs through K5 (``kernels.ssd``), which takes
+ngroups = 1 as ``ssd_pallas`` does; ``ngroups > 1`` raises.  The 4-tap
+causal convolution and the one-token decode step are plain PyTorch, as
+the reference computes them in jnp outside any Pallas kernel.  Decode
+writes the conv window and the state into the layer's cache tensors in
+place, where the reference returns new arrays.
+
+In a bf16 model the reference rounds the scores, the decay matrix and
+the carried chunk states to bf16 inside ``ssd_scan``; K5 and its plain
+version keep them float32 (ROADMAP, fault P3).
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.ssd import ops as ssd_ops
+from repro_torch.models.spec import P
+
+__all__ = ["ssd_spec", "ssd_forward", "ssd_decode_step", "ssd_init_cache_shapes", "ssd_scan",
+           "check_groups"]
+
+# Where ngroups > 1 is taken up: K5's contract, like ssd_pallas's, is one group.
+NGROUPS_ITEM = "item 9 (recurrent and sparse mixers: SSD with ngroups > 1)"
+
+
+def ssd_spec(cfg) -> dict:
+    d, din = cfg.d_model, cfg.d_inner
+    g, n, h = cfg.ssd_ngroups, cfg.ssd_state, cfg.ssd_heads
+    d_xbc = din + 2 * g * n
+    return {
+        "in_proj": P((d, 2 * din + 2 * g * n + h), ("embed", "ssd_inner")),
+        "conv_w": P((cfg.conv_width, d_xbc), ("conv", "ssd_inner"), init="small"),
+        "conv_b": P((d_xbc,), ("ssd_inner",), init="zeros"),
+        "A_log": P((h,), ("ssd_heads",), init="zeros"),  # A = -exp(A_log) => -1 at init
+        "D": P((h,), ("ssd_heads",), init="ones"),
+        "dt_bias": P((h,), ("ssd_heads",), init="zeros"),
+        "norm_scale": P((din,), ("ssd_inner",), init="zeros"),
+        "out_proj": P((din, d), ("ssd_inner", "embed")),
+    }
+
+
+def check_groups(ngroups: int) -> None:
+    """Raise for a group count K5 does not take."""
+    if ngroups != 1:
+        raise NotImplementedError(
+            f"ssd with ngroups={ngroups} is not ported to repro_torch yet: K5, like "
+            f"ssd_pallas, takes ngroups = 1; see ROADMAP.md, 'Modules to port', {NGROUPS_ITEM}")
+
+
+def _causal_conv(x, w, b, state=None):
+    """Depthwise causal 1-D conv.  x: (B, S, C); w: (W, C).
+
+    ``state`` (B, W-1, C) provides left context (decode); zeros otherwise.
+    Taps are summed in float32, in order.  Returns (y, new_state)."""
+    bsz, s, c = x.shape
+    wlen = w.shape[0]
+    if state is None:
+        state = torch.zeros((bsz, wlen - 1, c), dtype=x.dtype, device=x.device)
+    xp = torch.cat([state.to(x.dtype), x], dim=1)  # (B, W-1+S, C)
+    y = torch.zeros((bsz, s, c), dtype=torch.float32, device=x.device)
+    for i in range(wlen):  # W is tiny (4): unrolled taps
+        y = y + xp[:, i:i + s, :].float() * w[i].float()
+    y = y + b.float()
+    new_state = xp[:, s:, :] if s >= wlen - 1 else xp[:, -(wlen - 1):, :]
+    return y.to(x.dtype), new_state
+
+
+def _silu(x):
+    """silu in float32, rounded back to x's type (jax.nn.silu on .astype(f32))."""
+    return F.silu(x.float()).to(x.dtype)
+
+
+def _softplus(x):
+    """jax.nn.softplus: logaddexp(x, 0)."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def _gated_rmsnorm(scale, x, z, eps: float = 1e-6):
+    """Mamba-2 norm: RMSNorm(x * silu(z)) with (1 + scale)."""
+    x = x * F.silu(z.float()).to(x.dtype)
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps) * (1.0 + scale.float())
+    return out.to(x.dtype)
+
+
+def _split_zxbcdt(cfg, zxbcdt):
+    din, g, n = cfg.d_inner, cfg.ssd_ngroups, cfg.ssd_state
+    z = zxbcdt[..., :din]
+    xbc = zxbcdt[..., din:2 * din + 2 * g * n]
+    dt = zxbcdt[..., 2 * din + 2 * g * n:]
+    return z, xbc, dt
+
+
+def ssd_scan(x, dt, a_per_head, B, C, chunk: int):
+    """Core chunked SSD through K5.  x: (b, s, h, p); dt: (b, s, h) after
+    softplus; a_per_head: (h,) negative; B, C: (b, s, g, n) with g = 1.
+    Returns (y in x's type, final_state (b, h, p, n) float32).
+
+    A length that is no multiple of the chunk is padded with dt = 0 steps
+    (decay exp(0) = 1, zero input), as the reference pads: the state
+    after the padding is the state after the last real step."""
+    s = x.shape[1]
+    check_groups(B.shape[2])
+    bm, cm = B[:, :, 0], C[:, :, 0]
+    pad = -s % chunk
+    if pad:
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        bm = F.pad(bm, (0, 0, 0, pad))
+        cm = F.pad(cm, (0, 0, 0, pad))
+    y, final_state = ssd_ops.ssd_from_a(x, dt, a_per_head, bm, cm, chunk)
+    return y[:, :s].to(x.dtype), final_state
+
+
+def ssd_forward(params, x, cfg):
+    """Full-sequence SSD mixer.  x: (B, S, D).
+
+    Returns (y, (conv_state, ssm_state)): the cache that continues
+    decoding after a prefill."""
+    b, s, _ = x.shape
+    h, p = cfg.ssd_heads, cfg.ssd_headdim
+    g, n = cfg.ssd_ngroups, cfg.ssd_state
+    din = cfg.d_inner
+    check_groups(g)
+
+    zxbcdt = x @ params.in_proj
+    z, xbc, dt = _split_zxbcdt(cfg, zxbcdt)
+    xbc, conv_state = _causal_conv(xbc, params.conv_w, params.conv_b)
+    conv_state = conv_state.clone()  # the cache owns it; decode writes it in place
+    xbc = _silu(xbc)
+    xin = xbc[..., :din].reshape(b, s, h, p)
+    bmat = xbc[..., din:din + g * n].reshape(b, s, g, n)
+    cmat = xbc[..., din + g * n:].reshape(b, s, g, n)
+    dt = _softplus(dt.float() + params.dt_bias.float())
+    a = -torch.exp(params.A_log.float())
+
+    y, ssm_state = ssd_scan(xin, dt, a, bmat, cmat, cfg.ssd_chunk)
+    y = y + params.D.to(x.dtype)[None, None, :, None] * xin
+    y = _gated_rmsnorm(params.norm_scale, y.reshape(b, s, din), z)
+    return y @ params.out_proj, (conv_state, ssm_state)
+
+
+def ssd_decode_step(params, x, cache, cfg):
+    """One-token SSD step.  x: (B, 1, D); cache = (conv_state, ssm_state),
+    written in place and returned."""
+    conv_state, ssm_state = cache
+    b = x.shape[0]
+    h, p = cfg.ssd_heads, cfg.ssd_headdim
+    g, n = cfg.ssd_ngroups, cfg.ssd_state
+    din = cfg.d_inner
+    check_groups(g)
+
+    zxbcdt = x @ params.in_proj  # (B, 1, ...)
+    z, xbc, dt = _split_zxbcdt(cfg, zxbcdt)
+    xbc, new_conv = _causal_conv(xbc, params.conv_w, params.conv_b, conv_state)
+    xbc = _silu(xbc)
+    xin = xbc[..., :din].reshape(b, h, p)
+    bv = xbc[..., din:din + n].reshape(b, n)
+    cv = xbc[..., din + n:].reshape(b, n)
+    dt1 = _softplus(dt.float()[:, 0] + params.dt_bias.float())  # (B, h)
+    a = -torch.exp(params.A_log.float())
+    decay = torch.exp(dt1 * a[None, :])  # (B, h)
+
+    # state update: S <- decay * S + dt * B (outer) x
+    upd = torch.einsum("bn,bhp,bh->bhpn", bv.float(), xin.float(), dt1)
+    state = decay[..., None, None] * ssm_state + upd
+    y = torch.einsum("bn,bhpn->bhp", cv.float(), state)
+    ssm_state.copy_(state)
+    conv_state.copy_(new_conv)
+    y = y + params.D.float()[None, :, None] * xin.float()
+    y = y.reshape(b, 1, din).to(x.dtype)
+    y = _gated_rmsnorm(params.norm_scale, y, z)
+    return y @ params.out_proj, (conv_state, ssm_state)
+
+
+def ssd_init_cache_shapes(cfg, batch: int):
+    """(conv_state, ssm_state) shapes for cache allocation."""
+    d_xbc = cfg.d_inner + 2 * cfg.ssd_ngroups * cfg.ssd_state
+    return (
+        (batch, cfg.conv_width - 1, d_xbc),
+        (batch, cfg.ssd_heads, cfg.ssd_headdim, cfg.ssd_state),
+    )

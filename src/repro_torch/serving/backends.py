@@ -9,10 +9,11 @@ The counterpart of ``repro.serving.backends``.  Everything the runtime
     model_bytes(model)                     -> bytes
     swap_cost(model)                       -> cold-load seconds
 
-``ProfiledBackend`` runs the port's ``LM`` (prefill through K3, greedy
-decode through K4) on the card, stopwatch-timed with the card
-synchronised before every clock read, so ``prefill_s`` and ``decode_s``
-are the card's time and not the host's enqueue time.  Sizes are weight
+``ProfiledBackend`` runs the port's ``LM`` (attention prefill through K3
+and greedy decode through K4, SSD prefill through K5) on the card,
+stopwatch-timed with the card synchronised before every clock read, so
+``prefill_s`` and ``decode_s`` are the card's time and not the host's
+enqueue time.  Sizes are weight
 bytes at the declared dtype; swap cost is bytes over a 25 GB/s staging
 rate, the reference's constants.  ``CompiledBackend``,
 ``SimulatedBackend`` and ``CostModelBackend`` are not ported yet

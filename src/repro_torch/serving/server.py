@@ -8,7 +8,8 @@ The SneakPeek stage is the port's ``attach_sneakpeek`` (k-NN evidence
 through K2), scheduling is the port's ``schedule_window`` (Eq. 2 tiles
 through K1), the commit is the port's ``evaluate`` against a carried
 ``StreamingState``, and the executor runs the port's ``LM`` on the card
-(prefill through K3, decode through K4).  The reference's multi-worker
+(attention prefill through K3 and decode through K4, SSD prefill
+through K5).  The reference's multi-worker
 pool, compiled pipeline, preemption, fault-tolerant closed loop and
 overlapped loop are not ported yet: their options raise
 ``NotImplementedError`` naming the ROADMAP item that brings each.

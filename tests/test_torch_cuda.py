@@ -19,6 +19,8 @@ from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.knn import ops as knn_ops
 from repro_torch.kernels.knn.ref import knn_topk_ref
+from repro_torch.kernels.ssd import ops as ssd_ops
+from repro_torch.kernels.ssd.ref import ssd_chunk_ref, ssd_sequential_ref
 from repro_torch.kernels.utility import ops as util_ops
 from repro_torch.kernels.utility.ref import utility_scores_ref
 
@@ -28,6 +30,7 @@ PENALTIES = ["step", "linear", "sigmoid", "none"]
 # The kernels against their plain versions on the card, as
 # tests/test_kernels.py holds the Pallas kernels against their oracles.
 ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+SSD_ATOL, SSD_RTOL = 2e-4, 1e-3  # tests/test_kernels.py:192
 
 
 @pytest.fixture
@@ -235,5 +238,112 @@ def test_lm_on_the_card_matches_the_host(cuda):
             torch.testing.assert_close(lc.cpu(), lh, atol=1e-3, rtol=1e-3)
         torch.testing.assert_close(cc["layers"][1]["k"].cpu(), ch["layers"][1]["k"],
                                    atol=1e-3, rtol=1e-3)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+# ------------------------------------------------------ SSD chunk scan (K5)
+
+
+def _ssd_case(b, s, h, p, n, device):
+    """The model-facing inputs of tests/test_kernels.py:185."""
+    rng = np.random.default_rng([b, s, h, p, n])
+    x = rng.normal(size=(b, s, h, p))
+    dt = np.abs(rng.normal(size=(b, s, h))) * 0.5 + 0.1
+    a_log = rng.normal(size=(h,)) * 0.3
+    bm, cm = (rng.normal(size=(b, s, n)) * 0.3 for _ in range(2))
+    return [torch.as_tensor(v, dtype=torch.float32, device=device)
+            for v in (x, dt, a_log, bm, cm)]
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk", [
+    (2, 64, 4, 8, 16, 16), (1, 128, 2, 16, 8, 32), (2, 48, 8, 8, 32, 16),
+    (2, 256, 24, 64, 128, 128), (1, 96, 3, 64, 128, 32), (3, 40, 2, 5, 7, 8),
+])
+def test_ssd_kernel_matches_plain(cuda, b, s, h, p, n, chunk):
+    """y and the final state against the chunked plain version on the
+    card, and against the step-by-step recurrence."""
+    x, dt, a_log, bm, cm = _ssd_case(b, s, h, p, n, cuda)
+    y, state = ssd_ops.ssd(x, dt, a_log, bm, cm, chunk=chunk)
+    dA = dt * -torch.exp(a_log)
+    xdt = x * dt[..., None]
+    y_ref, state_ref = ssd_chunk_ref(xdt, dA, bm, cm, chunk)
+    torch.testing.assert_close(y, y_ref, atol=SSD_ATOL, rtol=SSD_RTOL)
+    torch.testing.assert_close(state, state_ref, atol=SSD_ATOL, rtol=SSD_RTOL)
+    if s <= 128:
+        y_seq, state_seq = ssd_sequential_ref(xdt, dA, bm, cm)
+        torch.testing.assert_close(y, y_seq, atol=SSD_ATOL, rtol=SSD_RTOL)
+        torch.testing.assert_close(state, state_seq, atol=SSD_ATOL, rtol=SSD_RTOL)
+
+
+def test_ssd_kernel_strong_decay(cuda):
+    """Decays summing below -100 inside a chunk: L is formed from
+    differences of the cumsum, so no NaN and no underflowed quotient."""
+    x, dt, a_log, bm, cm = _ssd_case(1, 256, 4, 64, 128, cuda)
+    dt = dt * 8.0  # cum reaches about -400 over a 128-step chunk
+    y, state = ssd_ops.ssd(x, dt, a_log, bm, cm, chunk=128)
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(state).all())
+    dA = dt * -torch.exp(a_log)
+    y_ref, state_ref = ssd_chunk_ref(x * dt[..., None], dA, bm, cm, 128)
+    torch.testing.assert_close(y, y_ref, atol=SSD_ATOL, rtol=SSD_RTOL)
+    torch.testing.assert_close(state, state_ref, atol=SSD_ATOL, rtol=SSD_RTOL)
+
+
+def test_ssd_scan_ragged_length_on_the_card(cuda):
+    """A length that is no multiple of the chunk, through models.ssd's
+    padding: the card against the host, the final state included."""
+    from repro_torch.models.ssd import ssd_scan
+
+    x, dt, a_log, bm, cm = _ssd_case(2, 300, 4, 64, 128, cuda)
+    a = -torch.exp(a_log)
+    args = (x, dt, a, bm[:, :, None], cm[:, :, None])
+    y, state = ssd_scan(*args, 128)
+    y_host, state_host = ssd_scan(*(t.cpu() for t in args), 128)
+    torch.testing.assert_close(y.cpu(), y_host, atol=SSD_ATOL, rtol=SSD_RTOL)
+    torch.testing.assert_close(state.cpu(), state_host, atol=SSD_ATOL, rtol=SSD_RTOL)
+
+
+def test_ssd_kernel_counts_launches_and_rejects(cuda):
+    x, dt, a_log, bm, cm = _ssd_case(1, 32, 2, 8, 16, cuda)
+    before = ssd_ops.counter.count
+    ssd_ops.ssd(x, dt, a_log, bm, cm, chunk=16)
+    assert ssd_ops.counter.count == before + 1
+    with pytest.raises(ValueError):
+        ssd_ops.ssd(x, dt, a_log, bm, cm, chunk=256)  # above the kernel's chunk limit
+    with pytest.raises(TypeError):
+        ssd_ops.ssd_chunk_scan(x.double(), dt, bm, cm, 16)
+    assert ssd_ops.counter.count == before + 1
+
+
+def test_mamba2_on_the_card_matches_the_host(cuda):
+    """A 2-layer float32 mamba2-130m at full width: prefill (K5) and decode
+    on the card against the same weights on the host (plain versions),
+    logits and both caches.  Tolerance: float32 sums over d_model 768,
+    d_inner 1536 and the 128-wide state in other orders, two layers deep."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import LM
+
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cfg = dataclasses.replace(ARCHS["mamba2-130m"], num_layers=2, dtype="float32")
+        lm = LM(cfg)
+        params = lm.init(seed=0, device=cuda)
+        host = LM(cfg).init(seed=0, device=cuda).to("cpu")
+        tokens = torch.randint(0, cfg.vocab_size, (2, 200),
+                               generator=torch.Generator().manual_seed(0))
+        lc, cc = lm.prefill(params, tokens.to(cuda), max_len=204)
+        lh, ch = lm.prefill(host, tokens, max_len=204)
+        torch.testing.assert_close(lc.cpu(), lh, atol=1e-3, rtol=1e-3)
+        for t in range(4):
+            tok = lh.argmax(dim=-1, keepdim=True)
+            lc, cc = lm.decode_step(params, cc, tok.to(cuda))
+            lh, ch = lm.decode_step(host, ch, tok)
+            torch.testing.assert_close(lc.cpu(), lh, atol=1e-3, rtol=1e-3)
+        for name in ("conv", "state"):
+            torch.testing.assert_close(cc["layers"][1][name].cpu(), ch["layers"][1][name],
+                                       atol=1e-3, rtol=1e-3)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev

@@ -3,11 +3,13 @@
 On the CPU the port's wrappers run their plain PyTorch versions; those are
 held here against the Pallas kernels in interpret mode and against their
 jnp and numpy references, on the shapes of tests/test_kernels.py: K1
-(Eq. 2 utility), K2 (k-NN), K3 (prefill flash attention) and K4 (flash
-decode).  The
+(Eq. 2 utility), K2 (k-NN), K3 (prefill flash attention), K4 (flash
+decode) and K5 (the Mamba-2 SSD chunk scan).  The
 CUDA kernels themselves run only on a card: tests/test_torch_cuda.py
 holds them against these plain versions there.
 """
+import shutil
+
 import numpy as np
 import pytest
 import torch
@@ -16,11 +18,17 @@ from repro.core.fastpath import sequential_mean, utility_matrix
 from repro.kernels.decode_attention.kernel import decode_attention_pallas
 from repro.kernels.flash_attention.ops import flash_attention as pallas_flash_attention
 from repro.kernels.knn.ops import knn_class_votes, knn_topk
+from repro.kernels.ssd.kernel import ssd_pallas
+from repro.kernels.ssd.ops import ssd as pallas_ssd
+from repro.kernels.ssd.ref import ssd_ref
 from repro.kernels.utility.ops import utility_scores as pallas_utility_scores
 from repro_torch.device import resolve_device
 from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels import nvcc
 from repro_torch.kernels.knn import ops as knn_ops
+from repro_torch.kernels.ssd import ops as ssd_ops
+from repro_torch.kernels.ssd.ref import ssd_chunk_ref, ssd_sequential_ref
 from repro_torch.kernels.utility import ops as util_ops
 
 PENALTIES = ["step", "linear", "sigmoid", "none"]
@@ -35,6 +43,10 @@ DECODE_SHAPES = [(2, 2, 4, 256, 32, 0, 64), (3, 1, 8, 300, 64, 0, 128),
 # f32 agrees with the Pallas kernels up to summation order over at most a
 # few hundred keys; bf16 as tests/test_kernels.py holds its kernels.
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# The sweep of tests/test_kernels.py:181, (b, s, h, p, n, chunk), held at
+# its tolerance (:192).
+SSD_SHAPES = [(2, 64, 4, 8, 16, 16), (1, 128, 2, 16, 8, 32), (2, 48, 8, 8, 32, 16)]
+SSD_ATOL, SSD_RTOL = 2e-4, 1e-3
 
 
 def _knn_inputs(q, n, d, k, nc):
@@ -289,6 +301,107 @@ def test_attention_wrappers_reject_bad_inputs():
     with pytest.raises(ValueError):
         decode_ops.decode_attention(torch.zeros((2, 2, 4, 16)), cache, cache,
                                     torch.tensor([3, 4], dtype=torch.int32))
+
+
+# ------------------------------------------------------- SSD chunk scan (K5)
+
+
+def _ssd_inputs(b, s, h, p, n):
+    """The model-facing inputs of tests/test_kernels.py:185, float32."""
+    rng = np.random.default_rng([b, s, h, p, n])
+    x = rng.normal(size=(b, s, h, p)).astype(np.float32)
+    dt = (np.abs(rng.normal(size=(b, s, h))) * 0.5 + 0.1).astype(np.float32)
+    a_log = (rng.normal(size=(h,)) * 0.3).astype(np.float32)
+    bm = (rng.normal(size=(b, s, n)) * 0.3).astype(np.float32)
+    cm = (rng.normal(size=(b, s, n)) * 0.3).astype(np.float32)
+    return x, dt, a_log, bm, cm
+
+
+def _ssd_close(out, ref):
+    np.testing.assert_allclose(np.asarray(out), np.asarray(ref), atol=SSD_ATOL, rtol=SSD_RTOL)
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk", SSD_SHAPES)
+def test_ssd_plain_matches_pallas(b, s, h, p, n, chunk):
+    """The wrapper's plain route against ssd_pallas (interpret mode) and
+    against the reference's sequential oracle, through the model-facing
+    call of both packages: y and the final state."""
+    x, dt, a_log, bm, cm = _ssd_inputs(b, s, h, p, n)
+    y, state = ssd_ops.ssd(*(torch.as_tensor(v) for v in (x, dt, a_log, bm, cm)), chunk=chunk)
+    assert y.dtype == state.dtype == torch.float32
+    assert y.shape == (b, s, h, p) and state.shape == (b, h, p, n)
+    yk, sk = pallas_ssd(x, dt, a_log, bm, cm, chunk=chunk, use_kernel=True)
+    _ssd_close(y, yk)
+    _ssd_close(state, sk)
+    yr, sr = pallas_ssd(x, dt, a_log, bm, cm, chunk=chunk, use_kernel=False)
+    _ssd_close(y, yr)
+    _ssd_close(state, sr)
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk", SSD_SHAPES)
+def test_ssd_sequential_oracle_matches_reference(b, s, h, p, n, chunk):
+    """The port's step-by-step oracle against the reference's ssd_ref and
+    against the port's chunked plain version, on ssd_pallas's contract."""
+    x, dt, a_log, bm, cm = _ssd_inputs(b, s, h, p, n)
+    dA = dt * -np.exp(a_log)
+    xdt = x * dt[..., None]
+    args = [torch.as_tensor(v) for v in (xdt, dA, bm, cm)]
+    ys, ss = ssd_sequential_ref(*args)
+    yr, sr = ssd_ref(xdt, dA, bm, cm, chunk=chunk)
+    _ssd_close(ys, yr)
+    _ssd_close(ss, sr)
+    yc, sc = ssd_chunk_ref(*args, chunk)
+    _ssd_close(yc, ys)
+    _ssd_close(sc, ss)
+    yk, sk = ssd_pallas(xdt, dA, bm, cm, chunk=chunk, interpret=True)
+    _ssd_close(yc, yk)
+    _ssd_close(sc, sk)
+
+
+def test_ssd_plain_strong_decay_stays_finite():
+    """Decays summing to about -400 over a chunk: L from differences of the
+    cumsum, never a quotient of underflowed exponentials."""
+    x, dt, a_log, bm, cm = _ssd_inputs(1, 64, 2, 8, 16)
+    dt = dt * 8.0
+    y, state = ssd_ops.ssd(*(torch.as_tensor(v) for v in (x, dt, a_log, bm, cm)), chunk=64)
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(state).all())
+    dA = dt * -np.exp(a_log)
+    yr, sr = ssd_ref(x * dt[..., None], dA, bm, cm)
+    _ssd_close(y, yr)
+    _ssd_close(state, sr)
+
+
+def test_ssd_wrapper_rejects_bad_inputs():
+    x, dt, a_log, bm, cm = (torch.as_tensor(v) for v in _ssd_inputs(1, 32, 2, 8, 16))
+    xdt, dA = x * dt[..., None], dt * -torch.exp(a_log)
+    before = ssd_ops.counter.count
+    with pytest.raises(ValueError, match="multiple of the chunk"):
+        ssd_ops.ssd(x, dt, a_log, bm, cm, chunk=12)
+    with pytest.raises(ValueError):
+        ssd_ops.ssd_chunk_scan(xdt, dA[:, :, :1], bm, cm, 16)  # dA has one head
+    with pytest.raises(ValueError):
+        ssd_ops.ssd_chunk_scan(xdt, dA, bm, cm[:, :, :8], 16)  # B and C differ
+    with pytest.raises(ValueError):
+        ssd_ops.ssd_chunk_scan(xdt, dA, bm[:, :16], cm[:, :16], 16)  # B is shorter
+    with pytest.raises(ValueError):
+        ssd_ops.ssd(x, dt, a_log[:1], bm, cm, chunk=16)  # a_log has one head
+    assert ssd_ops.counter.count == before  # the plain route launches nothing
+
+
+def test_ssd_has_no_fallback_without_cuda():
+    """A tensor that is not on the CPU never takes the plain version; on a
+    host without the CUDA toolkit the kernel's route raises."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a card; the card's route is tested in test_torch_cuda.py")
+    meta = [torch.empty(shape, device="meta") for shape in
+            ((1, 16, 2, 8), (1, 16, 2), (1, 16, 4), (1, 16, 4))]
+    with pytest.raises(ValueError, match="CUDA or the CPU"):
+        ssd_ops.ssd_chunk_scan(*meta, 16)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device("cuda")
+    if shutil.which("nvcc") is None:
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            nvcc.library("ssd")
 
 
 # ------------------------------------------------------------ no fallback

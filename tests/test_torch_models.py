@@ -11,7 +11,10 @@ over 2 KV heads, G = 2); a GQA variant with 8 query heads over 2 (G = 4)
 at a sequence length that is no multiple of the reference's 16-key
 chunks; and a variant with every optional layer of the ``attn:mlp``
 kind switched on (GeGLU, scaled and tied embeddings, q/k norms,
-post-norms, logit soft-capping), as the gemma configs use them.
+post-norms, logit soft-capping), as the gemma configs use them.  Then
+reduced mamba2-130m (the ``ssd:none`` kind: the SSD mixer, whose chunked
+scan takes K5's plain version here, and no FFN), against the reference's
+``ssd_scan``, ``ssd_forward``, ``ssd_decode_step`` and ``LM``.
 """
 import dataclasses
 
@@ -25,6 +28,7 @@ from repro.configs import ARCHS as J_ARCHS
 from repro.models import LM as JLM
 from repro.models import attention as j_attn
 from repro.models import layers as j_layers
+from repro.models import ssd as j_ssd
 from repro.models.kvcache import cache_bytes as j_cache_bytes
 from repro.serving.backends import weight_bytes as j_weight_bytes
 from repro_torch import convert
@@ -32,6 +36,7 @@ from repro_torch.configs import ARCHS, ModelConfig
 from repro_torch.models import LM
 from repro_torch.models import attention as t_attn
 from repro_torch.models import layers as t_layers
+from repro_torch.models import ssd as t_ssd
 from repro_torch.models.kvcache import cache_bytes
 from repro_torch.serving.backends import weight_bytes
 
@@ -296,14 +301,21 @@ def test_bf16_config_runs_on_cpu():
 
 
 def test_unported_layer_kinds_raise():
+    """Sliding-window and recurrent mixers, MoE FFNs, the int8 KV cache and
+    SSD with more than one group raise, naming their ROADMAP item; the
+    ``ssd:none`` kind runs."""
     base = ARCHS["tinyllama-1.1b"].reduced()
-    for kind in ("local:mlp", "ssd:none", "rglru:mlp"):
-        cfg = dataclasses.replace(base, pattern=(kind,), window_size=16, ssd_state=16,
-                                  lru_width=64)
+    for kind in ("local:mlp", "rglru:mlp", "attn:moe"):
+        cfg = dataclasses.replace(base, pattern=(kind,), window_size=16, lru_width=64,
+                                  num_experts=4, moe_d_ff=128)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             LM(cfg)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         LM(dataclasses.replace(base, kv_quant=True))
+    mamba = ARCHS["mamba2-130m"].reduced()
+    with pytest.raises(NotImplementedError, match="ROADMAP.*ngroups"):
+        LM(dataclasses.replace(mamba, ssd_ngroups=2))
+    assert "ssd" in LM(mamba).spec["blocks"][0]  # the ssd:none kind builds
 
 
 def test_lm_init_needs_cuda_unless_cpu_is_named():
@@ -314,3 +326,189 @@ def test_lm_init_needs_cuda_unless_cpu_is_named():
         lm.init(seed=0)
     with pytest.raises(RuntimeError, match="CUDA"):
         lm.init_cache(1, 8)
+
+
+# ---------------------------------------------------------------- mamba2 (SSD)
+
+# Float32 on both sides; the SSD state sums 16-wide outer products over up
+# to 37 steps and the layers' projections are taken in other orders.
+SSD_TOL = 1e-4
+MAMBA_SEQ = 21  # no multiple of the reduced config's chunk of 8
+
+
+@pytest.fixture(scope="module")
+def mamba_pair():
+    """(JAX cfg, JAX LM, JAX params, port cfg, port LM, port params) for
+    reduced mamba2-130m on the reference's weights."""
+    jcfg = J_ARCHS["mamba2-130m"].reduced()
+    jlm = JLM(jcfg)
+    jparams = jlm.init(seed=3)
+    cfg = _port_cfg(jcfg)
+    params = convert.lm_params_from_arrays(cfg, jax.tree.map(np.asarray, jparams), device="cpu")
+    return jcfg, jlm, jparams, cfg, LM(cfg), params
+
+
+def _scan_inputs(b, s, h, p, n, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(b, s, h, p)).astype(np.float32)
+    dt = (np.abs(rng.normal(size=(b, s, h))) * 0.5 + 0.1).astype(np.float32)
+    a = (-np.exp(rng.normal(size=(h,)) * 0.3)).astype(np.float32)
+    bm, cm = (rng.normal(size=(b, s, 1, n)).astype(np.float32) * 0.3 for _ in range(2))
+    return x, dt, a, bm, cm
+
+
+@pytest.mark.parametrize("s,chunk", [(37, 16), (21, 8), (64, 16), (5, 8)])
+def test_ssd_scan_ragged_matches_reference(s, chunk):
+    """Lengths that are no multiple of the chunk, padded with dt = 0 steps:
+    y and the final state (the state after the last real step) agree with
+    the reference's ssd_scan and with the step-by-step recurrence."""
+    x, dt, a, bm, cm = _scan_inputs(2, s, 4, 8, 16, s)
+    y_ref, st_ref = j_ssd.ssd_scan(*(jnp.asarray(v) for v in (x, dt, a, bm, cm)), chunk)
+    y, st = t_ssd.ssd_scan(*(torch.as_tensor(v) for v in (x, dt, a, bm, cm)), chunk)
+    assert y.shape == (2, s, 4, 8) and st.shape == (2, 4, 8, 16)
+    _close(y, y_ref, SSD_TOL)
+    _close(st, st_ref, SSD_TOL)
+    from repro_torch.kernels.ssd.ref import ssd_sequential_ref
+
+    dA = torch.as_tensor(dt * a)
+    xdt = torch.as_tensor(x * dt[..., None])
+    y_seq, st_seq = ssd_sequential_ref(xdt, dA, torch.as_tensor(bm[:, :, 0]),
+                                       torch.as_tensor(cm[:, :, 0]))
+    _close(y, y_seq, SSD_TOL)
+    _close(st, st_seq, SSD_TOL)
+
+
+def test_ssd_scan_bf16_within_the_rounding_difference():
+    """bf16 inputs: the reference rounds scores, L and the carried states to
+    bf16 inside ssd_scan, K5's plain version keeps them float32 (ROADMAP,
+    P3); the outputs agree within the bf16 tolerance of
+    tests/test_kernels.py, the port's within float32 of the exact scan."""
+    x, dt, a, bm, cm = _scan_inputs(2, 37, 4, 8, 16, 1)
+    xb, bb, cb = (jnp.asarray(v, jnp.bfloat16) for v in (x, bm, cm))
+    y_ref, st_ref = j_ssd.ssd_scan(xb, jnp.asarray(dt), jnp.asarray(a), bb, cb, 16)
+    port = [torch.as_tensor(np.asarray(v, np.float32)).to(torch.bfloat16) for v in (xb, bb, cb)]
+    y, st = t_ssd.ssd_scan(port[0], torch.as_tensor(dt), torch.as_tensor(a), port[1], port[2], 16)
+    assert y.dtype == torch.bfloat16 and st.dtype == torch.float32
+    _close(y.float(), np.asarray(y_ref, np.float32), 2e-2)
+    _close(st, np.asarray(st_ref, np.float32), 2e-2)
+    y32, st32 = j_ssd.ssd_scan(*(jnp.asarray(np.asarray(v, np.float32)) for v in (xb,)),
+                               jnp.asarray(dt), jnp.asarray(a),
+                               *(jnp.asarray(np.asarray(v, np.float32)) for v in (bb, cb)), 16)
+    _close(st, st32, SSD_TOL)
+
+
+def test_ssd_forward_and_decode_match_reference(mamba_pair):
+    """The mixer of layer 1: prefill output and cache, then two one-token
+    steps whose conv window and state the port writes in place."""
+    jcfg, _, jparams, cfg, _, params = mamba_pair
+    x = _x(cfg, 2, MAMBA_SEQ, 12)
+    jp = jax.tree.map(lambda t: t[1], jparams["blocks"][0]["ssd"])
+    y_ref, (conv_ref, st_ref) = j_ssd.ssd_forward(jp, jnp.asarray(x), jcfg)
+    y, (conv, st) = t_ssd.ssd_forward(params.layers[1].ssd, torch.as_tensor(x), cfg)
+    _close(y, y_ref, SSD_TOL)
+    _close(conv, conv_ref, SSD_TOL)
+    _close(st, st_ref, SSD_TOL)
+    cache_ref = (conv_ref, st_ref)
+    for t in range(2):
+        xt = _x(cfg, 2, 1, 13 + t)
+        y_ref, cache_ref = j_ssd.ssd_decode_step(jp, jnp.asarray(xt), cache_ref, jcfg)
+        y, (conv_out, st_out) = t_ssd.ssd_decode_step(params.layers[1].ssd, torch.as_tensor(xt),
+                                                      (conv, st), cfg)
+        assert conv_out is conv and st_out is st  # written in place
+        _close(y, y_ref, SSD_TOL)
+        _close(conv, cache_ref[0], SSD_TOL)
+        _close(st, cache_ref[1], SSD_TOL)
+
+
+def test_mamba2_forward_matches_reference(mamba_pair):
+    _, jlm, jparams, cfg, lm, params = mamba_pair
+    tokens = _tokens(cfg, 2, MAMBA_SEQ, 14)
+    ref, _ = jlm.forward(jparams, jnp.asarray(tokens))
+    _close(lm.forward(params, torch.as_tensor(tokens)), ref, SSD_TOL)
+
+
+def test_mamba2_prefill_and_decode_match_reference(mamba_pair):
+    """Prefill logits and both caches of every layer, then three decode
+    steps fed the same tokens: logits, caches and positions agree."""
+    _, jlm, jparams, cfg, lm, params = mamba_pair
+    tokens = _tokens(cfg, 2, MAMBA_SEQ, 15)
+    max_len = MAMBA_SEQ + 4
+    logits_ref, cache_ref = jlm.prefill(jparams, jnp.asarray(tokens), max_len=max_len)
+    logits, cache = lm.prefill(params, torch.as_tensor(tokens), max_len=max_len)
+    _close(logits, logits_ref, SSD_TOL)
+    assert cache["pos"] == int(cache_ref["pos"]) == MAMBA_SEQ
+    for name in ("conv", "state"):
+        assert cache["layers"][0][name].dtype == torch.float32
+        _close(_stacked_cache(cache, name), cache_ref["blocks"][0][name], SSD_TOL)
+    step_tokens = _tokens(cfg, 2, 3, 16)
+    for t in range(3):
+        tok = step_tokens[:, t:t + 1]
+        logits_ref, cache_ref = jlm.decode_step(jparams, cache_ref, jnp.asarray(tok))
+        logits, cache = lm.decode_step(params, cache, torch.as_tensor(tok))
+        _close(logits, logits_ref, SSD_TOL)
+        assert cache["pos"] == int(cache_ref["pos"]) == MAMBA_SEQ + t + 1
+        for name in ("conv", "state"):
+            _close(_stacked_cache(cache, name), cache_ref["blocks"][0][name], SSD_TOL)
+
+
+def test_mamba2_generate_matches_reference(mamba_pair):
+    """Greedy tokens equal wherever the top-2 margin along the reference's
+    path exceeds the tolerance (as for the attention configs above)."""
+    _, jlm, jparams, cfg, lm, params = mamba_pair
+    tokens = _tokens(cfg, 3, MAMBA_SEQ, 17)
+    steps = 5
+    ref = np.asarray(jlm.generate(jparams, jnp.asarray(tokens), steps))
+    out = lm.generate(params, torch.as_tensor(tokens), steps).numpy()
+    logits, cache = lm.prefill(params, torch.as_tensor(tokens), max_len=tokens.shape[1] + steps)
+    margins = []
+    for t in range(steps):
+        top2 = torch.sort(logits, dim=-1).values[:, -2:].numpy()
+        margins.append(top2[:, 1] - top2[:, 0])
+        if t < steps - 1:
+            logits, cache = lm.decode_step(params, cache, torch.as_tensor(ref[:, t:t + 1].copy()))
+    clear = np.cumprod(np.stack(margins, axis=1) > 2 * SSD_TOL, axis=1).astype(bool)
+    assert clear.any()
+    np.testing.assert_array_equal(out[clear], ref[clear])
+
+
+def test_mamba2_params_round_trip_and_init_laws(mamba_pair):
+    """convert carries the mamba2 tree (in_proj, conv_w, conv_b, A_log, D,
+    dt_bias, norm_scale, out_proj; tied embeddings, no lm_head) both ways;
+    LM.init draws the reference's tree with its laws."""
+    _, _, jparams, cfg, _, params = mamba_pair
+    jtree = jax.tree.map(np.asarray, jparams)
+    back = convert.lm_params_to_arrays(params)
+    assert jax.tree.structure(back) == jax.tree.structure(jtree)
+    assert "lm_head" not in back and params.lm_head is None
+    assert sorted(back["blocks"][0]["ssd"]) == sorted(
+        ["in_proj", "conv_w", "conv_b", "A_log", "D", "dt_bias", "norm_scale", "out_proj"])
+    for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(jtree)):
+        np.testing.assert_array_equal(a, b)
+    fresh = convert.lm_params_to_arrays(LM(cfg).init(seed=0, device="cpu"))
+    assert jax.tree.structure(fresh) == jax.tree.structure(jtree)
+    for a, b in zip(jax.tree.leaves(fresh), jax.tree.leaves(jtree)):
+        assert a.shape == b.shape and a.dtype == b.dtype
+    ssd = fresh["blocks"][0]["ssd"]
+    assert (ssd["D"] == 1).all() and not ssd["A_log"].any() and not ssd["dt_bias"].any()
+    assert not ssd["conv_b"].any() and not ssd["norm_scale"].any()
+    trunc_std = 0.8796  # std of a standard normal cut at +-2
+    for leaf, std in ((ssd["conv_w"], 0.02), (ssd["in_proj"], cfg.d_model ** -0.5),
+                      (fresh["embed"]["embedding"], 0.02)):
+        assert np.abs(leaf).max() <= 2 * std * (1 + 1e-6)
+        assert abs(leaf.std() / (std * trunc_std) - 1) < 0.1
+
+
+def test_mamba2_bf16_runs_on_cpu():
+    """The declared bf16 dtype reaches weights, activations and the conv
+    cache; the SSD state stays float32."""
+    cfg = dataclasses.replace(ARCHS["mamba2-130m"].reduced(), dtype="bfloat16")
+    lm = LM(cfg)
+    params = lm.init(seed=0, device="cpu")
+    logits, cache = lm.prefill(params, torch.as_tensor(_tokens(cfg, 2, 9, 18)), max_len=12)
+    assert params.embed.embedding.dtype == torch.bfloat16 and logits.dtype == torch.bfloat16
+    assert cache["layers"][0]["conv"].dtype == torch.bfloat16
+    assert cache["layers"][0]["state"].dtype == torch.float32
+    logits, cache = lm.decode_step(params, cache, torch.zeros((2, 1), dtype=torch.int64))
+    assert torch.isfinite(logits.float()).all() and cache["pos"] == 10
+    init = lm.init_cache(2, 12, device="cpu")
+    assert [sorted(c) for c in init["layers"]] == [["conv", "state"]] * cfg.num_layers

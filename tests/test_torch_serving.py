@@ -8,9 +8,11 @@ executed batch must hold the same requests on the same model, and the
 generated tokens must be equal wherever the reference's top-2 logit
 margin exceeds the tolerance.  The weights are the reference's
 ``LM.init(seed)``, carried into the port's backend with
-``convert.lm_params_from_arrays``.  Also checked: the swap manager, the
-options the port does not have yet, and the CUDA rule of the entry
-points.
+``convert.lm_params_from_arrays``.  Two assistants: two tinyllama
+variants, and two families, reduced mamba2-130m (the SSD mixer, its scan
+through K5's plain version) beside reduced tinyllama-1.1b.  Also checked:
+the swap manager, the options the port does not have yet, and the CUDA
+rule of the entry points.
 """
 import dataclasses
 
@@ -49,16 +51,23 @@ J_VARIANTS = {
     "tiny-large": (dataclasses.replace(_BASE, num_layers=3), 1),
 }
 PROFILES = [("tiny-small", [0.72, 0.70], 0.010, 0.02), ("tiny-large", [0.84, 0.82], 0.030, 0.06)]
+# The two families of examples/edge_serving.py, with its recalls.
+J_FAMILIES = {
+    "mamba2-130m": (J_ARCHS["mamba2-130m"].reduced(), 0),
+    "tinyllama-1.1b": (_BASE, 1),
+}
+FAMILY_PROFILES = [("mamba2-130m", [0.72, 0.70], 0.010, 0.02),
+                   ("tinyllama-1.1b", [0.84, 0.82], 0.030, 0.06)]
 
 
-def _port_variants():
+def _port_variants(variants=J_VARIANTS):
     return {name: (ModelConfig(**dataclasses.asdict(cfg)), seed)
-            for name, (cfg, seed) in J_VARIANTS.items()}
+            for name, (cfg, seed) in variants.items()}
 
 
-def _apps(profile_cls, app_cls):
+def _apps(profile_cls, app_cls, profiles=PROFILES):
     models = [profile_cls(n, recalls=r, latency_s=lat, load_latency_s=load)
-              for n, r, lat, load in PROFILES]
+              for n, r, lat, load in profiles]
     return {"assistant": app_cls(name="assistant", models=models, penalty="sigmoid")}
 
 
@@ -91,11 +100,11 @@ def knn_split():
     return _features(rng, y), y
 
 
-def _executors():
+def _executors(variants=J_VARIANTS):
     """(reference executor, port executor) serving identical weights."""
-    jexec = JLMExecutor(J_VARIANTS, new_tokens=NEW_TOKENS)
-    backend = ProfiledBackend(_port_variants(), new_tokens=NEW_TOKENS, device="cpu")
-    for name in J_VARIANTS:
+    jexec = JLMExecutor(variants, new_tokens=NEW_TOKENS)
+    backend = ProfiledBackend(_port_variants(variants), new_tokens=NEW_TOKENS, device="cpu")
+    for name in variants:
         _, jparams = jexec.backend._get(name)
         backend.set_params(name, convert.lm_params_from_arrays(
             backend.variants[name][0], jax.tree.map(np.asarray, jparams), device="cpu"))
@@ -125,21 +134,26 @@ class _Entry:
         self.request = JRequest(rid=rid, app="assistant", arrival_s=0.0, deadline_s=0.0)
 
 
-@pytest.mark.parametrize("policy", ["Grouped", "SneakPeek"])
-def test_edge_server_matches_reference(policy, knn_split):
+def _serve_both(policy, knn_split, variants, profiles):
+    """Serve the trace through both servers: (jexec, jouts, jstats, touts, tstats)."""
     x, y = knn_split
-    jexec, texec = _executors()
+    jexec, texec = _executors(variants)
     jsneaks = tsneaks = None
     if policy == "SneakPeek":
         jsneaks = {"assistant": JKNNSneakPeek(x, y, 2, k=5, backend="numpy")}
         tsneaks = {"assistant": KNNSneakPeek(x, y, 2, k=5, device="cpu")}
-    with JEdgeServer(_apps(JModelProfile, JApplication), j_make_policy(policy),
+    with JEdgeServer(_apps(JModelProfile, JApplication, profiles), j_make_policy(policy),
                      executor=jexec, sneakpeeks=jsneaks, prompt_fn=prompt_fn) as jsrv:
         jouts, jstats = jsrv.run(_trace(JRequest))
-    tsrv = EdgeServer(_apps(ModelProfile, Application), make_policy(policy), executor=texec,
-                      sneakpeeks=tsneaks, prompt_fn=prompt_fn, device="cpu")
+    tsrv = EdgeServer(_apps(ModelProfile, Application, profiles), make_policy(policy),
+                      executor=texec, sneakpeeks=tsneaks, prompt_fn=prompt_fn, device="cpu")
     touts, tstats = tsrv.run(_trace(Request))
+    return jexec, jouts, jstats, touts, tstats
 
+
+def _check_served(jexec, jouts, jstats, touts, tstats, variants):
+    """Equal statistics, the same batches on the same models, and equal
+    tokens wherever the reference's top-2 margin clears the tolerance."""
     for key in ("windows", "requests", "violations", "swaps"):
         assert getattr(tstats, key) == getattr(jstats, key), key
     assert tstats.mean_utility == jstats.mean_utility
@@ -148,7 +162,7 @@ def test_edge_server_matches_reference(policy, knn_split):
     jreports = [r for o in jouts for r in o["reports"]]
     treports = [r for o in touts for r in o["reports"]]
     assert len(treports) == len(jreports) > 1
-    assert {r.model for r in treports} == set(J_VARIANTS)
+    assert {r.model for r in treports} == set(variants)
     compared = 0
     for tr, jr in zip(treports, jreports):
         assert (tr.request_ids, tr.model, tr.batch_size, tr.swap_s) == \
@@ -158,6 +172,18 @@ def test_edge_server_matches_reference(policy, knn_split):
         np.testing.assert_array_equal(tr.tokens[clear], jr.tokens[clear])
         compared += int(clear.sum())
     assert compared > 0
+
+
+@pytest.mark.parametrize("policy", ["Grouped", "SneakPeek"])
+def test_edge_server_matches_reference(policy, knn_split):
+    _check_served(*_serve_both(policy, knn_split, J_VARIANTS, PROFILES), J_VARIANTS)
+
+
+@pytest.mark.parametrize("policy", ["Grouped", "SneakPeek"])
+def test_edge_server_two_families_match_reference(policy, knn_split):
+    """Reduced mamba2-130m beside reduced tinyllama-1.1b: both families
+    serve batches, and the statistics equal the reference's."""
+    _check_served(*_serve_both(policy, knn_split, J_FAMILIES, FAMILY_PROFILES), J_FAMILIES)
 
 
 def test_lm_executor_matches_reference():
