@@ -10,7 +10,9 @@ both, then drives two paths of the port on the card:
 * scheduling (phases 3-5): a SneakPeek ``Simulation`` over a stream of
   4096-request windows against k-NN training sets of 100,000 points per
   application (K2, K1), plus one window of each other policy;
-* serving (phases 6-9): K3, K4 and K5 against their plain versions,
+* serving (phases 6-9): K3 (its bf16 tensor-core instance and its f32
+  CUDA-core one), K4 and K5 (five kernels per call, each stage also held
+  against its plain stage and timed) against their plain versions,
   2-layer float32 models at tinyllama's and mamba2's widths on the card
   against the host, then ``EdgeServer`` serving 64 requests with
   SneakPeek over a k-NN model on two families at full width,
@@ -76,29 +78,64 @@ def timed_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, kernel: str, iters: int) -> float:
+def device_ms(fn, kernel: str, iters: int, parts=(), attempts: int = 3):
     """Mean device time per call, in ms, of the kernels whose name contains
     ``kernel`` (``torch.profiler``), over ``iters`` calls of ``fn``: the
-    kernel's own time, whatever the host spends around each launch."""
+    kernel's own time, whatever the host spends around each launch.  With
+    ``parts``, also ``{part: ms}`` for the kernels whose name contains each
+    part (a kernel's stages).  A window in which the profiler recorded
+    fewer kernels than were launched is measured again, up to
+    ``attempts`` times, and never averaged."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    spans = [e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == DeviceType.CUDA and kernel in e.name]
-    require(len(spans) >= iters, f"profiler saw {len(spans)} {kernel} kernels for {iters} calls")
-    return sum(spans) / 1e3 / iters
+    for attempt in range(1, attempts + 1):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA and kernel in e.name]
+        counts = {part: sum(part in e.name for e in events) for part in parts}
+        if len(events) >= iters and all(n == iters for n in counts.values()):
+            break
+        print(f"    profiler saw {len(events)} {kernel} kernels ({counts}) for {iters} calls "
+              f"(attempt {attempt} of {attempts})")
+    require(len(events) >= iters, f"profiler saw {len(events)} {kernel} kernels for {iters} calls")
+    total = sum(e.time_range.elapsed_us() for e in events) / 1e3 / iters
+    if not parts:
+        return total
+    by_part = {}
+    for part in parts:
+        spans = [e.time_range.elapsed_us() for e in events if part in e.name]
+        require(len(spans) == iters, f"profiler saw {len(spans)} {part} kernels for {iters} calls")
+        by_part[part] = sum(spans) / 1e3 / iters
+    return total, by_part
 
 
 def require(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
+
+
+def hmma_count(lib_path) -> int | None:
+    """Tensor-core (HMMA) instructions in a built library's SASS, or None
+    where the toolkit has no ``cuobjdump``."""
+    import shutil
+
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    tool = shutil.which("cuobjdump")
+    if CUDA_HOME and (Path(CUDA_HOME) / "bin" / "cuobjdump").is_file():
+        tool = str(Path(CUDA_HOME) / "bin" / "cuobjdump")
+    if tool is None:
+        return None
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
+                          timeout=120, check=True).stdout
+    return sum("HMMA" in line for line in sass.splitlines())
 
 
 def card_line() -> str:
@@ -324,7 +361,8 @@ def _decode_plain(q, k, v, lengths, window):
 
 def check_flash(seed):
     """K3 against its plain version: the sweep of tests/test_kernels.py:22
-    in f32 and bf16, then the serving shape, timed."""
+    in f32 (the CUDA-core instance) and bf16 (the tensor-core instance),
+    then the serving shape in bf16, timed beside SDPA."""
     import torch
     import torch.nn.functional as F
 
@@ -443,6 +481,9 @@ def check_decode(seed):
 
 # K5 against its plain version: tests/test_kernels.py:192.
 SSD_ATOL, SSD_RTOL = 2e-4, 1e-3
+# K5's five kernels, launched in this order by one ssd_chunk_scan call.
+SSD_STAGES = ("ssd_chunk_scan_cumsum", "ssd_chunk_scan_scores", "ssd_chunk_scan_states",
+              "ssd_chunk_scan_pass", "ssd_chunk_scan_output")
 
 
 def _ssd_inputs(gen, b, s, h, p, n):
@@ -460,11 +501,19 @@ def _ssd_inputs(gen, b, s, h, p, n):
 def check_ssd(seed):
     """K5 against its plain version: the sweep of tests/test_kernels.py:181,
     a length that is no multiple of the chunk through ``models.ssd``'s
-    padding (card against host), then the serving shape, timed."""
+    padding (card against host), then the serving shape: each of the five
+    kernels against its plain stage, and the whole call and each stage
+    timed."""
     import torch
 
     from repro_torch.kernels.ssd import ops as ssd_ops
-    from repro_torch.kernels.ssd.ref import ssd_chunk_ref
+    from repro_torch.kernels.ssd.ref import (
+        chunk_cumsum,
+        chunk_scores,
+        chunk_states,
+        ssd_chunk_ref,
+        state_passing,
+    )
     from repro_torch.models.ssd import ssd_scan
 
     gen = torch.Generator(device="cuda").manual_seed(seed + 8)
@@ -504,6 +553,24 @@ def check_ssd(seed):
     x, dt, a_log, bm, cm = args
     dA = (dt * -torch.exp(a_log)).contiguous()
     xdt = (x * dt[..., None]).contiguous()
+    # Each of K5's five kernels against its plain stage at the serving shape.
+    out = ssd_ops.ssd_chunk_scan_stages(xdt, dA, bm, cm, chunk)
+    cum = chunk_cumsum(dA, chunk)
+    lower = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device="cuda"))
+    entering, final_state = state_passing(chunk_states(xdt, bm, cum, chunk), cum)
+    stage_errs = {
+        "cumsum": _close(out.cum, cum, SSD_ATOL, "K5 stage cumsum", SSD_RTOL),
+        "scores": _close(out.scores[..., lower], chunk_scores(bm, cm, chunk)[..., lower],
+                         SSD_ATOL, "K5 stage scores", SSD_RTOL),
+        "entering states": _close(out.entering, entering, SSD_ATOL, "K5 stage pass",
+                                  SSD_RTOL),
+        "final state": _close(out.final_state, final_state, SSD_ATOL, "K5 stage final",
+                              SSD_RTOL),
+        "y": _close(out.y, y_ref, SSD_ATOL, "K5 stage output", SSD_RTOL),
+    }
+    del out, cum, entering, final_state
+    print("  K5 stages at the serving shape against the plain stages, max |d|: "
+          + ", ".join(f"{k} {v:.3g}" for k, v in stage_errs.items()))
     call = lambda: ssd_ops.ssd_chunk_scan(xdt, dA, bm, cm, chunk)  # noqa: E731
     nc, tri = s // chunk, chunk * (chunk + 1) // 2
     # Causal work: scores C.B^T once per (batch row, chunk) over the lower
@@ -511,8 +578,12 @@ def check_ssd(seed):
     # y_off and the state update, l.P.N each; multiply-adds count 2.
     flops = 2 * b * nc * tri * n + 2 * b * h * nc * (tri * p + 2 * chunk * p * n)
     bytes_moved = 4 * (2 * b * s * h * p + b * s * h + 2 * b * s * n + b * h * p * n)
+    # Every one of K5's kernels has a name containing "ssd_chunk_scan", so
+    # this sums the five kernels of each call; the stages are read apart.
+    ms, stage_ms = device_ms(call, "ssd_chunk_scan", iters=10, parts=SSD_STAGES)
     t = {
-        "ms": device_ms(call, "ssd_chunk_scan", iters=10),
+        "ms": ms,
+        "stage_ms": stage_ms,
         "call_ms": timed_ms(call, iters=10),
         "plain_ms": timed_ms(lambda: ssd_chunk_ref(xdt, dA, bm, cm, chunk), iters=3, warmup=1),
         "library_ms": None,  # no single PyTorch call computes the SSD scan
@@ -524,6 +595,8 @@ def check_ssd(seed):
     }
     print(f"  K5 serving shape {t['shape']}: y and final state within atol {SSD_ATOL}, rtol "
           f"{SSD_RTOL}, max |d| {err:.3g}; {flops / 1e9:.3f} GFLOP, {bytes_moved / 1e6:.1f} MB")
+    print("  K5 device ms by stage: " + ", ".join(
+        f"{k.removeprefix('ssd_chunk_scan_')} {v:.6f}" for k, v in stage_ms.items()))
     return t
 
 
@@ -790,6 +863,12 @@ def main(argv=None) -> int:
     built = nvcc.build()
     print(f"[2] built {sorted(built)} in {time.perf_counter() - t0:.2f} s "
           f"(per source: {', '.join(f'{n} {s:.2f} s' for n, s in sorted(built.items()))})")
+    hmma = hmma_count(nvcc.SOURCES["flash_attention"].library_path())
+    if hmma is None:
+        print("    cuobjdump not found: K3's SASS not inspected")
+    else:
+        require(hmma > 0, "K3's library holds no HMMA (tensor-core) instruction")
+        print(f"    K3 library SASS: {hmma} HMMA (tensor-core) instructions")
     for name in sorted(built):
         log = (nvcc.BUILD_DIR / f"{name}.log")
         if log.exists():
@@ -910,7 +989,7 @@ def main(argv=None) -> int:
          "replaces": f"src/repro/kernels/{replaces}", "launches": counts[name],
          "max_abs_err": t["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
          "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-         "shape": t["shape"]}
+         "shape": t["shape"], **({"stage_ms": t["stage_ms"]} if "stage_ms" in t else {})}
         for name, source, replaces, counts, t in rows
     ]}
     print(f"    total {time.perf_counter() - t_start:.1f} s")

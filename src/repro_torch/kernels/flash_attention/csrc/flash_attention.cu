@@ -1,41 +1,69 @@
 // Causal GQA prefill attention (flash attention, forward) for Hopper, sm_90a.
 //
 // Replaces the Pallas TPU kernel `flash_attention_pallas`
-// (src/repro/kernels/flash_attention/kernel.py): for every query row i,
-// sitting at absolute position Skv - Sq + i, the softmax over the keys at
-// positions <= its own (and, with a window w > 0, > position - w) of
-// q.k * scale, applied to v.  It reads the model layout directly:
-// q and o (B, Sq, Hq, D), k and v (B, Skv, Hkv, D); query head h reads
-// KV head h / G (G = Hq / Hkv) without copying K/V.  Inputs are fp32 or
-// bf16; scores, the running max m, the running sum l and the output
-// accumulator are fp32.  In bf16 the probabilities p are rounded to bf16
-// before the P.V product, where the reference rounds them
-// (kernel.py:73); l sums the unrounded p.  Masked scores take
-// _NEG = -0.7 * FLT_MAX, not -inf, and a row with nothing valid keeps
-// l clamped to 1e-30, as kernel.py:28 and :80 do.  fp32 runs on the CUDA
-// cores in IEEE fp32 (no TF32).
+// (src/repro/kernels/flash_attention/kernel.py:89, its pallas_call at
+// :123): for every query row i, sitting at absolute position Skv - Sq + i,
+// the softmax over the keys at positions <= its own (and, with a window
+// w > 0, > position - w) of q.k * scale, applied to v.  It reads the model
+// layout directly: q and o (B, Sq, Hq, D), k and v (B, Skv, Hkv, D); query
+// head h reads KV head h / G (G = Hq / Hkv) without copying K/V.  Scores,
+// the running max m, the running sum l and the output accumulator are
+// fp32.  Masked scores take _NEG = -0.7 * FLT_MAX, not -inf, and a row with
+// nothing valid keeps l clamped to 1e-30, as kernel.py:28 and :80 do.
+// KV tiles wholly above the diagonal or left of the window are skipped
+// (kernel.py:46-50); the ragged last tile is masked in the kernel rather
+// than padded in memory (kernel.py:105-113).
 //
 // What bounds it on the H100: operations.  Causal attention does
-// 2 * B * Hq * Sq * Skv * D multiply-adds counted as flops (half of the
-// full square, QK^T and PV each); at the serving shape (B = 8,
-// S = 1024, Hq = 32, D = 64) that is 34 GFLOP, 35 us at the bf16
-// tensor-core peak, while reading q, k, v and writing o is 75 MB, 22 us.
-// This first kernel is the simple design, on the CUDA cores:
-//   * one block of 256 threads per (64-row query tile, query head, batch
-//     row); tiles are issued last-first, so the longest causal rows
-//     start first;
-//   * the block walks the KV tiles of 64 keys that its rows can see:
-//     tiles wholly above the diagonal or left of the window are skipped
-//     (kernel.py:46-50), the ragged last tile is masked in the kernel
-//     rather than padded in memory (kernel.py:105-113);
-//   * q, each K tile and each V tile are staged in shared memory as fp32;
-//     each thread owns a 4 x 4 block of the 64 x 64 score tile (rows
-//     ty + 16i, columns tx + 16j: conflict-free shared reads) and the
-//     matching 4 x D/16 block of the output accumulator, in registers;
-//   * the row max and row sum of the online softmax are reduced over the
-//     16 threads of a row with warp shuffles.
-// A tensor-core version (mma.sync or wgmma on bf16) is work for a later
-// change; its times stand beside this one's in PERF.md.
+// 2 * B * Hq * Sq * Skv * D flops (half of the full square, QK^T and PV
+// each); at the serving shape (B = 8, S = 1024, Hq = 32, Hkv = 4, D = 64,
+// bf16) that is 34.4 GFLOP, 0.0347 ms at the bf16 tensor-core peak of
+// 989 TFLOP/s, while reading q, k, v and writing o is 75 MB, 0.022 ms at
+// 3.35 TB/s.  So the work has to go through the tensor cores.
+//
+// Two instances, picked by dtype in `flash_attention_fwd` (no fallback from
+// one to the other):
+//
+// * bf16, on the tensor cores (`flash_attention_bf16_kernel`):
+//   - one block of 4 warps per (64-row query tile, query head, batch row),
+//     16 query rows per warp.  The grid's x axis is the query head, so the
+//     G heads that share a KV head are neighbours in launch order and find
+//     its K/V tiles in L2 (all of K and V is 8 MB at the serving shape,
+//     against a 50 MB L2), rather than one block walking the G heads, which
+//     would hold G output accumulators in registers or issue G times fewer
+//     blocks.  Query tiles are issued last-first, so the longest causal
+//     rows start first;
+//   - Q is loaded once (cp.async, then ldmatrix) and stays in registers as
+//     the A fragments of mma.sync.m16n8k16 (bf16 in, fp32 accumulate);
+//   - K and V tiles of 64 keys go through a ring of two shared-memory
+//     stages filled by cp.async (16-byte copies, zero-filled past Skv), so
+//     the next tile's load overlaps this tile's products; rows are padded
+//     by 16 bytes, so the eight rows an ldmatrix reads fall in eight
+//     distinct bank groups;
+//   - S = Q.K^T with ldmatrix on K; the online softmax stays in registers:
+//     the row max is reduced over the quad of lanes that share a row of the
+//     m16n8 accumulator, the row sum is kept per lane and reduced once at
+//     the end; exponentials are exp2 of scores pre-scaled by log2(e);
+//   - p is rounded to bf16 as it is packed from the S accumulator into P's
+//     A fragment (the C layout of m16n8k16 is the A layout of the next
+//     product), which is the reference's own rounding of p before P.V
+//     (kernel.py:73); l sums the unrounded p.  O += P.V with ldmatrix.trans
+//     on V.
+// * fp32, on the CUDA cores (`flash_attention_f32_kernel`), in IEEE fp32
+//   with no TF32: one block of 256 threads per (64-row query tile, query
+//   head, batch row), q, K and V staged in shared memory as fp32, a 4 x 4
+//   register tile of the score block per thread, the online softmax
+//   reduced over the 16 threads of a row with warp shuffles.  The models'
+//   f32 paths and the f32 tests take it.
+//
+// Measured by chip_smoke.py at the serving shape under torch.profiler
+// (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md): 0.217-0.218 ms, 6.3 times
+// the bound, against 0.109-0.112 ms for PyTorch's SDPA and 1.580-1.587 ms
+// for the earlier design of this file (bf16 staged as fp32, scalar FMAs on
+// the CUDA cores) in the same call.  What holds it back is issue and
+// latency, not bytes: the softmax's exp2, scale, compare and max per score
+// run on the CUDA cores between the two products, and mma.sync issues at
+// well under wgmma's rate; 128-row tiles and 128-key tiles were no faster.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -43,40 +71,26 @@
 
 namespace {
 
+constexpr float kNeg = -0.7f * 3.4028234663852886e38f;  // _NEG of kernel.py:28
+constexpr float kLog2e = 1.4426950408889634f;
+
+// ------------------------------------------------------------ fp32 instance
+
 constexpr int kBQ = 64;        // query rows per block
 constexpr int kBK = 64;        // keys per staged tile
 constexpr int kThreads = 256;  // 16 x 16 threads
 constexpr int kPS = kBK + 16;  // row stride of the probability tile
-constexpr float kNeg = -0.7f * 3.4028234663852886e38f;  // _NEG of kernel.py:28
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-
-// p as the P.V product sees it: rounded to the input type (kernel.py:73).
-template <typename T>
-__device__ __forceinline__ float round_p(float p) {
-  return to_f32(from_f32<T>(p));
-}
 
 template <int D>
-constexpr size_t smem_floats() {
+constexpr size_t f32_smem_floats() {
   return (size_t)kBQ * (D + 1) + (size_t)kBK * (D + 1) + (size_t)kBK * D + (size_t)kBQ * kPS;
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o,
-                       int Sq, int Skv, int Hq, int Hkv, int window, float scale) {
+flash_attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                           const float* __restrict__ v, float* __restrict__ o, int Sq,
+                           int Skv, int Hq, int Hkv, int window, float scale) {
   constexpr int QS = D + 1;  // padded row stride of the q and K tiles
   constexpr int DJ = D / 16;
   extern __shared__ float smem[];
@@ -99,7 +113,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int r = i / D;
     const int c = i - r * D;
     const int s = q0 + r;
-    qs[r * QS + c] = s < Sq ? to_f32(q[((size_t)(b * Sq + s) * Hq + h) * D + c]) : 0.0f;
+    qs[r * QS + c] = s < Sq ? q[((size_t)(b * Sq + s) * Hq + h) * D + c] : 0.0f;
   }
 
   float m[4], l[4], acc[4][DJ];
@@ -129,8 +143,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int s = k0 + r;
       const size_t g = ((size_t)(b * Skv + s) * Hkv + hk) * D + c;
       const bool in = s < Skv;
-      ks[r * QS + c] = in ? to_f32(k[g]) : 0.0f;
-      vs[r * D + c] = in ? to_f32(v[g]) : 0.0f;
+      ks[r * QS + c] = in ? k[g] : 0.0f;
+      vs[r * D + c] = in ? v[g] : 0.0f;
     }
     __syncthreads();
 
@@ -175,7 +189,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int j = 0; j < 4; ++j) {
         const float p = ok[j] ? expf(s[i][j] - m_new) : 0.0f;
         psum += p;
-        ps[r * kPS + tx + 16 * j] = round_p<T>(p);
+        ps[r * kPS + tx + 16 * j] = p;
       }
 #pragma unroll
       for (int off = 8; off > 0; off >>= 1) psum += __shfl_xor_sync(0xffffffffu, psum, off);
@@ -214,53 +228,335 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int s = q0 + ty + 16 * i;
     if (s >= Sq) continue;
     const float lc = fmaxf(l[i], 1e-30f);
-    T* out = o + ((size_t)(b * Sq + s) * Hq + h) * D;
+    float* out = o + ((size_t)(b * Sq + s) * Hq + h) * D;
 #pragma unroll
-    for (int j = 0; j < DJ; ++j) out[tx + 16 * j] = from_f32<T>(acc[i][j] / lc);
+    for (int j = 0; j < DJ; ++j) out[tx + 16 * j] = acc[i][j] / lc;
   }
 }
 
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
-                   int Skv, int Hq, int Hkv, int window, float scale, cudaStream_t stream) {
-  auto kernel = flash_attention_kernel<T, D>;
-  const size_t smem = smem_floats<D>() * sizeof(float);
+template <int D>
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int B, int Sq,
+                       int Skv, int Hq, int Hkv, int window, float scale,
+                       cudaStream_t stream) {
+  auto kernel = flash_attention_f32_kernel<D>;
+  const size_t smem = f32_smem_floats<D>() * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((Sq + kBQ - 1) / kBQ, Hq, B);
   kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), Sq, Skv, Hq, Hkv, window, scale);
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), Sq, Skv, Hq, Hkv, window, scale);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
-                     int Skv, int Hq, int Hkv, int D, int window, float scale,
-                     cudaStream_t stream) {
-  switch (D) {
-    case 16: return launch<T, 16>(q, k, v, o, B, Sq, Skv, Hq, Hkv, window, scale, stream);
-    case 32: return launch<T, 32>(q, k, v, o, B, Sq, Skv, Hq, Hkv, window, scale, stream);
-    case 64: return launch<T, 64>(q, k, v, o, B, Sq, Skv, Hq, Hkv, window, scale, stream);
-    case 128: return launch<T, 128>(q, k, v, o, B, Sq, Skv, Hq, Hkv, window, scale, stream);
-    default: return cudaErrorInvalidValue;
+// ---------------------------------------------------- bf16 tensor-core instance
+
+constexpr int kTcBQ = 64;                     // query rows per block, 16 per warp
+constexpr int kTcBK = 64;                     // keys per K/V tile
+constexpr int kTcThreads = 128;               // 4 warps
+constexpr int kTcStages = 2;                  // K/V ring depth
+
+template <int D>
+__host__ __device__ constexpr int tc_stride() { return D + 8; }  // bf16 per shared row: +16 bytes
+
+template <int D>
+constexpr size_t tc_smem_bytes() {
+  return (size_t)(kTcBQ + 2 * kTcStages * kTcBK) * tc_stride<D>() * sizeof(__nv_bfloat16);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronously; zero-filled when !in.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(in ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
+// c += a . b for one m16n8k16 tile, bf16 in, fp32 accumulate.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two floats rounded to bf16 (round to nearest even), lo in the low half.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Rows row0 .. row0 + ROWS - 1 of a (rows, D) bf16 matrix whose rows are
+// `stride` elements apart, into a padded shared tile; rows >= nrows are
+// zero-filled.
+template <int D, int ROWS>
+__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                          int row0, int nrows, size_t stride, int tid) {
+  constexpr int kChunks = D / 8;  // 16-byte pieces of a row
+#pragma unroll
+  for (int i = tid; i < ROWS * kChunks; i += kTcThreads) {
+    const int r = i / kChunks;
+    const int c = i - r * kChunks;
+    const int s = row0 + r;
+    const bool in = s < nrows;
+    cp_async16(dst + r * tc_stride<D>() + c * 8, src + (size_t)(in ? s : 0) * stride + c * 8, in);
   }
 }
+
+template <int D>
+__global__ void __launch_bounds__(kTcThreads)
+flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
+                            const __nv_bfloat16* __restrict__ k,
+                            const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
+                            int Sq, int Skv, int Hq, int Hkv, int window, float scale_log2) {
+  constexpr int ST = tc_stride<D>();
+  constexpr int KD = D / 16;      // k-steps of Q.K^T
+  constexpr int ND = D / 8;       // n-tiles of the output
+  constexpr int NK = kTcBK / 8;   // n-tiles of the scores
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // kTcBQ x ST
+  __nv_bfloat16* ks = qs + kTcBQ * ST;                            // stages x kTcBK x ST
+  __nv_bfloat16* vs = ks + kTcStages * kTcBK * ST;                // stages x kTcBK x ST
+
+  const int h = blockIdx.x;
+  const int qt = gridDim.y - 1 - blockIdx.y;  // heaviest (last) tiles first
+  const int b = blockIdx.z;
+  const int hk = h / (Hq / Hkv);
+  const int q0 = qt * kTcBQ;
+  const int offset = Skv - Sq;  // query i sits at position offset + i
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;  // the accumulator rows g and g + 8 of the warp
+  const int t = lane & 3;   // the accumulator columns 2t and 2t + 1 of each n-tile
+
+  const size_t q_stride = (size_t)Hq * D;
+  const size_t kv_stride = (size_t)Hkv * D;
+  const __nv_bfloat16* qb = q + ((size_t)b * Sq * Hq + h) * D;
+  const __nv_bfloat16* kb = k + ((size_t)b * Skv * Hkv + hk) * D;
+  const __nv_bfloat16* vb = v + ((size_t)b * Skv * Hkv + hk) * D;
+
+  // KV tiles this query tile can see (at least one: k_start <= q_first < k_stop).
+  const int q_first = offset + q0;
+  const int q_last = offset + min(q0 + kTcBQ, Sq) - 1;
+  const int k_stop = min(Skv, q_last + 1);
+  int k_start = 0;
+  if (window > 0) {
+    const int lo = q_first - window + 1;
+    k_start = lo > 0 ? (lo / kTcBK) * kTcBK : 0;
+  }
+  const int n_tiles = (k_stop - k_start + kTcBK - 1) / kTcBK;
+
+  load_tile<D, kTcBQ>(qs, qb, q0, Sq, q_stride, tid);
+  load_tile<D, kTcBK>(ks, kb, k_start, Skv, kv_stride, tid);
+  load_tile<D, kTcBK>(vs, vb, k_start, Skv, kv_stride, tid);
+  cp_async_commit();
+
+  uint32_t qf[KD][4];
+  float oacc[ND][4];
+  float m[2] = {kNeg, kNeg};
+  float l[2] = {0.0f, 0.0f};  // this lane's share of the row sums
+#pragma unroll
+  for (int j = 0; j < ND; ++j) oacc[j][0] = oacc[j][1] = oacc[j][2] = oacc[j][3] = 0.0f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = k_start + it * kTcBK;
+    const int stage = it & 1;
+    if (it + 1 < n_tiles) {  // the next tile loads while this one is used
+      const int nxt = (it + 1) & 1;
+      load_tile<D, kTcBK>(ks + nxt * kTcBK * ST, kb, k0 + kTcBK, Skv, kv_stride, tid);
+      load_tile<D, kTcBK>(vs + nxt * kTcBK * ST, vb, k0 + kTcBK, Skv, kv_stride, tid);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (it == 0) {
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk)
+        ldmatrix_x4(qf[kk], qs + (warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * ST +
+                                kk * 16 + (lane >> 4) * 8);
+    }
+    const __nv_bfloat16* kst = ks + stage * kTcBK * ST;
+    const __nv_bfloat16* vst = vs + stage * kTcBK * ST;
+
+    // S = Q . K^T for the warp's 16 rows and the tile's 64 keys.
+    float sacc[NK][4];
+#pragma unroll
+    for (int j = 0; j < NK; ++j) sacc[j][0] = sacc[j][1] = sacc[j][2] = sacc[j][3] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+#pragma unroll
+      for (int np = 0; np < NK / 2; ++np) {
+        uint32_t bf[4];
+        ldmatrix_x4(bf, kst + (np * 16 + (lane & 7) + (lane >> 4) * 8) * ST + kk * 16 +
+                            ((lane >> 3) & 1) * 8);
+        mma_bf16(sacc[2 * np], qf[kk], bf[0], bf[1]);
+        mma_bf16(sacc[2 * np + 1], qf[kk], bf[2], bf[3]);
+      }
+    }
+
+    // Online softmax, in the log2 domain: s * scale * log2(e).  Masks are
+    // computed only in a tile that is not wholly visible to the block's rows.
+    const bool full = k0 + kTcBK - 1 <= q_first && k0 + kTcBK <= Skv &&
+                      (window <= 0 || k0 > q_last - window);
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int qpos = q_first + warp * 16 + g + 8 * rr;
+      float mx = kNeg;
+#pragma unroll
+      for (int j = 0; j < NK; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float s = sacc[j][2 * rr + e] * scale_log2;
+          if (!full) {
+            const int kpos = k0 + 8 * j + 2 * t + e;
+            const bool ok = kpos < Skv && kpos <= qpos && (window <= 0 || kpos > qpos - window);
+            s = ok ? s : kNeg;
+          }
+          sacc[j][2 * rr + e] = s;
+          mx = fmaxf(mx, s);
+        }
+      }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[rr], mx);
+      const float alpha = exp2f(m[rr] - m_new);
+      m[rr] = m_new;
+      float psum = 0.0f;
+#pragma unroll
+      for (int j = 0; j < NK; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float s = sacc[j][2 * rr + e];
+          const float p = s == kNeg ? 0.0f : exp2f(s - m_new);  // masked: p = 0
+          psum += p;
+          sacc[j][2 * rr + e] = p;
+        }
+      }
+      l[rr] = l[rr] * alpha + psum;
+#pragma unroll
+      for (int j = 0; j < ND; ++j) {
+        oacc[j][2 * rr] *= alpha;
+        oacc[j][2 * rr + 1] *= alpha;
+      }
+    }
+
+    // O += P . V: the score accumulator, rounded to bf16, is P's A fragment.
+#pragma unroll
+    for (int kk = 0; kk < kTcBK / 16; ++kk) {
+      const uint32_t pa[4] = {
+          pack_bf16(sacc[2 * kk][0], sacc[2 * kk][1]),
+          pack_bf16(sacc[2 * kk][2], sacc[2 * kk][3]),
+          pack_bf16(sacc[2 * kk + 1][0], sacc[2 * kk + 1][1]),
+          pack_bf16(sacc[2 * kk + 1][2], sacc[2 * kk + 1][3]),
+      };
+#pragma unroll
+      for (int nd = 0; nd < ND / 2; ++nd) {
+        uint32_t bf[4];
+        ldmatrix_x4_trans(bf, vst + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * ST +
+                                  nd * 16 + (lane >> 4) * 8);
+        mma_bf16(oacc[2 * nd], pa, bf[0], bf[1]);
+        mma_bf16(oacc[2 * nd + 1], pa, bf[2], bf[3]);
+      }
+    }
+    __syncthreads();  // this stage is consumed before the next load overwrites it
+  }
+
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    float lt = l[rr];
+    lt += __shfl_xor_sync(0xffffffffu, lt, 1);
+    lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+    const int s = q0 + warp * 16 + g + 8 * rr;
+    if (s >= Sq) continue;
+    const float lc = fmaxf(lt, 1e-30f);
+    __nv_bfloat16* out = o + ((size_t)(b * Sq + s) * Hq + h) * D + 2 * t;
+#pragma unroll
+    for (int j = 0; j < ND; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(out + 8 * j) =
+          __floats2bfloat162_rn(oacc[j][2 * rr] / lc, oacc[j][2 * rr + 1] / lc);
+  }
+}
+
+template <int D>
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int Sq,
+                        int Skv, int Hq, int Hkv, int window, float scale,
+                        cudaStream_t stream) {
+  auto kernel = flash_attention_bf16_kernel<D>;
+  const size_t smem = tc_smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(Hq, (Sq + kTcBQ - 1) / kTcBQ, B);
+  kernel<<<grid, kTcThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), Sq, Skv, Hq, Hkv,
+      window, scale * kLog2e);
+  return cudaGetLastError();
+}
+
+#define REPRO_FLASH_DISPATCH(LAUNCH)                                                   \
+  switch (D) {                                                                         \
+    case 16: return LAUNCH<16>(q, k, v, o, B, Sq, Skv, Hq, Hkv, window, scale, s);     \
+    case 32: return LAUNCH<32>(q, k, v, o, B, Sq, Skv, Hq, Hkv, window, scale, s);     \
+    case 64: return LAUNCH<64>(q, k, v, o, B, Sq, Skv, Hq, Hkv, window, scale, s);     \
+    case 128: return LAUNCH<128>(q, k, v, o, B, Sq, Skv, Hq, Hkv, window, scale, s);   \
+    default: return cudaErrorInvalidValue;                                             \
+  }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = fp32, 1 = bf16.  Returns the launch's cudaError_t.
+// dtype: 0 = fp32 (CUDA cores), 1 = bf16 (tensor cores); anything else is
+// refused.  q, k, v and o must be 16-byte aligned for bf16.  Returns the
+// launch's cudaError_t.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, int dtype, int B,
                         int Sq, int Skv, int Hq, int Hkv, int D, int window, float scale,
                         void* stream) {
-  if (B <= 0 || Sq <= 0 || Skv <= 0 || Hkv <= 0 || Hq % Hkv != 0) return cudaErrorInvalidValue;
+  if (B <= 0 || Sq <= 0 || Skv <= 0 || Sq > Skv || Hkv <= 0 || Hq % Hkv != 0)
+    return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch<float>(q, k, v, o, B, Sq, Skv, Hq, Hkv, D, window, scale, s);
-  if (dtype == 1)
-    return dispatch<__nv_bfloat16>(q, k, v, o, B, Sq, Skv, Hq, Hkv, D, window, scale, s);
+  if (dtype == 0) {
+    REPRO_FLASH_DISPATCH(launch_f32)
+  }
+  if (dtype == 1) {
+    const uintptr_t bases = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                            reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o);
+    if (bases & 15) return cudaErrorMisalignedAddress;
+    REPRO_FLASH_DISPATCH(launch_bf16)
+  }
   return cudaErrorInvalidValue;
 }
 

@@ -5,7 +5,9 @@ Model layout in and out: q (B, Sq, Hq, D), k and v (B, Skv, Hkv, D).
 Tensors on the CPU take the plain version (``ref.py``, in the kernel's
 GQA layout); CUDA tensors launch ``csrc/flash_attention.cu`` on the
 current stream, which reads the model layout directly, or raise.  There
-is no other route.
+is no other route.  The kernel's instance follows the dtype: bfloat16
+runs on the tensor cores (``mma.sync``), float32 on the CUDA cores in
+IEEE fp32; any other dtype raises.
 """
 from __future__ import annotations
 
@@ -21,6 +23,8 @@ __all__ = ["flash_attention", "counter", "HEAD_DIMS", "DTYPES"]
 counter = LaunchCounter("flash_attention")
 
 HEAD_DIMS = (16, 32, 64, 128)  # the kernel's instances
+# dtype -> the C entry point's instance: 0 the fp32 CUDA-core kernel, 1 the
+# bf16 tensor-core kernel.
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _P = ctypes.c_void_p
@@ -69,6 +73,9 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0, scale=None
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    # The bf16 instance copies rows in 16-byte pieces; a view that starts
+    # off a 16-byte boundary is copied to a fresh (aligned) tensor first.
+    q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
     out = torch.empty_like(q)
     lib = nvcc.library("flash_attention")
     fn = lib.flash_attention_fwd

@@ -1,9 +1,9 @@
 // Mamba-2 SSD chunk scan (state-space duality, ngroups = 1) for Hopper, sm_90a.
 //
 // Replaces the Pallas TPU kernel `ssd_pallas`
-// (src/repro/kernels/ssd/kernel.py): for every batch row b and head h,
-// over the chunks of l positions in order, with cum = cumsum(dA) inside
-// the chunk,
+// (src/repro/kernels/ssd/kernel.py:91, its pallas_call at :103): for every
+// batch row b and head h, over the chunks of l positions in order, with
+// cum = cumsum(dA) inside the chunk,
 //   L[i, j]  = exp(cum_i - cum_j) for i >= j, else 0
 //   y_diag   = (C . B^T o L) . xdt
 //   y_off    = exp(cum_i) * (C . S_prev^T)
@@ -14,325 +14,689 @@
 // dt = 0 steps, which leave the state unchanged).  L is formed as
 // exp(cum_i - cum_j), never as a quotient of exponentials, which would
 // underflow over a chunk whose decays sum below -100.  IEEE fp32 on the
-// CUDA cores throughout, no TF32.
+// CUDA cores throughout: no TF32 and no tensor cores, which the 2e-4 / 1e-3
+// tolerances and the port's fp32 contract rest on.
 //
 // What bounds it on the H100: operations.  At the serving shape (B = 8,
-// S = 1024, H = 24, P = 64, N = 128, l = 128) the causal work is about
-// 8.2 GFLOP of fp32 (y_diag over the lower triangle, y_off and the state
-// update l.P.N each, the scores once per chunk), 0.12 ms at 67 TFLOP/s,
-// while its bytes (xdt and y 50 MB each, B and C 4 MB each, the state
-// 6 MB) take 0.035 ms at 3.35 TB/s.  This first kernel is the simple
-// design:
-//   * one block of 256 threads per (head, batch row), 192 blocks at the
-//     serving shape; the block walks the chunks in order and carries the
-//     state (P x N fp32, 32 KB) in shared memory, as the Pallas kernel
-//     carries it in VMEM across its sequential chunk axis;
-//   * per chunk it stages xdt (l x P) and B (l x N) in shared memory,
-//     with 16-byte loads where P and N allow, and computes cum with one
-//     warp's scan;
-//   * it walks the chunk's rows in blocks of 64: the C rows of the block,
-//     their scores against the B rows up to the block's last row (only
-//     the column groups the causal mask keeps), weighted by L in place,
-//     then y = scores . xdt plus exp(cum_i) * C . S^T;
-//   * after every row has read the old state, it folds the chunk into S;
-//   * each thread owns a strided 4 x 8, 4 x 4 or 4 x 8 register tile of
-//     each product (rows ty + 16 i, columns tx + 16 j), reading
-//     conflict-free rows of shared memory padded to an odd stride, four
-//     steps of each inner loop unrolled.
-// About 197 KB of shared memory at the serving shape, so one block per
-// SM and two waves of blocks.  With ngroups = 1 the scores C . B^T are
-// the same for every head; each block recomputes them for its own head,
-// 24 times the needed score work at the serving shape (about a third of
-// the block's multiply-adds).  Sharing them, the tensor cores and the
-// Mamba-2 split over chunks are work for a later change; the times
-// stand in PERF.md.
+// S = 1024, H = 24, P = 64, N = 128, l = 128) the causal work is 8.201
+// GFLOP of fp32 (the scores once per chunk over the lower triangle, then
+// per head y_diag over the triangle, y_off and the chunk state, l.P.N
+// each), 0.1224 ms at 67 TFLOP/s, while its 116.1 MB (xdt and y 50 MB
+// each, B and C 4 MB each, the final state 6 MB) take 0.035 ms at
+// 3.35 TB/s.
+//
+// The design is the Mamba-2 split: five kernels launched in order on one
+// stream by `ssd_chunk_scan` (kernels/ssd/ops.py), one C entry point each,
+// the same stages as the plain version (kernels/ssd/ref.py); every kernel's
+// name contains `ssd_chunk_scan`.
+//   1. cumsum  (B x nc blocks, a warp per head): cum of dA inside each
+//      chunk, and exp(cum_end - cum), into (B, H, nc, l).
+//   2. scores  (B x nc x 3 blocks at the serving shape): C . B^T once per
+//      (batch row, chunk), 64 x 64 tiles of the lower triangle only, into
+//      (B, nc, l, l).  With ngroups = 1 the scores are the same for every
+//      head; the TPU kernel computes them once per (batch, chunk) and
+//      shares them (kernel.py:56-59), and so does this one.
+//   3. states  (B x nc x H blocks, 1,536 at the serving shape): each
+//      chunk's own state sum_j exp(cum_end - cum_j) xdt_j^T B_j, an N x P
+//      tile per block, into (B, nc, H, N, P): transposed, so that stages 4
+//      and 5 read it along p.
+//   4. pass    (B x H x P.N/1024 blocks): the short scan over the chunks,
+//      S_c = exp(cum_end,c) S_{c-1} + states_c, four elements a thread,
+//      the loads of eight chunks issued before their stores, writing the
+//      state entering each chunk in place over the chunk states (no second
+//      50 MB buffer) and the final state.
+//   5. output  (B x nc x H x l/64 blocks, 3,072 at the serving shape):
+//      y = exp(cum_i) C_i . S_enter^T, then + (scores o L) . xdt over the
+//      causal column slices only, for a block of 64 rows; a warp skips a
+//      slice that lies wholly right of its rows.
+// Stages 3 and 5 keep a register tile of 8 x 4 outputs per thread and walk
+// the depth of each product in slices of 32 through a two-stage cp.async
+// ring in shared memory (about 50 and 35 KB a block), so the next slice
+// loads while this one is multiplied; both operands are read from shared
+// memory as float4 (12 loads per 128 multiply-adds), and every staging copy
+// is a coalesced 16-byte copy into conflict-free rows.  The scaling of xdt
+// by exp(cum_end - cum_j), and of the scores by L, is applied by each
+// thread to the elements it copied once they have landed.  Shapes whose P,
+// N or chunk are not multiples of 4 take the same kernels with plain loads.
+// The split pays extra traffic: the chunk states (50 MB at the serving
+// shape) are written by stage 3, read and rewritten by stage 4 and read by
+// stage 5, about 150 MB or 0.045 ms at 3.35 TB/s.  It buys 1,536-3,072
+// blocks in place of the first design's 192 (one per (head, batch row),
+// 197 KB each, one per SM, two waves on 132 SMs), and the scores 24 times
+// fewer.
+//
+// Measured by chip_smoke.py at the serving shape under torch.profiler
+// (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md): 0.366-0.367 ms for the five
+// kernels, 3.0 times the bound, against 1.070-1.109 ms for the one-kernel
+// design it replaces in the same call; by stage, output 0.198, states
+// 0.094, pass 0.047, scores 0.020, cumsum 0.006 ms.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <initializer_list>
+#include <type_traits>
+
 namespace {
 
-constexpr int kThreads = 256;  // 16 x 16 threads
-constexpr int kRows = 64;      // chunk rows per row block
-constexpr int kMaxL = 128;     // the largest chunk
-constexpr int kMaxP = 64;      // the largest head dim
-constexpr int kMaxN = 128;     // the largest state size
-constexpr int kRI = kRows / 16;
-constexpr int kLJ = kMaxL / 16;
-constexpr int kPI = kMaxP / 16;
-constexpr int kNJ = kMaxN / 16;
+constexpr int kMaxL = 128;  // the largest chunk
+constexpr int kMaxP = 64;   // the largest head dim
+constexpr int kMaxN = 128;  // the largest state size
+constexpr int kSlice = 32;  // depth of one staged slice of a product
+constexpr int kTile = 64;   // rows (and columns) of a score tile and an output block
 
-__host__ __device__ constexpr size_t smem_floats(int L, int P, int N) {
-  // state P x (N+1), xdt L x P, B L x (N+1), C kRows x (N+1),
-  // scores kRows x (L+1), cum L, exp(cum_end - cum) L
-  return (size_t)P * (N + 1) + (size_t)L * P + (size_t)L * (N + 1) + (size_t)kRows * (N + 1) +
-         (size_t)kRows * (L + 1) + 2 * (size_t)L;
-}
+// ---------------------------------------------------------------- 1. cumsum
 
-// One row block's scores o L (see the kernel): gs[r][j] for r < rows and
-// j < jend, from the C rows cs and the B rows bs; JG column groups of 16.
-template <int JG>
-__device__ __forceinline__ void score_block(const float* cs, const float* bs, const float* cum,
-                                            float* gs, int NS, int GS, int N, int i0, int rows,
-                                            int jend, int tx, int ty) {
-  float acc[kRI][JG];
-#pragma unroll
-  for (int i = 0; i < kRI; ++i)
-#pragma unroll
-    for (int j = 0; j < JG; ++j) acc[i][j] = 0.0f;
-#pragma unroll 4
-  for (int n = 0; n < N; ++n) {
-    float cv[kRI], bv[JG];
-#pragma unroll
-    for (int i = 0; i < kRI; ++i) cv[i] = cs[(ty + 16 * i) * NS + n];
-#pragma unroll
-    for (int j = 0; j < JG; ++j) {
-      const int jj = tx + 16 * j;
-      bv[j] = jj < jend ? bs[jj * NS + n] : 0.0f;
-    }
-#pragma unroll
-    for (int i = 0; i < kRI; ++i)
-#pragma unroll
-      for (int j = 0; j < JG; ++j) acc[i][j] += cv[i] * bv[j];
-  }
-#pragma unroll
-  for (int i = 0; i < kRI; ++i) {
-    const int r = ty + 16 * i;
-    const int row = i0 + r;
-#pragma unroll
-    for (int j = 0; j < JG; ++j) {
-      const int jj = tx + 16 * j;
-      if (r < rows && jj < jend)
-        gs[r * GS + jj] = jj <= row ? acc[i][j] * expf(cum[row] - cum[jj]) : 0.0f;
-    }
-  }
-}
-
-__global__ void __launch_bounds__(kThreads, 1)
-ssd_chunk_scan_kernel(const float* __restrict__ xdt, const float* __restrict__ dA,
-                      const float* __restrict__ bm, const float* __restrict__ cm,
-                      float* __restrict__ y, float* __restrict__ final_state, int S, int H,
-                      int P, int N, int L) {
-  extern __shared__ float smem[];
-  const int NS = N + 1;  // odd row strides: conflict-free column walks
-  const int GS = L + 1;
-  float* st = smem;              // P x NS: the carried state
-  float* xs = st + P * NS;       // L x P: xdt of the chunk
-  float* bs = xs + L * P;        // L x NS: B of the chunk
-  float* cs = bs + L * NS;       // kRows x NS: C of the row block
-  float* gs = cs + kRows * NS;   // kRows x GS: scores o L of the row block
-  float* cum = gs + kRows * GS;  // L: cumsum of dA inside the chunk
-  float* wend = cum + L;         // L: exp(cum_end - cum_j)
-
-  const int h = blockIdx.x;
+__global__ void __launch_bounds__(128)
+ssd_chunk_scan_cumsum_kernel(const float* __restrict__ dA, float* __restrict__ cum,
+                             float* __restrict__ wend, int S, int H, int L) {
+  const int c = blockIdx.x;
   const int b = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  const uintptr_t bases = reinterpret_cast<uintptr_t>(xdt) | reinterpret_cast<uintptr_t>(bm);
-  const bool vec = ((P | N) & 3) == 0 && (bases & 15) == 0;
-
-  for (int i = tid; i < P * NS; i += kThreads) st[i] = 0.0f;
-
-  for (int s0 = 0; s0 < S; s0 += L) {
-    __syncthreads();  // the previous chunk's reads of xs, bs and st are done
-    if (vec) {  // 16-byte loads: P and N are multiples of 4
-      const int P4 = P >> 2, N4 = N >> 2;
-#pragma unroll 4
-      for (int i = tid; i < L * P4; i += kThreads) {
-        const int j = i / P4;
-        const int q = i - j * P4;
-        const float4 v = reinterpret_cast<const float4*>(
-            xdt + ((size_t)(b * S + s0 + j) * H + h) * P)[q];
-        float* d = xs + j * P + 4 * q;
-        d[0] = v.x; d[1] = v.y; d[2] = v.z; d[3] = v.w;
+  const int nc = gridDim.x;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int per = (L + 31) / 32;  // <= 4 positions a lane, in order
+  const int owner = (L - 1) / per;  // the lane that holds position L - 1
+  const int kend = (L - 1) - owner * per;
+  for (int h = warp; h < H; h += 4) {
+    float vals[kMaxL / 32];
+    float run = 0.0f;
+#pragma unroll
+    for (int k = 0; k < kMaxL / 32; ++k) {
+      const int j = lane * per + k;
+      if (k < per && j < L) run += dA[(size_t)(b * S + c * L + j) * H + h];
+      vals[k] = run;
+    }
+    float incl = run;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const float t = __shfl_up_sync(0xffffffffu, incl, off);
+      if (lane >= off) incl += t;
+    }
+    const float before = incl - run;
+    float last = 0.0f;
+#pragma unroll
+    for (int k = 0; k < kMaxL / 32; ++k)
+      if (k == kend) last = before + vals[k];
+    const float cend = __shfl_sync(0xffffffffu, last, owner);
+    const size_t o = ((size_t)(b * H + h) * nc + c) * L;
+#pragma unroll
+    for (int k = 0; k < kMaxL / 32; ++k) {
+      const int j = lane * per + k;
+      if (k < per && j < L) {
+        const float v = before + vals[k];
+        cum[o + j] = v;
+        wend[o + j] = expf(cend - v);
       }
-#pragma unroll 4
-      for (int i = tid; i < L * N4; i += kThreads) {
-        const int j = i / N4;
-        const int q = i - j * N4;
-        const float4 v = reinterpret_cast<const float4*>(bm + (size_t)(b * S + s0 + j) * N)[q];
-        float* d = bs + j * NS + 4 * q;
-        d[0] = v.x; d[1] = v.y; d[2] = v.z; d[3] = v.w;
+    }
+  }
+}
+
+// ---------------------------------------------------------------- 2. scores
+
+__global__ void __launch_bounds__(256)
+ssd_chunk_scan_scores_kernel(const float* __restrict__ bm, const float* __restrict__ cm,
+                             float* __restrict__ scores, int S, int N, int L) {
+  __shared__ float cs[kTile][kSlice + 1];
+  __shared__ float bs[kTile][kSlice + 1];
+  int t = blockIdx.x;  // the t-th tile of the lower triangle, row by row
+  int ti = 0;
+  while (t > ti) {
+    t -= ti + 1;
+    ++ti;
+  }
+  const int tj = t;
+  const int c = blockIdx.y;
+  const int b = blockIdx.z;
+  const int nc = gridDim.y;
+  const int tid = threadIdx.x;
+  const int ty = tid >> 4;  // rows i0 + ty + 16 a
+  const int tx = tid & 15;  // columns j0 + tx + 16 k
+  const int i0 = ti * kTile;
+  const int j0 = tj * kTile;
+  const float* crow = cm + (size_t)(b * S + c * L) * N;
+  const float* brow = bm + (size_t)(b * S + c * L) * N;
+
+  float acc[4][4];
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int k = 0; k < 4; ++k) acc[a][k] = 0.0f;
+  for (int n0 = 0; n0 < N; n0 += kSlice) {
+    __syncthreads();
+    for (int e = tid; e < kTile * kSlice; e += 256) {
+      const int r = e / kSlice;
+      const int nn = e - r * kSlice;
+      const int n = n0 + nn;
+      cs[r][nn] = i0 + r < L && n < N ? crow[(size_t)(i0 + r) * N + n] : 0.0f;
+      bs[r][nn] = j0 + r < L && n < N ? brow[(size_t)(j0 + r) * N + n] : 0.0f;
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int nn = 0; nn < kSlice; ++nn) {
+      float cv[4], bv[4];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) cv[a] = cs[ty + 16 * a][nn];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) bv[k] = bs[tx + 16 * k][nn];
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) acc[a][k] += cv[a] * bv[k];
+    }
+  }
+  float* out = scores + (size_t)(b * nc + c) * L * L;
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int row = i0 + ty + 16 * a;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int col = j0 + tx + 16 * k;
+      if (row < L && col < L) out[(size_t)row * L + col] = acc[a][k];
+    }
+  }
+}
+
+// ---------------------------------------------------------------- 3. states
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ void st4(float* p, float4 v) { *reinterpret_cast<float4*>(p) = v; }
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronously; zero-filled when !in (src is
+// then not read).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(in ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+constexpr size_t kStatesSmem = (2 * kSlice * (kMaxP + kMaxN) + kMaxL) * sizeof(float);
+
+// Each chunk's own state, transposed: states_t[n][p] = sum_j B_j[n] w_j xdt_j[p]
+// with w_j = exp(cum_end - cum_j).  A thread owns 8 n by 4 p.  kVec: P, N
+// and L multiples of 4 and every pointer 16-byte aligned; the slices of B
+// and xdt then go through a two-stage cp.async ring, so the next slice
+// loads while this one is multiplied, and each thread scales the xdt rows
+// it copied by w_j once they have landed.  Otherwise plain loads.
+template <bool kVec>
+__global__ void __launch_bounds__(256)
+ssd_chunk_scan_states_kernel(const float* __restrict__ xdt, const float* __restrict__ bm,
+                             const float* __restrict__ wend, float* __restrict__ states_t,
+                             int S, int H, int P, int N, int L) {
+  extern __shared__ __align__(16) float states_smem[];  // kStatesSmem bytes
+  auto xs = reinterpret_cast<float (*)[kSlice][kMaxP]>(states_smem);  // [2]: w_j xdt_j
+  auto bs = reinterpret_cast<float (*)[kSlice][kMaxN]>(states_smem + 2 * kSlice * kMaxP);
+  float* w_s = states_smem + 2 * kSlice * (kMaxP + kMaxN);  // kMaxL
+  const int h = blockIdx.x;
+  const int c = blockIdx.y;
+  const int b = blockIdx.z;
+  const int nc = gridDim.y;
+  const int tid = threadIdx.x;
+  const int tp = tid & 15;  // p = 4 tp + k
+  const int tn = tid >> 4;  // n = 8 tn + i
+  const float* w = wend + ((size_t)(b * H + h) * nc + c) * L;
+  const size_t pos0 = (size_t)b * S + (size_t)c * L;
+  for (int j = tid; j < L; j += 256) w_s[j] = w[j];
+  __syncthreads();
+
+  auto issue = [&](int j0, int buf) {
+    if (kVec) {
+      for (int e = tid; e < kSlice * kMaxP / 4; e += 256) {
+        const int jj = e / (kMaxP / 4);
+        const int p = 4 * (e - jj * (kMaxP / 4));
+        const int j = j0 + jj;
+        const bool in = j < L && p < P;
+        cp_async16(&xs[buf][jj][p], in ? xdt + ((pos0 + j) * H + h) * P + p : xdt, in);
+      }
+      for (int e = tid; e < kSlice * kMaxN / 4; e += 256) {
+        const int jj = e / (kMaxN / 4);
+        const int n = 4 * (e - jj * (kMaxN / 4));
+        const int j = j0 + jj;
+        const bool in = j < L && n < N;
+        cp_async16(&bs[buf][jj][n], in ? bm + (pos0 + j) * N + n : bm, in);
       }
     } else {
-      for (int i = tid; i < L * P; i += kThreads) {
-        const int j = i / P;
-        const int p = i - j * P;
-        xs[i] = xdt[((size_t)(b * S + s0 + j) * H + h) * P + p];
+      for (int e = tid; e < kSlice * kMaxP; e += 256) {
+        const int jj = e / kMaxP;
+        const int p = e - jj * kMaxP;
+        const int j = j0 + jj;
+        xs[buf][jj][p] = j < L && p < P ? xdt[((pos0 + j) * H + h) * P + p] * w_s[j] : 0.0f;
       }
-      for (int i = tid; i < L * N; i += kThreads) {
-        const int j = i / N;
-        const int n = i - j * N;
-        bs[j * NS + n] = bm[(size_t)(b * S + s0 + j) * N + n];
+      for (int e = tid; e < kSlice * kMaxN; e += 256) {
+        const int jj = e / kMaxN;
+        const int n = e - jj * kMaxN;
+        const int j = j0 + jj;
+        bs[buf][jj][n] = j < L && n < N ? bm[(pos0 + j) * N + n] : 0.0f;
       }
     }
-    if (tid < 32) {  // inclusive cumsum of dA over the chunk, one warp
-      const int per = (L + 31) / 32;  // <= 4 positions a lane, in order
-      float vals[kMaxL / 32];
-      float run = 0.0f;
+  };
+
+  float acc[8][4];
 #pragma unroll
-      for (int k = 0; k < kMaxL / 32; ++k) {
-        const int j = tid * per + k;
-        if (k < per && j < L) run += dA[(size_t)(b * S + s0 + j) * H + h];
-        vals[k] = run;
-      }
-      float incl = run;
+  for (int i = 0; i < 8; ++i)
 #pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const float t = __shfl_up_sync(0xffffffffu, incl, off);
-        if (tid >= off) incl += t;
-      }
-      const float before = incl - run;
-#pragma unroll
-      for (int k = 0; k < kMaxL / 32; ++k) {
-        const int j = tid * per + k;
-        if (k < per && j < L) cum[j] = before + vals[k];
+    for (int k = 0; k < 4; ++k) acc[i][k] = 0.0f;
+  const int ns = (L + kSlice - 1) / kSlice;
+  issue(0, 0);
+  cp_async_commit();
+  for (int sl = 0; sl < ns; ++sl) {
+    const int buf = sl & 1;
+    if (sl + 1 < ns) {
+      issue((sl + 1) * kSlice, buf ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    if (kVec) {  // w_j on the xdt rows this thread copied
+      for (int e = tid; e < kSlice * kMaxP / 4; e += 256) {
+        const int jj = e / (kMaxP / 4);
+        const int p = 4 * (e - jj * (kMaxP / 4));
+        const int j = sl * kSlice + jj;
+        if (j < L) {
+          const float wj = w_s[j];
+          float4 v = ld4(&xs[buf][jj][p]);
+          v.x *= wj; v.y *= wj; v.z *= wj; v.w *= wj;
+          st4(&xs[buf][jj][p], v);
+        }
       }
     }
     __syncthreads();
-    const float cend = cum[L - 1];
-    for (int j = tid; j < L; j += kThreads) wend[j] = expf(cend - cum[j]);
+#pragma unroll 8
+    for (int jj = 0; jj < kSlice; ++jj) {
+      const float4 b0 = ld4(&bs[buf][jj][8 * tn]);
+      const float4 b1 = ld4(&bs[buf][jj][8 * tn + 4]);
+      const float4 x4 = ld4(&xs[buf][jj][4 * tp]);
+      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+      const float xv[4] = {x4.x, x4.y, x4.z, x4.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) acc[i][k] += bv[i] * xv[k];
+    }
+    __syncthreads();  // this buffer is consumed before the next slice refills it
+  }
+  float* out = states_t + ((size_t)(b * nc + c) * H + h) * P * N;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int n = 8 * tn + i;
+    if (n >= N) continue;
+    if (kVec) {
+      if (4 * tp < P)
+        st4(out + (size_t)n * P + 4 * tp, make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]));
+    } else {
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        if (4 * tp + k < P) out[(size_t)n * P + 4 * tp + k] = acc[i][k];
+    }
+  }
+}
 
-    for (int i0 = 0; i0 < L; i0 += kRows) {
-      const int rows = min(kRows, L - i0);
-      const int jend = i0 + rows;  // causal: columns before the block's end
-      __syncthreads();  // the previous row block's reads of cs and gs are done
-      for (int i = tid; i < rows * N; i += kThreads) {
-        const int r = i / N;
-        const int n = i - r * N;
-        cs[r * NS + n] = cm[(size_t)(b * S + s0 + i0 + r) * N + n];
-      }
-      __syncthreads();
+// ------------------------------------------------------------------ 4. pass
 
-      // scores o L: gs[r][j] = (C_r . B_j) * exp(cum_r - cum_j), 0 for j > r;
-      // only the column groups before the block's end are computed.
-      if (jend <= kMaxL / 2)
-        score_block<kLJ / 2>(cs, bs, cum, gs, NS, GS, N, i0, rows, jend, tx, ty);
-      else
-        score_block<kLJ>(cs, bs, cum, gs, NS, GS, N, i0, rows, jend, tx, ty);
-      __syncthreads();
-
-      // y = gs . xdt + exp(cum_r) * C_r . S^T for the block's rows.
-      {
-        float acc[kRI][kPI], off[kRI][kPI];
+// One thread per kW elements of the (N, P) state of one (batch row, head)
+// (kW = 4 when P is a multiple of 4 and the pointers 16-byte aligned, else
+// 1); the loads of eight chunks are issued before their stores.
+template <int kW>
+__global__ void __launch_bounds__(256)
+ssd_chunk_scan_pass_kernel(const float* __restrict__ cum, float* __restrict__ states_t,
+                           float* __restrict__ final_state, int H, int P, int N, int L, int nc) {
+  using Vec = typename std::conditional<kW == 4, float4, float>::type;
+  constexpr int kGroup = 8;
+  const int PN = P * N;
+  const int e = kW * (blockIdx.x * 256 + threadIdx.x);
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  if (e >= PN) return;
+  const float* cb = cum + (size_t)(b * H + h) * nc * L;
+  float s[kW];
 #pragma unroll
-        for (int i = 0; i < kRI; ++i)
+  for (int k = 0; k < kW; ++k) s[k] = 0.0f;
+  for (int c0 = 0; c0 < nc; c0 += kGroup) {
+    Vec own[kGroup];
+    float decay[kGroup];
 #pragma unroll
-          for (int j = 0; j < kPI; ++j) acc[i][j] = off[i][j] = 0.0f;
-#pragma unroll 4
-        for (int jj = 0; jj < jend; ++jj) {
-          float gv[kRI], xv[kPI];
-#pragma unroll
-          for (int i = 0; i < kRI; ++i) gv[i] = gs[(ty + 16 * i) * GS + jj];
-#pragma unroll
-          for (int j = 0; j < kPI; ++j) {
-            const int p = tx + 16 * j;
-            xv[j] = p < P ? xs[jj * P + p] : 0.0f;
-          }
-#pragma unroll
-          for (int i = 0; i < kRI; ++i)
-#pragma unroll
-            for (int j = 0; j < kPI; ++j) acc[i][j] += gv[i] * xv[j];
-        }
-#pragma unroll 4
-        for (int n = 0; n < N; ++n) {
-          float cv[kRI], sv[kPI];
-#pragma unroll
-          for (int i = 0; i < kRI; ++i) cv[i] = cs[(ty + 16 * i) * NS + n];
-#pragma unroll
-          for (int j = 0; j < kPI; ++j) {
-            const int p = tx + 16 * j;
-            sv[j] = p < P ? st[p * NS + n] : 0.0f;
-          }
-#pragma unroll
-          for (int i = 0; i < kRI; ++i)
-#pragma unroll
-            for (int j = 0; j < kPI; ++j) off[i][j] += cv[i] * sv[j];
-        }
-#pragma unroll
-        for (int i = 0; i < kRI; ++i) {
-          const int r = ty + 16 * i;
-          if (r >= rows) continue;
-          const int row = i0 + r;
-          const float decay_in = expf(cum[row]);
-          float* out = y + ((size_t)(b * S + s0 + row) * H + h) * P;
-#pragma unroll
-          for (int j = 0; j < kPI; ++j) {
-            const int p = tx + 16 * j;
-            if (p < P) out[p] = acc[i][j] + decay_in * off[i][j];
-          }
-        }
+    for (int g = 0; g < kGroup; ++g) {
+      if (c0 + g < nc) {
+        own[g] = *reinterpret_cast<const Vec*>(
+            &states_t[((size_t)(b * nc + c0 + g) * H + h) * PN + e]);
+        decay[g] = expf(cb[(size_t)(c0 + g) * L + L - 1]);
       }
     }
-    __syncthreads();  // every row has read the state before this chunk
-
-    // S <- exp(cum_end) S + sum_j (exp(cum_end - cum_j) xdt_j)^T B_j
-    {
-      const float decay_all = expf(cend);
-      float acc[kPI][kNJ];
 #pragma unroll
-      for (int i = 0; i < kPI; ++i)
+    for (int g = 0; g < kGroup; ++g) {
+      if (c0 + g < nc) {
+        float* at = &states_t[((size_t)(b * nc + c0 + g) * H + h) * PN + e];
+        const float* o = reinterpret_cast<const float*>(&own[g]);
 #pragma unroll
-        for (int j = 0; j < kNJ; ++j) acc[i][j] = 0.0f;
-#pragma unroll 4
-      for (int jj = 0; jj < L; ++jj) {
-        const float w = wend[jj];
-        float xv[kPI], bv[kNJ];
-#pragma unroll
-        for (int i = 0; i < kPI; ++i) {
-          const int p = ty + 16 * i;
-          xv[i] = p < P ? xs[jj * P + p] * w : 0.0f;
-        }
-#pragma unroll
-        for (int j = 0; j < kNJ; ++j) {
-          const int n = tx + 16 * j;
-          bv[j] = n < N ? bs[jj * NS + n] : 0.0f;
-        }
-#pragma unroll
-        for (int i = 0; i < kPI; ++i)
-#pragma unroll
-          for (int j = 0; j < kNJ; ++j) acc[i][j] += xv[i] * bv[j];
-      }
-#pragma unroll
-      for (int i = 0; i < kPI; ++i) {
-        const int p = ty + 16 * i;
-#pragma unroll
-        for (int j = 0; j < kNJ; ++j) {
-          const int n = tx + 16 * j;
-          if (p < P && n < N) st[p * NS + n] = decay_all * st[p * NS + n] + acc[i][j];
+        for (int k = 0; k < kW; ++k) {
+          at[k] = s[k];  // the state entering chunk c0 + g
+          s[k] = decay[g] * s[k] + o[k];
         }
       }
     }
   }
+  const int n = e / P;
+  const int p = e - n * P;  // kW elements share n: P is a multiple of kW
+#pragma unroll
+  for (int k = 0; k < kW; ++k)
+    final_state[(size_t)(b * H + h) * PN + (size_t)(p + k) * N + n] = s[k];
+}
+
+// ---------------------------------------------------------------- 5. output
+
+// y for 64 rows of one (batch row, chunk, head): first y_off = C . S_enter^T
+// scaled by exp(cum_i) per row, then y_diag = (scores o L) . xdt over the
+// causal column slices.  A thread owns 8 rows by 4 p.  The row operand (C,
+// or the scores o L) is staged row by row and read as float4 along the
+// depth, the other (S_enter^T, or xdt) depth by depth and read as float4
+// along p: 12 shared loads per 128 multiply-adds.  kVec (P, N and L
+// multiples of 4, 16-byte aligned pointers): the slices go through a
+// two-stage cp.async ring, the next slice loading while this one is
+// multiplied, and each thread applies L = exp(cum_i - cum_j) (0 above the
+// diagonal) to the scores it copied once they have landed.
+template <bool kVec>
+__global__ void __launch_bounds__(128)
+ssd_chunk_scan_output_kernel(const float* __restrict__ xdt, const float* __restrict__ cm,
+                             const float* __restrict__ scores, const float* __restrict__ cum,
+                             const float* __restrict__ entering_t, float* __restrict__ y, int S,
+                             int H, int P, int N, int L) {
+  constexpr int AS = kSlice + 4;  // row stride of the row operand: 16-byte rows
+  __shared__ float cum_s[kMaxL];
+  __shared__ __align__(16) float sa[2][kTile * AS];      // [row][n or j]: C, or scores o L
+  __shared__ __align__(16) float sb[2][kSlice * kMaxP];  // [n or j][p]: S_enter, or xdt
+  const int nrb = (L + kTile - 1) / kTile;
+  const int rb = nrb - 1 - (int)(blockIdx.x % nrb);  // the longest rows first
+  const int h = blockIdx.x / nrb;
+  const int c = blockIdx.y;
+  const int b = blockIdx.z;
+  const int nc = gridDim.y;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int tp = tid & 15;  // p = 4 tp + k
+  const int tr = tid >> 4;  // rows 8 tr + i: warp w holds rows 16 w .. 16 w + 15
+  const int i0 = rb * kTile;
+  const int rows = min(kTile, L - i0);
+  const int jend = i0 + rows;  // causal: columns before the block's end
+  const size_t pos0 = (size_t)b * S + (size_t)c * L;
+  const float* sc = scores + (size_t)(b * nc + c) * L * L;
+  const float* st = entering_t + ((size_t)(b * nc + c) * H + h) * P * N;
+  const float* cb = cum + ((size_t)(b * H + h) * nc + c) * L;
+  for (int j = tid; j < L; j += 128) cum_s[j] = cb[j];
   __syncthreads();
-  for (int i = tid; i < P * N; i += kThreads) {
-    const int p = i / N;
-    const int n = i - p * N;
-    final_state[((size_t)(b * H + h) * P + p) * N + n] = st[p * NS + n];
+
+  // Slices 0 .. n_off - 1 are y_off's (states n0 = 32 s), the rest y_diag's
+  // (columns j0 = 32 (s - n_off)).
+  const int n_off = (N + kSlice - 1) / kSlice;
+  const int n_all = n_off + (jend + kSlice - 1) / kSlice;
+
+  auto issue = [&](int sl, int buf) {
+    float* a = sa[buf];
+    float* bb = sb[buf];
+    if (sl < n_off) {
+      const int n0 = sl * kSlice;
+      if (kVec) {
+        for (int e = tid; e < kTile * kSlice / 4; e += 128) {
+          const int r = e / (kSlice / 4);
+          const int nn = 4 * (e - r * (kSlice / 4));
+          const int n = n0 + nn;
+          const bool in = r < rows && n < N;
+          cp_async16(&a[r * AS + nn], in ? cm + (pos0 + i0 + r) * N + n : cm, in);
+        }
+        for (int e = tid; e < kSlice * kMaxP / 4; e += 128) {
+          const int nn = e / (kMaxP / 4);
+          const int p = 4 * (e - nn * (kMaxP / 4));
+          const int n = n0 + nn;
+          const bool in = n < N && p < P;
+          cp_async16(&bb[nn * kMaxP + p], in ? st + (size_t)n * P + p : st, in);
+        }
+      } else {
+        for (int e = tid; e < kTile * kSlice; e += 128) {
+          const int r = e / kSlice;
+          const int nn = e - r * kSlice;
+          const int n = n0 + nn;
+          a[r * AS + nn] = r < rows && n < N ? cm[(pos0 + i0 + r) * N + n] : 0.0f;
+        }
+        for (int e = tid; e < kSlice * kMaxP; e += 128) {
+          const int nn = e / kMaxP;
+          const int p = e - nn * kMaxP;
+          const int n = n0 + nn;
+          bb[nn * kMaxP + p] = n < N && p < P ? st[(size_t)n * P + p] : 0.0f;
+        }
+      }
+    } else {
+      const int j0 = (sl - n_off) * kSlice;
+      if (kVec) {
+        for (int e = tid; e < kTile * kSlice / 4; e += 128) {
+          const int r = e / (kSlice / 4);
+          const int jj = 4 * (e - r * (kSlice / 4));
+          const int j = j0 + jj;
+          const bool in = r < rows && j < jend;
+          cp_async16(&a[r * AS + jj], in ? sc + (size_t)(i0 + r) * L + j : sc, in);
+        }
+        for (int e = tid; e < kSlice * kMaxP / 4; e += 128) {
+          const int jj = e / (kMaxP / 4);
+          const int p = 4 * (e - jj * (kMaxP / 4));
+          const int j = j0 + jj;
+          const bool in = j < jend && p < P;
+          cp_async16(&bb[jj * kMaxP + p], in ? xdt + ((pos0 + j) * H + h) * P + p : xdt, in);
+        }
+      } else {
+        for (int e = tid; e < kTile * kSlice; e += 128) {
+          const int r = e / kSlice;
+          const int jj = e - r * kSlice;
+          const int i = i0 + r;
+          const int j = j0 + jj;
+          a[r * AS + jj] =
+              r < rows && j <= i ? sc[(size_t)i * L + j] * expf(cum_s[i] - cum_s[j]) : 0.0f;
+        }
+        for (int e = tid; e < kSlice * kMaxP; e += 128) {
+          const int jj = e / kMaxP;
+          const int p = e - jj * kMaxP;
+          const int j = j0 + jj;
+          bb[jj * kMaxP + p] = j < jend && p < P ? xdt[((pos0 + j) * H + h) * P + p] : 0.0f;
+        }
+      }
+    }
+  };
+
+  float acc[8][4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int k = 0; k < 4; ++k) acc[i][k] = 0.0f;
+
+  issue(0, 0);
+  cp_async_commit();
+  for (int sl = 0; sl < n_all; ++sl) {
+    const int buf = sl & 1;
+    if (sl + 1 < n_all) {
+      issue(sl + 1, buf ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    const bool diag = sl >= n_off;
+    const int j0 = (sl - n_off) * kSlice;
+    if (kVec && diag) {  // L on the scores this thread copied: exp(cum_i - cum_j), 0 for j > i
+      for (int e = tid; e < kTile * kSlice / 4; e += 128) {
+        const int r = e / (kSlice / 4);
+        const int jj = 4 * (e - r * (kSlice / 4));
+        const int i = i0 + r;
+        float* at = &sa[buf][r * AS + jj];
+        float4 v = ld4(at);
+        float* vf = reinterpret_cast<float*>(&v);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int j = j0 + jj + u;
+          vf[u] = r < rows && j <= i ? vf[u] * expf(cum_s[i] - cum_s[j]) : 0.0f;
+        }
+        st4(at, v);
+      }
+    }
+    __syncthreads();
+    // A y_diag slice left of every row of this warp is all zeros for it.
+    if (!diag || j0 <= i0 + 16 * warp + 15) {
+      const float* a = sa[buf];
+      const float* bb = sb[buf];
+#pragma unroll 2
+      for (int q = 0; q < kSlice; q += 4) {
+        float4 a4[8], b4[4];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) a4[i] = ld4(&a[(8 * tr + i) * AS + q]);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) b4[u] = ld4(&bb[(q + u) * kMaxP + 4 * tp]);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const float av[4] = {a4[i].x, a4[i].y, a4[i].z, a4[i].w};
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            acc[i][0] += av[u] * b4[u].x;
+            acc[i][1] += av[u] * b4[u].y;
+            acc[i][2] += av[u] * b4[u].z;
+            acc[i][3] += av[u] * b4[u].w;
+          }
+        }
+      }
+    }
+    if (sl == n_off - 1) {  // y_off is complete: its decay exp(cum_i) per row
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int r = 8 * tr + i;
+        const float decay_in = r < rows ? expf(cum_s[i0 + r]) : 0.0f;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) acc[i][k] *= decay_in;
+      }
+    }
+    __syncthreads();  // this buffer is consumed before the next slice refills it
   }
+
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int r = 8 * tr + i;
+    if (r >= rows) continue;
+    float* out = y + ((pos0 + i0 + r) * H + h) * P;
+    if (kVec) {
+      if (4 * tp < P) st4(out + 4 * tp, make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]));
+    } else {
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        if (4 * tp + k < P) out[4 * tp + k] = acc[i][k];
+    }
+  }
+}
+
+bool shape_ok(int B, int S, int H, int P, int N, int L) {
+  return B > 0 && S > 0 && H > 0 && P > 0 && N > 0 && L > 0 && L <= kMaxL && P <= kMaxP &&
+         N <= kMaxN && S % L == 0;
+}
+
+// float4 copies: P, N and L multiples of 4 and every pointer 16-byte aligned.
+bool vec_ok(int P, int N, int L, std::initializer_list<const void*> ptrs) {
+  uintptr_t bits = 0;
+  for (const void* p : ptrs) bits |= reinterpret_cast<uintptr_t>(p);
+  return P % 4 == 0 && N % 4 == 0 && L % 4 == 0 && (bits & 15) == 0;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Returns the launch's cudaError_t.
-int ssd_chunk_scan_fwd(const void* xdt, const void* dA, const void* bm, const void* cm, void* y,
-                       void* final_state, int B, int S, int H, int P, int N, int L,
-                       void* stream) {
-  if (B <= 0 || S <= 0 || H <= 0 || P <= 0 || N <= 0 || L <= 0 || L > kMaxL || P > kMaxP ||
-      N > kMaxN || S % L != 0)
-    return cudaErrorInvalidValue;
-  const size_t smem = smem_floats(L, P, N) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(ssd_chunk_scan_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+// The five stages, in this order, on one stream; each returns the launch's
+// cudaError_t.  Scratch (B = batch, nc = S / L): cum and wend (B, H, nc, L),
+// scores (B, nc, L, L), written in the 64 x 64 tiles on and below the
+// diagonal, states_t (B, nc, H, N, P): each chunk's state, transposed, then
+// (after the pass) the state entering each chunk.
+
+int ssd_chunk_scan_cumsum(const void* dA, void* cum, void* wend, int B, int S, int H, int L,
+                          void* stream) {
+  if (!shape_ok(B, S, H, 1, 1, L)) return cudaErrorInvalidValue;
+  ssd_chunk_scan_cumsum_kernel<<<dim3(S / L, B), 128, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(dA), static_cast<float*>(cum), static_cast<float*>(wend), S, H,
+      L);
+  return cudaGetLastError();
+}
+
+int ssd_chunk_scan_scores(const void* bm, const void* cm, void* scores, int B, int S, int N,
+                          int L, void* stream) {
+  if (!shape_ok(B, S, 1, 1, N, L)) return cudaErrorInvalidValue;
+  const int nt = (L + kTile - 1) / kTile;
+  ssd_chunk_scan_scores_kernel<<<dim3(nt * (nt + 1) / 2, S / L, B), 256, 0,
+                                 static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(bm), static_cast<const float*>(cm), static_cast<float*>(scores),
+      S, N, L);
+  return cudaGetLastError();
+}
+
+int ssd_chunk_scan_states(const void* xdt, const void* bm, const void* wend, void* states_t,
+                          int B, int S, int H, int P, int N, int L, void* stream) {
+  if (!shape_ok(B, S, H, P, N, L)) return cudaErrorInvalidValue;
+  const dim3 grid(H, S / L, B);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto x = static_cast<const float*>(xdt);
+  auto bmf = static_cast<const float*>(bm);
+  auto w = static_cast<const float*>(wend);
+  auto out = static_cast<float*>(states_t);
+  auto kernel = vec_ok(P, N, L, {xdt, bm, states_t}) ? ssd_chunk_scan_states_kernel<true>
+                                                    : ssd_chunk_scan_states_kernel<false>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)kStatesSmem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(H, B);
-  ssd_chunk_scan_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(xdt), static_cast<const float*>(dA),
-      static_cast<const float*>(bm), static_cast<const float*>(cm), static_cast<float*>(y),
-      static_cast<float*>(final_state), S, H, P, N, L);
+  kernel<<<grid, 256, kStatesSmem, s>>>(x, bmf, w, out, S, H, P, N, L);
+  return cudaGetLastError();
+}
+
+int ssd_chunk_scan_pass(const void* cum, void* states_t, void* final_state, int B, int S, int H,
+                        int P, int N, int L, void* stream) {
+  if (!shape_ok(B, S, H, P, N, L)) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto c = static_cast<const float*>(cum);
+  auto st = static_cast<float*>(states_t);
+  auto fs = static_cast<float*>(final_state);
+  if (P % 4 == 0 && (reinterpret_cast<uintptr_t>(states_t) & 15) == 0)
+    ssd_chunk_scan_pass_kernel<4><<<dim3((P * N / 4 + 255) / 256, H, B), 256, 0, s>>>(
+        c, st, fs, H, P, N, L, S / L);
+  else
+    ssd_chunk_scan_pass_kernel<1><<<dim3((P * N + 255) / 256, H, B), 256, 0, s>>>(
+        c, st, fs, H, P, N, L, S / L);
+  return cudaGetLastError();
+}
+
+int ssd_chunk_scan_output(const void* xdt, const void* cm, const void* scores, const void* cum,
+                          const void* entering_t, void* y, int B, int S, int H, int P, int N,
+                          int L, void* stream) {
+  if (!shape_ok(B, S, H, P, N, L)) return cudaErrorInvalidValue;
+  const int nrb = (L + kTile - 1) / kTile;
+  const dim3 grid(nrb * H, S / L, B);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto args = [&](auto kernel) {
+    kernel<<<grid, 128, 0, s>>>(static_cast<const float*>(xdt), static_cast<const float*>(cm),
+                                static_cast<const float*>(scores),
+                                static_cast<const float*>(cum),
+                                static_cast<const float*>(entering_t), static_cast<float*>(y),
+                                S, H, P, N, L);
+  };
+  if (vec_ok(P, N, L, {xdt, cm, scores, entering_t, y}))
+    args(ssd_chunk_scan_output_kernel<true>);
+  else
+    args(ssd_chunk_scan_output_kernel<false>);
   return cudaGetLastError();
 }
 

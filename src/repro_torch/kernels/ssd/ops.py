@@ -7,11 +7,15 @@ float32 and hands them to ``ssd_chunk_scan``, which has
 ``ssd_pallas``'s contract: xdt (B, S, H, P), dA (B, S, H), bm and cm
 (B, S, N), ngroups = 1, ``S % chunk == 0``; y (B, S, H, P) and the
 final state (B, H, P, N), float32.  Tensors on the CPU take the plain
-version (``ref.ssd_chunk_ref``); CUDA tensors launch ``csrc/ssd.cu`` on
-the current stream, or the call raises.  There is no other route.
+version (``ref.ssd_chunk_ref``); CUDA tensors launch the five kernels of
+``csrc/ssd.cu`` in order on the current stream (cumsum, scores, chunk
+states, state passing, output: the Mamba-2 split), or the call raises.
+There is no other route.  One call is one K5 launch on the counter,
+whatever the number of CUDA kernels it starts.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
@@ -19,11 +23,12 @@ import torch
 from repro_torch.kernels import LaunchCounter, nvcc
 from repro_torch.kernels.ssd.ref import ssd_chunk_ref
 
-__all__ = ["ssd", "ssd_from_a", "ssd_chunk_scan", "counter", "MAX_CHUNK", "MAX_HEADDIM", "MAX_STATE"]
+__all__ = ["ssd", "ssd_from_a", "ssd_chunk_scan", "ssd_chunk_scan_stages", "SsdStages",
+           "counter", "MAX_CHUNK", "MAX_HEADDIM", "MAX_STATE"]
 
 counter = LaunchCounter("ssd")
 
-# The kernel's limits (csrc/ssd.cu: kMaxL, kMaxP, kMaxN).
+# The kernels' limits (csrc/ssd.cu: kMaxL, kMaxP, kMaxN).
 MAX_CHUNK, MAX_HEADDIM, MAX_STATE = 128, 64, 128
 
 _P = ctypes.c_void_p
@@ -46,13 +51,22 @@ def _check_args(xdt, dA, bm, cm, chunk):
             raise ValueError(f"{name} is on {t.device}, xdt on {xdt.device}")
 
 
-def ssd_chunk_scan(xdt, dA, bm, cm, chunk: int = 128):
-    """``ssd_pallas``: (y (B, S, H, P), final_state (B, H, P, N)), float32."""
+SsdStages = collections.namedtuple(
+    "SsdStages", ["cum", "scores", "entering", "final_state", "y"])
+SsdStages.__doc__ = """What the five stages of K5 leave on the card, in the
+layouts of ``ref``'s stages: cum (B, H, nc, l); scores (B, nc, l, l), valid
+on and below the diagonal only; the state entering each chunk
+(B, nc, H, P, N), a view of the kernels' (B, nc, H, N, P); the final state
+(B, H, P, N); y (B, S, H, P)."""
+
+
+def ssd_chunk_scan_stages(xdt, dA, bm, cm, chunk: int = 128) -> SsdStages:
+    """Launch K5's five kernels on CUDA tensors and return every stage's
+    output (the chunk states are overwritten in place by the entering
+    states).  Counts one K5 launch."""
     _check_args(xdt, dA, bm, cm, chunk)
-    if xdt.device.type == "cpu":
-        return ssd_chunk_ref(xdt, dA, bm, cm, chunk)
     if xdt.device.type != "cuda":
-        raise ValueError(f"ssd_chunk_scan runs on CUDA or the CPU, not {xdt.device}")
+        raise ValueError(f"the SSD kernel stages run on CUDA, not {xdt.device}")
     b, s, h, p = xdt.shape
     n = bm.shape[-1]
     for name, t in (("xdt", xdt), ("dA", dA), ("bm", bm), ("cm", cm)):
@@ -63,19 +77,50 @@ def ssd_chunk_scan(xdt, dA, bm, cm, chunk: int = 128):
     if chunk > MAX_CHUNK or p > MAX_HEADDIM or n > MAX_STATE:
         raise ValueError(f"the SSD kernel takes chunk <= {MAX_CHUNK}, P <= {MAX_HEADDIM}, "
                          f"N <= {MAX_STATE}; got chunk={chunk}, P={p}, N={n}")
+    nc = s // chunk
+
+    def empty(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=xdt.device)
+
+    cum, wend = empty(b, h, nc, chunk), empty(b, h, nc, chunk)
+    scores = empty(b, nc, chunk, chunk)
+    states_t = empty(b, nc, h, n, p)  # (N, P): chunk states, then the entering states
+    final_state = empty(b, h, p, n)
     y = torch.empty_like(xdt)
-    final_state = torch.empty((b, h, p, n), dtype=torch.float32, device=xdt.device)
     lib = nvcc.library("ssd")
-    fn = lib.ssd_chunk_scan_fwd
-    fn.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
-    fn.restype = _I
+    launches = (
+        ("ssd_chunk_scan_cumsum", [_P, _P, _P, _I, _I, _I, _I, _P],
+         (dA, cum, wend, b, s, h, chunk)),
+        ("ssd_chunk_scan_scores", [_P, _P, _P, _I, _I, _I, _I, _P],
+         (bm, cm, scores, b, s, n, chunk)),
+        ("ssd_chunk_scan_states", [_P, _P, _P, _P] + [_I] * 6 + [_P],
+         (xdt, bm, wend, states_t, b, s, h, p, n, chunk)),
+        ("ssd_chunk_scan_pass", [_P, _P, _P] + [_I] * 6 + [_P],
+         (cum, states_t, final_state, b, s, h, p, n, chunk)),
+        ("ssd_chunk_scan_output", [_P] * 6 + [_I] * 6 + [_P],
+         (xdt, cm, scores, cum, states_t, y, b, s, h, p, n, chunk)),
+    )
     with torch.cuda.device(xdt.device):
         stream = torch.cuda.current_stream(xdt.device).cuda_stream
-        err = fn(xdt.data_ptr(), dA.data_ptr(), bm.data_ptr(), cm.data_ptr(), y.data_ptr(),
-                 final_state.data_ptr(), b, s, h, p, n, chunk, stream)
-    counter.add()
-    nvcc.check(lib, err, "ssd_chunk_scan")
-    return y, final_state
+        counter.add()
+        for name, argtypes, args in launches:
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = _I
+            err = fn(*(a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args), stream)
+            nvcc.check(lib, err, name)
+    return SsdStages(cum, scores, states_t.transpose(-1, -2), final_state, y)
+
+
+def ssd_chunk_scan(xdt, dA, bm, cm, chunk: int = 128):
+    """``ssd_pallas``: (y (B, S, H, P), final_state (B, H, P, N)), float32."""
+    _check_args(xdt, dA, bm, cm, chunk)
+    if xdt.device.type == "cpu":
+        return ssd_chunk_ref(xdt, dA, bm, cm, chunk)
+    if xdt.device.type != "cuda":
+        raise ValueError(f"ssd_chunk_scan runs on CUDA or the CPU, not {xdt.device}")
+    out = ssd_chunk_scan_stages(xdt, dA, bm, cm, chunk)
+    return out.y, out.final_state
 
 
 def ssd(x, dt, a_log, bm, cm, chunk: int = 128):

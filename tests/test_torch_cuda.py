@@ -20,7 +20,14 @@ from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.knn import ops as knn_ops
 from repro_torch.kernels.knn.ref import knn_topk_ref
 from repro_torch.kernels.ssd import ops as ssd_ops
-from repro_torch.kernels.ssd.ref import ssd_chunk_ref, ssd_sequential_ref
+from repro_torch.kernels.ssd.ref import (
+    chunk_cumsum,
+    chunk_scores,
+    chunk_states,
+    ssd_chunk_ref,
+    ssd_sequential_ref,
+    state_passing,
+)
 from repro_torch.kernels.utility import ops as util_ops
 from repro_torch.kernels.utility.ref import utility_scores_ref
 
@@ -130,8 +137,19 @@ def _flash_plain(q, k, v, window):
     (1, 256, 256, 4, 2, 32, 64), (1, 130, 130, 2, 2, 16, 32),  # tests/test_kernels.py:22
     (2, 37, 300, 8, 2, 64, 0), (1, 200, 200, 4, 1, 128, 0), (1, 65, 65, 32, 4, 64, 100),
     (3, 1, 50, 8, 8, 16, 0),
+    # Every head dim with G = 1, 4 and 8, windows 0, 32 and 64, offset
+    # queries (Sq < Skv) and lengths that are no multiple of the 64-key tile.
+    # With a window, the later rows of a query tile see nothing in its first
+    # KV tiles: their running max stays _NEG there, as the reference's does.
+    (2, 130, 130, 8, 8, 16, 0), (1, 300, 300, 32, 4, 16, 32), (2, 37, 300, 16, 4, 16, 64),
+    (1, 300, 300, 8, 2, 32, 0), (2, 130, 130, 16, 2, 32, 64), (1, 64, 300, 4, 4, 32, 32),
+    (1, 130, 300, 32, 4, 64, 0), (2, 300, 300, 4, 4, 64, 64), (1, 130, 130, 8, 2, 64, 32),
+    (1, 300, 300, 8, 1, 128, 0), (2, 130, 130, 4, 4, 128, 32), (1, 37, 130, 16, 4, 128, 64),
+    (2, 1024, 1024, 32, 4, 64, 0),  # tinyllama's prefill shape, two rows
 ])
 def test_flash_attention_kernel_matches_plain(cuda, b, sq, skv, hq, hkv, d, window, dtype):
+    """bf16 runs on the tensor cores, f32 on the CUDA cores; each against
+    the plain version at 2e-2 (bf16) or 2e-5 (f32)."""
     gen = torch.Generator(device=cuda).manual_seed(sq * 1000 + skv)
     q = torch.randn((b, sq, hq, d), generator=gen, device=cuda).to(dtype)
     k, v = (torch.randn((b, skv, hkv, d), generator=gen, device=cuda).to(dtype)
@@ -144,6 +162,20 @@ def test_flash_attention_kernel_matches_plain(cuda, b, sq, skv, hq, hkv, d, wind
     assert out.dtype == dtype and out.shape == q.shape
     tol = ATTN_TOL[dtype]
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+
+
+def test_flash_attention_kernel_takes_unaligned_views(cuda):
+    """A bf16 view that starts off a 16-byte boundary is still served by
+    the kernel (copied to an aligned tensor first)."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    flat = torch.randn(1 + 3 * 2 * 70 * 4 * 32, generator=gen, device=cuda).to(torch.bfloat16)
+    q, k, v = flat[1:].view(3, 2, 70, 4, 32).unbind(0)
+    assert q.data_ptr() % 16 and q.is_contiguous()
+    before = flash_ops.counter.count
+    out = flash_ops.flash_attention(q, k, v)
+    assert flash_ops.counter.count == before + 1
+    torch.testing.assert_close(out.float(), _flash_plain(q, k, v, 0).float(), atol=2e-2,
+                               rtol=2e-2)
 
 
 def test_flash_attention_kernel_is_causal(cuda):
@@ -259,6 +291,10 @@ def _ssd_case(b, s, h, p, n, device):
 @pytest.mark.parametrize("b,s,h,p,n,chunk", [
     (2, 64, 4, 8, 16, 16), (1, 128, 2, 16, 8, 32), (2, 48, 8, 8, 32, 16),
     (2, 256, 24, 64, 128, 128), (1, 96, 3, 64, 128, 32), (3, 40, 2, 5, 7, 8),
+    # One chunk and sixteen, chunks of 16 to 128, P in {8, 64}, N in {8, 128}.
+    (1, 128, 4, 64, 128, 128), (2, 2048, 4, 64, 128, 128), (2, 1024, 3, 8, 8, 64),
+    (1, 64, 2, 64, 8, 64), (2, 512, 2, 8, 128, 32), (1, 16, 3, 8, 8, 16),
+    (1, 256, 5, 64, 128, 16),
 ])
 def test_ssd_kernel_matches_plain(cuda, b, s, h, p, n, chunk):
     """y and the final state against the chunked plain version on the
@@ -274,6 +310,34 @@ def test_ssd_kernel_matches_plain(cuda, b, s, h, p, n, chunk):
         y_seq, state_seq = ssd_sequential_ref(xdt, dA, bm, cm)
         torch.testing.assert_close(y, y_seq, atol=SSD_ATOL, rtol=SSD_RTOL)
         torch.testing.assert_close(state, state_seq, atol=SSD_ATOL, rtol=SSD_RTOL)
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk", [
+    (2, 256, 24, 64, 128, 128), (1, 128, 4, 64, 128, 128), (2, 1024, 3, 8, 8, 64),
+    (2, 512, 2, 8, 128, 32), (1, 256, 5, 64, 128, 16), (3, 40, 2, 5, 7, 8),
+])
+def test_ssd_kernel_stages_match_plain_stages(cuda, b, s, h, p, n, chunk):
+    """Each of K5's kernels against its plain stage on the same inputs:
+    cum, the scores on and below the diagonal, the state entering every
+    chunk, the final state and y (atol 2e-4, rtol 1e-3)."""
+    x, dt, a_log, bm, cm = _ssd_case(b, s, h, p, n, cuda)
+    dA = (dt * -torch.exp(a_log)).contiguous()
+    xdt = (x * dt[..., None]).contiguous()
+    before = ssd_ops.counter.count
+    out = ssd_ops.ssd_chunk_scan_stages(xdt, dA, bm, cm, chunk)
+    torch.cuda.synchronize()
+    assert ssd_ops.counter.count == before + 1  # five kernels, one K5 launch
+    cum = chunk_cumsum(dA, chunk)
+    torch.testing.assert_close(out.cum, cum, atol=SSD_ATOL, rtol=SSD_RTOL)
+    lower = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=cuda))
+    scores = chunk_scores(bm, cm, chunk)
+    torch.testing.assert_close(out.scores[..., lower], scores[..., lower], atol=SSD_ATOL,
+                               rtol=SSD_RTOL)
+    entering, final_state = state_passing(chunk_states(xdt, bm, cum, chunk), cum)
+    torch.testing.assert_close(out.entering, entering, atol=SSD_ATOL, rtol=SSD_RTOL)
+    torch.testing.assert_close(out.final_state, final_state, atol=SSD_ATOL, rtol=SSD_RTOL)
+    y_ref, _ = ssd_chunk_ref(xdt, dA, bm, cm, chunk)
+    torch.testing.assert_close(out.y, y_ref, atol=SSD_ATOL, rtol=SSD_RTOL)
 
 
 def test_ssd_kernel_strong_decay(cuda):

@@ -28,7 +28,15 @@ from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels import nvcc
 from repro_torch.kernels.knn import ops as knn_ops
 from repro_torch.kernels.ssd import ops as ssd_ops
-from repro_torch.kernels.ssd.ref import ssd_chunk_ref, ssd_sequential_ref
+from repro_torch.kernels.ssd.ref import (
+    chunk_cumsum,
+    chunk_scan,
+    chunk_scores,
+    chunk_states,
+    ssd_chunk_ref,
+    ssd_sequential_ref,
+    state_passing,
+)
 from repro_torch.kernels.utility import ops as util_ops
 
 PENALTIES = ["step", "linear", "sigmoid", "none"]
@@ -358,6 +366,71 @@ def test_ssd_sequential_oracle_matches_reference(b, s, h, p, n, chunk):
     _ssd_close(sc, sk)
 
 
+# Stage cases beyond tests/test_kernels.py's sweep: one chunk (nc = 1) and
+# many (nc = 16), at chunks of 8 to 64.
+SSD_STAGE_SHAPES = SSD_SHAPES + [(1, 32, 3, 8, 8, 32), (1, 128, 2, 8, 16, 8),
+                                 (2, 64, 2, 16, 8, 64)]
+
+
+def _ssd_stage_args(b, s, h, p, n):
+    x, dt, a_log, bm, cm = _ssd_inputs(b, s, h, p, n)
+    dA = dt * -np.exp(a_log)
+    xdt = x * dt[..., None]
+    return xdt, dA, bm, cm
+
+
+def _compose_stages(xdt, dA, bm, cm, chunk):
+    cum = chunk_cumsum(dA, chunk)
+    scores = chunk_scores(bm, cm, chunk)
+    entering, final_state = state_passing(chunk_states(xdt, bm, cum, chunk), cum)
+    return chunk_scan(xdt, cm, scores, cum, entering, chunk), final_state
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk", SSD_STAGE_SHAPES)
+def test_ssd_plain_stages_compose_to_pallas(b, s, h, p, n, chunk):
+    """The five plain stages (cumsum, scores, chunk states, state passing,
+    chunk scan), composed by hand as the kernel launches them, against
+    ssd_pallas in interpret mode and the step-by-step oracle, at the
+    tolerance of tests/test_kernels.py:192 (atol 2e-4, rtol 1e-3)."""
+    xdt, dA, bm, cm = _ssd_stage_args(b, s, h, p, n)
+    args = [torch.as_tensor(v) for v in (xdt, dA, bm, cm)]
+    y, state = _compose_stages(*args, chunk)
+    assert y.shape == (b, s, h, p) and state.shape == (b, h, p, n)
+    yc, sc = ssd_chunk_ref(*args, chunk)
+    assert torch.equal(y, yc) and torch.equal(state, sc)  # one function to its callers
+    yk, sk = ssd_pallas(xdt, dA, bm, cm, chunk=chunk, interpret=True)
+    _ssd_close(y, yk)
+    _ssd_close(state, sk)
+    ys, ss = ssd_sequential_ref(*args)
+    _ssd_close(y, ys)
+    _ssd_close(state, ss)
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk", SSD_STAGE_SHAPES[3:])
+def test_ssd_plain_stages_mean_what_they_say(b, s, h, p, n, chunk):
+    """Each stage's own output against numpy and the step-by-step oracle:
+    cum is numpy's cumsum per chunk, the scores are C.B^T per chunk, the
+    state entering chunk c is the oracle's state after c * chunk steps,
+    and the last carry is its final state (atol 2e-4, rtol 1e-3)."""
+    xdt, dA, bm, cm = _ssd_stage_args(b, s, h, p, n)
+    args = [torch.as_tensor(v) for v in (xdt, dA, bm, cm)]
+    nc = s // chunk
+    cum = chunk_cumsum(args[1], chunk)
+    want_cum = np.cumsum(dA.reshape(b, nc, chunk, h), axis=2).transpose(0, 3, 1, 2)
+    _ssd_close(cum, want_cum)
+    scores = chunk_scores(args[2], args[3], chunk)
+    cc, bc = (t.reshape(b, nc, chunk, n).astype(np.float64) for t in (cm, bm))
+    _ssd_close(scores, np.einsum("bcln,bcsn->bcls", cc, bc))
+    entering, final_state = state_passing(chunk_states(args[0], args[2], cum, chunk), cum)
+    assert entering.shape == (b, nc, h, p, n)
+    assert not bool(entering[:, 0].any())  # nothing enters the first chunk
+    for c in range(1, nc):
+        _, state_c = ssd_sequential_ref(*(t[:, :c * chunk] for t in args))
+        _ssd_close(entering[:, c], state_c)
+    _, state = ssd_sequential_ref(*args)
+    _ssd_close(final_state, state)
+
+
 def test_ssd_plain_strong_decay_stays_finite():
     """Decays summing to about -400 over a chunk: L from differences of the
     cumsum, never a quotient of underflowed exponentials."""
@@ -397,6 +470,9 @@ def test_ssd_has_no_fallback_without_cuda():
             ((1, 16, 2, 8), (1, 16, 2), (1, 16, 4), (1, 16, 4))]
     with pytest.raises(ValueError, match="CUDA or the CPU"):
         ssd_ops.ssd_chunk_scan(*meta, 16)
+    host = [torch.zeros(t.shape) for t in meta]
+    with pytest.raises(ValueError, match="run on CUDA"):
+        ssd_ops.ssd_chunk_scan_stages(*host, 16)  # the stages are the kernel's alone
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device("cuda")
     if shutil.which("nvcc") is None:
