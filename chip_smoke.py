@@ -12,13 +12,15 @@ both, then drives two paths of the port on the card:
   application (K2, K1), plus one window of each other policy;
 * serving (phases 6-9): K3 (its bf16 tensor-core instance and its f32
   CUDA-core one), K4 and K5 (five kernels per call, each stage also held
-  against its plain stage and timed) against their plain versions,
-  2-layer float32 models at tinyllama's and mamba2's widths on the card
-  against the host, then ``EdgeServer`` serving 64 requests with
-  SneakPeek over a k-NN model on two families at full width,
-  mamba2-130m (24 SSD layers, prefill scan through K5) and
-  tinyllama-1.1b (22 attention layers, prefill through K3, decode
-  through K4), all bf16, and the same traffic on each family alone.
+  against its plain stage and timed) against their plain versions, K4
+  also at the serving backend's bucketed capacity, 2-layer float32
+  models at tinyllama's and mamba2's widths on the card, eager and
+  replayed from a CUDA graph, against the host, then ``EdgeServer``
+  serving 64 requests with SneakPeek over a k-NN model on two families
+  at full width, mamba2-130m (24 SSD layers, prefill scan through K5)
+  and tinyllama-1.1b (22 attention layers, prefill through K3, decode
+  through K4), all bf16, decode replayed from CUDA graphs, and the same
+  traffic on each family alone.
 
 Every check raises on failure.  The last three lines of standard output
 are the card's name and power limit, the kernel table and
@@ -78,7 +80,7 @@ def timed_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, kernel: str, iters: int, parts=(), attempts: int = 3):
+def device_ms(fn, kernel: str, iters: int, parts=(), attempts: int = 5):
     """Mean device time per call, in ms, of the kernels whose name contains
     ``kernel`` (``torch.profiler``), over ``iters`` calls of ``fn``: the
     kernel's own time, whatever the host spends around each launch.  With
@@ -418,7 +420,8 @@ def check_flash(seed):
 
 def check_decode(seed):
     """K4 against its plain version: the sweep of tests/test_kernels.py:65
-    in f32 and bf16, then the serving shape with mixed lengths, timed."""
+    in f32 and bf16, then the serving shape with mixed lengths, timed, and
+    timed again at the serving backend's bucketed capacity."""
     import torch
     import torch.nn.functional as F
 
@@ -463,8 +466,34 @@ def check_decode(seed):
     valid = int(lengths.sum())
     bytes_moved = 2 * (2 * valid * hkv * d + 2 * b * hkv * g * d) + 4 * b
     flops = 4 * valid * hkv * g * d
+    # The same call at the serving backend's bucketed capacity (1040 rounded
+    # up to a multiple of 256): the blocks split the valid lengths, so it
+    # must cost no more.  Each capacity timed twice, in turns (1040, 1280,
+    # 1280, 1040); parts= requires exactly one K4 kernel per call.
+    cap = 1280
+    kb, vb = (torch.zeros((b, cap, hkv, d), dtype=torch.bfloat16, device="cuda")
+              for _ in range(2))
+    kb[:, :s], vb[:, :s] = k, v
+    _close(decode_ops.decode_attention(q, kb, vb, lengths), _decode_plain(q, kb, vb, lengths, 0),
+           ATTN_TOL["bfloat16"], f"K4 at capacity {cap}")
+    call_cap = lambda: decode_ops.decode_attention(q, kb, vb, lengths)  # noqa: E731
+    turns = [device_ms(fn, "decode_", iters=50, parts=("decode_",))[0]
+             for fn in (call, call_cap, call_cap, call)]
+    ms, ms_cap = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+    print(f"  K4 device ms at capacity {s}: {turns[0]:.6f}, {turns[3]:.6f}; at capacity {cap}: "
+          f"{turns[1]:.6f}, {turns[2]:.6f} (one kernel per call)")
+    # The fixed cost of a call: one valid position per row, the same grid.
+    ones = torch.ones_like(lengths)
+    ms_one = device_ms(lambda: decode_ops.decode_attention(q, k, v, ones), "decode_", iters=50,
+                       parts=("decode_",))[0]
+    print(f"  K4 device ms with one valid position per row (the call's fixed cost): {ms_one:.6f}")
+    # 5 %: the spread of back-to-back profiler means of one few-microsecond kernel.
+    require(ms_cap <= 1.05 * ms, f"K4 costs more at capacity {cap} ({ms_cap:.6f} ms) than at "
+            f"{s} ({ms:.6f} ms)")
     t = {
-        "ms": device_ms(call, "decode_", iters=50),
+        "ms": ms,
+        "ms_at_capacity_1280": ms_cap,
+        "ms_one_position": ms_one,
         "call_ms": timed_ms(call, iters=50),
         "plain_ms": timed_ms(lambda: _decode_plain(q, k, v, lengths, 0), iters=10),
         "library_ms": timed_ms(library, iters=50),
@@ -602,18 +631,22 @@ def check_ssd(seed):
 
 def check_model_card_vs_host(seed, arch, seq, caches):
     """A 2-layer float32 model at ``arch``'s widths, one set of weights:
-    prefill of 2 x ``seq`` tokens and 4 decode steps on the card (the
-    kernels) against the host (plain versions), logits and the last
-    layer's ``caches``.  Tolerance 1e-3: float32 sums over the model's
-    widths taken in other orders, two layers deep."""
+    prefill of 2 x ``seq`` tokens and 4 decode steps on the card, eager
+    (the kernels) and replayed from a CUDA graph (``DecodeGraph``: one
+    eager step, a capture, replays), against the host (plain versions),
+    every step fed the host's token: logits and the last layer's
+    ``caches``.  Tolerance 1e-3 against the host: float32 sums over the
+    model's widths taken in other orders, two layers deep; 1e-5 between
+    graph and eager, which run the same kernels on the same inputs."""
     import dataclasses
 
     import torch
 
     from repro_torch.configs import ARCHS
     from repro_torch.models import LM
+    from repro_torch.serving.backends import DecodeGraph
 
-    tol = 1e-3
+    tol, graph_tol = 1e-3, 1e-5
     require(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on for float32 matmuls")
     cfg = dataclasses.replace(ARCHS[arch], num_layers=2, dtype="float32")
     lm = LM(cfg)
@@ -622,9 +655,13 @@ def check_model_card_vs_host(seed, arch, seq, caches):
     tokens = torch.randint(0, cfg.vocab_size, (2, seq),
                            generator=torch.Generator().manual_seed(seed))
     steps = 4
-    lc, cc = lm.prefill(card, tokens.cuda(), max_len=tokens.shape[1] + steps)
-    lh, ch = lm.prefill(host, tokens, max_len=tokens.shape[1] + steps)
-    errs, checked = [], 0
+    max_len = tokens.shape[1] + steps
+    lc, cc = lm.prefill(card, tokens.cuda(), max_len=max_len)
+    lh, ch = lm.prefill(host, tokens, max_len=max_len)
+    graph = DecodeGraph(card, cfg, 2, max_len, torch.device("cuda", torch.cuda.current_device()),
+                        torch.cuda.graph_pool_handle(), torch.cuda.Stream())
+    graph.load(cc, lh.argmax(dim=-1, keepdim=True).cuda())
+    errs, graph_errs, checked = [], [], 0
     for step in range(steps + 1):
         lc_host = lc.cpu()
         errs.append(_close(lc_host, lh, tol, f"model logits, step {step}"))
@@ -633,18 +670,31 @@ def check_model_card_vs_host(seed, arch, seq, caches):
         require(torch.equal(lc_host.argmax(-1)[clear], lh.argmax(-1)[clear]),
                 f"greedy tokens differ at step {step}")
         checked += int(clear.sum())
+        if step > 0:
+            errs.append(_close(graph.logits.cpu(), lh, tol, f"graphed logits, step {step}"))
+            graph_errs.append(_close(graph.logits, lc, graph_tol,
+                                     f"graphed against eager logits, step {step}"))
+            require(torch.equal(graph.tok[:, 0], lc.argmax(-1).to(torch.int32)),
+                    f"graphed and eager greedy tokens differ at step {step}")
         if step < steps:
             tok = lh.argmax(dim=-1, keepdim=True)
+            graph.tok.copy_(tok)
+            graph.step()
             lc, cc = lm.decode_step(card, cc, tok.cuda())
             lh, ch = lm.decode_step(host, ch, tok)
     for name in caches:
         errs.append(_close(cc["layers"][1][name].cpu(), ch["layers"][1][name], tol,
                            f"cache {name}"))
+        graph_errs.append(_close(graph.cache["layers"][1][name], cc["layers"][1][name],
+                                 graph_tol, f"graphed cache {name}"))
+    require(graph.captures == 1 and graph.replays == steps - 1,
+            f"graphed decode: {graph.captures} captures, {graph.replays} replays")
     print(f"  {arch} widths, 2 layers, f32: prefill of 2 x {seq} tokens and {steps} decode "
           f"steps, logits and caches {caches} within {tol} (max |d| {max(errs):.3g}); greedy "
           f"tokens equal on the {checked} of {2 * (steps + 1)} picks with a top-2 margin over "
-          f"{tol}")
-    del card, host
+          f"{tol}; the graphed decode (1 eager step, 1 capture, {graph.replays} replays) "
+          f"within {graph_tol} of the eager one (max |d| {max(graph_errs):.3g}), same tokens")
+    del card, host, graph
 
 
 def _two_class_set(rng, n, dim, sep):
@@ -673,14 +723,20 @@ def serve_main_path(args):
     from repro_torch.core.scheduler import make_policy
     from repro_torch.core.sneakpeek import KNNSneakPeek
     from repro_torch.core.types import Application, Request
-    from repro_torch.serving.backends import ProfiledBackend
+    from repro_torch.serving.backends import ProfiledBackend, bucket_capacity
     from repro_torch.serving.runtime import LMExecutor
     from repro_torch.serving.server import EdgeServer
 
     mamba, llama = "mamba2-130m", "tinyllama-1.1b"
     variants = {mamba: (ARCHS[mamba], 0), llama: (ARCHS[llama], 1)}
-    # Recalls as examples/edge_serving.py gives them.
-    recalls = {mamba: [0.72, 0.70], llama: [0.84, 0.82]}
+    # Per-class recalls: each family the more accurate on one of the two
+    # classes, so SneakPeek's k-NN evidence (the data-aware selection its
+    # scheduler exists for) sends requests to both.  With the recalls of
+    # examples/edge_serving.py ([0.72, 0.70] and [0.84, 0.82]) tinyllama-1.1b
+    # wins on both classes: with decode compiled it meets the deadlines and
+    # serves every request; an eager decode had split the traffic only
+    # because every choice missed its deadline.
+    recalls = {mamba: [0.88, 0.70], llama: [0.78, 0.86]}
     new_tokens = 16
     # Prompt tokens below the smaller vocabulary (tinyllama's 32,000), so
     # every prompt is valid for both families.
@@ -692,23 +748,60 @@ def serve_main_path(args):
 
     t0 = time.perf_counter()
     warm = np.random.default_rng(args.seed).integers(0, vocab, (8, 512)).astype(np.int32)
-    # A first batch pays one-time costs (library initialisation, lazily
-    # loaded kernels): warm up on one backend, fit the profiles on another
-    # serving the same weights (LM.init draws them from per-path seeds).
-    warmup = ProfiledBackend(variants, new_tokens=new_tokens, device="cuda")
+    # A key's first batch pays one-time costs (library initialisation,
+    # lazily loaded kernels, the capture of its decode graph): run the
+    # warm-up batches once, then fit the profiles on two more rounds, whose
+    # decode steps all replay graphs.
     backend = ProfiledBackend(variants, new_tokens=new_tokens, device="cuda")
-    for b in (warmup, backend):
+    step_s = {}  # (model, batch size) -> decode seconds per step of the replayed rounds
+    for rnd in range(3):
+        if rnd == 1:
+            backend.clear_observations()
+        timed = []
         for name in variants:
             for bsz in (1, 8):
-                b.run_batch(name, warm[:bsz], list(range(bsz)))
-    del warmup
+                r = backend.run_batch(name, warm[:bsz], list(range(bsz)))
+                timed.append(f"({name}, {bsz}, {r.prefill_s:.4f}, {r.decode_s:.4f})")
+                if rnd:
+                    step_s.setdefault((name, bsz), []).append(r.decode_s / (new_tokens - 1))
+        print(f"    warm-up round {rnd + 1} (model, size, prefill s, decode s): " + " ".join(timed))
+    step_ms = {key: 1e3 * sum(v) / len(v) for key, v in step_s.items()}
+    faster = all(step_ms[(mamba, bsz)] < step_ms[(llama, bsz)] for bsz in (1, 8))
+    print("    P4: decode ms per step, replayed graphs, 512-token prompts: " + ", ".join(
+        f"{name} B={bsz} {step_ms[(name, bsz)]:.4f}" for name in variants for bsz in (1, 8))
+        + f"; {mamba} decodes {'faster' if faster else 'NOT faster'} than {llama} per step "
+        "at both batch sizes")
     profiles = {name: backend.profile(name, recalls[name]) for name in variants}
     for p in profiles.values():
         fixed, per_item = p.latency_model
         print(f"  profile {p.name}: {fixed:.6f} s + {per_item:.6f} s per request "
               f"(512-token prompts, {new_tokens} new tokens), weights "
               f"{p.memory_bytes / 1e9:.3f} GB, load {p.load_latency_s:.6f} s")
-    print(f"    set-up (weights on the card, warm-up batches) {time.perf_counter() - t0:.2f} s")
+    print(f"    set-up (weights on the card, warm-up batches) {time.perf_counter() - t0:.2f} s; "
+          f"decode graphs {backend.graph_stats()}")
+
+    # What one replayed step runs (its kernels, their device time, and the
+    # bytes of the weights it must read), and what a whole batch runs.
+    for name in variants:
+        dec = backend.decoder(name, 8, bucket_capacity(warm.shape[1] + new_tokens))
+        require(dec.graph is not None, f"{name}: the warm-up left no decode graph")
+        batches = [(f"one batch of {bsz} x 512 tokens, prefill and {new_tokens - 1} replayed "
+                    "steps", lambda n=name, k=bsz: backend.run_batch(n, warm[:k], list(range(k))))
+                   for bsz in (1, 8)]
+        for what, fn in [("one replayed decode step at batch 8", dec.step)] + batches:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            spans = [e.time_range.elapsed_us() for e in prof.events()
+                     if e.device_type == DeviceType.CUDA]
+            print(f"    {name}, {what}: {len(spans)} kernels, {sum(spans) / 1e3:.4f} ms of "
+                  f"device time in {wall * 1e3:.4f} ms under torch.profiler")
+        print(f"    {name}: all its weights read once take "
+              f"{backend.model_bytes(name) / HBM_BYTES_PER_S * 1e3:.4f} ms at "
+              f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s")
 
     rng = np.random.default_rng(args.seed + 9)
     train_x, train_y = _two_class_set(rng, 20_000, 32, 0.25)
@@ -744,9 +837,11 @@ def serve_main_path(args):
         decode steps.  Returns the run's requests per model and its
         launches."""
         torch.cuda.synchronize()
+        graphs0 = backend.graph_stats()
         kernels.reset_launch_counts()
         outs, stats, wall = serve(names, reqs)
         launches = kernels.launch_counts()
+        graphs = {k: v - graphs0[k] for k, v in backend.graph_stats().items()}
         reports = [r for o in outs for r in (o["reports"] or [])]
         want_ssd = sum(layers[mamba] for r in reports if r.model == mamba)
         want_flash = sum(layers[llama] for r in reports if r.model == llama)
@@ -766,6 +861,16 @@ def serve_main_path(args):
             f"({r.model}, {r.batch_size}, {r.prefill_s:.4f}, {r.decode_s:.4f})"
             for r in reports))
         print(f"    launches: {launches}")
+        print(f"    decode graphs: {graphs['captures']} captured in {graphs['capture_s']:.6f} s, "
+              f"{graphs['replays']} replays")
+        for name in names:
+            mine = [r for r in reports if r.model == name]
+            if mine:
+                print(f"    {name}: decode {sum(r.decode_s for r in mine) / len(mine):.6f} s per "
+                      f"batch of {new_tokens - 1} steps over {len(mine)} batches (captures "
+                      f"included), prefill {sum(r.prefill_s for r in mine) / len(mine):.6f} s "
+                      "per batch")
+        require(graphs["replays"] > 0, f"{label}: decode replayed no CUDA graph")
         require(stats.requests == len(reqs), "not every request was served")
         require(sum(by_model.values()) == len(reqs), "a request ran on no model")
         require(0.0 <= stats.mean_utility <= 1.0, f"mean utility {stats.mean_utility}")
@@ -793,8 +898,11 @@ def serve_main_path(args):
                 f"{name} alone did not serve every request")
 
     # The two-family traffic again under the profiler: the card's busy share.
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         _, _, traced_wall = serve([mamba, llama], trace(10_000))
+    traced_k4 = kernels.launch_counts().get("decode_attention", 0)
     spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
                    if e.device_type == DeviceType.CUDA)
     busy_us, end = 0.0, float("-inf")
@@ -819,11 +927,20 @@ def serve_main_path(args):
         us = e.time_range.elapsed_us()
         by_kind[kind_] = by_kind.get(kind_, 0.0) + us / 1e6
         by_name[name[:60]] = by_name.get(name[:60], 0.0) + us / 1e6
-    print(f"    two families under torch.profiler: wall {traced_wall:.3f} s, card busy "
-          f"{busy_us / 1e6:.6f} s ({100 * busy:.2f} %); device seconds by kind: "
-          + ", ".join(f"{k} {v:.6f}" for k, v in sorted(by_kind.items(), key=lambda x: -x[1])))
-    top = sorted(by_name.items(), key=lambda x: -x[1])[:8]
-    print("    top kernels: " + "; ".join(f"{n} {v:.6f} s" for n, v in top))
+    seen_k4 = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA
+                  and "decode_" in e.name)
+    if traced_k4 and not seen_k4:
+        print(f"    two families under torch.profiler: the trace holds none of the {traced_k4} "
+              "K4 kernels the card ran: kernels of CUDA graph replays are not traced, so no "
+              "busy share or device seconds by kind are given for this run")
+    else:  # the profiler may drop a few events of a long trace: say how many
+        print(f"    two families under torch.profiler: wall {traced_wall:.3f} s, card busy "
+              f"{busy_us / 1e6:.6f} s ({100 * busy:.2f} %); device seconds by kind: "
+              + ", ".join(f"{k} {v:.6f}"
+                          for k, v in sorted(by_kind.items(), key=lambda x: -x[1]))
+              + f"; K4 kernels traced {seen_k4} of {traced_k4} launched")
+        top = sorted(by_name.items(), key=lambda x: -x[1])[:8]
+        print("    top kernels: " + "; ".join(f"{n} {v:.6f} s" for n, v in top))
     return launches
 
 
@@ -961,6 +1078,8 @@ def main(argv=None) -> int:
               f"{t['call_ms']:.6f} ms per wrapper call back to back, plain "
               f"{t['plain_ms']:.6f} ms, SDPA {t['library_ms']:.6f} ms, bound "
               f"{t['bound_ms']:.6f} ms ({t['bound_by']})")
+    print(f"    decode_attention at capacity 1280, same lengths: "
+          f"{decode_t['ms_at_capacity_1280']:.6f} ms on the device")
     print("[7b] Mamba-2 SSD chunk-scan kernel (K5) against its plain version")
     ssd_t = check_ssd(args.seed)
     print(f"    ssd at {ssd_t['shape']}: kernel {ssd_t['ms']:.6f} ms on the device, "

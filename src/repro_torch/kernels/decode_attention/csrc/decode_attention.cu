@@ -6,45 +6,65 @@
 // positions p with p < lengths[b] (and, with a window w > 0,
 // p >= lengths[b] - w), applied to v.  It reads the model layout
 // directly: q and o (B, 1, Hq, D), the caches (B, S, Hkv, D); the G =
-// Hq / Hkv query heads of a KV head share every K/V tile loaded.  Inputs
+// Hq / Hkv query heads of a KV head share every K/V row loaded.  Inputs
 // are fp32 or bf16, the arithmetic fp32 on the CUDA cores (no TF32).
 // In bf16 the unnormalised probabilities p are rounded to bf16 before the
 // P.V product, as kernel.py does; masked positions never enter (the
 // reference gives them _NEG = -0.7 * FLT_MAX and p = 0), and a row with
 // no valid position returns 0 (l clamped to 1e-30).
 //
-// What bounds it on the H100: bytes.  Each valid K and V row is read once
-// and used for G dot products of length D, about one flop per byte, far
-// below the card's ~300 flops per byte in bf16: at the serving shape
-// (B = 8, Hkv = 4, G = 8, D = 64, cache 1040) the K and V bytes take
-// 2.5 us at 3.35 TB/s.  B * Hkv = 32 rows cannot fill 132 SMs, so the
-// cache axis is split across blocks (flash decoding):
-//   * one block of 128 threads per (cache slice, KV head, batch row);
-//     the wrapper picks the slice count so the grid covers the SMs about
-//     twice; a slice with no valid position exits after writing an
-//     empty partial;
-//   * the block stages 64-position tiles of K and V in shared memory,
-//     scores all G x 64 pairs, runs the online-softmax update per query
-//     head (one warp per head) and folds P.V into an fp32 accumulator in
-//     shared memory;
-//   * each slice writes its partial (m, l, acc); a second kernel of this
-//     source combines the slices, as the k-NN merge does, weighting each
-//     by exp(m_slice - m_max).  With one slice the first kernel writes
-//     the output itself.
+// What bounds it on the H100: bytes, in principle.  Each valid K and V
+// row is read once and used for G dot products of length D, about one
+// flop per byte: at the serving shape (B = 8, Hkv = 4, G = 8, D = 64,
+// ~5,600 valid positions) the K and V bytes take 1.7 us at 3.35 TB/s.  At
+// that size what it pays in practice is latency: one launch, a few
+// dependent rounds of loads, and the merge of the partial softmaxes.  The
+// design spends on that:
+//   * ONE launch.  Per (batch row, KV head) a thread-block cluster of
+//     `splits` blocks (at most 8, the portable cluster size; the wrapper
+//     picks as many as leave each block an SM of its own) splits the
+//     row's valid range [lo, len) in equal slices; len is read from
+//     `lengths` on the device, so the grid depends on the shapes alone and
+//     the same launch is right at every step of a replayed CUDA graph.  A
+//     block whose slice is empty loads nothing and keeps an empty partial
+//     (m = _NEG, l = 0).
+//   * Parallel scores.  A row of K or V is D * sizeof(T) bytes; LPR lanes
+//     read it with one 16-byte load each (bf16, D = 64: 8 lanes, so a warp
+//     covers 4 rows per load), and each lane group keeps kRows rows' loads
+//     in flight.  The group's lanes hold their slice of up to 8 query
+//     heads in registers, reduce each dot product with shuffles across the
+//     lanes of the row, run the online softmax per head in registers and
+//     fold P.V into per-lane fp32 accumulators.  More than 8 heads per KV
+//     head (G <= 32) take several passes over the slice.
+//   * One merge.  Every lane group leaves its partial (m, l, acc) in shared
+//     memory and the block merges them once, per (head, column), with the
+//     groups' weights exp(m_group - m_block) computed once per head; the
+//     blocks of the cluster then merge through distributed shared memory
+//     after a cluster barrier: every block combines its share of the
+//     (head, column) outputs from all the cluster's partials and writes
+//     them.  No workspace in device memory persists between calls, so
+//     nothing a graph holds can go stale.
+//   * Little code.  At these sizes a block runs most of its code once, and
+//     on the H100 a larger unrolled body cost more time than the loads it
+//     kept in flight, even at one valid position per row: so 2 rows in
+//     flight per group, the block's merge as loops over shared memory
+//     rather than unrolled shuffles, and the fast exponential (__expf,
+//     within 2e-5 of the plain version in f32).
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
 constexpr int kThreads = 128;  // four warps
-constexpr int kWarps = kThreads / 32;
-constexpr int kTile = 64;      // cache positions staged per step
+constexpr int kHeads = 8;      // query heads per pass, held in registers
+constexpr int kRows = 2;       // rows per lane group in flight
+constexpr int kMaxSplits = 8;  // blocks per cluster (portable limit)
 constexpr float kNeg = -0.7f * 3.4028234663852886e38f;  // _NEG of kernel.py:28
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float v);
@@ -55,200 +75,236 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
 }
 
-template <typename T>
-__device__ __forceinline__ float round_p(float p) {
-  return to_f32(from_f32<T>(p));
+// p as the reference rounds it before P.V: to the cache type and back.
+__device__ __forceinline__ float round_p(float p, float) { return p; }
+__device__ __forceinline__ float round_p(float p, __nv_bfloat16) {
+  return __bfloat162float(__float2bfloat16(p));
 }
 
-__device__ __forceinline__ float warp_max(float x) {
+// 16 bytes of T as fp32 values.
+__device__ __forceinline__ void unpack(const uint4& raw, float (&out)[4], float) {
+  out[0] = __uint_as_float(raw.x);
+  out[1] = __uint_as_float(raw.y);
+  out[2] = __uint_as_float(raw.z);
+  out[3] = __uint_as_float(raw.w);
+}
+__device__ __forceinline__ void unpack(const uint4& raw, float (&out)[8], __nv_bfloat16) {
+  const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
+  for (int i = 0; i < 4; ++i) {  // the lower address sits in the lower half
+    out[2 * i] = __uint_as_float(w[i] << 16);
+    out[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
 }
 
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-size_t smem_bytes(int G, int D) {
-  // q (G, D), K tile (kTile, D + 1), V tile (kTile, D), scores (G, kTile),
-  // acc (G, D), m, l, alpha (G each).
-  return sizeof(float) * ((size_t)G * D + (size_t)kTile * (D + 1) + (size_t)kTile * D +
-                          (size_t)G * kTile + (size_t)G * D + 3 * (size_t)G);
+__device__ __forceinline__ uint4 load16(const void* p) {
+  return __ldg(static_cast<const uint4*>(p));
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ kc,
-                      const T* __restrict__ vc, const int32_t* __restrict__ lengths,
-                      T* __restrict__ o, float* __restrict__ part_m,
-                      float* __restrict__ part_l, float* __restrict__ part_acc,
-                      int S, int Hkv, int G, int window, float scale, int chunk) {
-  constexpr int KS = D + 1;
-  extern __shared__ float smem[];
-  float* qs = smem;                   // G x D
-  float* ks = qs + G * D;             // kTile x KS
-  float* vs = ks + kTile * KS;        // kTile x D
-  float* ss = vs + kTile * D;         // G x kTile
-  float* acc = ss + G * kTile;        // G x D
-  float* ms = acc + G * D;            // G
-  float* ls = ms + G;                 // G
-  float* alphas = ls + G;             // G
+__global__ void __launch_bounds__(kThreads, 2)
+decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ kc,
+                        const T* __restrict__ vc, const int32_t* __restrict__ lengths,
+                        T* __restrict__ o, int S, int Hkv, int G, int window, float scale) {
+  constexpr int E = 16 / sizeof(T);  // elements of a row per lane
+  constexpr int LPR = D / E;         // lanes per row
+  constexpr int NG = kThreads / LPR;  // lane groups per block
+  static_assert(LPR >= 1 && LPR <= 32 && 32 % LPR == 0, "a row must fit a warp");
 
-  const int split = blockIdx.x;
+  __shared__ float g_m[NG][kHeads], g_l[NG][kHeads], g_c[NG][kHeads];
+  __shared__ __align__(16) float g_acc[NG][kHeads][D];
+  __shared__ float b_m[kHeads], b_l[kHeads];
+  __shared__ float b_acc[kHeads][D];
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int split = blockIdx.x;  // == the block's rank in its cluster
   const int splits = gridDim.x;
   const int hk = blockIdx.y;
   const int b = blockIdx.z;
-  const int Hq = Hkv * G;
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
+  const int grp = tid / LPR;
+  const int e0 = (tid % LPR) * E;
+  const int Hq = Hkv * G;
 
   const int len = min(max(lengths[b], 0), S);
   const int lo = window > 0 ? max(len - window, 0) : 0;
-  const int begin = max(split * chunk, lo);
-  const int end = min(min(split * chunk + chunk, S), len);
+  const int n = len - lo;
+  const int chunk = (n + splits - 1) / splits;
+  const int rb = lo + min(split * chunk, n);
+  const int re = lo + min(split * chunk + chunk, n);
+  const size_t row_stride = (size_t)Hkv * D;
+  const T* kbase = kc + ((size_t)b * S * Hkv + hk) * D + e0;
+  const T* vbase = vc + ((size_t)b * S * Hkv + hk) * D + e0;
+  const size_t q_row0 = (size_t)b * Hq + (size_t)hk * G;  // first head of the group
 
-  for (int i = tid; i < G * D; i += kThreads) {
-    qs[i] = to_f32(q[((size_t)b * Hq + hk * G) * D + i]);  // heads hk*G .. hk*G+G-1
-    acc[i] = 0.0f;
-  }
-  for (int g = tid; g < G; g += kThreads) {
-    ms[g] = kNeg;
-    ls[g] = 0.0f;
-  }
-
-  for (int t0 = begin; t0 < end; t0 += kTile) {
-    const int rows = min(kTile, end - t0);
-    __syncthreads();  // the previous tile is consumed (and qs, acc are set)
-    for (int i = tid; i < rows * D; i += kThreads) {
-      const int r = i / D;
-      const int c = i - r * D;
-      const size_t gidx = ((size_t)(b * S + t0 + r) * Hkv + hk) * D + c;
-      ks[r * KS + c] = to_f32(kc[gidx]);
-      vs[r * D + c] = to_f32(vc[gidx]);
-    }
-    __syncthreads();
-    for (int e = tid; e < G * kTile; e += kThreads) {
-      const int g = e / kTile;
-      const int j = e - g * kTile;
-      float sc = kNeg;
-      if (j < rows) {
-        const float* qr = qs + g * D;
-        const float* kr = ks + j * KS;
-        float dot = 0.0f;
-#pragma unroll 16
-        for (int d = 0; d < D; ++d) dot += qr[d] * kr[d];
-        sc = dot * scale;
+  for (int g0 = 0; g0 < G; g0 += kHeads) {
+    const int gn = min(kHeads, G - g0);
+    float qf[kHeads][E];
+    float m[kHeads], l[kHeads], acc[kHeads][E];
+#pragma unroll
+    for (int h = 0; h < kHeads; ++h) {
+      if (h < gn) {
+        unpack(load16(q + (q_row0 + g0 + h) * D + e0), qf[h], T());
+      } else {
+#pragma unroll
+        for (int e = 0; e < E; ++e) qf[h][e] = 0.0f;
       }
-      ss[e] = sc;
+      m[h] = kNeg;
+      l[h] = 0.0f;
+#pragma unroll
+      for (int e = 0; e < E; ++e) acc[h][e] = 0.0f;
     }
-    __syncthreads();
-    for (int g = warp; g < G; g += kWarps) {
-      const bool v0 = lane < rows;
-      const bool v1 = lane + 32 < rows;
-      const float s0 = ss[g * kTile + lane];
-      const float s1 = ss[g * kTile + lane + 32];
-      const float m_prev = ms[g];
-      const float m_new = fmaxf(m_prev, warp_max(fmaxf(s0, s1)));
-      const float p0 = v0 ? expf(s0 - m_new) : 0.0f;
-      const float p1 = v1 ? expf(s1 - m_new) : 0.0f;
-      const float psum = warp_sum(p0 + p1);
-      ss[g * kTile + lane] = round_p<T>(p0);
-      ss[g * kTile + lane + 32] = round_p<T>(p1);
-      if (lane == 0) {
-        const float alpha = expf(m_prev - m_new);
-        alphas[g] = alpha;
-        ls[g] = ls[g] * alpha + psum;
-        ms[g] = m_new;
+
+    for (int base = rb; base < re; base += NG * kRows) {
+      uint4 kr[kRows], vr[kRows];
+      bool ok[kRows];
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) {
+        const int r = base + grp + i * NG;
+        ok[i] = r < re;
+        if (ok[i]) {
+          kr[i] = load16(kbase + (size_t)r * row_stride);
+          vr[i] = load16(vbase + (size_t)r * row_stride);
+        } else {
+          kr[i] = make_uint4(0u, 0u, 0u, 0u);
+          vr[i] = kr[i];
+        }
+      }
+      float s[kRows][kHeads];
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) {
+        float kf[E];
+        unpack(kr[i], kf, T());
+#pragma unroll
+        for (int h = 0; h < kHeads; ++h) {
+          float dot = 0.0f;
+#pragma unroll
+          for (int e = 0; e < E; ++e) dot = fmaf(qf[h][e], kf[e], dot);
+#pragma unroll
+          for (int off = LPR / 2; off > 0; off >>= 1)
+            dot += __shfl_xor_sync(0xffffffffu, dot, off);
+          s[i][h] = ok[i] ? dot * scale : kNeg;
+        }
+      }
+#pragma unroll
+      for (int h = 0; h < kHeads; ++h) {
+        float mx = s[0][h];
+#pragma unroll
+        for (int i = 1; i < kRows; ++i) mx = fmaxf(mx, s[i][h]);
+        const float m_new = fmaxf(m[h], mx);
+        const float alpha = __expf(m[h] - m_new);
+        l[h] *= alpha;
+#pragma unroll
+        for (int e = 0; e < E; ++e) acc[h][e] *= alpha;
+        m[h] = m_new;
+      }
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) {
+        float vf[E];
+        unpack(vr[i], vf, T());
+#pragma unroll
+        for (int h = 0; h < kHeads; ++h) {
+          const float p = ok[i] ? __expf(s[i][h] - m[h]) : 0.0f;
+          l[h] += p;
+          const float pr = round_p(p, T());
+#pragma unroll
+          for (int e = 0; e < E; ++e) acc[h][e] = fmaf(pr, vf[e], acc[h][e]);
+        }
       }
     }
+
+    // Every lane group's partial into shared memory; then per head the
+    // groups' weights exp(m_group - m_block), and per (head, column) one sum.
+    if (tid % LPR == 0) {
+#pragma unroll
+      for (int h = 0; h < kHeads; ++h) {
+        g_m[grp][h] = m[h];
+        g_l[grp][h] = l[h];
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < kHeads; ++h) {
+#pragma unroll
+      for (int e = 0; e < E; e += 4)
+        *reinterpret_cast<float4*>(&g_acc[grp][h][e0 + e]) =
+            make_float4(acc[h][e], acc[h][e + 1], acc[h][e + 2], acc[h][e + 3]);
+    }
     __syncthreads();
-    for (int e = tid; e < G * D; e += kThreads) {
-      const int g = e / D;
-      const int d = e - g * D;
-      const float* pr = ss + g * kTile;
-      float pv = 0.0f;
-      for (int j = 0; j < rows; ++j) pv += pr[j] * vs[j * D + d];
-      acc[e] = acc[e] * alphas[g] + pv;
+    for (int idx = tid; idx < NG * kHeads; idx += kThreads) {
+      const int gi = idx / kHeads;
+      const int h = idx - gi * kHeads;
+      float mm = kNeg;
+      for (int j = 0; j < NG; ++j) mm = fmaxf(mm, g_m[j][h]);
+      g_c[gi][h] = __expf(g_m[gi][h] - mm);
+      if (gi == 0) b_m[h] = mm;
     }
-  }
-  __syncthreads();
-
-  const size_t row0 = (size_t)b * Hq + hk * G;  // (b, first head of the group)
-  if (splits == 1) {
-    for (int e = tid; e < G * D; e += kThreads) {
-      const int g = e / D;
-      o[row0 * D + e] = from_f32<T>(acc[e] / fmaxf(ls[g], 1e-30f));
+    __syncthreads();
+    for (int idx = tid; idx < kHeads * D; idx += kThreads) {
+      const int h = idx / D;
+      const int d = idx - h * D;
+      float a = 0.0f;
+      for (int j = 0; j < NG; ++j) a = fmaf(g_acc[j][h][d], g_c[j][h], a);
+      b_acc[h][d] = a;
+      if (d == 0) {
+        float ls = 0.0f;
+        for (int j = 0; j < NG; ++j) ls = fmaf(g_l[j][h], g_c[j][h], ls);
+        b_l[h] = ls;
+      }
     }
-    return;
-  }
-  for (int e = tid; e < G * D; e += kThreads) {
-    const int g = e / D;
-    const int d = e - g * D;
-    part_acc[((row0 + g) * splits + split) * D + d] = acc[e];
-  }
-  for (int g = tid; g < G; g += kThreads) {
-    part_m[(row0 + g) * splits + split] = ms[g];
-    part_l[(row0 + g) * splits + split] = ls[g];
-  }
-}
+    cluster.sync();  // every block's partial is written and visible
 
-// One block per (batch row, query head), one thread per output column.
-template <typename T>
-__global__ void decode_combine_kernel(const float* __restrict__ part_m,
-                                      const float* __restrict__ part_l,
-                                      const float* __restrict__ part_acc,
-                                      T* __restrict__ o, int splits, int D) {
-  const size_t row = blockIdx.x;
-  const int d = threadIdx.x;
-  const float* pm = part_m + row * splits;
-  const float* pl = part_l + row * splits;
-  float m = kNeg;
-  for (int s = 0; s < splits; ++s) m = fmaxf(m, pm[s]);
-  float l = 0.0f;
-  float a = 0.0f;
-  for (int s = 0; s < splits; ++s) {
-    const float w = expf(pm[s] - m);
-    l += pl[s] * w;
-    a += part_acc[(row * splits + s) * D + d] * w;
+    // The blocks of the cluster: each combines its share of the outputs.
+    for (int idx = split * kThreads + tid; idx < gn * D; idx += splits * kThreads) {
+      const int h = idx / D;
+      const int d = idx - h * D;
+      float mm = kNeg;
+      for (int r = 0; r < splits; ++r) mm = fmaxf(mm, cluster.map_shared_rank(b_m, r)[h]);
+      float a = 0.0f;
+      float ls = 0.0f;
+      for (int r = 0; r < splits; ++r) {
+        const float c = __expf(cluster.map_shared_rank(b_m, r)[h] - mm);
+        a += cluster.map_shared_rank(&b_acc[0][0], r)[h * D + d] * c;
+        ls += cluster.map_shared_rank(b_l, r)[h] * c;
+      }
+      o[(q_row0 + g0 + h) * D + d] = from_f32<T>(a / fmaxf(ls, 1e-30f));
+    }
+    cluster.sync();  // no block leaves, or reuses its partial, while it is read
   }
-  o[row * D + d] = from_f32<T>(a / fmaxf(l, 1e-30f));
 }
 
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const int32_t* lengths,
-                   void* o, float* part_m, float* part_l, float* part_acc, int B, int S,
-                   int Hkv, int G, int window, float scale, int splits, cudaStream_t stream) {
-  auto kernel = decode_partial_kernel<T, D>;
-  const size_t smem = smem_bytes(G, D);
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
+                   void* o, int B, int S, int Hkv, int G, int window, float scale, int splits,
+                   cudaStream_t stream) {
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(splits, Hkv, B);
+  config.blockDim = dim3(kThreads);
+  config.dynamicSmemBytes = 0;
+  config.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  cudaError_t err = cudaLaunchKernelEx(&config, decode_attention_kernel<T, D>,
+                                       static_cast<const T*>(q), static_cast<const T*>(k),
+                                       static_cast<const T*>(v), lengths, static_cast<T*>(o),
+                                       S, Hkv, G, window, scale);
   if (err != cudaSuccess) return err;
-  const int chunk = ((S + splits - 1) / splits + kTile - 1) / kTile * kTile;
-  if ((S + chunk - 1) / chunk != splits) return cudaErrorInvalidValue;
-  const dim3 grid(splits, Hkv, B);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), lengths,
-      static_cast<T*>(o), part_m, part_l, part_acc, S, Hkv, G, window, scale, chunk);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return err;
-  decode_combine_kernel<T><<<B * Hkv * G, D, 0, stream>>>(part_m, part_l, part_acc,
-                                                          static_cast<T*>(o), splits, D);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch(const void* q, const void* k, const void* v, const int32_t* lengths,
-                     void* o, float* pm, float* pl, float* pa, int B, int S, int Hkv, int G,
-                     int D, int window, float scale, int splits, cudaStream_t s) {
+                     void* o, int B, int S, int Hkv, int G, int D, int window, float scale,
+                     int splits, cudaStream_t s) {
   switch (D) {
-    case 16: return launch<T, 16>(q, k, v, lengths, o, pm, pl, pa, B, S, Hkv, G, window, scale, splits, s);
-    case 32: return launch<T, 32>(q, k, v, lengths, o, pm, pl, pa, B, S, Hkv, G, window, scale, splits, s);
-    case 64: return launch<T, 64>(q, k, v, lengths, o, pm, pl, pa, B, S, Hkv, G, window, scale, splits, s);
-    case 128: return launch<T, 128>(q, k, v, lengths, o, pm, pl, pa, B, S, Hkv, G, window, scale, splits, s);
+    case 16: return launch<T, 16>(q, k, v, lengths, o, B, S, Hkv, G, window, scale, splits, s);
+    case 32: return launch<T, 32>(q, k, v, lengths, o, B, S, Hkv, G, window, scale, splits, s);
+    case 64: return launch<T, 64>(q, k, v, lengths, o, B, S, Hkv, G, window, scale, splits, s);
+    case 128: return launch<T, 128>(q, k, v, lengths, o, B, S, Hkv, G, window, scale, splits, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -257,40 +313,25 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, const int32_t*
 
 extern "C" {
 
-// Number of cache slices for B * Hkv rows of cache length S on a card
-// with `sms` SMs: about two blocks per SM, at least one 64-position tile
-// per slice.  The wrapper sizes the partial buffers with it.
-int decode_split_count(int B, int Hkv, int S, int sms) {
-  if (B <= 0 || Hkv <= 0 || S <= 0 || sms <= 0) return 1;
-  const int tiles = (S + kTile - 1) / kTile;
-  int splits = (2 * sms + B * Hkv - 1) / (B * Hkv);
-  splits = splits < 1 ? 1 : (splits > tiles ? tiles : splits);
-  const int chunk = ((S + splits - 1) / splits + kTile - 1) / kTile * kTile;
-  return (S + chunk - 1) / chunk;  // no empty slice after rounding to tiles
-}
+// Largest cluster (blocks per (batch row, KV head)) the kernel takes.
+int decode_max_splits() { return kMaxSplits; }
 
 // dtype: 0 = fp32, 1 = bf16.  q, o (B, 1, Hkv * G, D); k, v (B, S, Hkv, D);
-// lengths (B,) int32; part_m, part_l (B * Hkv * G, splits) and part_acc
-// (B * Hkv * G, splits, D) fp32 scratch, unused when splits == 1.
+// lengths (B,) int32; all 16-byte aligned.  `splits` blocks, 1 to
+// decode_max_splits(), share each (batch row, KV head) as one cluster.
 int decode_attention_fwd(const void* q, const void* k, const void* v, const void* lengths,
-                         void* o, void* part_m, void* part_l, void* part_acc, int dtype, int B,
-                         int S, int Hkv, int G, int D, int window, float scale, int splits,
-                         void* stream) {
-  if (B <= 0 || S <= 0 || Hkv <= 0 || G <= 0 || splits < 1 ||
-      (splits > 1 && (part_m == nullptr || part_l == nullptr || part_acc == nullptr))) {
+                         void* o, int dtype, int B, int S, int Hkv, int G, int D, int window,
+                         float scale, int splits, void* stream) {
+  if (B <= 0 || S <= 0 || Hkv <= 0 || G <= 0 || splits < 1 || splits > kMaxSplits) {
     return (int)cudaErrorInvalidValue;
   }
   const int32_t* len = static_cast<const int32_t*>(lengths);
-  float* pm = static_cast<float*>(part_m);
-  float* pl = static_cast<float*>(part_l);
-  float* pa = static_cast<float*>(part_acc);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)dispatch<float>(q, k, v, len, o, pm, pl, pa, B, S, Hkv, G, D, window, scale,
-                                splits, s);
+    return (int)dispatch<float>(q, k, v, len, o, B, S, Hkv, G, D, window, scale, splits, s);
   if (dtype == 1)
-    return (int)dispatch<__nv_bfloat16>(q, k, v, len, o, pm, pl, pa, B, S, Hkv, G, D, window,
-                                        scale, splits, s);
+    return (int)dispatch<__nv_bfloat16>(q, k, v, len, o, B, S, Hkv, G, D, window, scale,
+                                        splits, s);
   return (int)cudaErrorInvalidValue;
 }
 

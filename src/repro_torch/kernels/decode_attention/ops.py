@@ -4,13 +4,15 @@
 Model layout in and out: q (B, 1, Hq, D), caches (B, S, Hkv, D),
 ``lengths`` (B,) int32 valid positions per row.  Tensors on the CPU take
 the plain version (``ref.py``, in the kernel's layout); CUDA tensors
-launch ``csrc/decode_attention.cu`` (the split-cache pass and, with more
-than one slice, its combine pass) on the current stream, or raise.
-There is no other route.
+launch ``csrc/decode_attention.cu`` on the current stream, one launch
+per call, or raise.  There is no other route.  The launch depends on the
+shapes and the card's SM count alone, allocates only its output and
+reads ``lengths`` on the device, so a CUDA graph can hold it.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -22,10 +24,35 @@ __all__ = ["decode_attention", "counter", "MAX_GROUP"]
 
 counter = LaunchCounter("decode_attention")
 
-MAX_GROUP = 32  # query heads per KV head held in shared memory
+MAX_GROUP = 32  # query heads per KV head (the kernel takes them 8 at a time)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+
+
+@functools.cache
+def _library():
+    """(the kernel's library, its entry points typed once; its largest
+    cluster)."""
+    lib = nvcc.library("decode_attention")
+    lib.decode_max_splits.argtypes = []
+    lib.decode_max_splits.restype = _I
+    lib.decode_attention_fwd.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                         ctypes.c_float, _I, _P]
+    lib.decode_attention_fwd.restype = _I
+    return lib, lib.decode_max_splits()
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _split_count(b: int, hkv: int, s: int, sms: int, max_splits: int) -> int:
+    """Blocks per (batch row, KV head): as many as leave every block an SM
+    of its own, at most ``max_splits`` (one cluster) and at most one per 32
+    cache positions."""
+    return max(1, min(max_splits, sms // (b * hkv), -(-s // 32)))
 
 
 def _check_args(q, k_cache, v_cache, lengths, window):
@@ -76,29 +103,17 @@ def decode_attention(q, k_cache, v_cache, lengths, *, window: int = 0, scale=Non
                     ("lengths", lengths)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    lib = nvcc.library("decode_attention")
-    lib.decode_split_count.argtypes = [_I, _I, _I, _I]
-    lib.decode_split_count.restype = _I
-    fn = lib.decode_attention_fwd
-    fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                   ctypes.c_float, _I, _P]
-    fn.restype = _I
-    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    splits = lib.decode_split_count(b, hkv, s, sms)
+    for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary (the kernel's loads)")
+    lib, max_splits = _library()
+    splits = _split_count(b, hkv, s, _sm_count(q.device.index), max_splits)
     out = torch.empty_like(q)
-    part_m = part_l = part_acc = None
-    if splits > 1:  # per-slice (m, l, acc), combined by the second kernel
-        part_m = torch.empty((b * hq, splits), dtype=torch.float32, device=q.device)
-        part_l = torch.empty_like(part_m)
-        part_acc = torch.empty((b * hq, splits, d), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lengths.data_ptr(),
-                 out.data_ptr(),
-                 None if part_m is None else part_m.data_ptr(),
-                 None if part_l is None else part_l.data_ptr(),
-                 None if part_acc is None else part_acc.data_ptr(),
-                 DTYPES[q.dtype], b, s, hkv, g, d, window, scale, splits, stream)
+        err = lib.decode_attention_fwd(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+                                       lengths.data_ptr(), out.data_ptr(), DTYPES[q.dtype], b,
+                                       s, hkv, g, d, window, scale, splits, stream)
     counter.add()
     nvcc.check(lib, err, "decode_attention")
     return out

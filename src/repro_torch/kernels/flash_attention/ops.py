@@ -33,7 +33,10 @@ _I = ctypes.c_int
 
 def _check_args(q, k, v, causal, window):
     if not causal:
-        raise NotImplementedError("flash attention is causal-only, as its reference")
+        raise NotImplementedError(
+            "flash attention is causal-only here, as its oracle "
+            "src/repro/kernels/flash_attention/ref.py:21 is; flash_attention_pallas also "
+            "takes causal=False (ROADMAP, queue 2, entry 7)")
     if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
         raise ValueError(f"q (B, Sq, Hq, D), k and v (B, Skv, Hkv, D): got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")

@@ -22,7 +22,10 @@ NEG = -0.7 * float(torch.finfo(torch.float32).max)
 def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0, scale=None):
     """q: (B, Hkv, G, Sq, D); k, v: (B, Hkv, Skv, D) -> (B, Hkv, G, Sq, D)."""
     if not causal:
-        raise NotImplementedError("flash attention is causal-only, as its reference")
+        raise NotImplementedError(
+            "flash attention is causal-only here, as its oracle "
+            "src/repro/kernels/flash_attention/ref.py:21 is; flash_attention_pallas also "
+            "takes causal=False (ROADMAP, queue 2, entry 7)")
     sq, d = q.shape[3], q.shape[4]
     skv = k.shape[2]
     scale = d ** -0.5 if scale is None else scale

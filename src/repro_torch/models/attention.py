@@ -7,9 +7,10 @@ cache (``decode_attention``); the port computes the same two functions
 through K3 (``kernels.flash_attention``) and K4
 (``kernels.decode_attention``), whose wrappers launch the CUDA kernels
 for tensors on the card and run their plain versions on the CPU.  The
-reference decodes with one scalar cache length; K4 takes per-row
-lengths, so a scalar becomes ``full((B,), length)``.  Forward only: the
-flash backward (the custom VJP of the reference) comes with training.
+reference decodes at one scalar position; K4 takes per-row lengths, so
+the decode step passes ``pos + 1`` for every row, built on the device
+from the 0-dim position tensor.  Forward only: the flash backward (the
+custom VJP of the reference) comes with training.
 """
 from __future__ import annotations
 
@@ -20,7 +21,7 @@ from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models.layers import rmsnorm, rope
 from repro_torch.models.spec import P
 
-__all__ = ["attn_spec", "decode_attention", "attn_forward", "attn_decode"]
+__all__ = ["attn_spec", "attn_forward", "attn_decode"]
 
 
 def attn_spec(d_model: int, num_heads: int, num_kv_heads: int, head_dim: int,
@@ -62,17 +63,6 @@ def _out(o, wo):
     return o.reshape(b, t, -1) @ wo.reshape(-1, wo.shape[-1])
 
 
-def decode_attention(q, k_cache, v_cache, cache_len, *, window: int = 0, scale=None):
-    """One query token against a partly filled cache, through K4.
-
-    q: (B, 1, Hq, D); caches: (B, Smax, Hkv, D); ``cache_len`` the number
-    of valid positions of every row (the new token's K/V must already sit
-    at ``cache_len - 1``), passed to K4 as ``full((B,), cache_len)``."""
-    lengths = torch.full((q.shape[0],), int(cache_len), dtype=torch.int32, device=q.device)
-    return decode_ops.decode_attention(q, k_cache, v_cache, lengths, window=window,
-                                       scale=scale)
-
-
 def attn_forward(params, x, cfg, *, window: int = 0, theta: float = 10_000.0,
                  positions=None):
     """Full-sequence causal attention through K3.  Returns (y, (k, v))
@@ -85,19 +75,24 @@ def attn_forward(params, x, cfg, *, window: int = 0, theta: float = 10_000.0,
     return _out(o, params.wo), (k, v)
 
 
-def attn_decode(params, x, kv_cache, pos: int, cfg, *, window: int = 0,
-                theta: float = 10_000.0):
+def attn_decode(params, x, kv_cache, pos, cfg, *, window: int = 0,
+                theta: float = 10_000.0, lengths=None):
     """One decode step through K4.  x: (B, 1, D); kv_cache: (k, v) each
-    (B, Smax, Hkv, Dh); ``pos`` the new token's 0-based position.
+    (B, Smax, Hkv, Dh); ``pos`` the new token's 0-based position, a 0-dim
+    int32 tensor on x's device (the reference's scalar); ``lengths`` K4's
+    (B,) int32 valid lengths, ``pos + 1`` for every row unless given.
 
     The new K/V are written into the caches IN PLACE at ``pos`` (the
     reference's ``dynamic_update_slice`` returns new arrays); the same
-    tensors are returned."""
+    tensors are returned.  Nothing here reads a device value on the
+    host."""
     k_cache, v_cache = kv_cache
     b = x.shape[0]
-    positions = torch.full((b, 1), pos, dtype=torch.int64, device=x.device)
-    q, k, v = _project_qkv(params, x, cfg, positions, theta)
-    k_cache[:, pos] = k[:, 0].to(k_cache.dtype)
-    v_cache[:, pos] = v[:, 0].to(v_cache.dtype)
-    o = decode_attention(q, k_cache, v_cache, pos + 1, window=window)
+    q, k, v = _project_qkv(params, x, cfg, pos.expand(b, 1), theta)
+    slot = pos.reshape(1).long()
+    k_cache.index_copy_(1, slot, k.to(k_cache.dtype))
+    v_cache.index_copy_(1, slot, v.to(v_cache.dtype))
+    if lengths is None:
+        lengths = (pos + 1).expand(b).contiguous()
+    o = decode_ops.decode_attention(q, k_cache, v_cache, lengths, window=window)
     return _out(o, params.wo), (k_cache, v_cache)

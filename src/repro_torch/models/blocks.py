@@ -130,14 +130,16 @@ def block_prefill(params, x, cfg, kind: str, max_len: int):
     return _apply_ffn(params, x + _post(params, y, cfg), cfg, ffn), cache
 
 
-def block_decode(params, x, cache, pos: int, cfg, kind: str):
-    """One-token step.  x: (B, 1, D); ``pos`` the new token's position.
-    Writes the layer's cache in place; returns (x, cache)."""
+def block_decode(params, x, cache, pos, cfg, kind: str, lengths=None):
+    """One-token step.  x: (B, 1, D); ``pos`` the new token's position, a
+    0-dim int32 tensor; ``lengths`` (B,) int32, K4's valid lengths
+    (``pos + 1``), built once per step by the caller.  Writes the layer's
+    cache in place; returns (x, cache)."""
     mixer, ffn = _check_kind(cfg, kind)
     h = rmsnorm(params.pre_norm, x)
     if mixer == "attn":
         y, (k, v) = attn_mod.attn_decode(params.attn, h, (cache["k"], cache["v"]), pos, cfg,
-                                         theta=cfg.rope_theta)
+                                         theta=cfg.rope_theta, lengths=lengths)
         cache = {"k": k, "v": v}
     else:
         y, (conv, state) = ssd_mod.ssd_decode_step(params.ssd, h,

@@ -3,8 +3,11 @@
 The counterpart of ``repro.models.kvcache``.  The reference's cache
 mirrors its stacked parameter tree (one stacked array per pattern
 position plus a tail); the port keeps a list with one dict per layer, in
-layer order, and the position as a Python int.  An attention layer's
-dict is ``{"k", "v"}`` of (B, max_len, Hkv, Dh) tensors, an SSD layer's
+layer order, and the position as the reference keeps it: a 0-dim int32
+tensor on the caches' device, which a decode step reads and advances
+there, so the step holds no host value and can be captured in a CUDA
+graph.  An attention layer's dict is ``{"k", "v"}`` of (B, max_len,
+Hkv, Dh) tensors, an SSD layer's
 ``{"conv": (B, W-1, d_xbc), "state": (B, H, P, N) float32}``
 (``blocks.cache_spec``).  Decode writes each new token's K/V, and each
 SSD layer's conv window and state, into these tensors IN PLACE
@@ -18,7 +21,7 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.models.blocks import cache_spec
 
-__all__ = ["init_cache", "cache_bytes", "model_dtype"]
+__all__ = ["init_cache", "cache_bytes", "model_dtype", "position"]
 
 
 def model_dtype(cfg) -> torch.dtype:
@@ -29,14 +32,20 @@ def model_dtype(cfg) -> torch.dtype:
 def init_cache(cfg, batch: int, max_len: int, start_pos: int = 0, device=None) -> dict:
     """Zero caches for every layer on ``device`` (the card unless ``"cpu"``),
     ``{"layers": [{"k": ..., "v": ...} or {"conv": ..., "state": ...}, ...],
-    "pos": start_pos}``."""
+    "pos": 0-dim int32 tensor holding start_pos}``."""
     dev = resolve_device(device)
     layers = []
     for i in range(cfg.num_layers):
         tpl = cache_spec(cfg, cfg.layer_kind(i), batch, max_len)
         layers.append({name: torch.zeros(shape, dtype=dtype, device=dev)
                        for name, (shape, dtype) in tpl.items()})
-    return {"layers": layers, "pos": int(start_pos)}
+    return {"layers": layers, "pos": position(start_pos, dev)}
+
+
+def position(pos: int, device) -> torch.Tensor:
+    """A cache position: a 0-dim int32 tensor on ``device``, filled there
+    (no host-to-device copy)."""
+    return torch.full((), int(pos), dtype=torch.int32, device=device)
 
 
 def cache_bytes(cfg, batch: int, max_len: int) -> int:

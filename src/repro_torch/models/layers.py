@@ -30,12 +30,11 @@ def rmsnorm_spec(dim: int) -> dict:
 
 
 def rmsnorm(params, x, eps: float = 1e-6):
-    """RMSNorm with (1 + scale) parameterisation, computed in float32."""
-    dtype = x.dtype
-    x = x.float()
-    var = (x * x).mean(dim=-1, keepdim=True)
-    x = x * torch.rsqrt(var + eps)
-    return (x * (1.0 + params.scale.float())).to(dtype)
+    """RMSNorm with (1 + scale) parameterisation, computed in float32: the
+    scale is applied as out + out * scale, one kernel that casts it inside."""
+    xf = x.float()
+    out = xf * torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
+    return out.addcmul_(out, params.scale).to(x.dtype)
 
 
 # ---------------------------------------------------------------- rope
@@ -104,8 +103,8 @@ def embed_tokens(params, tokens, scale_by_dim: bool = False):
     sqrt(D) (float32 square root, rounded to the table's type)."""
     table = params.embedding
     x = table[tokens]
-    if scale_by_dim:
-        x = x * torch.sqrt(torch.tensor(float(table.shape[-1]))).to(x.dtype).to(x.device)
+    if scale_by_dim:  # a 0-dim host scalar: no copy to the card, so a graph can hold it
+        x = x * torch.sqrt(torch.tensor(float(table.shape[-1]))).to(x.dtype)
     return x
 
 

@@ -50,6 +50,12 @@ class LM:
         written in place."""
         return transformer.decode_step(params, cache, tokens, self.cfg)
 
+    def decode_into(self, params, cache, tok, logits):
+        """One greedy step on static buffers (``transformer.decode_into``):
+        the cache, the (B, 1) int32 token buffer and the (B, V) logits
+        buffer are all written in place."""
+        transformer.decode_into(params, cache, tok, logits, self.cfg)
+
     def init_cache(self, batch: int, max_len: int, start_pos: int = 0, device=None):
         return kvcache.init_cache(self.cfg, batch, max_len, start_pos, device=device)
 

@@ -57,37 +57,38 @@ def _causal_conv(x, w, b, state=None):
     """Depthwise causal 1-D conv.  x: (B, S, C); w: (W, C).
 
     ``state`` (B, W-1, C) provides left context (decode); zeros otherwise.
-    Taps are summed in float32, in order.  Returns (y, new_state)."""
+    Taps are summed in float32, in order: the first tap's product, then
+    each next tap added with one fused multiply-add, then the bias.
+    Returns (y, new_state)."""
     bsz, s, c = x.shape
     wlen = w.shape[0]
     if state is None:
-        state = torch.zeros((bsz, wlen - 1, c), dtype=x.dtype, device=x.device)
+        state = x.new_zeros((bsz, wlen - 1, c))
     xp = torch.cat([state.to(x.dtype), x], dim=1)  # (B, W-1+S, C)
-    y = torch.zeros((bsz, s, c), dtype=torch.float32, device=x.device)
-    for i in range(wlen):  # W is tiny (4): unrolled taps
-        y = y + xp[:, i:i + s, :].float() * w[i].float()
-    y = y + b.float()
+    xf, wf = xp.float(), w.float()
+    y = xf[:, 0:s] * wf[0]
+    for i in range(1, wlen):  # W is tiny (4): unrolled taps
+        y.addcmul_(xf[:, i:i + s], wf[i])
+    y.add_(b)
     new_state = xp[:, s:, :] if s >= wlen - 1 else xp[:, -(wlen - 1):, :]
     return y.to(x.dtype), new_state
 
 
-def _silu(x):
-    """silu in float32, rounded back to x's type (jax.nn.silu on .astype(f32))."""
-    return F.silu(x.float()).to(x.dtype)
+def _gated_rmsnorm(scale, x, z, eps: float = 1e-6):
+    """Mamba-2 norm: RMSNorm(x * silu(z)) with (1 + scale).  silu is taken
+    in float32 and rounded to x's type, as the reference's
+    ``silu(z.astype(f32)).astype(x.dtype)``: PyTorch's silu computes a
+    bfloat16 input in float32 and rounds once."""
+    x = x * F.silu(z)
+    xf = x.float()
+    out = xf * torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
+    return out.addcmul_(out, scale).to(x.dtype)  # out * (1 + scale), in float32
 
 
 def _softplus(x):
-    """jax.nn.softplus: logaddexp(x, 0)."""
-    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
-
-
-def _gated_rmsnorm(scale, x, z, eps: float = 1e-6):
-    """Mamba-2 norm: RMSNorm(x * silu(z)) with (1 + scale)."""
-    x = x * F.silu(z.float()).to(x.dtype)
-    xf = x.float()
-    var = (xf * xf).mean(dim=-1, keepdim=True)
-    out = xf * torch.rsqrt(var + eps) * (1.0 + scale.float())
-    return out.to(x.dtype)
+    """jax.nn.softplus, logaddexp(x, 0), as one kernel: log1p(exp(x)), and
+    x itself above 20, where the two agree in float32."""
+    return F.softplus(x)
 
 
 def _split_zxbcdt(cfg, zxbcdt):
@@ -134,11 +135,11 @@ def ssd_forward(params, x, cfg):
     z, xbc, dt = _split_zxbcdt(cfg, zxbcdt)
     xbc, conv_state = _causal_conv(xbc, params.conv_w, params.conv_b)
     conv_state = conv_state.clone()  # the cache owns it; decode writes it in place
-    xbc = _silu(xbc)
+    xbc = F.silu(xbc)  # float32 inside, rounded once to x's type, as the reference
     xin = xbc[..., :din].reshape(b, s, h, p)
     bmat = xbc[..., din:din + g * n].reshape(b, s, g, n)
     cmat = xbc[..., din + g * n:].reshape(b, s, g, n)
-    dt = _softplus(dt.float() + params.dt_bias.float())
+    dt = _softplus(dt.float() + params.dt_bias)
     a = -torch.exp(params.A_log.float())
 
     y, ssm_state = ssd_scan(xin, dt, a, bmat, cmat, cfg.ssd_chunk)
@@ -149,7 +150,13 @@ def ssd_forward(params, x, cfg):
 
 def ssd_decode_step(params, x, cache, cfg):
     """One-token SSD step.  x: (B, 1, D); cache = (conv_state, ssm_state),
-    written in place and returned."""
+    written in place and returned.
+
+    The reference's step, in few kernels: casts ride inside the
+    arithmetic (a float32 tensor times a bfloat16 one is computed in
+    float32), and the state is decayed and updated in place,
+    S <- decay * S + (dt x) (outer) B, then read as y = S . C by one
+    batched product."""
     conv_state, ssm_state = cache
     b = x.shape[0]
     h, p = cfg.ssd_heads, cfg.ssd_headdim
@@ -160,23 +167,19 @@ def ssd_decode_step(params, x, cache, cfg):
     zxbcdt = x @ params.in_proj  # (B, 1, ...)
     z, xbc, dt = _split_zxbcdt(cfg, zxbcdt)
     xbc, new_conv = _causal_conv(xbc, params.conv_w, params.conv_b, conv_state)
-    xbc = _silu(xbc)
-    xin = xbc[..., :din].reshape(b, h, p)
-    bv = xbc[..., din:din + n].reshape(b, n)
-    cv = xbc[..., din + n:].reshape(b, n)
-    dt1 = _softplus(dt.float()[:, 0] + params.dt_bias.float())  # (B, h)
-    a = -torch.exp(params.A_log.float())
-    decay = torch.exp(dt1 * a[None, :])  # (B, h)
-
-    # state update: S <- decay * S + dt * B (outer) x
-    upd = torch.einsum("bn,bhp,bh->bhpn", bv.float(), xin.float(), dt1)
-    state = decay[..., None, None] * ssm_state + upd
-    y = torch.einsum("bn,bhpn->bhp", cv.float(), state)
-    ssm_state.copy_(state)
     conv_state.copy_(new_conv)
-    y = y + params.D.float()[None, :, None] * xin.float()
-    y = y.reshape(b, 1, din).to(x.dtype)
-    y = _gated_rmsnorm(params.norm_scale, y, z)
+    xbc = F.silu(xbc)[:, 0]  # (B, d_xbc)
+    xin = xbc[:, :din].reshape(b, h, p)
+    bv = xbc[:, din:din + n]
+    cv = xbc[:, din + n:]
+    dt1 = _softplus(dt[:, 0].float() + params.dt_bias)  # (B, h)
+    decay = torch.exp(dt1 * -torch.exp(params.A_log.float()))  # (B, h)
+
+    ssm_state.mul_(decay[:, :, None, None])
+    ssm_state.addcmul_((xin * dt1[:, :, None])[..., None], bv[:, None, None, :])
+    y = torch.bmm(ssm_state.view(b, h * p, n), cv.float()[:, :, None]).view(b, h, p)
+    y = torch.addcmul(y, params.D[:, None], xin)  # y + D * x in float32
+    y = _gated_rmsnorm(params.norm_scale, y.reshape(b, 1, din).to(x.dtype), z)
     return y @ params.out_proj, (conv_state, ssm_state)
 
 

@@ -4,7 +4,11 @@ The counterpart of ``repro.models.transformer``.  The reference scans
 its layers over parameters stacked on a leading "layers" axis (one
 stack per pattern position, plus unrolled tail layers); the port holds
 one module per layer in a ``ModuleList``, in layer order, and runs them
-in a Python loop.  ``TransformerParams`` converts between the two: it is
+in a Python loop.  The reference compiles its decode step with
+``jax.jit``; the port's counterpart is a CUDA graph of ``decode_into``
+(``serving.backends.DecodeGraph``), which is why the decode step keeps
+its position on the device and writes its caches, its next token and its
+logits in place.  ``TransformerParams`` converts between the two: it is
 built from a tree in the reference's stacked layout and gives one back
 (``to_tree``).
 """
@@ -14,7 +18,7 @@ import torch
 from torch import nn
 
 from repro_torch.models import blocks
-from repro_torch.models.kvcache import model_dtype
+from repro_torch.models.kvcache import model_dtype, position
 from repro_torch.models.layers import (
     embed_spec,
     embed_tokens,
@@ -24,7 +28,7 @@ from repro_torch.models.layers import (
 )
 from repro_torch.models.spec import P, stack
 
-__all__ = ["model_spec", "TransformerParams", "forward", "prefill", "decode_step"]
+__all__ = ["model_spec", "TransformerParams", "forward", "prefill", "decode_step", "decode_into"]
 
 
 def model_spec(cfg) -> dict:
@@ -138,25 +142,43 @@ def forward(params, tokens, cfg):
 
 def prefill(params, tokens, cfg, max_len: int):
     """Process a full prompt; returns (logits at the last position (B, V),
-    cache) with ``cache = {"layers": [...], "pos": S}``."""
+    cache) with ``cache = {"layers": [...], "pos": S}``, the position a
+    0-dim int32 tensor on the tokens' device."""
     x = _embed(params, cfg, tokens)
     caches = []
     for layer, kind in zip(params.layers, _kinds(cfg)):
         x, cache = blocks.block_prefill(layer, x, cfg, kind, max_len)
         caches.append(cache)
     x = rmsnorm(params.final_norm, x[:, -1:, :])[:, 0]
-    return _logits(params, cfg, x), {"layers": caches, "pos": int(tokens.shape[1])}
+    pos = position(tokens.shape[1], tokens.device)
+    return _logits(params, cfg, x), {"layers": caches, "pos": pos}
 
 
 def decode_step(params, cache, tokens, cfg):
     """One decode step.  tokens: (B, 1) int; the cache from ``prefill`` or
-    ``kvcache.init_cache``, written in place and returned with ``pos``
-    advanced.  Returns (logits (B, V), cache)."""
+    ``kvcache.init_cache``, written in place, its position advanced in
+    place, and returned.  Returns (logits (B, V), cache).
+
+    Reads no device value on the host: the new token's position and K4's
+    per-row lengths (``pos + 1`` for every row, built once per step) stay
+    on the device."""
     pos = cache["pos"]
     x = _embed(params, cfg, tokens)
-    new_layers = []
+    lengths = (pos + 1).expand(tokens.shape[0]).contiguous()
     for layer, c, kind in zip(params.layers, cache["layers"], _kinds(cfg)):
-        x, c = blocks.block_decode(layer, x, c, pos, cfg, kind)
-        new_layers.append(c)
+        x, _ = blocks.block_decode(layer, x, c, pos, cfg, kind, lengths=lengths)
     x = rmsnorm(params.final_norm, x)
-    return _logits(params, cfg, x[:, -1, :]), {"layers": new_layers, "pos": pos + 1}
+    logits = _logits(params, cfg, x[:, -1, :])
+    pos.add_(1)
+    return logits, cache
+
+
+def decode_into(params, cache, tok, logits, cfg):
+    """One greedy decode step on static buffers, all written in place:
+    reads the (B, 1) int32 token buffer ``tok``, advances ``cache``, writes
+    the step's logits into ``logits`` (B, V) and the argmax token back into
+    ``tok``.  The function a decode CUDA graph captures, and the one the
+    host runs eagerly."""
+    out, _ = decode_step(params, cache, tok, cfg)
+    logits.copy_(out)
+    tok.copy_(out.argmax(dim=-1, keepdim=True))

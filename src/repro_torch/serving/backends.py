@@ -13,7 +13,12 @@ The counterpart of ``repro.serving.backends``.  Everything the runtime
 and greedy decode through K4, SSD prefill through K5) on the card,
 stopwatch-timed with the card synchronised before every clock read, so
 ``prefill_s`` and ``decode_s`` are the card's time and not the host's
-enqueue time.  Sizes are weight
+enqueue time.  Prefill runs eagerly; decode runs as a CUDA graph of
+``transformer.decode_into`` per (variant, batch size, cache capacity)
+(``DecodeGraph``), the counterpart of the reference's ``jax.jit`` of
+the decode step, with the capacity rounded up to a multiple of 256 as
+the reference's ``_bucket_seq`` rounds, so ragged batches share a graph.
+Sizes are weight
 bytes at the declared dtype; swap cost is bytes over a 25 GB/s staging
 rate, the reference's constants.  ``CompiledBackend``,
 ``SimulatedBackend`` and ``CostModelBackend`` are not ported yet
@@ -28,13 +33,25 @@ from typing import Mapping, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch import kernels
 from repro_torch.core.accuracy import ModelProfile
 from repro_torch.device import resolve_device
-from repro_torch.models import LM
+from repro_torch.models import LM, kvcache, transformer
 
-__all__ = ["ExecutionReport", "ExecutorBackend", "ProfiledBackend", "weight_bytes"]
+__all__ = ["ExecutionReport", "ExecutorBackend", "ProfiledBackend", "DecodeGraph",
+           "weight_bytes", "bucket_capacity", "CAPACITY_MULTIPLE"]
 
 _STAGING_BW = 25e9  # host->device weight staging bandwidth (B/s)
+# Decode caches are sized to a multiple of this many positions, so batches
+# of nearby prompt lengths share one decode graph; K4 reads only the valid
+# lengths, so a larger capacity changes no result.
+CAPACITY_MULTIPLE = 256
+
+
+def bucket_capacity(positions: int) -> int:
+    """``positions`` rounded up to a multiple of ``CAPACITY_MULTIPLE`` (at
+    least one multiple), as the reference's ``_bucket_seq`` rounds."""
+    return max(-(-positions // CAPACITY_MULTIPLE) * CAPACITY_MULTIPLE, CAPACITY_MULTIPLE)
 
 
 @dataclasses.dataclass
@@ -112,6 +129,11 @@ class ExecutorBackend:
     def _record(self, model_name: str, batch: int, seconds: float) -> None:
         self._obs.setdefault(model_name, []).append((int(batch), float(seconds)))
 
+    def clear_observations(self) -> None:
+        """Forget the timed batches, e.g. warm-up batches that paid one-time
+        costs (library loads, graph captures), before fitting profiles."""
+        self._obs.clear()
+
     def affine(self, model_name: str) -> tuple[float, float]:
         """(fixed_s, per_item_s) latency model for one variant."""
         return _affine_fit(self._obs.get(model_name, []))
@@ -142,11 +164,107 @@ class ExecutorBackend:
         )
 
 
+class DecodeGraph:
+    """Greedy decode on static buffers for one (variant, batch size, cache
+    capacity): the cache, its position, the (B, 1) int32 token buffer and
+    the (B, V) logits buffer, each allocated once and written in place by
+    ``transformer.decode_into``.
+
+    On the card the first step runs eagerly on a side stream (a real step,
+    and the warm-up a capture needs: libraries loaded, kernels built, the
+    rope table cached); the next is captured into a ``torch.cuda.CUDAGraph``
+    on that stream, from ``pool``, and is then replayed, as is every step
+    of later batches with the same key.  A capture launches nothing, so
+    the launches its wrappers counted are taken back off the counts and
+    added again at each replay (``kernels.add_launches``).  On the CPU
+    every step runs ``decode_into`` eagerly."""
+
+    def __init__(self, params, cfg, batch: int, capacity: int, device, pool=None,
+                 stream=None):
+        self.params, self.cfg, self.device = params, cfg, device
+        self.pool, self.stream = pool, stream
+        self.cache = kvcache.init_cache(cfg, batch, capacity, device=device)
+        self.tok = torch.zeros((batch, 1), dtype=torch.int32, device=device)
+        self.logits = torch.zeros((batch, cfg.vocab_size), dtype=kvcache.model_dtype(cfg),
+                                  device=device)
+        self.graph = None
+        self.warm = False
+        self.launches: dict[str, int] = {}  # kernel launches of one replay
+        self.captures = self.replays = 0
+        self.capture_s = 0.0
+
+    def load(self, cache, tok) -> None:
+        """Copy a prefill's cache and position, and the first (B, 1) token,
+        into the static buffers."""
+        for dst, src in zip(self.cache["layers"], cache["layers"]):
+            for name, t in dst.items():
+                t.copy_(src[name])
+        self.cache["pos"].copy_(cache["pos"])
+        self.tok.copy_(tok)
+
+    def _decode(self) -> None:
+        transformer.decode_into(self.params, self.cache, self.tok, self.logits, self.cfg)
+
+    def step(self) -> None:
+        """One decode step: ``tok`` then holds the new token, ``logits``
+        its logits."""
+        if self.graph is not None:
+            self.graph.replay()
+            kernels.add_launches(self.launches)
+            self.replays += 1
+        elif self.device.type != "cuda":
+            self._decode()
+        elif not self.warm:
+            self._on_side_stream(self._decode)
+            self.warm = True
+        else:
+            self._capture()
+            self.step()
+
+    def _on_side_stream(self, fn) -> None:
+        current = torch.cuda.current_stream(self.device)
+        self.stream.wait_stream(current)
+        with torch.cuda.stream(self.stream):
+            fn()
+        current.wait_stream(self.stream)
+
+    def _capture(self) -> None:
+        t0 = time.perf_counter()
+        before = kernels.launch_counts()
+        graph = torch.cuda.CUDAGraph()
+
+        def capture():
+            graph.capture_begin(self.pool)
+            try:
+                self._decode()
+            finally:
+                graph.capture_end()
+
+        self._on_side_stream(capture)
+        after = kernels.launch_counts()
+        self.launches = {name: n - before.get(name, 0) for name, n in after.items()
+                         if n != before.get(name, 0)}
+        kernels.add_launches({name: -n for name, n in self.launches.items()})
+        self.graph = graph
+        self.captures += 1
+        self.capture_s += time.perf_counter() - t0
+
+
+def _has_attention(cfg) -> bool:
+    return any(cfg.layer_kind(i).startswith("attn") for i in range(cfg.num_layers))
+
+
 class ProfiledBackend(ExecutorBackend):
     """The reference's default substrate on the port's ``LM``: weights
     made lazily per variant (``LM.init(seed)`` on ``device``, the card
-    unless ``"cpu"`` is named), prefill with ``max_len = prompt +
-    new_tokens``, greedy decode, stopwatch timing."""
+    unless ``"cpu"`` is named), prefill with room for ``prompt +
+    new_tokens`` positions rounded up to a multiple of 256, greedy decode
+    through one ``DecodeGraph`` per (variant, batch size, capacity) — per
+    (variant, batch size) for a model without attention, whose caches do
+    not grow — and stopwatch timing.  On the card decode replays CUDA
+    graphs (a key's first batch runs one eager step and captures the
+    next, inside its ``decode_s``, as the reference's first call compiles
+    inside its stopwatch); on the CPU it runs eagerly."""
 
     provenance = "profiled"
 
@@ -155,6 +273,8 @@ class ProfiledBackend(ExecutorBackend):
         self.device = resolve_device(device)
         self._models: dict[str, LM] = {}
         self._params: dict = {}
+        self._decoders: dict[tuple, DecodeGraph] = {}
+        self._stream = self._pool = None  # the capture stream and graph pool, on the card
 
     def set_params(self, name: str, params) -> None:
         """Serve variant ``name`` with these weights (a ``TransformerParams``
@@ -163,6 +283,7 @@ class ProfiledBackend(ExecutorBackend):
         cfg, _ = self.variants[name]
         self._models[name] = LM(cfg)
         self._params[name] = params
+        self._decoders = {k: d for k, d in self._decoders.items() if k[0] != name}
 
     def _get(self, name: str):
         if name not in self._models:
@@ -171,6 +292,30 @@ class ProfiledBackend(ExecutorBackend):
             self._params[name] = model.init(seed, device=self.device)
             self._models[name] = model
         return self._models[name], self._params[name]
+
+    def decoder(self, name: str, batch: int, capacity: int) -> DecodeGraph:
+        """The decode buffers (and, once captured, the graph) of variant
+        ``name`` at this batch size and capacity, made on first use."""
+        model, params = self._get(name)
+        key = (name, batch, capacity if _has_attention(model.cfg) else None)
+        dec = self._decoders.get(key)
+        if dec is None:
+            if self.device.type == "cuda" and self._stream is None:
+                self._stream = torch.cuda.Stream(self.device)
+                self._pool = torch.cuda.graph_pool_handle()
+            dec = DecodeGraph(params, model.cfg, batch, capacity, self.device, self._pool,
+                              self._stream)
+            self._decoders[key] = dec
+        return dec
+
+    def graph_stats(self) -> dict:
+        """Decode graphs held, captures, replays and seconds spent capturing,
+        summed over this backend's keys."""
+        decs = self._decoders.values()
+        return {"graphs": sum(d.graph is not None for d in decs),
+                "captures": sum(d.captures for d in decs),
+                "replays": sum(d.replays for d in decs),
+                "capture_s": sum(d.capture_s for d in decs)}
 
     def _clock(self) -> float:
         if self.device.type == "cuda":
@@ -181,11 +326,12 @@ class ProfiledBackend(ExecutorBackend):
                   class_token_ids: Optional[np.ndarray] = None) -> ExecutionReport:
         """prompts: (B, S) int32 (pre-padded)."""
         model, params = self._get(model_name)
+        b, s = prompts.shape
+        capacity = bucket_capacity(s + self.new_tokens)
         with torch.inference_mode():
             t0 = self._clock()
             tokens = torch.as_tensor(np.asarray(prompts), device=self.device)
-            logits, cache = model.prefill(params, tokens,
-                                          max_len=tokens.shape[1] + self.new_tokens)
+            logits, cache = model.prefill(params, tokens, max_len=capacity)
             t1 = self._clock()
             preds = None
             if class_token_ids is not None:
@@ -193,19 +339,22 @@ class ProfiledBackend(ExecutorBackend):
                 preds = logits[:, ids].argmax(dim=-1).tolist()
             tok = torch.argmax(logits, dim=-1).to(torch.int32)
             toks = [tok]
-            for _ in range(self.new_tokens - 1):
-                logits, cache = model.decode_step(params, cache, tok[:, None])
-                tok = torch.argmax(logits, dim=-1).to(torch.int32)
-                toks.append(tok)
+            if self.new_tokens > 1:
+                dec = self.decoder(model_name, b, capacity)
+                dec.load(cache, tok[:, None])
+                del cache
+                for _ in range(self.new_tokens - 1):
+                    dec.step()
+                    toks.append(dec.tok[:, 0].clone())
             t2 = self._clock()
-        self._record(model_name, prompts.shape[0], t2 - t0)
+        self._record(model_name, b, t2 - t0)
         return ExecutionReport(
             request_ids=request_ids,
             model=model_name,
-            batch_size=prompts.shape[0],
+            batch_size=b,
             swap_s=0.0,
             prefill_s=t1 - t0,
             decode_s=t2 - t1,
             tokens=torch.stack(toks, dim=1).cpu().numpy(),
-            predictions=preds if preds is not None else [None] * prompts.shape[0],
+            predictions=preds if preds is not None else [None] * b,
         )

@@ -239,6 +239,92 @@ def test_decode_attention_kernel_respects_lengths(cuda):
     torch.testing.assert_close(out1, out2, atol=1e-6, rtol=0)
 
 
+@pytest.mark.parametrize("window", [0, 40])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("g", [1, 4, 8, 32])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_decode_attention_kernel_head_dims_and_groups(cuda, d, g, dtype, window):
+    """Every head dim the kernel takes, with 1 to 32 query heads per KV head
+    (32 takes four passes of 8), with and without a window."""
+    gen = torch.Generator(device=cuda).manual_seed(d * 100 + g)
+    b, hkv, s = 3, 2, 300
+    q = torch.randn((b, 1, hkv * g, d), generator=gen, device=cuda).to(dtype)
+    k, v = (torch.randn((b, s, hkv, d), generator=gen, device=cuda).to(dtype)
+            for _ in range(2))
+    lengths = torch.tensor([s, 177, 41], dtype=torch.int32, device=cuda)
+    out = decode_ops.decode_attention(q, k, v, lengths, window=window)
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(out.float(), _decode_plain(q, k, v, lengths, window).float(),
+                               atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_decode_attention_kernel_edge_lengths(cuda, dtype):
+    """Lengths of 0 (the output is 0, as the plain version's), 1, one
+    block's share (capacity / 8, and 32), and the full capacity."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    s = 1280
+    lengths = torch.tensor([0, 1, 32, s // 8, s, 1039], dtype=torch.int32, device=cuda)
+    b = lengths.numel()
+    q = torch.randn((b, 1, 32, 64), generator=gen, device=cuda).to(dtype)
+    k, v = (torch.randn((b, s, 4, 64), generator=gen, device=cuda).to(dtype) for _ in range(2))
+    for window in (0, 100):
+        out = decode_ops.decode_attention(q, k, v, lengths, window=window)
+        tol = ATTN_TOL[dtype]
+        torch.testing.assert_close(out.float(),
+                                   _decode_plain(q, k, v, lengths, window).float(),
+                                   atol=tol, rtol=tol)
+        assert not out[0].any()
+
+
+def test_decode_attention_kernel_capacity_far_above_length(cuda):
+    """A cache of 8192 positions of which at most 50 are valid gives what an
+    exact cache gives."""
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    q = torch.randn((4, 1, 16, 64), generator=gen, device=cuda).to(torch.bfloat16)
+    k, v = (torch.randn((4, 8192, 2, 64), generator=gen, device=cuda).to(torch.bfloat16)
+            for _ in range(2))
+    lengths = torch.tensor([50, 3, 17, 49], dtype=torch.int32, device=cuda)
+    out = decode_ops.decode_attention(q, k, v, lengths)
+    exact = decode_ops.decode_attention(q, k[:, :50].contiguous(), v[:, :50].contiguous(),
+                                        lengths)
+    torch.testing.assert_close(out.float(), _decode_plain(q, k, v, lengths, 0).float(),
+                               atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(out.float(), exact.float(), atol=2e-2, rtol=2e-2)
+
+
+def test_decode_attention_kernel_keeps_no_state_between_calls(cuda):
+    """Two launches of one call give identical outputs, and so do three
+    replays of a CUDA graph that captured it; the graph reads the lengths
+    on the device, so a replay after they change follows them."""
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    q = torch.randn((8, 1, 32, 64), generator=gen, device=cuda).to(torch.bfloat16)
+    k, v = (torch.randn((8, 1280, 4, 64), generator=gen, device=cuda).to(torch.bfloat16)
+            for _ in range(2))
+    lengths = torch.tensor([1040, 129, 700, 1024, 300, 1039, 512, 890], dtype=torch.int32,
+                           device=cuda)
+    first = decode_ops.decode_attention(q, k, v, lengths)
+    second = decode_ops.decode_attention(q, k, v, lengths)
+    assert torch.equal(first, second)
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        decode_ops.decode_attention(q, k, v, lengths)  # warm-up on the capture stream
+        graph.capture_begin()
+        out = decode_ops.decode_attention(q, k, v, lengths)
+        graph.capture_end()
+    torch.cuda.current_stream().wait_stream(side)
+    for _ in range(3):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, first)
+    lengths.sub_(7)
+    graph.replay()
+    assert torch.equal(out, decode_ops.decode_attention(q, k, v, lengths))
+
+
 # ------------------------------------------------------------- the model
 
 
@@ -411,3 +497,108 @@ def test_mamba2_on_the_card_matches_the_host(cuda):
                                        atol=1e-3, rtol=1e-3)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+# ------------------------------------------------------- the graphed decode
+
+
+def _two_layer_f32(arch, cuda):
+    import dataclasses
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import LM
+
+    cfg = dataclasses.replace(ARCHS[arch], num_layers=2, dtype="float32")
+    lm = LM(cfg)
+    return cfg, lm, lm.init(seed=0, device=cuda)
+
+
+@pytest.mark.parametrize("arch,seq", [("tinyllama-1.1b", 45), ("mamba2-130m", 200)])
+def test_graphed_decode_matches_eager(cuda, arch, seq):
+    """A 2-layer float32 model at full width: the decode step replayed from
+    a CUDA graph against the eager step on the card, from the same prefill
+    cache: identical tokens, logits within 1e-5."""
+    from repro_torch.serving.backends import DecodeGraph, bucket_capacity
+
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cfg, lm, params = _two_layer_f32(arch, cuda)
+        steps = 5
+        tokens = torch.randint(0, cfg.vocab_size, (2, seq),
+                               generator=torch.Generator().manual_seed(1)).to(cuda)
+        capacity = bucket_capacity(seq + steps + 1)
+        logits, cache = lm.prefill(params, tokens, max_len=capacity)
+        tok = logits.argmax(dim=-1, keepdim=True).to(torch.int32)
+        dec = DecodeGraph(params, cfg, 2, capacity, cuda, torch.cuda.graph_pool_handle(),
+                          torch.cuda.Stream())
+        dec.load(cache, tok)
+        for step in range(steps):
+            dec.step()
+            logits, cache = lm.decode_step(params, cache, tok)
+            tok = logits.argmax(dim=-1, keepdim=True).to(torch.int32)
+            torch.testing.assert_close(dec.logits, logits, atol=1e-5, rtol=1e-5)
+            assert torch.equal(dec.tok, tok), step
+        assert dec.captures == 1 and dec.replays == steps - 1
+        assert int(dec.cache["pos"]) == int(cache["pos"]) == seq + steps
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def test_backend_counts_the_launches_of_replays(cuda):
+    """K4's count after a backend's graphed decode equals that of the same
+    number of eager steps: one launch per attention layer per step, the
+    capture counted as nothing and every replay as one step."""
+    import dataclasses
+
+    from repro_torch import kernels
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import LM
+    from repro_torch.serving.backends import ProfiledBackend
+
+    cfg = dataclasses.replace(ARCHS["tinyllama-1.1b"], num_layers=3)
+    new_tokens = 6
+    backend = ProfiledBackend({"t": (cfg, 0)}, new_tokens=new_tokens, device=cuda)
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 40)).astype(np.int32)
+    kernels.reset_launch_counts()
+    for _ in range(2):  # the first batch captures, the second only replays
+        backend.run_batch("t", prompts, [0, 1])
+    graphed = kernels.launch_counts()["decode_attention"]
+    stats = backend.graph_stats()
+    assert stats["captures"] == 1 and stats["replays"] == 2 * (new_tokens - 1) - 1
+    lm = LM(cfg)
+    params = backend._get("t")[1]
+    kernels.reset_launch_counts()
+    with torch.inference_mode():
+        for _ in range(2):
+            logits, cache = lm.prefill(params, torch.as_tensor(prompts, device=cuda),
+                                       max_len=64)
+            tok = logits.argmax(dim=-1, keepdim=True)
+            for _ in range(new_tokens - 1):
+                logits, cache = lm.decode_step(params, cache, tok)
+                tok = logits.argmax(dim=-1, keepdim=True)
+    eager = kernels.launch_counts()["decode_attention"]
+    assert graphed == eager == 2 * (new_tokens - 1) * cfg.num_layers
+
+
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "mamba2-130m"])
+def test_decode_step_reads_nothing_on_the_host(cuda, arch):
+    """The eager decode step under ``set_sync_debug_mode("error")``: no
+    operation of the step waits for the card (no ``item``, ``int`` or copy
+    back), which is what lets it be captured."""
+    cfg, lm, params = _two_layer_f32(arch, cuda)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 30),
+                           generator=torch.Generator().manual_seed(2)).to(cuda)
+    _, cache = lm.prefill(params, tokens, max_len=64)
+    tok = torch.zeros((2, 1), dtype=torch.int32, device=cuda)
+    logits = torch.empty((2, cfg.vocab_size), device=cuda)
+    lm.decode_into(params, cache, tok, logits)  # first use: libraries load, kernels build
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(2):
+            lm.decode_into(params, cache, tok, logits)
+            lm.decode_step(params, cache, tok)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert int(cache["pos"]) == 30 + 5

@@ -38,7 +38,7 @@ from repro_torch.models import attention as t_attn
 from repro_torch.models import layers as t_layers
 from repro_torch.models import ssd as t_ssd
 from repro_torch.models.kvcache import cache_bytes
-from repro_torch.serving.backends import weight_bytes
+from repro_torch.serving.backends import bucket_capacity, weight_bytes
 
 # Float32 on both sides; the sums of a layer (d_model 64, d_ff 128, up to
 # 37 keys) are taken in other orders, and a few layers compound them.
@@ -161,7 +161,7 @@ def test_attn_decode_matches_reference(pair):
         jp, jnp.asarray(x), (jnp.asarray(kc), jnp.asarray(vc)), jnp.asarray(pos, jnp.int32), jcfg)
     kt, vt = torch.as_tensor(kc.copy()), torch.as_tensor(vc.copy())
     y, (k_out, v_out) = t_attn.attn_decode(params.layers[0].attn, torch.as_tensor(x),
-                                           (kt, vt), pos, cfg)
+                                           (kt, vt), torch.tensor(pos, dtype=torch.int32), cfg)
     assert k_out is kt and v_out is vt  # written in place
     _close(y, y_ref, LAYER_TOL)
     _close(kt, kc_ref, LAYER_TOL)
@@ -201,6 +201,71 @@ def test_lm_prefill_and_decode_match_reference(pair):
         assert cache["pos"] == int(cache_ref["pos"]) == s + t + 1
         for kv in ("k", "v"):
             _close(_stacked_cache(cache, kv), cache_ref["blocks"][0][kv], MODEL_TOL)
+
+
+def _decode_into_matches_reference(jlm, jparams, cfg, lm, params, seq, seed, tol):
+    """Prefill, then five greedy steps: the reference's ``decode_step``
+    loop fed its own argmax against ``decode_into`` on static buffers
+    (token buffer, logits buffer, cache written in place)."""
+    tokens = _tokens(cfg, 2, seq, seed)
+    steps = 5
+    logits_ref, cache_ref = jlm.prefill(jparams, jnp.asarray(tokens), max_len=seq + steps)
+    logits, cache = lm.prefill(params, torch.as_tensor(tokens), max_len=seq + steps)
+    tok_ref = jnp.argmax(logits_ref, axis=-1).astype(jnp.int32)[:, None]
+    tok = logits.argmax(dim=-1, keepdim=True).to(torch.int32)
+    out = torch.empty_like(logits)
+    np.testing.assert_array_equal(tok.numpy(), np.asarray(tok_ref))
+    for t in range(steps):
+        logits_ref, cache_ref = jlm.decode_step(jparams, cache_ref, tok_ref)
+        tok_ref = jnp.argmax(logits_ref, axis=-1).astype(jnp.int32)[:, None]
+        lm.decode_into(params, cache, tok, out)
+        _close(out, logits_ref, tol)
+        np.testing.assert_array_equal(tok.numpy(), np.asarray(tok_ref), err_msg=f"step {t}")
+    assert tok.dtype == torch.int32 and int(cache["pos"]) == seq + steps
+
+
+@pytest.mark.parametrize("pair", ["reduced", "all-options"], indirect=True)
+def test_decode_into_matches_reference_decode_loop(pair):
+    name, _, jlm, jparams, cfg, lm, params = pair
+    _decode_into_matches_reference(jlm, jparams, cfg, lm, params, SEQ[name], 20, MODEL_TOL)
+
+
+@pytest.mark.parametrize("pair", ["reduced"], indirect=True)
+def test_cache_position_is_a_device_int32_advanced_in_place(pair):
+    """The position is a 0-dim int32 tensor beside the caches, as the
+    reference's; decode advances that same tensor in place."""
+    name, _, _, _, cfg, lm, params = pair
+    s = SEQ[name]
+    _, cache = lm.prefill(params, torch.as_tensor(_tokens(cfg, 2, s, 21)), max_len=s + 2)
+    pos = cache["pos"]
+    assert isinstance(pos, torch.Tensor) and pos.dim() == 0 and pos.dtype == torch.int32
+    assert pos.device == cache["layers"][0]["k"].device and int(pos) == s
+    _, cache2 = lm.decode_step(params, cache, torch.zeros((2, 1), dtype=torch.int32))
+    assert cache2["pos"] is pos and int(pos) == s + 1
+    init = lm.init_cache(2, 8, start_pos=3, device="cpu")
+    assert init["pos"].dim() == 0 and init["pos"].dtype == torch.int32 and int(init["pos"]) == 3
+
+
+@pytest.mark.parametrize("pair", ["reduced", "gqa4-ragged"], indirect=True)
+def test_bucketed_capacity_gives_the_same_logits(pair):
+    """A cache whose capacity is rounded up to the next multiple of 256 (the
+    serving backend's) gives the logits of an exact one, within 1e-6 in
+    float32: K4 reads only the valid lengths."""
+    name, _, _, _, cfg, lm, params = pair
+    s, steps = SEQ[name], 4
+    capacity = bucket_capacity(s + steps)
+    assert capacity == 256
+    tokens = torch.as_tensor(_tokens(cfg, 2, s, 22))
+    exact_logits, exact = lm.prefill(params, tokens, max_len=s + steps)
+    big_logits, big = lm.prefill(params, tokens, max_len=capacity)
+    assert big["layers"][0]["k"].shape[1] == capacity
+    _close(big_logits, exact_logits, 1e-6)
+    tok = exact_logits.argmax(dim=-1, keepdim=True)
+    for _ in range(steps):
+        exact_logits, exact = lm.decode_step(params, exact, tok)
+        big_logits, big = lm.decode_step(params, big, tok)
+        _close(big_logits, exact_logits, 1e-6)
+        tok = exact_logits.argmax(dim=-1, keepdim=True)
 
 
 @pytest.mark.parametrize("pair", ["reduced"], indirect=True)
@@ -449,6 +514,11 @@ def test_mamba2_prefill_and_decode_match_reference(mamba_pair):
         assert cache["pos"] == int(cache_ref["pos"]) == MAMBA_SEQ + t + 1
         for name in ("conv", "state"):
             _close(_stacked_cache(cache, name), cache_ref["blocks"][0][name], SSD_TOL)
+
+
+def test_mamba2_decode_into_matches_reference_decode_loop(mamba_pair):
+    jcfg, jlm, jparams, cfg, lm, params = mamba_pair
+    _decode_into_matches_reference(jlm, jparams, cfg, lm, params, MAMBA_SEQ, 23, MODEL_TOL)
 
 
 def test_mamba2_generate_matches_reference(mamba_pair):

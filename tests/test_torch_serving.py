@@ -111,13 +111,14 @@ def _executors(variants=J_VARIANTS):
     return jexec, LMExecutor(backend=backend)
 
 
-def _margins(jexec, report):
+def _margins(jexec, report, prompts=None):
     """The reference's top-2 logit margins (B, new_tokens) along its own
-    greedy tokens, from its backend's compiled prefill and decode steps."""
+    greedy tokens, from its backend's compiled prefill and decode steps;
+    the prompts are the report's requests' unless given."""
     backend = jexec.backend
     _, params = backend._get(report.model)
-    rids = report.request_ids
-    prompts = JLMExecutor._pad([_Entry(rid) for rid in rids], prompt_fn)
+    if prompts is None:
+        prompts = JLMExecutor._pad([_Entry(rid) for rid in report.request_ids], prompt_fn)
     logits, cache = backend._prefill_jit[report.model](params, prompts)
     out = []
     for t in range(NEW_TOKENS):
@@ -207,6 +208,32 @@ def test_lm_executor_matches_reference():
         assert texec.backend.model_bytes(name) == jexec.backend.model_bytes(name)
         assert texec.backend.swap_cost(name) == jexec.backend.swap_cost(name)
         assert texec.backend.profile(name, [0.5, 0.5]).provenance == "profiled"
+
+
+def test_backend_shares_decode_buffers_across_ragged_batches():
+    """Decode buffers are keyed by (variant, batch size, capacity rounded up
+    to a multiple of 256) for attention, by (variant, batch size) for SSD,
+    whose caches do not grow: prompts of 8 and 12 tokens share one key,
+    one of 300 takes the next; the tokens equal the reference's wherever
+    its top-2 margin clears the tolerance."""
+    jexec, texec = _executors(J_FAMILIES)
+    rng = np.random.default_rng(3)
+    compared = 0
+    for name in J_FAMILIES:
+        for s in (8, 12, 300):
+            prompts = rng.integers(0, _BASE.vocab_size, (2, s)).astype(np.int32)
+            jr = jexec.backend.run_batch(name, prompts, [0, 1])
+            tr = texec.backend.run_batch(name, prompts, [0, 1])
+            assert tr.tokens.shape == jr.tokens.shape == (2, NEW_TOKENS)
+            clear = np.cumprod(_margins(jexec, jr, prompts) > TOKEN_TOL, axis=1).astype(bool)
+            np.testing.assert_array_equal(tr.tokens[clear], jr.tokens[clear])
+            compared += int(clear.sum())
+    assert compared > 0
+    assert sorted(texec.backend._decoders, key=str) == sorted(
+        [("mamba2-130m", 2, None), ("tinyllama-1.1b", 2, 256), ("tinyllama-1.1b", 2, 512)],
+        key=str)
+    assert texec.backend.graph_stats() == {"graphs": 0, "captures": 0, "replays": 0,
+                                           "capture_s": 0.0}  # eager on the host
 
 
 def test_swap_manager_matches_reference():
