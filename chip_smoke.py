@@ -140,6 +140,22 @@ def hmma_count(lib_path) -> int | None:
     return sum("HMMA" in line for line in sass.splitlines())
 
 
+def ptxas_registers(name: str, keys) -> dict:
+    """{key: ptxas's "Used N registers, ..." line} for the kernels of source
+    ``name`` whose mangled name contains each key (from the build log)."""
+    from repro_torch.kernels import nvcc
+
+    text = (nvcc.BUILD_DIR / f"{name}.log").read_text()
+    out = {}
+    for block in text.split("Compiling entry function")[1:]:
+        head = block.split("\n", 1)[0]
+        for key in keys:
+            if key in head:
+                line = next((ln for ln in block.splitlines() if "registers" in ln), "")
+                out[key] = line.split(":", 1)[-1].strip()
+    return out
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -210,9 +226,44 @@ def check_knn(sneaks, windows_feats, k, rows):
     print(f"  k-NN ties: {rows} queries over {x.shape[0]} points with exact twins: "
           f"labels identical")
 
-    # Times at the largest application's window shapes.
+    # Twins on both sides of every slice boundary of the main path's plan,
+    # hit by queries on both sides of every query-tile boundary: the
+    # nearest two of each such query tie exactly, and their labels differ.
     n, d = sp._x.shape
     qn = q.shape[0]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = knn_ops.knn_plan(qn, n, d, k, sms)
+    require(plan.slices > 1 and qn > plan.query_tile, f"the plan {plan} has no boundary")
+    x2, y2 = sp._x.clone(), sp._y.clone()
+    bounds = [lo for lo, _ in plan.slice_bounds(n)[1:]]
+    for b in bounds:
+        x2[b - 1] = x2[b]
+        y2[b - 1] = (y2[b] + 1) % sp.num_classes
+    xn2 = (x2 * x2).sum(dim=1)
+    rows_at = [j * plan.query_tile + o for j in range(1, -(-qn // plan.query_tile))
+               for o in (-1, 0) if j * plan.query_tile + o < qn]
+    qt = q.clone()
+    for i, row in enumerate(rows_at):
+        qt[row] = x2[bounds[i % len(bounds)]] + 0.01 * torch.randn(
+            d, device="cuda", generator=g)
+    dk, lk = knn_ops.knn_topk(qt, x2, xn2, y2, k)
+    dr, lr = knn_topk_ref(qt, x2, xn2, y2, k)
+    torch.cuda.synchronize()
+    at = torch.as_tensor(rows_at, device="cuda")
+    require(bool((dr[at, 0] == dr[at, 1]).all()), "slice-boundary twins: no exact tie")
+    require(torch.equal(lk[at, :2], lr[at, :2]),
+            "slice-boundary twins: labels differ from plain")
+    require(float((dk - dr).abs().max()) <= tol, "slice-boundary twins: distances differ")
+    print(f"  k-NN ties across boundaries: twins at {len(bounds)} slice boundaries, "
+          f"queried from {len(rows_at)} rows beside query-tile boundaries: labels identical")
+    print(f"  k-NN plan at Q={qn} N={n} D={d} k={k}: query tile {plan.query_tile}, "
+          f"{plan.stages} stages, {plan.slices} slices of {plan.slice_rows} rows, "
+          f"{plan.smem_bytes} B shared, grid {plan.grid(qn)}; ptxas "
+          + "; ".join(f"{key}: {regs}" for key, regs in
+                      ptxas_registers("knn", ("knn_search_kernelILi8E",
+                                              "knn_search_kernelILi4E")).items()))
+
+    # Times at the largest application's window shapes.
     call = lambda: knn_ops.knn_topk(q, sp._x, sp._xn, sp._y, k)  # noqa: E731
     ms = device_ms(call, "knn_", iters=20)  # the search and, if sliced, the merge
     call_ms = timed_ms(call, iters=20)
@@ -245,22 +296,40 @@ def check_utility(group_shape, seed):
     import torch
 
     from repro_torch.kernels.utility import ops as util_ops
-    from repro_torch.kernels.utility.ref import utility_scores_ref
+    from repro_torch.kernels.utility.ref import utility_scores_ref, utility_tile_ref
 
     rng = np.random.default_rng(seed)
-    shapes = [(4096, 6, "tile"), (group_shape[0], group_shape[1], "row"),
-              (1365, 1, "tile"), (7, 3, "row")]
+    # R on both sides of the row counts where the plan changes for M = 6 in
+    # f64: the cluster reaches its 7 filling blocks, and the tile no longer
+    # fits the summing block (a ring of two slots per filling block).
+    split = (util_ops.MAX_CLUSTER - 1) * (util_ops.THREADS // 6)
+
+    def ring(r):
+        p = util_ops.utility_plan(r, 6, 8, True)
+        return p.slots < -(-len(p.chunks(r)) // (p.cluster - 1))
+
+    chunked = next(r for r in range(split, 1 << 16) if ring(r))
+    shapes = [(4096, 6, "tile", True), (group_shape[0], group_shape[1], "row", True),
+              (1365, 1, "tile", True), (7, 3, "row", True), (4096, 1, "tile", False),
+              (1250, 256, "tile", True)]
+    shapes += [(r, 6, "tile", True) for r in (split - 1, split, split + 1, chunked - 1,
+                                              chunked, chunked + 1)]
     timing = {}
     for penalty in ("step", "linear", "sigmoid", "none"):
-        for r, m, comp_kind in shapes:
+        for r, m, comp_kind, with_means in shapes:
             acc = rng.uniform(0, 1, (r, m))
             dl = rng.uniform(-0.05, 0.3, r)
             comp = rng.uniform(0.0, 0.6, (r, m) if comp_kind == "tile" else (m,))
             for dtype, exact in ((torch.float64, True), (torch.float32, False)):
                 a, d, e = (torch.as_tensor(v, dtype=dtype, device="cuda")
                            for v in (acc, dl, comp))
-                uk, mk = util_ops.utility_scores(a, d, e, penalty)
-                ur, mr = utility_scores_ref(a, d, e, penalty)
+                uk, mk = util_ops.utility_scores(a, d, e, penalty, with_means=with_means)
+                if with_means:
+                    ur, mr = utility_scores_ref(a, d, e, penalty)
+                else:
+                    ur, mr = utility_tile_ref(a, d, e, penalty), None
+                    require(mk is None, "utility without means returned means")
+                    mk = mr = torch.zeros(1, dtype=dtype, device="cuda")
                 torch.cuda.synchronize()
                 if exact:
                     require(torch.equal(uk, ur) and torch.equal(mk, mr),
@@ -269,16 +338,30 @@ def check_utility(group_shape, seed):
                     err = max(float((uk - ur).abs().max()), float((mk - mr).abs().max()))
                     require(err <= 1e-6, f"f32 utility {penalty} {(r, m)}: {err} > 1e-6")
     print("  Eq. 2 utility: f64 bit-identical and f32 within 1e-6, 4 penalties x "
-          f"{[(r, m) for r, m, _ in shapes]}")
-    # Times at the main path's largest group tile, sigmoid, f64.
+          f"{[(r, m) if w else (r, m, 'no sums') for r, m, _, w in shapes]}")
+    # Times at the main path's largest group tile, sigmoid, f64; then the
+    # same tile's fill alone, and evaluate's per-entry shape (fill only).
     r, m = group_shape
+    plan = util_ops.utility_plan(r, m, 8, True)
+    print(f"  utility plan at R={r} M={m} f64: blocks of {m}x{plan.block_rows} threads, "
+          f"cluster of {plan.cluster}, chunks of {plan.chunk_rows} rows, "
+          f"{plan.smem_bytes} B shared")
     a = torch.as_tensor(rng.uniform(0, 1, (r, m)), device="cuda")
     d = torch.as_tensor(rng.uniform(0.01, 0.3, r), device="cuda")
     e = torch.as_tensor(rng.uniform(0.0, 0.6, m), device="cuda")
     call = lambda: util_ops.utility_scores(a, d, e, "sigmoid")  # noqa: E731
-    timing["ms"] = device_ms(call, "utility_kernel", iters=200)
+    timing["ms"] = device_ms(call, "utility_", iters=200)
     timing["call_ms"] = timed_ms(call, iters=200)  # wrapper, launch and means
     timing["plain_ms"] = timed_ms(lambda: utility_scores_ref(a, d, e, "sigmoid"), iters=5)
+    timing["fill_ms"] = device_ms(
+        lambda: util_ops.utility_scores(a, d, e, "sigmoid", with_means=False), "utility_",
+        iters=200)
+    a1 = torch.as_tensor(rng.uniform(0, 1, (4096, 1)), device="cuda")
+    d1 = torch.as_tensor(rng.uniform(0.01, 0.3, 4096), device="cuda")
+    e1 = torch.as_tensor(rng.uniform(0.0, 0.6, (4096, 1)), device="cuda")
+    timing["entry_ms"] = device_ms(
+        lambda: util_ops.utility_scores(a1, d1, e1, "sigmoid", with_means=False), "utility_",
+        iters=200)
     bytes_moved = 8 * (2 * r * m + r + m + m)
     flops = 12 * r * m + r * m  # penalty chain per pair, plus the column sums
     timing["bound_ms"] = max(bytes_moved / HBM_BYTES_PER_S, flops / FP64_FLOP_PER_S) * 1e3
@@ -1067,6 +1150,8 @@ def main(argv=None) -> int:
         print(f"    {name} at {t['shape']}: kernel {t['ms']:.6f} ms on the device, "
               f"{t['call_ms']:.6f} ms per wrapper call back to back, plain "
               f"{t['plain_ms']:.6f} ms, bound {t['bound_ms']:.6f} ms ({t['bound_by']})")
+    print(f"    utility_scores without the sums: {util_t['fill_ms']:.6f} ms at {util_t['shape']}, "
+          f"{util_t['entry_ms']:.6f} ms at R=4096 M=1 (evaluate's per-entry tile)")
     print(f"    phases 1-5 {time.perf_counter() - t_start:.1f} s")
 
     print("[6] prefill flash-attention kernel (K3) against its plain version")

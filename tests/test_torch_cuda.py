@@ -65,6 +65,9 @@ def _knn_case(q, n, d, k, nc, device, integer=False):
 @pytest.mark.parametrize("q,n,d,k,nc", [
     (16, 256, 8, 5, 3), (37, 700, 16, 1, 4), (128, 512, 32, 8, 6), (5, 40, 4, 5, 2),
     (1365, 20000, 28, 5, 7), (300, 5000, 24, 16, 2), (3, 100003, 32, 7, 6),
+    # Q off the query tile (64 or 128), N off the 64-row staged tile, D = 200
+    # (the widest the shared memory takes), D not a multiple of 4.
+    (200, 6401, 24, 5, 3), (65, 777, 3, 2, 3), (129, 6401, 200, 5, 4), (1, 333, 200, 16, 5),
 ])
 def test_knn_kernel_matches_plain(cuda, q, n, d, k, nc):
     args = _knn_case(q, n, d, k, nc, cuda)
@@ -87,6 +90,30 @@ def test_knn_kernel_tie_rule(cuda, q, n, d, k):
     assert torch.equal(lk, lr)
 
 
+@pytest.mark.parametrize("q,n,d,k", [(1365, 80000, 32, 5), (300, 20003, 24, 5),
+                                     (129, 9000, 200, 16), (70, 5000, 3, 1)])
+def test_knn_kernel_ties_across_slices(cuda, q, n, d, k):
+    """Twins on both sides of every slice boundary of the kernel's plan,
+    queried exactly from the rows beside every query-tile boundary:
+    integer data, so every distance and every tie is exact."""
+    queries, x, _, y = _knn_case(q, n, d, k, 4, "cpu", integer=True)
+    n = x.shape[0]
+    plan = knn_ops.knn_plan(q, n, d, k, torch.cuda.get_device_properties(0).multi_processor_count)
+    bounds = [lo for lo, _ in plan.slice_bounds(n)[1:]]
+    assert bounds, plan
+    for b in bounds:
+        x[b - 1] = x[b]
+        y[b - 1] = (y[b] + 1) % 4
+    rows = [j * plan.query_tile + o for j in range(1, -(-q // plan.query_tile))
+            for o in (-1, 0) if j * plan.query_tile + o < q] or [0]
+    for i, row in enumerate(rows):
+        queries[row] = x[bounds[i % len(bounds)]]
+    args = [t.to(cuda) for t in (queries, x, (x * x).sum(dim=1), y)]
+    dk, lk = knn_ops.knn_topk(*args, k)
+    dr, lr = knn_topk_ref(*args, k)
+    assert torch.equal(lk, lr) and torch.equal(dk, dr)
+
+
 def test_knn_kernel_counts_launches(cuda):
     args = _knn_case(8, 500, 4, 3, 2, cuda)
     before = knn_ops.counter.count
@@ -98,6 +125,12 @@ def test_knn_kernel_counts_launches(cuda):
 @pytest.mark.parametrize("r,m,shared", [
     (7, 3, False), (64, 5, False), (300, 8, False), (4096, 6, False), (9000, 7, True),
     (1365, 1, False), (1, 1, True),
+    # Across the plan's cluster split for M = 6 (7 filling blocks of 42-row
+    # passes) and the summing block's capacity in f64 (a ring of two slots
+    # per filling block from 4761 rows); M = 256 (a ring of 8-row chunks);
+    # M = 1 at 4096.
+    (293, 6, False), (294, 6, False), (295, 6, True), (4760, 6, False), (4761, 6, True),
+    (1250, 256, False), (4096, 1, False),
 ])
 def test_utility_kernel_matches_plain(cuda, penalty, r, m, shared):
     """f64 bit-identical to the plain version (tile and ordered means);

@@ -1,0 +1,120 @@
+"""Launch plans of the port's K2 (k-NN) and K1 (Eq. 2 utility) kernels.
+
+The plans are plain Python (``knn_plan``, ``utility_plan``), computed on
+the host and validated again by the kernels' C entries, so their rules
+are checked here on the CPU: the slices of the training set are non-empty
+and cover it exactly, the shared memory fits a block of an H100, the grid
+covers its SMs wherever the shapes allow, and the chunks of a utility
+tile cover its rows in order.
+"""
+import pytest
+
+from repro_torch.kernels.knn import ops as knn_ops
+from repro_torch.kernels.utility import ops as util_ops
+
+SMS = 132  # an H100 SXM
+QS = [1, 64, 65, 127, 128, 1365, 5000]
+NS = [1, 5, 16, 64, 65, 20_000, 80_000, 100_003]
+
+
+@pytest.mark.parametrize("k", [1, 5, 16])
+@pytest.mark.parametrize("d", [3, 24, 28, 32, 200])
+def test_knn_plan_covers_the_training_set(d, k):
+    for q in QS:
+        for n in NS:
+            if n < k:
+                continue
+            plan = knn_ops.knn_plan(q, n, d, k, SMS)
+            assert plan.query_tile in (64, 128) and plan.stages in (2, 3)
+            assert plan.query_tile == 64 or q > 64
+            assert plan.slice_rows % knn_ops.TILE_ROWS == 0
+            bounds = plan.slice_bounds(n)
+            assert len(bounds) == plan.slices >= 1
+            assert bounds[0][0] == 0 and bounds[-1][1] == n
+            assert all(lo < hi for lo, hi in bounds), (q, n, plan)
+            assert all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))
+            assert plan.smem_bytes == knn_ops.knn_smem_bytes(plan.query_tile, d, plan.stages, k)
+            assert plan.smem_bytes <= knn_ops.SMEM_PER_BLOCK
+            qblocks, slices = plan.grid(q)
+            tiles = -(-n // knn_ops.TILE_ROWS)
+            if qblocks * tiles >= SMS:
+                assert qblocks * slices >= SMS, (q, n, plan)
+            else:  # every tile is its own slice
+                assert slices == tiles
+
+
+def test_knn_plan_at_the_main_path_shape():
+    """Q = 1365, N = 80,000, D = 32, k = 5: two blocks per SM in one wave."""
+    plan = knn_ops.knn_plan(1365, 80_000, 32, 5, SMS)
+    assert plan.query_tile == 128
+    assert 2 * (plan.smem_bytes + 1024) <= knn_ops.SMEM_PER_SM
+    qblocks, slices = plan.grid(1365)
+    assert SMS <= qblocks * slices <= 2 * SMS
+
+
+def test_knn_smem_rows_are_an_odd_number_of_float4s():
+    """Eight consecutive staged rows fall on eight different bank quads."""
+    for d in range(1, knn_ops.MAX_DIM + 1):
+        s = knn_ops._row_stride(d)
+        assert s % 4 == 0 and (s // 4) % 2 == 1 and d <= s <= d + 7
+        assert len({(r * s // 4) % 8 for r in range(8)}) == 8
+
+
+def test_knn_plan_rejects_what_the_kernel_cannot_take():
+    for args in ((0, 10, 4, 1), (4, 10, 0, 1), (4, 10, knn_ops.MAX_DIM + 1, 1),
+                 (4, 10, 4, 0), (4, 10, 4, knn_ops.MAX_K + 1), (4, 3, 4, 5)):
+        with pytest.raises(ValueError):
+            knn_ops.knn_plan(*args, SMS)
+
+
+RS = [1, 2, 7, 41, 42, 43, 293, 294, 295, 1250, 4096, 4760, 4761, 9556, 100_003]
+
+
+@pytest.mark.parametrize("itemsize", [4, 8], ids=["f32", "f64"])
+@pytest.mark.parametrize("m", [1, 3, 6, 7, 64, 256])
+def test_utility_plan_chunks_cover_the_rows_in_order(m, itemsize):
+    for r in RS:
+        plan = util_ops.utility_plan(r, m, itemsize, True)
+        assert m * plan.block_rows <= util_ops.THREADS < m * (plan.block_rows + 1)
+        assert 2 <= plan.cluster <= util_ops.MAX_CLUSTER
+        chunks = plan.chunks(r)
+        fill = plan.cluster - 1
+        rounds = -(-len(chunks) // fill)
+        assert chunks[0][1] == 0 and chunks[-1][2] == r
+        assert all(lo < hi for _, lo, hi in chunks)
+        assert all(a[2] == b[1] for a, b in zip(chunks, chunks[1:]))
+        assert [b for b, _, _ in chunks] == [1 + c % fill for c in range(len(chunks))]
+        assert {b for b, _, _ in chunks} == set(range(1, fill + 1))  # none idle
+        assert plan.slots == (2 if rounds > 1 else 1)
+        chunk_bytes = m * (plan.chunk_rows + 16 // itemsize) * itemsize  # padded columns
+        assert plan.smem_bytes == plan.slots * fill * chunk_bytes <= util_ops.SUM_BYTES
+        if plan.slots < rounds:  # a ring of two, only where the tile does not fit
+            assert plan.slots == 2
+            assert rounds * fill * chunk_bytes > util_ops.SUM_BYTES
+        assert plan.chunk_rows % 8 == 0  # the sum's groups of 8 rows
+
+
+@pytest.mark.parametrize("m", [1, 6, 256])
+def test_utility_plan_without_sums_is_a_plain_grid(m):
+    for r in RS:
+        plan = util_ops.utility_plan(r, m, 8, False)
+        assert plan.cluster == 0 and plan.slots == 0 and plan.smem_bytes == 0
+        assert plan.chunk_rows % plan.block_rows == 0
+        assert 1 <= plan.blocks <= util_ops.MAX_FILL_BLOCKS
+        chunks = plan.chunks(r)
+        assert len(chunks) == plan.blocks
+        assert chunks[0][1] == 0 and chunks[-1][2] == r
+        assert all(lo < hi for _, lo, hi in chunks)
+
+
+def test_utility_plan_at_the_main_path_shape():
+    """R = 1250, M = 6, f64: seven filling blocks, one chunk each."""
+    plan = util_ops.utility_plan(1250, 6, 8, True)
+    assert (plan.cluster, plan.block_rows, plan.chunk_rows, plan.slots) == (8, 42, 184, 1)
+    assert [hi - lo for _, lo, hi in plan.chunks(1250)] == [184] * 6 + [146]
+
+
+def test_utility_plan_rejects_what_the_kernel_cannot_take():
+    for args in ((0, 6, 8), (10, 0, 8), (10, util_ops.MAX_MODELS + 1, 8), (10, 6, 2)):
+        with pytest.raises(ValueError):
+            util_ops.utility_plan(*args, True)
