@@ -12,15 +12,19 @@ both, then drives two paths of the port on the card:
   application (K2, K1), plus one window of each other policy;
 * serving (phases 6-9): K3 (its bf16 tensor-core instance and its f32
   CUDA-core one), K4 and K5 (five kernels per call, each stage also held
-  against its plain stage and timed) against their plain versions, K4
-  also at the serving backend's bucketed capacity, 2-layer float32
-  models at tinyllama's and mamba2's widths on the card, eager and
-  replayed from a CUDA graph, against the host, then ``EdgeServer``
-  serving 64 requests with SneakPeek over a k-NN model on two families
-  at full width, mamba2-130m (24 SSD layers, prefill scan through K5)
-  and tinyllama-1.1b (22 attention layers, prefill through K3, decode
-  through K4), all bf16, decode replayed from CUDA graphs, and the same
-  traffic on each family alone.
+  against its plain stage and timed) against their plain versions, K3
+  and K4 also at head dim 256 (gemma-7b's shapes, gemma3-4b's windowed
+  prefill), K4 also at the serving backend's bucketed capacity, float32
+  models at tinyllama's, mamba2's, gemma-7b's and gemma3-4b's widths
+  (one period of 5 sliding-window layers and 1 global, a wrapped ring)
+  on the card, eager and replayed from a CUDA graph, against the host,
+  then ``EdgeServer`` serving 64 requests with SneakPeek over a k-NN
+  model on three families at full width, mamba2-130m (24 SSD layers,
+  prefill scan through K5), tinyllama-1.1b (22 attention layers) and
+  gemma-7b (28 attention layers of 16 heads of 256; prefill through K3,
+  decode through K4), all bf16, decode replayed from CUDA graphs, and
+  the same traffic on each family alone, with the peak device memory of
+  each run.
 
 Every check raises on failure.  The last three lines of standard output
 are the card's name and power limit, the kernel table and
@@ -141,8 +145,9 @@ def hmma_count(lib_path) -> int | None:
 
 
 def ptxas_registers(name: str, keys) -> dict:
-    """{key: ptxas's "Used N registers, ..." line} for the kernels of source
-    ``name`` whose mangled name contains each key (from the build log)."""
+    """{key: ptxas's "Used N registers, ..." line and its spill line} for the
+    kernels of source ``name`` whose mangled name contains each key (from
+    the build log)."""
     from repro_torch.kernels import nvcc
 
     text = (nvcc.BUILD_DIR / f"{name}.log").read_text()
@@ -151,9 +156,20 @@ def ptxas_registers(name: str, keys) -> dict:
         head = block.split("\n", 1)[0]
         for key in keys:
             if key in head:
-                line = next((ln for ln in block.splitlines() if "registers" in ln), "")
-                out[key] = line.split(":", 1)[-1].strip()
+                lines = block.splitlines()
+                regs = next((ln for ln in lines if "registers" in ln), "")
+                spill = next((ln for ln in lines if "spill" in ln), "")
+                out[key] = f"{regs.split(':', 1)[-1].strip()}; {spill.strip()}"
     return out
+
+
+# The head-dim-256 instances of K3 and K4 (mangled-name keys): ptxas's
+# registers and spills are printed in phase 2.
+D256_INSTANCES = {
+    "flash_attention": ("flash_attention_bf16_kernelILi256E", "flash_attention_f32_kernelILi256E"),
+    "decode_attention": ("decode_attention_kernelI13__nv_bfloat16Li256E",
+                         "decode_attention_kernelIfLi256E"),
+}
 
 
 def card_line() -> str:
@@ -444,10 +460,43 @@ def _decode_plain(q, k, v, lengths, window):
     return out.reshape(b, 1, hq, d)
 
 
+def _flash_timing(q, k, v, window, flops, library):
+    """K3 at one shape, checked against its plain version: device time,
+    wrapper time, plain time, ``library`` time, and the bound from
+    ``flops`` (bf16 operations) and the bytes of q, k, v and o."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+
+    b, s, hq, d = q.shape
+    hkv = k.shape[2]
+    out = flash_ops.flash_attention(q, k, v, window=window)
+    err = _close(out, _flash_plain(q, k, v, window), ATTN_TOL["bfloat16"],
+                 f"K3 at {tuple(q.shape)} window {window}")
+    torch.testing.assert_close(library().transpose(1, 2).float(), out.float(),
+                               atol=ATTN_TOL["bfloat16"], rtol=ATTN_TOL["bfloat16"])
+    call = lambda: flash_ops.flash_attention(q, k, v, window=window)  # noqa: E731
+    bytes_moved = 2 * (2 * b * s * hq * d + 2 * b * s * hkv * d)
+    return {
+        "ms": device_ms(call, "flash_attention", iters=10),
+        "call_ms": timed_ms(call, iters=10),
+        "plain_ms": timed_ms(lambda: _flash_plain(q, k, v, window), iters=3, warmup=1),
+        "library_ms": timed_ms(library, iters=10),
+        "bound_ms": max(flops / BF16_FLOP_PER_S, bytes_moved / HBM_BYTES_PER_S) * 1e3,
+        "bound_by": ("operations" if flops / BF16_FLOP_PER_S > bytes_moved / HBM_BYTES_PER_S
+                     else "bytes"),
+        "max_abs_err": err,
+        "shape": f"B={b} S={s} Hq={hq} Hkv={hkv} D={d} bf16 causal"
+                 + (f" window={window}" if window else ""),
+    }
+
+
 def check_flash(seed):
     """K3 against its plain version: the sweep of tests/test_kernels.py:22
     in f32 (the CUDA-core instance) and bf16 (the tensor-core instance),
-    then the serving shape in bf16, timed beside SDPA."""
+    at its head dims and again at 256; then the serving shapes in bf16,
+    timed beside SDPA: tinyllama's, gemma-7b's and gemma3-4b's windowed
+    prefill."""
     import torch
     import torch.nn.functional as F
 
@@ -456,77 +505,101 @@ def check_flash(seed):
     gen = torch.Generator(device="cuda").manual_seed(seed + 6)
     sweep = [(2, 128, 4, 4, 32, 0), (1, 256, 8, 2, 64, 0), (2, 96, 4, 1, 32, 0),
              (1, 256, 4, 2, 32, 64), (1, 130, 2, 2, 16, 32)]
-    for dtype in (torch.float32, torch.bfloat16):
-        name = str(dtype).split(".")[1]
-        errs = []
-        for b, s, hq, hkv, d, window in sweep:
-            q = torch.randn((b, s, hq, d), generator=gen, device="cuda").to(dtype)
-            k, v = (torch.randn((b, s, hkv, d), generator=gen, device="cuda").to(dtype)
-                    for _ in range(2))
-            out = flash_ops.flash_attention(q, k, v, window=window)
-            errs.append(_close(out, _flash_plain(q, k, v, window), ATTN_TOL[name],
-                               f"K3 {name} {(b, s, hq, hkv, d, window)}"))
-        print(f"  K3 {name}: 5 configurations of tests/test_kernels.py within "
-              f"{ATTN_TOL[name]}, max |d| {max(errs):.3g}")
+    for dims in ("its head dims", "head dim 256"):
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[1]
+            errs = []
+            for b, s, hq, hkv, d, window in sweep:
+                d = d if dims == "its head dims" else 256
+                q = torch.randn((b, s, hq, d), generator=gen, device="cuda").to(dtype)
+                k, v = (torch.randn((b, s, hkv, d), generator=gen, device="cuda").to(dtype)
+                        for _ in range(2))
+                out = flash_ops.flash_attention(q, k, v, window=window)
+                errs.append(_close(out, _flash_plain(q, k, v, window), ATTN_TOL[name],
+                                   f"K3 {name} {(b, s, hq, hkv, d, window)}"))
+            print(f"  K3 {name}: 5 configurations of tests/test_kernels.py at {dims} within "
+                  f"{ATTN_TOL[name]}, max |d| {max(errs):.3g}")
+
+    def inputs(b, s, hq, hkv, d):
+        q = torch.randn((b, s, hq, d), generator=gen, device="cuda").to(torch.bfloat16)
+        k, v = (torch.randn((b, s, hkv, d), generator=gen, device="cuda").to(torch.bfloat16)
+                for _ in range(2))
+        return q, k, v
+
+    def causal(q, k, v):
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        return lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                      enable_gqa=True)
 
     b, s, hq, hkv, d = 8, 1024, 32, 4, 64
-    q = torch.randn((b, s, hq, d), generator=gen, device="cuda").to(torch.bfloat16)
-    k, v = (torch.randn((b, s, hkv, d), generator=gen, device="cuda").to(torch.bfloat16)
-            for _ in range(2))
-    out = flash_ops.flash_attention(q, k, v)
-    err = _close(out, _flash_plain(q, k, v, 0), ATTN_TOL["bfloat16"], "K3 serving shape")
-    call = lambda: flash_ops.flash_attention(q, k, v)  # noqa: E731
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-
-    def library():
-        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
-
-    torch.testing.assert_close(library().transpose(1, 2).float(), out.float(),
-                               atol=ATTN_TOL["bfloat16"], rtol=ATTN_TOL["bfloat16"])
-    flops = 2 * b * hq * s * s * d  # causal: half of QK^T and PV over the square
-    bytes_moved = 2 * (2 * b * s * hq * d + 2 * b * s * hkv * d)
-    t = {
-        "ms": device_ms(call, "flash_attention", iters=10),
-        "call_ms": timed_ms(call, iters=10),
-        "plain_ms": timed_ms(lambda: _flash_plain(q, k, v, 0), iters=3, warmup=1),
-        "library_ms": timed_ms(library, iters=10),
-        "bound_ms": max(flops / BF16_FLOP_PER_S, bytes_moved / HBM_BYTES_PER_S) * 1e3,
-        "bound_by": ("operations" if flops / BF16_FLOP_PER_S > bytes_moved / HBM_BYTES_PER_S
-                     else "bytes"),
-        "max_abs_err": err,
-        "shape": f"B={b} S={s} Hq={hq} Hkv={hkv} D={d} bf16 causal",
-    }
-    print(f"  K3 serving shape {t['shape']}: max |d| {err:.3g} (tolerance 2e-2); "
+    q, k, v = inputs(b, s, hq, hkv, d)
+    # causal: half of QK^T and PV over the square
+    t = _flash_timing(q, k, v, 0, 2 * b * hq * s * s * d, causal(q, k, v))
+    print(f"  K3 serving shape {t['shape']}: max |d| {t['max_abs_err']:.3g} (tolerance 2e-2); "
           "SDPA agrees within 2e-2")
+    del q, k, v
+
+    b, s, hq, hkv, d = 8, 1024, 16, 16, 256  # gemma-7b's prefill, MHA
+    q, k, v = inputs(b, s, hq, hkv, d)
+    t["at_d256"] = _flash_timing(q, k, v, 0, 2 * b * hq * s * s * d, causal(q, k, v))
+    print(f"  K3 gemma-7b shape {t['at_d256']['shape']}: max |d| "
+          f"{t['at_d256']['max_abs_err']:.3g} (tolerance 2e-2); SDPA agrees within 2e-2")
+    del q, k, v
+
+    b, s, hq, hkv, d, window = 1, 1536, 8, 4, 256, 1024  # gemma3-4b's local layers
+    q, k, v = inputs(b, s, hq, hkv, d)
+    pos = torch.arange(s, device="cuda")
+    mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    keys = int(torch.clamp(pos + 1, max=window).sum())  # keys each query sees, summed
+    t["windowed"] = _flash_timing(
+        q, k, v, window, 4 * b * hq * keys * d,
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True))
+    print(f"  K3 gemma3-4b windowed shape {t['windowed']['shape']}: max |d| "
+          f"{t['windowed']['max_abs_err']:.3g} (tolerance 2e-2); SDPA with the window as a "
+          "mask agrees within 2e-2")
     return t
+
+
+def _decode_bound(lengths, hkv, g, d):
+    """(bound ms, what bounds it) of K4 in bf16 for these valid lengths."""
+    b = lengths.numel()
+    valid = int(lengths.sum())
+    bytes_moved = 2 * (2 * valid * hkv * d + 2 * b * hkv * g * d) + 4 * b
+    flops = 4 * valid * hkv * g * d
+    return (max(flops / BF16_FLOP_PER_S, bytes_moved / HBM_BYTES_PER_S) * 1e3,
+            "operations" if flops / BF16_FLOP_PER_S > bytes_moved / HBM_BYTES_PER_S
+            else "bytes")
 
 
 def check_decode(seed):
     """K4 against its plain version: the sweep of tests/test_kernels.py:65
-    in f32 and bf16, then the serving shape with mixed lengths, timed, and
-    timed again at the serving backend's bucketed capacity."""
+    in f32 and bf16, at its head dims and at 256, then the serving shape
+    with mixed lengths, timed, and timed again at the serving backend's
+    bucketed capacity; then gemma-7b's decode shape (head dim 256, MHA)."""
     import torch
-    import torch.nn.functional as F
 
     from repro_torch.kernels.decode_attention import ops as decode_ops
 
     gen = torch.Generator(device="cuda").manual_seed(seed + 7)
     sweep = [(2, 2, 4, 256, 32, 0), (3, 1, 8, 300, 64, 0), (2, 4, 1, 128, 32, 0),
              (2, 2, 2, 256, 32, 64)]
-    for dtype in (torch.float32, torch.bfloat16):
-        name = str(dtype).split(".")[1]
-        errs = []
-        for b, hkv, g, s, d, window in sweep:
-            q = torch.randn((b, 1, hkv * g, d), generator=gen, device="cuda").to(dtype)
-            k, v = (torch.randn((b, s, hkv, d), generator=gen, device="cuda").to(dtype)
-                    for _ in range(2))
-            lengths = torch.randint(max(window, 1), s + 1, (b,), generator=gen, device="cuda",
-                                    dtype=torch.int32)
-            out = decode_ops.decode_attention(q, k, v, lengths, window=window)
-            errs.append(_close(out, _decode_plain(q, k, v, lengths, window), ATTN_TOL[name],
-                               f"K4 {name} {(b, hkv, g, s, d, window)}"))
-        print(f"  K4 {name}: 4 configurations of tests/test_kernels.py within "
-              f"{ATTN_TOL[name]}, max |d| {max(errs):.3g}")
+    for dims in ("its head dims", "head dim 256"):
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[1]
+            errs = []
+            for b, hkv, g, s, d, window in sweep:
+                d = d if dims == "its head dims" else 256
+                q = torch.randn((b, 1, hkv * g, d), generator=gen, device="cuda").to(dtype)
+                k, v = (torch.randn((b, s, hkv, d), generator=gen, device="cuda").to(dtype)
+                        for _ in range(2))
+                lengths = torch.randint(max(window, 1), s + 1, (b,), generator=gen,
+                                        device="cuda", dtype=torch.int32)
+                out = decode_ops.decode_attention(q, k, v, lengths, window=window)
+                errs.append(_close(out, _decode_plain(q, k, v, lengths, window),
+                                   ATTN_TOL[name], f"K4 {name} {(b, hkv, g, s, d, window)}"))
+            print(f"  K4 {name}: 4 configurations of tests/test_kernels.py at {dims} within "
+                  f"{ATTN_TOL[name]}, max |d| {max(errs):.3g}")
 
     b, hkv, g, d, s = 8, 4, 8, 64, 1040
     q = torch.randn((b, 1, hkv * g, d), generator=gen, device="cuda").to(torch.bfloat16)
@@ -534,21 +607,7 @@ def check_decode(seed):
             for _ in range(2))
     lengths = torch.tensor([1040, 129, 700, 1024, 300, 1039, 512, 890], dtype=torch.int32,
                            device="cuda")
-    out = decode_ops.decode_attention(q, k, v, lengths)
-    err = _close(out, _decode_plain(q, k, v, lengths, 0), ATTN_TOL["bfloat16"],
-                 "K4 serving shape")
     call = lambda: decode_ops.decode_attention(q, k, v, lengths)  # noqa: E731
-    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-    mask = (torch.arange(s, device="cuda")[None, :] < lengths[:, None])[:, None, None, :]
-
-    def library():
-        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)
-
-    torch.testing.assert_close(library().transpose(1, 2).float(), out.float(),
-                               atol=ATTN_TOL["bfloat16"], rtol=ATTN_TOL["bfloat16"])
-    valid = int(lengths.sum())
-    bytes_moved = 2 * (2 * valid * hkv * d + 2 * b * hkv * g * d) + 4 * b
-    flops = 4 * valid * hkv * g * d
     # The same call at the serving backend's bucketed capacity (1040 rounded
     # up to a multiple of 256): the blocks split the valid lengths, so it
     # must cost no more.  Each capacity timed twice, in turns (1040, 1280,
@@ -573,20 +632,54 @@ def check_decode(seed):
     # 5 %: the spread of back-to-back profiler means of one few-microsecond kernel.
     require(ms_cap <= 1.05 * ms, f"K4 costs more at capacity {cap} ({ms_cap:.6f} ms) than at "
             f"{s} ({ms:.6f} ms)")
+    mask = (torch.arange(s, device="cuda")[None, :] < lengths[:, None])[:, None, None, :]
+    t = _decode_timing(q, k, v, lengths, mask, "serving shape", ms=ms)
+    t.update(ms_at_capacity_1280=ms_cap, ms_one_position=ms_one)
+    del q, k, v, kb, vb
+
+    # gemma-7b's decode: 16 KV heads of 256, one query head each, the same lengths.
+    hkv, g, d = 16, 1, 256
+    q = torch.randn((b, 1, hkv * g, d), generator=gen, device="cuda").to(torch.bfloat16)
+    k, v = (torch.randn((b, s, hkv, d), generator=gen, device="cuda").to(torch.bfloat16)
+            for _ in range(2))
+    t["at_d256"] = _decode_timing(q, k, v, lengths, mask, "gemma-7b shape")
+    return t
+
+
+def _decode_timing(q, k, v, lengths, mask, what, ms=None):
+    """K4 in bf16 at one shape, checked against its plain version and SDPA
+    (``mask`` the valid positions): device time (``ms`` when the caller
+    measured it), wrapper time, plain time, SDPA time, and the bound for
+    this run's lengths."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention import ops as decode_ops
+
+    b, _, hq, d = q.shape
+    s, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    out = decode_ops.decode_attention(q, k, v, lengths)
+    err = _close(out, _decode_plain(q, k, v, lengths, 0), ATTN_TOL["bfloat16"], f"K4 {what}")
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+
+    def library():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=g > 1)
+
+    torch.testing.assert_close(library().transpose(1, 2).float(), out.float(),
+                               atol=ATTN_TOL["bfloat16"], rtol=ATTN_TOL["bfloat16"])
+    call = lambda: decode_ops.decode_attention(q, k, v, lengths)  # noqa: E731
+    bound_ms, bound_by = _decode_bound(lengths, hkv, g, d)
     t = {
-        "ms": ms,
-        "ms_at_capacity_1280": ms_cap,
-        "ms_one_position": ms_one,
+        "ms": ms if ms is not None
+        else device_ms(call, "decode_", iters=50, parts=("decode_",))[0],
         "call_ms": timed_ms(call, iters=50),
         "plain_ms": timed_ms(lambda: _decode_plain(q, k, v, lengths, 0), iters=10),
         "library_ms": timed_ms(library, iters=50),
-        "bound_ms": max(flops / BF16_FLOP_PER_S, bytes_moved / HBM_BYTES_PER_S) * 1e3,
-        "bound_by": ("operations" if flops / BF16_FLOP_PER_S > bytes_moved / HBM_BYTES_PER_S
-                     else "bytes"),
-        "max_abs_err": err,
+        "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err,
         "shape": f"B={b} Hkv={hkv} G={g} D={d} S={s} bf16 lengths={lengths.tolist()}",
     }
-    print(f"  K4 serving shape {t['shape']}: max |d| {err:.3g} (tolerance 2e-2); "
+    print(f"  K4 {what} {t['shape']}: max |d| {err:.3g} (tolerance 2e-2); "
           "SDPA agrees within 2e-2")
     return t
 
@@ -712,15 +805,16 @@ def check_ssd(seed):
     return t
 
 
-def check_model_card_vs_host(seed, arch, seq, caches):
-    """A 2-layer float32 model at ``arch``'s widths, one set of weights:
-    prefill of 2 x ``seq`` tokens and 4 decode steps on the card, eager
-    (the kernels) and replayed from a CUDA graph (``DecodeGraph``: one
-    eager step, a capture, replays), against the host (plain versions),
-    every step fed the host's token: logits and the last layer's
-    ``caches``.  Tolerance 1e-3 against the host: float32 sums over the
-    model's widths taken in other orders, two layers deep; 1e-5 between
-    graph and eager, which run the same kernels on the same inputs."""
+def check_model_card_vs_host(seed, arch, seq, caches, layers=2, compare=(1,)):
+    """A float32 model of ``layers`` layers at ``arch``'s widths, one set of
+    weights: prefill of 2 x ``seq`` tokens and 4 decode steps on the card,
+    eager (the kernels) and replayed from a CUDA graph (``DecodeGraph``:
+    one eager step, a capture, replays), against the host (plain
+    versions), every step fed the host's token: logits and the ``caches``
+    of the layers in ``compare``.  Tolerance 1e-3 against the host:
+    float32 sums over the model's widths taken in other orders, a few
+    layers deep; 1e-5 between graph and eager, which run the same kernels
+    on the same inputs."""
     import dataclasses
 
     import torch
@@ -731,7 +825,7 @@ def check_model_card_vs_host(seed, arch, seq, caches):
 
     tol, graph_tol = 1e-3, 1e-5
     require(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on for float32 matmuls")
-    cfg = dataclasses.replace(ARCHS[arch], num_layers=2, dtype="float32")
+    cfg = dataclasses.replace(ARCHS[arch], num_layers=layers, dtype="float32")
     lm = LM(cfg)
     card = lm.init(seed=seed, device="cuda")
     host = LM(cfg).init(seed=seed, device="cuda").to("cpu")
@@ -765,19 +859,45 @@ def check_model_card_vs_host(seed, arch, seq, caches):
             graph.step()
             lc, cc = lm.decode_step(card, cc, tok.cuda())
             lh, ch = lm.decode_step(host, ch, tok)
-    for name in caches:
-        errs.append(_close(cc["layers"][1][name].cpu(), ch["layers"][1][name], tol,
-                           f"cache {name}"))
-        graph_errs.append(_close(graph.cache["layers"][1][name], cc["layers"][1][name],
-                                 graph_tol, f"graphed cache {name}"))
+    for i in compare:
+        for name in caches:
+            errs.append(_close(cc["layers"][i][name].cpu(), ch["layers"][i][name], tol,
+                               f"layer {i} cache {name}"))
+            graph_errs.append(_close(graph.cache["layers"][i][name], cc["layers"][i][name],
+                                     graph_tol, f"graphed layer {i} cache {name}"))
     require(graph.captures == 1 and graph.replays == steps - 1,
             f"graphed decode: {graph.captures} captures, {graph.replays} replays")
-    print(f"  {arch} widths, 2 layers, f32: prefill of 2 x {seq} tokens and {steps} decode "
-          f"steps, logits and caches {caches} within {tol} (max |d| {max(errs):.3g}); greedy "
+    shapes = {i: tuple(cc["layers"][i][caches[0]].shape) for i in compare}
+    print(f"  {arch} widths, {layers} layers, f32: prefill of 2 x {seq} tokens and {steps} "
+          f"decode steps, logits and the caches {caches} of layers {shapes} within {tol} "
+          f"(max |d| {max(errs):.3g}); greedy "
           f"tokens equal on the {checked} of {2 * (steps + 1)} picks with a top-2 margin over "
           f"{tol}; the graphed decode (1 eager step, 1 capture, {graph.replays} replays) "
           f"within {graph_tol} of the eager one (max |d| {max(graph_errs):.3g}), same tokens")
     del card, host, graph
+
+
+# Kernel kinds of a trace, by a substring of the kernel's name.
+KERNEL_KINDS = (
+    ("ssd", ("ssd_chunk_scan",)), ("flash_attention", ("flash_attention",)),
+    ("decode_attention", ("decode_",)), ("knn", ("knn_",)), ("utility", ("utility_",)),
+    ("matmul", ("nvjet", "gemm", "cutlass", "xmma")), ("copy", ("memcpy", "memset")),
+)
+
+
+def device_seconds_by_kind(events) -> dict:
+    """{kind: device seconds} of a trace's CUDA kernels (``KERNEL_KINDS``,
+    else "other")."""
+    from torch.autograd import DeviceType
+
+    out = {}
+    for e in events:
+        if e.device_type != DeviceType.CUDA:
+            continue
+        low = e.name.lower()
+        kind = next((k for k, keys in KERNEL_KINDS if any(key in low for key in keys)), "other")
+        out[kind] = out.get(kind, 0.0) + e.time_range.elapsed_us() / 1e6
+    return out
 
 
 def _two_class_set(rng, n, dim, sep):
@@ -791,11 +911,12 @@ def _two_class_set(rng, n, dim, sep):
 
 
 def serve_main_path(args):
-    """Phase 9: ``EdgeServer`` serving one application from mamba2-130m and
-    tinyllama-1.1b at full width, then the same traffic on each family
-    alone.  Every launch count is set to 0 just before each run and read
-    just after; each run's launches must be exactly what its batches need.
-    Returns the launches of the two-family run, the main path."""
+    """Phase 9: ``EdgeServer`` serving one application from mamba2-130m,
+    tinyllama-1.1b and gemma-7b at full width, then the same traffic on
+    each family alone.  Every launch count is set to 0 just before each
+    run and read just after; each run's launches must be exactly what its
+    batches need.  Returns the launches of the three-family run, the main
+    path."""
     import numpy as np
     import torch
     from torch.autograd import DeviceType
@@ -810,16 +931,17 @@ def serve_main_path(args):
     from repro_torch.serving.runtime import LMExecutor
     from repro_torch.serving.server import EdgeServer
 
-    mamba, llama = "mamba2-130m", "tinyllama-1.1b"
-    variants = {mamba: (ARCHS[mamba], 0), llama: (ARCHS[llama], 1)}
+    mamba, llama, gemma = "mamba2-130m", "tinyllama-1.1b", "gemma-7b"
+    variants = {mamba: (ARCHS[mamba], 0), llama: (ARCHS[llama], 1), gemma: (ARCHS[gemma], 2)}
     # Per-class recalls: each family the more accurate on one of the two
     # classes, so SneakPeek's k-NN evidence (the data-aware selection its
     # scheduler exists for) sends requests to both.  With the recalls of
     # examples/edge_serving.py ([0.72, 0.70] and [0.84, 0.82]) tinyllama-1.1b
     # wins on both classes: with decode compiled it meets the deadlines and
     # serves every request; an eager decode had split the traffic only
-    # because every choice missed its deadline.
-    recalls = {mamba: [0.88, 0.70], llama: [0.78, 0.86]}
+    # because every choice missed its deadline.  gemma-7b keeps the recalls
+    # of examples/edge_serving.py.
+    recalls = {mamba: [0.88, 0.70], llama: [0.78, 0.86], gemma: [0.94, 0.92]}
     new_tokens = 16
     # Prompt tokens below the smaller vocabulary (tinyllama's 32,000), so
     # every prompt is valid for both families.
@@ -834,20 +956,26 @@ def serve_main_path(args):
     # A key's first batch pays one-time costs (library initialisation,
     # lazily loaded kernels, the capture of its decode graph): run the
     # warm-up batches once, then fit the profiles on two more rounds, whose
-    # decode steps all replay graphs.
+    # decode steps all replay graphs.  The larger batch comes first, so the
+    # cache that a (variant, capacity)'s graphs share is made at 8 rows at
+    # once and the batch of 1 never retires a graph.
     backend = ProfiledBackend(variants, new_tokens=new_tokens, device="cuda")
     step_s = {}  # (model, batch size) -> decode seconds per step of the replayed rounds
     for rnd in range(3):
         if rnd == 1:
             backend.clear_observations()
+            captured = backend.graph_stats()["captures"]
         timed = []
         for name in variants:
-            for bsz in (1, 8):
+            for bsz in (8, 1):
                 r = backend.run_batch(name, warm[:bsz], list(range(bsz)))
                 timed.append(f"({name}, {bsz}, {r.prefill_s:.4f}, {r.decode_s:.4f})")
                 if rnd:
                     step_s.setdefault((name, bsz), []).append(r.decode_s / (new_tokens - 1))
         print(f"    warm-up round {rnd + 1} (model, size, prefill s, decode s): " + " ".join(timed))
+    recaptured = backend.graph_stats()["captures"] - captured
+    require(recaptured == 0, f"the two fitted rounds captured {recaptured} decode graphs; "
+            "their steps must all replay")
     step_ms = {key: 1e3 * sum(v) / len(v) for key, v in step_s.items()}
     faster = all(step_ms[(mamba, bsz)] < step_ms[(llama, bsz)] for bsz in (1, 8))
     print("    P4: decode ms per step, replayed graphs, 512-token prompts: " + ", ".join(
@@ -882,6 +1010,10 @@ def serve_main_path(args):
                      if e.device_type == DeviceType.CUDA]
             print(f"    {name}, {what}: {len(spans)} kernels, {sum(spans) / 1e3:.4f} ms of "
                   f"device time in {wall * 1e3:.4f} ms under torch.profiler")
+            if what.startswith("one replayed"):
+                kinds = device_seconds_by_kind(prof.events())
+                print("      device ms by kind: " + ", ".join(
+                    f"{k} {v * 1e3:.4f}" for k, v in sorted(kinds.items(), key=lambda x: -x[1])))
         print(f"    {name}: all its weights read once take "
               f"{backend.model_bytes(name) / HBM_BYTES_PER_S * 1e3:.4f} ms at "
               f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s")
@@ -911,23 +1043,29 @@ def serve_main_path(args):
         torch.cuda.synchronize()
         return outs, stats, time.perf_counter() - t
 
+    def layer_count(cfg, mixers):
+        return sum(cfg.layer_kind(i).partition(":")[0] in mixers for i in range(cfg.num_layers))
+
+    ssd_layers = {name: layer_count(cfg, ("ssd",)) for name, (cfg, _) in variants.items()}
+    attn_layers = {name: layer_count(cfg, ("attn", "local")) for name, (cfg, _) in variants.items()}
     layers = {name: cfg.num_layers for name, (cfg, _) in variants.items()}
 
     def counted(label, names, reqs):
         """Serve; check the outputs and that this run launched K5 once per
-        layer of every mamba2 batch's prefill, K3 once per layer of every
-        tinyllama batch's prefill and K4 once per layer of each of its
-        decode steps.  Returns the run's requests per model and its
+        SSD layer of every batch's prefill, K3 once per attention layer of
+        every batch's prefill and K4 once per attention layer of each of
+        its decode steps.  Returns the run's requests per model and its
         launches."""
         torch.cuda.synchronize()
         graphs0 = backend.graph_stats()
+        torch.cuda.reset_peak_memory_stats()
         kernels.reset_launch_counts()
         outs, stats, wall = serve(names, reqs)
         launches = kernels.launch_counts()
         graphs = {k: v - graphs0[k] for k, v in backend.graph_stats().items()}
         reports = [r for o in outs for r in (o["reports"] or [])]
-        want_ssd = sum(layers[mamba] for r in reports if r.model == mamba)
-        want_flash = sum(layers[llama] for r in reports if r.model == llama)
+        want_ssd = sum(ssd_layers[r.model] for r in reports)
+        want_flash = sum(attn_layers[r.model] for r in reports)
         want_decode = (new_tokens - 1) * want_flash
         prefill_s = sum(r.prefill_s for r in reports)
         decode_s = sum(r.decode_s for r in reports)
@@ -944,6 +1082,9 @@ def serve_main_path(args):
             f"({r.model}, {r.batch_size}, {r.prefill_s:.4f}, {r.decode_s:.4f})"
             for r in reports))
         print(f"    launches: {launches}")
+        print(f"    peak device memory {torch.cuda.max_memory_allocated() / 1e9:.3f} GB "
+              f"(torch.cuda.max_memory_allocated) of "
+              f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.3f} GB")
         print(f"    decode graphs: {graphs['captures']} captured in {graphs['capture_s']:.6f} s, "
               f"{graphs['replays']} replays")
         for name in names:
@@ -969,22 +1110,28 @@ def serve_main_path(args):
         require(launches.get("utility_scores", 0) > 0, "serving launched no utility kernel")
         return by_model, launches
 
-    _, launches = counted("two families", [mamba, llama], trace(0))
+    by_model, launches = counted("three families", list(variants), trace(0))
+    print("    three-family split (requests per model): "
+          + ", ".join(f"{name} {n}" for name, n in by_model.items()))
     for name in ("ssd", "flash_attention", "decode_attention", "knn_topk", "utility_scores"):
-        require(launches.get(name, 0) > 0, f"the two-family run launched no {name} kernel")
+        require(launches.get(name, 0) > 0, f"the three-family run launched no {name} kernel")
     # The policy may route every request to one family; the same traffic
-    # on each family alone sends every batch through its kernels.
-    for rid0, name in ((20_000, mamba), (30_000, llama)):
-        by_model, _ = counted(f"{name} ({layers[name]} layers) the only variant", [name],
-                              trace(rid0))
+    # on each family alone sends every batch through its kernels (gemma-7b
+    # alone: every K3 and K4 launch at head dim 256).
+    for rid0, name in ((20_000, mamba), (30_000, llama), (40_000, gemma)):
+        by_model, alone = counted(f"{name} ({layers[name]} layers) the only variant", [name],
+                                  trace(rid0))
         require(by_model[name] == args.serve_requests,
                 f"{name} alone did not serve every request")
+        if name == gemma:
+            require(alone.get("flash_attention", 0) > 0 and alone.get("decode_attention", 0) > 0,
+                    "gemma-7b alone launched no K3 or K4 at head dim 256")
 
-    # The two-family traffic again under the profiler: the card's busy share.
+    # The three-family traffic again under the profiler: the card's busy share.
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        _, _, traced_wall = serve([mamba, llama], trace(10_000))
+        _, _, traced_wall = serve(list(variants), trace(10_000))
     traced_k4 = kernels.launch_counts().get("decode_attention", 0)
     spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
                    if e.device_type == DeviceType.CUDA)
@@ -995,29 +1142,19 @@ def serve_main_path(args):
             busy_us += hi - lo
         end = max(end, hi)
     busy = busy_us / 1e6 / traced_wall
-    by_kind, by_name = {}, {}
+    by_kind = device_seconds_by_kind(prof.events())
+    by_name = {}
     for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        name = e.name
-        low = name.lower()
-        kind_ = next((k for k, keys in (
-            ("ssd", ("ssd_chunk_scan",)),
-            ("flash_attention", ("flash_attention",)), ("decode_attention", ("decode_",)),
-            ("knn", ("knn_",)), ("utility", ("utility_",)),
-            ("matmul", ("nvjet", "gemm", "cutlass", "xmma")), ("copy", ("memcpy", "memset")),
-        ) if any(key in low for key in keys)), "other")
-        us = e.time_range.elapsed_us()
-        by_kind[kind_] = by_kind.get(kind_, 0.0) + us / 1e6
-        by_name[name[:60]] = by_name.get(name[:60], 0.0) + us / 1e6
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name[:60]] = by_name.get(e.name[:60], 0.0) + e.time_range.elapsed_us() / 1e6
     seen_k4 = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA
                   and "decode_" in e.name)
     if traced_k4 and not seen_k4:
-        print(f"    two families under torch.profiler: the trace holds none of the {traced_k4} "
+        print(f"    three families under torch.profiler: the trace holds none of the {traced_k4} "
               "K4 kernels the card ran: kernels of CUDA graph replays are not traced, so no "
               "busy share or device seconds by kind are given for this run")
     else:  # the profiler may drop a few events of a long trace: say how many
-        print(f"    two families under torch.profiler: wall {traced_wall:.3f} s, card busy "
+        print(f"    three families under torch.profiler: wall {traced_wall:.3f} s, card busy "
               f"{busy_us / 1e6:.6f} s ({100 * busy:.2f} %); device seconds by kind: "
               + ", ".join(f"{k} {v:.6f}"
                           for k, v in sorted(by_kind.items(), key=lambda x: -x[1]))
@@ -1075,6 +1212,14 @@ def main(argv=None) -> int:
             for line in log.read_text().splitlines():
                 if "registers" in line or "spill" in line:
                     print(f"    ptxas {name}: {line.strip()}")
+    for name, keys in D256_INSTANCES.items():
+        found = ptxas_registers(name, keys)
+        require(sorted(found) == sorted(keys), f"ptxas reported no {set(keys) - set(found)}")
+        for key, line in found.items():
+            print(f"    ptxas head dim 256, {key}: {line}")
+    k3_bf16 = ptxas_registers("flash_attention", D256_INSTANCES["flash_attention"][:1])
+    require(" 0 bytes spill stores" in next(iter(k3_bf16.values())),
+            "K3's bf16 instance at head dim 256 spills registers")
 
     t0 = time.perf_counter()
     specs = list(APP_SPECS.values())
@@ -1158,7 +1303,9 @@ def main(argv=None) -> int:
     flash_t = check_flash(args.seed)
     print("[7] flash-decode kernel (K4) against its plain version")
     decode_t = check_decode(args.seed)
-    for t, name in ((flash_t, "flash_attention"), (decode_t, "decode_attention")):
+    for t, name in ((flash_t, "flash_attention"), (flash_t["at_d256"], "flash_attention"),
+                    (flash_t["windowed"], "flash_attention"), (decode_t, "decode_attention"),
+                    (decode_t["at_d256"], "decode_attention")):
         print(f"    {name} at {t['shape']}: kernel {t['ms']:.6f} ms on the device, "
               f"{t['call_ms']:.6f} ms per wrapper call back to back, plain "
               f"{t['plain_ms']:.6f} ms, SDPA {t['library_ms']:.6f} ms, bound "
@@ -1175,8 +1322,15 @@ def main(argv=None) -> int:
     print("[8] whole models, card against host")
     check_model_card_vs_host(args.seed, "tinyllama-1.1b", 77, ("k", "v"))
     check_model_card_vs_host(args.seed, "mamba2-130m", 200, ("conv", "state"))
+    check_model_card_vs_host(args.seed, "gemma-7b", 77, ("k", "v"))
+    # One period of gemma3-4b (5 local layers, window 1024, then 1 global) on
+    # prompts longer than the window, so prefill packs a wrapped ring: the
+    # ring of layer 0 and the full cache of layer 5.
+    check_model_card_vs_host(args.seed, "gemma3-4b", 1030, ("k", "v"), layers=6, compare=(0, 5))
+    print(f"    phases 1-8 {time.perf_counter() - t_start:.1f} s")
     print(f"[9] serving main path: EdgeServer, SneakPeek, {args.serve_requests} requests on "
-          "mamba2-130m (24 layers) and tinyllama-1.1b (22 layers), bf16, then on each alone")
+          "mamba2-130m (24 layers), tinyllama-1.1b (22 layers) and gemma-7b (28 layers), "
+          "bf16, then on each alone")
     serve_launches = serve_main_path(args)
 
     rows = [
@@ -1193,7 +1347,8 @@ def main(argv=None) -> int:
          "replaces": f"src/repro/kernels/{replaces}", "launches": counts[name],
          "max_abs_err": t["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
          "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-         "shape": t["shape"], **({"stage_ms": t["stage_ms"]} if "stage_ms" in t else {})}
+         "shape": t["shape"],
+         **{key: t[key] for key in ("stage_ms", "at_d256", "windowed") if key in t}}
         for name, source, replaces, counts, t in rows
     ]}
     print(f"    total {time.perf_counter() - t_start:.1f} s")

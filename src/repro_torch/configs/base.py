@@ -5,8 +5,9 @@ that ``param_count`` (and through it ``serving.backends.weight_bytes``,
 which sizes the ``SwapManager``) gives the reference's numbers.  Layer
 patterns are repeating periods of "mixer:ffn" strings: mixer in {attn,
 local, rglru, ssd}, ffn in {mlp, moe, none}.  The port's models run the
-``attn:mlp`` kind (``models/blocks.py``); the registry holds only the
-configs the port can run.
+``attn``, ``local`` and ``ssd`` mixers with the ``mlp`` and ``none``
+FFNs (``models/blocks.py``); the registry holds only the configs the
+port can run.
 """
 from __future__ import annotations
 

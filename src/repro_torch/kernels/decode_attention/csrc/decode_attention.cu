@@ -31,10 +31,13 @@
 //   * Parallel scores.  A row of K or V is D * sizeof(T) bytes; LPR lanes
 //     read it with one 16-byte load each (bf16, D = 64: 8 lanes, so a warp
 //     covers 4 rows per load), and each lane group keeps kRows rows' loads
-//     in flight.  The group's lanes hold their slice of up to 8 query
-//     heads in registers, reduce each dot product with shuffles across the
-//     lanes of the row, run the online softmax per head in registers and
-//     fold P.V into per-lane fp32 accumulators.  More than 8 heads per KV
+//     in flight.  A row of more than 32 pieces (f32, D = 256: 64) takes PL
+//     pieces per lane, pieces l, l + LPR, ..., so a row still fits a warp
+//     and each load of the warp reads 512 contiguous bytes.  The group's
+//     lanes hold their slice of up to 8 query heads in registers, reduce
+//     each dot product with shuffles across the lanes of the row, run the
+//     online softmax per head in registers and fold P.V into per-lane fp32
+//     accumulators.  More than 8 heads per KV
 //     head (G <= 32) take several passes over the slice.
 //   * One merge.  Every lane group leaves its partial (m, l, acc) in shared
 //     memory and the block merges them once, per (head, column), with the
@@ -106,10 +109,14 @@ __global__ void __launch_bounds__(kThreads, 2)
 decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ kc,
                         const T* __restrict__ vc, const int32_t* __restrict__ lengths,
                         T* __restrict__ o, int S, int Hkv, int G, int window, float scale) {
-  constexpr int E = 16 / sizeof(T);  // elements of a row per lane
-  constexpr int LPR = D / E;         // lanes per row
-  constexpr int NG = kThreads / LPR;  // lane groups per block
-  static_assert(LPR >= 1 && LPR <= 32 && 32 % LPR == 0, "a row must fit a warp");
+  constexpr int E = 16 / sizeof(T);              // elements of a 16-byte piece
+  constexpr int PIECES = D / E;                   // pieces of a row
+  constexpr int PL = PIECES > 32 ? PIECES / 32 : 1;  // pieces per lane
+  constexpr int LPR = PIECES / PL;                // lanes per row
+  constexpr int EL = E * PL;                      // elements of a row per lane
+  constexpr int NG = kThreads / LPR;              // lane groups per block
+  static_assert(LPR >= 1 && LPR <= 32 && 32 % LPR == 0 && LPR * PL == PIECES,
+                "a row must fit a warp");
 
   __shared__ float g_m[NG][kHeads], g_l[NG][kHeads], g_c[NG][kHeads];
   __shared__ __align__(16) float g_acc[NG][kHeads][D];
@@ -123,7 +130,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ kc,
   const int b = blockIdx.z;
   const int tid = threadIdx.x;
   const int grp = tid / LPR;
-  const int e0 = (tid % LPR) * E;
+  const int e0 = (tid % LPR) * E;  // piece p of the lane starts at e0 + p * LPR * E
   const int Hq = Hkv * G;
 
   const int len = min(max(lengths[b], 0), S);
@@ -139,47 +146,62 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ kc,
 
   for (int g0 = 0; g0 < G; g0 += kHeads) {
     const int gn = min(kHeads, G - g0);
-    float qf[kHeads][E];
-    float m[kHeads], l[kHeads], acc[kHeads][E];
+    float qf[kHeads][EL];
+    float m[kHeads], l[kHeads], acc[kHeads][EL];
 #pragma unroll
     for (int h = 0; h < kHeads; ++h) {
-      if (h < gn) {
-        unpack(load16(q + (q_row0 + g0 + h) * D + e0), qf[h], T());
-      } else {
 #pragma unroll
-        for (int e = 0; e < E; ++e) qf[h][e] = 0.0f;
+      for (int p = 0; p < PL; ++p) {
+        float part[E];
+        if (h < gn) {
+          unpack(load16(q + (q_row0 + g0 + h) * D + e0 + p * LPR * E), part, T());
+        } else {
+#pragma unroll
+          for (int e = 0; e < E; ++e) part[e] = 0.0f;
+        }
+#pragma unroll
+        for (int e = 0; e < E; ++e) qf[h][p * E + e] = part[e];
       }
       m[h] = kNeg;
       l[h] = 0.0f;
 #pragma unroll
-      for (int e = 0; e < E; ++e) acc[h][e] = 0.0f;
+      for (int e = 0; e < EL; ++e) acc[h][e] = 0.0f;
     }
 
     for (int base = rb; base < re; base += NG * kRows) {
-      uint4 kr[kRows], vr[kRows];
+      uint4 kr[kRows][PL], vr[kRows][PL];
       bool ok[kRows];
 #pragma unroll
       for (int i = 0; i < kRows; ++i) {
         const int r = base + grp + i * NG;
         ok[i] = r < re;
-        if (ok[i]) {
-          kr[i] = load16(kbase + (size_t)r * row_stride);
-          vr[i] = load16(vbase + (size_t)r * row_stride);
-        } else {
-          kr[i] = make_uint4(0u, 0u, 0u, 0u);
-          vr[i] = kr[i];
+#pragma unroll
+        for (int p = 0; p < PL; ++p) {
+          if (ok[i]) {
+            kr[i][p] = load16(kbase + (size_t)r * row_stride + p * LPR * E);
+            vr[i][p] = load16(vbase + (size_t)r * row_stride + p * LPR * E);
+          } else {
+            kr[i][p] = make_uint4(0u, 0u, 0u, 0u);
+            vr[i][p] = kr[i][p];
+          }
         }
       }
       float s[kRows][kHeads];
 #pragma unroll
       for (int i = 0; i < kRows; ++i) {
-        float kf[E];
-        unpack(kr[i], kf, T());
+        float kf[EL];
+#pragma unroll
+        for (int p = 0; p < PL; ++p) {
+          float part[E];
+          unpack(kr[i][p], part, T());
+#pragma unroll
+          for (int e = 0; e < E; ++e) kf[p * E + e] = part[e];
+        }
 #pragma unroll
         for (int h = 0; h < kHeads; ++h) {
           float dot = 0.0f;
 #pragma unroll
-          for (int e = 0; e < E; ++e) dot = fmaf(qf[h][e], kf[e], dot);
+          for (int e = 0; e < EL; ++e) dot = fmaf(qf[h][e], kf[e], dot);
 #pragma unroll
           for (int off = LPR / 2; off > 0; off >>= 1)
             dot += __shfl_xor_sync(0xffffffffu, dot, off);
@@ -195,20 +217,26 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ kc,
         const float alpha = __expf(m[h] - m_new);
         l[h] *= alpha;
 #pragma unroll
-        for (int e = 0; e < E; ++e) acc[h][e] *= alpha;
+        for (int e = 0; e < EL; ++e) acc[h][e] *= alpha;
         m[h] = m_new;
       }
 #pragma unroll
       for (int i = 0; i < kRows; ++i) {
-        float vf[E];
-        unpack(vr[i], vf, T());
+        float vf[EL];
+#pragma unroll
+        for (int p = 0; p < PL; ++p) {
+          float part[E];
+          unpack(vr[i][p], part, T());
+#pragma unroll
+          for (int e = 0; e < E; ++e) vf[p * E + e] = part[e];
+        }
 #pragma unroll
         for (int h = 0; h < kHeads; ++h) {
           const float p = ok[i] ? __expf(s[i][h] - m[h]) : 0.0f;
           l[h] += p;
           const float pr = round_p(p, T());
 #pragma unroll
-          for (int e = 0; e < E; ++e) acc[h][e] = fmaf(pr, vf[e], acc[h][e]);
+          for (int e = 0; e < EL; ++e) acc[h][e] = fmaf(pr, vf[e], acc[h][e]);
         }
       }
     }
@@ -225,9 +253,12 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ kc,
 #pragma unroll
     for (int h = 0; h < kHeads; ++h) {
 #pragma unroll
-      for (int e = 0; e < E; e += 4)
-        *reinterpret_cast<float4*>(&g_acc[grp][h][e0 + e]) =
-            make_float4(acc[h][e], acc[h][e + 1], acc[h][e + 2], acc[h][e + 3]);
+      for (int p = 0; p < PL; ++p)
+#pragma unroll
+        for (int e = 0; e < E; e += 4)
+          *reinterpret_cast<float4*>(&g_acc[grp][h][e0 + p * LPR * E + e]) =
+              make_float4(acc[h][p * E + e], acc[h][p * E + e + 1], acc[h][p * E + e + 2],
+                          acc[h][p * E + e + 3]);
     }
     __syncthreads();
     for (int idx = tid; idx < NG * kHeads; idx += kThreads) {
@@ -305,6 +336,7 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, const int32_t*
     case 32: return launch<T, 32>(q, k, v, lengths, o, B, S, Hkv, G, window, scale, splits, s);
     case 64: return launch<T, 64>(q, k, v, lengths, o, B, S, Hkv, G, window, scale, splits, s);
     case 128: return launch<T, 128>(q, k, v, lengths, o, B, S, Hkv, G, window, scale, splits, s);
+    case 256: return launch<T, 256>(q, k, v, lengths, o, B, S, Hkv, G, window, scale, splits, s);
     default: return cudaErrorInvalidValue;
   }
 }

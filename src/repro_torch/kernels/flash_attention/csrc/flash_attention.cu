@@ -33,13 +33,19 @@
 //     would hold G output accumulators in registers or issue G times fewer
 //     blocks.  Query tiles are issued last-first, so the longest causal
 //     rows start first;
-//   - Q is loaded once (cp.async, then ldmatrix) and stays in registers as
-//     the A fragments of mma.sync.m16n8k16 (bf16 in, fp32 accumulate);
-//   - K and V tiles of 64 keys go through a ring of two shared-memory
+//   - Q is loaded once (cp.async) into a shared tile that stays resident.
+//     For D <= 128 it is read once more (ldmatrix) into registers, where it
+//     stays as the A fragments of mma.sync.m16n8k16 (bf16 in, fp32
+//     accumulate).  At D = 256 those fragments would take 64 registers
+//     beside the output accumulator's 128, so each k-step re-reads its
+//     A fragment from the shared tile with ldmatrix instead;
+//   - K and V tiles of BK keys go through a ring of two shared-memory
 //     stages filled by cp.async (16-byte copies, zero-filled past Skv), so
 //     the next tile's load overlaps this tile's products; rows are padded
 //     by 16 bytes, so the eight rows an ldmatrix reads fall in eight
-//     distinct bank groups;
+//     distinct bank groups.  BK is 64 for D <= 128; at D = 256 it is 32,
+//     which keeps the score accumulator at 16 registers and shared memory
+//     at 101,376 B, so two blocks (8 warps) share an SM;
 //   - S = Q.K^T with ldmatrix on K; the online softmax stays in registers:
 //     the row max is reduced over the quad of lanes that share a row of the
 //     m16n8 accumulator, the row sum is kept per lane and reduced once at
@@ -54,7 +60,8 @@
 //   head, batch row), q, K and V staged in shared memory as fp32, a 4 x 4
 //   register tile of the score block per thread, the online softmax
 //   reduced over the 16 threads of a row with warp shuffles.  The models'
-//   f32 paths and the f32 tests take it.
+//   f32 paths and the f32 tests take it.  At D = 256 its tiles take
+//   217,600 B of shared memory, one block per SM.
 //
 // Measured by chip_smoke.py at the serving shape under torch.profiler
 // (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md): 0.217-0.218 ms, 6.3 times
@@ -253,16 +260,19 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int
 // ---------------------------------------------------- bf16 tensor-core instance
 
 constexpr int kTcBQ = 64;                     // query rows per block, 16 per warp
-constexpr int kTcBK = 64;                     // keys per K/V tile
 constexpr int kTcThreads = 128;               // 4 warps
 constexpr int kTcStages = 2;                  // K/V ring depth
+
+// Keys per K/V tile: 64, or 32 at D = 256 (see the header).
+template <int D>
+__host__ __device__ constexpr int tc_keys() { return D <= 128 ? 64 : 32; }
 
 template <int D>
 __host__ __device__ constexpr int tc_stride() { return D + 8; }  // bf16 per shared row: +16 bytes
 
 template <int D>
 constexpr size_t tc_smem_bytes() {
-  return (size_t)(kTcBQ + 2 * kTcStages * kTcBK) * tc_stride<D>() * sizeof(__nv_bfloat16);
+  return (size_t)(kTcBQ + 2 * kTcStages * tc_keys<D>()) * tc_stride<D>() * sizeof(__nv_bfloat16);
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -339,13 +349,15 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                             const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
                             int Sq, int Skv, int Hq, int Hkv, int window, float scale_log2) {
   constexpr int ST = tc_stride<D>();
+  constexpr int BK = tc_keys<D>();
+  constexpr bool kQInRegs = D <= 128;  // Q's A fragments held in registers
   constexpr int KD = D / 16;      // k-steps of Q.K^T
   constexpr int ND = D / 8;       // n-tiles of the output
-  constexpr int NK = kTcBK / 8;   // n-tiles of the scores
+  constexpr int NK = BK / 8;      // n-tiles of the scores
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // kTcBQ x ST
-  __nv_bfloat16* ks = qs + kTcBQ * ST;                            // stages x kTcBK x ST
-  __nv_bfloat16* vs = ks + kTcStages * kTcBK * ST;                // stages x kTcBK x ST
+  __nv_bfloat16* ks = qs + kTcBQ * ST;                            // stages x BK x ST
+  __nv_bfloat16* vs = ks + kTcStages * BK * ST;                   // stages x BK x ST
 
   const int h = blockIdx.x;
   const int qt = gridDim.y - 1 - blockIdx.y;  // heaviest (last) tiles first
@@ -372,16 +384,19 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   int k_start = 0;
   if (window > 0) {
     const int lo = q_first - window + 1;
-    k_start = lo > 0 ? (lo / kTcBK) * kTcBK : 0;
+    k_start = lo > 0 ? (lo / BK) * BK : 0;
   }
-  const int n_tiles = (k_stop - k_start + kTcBK - 1) / kTcBK;
+  const int n_tiles = (k_stop - k_start + BK - 1) / BK;
 
   load_tile<D, kTcBQ>(qs, qb, q0, Sq, q_stride, tid);
-  load_tile<D, kTcBK>(ks, kb, k_start, Skv, kv_stride, tid);
-  load_tile<D, kTcBK>(vs, vb, k_start, Skv, kv_stride, tid);
+  load_tile<D, BK>(ks, kb, k_start, Skv, kv_stride, tid);
+  load_tile<D, BK>(vs, vb, k_start, Skv, kv_stride, tid);
   cp_async_commit();
 
-  uint32_t qf[KD][4];
+  // The warp's 16 rows of Q, as ldmatrix reads them for k-step kk.
+  const __nv_bfloat16* qrow =
+      qs + (warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * ST + (lane >> 4) * 8;
+  uint32_t qf[kQInRegs ? KD : 1][4];
   float oacc[ND][4];
   float m[2] = {kNeg, kNeg};
   float l[2] = {0.0f, 0.0f};  // this lane's share of the row sums
@@ -389,46 +404,53 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   for (int j = 0; j < ND; ++j) oacc[j][0] = oacc[j][1] = oacc[j][2] = oacc[j][3] = 0.0f;
 
   for (int it = 0; it < n_tiles; ++it) {
-    const int k0 = k_start + it * kTcBK;
+    const int k0 = k_start + it * BK;
     const int stage = it & 1;
     if (it + 1 < n_tiles) {  // the next tile loads while this one is used
       const int nxt = (it + 1) & 1;
-      load_tile<D, kTcBK>(ks + nxt * kTcBK * ST, kb, k0 + kTcBK, Skv, kv_stride, tid);
-      load_tile<D, kTcBK>(vs + nxt * kTcBK * ST, vb, k0 + kTcBK, Skv, kv_stride, tid);
+      load_tile<D, BK>(ks + nxt * BK * ST, kb, k0 + BK, Skv, kv_stride, tid);
+      load_tile<D, BK>(vs + nxt * BK * ST, vb, k0 + BK, Skv, kv_stride, tid);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();
-    if (it == 0) {
+    if constexpr (kQInRegs) {
+      if (it == 0) {
 #pragma unroll
-      for (int kk = 0; kk < KD; ++kk)
-        ldmatrix_x4(qf[kk], qs + (warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * ST +
-                                kk * 16 + (lane >> 4) * 8);
+        for (int kk = 0; kk < KD; ++kk) ldmatrix_x4(qf[kk], qrow + kk * 16);
+      }
     }
-    const __nv_bfloat16* kst = ks + stage * kTcBK * ST;
-    const __nv_bfloat16* vst = vs + stage * kTcBK * ST;
+    const __nv_bfloat16* kst = ks + stage * BK * ST;
+    const __nv_bfloat16* vst = vs + stage * BK * ST;
 
-    // S = Q . K^T for the warp's 16 rows and the tile's 64 keys.
+    // S = Q . K^T for the warp's 16 rows and the tile's BK keys.
     float sacc[NK][4];
 #pragma unroll
     for (int j = 0; j < NK; ++j) sacc[j][0] = sacc[j][1] = sacc[j][2] = sacc[j][3] = 0.0f;
 #pragma unroll
     for (int kk = 0; kk < KD; ++kk) {
+      uint32_t a[4];
+      if constexpr (kQInRegs) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) a[i] = qf[kk][i];
+      } else {
+        ldmatrix_x4(a, qrow + kk * 16);
+      }
 #pragma unroll
       for (int np = 0; np < NK / 2; ++np) {
         uint32_t bf[4];
         ldmatrix_x4(bf, kst + (np * 16 + (lane & 7) + (lane >> 4) * 8) * ST + kk * 16 +
                             ((lane >> 3) & 1) * 8);
-        mma_bf16(sacc[2 * np], qf[kk], bf[0], bf[1]);
-        mma_bf16(sacc[2 * np + 1], qf[kk], bf[2], bf[3]);
+        mma_bf16(sacc[2 * np], a, bf[0], bf[1]);
+        mma_bf16(sacc[2 * np + 1], a, bf[2], bf[3]);
       }
     }
 
     // Online softmax, in the log2 domain: s * scale * log2(e).  Masks are
     // computed only in a tile that is not wholly visible to the block's rows.
-    const bool full = k0 + kTcBK - 1 <= q_first && k0 + kTcBK <= Skv &&
+    const bool full = k0 + BK - 1 <= q_first && k0 + BK <= Skv &&
                       (window <= 0 || k0 > q_last - window);
 #pragma unroll
     for (int rr = 0; rr < 2; ++rr) {
@@ -474,7 +496,7 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 
     // O += P . V: the score accumulator, rounded to bf16, is P's A fragment.
 #pragma unroll
-    for (int kk = 0; kk < kTcBK / 16; ++kk) {
+    for (int kk = 0; kk < BK / 16; ++kk) {
       const uint32_t pa[4] = {
           pack_bf16(sacc[2 * kk][0], sacc[2 * kk][1]),
           pack_bf16(sacc[2 * kk][2], sacc[2 * kk][3]),
@@ -532,6 +554,7 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, in
     case 32: return LAUNCH<32>(q, k, v, o, B, Sq, Skv, Hq, Hkv, window, scale, s);     \
     case 64: return LAUNCH<64>(q, k, v, o, B, Sq, Skv, Hq, Hkv, window, scale, s);     \
     case 128: return LAUNCH<128>(q, k, v, o, B, Sq, Skv, Hq, Hkv, window, scale, s);   \
+    case 256: return LAUNCH<256>(q, k, v, o, B, Sq, Skv, Hq, Hkv, window, scale, s);   \
     default: return cudaErrorInvalidValue;                                             \
   }
 

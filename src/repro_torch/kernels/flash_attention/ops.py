@@ -22,7 +22,7 @@ __all__ = ["flash_attention", "counter", "HEAD_DIMS", "DTYPES"]
 
 counter = LaunchCounter("flash_attention")
 
-HEAD_DIMS = (16, 32, 64, 128)  # the kernel's instances
+HEAD_DIMS = (16, 32, 64, 128, 256)  # the kernel's instances (K4 shares them)
 # dtype -> the C entry point's instance: 0 the fp32 CUDA-core kernel, 1 the
 # bf16 tensor-core kernel.
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -36,7 +36,7 @@ def _check_args(q, k, v, causal, window):
         raise NotImplementedError(
             "flash attention is causal-only here, as its oracle "
             "src/repro/kernels/flash_attention/ref.py:21 is; flash_attention_pallas also "
-            "takes causal=False (ROADMAP, queue 2, entry 7)")
+            "takes causal=False (ROADMAP, queue 2, entry 6)")
     if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
         raise ValueError(f"q (B, Sq, Hq, D), k and v (B, Skv, Hkv, D): got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")

@@ -25,7 +25,7 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0, scale=
         raise NotImplementedError(
             "flash attention is causal-only here, as its oracle "
             "src/repro/kernels/flash_attention/ref.py:21 is; flash_attention_pallas also "
-            "takes causal=False (ROADMAP, queue 2, entry 7)")
+            "takes causal=False (ROADMAP, queue 2, entry 6)")
     sq, d = q.shape[3], q.shape[4]
     skv = k.shape[2]
     scale = d ** -0.5 if scale is None else scale

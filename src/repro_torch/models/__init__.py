@@ -1,9 +1,12 @@
-"""Language models of the port: ``model.LM`` over ``attn:mlp`` and ``ssd:none`` stacks.
+"""Language models of the port: ``model.LM`` over stacks of global
+(``attn``) and sliding-window (``local``) attention layers with MLPs, and
+of Mamba-2 SSD layers (``ssd:none``).
 
 Each module mirrors its namesake in the JAX package (``repro.models``).
 Attention runs through the port's kernels: prefill through K3
 (``kernels.flash_attention``), decode through K4
-(``kernels.decode_attention``); the Mamba-2 SSD mixer's chunked prefill
+(``kernels.decode_attention``), at head dims up to 256, from a
+full cache, a ring buffer or the int8 cache; the Mamba-2 SSD mixer's chunked prefill
 scan runs through K5 (``kernels.ssd``), its decode step in plain
 PyTorch; projections, MLPs and the readout are ``torch.matmul``, as the
 reference left them to XLA.

@@ -1,4 +1,5 @@
-"""Attention: GQA/MQA, causal, prefill and decode, through the port's kernels.
+"""Attention: GQA/MQA, causal global and sliding-window, prefill and
+decode, through the port's kernels.
 
 The counterpart of ``repro.models.attention``'s forward path.  The
 reference computes prefill attention with a chunked online softmax in
@@ -8,9 +9,13 @@ through K3 (``kernels.flash_attention``) and K4
 (``kernels.decode_attention``), whose wrappers launch the CUDA kernels
 for tensors on the card and run their plain versions on the CPU.  The
 reference decodes at one scalar position; K4 takes per-row lengths, so
-the decode step passes ``pos + 1`` for every row, built on the device
-from the 0-dim position tensor.  Forward only: the flash backward (the
-custom VJP of the reference) comes with training.
+the decode step passes ``pos + 1`` for every row (``min(pos + 1, L)``
+for a ring buffer of L slots), built on the device from the 0-dim
+position tensor.  The int8 KV cache (``kv_quantize``, ``kv_dequantize``)
+is the reference's ``blocks._kv_quant`` and ``_kv_dequant``: per-position
+absmax codes with float32 scales, dequantised to the model's type before
+K4.  Forward only: the flash backward (the custom VJP of the reference)
+comes with training.
 """
 from __future__ import annotations
 
@@ -21,7 +26,7 @@ from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models.layers import rmsnorm, rope
 from repro_torch.models.spec import P
 
-__all__ = ["attn_spec", "attn_forward", "attn_decode"]
+__all__ = ["attn_spec", "attn_forward", "attn_decode", "kv_quantize", "kv_dequantize"]
 
 
 def attn_spec(d_model: int, num_heads: int, num_kv_heads: int, head_dim: int,
@@ -75,24 +80,47 @@ def attn_forward(params, x, cfg, *, window: int = 0, theta: float = 10_000.0,
     return _out(o, params.wo), (k, v)
 
 
-def attn_decode(params, x, kv_cache, pos, cfg, *, window: int = 0,
-                theta: float = 10_000.0, lengths=None):
-    """One decode step through K4.  x: (B, 1, D); kv_cache: (k, v) each
-    (B, Smax, Hkv, Dh); ``pos`` the new token's 0-based position, a 0-dim
-    int32 tensor on x's device (the reference's scalar); ``lengths`` K4's
-    (B,) int32 valid lengths, ``pos + 1`` for every row unless given.
+def kv_quantize(x):
+    """(B, S, H, D) -> (int8 codes, (B, S, H, 1) float32 scales): absmax per
+    position and head, scale max(absmax, 1e-8) / 127, codes rounded half to
+    even and clipped to +-127, as the reference's ``blocks._kv_quant``."""
+    xf = x.float()
+    scale = xf.abs().amax(dim=-1, keepdim=True).clamp_min(1e-8) / 127.0
+    return torch.round(xf / scale).clamp(-127, 127).to(torch.int8), scale
 
-    The new K/V are written into the caches IN PLACE at ``pos`` (the
-    reference's ``dynamic_update_slice`` returns new arrays); the same
-    tensors are returned.  Nothing here reads a device value on the
-    host."""
-    k_cache, v_cache = kv_cache
+
+def kv_dequantize(codes, scale, dtype):
+    """Codes times scales in float32, rounded to ``dtype``."""
+    return (codes.float() * scale).to(dtype)
+
+
+def attn_decode(params, x, kv_cache, pos, cfg, *, window: int = 0,
+                theta: float = 10_000.0, lengths=None, slot=None):
+    """One decode step through K4.  x: (B, 1, D); ``pos`` the new token's
+    0-based position, a 0-dim int32 tensor on x's device (the reference's
+    scalar); ``kv_cache`` (k, v), each (B, L, Hkv, Dh), or with
+    ``cfg.kv_quant`` (k codes, k scales, v codes, v scales): int8 (B, L,
+    Hkv, Dh) codes and float32 (B, L, Hkv, 1) scales.  The new K/V go to
+    slot ``slot`` (a 0-dim int32 tensor, ``pos % L`` for a ring buffer;
+    ``pos`` unless given) and K4 reads ``lengths``, (B,) int32 valid
+    slots (``pos + 1`` for every row unless given).
+
+    The new K/V are written into the caches IN PLACE (the reference's
+    ``dynamic_update_slice`` returns new arrays); the same tensors are
+    returned.  Nothing here reads a device value on the host."""
     b = x.shape[0]
     q, k, v = _project_qkv(params, x, cfg, pos.expand(b, 1), theta)
-    slot = pos.reshape(1).long()
-    k_cache.index_copy_(1, slot, k.to(k_cache.dtype))
-    v_cache.index_copy_(1, slot, v.to(v_cache.dtype))
+    index = (pos if slot is None else slot).reshape(1).long()
+    new = kv_quantize(k) + kv_quantize(v) if cfg.kv_quant else (k, v)
+    for buf, t in zip(kv_cache, new):
+        buf.index_copy_(1, index, t.to(buf.dtype))
+    if cfg.kv_quant:
+        k_codes, k_scale, v_codes, v_scale = kv_cache
+        k_cache = kv_dequantize(k_codes, k_scale, q.dtype)
+        v_cache = kv_dequantize(v_codes, v_scale, q.dtype)
+    else:
+        k_cache, v_cache = kv_cache
     if lengths is None:
         lengths = (pos + 1).expand(b).contiguous()
     o = decode_ops.decode_attention(q, k_cache, v_cache, lengths, window=window)
-    return _out(o, params.wo), (k_cache, v_cache)
+    return _out(o, params.wo), kv_cache

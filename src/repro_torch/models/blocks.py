@@ -1,9 +1,10 @@
-"""Per-layer blocks of the ``attn:mlp`` and ``ssd:none`` kinds, and their caches.
+"""Per-layer blocks of the ``attn``, ``local`` and ``ssd`` mixers, and their caches.
 
 The counterpart of ``repro.models.blocks``: a block is a pre-norm mixer
-(causal attention, or the Mamba-2 SSD mixer) plus residual, then, unless
-the FFN kind is ``none``, a pre-norm FFN plus residual, with optional
-gemma3-style post-norms.  Three entry points per block:
+(causal attention, sliding-window attention, or the Mamba-2 SSD mixer)
+plus residual, then, unless the FFN kind is ``none``, a pre-norm FFN
+plus residual, with optional gemma3-style post-norms.  Three entry
+points per block:
 
   * ``block_full``    — full sequence, no cache (scoring)
   * ``block_prefill`` — full sequence, returns the decode cache
@@ -11,12 +12,16 @@ gemma3-style post-norms.  Three entry points per block:
 
 Cache layouts (per layer), as the reference's:
   attn:   {"k", "v"}: (B, max_len, Hkv, Dh)       — absolute slots
+  local:  {"k", "v"}: (B, min(window, max_len), Hkv, Dh) — ring buffer,
+          slot = pos % length
   ssd:    {"conv": (B, W-1, d_xbc), "state": (B, H, P, N) float32}
+With ``kv_quant`` an attention cache holds int8 codes and float32
+(B, L, Hkv, 1) scales: {"k", "k_scale", "v", "v_scale"}.
 
-The other layer kinds of the reference raise ``NotImplementedError``
-naming the ROADMAP item that brings them ("Modules to port").  The MoE
-auxiliary loss of the reference's block functions belongs to ``moe``, so
-the port's blocks return no aux term.
+The ``rglru`` mixer and the ``moe`` FFN of the reference raise
+``NotImplementedError`` naming the ROADMAP item that brings them
+("Modules to port").  The MoE auxiliary loss of the reference's block
+functions belongs to ``moe``, so the port's blocks return no aux term.
 """
 from __future__ import annotations
 
@@ -30,35 +35,36 @@ from repro_torch.models.layers import mlp, mlp_spec, rmsnorm, rmsnorm_spec
 __all__ = ["block_spec", "cache_spec", "block_full", "block_prefill", "block_decode",
            "NOT_PORTED"]
 
-# Layer kinds and options of the reference this port does not run yet,
-# with the ROADMAP item ("Open items" -> "Modules to port") that brings each.
+# Layer kinds of the reference this port does not run yet, with the
+# ROADMAP item ("Open items" -> "Modules to port") that brings each.
 NOT_PORTED: dict[str, str] = {
-    "local": "item 8 (sliding-window layers and their ring-buffer caches)",
     "rglru": "item 9 (recurrent and sparse mixers)",
     "moe": "item 9 (recurrent and sparse mixers)",
-    "kv_quant": "item 8 (the int8 KV cache)",
 }
 
 
 def _check_kind(cfg, kind: str) -> tuple[str, str]:
     """(mixer, ffn) of a layer kind the port runs; raises for the others."""
     mixer, _, ffn = kind.partition(":")
-    if mixer not in ("attn", "ssd"):
+    if mixer not in ("attn", "local", "ssd"):
         not_ported(mixer, NOT_PORTED)
     if ffn not in ("mlp", "none"):
         not_ported(ffn, NOT_PORTED)
-    if mixer == "attn" and cfg.kv_quant:
-        not_ported("kv_quant", NOT_PORTED)
     if mixer == "ssd":
         ssd_mod.check_groups(cfg.ssd_ngroups)
     return mixer, ffn
+
+
+def _kv_names(cfg) -> tuple[str, ...]:
+    """The names of an attention cache's tensors, in ``attn_decode``'s order."""
+    return ("k", "k_scale", "v", "v_scale") if cfg.kv_quant else ("k", "v")
 
 
 def block_spec(cfg, kind: str) -> dict:
     mixer, ffn = _check_kind(cfg, kind)
     d = cfg.d_model
     spec: dict = {"pre_norm": rmsnorm_spec(d)}
-    if mixer == "attn":
+    if mixer in ("attn", "local"):
         spec["attn"] = attn_mod.attn_spec(d, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
                                           cfg.qk_norm)
     else:
@@ -80,8 +86,21 @@ def cache_spec(cfg, kind: str, batch: int, max_len: int) -> dict:
     if mixer == "ssd":
         conv, state = ssd_mod.ssd_init_cache_shapes(cfg, batch)
         return {"conv": (conv, kv_dtype), "state": (state, torch.float32)}
-    shp = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+    length = max_len if mixer == "attn" else min(cfg.window_size, max_len)
+    shp = (batch, length, cfg.num_kv_heads, cfg.head_dim)
+    if cfg.kv_quant:
+        sshp = shp[:-1] + (1,)
+        return {"k": (shp, torch.int8), "k_scale": (sshp, torch.float32),
+                "v": (shp, torch.int8), "v_scale": (sshp, torch.float32)}
     return {"k": (shp, kv_dtype), "v": (shp, kv_dtype)}
+
+
+def _theta(cfg, mixer: str) -> float:
+    return cfg.rope_theta_local if mixer == "local" else cfg.rope_theta
+
+
+def _window(cfg, mixer: str) -> int:
+    return cfg.window_size if mixer == "local" else 0
 
 
 def _apply_ffn(params, x, cfg, ffn: str):
@@ -102,47 +121,80 @@ def block_full(params, x, cfg, kind: str):
     """Scoring pass (no cache).  Returns x."""
     mixer, ffn = _check_kind(cfg, kind)
     h = rmsnorm(params.pre_norm, x)
-    if mixer == "attn":
-        y, _ = attn_mod.attn_forward(params.attn, h, cfg, theta=cfg.rope_theta)
-    else:
+    if mixer == "ssd":
         y, _ = ssd_mod.ssd_forward(params.ssd, h, cfg)
+    else:
+        y, _ = attn_mod.attn_forward(params.attn, h, cfg, window=_window(cfg, mixer),
+                                     theta=_theta(cfg, mixer))
     return _apply_ffn(params, x + _post(params, y, cfg), cfg, ffn)
+
+
+def _ring_from_prefill(t, length: int):
+    """Full-sequence keys or values (B, S, ...) in a ring buffer of
+    ``length`` slots: slot p % length holds position p, for the last
+    ``length`` positions (the reference's ``_ring_from_prefill``)."""
+    b, s = t.shape[:2]
+    if s < length:
+        buf = torch.zeros((b, length) + tuple(t.shape[2:]), dtype=t.dtype, device=t.device)
+        buf[:, :s] = t
+        return buf
+    return torch.roll(t[:, s - length:], shifts=(s - length) % length, dims=1).contiguous()
+
+
+def _prefill_cache(cfg, mixer: str, k, v, max_len: int) -> dict:
+    """The decode cache of an attention layer from its prompt's K/V: the
+    first S slots of zero (B, max_len, ...) tensors, or a ring buffer of
+    min(window, max_len) slots; int8 codes and scales with ``kv_quant``."""
+    kv_dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+    if cfg.kv_quant:
+        stored = dict(zip(_kv_names(cfg), attn_mod.kv_quantize(k) + attn_mod.kv_quantize(v)))
+    else:
+        stored = {"k": k.to(kv_dtype), "v": v.to(kv_dtype)}
+    if mixer == "local":
+        length = min(cfg.window_size, max_len)
+        return {name: _ring_from_prefill(t, length) for name, t in stored.items()}
+    cache = {}
+    for name, t in stored.items():
+        buf = torch.zeros((t.shape[0], max_len) + tuple(t.shape[2:]), dtype=t.dtype,
+                          device=t.device)
+        buf[:, :t.shape[1]] = t
+        cache[name] = buf
+    return cache
 
 
 def block_prefill(params, x, cfg, kind: str, max_len: int):
     """Full-sequence pass that also builds the decode cache: for attention
-    the prompt's K/V in the first S slots of zero (B, max_len, Hkv, Dh)
-    tensors, for SSD the conv window and the final state.
-    Returns (x, cache)."""
+    the prompt's K/V (``_prefill_cache``), for SSD the conv window and the
+    final state.  Returns (x, cache)."""
     mixer, ffn = _check_kind(cfg, kind)
     h = rmsnorm(params.pre_norm, x)
-    if mixer == "attn":
-        y, (k, v) = attn_mod.attn_forward(params.attn, h, cfg, theta=cfg.rope_theta)
-        cache = {}
-        for name, t in (("k", k), ("v", v)):
-            buf = torch.zeros((t.shape[0], max_len) + tuple(t.shape[2:]), dtype=t.dtype,
-                              device=t.device)
-            buf[:, :t.shape[1]] = t
-            cache[name] = buf
-    else:
+    if mixer == "ssd":
         y, (conv, state) = ssd_mod.ssd_forward(params.ssd, h, cfg)
         cache = {"conv": conv, "state": state}
+    else:
+        y, (k, v) = attn_mod.attn_forward(params.attn, h, cfg, window=_window(cfg, mixer),
+                                          theta=_theta(cfg, mixer))
+        cache = _prefill_cache(cfg, mixer, k, v, max_len)
     return _apply_ffn(params, x + _post(params, y, cfg), cfg, ffn), cache
 
 
-def block_decode(params, x, cache, pos, cfg, kind: str, lengths=None):
+def block_decode(params, x, cache, pos, cfg, kind: str, lengths=None, slot=None):
     """One-token step.  x: (B, 1, D); ``pos`` the new token's position, a
-    0-dim int32 tensor; ``lengths`` (B,) int32, K4's valid lengths
-    (``pos + 1``), built once per step by the caller.  Writes the layer's
+    0-dim int32 tensor; for attention ``slot`` the cache slot it is
+    written to (``pos % L`` in a ring buffer of L slots, ``pos`` unless
+    given) and ``lengths`` (B,) int32, K4's valid slots (``min(pos + 1,
+    L)`` in a ring, ``pos + 1``), both built on the device once per step
+    by the caller.  A ring holds exactly the window, so K4 takes no
+    window of its own (the reference's ``window=0``).  Writes the layer's
     cache in place; returns (x, cache)."""
     mixer, ffn = _check_kind(cfg, kind)
     h = rmsnorm(params.pre_norm, x)
-    if mixer == "attn":
-        y, (k, v) = attn_mod.attn_decode(params.attn, h, (cache["k"], cache["v"]), pos, cfg,
-                                         theta=cfg.rope_theta, lengths=lengths)
-        cache = {"k": k, "v": v}
-    else:
+    if mixer == "ssd":
         y, (conv, state) = ssd_mod.ssd_decode_step(params.ssd, h,
                                                    (cache["conv"], cache["state"]), cfg)
         cache = {"conv": conv, "state": state}
+    else:
+        names = _kv_names(cfg)
+        y, _ = attn_mod.attn_decode(params.attn, h, tuple(cache[n] for n in names), pos, cfg,
+                                    theta=_theta(cfg, mixer), lengths=lengths, slot=slot)
     return _apply_ffn(params, x + _post(params, y, cfg), cfg, ffn), cache

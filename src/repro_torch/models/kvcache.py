@@ -7,7 +7,9 @@ layer order, and the position as the reference keeps it: a 0-dim int32
 tensor on the caches' device, which a decode step reads and advances
 there, so the step holds no host value and can be captured in a CUDA
 graph.  An attention layer's dict is ``{"k", "v"}`` of (B, max_len,
-Hkv, Dh) tensors, an SSD layer's
+Hkv, Dh) tensors (a sliding-window layer's: a ring buffer of
+min(window, max_len) slots; with ``kv_quant``, int8 codes with
+``"k_scale"`` and ``"v_scale"``), an SSD layer's
 ``{"conv": (B, W-1, d_xbc), "state": (B, H, P, N) float32}``
 (``blocks.cache_spec``).  Decode writes each new token's K/V, and each
 SSD layer's conv window and state, into these tensors IN PLACE

@@ -154,19 +154,42 @@ def prefill(params, tokens, cfg, max_len: int):
     return _logits(params, cfg, x), {"layers": caches, "pos": pos}
 
 
+def _slots(cfg, caches, pos, batch: int) -> list:
+    """Per layer, (slot, lengths) of the step at ``pos``: for a global
+    attention layer (``pos``, ``pos + 1``), for a ring buffer of L slots
+    (``pos % L``, ``min(pos + 1, L)``), lengths expanded to (B,); None for
+    SSD.  Each distinct pair is built once, on the device."""
+    built: dict = {}
+    out = []
+    for c, kind in zip(caches, _kinds(cfg)):
+        mixer = kind.partition(":")[0]
+        key = c["k"].shape[1] if mixer == "local" else mixer
+        if key not in built:
+            if mixer == "attn":
+                built[key] = (pos, (pos + 1).expand(batch).contiguous())
+            elif mixer == "local":
+                built[key] = (torch.remainder(pos, key),
+                              torch.clamp(pos + 1, max=key).expand(batch).contiguous())
+            else:
+                built[key] = (None, None)
+        out.append(built[key])
+    return out
+
+
 def decode_step(params, cache, tokens, cfg):
     """One decode step.  tokens: (B, 1) int; the cache from ``prefill`` or
     ``kvcache.init_cache``, written in place, its position advanced in
     place, and returned.  Returns (logits (B, V), cache).
 
-    Reads no device value on the host: the new token's position and K4's
-    per-row lengths (``pos + 1`` for every row, built once per step) stay
-    on the device."""
+    Reads no device value on the host: the new token's position, its
+    slot in each ring buffer and K4's per-row lengths (``_slots``, built
+    once per step) stay on the device."""
     pos = cache["pos"]
     x = _embed(params, cfg, tokens)
-    lengths = (pos + 1).expand(tokens.shape[0]).contiguous()
-    for layer, c, kind in zip(params.layers, cache["layers"], _kinds(cfg)):
-        x, _ = blocks.block_decode(layer, x, c, pos, cfg, kind, lengths=lengths)
+    slots = _slots(cfg, cache["layers"], pos, tokens.shape[0])
+    for layer, c, kind, (slot, lengths) in zip(params.layers, cache["layers"], _kinds(cfg),
+                                               slots):
+        x, _ = blocks.block_decode(layer, x, c, pos, cfg, kind, lengths=lengths, slot=slot)
     x = rmsnorm(params.final_norm, x)
     logits = _logits(params, cfg, x[:, -1, :])
     pos.add_(1)

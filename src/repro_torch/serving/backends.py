@@ -18,6 +18,10 @@ enqueue time.  Prefill runs eagerly; decode runs as a CUDA graph of
 (``DecodeGraph``), the counterpart of the reference's ``jax.jit`` of
 the decode step, with the capacity rounded up to a multiple of 256 as
 the reference's ``_bucket_seq`` rounds, so ragged batches share a graph.
+The graphs of one (variant, capacity) run one at a time, so they share
+one cache, made at the largest batch size the variant has decoded: each
+batch size's graph decodes on the leading rows of it.  A model without
+attention gives each batch size a cache of its own.
 Sizes are weight
 bytes at the declared dtype; swap cost is bytes over a 25 GB/s staging
 rate, the reference's constants.  ``CompiledBackend``,
@@ -168,7 +172,9 @@ class DecodeGraph:
     """Greedy decode on static buffers for one (variant, batch size, cache
     capacity): the cache, its position, the (B, 1) int32 token buffer and
     the (B, V) logits buffer, each allocated once and written in place by
-    ``transformer.decode_into``.
+    ``transformer.decode_into``.  The cache's layers may be given (views
+    of a larger batch's, which the owner shares between graphs that never
+    run at the same time); otherwise they are made here.
 
     On the card the first step runs eagerly on a side stream (a real step,
     and the warm-up a capture needs: libraries loaded, kernels built, the
@@ -180,10 +186,13 @@ class DecodeGraph:
     every step runs ``decode_into`` eagerly."""
 
     def __init__(self, params, cfg, batch: int, capacity: int, device, pool=None,
-                 stream=None):
+                 stream=None, layers=None):
         self.params, self.cfg, self.device = params, cfg, device
         self.pool, self.stream = pool, stream
-        self.cache = kvcache.init_cache(cfg, batch, capacity, device=device)
+        if layers is None:
+            self.cache = kvcache.init_cache(cfg, batch, capacity, device=device)
+        else:
+            self.cache = {"layers": layers, "pos": kvcache.position(0, device)}
         self.tok = torch.zeros((batch, 1), dtype=torch.int32, device=device)
         self.logits = torch.zeros((batch, cfg.vocab_size), dtype=kvcache.model_dtype(cfg),
                                   device=device)
@@ -251,7 +260,10 @@ class DecodeGraph:
 
 
 def _has_attention(cfg) -> bool:
-    return any(cfg.layer_kind(i).startswith("attn") for i in range(cfg.num_layers))
+    """Whether a config's caches grow with the capacity: any global or
+    sliding-window attention layer (a ring holds min(window, capacity))."""
+    return any(cfg.layer_kind(i).partition(":")[0] in ("attn", "local")
+               for i in range(cfg.num_layers))
 
 
 class ProfiledBackend(ExecutorBackend):
@@ -261,10 +273,14 @@ class ProfiledBackend(ExecutorBackend):
     new_tokens`` positions rounded up to a multiple of 256, greedy decode
     through one ``DecodeGraph`` per (variant, batch size, capacity) — per
     (variant, batch size) for a model without attention, whose caches do
-    not grow — and stopwatch timing.  On the card decode replays CUDA
-    graphs (a key's first batch runs one eager step and captures the
-    next, inside its ``decode_s``, as the reference's first call compiles
-    inside its stopwatch); on the CPU it runs eagerly."""
+    not grow and are each its own — and stopwatch timing.  The graphs of
+    one (variant, capacity) share one cache, made at the largest batch
+    size the variant has decoded at any capacity; a larger batch makes a
+    larger cache and retires the graphs of the old one, which are
+    captured again on their next batch.  On the card decode
+    replays CUDA graphs (a key's first batch runs one eager step and
+    captures the next, inside its ``decode_s``, as the reference's first
+    call compiles inside its stopwatch); on the CPU it runs eagerly."""
 
     provenance = "profiled"
 
@@ -274,7 +290,12 @@ class ProfiledBackend(ExecutorBackend):
         self._models: dict[str, LM] = {}
         self._params: dict = {}
         self._decoders: dict[tuple, DecodeGraph] = {}
-        self._stream = self._pool = None  # the capture stream and graph pool, on the card
+        # (variant, capacity) -> (rows, the layers of the cache its graphs
+        # share, their graph pool on the card)
+        self._caches: dict[tuple, tuple] = {}
+        self._rows: dict[str, int] = {}  # the largest batch each variant decoded
+        self._retired = {"captures": 0, "replays": 0, "capture_s": 0.0}
+        self._stream = None  # the capture stream, on the card
 
     def set_params(self, name: str, params) -> None:
         """Serve variant ``name`` with these weights (a ``TransformerParams``
@@ -283,7 +304,16 @@ class ProfiledBackend(ExecutorBackend):
         cfg, _ = self.variants[name]
         self._models[name] = LM(cfg)
         self._params[name] = params
-        self._decoders = {k: d for k, d in self._decoders.items() if k[0] != name}
+        self._retire(lambda key: key[0] == name)
+        self._caches = {k: c for k, c in self._caches.items() if k[0] != name}
+
+    def _retire(self, drop) -> None:
+        """Forget the decode graphs whose key satisfies ``drop``, keeping
+        their counts for ``graph_stats``."""
+        for key in [k for k in self._decoders if drop(k)]:
+            dec = self._decoders.pop(key)
+            for stat in self._retired:
+                self._retired[stat] += getattr(dec, stat)
 
     def _get(self, name: str):
         if name not in self._models:
@@ -297,25 +327,50 @@ class ProfiledBackend(ExecutorBackend):
         """The decode buffers (and, once captured, the graph) of variant
         ``name`` at this batch size and capacity, made on first use."""
         model, params = self._get(name)
-        key = (name, batch, capacity if _has_attention(model.cfg) else None)
+        cap = capacity if _has_attention(model.cfg) else None
+        key = (name, batch, cap)
         dec = self._decoders.get(key)
         if dec is None:
             if self.device.type == "cuda" and self._stream is None:
                 self._stream = torch.cuda.Stream(self.device)
-                self._pool = torch.cuda.graph_pool_handle()
-            dec = DecodeGraph(params, model.cfg, batch, capacity, self.device, self._pool,
-                              self._stream)
+            layers = pool = None
+            if cap is not None:
+                shared, pool = self._shared_cache(name, model.cfg, batch, capacity)
+                layers = [{n: t[:batch] for n, t in layer.items()} for layer in shared]
+            dec = DecodeGraph(params, model.cfg, batch, capacity, self.device, pool,
+                              self._stream, layers=layers)
             self._decoders[key] = dec
         return dec
 
+    def _shared_cache(self, name: str, cfg, batch: int, capacity: int):
+        """(the layers of the cache the graphs of (``name``, ``capacity``)
+        share, their graph pool), made at the largest batch size ``name``
+        has decoded, or made anew when they hold fewer than ``batch`` rows.
+        So a capacity first met at a small batch does not retire its graphs
+        when a batch as large as an earlier one comes.  A new cache takes a
+        new pool: the retired graphs were the old pool's only users, and a
+        pool is released with them."""
+        self._rows[name] = max(batch, self._rows.get(name, 0))
+        rows, layers, pool = self._caches.get((name, capacity), (0, None, None))
+        if rows < batch:
+            self._retire(lambda key: (key[0], key[2]) == (name, capacity))
+            self._caches.pop((name, capacity), None)
+            layers = None  # the old cache goes before the new one is made
+            rows = self._rows[name]
+            layers = kvcache.init_cache(cfg, rows, capacity, device=self.device)["layers"]
+            pool = torch.cuda.graph_pool_handle() if self.device.type == "cuda" else None
+            self._caches[(name, capacity)] = (rows, layers, pool)
+        return layers, pool
+
     def graph_stats(self) -> dict:
-        """Decode graphs held, captures, replays and seconds spent capturing,
-        summed over this backend's keys."""
+        """Decode graphs held, and captures, replays and seconds spent
+        capturing, summed over this backend's keys (retired graphs
+        included)."""
         decs = self._decoders.values()
-        return {"graphs": sum(d.graph is not None for d in decs),
-                "captures": sum(d.captures for d in decs),
-                "replays": sum(d.replays for d in decs),
-                "capture_s": sum(d.capture_s for d in decs)}
+        out = {"graphs": sum(d.graph is not None for d in decs)}
+        for stat, retired in self._retired.items():
+            out[stat] = retired + sum(getattr(d, stat) for d in decs)
+        return out
 
     def _clock(self) -> float:
         if self.device.type == "cuda":

@@ -179,6 +179,12 @@ def _flash_plain(q, k, v, window):
     (1, 130, 300, 32, 4, 64, 0), (2, 300, 300, 4, 4, 64, 64), (1, 130, 130, 8, 2, 64, 32),
     (1, 300, 300, 8, 1, 128, 0), (2, 130, 130, 4, 4, 128, 32), (1, 37, 130, 16, 4, 128, 64),
     (2, 1024, 1024, 32, 4, 64, 0),  # tinyllama's prefill shape, two rows
+    # Head dim 256 (gemma-7b, gemma3-4b): the configurations of
+    # tests/test_kernels.py:22, offset queries, gemma-7b's prefill shape
+    # (two rows) and gemma3-4b's windowed prefill, 512 keys past the window.
+    (2, 128, 128, 4, 4, 256, 0), (1, 256, 256, 8, 2, 256, 0), (2, 96, 96, 4, 1, 256, 0),
+    (1, 256, 256, 4, 2, 256, 64), (1, 130, 130, 2, 2, 256, 32), (2, 37, 300, 8, 4, 256, 0),
+    (2, 1024, 1024, 16, 16, 256, 0), (1, 1536, 1536, 8, 4, 256, 1024),
 ])
 def test_flash_attention_kernel_matches_plain(cuda, b, sq, skv, hq, hkv, d, window, dtype):
     """bf16 runs on the tensor cores, f32 on the CUDA cores; each against
@@ -238,6 +244,10 @@ def _decode_plain(q, k, v, lengths, window):
     (2, 2, 4, 256, 32, 0), (3, 1, 8, 300, 64, 0), (2, 4, 1, 128, 32, 0),
     (2, 2, 2, 256, 32, 64),  # tests/test_kernels.py:65
     (8, 4, 8, 1040, 64, 0), (1, 1, 16, 5000, 128, 0), (4, 2, 8, 70, 16, 20),
+    # Head dim 256: the configurations of tests/test_kernels.py:65, gemma-7b's
+    # decode shape (MHA) and gemma3-4b's ring of 1024 slots (G = 2).
+    (2, 2, 4, 256, 256, 0), (3, 1, 8, 300, 256, 0), (2, 4, 1, 128, 256, 0),
+    (2, 2, 2, 256, 256, 64), (8, 16, 1, 1040, 256, 0), (4, 4, 2, 1024, 256, 0),
 ])
 def test_decode_attention_kernel_matches_plain(cuda, b, hkv, g, s, d, window, dtype):
     gen = torch.Generator(device=cuda).manual_seed(b * 10000 + s)
@@ -275,7 +285,7 @@ def test_decode_attention_kernel_respects_lengths(cuda):
 @pytest.mark.parametrize("window", [0, 40])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("g", [1, 4, 8, 32])
-@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 256])
 def test_decode_attention_kernel_head_dims_and_groups(cuda, d, g, dtype, window):
     """Every head dim the kernel takes, with 1 to 32 query heads per KV head
     (32 takes four passes of 8), with and without a window."""
@@ -289,6 +299,25 @@ def test_decode_attention_kernel_head_dims_and_groups(cuda, d, g, dtype, window)
     tol = ATTN_TOL[dtype]
     torch.testing.assert_close(out.float(), _decode_plain(q, k, v, lengths, window).float(),
                                atol=tol, rtol=tol)
+
+
+def test_attention_kernels_refuse_what_they_do_not_take(cuda):
+    """On the card a head dim outside HEAD_DIMS, G > 32 and causal=False
+    raise; nothing falls back to the plain versions."""
+    q = torch.zeros((1, 8, 2, 96), device=cuda)
+    with pytest.raises(ValueError, match="takes D in"):
+        flash_ops.flash_attention(q, q, q)
+    with pytest.raises(NotImplementedError):
+        flash_ops.flash_attention(q, q, q, causal=False)
+    lengths = torch.ones(1, dtype=torch.int32, device=cuda)
+    cache = torch.zeros((1, 8, 1, 96), device=cuda)
+    with pytest.raises(ValueError, match="takes D in"):
+        decode_ops.decode_attention(torch.zeros((1, 1, 1, 96), device=cuda), cache, cache,
+                                    lengths)
+    cache = torch.zeros((1, 8, 1, 256), device=cuda)
+    with pytest.raises(ValueError, match="G <= 32"):
+        decode_ops.decode_attention(torch.zeros((1, 1, 33, 256), device=cuda), cache, cache,
+                                    lengths)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
@@ -535,28 +564,39 @@ def test_mamba2_on_the_card_matches_the_host(cuda):
 # ------------------------------------------------------- the graphed decode
 
 
-def _two_layer_f32(arch, cuda):
+def _two_layer_f32(arch, cuda, layers=2, kv_quant=False):
     import dataclasses
 
     from repro_torch.configs import ARCHS
     from repro_torch.models import LM
 
-    cfg = dataclasses.replace(ARCHS[arch], num_layers=2, dtype="float32")
+    cfg = dataclasses.replace(ARCHS[arch], num_layers=layers, dtype="float32",
+                              kv_quant=kv_quant)
     lm = LM(cfg)
     return cfg, lm, lm.init(seed=0, device=cuda)
 
 
-@pytest.mark.parametrize("arch,seq", [("tinyllama-1.1b", 45), ("mamba2-130m", 200)])
-def test_graphed_decode_matches_eager(cuda, arch, seq):
-    """A 2-layer float32 model at full width: the decode step replayed from
-    a CUDA graph against the eager step on the card, from the same prefill
-    cache: identical tokens, logits within 1e-5."""
+@pytest.mark.parametrize("arch,seq,layers,kv_quant", [
+    pytest.param("tinyllama-1.1b", 45, 2, False, id="tinyllama-1.1b-45-2"),
+    pytest.param("mamba2-130m", 200, 2, False, id="mamba2-130m-200-2"),
+    pytest.param("gemma-7b", 45, 2, False, id="gemma-7b-45-2"),
+    # one period: 5 ring layers past their window, 1 global
+    pytest.param("gemma3-4b", 1030, 6, False, id="gemma3-4b-1030-6"),
+    pytest.param("tinyllama-1.1b", 45, 2, True, id="tinyllama-1.1b-45-2-kv_quant"),
+    pytest.param("gemma3-4b", 1030, 6, True, id="gemma3-4b-1030-6-kv_quant"),
+])
+def test_graphed_decode_matches_eager(cuda, arch, seq, layers, kv_quant):
+    """A float32 model at full width: the decode step replayed from a CUDA
+    graph against the eager step on the card, from the same prefill cache:
+    identical tokens, logits within 1e-5 (gemma3-4b's ring slots and
+    lengths are built on the device at every replay; with ``kv_quant``
+    each step's quantise and whole-cache dequantise are replayed too)."""
     from repro_torch.serving.backends import DecodeGraph, bucket_capacity
 
     prev = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        cfg, lm, params = _two_layer_f32(arch, cuda)
+        cfg, lm, params = _two_layer_f32(arch, cuda, layers, kv_quant)
         steps = 5
         tokens = torch.randint(0, cfg.vocab_size, (2, seq),
                                generator=torch.Generator().manual_seed(1)).to(cuda)
@@ -614,12 +654,60 @@ def test_backend_counts_the_launches_of_replays(cuda):
     assert graphed == eager == 2 * (new_tokens - 1) * cfg.num_layers
 
 
-@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "mamba2-130m"])
-def test_decode_step_reads_nothing_on_the_host(cuda, arch):
+def test_backend_grows_its_shared_cache_and_captures_again(cuda):
+    """The decode graphs of one (variant, capacity) share one cache: a
+    batch of 3 after one of 1 makes a 3-row cache with a new graph pool
+    and retires the 1-row graph, whose key is captured again on the new
+    cache.  A batch of 1 at a new capacity then makes a 3-row cache at
+    once, so the batch of 3 that follows there retires nothing.  Every
+    batch's tokens equal the eager decode's."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import LM
+    from repro_torch.serving.backends import ProfiledBackend
+
+    cfg = dataclasses.replace(ARCHS["tinyllama-1.1b"], num_layers=2)
+    new_tokens = 4
+    backend = ProfiledBackend({"t": (cfg, 0)}, new_tokens=new_tokens, device=cuda)
+    prompts = np.random.default_rng(1).integers(0, cfg.vocab_size, (3, 300)).astype(np.int32)
+    lm, params = LM(cfg), backend._get("t")[1]
+    for b, s, cap in ((1, 40, 256), (3, 40, 256), (1, 40, 256), (3, 40, 256),
+                      (1, 300, 512), (3, 300, 512)):
+        report = backend.run_batch("t", prompts[:b, :s], list(range(b)))
+        with torch.inference_mode():
+            logits, cache = lm.prefill(params, torch.as_tensor(prompts[:b, :s], device=cuda),
+                                       max_len=cap)
+            tok = logits.argmax(dim=-1, keepdim=True).to(torch.int32)
+            eager = [tok]
+            for _ in range(new_tokens - 1):
+                logits, cache = lm.decode_step(params, cache, tok)
+                tok = logits.argmax(dim=-1, keepdim=True).to(torch.int32)
+                eager.append(tok)
+        np.testing.assert_array_equal(report.tokens, torch.cat(eager, dim=1).cpu().numpy())
+    for cap in (256, 512):
+        rows, layers, _ = backend._caches[("t", cap)]
+        assert rows == 3 and layers[0]["k"].shape[0] == 3
+    assert sorted(backend._decoders) == [("t", 1, 256), ("t", 1, 512), ("t", 3, 256),
+                                         ("t", 3, 512)]
+    stats = backend.graph_stats()
+    assert stats["captures"] == 5 and stats["graphs"] == 4
+
+
+@pytest.mark.parametrize("arch,layers,kv_quant", [
+    pytest.param("tinyllama-1.1b", 2, False, id="tinyllama-1.1b-2"),
+    pytest.param("mamba2-130m", 2, False, id="mamba2-130m-2"),
+    pytest.param("gemma-7b", 2, False, id="gemma-7b-2"),
+    pytest.param("gemma3-4b", 6, False, id="gemma3-4b-6"),
+    pytest.param("tinyllama-1.1b", 2, True, id="tinyllama-1.1b-2-kv_quant"),
+    pytest.param("gemma3-4b", 6, True, id="gemma3-4b-6-kv_quant"),
+])
+def test_decode_step_reads_nothing_on_the_host(cuda, arch, layers, kv_quant):
     """The eager decode step under ``set_sync_debug_mode("error")``: no
     operation of the step waits for the card (no ``item``, ``int`` or copy
-    back), which is what lets it be captured."""
-    cfg, lm, params = _two_layer_f32(arch, cuda)
+    back), which is what lets it be captured; at head dim 256 too, with
+    gemma3-4b's ring slots, and with the int8 KV cache."""
+    cfg, lm, params = _two_layer_f32(arch, cuda, layers, kv_quant)
     tokens = torch.randint(0, cfg.vocab_size, (2, 30),
                            generator=torch.Generator().manual_seed(2)).to(cuda)
     _, cache = lm.prefill(params, tokens, max_len=64)

@@ -2,7 +2,8 @@
 
 On the CPU the port's wrappers run their plain PyTorch versions; those are
 held here against the Pallas kernels in interpret mode and against their
-jnp and numpy references, on the shapes of tests/test_kernels.py: K1
+jnp and numpy references, on the shapes of tests/test_kernels.py (K3 and K4 also at head dim
+256): K1
 (Eq. 2 utility), K2 (k-NN), K3 (prefill flash attention), K4 (flash
 decode) and K5 (the Mamba-2 SSD chunk scan).  The
 CUDA kernels themselves run only on a card: tests/test_torch_cuda.py
@@ -43,11 +44,14 @@ PENALTIES = ["step", "linear", "sigmoid", "none"]
 KNN_SHAPES = [(16, 256, 8, 5, 3), (37, 700, 16, 1, 4), (128, 512, 32, 8, 6), (5, 40, 4, 5, 2)]
 UTILITY_SHAPES = [(7, 3), (64, 5), (300, 8)]
 # The sweeps of tests/test_kernels.py: (b, s, hq, hkv, d, window) for K3,
-# (b, hkv, g, s, d, window, block_k) for K4.
+# (b, hkv, g, s, d, window, block_k) for K4; then the same with d = 256,
+# the head dim of gemma-7b and gemma3-4b.
 FLASH_SHAPES = [(2, 128, 4, 4, 32, 0), (1, 256, 8, 2, 64, 0), (2, 96, 4, 1, 32, 0),
                 (1, 256, 4, 2, 32, 64), (1, 130, 2, 2, 16, 32)]
+FLASH_SHAPES += [(b, s, hq, hkv, 256, w) for b, s, hq, hkv, _, w in FLASH_SHAPES]
 DECODE_SHAPES = [(2, 2, 4, 256, 32, 0, 64), (3, 1, 8, 300, 64, 0, 128),
                  (2, 4, 1, 128, 32, 0, 32), (2, 2, 2, 256, 32, 64, 64)]
+DECODE_SHAPES += [(b, hkv, g, s, 256, w, bk) for b, hkv, g, s, _, w, bk in DECODE_SHAPES]
 # f32 agrees with the Pallas kernels up to summation order over at most a
 # few hundred keys; bf16 as tests/test_kernels.py holds its kernels.
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}

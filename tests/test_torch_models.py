@@ -11,7 +11,11 @@ over 2 KV heads, G = 2); a GQA variant with 8 query heads over 2 (G = 4)
 at a sequence length that is no multiple of the reference's 16-key
 chunks; and a variant with every optional layer of the ``attn:mlp``
 kind switched on (GeGLU, scaled and tied embeddings, q/k norms,
-post-norms, logit soft-capping), as the gemma configs use them.  Then
+post-norms, logit soft-capping), as the gemma configs use them; and
+gemma-7b at d_model 64 with two heads of 256, the head dim that
+``reduced()`` (16) would miss.  Then gemma3-4b's sliding-window layers
+with their ring-buffer caches, prefilled past the window and decoded
+until the ring wraps twice, and the int8 KV cache.  Then
 reduced mamba2-130m (the ``ssd:none`` kind: the SSD mixer, whose chunked
 scan takes K5's plain version here, and no FFN), against the reference's
 ``ssd_scan``, ``ssd_forward``, ``ssd_decode_step`` and ``LM``.
@@ -45,13 +49,17 @@ from repro_torch.serving.backends import bucket_capacity, weight_bytes
 LAYER_TOL = 1e-5
 MODEL_TOL = 5e-5
 
+# name -> (architecture whose reduced() config is the base, overrides).
 CONFIGS = {
-    "reduced": {},
-    "gqa4-ragged": {"num_heads": 8, "num_kv_heads": 2},
-    "all-options": {"activation": "geglu", "embed_scale": True, "tie_embeddings": True,
-                    "qk_norm": True, "post_norms": True, "logit_softcap": 30.0},
+    "reduced": ("tinyllama-1.1b", {}),
+    "gqa4-ragged": ("tinyllama-1.1b", {"num_heads": 8, "num_kv_heads": 2}),
+    "all-options": ("tinyllama-1.1b",
+                    {"activation": "geglu", "embed_scale": True, "tie_embeddings": True,
+                     "qk_norm": True, "post_norms": True, "logit_softcap": 30.0}),
+    "gemma-d256": ("gemma-7b", {"num_heads": 2, "num_kv_heads": 2, "head_dim": 256,
+                                "num_layers": 2}),
 }
-SEQ = {"reduced": 16, "gqa4-ragged": 37, "all-options": 21}
+SEQ = {"reduced": 16, "gqa4-ragged": 37, "all-options": 21, "gemma-d256": 19}
 
 
 def _port_cfg(jcfg) -> ModelConfig:
@@ -61,7 +69,8 @@ def _port_cfg(jcfg) -> ModelConfig:
 @pytest.fixture(scope="module", params=list(CONFIGS))
 def pair(request):
     """(name, JAX cfg, JAX LM, JAX params, port cfg, port LM, port params)."""
-    jcfg = dataclasses.replace(J_ARCHS["tinyllama-1.1b"].reduced(), **CONFIGS[request.param])
+    arch, overrides = CONFIGS[request.param]
+    jcfg = dataclasses.replace(J_ARCHS[arch].reduced(), **overrides)
     jlm = JLM(jcfg)
     jparams = jlm.init(seed=3)
     cfg = _port_cfg(jcfg)
@@ -132,7 +141,7 @@ def _x(cfg, b, s, seed):
     return np.random.default_rng(seed).normal(size=(b, s, cfg.d_model)).astype(np.float32)
 
 
-@pytest.mark.parametrize("pair", ["reduced", "gqa4-ragged"], indirect=True)
+@pytest.mark.parametrize("pair", ["reduced", "gqa4-ragged", "gemma-d256"], indirect=True)
 def test_attn_forward_matches_reference(pair):
     name, jcfg, _, jparams, cfg, _, params = pair
     x = _x(cfg, 2, SEQ[name], 4)
@@ -144,7 +153,7 @@ def test_attn_forward_matches_reference(pair):
     _close(v, v_ref, LAYER_TOL)
 
 
-@pytest.mark.parametrize("pair", ["reduced", "gqa4-ragged"], indirect=True)
+@pytest.mark.parametrize("pair", ["reduced", "gqa4-ragged", "gemma-d256"], indirect=True)
 def test_attn_decode_matches_reference(pair):
     """One token at position 9 against caches whose first 9 slots hold
     random keys: the output, and the new K/V written at slot 9 (in place
@@ -224,7 +233,7 @@ def _decode_into_matches_reference(jlm, jparams, cfg, lm, params, seq, seed, tol
     assert tok.dtype == torch.int32 and int(cache["pos"]) == seq + steps
 
 
-@pytest.mark.parametrize("pair", ["reduced", "all-options"], indirect=True)
+@pytest.mark.parametrize("pair", ["reduced", "all-options", "gemma-d256"], indirect=True)
 def test_decode_into_matches_reference_decode_loop(pair):
     name, _, jlm, jparams, cfg, lm, params = pair
     _decode_into_matches_reference(jlm, jparams, cfg, lm, params, SEQ[name], 20, MODEL_TOL)
@@ -290,6 +299,140 @@ def test_lm_generate_matches_reference(pair):
     clear = np.cumprod(np.stack(margins, axis=1) > 2 * MODEL_TOL, axis=1).astype(bool)
     assert clear.any()
     np.testing.assert_array_equal(out[clear], ref[clear])
+
+
+# ---------------------------------------------------------------- sliding window, int8 cache
+
+
+def _ref_layer(tree, cfg, i):
+    """Layer i's entry of the reference's stacked cache (or params) tree."""
+    full = cfg.n_periods * cfg.period
+    if i < full:
+        return jax.tree.map(lambda t: t[i // cfg.period], tree["blocks"][i % cfg.period])
+    return tree["tail"][i - full]
+
+
+def _ported(jcfg, seed):
+    """(JAX LM, its params, port cfg, port LM, the same weights in the port)."""
+    jlm = JLM(jcfg)
+    jparams = jlm.init(seed=seed)
+    cfg = _port_cfg(jcfg)
+    params = convert.lm_params_from_arrays(cfg, jax.tree.map(np.asarray, jparams), device="cpu")
+    return jlm, jparams, cfg, LM(cfg), params
+
+
+@pytest.fixture(scope="module")
+def gemma3_pair():
+    """gemma3-4b.reduced(): 13 layers, 5 local (window 16) + 1 global per
+    period and one local tail layer; q/k norms, post-norms, local and
+    global rope thetas."""
+    jcfg = J_ARCHS["gemma3-4b"].reduced()
+    assert jcfg.window_size == 16 and jcfg.num_layers == 13
+    return _ported(jcfg, seed=4)
+
+
+def test_gemma3_forward_matches_reference(gemma3_pair):
+    """A 40-token sequence, 24 positions past the window: K3's windowed
+    path in every local layer."""
+    jlm, jparams, cfg, lm, params = gemma3_pair
+    tokens = _tokens(cfg, 2, 40, 31)
+    ref, _ = jlm.forward(jparams, jnp.asarray(tokens))
+    _close(lm.forward(params, torch.as_tensor(tokens)), ref, MODEL_TOL)
+
+
+@pytest.mark.parametrize("prompt", [21, 9], ids=["past-window", "inside-window"])
+def test_gemma3_ring_decode_matches_reference(gemma3_pair, prompt):
+    """Prefill, then decode until the rings have wrapped twice (position
+    21 or 9 up to 56, slots pos % 16): logits at every step, and the ring
+    caches of layers 0 and 12 and the global cache of layer 5, slot for
+    slot, after prefill and at the end.  Both sides are fed the
+    reference's greedy tokens."""
+    jlm, jparams, cfg, lm, params = gemma3_pair
+    max_len = 56
+    tokens = _tokens(cfg, 2, prompt, 32)
+    decode = jax.jit(jlm.decode_step)
+    logits_ref, cache_ref = jlm.prefill(jparams, jnp.asarray(tokens), max_len=max_len)
+    logits, cache = lm.prefill(params, torch.as_tensor(tokens), max_len=max_len)
+
+    def check_caches():
+        for i in (0, 5, 12):
+            ref = _ref_layer(cache_ref, cfg, i)
+            for name in ("k", "v"):
+                assert cache["layers"][i][name].shape == ref[name].shape
+                _close(cache["layers"][i][name], ref[name], MODEL_TOL)
+
+    _close(logits, logits_ref, MODEL_TOL)
+    assert cache["layers"][0]["k"].shape[1] == 16 and cache["layers"][5]["k"].shape[1] == max_len
+    check_caches()
+    for step in range(max_len - prompt):
+        tok = np.array(jnp.argmax(logits_ref, axis=-1), np.int32)[:, None]
+        logits_ref, cache_ref = decode(jparams, cache_ref, jnp.asarray(tok))
+        logits, cache = lm.decode_step(params, cache, torch.as_tensor(tok))
+        _close(logits, logits_ref, MODEL_TOL)
+    assert int(cache["pos"]) == int(cache_ref["pos"]) == max_len
+    check_caches()
+
+
+def test_gemma3_decode_into_matches_reference_decode_loop(gemma3_pair):
+    """Greedy ``decode_into`` on static buffers across the ring's first wrap."""
+    jlm, jparams, cfg, lm, params = gemma3_pair
+    _decode_into_matches_reference(jlm, jparams, cfg, lm, params, 14, 33, MODEL_TOL)
+
+
+def test_kv_quantize_matches_reference():
+    """The same inputs give the same int8 codes and scales, exact ties
+    (values at half a step, rounded to even) included."""
+    rng = np.random.default_rng(40)
+    x = rng.normal(size=(2, 5, 3, 16)).astype(np.float32)
+    x[0, 0, 0] = np.arange(16, dtype=np.float32) - 7.5  # absmax 8.5: codes at .5 steps
+    x[0, 0, 0, -1] = 127.0 / 16  # absmax 127/16, scale 1/16: x * 16 lands on ties
+    x[0, 0, 0, :8] = np.arange(8, dtype=np.float32) / 32
+    x[1, 0] = 0.0  # an all-zero row takes the 1e-8 floor
+    from repro.models.blocks import _kv_quant
+
+    codes_ref, scale_ref = _kv_quant(jnp.asarray(x))
+    codes, scale = t_attn.kv_quantize(torch.as_tensor(x))
+    assert codes.dtype == torch.int8 and scale.dtype == torch.float32
+    np.testing.assert_array_equal(codes.numpy(), np.asarray(codes_ref))
+    np.testing.assert_array_equal(scale.numpy(), np.asarray(scale_ref))
+
+
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "gemma3-4b"])
+def test_kv_quant_matches_reference(arch):
+    """``kv_quant=True``: prefill and four decode steps.  Logits within
+    MODEL_TOL at every step; after prefill the scales within MODEL_TOL and
+    the codes equal wherever the unrounded code (from the reference's
+    float cache: prefill attends to the unquantised K/V, so the values
+    quantised are the float model's) lies more than 1e-3 from a tie."""
+    base = J_ARCHS[arch].reduced()
+    jlm, jparams, cfg, lm, params = _ported(dataclasses.replace(base, kv_quant=True), seed=5)
+    s, steps = 21, 4
+    tokens = _tokens(cfg, 2, s, 41)
+    logits_ref, cache_ref = jlm.prefill(jparams, jnp.asarray(tokens), max_len=s + steps)
+    logits, cache = lm.prefill(params, torch.as_tensor(tokens), max_len=s + steps)
+    _close(logits, logits_ref, MODEL_TOL)
+    _, float_ref = JLM(base).prefill(jparams, jnp.asarray(tokens), max_len=s + steps)
+    compared = 0
+    for i in range(cfg.num_layers):
+        ref, flt, mine = _ref_layer(cache_ref, cfg, i), _ref_layer(float_ref, cfg, i), \
+            cache["layers"][i]
+        assert sorted(mine) == ["k", "k_scale", "v", "v_scale"]
+        filled = min(s, mine["k"].shape[1])  # slots the prompt wrote
+        for name in ("k", "v"):
+            assert mine[name].dtype == torch.int8
+            _close(mine[name + "_scale"], ref[name + "_scale"], MODEL_TOL)
+            unrounded = (np.asarray(flt[name], np.float64)[:, :filled]
+                         / np.asarray(ref[name + "_scale"])[:, :filled])
+            clear = np.abs(np.abs(unrounded - np.floor(unrounded)) - 0.5) > 1e-3
+            np.testing.assert_array_equal(mine[name].numpy()[:, :filled][clear],
+                                          np.asarray(ref[name])[:, :filled][clear])
+            compared += int(clear.sum())
+    assert compared > 0
+    for t in range(steps):
+        tok = np.array(jnp.argmax(logits_ref, axis=-1), np.int32)[:, None]
+        logits_ref, cache_ref = jlm.decode_step(jparams, cache_ref, jnp.asarray(tok))
+        logits, cache = lm.decode_step(params, cache, torch.as_tensor(tok))
+        _close(logits, logits_ref, MODEL_TOL)
 
 
 # ---------------------------------------------------------------- sizes and init
@@ -366,17 +509,14 @@ def test_bf16_config_runs_on_cpu():
 
 
 def test_unported_layer_kinds_raise():
-    """Sliding-window and recurrent mixers, MoE FFNs, the int8 KV cache and
-    SSD with more than one group raise, naming their ROADMAP item; the
-    ``ssd:none`` kind runs."""
+    """Recurrent mixers, MoE FFNs and SSD with more than one group raise,
+    naming their ROADMAP item; the ``ssd:none`` kind runs."""
     base = ARCHS["tinyllama-1.1b"].reduced()
-    for kind in ("local:mlp", "rglru:mlp", "attn:moe"):
+    for kind in ("rglru:mlp", "attn:moe"):
         cfg = dataclasses.replace(base, pattern=(kind,), window_size=16, lru_width=64,
                                   num_experts=4, moe_d_ff=128)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             LM(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LM(dataclasses.replace(base, kv_quant=True))
     mamba = ARCHS["mamba2-130m"].reduced()
     with pytest.raises(NotImplementedError, match="ROADMAP.*ngroups"):
         LM(dataclasses.replace(mamba, ssd_ngroups=2))

@@ -58,6 +58,12 @@ J_FAMILIES = {
 }
 FAMILY_PROFILES = [("mamba2-130m", [0.72, 0.70], 0.010, 0.02),
                    ("tinyllama-1.1b", [0.84, 0.82], 0.030, 0.06)]
+# The three families of examples/edge_serving.py, gemma-7b with its
+# recalls; reduced gemma-7b keeps GeGLU, the scaled tied embedding and MHA.
+J_THREE = dict(J_FAMILIES, **{"gemma-7b": (J_ARCHS["gemma-7b"].reduced(), 2)})
+# Its profile makes both policies pick it for some requests and mamba2-130m
+# for others on this trace (tinyllama-1.1b is offered and never chosen).
+THREE_PROFILES = FAMILY_PROFILES + [("gemma-7b", [0.94, 0.92], 0.035, 0.03)]
 
 
 def _port_variants(variants=J_VARIANTS):
@@ -152,9 +158,10 @@ def _serve_both(policy, knn_split, variants, profiles):
     return jexec, jouts, jstats, touts, tstats
 
 
-def _check_served(jexec, jouts, jstats, touts, tstats, variants):
-    """Equal statistics, the same batches on the same models, and equal
-    tokens wherever the reference's top-2 margin clears the tolerance."""
+def _check_served(jexec, jouts, jstats, touts, tstats, variants, used=None):
+    """Equal statistics, the same batches on the same models (``used``, all
+    the variants unless given), and equal tokens wherever the reference's
+    top-2 margin clears the tolerance."""
     for key in ("windows", "requests", "violations", "swaps"):
         assert getattr(tstats, key) == getattr(jstats, key), key
     assert tstats.mean_utility == jstats.mean_utility
@@ -163,7 +170,7 @@ def _check_served(jexec, jouts, jstats, touts, tstats, variants):
     jreports = [r for o in jouts for r in o["reports"]]
     treports = [r for o in touts for r in o["reports"]]
     assert len(treports) == len(jreports) > 1
-    assert {r.model for r in treports} == set(variants)
+    assert {r.model for r in treports} == set(variants if used is None else used)
     compared = 0
     for tr, jr in zip(treports, jreports):
         assert (tr.request_ids, tr.model, tr.batch_size, tr.swap_s) == \
@@ -185,6 +192,15 @@ def test_edge_server_two_families_match_reference(policy, knn_split):
     """Reduced mamba2-130m beside reduced tinyllama-1.1b: both families
     serve batches, and the statistics equal the reference's."""
     _check_served(*_serve_both(policy, knn_split, J_FAMILIES, FAMILY_PROFILES), J_FAMILIES)
+
+
+@pytest.mark.parametrize("policy", ["Grouped", "SneakPeek"])
+def test_edge_server_three_families_match_reference(policy, knn_split):
+    """Reduced gemma-7b offered beside reduced mamba2-130m and
+    tinyllama-1.1b: the statistics and every decision equal the
+    reference's, and gemma-7b serves batches."""
+    _check_served(*_serve_both(policy, knn_split, J_THREE, THREE_PROFILES), J_THREE,
+                  used={"gemma-7b", "mamba2-130m"})
 
 
 def test_lm_executor_matches_reference():
@@ -234,6 +250,48 @@ def test_backend_shares_decode_buffers_across_ragged_batches():
         key=str)
     assert texec.backend.graph_stats() == {"graphs": 0, "captures": 0, "replays": 0,
                                            "capture_s": 0.0}  # eager on the host
+
+
+def test_backend_shares_one_cache_per_capacity():
+    """The decode buffers of one (variant, capacity) decode on the leading
+    rows of one cache, made at the largest batch size the variant has
+    decoded: a batch of 3 after one of 2 makes a 3-row cache and retires
+    the 2-row key, which is made again on the new cache; batches of 1
+    start on it too, and a batch of 1 at a new capacity makes a 3-row
+    cache at once, so a later batch of 3 there retires nothing.  A model
+    without attention gives each batch size a cache of its own.  Tokens
+    equal the reference's wherever its top-2 margin clears the
+    tolerance."""
+    jexec, texec = _executors(J_FAMILIES)
+    backend = texec.backend
+    rng = np.random.default_rng(4)
+    compared = 0
+    for name in J_FAMILIES:
+        for b, s in ((2, 9), (3, 9), (2, 9), (1, 9), (1, 300), (3, 300)):
+            prompts = rng.integers(0, _BASE.vocab_size, (b, s)).astype(np.int32)
+            jr = jexec.backend.run_batch(name, prompts, list(range(b)))
+            tr = backend.run_batch(name, prompts, list(range(b)))
+            clear = np.cumprod(_margins(jexec, jr, prompts) > TOKEN_TOL, axis=1).astype(bool)
+            np.testing.assert_array_equal(tr.tokens[clear], jr.tokens[clear])
+            compared += int(clear.sum())
+    assert compared > 0
+    for cap in (256, 512):
+        rows, layers, _ = backend._caches[("tinyllama-1.1b", cap)]
+        assert rows == 3
+        for b in ((1, 2, 3) if cap == 256 else (1, 3)):
+            dec = backend._decoders[("tinyllama-1.1b", b, cap)]
+            for mine, shared in zip(dec.cache["layers"], layers):
+                for n, t in mine.items():
+                    assert t.data_ptr() == shared[n].data_ptr() and t.shape[0] == b
+    assert backend.graph_stats() == {"graphs": 0, "captures": 0, "replays": 0,
+                                     "capture_s": 0.0}
+    assert set(backend._caches) == {("tinyllama-1.1b", 256), ("tinyllama-1.1b", 512)}
+    ptrs = set()
+    for b in (1, 2, 3):
+        layer = backend._decoders[("mamba2-130m", b, None)].cache["layers"][0]
+        assert all(t.shape[0] == b for t in layer.values())
+        ptrs.update(t.data_ptr() for t in layer.values())
+    assert len(ptrs) == 3 * len(layer)
 
 
 def test_swap_manager_matches_reference():
