@@ -5,7 +5,7 @@
 
 Builds the port's five CUDA kernels from the checkout's sources, holds
 each against its plain PyTorch version at its path's shapes and times
-both, then drives two paths of the port on the card:
+both, then drives three paths of the port on the card:
 
 * scheduling (phases 3-5): a SneakPeek ``Simulation`` over a stream of
   4096-request windows against k-NN training sets of 100,000 points per
@@ -24,7 +24,13 @@ both, then drives two paths of the port on the card:
   gemma-7b (28 attention layers of 16 heads of 256; prefill through K3,
   decode through K4), all bf16, decode replayed from CUDA graphs, and
   the same traffic on each family alone, with the peak device memory of
-  each run.
+  each run;
+* the pool (phase 10): ``EdgeServer(workers=[Worker(0), Worker(1,
+  speed=2.0)])`` placing each window by Eq. 15 (one K1 launch per
+  placement step) on mamba2-130m and tinyllama-1.1b, its lanes run from
+  two threads on one card, then as two spawned processes (mamba2-130m
+  alone), then through ``CompiledBackend``, with exact launch counts per
+  lane and every window's placement held against the host path.
 
 Every check raises on failure.  The last three lines of standard output
 are the card's name and power limit, the kernel table and
@@ -36,6 +42,7 @@ result, when CUDA is absent or the port's sources are not beside it.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import subprocess
 import sys
@@ -108,8 +115,12 @@ def device_ms(fn, kernel: str, iters: int, parts=(), attempts: int = 5):
         counts = {part: sum(part in e.name for e in events) for part in parts}
         if len(events) >= iters and all(n == iters for n in counts.values()):
             break
+        names = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                names[e.name[:50]] = names.get(e.name[:50], 0) + 1
         print(f"    profiler saw {len(events)} {kernel} kernels ({counts}) for {iters} calls "
-              f"(attempt {attempt} of {attempts})")
+              f"(attempt {attempt} of {attempts}); its CUDA events: {names}")
     require(len(events) >= iters, f"profiler saw {len(events)} {kernel} kernels for {iters} calls")
     total = sum(e.time_range.elapsed_us() for e in events) / 1e3 / iters
     if not parts:
@@ -388,7 +399,39 @@ def check_utility(group_shape, seed):
     timing["max_abs_err"] = max(float((uk - ur).abs().max()), float((mk - mr).abs().max()))
     timing["library_ms"] = None  # no single PyTorch call computes Eq. 2
     timing["shape"] = f"R={r} M={m}"
+    timing["placement"] = _placement_timing(rng)
     return timing
+
+
+# A placement step's tile in phase 10: B rows (the largest group of a
+# 64-request window on the pool is 7 rows) by W*M = 2 workers x 2 models.
+PLACEMENT_SHAPE = (8, 4)
+
+
+def _placement_timing(rng):
+    """K1 timed at ``PLACEMENT_SHAPE`` with its sums, sigmoid, f64."""
+    import torch
+
+    from repro_torch.kernels.utility import ops as util_ops
+    from repro_torch.kernels.utility.ref import utility_scores_ref
+
+    b, cols = PLACEMENT_SHAPE
+    a = torch.as_tensor(rng.uniform(0.3, 1.0, (b, cols)), device="cuda")
+    d = torch.as_tensor(rng.uniform(0.01, 1.0, b), device="cuda")
+    e = torch.as_tensor(rng.uniform(0.0, 1.2, cols), device="cuda")
+    call = lambda: util_ops.utility_scores(a, d, e, "sigmoid")  # noqa: E731
+    bytes_moved = 8 * (b * cols + b + cols + b * cols + cols)
+    flops = 12 * b * cols + b * cols
+    uk, mk = call()
+    ur, mr = utility_scores_ref(a, d, e, "sigmoid")
+    t = {"shape": f"R={b} M={cols} (B x W*M)", "library_ms": None,
+         "max_abs_err": max(float((uk - ur).abs().max()), float((mk - mr).abs().max())),
+         "ms": device_ms(call, "utility_", iters=200), "call_ms": timed_ms(call, iters=200),
+         "plain_ms": timed_ms(lambda: utility_scores_ref(a, d, e, "sigmoid"), iters=20),
+         "bound_ms": max(bytes_moved / HBM_BYTES_PER_S, flops / FP64_FLOP_PER_S) * 1e3,
+         "bound_by": ("operations" if flops / FP64_FLOP_PER_S > bytes_moved / HBM_BYTES_PER_S
+                      else "bytes")}
+    return t
 
 
 def small_reference_check(seed):
@@ -910,13 +953,53 @@ def _two_class_set(rng, n, dim, sep):
     return (centres[labels] + rng.normal(size=(n, dim))).astype(np.float32), labels
 
 
+def serving_prompt_fn(vocab):
+    """Prompts of 128-1024 tokens below ``vocab``, seeded per request (the
+    pool's lanes call it from several threads)."""
+    import numpy as np
+
+    def prompt_fn(req):
+        rng = np.random.default_rng(req.rid)
+        return rng.integers(0, vocab, int(rng.integers(128, 1025))).astype(np.int32)
+
+    return prompt_fn
+
+
+def serving_sneakpeek(args):
+    """The serving phases' k-NN SneakPeek model: 20,000 two-class points,
+    D = 32, on the card."""
+    import numpy as np
+
+    from repro_torch.core.sneakpeek import KNNSneakPeek
+
+    rng = np.random.default_rng(args.seed + 9)
+    train_x, train_y = _two_class_set(rng, 20_000, 32, 0.25)
+    return KNNSneakPeek(train_x, train_y, 2, k=args.k, device="cuda")
+
+
+def serving_trace(args, rid0):
+    """The serving traffic: ``args.serve_requests`` requests 10 ms apart,
+    deadlines 0.2, 0.5 or 1.0 s after arrival; ids from ``rid0``."""
+    import numpy as np
+
+    from repro_torch.core.types import Request
+
+    trng = np.random.default_rng(args.seed + 10)
+    feats, labels = _two_class_set(trng, args.serve_requests, 32, 0.25)
+    slack = trng.choice([0.2, 0.5, 1.0], size=args.serve_requests)
+    return [Request(rid=rid0 + i, app="assistant", arrival_s=0.01 * i,
+                    deadline_s=0.01 * i + float(slack[i]), features=feats[i],
+                    true_label=int(labels[i]))
+            for i in range(args.serve_requests)]
+
+
 def serve_main_path(args):
     """Phase 9: ``EdgeServer`` serving one application from mamba2-130m,
     tinyllama-1.1b and gemma-7b at full width, then the same traffic on
     each family alone.  Every launch count is set to 0 just before each
     run and read just after; each run's launches must be exactly what its
     batches need.  Returns the launches of the three-family run, the main
-    path."""
+    path, and the fitted profiles of the three families."""
     import numpy as np
     import torch
     from torch.autograd import DeviceType
@@ -925,8 +1008,7 @@ def serve_main_path(args):
     from repro_torch import kernels
     from repro_torch.configs import ARCHS
     from repro_torch.core.scheduler import make_policy
-    from repro_torch.core.sneakpeek import KNNSneakPeek
-    from repro_torch.core.types import Application, Request
+    from repro_torch.core.types import Application
     from repro_torch.serving.backends import ProfiledBackend, bucket_capacity
     from repro_torch.serving.runtime import LMExecutor
     from repro_torch.serving.server import EdgeServer
@@ -947,9 +1029,7 @@ def serve_main_path(args):
     # every prompt is valid for both families.
     vocab = min(cfg.vocab_size for cfg, _ in variants.values())
 
-    def prompt_fn(req):
-        rng = np.random.default_rng(req.rid)
-        return rng.integers(0, vocab, int(rng.integers(128, 1025))).astype(np.int32)
+    prompt_fn = serving_prompt_fn(vocab)
 
     t0 = time.perf_counter()
     warm = np.random.default_rng(args.seed).integers(0, vocab, (8, 512)).astype(np.int32)
@@ -1018,18 +1098,10 @@ def serve_main_path(args):
               f"{backend.model_bytes(name) / HBM_BYTES_PER_S * 1e3:.4f} ms at "
               f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s")
 
-    rng = np.random.default_rng(args.seed + 9)
-    train_x, train_y = _two_class_set(rng, 20_000, 32, 0.25)
-    sneak = KNNSneakPeek(train_x, train_y, 2, k=args.k, device="cuda")
+    sneak = serving_sneakpeek(args)
 
     def trace(rid0):
-        trng = np.random.default_rng(args.seed + 10)
-        feats, labels = _two_class_set(trng, args.serve_requests, 32, 0.25)
-        slack = trng.choice([0.2, 0.5, 1.0], size=args.serve_requests)
-        return [Request(rid=rid0 + i, app="assistant", arrival_s=0.01 * i,
-                        deadline_s=0.01 * i + float(slack[i]), features=feats[i],
-                        true_label=int(labels[i]))
-                for i in range(args.serve_requests)]
+        return serving_trace(args, rid0)
 
     def serve(names, reqs):
         app = Application(name="assistant", models=[profiles[n] for n in names],
@@ -1161,6 +1233,263 @@ def serve_main_path(args):
               + f"; K4 kernels traced {seen_k4} of {traced_k4} launched")
         top = sorted(by_name.items(), key=lambda x: -x[1])[:8]
         print("    top kernels: " + "; ".join(f"{n} {v:.6f} s" for n, v in top))
+    return launches, profiles
+
+
+def _launches_wanted(layer_counts, models, new_tokens):
+    """{kernel: launches} of prefill and greedy decode of one forward per
+    entry of ``models``: K5 once per SSD layer and K3 once per attention
+    layer of each prefill, K4 once per attention layer of each of its
+    ``new_tokens - 1`` decode steps."""
+    ssd = sum(layer_counts[m][0] for m in models)
+    attn = sum(layer_counts[m][1] for m in models)
+    return {"ssd": ssd, "flash_attention": attn, "decode_attention": (new_tokens - 1) * attn}
+
+
+def _placement_sig(sched):
+    return [(e.request.rid, e.model, e.order, e.batch_id, e.worker, e.est_start_s,
+             e.est_latency_s) for e in sched.sorted_entries()]
+
+
+def check_placement_kernel(b, cols, seed):
+    """K1 at a placement step's shape, one (B, W*M) tile against (W*M,)
+    completions with the column sums, against its plain version: f64
+    bit-identical."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.utility import ops as util_ops
+    from repro_torch.kernels.utility.ref import utility_scores_ref
+
+    rng = np.random.default_rng(seed)
+    for penalty in ("step", "linear", "sigmoid", "none"):
+        a = torch.as_tensor(rng.uniform(0.3, 1.0, (b, cols)), device="cuda")
+        d = torch.as_tensor(rng.uniform(0.01, 1.0, b), device="cuda")
+        e = torch.as_tensor(rng.uniform(0.0, 1.2, cols), device="cuda")
+        uk, mk = util_ops.utility_scores(a, d, e, penalty)
+        ur, mr = utility_scores_ref(a, d, e, penalty)
+        torch.cuda.synchronize()
+        require(torch.equal(uk, ur) and torch.equal(mk, mr),
+                f"K1 at the placement shape {(b, cols)}, {penalty}: not bit-identical")
+
+
+def serve_pool_path(args, profiles):
+    """Phase 10: the multi-worker pool on the card.  Two workers, one twice
+    as fast (a pool of tests/test_pipeline.py), SneakPeek's Eq. 15
+    placement (one K1 launch per placement step), the phase 9 traffic.
+
+    (a) thread lanes at full width on mamba2-130m and tinyllama-1.1b, two
+    runs over one pool (the first captures the lanes' decode graphs); (b)
+    process lanes on mamba2-130m alone against thread lanes on the same
+    traffic; (c) the pool through ``CompiledBackend`` lanes.  Every run
+    sets the launch counts to 0 just before it and reads them just after:
+    K3/K4/K5 exactly what each lane's batches need, K1 one launch per
+    placement step plus the commit's one per window; every window's
+    placement equals the host path's (``device="cpu"``) on the same
+    requests and state; peak device memory under 80 GB.  Returns the
+    launches of run (a) 2."""
+    import copy
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.configs import ARCHS
+    from repro_torch.core.multiworker import Worker
+    from repro_torch.core.scheduler import make_policy
+    from repro_torch.core.types import Application
+    from repro_torch.serving.backends import CompiledBackend, ProfiledBackend
+    from repro_torch.serving.runtime import ExecutorPool, LMExecutor
+    from repro_torch.serving.server import EdgeServer
+
+    mamba, llama = "mamba2-130m", "tinyllama-1.1b"
+    variants = {mamba: (ARCHS[mamba], 0), llama: (ARCHS[llama], 1)}
+    new_tokens = 16
+    prompt_fn = serving_prompt_fn(min(cfg.vocab_size for cfg, _ in variants.values()))
+    sneak = serving_sneakpeek(args)
+    workers = [Worker(0), Worker(1, speed=2.0)]
+    speed = {w.wid: w.speed for w in workers}
+    layer_counts = {
+        name: tuple(sum(cfg.layer_kind(i).partition(":")[0] in kinds
+                        for i in range(cfg.num_layers)) for kinds in (("ssd",), ("attn", "local")))
+        for name, (cfg, _) in variants.items()}
+    limit = 80e9
+
+    def app_of(names):
+        return {"assistant": Application(name="assistant", models=[profiles[n] for n in names],
+                                         penalty="sigmoid")}
+
+    def serve(label, names, rid0, pool, expect_from_reports=True):
+        """One run over ``pool``; checks and prints it.  Returns (per-window
+        schedules, reports, launches)."""
+        reqs = serving_trace(args, rid0)
+        server = EdgeServer(app_of(names), make_policy("SneakPeek"), executor=pool,
+                            workers=workers, sneakpeeks={"assistant": sneak},
+                            prompt_fn=prompt_fn, device="cuda")
+        lane0 = pool.launch_counts
+        busy0, swaps0, wall0 = pool.busy_s, pool.swap_counts, pool.wall_s
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t = time.perf_counter()
+        outs, stats = server.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        lanes = {w: {k: n - lane0[w].get(k, 0) for k, n in c.items() if n != lane0[w].get(k, 0)}
+                 for w, c in pool.launch_counts.items()}
+        reports = [r for o in outs for r in (o["reports"] or [])]
+        scheds = [o["schedule"] for o in outs]
+        steps = sum(len({e.batch_id for e in s.entries}) for s in scheds)
+        groups = [sum(1 for e in s.entries if e.batch_id == b)
+                  for s in scheds for b in {e.batch_id for e in s.entries}]
+        tokens = sum(r.tokens.size for r in reports)
+        raw = {w: sum((r.prefill_s + r.decode_s) * speed[w] for r in reports if r.worker == w)
+               for w in speed}
+        busy = {w: pool.busy_s[w] - busy0[w] for w in speed}
+        util = {w: busy[w] / max(pool.wall_s - wall0, 1e-12) for w in speed}
+        print(f"    {label}: windows={stats.windows} requests={stats.requests} "
+              f"mean_utility={stats.mean_utility:.6f} violations={stats.violations} "
+              f"batches={len(reports)} placement steps={steps} (groups of "
+              f"{min(groups)}-{max(groups)}) wall {wall:.3f} s")
+        for w in speed:
+            mine = [r for r in reports if r.worker == w]
+            print(f"      worker {w} (speed {speed[w]}): batches {len(mine)}, requests per model "
+                  f"{ {n: sum(r.batch_size for r in mine if r.model == n) for n in names} }, "
+                  f"swaps {pool.swap_counts[w] - swaps0[w]}, busy {busy[w]:.6f} s (speed-scaled; "
+                  f"measured {raw[w]:.6f} s), utilisation {util[w]:.4f} of the pool's wall, "
+                  f"launches {lanes[w]}")
+        print(f"      exec_wall_s {stats.exec_wall_s:.6f} s against {sum(raw.values()):.6f} s of "
+              f"the lanes' measured seconds summed (overlap "
+              f"{sum(raw.values()) / max(stats.exec_wall_s, 1e-12):.3f}x); {tokens} tokens, "
+              f"{tokens / max(stats.exec_wall_s, 1e-12):.1f} tokens/s over execution; "
+              f"scheduling {stats.sched_wall_s:.6f} s; peak device memory {peak / 1e9:.3f} GB")
+        print(f"      launches: {launches}")
+        require(stats.requests == len(reqs), f"{label}: not every request was served")
+        require(sum(r.batch_size for r in reports) == len(reqs), f"{label}: a request ran nowhere")
+        require(0.0 <= stats.mean_utility <= 1.0, f"{label}: mean utility {stats.mean_utility}")
+        require(peak < limit, f"{label}: peak device memory {peak / 1e9:.3f} GB")
+        for r in reports:
+            require(r.tokens.shape == (r.batch_size, new_tokens), f"tokens {r.tokens.shape}")
+            require(bool(((r.tokens >= 0) & (r.tokens < variants[r.model][0].vocab_size)).all()),
+                    "token outside the vocab")
+        require(launches.get("utility_scores", 0) == steps + stats.windows,
+                f"{label}: K1 launched {launches.get('utility_scores')} times, expected "
+                f"{steps} placement steps + {stats.windows} commits")
+        require(launches.get("knn_topk", 0) > 0, f"{label}: no k-NN kernel")
+        if expect_from_reports:
+            total = {}
+            for w in speed:
+                want = _launches_wanted(layer_counts, [r.model for r in reports if r.worker == w],
+                                        new_tokens)
+                for k, n in want.items():
+                    require(lanes[w].get(k, 0) == n,
+                            f"{label}: worker {w} launched {k} {lanes[w].get(k, 0)} times, "
+                            f"expected {n}")
+                    total[k] = total.get(k, 0) + n
+            for k, n in total.items():
+                require(launches.get(k, 0) == n,
+                        f"{label}: {k} launched {launches.get(k, 0)} times, expected {n}")
+        # The same windows on the host path: the card's evidence, no k-NN.
+        host = EdgeServer(app_of(names), make_policy("SneakPeek"), workers=workers,
+                          device="cpu")
+        host_outs, _ = host.run(copy.deepcopy(reqs))
+        require([_placement_sig(o["schedule"]) for o in host_outs] ==
+                [_placement_sig(s) for s in scheds],
+                f"{label}: the card's placements differ from the host path's")
+        print(f"      {len(scheds)} windows: the card's placements == the host path's")
+        return scheds, reports, launches, max(groups)
+
+    # (a) Thread lanes at full width: two runs over one pool.
+    t0 = time.perf_counter()
+    base = ProfiledBackend(variants, new_tokens=new_tokens, device="cuda")
+    pool = ExecutorPool.from_executor(LMExecutor(backend=base), workers, lane="thread")
+    print(f"  (a) thread lanes, {mamba} and {llama}, workers {workers}")
+    serve("run 1 (captures the lanes' decode graphs)", [mamba, llama], 50_000, pool)
+    _, reports, launches, biggest = serve("run 2", [mamba, llama], 60_000, pool)
+    for w, lane in pool.lanes.items():
+        print(f"      worker {w} decode graphs: {lane.executor.backend.graph_stats()}")
+    for w in speed:
+        require(any(r.worker == w for r in reports), f"worker {w} served no batch")
+    for k in ("ssd", "flash_attention", "decode_attention"):
+        require(launches.get(k, 0) > 0, f"the pool launched no {k} kernel")
+    pool.close()
+    check_placement_kernel(biggest, len(workers) * len(variants), args.seed)
+    print(f"    K1 at the largest placement step, R={biggest} M={len(workers) * len(variants)} "
+          "(B x W*M): f64 bit-identical to its plain version, 4 penalties (timed in phase 4)")
+    del base, pool
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"    (a) {time.perf_counter() - t0:.1f} s")
+
+    # (b) Process lanes, mamba2-130m alone, against thread lanes.
+    t0 = time.perf_counter()
+    print(f"  (b) process lanes, {mamba} alone, against thread lanes on the same traffic")
+    runs = {}
+    for lane in ("thread", "process"):
+        lane_pool = ExecutorPool.from_executor(
+            LMExecutor(backend=ProfiledBackend({mamba: variants[mamba]}, new_tokens=new_tokens,
+                                               device="cuda")), workers, lane=lane)
+        try:
+            runs[lane] = serve(f"{lane} lanes", [mamba], 70_000, lane_pool)
+        finally:
+            lane_pool.close()
+    (ts, tr, _, _), (ps, pr, _, _) = runs["thread"], runs["process"]
+    require([_placement_sig(s) for s in ps] == [_placement_sig(s) for s in ts],
+            "process lanes: the schedule differs from the thread lanes'")
+    require([(r.worker, r.request_ids) for r in pr] == [(r.worker, r.request_ids) for r in tr],
+            "process lanes: the batches differ from the thread lanes'")
+    for a, b in zip(pr, tr):
+        require(np.array_equal(a.tokens, b.tokens),
+                f"process lanes: tokens of batch {a.request_ids} differ from the thread lanes'")
+    print(f"    process lanes: the same {len(ps)} windows' schedule and the same tokens in all "
+          f"{len(pr)} batches as the thread lanes; the children's launches arrived exactly")
+    print(f"    (b) {time.perf_counter() - t0:.1f} s")
+
+    # (c) CompiledBackend lanes.
+    t0 = time.perf_counter()
+    compiled = CompiledBackend(variants, new_tokens=new_tokens, device="cuda")
+    cpool = ExecutorPool(workers, backend_factory=compiled.spawn, lane="thread")
+    forwards = {}
+    for w, lane in cpool.lanes.items():
+        be = lane.executor.backend
+        forwards[w] = []
+
+        def counted(model_name, padded, class_token_ids, be=be, log=forwards[w]):
+            log.append(model_name)
+            return type(be)._forward(be, model_name, padded, class_token_ids)
+
+        be._forward = counted
+    print(f"  (c) CompiledBackend lanes (batch to a power of two, length to a multiple of "
+          f"{compiled.seq_multiple}; a lane runs its batches one by one, as the reference's "
+          f"lanes do), {mamba} and {llama}")
+    _, creports, claunches, _ = serve("compiled lanes", [mamba, llama], 80_000, cpool,
+                                      expect_from_reports=False)
+    total = {}
+    for w, lane in cpool.lanes.items():
+        be = lane.executor.backend
+        keys = sorted(be._decoders, key=str)
+        print(f"      worker {w}: bucketed shapes seen {sorted(be._warm)}; decode graphs "
+              f"{be.graph_stats()} over keys {keys}; {len(forwards[w])} forwards for "
+              f"{sum(r.worker == w for r in creports)} scheduled batches")
+        require(all(d.captures <= 1 for d in be._decoders.values()),
+                f"worker {w}: a (variant, bucketed batch, capacity) was captured twice")
+        obs = sum(len(v) for v in be._obs.values())
+        require(obs == len(forwards[w]) - len(be._warm),
+                f"worker {w}: the fit holds {obs} observations for {len(forwards[w])} "
+                f"forwards over {len(be._warm)} shapes: a first run was recorded")
+        for k, n in _launches_wanted(layer_counts, forwards[w], new_tokens).items():
+            total[k] = total.get(k, 0) + n
+    for k, n in total.items():
+        require(claunches.get(k, 0) == n,
+                f"compiled lanes: {k} launched {claunches.get(k, 0)} times, expected {n}")
+    cpool.close()
+    del compiled, cpool
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"    (c) {time.perf_counter() - t0:.1f} s")
     return launches
 
 
@@ -1297,6 +1626,10 @@ def main(argv=None) -> int:
               f"{t['plain_ms']:.6f} ms, bound {t['bound_ms']:.6f} ms ({t['bound_by']})")
     print(f"    utility_scores without the sums: {util_t['fill_ms']:.6f} ms at {util_t['shape']}, "
           f"{util_t['entry_ms']:.6f} ms at R=4096 M=1 (evaluate's per-entry tile)")
+    pt = util_t["placement"]
+    print(f"    utility_scores at a placement step's shape {pt['shape']}: kernel {pt['ms']:.6f} ms "
+          f"on the device, {pt['call_ms']:.6f} ms per wrapper call back to back, plain "
+          f"{pt['plain_ms']:.6f} ms, bound {pt['bound_ms']:.3e} ms ({pt['bound_by']})")
     print(f"    phases 1-5 {time.perf_counter() - t_start:.1f} s")
 
     print("[6] prefill flash-attention kernel (K3) against its plain version")
@@ -1331,7 +1664,14 @@ def main(argv=None) -> int:
     print(f"[9] serving main path: EdgeServer, SneakPeek, {args.serve_requests} requests on "
           "mamba2-130m (24 layers), tinyllama-1.1b (22 layers) and gemma-7b (28 layers), "
           "bf16, then on each alone")
-    serve_launches = serve_main_path(args)
+    serve_launches, profiles = serve_main_path(args)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"    phases 1-9 {time.perf_counter() - t_start:.1f} s")
+    print(f"[10] the pool: EdgeServer(workers=[Worker(0), Worker(1, speed=2.0)]), SneakPeek, "
+          f"{args.serve_requests} requests on mamba2-130m and tinyllama-1.1b (gemma-7b stays in "
+          "phase 9's single-executor runs), thread lanes, process lanes, CompiledBackend lanes")
+    pool = serve_pool_path(args, profiles)
 
     rows = [
         ("knn_topk", "knn/csrc/knn.cu", "knn/kernel.py:92", launches, knn_t),
@@ -1348,9 +1688,12 @@ def main(argv=None) -> int:
          "max_abs_err": t["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
          "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
          "shape": t["shape"],
-         **{key: t[key] for key in ("stage_ms", "at_d256", "windowed") if key in t}}
+         **{key: t[key] for key in ("stage_ms", "at_d256", "windowed", "placement")
+            if key in t}}
         for name, source, replaces, counts, t in rows
     ]}
+    for row in table["kernels"]:  # phase 10's run (a) 2, counted from 0
+        row["launches_pool"] = pool.get(row["name"], 0)
     print(f"    total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps(table))

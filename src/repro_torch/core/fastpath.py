@@ -14,10 +14,15 @@ from what they return:
              the scalar member order; ``score_entries`` scores a whole
              schedule through the same kernel.
   * Eq. 14 — group priorities as host numpy means, in the reference's form.
+  * Eq. 15 — multi-worker placement (``fast_multiworker_schedule``): each
+             placement step scores every (worker, model) candidate of a
+             group as one (B, W*M) tile through the kernel, whose column
+             means give the (W, M) member means; the pool's state is
+             arrays (``PoolArrays``).
 
 Decisions equal the reference's decision for decision.  Not ported yet:
-``PoolArrays``, ``fast_multiworker_schedule``, ``precompute_windows`` and
-``chunk_layout`` (multi-worker placement and the compiled pipeline).
+``precompute_windows`` and ``chunk_layout`` (the compiled pipeline,
+ROADMAP item 5).
 """
 from __future__ import annotations
 
@@ -42,6 +47,10 @@ __all__ = [
     "fast_per_request_schedule",
     "fast_grouped_schedule",
     "score_entries",
+    "placement_pref",
+    "PoolArrays",
+    "placement_means",
+    "fast_multiworker_schedule",
 ]
 
 
@@ -610,3 +619,290 @@ def score_entries(
         accs[idx] = a.cpu().numpy()
         utils[idx] = u.cpu().numpy()
     return accs, utils, completions, wa.deadlines
+
+
+# --------------------------------------------------------------------------
+# Fast multi-worker scheduling (paper §VII, Eq. 15)
+# --------------------------------------------------------------------------
+
+
+def placement_pref(
+    names: Sequence[str],
+    latency_s: np.ndarray,
+    speeds: np.ndarray,
+    wids: Sequence[int],
+    scale: np.ndarray | None = None,
+) -> np.ndarray:
+    """Flattened (worker, model) candidate preference permutation — the
+    Eq. 15 tie-break after utility: lower scaled latency, then larger
+    model name, then lower worker id.  First-max over this order equals
+    an argmax under the scalar key (u, -scaled latency, name, -wid).
+    ``scale`` is an optional (W, M) drift-correction multiplier on the
+    scaled latency, so the tie-break ranks candidates by the corrected
+    latencies the utilities were computed with."""
+    m = len(names)
+    rank = np.zeros(m, dtype=np.int64)
+    for pos, i in enumerate(sorted(range(m), key=lambda i: names[i])):
+        rank[i] = pos
+    slat = np.asarray(latency_s)[None, :] / np.asarray(speeds)[:, None]
+    if scale is not None:
+        slat = slat * np.asarray(scale)
+    wid_flat = np.repeat(np.asarray(wids), m)
+    rank_flat = np.tile(rank, len(speeds))
+    return np.lexsort((wid_flat, -rank_flat, slat.ravel())).astype(np.int64)
+
+
+@dataclasses.dataclass
+class PoolArrays:
+    """Array-encoded worker-pool state, the reference's §VII representation.
+
+    Per-worker busy-until times, fixed-size LRU residency slots (integer
+    model ids, oldest first, -1 empty), effective byte sizes, and
+    per-(worker, model) latency/swap tables scaled by each worker's
+    speed and load.  The capacity-``None`` single-slot residency is
+    folded into the same LRU rule via ``residency.single_slot_encoding``
+    (capacity 0 + unit sizes), so one update — ``touch_lru_array`` —
+    covers both.  Host numpy: the decisions are taken here.
+    """
+
+    workers: list  # multiworker.Worker, pool order
+    wids: list[int]
+    t: np.ndarray  # (W,) busy-until
+    res: np.ndarray  # (W, K) LRU slot ids, oldest first, -1 empty
+    sizes: np.ndarray  # (W, G) effective byte sizes (or units, single-slot)
+    capacity: float  # byte budget (0.0 encodes single-slot)
+    gids: dict[str, int]  # model name -> id
+    gid_names: list[str]
+    # Drift-correction scales {(wid, model name): s} — multiply the scaled
+    # latency tables (None: the profiled latencies).
+    lat_scale: dict | None = None
+    _tables: dict = dataclasses.field(default_factory=dict)
+
+    @classmethod
+    def build(cls, workers: Sequence, wa: "WindowArrays", state=None, now: float = 0.0,
+              lat_scale: Mapping | None = None):
+        """Encode ``state`` (or an idle pool at ``now``) against the
+        window's model universe plus any carried resident names."""
+        from repro_torch.core.residency import single_slot_encoding
+
+        gids: dict[str, int] = {}
+        defaults: list[float] = []
+        for app_name in wa.req_idx:
+            app = wa.app_arrays[app_name].app
+            for m in app.models:
+                if m.name not in gids:
+                    gids[m.name] = len(gids)
+                    defaults.append(float(m.memory_bytes))
+        if state is not None:
+            # Carried resident names outside the window's model universe
+            # still occupy LRU slots; their sizes come from the registered
+            # table when known, else 0 bytes (the host rule's
+            # ``sizes.get(n, 0)``).
+            for w in workers:
+                for name in state.peek_timeline(w.wid)._resident:
+                    if name not in gids:
+                        gids[name] = len(gids)
+                        defaults.append(0.0)
+        gid_names = list(gids)
+        n_ids = len(gid_names)
+        n_w = len(workers)
+        wids = [w.wid for w in workers]
+        if state is not None:
+            t, res, reg = state.to_arrays(gids, wids=wids, slots=n_ids)
+            t = np.maximum(t, float(now))
+        else:
+            t = np.full(n_w, float(now))
+            res = np.full((n_w, n_ids), -1, dtype=np.int64)
+            reg = np.full((n_w, n_ids), -1.0)
+        if state is None or state.capacity is None:
+            unit, capacity = single_slot_encoding(n_ids)
+            sizes = np.tile(unit, (n_w, 1))
+        else:
+            capacity = float(state.capacity)
+            # _touch setdefaults the profile's memory_bytes at load time,
+            # so the effective size is the registered one when present.
+            sizes = np.where(reg >= 0, reg, np.asarray(defaults)[None, :])
+        return cls(
+            workers=list(workers),
+            wids=wids,
+            t=t,
+            res=res,
+            sizes=sizes,
+            capacity=capacity,
+            gids=gids,
+            gid_names=gid_names,
+            lat_scale=dict(lat_scale) if lat_scale else None,
+        )
+
+    def scale_matrix(self, aa: AppArrays) -> np.ndarray | None:
+        """(W, M) drift-correction multipliers for one application's
+        variants (``None`` when no scale applies)."""
+        if not self.lat_scale:
+            return None
+        S = np.ones((len(self.workers), len(aa.names)))
+        hit = False
+        for wi, w in enumerate(self.workers):
+            for mi, name in enumerate(aa.names):
+                s = self.lat_scale.get((w.wid, name))
+                if s is not None:
+                    S[wi, mi] = s
+                    hit = True
+        return S if hit else None
+
+    def app_table(self, wa: "WindowArrays", app_name: str):
+        """Per-(worker, model) scaled tables and the flattened tie-break
+        order (``placement_pref``) of one application, cached per pool.
+        ``lat_scale`` multiplies the latency tables (and the tie-break
+        ranking); swap latencies are left alone."""
+        tab = self._tables.get(app_name)
+        if tab is None:
+            aa = wa.app_arrays[app_name]
+            speeds = np.array([w.speed for w in self.workers])
+            load_scales = np.array([w.load_scale for w in self.workers])
+            slat_fixed = aa.lat_fixed[None, :] / speeds[:, None]  # (W, M)
+            slat_item = aa.lat_item[None, :] / speeds[:, None]
+            scale = self.scale_matrix(aa)
+            if scale is not None:
+                slat_fixed = slat_fixed * scale
+                slat_item = slat_item * scale
+            tab = (
+                aa,
+                slat_fixed,
+                slat_item,
+                aa.swap[None, :] * load_scales[:, None],
+                placement_pref(aa.names, aa.latency_s, speeds, self.wids, scale=scale),
+                np.asarray([self.gids[n] for n in aa.names], dtype=np.int64),
+            )
+            self._tables[app_name] = tab
+        return tab
+
+    def resident_mask(self, gid_row: np.ndarray) -> np.ndarray:
+        """(W, M) bool: is ``gid_row[m]`` resident on worker w?"""
+        return (self.res[:, None, :] == gid_row[None, :, None]).any(axis=-1)
+
+    def place(self, wi: int, gid: int, completion: float) -> None:
+        """Commit one placement: set worker ``wi``'s busy-until time and
+        run the shared LRU residency update."""
+        from repro_torch.core.residency import touch_lru_array
+
+        self.t[wi] = completion
+        self.res[wi], _ = touch_lru_array(
+            self.res[wi], int(gid), self.sizes[wi], self.capacity
+        )
+
+
+def placement_means(acc: torch.Tensor, deadlines: torch.Tensor,
+                    completions: np.ndarray, penalty: str) -> np.ndarray:
+    """(W*M,) member means of one placement step: the group's (B, M)
+    accuracy rows repeated W times along the columns, worker-major (column
+    w*M + m), against the (W*M,) completions, through one launch of the
+    Eq. 2 kernel with its column sums.  The means add the members in
+    order, bit-identical to the reference's ``sequential_mean`` of its
+    (W, B, M) tile."""
+    n_w = completions.shape[0] // acc.shape[1]
+    tile = acc.repeat(1, n_w)  # (B, W*M), worker-major
+    comp = torch.as_tensor(completions, dtype=tile.dtype, device=tile.device)
+    _, means = utility_scores(tile, deadlines, comp, penalty)
+    return means.cpu().numpy()
+
+
+def fast_multiworker_schedule(
+    requests: Sequence[Request],
+    apps: Mapping[str, Application],
+    workers: Sequence,
+    now: float,
+    data_aware: bool = False,
+    split_by_label: bool = False,
+    per_request: bool = False,
+    arrays: WindowArrays | None = None,
+    state=None,
+    lat_scale: Mapping | None = None,
+    worker_mask=None,
+    device=None,
+) -> Schedule:
+    """Vectorized Eq. 15, the port of the reference's
+    ``fast_multiworker_schedule``.
+
+    Each placement step scores all (worker, model) candidates of a group
+    at once: one (B, W*M) Eq. 2 tile, accuracies from the window's Eq. 9
+    product, completions from the per-worker latency-scaled model axis,
+    reduced by the kernel's column sums to the member means and picked on
+    the host with the shared tie-break (utility, -scaled latency, name,
+    -wid).  One kernel launch per group, on ``device`` (the card unless
+    ``"cpu"`` is named).  Worker state lives in a ``PoolArrays`` bundle
+    read from the carried ``state``, which is never mutated: scheduling
+    peeks, evaluation commits.
+
+    ``lat_scale`` ({(wid, model): s}) multiplies the per-(worker, model)
+    latency tables; ``worker_mask`` (a wid set) restricts placement to the
+    named workers.
+    """
+    from repro_torch.core.grouping import group_by_app, split_groups_by_label
+
+    if not requests:
+        return Schedule()
+    if worker_mask is not None:
+        workers = [w for w in workers if w.wid in worker_mask]
+    if not workers:
+        raise ValueError("multiworker_schedule requires at least one worker")
+    acc_mode = "sharpened" if data_aware else "profiled"
+    if per_request:
+        groups = {f"r{r.rid}": [r] for r in requests}
+    else:
+        groups = group_by_app(requests)
+        if split_by_label:
+            groups = split_groups_by_label(groups, apps)
+
+    wa = arrays if arrays is not None else WindowArrays(requests, apps, now, device)
+    dev = wa.device
+    prio = wa.priorities(data_aware)
+    member_idx = {key: wa.rows_of(members) for key, members in groups.items()}
+    gp = {key: float(np.mean(prio[member_idx[key]])) for key in groups}  # Eq. 14
+    # Plain Eq. 14 order: placement does not apply the single-worker
+    # same-app adjacency rule (groups may land on different workers).
+    ordered_groups = ordered_group_items(groups, gp, split_by_label=False)
+
+    pool = PoolArrays.build(workers, wa, state=state, now=now, lat_scale=lat_scale)
+    orders = {w.wid: 1 for w in workers}
+    entries: list[ScheduleEntry] = []
+
+    for batch_id, (key, members) in enumerate(ordered_groups):
+        app_name = members[0].app
+        aa, slat_fixed, slat_item, sswap, pref, gid_row = pool.app_table(wa, app_name)
+        idx = member_idx[key]
+        b = len(members)
+        # (W, M) completions if this batch ran next on each candidate, in
+        # peek_batch's association: (t + swap) + l(m, b).
+        swap_eff = np.where(pool.resident_mask(gid_row), 0.0, sswap)
+        lat_b = slat_fixed + slat_item * b
+        completions = pool.t[:, None] + swap_eff + lat_b
+        A_g = wa.acc_matrix(app_name, acc_mode)[torch.as_tensor(wa.row_of[idx], device=dev)]
+        u_mean = placement_means(A_g, wa.deadlines_t[torch.as_tensor(idx, device=dev)],
+                                 completions.ravel(), aa.app.penalty)
+        # First-max over the preference permutation == argmax with the
+        # shared tie-break (utility, -scaled latency, name, -wid).
+        pick = int(pref[int(np.argmax(u_mean[pref]))])
+        wi, mi = divmod(pick, len(aa.names))
+        w = workers[wi]
+        start = float(pool.t[wi])
+        # run_batch association: (start + swap) + l(m, b).
+        completion = (start + float(swap_eff[wi, mi])) + float(lat_b[wi, mi])
+        lat = completion - start
+        pool.place(wi, int(gid_row[mi]), completion)
+        member_order = np.lexsort((wa.rids[idx], -prio[idx]))
+        for j in member_order:
+            entries.append(
+                ScheduleEntry(
+                    request=wa.requests[int(idx[int(j)])],
+                    model=aa.names[mi],
+                    order=orders[w.wid],
+                    worker=w.wid,
+                    batch_id=batch_id,
+                    est_start_s=start,
+                    est_latency_s=lat,
+                )
+            )
+            orders[w.wid] += 1
+    sched = Schedule(entries=entries)
+    sched.validate()
+    return sched

@@ -11,10 +11,11 @@ Every policy returns a ``Schedule``; data-awareness is orthogonal and can
 be layered on any of them (``data_aware=True``) exactly as the paper's
 Fig. 7 incremental study requires.
 
-The port of ``repro.core.scheduler`` for one worker.  The compiled
-pipeline, speculative chunking, sharding and multi-worker placement are
-not ported yet: asking for them raises ``NotImplementedError`` naming the
-ROADMAP item that will bring them.
+The port of ``repro.core.scheduler``, with the §VII multi-worker
+placement (``schedule_window(workers=...)``, Eq. 15).  The compiled
+pipeline, speculative chunking and sharding are not ported yet: asking
+for them raises ``NotImplementedError`` naming the ROADMAP item that
+will bring them.
 """
 from __future__ import annotations
 
@@ -159,9 +160,7 @@ POLICY_NAMES = list(_POLICIES)
 NOT_PORTED: dict[str, str] = {
     "pipeline": "item 5 (compiled single-worker selection)",
     "prebatch": "item 5 (compiled single-worker selection, stacked windows)",
-    "chunk": "item 6 (Eq. 15 placement and speculative selection)",
-    "workers": "item 6 (Eq. 15 placement and speculative selection)",
-    "memory_capacity_bytes": "item 6 (Eq. 15 placement and speculative selection)",
+    "chunk": "item 5 (compiled single-worker selection, with speculative chunks)",
     "shard": "item 11 (sharded scheduling)",
 }
 
@@ -228,24 +227,52 @@ def schedule_window(
     arrays=None,
     device=None,
     workers=None,
+    lat_scale=None,
+    worker_mask=None,
 ) -> tuple[Schedule, Mapping[str, Application]]:
     """One scheduling-window pass: SneakPeek stage (if any) then the policy.
 
-    ``state`` carries streaming backlog + residency; ``arrays`` is a
-    precomputed ``fastpath.WindowArrays``; ``device`` is where the k-NN
-    search and the batched equations run (the card unless ``"cpu"`` is
-    named).  ``workers`` (multi-worker placement) is not ported yet.
-    Returns the schedule and the (possibly short-circuit-augmented)
-    application map.
+    ``workers`` (a sequence of ``multiworker.Worker``) generalizes any
+    policy to the paper's §VII multi-worker placement: grouping,
+    data-awareness, label-splitting and fastpath come from the policy,
+    placement from ``multiworker_schedule`` (``per_request`` for the
+    ungrouped policies).  ``state`` carries streaming backlog +
+    residency; ``arrays`` is a precomputed ``fastpath.WindowArrays``;
+    ``device`` is where the k-NN search and the batched equations run
+    (the card unless ``"cpu"`` is named).  ``lat_scale`` ({(wid, model):
+    scale} drift corrections) and ``worker_mask`` (a wid set) apply to the
+    multi-worker path only.  Returns the schedule and the (possibly
+    short-circuit-augmented) application map.
     """
     from repro_torch.core.sneakpeek import attach_sneakpeek
     from repro_torch.device import resolve_device
 
-    if workers:
-        not_ported("workers")
     dev = resolve_device(device)
     if sneakpeeks:
         attach_sneakpeek(requests, apps, sneakpeeks, device=dev)
     eff_apps = effective_apps(apps, sneakpeeks, short_circuit)
+    if workers:
+        from repro_torch.core.multiworker import multiworker_schedule
+
+        t0 = time.perf_counter()
+        sched = multiworker_schedule(
+            requests,
+            eff_apps,
+            workers,
+            now,
+            data_aware=policy.data_aware,
+            split_by_label=policy.split_by_label,
+            per_request=not policy.grouped,
+            fastpath=policy.fastpath,
+            state=state,
+            arrays=arrays,
+            lat_scale=lat_scale,
+            worker_mask=worker_mask,
+            device=dev,
+        )
+        sched.scheduling_overhead_s = time.perf_counter() - t0
+        return sched, eff_apps
+    if lat_scale or worker_mask is not None:
+        raise ValueError("lat_scale/worker_mask require a multi-worker pool")
     sched = policy.schedule(requests, eff_apps, now, state=state, arrays=arrays, device=dev)
     return sched, eff_apps

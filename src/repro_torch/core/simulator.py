@@ -1,6 +1,6 @@
 """Discrete-event simulation of the serving loop (drives the evaluation).
 
-The port of ``repro.core.simulator`` for one worker:
+The port of ``repro.core.simulator``:
 
   * ``run_window`` — one scheduling window (default 100 ms) of enqueued
     requests, scheduled at window close, scored with *oracle* utilities
@@ -10,12 +10,13 @@ The port of ``repro.core.simulator`` for one worker:
     ``StreamingState``: backlog and model residency carry across windows,
     with sampled per-request outcomes (correct with probability
     recall[true_label]) drawn from a seeded numpy generator, the
-    reference's stream.
+    reference's stream; optionally over a heterogeneous worker pool
+    (``workers=``, Eq. 15 placement) with capacity-limited residency
+    (``memory_capacity_bytes=``).
 
 Both take ``device=``: the k-NN search and the batched equations run
-there (the card unless ``"cpu"`` is named).  Multi-worker pools,
-capacity-limited residency, stacked windows and the compiled pipeline are
-not ported yet and raise ``NotImplementedError``.
+there (the card unless ``"cpu"`` is named).  Stacked windows and the
+compiled pipeline are not ported yet and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -81,12 +82,16 @@ class Simulation:
     back to the state.
 
     Args:
-      num_workers: pool size of the carried state (single-worker policies
-        only ever use worker 0; idle workers count toward utilization).
+      workers: optional ``multiworker.Worker`` pool — generalizes the
+        policy to §VII multi-worker placement (Eq. 15).
+      num_workers: pool size when ``workers`` is not given (ids 0..n-1;
+        single-worker policies only ever use worker 0; idle workers
+        count toward utilization).
+      memory_capacity_bytes: per-worker residency capacity (None = the
+        paper's conservative single-slot model).
       device: where the SneakPeek stage and the batched equations run.
-      workers, memory_capacity_bytes, prebatch, pipeline, chunk, shard:
-        the reference's multi-worker, capacity, stacked-window and
-        compiled-pipeline options; not ported yet, they raise.
+      prebatch, pipeline, chunk, shard: the reference's stacked-window
+        and compiled-pipeline options; not ported yet, they raise.
     """
 
     def __init__(
@@ -107,7 +112,6 @@ class Simulation:
         shard=False,
     ):
         for option, value in (
-            ("workers", workers), ("memory_capacity_bytes", memory_capacity_bytes),
             ("prebatch", prebatch), ("pipeline", pipeline), ("chunk", chunk),
             ("shard", shard),
         ):
@@ -120,7 +124,13 @@ class Simulation:
         self.short_circuit = short_circuit
         self.device = resolve_device(device)
         self.rng = np.random.default_rng(seed)
-        self.state = StreamingState(num_workers=max(1, num_workers), now=0.0)
+        self.workers = list(workers) if workers else None
+        self.state = StreamingState(
+            num_workers=len(self.workers) if self.workers else max(1, num_workers),
+            now=0.0,
+            memory_capacity_bytes=memory_capacity_bytes,
+            worker_ids=[w.wid for w in self.workers] if self.workers else None,
+        )
         # Scheduled against a fixed app map: short-circuit augmentation is
         # deterministic, so it must not be rebuilt per window (fresh
         # Application objects would also defeat AppArrays memoization).
@@ -164,7 +174,7 @@ class Simulation:
             carried = self.state.backlog_s(window_close)
             sched, eff_apps = schedule_window(
                 self.policy, batch, self._eff_apps, window_close,
-                state=self.state, device=self.device,
+                state=self.state, device=self.device, workers=self.workers,
             )
             # The state owns the pool: every timeline (idle or not)
             # counts toward the logged utilization.

@@ -22,13 +22,17 @@ executions to it.
 
 Each committed batch is also logged per worker (``BacklogBatch``) with
 its pre-batch timeline snapshot, and pruned once it has finished.
-Window-close preemption, ``withdraw`` and the array encodings of the
-reference (``repro.core.streaming``) are not part of this slice.
+``to_arrays`` encodes the pool for the multi-worker fast path
+(``fastpath.PoolArrays``).  Window-close preemption, ``withdraw`` and
+the backlog's array encoding of the reference (``repro.core.streaming``)
+come with ROADMAP item 14.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Iterator, Sequence
+from typing import Iterator, Mapping, Sequence
+
+import numpy as np
 
 from repro_torch.core.evaluation import WorkerTimeline
 from repro_torch.core.types import Request
@@ -158,6 +162,43 @@ class StreamingState:
     def resident_models(self) -> dict[int, list[str]]:
         """Per-worker resident model names, LRU order (oldest first)."""
         return {w: list(tl._resident) for w, tl in self.timelines.items()}
+
+    def register_sizes(self, sizes: Mapping[str, int]) -> None:
+        """Propagate model byte sizes to every worker timeline."""
+        for tl in self.timelines.values():
+            tl.register_sizes(sizes)
+
+    def to_arrays(
+        self,
+        gids: Mapping[str, int],
+        wids: Sequence[int] | None = None,
+        slots: int | None = None,
+    ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Encode the pool as ``(t, res, reg)`` arrays.
+
+        ``gids`` maps model name -> integer id (every resident name must
+        be covered); ``wids`` fixes the worker-row order (default: sorted
+        ids); ``slots`` the LRU slot count (default ``len(gids)``).
+        Returns ``t`` (W,) float64 busy-until times, ``res`` (W, K) int64
+        resident ids, LRU oldest first, ``-1`` padding at the tail, and
+        ``reg`` (W, G) float64 registered byte sizes, ``-1`` where a model
+        has none (``WorkerTimeline._touch`` would take the profile's).
+        """
+        ids = list(wids) if wids is not None else [w for w, _ in self.items()]
+        k = slots if slots is not None else max(1, len(gids))
+        t = np.zeros(len(ids), dtype=np.float64)
+        res = np.full((len(ids), k), -1, dtype=np.int64)
+        reg = np.full((len(ids), max(1, len(gids))), -1.0, dtype=np.float64)
+        for row, w in enumerate(ids):
+            tl = self.peek_timeline(w)  # encoding never mutates the pool
+            t[row] = tl.t
+            for j, name in enumerate(tl._resident):
+                res[row, j] = gids[name]
+            for name, size in tl._profiles.items():
+                g = gids.get(name)
+                if g is not None:
+                    reg[row, g] = float(size)
+        return t, res, reg
 
     def clone(self) -> "StreamingState":
         """Deep copy for speculative scheduling: mutating the clone's

@@ -12,41 +12,86 @@ capture launches nothing: the code that captures a graph takes the
 launches its capture counted back off (``add_launches`` with negative
 counts) and adds them again at every replay, so the counts stay those
 the card executed.
+
+The counts are process-wide and several threads may launch at once (the
+lanes of an ``ExecutorPool``), so a launch is added under a lock, and
+each thread also keeps its own tally (``thread_launch_counts``) of the
+launches it caused, replays and ``add_launches`` included: a capture
+attributes to its graph only the launches of the thread that captured
+it, never a concurrent lane's, and a lane can tell its own launches
+apart.  A process lane's launches happen in its own process; its
+parent's lane thread adds them with ``add_launches``.
 """
 from __future__ import annotations
 
-__all__ = ["LaunchCounter", "launch_counts", "reset_launch_counts", "add_launches"]
+import threading
+
+__all__ = ["LaunchCounter", "launch_counts", "reset_launch_counts", "add_launches",
+           "thread_launch_counts"]
+
+_LOCK = threading.Lock()
+_LOCAL = threading.local()
 
 
 class LaunchCounter:
-    """Number of times one kernel was launched (host-side, not synchronised)."""
+    """Number of times one kernel was launched (host-side, not synchronised).
+
+    Registering a name that ``add_launches`` met first keeps its count."""
 
     def __init__(self, name: str):
         self.name = name
-        self.count = 0
-        _COUNTERS[name] = self
+        with _LOCK:
+            old = _COUNTERS.get(name)
+            self.count = old.count if old is not None else 0
+            _COUNTERS[name] = self
 
     def add(self) -> None:
         """Record one launch; wrappers call this right where they launch."""
-        self.count += 1
+        with _LOCK:
+            self.count += 1
+        tally = _tally()
+        tally[self.name] = tally.get(self.name, 0) + 1
 
 
 _COUNTERS: dict[str, LaunchCounter] = {}
 
 
+def _tally() -> dict[str, int]:
+    tally = getattr(_LOCAL, "tally", None)
+    if tally is None:
+        tally = _LOCAL.tally = {}
+    return tally
+
+
 def launch_counts() -> dict[str, int]:
     """{kernel name: launches} for every kernel whose wrapper was imported."""
-    return {name: c.count for name, c in _COUNTERS.items()}
+    with _LOCK:
+        return {name: c.count for name, c in _COUNTERS.items()}
+
+
+def thread_launch_counts() -> dict[str, int]:
+    """{kernel name: launches} the calling thread has caused since it
+    started: its wrappers' launches and what it passed to ``add_launches``
+    (never reset; compare two readings)."""
+    return dict(_tally())
 
 
 def reset_launch_counts() -> None:
     """Set every launch count to 0 (done just before a measured run)."""
-    for c in _COUNTERS.values():
-        c.count = 0
+    with _LOCK:
+        for c in _COUNTERS.values():
+            c.count = 0
 
 
 def add_launches(counts: dict[str, int]) -> None:
     """Add ``{kernel name: launches}`` to the counts (negative to take
     back what a graph capture counted)."""
+    for name in counts:
+        if name not in _COUNTERS:
+            LaunchCounter(name)
+    with _LOCK:
+        for name, n in counts.items():
+            _COUNTERS[name].count += n
+    tally = _tally()
     for name, n in counts.items():
-        _COUNTERS[name].count += n
+        tally[name] = tally.get(name, 0) + n

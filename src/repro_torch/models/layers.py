@@ -42,8 +42,14 @@ def rmsnorm(params, x, eps: float = 1e-6):
 
 @functools.lru_cache(maxsize=16)
 def _rope_freqs(head_dim: int, theta: float, device: torch.device) -> torch.Tensor:
+    """The (head_dim/2,) frequencies, cached per device and shared by every
+    thread: on the card the table is complete before it is returned, so a
+    lane on another stream never reads it half written."""
     exponent = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
-    return 1.0 / (theta ** exponent)  # (head_dim/2,)
+    freqs = 1.0 / (theta ** exponent)
+    if device.type == "cuda" and not torch.cuda.is_current_stream_capturing():
+        torch.cuda.current_stream(device).synchronize()
+    return freqs
 
 
 def rope(x, positions, theta: float = 10_000.0):

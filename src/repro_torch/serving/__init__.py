@@ -1,6 +1,28 @@
-"""Serving plane of the port: ``EdgeServer`` over ``LMExecutor`` and
-``ProfiledBackend``, the single-executor path of ``repro.serving``.
+"""Serving plane of the port: ``EdgeServer`` over a single ``LMExecutor``
+or an ``ExecutorPool`` of worker lanes, and the executor backends
+(``ProfiledBackend``, ``CompiledBackend``, ``SimulatedBackend``).
 
-Import the submodules directly (``serving.server``, ``serving.runtime``,
-``serving.backends``).
+The names the reference's ``repro.serving`` exports that the port has
+are exported here, imported on first access.
 """
+from __future__ import annotations
+
+import importlib
+
+_EXPORTS = {
+    "backends": ("CompiledBackend", "CostModelBackend", "ExecutorBackend",
+                 "ProfiledBackend", "SimulatedBackend"),
+    "runtime": ("LANE_NAMES", "BatchFailure", "ExecutionReport", "ExecutorPool",
+                "LMExecutor", "PoolOutcome", "ProcessLaneBackend", "SwapManager",
+                "WindowQueue", "WorkerExecutor"),
+    "server": ("EdgeServer", "ServeStats"),
+}
+_MODULE_OF = {name: module for module, names in _EXPORTS.items() for name in names}
+__all__ = sorted(_MODULE_OF)
+
+
+def __getattr__(name: str):
+    module = _MODULE_OF.get(name)
+    if module is None:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    return getattr(importlib.import_module(f"{__name__}.{module}"), name)

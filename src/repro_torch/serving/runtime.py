@@ -1,25 +1,53 @@
-"""Serving runtime: window queue, model-swap manager, batch executor.
+"""Serving runtime: window queue, model-swap manager, batch executors.
 
-The counterpart of ``repro.serving.runtime`` on the single-executor
-path: the scheduler (``repro_torch.core``) decides (model, order,
-batch); the runtime charges swaps and dispatches batches to an
-``ExecutorBackend`` (``serving.backends``), the port's ``LM`` on the
-card by default.  ``ExecutorPool``, ``WorkerExecutor`` and the process
-lane are not ported yet (ROADMAP "Modules to port", item 10).
+The counterpart of ``repro.serving.runtime``: the scheduler
+(``repro_torch.core``) decides (model, order, batch, worker); the
+runtime charges swaps and dispatches batches to an ``ExecutorBackend``
+(``serving.backends``), the port's ``LM`` on the card by default.
+``LMExecutor`` runs a single worker's schedule; ``ExecutorPool`` runs a
+placed schedule with one ``WorkerExecutor`` lane per worker, each with
+its own backend instance (its own stream on the card, its own decode
+graphs, caches and swap manager).  Lanes run one after another
+(``"serial"``), on threads (``"thread"``), or forward each batch to a
+spawned worker process that owns its CUDA context (``"process"``,
+``ProcessLaneBackend``).  The supervised, fault-tolerant gather
+(``execute_supervised``) and the overlapped one (``execute_async``) come
+with ROADMAP item 14 and raise.
 """
 from __future__ import annotations
 
+import dataclasses
+import multiprocessing
+import time
 from collections import OrderedDict
+from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Mapping, Optional, Sequence
 
 import numpy as np
 
+from repro_torch import kernels
+from repro_torch.core.multiworker import Worker
 from repro_torch.core.residency import evict_lru
+from repro_torch.core.scheduler import not_ported
 from repro_torch.core.types import Request, Schedule, ScheduleEntry
 from repro_torch.serving.backends import ExecutionReport, ExecutorBackend, ProfiledBackend
 
 __all__ = ["WindowQueue", "SwapManager", "LMExecutor", "ExecutionReport",
-           "iter_entry_batches"]
+           "iter_entry_batches", "LANE_NAMES", "BatchFailure", "PoolOutcome",
+           "ProcessLaneBackend", "WorkerExecutor", "ExecutorPool", "NOT_PORTED"]
+
+# Lane strategies of ExecutorPool: "serial" runs the lanes one after
+# another in the calling thread, "thread" one long-lived thread per lane,
+# "process" keeps the lane threads for coordination and forwards every
+# batch to a spawned worker process holding its own backend instance.
+LANE_NAMES = ("serial", "thread", "process")
+
+# Pool paths of the reference this port does not have yet, with the
+# ROADMAP item ("Open items" -> "Modules to port") that brings each.
+NOT_PORTED: dict[str, str] = {
+    "execute_async": "item 14 (closed-loop serving: preemption, faults, health, overlap)",
+    "execute_supervised": "item 14 (closed-loop serving: preemption, faults, health, overlap)",
+}
 
 
 class WindowQueue:
@@ -117,6 +145,10 @@ class LMExecutor:
         report.swap_s = swap_s
         return report
 
+    def close(self) -> None:
+        """Release backend resources (e.g. a process lane's worker)."""
+        self.backend.close()
+
     @staticmethod
     def _pad(batch: Sequence[ScheduleEntry],
              prompt_fn: Callable[[Request], np.ndarray]) -> np.ndarray:
@@ -149,9 +181,472 @@ class LMExecutor:
     def execute_schedule(self, schedule: Schedule, prompt_fn: Callable[[Request], np.ndarray],
                          class_token_ids=None) -> list[ExecutionReport]:
         """Run a scheduler-produced schedule batch by batch: entries that
-        share a batch_id execute as one padded batch."""
-        return [self.run_entry_batch(batch, prompt_fn, class_token_ids)
-                for batch in iter_entry_batches(schedule.sorted_entries())]
+        share a batch_id execute as one padded batch.
+
+        When the backend batches continuously (``run_batches``, e.g.
+        ``CompiledBackend``), consecutive same-model batches fuse into one
+        forward; the swap is charged once, on the run's first report, and
+        the fused seconds are split between the batches.
+        """
+        batches = list(iter_entry_batches(schedule.sorted_entries()))
+        merged_runs = hasattr(self.backend, "run_batches")
+        reports: list[ExecutionReport] = []
+        i = 0
+        while i < len(batches):
+            model = batches[i][0].model
+            j = i
+            if merged_runs and not model.endswith(":short_circuit"):
+                while j + 1 < len(batches) and batches[j + 1][0].model == model:
+                    j += 1
+            if j == i:
+                reports.append(self.run_entry_batch(batches[i], prompt_fn, class_token_ids))
+            else:
+                run = batches[i:j + 1]
+                swap_s = self.swaps.load(model)
+                merged = self.backend.run_batches(
+                    model,
+                    [self._pad(b, prompt_fn) for b in run],
+                    [[e.request.rid for e in b] for b in run],
+                    class_token_ids,
+                )
+                merged[0].swap_s = swap_s
+                reports.extend(merged)
+            i = j + 1
+        return reports
+
+
+@dataclasses.dataclass
+class BatchFailure:
+    """One batch that did not execute on its lane: ``kind`` is an injected
+    fault kind, ``"error"`` for an exception of the batch, or ``"lane"``
+    for a failure of the lane; ``cascaded`` marks batches failed only
+    because an earlier crash stopped their lane."""
+
+    worker: int
+    request_ids: list
+    model: str
+    kind: str
+    batch_index: int = -1
+    cascaded: bool = False
+    error: str = ""
+
+
+@dataclasses.dataclass
+class PoolOutcome:
+    """What a pool's gather collected from its lanes: the reports, the
+    failed batches and the lanes that overran a deadline (the last two
+    stay empty until the supervised gather of ROADMAP item 14)."""
+
+    reports: list
+    failures: list
+    timed_out: list
+
+    def failed_rids(self) -> set[int]:
+        """Request ids of every failed batch."""
+        return {rid for f in self.failures for rid in f.request_ids}
+
+
+class _ImmediateFuture:
+    """Future-shaped wrapper around a call that already ran (serial lane)."""
+
+    def __init__(self, fn, args):
+        self._exc: BaseException | None = None
+        self._res = None
+        try:
+            self._res = fn(*args)
+        except BaseException as err:  # re-raised at result(), like a Future
+            self._exc = err
+
+    def result(self, timeout=None):
+        """The call's result (it ran at submit time)."""
+        if self._exc is not None:
+            raise self._exc
+        return self._res
+
+
+class _ImmediateExecutor:
+    """Executor-shaped serial lane: ``submit`` runs the call inline, in
+    submission order, in the calling thread."""
+
+    def submit(self, fn, *args) -> _ImmediateFuture:
+        return _ImmediateFuture(fn, args)
+
+    def shutdown(self, wait=True):
+        """Nothing to tear down (no threads)."""
+
+
+def _lane_worker_main(conn) -> None:
+    """Entry point of one spawned lane worker process.
+
+    Protocol (the parent's side is ``ProcessLaneBackend``): first
+    ``("init", backend)`` — the pickled, never-run backend this process
+    owns, which places its weights on its own device; then ``("run",
+    model, prompts, rids, class_token_ids)`` per batch, answered with
+    ``("ok", prefill_s, decode_s, tokens, predictions, launches)`` —
+    ``launches`` being the kernel launches the batch made in this process
+    — or ``("err", repr)``; ``("stop",)`` ends the loop."""
+    backend = None
+    while True:
+        try:
+            msg = conn.recv()
+        except EOFError:
+            return
+        except Exception as err:  # the template did not unpickle here
+            conn.send(("err", repr(err)))
+            continue
+        if msg[0] == "stop":
+            conn.close()
+            return
+        if msg[0] == "init":
+            backend = msg[1]
+            conn.send(("ok",))
+            continue
+        _, model_name, prompts, rids, class_token_ids = msg
+        try:
+            before = kernels.launch_counts()
+            rep = backend.run_batch(model_name, prompts, rids, class_token_ids)
+            after = kernels.launch_counts()
+            launches = {name: n - before.get(name, 0) for name, n in after.items()
+                        if n != before.get(name, 0)}
+            conn.send(("ok", rep.prefill_s, rep.decode_s, rep.tokens, rep.predictions,
+                       launches))
+        except Exception as err:
+            conn.send(("err", repr(err)))
+
+
+class ProcessLaneBackend(ExecutorBackend):
+    """Backend proxy that forwards every batch to a dedicated worker
+    process, started with the spawn method, holding its own backend
+    instance and, on the card, its own CUDA context.
+
+    ``template`` must be a fresh backend — what ``spawn()`` returns — so
+    it pickles into the child; one that has run batches refuses to.  The
+    parent keeps it for sizes, swap costs and provenance, and records the
+    realized seconds for ``affine``.  Work crosses as plain arrays
+    (padded (B, S) int32 prompts and request ids), reports come back as
+    plain fields with the child's kernel launches, which are added to
+    this process's counts (``kernels.add_launches``).  A batch that fails
+    in the child raises here.  The child starts on the first
+    ``run_batch``; ``close()`` stops it.
+    """
+
+    def __init__(self, template: ExecutorBackend):
+        self.template = template
+        self.variants = dict(template.variants)
+        self.new_tokens = template.new_tokens
+        self.provenance = template.provenance
+        self._obs = {}
+        self._proc = None
+        self._conn = None
+
+    def _ensure(self) -> None:
+        if self._proc is not None:
+            return
+        ctx = multiprocessing.get_context("spawn")
+        conn, child = ctx.Pipe()
+        proc = ctx.Process(target=_lane_worker_main, args=(child,), daemon=True)
+        try:
+            proc.start()
+        finally:
+            child.close()
+        self._proc, self._conn = proc, conn
+        try:
+            self._conn.send(("init", self.template))
+            ack = self._conn.recv()
+        except BaseException:
+            self.close()
+            raise
+        if ack[0] != "ok":
+            self.close()
+            raise RuntimeError(f"lane worker failed to initialize: {ack[1]}")
+
+    def run_batch(self, model_name: str, prompts: np.ndarray, request_ids: list,
+                  class_token_ids: Optional[np.ndarray] = None) -> ExecutionReport:
+        """Ship one padded batch to the worker process and rebuild the
+        report here.  Waiting on the pipe releases the GIL, so the lane
+        threads wait in parallel while their processes compute."""
+        self._ensure()
+        self._conn.send(("run", model_name, np.ascontiguousarray(prompts),
+                         list(request_ids), class_token_ids))
+        reply = self._conn.recv()
+        if reply[0] != "ok":
+            raise RuntimeError(f"lane worker batch failed: {reply[1]}")
+        _, prefill_s, decode_s, tokens, predictions, launches = reply
+        kernels.add_launches(launches)
+        self._record(model_name, prompts.shape[0], prefill_s + decode_s)
+        return ExecutionReport(
+            request_ids=list(request_ids), model=model_name,
+            batch_size=prompts.shape[0], swap_s=0.0,
+            prefill_s=prefill_s, decode_s=decode_s,
+            tokens=tokens, predictions=predictions,
+        )
+
+    def affine(self, model_name: str):
+        """The realized fit once batches have run, else the template's."""
+        if self._obs.get(model_name):
+            return super().affine(model_name)
+        return self.template.affine(model_name)
+
+    def model_bytes(self, model_name: str, batch: int | None = None,
+                    max_len: int | None = None) -> int:
+        """Residency footprint, from the template."""
+        return self.template.model_bytes(model_name, batch, max_len)
+
+    def swap_cost(self, model_name: str) -> float:
+        """Cold-load seconds, from the template."""
+        return self.template.swap_cost(model_name)
+
+    def spawn(self) -> "ProcessLaneBackend":
+        """A new proxy over a new template (its own worker process)."""
+        return ProcessLaneBackend(self.template.spawn())
+
+    def close(self) -> None:
+        """Stop and join the worker process (idempotent)."""
+        if self._proc is None:
+            return
+        try:
+            self._conn.send(("stop",))
+        except (BrokenPipeError, OSError):
+            pass
+        self._conn.close()
+        self._proc.join(timeout=30.0)
+        if self._proc.is_alive():
+            self._proc.terminate()
+            self._proc.join(timeout=5.0)
+        self._proc = None
+        self._conn = None
+
+
+class WorkerExecutor:
+    """One worker's execution lane: a private ``LMExecutor`` (its own
+    ``SwapManager``: per-worker residency, as the scheduler's per-worker
+    timelines model it) and the ``multiworker.Worker`` whose speed and
+    load scaling it honours.
+
+    The lanes share one card, so heterogeneity is honoured in the
+    accounting: measured prefill and decode seconds divide by
+    ``worker.speed`` and swap seconds multiply by ``worker.load_scale``,
+    consistent with the scaled profiles Eq. 15 placed the batch with.
+    Without a ``backend`` it builds ``ProfiledBackend(variants,
+    new_tokens, device)``, on the card unless ``device="cpu"``.
+    """
+
+    def __init__(self, worker: Worker, variants: Mapping[str, tuple] | None = None,
+                 capacity_bytes: int | None = None, new_tokens: int = 4,
+                 backend: ExecutorBackend | None = None, device=None):
+        self.worker = worker
+        self.executor = LMExecutor(variants, capacity_bytes, new_tokens, backend=backend,
+                                   device=device)
+        self.busy_s = 0.0
+        # Kernel launches this lane caused ({name: n}): read from the
+        # lane thread's own tally around each share it runs.
+        self.launches: dict[str, int] = {}
+
+    @property
+    def swap_count(self) -> int:
+        """Weight swaps this lane's SwapManager has performed."""
+        return self.executor.swaps.swap_count
+
+    def _scaled(self, report: ExecutionReport) -> ExecutionReport:
+        w = self.worker
+        if w.speed == 1.0 and w.load_scale == 1.0:
+            return report
+        return dataclasses.replace(
+            report,
+            swap_s=report.swap_s * w.load_scale,
+            prefill_s=report.prefill_s / w.speed,
+            decode_s=report.decode_s / w.speed,
+        )
+
+    def execute(
+        self,
+        entries: Sequence[ScheduleEntry],
+        prompt_fn: Callable[[Request], np.ndarray],
+        class_token_ids=None,
+    ) -> list[ExecutionReport]:
+        """Run this worker's share of a placed schedule, batch by batch.
+        (The reference's ``until`` and ``on_dispatch``, which gate dispatch
+        for window-close preemption, come with ROADMAP item 14.)"""
+        reports = []
+        before = kernels.thread_launch_counts()
+        try:
+            for batch in iter_entry_batches(sorted(entries, key=lambda e: e.order)):
+                report = self._scaled(
+                    self.executor.run_entry_batch(batch, prompt_fn, class_token_ids))
+                report.worker = self.worker.wid
+                self.busy_s += report.total_s
+                reports.append(report)
+        finally:
+            for name, n in kernels.thread_launch_counts().items():
+                if n != before.get(name, 0):
+                    self.launches[name] = self.launches.get(name, 0) + n - before.get(name, 0)
+        return reports
+
+
+class ExecutorPool:
+    """The multi-worker execution plane: one ``WorkerExecutor`` lane per
+    ``multiworker.Worker``, running each window's placed schedule per
+    worker.
+
+    ``EdgeServer(workers=[...])`` routes every window here and feeds the
+    per-lane swap counts and busy seconds into ``ServeStats``.
+    """
+
+    def __init__(self, workers: Sequence[Worker], variants: Mapping[str, tuple] | None = None,
+                 capacity_bytes: int | None = None, new_tokens: int = 4,
+                 backend_factory: Callable[[], ExecutorBackend] | None = None,
+                 lane: str = "thread", device=None):
+        """``backend_factory`` (e.g. ``some_backend.spawn``) is called once
+        per lane, so every worker gets its own substrate instance.
+        Without it the lanes are spawned from one ``ProfiledBackend(
+        variants, new_tokens, device)`` (on the card unless ``device="cpu"``
+        is named), so they read one copy of the weights.
+
+        ``lane`` picks the strategy per ``LANE_NAMES``: ``"thread"`` runs
+        the lanes on a long-lived thread pool, ``"serial"`` one after
+        another in the calling thread, ``"process"`` wraps each lane's
+        backend in a ``ProcessLaneBackend``, so its batches run in a
+        spawned worker process."""
+        if not workers:
+            raise ValueError("ExecutorPool requires at least one worker")
+        if variants is None and backend_factory is None:
+            raise ValueError("ExecutorPool needs variants=... or backend_factory=...")
+        if lane not in LANE_NAMES:
+            raise ValueError(f"unknown lane strategy {lane!r}; expected one of {LANE_NAMES}")
+        self.lane = lane
+        if backend_factory is None:
+            backend_factory = ProfiledBackend(variants, new_tokens=new_tokens,
+                                              device=device).spawn
+        if lane == "process":
+            inner = backend_factory
+            backend_factory = lambda: ProcessLaneBackend(inner())  # noqa: E731
+        self.lanes: dict[int, WorkerExecutor] = {
+            w.wid: WorkerExecutor(w, capacity_bytes=capacity_bytes, backend=backend_factory())
+            for w in workers
+        }
+        self.wall_s = 0.0  # wall-clock spent inside execute_schedule calls
+        # One long-lived thread per lane (the serial lane: a shim that
+        # runs the work at submit).
+        self._tp: ThreadPoolExecutor | _ImmediateExecutor | None = None
+
+    @classmethod
+    def from_executor(cls, executor: LMExecutor, workers: Sequence[Worker],
+                      lane: str = "thread") -> "ExecutorPool":
+        """A pool with one lane per worker from a single executor's
+        configuration: the same capacity and new_tokens, one
+        ``backend.spawn()`` per lane, each lane its own residency."""
+        return cls(
+            workers,
+            executor.variants,
+            capacity_bytes=executor.swaps.capacity,
+            new_tokens=executor.new_tokens,
+            backend_factory=executor.backend.spawn,
+            lane=lane,
+        )
+
+    def close(self) -> None:
+        """Shut the lane threads down (waiting for work in flight) and
+        close every lane's backend, which stops process lanes' workers.
+        Idempotent."""
+        if self._tp is not None:
+            self._tp.shutdown(wait=True)
+            self._tp = None
+        for lane in self.lanes.values():
+            lane.executor.close()
+
+    def __enter__(self) -> "ExecutorPool":
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        self.close()
+        return False
+
+    @property
+    def swap_counts(self) -> dict[int, int]:
+        """Per-worker weight-swap counts (lane SwapManagers)."""
+        return {w: lane.swap_count for w, lane in sorted(self.lanes.items())}
+
+    @property
+    def busy_s(self) -> dict[int, float]:
+        """Per-worker busy seconds (scaled swap + prefill + decode)."""
+        return {w: lane.busy_s for w, lane in sorted(self.lanes.items())}
+
+    @property
+    def launch_counts(self) -> dict[int, dict[str, int]]:
+        """Per-worker kernel launches its lane caused (``WorkerExecutor.launches``)."""
+        return {w: dict(lane.launches) for w, lane in sorted(self.lanes.items())}
+
+    def utilization(self) -> dict[int, float]:
+        """Per-worker busy / pool-wall fraction (0.0 before any work)."""
+        if self.wall_s <= 0:
+            return {w: 0.0 for w in sorted(self.lanes)}
+        return {w: lane.busy_s / self.wall_s for w, lane in sorted(self.lanes.items())}
+
+    def execute_schedule(
+        self,
+        schedule: Schedule,
+        prompt_fn: Callable[[Request], np.ndarray],
+        class_token_ids=None,
+    ) -> list[ExecutionReport]:
+        """Execute a placed schedule: entries split by ``entry.worker``,
+        each lane running its share in order on its own lane.  Reports
+        return grouped by worker id, each lane's in dispatch order.
+
+        ``prompt_fn`` is called from several lane threads at once: derive
+        any randomness from the request (e.g. its rid), not from one
+        shared generator.  Every lane is joined before anything is
+        raised; then the first failing lane's error (ascending worker id)
+        is re-raised."""
+        return self._gather(schedule, prompt_fn, class_token_ids).reports
+
+    def execute_async(self, *args, **kwargs):
+        """The overlapped gather: not ported yet (ROADMAP item 14)."""
+        not_ported("execute_async", NOT_PORTED)
+
+    def execute_supervised(self, *args, **kwargs):
+        """The fault-tolerant gather: not ported yet (ROADMAP item 14)."""
+        not_ported("execute_supervised", NOT_PORTED)
+
+    def _split(self, schedule: Schedule) -> dict[int, list[ScheduleEntry]]:
+        """Entries per worker id (schedule order), lanes validated and the
+        lane threads made."""
+        by_worker: dict[int, list[ScheduleEntry]] = {}
+        for e in schedule.sorted_entries():
+            by_worker.setdefault(e.worker, []).append(e)
+        unknown = set(by_worker) - set(self.lanes)
+        if unknown:
+            raise KeyError(f"schedule places work on unpooled workers {sorted(unknown)}")
+        if self._tp is None:
+            if self.lane == "serial":
+                self._tp = _ImmediateExecutor()
+            else:
+                self._tp = ThreadPoolExecutor(max_workers=len(self.lanes))
+        return by_worker
+
+    def _gather(self, schedule, prompt_fn, class_token_ids) -> PoolOutcome:
+        """Split the entries per worker, submit every lane, join them in
+        ascending worker id, account ``wall_s`` once, then re-raise the
+        first lane error."""
+        by_worker = self._split(schedule)
+        t0 = time.perf_counter()
+        # Ascending-wid submission keeps the serial lane's order
+        # deterministic; the join below is sorted in any case.
+        futures = {
+            wid: self._tp.submit(self.lanes[wid].execute, by_worker[wid], prompt_fn,
+                                 class_token_ids)
+            for wid in sorted(by_worker)
+        }
+        reports: list[ExecutionReport] = []
+        errors: dict[int, BaseException] = {}
+        for wid in sorted(futures):
+            try:
+                reports.extend(futures[wid].result())
+            except BaseException as err:
+                errors[wid] = err
+        self.wall_s += time.perf_counter() - t0
+        if errors:
+            raise errors[min(errors)]
+        return PoolOutcome(reports=reports, failures=[], timed_out=[])
 
 
 def iter_entry_batches(entries: Sequence[ScheduleEntry]):

@@ -7,8 +7,13 @@ kernels have no CPU mode).  On the card, from the repository root:
 
 The file imports neither JAX nor the JAX package, so it runs where only
 PyTorch is installed.  The CPU tests hold the plain versions against the
-JAX package's Pallas kernels (tests/test_torch_kernels.py).
+JAX package's Pallas kernels (tests/test_torch_kernels.py).  The last
+tests run the serving lanes on the card: two thread lanes capturing and
+replaying decode graphs at once, a lane's clock beside another stream's
+work, and a process lane's launch counts.
 """
+import threading
+
 import numpy as np
 import pytest
 import torch
@@ -723,3 +728,136 @@ def test_decode_step_reads_nothing_on_the_host(cuda, arch, layers, kv_quant):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert int(cache["pos"]) == 30 + 5
+
+
+# ------------------------------------------------------ lanes on one card
+
+
+def _lane_variants():
+    import dataclasses
+
+    from repro_torch.configs import ARCHS
+
+    return {"t": (dataclasses.replace(ARCHS["tinyllama-1.1b"], num_layers=2), 0),
+            "m": (dataclasses.replace(ARCHS["mamba2-130m"], num_layers=2), 1)}
+
+
+# (variant, batch, prompt length) of each lane's batches, in order: the
+# first batch of each key captures its decode graph, the later ones replay.
+LANE_BATCHES = {
+    0: [("t", 2, 40), ("t", 2, 40), ("m", 2, 50), ("t", 2, 40)],
+    1: [("t", 3, 300), ("m", 4, 64), ("t", 3, 300), ("t", 3, 300)],
+}
+
+
+def _run_lane(backend, batches, seed):
+    rng = np.random.default_rng(seed)
+    out = []
+    for name, b, s in batches:
+        prompts = rng.integers(0, 32000, (b, s)).astype(np.int32)
+        out.append(backend.run_batch(name, prompts, list(range(b))).tokens)
+    return out
+
+
+def test_thread_lanes_capture_and_replay_concurrently(cuda):
+    """Two lanes spawned from one backend capture and replay decode graphs
+    at the same time from two threads (thread-local capture mode, a stream
+    each): the launch counts are exactly what the batches need, and each
+    lane's tokens equal its serial run's."""
+    from repro_torch import kernels
+    from repro_torch.serving.backends import ProfiledBackend
+
+    new_tokens = 5
+    parent = ProfiledBackend(_lane_variants(), new_tokens=new_tokens, device=cuda)
+    serial = {lane: _run_lane(parent.spawn(), batches, lane)
+              for lane, batches in LANE_BATCHES.items()}
+    backends = {lane: parent.spawn() for lane in LANE_BATCHES}
+    barrier = threading.Barrier(len(backends))
+    got, errors = {}, []
+
+    def lane_main(lane):
+        try:
+            barrier.wait()
+            got[lane] = _run_lane(backends[lane], LANE_BATCHES[lane], lane)
+        except BaseException as err:  # re-raised below
+            errors.append(err)
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    threads = [threading.Thread(target=lane_main, args=(lane,)) for lane in backends]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    counts = kernels.launch_counts()
+    batches = [b for bs in LANE_BATCHES.values() for b in bs]
+    n_t = sum(name == "t" for name, _, _ in batches)
+    n_m = len(batches) - n_t
+    assert counts.get("flash_attention", 0) == 2 * n_t
+    assert counts.get("decode_attention", 0) == 2 * n_t * (new_tokens - 1)
+    assert counts.get("ssd", 0) == 2 * n_m
+    for lane, backend in backends.items():
+        stats = backend.graph_stats()
+        assert stats["captures"] == len(set(LANE_BATCHES[lane])) and stats["replays"] > 0
+        for mine, theirs in zip(got[lane], serial[lane]):
+            np.testing.assert_array_equal(mine, theirs)
+
+
+def test_lane_clock_excludes_concurrent_queued_work(cuda):
+    """A lane synchronises its own stream only: a batch timed while another
+    stream holds a long kernel reports its own seconds, not the wait."""
+    from repro_torch.serving.backends import ProfiledBackend
+
+    backend = ProfiledBackend(_lane_variants(), new_tokens=3, device=cuda)
+    prompts = np.random.default_rng(0).integers(0, 32000, (2, 40)).astype(np.int32)
+    for _ in range(2):  # captures, then a replayed run
+        quiet = backend.run_batch("t", prompts, [0, 1])
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    other = torch.cuda.Stream(cuda)
+    with torch.cuda.stream(other):
+        start.record()
+        torch.cuda._sleep(10**8)
+        end.record()
+    torch.cuda.synchronize()
+    cycles_per_ms = 10**8 / start.elapsed_time(end)
+    busy_ms = 2000.0
+    with torch.cuda.stream(other):
+        torch.cuda._sleep(int(busy_ms * cycles_per_ms))
+        done = torch.cuda.Event()
+        done.record()
+    report = backend.run_batch("t", prompts, [0, 1])
+    assert not done.query(), "the other stream's kernel ended before the batch did"
+    assert report.prefill_s + report.decode_s < 0.25 * busy_ms / 1e3
+    np.testing.assert_array_equal(report.tokens, quiet.tokens)
+    torch.cuda.synchronize()
+
+
+def test_process_lane_returns_its_launch_counts(cuda):
+    """A process lane on the card: its child owns a CUDA context, and the
+    kernel launches of its batches arrive in this process's counts,
+    exactly; its tokens equal a thread lane's over the same seeds."""
+    from repro_torch import kernels
+    from repro_torch.kernels import nvcc
+    from repro_torch.serving.backends import ProfiledBackend
+    from repro_torch.serving.runtime import ProcessLaneBackend
+
+    nvcc.build()  # the child builds nothing
+    new_tokens = 4
+    variants = _lane_variants()
+    batches = [("t", 2, 40), ("m", 2, 50), ("t", 2, 40)]
+    here = _run_lane(ProfiledBackend(variants, new_tokens=new_tokens, device=cuda), batches, 7)
+    lane = ProcessLaneBackend(ProfiledBackend(variants, new_tokens=new_tokens, device=cuda))
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    try:
+        there = _run_lane(lane, batches, 7)
+    finally:
+        lane.close()
+    counts = kernels.launch_counts()
+    assert counts.get("flash_attention", 0) == 2 * 2
+    assert counts.get("decode_attention", 0) == 2 * 2 * (new_tokens - 1)
+    assert counts.get("ssd", 0) == 2
+    for mine, theirs in zip(there, here):
+        np.testing.assert_array_equal(mine, theirs)

@@ -306,8 +306,7 @@ def test_entry_points_need_cuda_unless_cpu_is_named(suites):
             call()
 
 
-@pytest.mark.parametrize("option", ["pipeline", "chunk", "shard", "prebatch", "workers",
-                                    "memory_capacity_bytes"])
+@pytest.mark.parametrize("option", ["pipeline", "chunk", "shard", "prebatch"])
 def test_unported_options_raise(suites, option):
     _, _, t_apps, _ = suites
     with pytest.raises(NotImplementedError, match="ROADMAP"):

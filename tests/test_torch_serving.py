@@ -12,7 +12,8 @@ margin exceeds the tolerance.  The weights are the reference's
 variants, and two families, reduced mamba2-130m (the SSD mixer, its scan
 through K5's plain version) beside reduced tinyllama-1.1b.  Also checked:
 the swap manager, the options the port does not have yet, and the CUDA
-rule of the entry points.
+rule of the entry points.  The multi-worker pool is held in
+tests/test_torch_pool.py.
 """
 import dataclasses
 
@@ -36,7 +37,7 @@ from repro_torch.core.accuracy import ModelProfile
 from repro_torch.core.scheduler import make_policy
 from repro_torch.core.sneakpeek import KNNSneakPeek
 from repro_torch.core.types import Application, Request
-from repro_torch.serving.backends import ExecutorBackend, ProfiledBackend
+from repro_torch.serving.backends import ProfiledBackend
 from repro_torch.serving.runtime import LMExecutor, SwapManager
 from repro_torch.serving.server import EdgeServer
 
@@ -308,9 +309,8 @@ def test_swap_manager_matches_reference():
 
 
 @pytest.mark.parametrize("option,value", [
-    ("workers", [0, 1]), ("memory_capacity_bytes", 10**9), ("pipeline", True), ("chunk", 4),
-    ("shard", True), ("preempt", True), ("faults", object()), ("health", True),
-    ("overlap", True), ("lane", "process"), ("backend", ExecutorBackend({})),
+    ("pipeline", True), ("chunk", 4), ("shard", True), ("preempt", True),
+    ("faults", object()), ("health", True), ("overlap", True),
 ])
 def test_unported_server_options_raise(option, value):
     apps = _apps(ModelProfile, Application)
@@ -321,9 +321,16 @@ def test_unported_server_options_raise(option, value):
 def test_serving_entry_points_need_cuda_unless_cpu_is_named():
     if torch.cuda.is_available():
         pytest.skip("this host has a card")
+    from repro_torch.core.multiworker import Worker
+    from repro_torch.serving.backends import CompiledBackend
+    from repro_torch.serving.runtime import ExecutorPool, WorkerExecutor
+
     calls = [
         lambda: ProfiledBackend(_port_variants()),
+        lambda: CompiledBackend(_port_variants()),
         lambda: LMExecutor(_port_variants()),
+        lambda: WorkerExecutor(Worker(0), _port_variants()),
+        lambda: ExecutorPool([Worker(0), Worker(1)], _port_variants()),
         lambda: EdgeServer(_apps(ModelProfile, Application), make_policy("Grouped")),
     ]
     for call in calls:
