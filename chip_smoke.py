@@ -30,7 +30,13 @@ both, then drives three paths of the port on the card:
   placement step) on mamba2-130m and tinyllama-1.1b, its lanes run from
   two threads on one card, then as two spawned processes (mamba2-130m
   alone), then through ``CompiledBackend``, with exact launch counts per
-  lane and every window's placement held against the host path.
+  lane and every window's placement held against the host path;
+* the closed loop (phase 11): ``EdgeServer(preempt=True, faults=...,
+  health=True)``, synchronous and overlapped: on ``SimulatedBackend``
+  lanes the card's decisions, records, counters and fired faults equal
+  the host's; on mamba2-130m and tinyllama-1.1b at full width, with
+  speculative scheduling beside the lanes, every request recorded once,
+  every failure an injected one, exact launch counts.
 
 Every check raises on failure.  The last three lines of standard output
 are the card's name and power limit, the kernel table and
@@ -1287,7 +1293,7 @@ def serve_pool_path(args, profiles):
     placement step plus the commit's one per window; every window's
     placement equals the host path's (``device="cpu"``) on the same
     requests and state; peak device memory under 80 GB.  Returns the
-    launches of run (a) 2."""
+    launches of run (a) 2 and run (a)'s pool, warm and open, for phase 11."""
     import copy
     import gc
 
@@ -1415,10 +1421,10 @@ def serve_pool_path(args, profiles):
         require(any(r.worker == w for r in reports), f"worker {w} served no batch")
     for k in ("ssd", "flash_attention", "decode_attention"):
         require(launches.get(k, 0) > 0, f"the pool launched no {k} kernel")
-    pool.close()
     check_placement_kernel(biggest, len(workers) * len(variants), args.seed)
     print(f"    K1 at the largest placement step, R={biggest} M={len(workers) * len(variants)} "
           "(B x W*M): f64 bit-identical to its plain version, 4 penalties (timed in phase 4)")
+    warm_pool = pool
     del base, pool
     gc.collect()
     torch.cuda.empty_cache()
@@ -1490,6 +1496,241 @@ def serve_pool_path(args, profiles):
     gc.collect()
     torch.cuda.empty_cache()
     print(f"    (c) {time.perf_counter() - t0:.1f} s")
+    return launches, warm_pool
+
+
+def _closed_loop_plan(hang: bool):
+    """Phase 11's faults: a crash on worker 1 at window 1, seeded
+    transients (rate 0.1, seed 7) and, with ``hang``, a straggler pinned
+    to worker 2 (every batch 1 s late, no real sleep)."""
+    from repro_torch.serving.faults import FaultPlan, FaultSpec
+
+    specs = [FaultSpec("crash", window=1, worker=1, batch=0)]
+    if hang:
+        specs.append(FaultSpec("hang", worker=2, delay_s=1.0, count=None))
+    return FaultPlan(specs=tuple(specs), rates={"transient": 0.1}, seed=7)
+
+
+def _pass_counting_server():
+    """``EdgeServer`` keeping every schedule its scheduling passes made,
+    the overlapped loop's discarded speculations included: each placement
+    step of each one launched K1 once."""
+    from repro_torch.serving.server import EdgeServer
+
+    class PassCountingServer(EdgeServer):
+        def _schedule_requests(self, requests, now, state):
+            out = super()._schedule_requests(requests, now, state)
+            self.passes = getattr(self, "passes", []) + [out[0]]
+            return out
+
+    return PassCountingServer
+
+
+def _closed_loop_view(server, outs, stats):
+    """What phase 11 (a) holds equal across its runs: the per-request
+    records, the decisions, the counters and the fired faults (sorted:
+    thread lanes poll in any order)."""
+    return {
+        "records": dict(server._records),
+        "decisions": [(e.request.rid, e.model, e.worker, e.order, e.batch_id)
+                      for o in outs for e in o["schedule"].sorted_entries()],
+        "counters": {k: getattr(stats, k) for k in ("preempted", "dropped", "failed_batches",
+                                                    "retries", "dropped_after_retry")},
+        "faults": sorted(server.injector.log),
+    }
+
+
+def serve_closed_loop_simulated(args, profiles, sneak):
+    """Phase 11 (a): the closed loop on ``SimulatedBackend`` lanes, whose
+    reports carry the profiles' modelled seconds, so no decision depends
+    on the clock.  Three workers (one twice as fast), phase 9's
+    application, SneakPeek and traffic, ``preempt=True``, a crash, a
+    straggler pinned to worker 2, seeded transients and health tracking;
+    synchronous and overlapped, on the card (SneakPeek through K2,
+    scheduling and commits through K1) and on the host (``device="cpu"``,
+    the card's evidence carried on copies of the requests).  The four runs
+    must agree exactly, worker 2 must be quarantined at some close, and
+    preemption, failures and retries must all happen."""
+    import copy
+
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.core.multiworker import Worker
+    from repro_torch.core.scheduler import make_policy
+    from repro_torch.core.types import Application
+    from repro_torch.serving.backends import SimulatedBackend
+
+    server_cls = _pass_counting_server()
+    app = {"assistant": Application(name="assistant", models=list(profiles.values()),
+                                    penalty="sigmoid")}
+    workers = [Worker(0), Worker(1, speed=2.0), Worker(2)]
+    vocab = 32_000
+    views, evidenced = {}, None
+    for device in ("cuda", "cpu"):
+        for overlap in (False, True):
+            label = f"{device}, {'overlapped' if overlap else 'synchronous'}"
+            on_card = device == "cuda"
+            reqs = serving_trace(args, 90_000) if on_card else copy.deepcopy(evidenced)
+            server = server_cls(app, make_policy("SneakPeek"),
+                                backend=SimulatedBackend(profiles, occupancy="none"),
+                                sneakpeeks={"assistant": sneak} if on_card else None,
+                                prompt_fn=serving_prompt_fn(vocab), workers=workers,
+                                preempt=True, faults=_closed_loop_plan(hang=True), health=True,
+                                overlap=overlap, device=device)
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            t = time.perf_counter()
+            with server:
+                outs, stats = server.run(reqs)
+            wall = time.perf_counter() - t
+            launches = kernels.launch_counts()
+            if on_card and evidenced is None:
+                evidenced = copy.deepcopy(reqs)
+            views[label] = view = _closed_loop_view(server, outs, stats)
+            steps = sum(len({e.batch_id for e in s.entries}) for s in server.passes)
+            q2 = server.health._health[2].quarantines
+            print(f"    {label}: windows={stats.windows} requests={stats.requests} "
+                  f"mean_utility={stats.mean_utility:.6f} violations={stats.violations} "
+                  f"{view['counters']} fallbacks={stats.fallbacks} faults fired "
+                  f"{len(view['faults'])}, worker 2 quarantined {q2} times; "
+                  f"{len(server.passes)} scheduling passes, {steps} placement steps; "
+                  f"wall {wall:.3f} s, scheduling {stats.sched_wall_s:.6f} s, overlap saved "
+                  f"{stats.overlap_saved_s:.6f} s; launches {launches}")
+            require(sorted(view["records"]) == sorted(r.rid for r in reqs),
+                    f"{label}: not every request has exactly one record")
+            require(q2 >= 1, f"{label}: worker 2, the straggler, was never quarantined")
+            for key in ("preempted", "failed_batches", "retries"):
+                require(view["counters"][key] > 0, f"{label}: {key} is 0")
+            if on_card:
+                require(launches.get("knn_topk", 0) > 0, f"{label}: no k-NN kernel")
+                require(launches.get("utility_scores", 0) == steps + stats.windows,
+                        f"{label}: K1 launched {launches.get('utility_scores')} times, expected "
+                        f"{steps} placement steps + {stats.windows} commits")
+            else:
+                require(not any(launches.values()), f"{label}: the host run launched {launches}")
+    first = next(iter(views.values()))
+    for label, view in views.items():
+        for key, value in view.items():
+            require(value == first[key], f"phase 11 (a): {label}'s {key} differ from the "
+                    f"card's synchronous run's")
+    print(f"    the four runs agree: {len(first['records'])} records, "
+          f"{len(first['decisions'])} decisions, counters {first['counters']}, "
+          f"{len(first['faults'])} faults fired "
+          f"({sorted({f[3] for f in first['faults']})})")
+
+
+def serve_closed_loop_models(args, profiles, pool):
+    """Phase 11 (b): the closed loop on real models at full width:
+    mamba2-130m and tinyllama-1.1b on phase 10's warm thread-lane pool
+    (two workers, one twice as fast), phase 9's profiles and traffic,
+    ``preempt=True``, ``health=True``, ``overlap=True``, a crash on worker
+    1 at window 1 and seeded transients.  Speculative scheduling (K1, K2)
+    runs on this thread while the lanes run prefill and replay decode
+    graphs on their own streams.  Every request is recorded once; every
+    failure is an injected fault or a cascade from one; each lane launched
+    exactly the K3, K4 and K5 kernels its successful batches need; K1
+    launched once per placement step of every scheduling pass (discarded
+    speculations included) plus once per commit; the overlap hid some
+    scheduling time; peak device memory under 80 GB."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.configs import ARCHS
+    from repro_torch.core.scheduler import make_policy
+    from repro_torch.core.types import Application
+
+    mamba, llama = "mamba2-130m", "tinyllama-1.1b"
+    new_tokens = 16
+    layer_counts = {
+        name: tuple(sum(ARCHS[name].layer_kind(i).partition(":")[0] in kinds
+                        for i in range(ARCHS[name].num_layers))
+                    for kinds in (("ssd",), ("attn", "local")))
+        for name in (mamba, llama)}
+    app = {"assistant": Application(name="assistant", models=[profiles[mamba], profiles[llama]],
+                                    penalty="sigmoid")}
+    workers = [lane.worker for _, lane in sorted(pool.lanes.items())]
+    reqs = serving_trace(args, 100_000)
+    server = _pass_counting_server()(
+        app, make_policy("SneakPeek"), executor=pool, workers=workers,
+        sneakpeeks={"assistant": serving_sneakpeek(args)},
+        prompt_fn=serving_prompt_fn(ARCHS[llama].vocab_size), preempt=True, health=True,
+        overlap=True, faults=_closed_loop_plan(hang=False), device="cuda")
+    lane0 = pool.launch_counts
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t = time.perf_counter()
+    outs, stats = server.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    lanes = {w: {k: n - lane0[w].get(k, 0) for k, n in c.items() if n != lane0[w].get(k, 0)}
+             for w, c in pool.launch_counts.items()}
+    outcomes = [o["pending"].result() for o in outs]
+    reports = [r for oc in outcomes for r in oc.reports]
+    failures = [f for oc in outcomes for f in oc.failures]
+    served = [rid for r in reports for rid in r.request_ids]
+    fired = {(w, b, kind, rids) for _, w, b, kind, rids in server.injector.log}
+    tokens = sum(r.tokens.size for r in reports)
+    steps = sum(len({e.batch_id for e in s.entries}) for s in server.passes)
+    d = stats.as_dict()
+    print("    ServeStats: " + ", ".join(
+        f"{k}={d[k]}" for k in ("windows", "requests", "violations", "mean_utility", "preempted",
+                                "dropped", "failed_batches", "retries", "dropped_after_retry",
+                                "fallbacks", "quarantined_workers", "realized_over_profiled",
+                                "sched_wall_s", "exec_wall_s", "overlap_saved_s")))
+    print(f"    {len(reports)} batches served, {len(failures)} failed "
+          f"({sorted((f.worker, f.kind, f.cascaded) for f in failures)}); faults fired "
+          f"{sorted(server.injector.log)}; {len(server.passes)} scheduling passes for "
+          f"{stats.windows} commits, {steps} placement steps; {tokens} tokens, "
+          f"{tokens / max(stats.exec_wall_s, 1e-12):.1f} tokens/s over exec_wall_s; wall "
+          f"{wall:.3f} s; peak device memory {peak / 1e9:.3f} GB")
+    for w in sorted(lanes):
+        mine = [r for r in reports if r.worker == w]
+        print(f"      worker {w}: batches {len(mine)}, launches {lanes[w]}")
+    print(f"      launches: {launches}")
+    require(sorted(server._records) == sorted(r.rid for r in reqs),
+            "phase 11 (b): a request has no record")
+    require(len(served) == len(set(served)), "phase 11 (b): a request was served twice")
+    dropped = stats.dropped + stats.dropped_after_retry
+    require(len(served) + dropped == len(reqs),
+            f"phase 11 (b): {len(served)} served + {dropped} dropped != {len(reqs)} requests")
+    require(all(server._records[rid] == (0.0, True) for rid in set(server._records) - set(served)),
+            "phase 11 (b): a request neither served nor dropped")
+    for oc in outcomes:
+        crashed = {f.worker: f.batch_index for f in oc.failures
+                   if f.kind == "crash" and not f.cascaded}
+        for f in oc.failures:
+            require(f.kind not in ("error", "lane"), f"phase 11 (b): a {f.kind} failure: {f}")
+            if f.cascaded:
+                require(f.kind == "crash" and crashed.get(f.worker, f.batch_index) < f.batch_index,
+                        f"phase 11 (b): a cascade without its crash: {f}")
+            else:
+                require((f.worker, f.batch_index, f.kind, tuple(f.request_ids)) in fired,
+                        f"phase 11 (b): a failure no fault fired: {f}")
+    total = {}
+    for w in lanes:
+        want = _launches_wanted(layer_counts, [r.model for r in reports if r.worker == w],
+                                new_tokens)
+        for k, n in want.items():
+            require(lanes[w].get(k, 0) == n, f"phase 11 (b): worker {w} launched {k} "
+                    f"{lanes[w].get(k, 0)} times, expected {n}")
+            total[k] = total.get(k, 0) + n
+    for k, n in total.items():
+        require(launches.get(k, 0) == n,
+                f"phase 11 (b): {k} launched {launches.get(k, 0)} times, expected {n}")
+    require(launches.get("utility_scores", 0) == steps + stats.windows,
+            f"phase 11 (b): K1 launched {launches.get('utility_scores')} times, expected "
+            f"{steps} placement steps + {stats.windows} commits")
+    require(launches.get("knn_topk", 0) > 0, "phase 11 (b): no k-NN kernel")
+    require(stats.overlap_saved_s > 0, "phase 11 (b): the overlap hid no scheduling time")
+    require(peak < 80e9, f"phase 11 (b): peak device memory {peak / 1e9:.3f} GB")
+    for r in reports:
+        require(r.tokens.shape == (r.batch_size, new_tokens), f"tokens {r.tokens.shape}")
+        require(bool(((r.tokens >= 0) & (r.tokens < ARCHS[r.model].vocab_size)).all()),
+                "token outside the vocab")
     return launches
 
 
@@ -1671,7 +1912,22 @@ def main(argv=None) -> int:
     print(f"[10] the pool: EdgeServer(workers=[Worker(0), Worker(1, speed=2.0)]), SneakPeek, "
           f"{args.serve_requests} requests on mamba2-130m and tinyllama-1.1b (gemma-7b stays in "
           "phase 9's single-executor runs), thread lanes, process lanes, CompiledBackend lanes")
-    pool = serve_pool_path(args, profiles)
+    pool, warm_pool = serve_pool_path(args, profiles)
+    print(f"    phases 1-10 {time.perf_counter() - t_start:.1f} s")
+    print("[11] closed-loop serving: EdgeServer(preempt=True, faults=FaultPlan(...), "
+          "health=True), synchronous and overlapped")
+    t0 = time.perf_counter()
+    print("  (a) SimulatedBackend lanes on workers [Worker(0), Worker(1, speed=2.0), Worker(2)], "
+          "phase 9's three-family application, a crash, a straggler pinned to worker 2 and "
+          "seeded transients: the card against the host")
+    serve_closed_loop_simulated(args, profiles, serving_sneakpeek(args))
+    print(f"    (a) {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    print("  (b) mamba2-130m and tinyllama-1.1b at full width on phase 10's warm thread lanes, "
+          "overlapped, a crash and seeded transients")
+    closed = serve_closed_loop_models(args, profiles, warm_pool)
+    warm_pool.close()
+    print(f"    (b) {time.perf_counter() - t0:.1f} s")
 
     rows = [
         ("knn_topk", "knn/csrc/knn.cu", "knn/kernel.py:92", launches, knn_t),
@@ -1692,8 +1948,9 @@ def main(argv=None) -> int:
             if key in t}}
         for name, source, replaces, counts, t in rows
     ]}
-    for row in table["kernels"]:  # phase 10's run (a) 2, counted from 0
+    for row in table["kernels"]:  # phase 10's run (a) 2 and phase 11 (b), counted from 0
         row["launches_pool"] = pool.get(row["name"], 0)
+        row["launches_closed_loop"] = closed.get(row["name"], 0)
     print(f"    total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps(table))

@@ -19,6 +19,7 @@ _EXPORTS = {
     "fastpath": ("WindowArrays", "fast_grouped_schedule", "fast_multiworker_schedule",
                  "fast_per_request_schedule"),
     "grouping": ("group_by_app", "grouped_schedule", "split_groups_by_label"),
+    "health": ("HealthConfig", "HealthTracker", "WorkerHealth"),
     "multiworker": ("Worker", "multiworker_schedule"),
     "priority": ("group_priority", "request_priorities", "request_priority"),
     "scheduler": ("POLICY_NAMES", "SchedulerPolicy", "effective_apps", "make_policy",

@@ -171,6 +171,21 @@ class EvalResult:
         return busy / (len(self.worker_busy_s) * self.span_s)
 
 
+def _scale_profile_latency(profile: ModelProfile, scale: float) -> ModelProfile:
+    """``profile`` with inference latency multiplied by ``scale``.
+
+    Swap (load) latency is untouched — the drift EWMA observes execution
+    time, not host-to-device transfers.  ``latency_model`` coefficients
+    scale with the base latency so batched timing stays consistent.
+    """
+    lm = profile.latency_model
+    return dataclasses.replace(
+        profile,
+        latency_s=profile.latency_s * scale,
+        latency_model=None if lm is None else (lm[0] * scale, lm[1] * scale),
+    )
+
+
 def evaluate(
     schedule: Schedule,
     apps: Mapping[str, Application],
@@ -179,6 +194,7 @@ def evaluate(
     memory_capacity_bytes: int | None = None,
     num_workers: int | None = None,
     state=None,
+    latency_scale=None,
     device=None,
 ) -> EvalResult:
     """Replay a schedule through worker timelines and score it (Eq. 3).
@@ -194,11 +210,19 @@ def evaluate(
     after each worker's carried backlog, resident models are not
     re-charged their swap, and the realized executions are COMMITTED to
     the state (residency + busy-until carry to the next window).  Each
-    committed batch is also logged to the state's backlog
-    (``StreamingState.record_batch`` with a pre-batch snapshot).  The
+    committed batch is also logged to the state's preemption backlog
+    (``StreamingState.record_batch`` with a pre-batch rollback snapshot)
+    so the serving loop's ``preempt=True`` mode can withdraw and
+    re-schedule committed-but-unstarted work at the next window close
+    with its utility re-accounted there.  The
     state OWNS the pool: its existing timelines all count toward
     utilization, ``num_workers`` is ignored, and residency capacity must
     be configured on the StreamingState, not here.
+
+    ``latency_scale`` (a callable ``(wid, model_name) -> float``, from
+    ``HealthTracker.scale_fn``) multiplies each batch's inference latency
+    during replay — the closed loop's drift-corrected committed timeline.
+    Swap latency is never scaled.
 
     ``device`` is where the batched Eq. 9/Eq. 2 scoring runs
     (``device.resolve_device``: the card unless ``"cpu"`` is named); the
@@ -250,8 +274,14 @@ def evaluate(
             )
             busy.setdefault(w, 0.0)
         profile = apps[batch[0].request.app].model(batch[0].model)
+        if latency_scale is not None:
+            s = latency_scale(w, batch[0].model)
+            if s != 1.0:
+                profile = _scale_profile_latency(profile, s)
         tl = workers[w]
-        # Pre-batch snapshot for the streaming backlog log.
+        # Pre-batch snapshot for the streaming backlog log: window-close
+        # preemption rolls the timeline back to exactly this point when
+        # the batch is withdrawn before starting (streaming.preempt).
         t_before = tl.t
         residency_before = list(tl._resident) if state is not None else ()
         start, completion = tl.run_batch(profile, len(batch))

@@ -1,6 +1,7 @@
 """Serving plane of the port: ``EdgeServer`` over a single ``LMExecutor``
-or an ``ExecutorPool`` of worker lanes, and the executor backends
-(``ProfiledBackend``, ``CompiledBackend``, ``SimulatedBackend``).
+or an ``ExecutorPool`` of worker lanes, the executor backends
+(``ProfiledBackend``, ``CompiledBackend``, ``SimulatedBackend``) and the
+fault injection of the closed loop (``FaultPlan``, ``FaultInjector``).
 
 The names the reference's ``repro.serving`` exports that the port has
 are exported here, imported on first access.
@@ -12,9 +13,10 @@ import importlib
 _EXPORTS = {
     "backends": ("CompiledBackend", "CostModelBackend", "ExecutorBackend",
                  "ProfiledBackend", "SimulatedBackend"),
+    "faults": ("FaultInjector", "FaultPlan", "FaultSpec"),
     "runtime": ("LANE_NAMES", "BatchFailure", "ExecutionReport", "ExecutorPool",
-                "LMExecutor", "PoolOutcome", "ProcessLaneBackend", "SwapManager",
-                "WindowQueue", "WorkerExecutor"),
+                "LMExecutor", "PendingExecution", "PoolOutcome", "ProcessLaneBackend",
+                "SwapManager", "WindowQueue", "WorkerExecutor"),
     "server": ("EdgeServer", "ServeStats"),
 }
 _MODULE_OF = {name: module for module, names in _EXPORTS.items() for name in names}

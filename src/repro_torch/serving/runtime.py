@@ -10,9 +10,11 @@ its own backend instance (its own stream on the card, its own decode
 graphs, caches and swap manager).  Lanes run one after another
 (``"serial"``), on threads (``"thread"``), or forward each batch to a
 spawned worker process that owns its CUDA context (``"process"``,
-``ProcessLaneBackend``).  The supervised, fault-tolerant gather
-(``execute_supervised``) and the overlapped one (``execute_async``) come
-with ROADMAP item 14 and raise.
+``ProcessLaneBackend``).  ``execute_supervised`` is the fault-tolerant
+gather (per-batch failure records, a fault injector polled per batch, a
+shared lane deadline), ``execute_async`` starts a window's gather on a
+one-thread coordinator and returns at once, so the serving loop can
+schedule the next window while this one runs.
 """
 from __future__ import annotations
 
@@ -20,7 +22,8 @@ import dataclasses
 import multiprocessing
 import time
 from collections import OrderedDict
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import Future, ThreadPoolExecutor
+from concurrent.futures import TimeoutError as FuturesTimeout
 from typing import Callable, Mapping, Optional, Sequence
 
 import numpy as np
@@ -28,26 +31,18 @@ import numpy as np
 from repro_torch import kernels
 from repro_torch.core.multiworker import Worker
 from repro_torch.core.residency import evict_lru
-from repro_torch.core.scheduler import not_ported
 from repro_torch.core.types import Request, Schedule, ScheduleEntry
 from repro_torch.serving.backends import ExecutionReport, ExecutorBackend, ProfiledBackend
 
 __all__ = ["WindowQueue", "SwapManager", "LMExecutor", "ExecutionReport",
            "iter_entry_batches", "LANE_NAMES", "BatchFailure", "PoolOutcome",
-           "ProcessLaneBackend", "WorkerExecutor", "ExecutorPool", "NOT_PORTED"]
+           "PendingExecution", "ProcessLaneBackend", "WorkerExecutor", "ExecutorPool"]
 
 # Lane strategies of ExecutorPool: "serial" runs the lanes one after
 # another in the calling thread, "thread" one long-lived thread per lane,
 # "process" keeps the lane threads for coordination and forwards every
 # batch to a spawned worker process holding its own backend instance.
 LANE_NAMES = ("serial", "thread", "process")
-
-# Pool paths of the reference this port does not have yet, with the
-# ROADMAP item ("Open items" -> "Modules to port") that brings each.
-NOT_PORTED: dict[str, str] = {
-    "execute_async": "item 14 (closed-loop serving: preemption, faults, health, overlap)",
-    "execute_supervised": "item 14 (closed-loop serving: preemption, faults, health, overlap)",
-}
 
 
 class WindowQueue:
@@ -69,6 +64,17 @@ class WindowQueue:
         ready = [r for r in self._pending if r.arrival_s <= now]
         self._pending = [r for r in self._pending if r.arrival_s > now]
         return sorted(ready, key=lambda r: (r.arrival_s, r.rid))
+
+    def readmit(self, requests: Sequence[Request]) -> None:
+        """Merge withdrawn (preempted or retried) requests back into the
+        queue.  Their ``arrival_s`` is in the past, so the next
+        ``drain_window`` returns them with the fresh arrivals under the
+        same (arrival, rid) order — the re-admission path of window-close
+        preemption."""
+        self._pending.extend(requests)
+
+    def __len__(self):
+        return len(self._pending)
 
 
 class SwapManager:
@@ -233,9 +239,9 @@ class BatchFailure:
 
 @dataclasses.dataclass
 class PoolOutcome:
-    """What a pool's gather collected from its lanes: the reports, the
-    failed batches and the lanes that overran a deadline (the last two
-    stay empty until the supervised gather of ROADMAP item 14)."""
+    """What a pool's gather collected from its lanes: the successful
+    reports, the failed batches, and the lanes that overran the deadline
+    (joined late: a health signal, not lost work)."""
 
     reports: list
     failures: list
@@ -417,6 +423,32 @@ class ProcessLaneBackend(ExecutorBackend):
         self._conn = None
 
 
+class PendingExecution:
+    """Handle to one window's lane execution in flight
+    (``ExecutorPool.execute_async``).
+
+    ``result()`` joins the coordinator and returns the ``PoolOutcome``;
+    ``started_at`` and ``finished_at`` are ``time.perf_counter()`` stamps
+    the serving loop reads to measure how much scheduling time the
+    overlap hid."""
+
+    def __init__(self, future: Future, started_at: float):
+        self._future = future
+        self.started_at = started_at
+        self.finished_at: float | None = None
+
+    def done(self) -> bool:
+        """Whether the lanes have all finished (non-blocking)."""
+        return self._future.done()
+
+    def result(self) -> PoolOutcome:
+        """Join the execution (re-raising lane errors as the synchronous
+        path does)."""
+        outcome, finished = self._future.result()
+        self.finished_at = finished
+        return outcome
+
+
 class WorkerExecutor:
     """One worker's execution lane: a private ``LMExecutor`` (its own
     ``SwapManager``: per-worker residency, as the scheduler's per-worker
@@ -463,17 +495,72 @@ class WorkerExecutor:
         entries: Sequence[ScheduleEntry],
         prompt_fn: Callable[[Request], np.ndarray],
         class_token_ids=None,
+        until: float | None = None,
+        on_dispatch: Callable[[list[int]], None] | None = None,
+        injector=None,
+        window: int = 0,
+        failures: list | None = None,
     ) -> list[ExecutionReport]:
         """Run this worker's share of a placed schedule, batch by batch.
-        (The reference's ``until`` and ``on_dispatch``, which gate dispatch
-        for window-close preemption, come with ROADMAP item 14.)"""
+
+        ``until`` stops dispatch at the first batch whose committed start
+        time is at or past it (est_start_s is nondecreasing along a
+        worker's queue, so everything later stays backlogged for the next
+        window — the half of the schedule window-close preemption may
+        withdraw).  ``on_dispatch(rids)`` fires as each batch begins,
+        before it runs: the serving loop sets the streaming state's
+        dispatch marks with it, so started work is never withdrawn.
+
+        ``injector`` (``serving.faults.FaultInjector``) is polled per
+        batch index within ``window``; ``failures`` (a list the supervised
+        gather passes in) collects ``BatchFailure`` records — injected
+        faults and exceptions of a batch — instead of raising, so one bad
+        batch never takes down the lane's remaining work.  Without it
+        exceptions propagate.  A crash stops the lane: its batch and every
+        later batch fail (the later ones marked ``cascaded``).  A hang runs
+        the batch and adds the fault's ``delay_s`` to its reported decode
+        seconds, without sleeping: the straggler signal flows through the
+        realized-latency EWMA as a slow lane's would.  A batch an injected
+        fault fails never runs, so it launches no kernel."""
+        if injector is not None and failures is None:
+            raise ValueError("fault injection requires a failures sink "
+                             "(use ExecutorPool.execute_supervised)")
         reports = []
+        wid = self.worker.wid
+        crashed = False
         before = kernels.thread_launch_counts()
         try:
-            for batch in iter_entry_batches(sorted(entries, key=lambda e: e.order)):
-                report = self._scaled(
-                    self.executor.run_entry_batch(batch, prompt_fn, class_token_ids))
-                report.worker = self.worker.wid
+            for bi, batch in enumerate(iter_entry_batches(sorted(entries, key=lambda e: e.order))):
+                if until is not None and batch[0].est_start_s >= until - 1e-12:
+                    break
+                rids = [e.request.rid for e in batch]
+                if crashed:
+                    failures.append(BatchFailure(
+                        worker=wid, request_ids=rids, model=batch[0].model,
+                        kind="crash", batch_index=bi, cascaded=True))
+                    continue
+                fault = injector.poll(window, wid, bi, rids) if injector is not None else None
+                if fault is not None and fault.kind in ("crash", "transient", "swap_fail"):
+                    failures.append(BatchFailure(
+                        worker=wid, request_ids=rids, model=batch[0].model,
+                        kind=fault.kind, batch_index=bi))
+                    crashed = fault.kind == "crash"
+                    continue
+                if on_dispatch is not None:
+                    on_dispatch(rids)
+                try:
+                    report = self._scaled(
+                        self.executor.run_entry_batch(batch, prompt_fn, class_token_ids))
+                except Exception as err:
+                    if failures is None:
+                        raise
+                    failures.append(BatchFailure(
+                        worker=wid, request_ids=rids, model=batch[0].model,
+                        kind="error", batch_index=bi, error=repr(err)))
+                    continue
+                if fault is not None and fault.kind == "hang":
+                    report = dataclasses.replace(report, decode_s=report.decode_s + fault.delay_s)
+                report.worker = wid
                 self.busy_s += report.total_s
                 reports.append(report)
         finally:
@@ -524,10 +611,13 @@ class ExecutorPool:
             w.wid: WorkerExecutor(w, capacity_bytes=capacity_bytes, backend=backend_factory())
             for w in workers
         }
-        self.wall_s = 0.0  # wall-clock spent inside execute_schedule calls
+        self.wall_s = 0.0  # wall-clock spent inside the gathers
         # One long-lived thread per lane (the serial lane: a shim that
         # runs the work at submit).
         self._tp: ThreadPoolExecutor | _ImmediateExecutor | None = None
+        # One-thread coordinator of execute_async: runs the whole gather
+        # off the caller's thread, so scheduling can overlap it.
+        self._coord: ThreadPoolExecutor | None = None
 
     @classmethod
     def from_executor(cls, executor: LMExecutor, workers: Sequence[Worker],
@@ -545,9 +635,12 @@ class ExecutorPool:
         )
 
     def close(self) -> None:
-        """Shut the lane threads down (waiting for work in flight) and
-        close every lane's backend, which stops process lanes' workers.
-        Idempotent."""
+        """Shut the coordinator and the lane threads down (waiting for
+        work in flight) and close every lane's backend, which stops
+        process lanes' workers.  Idempotent."""
+        if self._coord is not None:
+            self._coord.shutdown(wait=True)
+            self._coord = None
         if self._tp is not None:
             self._tp.shutdown(wait=True)
             self._tp = None
@@ -587,25 +680,94 @@ class ExecutorPool:
         schedule: Schedule,
         prompt_fn: Callable[[Request], np.ndarray],
         class_token_ids=None,
+        until: float | None = None,
+        on_dispatch: Callable[[list[int]], None] | None = None,
     ) -> list[ExecutionReport]:
         """Execute a placed schedule: entries split by ``entry.worker``,
-        each lane running its share in order on its own lane.  Reports
-        return grouped by worker id, each lane's in dispatch order.
+        each lane running its share in order on its own lane.  ``until``
+        and ``on_dispatch`` go to every lane (``WorkerExecutor.execute``).
+        Reports return grouped by worker id, each lane's in dispatch
+        order.
 
-        ``prompt_fn`` is called from several lane threads at once: derive
-        any randomness from the request (e.g. its rid), not from one
-        shared generator.  Every lane is joined before anything is
-        raised; then the first failing lane's error (ascending worker id)
-        is re-raised."""
-        return self._gather(schedule, prompt_fn, class_token_ids).reports
+        ``prompt_fn`` and ``on_dispatch`` are called from several lane
+        threads at once: derive any randomness from the request (e.g. its
+        rid), not from one shared generator.  Every lane is joined before
+        anything is raised; then the first failing lane's error (ascending
+        worker id) is re-raised.  This is the supervised gather with its
+        machinery off: no injector, no failure sinks, no deadline."""
+        return self._gather(
+            schedule, prompt_fn, class_token_ids, until, on_dispatch,
+            injector=None, window=0, timeout_s=None, supervised=False,
+        ).reports
 
-    def execute_async(self, *args, **kwargs):
-        """The overlapped gather: not ported yet (ROADMAP item 14)."""
-        not_ported("execute_async", NOT_PORTED)
+    def execute_async(
+        self,
+        schedule: Schedule,
+        prompt_fn: Callable[[Request], np.ndarray],
+        class_token_ids=None,
+        until: float | None = None,
+        on_dispatch: Callable[[list[int]], None] | None = None,
+        injector=None,
+        window: int = 0,
+        timeout_s: float | None = None,
+        supervised: bool = True,
+    ) -> PendingExecution:
+        """Start a window's lane execution without joining it: the whole
+        gather (dispatch, lane join, ``wall_s`` accounting) runs on a
+        one-thread coordinator, and the returned ``PendingExecution``
+        joins it later — so the serving loop schedules window k+1 while
+        window k's lanes run.
 
-    def execute_supervised(self, *args, **kwargs):
-        """The fault-tolerant gather: not ported yet (ROADMAP item 14)."""
-        not_ported("execute_supervised", NOT_PORTED)
+        The semantics are those of ``execute_supervised`` (or, with
+        ``supervised=False``, ``execute_schedule``) at the moment
+        ``result()`` is awaited: the same lane split, join order and
+        failure records; unsupervised lane errors re-raise out of
+        ``result()``.  One execution is in flight at a time (a second
+        call queues behind the first on the coordinator)."""
+        if self._coord is None:
+            self._coord = ThreadPoolExecutor(max_workers=1)
+        t0 = time.perf_counter()
+
+        def _run() -> tuple[PoolOutcome, float]:
+            outcome = self._gather(
+                schedule, prompt_fn, class_token_ids, until, on_dispatch,
+                injector, window, timeout_s, supervised,
+            )
+            return outcome, time.perf_counter()
+
+        return PendingExecution(self._coord.submit(_run), t0)
+
+    def execute_supervised(
+        self,
+        schedule: Schedule,
+        prompt_fn: Callable[[Request], np.ndarray],
+        class_token_ids=None,
+        until: float | None = None,
+        on_dispatch: Callable[[list[int]], None] | None = None,
+        injector=None,
+        window: int = 0,
+        timeout_s: float | None = None,
+    ) -> PoolOutcome:
+        """The fault-tolerant twin of ``execute_schedule``.
+
+        Each lane runs with a per-batch failure guard and the optional
+        fault ``injector``, polled per (window, worker, batch): injected
+        faults and exceptions become ``BatchFailure`` records instead of
+        raising, so one bad batch never loses the rest of the window.
+        ``timeout_s`` bounds the wait for the whole pool's lanes (a
+        deadline shared from dispatch): a lane that overruns it is
+        recorded in ``timed_out`` — a health signal — and then joined
+        anyway (a thread cannot be cancelled).  A lane's exception outside
+        the per-batch guard fails the lane's unaccounted batches with kind
+        ``"lane"``.
+
+        Returns a ``PoolOutcome``; the serving loop withdraws
+        ``failed_rids()`` through ``StreamingState.withdraw`` and re-admits
+        them under its retry budget."""
+        return self._gather(
+            schedule, prompt_fn, class_token_ids, until, on_dispatch,
+            injector, window, timeout_s, supervised=True,
+        )
 
     def _split(self, schedule: Schedule) -> dict[int, list[ScheduleEntry]]:
         """Entries per worker id (schedule order), lanes validated and the
@@ -623,30 +785,84 @@ class ExecutorPool:
                 self._tp = ThreadPoolExecutor(max_workers=len(self.lanes))
         return by_worker
 
-    def _gather(self, schedule, prompt_fn, class_token_ids) -> PoolOutcome:
-        """Split the entries per worker, submit every lane, join them in
-        ascending worker id, account ``wall_s`` once, then re-raise the
-        first lane error."""
+    def _gather(
+        self,
+        schedule: Schedule,
+        prompt_fn: Callable[[Request], np.ndarray],
+        class_token_ids,
+        until: float | None,
+        on_dispatch: Callable[[list[int]], None] | None,
+        injector,
+        window: int,
+        timeout_s: float | None,
+        supervised: bool,
+    ) -> PoolOutcome:
+        """The one dispatch loop of every public path: split the entries
+        per worker, submit every lane, join them in ascending worker id,
+        account ``wall_s`` once.
+
+        ``supervised=False``: lanes run with no failure sink (exceptions
+        propagate), there is no deadline, and the first failing lane's
+        error is re-raised after every lane has been joined.
+        ``supervised=True`` hands each lane a ``BatchFailure`` sink, turns
+        a lane's exception into ``kind="lane"`` failures of its
+        unaccounted batches, and records (then joins) the lanes that
+        overrun the shared ``timeout_s`` deadline."""
         by_worker = self._split(schedule)
+        failures_by: dict[int, list[BatchFailure]] = {wid: [] for wid in by_worker}
         t0 = time.perf_counter()
         # Ascending-wid submission keeps the serial lane's order
         # deterministic; the join below is sorted in any case.
         futures = {
-            wid: self._tp.submit(self.lanes[wid].execute, by_worker[wid], prompt_fn,
-                                 class_token_ids)
+            wid: self._tp.submit(
+                self.lanes[wid].execute, by_worker[wid], prompt_fn,
+                class_token_ids, until, on_dispatch,
+                injector, window, failures_by[wid] if supervised else None,
+            )
             for wid in sorted(by_worker)
         }
         reports: list[ExecutionReport] = []
+        failures: list[BatchFailure] = []
+        timed_out: list[int] = []
         errors: dict[int, BaseException] = {}
+        deadline = None if timeout_s is None else t0 + timeout_s
         for wid in sorted(futures):
+            lane_reports: list[ExecutionReport] = []
             try:
-                reports.extend(futures[wid].result())
+                if deadline is None:
+                    lane_reports = futures[wid].result()
+                else:
+                    remaining = max(0.0, deadline - time.perf_counter())
+                    try:
+                        lane_reports = futures[wid].result(timeout=remaining)
+                    except FuturesTimeout:
+                        timed_out.append(wid)
+                        lane_reports = futures[wid].result()  # joined anyway
             except BaseException as err:
-                errors[wid] = err
+                if not supervised:
+                    errors[wid] = err  # re-raised below, once every lane joined
+                elif isinstance(err, Exception):
+                    # A lane failure outside the per-batch guard: every
+                    # batch not already reported or failed goes down with it.
+                    done = {rid for f in failures_by[wid] for rid in f.request_ids}
+                    for rep in lane_reports:
+                        done.update(rep.request_ids)
+                    for bi, batch in enumerate(iter_entry_batches(
+                            sorted(by_worker[wid], key=lambda e: e.order))):
+                        rids = [e.request.rid for e in batch]
+                        if not done.intersection(rids):
+                            failures_by[wid].append(BatchFailure(
+                                worker=wid, request_ids=rids, model=batch[0].model,
+                                kind="lane", batch_index=bi, error=repr(err)))
+                    lane_reports = []
+                else:
+                    raise
+            reports.extend(lane_reports)
+            failures.extend(failures_by[wid])
         self.wall_s += time.perf_counter() - t0
         if errors:
             raise errors[min(errors)]
-        return PoolOutcome(reports=reports, failures=[], timed_out=[])
+        return PoolOutcome(reports=reports, failures=failures, timed_out=timed_out)
 
 
 def iter_entry_batches(entries: Sequence[ScheduleEntry]):

@@ -10,7 +10,10 @@ PyTorch is installed.  The CPU tests hold the plain versions against the
 JAX package's Pallas kernels (tests/test_torch_kernels.py).  The last
 tests run the serving lanes on the card: two thread lanes capturing and
 replaying decode graphs at once, a lane's clock beside another stream's
-work, and a process lane's launch counts.
+work, a process lane's launch counts, and the closed loop: the
+overlapped server's speculative scheduling beside a lane's capture, an
+injected crash on a supervised lane, and a lane deadline beside another
+stream's long kernel.
 """
 import threading
 
@@ -861,3 +864,177 @@ def test_process_lane_returns_its_launch_counts(cuda):
     assert counts.get("ssd", 0) == 2
     for mine, theirs in zip(there, here):
         np.testing.assert_array_equal(mine, theirs)
+
+
+# ------------------------------------------------------ the closed loop on the card
+
+
+def _lane_app():
+    from repro_torch.core.accuracy import ModelProfile
+    from repro_torch.core.types import Application
+
+    models = [ModelProfile("t", recalls=[0.78, 0.86], latency_s=0.03, load_latency_s=0.02),
+              ModelProfile("m", recalls=[0.88, 0.70], latency_s=0.02, load_latency_s=0.01)]
+    return {"assistant": Application(name="assistant", models=models, penalty="sigmoid")}
+
+
+def _lane_trace(n=24, dim=8):
+    from repro_torch.core.types import Request
+
+    rng = np.random.default_rng(3)
+    labels = rng.integers(0, 2, n)
+    feats = (np.where(labels[:, None] == 1, 0.6, -0.6)
+             + rng.normal(size=(n, dim))).astype(np.float32)
+    return [Request(rid=i, app="assistant", arrival_s=0.01 * i, deadline_s=0.01 * i + 0.4,
+                    features=feats[i], true_label=int(labels[i])) for i in range(n)]
+
+
+def _lane_prompt(req):
+    return np.random.default_rng(req.rid).integers(0, 32000, 24 + req.rid % 5).astype(np.int32)
+
+
+def _lane_schedule(rows):
+    """A placed schedule of (rid, model, worker, order, batch_id, start) rows."""
+    from repro_torch.core.types import Request, Schedule, ScheduleEntry
+
+    return Schedule(entries=[
+        ScheduleEntry(request=Request(rid=rid, app="assistant", arrival_s=0.0, deadline_s=5.0),
+                      model=model, order=order, worker=w, batch_id=b, est_start_s=start,
+                      est_latency_s=0.05)
+        for rid, model, w, order, b, start in rows])
+
+
+def test_overlapped_server_schedules_while_a_lane_captures(cuda, monkeypatch):
+    """The overlapped loop's speculative pass launches K2 and K1 from the
+    scheduling thread while a lane thread is inside its first decode
+    graph's capture (held there until the pass is done): the capture
+    survives, and the decisions, records and tokens equal the synchronous
+    loop's."""
+    from repro_torch import kernels
+    from repro_torch.core.multiworker import Worker
+    from repro_torch.core.scheduler import make_policy
+    from repro_torch.core.sneakpeek import KNNSneakPeek
+    from repro_torch.serving import backends
+    from repro_torch.serving.runtime import ExecutorPool, LMExecutor
+    from repro_torch.serving.server import EdgeServer
+
+    in_capture, speculated = threading.Event(), threading.Event()
+    real_decode = backends.DecodeGraph._decode
+
+    def decode(self):
+        if torch.cuda.is_current_stream_capturing() and not speculated.is_set():
+            in_capture.set()
+            speculated.wait(timeout=120)
+        real_decode(self)
+
+    monkeypatch.setattr(backends.DecodeGraph, "_decode", decode)
+    spec_launches = {}
+
+    class Server(EdgeServer):
+        def _speculate(self, now):
+            if speculated.is_set():
+                return super()._speculate(now)
+            assert in_capture.wait(timeout=120), "no lane reached a capture"
+            before = kernels.thread_launch_counts()
+            out = super()._speculate(now)
+            torch.cuda.current_stream().synchronize()
+            for name, n in kernels.thread_launch_counts().items():
+                spec_launches[name] = n - before.get(name, 0)
+            speculated.set()
+            return out
+
+    rng = np.random.default_rng(9)
+    y = rng.integers(0, 2, 400).astype(np.int32)
+    x = (np.where(y[:, None] == 1, 0.6, -0.6) + rng.normal(size=(400, 8))).astype(np.float32)
+    runs = {}
+    for overlap in (True, False):  # the held capture first: the synchronous run holds none
+        backend = backends.ProfiledBackend(_lane_variants(), new_tokens=4, device=cuda)
+        workers = [Worker(0), Worker(1, speed=2.0)]
+        pool = ExecutorPool.from_executor(LMExecutor(backend=backend), workers)
+        server = (Server if overlap else EdgeServer)(
+            _lane_app(), make_policy("SneakPeek"), executor=pool, workers=workers,
+            sneakpeeks={"assistant": KNNSneakPeek(x, y, 2, k=5, device=cuda)},
+            prompt_fn=_lane_prompt, preempt=True, overlap=overlap, device=cuda)
+        with server:
+            outs, stats = server.run(_lane_trace())
+        reports = [r for o in outs
+                   for r in (o["pending"].result().reports if overlap else o["reports"])]
+        runs[overlap] = (
+            [(e.request.rid, e.model, e.worker, e.order, e.batch_id)
+             for o in outs for e in o["schedule"].sorted_entries()],
+            dict(server._records), [(r.worker, r.request_ids, r.model) for r in reports],
+            [r.tokens for r in reports], stats)
+        captures = sum(lane.executor.backend.graph_stats()["captures"]
+                       for lane in pool.lanes.values())
+        assert captures > 0
+    assert speculated.is_set()
+    assert spec_launches.get("knn_topk", 0) > 0 and spec_launches.get("utility_scores", 0) > 0
+    assert runs[True][:3] == runs[False][:3]
+    for a, b in zip(runs[True][3], runs[False][3]):
+        np.testing.assert_array_equal(a, b)
+    assert runs[True][4].overlap_saved_s > 0
+
+
+def test_supervised_lane_crash_launches_nothing_after_it(cuda):
+    """An injected crash at a lane's second batch: that batch and the
+    later ones fail (cascaded) and launch no kernel; the first batch's
+    launches are exactly one prefill and its decode steps."""
+    from repro_torch import kernels
+    from repro_torch.core.multiworker import Worker
+    from repro_torch.serving.backends import ProfiledBackend
+    from repro_torch.serving.faults import FaultInjector, FaultPlan, FaultSpec
+    from repro_torch.serving.runtime import ExecutorPool
+
+    new_tokens = 4
+    backend = ProfiledBackend(_lane_variants(), new_tokens=new_tokens, device=cuda)
+    pool = ExecutorPool([Worker(0), Worker(1)], backend_factory=backend.spawn)
+    sched = _lane_schedule([(0, "t", 0, 1, 0, 0.0), (1, "t", 0, 2, 1, 0.1),
+                            (2, "m", 0, 3, 2, 0.2), (3, "m", 1, 1, 3, 0.0)])
+    injector = FaultInjector(FaultPlan(specs=(FaultSpec("crash", window=0, worker=0, batch=1),)))
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    with pool:
+        out = pool.execute_supervised(sched, _lane_prompt, injector=injector)
+        lanes = pool.launch_counts
+    assert [(f.worker, f.request_ids, f.kind, f.cascaded) for f in out.failures] == [
+        (0, [1], "crash", False), (0, [2], "crash", True)]
+    assert sorted(r.request_ids[0] for r in out.reports) == [0, 3]
+    assert {k: n for k, n in lanes[0].items() if n} == {
+        "flash_attention": 2, "decode_attention": 2 * (new_tokens - 1)}
+    assert {k: n for k, n in lanes[1].items() if n} == {"ssd": 2}
+    counts = kernels.launch_counts()
+    assert (counts["flash_attention"], counts["decode_attention"], counts["ssd"]) == (
+        2, 2 * (new_tokens - 1), 2)
+
+
+def test_lane_deadline_is_recorded_beside_a_long_kernel(cuda):
+    """A lane overrunning the shared deadline is recorded in ``timed_out``
+    and joined once its own batches are done — not once another stream's
+    long kernel ends: the gather returns while that kernel still runs."""
+    from repro_torch.core.multiworker import Worker
+    from repro_torch.serving.backends import ProfiledBackend
+    from repro_torch.serving.runtime import ExecutorPool
+
+    backend = ProfiledBackend(_lane_variants(), new_tokens=3, device=cuda)
+    pool = ExecutorPool([Worker(0), Worker(1)], backend_factory=backend.spawn)
+    sched = _lane_schedule([(0, "t", 0, 1, 0, 0.0), (1, "t", 0, 2, 1, 0.1),
+                            (2, "m", 1, 1, 2, 0.0)])
+    with pool:
+        pool.execute_supervised(sched, _lane_prompt)  # captures, then replays
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        other = torch.cuda.Stream(cuda)
+        with torch.cuda.stream(other):
+            start.record()
+            torch.cuda._sleep(10**8)
+            end.record()
+        torch.cuda.synchronize()
+        cycles_per_ms = 10**8 / start.elapsed_time(end)
+        with torch.cuda.stream(other):
+            torch.cuda._sleep(int(3000.0 * cycles_per_ms))
+            done = torch.cuda.Event()
+            done.record()
+        out = pool.execute_supervised(sched, _lane_prompt, timeout_s=1e-4)
+        assert not done.query(), "the other stream's kernel ended before the gather did"
+    assert 0 in out.timed_out
+    assert sorted(r.request_ids[0] for r in out.reports) == [0, 1, 2] and out.failures == []
+    torch.cuda.synchronize()

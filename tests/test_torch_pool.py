@@ -711,15 +711,6 @@ def test_workers_with_compiled_options_still_raise(suites, option, value):
                     **{option: value})
 
 
-@pytest.mark.parametrize("method", ["execute_async", "execute_supervised"])
-def test_pool_closed_loop_paths_still_raise(method):
-    """The overlapped and the supervised gathers come with ROADMAP item 14."""
-    pool = ExecutorPool([Worker(0)], backend_factory=SimulatedBackend(
-        _sim_profiles(ModelProfile)).spawn)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        getattr(pool, method)(None, prompt_fn)
-
-
 def test_cost_model_backend_still_raises():
     with pytest.raises(NotImplementedError, match="item 13"):
         CostModelBackend({"m": "mamba2-130m"})

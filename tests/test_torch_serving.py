@@ -308,10 +308,7 @@ def test_swap_manager_matches_reference():
         assert (t.swap_count, t.evictions) == (j.swap_count, j.evictions)
 
 
-@pytest.mark.parametrize("option,value", [
-    ("pipeline", True), ("chunk", 4), ("shard", True), ("preempt", True),
-    ("faults", object()), ("health", True), ("overlap", True),
-])
+@pytest.mark.parametrize("option,value", [("pipeline", True), ("chunk", 4), ("shard", True)])
 def test_unported_server_options_raise(option, value):
     apps = _apps(ModelProfile, Application)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
