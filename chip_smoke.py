@@ -3,9 +3,9 @@
 
     python3 chip_smoke.py            # the full check, on one card
 
-Builds the port's five CUDA kernels from the checkout's sources, holds
-each against its plain PyTorch version at its path's shapes and times
-both, then drives three paths of the port on the card:
+Builds the port's six CUDA kernel sources from the checkout, holds each
+kernel against its plain PyTorch version at its path's shapes and times
+both, then drives four paths of the port on the card:
 
 * scheduling (phases 3-5): a SneakPeek ``Simulation`` over a stream of
   4096-request windows against k-NN training sets of 100,000 points per
@@ -36,7 +36,15 @@ both, then drives three paths of the port on the card:
   lanes the card's decisions, records, counters and fired faults equal
   the host's; on mamba2-130m and tinyllama-1.1b at full width, with
   speculative scheduling beside the lanes, every request recorded once,
-  every failure an injected one, exact launch counts.
+  every failure an injected one, exact launch counts;
+* the compiled window pipeline (phase 12): ``selection_scan`` bit-identical
+  to its plain version on phase 5's window (per-request, grouped and
+  four-worker scans, single-slot and LRU residency), then
+  ``Simulation(pipeline=True)`` over phase 5's trace for the five
+  policies, every window's schedule equal to ``pipeline=False``'s with
+  one scan launch per window that does not take the brute-force branch,
+  ``prebatch=4`` deciding as ``prebatch=0``, and ``EdgeServer(pipeline=
+  True)`` on phase 11 (a)'s lanes recording what phase 11 (a) recorded.
 
 Every check raises on failure.  The last three lines of standard output
 are the card's name and power limit, the kernel table and
@@ -1540,7 +1548,7 @@ def _closed_loop_view(server, outs, stats):
     }
 
 
-def serve_closed_loop_simulated(args, profiles, sneak):
+def serve_closed_loop_simulated(args, profiles, sneak, pipeline=False, want=None):
     """Phase 11 (a): the closed loop on ``SimulatedBackend`` lanes, whose
     reports carry the profiles' modelled seconds, so no decision depends
     on the clock.  Three workers (one twice as fast), phase 9's
@@ -1550,7 +1558,13 @@ def serve_closed_loop_simulated(args, profiles, sneak):
     scheduling and commits through K1) and on the host (``device="cpu"``,
     the card's evidence carried on copies of the requests).  The four runs
     must agree exactly, worker 2 must be quarantined at some close, and
-    preemption, failures and retries must all happen."""
+    preemption, failures and retries must all happen.  Returns the view
+    they agree on.
+
+    Phase 12 (d): with ``pipeline=True``, the same servers on the card
+    only, scheduling through one persistent ``WindowPipeline`` (one
+    ``selection_scan`` launch per scheduling pass, K1 for the commits
+    alone); their views must equal ``want``, phase 11 (a)'s."""
     import copy
 
     import torch
@@ -1567,9 +1581,10 @@ def serve_closed_loop_simulated(args, profiles, sneak):
     workers = [Worker(0), Worker(1, speed=2.0), Worker(2)]
     vocab = 32_000
     views, evidenced = {}, None
-    for device in ("cuda", "cpu"):
+    for device in ("cuda",) if pipeline else ("cuda", "cpu"):
         for overlap in (False, True):
-            label = f"{device}, {'overlapped' if overlap else 'synchronous'}"
+            label = (f"{device}{', pipeline' if pipeline else ''}, "
+                     f"{'overlapped' if overlap else 'synchronous'}")
             on_card = device == "cuda"
             reqs = serving_trace(args, 90_000) if on_card else copy.deepcopy(evidenced)
             server = server_cls(app, make_policy("SneakPeek"),
@@ -1577,7 +1592,7 @@ def serve_closed_loop_simulated(args, profiles, sneak):
                                 sneakpeeks={"assistant": sneak} if on_card else None,
                                 prompt_fn=serving_prompt_fn(vocab), workers=workers,
                                 preempt=True, faults=_closed_loop_plan(hang=True), health=True,
-                                overlap=overlap, device=device)
+                                overlap=overlap, pipeline=pipeline, device=device)
             torch.cuda.synchronize()
             kernels.reset_launch_counts()
             t = time.perf_counter()
@@ -1602,22 +1617,34 @@ def serve_closed_loop_simulated(args, profiles, sneak):
             require(q2 >= 1, f"{label}: worker 2, the straggler, was never quarantined")
             for key in ("preempted", "failed_batches", "retries"):
                 require(view["counters"][key] > 0, f"{label}: {key} is 0")
-            if on_card:
+            if on_card and pipeline:
+                passes = sum(1 for sched in server.passes if sched.entries)
+                require(launches.get("knn_topk", 0) > 0, f"{label}: no k-NN kernel")
+                require(launches.get("selection_scan", 0) == passes,
+                        f"{label}: the scan launched {launches.get('selection_scan')} times, "
+                        f"expected one per scheduling pass ({passes})")
+                require(launches.get("utility_scores", 0) == stats.windows,
+                        f"{label}: K1 launched {launches.get('utility_scores')} times, expected "
+                        f"{stats.windows} commits")
+            elif on_card:
                 require(launches.get("knn_topk", 0) > 0, f"{label}: no k-NN kernel")
                 require(launches.get("utility_scores", 0) == steps + stats.windows,
                         f"{label}: K1 launched {launches.get('utility_scores')} times, expected "
                         f"{steps} placement steps + {stats.windows} commits")
             else:
                 require(not any(launches.values()), f"{label}: the host run launched {launches}")
-    first = next(iter(views.values()))
+    first = want if want is not None else next(iter(views.values()))
     for label, view in views.items():
         for key, value in view.items():
-            require(value == first[key], f"phase 11 (a): {label}'s {key} differ from the "
-                    f"card's synchronous run's")
-    print(f"    the four runs agree: {len(first['records'])} records, "
+            require(value == first[key], f"phase {'12 (d)' if pipeline else '11 (a)'}: "
+                    f"{label}'s {key} differ from the card's synchronous run's"
+                    f"{' in phase 11 (a)' if pipeline else ''}")
+    print(f"    the {len(views)} runs agree{' with phase 11 (a)' if pipeline else ''}: "
+          f"{len(first['records'])} records, "
           f"{len(first['decisions'])} decisions, counters {first['counters']}, "
           f"{len(first['faults'])} faults fired "
           f"({sorted({f[3] for f in first['faults']})})")
+    return first
 
 
 def serve_closed_loop_models(args, profiles, pool):
@@ -1734,6 +1761,260 @@ def serve_closed_loop_models(args, profiles, pool):
     return launches
 
 
+# The selection scan's dependent chain, per step: two adds for the
+# completion, eleven dependent operations of the sigmoid's Eq. 2 (each
+# division counted as one), one add per member, the divide by the group
+# size, a compare per (worker, model) cell and the carry's store; each at
+# least one dependent f64 operation of 8.2 cycles (PR 17's chain probe,
+# benchmarks/torch_kernel_probe.py chain).
+SCAN_CHAIN_FIXED_OPS = 16
+F64_DEP_CYCLES = 8.2
+# Windows of phase 5's trace that phase 12 (b) runs Grouped on.
+GROUPED_WINDOWS = 2
+# Float64 operations of one Eq. 2 cell (the sigmoid, the widest form) and
+# its member-mean multiply-add.
+SCAN_CELL_FLOPS = 14
+
+
+def sm_clock_hz() -> float:
+    """The card's maximum SM clock, from nvidia-smi."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.split()
+    return float(out[0]) * 1e6
+
+
+class ScanCapture:
+    """Records the arguments of every selection-scan launch the pipeline
+    makes while it is entered (``core.pipeline._scan``), then restores it."""
+
+    def __enter__(self):
+        from repro_torch.core import pipeline as tpipe
+
+        self.calls, self._real = [], tpipe._scan
+
+        def record(*call):
+            self.calls.append(call)
+            return self._real(*call)
+
+        tpipe._scan = record
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core import pipeline as tpipe
+
+        tpipe._scan = self._real
+        return False
+
+
+def _scan_numbers(call, clock_hz):
+    """Bytes, operations and the dependent chain of one scan's inputs:
+    (bound ms, bound_by, chain ms, shape).  The bytes are those the
+    function needs, each read once: the real members' accuracies (of the
+    real models) and deadlines, the member counts of groups, the distinct
+    latency rows, the swap, id, validity, penalty and preference rows of
+    the applications the steps use, the steps' application ids (and fixed
+    choices), the carry seed and the (4, S) output; not the padding, nor
+    per-step copies of one application's row."""
+    import numpy as np
+
+    res_mode, t0, res0, sizes, cap, acc, mask, deadlines, bsize, lat, step_app, swap, gid, \
+        valid, pen, pref, *fixed = call
+    fixed = fixed[0] if fixed else None
+    n = bsize.cpu().numpy()
+    s_steps, b_max, m = acc.shape
+    n_w = lat.shape[1]
+    app = step_app.cpu().numpy()
+    m_valid = valid.cpu().numpy().sum(axis=1)  # real models per application
+    mv = m_valid[app]
+    used = np.unique(app)
+    lat_rows = np.unique(np.column_stack([app, lat.cpu().numpy().reshape(s_steps, -1)]), axis=0)
+    nbytes = 8 * (n_w * m_valid[lat_rows[:, 0].astype(np.int64)]).sum()  # distinct l(m, b)
+    nbytes += 8 * (2 * n_w * m_valid[used] + m_valid[used] + 1).sum() + m_valid[used].sum()
+    nbytes += 8 * s_steps * (1 + 4 + (fixed is not None) + (b_max > 1))
+    nbytes += np.asarray(t0).nbytes + np.asarray(res0).nbytes
+    if res_mode == "lru":
+        nbytes += np.asarray(sizes).nbytes
+    if fixed is None:
+        nbytes += 8 * ((n * mv).sum() + n.sum())  # real members' accuracies and deadlines
+        ops = float((n_w * n * mv).sum()) * SCAN_CELL_FLOPS
+    else:
+        ops = 2.0 * s_steps  # MaxAcc: the completion's two adds per step
+    byte_ms, op_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP64_FLOP_PER_S * 1e3
+    if fixed is None:
+        chain = float((SCAN_CHAIN_FIXED_OPS + n + n_w * mv).sum()) * F64_DEP_CYCLES
+    else:  # the completion's two adds and the carry's store
+        chain = 3.0 * s_steps * F64_DEP_CYCLES
+    shape = f"S={s_steps} B={b_max} M={m} W={n_w} {res_mode}"
+    return (float(max(byte_ms, op_ms)), "bytes" if byte_ms >= op_ms else "operations",
+            chain / clock_hz * 1e3, shape)
+
+
+def check_scan(apps, reqs, now):
+    """Phase 12 (a): ``selection_scan`` against its plain version on the
+    card, on the inputs the pipeline gives it for one window of phase 5
+    (LO-EDF's per-request scan, SneakPeek's grouped scan, SneakPeek
+    placed on a four-worker pool), each with the single-slot and the LRU
+    residency carry: every output bit-identical.  Times the kernel on the
+    device and the plain version, and works out each case's bounds."""
+    import torch
+
+    from repro_torch.core.multiworker import Worker
+    from repro_torch.core.scheduler import make_policy, schedule_window
+    from repro_torch.core.streaming import StreamingState
+    from repro_torch.kernels.selection_scan import ops as scan_ops
+    from repro_torch.kernels.selection_scan.ref import selection_scan_ref
+
+    clock = sm_clock_hz()
+    pool = [Worker(0), Worker(1, speed=2.0), Worker(2, speed=0.5), Worker(3, load_scale=2.0)]
+    out = {}
+    for res_mode, cap in (("slot1", None), ("lru", 400 * 2**20)):
+        for label, policy, workers in (("LO-EDF", "LO-EDF", None),
+                                       ("SneakPeek", "SneakPeek", None),
+                                       ("SneakPeek on 4 workers", "SneakPeek", pool)):
+            state = None
+            if cap is not None:
+                state = StreamingState(worker_ids=[w.wid for w in workers] if workers else None,
+                                       memory_capacity_bytes=cap)
+            with ScanCapture() as cap_calls:
+                schedule_window(make_policy(policy, pipeline=True), reqs, apps, now,
+                                workers=workers, state=state, device="cuda")
+            require(len(cap_calls.calls) == 1, f"{label}: {len(cap_calls.calls)} scans, expected 1")
+            call = cap_calls.calls[0]
+            require(call[0] == res_mode, f"{label}: residency {call[0]}, expected {res_mode}")
+            mode, t0, res0, sizes, capacity, *tabs = call
+
+            got = scan_ops.selection_scan(t0, res0, sizes, capacity, mode, *tabs)
+            seed = [torch.as_tensor(x, device="cuda") for x in (t0, res0, sizes)]
+
+            def kernel():
+                return scan_ops.launch(seed, capacity, mode, *tabs)
+
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            want = selection_scan_ref(*seed, capacity, mode == "slot1", *tabs)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t) * 1e3
+            require(torch.equal(got, want), f"{label}, {res_mode}: the scan differs from its "
+                    "plain version")
+            # CUDA events around back-to-back launches whose seed is already
+            # on the card: each launch is 0.3-11 ms, its host side ~0.05 ms.
+            ms = timed_ms(kernel, iters=5, warmup=1)
+            bound_ms, bound_by, chain_ms, shape = _scan_numbers(call, clock)
+            out[f"{label}, {res_mode}"] = {
+                "shape": shape, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "chain_bound_ms": chain_ms, "max_abs_err": 0.0,
+                "library_ms": None}
+            print(f"    {label}, {res_mode} ({shape}): bit-identical; kernel {ms:.6f} ms on the "
+                  f"device, plain {plain_ms:.3f} ms, bound {bound_ms:.6f} ms ({bound_by}), "
+                  f"dependent chain {chain_ms:.6f} ms")
+    return out
+
+
+def check_pipeline_simulation(apps, sneaks, trace, seed):
+    """Phase 12 (b): ``Simulation(pipeline=True)`` over phase 5's trace for
+    the five policies against ``Simulation(pipeline=False)``: every
+    window's schedule equal, one scan launch per window that does not take
+    the brute-force branch, scheduling seconds per window side by side.
+    Grouped runs the first ``GROUPED_WINDOWS`` windows: it takes the
+    host's brute-force branch on both routes.
+    Phase 12 (c): SneakPeek with ``prebatch=4`` decides as ``prebatch=0``,
+    with and without the pipeline, and the stacked Eq. 9/12 rows equal
+    the lazy ones on the card.  Returns (SneakPeek's scan launches,
+    {policy: launches}, {policy: (pipeline s per window, fast path s)})."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.core import simulator as tsim
+    from repro_torch.core.fastpath import WindowArrays, precompute_windows
+    from repro_torch.core.grouping import group_by_app, split_groups_by_label
+    from repro_torch.core.scheduler import POLICY_NAMES, effective_apps, make_policy
+
+    def run(policy, reqs, **kwargs):
+        seen, real = [], tsim.evaluate
+
+        def spy(sched, *a, **kw):
+            seen.append([(e.request.rid, e.model, e.order, e.batch_id, e.worker,
+                          e.est_start_s, e.est_latency_s) for e in sched.sorted_entries()])
+            return real(sched, *a, **kw)
+
+        tsim.evaluate = spy
+        try:
+            sim = tsim.Simulation(make_policy(policy), apps, sneakpeeks=sneaks,
+                                  short_circuit=True, seed=seed, device="cuda", **kwargs)
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            agg = sim.run(reqs)
+            torch.cuda.synchronize()
+            launches = kernels.launch_counts()
+        finally:
+            tsim.evaluate = real
+        return sim, agg, seen, launches
+
+    eff = effective_apps(apps, sneaks, True)
+    per_policy, seconds, sigs = {}, {}, {}
+    all_windows = tsim.Simulation(make_policy("SneakPeek"), apps, device="cuda") \
+        ._window_batches(trace, None)
+    for policy in POLICY_NAMES:
+        # Grouped takes the brute-force branch (3 groups <= tau) on the
+        # host on both routes, ~2.5 s a window: its first GROUPED_WINDOWS
+        # windows only.
+        reqs = trace if policy != "Grouped" else \
+            [r for _, batch in all_windows[:GROUPED_WINDOWS] for r in batch]
+        fast, fast_agg, fast_seen, _ = run(policy, reqs)
+        pipe, pipe_agg, pipe_seen, launches = run(policy, reqs, pipeline=True)
+        windows = fast._window_batches(reqs, None)
+        require(len(pipe_seen) == len(windows), f"{policy}: {len(pipe_seen)} windows scheduled")
+        for w, (a, b) in enumerate(zip(pipe_seen, fast_seen)):
+            require(a == b, f"{policy}: window {w}'s pipeline schedule differs from the fast path's")
+        require(pipe_agg == fast_agg, f"{policy}: aggregates differ: {pipe_agg} {fast_agg}")
+        policy_obj = make_policy(policy)
+        brute = 0
+        for _, batch in windows:
+            if policy_obj.grouped:
+                groups = group_by_app(batch)
+                if policy_obj.split_by_label:
+                    groups = split_groups_by_label(groups, eff)
+                brute += len(groups) <= policy_obj.tau
+        want = len(windows) - brute
+        require(launches.get("selection_scan", 0) == want,
+                f"{policy}: {launches.get('selection_scan', 0)} scan launches, expected {want} "
+                f"({brute} brute-force windows)")
+        per_policy[policy] = launches.get("selection_scan", 0)
+        seconds[policy] = ([row["overhead_s"] for row in pipe.log],
+                           [row["overhead_s"] for row in fast.log])
+        sigs[policy] = pipe_seen
+        print(f"    {policy}: {len(windows)} windows equal, {want} scans "
+              f"({brute} brute-force windows); launches {launches}")
+        print("      scheduling s per window, pipeline: "
+              + " ".join(f"{x:.4f}" for x in seconds[policy][0]))
+        print("      scheduling s per window, fast path: "
+              + " ".join(f"{x:.4f}" for x in seconds[policy][1]))
+    print("  (c) prebatch=4, SneakPeek, with and without the pipeline")
+    for pipeline in (False, True):
+        sim, _, seen, launches = run("SneakPeek", trace, prebatch=4, prebatch_backend="jax",
+                                     pipeline=pipeline)
+        want = sigs["SneakPeek"]
+        require(seen == want, f"prebatch=4 (pipeline={pipeline}) decides otherwise than "
+                "prebatch=0")
+        print(f"    pipeline={pipeline}: {len(seen)} windows decide as prebatch=0; "
+              f"launches {launches}")
+    windows = sim._window_batches(trace, None)[:4]
+    stacked = precompute_windows([(b, (w + 1) * 0.1) for w, b in windows], eff,
+                                 data_aware=True, backend="numpy", device="cuda")
+    for (w, batch), wa in zip(windows, stacked):
+        lazy = WindowArrays(batch, eff, (w + 1) * 0.1, device="cuda")
+        require((lazy.priorities(True) == wa.priorities(True)).all(),
+                f"window {w}: stacked priorities differ from the lazy ones")
+        for name in wa.req_idx:
+            require(torch.equal(wa.acc_matrix(name, "sharpened"),
+                                lazy.acc_matrix(name, "sharpened")),
+                    f"window {w}, {name}: stacked Eq. 9 rows differ from the lazy ones")
+    print(f"    stacked Eq. 9/12 rows of {len(windows)} windows == the lazy rows, bit for bit")
+    return per_policy["SneakPeek"], per_policy, seconds
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
     import torch
@@ -1750,7 +2031,7 @@ def main(argv=None) -> int:
 
     from repro_torch import kernels
     from repro_torch.core.grouping import group_by_app, split_groups_by_label
-    from repro_torch.core.scheduler import POLICY_NAMES, make_policy
+    from repro_torch.core.scheduler import POLICY_NAMES, effective_apps, make_policy
     from repro_torch.core.simulator import Simulation, run_window
     from repro_torch.core.sneakpeek import ingest_window
     from repro_torch.data.applications import (
@@ -1920,7 +2201,8 @@ def main(argv=None) -> int:
     print("  (a) SimulatedBackend lanes on workers [Worker(0), Worker(1, speed=2.0), Worker(2)], "
           "phase 9's three-family application, a crash, a straggler pinned to worker 2 and "
           "seeded transients: the card against the host")
-    serve_closed_loop_simulated(args, profiles, serving_sneakpeek(args))
+    closed_sneak = serving_sneakpeek(args)
+    closed_view = serve_closed_loop_simulated(args, profiles, closed_sneak)
     print(f"    (a) {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     print("  (b) mamba2-130m and tinyllama-1.1b at full width on phase 10's warm thread lanes, "
@@ -1928,6 +2210,24 @@ def main(argv=None) -> int:
     closed = serve_closed_loop_models(args, profiles, warm_pool)
     warm_pool.close()
     print(f"    (b) {time.perf_counter() - t0:.1f} s")
+    print(f"    phases 1-11 {time.perf_counter() - t_start:.1f} s")
+
+    print("[12] the compiled window pipeline: one selection_scan launch per window")
+    t0 = time.perf_counter()
+    print(f"  (a) the scan against its plain version on phase 5's first window "
+          f"({args.per_app * len(specs)} requests)")
+    scan_t = check_scan(effective_apps(apps, sneaks, True), trace[: args.per_app * len(specs)],
+                        0.1)
+    print(f"    (a) {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    print(f"  (b) Simulation(pipeline=True) against pipeline=False over phase 5's trace, "
+          f"5 policies")
+    scan_launches, scan_by_policy, _ = check_pipeline_simulation(apps, sneaks, trace, args.seed)
+    print(f"    (b, c) {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    print("  (d) EdgeServer(pipeline=True) on phase 11 (a)'s SimulatedBackend lanes")
+    serve_closed_loop_simulated(args, profiles, closed_sneak, pipeline=True, want=closed_view)
+    print(f"    (d) {time.perf_counter() - t0:.1f} s")
 
     rows = [
         ("knn_topk", "knn/csrc/knn.cu", "knn/kernel.py:92", launches, knn_t),
@@ -1951,6 +2251,18 @@ def main(argv=None) -> int:
     for row in table["kernels"]:  # phase 10's run (a) 2 and phase 11 (b), counted from 0
         row["launches_pool"] = pool.get(row["name"], 0)
         row["launches_closed_loop"] = closed.get(row["name"], 0)
+    # The scan replaces the compiled lax.scans of the reference's window
+    # programs (no Pallas kernel); its launches are phase 12 (b)'s SneakPeek
+    # run, its times those of LO-EDF's 4095-step scan in phase 12 (a).
+    main_scan = scan_t["LO-EDF, slot1"]
+    table["kernels"].append({
+        "name": "selection_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/selection_scan/csrc/selection_scan.cu",
+        "replaces": "src/repro/core/pipeline.py:519", "launches": scan_launches,
+        **{key: main_scan[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                           "bound_by", "library_ms", "shape",
+                                           "chain_bound_ms")},
+        "programs": scan_t, "launches_by_policy": scan_by_policy})
     print(f"    total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps(table))

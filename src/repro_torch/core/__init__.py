@@ -21,6 +21,7 @@ _EXPORTS = {
     "grouping": ("group_by_app", "grouped_schedule", "split_groups_by_label"),
     "health": ("HealthConfig", "HealthTracker", "WorkerHealth"),
     "multiworker": ("Worker", "multiworker_schedule"),
+    "pipeline": ("WindowPipeline", "pipeline_schedule"),
     "priority": ("group_priority", "request_priorities", "request_priority"),
     "scheduler": ("POLICY_NAMES", "SchedulerPolicy", "effective_apps", "make_policy",
                   "schedule_window"),

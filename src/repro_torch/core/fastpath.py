@@ -20,9 +20,12 @@ from what they return:
              means give the (W, M) member means; the pool's state is
              arrays (``PoolArrays``).
 
+  * ``precompute_windows`` — several windows' Eq. 9/12 matrices stacked
+             into ONE float64 program per application on the device,
+             row-identical to the lazy per-window compute.
+
 Decisions equal the reference's decision for decision.  Not ported yet:
-``precompute_windows`` and ``chunk_layout`` (the compiled pipeline,
-ROADMAP item 5).
+``chunk_layout`` (speculative chunked selection, ROADMAP item 5).
 """
 from __future__ import annotations
 
@@ -51,6 +54,7 @@ __all__ = [
     "PoolArrays",
     "placement_means",
     "fast_multiworker_schedule",
+    "precompute_windows",
 ]
 
 
@@ -631,23 +635,28 @@ def placement_pref(
     latency_s: np.ndarray,
     speeds: np.ndarray,
     wids: Sequence[int],
+    pad_to: int | None = None,
     scale: np.ndarray | None = None,
 ) -> np.ndarray:
     """Flattened (worker, model) candidate preference permutation — the
     Eq. 15 tie-break after utility: lower scaled latency, then larger
     model name, then lower worker id.  First-max over this order equals
     an argmax under the scalar key (u, -scaled latency, name, -wid).
-    ``scale`` is an optional (W, M) drift-correction multiplier on the
-    scaled latency, so the tie-break ranks candidates by the corrected
-    latencies the utilities were computed with."""
+    ``pad_to`` pads the model axis for the pipeline's stacked tables
+    (padded candidates last, through infinite latency).  ``scale`` is an
+    optional (W, M) drift-correction multiplier on the scaled latency, so
+    the tie-break ranks candidates by the corrected latencies the
+    utilities were computed with."""
     m = len(names)
-    rank = np.zeros(m, dtype=np.int64)
+    m_pad = pad_to if pad_to is not None else m
+    rank = np.zeros(m_pad, dtype=np.int64)
     for pos, i in enumerate(sorted(range(m), key=lambda i: names[i])):
         rank[i] = pos
-    slat = np.asarray(latency_s)[None, :] / np.asarray(speeds)[:, None]
+    slat = np.full((len(speeds), m_pad), np.inf)
+    slat[:, :m] = np.asarray(latency_s)[None, :] / np.asarray(speeds)[:, None]
     if scale is not None:
-        slat = slat * np.asarray(scale)
-    wid_flat = np.repeat(np.asarray(wids), m)
+        slat[:, :m] *= np.asarray(scale)
+    wid_flat = np.repeat(np.asarray(wids), m_pad)
     rank_flat = np.tile(rank, len(speeds))
     return np.lexsort((wid_flat, -rank_flat, slat.ravel())).astype(np.int64)
 
@@ -775,6 +784,17 @@ class PoolArrays:
             )
             self._tables[app_name] = tab
         return tab
+
+    def res_mode(self, state) -> str:
+        """Residency carry of the pipeline's scan: "slot1" when the
+        single-slot encoding applies (no byte capacity on the carried
+        state) and no worker carries more than one resident — one id per
+        worker — else "lru" (the slot-vector carry).  One rule for every
+        program, the reference's."""
+        single = state is None or state.capacity is None
+        if single and int((self.res >= 0).sum(axis=1).max(initial=0)) <= 1:
+            return "slot1"
+        return "lru"
 
     def resident_mask(self, gid_row: np.ndarray) -> np.ndarray:
         """(W, M) bool: is ``gid_row[m]`` resident on worker w?"""
@@ -906,3 +926,99 @@ def fast_multiworker_schedule(
     sched = Schedule(entries=entries)
     sched.validate()
     return sched
+
+
+# --------------------------------------------------------------------------
+# Multi-window batched precompute (streaming fast path)
+# --------------------------------------------------------------------------
+
+
+def _stacked_program(thetas: Sequence[torch.Tensor], has_rows: torch.Tensor, aa: AppArrays,
+                     n: int, d_rel: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Eq. 9 and Eq. 12 for ``n`` stacked rows of one application: the
+    (n, M) accuracy matrix — profiled, with the rows ``has_rows`` sharpened
+    by ``theta @ R.T`` and short-circuit columns kept profiled — and the
+    priorities ``(1 + var) * exp(-max(d_rel, -60))``.  The same tensor
+    operations, in the same order, as ``WindowArrays.acc_matrix`` and
+    ``priorities``, so each row equals the lazy per-window one.
+
+    ``thetas`` holds one window's theta rows each, and Eq. 9 is one
+    product per window in the lazy compute's shape: a BLAS product rounds
+    a row by how many rows it is given (MKL's products of fewer than four
+    rows differ in the last bit from its larger ones), so stacking the
+    product would break row identity.  Everything after it is row-wise
+    and runs once over the stacked rows."""
+    A = aa.profiled_t.repeat(n, 1)
+    if has_rows.numel():
+        S = torch.cat([theta @ aa.R_t.T for theta in thetas])  # Eq. 9, per window
+        if aa.sc.any():
+            S[:, aa.sc_t] = aa.profiled_t[aa.sc_t]
+        A[has_rows] = S
+    var = row_var(A) if A.shape[1] > 1 else torch.zeros_like(A[:, 0])
+    return A, (1.0 + var) * torch.exp(-torch.clamp(d_rel, min=-60.0))
+
+
+def precompute_windows(
+    windows: Sequence[tuple[Sequence[Request], float]],
+    apps: Mapping[str, Application],
+    data_aware: bool = False,
+    backend: str = "numpy",
+    *,
+    device=None,
+) -> list[WindowArrays]:
+    """Stack several windows' request matrices into ONE program per
+    application, the port of the reference's ``precompute_windows``.
+
+    All windows' rows and deadlines of an application run through one
+    float64 torch program on ``device`` (``_stacked_program``: Eq. 9 one
+    product per window, in the lazy shape, the rest over the stacked
+    rows); the results are scattered back into each
+    window's ``WindowArrays`` caches, so the sequential scheduling pass
+    finds Eq. 9 and Eq. 12 precomputed.  ``windows`` is a sequence of
+    (requests, now) pairs.  Both of the reference's ``backend`` values,
+    "numpy" and "jax", run this program: its rows equal the lazy
+    per-window compute's, where the reference's "jax" route may differ
+    on near-ties.
+
+    Returns the per-window ``WindowArrays`` (pass via ``arrays=``).
+    """
+    if backend not in ("numpy", "jax"):
+        raise ValueError(f"unknown precompute backend {backend!r}")
+    dev = resolve_device(device)
+    mode = "sharpened" if data_aware else "profiled"
+    was = [WindowArrays(list(reqs), apps, now, dev) for reqs, now in windows]
+    app_names: list[str] = []
+    for w in was:
+        for name in w.req_idx:
+            if name not in app_names:
+                app_names.append(name)
+    prios = [np.zeros(len(w.requests)) for w in was]
+    for app_name in app_names:
+        members = [w for w in was if app_name in w.req_idx]
+        aa = members[0].app_arrays[app_name]
+        thetas, has_rows, d_blocks, sizes = [], [], [], []
+        off = 0
+        for w in members:
+            idx = w.req_idx[app_name]
+            rows = w._theta_rows[app_name]
+            if rows.size and mode == "sharpened":
+                thetas.append(w._theta_mat[app_name])
+                has_rows.append(rows + off)
+            d_blocks.append(w.deadlines[idx] - w.now)
+            sizes.append(len(idx))
+            off += len(idx)
+        thetas = [torch.as_tensor(t, dtype=SCHED_DTYPE, device=dev) for t in thetas]
+        rows_t = torch.as_tensor(
+            np.concatenate(has_rows) if has_rows else np.zeros(0, dtype=np.int64), device=dev
+        )
+        d_rel = torch.as_tensor(np.concatenate(d_blocks), dtype=SCHED_DTYPE, device=dev)
+        A_all, prio_all = _stacked_program(thetas, rows_t, aa, off, d_rel)
+        prio_host = prio_all.cpu().numpy()
+        off = 0
+        for w, n in zip(members, sizes):
+            w._acc_cache[(app_name, mode)] = A_all[off : off + n]
+            prios[was.index(w)][w.req_idx[app_name]] = prio_host[off : off + n]
+            off += n
+    for w, p in zip(was, prios):
+        w._prio_cache[data_aware] = p
+    return was

@@ -12,10 +12,11 @@ be layered on any of them (``data_aware=True``) exactly as the paper's
 Fig. 7 incremental study requires.
 
 The port of ``repro.core.scheduler``, with the §VII multi-worker
-placement (``schedule_window(workers=...)``, Eq. 15).  The compiled
-pipeline, speculative chunking and sharding are not ported yet: asking
-for them raises ``NotImplementedError`` naming the ROADMAP item that
-will bring them.
+placement (``schedule_window(workers=...)``, Eq. 15) and the compiled
+window pipeline (``pipeline=True``, ``core.pipeline``).  Speculative
+chunking (``chunk`` > 0) and sharding (``shard``) are not ported yet:
+asking for them raises ``NotImplementedError`` naming the ROADMAP item
+that will bring them (``NOT_PORTED``).
 """
 from __future__ import annotations
 
@@ -54,6 +55,20 @@ class SchedulerPolicy:
     # device).  False runs the scalar host loops
     # (``make_policy(name, fastpath=False)``).
     fastpath: bool = True
+    # The compiled window pipeline (``core.pipeline``): the Eq. 2/13
+    # selection of a window as one ``selection_scan`` launch
+    # (``make_policy(name, pipeline=True)``).  Off by default.
+    pipeline: bool = False
+    # Speculative chunked selection and device sharding: fields of the
+    # reference's policy that only take their off values here (0 and
+    # False); anything else raises under its ROADMAP label.
+    chunk: int = 0
+    shard: bool | int = False
+
+    def __post_init__(self):
+        for option in ("chunk", "shard"):
+            if getattr(self, option):
+                not_ported(option)
 
     def schedule(
         self,
@@ -62,15 +77,24 @@ class SchedulerPolicy:
         now: float,
         state=None,
         arrays=None,
+        *,
         device=None,
     ) -> Schedule:
         """One window pass.  ``state`` (streaming.StreamingState) seeds the
         worker timeline with carried backlog + residency (peeked via a
         clone, never committed); ``arrays`` is an optional precomputed
         ``fastpath.WindowArrays``; ``device`` is where the fast path's
-        batched math runs (``device.resolve_device``)."""
+        batched math runs (``device.resolve_device``).  With
+        ``pipeline=True`` the window goes through
+        ``pipeline.pipeline_schedule``."""
         t0 = time.perf_counter()
-        if self.grouped:
+        if self.pipeline:
+            from repro_torch.core.pipeline import pipeline_schedule
+
+            sched = pipeline_schedule(
+                self, requests, apps, now, state=state, arrays=arrays, device=device
+            )
+        elif self.grouped:
             sched = grouped_schedule(
                 requests,
                 apps,
@@ -156,11 +180,11 @@ _POLICIES: dict[str, SchedulerPolicy] = {
 POLICY_NAMES = list(_POLICIES)
 
 # Options of the reference that this port does not have yet, with the
-# ROADMAP item ("Open items" -> "Modules to port") that brings each.
+# ROADMAP item ("Open items" -> "Modules to port") that brings each:
+# a non-zero ``chunk`` (the pipeline's speculative chunked selection) and
+# a truthy ``shard``, wherever they are passed.
 NOT_PORTED: dict[str, str] = {
-    "pipeline": "item 5 (compiled single-worker selection)",
-    "prebatch": "item 5 (compiled single-worker selection, stacked windows)",
-    "chunk": "item 5 (compiled single-worker selection, with speculative chunks)",
+    "chunk": "item 5 (speculative chunked selection, chunk=K)",
     "shard": "item 11 (sharded scheduling)",
 }
 
@@ -176,10 +200,8 @@ def not_ported(option: str, table: Mapping[str, str] = NOT_PORTED):
 
 def make_policy(name: str, **overrides) -> SchedulerPolicy:
     """Look up one of the paper's five policies, optionally overridden
-    (e.g. ``make_policy("LO-EDF", data_aware=True)`` for Fig. 7)."""
-    for option in overrides:
-        if option in NOT_PORTED:
-            not_ported(option)
+    (e.g. ``make_policy("LO-EDF", data_aware=True)`` for Fig. 7).  A
+    non-zero ``chunk`` or a ``shard`` raises (``NOT_PORTED``)."""
     base = _POLICIES[name]
     if not overrides:
         return base
@@ -223,12 +245,13 @@ def schedule_window(
     now: float,
     sneakpeeks=None,
     short_circuit: bool = False,
+    workers=None,
     state=None,
     arrays=None,
-    device=None,
-    workers=None,
     lat_scale=None,
     worker_mask=None,
+    *,
+    device=None,
 ) -> tuple[Schedule, Mapping[str, Application]]:
     """One scheduling-window pass: SneakPeek stage (if any) then the policy.
 
@@ -236,8 +259,9 @@ def schedule_window(
     policy to the paper's §VII multi-worker placement: grouping,
     data-awareness, label-splitting and fastpath come from the policy,
     placement from ``multiworker_schedule`` (``per_request`` for the
-    ungrouped policies).  ``state`` carries streaming backlog +
-    residency; ``arrays`` is a precomputed ``fastpath.WindowArrays``;
+    ungrouped policies), or from the compiled placement program
+    (``core.pipeline``) when the policy has ``pipeline=True``.  ``state``
+    carries streaming backlog + residency; ``arrays`` is a precomputed ``fastpath.WindowArrays``;
     ``device`` is where the k-NN search and the batched equations run
     (the card unless ``"cpu"`` is named).  ``lat_scale`` ({(wid, model):
     scale} drift corrections) and ``worker_mask`` (a wid set) apply to the
@@ -252,6 +276,15 @@ def schedule_window(
         attach_sneakpeek(requests, apps, sneakpeeks, device=dev)
     eff_apps = effective_apps(apps, sneakpeeks, short_circuit)
     if workers:
+        if policy.pipeline:
+            from repro_torch.core.pipeline import pipeline_schedule
+
+            sched = pipeline_schedule(
+                policy, requests, eff_apps, now, state=state, arrays=arrays,
+                workers=workers, lat_scale=lat_scale, worker_mask=worker_mask,
+                device=dev,
+            )
+            return sched, eff_apps
         from repro_torch.core.multiworker import multiworker_schedule
 
         t0 = time.perf_counter()

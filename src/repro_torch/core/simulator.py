@@ -12,11 +12,16 @@ The port of ``repro.core.simulator``:
     recall[true_label]) drawn from a seeded numpy generator, the
     reference's stream; optionally over a heterogeneous worker pool
     (``workers=``, Eq. 15 placement) with capacity-limited residency
-    (``memory_capacity_bytes=``).
+    (``memory_capacity_bytes=``), multi-window-batched (``prebatch=``:
+    several windows' Eq. 9/12 matrices as one stacked program,
+    ``fastpath.precompute_windows``) and through the compiled window
+    pipeline (``pipeline=True``, ``core.pipeline``).
 
-Both take ``device=``: the k-NN search and the batched equations run
-there (the card unless ``"cpu"`` is named).  Stacked windows and the
-compiled pipeline are not ported yet and raise ``NotImplementedError``.
+Both take ``device=``: the k-NN search, the batched equations and the
+pipeline's selection scan run there (the card unless ``"cpu"`` is
+named).  Still raising ``NotImplementedError`` under their ROADMAP
+labels: a non-zero ``chunk`` (item 5's speculative chunked selection)
+and ``shard`` (item 11).
 """
 from __future__ import annotations
 
@@ -60,6 +65,7 @@ def run_window(
     now: float,
     sneakpeeks=None,
     short_circuit: bool = False,
+    *,
     device=None,
 ) -> WindowResult:
     """Schedule one window and score it with oracle accuracies."""
@@ -89,9 +95,20 @@ class Simulation:
         count toward utilization).
       memory_capacity_bytes: per-worker residency capacity (None = the
         paper's conservative single-slot model).
-      device: where the SneakPeek stage and the batched equations run.
-      prebatch, pipeline, chunk, shard: the reference's stacked-window
-        and compiled-pipeline options; not ported yet, they raise.
+      prebatch: >1 stacks that many upcoming windows' Eq. 9/12 matrices
+        into one program (``fastpath.precompute_windows``) before the
+        sequential scheduling pass; ``prebatch_backend`` ("numpy", the
+        default, or "jax") names the reference's route, and both run the
+        same float64 program on ``device``, row-identical to the lazy
+        per-window compute.
+      pipeline: feed every window through one persistent
+        ``pipeline.WindowPipeline`` (with ``workers``, its compiled
+        Eq. 15 placement).
+      chunk, shard: the reference's speculative chunked selection and
+        sharding; ``None``/0 and False are accepted, anything else raises
+        under its ROADMAP label (``scheduler.NOT_PORTED``).
+      device: where the SneakPeek stage, the batched equations and the
+        pipeline's scan run.
     """
 
     def __init__(
@@ -102,21 +119,22 @@ class Simulation:
         sneakpeeks=None,
         short_circuit: bool = False,
         seed: int = 0,
-        num_workers: int = 1,
-        device=None,
         workers=None,
+        num_workers: int = 1,
         memory_capacity_bytes: int | None = None,
         prebatch: int = 0,
+        prebatch_backend: str = "numpy",
         pipeline: bool = False,
         chunk: int | None = None,
         shard=False,
+        *,
+        device=None,
     ):
-        for option, value in (
-            ("prebatch", prebatch), ("pipeline", pipeline), ("chunk", chunk),
-            ("shard", shard),
-        ):
+        for option, value in (("chunk", chunk), ("shard", shard)):
             if value:
                 not_ported(option)
+        if prebatch_backend not in ("numpy", "jax"):
+            raise ValueError(f"unknown precompute backend {prebatch_backend!r}")
         self.policy = policy
         self.apps = dict(apps)
         self.window_s = window_s
@@ -125,6 +143,8 @@ class Simulation:
         self.device = resolve_device(device)
         self.rng = np.random.default_rng(seed)
         self.workers = list(workers) if workers else None
+        self.prebatch = int(prebatch)
+        self.prebatch_backend = prebatch_backend
         self.state = StreamingState(
             num_workers=len(self.workers) if self.workers else max(1, num_workers),
             now=0.0,
@@ -135,6 +155,13 @@ class Simulation:
         # deterministic, so it must not be rebuilt per window (fresh
         # Application objects would also defeat AppArrays memoization).
         self._eff_apps = effective_apps(self.apps, sneakpeeks, short_circuit)
+        self._pipeline = None
+        if pipeline:
+            from repro_torch.core.pipeline import WindowPipeline
+
+            self._pipeline = WindowPipeline(
+                self._eff_apps, policy=policy, workers=self.workers, device=self.device
+            )
         self.log: list[dict] = []
 
     @property
@@ -164,50 +191,73 @@ class Simulation:
             return {"utility": 0.0, "accuracy": 0.0, "violations": 0, "count": 0}
         from repro_torch.core.sneakpeek import attach_sneakpeek
 
+        windows = self._window_batches(requests, horizon_s)
         total_u, total_correct, violations, count = 0.0, 0.0, 0, 0
-        for w, batch in self._window_batches(requests, horizon_s):
-            # SneakPeek stage (exactly once per request — the evidence
-            # draw may be stochastic).
+        chunk = max(1, self.prebatch)
+        for c0 in range(0, len(windows), chunk):
+            group = windows[c0 : c0 + chunk]
+            # SneakPeek stage per window (exactly once per request — the
+            # evidence draw may be stochastic).
             if self.sneakpeeks:
-                attach_sneakpeek(batch, self.apps, self.sneakpeeks, device=self.device)
-            window_close = (w + 1) * self.window_s
-            carried = self.state.backlog_s(window_close)
-            sched, eff_apps = schedule_window(
-                self.policy, batch, self._eff_apps, window_close,
-                state=self.state, device=self.device, workers=self.workers,
-            )
-            # The state owns the pool: every timeline (idle or not)
-            # counts toward the logged utilization.
-            res = evaluate(
-                sched, eff_apps, window_close, acc_mode="oracle", state=self.state,
-                device=self.device,
-            )
-            # Sample realized outcomes for accuracy accounting.
-            for e, u in zip(sched.sorted_entries(), res.utilities):
-                r = e.request
-                profile = eff_apps[r.app].model(e.model)
-                p_correct = (
-                    profile.recalls[r.true_label]
-                    if r.true_label is not None
-                    else profile.profiled_accuracy()
+                for _, batch in group:
+                    attach_sneakpeek(batch, self.apps, self.sneakpeeks, device=self.device)
+            arrays_list = [None] * len(group)
+            if self.prebatch > 1:
+                from repro_torch.core.fastpath import precompute_windows
+
+                arrays_list = precompute_windows(
+                    [(batch, (w + 1) * self.window_s) for w, batch in group],
+                    self._eff_apps,
+                    data_aware=self.policy.data_aware,
+                    backend=self.prebatch_backend,
+                    device=self.device,
                 )
-                correct = self.rng.random() < p_correct
-                total_correct += float(correct)
-                total_u += u
-                if e.est_completion_s > r.deadline_s:
-                    violations += 1
-                count += 1
-            self.log.append(
-                {
-                    "window": w,
-                    "n": len(batch),
-                    "utility": res.mean_utility,
-                    "violations": res.violations,
-                    "overhead_s": sched.scheduling_overhead_s,
-                    "backlog_s": carried,
-                    "utilization": res.utilization,
-                }
-            )
+            for (w, batch), arrays in zip(group, arrays_list):
+                window_close = (w + 1) * self.window_s
+                carried = self.state.backlog_s(window_close)
+                if self._pipeline is not None:
+                    eff_apps = self._eff_apps
+                    sched = self._pipeline.schedule(
+                        batch, window_close, state=self.state, arrays=arrays
+                    )
+                else:
+                    sched, eff_apps = schedule_window(
+                        self.policy, batch, self._eff_apps, window_close,
+                        workers=self.workers, state=self.state, arrays=arrays,
+                        device=self.device,
+                    )
+                # The state owns the pool: every timeline (idle or not)
+                # counts toward the logged utilization.
+                res = evaluate(
+                    sched, eff_apps, window_close, acc_mode="oracle", state=self.state,
+                    device=self.device,
+                )
+                # Sample realized outcomes for accuracy accounting.
+                for e, u in zip(sched.sorted_entries(), res.utilities):
+                    r = e.request
+                    profile = eff_apps[r.app].model(e.model)
+                    p_correct = (
+                        profile.recalls[r.true_label]
+                        if r.true_label is not None
+                        else profile.profiled_accuracy()
+                    )
+                    correct = self.rng.random() < p_correct
+                    total_correct += float(correct)
+                    total_u += u
+                    if e.est_completion_s > r.deadline_s:
+                        violations += 1
+                    count += 1
+                self.log.append(
+                    {
+                        "window": w,
+                        "n": len(batch),
+                        "utility": res.mean_utility,
+                        "violations": res.violations,
+                        "overhead_s": sched.scheduling_overhead_s,
+                        "backlog_s": carried,
+                        "utilization": res.utilization,
+                    }
+                )
         return {
             "utility": total_u / max(1, count),
             "accuracy": total_correct / max(1, count),

@@ -41,6 +41,7 @@ from repro_torch.kernels.knn import ops as knn_ops
 __all__ = [
     "SneakPeekModel",
     "KNNSneakPeek",
+    "knn_device",
     "DecisionRuleSneakPeek",
     "ConfusionSneakPeek",
     "ingest_window",
@@ -94,13 +95,39 @@ class SneakPeekModel:
         )
 
 
+def knn_device(backend: str, device=None) -> torch.device:
+    """The device a k-NN SneakPeek model runs on, from the reference's
+    ``backend`` value and the port's ``device``.  Each value names one
+    route of the port, and a value that asks for a route ``device`` does
+    not give raises (no fallback):
+
+      * ``"auto"``  — the route of ``device``: the CUDA kernel on the
+        card, its plain version for ``device="cpu"``;
+      * ``"jax"``   — the kernel route (the reference's Pallas kernel):
+        ``device`` must resolve to CUDA;
+      * ``"numpy"`` — the plain version on the host (the reference's
+        numpy search): ``device`` must be ``"cpu"``.
+    """
+    if backend not in ("auto", "jax", "numpy"):
+        raise ValueError(f"unknown k-NN backend {backend!r}")
+    dev = resolve_device(device)
+    if backend == "jax" and dev.type != "cuda":
+        raise ValueError("backend='jax' asks for the k-NN kernel, which runs on CUDA; "
+                         f"device is {dev}")
+    if backend == "numpy" and dev.type != "cpu":
+        raise ValueError("backend='numpy' asks for the plain k-NN version on the host; "
+                         f"device is {dev} (pass device='cpu')")
+    return dev
+
+
 class KNNSneakPeek(SneakPeekModel):
     """k-NN vote evidence against the (sub-sampled) training set.
 
     The training rows, their squared norms and labels are copied to
     ``device`` once, here; every window's queries go to the k-NN kernel
     against them.  The holdout split is the reference's (same seed, same
-    permutation).
+    permutation).  ``backend`` takes the reference's values, each mapped
+    to one route of the port by ``knn_device``.
     """
 
     def __init__(
@@ -110,8 +137,10 @@ class KNNSneakPeek(SneakPeekModel):
         num_classes: int,
         k: int = 5,
         name: str = "knn",
+        backend: str = "auto",
         holdout_frac: float = 0.2,
         seed: int = 0,
+        *,
         device=None,
     ):
         train_x = np.asarray(train_x, dtype=np.float32)
@@ -123,10 +152,11 @@ class KNNSneakPeek(SneakPeekModel):
         n = len(train_x)
         perm = rng.permutation(n)
         n_hold = max(int(num_classes), int(n * holdout_frac))
+        self.backend = backend
         self._setup(
             train_x[perm[n_hold:]], train_y[perm[n_hold:]],
             train_x[perm[:n_hold]], train_y[perm[:n_hold]],
-            num_classes, k, name, device,
+            num_classes, k, name, knn_device(backend, device),
         )
 
     @classmethod
@@ -134,6 +164,7 @@ class KNNSneakPeek(SneakPeekModel):
                    k: int = 5, name: str = "knn", device=None) -> "KNNSneakPeek":
         """A model over an existing (training, holdout) split, as given."""
         out = cls.__new__(cls)
+        out.backend = "auto"
         out._setup(
             np.asarray(train_x, dtype=np.float32), np.asarray(train_y, dtype=np.int32),
             np.asarray(hold_x, dtype=np.float32), np.asarray(hold_y, dtype=np.int32),

@@ -220,13 +220,18 @@ def make_application(
 
 
 def make_sneakpeek(
-    spec: AppSpec, k: int = 5, train_n: int = 600, seed: int = 0, device=None
+    spec: AppSpec, k: int = 5, train_n: int = 600, seed: int = 0, backend: str = "auto",
+    *, device=None,
 ) -> KNNSneakPeek:
     """Train-set-backed k-NN SneakPeek model for the application, its
-    training set on ``device`` (the card unless ``"cpu"`` is named)."""
+    training set on ``device`` (the card unless ``"cpu"`` is named).
+    ``backend`` maps to one route of the port as
+    ``core.sneakpeek.knn_device`` states ("auto": ``device``'s route,
+    "jax": the CUDA kernel, "numpy": the plain version on the CPU)."""
     rng = np.random.default_rng(seed + 17)
     x, y = make_dataset(spec, train_n, rng)  # uniform training draw
-    return KNNSneakPeek(x, y, spec.num_classes, k=k, name=f"{spec.name}-knn", device=device)
+    return KNNSneakPeek(x, y, spec.num_classes, k=k, name=f"{spec.name}-knn",
+                        backend=backend, device=device)
 
 
 def make_requests(
@@ -270,17 +275,23 @@ def build_benchmark_suite(
     k: int = 5,
     seed: int = 0,
     apps: Sequence[str] | None = None,
+    backend: str = "auto",
+    *,
     train_n: int = 600,
     device=None,
 ):
-    """(apps, sneakpeeks) for the default three-application testbed."""
+    """(apps, sneakpeeks) for the default three-application testbed.
+    ``backend`` maps to the k-NN route as in ``make_sneakpeek``; the
+    port's ``train_n`` (the reference fixes 600) and ``device`` are
+    keyword-only."""
     names = list(apps) if apps else list(APP_SPECS)
     app_map = {
         n: make_application(APP_SPECS[n], penalty=penalty, prior=prior, seed=seed)
         for n in names
     }
     sneaks = {
-        n: make_sneakpeek(APP_SPECS[n], k=k, train_n=train_n, seed=seed, device=device)
+        n: make_sneakpeek(APP_SPECS[n], k=k, train_n=train_n, seed=seed, backend=backend,
+                          device=device)
         for n in names
     }
     return app_map, sneaks

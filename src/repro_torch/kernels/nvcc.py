@@ -5,8 +5,9 @@ compiled on its own into ``build/kernels/lib<name>-<hash>.so`` at the
 root of the checkout, for ``sm_90a``.  ``build`` starts one ``nvcc`` per
 missing library, all at once, and waits for them together; ``library``
 builds on first use, so importing a module never compiles anything.
-The hash covers the source bytes and the flags, so an edited source is
-rebuilt and a built one is reused.  ``ptxas -v`` (registers, shared
+The hash covers the source bytes, the headers it includes from the
+port's tree and the flags, so an edited source or header is rebuilt and
+a built one is reused.  ``ptxas -v`` (registers, shared
 memory, spills) goes to ``build/kernels/<name>.log``.
 
 Every exported function returns a ``cudaError_t`` (0 on success), read
@@ -41,19 +42,31 @@ class Source:
     name: str
     path: Path
     flags: tuple[str, ...] = ()
+    headers: tuple[Path, ...] = ()  # the port's headers the source includes
 
     def library_path(self) -> Path:
         h = hashlib.sha256(self.path.read_bytes())
+        for header in self.headers:
+            h.update(header.read_bytes())
         h.update(" ".join(_ARCH + _COMMON + self.flags).encode())
         return BUILD_DIR / f"lib{self.name}-{h.hexdigest()[:12]}.so"
 
+
+_PENALTY_H = _KERNELS_DIR / "utility" / "csrc" / "penalty.cuh"
 
 SOURCES: dict[str, Source] = {
     "knn": Source("knn", _KERNELS_DIR / "knn" / "csrc" / "knn.cu"),
     # The Eq. 2 kernel's f64 instance must round like numpy: no FMA
     # contraction (see csrc/utility.cu).
     "utility": Source(
-        "utility", _KERNELS_DIR / "utility" / "csrc" / "utility.cu", ("--fmad=false",)
+        "utility", _KERNELS_DIR / "utility" / "csrc" / "utility.cu", ("--fmad=false",),
+        (_PENALTY_H,),
+    ),
+    # The pipeline's selection scan shares K1's Eq. 2 arithmetic and its
+    # bit-identity rule: no FMA contraction either.
+    "selection_scan": Source(
+        "selection_scan", _KERNELS_DIR / "selection_scan" / "csrc" / "selection_scan.cu",
+        ("--fmad=false",), (_PENALTY_H,),
     ),
     "flash_attention": Source(
         "flash_attention", _KERNELS_DIR / "flash_attention" / "csrc" / "flash_attention.cu"

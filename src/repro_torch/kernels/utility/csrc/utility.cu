@@ -50,6 +50,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "penalty.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -57,8 +59,6 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kMaxCluster = 8;       // portable cluster size
 constexpr int kMaxSmem = 232448;     // 227 KB a block may use
-
-enum Penalty { kNone = 0, kStep = 1, kLinear = 2, kSigmoid = 3 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -123,25 +123,6 @@ __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.acquire;" ::: "memory");
 }
 
-// gamma(d, e) of core/utility.py, as selects: every quantity a branch of
-// the plain version would compute is computed, and the same one is kept, so
-// the rows of a thread carry no branch and their divisions overlap.
-template <typename T>
-__device__ __forceinline__ T penalty_gamma(int penalty, T d, T e) {
-  if (penalty == kNone) return T(0);
-  if (penalty == kStep) return d < e ? T(1) : T(0);
-  const T x = (e - d) / d;
-  T g;
-  if (penalty == kLinear) {
-    g = x < T(1) ? x : T(1);
-  } else {  // sigmoid
-    const T ratio = x / (T(1) - x);
-    const T inner = T(1) / (T(1) + T(1) / (ratio * ratio * ratio));
-    g = x >= T(1) ? T(1) : (x <= T(0) ? T(0) : (inner < T(1) ? inner : T(1)));
-  }
-  return e <= d ? T(0) : (d <= T(0) ? T(1) : g);
-}
-
 constexpr int kRowsInFlight = 8;  // rows a thread loads before it computes any
 
 // Rows [r0, r1) of U: thread (m, y) takes column m of rows r0 + y,
@@ -174,9 +155,7 @@ __device__ __forceinline__ void fill_rows(const T* __restrict__ acc,
     for (int i = 0; i < kRowsInFlight; ++i) {
       const int ri = r + i * by;
       if (ri < r1) {
-        T g = penalty_gamma<T>(penalty, dl[i], e[i]);
-        g = g < T(0) ? T(0) : (g > T(1) ? T(1) : g);
-        const T v = a[i] * (T(1) - g);
+        const T v = eq2_utility<T>(penalty, a[i], dl[i], e[i]);
         u[(size_t)ri * M + m] = v;
         if (dst != 0) store_async(dst + (m * dst_stride + ri - r0) * sizeof(T), v, bar);
       }

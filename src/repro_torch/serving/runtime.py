@@ -100,6 +100,10 @@ class SwapManager:
         """Total bytes of currently resident model weights."""
         return sum(self._resident.values())
 
+    def is_resident(self, name: str) -> bool:
+        """Whether ``name`` is currently resident (no swap charge)."""
+        return name in self._resident
+
     def load(self, name: str) -> float:
         """Make ``name`` resident; returns the swap latency charged."""
         if name in self._resident:

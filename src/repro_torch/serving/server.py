@@ -17,9 +17,12 @@ committed-but-unstarted work at every window close and re-schedules it;
 ``faults=`` and ``health=`` supervise the pool's lanes (failed batches
 withdrawn and retried, stragglers quarantined, profiled latencies
 corrected from realized ones); ``overlap=True`` schedules window k+1
-while window k runs on the lanes.  The reference's compiled pipeline,
-speculative chunks and sharding are not ported yet: their options raise
-``NotImplementedError`` naming the ROADMAP item that brings each.
+while window k runs on the lanes.  ``pipeline=True`` feeds every window
+through one persistent ``core.pipeline.WindowPipeline`` (one
+``selection_scan`` launch per scheduling pass), on every loop mode.  The
+reference's speculative chunks (a non-zero ``chunk``) and sharding
+(``shard``) are not ported yet: they raise ``NotImplementedError``
+naming the ROADMAP item that brings each (``NOT_PORTED``).
 """
 from __future__ import annotations
 
@@ -50,7 +53,6 @@ __all__ = ["EdgeServer", "ServeStats", "NOT_PORTED"]
 # Serving options of the reference this port does not have yet, with the
 # ROADMAP item ("Open items" -> "Modules to port") that brings each.
 NOT_PORTED: dict[str, str] = {
-    "pipeline": SCHEDULER_NOT_PORTED["pipeline"],
     "chunk": SCHEDULER_NOT_PORTED["chunk"],
     "shard": SCHEDULER_NOT_PORTED["shard"],
 }
@@ -144,6 +146,7 @@ class EdgeServer:
         backend=None,
         overlap: bool = False,
         lane: str = "thread",
+        *,
         device=None,
     ):
         """``device`` is where the SneakPeek stage and the batched
@@ -191,13 +194,14 @@ class EdgeServer:
         scheduling inputs; otherwise it is recomputed, giving exactly the
         synchronous decision.
 
+        ``pipeline=True`` keeps one ``core.pipeline.WindowPipeline`` for
+        the server's life: its ingest is the SneakPeek stage and its
+        compiled programs schedule every window (decision-identical to
+        the fast path).
+
         Every option defaults off, leaving the plain loop's decisions
-        unchanged.  The compiled pipeline, ``chunk`` and ``shard`` raise."""
-        for option, unported in (
-            ("pipeline", bool(pipeline)),
-            ("chunk", chunk is not None),
-            ("shard", bool(shard)),
-        ):
+        unchanged.  A non-zero ``chunk`` and ``shard`` raise."""
+        for option, unported in (("chunk", bool(chunk)), ("shard", bool(shard))):
             if unported:
                 not_ported(option, NOT_PORTED)
         self.device = resolve_device(device)
@@ -287,6 +291,14 @@ class EdgeServer:
             self.state.register_sizes({
                 name: int(exec_backend.model_bytes(name)) for name in exec_backend.variants
             })
+        self._pipeline = None
+        if pipeline:
+            from repro_torch.core.pipeline import WindowPipeline
+
+            self._pipeline = WindowPipeline(
+                self._eff_apps, sneakpeeks=sneakpeeks, policy=policy,
+                workers=self.workers, device=self.device,
+            )
 
     def submit(self, request: Request):
         """Enqueue one request for the window containing its arrival."""
@@ -351,6 +363,14 @@ class EdgeServer:
             if self.workers:
                 lat_scale = self.health.latency_scale()
                 mask = self.health.active_wids(self.workers)
+        if self._pipeline is not None:
+            # The pipeline's batched ingest (re-admitted requests keep their
+            # evidence), then its compiled program against ``state``.
+            self._pipeline.ingest(requests)
+            sched = self._pipeline.schedule(
+                requests, now, state=state, lat_scale=lat_scale, worker_mask=mask,
+            )
+            return sched, self._eff_apps, scale_fn
         if self.sneakpeeks:
             attach_sneakpeek(requests, self.apps, self.sneakpeeks, device=self.device)
         sched, eff_apps = schedule_window(

@@ -13,7 +13,10 @@ replaying decode graphs at once, a lane's clock beside another stream's
 work, a process lane's launch counts, and the closed loop: the
 overlapped server's speculative scheduling beside a lane's capture, an
 injected crash on a supervised lane, and a lane deadline beside another
-stream's long kernel.
+stream's long kernel.  The pipeline's selection scan is held bit for
+bit against its plain version on its three programs' table shapes and
+both residency carries, and the pipeline on the card against the fast
+path on the card.
 """
 import threading
 
@@ -26,6 +29,7 @@ from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.knn import ops as knn_ops
+from repro_torch.kernels.selection_scan import ops as scan_ops
 from repro_torch.kernels.knn.ref import knn_topk_ref
 from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.kernels.ssd.ref import (
@@ -1038,3 +1042,144 @@ def test_lane_deadline_is_recorded_beside_a_long_kernel(cuda):
     assert 0 in out.timed_out
     assert sorted(r.request_ids[0] for r in out.reports) == [0, 1, 2] and out.failures == []
     torch.cuda.synchronize()
+
+
+# ------------------------------------------------ the pipeline's selection scan
+
+# (steps, members, models, workers, applications) of each program's tables.
+SCAN_SHAPES = {
+    "per_request": (4096, 1, 6, 1, 3),
+    "max_accuracy": (700, 1, 6, 1, 3),
+    "grouped": (17, 1300, 6, 1, 17),
+    "multiworker": (40, 300, 6, 4, 3),
+    # 2,400 model ids on four workers: a carry past the default 48 KiB of
+    # shared memory, which the launch opts in to.
+    "many_ids": (64, 20, 6, 4, 400),
+}
+
+
+def _scan_inputs(program, res_mode, device, seed=0):
+    """Random step and application tables of one scan, quantized so exact
+    ties happen, with integer byte sizes and a capacity that evicts."""
+    rng = np.random.default_rng([seed, len(program), len(res_mode)])
+    s, b, m, w, a = SCAN_SHAPES[program]
+    n_ids = a * m  # the window's model universe, as the pipeline numbers it
+    gid = np.full((a, m), -2, dtype=np.int64)
+    valid = np.zeros((a, m), dtype=bool)
+    for i in range(a):
+        mi = int(rng.integers(1, m + 1))
+        gid[i, :mi] = rng.permutation(n_ids)[:mi]
+        valid[i, :mi] = True
+    counts = rng.integers(1, b + 1, s)
+    mask = (np.arange(b)[None, :] < counts[:, None]).astype(np.float64)
+    res0 = np.full((w, n_ids), -1, dtype=np.int64)
+    for wi in range(w):
+        held = rng.permutation(n_ids)[: (1 if res_mode == "slot1" else 4)]
+        res0[wi, : len(held)] = held
+    if res_mode == "slot1":
+        res0 = res0[:, :1].copy()
+    tabs = {
+        "acc": np.round(rng.uniform(0.5, 1.0, (s, b, m)) * 16) / 16,
+        "mask": mask,
+        "deadlines": np.where(mask > 0, rng.uniform(0.05, 3.0, (s, b)), 1.0),
+        "bsize": counts.astype(np.float64),
+        "lat": np.round(rng.uniform(0.001, 0.01, (s, w, m)) * 1024) / 1024,
+        "step_app": rng.integers(0, a, s),
+        "swap": np.round(rng.uniform(0.0, 0.05, (a, w, m)) * 1024) / 1024,
+        "gid": gid,
+        "valid": valid,
+        "pen": rng.integers(0, 4, a),
+        "pref": np.stack([rng.permutation(w * m) for _ in range(a)]),
+    }
+    fixed = None
+    if program == "max_accuracy":
+        fixed = np.array([rng.integers(0, valid[i].sum()) for i in tabs["step_app"]])
+    sizes = np.tile(rng.integers(1, 600, n_ids).astype(np.float64) * 2**20, (w, 1))
+    seed_args = (np.round(rng.uniform(0.1, 0.3, w) * 1024) / 1024, res0, sizes, 900.0 * 2**20)
+    as_t = {k: torch.as_tensor(v, device=device) for k, v in tabs.items()}
+    fixed_t = None if fixed is None else torch.as_tensor(fixed, device=device)
+    return seed_args, as_t, fixed_t
+
+
+def _run_scan(seed_args, tabs, fixed, res_mode):
+    t0, res0, sizes, cap = seed_args
+    return scan_ops.selection_scan(
+        t0, res0, sizes, cap, res_mode, tabs["acc"], tabs["mask"], tabs["deadlines"],
+        tabs["bsize"], tabs["lat"], tabs["step_app"], tabs["swap"], tabs["gid"], tabs["valid"],
+        tabs["pen"], tabs["pref"], fixed)
+
+
+@pytest.mark.parametrize("res_mode", ["slot1", "lru"])
+@pytest.mark.parametrize("program", sorted(SCAN_SHAPES))
+def test_selection_scan_kernel_matches_plain(cuda, program, res_mode):
+    """Workers, models, starts and latencies bit-identical to the plain
+    version (float64, no FMA contraction, the same association)."""
+    seed_args, tabs, fixed = _scan_inputs(program, res_mode, cuda)
+    got = _run_scan(seed_args, tabs, fixed, res_mode)
+    host = {k: v.cpu() for k, v in tabs.items()}
+    want = _run_scan(seed_args, host, None if fixed is None else fixed.cpu(), res_mode)
+    assert torch.equal(got.cpu(), want)
+
+
+def test_selection_scan_counts_launches_and_refuses(cuda):
+    seed_args, tabs, _ = _scan_inputs("grouped", "lru", cuda)
+    before = scan_ops.counter.count
+    _run_scan(seed_args, tabs, None, "lru")
+    assert scan_ops.counter.count == before + 1
+    bad = (seed_args[0], seed_args[1], seed_args[2] + 0.5, seed_args[3])
+    with pytest.raises(ValueError, match="integer byte counts"):
+        _run_scan(bad, tabs, None, "lru")
+    with pytest.raises(ValueError, match="must be"):
+        _run_scan(seed_args, dict(tabs, pen=tabs["pen"].float()), None, "lru")
+    assert scan_ops.counter.count == before + 1
+
+
+@pytest.mark.parametrize("pool", [None, [(0, 1.0, 1.0), (1, 2.0, 1.0), (2, 0.5, 2.0)]],
+                         ids=["one-worker", "pool"])
+@pytest.mark.parametrize("capacity", [None, 400 * 2**20], ids=["single-slot", "evicting"])
+def test_pipeline_on_the_card_matches_the_fast_path(cuda, capacity, pool):
+    """Five policies, a carried state: the pipeline's schedules on the card
+    equal the fast path's on the card, times bit-equal, one scan launch
+    per window that does not take the brute-force branch."""
+    from repro_torch.core.evaluation import evaluate
+    from repro_torch.core.grouping import group_by_app, split_groups_by_label
+    from repro_torch.core.multiworker import Worker
+    from repro_torch.core.scheduler import POLICY_NAMES, make_policy, schedule_window
+    from repro_torch.core.sneakpeek import attach_sneakpeek
+    from repro_torch.core.streaming import StreamingState
+    from repro_torch.data import applications as apps_mod
+
+    apps, sneaks = apps_mod.build_benchmark_suite(seed=0, device=cuda)
+    workers = [Worker(w, speed=s, load_scale=ls) for w, s, ls in pool] if pool else None
+    wids = [w.wid for w in workers] if workers else None
+
+    def sig(sched):
+        return [(e.request.rid, e.model, e.order, e.batch_id, e.worker, e.est_start_s,
+                 e.est_latency_s) for e in sched.sorted_entries()]
+
+    for policy in POLICY_NAMES:
+        states = [StreamingState(worker_ids=wids, memory_capacity_bytes=capacity)
+                  for _ in range(2)]
+        for w in range(3):
+            reqs = apps_mod.make_requests(list(apps_mod.APP_SPECS.values()), per_app=40,
+                                          deadline_std_s=0.05, seed=w, start_rid=1000 * w)
+            for r in reqs:
+                r.arrival_s += 0.1 * w
+                r.deadline_s += 0.1 * w
+            attach_sneakpeek(reqs, apps, sneaks, device=cuda)
+            sigs = []
+            for state, pipeline in zip(states, (False, True)):
+                before = scan_ops.counter.count
+                sched, _ = schedule_window(make_policy(policy, pipeline=pipeline), reqs, apps,
+                                           0.1 * (w + 1), workers=workers, state=state,
+                                           device=cuda)
+                evaluate(sched, apps, 0.1 * (w + 1), state=state, device=cuda)
+                launched = scan_ops.counter.count - before
+                groups = group_by_app(reqs)
+                if policy == "SneakPeek":
+                    groups = split_groups_by_label(groups, apps)
+                brute = workers is None and policy in ("Grouped", "SneakPeek") and \
+                    len(groups) <= 3
+                assert launched == (1 if pipeline and not brute else 0)
+                sigs.append(sig(sched))
+            assert sigs[1] == sigs[0], (policy, w)

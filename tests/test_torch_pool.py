@@ -699,16 +699,19 @@ def test_launch_counts_are_exact_under_threads():
 @pytest.mark.parametrize("option,value", [("pipeline", True), ("chunk", 4), ("shard", True)])
 def test_workers_with_compiled_options_still_raise(suites, option, value):
     """The pool composes with the compiled pipeline, speculative chunks and
-    sharding in the reference; in the port they still raise (ROADMAP items
-    5 and 11), with or without workers."""
+    sharding in the reference.  The port's pipeline is ported
+    (tests/test_torch_pipeline.py); its speculative chunks and sharding
+    still raise (ROADMAP items 5 and 11), with or without workers, so the
+    pipeline's case asks for ``chunk`` too."""
     _, _, t_apps, _ = suites
     workers = [Worker(0), Worker(1)]
+    kwargs = {option: value, **({"chunk": 4} if option == "pipeline" else {})}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         EdgeServer(_apps(ModelProfile, Application), make_policy("Grouped"), device="cpu",
-                   workers=workers, **{option: value})
+                   workers=workers, **kwargs)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TSimulation(tsched.make_policy("LO-EDF"), t_apps, device="cpu", workers=workers,
-                    **{option: value})
+                    **kwargs)
 
 
 def test_cost_model_backend_still_raises():

@@ -308,9 +308,16 @@ def test_entry_points_need_cuda_unless_cpu_is_named(suites):
 
 @pytest.mark.parametrize("option", ["pipeline", "chunk", "shard", "prebatch"])
 def test_unported_options_raise(suites, option):
+    """``pipeline`` and ``prebatch`` are ported (tests/test_torch_pipeline.py);
+    what of them still raises is the speculative chunked selection they
+    take, ``chunk`` > 0 (ROADMAP item 5).  ``chunk`` and ``shard`` raise
+    wherever they are given."""
     _, _, t_apps, _ = suites
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if option in ("pipeline", "chunk", "shard"):
+        if option == "pipeline":
+            tsched.make_policy("LO-EDF", pipeline=True, chunk=4)
+        elif option in ("chunk", "shard"):
             tsched.make_policy("LO-EDF", **{option: 1})
         else:
-            TSimulation(tsched.make_policy("LO-EDF"), t_apps, device="cpu", **{option: 1})
+            TSimulation(tsched.make_policy("LO-EDF"), t_apps, device="cpu", prebatch=4,
+                        pipeline=True, chunk=4)
