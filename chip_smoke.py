@@ -3,9 +3,9 @@
 
     python3 chip_smoke.py            # the full check, on one card
 
-Builds the port's six CUDA kernel sources from the checkout, holds each
-kernel against its plain PyTorch version at its path's shapes and times
-both, then drives four paths of the port on the card:
+Builds the port's eight CUDA kernel sources from the checkout, holds
+each kernel against its plain PyTorch version at its path's shapes and
+times both, then drives the paths of the port on the card:
 
 * scheduling (phases 3-5): a SneakPeek ``Simulation`` over a stream of
   4096-request windows against k-NN training sets of 100,000 points per
@@ -44,7 +44,22 @@ both, then drives four paths of the port on the card:
   policies, every window's schedule equal to ``pipeline=False``'s with
   one scan launch per window that does not take the brute-force branch,
   ``prebatch=4`` deciding as ``prebatch=0``, and ``EdgeServer(pipeline=
-  True)`` on phase 11 (a)'s lanes recording what phase 11 (a) recorded.
+  True)`` on phase 11 (a)'s lanes recording what phase 11 (a) recorded;
+* the chunked window (phase 13): ``spec_scan`` (speculative chunked
+  selection) bit-identical to its plain version and to the sequential
+  scan on phase 12 (a)'s inputs for chunks 1, 4, 16 and 64, with its
+  rounds and conflicts, then ``Simulation(pipeline=True, chunk=16)``
+  deciding as ``chunk=0`` with one launch per window, and
+  ``EdgeServer(pipeline=True, chunk=16)`` recording what phase 11 (a)
+  recorded;
+* the recurrent and sparse mixers (phase 14): one period of
+  recurrentgemma-9b and one layer of llama4-scout in float32, card
+  against host, graphed decode against eager, expert routing equal;
+  ``rglru_scan`` against its plain version at recurrentgemma-9b's width;
+  ``EdgeServer`` serving recurrentgemma-9b (38 layers) and llama4-scout
+  (full width, 6 layers) in bf16 from CUDA graphs with exact launch
+  counts; llama4-maverick's one period (128 experts) alone, graphed
+  decode against eager.
 
 Every check raises on failure.  The last three lines of standard output
 are the card's name and power limit, the kernel table and
@@ -862,16 +877,64 @@ def check_ssd(seed):
     return t
 
 
-def check_model_card_vs_host(seed, arch, seq, caches, layers=2, compare=(1,)):
+class RouteRecorder:
+    """Records the expert choices and kept flags of every MoE routing
+    (``models.moe._routes``) made while ``on``, by device type; restores
+    the function on exit."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self.on, self.seen, self._real = False, {"cuda": [], "cpu": []}, moe._routes
+
+        def record(probs, *args):
+            routes = self._real(probs, *args)
+            if self.on:
+                self.seen[probs.device.type].append(
+                    [(e.cpu(), k.cpu()) for e, _, k, _ in routes])
+            return routes
+
+        moe._routes = record
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+
+        moe._routes = self._real
+        return False
+
+
+def check_model_card_vs_host(seed, arch, seq, caches, layers=2, compare=(1,), routes=False):
     """A float32 model of ``layers`` layers at ``arch``'s widths, one set of
     weights: prefill of 2 x ``seq`` tokens and 4 decode steps on the card,
     eager (the kernels) and replayed from a CUDA graph (``DecodeGraph``:
     one eager step, a capture, replays), against the host (plain
     versions), every step fed the host's token: logits and the ``caches``
-    of the layers in ``compare``.  Tolerance 1e-3 against the host:
-    float32 sums over the model's widths taken in other orders, a few
-    layers deep; 1e-5 between graph and eager, which run the same kernels
-    on the same inputs."""
+    of the layers in ``compare`` (None: every cache of those layers).
+    With ``routes``, the MoE's expert choices and dropped tokens of the
+    card's eager prefill and steps must equal the host's.  Tolerance 1e-3
+    against the host: float32 sums over the model's widths taken in other
+    orders, a few layers deep; 1e-5 between graph and eager, which run the
+    same kernels on the same inputs."""
+    import torch
+
+    with RouteRecorder() as rec:
+        _card_vs_host(seed, arch, seq, caches, layers, compare, rec)
+    if routes:
+        card, host = rec.seen["cuda"], rec.seen["cpu"]
+        require(len(card) == len(host) > 0, f"{arch}: {len(card)} card routings, {len(host)} "
+                "host routings")
+        for step, (a, b) in enumerate(zip(card, host)):
+            for (ea, ka), (eb, kb) in zip(a, b):
+                require(torch.equal(ea, eb) and torch.equal(ka, kb),
+                        f"{arch}: MoE routing {step} differs between card and host")
+        tokens = sum(e.numel() for r in card for e, _ in r)
+        print(f"    {arch}: expert routing equal, card against host, on {len(card)} routings "
+              f"(prefill and {len(card) - 1} steps, {tokens} token choices, "
+              f"{sum(int((~k).sum()) for r in card for _, k in r)} dropped)")
+
+
+def _card_vs_host(seed, arch, seq, caches, layers, compare, rec):
     import dataclasses
 
     import torch
@@ -890,8 +953,10 @@ def check_model_card_vs_host(seed, arch, seq, caches, layers=2, compare=(1,)):
                            generator=torch.Generator().manual_seed(seed))
     steps = 4
     max_len = tokens.shape[1] + steps
+    rec.on = True
     lc, cc = lm.prefill(card, tokens.cuda(), max_len=max_len)
     lh, ch = lm.prefill(host, tokens, max_len=max_len)
+    rec.on = False
     graph = DecodeGraph(card, cfg, 2, max_len, torch.device("cuda", torch.cuda.current_device()),
                         torch.cuda.graph_pool_handle(), torch.cuda.Stream())
     graph.load(cc, lh.argmax(dim=-1, keepdim=True).cuda())
@@ -914,19 +979,22 @@ def check_model_card_vs_host(seed, arch, seq, caches, layers=2, compare=(1,)):
             tok = lh.argmax(dim=-1, keepdim=True)
             graph.tok.copy_(tok)
             graph.step()
+            rec.on = True
             lc, cc = lm.decode_step(card, cc, tok.cuda())
             lh, ch = lm.decode_step(host, ch, tok)
+            rec.on = False
     for i in compare:
-        for name in caches:
+        for name in caches or tuple(cc["layers"][i]):
             errs.append(_close(cc["layers"][i][name].cpu(), ch["layers"][i][name], tol,
                                f"layer {i} cache {name}"))
             graph_errs.append(_close(graph.cache["layers"][i][name], cc["layers"][i][name],
                                      graph_tol, f"graphed layer {i} cache {name}"))
     require(graph.captures == 1 and graph.replays == steps - 1,
             f"graphed decode: {graph.captures} captures, {graph.replays} replays")
-    shapes = {i: tuple(cc["layers"][i][caches[0]].shape) for i in compare}
+    shapes = {i: {n: tuple(t.shape) for n, t in cc["layers"][i].items()
+                  if n in (caches or cc["layers"][i])} for i in compare}
     print(f"  {arch} widths, {layers} layers, f32: prefill of 2 x {seq} tokens and {steps} "
-          f"decode steps, logits and the caches {caches} of layers {shapes} within {tol} "
+          f"decode steps, logits and the caches of layers {shapes} within {tol} "
           f"(max |d| {max(errs):.3g}); greedy "
           f"tokens equal on the {checked} of {2 * (steps + 1)} picks with a top-2 margin over "
           f"{tol}; the graphed decode (1 eager step, 1 capture, {graph.replays} replays) "
@@ -991,9 +1059,10 @@ def serving_sneakpeek(args):
     return KNNSneakPeek(train_x, train_y, 2, k=args.k, device="cuda")
 
 
-def serving_trace(args, rid0):
+def serving_trace(args, rid0, slack_scale=1.0):
     """The serving traffic: ``args.serve_requests`` requests 10 ms apart,
-    deadlines 0.2, 0.5 or 1.0 s after arrival; ids from ``rid0``."""
+    deadlines 0.2, 0.5 or 1.0 s after arrival, times ``slack_scale``; ids
+    from ``rid0``."""
     import numpy as np
 
     from repro_torch.core.types import Request
@@ -1002,7 +1071,7 @@ def serving_trace(args, rid0):
     feats, labels = _two_class_set(trng, args.serve_requests, 32, 0.25)
     slack = trng.choice([0.2, 0.5, 1.0], size=args.serve_requests)
     return [Request(rid=rid0 + i, app="assistant", arrival_s=0.01 * i,
-                    deadline_s=0.01 * i + float(slack[i]), features=feats[i],
+                    deadline_s=0.01 * i + float(slack[i]) * slack_scale, features=feats[i],
                     true_label=int(labels[i]))
             for i in range(args.serve_requests)]
 
@@ -1548,7 +1617,7 @@ def _closed_loop_view(server, outs, stats):
     }
 
 
-def serve_closed_loop_simulated(args, profiles, sneak, pipeline=False, want=None):
+def serve_closed_loop_simulated(args, profiles, sneak, pipeline=False, want=None, chunk=0):
     """Phase 11 (a): the closed loop on ``SimulatedBackend`` lanes, whose
     reports carry the profiles' modelled seconds, so no decision depends
     on the clock.  Three workers (one twice as fast), phase 9's
@@ -1564,7 +1633,9 @@ def serve_closed_loop_simulated(args, profiles, sneak, pipeline=False, want=None
     Phase 12 (d): with ``pipeline=True``, the same servers on the card
     only, scheduling through one persistent ``WindowPipeline`` (one
     ``selection_scan`` launch per scheduling pass, K1 for the commits
-    alone); their views must equal ``want``, phase 11 (a)'s."""
+    alone); their views must equal ``want``, phase 11 (a)'s.  Phase 13
+    (c): the same with ``chunk``, one ``spec_scan`` launch per pass and no
+    ``selection_scan``."""
     import copy
 
     import torch
@@ -1583,7 +1654,8 @@ def serve_closed_loop_simulated(args, profiles, sneak, pipeline=False, want=None
     views, evidenced = {}, None
     for device in ("cuda",) if pipeline else ("cuda", "cpu"):
         for overlap in (False, True):
-            label = (f"{device}{', pipeline' if pipeline else ''}, "
+            label = (f"{device}{', pipeline' if pipeline else ''}"
+                     f"{f', chunk={chunk}' if chunk else ''}, "
                      f"{'overlapped' if overlap else 'synchronous'}")
             on_card = device == "cuda"
             reqs = serving_trace(args, 90_000) if on_card else copy.deepcopy(evidenced)
@@ -1592,7 +1664,8 @@ def serve_closed_loop_simulated(args, profiles, sneak, pipeline=False, want=None
                                 sneakpeeks={"assistant": sneak} if on_card else None,
                                 prompt_fn=serving_prompt_fn(vocab), workers=workers,
                                 preempt=True, faults=_closed_loop_plan(hang=True), health=True,
-                                overlap=overlap, pipeline=pipeline, device=device)
+                                overlap=overlap, pipeline=pipeline, chunk=chunk,
+                                device=device)
             torch.cuda.synchronize()
             kernels.reset_launch_counts()
             t = time.perf_counter()
@@ -1620,9 +1693,12 @@ def serve_closed_loop_simulated(args, profiles, sneak, pipeline=False, want=None
             if on_card and pipeline:
                 passes = sum(1 for sched in server.passes if sched.entries)
                 require(launches.get("knn_topk", 0) > 0, f"{label}: no k-NN kernel")
-                require(launches.get("selection_scan", 0) == passes,
-                        f"{label}: the scan launched {launches.get('selection_scan')} times, "
-                        f"expected one per scheduling pass ({passes})")
+                scan, other = ("spec_scan", "selection_scan") if chunk else \
+                    ("selection_scan", "spec_scan")
+                require(launches.get(scan, 0) == passes and not launches.get(other, 0),
+                        f"{label}: {scan} launched {launches.get(scan)} times and {other} "
+                        f"{launches.get(other)}, expected one {scan} per scheduling pass "
+                        f"({passes})")
                 require(launches.get("utility_scores", 0) == stats.windows,
                         f"{label}: K1 launched {launches.get('utility_scores')} times, expected "
                         f"{stats.windows} commits")
@@ -1636,7 +1712,8 @@ def serve_closed_loop_simulated(args, profiles, sneak, pipeline=False, want=None
     first = want if want is not None else next(iter(views.values()))
     for label, view in views.items():
         for key, value in view.items():
-            require(value == first[key], f"phase {'12 (d)' if pipeline else '11 (a)'}: "
+            phase = "13 (c)" if chunk else "12 (d)" if pipeline else "11 (a)"
+            require(value == first[key], f"phase {phase}: "
                     f"{label}'s {key} differ from the card's synchronous run's"
                     f"{' in phase 11 (a)' if pipeline else ''}")
     print(f"    the {len(views)} runs agree{' with phase 11 (a)' if pipeline else ''}: "
@@ -1786,7 +1863,7 @@ def sm_clock_hz() -> float:
 
 
 class ScanCapture:
-    """Records the arguments of every selection-scan launch the pipeline
+    """Records the positional arguments of every scan launch the pipeline
     makes while it is entered (``core.pipeline._scan``), then restores it."""
 
     def __enter__(self):
@@ -1794,9 +1871,9 @@ class ScanCapture:
 
         self.calls, self._real = [], tpipe._scan
 
-        def record(*call):
+        def record(*call, **kw):
             self.calls.append(call)
-            return self._real(*call)
+            return self._real(*call, **kw)
 
         tpipe._scan = record
         return self
@@ -1922,7 +1999,8 @@ def check_pipeline_simulation(apps, sneaks, trace, seed):
     Phase 12 (c): SneakPeek with ``prebatch=4`` decides as ``prebatch=0``,
     with and without the pipeline, and the stacked Eq. 9/12 rows equal
     the lazy ones on the card.  Returns (SneakPeek's scan launches,
-    {policy: launches}, {policy: (pipeline s per window, fast path s)})."""
+    {policy: launches}, {policy: (pipeline s per window, fast path s)},
+    {policy: every window's schedule})."""
     import torch
 
     from repro_torch import kernels
@@ -2012,7 +2090,425 @@ def check_pipeline_simulation(apps, sneaks, trace, seed):
                                 lazy.acc_matrix(name, "sharpened")),
                     f"window {w}, {name}: stacked Eq. 9 rows differ from the lazy ones")
     print(f"    stacked Eq. 9/12 rows of {len(windows)} windows == the lazy rows, bit for bit")
-    return per_policy["SneakPeek"], per_policy, seconds
+    return per_policy["SneakPeek"], per_policy, seconds, sigs
+
+
+# Chunk sizes of phase 13 (a) and the one the chunked pipeline runs in (b), (c).
+SPEC_CHUNKS = (1, 4, 16, 64)
+PIPELINE_CHUNK = 16
+
+
+def check_spec_scan(apps, reqs, now, seq_t):
+    """Phase 13 (a): the chunked scan (``spec_scan``) on the inputs the
+    pipeline gives ``selection_scan`` in phase 12 (a) — LO-EDF's 4,095-step
+    per-request scan, SneakPeek's grouped scan and SneakPeek on four
+    workers, each with the single-slot and the LRU carry — for every chunk
+    of ``SPEC_CHUNKS``: its rows bit-identical to the sequential kernel's
+    on the card and to its plain version's (on host copies of the same
+    inputs), its rounds and conflicts equal to the plain version's.  Times
+    the kernel on the device beside the sequential scan's (``seq_t``,
+    phase 12 (a)) and the plain version on the host."""
+    import torch
+
+    from repro_torch.core.multiworker import Worker
+    from repro_torch.core.scheduler import make_policy, schedule_window
+    from repro_torch.core.streaming import StreamingState
+    from repro_torch.kernels.selection_scan import ops as scan_ops
+    from repro_torch.kernels.spec_scan import ops as spec_ops
+
+    pool = [Worker(0), Worker(1, speed=2.0), Worker(2, speed=0.5), Worker(3, load_scale=2.0)]
+    out = {}
+    for res_mode, cap in (("slot1", None), ("lru", 400 * 2**20)):
+        for label, policy, workers in (("LO-EDF", "LO-EDF", None),
+                                       ("SneakPeek", "SneakPeek", None),
+                                       ("SneakPeek on 4 workers", "SneakPeek", pool)):
+            state = None
+            if cap is not None:
+                state = StreamingState(worker_ids=[w.wid for w in workers] if workers else None,
+                                       memory_capacity_bytes=cap)
+            with ScanCapture() as cap_calls:
+                schedule_window(make_policy(policy, pipeline=True), reqs, apps, now,
+                                workers=workers, state=state, device="cuda")
+            call = cap_calls.calls[0]
+            mode, t0, res0, sizes, capacity, *tabs = call
+            seq = scan_ops.selection_scan(t0, res0, sizes, capacity, mode, *tabs)
+            host_tabs = [t.cpu() if t is not None else None for t in tabs]
+            seed = [torch.as_tensor(x, device="cuda") for x in (t0, res0, sizes)]
+            bound_ms, bound_by, _, shape = _scan_numbers(call, 1.0)
+            seq_ms = seq_t[f"{label}, {res_mode}"]["ms"]
+            for chunk in SPEC_CHUNKS:
+                got = spec_ops.spec_scan(t0, res0, sizes, capacity, mode, *tabs, chunk=chunk)
+                t = time.perf_counter()
+                want = spec_ops.spec_scan(t0, res0, sizes, capacity, mode, *host_tabs,
+                                          chunk=chunk)
+                plain_ms = (time.perf_counter() - t) * 1e3
+                got_h = got.cpu()
+                require(torch.equal(got_h, want), f"{label}, {res_mode}, chunk {chunk}: the "
+                        "chunked scan differs from its plain version")
+                require(torch.equal(got[:, :-1], seq), f"{label}, {res_mode}, chunk {chunk}: "
+                        "the chunked scan differs from the sequential scan")
+                k_eff = min(chunk, tabs[0].shape[0])
+
+                def kernel(k=k_eff):
+                    return spec_ops.launch(seed, capacity, mode, *tabs, chunk=k)
+
+                ms = timed_ms(kernel, iters=5, warmup=1)
+                rounds, conflicts = int(got_h[0, -1]), int(got_h[1, -1])
+                out[f"{label}, {res_mode}, chunk {chunk}"] = {
+                    "shape": f"{shape} K={chunk}", "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": 0.0,
+                    "library_ms": None, "sequential_ms": seq_ms, "rounds": rounds,
+                    "conflicts": conflicts}
+                print(f"    {label}, {res_mode}, chunk {chunk} ({shape}): bit-identical to its "
+                      f"plain version and to the sequential scan; {rounds} rounds, {conflicts} "
+                      f"conflicts ({conflicts / rounds:.3f}); kernel {ms:.6f} ms on the device "
+                      f"against the sequential {seq_ms:.6f} ms; plain {plain_ms:.1f} ms on the "
+                      f"host; bound {bound_ms:.6f} ms ({bound_by})")
+    return out
+
+
+def check_chunked_simulation(apps, sneaks, trace, seed, want_sigs):
+    """Phase 13 (b): ``Simulation(pipeline=True, chunk=PIPELINE_CHUNK)``
+    over phase 5's trace for the five policies: every window's schedule
+    equal to phase 12 (b)'s ``chunk=0`` schedules (``want_sigs``), one
+    ``spec_scan`` launch per window outside the brute-force branch and no
+    ``selection_scan``.  Returns ({policy: spec_scan launches}, {policy:
+    the chunk stats of every window})."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.core import simulator as tsim
+    from repro_torch.core.scheduler import POLICY_NAMES, make_policy
+
+    launches_by, stats_by = {}, {}
+    all_windows = tsim.Simulation(make_policy("SneakPeek"), apps, device="cuda") \
+        ._window_batches(trace, None)
+    for policy in POLICY_NAMES:
+        reqs = trace if policy != "Grouped" else \
+            [r for _, batch in all_windows[:GROUPED_WINDOWS] for r in batch]
+        seen, stats, real_eval = [], [], tsim.evaluate
+
+        def spy(sched, *a, **kw):
+            seen.append([(e.request.rid, e.model, e.order, e.batch_id, e.worker,
+                          e.est_start_s, e.est_latency_s) for e in sched.sorted_entries()])
+            stats.append(sched.chunk_stats)
+            return real_eval(sched, *a, **kw)
+
+        tsim.evaluate = spy
+        try:
+            sim = tsim.Simulation(make_policy(policy), apps, sneakpeeks=sneaks,
+                                  short_circuit=True, seed=seed, pipeline=True,
+                                  chunk=PIPELINE_CHUNK, device="cuda")
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            sim.run(reqs)
+            torch.cuda.synchronize()
+            launches = kernels.launch_counts()
+        finally:
+            tsim.evaluate = real_eval
+        require(seen == want_sigs[policy], f"{policy}: chunk={PIPELINE_CHUNK} schedules differ "
+                "from chunk=0's")
+        scanned = sum(st is not None for st in stats)
+        require(launches.get("spec_scan", 0) == scanned and not launches.get("selection_scan"),
+                f"{policy}: spec_scan {launches.get('spec_scan')} and selection_scan "
+                f"{launches.get('selection_scan')} launches, expected {scanned} and 0")
+        launches_by[policy], stats_by[policy] = launches.get("spec_scan", 0), stats
+        rounds = [st["rounds"] for st in stats if st]
+        rate = [round(st["conflict_rate"], 4) for st in stats if st]
+        print(f"    {policy}: {len(seen)} windows equal to chunk=0's, {scanned} spec_scan "
+              f"launches; rounds per window {rounds}, conflict rate {rate}")
+        print("      scheduling s per window, chunk="
+              f"{PIPELINE_CHUNK}: " + " ".join(f"{row['overhead_s']:.4f}" for row in sim.log))
+    return launches_by, stats_by
+
+
+# recurrentgemma-9b's shapes in phase 14: batch, prefill length, LRU width.
+RGLRU_SHAPE = (8, 1024, 4096)
+
+
+def check_rglru(seed):
+    """Phase 14: ``rglru_scan`` against its plain version on the card, at
+    recurrentgemma-9b's width in bf16 (B = 8, S = 1024, L = 4096) and at
+    S = 1 (a decode step): y within 2e-2 (its bf16 rounding), the last
+    state within 1e-4 (float32 kept in both; the kernel's and PyTorch's
+    transcendental functions differ in the last bits).  Times both; the
+    bound is the bytes (u and g read, y written, in bf16; the gate vectors;
+    h0 read and h written in float32) against about thirty float32
+    operations an element.  The device time is ``torch.profiler``'s;
+    back-to-back wrapper calls show the host's rate at S = 1."""
+    import torch
+
+    from repro_torch.kernels.rglru_scan import ops as rglru_ops
+    from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 14)
+    out = {}
+    for b, s, width in (RGLRU_SHAPE, RGLRU_SHAPE[:1] + (1,) + RGLRU_SHAPE[2:]):
+        u, gp = (torch.randn((b, s, width), generator=gen, device="cuda").to(torch.bfloat16)
+                 for _ in range(2))
+        vecs = [(torch.randn(width, generator=gen, device="cuda") * 0.5).to(torch.bfloat16)
+                for _ in range(5)]
+        h0 = torch.randn((b, width), generator=gen, device="cuda")
+        y, h = rglru_ops.rglru_scan(u, gp, *vecs, h0)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        y_ref, h_ref = rglru_scan_ref(u, gp, *vecs, h0)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t) * 1e3
+        err = _close(y.float(), y_ref.float(), 2e-2, f"rglru_scan y at S={s}")
+        _close(h, h_ref, 1e-4, f"rglru_scan h_last at S={s}")
+        def kernel():
+            return rglru_ops.rglru_scan(u, gp, *vecs, h0)
+
+        ms = device_ms(kernel, "rglru_scan_kernel", iters=20)
+        call_ms = timed_ms(kernel, iters=20, warmup=3)
+        nbytes = 3 * 2 * b * s * width + 5 * 2 * width + 2 * 4 * b * width
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        op_ms = 30.0 * b * s * width / FP32_FLOP_PER_S * 1e3
+        key = "decode" if s == 1 else "prefill"
+        out[key] = {"shape": f"B={b} S={s} L={width} bf16", "ms": ms, "call_ms": call_ms,
+                    "plain_ms": plain_ms,
+                    "bound_ms": max(bound_ms, op_ms),
+                    "bound_by": "bytes" if bound_ms >= op_ms else "operations",
+                    "max_abs_err": err, "library_ms": None}
+        print(f"    rglru_scan at B={b} S={s} L={width} bf16: y within 2e-2 (max |d| {err:.3g}), "
+              f"h within 1e-4; kernel {ms:.6f} ms on the device, {call_ms:.6f} ms per wrapper "
+              f"call back to back, plain {plain_ms:.3f} ms, bound {max(bound_ms, op_ms):.6f} ms "
+              f"({out[key]['bound_by']}), no library call")
+    return out
+
+
+def check_new_attention_shapes(seed):
+    """Phase 14 (a): K3 and K4 in bf16 (the tensor-core instance of K3) at
+    the shapes phase 14 (b) gives them, each against its plain version at
+    2e-2 and against SDPA, timed as phases 6-7 time them:
+    recurrentgemma-9b's local layers (MQA: Hq = 16 over Hkv = 1, D = 256,
+    window 2048, which a 1,024-token prefill does not reach) and llama4's
+    attention (Hq = 40 over Hkv = 8, G = 5, D = 128), prefill at B = 8, S =
+    1024 and decode at phase 7's eight lengths up to 1,040."""
+    import torch
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 15)
+    flash, decode = {}, {}
+    b, s, cap = 8, 1024, 1040
+    lengths = torch.tensor([1040, 129, 700, 1024, 300, 1039, 512, 890], dtype=torch.int32,
+                           device="cuda")
+    mask = (torch.arange(cap, device="cuda")[None, :] < lengths[:, None])[:, None, None, :]
+    for key, hq, hkv, d, window in (("recurrentgemma_local", 16, 1, 256, 2048),
+                                    ("llama4", 40, 8, 128, 0)):
+        q = torch.randn((b, s, hq, d), generator=gen, device="cuda").to(torch.bfloat16)
+        k, v = (torch.randn((b, s, hkv, d), generator=gen, device="cuda").to(torch.bfloat16)
+                for _ in range(2))
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        pos = torch.arange(s, device="cuda")
+        keys = int(torch.clamp(pos + 1, max=window or s).sum())  # keys each query sees, summed
+        # window >= S: the windowed causal mask is the causal one, SDPA's is_causal.
+        flash[key] = _flash_timing(
+            q, k, v, window, 4 * b * hq * keys * d,
+            lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True))
+        print(f"  K3 {key} shape {flash[key]['shape']}: max |d| {flash[key]['max_abs_err']:.3g} "
+              f"(tolerance 2e-2); SDPA agrees within 2e-2; {flash[key]['ms']:.6f} ms on the "
+              f"device, plain {flash[key]['plain_ms']:.3f} ms, SDPA "
+              f"{flash[key]['library_ms']:.6f} ms, bound {flash[key]['bound_ms']:.6f} ms "
+              f"({flash[key]['bound_by']})")
+        del q, k, v, qt, kt, vt
+        q = torch.randn((b, 1, hq, d), generator=gen, device="cuda").to(torch.bfloat16)
+        k, v = (torch.randn((b, cap, hkv, d), generator=gen, device="cuda").to(torch.bfloat16)
+                for _ in range(2))
+        decode[key] = _decode_timing(q, k, v, lengths, mask, f"{key} shape")
+        print(f"    K4 {key}: {decode[key]['ms']:.6f} ms on the device, plain "
+              f"{decode[key]['plain_ms']:.3f} ms, SDPA {decode[key]['library_ms']:.6f} ms, "
+              f"bound {decode[key]['bound_ms']:.6f} ms ({decode[key]['bound_by']})")
+        del q, k, v
+    return flash, decode
+
+
+# Phase 14 (b)'s llama4-scout depth: full width, 6 of its 48 layers.
+SCOUT_LAYERS = 6
+# Phase 14 (b)'s deadline slack, times phase 9's.  A batch of these models
+# takes about 0.35 s and a cold load 0.7 s (recurrentgemma-9b) or 1.2 s
+# (scout), so phase 9's 0.2-1.0 s slack misses nearly every deadline and
+# SneakPeek keeps the first model it loads; at six times the slack the
+# accuracy decides, and both families win requests (class 0 goes to
+# recurrentgemma-9b, class 1 to scout).
+NEW_FAMILY_SLACK = 6.0
+
+
+def serve_new_families(args):
+    """Phase 14 (b): ``EdgeServer`` serving phase 9's traffic, its slack
+    times ``NEW_FAMILY_SLACK``, on one application offering
+    recurrentgemma-9b (all 38 layers, 17.0 GB) and llama4-scout-17b-16e
+    (full width, ``SCOUT_LAYERS`` layers, 30.6 GB), bf16, decode replayed
+    from CUDA graphs, after phase 9's warm-up and profile fit.  Phase 9's
+    prompts of 128-1,024 tokens: the backend right-pads a scout batch to
+    whole groups of 512 tokens (``moe_group``), which the MoE layers
+    require, as the reference's do.  Both families must serve requests in
+    the two-family run.  Then the same traffic on each family alone.  Every
+    launch count is set to 0 just before each run and read just after:
+    ``rglru_scan`` once per RG-LRU layer of every prefill and decode step,
+    K3 once per attention layer of every prefill, K4 once per attention
+    layer of every decode step.  Returns the two-family run's launches."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.configs import ARCHS
+    from repro_torch.core.scheduler import make_policy
+    from repro_torch.core.types import Application
+    from repro_torch.serving.backends import ProfiledBackend
+    from repro_torch.serving.runtime import LMExecutor
+    from repro_torch.serving.server import EdgeServer
+
+    rg, scout = "recurrentgemma-9b", "llama4-scout-17b-16e"
+    variants = {rg: (ARCHS[rg], 5),
+                scout: (dataclasses.replace(ARCHS[scout], num_layers=SCOUT_LAYERS), 6)}
+    recalls = {rg: [0.90, 0.78], scout: [0.80, 0.93]}
+    new_tokens = 16
+    vocab = min(cfg.vocab_size for cfg, _ in variants.values())
+    t0 = time.perf_counter()
+    backend = ProfiledBackend(variants, new_tokens=new_tokens, device="cuda")
+    warm = np.random.default_rng(args.seed).integers(0, vocab, (8, 512)).astype(np.int32)
+    for rnd in range(3):
+        if rnd == 1:
+            backend.clear_observations()
+            captured = backend.graph_stats()["captures"]
+        timed = []
+        for name in variants:
+            for bsz in (8, 1):
+                r = backend.run_batch(name, warm[:bsz], list(range(bsz)))
+                timed.append(f"({name}, {bsz}, {r.prefill_s:.4f}, {r.decode_s:.4f})")
+        print(f"    warm-up round {rnd + 1} (model, size, prefill s, decode s): " + " ".join(timed))
+    require(backend.graph_stats()["captures"] == captured,
+            "the two fitted rounds captured decode graphs; their steps must all replay")
+    profiles = {name: backend.profile(name, recalls[name]) for name in variants}
+    for p in profiles.values():
+        fixed, per_item = p.latency_model
+        print(f"  profile {p.name}: {fixed:.6f} s + {per_item:.6f} s per request "
+              f"(512-token prompts, {new_tokens} new tokens), weights "
+              f"{p.memory_bytes / 1e9:.3f} GB")
+    print(f"    set-up (weights on the card, warm-up batches) {time.perf_counter() - t0:.2f} s")
+
+    def layer_count(cfg, mixers):
+        return sum(cfg.layer_kind(i).partition(":")[0] in mixers for i in range(cfg.num_layers))
+
+    rec_layers = {n: layer_count(cfg, ("rglru",)) for n, (cfg, _) in variants.items()}
+    attn_layers = {n: layer_count(cfg, ("attn", "local")) for n, (cfg, _) in variants.items()}
+    sneak = serving_sneakpeek(args)
+
+    def counted(label, names, rid0):
+        app = Application(name="assistant", models=[profiles[n] for n in names],
+                          penalty="sigmoid")
+        server = EdgeServer({"assistant": app}, make_policy("SneakPeek"),
+                            executor=LMExecutor(backend=backend),
+                            sneakpeeks={"assistant": sneak},
+                            prompt_fn=serving_prompt_fn(vocab), device="cuda")
+        reqs = serving_trace(args, rid0, NEW_FAMILY_SLACK)
+        torch.cuda.synchronize()
+        graphs0 = backend.graph_stats()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t = time.perf_counter()
+        outs, stats = server.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        graphs = {k: v - graphs0[k] for k, v in backend.graph_stats().items()}
+        reports = [r for o in outs for r in (o["reports"] or [])]
+        by_model = {n: sum(r.batch_size for r in reports if r.model == n) for n in variants}
+        prefill_s = sum(r.prefill_s for r in reports)
+        decode_s = sum(r.decode_s for r in reports)
+        tokens = sum(r.tokens.size for r in reports)
+        print(f"    {label}: windows={stats.windows} requests={stats.requests} "
+              f"mean_utility={stats.mean_utility:.6f} violations={stats.violations} "
+              f"swaps={stats.swaps} batches={len(reports)} requests per model {by_model}")
+        print(f"    prefill {prefill_s:.6f} s, decode {decode_s:.6f} s, {tokens} tokens "
+              f"generated, {tokens / (prefill_s + decode_s):.1f} tokens/s over execution; "
+              f"wall {wall:.3f} s")
+        print("    batches (model, size, prefill s, decode s): " + " ".join(
+            f"({r.model}, {r.batch_size}, {r.prefill_s:.4f}, {r.decode_s:.4f})"
+            for r in reports))
+        print(f"    launches: {launches}")
+        print(f"    peak device memory {peak / 1e9:.3f} GB (torch.cuda.max_memory_allocated); "
+              f"decode graphs: {graphs['captures']} captured, {graphs['replays']} replays")
+        want = {
+            "rglru_scan": sum(rec_layers[r.model] * new_tokens for r in reports),
+            "flash_attention": sum(attn_layers[r.model] for r in reports),
+            "decode_attention": sum(attn_layers[r.model] * (new_tokens - 1) for r in reports),
+        }
+        for name, n in want.items():
+            require(launches.get(name, 0) == n,
+                    f"{label}: {name} launched {launches.get(name)} times, expected {n}")
+        require(graphs["replays"] > 0, f"{label}: decode replayed no CUDA graph")
+        require(stats.requests == len(reqs) and sum(by_model.values()) == len(reqs),
+                f"{label}: not every request was served once")
+        require(all(by_model[n] > 0 for n in names), f"{label}: a family served nothing")
+        require(peak < 80e9, f"{label}: peak device memory {peak / 1e9:.3f} GB")
+        for r in reports:
+            require(r.tokens.shape == (r.batch_size, new_tokens), f"tokens {r.tokens.shape}")
+            require(bool(((r.tokens >= 0) & (r.tokens < variants[r.model][0].vocab_size)).all()),
+                    "token outside the vocab")
+        print(f"    launch counts exact: {want}")
+        return launches
+
+    launches = counted("both families", list(variants), 140_000)
+    for k, name in enumerate(variants):
+        counted(f"{name} alone", [name], 150_000 + 10_000 * k)
+    del backend
+    return launches
+
+
+def check_maverick(seed):
+    """Phase 14 (c): llama4-maverick-400b-128e, one period (``attn:mlp`` at
+    dense_d_ff 16,384, ``attn:moe`` with 128 experts) at full width in
+    bf16, 37.4 GB, alone on the card: prefill of 2 x 512 tokens (two MoE
+    groups), then 4 greedy steps replayed from a CUDA graph against the
+    eager steps: logits within 1e-5 (the same kernels on the same
+    inputs), the same tokens."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import LM
+    from repro_torch.serving.backends import DecodeGraph, bucket_capacity
+
+    cfg = dataclasses.replace(ARCHS["llama4-maverick-400b-128e"], num_layers=2)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    lm = LM(cfg)
+    params = lm.init(seed=seed, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    tokens = torch.randint(0, cfg.vocab_size, (2, 512),
+                           generator=torch.Generator().manual_seed(seed)).cuda()
+    steps = 4
+    capacity = bucket_capacity(512 + steps + 1)
+    with torch.inference_mode():
+        logits, cache = lm.prefill(params, tokens, max_len=capacity)
+        require(bool(torch.isfinite(logits.float()).all()), "maverick: non-finite prefill logits")
+        tok = logits.argmax(dim=-1, keepdim=True).to(torch.int32)
+        dec = DecodeGraph(params, cfg, 2, capacity, torch.device("cuda", 0),
+                          torch.cuda.graph_pool_handle(), torch.cuda.Stream())
+        dec.load(cache, tok)
+        errs = []
+        for step in range(steps):
+            dec.step()
+            logits, cache = lm.decode_step(params, cache, tok)
+            tok = logits.argmax(dim=-1, keepdim=True).to(torch.int32)
+            errs.append(_close(dec.logits.float(), logits.float(), 1e-5,
+                               f"maverick graphed logits, step {step}"))
+            require(torch.equal(dec.tok, tok), f"maverick: graphed token differs at step {step}")
+    require(dec.captures == 1 and dec.replays == steps - 1, "maverick: graph counts")
+    peak = torch.cuda.max_memory_allocated()
+    print(f"    maverick one period ({cfg.pattern}, 128 experts, dense_d_ff {cfg.dense_d_ff}), "
+          f"bf16, weights made in {init_s:.2f} s: prefill 2 x 512 tokens, {steps} graphed steps "
+          f"(1 capture, {dec.replays} replays) within 1e-5 of eager (max |d| {max(errs):.3g}), "
+          f"same tokens; peak {peak / 1e9:.3f} GB")
+    del lm, params, dec, cache
 
 
 def main(argv=None) -> int:
@@ -2222,12 +2718,69 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     print(f"  (b) Simulation(pipeline=True) against pipeline=False over phase 5's trace, "
           f"5 policies")
-    scan_launches, scan_by_policy, _ = check_pipeline_simulation(apps, sneaks, trace, args.seed)
+    scan_launches, scan_by_policy, scan_seconds, scan_sigs = check_pipeline_simulation(
+        apps, sneaks, trace, args.seed)
     print(f"    (b, c) {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     print("  (d) EdgeServer(pipeline=True) on phase 11 (a)'s SimulatedBackend lanes")
     serve_closed_loop_simulated(args, profiles, closed_sneak, pipeline=True, want=closed_view)
     print(f"    (d) {time.perf_counter() - t0:.1f} s")
+    print(f"    phases 1-12 {time.perf_counter() - t_start:.1f} s")
+
+    print("[13] the chunked window: speculative chunked selection, one spec_scan launch per "
+          "window")
+    t0 = time.perf_counter()
+    print(f"  (a) the chunked scan against its plain version and the sequential scan on phase "
+          f"12 (a)'s inputs, chunks {SPEC_CHUNKS}")
+    spec_t = check_spec_scan(effective_apps(apps, sneaks, True),
+                             trace[: args.per_app * len(specs)], 0.1, scan_t)
+    print(f"    (a) {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    print(f"  (b) Simulation(pipeline=True, chunk={PIPELINE_CHUNK}) against phase 12 (b)'s "
+          "chunk=0 schedules, 5 policies")
+    spec_by_policy, _ = check_chunked_simulation(apps, sneaks, trace, args.seed, scan_sigs)
+    print(f"    (b) {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    print(f"  (c) EdgeServer(pipeline=True, chunk={PIPELINE_CHUNK}) on phase 11 (a)'s "
+          "SimulatedBackend lanes")
+    serve_closed_loop_simulated(args, profiles, closed_sneak, pipeline=True, want=closed_view,
+                                chunk=PIPELINE_CHUNK)
+    print(f"    (c) {time.perf_counter() - t0:.1f} s")
+    print(f"    phases 1-13 {time.perf_counter() - t_start:.1f} s")
+
+    print("[14] the recurrent and sparse mixers: recurrentgemma-9b and llama4")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    print("  (a) float32 models, card against host: one period of recurrentgemma-9b (rglru, "
+          "rglru, local), one layer of llama4-scout-17b-16e (attn:moe, 16 experts)")
+    check_model_card_vs_host(args.seed, "recurrentgemma-9b", 300, None, layers=3,
+                             compare=(0, 1, 2))
+    check_model_card_vs_host(args.seed, "llama4-scout-17b-16e", 256, None, layers=1,
+                             compare=(0,), routes=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    rglru_t = check_rglru(args.seed)
+    flash_new, decode_new = check_new_attention_shapes(args.seed)
+    flash_t.update(flash_new)
+    decode_t.update(decode_new)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"    (a) {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    print(f"  (b) EdgeServer, SneakPeek, {args.serve_requests} requests on recurrentgemma-9b "
+          f"(38 layers) and llama4-scout-17b-16e (full width, {SCOUT_LAYERS} layers), bf16, "
+          "then on each alone")
+    rec_launches = serve_new_families(args)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"    (b) {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    print("  (c) llama4-maverick-400b-128e, one period, alone")
+    check_maverick(args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"    (c) {time.perf_counter() - t0:.1f} s")
 
     rows = [
         ("knn_topk", "knn/csrc/knn.cu", "knn/kernel.py:92", launches, knn_t),
@@ -2244,13 +2797,15 @@ def main(argv=None) -> int:
          "max_abs_err": t["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
          "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
          "shape": t["shape"],
-         **{key: t[key] for key in ("stage_ms", "at_d256", "windowed", "placement")
+         **{key: t[key] for key in ("stage_ms", "at_d256", "windowed", "placement",
+                                    "recurrentgemma_local", "llama4")
             if key in t}}
         for name, source, replaces, counts, t in rows
     ]}
     for row in table["kernels"]:  # phase 10's run (a) 2 and phase 11 (b), counted from 0
         row["launches_pool"] = pool.get(row["name"], 0)
         row["launches_closed_loop"] = closed.get(row["name"], 0)
+        row["launches_new_families"] = rec_launches.get(row["name"], 0)  # phase 14 (b)
     # The scan replaces the compiled lax.scans of the reference's window
     # programs (no Pallas kernel); its launches are phase 12 (b)'s SneakPeek
     # run, its times those of LO-EDF's 4095-step scan in phase 12 (a).
@@ -2263,6 +2818,26 @@ def main(argv=None) -> int:
                                            "bound_by", "library_ms", "shape",
                                            "chain_bound_ms")},
         "programs": scan_t, "launches_by_policy": scan_by_policy})
+    # The chunked scan replaces the reference's speculative drivers (no
+    # Pallas kernel); its launches are phase 13 (b)'s SneakPeek run, its
+    # times those of LO-EDF's per-request scan at chunk 16 in phase 13 (a).
+    main_spec = spec_t[f"LO-EDF, slot1, chunk {PIPELINE_CHUNK}"]
+    table["kernels"].append({
+        "name": "spec_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/spec_scan/csrc/spec_scan.cu",
+        "replaces": "src/repro/core/pipeline.py:244", "launches": spec_by_policy["SneakPeek"],
+        **{key: main_spec[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                           "bound_by", "library_ms", "shape", "sequential_ms",
+                                           "rounds", "conflicts")},
+        "programs": spec_t, "launches_by_policy": spec_by_policy})
+    # The RG-LRU scan replaces the reference's associative scan (no Pallas
+    # kernel); its launches are phase 14 (b)'s run, its times those of
+    # recurrentgemma-9b's prefill shape.
+    table["kernels"].append({
+        "name": "rglru_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/rglru_scan/csrc/rglru_scan.cu",
+        "replaces": "src/repro/models/rglru.py:77", "launches": rec_launches.get("rglru_scan", 0),
+        **rglru_t["prefill"], "decode": rglru_t["decode"]})
     print(f"    total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps(table))

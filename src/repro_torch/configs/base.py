@@ -4,10 +4,8 @@ One dataclass covering every architecture family of the reference, so
 that ``param_count`` (and through it ``serving.backends.weight_bytes``,
 which sizes the ``SwapManager``) gives the reference's numbers.  Layer
 patterns are repeating periods of "mixer:ffn" strings: mixer in {attn,
-local, rglru, ssd}, ffn in {mlp, moe, none}.  The port's models run the
-``attn``, ``local`` and ``ssd`` mixers with the ``mlp`` and ``none``
-FFNs (``models/blocks.py``); the registry holds only the configs the
-port can run.
+local, rglru, ssd}, ffn in {mlp, moe, none}, every one of which the
+port's models run (``models/blocks.py``).
 """
 from __future__ import annotations
 

@@ -128,7 +128,10 @@ def lm_params_from_arrays(cfg, tree, device=None) -> TransformerParams:
 
     ``tree`` is ``repro``'s ``LM.init`` layout with numpy (or any
     array-like) leaves: ``{"embed", "blocks": [one stack per pattern
-    position, layers on axis 0], "tail", "final_norm", "lm_head"}``.  The
+    position, layers on axis 0], "tail", "final_norm", "lm_head"}``, each
+    block's subtrees under the reference's names (``attn``, ``ssd``,
+    ``rec`` for RG-LRU, ``mlp``, ``moe`` with its router, expert stacks
+    and ``shared`` MLP).  The
     leading layer axis is unstacked into one module per layer; leaves are
     cast to the config's dtype and placed on ``device`` (the card unless
     ``"cpu"`` is named)."""

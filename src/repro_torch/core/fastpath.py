@@ -24,8 +24,10 @@ from what they return:
              into ONE float64 program per application on the device,
              row-identical to the lazy per-window compute.
 
-Decisions equal the reference's decision for decision.  Not ported yet:
-``chunk_layout`` (speculative chunked selection, ROADMAP item 5).
+  * ``chunk_layout`` — the chunk-boundary encoding of the pipeline's
+             speculative chunked selection (``core.pipeline``).
+
+Decisions equal the reference's decision for decision.
 """
 from __future__ import annotations
 
@@ -44,6 +46,7 @@ from repro_torch.kernels.utility.ops import utility_scores
 __all__ = [
     "AppArrays",
     "WindowArrays",
+    "chunk_layout",
     "sequential_mean",
     "utility_matrix",
     "ordered_group_items",
@@ -56,6 +59,32 @@ __all__ = [
     "fast_multiworker_schedule",
     "precompute_windows",
 ]
+
+
+def chunk_layout(n: int, chunk: int) -> tuple[int, int]:
+    """Chunk-boundary encoding shared by the speculative selectors
+    (``core.pipeline._spec_select``) and their tests.
+
+    Returns ``(min_rounds, padded_len)`` for a window of ``n`` sequential
+    decisions speculated ``chunk`` at a time:
+
+      * ``min_rounds`` — speculate/validate rounds when nothing conflicts,
+        ``ceil(n / chunk)``; every conflict costs extra rounds (each round
+        still accepts >= 1 decision, so the round count is bounded by
+        ``n``).
+      * ``padded_len`` — the per-position tables are padded to ``n +
+        chunk`` rows so every chunk slice ``[p, p+chunk)`` stays in bounds
+        for any accepted prefix ``p < n``.  Padding rows are inert —
+        ``valid=False`` (their utilities mask to ``-inf``, so both the
+        speculation and the validation pick column 0 on them), ``swap=lat=0``,
+        ``gid=-2`` (never resident) — and the accepted count is clamped to
+        ``n - p``, so they never reach the carry.
+    """
+    chunk = int(chunk)
+    if chunk <= 0:
+        raise ValueError(f"chunk must be positive, got {chunk}")
+    n = int(n)
+    return -(-n // chunk), n + chunk
 
 
 def utility_matrix(acc, deadlines, completions, penalty: str) -> torch.Tensor:

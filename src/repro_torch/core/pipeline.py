@@ -34,6 +34,17 @@ resident), "lru" the LRU slot vectors updated by ``touch_lru_array``'s
 rule (``_touch_residency`` is its tensor form), the capacity-``None``
 single-slot model folded in by ``residency.single_slot_encoding``.
 
+``chunk`` > 0 swaps each sequential scan for speculative chunked
+selection (the reference's ``_spec_select`` and ``_spec_select_mw``):
+rounds that speculate ``chunk`` decisions against the carry frozen at
+the chunk boundary, reconstruct the carries those decisions imply,
+re-decide under them and accept through the first conflict.  A window's
+rounds are ONE launch of the ``spec_scan`` kernel
+(``repro_torch.kernels.spec_scan``), whose plain version is
+``_spec_select`` here; the decisions equal the sequential scan's bit for
+bit, and ``last_chunk_stats`` / ``Schedule.chunk_stats`` report the
+rounds and conflicts.
+
 The heads and the host halves (grouping, ordering, tables, emit) follow
 the reference line by line; the scan replaces its ``lax.scan``s.  All of
 it is float64 in the reference's association, so schedules equal the
@@ -41,8 +52,7 @@ numpy fast path's and the scalar reference's decision for decision and
 time for time.  ``set_pipeline_backend("numpy")`` routes every pipeline
 schedule through the port's fast path instead.
 
-Not ported: speculative chunked selection (``chunk`` > 0, ROADMAP item
-5) and sharding (``shard``, item 11); both raise under their labels.
+Not ported: sharding (``shard``, ROADMAP item 11) raises under its label.
 """
 from __future__ import annotations
 
@@ -55,6 +65,7 @@ import torch
 from repro_torch.core.fastpath import (
     PoolArrays,
     WindowArrays,
+    chunk_layout,
     fast_grouped_schedule,
     fast_multiworker_schedule,
     fast_per_request_schedule,
@@ -149,29 +160,199 @@ def _sequential_mean(tile, mask, size, axis):
     return s / size
 
 
+def _chunk_member_mean(tile, mask, size):
+    """``_sequential_mean`` with leading chunk axes: the masked member mean
+    over axis -2 of a (..., B, M) tile, member by member (masked members
+    add exact zeros), so each chunk row reduces bit for bit like the
+    sequential step's mean.  ``mask`` is (..., B), ``size`` (...,)."""
+    s = torch.zeros_like(tile[..., 0, :])
+    for j in range(tile.shape[-2]):
+        s = s + tile[..., j, :] * mask[..., j, None]
+    return s / size[..., None]
+
+
+def _spec_select(chunk: int, slot1: bool, t0, res0, sizes, cap: float, acc, mask, deadlines,
+                 bsize, lat, step_app, swap, gid, valid, pen, pref,
+                 fixed_sel=None) -> torch.Tensor:
+    """Speculative chunked selection, plain: the reference's
+    ``_spec_select`` (one worker) and ``_spec_select_mw`` (the pool) in
+    the (W, B, M) form of ``selection_scan`` (arguments as its wrapper's,
+    the seed as tensors).  Returns ``(4, S + 1)`` float64: columns ``:S``
+    the scan's rows (worker, model column, start, latency), column ``S``
+    ``[rounds, conflicts, 0, 0]``.
+
+    The per-step tables are gathered per position and padded to ``S +
+    chunk`` rows (``fastpath.chunk_layout``: inert rows — invalid models,
+    deadline and size 1, gid -2).  Each round over positions ``[p, p +
+    chunk)``:
+
+      1. SPECULATE — score all ``chunk`` positions against the carry
+         FROZEN at the boundary: one (K, W, B, M) Eq. 2 tile, member means
+         in member order, the first maximum over each position's
+         preference permutation.  ``fixed_sel`` (MaxAcc's carry-free
+         choices) skips the scoring.
+      2. RECONSTRUCT — the carries the speculated decisions imply, one
+         step after the other: ``(t + swap) + lat`` on the chosen worker,
+         and the slot1 id or the LRU touch (``_touch_residency``); each
+         position keeps its PRE-state.  The chain runs over the real
+         positions only: a padded row's state is never read (its
+         validation picks column 0 whatever the state) and touching its
+         id -2 could overflow a full slot vector.
+      3. VALIDATE — re-decide every position under its reconstructed
+         carry with a second tile.
+      4. ACCEPT — through the first conflict, inclusive (its carry was
+         still exact), clamped to the ``S - p`` real positions left; the
+         next boundary carry is the last accepted decision applied to its
+         pre-state.
+
+    Bit-identical to the sequential scan by induction: an accepted
+    position's carry is exact, and its validation decision uses the
+    sequential step's float associations, first maximum and residency
+    rule."""
+    dev = acc.device
+    n_total, _, m = acc.shape
+    neg_inf = torch.tensor(float("-inf"), dtype=torch.float64, device=dev)
+    out = torch.zeros((4, n_total + 1), dtype=torch.float64, device=dev)
+    if n_total == 0:
+        return out
+    _, n_pad = chunk_layout(n_total, chunk)
+
+    def padr(x, value=0):
+        pad = torch.full((n_pad - n_total,) + tuple(x.shape[1:]), value, dtype=x.dtype,
+                         device=dev)
+        return torch.cat([x, pad])
+
+    tabs = {
+        "acc": padr(acc), "mask": padr(mask), "dl": padr(deadlines, 1.0),
+        "bsize": padr(bsize, 1.0), "lat": padr(lat), "swap": padr(swap[step_app]),
+        "gid": padr(gid[step_app], -2), "valid": padr(valid[step_app], False),
+        "pen": padr(pen[step_app]), "pref": padr(pref[step_app]),
+    }
+    if fixed_sel is not None:
+        tabs["sel"] = padr(fixed_sel)
+    kk = torch.arange(chunk, device=dev)
+
+    def decide(sl, t_st, res_st):
+        # (K, W, M) residency, effective swaps and completions under the
+        # per-position carries, then the sequential step's pick per row.
+        if slot1:
+            is_res = res_st[:, :, :1] == sl["gid"][:, None, :]
+        else:
+            is_res = (res_st[:, :, None, :] == sl["gid"][:, None, :, None]).any(dim=-1)
+        swap_eff = torch.where(is_res, 0.0, sl["swap"])
+        comp = (t_st[:, :, None] + swap_eff) + sl["lat"]
+        if fixed_sel is not None:
+            return sl["sel"], comp
+        gam = _penalty(sl["pen"][:, None, None, None], sl["dl"][:, None, :, None],
+                       comp[:, :, None, :])
+        tile = sl["acc"][:, None] * (1.0 - torch.clamp(gam, 0.0, 1.0))  # (K, W, B, M)
+        u = _chunk_member_mean(tile, sl["mask"][:, None, :], sl["bsize"][:, None])
+        u_flat = torch.where(sl["valid"][:, None, :], u, neg_inf).reshape(chunk, -1)
+        idx = torch.argmax(u_flat.gather(1, sl["pref"]), dim=1)
+        return sl["pref"].gather(1, idx[:, None])[:, 0], comp
+
+    t = t0.clone()
+    res = res0.clone()
+    p = rounds = conflicts = 0
+    while p < n_total:
+        sl = {k: v[p:p + chunk] for k, v in tabs.items()}
+        real = min(chunk, n_total - p)
+
+        # 1. Speculate under the frozen boundary carry.
+        picks_s, _ = decide(sl, t.expand(chunk, -1), res.expand(chunk, -1, -1))
+        wi_s, mi_s = picks_s // m, picks_s % m
+        sw_s = sl["swap"][kk, wi_s, mi_s].tolist()
+        lt_s = sl["lat"][kk, wi_s, mi_s].tolist()
+        g_s = sl["gid"][kk, mi_s].tolist()
+        wi_l = wi_s.tolist()
+
+        # 2. Reconstruct each position's pre-state (a host chain of floats:
+        # float64 adds in the scan's association).
+        tc = t.tolist()
+        rc = res.clone()
+        t_rows, r_rows = [], []
+        for k in range(chunk):
+            t_rows.append(list(tc))
+            r_rows.append(rc.clone())
+            if k + 1 >= real:
+                continue
+            w = wi_l[k]
+            if slot1:
+                was = int(rc[w, 0]) == g_s[k]
+                rc[w, 0] = g_s[k]
+            else:
+                rc[w], was = _touch_residency(rc[w], g_s[k], sizes[w], cap)
+            tc[w] = (tc[w] + (0.0 if was else sw_s[k])) + lt_s[k]
+        t_st = torch.tensor(t_rows, dtype=torch.float64, device=dev)
+        res_st = torch.stack(r_rows)
+
+        # 3. Validate under the reconstructed carries.
+        picks_t, comp = decide(sl, t_st, res_st)
+        wi_t, mi_t = picks_t // m, picks_t % m
+        start = t_st[kk, wi_t]
+        done = comp[kk, wi_t, mi_t]
+
+        # 4. Accept through the first conflict, inclusive, clamped to the
+        # real positions (padded rows always match: column 0 twice).
+        mism = picks_t != picks_s
+        any_m = bool(mism.any())
+        first = int(torch.argmax(mism.to(torch.int8)))
+        a = min(first + 1 if any_m else chunk, n_total - p)
+        out[0, p:p + a] = wi_t[:a].to(torch.float64)
+        out[1, p:p + a] = mi_t[:a].to(torch.float64)
+        out[2, p:p + a] = start[:a]
+        out[3, p:p + a] = done[:a] - start[:a]
+
+        # The next boundary: the last accepted decision on its pre-state.
+        w = int(wi_t[a - 1])
+        g = int(sl["gid"][a - 1, int(mi_t[a - 1])])
+        t = t_st[a - 1].clone()
+        t[w] = done[a - 1]
+        res = res_st[a - 1].clone()
+        if slot1:
+            res[w, 0] = g
+        else:
+            res[w], _ = _touch_residency(res[w], g, sizes[w], cap)
+        p += a
+        rounds += 1
+        conflicts += int(any_m)
+    out[0, n_total] = rounds
+    out[1, n_total] = conflicts
+    return out
+
+
 # --------------------------------------------------------------------------
 # The three programs
 # --------------------------------------------------------------------------
 
 
 def _scan(res_mode, t0, res0, sizes, cap, acc, mask, deadlines, bsize, lat, step_app,
-          swap, gid, valid, pen, pref, fixed_sel=None) -> np.ndarray:
-    """One ``selection_scan`` launch (the plain version on the CPU) and ONE
-    read-back of its stacked (4, S) rows: worker, model, start, latency."""
-    from repro_torch.kernels.selection_scan.ops import selection_scan
+          swap, gid, valid, pen, pref, fixed_sel=None, chunk: int = 0):
+    """One ``selection_scan`` launch — or, with ``chunk`` > 0, one
+    ``spec_scan`` launch (the plain versions on the CPU) — and ONE
+    read-back: (the stacked (4, S) rows — worker, model, start, latency —,
+    ``[rounds, conflicts]`` of the chunked scan or None)."""
+    args = (t0, res0, sizes, cap, res_mode, acc, mask, deadlines, bsize, lat, step_app, swap,
+            gid, valid, pen, pref, fixed_sel)
+    if not chunk:
+        from repro_torch.kernels.selection_scan.ops import selection_scan
 
-    out = selection_scan(t0, res0, sizes, cap, res_mode, acc, mask, deadlines, bsize, lat,
-                         step_app, swap, gid, valid, pen, pref, fixed_sel)
-    return out.cpu().numpy()
+        return selection_scan(*args).cpu().numpy(), None
+    from repro_torch.kernels.spec_scan.ops import spec_scan
+
+    out = spec_scan(*args, chunk=chunk).cpu().numpy()
+    return out[:, :-1], out[:2, -1].astype(np.int64)
 
 
 def _per_request_program(wa: WindowArrays, ordering, selection, data_aware, res_mode, seed,
-                         app_id, tabs):
+                         app_id, tabs, chunk: int = 0):
     """Eq. 9/12 head -> ordering -> Eq. 2/13 scan, for one window.
 
     ``seed`` is ``_state_seed``'s carry; ``app_id`` (N,) host ints index
     the device ``tabs`` ("swap", "lat1", "gid", "valid", "pen", "pref") in
-    tie-preference column order.  Returns (order, stacked scan rows)."""
+    tie-preference column order; ``chunk`` > 0 speculates (MaxAcc's
+    carry-free choices are the chunked scan's ``fixed_sel``).  Returns
+    (order, stacked scan rows, chunk stats or None)."""
     dev = wa.device
     acc_mode = "sharpened" if data_aware else "profiled"
     n_total = len(wa.requests)
@@ -193,26 +374,28 @@ def _per_request_program(wa: WindowArrays, ordering, selection, data_aware, res_
         fixed = torch.argmax(torch.where(tabs["valid"][aid], acc[order_t], neg_inf), dim=1)
     ones = torch.ones((n_total, 1), dtype=SCHED_DTYPE, device=dev)
     t0, res0, sizes, cap = seed
-    out = _scan(
+    out, stats = _scan(
         res_mode, t0, res0, sizes, cap, acc[order_t][:, None, :], ones,
         wa.deadlines_t[order_t][:, None], ones[:, 0], tabs["lat1"][aid][:, None, :], aid,
         tabs["swap"][:, None, :], tabs["gid"], tabs["valid"], tabs["pen"], tabs["pref"], fixed,
+        chunk=chunk,
     )
-    return order, out
+    return order, out, stats
 
 
 def _grouped_program(res_mode, seed, acc, member_mask, deadlines, sizes, lat_tab, step_app,
-                     tabs) -> np.ndarray:
+                     tabs, chunk: int = 0):
     """The scan over ordered groups: one greedy Eq. 13 tile per step.  The
     (G, B_max, M) accuracies are in tie-preference column order and
     ``lat_tab`` (G, M) is the host's l(m, b) per group; ``step_app`` (G,)
     indexes each group's application in the per-app ``tabs`` of
     ``_window_tables`` ("swap", "gid", "valid", "pen", "pref"), as the
-    per-request program does.  Returns the stacked scan rows."""
+    per-request program does; ``chunk`` > 0 speculates.  Returns (the
+    stacked scan rows, chunk stats or None)."""
     t0, res0, gsizes, cap = seed
     return _scan(res_mode, t0, res0, gsizes, cap, acc, member_mask, deadlines, sizes,
                  lat_tab[:, None, :], step_app, tabs["swap"][:, None, :], tabs["gid"],
-                 tabs["valid"], tabs["pen"], tabs["pref"])
+                 tabs["valid"], tabs["pen"], tabs["pref"], chunk=chunk)
 
 
 def _member_rows(ordered_groups, member_idx, pad: int) -> np.ndarray:
@@ -280,13 +463,15 @@ class WindowPipeline:
         """``workers`` (a sequence of ``multiworker.Worker``) switches the
         pipeline to the compiled Eq. 15 placement program: grouping,
         data-awareness and label-splitting come from the policy,
-        placement from the (worker, model) utility tiles.  ``chunk``
-        takes None or 0 (the sequential scan); the reference's
-        speculative chunked selection raises (ROADMAP item 5).
+        placement from the (worker, model) utility tiles.
+
+        ``chunk`` > 0 turns on speculative chunked selection (speculate-K/
+        validate/fallback rounds instead of the sequential scan, one
+        ``spec_scan`` launch per window; bit-identical decisions,
+        ``last_chunk_stats`` reports the conflict rate); ``None`` defers
+        to the policy's ``chunk`` field, 0 forces the sequential scan.
         ``device`` is where ingest, the heads and the scan run (the card
         unless ``"cpu"`` is named)."""
-        if chunk:
-            not_ported("chunk")
         self.apps = apps
         self.sneakpeeks = sneakpeeks or {}
         self.policy = policy
@@ -294,11 +479,33 @@ class WindowPipeline:
             raise ValueError(f"unknown pipeline backend {backend!r}")
         self.backend = backend
         self.workers = list(workers) if workers else None
+        if chunk is not None and int(chunk) < 0:
+            raise ValueError(f"chunk must be >= 0, got {chunk}")
         self.chunk = chunk
         self.device = resolve_device(device)
-        # The reference's speculation statistics; chunked selection is not
-        # ported, so they stay None.
+        # Speculation stats of the LAST chunked schedule (None when the
+        # sequential scan or the numpy backend ran): chunk, decisions,
+        # rounds, conflicts, conflict_rate.
         self.last_chunk_stats: dict | None = None
+
+    def _chunk_of(self, policy) -> int:
+        c = self.chunk if self.chunk is not None else getattr(policy, "chunk", 0)
+        c = int(c or 0)
+        if c < 0:
+            raise ValueError(f"chunk must be >= 0, got {c}")
+        return c
+
+    def _record_chunk_stats(self, chunk: int, decisions: int, stats) -> None:
+        if stats is None:
+            return
+        rounds, conflicts = (int(x) for x in stats)
+        self.last_chunk_stats = {
+            "chunk": int(chunk),
+            "decisions": int(decisions),
+            "rounds": rounds,
+            "conflicts": conflicts,
+            "conflict_rate": conflicts / rounds if rounds else 0.0,
+        }
 
     def resolved_backend(self) -> str:
         """The route this pipeline takes: "jax" (the compiled programs on
@@ -620,11 +827,16 @@ class WindowPipeline:
         # break (u, -scaled latency, name, -wid)), threading per-worker
         # queue tails and residency; lat_tab (G, W, M) is the host's
         # scaled l(m, b) per group.
-        out = _scan(
+        # ``chunk`` > 0: the reference's _spec_select_mw, rounds over the
+        # pool carry with (K, W, B, M) tiles.
+        chunk = self._chunk_of(policy)
+        out, stats = _scan(
             res_mode, pool.t, res0, pool.sizes, float(pool.capacity), setup["acc"],
             setup["member_mask"], setup["deadlines"], setup["bsizes"], setup["lat_tab"],
             setup["app_id"], dt["sswap"], dt["gid"], dt["valid"], dt["pen"], dt["pref"],
+            chunk=chunk,
         )
+        self._record_chunk_stats(chunk, len(setup["ordered_groups"]), stats)
         return self._mw_emit(setup, workers, out[0].astype(np.int64),
                              out[1].astype(np.int64), out[2], out[3])
 
@@ -640,10 +852,12 @@ class WindowPipeline:
         for ai, name in enumerate(tab["app_names"]):
             app_id[wa.req_idx[name]] = ai
         seed, res_mode = self._state_seed(wa, state, now)
-        order, out = _per_request_program(
+        chunk = self._chunk_of(policy)
+        order, out, stats = _per_request_program(
             wa, policy.ordering, policy.selection, bool(policy.data_aware), res_mode, seed,
-            app_id, tab["dev"],
+            app_id, tab["dev"], chunk,
         )
+        self._record_chunk_stats(chunk, len(wa.requests), stats)
         local = tab["pref"][app_id[order], out[1].astype(np.int64)]
         # Host assembly off bulk tolist(): this loop runs once per request.
         order_l = order.tolist()
@@ -762,11 +976,13 @@ class WindowPipeline:
         setup = self._grouped_setup(policy, requests, now, state, arrays)
         if setup.get("sched") is not None:  # brute-force branch (<= tau)
             return setup["sched"]
-        out = _grouped_program(
+        chunk = self._chunk_of(policy)
+        out, stats = _grouped_program(
             setup["res_mode"], setup["seed"], setup["acc"], setup["member_mask"],
             setup["deadlines"], setup["sizes"], setup["lat_tab"],
-            setup["wa"]._tensor(setup["app_id"]), setup["tab"]["dev"],
+            setup["wa"]._tensor(setup["app_id"]), setup["tab"]["dev"], chunk,
         )
+        self._record_chunk_stats(chunk, len(setup["ordered_groups"]), stats)
         return self._grouped_emit(setup, out[1].astype(np.int64), out[2], out[3])
 
 
@@ -789,8 +1005,9 @@ def pipeline_schedule(
     """One pipelined window pass for ``SchedulerPolicy.schedule`` and
     ``schedule_window`` (``workers`` selects the Eq. 15 placement program;
     ``lat_scale``/``worker_mask`` the closed loop's drift corrections and
-    health masking, multi-worker only).  ``chunk`` > 0 and ``shard`` (or
-    the policy's fields) raise under their ROADMAP labels."""
+    health masking, multi-worker only; ``chunk`` overrides the policy's
+    speculative chunked selection size).  ``shard`` (or the policy's
+    field) raises under its ROADMAP label."""
     shard = shard if shard is not None else getattr(policy, "shard", False)
     if shard:
         not_ported("shard")

@@ -13,10 +13,10 @@ Fig. 7 incremental study requires.
 
 The port of ``repro.core.scheduler``, with the §VII multi-worker
 placement (``schedule_window(workers=...)``, Eq. 15) and the compiled
-window pipeline (``pipeline=True``, ``core.pipeline``).  Speculative
-chunking (``chunk`` > 0) and sharding (``shard``) are not ported yet:
-asking for them raises ``NotImplementedError`` naming the ROADMAP item
-that will bring them (``NOT_PORTED``).
+window pipeline (``pipeline=True``, ``core.pipeline``) with its
+speculative chunked selection (``chunk`` > 0).  Sharding (``shard``) is
+not ported yet: asking for it raises ``NotImplementedError`` naming the
+ROADMAP item that will bring it (``NOT_PORTED``).
 """
 from __future__ import annotations
 
@@ -59,16 +59,20 @@ class SchedulerPolicy:
     # selection of a window as one ``selection_scan`` launch
     # (``make_policy(name, pipeline=True)``).  Off by default.
     pipeline: bool = False
-    # Speculative chunked selection and device sharding: fields of the
-    # reference's policy that only take their off values here (0 and
-    # False); anything else raises under its ROADMAP label.
+    # Speculative chunked selection (pipeline only): > 0 replaces the
+    # sequential scan with speculate-K/validate/fallback rounds of K
+    # decisions (``make_policy(name, pipeline=True, chunk=16)``), one
+    # ``spec_scan`` launch per window; decisions stay bit-identical.  0
+    # keeps the sequential scan.
     chunk: int = 0
+    # Device sharding: a field of the reference's policy that only takes
+    # its off value here (False); anything else raises under its ROADMAP
+    # label.
     shard: bool | int = False
 
     def __post_init__(self):
-        for option in ("chunk", "shard"):
-            if getattr(self, option):
-                not_ported(option)
+        if self.shard:
+            not_ported("shard")
 
     def schedule(
         self,
@@ -180,11 +184,9 @@ _POLICIES: dict[str, SchedulerPolicy] = {
 POLICY_NAMES = list(_POLICIES)
 
 # Options of the reference that this port does not have yet, with the
-# ROADMAP item ("Open items" -> "Modules to port") that brings each:
-# a non-zero ``chunk`` (the pipeline's speculative chunked selection) and
-# a truthy ``shard``, wherever they are passed.
+# ROADMAP item ("Open items" -> "Modules to port") that brings each: a
+# truthy ``shard``, wherever it is passed.
 NOT_PORTED: dict[str, str] = {
-    "chunk": "item 5 (speculative chunked selection, chunk=K)",
     "shard": "item 11 (sharded scheduling)",
 }
 
@@ -201,7 +203,7 @@ def not_ported(option: str, table: Mapping[str, str] = NOT_PORTED):
 def make_policy(name: str, **overrides) -> SchedulerPolicy:
     """Look up one of the paper's five policies, optionally overridden
     (e.g. ``make_policy("LO-EDF", data_aware=True)`` for Fig. 7).  A
-    non-zero ``chunk`` or a ``shard`` raises (``NOT_PORTED``)."""
+    ``shard`` raises (``NOT_PORTED``)."""
     base = _POLICIES[name]
     if not overrides:
         return base

@@ -15,13 +15,13 @@ The port of ``repro.core.simulator``:
     (``memory_capacity_bytes=``), multi-window-batched (``prebatch=``:
     several windows' Eq. 9/12 matrices as one stacked program,
     ``fastpath.precompute_windows``) and through the compiled window
-    pipeline (``pipeline=True``, ``core.pipeline``).
+    pipeline (``pipeline=True``, ``core.pipeline``, with ``chunk=`` its
+    speculative chunked selection).
 
 Both take ``device=``: the k-NN search, the batched equations and the
 pipeline's selection scan run there (the card unless ``"cpu"`` is
-named).  Still raising ``NotImplementedError`` under their ROADMAP
-labels: a non-zero ``chunk`` (item 5's speculative chunked selection)
-and ``shard`` (item 11).
+named).  Still raising ``NotImplementedError`` under its ROADMAP label:
+``shard`` (item 11).
 """
 from __future__ import annotations
 
@@ -104,9 +104,12 @@ class Simulation:
       pipeline: feed every window through one persistent
         ``pipeline.WindowPipeline`` (with ``workers``, its compiled
         Eq. 15 placement).
-      chunk, shard: the reference's speculative chunked selection and
-        sharding; ``None``/0 and False are accepted, anything else raises
-        under its ROADMAP label (``scheduler.NOT_PORTED``).
+      chunk: speculative chunked selection size for the pipeline
+        (``pipeline.WindowPipeline``'s ``chunk``): ``None`` defers to the
+        policy's ``chunk`` field, 0 forces the sequential scan; without
+        ``pipeline`` it is not used, as in the reference.
+      shard: the reference's sharding; False is accepted, anything else
+        raises under its ROADMAP label (``scheduler.NOT_PORTED``).
       device: where the SneakPeek stage, the batched equations and the
         pipeline's scan run.
     """
@@ -130,9 +133,8 @@ class Simulation:
         *,
         device=None,
     ):
-        for option, value in (("chunk", chunk), ("shard", shard)):
-            if value:
-                not_ported(option)
+        if shard:
+            not_ported("shard")
         if prebatch_backend not in ("numpy", "jax"):
             raise ValueError(f"unknown precompute backend {prebatch_backend!r}")
         self.policy = policy
@@ -160,7 +162,8 @@ class Simulation:
             from repro_torch.core.pipeline import WindowPipeline
 
             self._pipeline = WindowPipeline(
-                self._eff_apps, policy=policy, workers=self.workers, device=self.device
+                self._eff_apps, policy=policy, workers=self.workers, chunk=chunk,
+                device=self.device,
             )
         self.log: list[dict] = []
 

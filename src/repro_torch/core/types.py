@@ -134,8 +134,8 @@ class Schedule:
 
     entries: list[ScheduleEntry] = dataclasses.field(default_factory=list)
     scheduling_overhead_s: float = 0.0
-    # The reference's speculative chunked-selection statistics; chunked
-    # selection is not ported (ROADMAP item 5), so it stays None.
+    # Speculative chunked-selection statistics of the pipeline (chunk,
+    # decisions, rounds, conflicts, conflict_rate), None otherwise.
     chunk_stats: dict | None = None
 
     def __iter__(self):

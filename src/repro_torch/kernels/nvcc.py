@@ -53,6 +53,8 @@ class Source:
 
 
 _PENALTY_H = _KERNELS_DIR / "utility" / "csrc" / "penalty.cuh"
+_LRU_H = _KERNELS_DIR / "selection_scan" / "csrc" / "lru.cuh"
+_STEP_H = _KERNELS_DIR / "selection_scan" / "csrc" / "step.cuh"
 
 SOURCES: dict[str, Source] = {
     "knn": Source("knn", _KERNELS_DIR / "knn" / "csrc" / "knn.cu"),
@@ -66,7 +68,13 @@ SOURCES: dict[str, Source] = {
     # bit-identity rule: no FMA contraction either.
     "selection_scan": Source(
         "selection_scan", _KERNELS_DIR / "selection_scan" / "csrc" / "selection_scan.cu",
-        ("--fmad=false",), (_PENALTY_H,),
+        ("--fmad=false",), (_PENALTY_H, _LRU_H, _STEP_H),
+    ),
+    # The chunked scan: the same arithmetic and rule, through the sequential
+    # scan's step.
+    "spec_scan": Source(
+        "spec_scan", _KERNELS_DIR / "spec_scan" / "csrc" / "spec_scan.cu", ("--fmad=false",),
+        (_PENALTY_H, _LRU_H, _STEP_H),
     ),
     "flash_attention": Source(
         "flash_attention", _KERNELS_DIR / "flash_attention" / "csrc" / "flash_attention.cu"
@@ -75,6 +83,7 @@ SOURCES: dict[str, Source] = {
         "decode_attention", _KERNELS_DIR / "decode_attention" / "csrc" / "decode_attention.cu"
     ),
     "ssd": Source("ssd", _KERNELS_DIR / "ssd" / "csrc" / "ssd.cu"),
+    "rglru_scan": Source("rglru_scan", _KERNELS_DIR / "rglru_scan" / "csrc" / "rglru_scan.cu"),
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -29,40 +29,31 @@
 // multiply and divide); completions keep the (t + swap) + lat association
 // and the latency tables are the host's scaled l(m, b), so the card only
 // adds; a member mean is one thread's chain of adds in member order, then
-// one divide.  Members past n contribute exact zero adds in the reference
-// and are skipped.  Residency follows `touch_lru_array`
-// (src/repro_torch/core/residency.py:64): a resident touch moves the id to
-// the MRU tail; a load appends it and evicts oldest-first while the byte
-// total, less the evictable bytes before each entry, exceeds the capacity.
-// That sum is exact because sizes are integer byte counts below 2^53,
-// which the wrapper checks.
+// one divide.  Residency follows `touch_lru_array`
+// (src/repro_torch/core/residency.py:64), in lru.cuh.  The step itself
+// (scoring and carry update) is step.cuh's, shared with the chunked scan
+// (../../spec_scan/csrc/spec_scan.cu), so both take a decision with the
+// same instructions.
 //
 // What bounds it: neither bytes nor operations.  A window's tables are at
 // most a few MB and its tiles a few hundred thousand Eq. 2 values; what
 // cannot be shortened is the chain of S dependent steps, each of which
 // needs the carry the one before it wrote.  The design keeps the whole
 // chain in ONE block of one launch per window, so no step pays a launch or
-// a host round trip, and keeps the carry (queue tails, LRU slots) in shared
-// memory.  Within a step, four phases separated by __syncthreads:
-//   A. one thread per (worker, model) cell: swap_eff, the completion, and
-//      the residency flag that D's LRU touch reuses;
-//   B. every thread over the step's W x n x M cells: the Eq. 2 values, into
-//      a scratch tile in device memory (a group of 1,300 members on four
-//      workers does not fit shared memory);
-//   C. one thread per (worker, model) column: the ordered member sum and
-//      the mean, or -inf for an invalid (padded) model;
-//   D. thread 0: the first maximum over the permutation, the outputs, the
-//      carry.
-// The card runs one step's phases on one SM while the others idle: the
-// scan is a latency chain, and its time is S times a step's latency.
-// The launch uses the caller's stream, synchronises nothing and allocates
-// nothing; the wrapper (ops.py) allocates the outputs and the scratch tile.
+// a host round trip, and keeps the carry (queue tails, LRU slots) and the
+// step's (W, M) rows in shared memory.  A step is step.cuh's four phases
+// (completions, the Eq. 2 tile in a scratch buffer in device memory, the
+// member means, the pick) over one position against the carry, then
+// thread 0 moves the carry.  The card runs one step's phases on one SM
+// while the others idle: the scan is a latency chain, and its time is S
+// times a step's latency.  The launch uses the caller's stream,
+// synchronises nothing and allocates nothing; the wrapper (ops.py)
+// allocates the outputs and the scratch tile.
 
 #include <cuda_runtime.h>
-#include <math.h>
 #include <stdint.h>
 
-#include "../../utility/csrc/penalty.cuh"
+#include "step.cuh"
 
 namespace {
 
@@ -76,70 +67,17 @@ size_t scan_smem_bytes(int W, int K, int M) {
          (size_t)W * M;
 }
 
-struct ScanArgs {
-  const double* t0;          // (W,) queue-tail times
-  const int64_t* res0;       // (W, K) resident ids, LRU oldest first, -1 empty
-  const double* sizes;       // (W, G) effective bytes per id (lru only)
-  const double* acc;         // (S, B, M) accuracies
-  const double* mask;        // (S, B) 1 for the first bsize[s] members, else 0
-  const double* deadlines;   // (S, B)
-  const double* bsize;       // (S,) members per step
-  const double* lat;         // (S, W, M) latency of the step's batch
-  const int64_t* step_app;   // (S,) application (table row) of each step
-  const double* swap;        // (A, W, M) swap latencies
-  const int64_t* gid;        // (A, M) residency ids, -2 for padding
-  const unsigned char* valid;  // (A, M) real models
-  const int64_t* pen;        // (A,) penalty codes
-  const int64_t* pref;       // (A, W * M) preference permutations
-  const int64_t* fixed;      // (S,) fixed choices, or null
-  double* tile;              // (W, B, M) scratch
-  double* out;               // (4, S): worker, model, start, latency
-  double cap;
-  int S, B, M, W, K, G, slot1;
-};
-
-// One load of id g on a worker's LRU slots r[0..K): touch_lru_array's rule,
-// in place.  `was` says whether g is resident (phase A found it).  The
-// slots are compacted oldest first with g appended at the MRU tail; the
-// write index never passes the read index, so no copy is needed.  K >= the
-// window's model ids (the wrapper checks), so a loaded id finds a slot.
-__device__ void touch_lru(int64_t* r, int K, int64_t g, bool was, const double* sizes,
-                          double cap) {
-  int kept = 0;
-  if (was) {  // a resident touch is a pure MRU reorder: no size is read
-    for (int k = 0; k < K; ++k) {
-      const int64_t id = r[k];
-      if (id >= 0 && id != g) r[kept++] = id;
-    }
-  } else {
-    // A load evicts oldest-first while the total less the evictable bytes
-    // before the entry exceeds the capacity.
-    double total = sizes[g];
-    for (int k = 0; k < K; ++k) {
-      if (r[k] >= 0) total += sizes[r[k]];
-    }
-    double freed_before = 0.0;
-    for (int k = 0; k < K; ++k) {
-      const int64_t id = r[k];
-      if (id < 0) continue;
-      const bool evict = total - freed_before > cap;
-      freed_before += sizes[id];
-      if (!evict) r[kept++] = id;
-    }
-  }
-  r[kept++] = g;
-  for (int k = kept; k < K; ++k) r[k] = -1;
-}
-
 __global__ void __launch_bounds__(kThreads) selection_scan_kernel(ScanArgs p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int W = p.W, M = p.M, K = p.K, B = p.B;
+  const int W = p.W, M = p.M, K = p.K;
   const int wm = W * M;
   int64_t* res = reinterpret_cast<int64_t*>(smem_raw);  // (W, K)
   double* t = reinterpret_cast<double*>(res + W * K);   // (W,)
-  double* comp = t + W;                                 // (W, M)
-  double* umean = comp + wm;                            // (W, M)
-  unsigned char* res_flag = reinterpret_cast<unsigned char*>(umean + wm);  // (W, M)
+  StepRows rows;
+  rows.comp = t + W;                                    // (W, M)
+  rows.umean = rows.comp + wm;                          // (W, M)
+  rows.flag = reinterpret_cast<unsigned char*>(rows.umean + wm);  // (W, M)
+  __shared__ int pick;
   const int tid = threadIdx.x;
 
   for (int i = tid; i < W * K; i += blockDim.x) res[i] = p.res0[i];
@@ -147,89 +85,12 @@ __global__ void __launch_bounds__(kThreads) selection_scan_kernel(ScanArgs p) {
   __syncthreads();
 
   for (int s = 0; s < p.S; ++s) {
-    const int a = static_cast<int>(p.step_app[s]);
-    const int64_t* gid = p.gid + (size_t)a * M;
-
-    // A. Completions if the step ran next on each (worker, model).
-    for (int c = tid; c < wm; c += blockDim.x) {
-      const int w = c / M;
-      const int m = c - w * M;
-      const int64_t g = gid[m];
-      bool resident = false;
-      if (p.slot1) {
-        resident = res[w * K] == g;
-      } else {
-        for (int k = 0; k < K; ++k) resident |= res[w * K + k] == g;
-      }
-      res_flag[c] = resident;
-      const double sw = resident ? 0.0 : p.swap[((size_t)a * W + w) * M + m];
-      comp[c] = (t[w] + sw) + p.lat[((size_t)s * W + w) * M + m];
-    }
-    __syncthreads();
-
-    if (p.fixed == nullptr) {
-      // B. The step's Eq. 2 tile over its real members.
-      const int n = static_cast<int>(p.bsize[s]);
-      const int pen = static_cast<int>(p.pen[a]);
-      const int nm = n * M;
-      const double* acc = p.acc + (size_t)s * B * M;
-      const double* dl = p.deadlines + (size_t)s * B;
-      for (int c = tid; c < W * nm; c += blockDim.x) {
-        const int w = c / nm;
-        const int r = c - w * nm;
-        const int b = r / M;
-        const int m = r - b * M;
-        p.tile[((size_t)w * B + b) * M + m] =
-            eq2_utility<double>(pen, acc[(size_t)b * M + m], dl[b], comp[w * M + m]);
-      }
-      __syncthreads();
-
-      // C. Member means, each column one chain of adds in member order.
-      const double* mk = p.mask + (size_t)s * B;
-      const double size = p.bsize[s];
-      for (int c = tid; c < wm; c += blockDim.x) {
-        const int w = c / M;
-        const int m = c - w * M;
-        const double* col = p.tile + (size_t)w * B * M + m;
-        double sum = 0.0;
-        for (int b = 0; b < n; ++b) sum = sum + col[(size_t)b * M] * mk[b];
-        umean[c] = p.valid[(size_t)a * M + m] ? sum / size : -INFINITY;
-      }
-      __syncthreads();
-    }
-
-    // D. The pick and the carry.
+    score_steps<true>(p, rows, s, 0, 1, t, 0, res, 0, &pick);
+    // The pick was written by thread 0, which moves the carry.
     if (tid == 0) {
-      int pick;
-      if (p.fixed != nullptr) {
-        pick = static_cast<int>(p.fixed[s]);
-      } else {
-        const int64_t* pr = p.pref + (size_t)a * wm;
-        pick = static_cast<int>(pr[0]);
-        double best = umean[pick];
-        for (int i = 1; i < wm; ++i) {
-          const int c = static_cast<int>(pr[i]);
-          if (umean[c] > best) {
-            best = umean[c];
-            pick = c;
-          }
-        }
-      }
-      const int wi = pick / M;
-      const int mi = pick - wi * M;
-      const double start = t[wi];
-      const double done = comp[pick];
-      p.out[s] = wi;
-      p.out[p.S + s] = mi;
-      p.out[2 * (size_t)p.S + s] = start;
-      p.out[3 * (size_t)p.S + s] = done - start;
-      t[wi] = done;
-      if (p.slot1) {
-        res[wi * K] = gid[mi];
-      } else {
-        touch_lru(res + wi * K, K, gid[mi], res_flag[pick] != 0, p.sizes + (size_t)wi * p.G,
-                  p.cap);
-      }
+      const int64_t g = pick_id(p, s, pick);
+      emit(p, s, pick, t[pick / M], rows.comp[pick]);
+      advance(p, pick / M, g, rows.flag[pick] != 0, rows.comp[pick], t, res);
     }
     __syncthreads();
   }
@@ -248,7 +109,8 @@ int selection_scan_f64(const void* t0, const void* res0, const void* sizes, doub
                        const void* swap, const void* gid, const void* valid, const void* pen,
                        const void* pref, const void* fixed, void* tile, void* out, int S, int B,
                        int M, int W, int K, int G, int slot1, void* stream) {
-  if (S < 1 || B < 1 || M < 1 || W < 1 || K < 1 || (slot1 && K != 1) || (!slot1 && G < 1)) {
+  if (S < 1 || B < 1 || M < 1 || W < 1 || K < 1 || (slot1 && K != 1) || (!slot1 && G < 1) ||
+      (size_t)W * B * M >> 32) {
     return (int)cudaErrorInvalidValue;
   }
   // The carry and the step's (W, M) rows live in shared memory, sized from
@@ -294,6 +156,7 @@ int selection_scan_f64(const void* t0, const void* res0, const void* sizes, doub
   a.K = K;
   a.G = G;
   a.slot1 = slot1;
+  a.ld = S;
   selection_scan_kernel<<<1, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
 }

@@ -30,10 +30,19 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 
-def smem_bytes(n_w: int, n_slots: int, m: int) -> int:
-    """Shared bytes of one launch (csrc: scan_smem_bytes): the (W, K) LRU
-    slots, the (W,) queue tails, the step's (W, M) completions and means
-    (8 bytes each) and its (W, M) residency flags (one byte each)."""
+def smem_bytes(n_w: int, n_slots: int, m: int, chunk: int = 0) -> int:
+    """Shared bytes of one launch of the sequential scan (``chunk`` 0;
+    csrc: scan_smem_bytes) — the (W, K) LRU slots, the (W,) queue tails,
+    the step's (W, M) completions and means (8 bytes each) and its (W, M)
+    residency flags (one byte each) — or of the chunked scan
+    (``kernels.spec_scan``; csrc: spec_smem_bytes): the (W, K) slots, and
+    per position of a round, C = ``chunk`` of them, its (W,) pre-state
+    tails, (W, M) completions, means and flags and its two picks (4 bytes
+    each).  The chunked scan keeps each position's pre-state slots in
+    device memory, so its ids K do not multiply by the chunk."""
+    if chunk:
+        cells = chunk * n_w * m
+        return 8 * (n_w * n_slots + chunk * n_w + 2 * cells + chunk) + cells
     return 8 * (n_w * n_slots + n_w + 2 * n_w * m) + n_w * m
 
 
@@ -66,7 +75,7 @@ def _seed(t0, res0, sizes, cap, res_mode):
 
 
 def _check_args(acc, mask, deadlines, bsize, lat, step_app, swap, gid, valid, pen, pref,
-                fixed_sel, n_w, n_slots):
+                fixed_sel, n_w, n_slots, chunk: int = 0):
     s, b, m = acc.shape
     a = gid.shape[0]
     shapes = {
@@ -85,11 +94,13 @@ def _check_args(acc, mask, deadlines, bsize, lat, step_app, swap, gid, valid, pe
             raise ValueError(f"{name} must be {shape} {dtype}, got {tuple(x.shape)} {x.dtype}")
         if x.device != acc.device:
             raise ValueError(f"{name} is on {x.device}, acc on {acc.device}")
-    if smem_bytes(n_w, n_slots, m) > MAX_SMEM_BYTES:
+    need = smem_bytes(n_w, n_slots, m, chunk)
+    if need > MAX_SMEM_BYTES:
+        per = f", C={chunk} speculated positions" if chunk else ""
         raise ValueError(
-            f"the scan's carry needs {smem_bytes(n_w, n_slots, m)} bytes of shared memory for "
-            f"W={n_w} workers, K={n_slots} model ids and M={m} models, over the "
-            f"{MAX_SMEM_BYTES} one block has (ROADMAP §3, P7)")
+            f"the scan's carry needs {need} bytes of shared memory for W={n_w} workers, "
+            f"K={n_slots} model ids and M={m} models{per}, over the {MAX_SMEM_BYTES} one "
+            f"block has (ROADMAP §3, P7)")
 
 
 def selection_scan(t0, res0, sizes, cap: float, res_mode: str, acc, mask, deadlines, bsize,

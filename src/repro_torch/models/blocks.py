@@ -1,8 +1,9 @@
-"""Per-layer blocks of the ``attn``, ``local`` and ``ssd`` mixers, and their caches.
+"""Per-layer blocks of every mixer and FFN kind, and their caches.
 
 The counterpart of ``repro.models.blocks``: a block is a pre-norm mixer
-(causal attention, sliding-window attention, or the Mamba-2 SSD mixer)
-plus residual, then, unless the FFN kind is ``none``, a pre-norm FFN
+(causal attention, sliding-window attention, the Griffin RG-LRU
+recurrent block or the Mamba-2 SSD mixer) plus residual, then, unless
+the FFN kind is ``none``, a pre-norm FFN (a dense MLP or the routed MoE)
 plus residual, with optional gemma3-style post-norms.  Three entry
 points per block:
 
@@ -14,42 +15,33 @@ Cache layouts (per layer), as the reference's:
   attn:   {"k", "v"}: (B, max_len, Hkv, Dh)       — absolute slots
   local:  {"k", "v"}: (B, min(window, max_len), Hkv, Dh) — ring buffer,
           slot = pos % length
+  rglru:  {"conv": (B, W-1, lru), "h": (B, lru) float32}
   ssd:    {"conv": (B, W-1, d_xbc), "state": (B, H, P, N) float32}
 With ``kv_quant`` an attention cache holds int8 codes and float32
 (B, L, Hkv, 1) scales: {"k", "k_scale", "v", "v_scale"}.
 
-The ``rglru`` mixer and the ``moe`` FFN of the reference raise
-``NotImplementedError`` naming the ROADMAP item that brings them
-("Modules to port").  The MoE auxiliary loss of the reference's block
-functions belongs to ``moe``, so the port's blocks return no aux term.
+SSD with more than one group raises ``NotImplementedError`` naming the
+ROADMAP item that brings it.  The MoE's Switch auxiliary term is
+computed by ``moe.moe_forward`` and dropped here: the port's blocks serve
+and score, and return no aux term.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.scheduler import not_ported
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssd as ssd_mod
 from repro_torch.models.layers import mlp, mlp_spec, rmsnorm, rmsnorm_spec
 
-__all__ = ["block_spec", "cache_spec", "block_full", "block_prefill", "block_decode",
-           "NOT_PORTED"]
-
-# Layer kinds of the reference this port does not run yet, with the
-# ROADMAP item ("Open items" -> "Modules to port") that brings each.
-NOT_PORTED: dict[str, str] = {
-    "rglru": "item 9 (recurrent and sparse mixers)",
-    "moe": "item 9 (recurrent and sparse mixers)",
-}
+__all__ = ["block_spec", "cache_spec", "block_full", "block_prefill", "block_decode"]
 
 
 def _check_kind(cfg, kind: str) -> tuple[str, str]:
-    """(mixer, ffn) of a layer kind the port runs; raises for the others."""
+    """(mixer, ffn) of a layer kind (``ModelConfig`` validated it); raises
+    for SSD with ngroups > 1."""
     mixer, _, ffn = kind.partition(":")
-    if mixer not in ("attn", "local", "ssd"):
-        not_ported(mixer, NOT_PORTED)
-    if ffn not in ("mlp", "none"):
-        not_ported(ffn, NOT_PORTED)
     if mixer == "ssd":
         ssd_mod.check_groups(cfg.ssd_ngroups)
     return mixer, ffn
@@ -67,13 +59,20 @@ def block_spec(cfg, kind: str) -> dict:
     if mixer in ("attn", "local"):
         spec["attn"] = attn_mod.attn_spec(d, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
                                           cfg.qk_norm)
+    elif mixer == "rglru":
+        spec["rec"] = rglru_mod.rglru_spec(cfg)
     else:
         spec["ssd"] = ssd_mod.ssd_spec(cfg)
     if cfg.post_norms:
         spec["post_norm"] = rmsnorm_spec(d)
-    if ffn == "mlp":
+    if ffn != "none":
         spec["mlp_norm"] = rmsnorm_spec(d)
-        spec["mlp"] = mlp_spec(d, cfg.dense_d_ff, cfg.activation in ("swiglu", "geglu"))
+        gated = cfg.activation in ("swiglu", "geglu")
+        if ffn == "mlp":  # the dense layers of an MoE model take dense_d_ff
+            spec["mlp"] = mlp_spec(d, cfg.dense_d_ff, gated)
+        else:
+            spec["moe"] = moe_mod.moe_spec(d, cfg.num_experts, cfg.moe_d_ff, gated,
+                                           cfg.shared_expert)
         if cfg.post_norms:
             spec["mlp_post_norm"] = rmsnorm_spec(d)
     return spec
@@ -86,6 +85,9 @@ def cache_spec(cfg, kind: str, batch: int, max_len: int) -> dict:
     if mixer == "ssd":
         conv, state = ssd_mod.ssd_init_cache_shapes(cfg, batch)
         return {"conv": (conv, kv_dtype), "state": (state, torch.float32)}
+    if mixer == "rglru":
+        conv, h = rglru_mod.rglru_init_cache_shapes(cfg, batch)
+        return {"conv": (conv, kv_dtype), "h": (h, torch.float32)}
     length = max_len if mixer == "attn" else min(cfg.window_size, max_len)
     shp = (batch, length, cfg.num_kv_heads, cfg.head_dim)
     if cfg.kv_quant:
@@ -107,7 +109,10 @@ def _apply_ffn(params, x, cfg, ffn: str):
     if ffn == "none":
         return x
     h = rmsnorm(params.mlp_norm, x)
-    y = mlp(params.mlp, h, cfg.activation)
+    if ffn == "mlp":
+        y = mlp(params.mlp, h, cfg.activation)
+    else:
+        y, _ = moe_mod.moe_forward(params.moe, h, cfg)
     if cfg.post_norms:
         y = rmsnorm(params.mlp_post_norm, y)
     return x + y
@@ -123,6 +128,8 @@ def block_full(params, x, cfg, kind: str):
     h = rmsnorm(params.pre_norm, x)
     if mixer == "ssd":
         y, _ = ssd_mod.ssd_forward(params.ssd, h, cfg)
+    elif mixer == "rglru":
+        y, _ = rglru_mod.rglru_forward(params.rec, h, cfg)
     else:
         y, _ = attn_mod.attn_forward(params.attn, h, cfg, window=_window(cfg, mixer),
                                      theta=_theta(cfg, mixer))
@@ -164,13 +171,16 @@ def _prefill_cache(cfg, mixer: str, k, v, max_len: int) -> dict:
 
 def block_prefill(params, x, cfg, kind: str, max_len: int):
     """Full-sequence pass that also builds the decode cache: for attention
-    the prompt's K/V (``_prefill_cache``), for SSD the conv window and the
-    final state.  Returns (x, cache)."""
+    the prompt's K/V (``_prefill_cache``), for SSD and RG-LRU the conv
+    window and the final state.  Returns (x, cache)."""
     mixer, ffn = _check_kind(cfg, kind)
     h = rmsnorm(params.pre_norm, x)
     if mixer == "ssd":
         y, (conv, state) = ssd_mod.ssd_forward(params.ssd, h, cfg)
         cache = {"conv": conv, "state": state}
+    elif mixer == "rglru":
+        y, (conv, h_last) = rglru_mod.rglru_forward(params.rec, h, cfg)
+        cache = {"conv": conv, "h": h_last}
     else:
         y, (k, v) = attn_mod.attn_forward(params.attn, h, cfg, window=_window(cfg, mixer),
                                           theta=_theta(cfg, mixer))
@@ -193,6 +203,10 @@ def block_decode(params, x, cache, pos, cfg, kind: str, lengths=None, slot=None)
         y, (conv, state) = ssd_mod.ssd_decode_step(params.ssd, h,
                                                    (cache["conv"], cache["state"]), cfg)
         cache = {"conv": conv, "state": state}
+    elif mixer == "rglru":
+        y, (conv, h_state) = rglru_mod.rglru_decode_step(params.rec, h,
+                                                         (cache["conv"], cache["h"]), cfg)
+        cache = {"conv": conv, "h": h_state}
     else:
         names = _kv_names(cfg)
         y, _ = attn_mod.attn_decode(params.attn, h, tuple(cache[n] for n in names), pos, cfg,

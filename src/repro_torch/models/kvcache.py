@@ -10,11 +10,13 @@ graph.  An attention layer's dict is ``{"k", "v"}`` of (B, max_len,
 Hkv, Dh) tensors (a sliding-window layer's: a ring buffer of
 min(window, max_len) slots; with ``kv_quant``, int8 codes with
 ``"k_scale"`` and ``"v_scale"``), an SSD layer's
-``{"conv": (B, W-1, d_xbc), "state": (B, H, P, N) float32}``
+``{"conv": (B, W-1, d_xbc), "state": (B, H, P, N) float32}``, an RG-LRU
+layer's ``{"conv": (B, W-1, lru), "h": (B, lru) float32}``
 (``blocks.cache_spec``).  Decode writes each new token's K/V, and each
-SSD layer's conv window and state, into these tensors IN PLACE
-(``models.attention.attn_decode``, ``models.ssd.ssd_decode_step``),
-where the reference builds new arrays.
+SSD or RG-LRU layer's conv window and state, into these tensors IN PLACE
+(``models.attention.attn_decode``, ``models.ssd.ssd_decode_step``,
+``models.rglru.rglru_decode_step``), where the reference builds new
+arrays.
 """
 from __future__ import annotations
 

@@ -63,7 +63,9 @@ def _init_leaf(p: P, path: str, base_seed: int, dtype, device) -> torch.Tensor:
     gen = torch.Generator(device=device).manual_seed(_path_seed(path, base_seed))
     x = torch.empty(p.shape, dtype=torch.float32, device=device)
     torch.nn.init.trunc_normal_(x, mean=0.0, std=1.0, a=-2.0, b=2.0, generator=gen)
-    return (x * std).to(dtype)
+    # Scaled in place: one float32 draw of the leaf at a time (an expert
+    # stack of llama4-maverick is 21 GB in float32).
+    return x.mul_(std).to(dtype)
 
 
 def _walk(tree, fn: Callable[[P, str], Any], path: str = ""):

@@ -11,7 +11,8 @@ The counterpart of ``repro.serving.backends``.  Everything the runtime
     spawn()                                -> the backend of a new lane
 
 ``ProfiledBackend`` runs the port's ``LM`` (attention prefill through K3
-and greedy decode through K4, SSD prefill through K5) on the card,
+and greedy decode through K4, SSD prefill through K5, the RG-LRU
+recurrence through ``rglru_scan``) on the card,
 stopwatch-timed with its own stream synchronised before every clock
 read, so ``prefill_s`` and ``decode_s`` are the card's time for this
 backend's work and not the host's enqueue time, nor another lane's
@@ -25,9 +26,10 @@ multiple of 256 as the reference's ``_bucket_seq`` rounds, so ragged
 batches share a graph.  The graphs of one (variant, capacity) run one at
 a time, so they share one cache, made at the largest batch size the
 variant has decoded: each batch size's graph decodes on the leading rows
-of it.  A model without attention gives each batch size a cache of its
-own.  Sizes are weight bytes at the declared dtype; swap cost is bytes
-over a 25 GB/s staging rate, the reference's constants.
+of it, recurrent states (an RG-LRU layer's ``conv`` and ``h``) included.
+A model without attention gives each batch size a cache of its own.
+Sizes are weight bytes at the declared dtype; swap cost is bytes over a
+25 GB/s staging rate, the reference's constants.
 
 ``CompiledBackend`` buckets shapes (batch to a power of two, sequence to
 a multiple), fuses a window's same-model batches (``run_batches``) and
@@ -40,6 +42,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 import threading
 import time
 from typing import Mapping, Optional, Sequence
@@ -94,6 +97,21 @@ class ExecutionReport:
     def total_s(self) -> float:
         """Swap + prefill + decode seconds for the batch."""
         return self.swap_s + self.prefill_s + self.decode_s
+
+
+def moe_group_len(cfg, b: int, s: int) -> int:
+    """The least length >= ``s`` at which a (``b``, length) batch of a
+    model with routed MoE layers splits into whole token groups of
+    ``cfg.moe_group``; ``s`` for any other model, or a batch of one group
+    at most.  The routed layers group a batch's B·S tokens and refuse a
+    remainder, as the reference's do; the backends right-pad such a
+    batch with more zero tokens, which take capacity in token order as a
+    padded prompt row's zeros do (ROADMAP §3, P8)."""
+    group = cfg.moe_group
+    if not any(p.partition(":")[2] == "moe" for p in cfg.pattern) or b * s <= group:
+        return s
+    step = group // math.gcd(b, group)
+    return -(-s // step) * step
 
 
 def weight_bytes(cfg) -> int:
@@ -501,6 +519,10 @@ class ProfiledBackend(ExecutorBackend):
         predictions or None)."""
         model, params = self._get(model_name)
         b, s = prompts.shape
+        sp = moe_group_len(model.cfg, b, s)
+        if sp > s:
+            prompts = np.pad(np.asarray(prompts), ((0, 0), (0, sp - s)))
+            s = sp
         capacity = bucket_capacity(s + self.new_tokens)
         with torch.inference_mode(), self._on_lane():
             t0 = self._clock()

@@ -19,10 +19,11 @@ withdrawn and retried, stragglers quarantined, profiled latencies
 corrected from realized ones); ``overlap=True`` schedules window k+1
 while window k runs on the lanes.  ``pipeline=True`` feeds every window
 through one persistent ``core.pipeline.WindowPipeline`` (one
-``selection_scan`` launch per scheduling pass), on every loop mode.  The
-reference's speculative chunks (a non-zero ``chunk``) and sharding
-(``shard``) are not ported yet: they raise ``NotImplementedError``
-naming the ROADMAP item that brings each (``NOT_PORTED``).
+``selection_scan`` launch per scheduling pass, or one ``spec_scan``
+launch with ``chunk`` > 0), on every loop mode.  The reference's
+sharding (``shard``) is not ported yet: it raises
+``NotImplementedError`` naming the ROADMAP item that brings it
+(``NOT_PORTED``).
 """
 from __future__ import annotations
 
@@ -53,7 +54,6 @@ __all__ = ["EdgeServer", "ServeStats", "NOT_PORTED"]
 # Serving options of the reference this port does not have yet, with the
 # ROADMAP item ("Open items" -> "Modules to port") that brings each.
 NOT_PORTED: dict[str, str] = {
-    "chunk": SCHEDULER_NOT_PORTED["chunk"],
     "shard": SCHEDULER_NOT_PORTED["shard"],
 }
 
@@ -197,13 +197,14 @@ class EdgeServer:
         ``pipeline=True`` keeps one ``core.pipeline.WindowPipeline`` for
         the server's life: its ingest is the SneakPeek stage and its
         compiled programs schedule every window (decision-identical to
-        the fast path).
+        the fast path).  ``chunk`` sizes the pipeline's speculative
+        chunked selection (bit-identical decisions; ``None`` defers to the
+        policy's ``chunk`` field, 0 = the sequential scan).
 
         Every option defaults off, leaving the plain loop's decisions
-        unchanged.  A non-zero ``chunk`` and ``shard`` raise."""
-        for option, unported in (("chunk", bool(chunk)), ("shard", bool(shard))):
-            if unported:
-                not_ported(option, NOT_PORTED)
+        unchanged.  ``shard`` raises."""
+        if shard:
+            not_ported("shard", NOT_PORTED)
         self.device = resolve_device(device)
         self.apps = dict(apps)
         self.policy = policy
@@ -297,7 +298,7 @@ class EdgeServer:
 
             self._pipeline = WindowPipeline(
                 self._eff_apps, sneakpeeks=sneakpeeks, policy=policy,
-                workers=self.workers, device=self.device,
+                workers=self.workers, chunk=chunk, device=self.device,
             )
 
     def submit(self, request: Request):

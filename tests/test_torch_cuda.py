@@ -13,10 +13,14 @@ replaying decode graphs at once, a lane's clock beside another stream's
 work, a process lane's launch counts, and the closed loop: the
 overlapped server's speculative scheduling beside a lane's capture, an
 injected crash on a supervised lane, and a lane deadline beside another
-stream's long kernel.  The pipeline's selection scan is held bit for
-bit against its plain version on its three programs' table shapes and
-both residency carries, and the pipeline on the card against the fast
-path on the card.
+stream's long kernel.  The pipeline's selection scan and its chunked
+(speculative) scan are held bit for bit against their plain versions on
+the three programs' table shapes and both residency carries, the chunked
+one also against the sequential kernel, and the pipeline on the card
+against the fast path on the card; the RG-LRU scan against its plain
+loop; the decode step of recurrentgemma-9b and llama4-scout (the S = 1
+scan, the routed MoE at batch 2) graphed and under
+``set_sync_debug_mode("error")``.
 """
 import threading
 
@@ -29,7 +33,9 @@ from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.knn import ops as knn_ops
+from repro_torch.kernels.rglru_scan import ops as rglru_ops
 from repro_torch.kernels.selection_scan import ops as scan_ops
+from repro_torch.kernels.spec_scan import ops as spec_ops
 from repro_torch.kernels.knn.ref import knn_topk_ref
 from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.kernels.ssd.ref import (
@@ -197,6 +203,11 @@ def _flash_plain(q, k, v, window):
     (2, 128, 128, 4, 4, 256, 0), (1, 256, 256, 8, 2, 256, 0), (2, 96, 96, 4, 1, 256, 0),
     (1, 256, 256, 4, 2, 256, 64), (1, 130, 130, 2, 2, 256, 32), (2, 37, 300, 8, 4, 256, 0),
     (2, 1024, 1024, 16, 16, 256, 0), (1, 1536, 1536, 8, 4, 256, 1024),
+    # recurrentgemma-9b's local layers (MQA, G = 16 at head dim 256, window
+    # 2048, past it too) and llama4's attention (G = 5 at head dim 128), two
+    # rows of the serving prefill and an offset query block.
+    (2, 1024, 1024, 16, 1, 256, 2048), (1, 2200, 2200, 16, 1, 256, 2048),
+    (2, 1024, 1024, 40, 8, 128, 0), (1, 130, 300, 40, 8, 128, 0),
 ])
 def test_flash_attention_kernel_matches_plain(cuda, b, sq, skv, hq, hkv, d, window, dtype):
     """bf16 runs on the tensor cores, f32 on the CUDA cores; each against
@@ -260,6 +271,9 @@ def _decode_plain(q, k, v, lengths, window):
     # decode shape (MHA) and gemma3-4b's ring of 1024 slots (G = 2).
     (2, 2, 4, 256, 256, 0), (3, 1, 8, 300, 256, 0), (2, 4, 1, 128, 256, 0),
     (2, 2, 2, 256, 256, 64), (8, 16, 1, 1040, 256, 0), (4, 4, 2, 1024, 256, 0),
+    # recurrentgemma-9b's local decode (one KV head, G = 16 at head dim 256,
+    # its ring read with no window of its own) and llama4's (G = 5 at 128).
+    (8, 1, 16, 1040, 256, 0), (8, 8, 5, 1040, 128, 0),
 ])
 def test_decode_attention_kernel_matches_plain(cuda, b, hkv, g, s, d, window, dtype):
     gen = torch.Generator(device=cuda).manual_seed(b * 10000 + s)
@@ -596,6 +610,10 @@ def _two_layer_f32(arch, cuda, layers=2, kv_quant=False):
     pytest.param("gemma3-4b", 1030, 6, False, id="gemma3-4b-1030-6"),
     pytest.param("tinyllama-1.1b", 45, 2, True, id="tinyllama-1.1b-45-2-kv_quant"),
     pytest.param("gemma3-4b", 1030, 6, True, id="gemma3-4b-1030-6-kv_quant"),
+    # one period: two RG-LRU layers (rglru_scan at S = 1) and an MQA ring
+    pytest.param("recurrentgemma-9b", 300, 3, False, id="recurrentgemma-9b-300-3"),
+    # one routed MoE layer, 16 experts at batch 2 (one group of 2)
+    pytest.param("llama4-scout-17b-16e", 45, 1, False, id="llama4-scout-17b-16e-45-1"),
 ])
 def test_graphed_decode_matches_eager(cuda, arch, seq, layers, kv_quant):
     """A float32 model at full width: the decode step replayed from a CUDA
@@ -713,6 +731,8 @@ def test_backend_grows_its_shared_cache_and_captures_again(cuda):
     pytest.param("gemma3-4b", 6, False, id="gemma3-4b-6"),
     pytest.param("tinyllama-1.1b", 2, True, id="tinyllama-1.1b-2-kv_quant"),
     pytest.param("gemma3-4b", 6, True, id="gemma3-4b-6-kv_quant"),
+    pytest.param("recurrentgemma-9b", 3, False, id="recurrentgemma-9b-3"),
+    pytest.param("llama4-scout-17b-16e", 1, False, id="llama4-scout-17b-16e-1"),
 ])
 def test_decode_step_reads_nothing_on_the_host(cuda, arch, layers, kv_quant):
     """The eager decode step under ``set_sync_debug_mode("error")``: no
@@ -1183,3 +1203,102 @@ def test_pipeline_on_the_card_matches_the_fast_path(cuda, capacity, pool):
                 assert launched == (1 if pipeline and not brute else 0)
                 sigs.append(sig(sched))
             assert sigs[1] == sigs[0], (policy, w)
+
+
+# ------------------------------------------- the chunked (speculative) scan
+
+
+def _run_spec(seed_args, tabs, fixed, res_mode, chunk):
+    t0, res0, sizes, cap = seed_args
+    return spec_ops.spec_scan(
+        t0, res0, sizes, cap, res_mode, tabs["acc"], tabs["mask"], tabs["deadlines"],
+        tabs["bsize"], tabs["lat"], tabs["step_app"], tabs["swap"], tabs["gid"], tabs["valid"],
+        tabs["pen"], tabs["pref"], fixed, chunk=chunk)
+
+
+@pytest.mark.parametrize("chunk", [1, 4, 16, 64])
+@pytest.mark.parametrize("res_mode", ["slot1", "lru"])
+@pytest.mark.parametrize("program", sorted(SCAN_SHAPES))
+def test_spec_scan_kernel_matches_plain_and_sequential(cuda, program, res_mode, chunk):
+    """The chunked kernel's decisions, starts and latencies bit-identical to
+    its plain version's and to the sequential kernel's; rounds and
+    conflicts equal the plain version's.  The 2,400-id LRU carry runs at
+    every chunk: only the boundary carry is in shared memory (P7)."""
+    seed_args, tabs, fixed = _scan_inputs(program, res_mode, cuda)
+    before = spec_ops.counter.count
+    got = _run_spec(seed_args, tabs, fixed, res_mode, chunk)
+    assert spec_ops.counter.count == before + 1
+    host = {k: v.cpu() for k, v in tabs.items()}
+    want = _run_spec(seed_args, host, None if fixed is None else fixed.cpu(), res_mode, chunk)
+    assert torch.equal(got.cpu(), want)
+    seq = _run_scan(seed_args, tabs, fixed, res_mode)
+    assert torch.equal(got[:, :-1], seq)
+    rounds, conflicts = got[0, -1].item(), got[1, -1].item()
+    assert -(-tabs["acc"].shape[0] // chunk) <= rounds and conflicts <= rounds
+
+
+@pytest.mark.parametrize("pool", [None, [(0, 1.0, 1.0), (1, 2.0, 1.0), (2, 0.5, 2.0)]],
+                         ids=["one-worker", "pool"])
+def test_chunked_pipeline_on_the_card_matches_the_host(cuda, pool):
+    """``chunk=16`` on the card: the sequential pipeline's schedules on the
+    card, the chunk stats of the host's chunked pipeline, one
+    ``spec_scan`` launch per scanned window and no sequential scan."""
+    from repro_torch.core.multiworker import Worker
+    from repro_torch.core.scheduler import POLICY_NAMES, make_policy, schedule_window
+    from repro_torch.core.sneakpeek import attach_sneakpeek
+    from repro_torch.core.streaming import StreamingState
+    from repro_torch.data import applications as apps_mod
+
+    apps, sneaks = apps_mod.build_benchmark_suite(seed=0, device=cuda)
+    workers = [Worker(w, speed=s, load_scale=ls) for w, s, ls in pool] if pool else None
+    wids = [w.wid for w in workers] if workers else None
+
+    def sig(sched):
+        return [(e.request.rid, e.model, e.order, e.batch_id, e.worker, e.est_start_s,
+                 e.est_latency_s) for e in sched.sorted_entries()]
+
+    for policy in POLICY_NAMES:
+        reqs = apps_mod.make_requests(list(apps_mod.APP_SPECS.values()), per_app=60,
+                                      deadline_std_s=0.05, seed=3)
+        attach_sneakpeek(reqs, apps, sneaks, device=cuda)
+        state = StreamingState(worker_ids=wids, memory_capacity_bytes=400 * 2**20)
+        want, _ = schedule_window(make_policy(policy, pipeline=True), reqs, apps, 0.1,
+                                  workers=workers, state=state, device=cuda)
+        host, _ = schedule_window(make_policy(policy, pipeline=True, chunk=16), reqs, apps,
+                                  0.1, workers=workers, state=state, device="cpu")
+        before = (spec_ops.counter.count, scan_ops.counter.count)
+        got, _ = schedule_window(make_policy(policy, pipeline=True, chunk=16), reqs, apps, 0.1,
+                                 workers=workers, state=state, device=cuda)
+        assert sig(got) == sig(want) == sig(host), policy
+        assert got.chunk_stats == host.chunk_stats
+        scanned = got.chunk_stats is not None
+        assert (spec_ops.counter.count - before[0], scan_ops.counter.count - before[1]) == \
+            (int(scanned), 0)
+
+
+# ------------------------------------------------------------ the RG-LRU scan
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,s,width,h0", [
+    (2, 37, 64, False), (3, 1, 256, True), (8, 1024, 4096, True), (8, 1, 4096, True),
+    (1, 300, 200, True),  # a width no multiple of the block
+])
+def test_rglru_scan_kernel_matches_plain(cuda, b, s, width, h0, dtype):
+    """y and the last state against the plain sequential loop on the card:
+    float32 within 1e-4 (the same recurrence, transcendental functions of
+    another library), bf16 y within 2e-2 of its own rounding."""
+    from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
+
+    g = torch.Generator(device=cuda).manual_seed(b * s + width)
+    u, gp = (torch.randn((b, s, width), generator=g, device=cuda).to(dtype) for _ in range(2))
+    vecs = [(torch.randn(width, generator=g, device=cuda) * 0.5).to(dtype) for _ in range(5)]
+    hs = torch.randn((b, width), generator=g, device=cuda) if h0 else None
+    before = rglru_ops.counter.count
+    y, h_last = rglru_ops.rglru_scan(u, gp, *vecs, hs)
+    assert rglru_ops.counter.count == before + 1
+    y_ref, h_ref = rglru_scan_ref(u, gp, *vecs, hs)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    assert y.dtype == dtype and h_last.dtype == torch.float32
+    torch.testing.assert_close(y.float(), y_ref.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(h_last, h_ref, atol=1e-4, rtol=1e-4)

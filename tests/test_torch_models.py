@@ -509,14 +509,14 @@ def test_bf16_config_runs_on_cpu():
 
 
 def test_unported_layer_kinds_raise():
-    """Recurrent mixers, MoE FFNs and SSD with more than one group raise,
-    naming their ROADMAP item; the ``ssd:none`` kind runs."""
+    """SSD with more than one group raises, naming its ROADMAP item; the
+    ``ssd:none`` kind runs, and so do the recurrent mixers and MoE FFNs
+    (tests/test_torch_mixers.py)."""
     base = ARCHS["tinyllama-1.1b"].reduced()
-    for kind in ("rglru:mlp", "attn:moe"):
+    for kind, key in (("rglru:mlp", "rec"), ("attn:moe", "moe")):
         cfg = dataclasses.replace(base, pattern=(kind,), window_size=16, lru_width=64,
                                   num_experts=4, moe_d_ff=128)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            LM(cfg)
+        assert key in LM(cfg).spec["blocks"][0]
     mamba = ARCHS["mamba2-130m"].reduced()
     with pytest.raises(NotImplementedError, match="ROADMAP.*ngroups"):
         LM(dataclasses.replace(mamba, ssd_ngroups=2))

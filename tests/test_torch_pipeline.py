@@ -33,8 +33,17 @@ seeds as the reference's windows:
 * ``EdgeServer(pipeline=True)`` on ``SimulatedBackend`` lanes,
   synchronous and overlapped, against the reference's ``EdgeServer()``:
   records, decisions, counters and fired faults;
-* what still raises: ``chunk`` > 0 (ROADMAP item 5) and ``shard`` (item
-  11), and a pipeline without ``device="cpu"`` on a host without CUDA.
+* speculative chunked selection (``chunk`` > 0): the plain chunked scan
+  against the reference's chunked programs (``_multiworker_program`` and
+  ``_grouped_program`` with ``chunk``, and its whole ``WindowPipeline``
+  with ``chunk``, the per-request program included, under
+  ``jax.enable_x64``): decisions, starts, latencies, rounds, conflicts
+  and ``chunk_stats``; the port's chunked schedules against its
+  ``chunk=0`` ones for five policies x chunk 1, 3, 16, > window x slot1
+  and LRU, and the four pools with drift scales and masks;
+  ``Simulation`` and ``EdgeServer`` with ``chunk=16``;
+* what still raises: ``shard`` (ROADMAP item 11), and a pipeline without
+  ``device="cpu"`` on a host without CUDA.
 
 Tolerances: none but the one stated for the Eq. 9 rows.  Decisions and
 times are float64 in the reference's association, so every other
@@ -68,6 +77,7 @@ from repro_torch.core.streaming import StreamingState
 from repro_torch.core.utility import PENALTY_CODES
 from repro_torch.data import applications as tapps
 from repro_torch.kernels.selection_scan.ops import selection_scan
+from repro_torch.kernels.spec_scan.ops import spec_scan
 from test_torch_closed_loop import T as T_PKG
 from test_torch_closed_loop import _reference as closed_loop_reference
 from test_torch_closed_loop import _sim_serve
@@ -444,9 +454,10 @@ def test_plain_scan_matches_reference_grouped_program(res_mode):
     tabs = {"swap": tt(swap), "gid": tt(gid), "valid": tt(valid),
             "pen": torch.tensor([PENALTY_CODES[p] for p in pens]),
             "pref": torch.arange(m_max).expand(n_groups, m_max).contiguous()}
-    got = tpipe._grouped_program(
+    got, stats = tpipe._grouped_program(
         res_mode, (t0, res0, sizes, c["cap"]), tt(c["acc"]), tt(c["mask"]), tt(c["deadlines"]),
         tt(c["bsize"]), tt(lat), torch.arange(n_groups), tabs)
+    assert stats is None  # the sequential scan has no rounds
     for row, ref in zip(got[1:], want):
         np.testing.assert_array_equal(row, ref)
     assert not got[0].any()
@@ -711,23 +722,304 @@ def test_edge_server_keeps_one_pipeline(monkeypatch):
     assert stats["windows"] > 1 and decisions
 
 
+# ------------------------------------------------------- chunked selection
+
+CHUNKS = [1, 3, 16, 10_000]  # the last > any window here: one round speculates all
+
+
+@pytest.fixture
+def ref_x64(monkeypatch):
+    """The reference's ``WindowPipeline`` with its x64 switch repaired for
+    this test (``jax.enable_x64``; C1 breaks ``jax.experimental``'s): its
+    compiled programs, the chunked ones included, run as written."""
+    monkeypatch.setattr(jpipe.WindowPipeline, "_enable_x64", lambda self: jax.enable_x64(True))
+
+
+def _port_spec(c, res_mode, t0, res0, chunk, fixed=None):
+    tt = {k: torch.as_tensor(v) for k, v in c.items() if k != "pens" and k != "cap"}
+    out = spec_scan(
+        t0, res0, np.tile(c["sizes"], (len(t0), 1)), c["cap"], res_mode, tt["acc"], tt["mask"],
+        tt["deadlines"], tt["bsize"], tt["lat"], tt["app_id"], tt["swap"], tt["gid"],
+        tt["valid"], torch.tensor([PENALTY_CODES[p] for p in c["pens"]]), tt["pref"], fixed,
+        chunk=chunk)
+    return out.numpy()
+
+
+@pytest.mark.parametrize("chunk", [1, 3, 16])
+@pytest.mark.parametrize("res_mode", ["slot1", "lru"])
+@pytest.mark.parametrize("case,shape", [
+    ("one-group", (1, 4, 3, 2, 1)), ("m1", (9, 3, 1, 2, 2)), ("ties", (10, 2, 3, 3, 2)),
+    ("lru-chain", (12, 3, 3, 2, 3)), ("many-ids", (30, 3, 8, 2, 12)),
+], ids=["one-group", "m1", "ties", "lru-chain", "many-ids"])
+def test_plain_chunked_scan_matches_reference_program(case, shape, res_mode, chunk):
+    """The port's plain chunked scan against the reference's chunked
+    multi-worker program (``_multiworker_program(res_mode, chunk)``, its
+    ``_spec_select_mw``, under jax.enable_x64): workers, models, starts,
+    latencies, rounds and conflicts bit-equal, and the rows equal the
+    sequential scan's."""
+    rng = np.random.default_rng(len(case) * 11 + len(res_mode))
+    n_groups, b_max, m_max, n_w, n_apps = shape
+    c = _scan_case(rng, n_groups, b_max, m_max, n_w, n_apps, case)
+    t0 = np.round(rng.uniform(0.1, 0.3, n_w) * 64) / 64
+    n_ids = n_apps * m_max
+    res0 = np.full((n_w, n_ids), -1, dtype=np.int64)
+    for w in range(n_w):
+        held = rng.permutation(n_ids)[: (1 if res_mode == "slot1" else 3)]
+        res0[w, : len(held)] = held
+    if res_mode == "slot1":
+        res0 = res0[:, :1].copy()
+    prog = jpipe._multiworker_program(res_mode, chunk)
+    with jax.enable_x64(True):
+        want = prog(t0, res0 if res_mode == "lru" else res0[:, 0],
+                    np.tile(c["sizes"], (n_w, 1)), np.float64(c["cap"]), c["acc"], c["mask"],
+                    c["deadlines"], c["bsize"], c["app_id"], c["lat"], c["swap"], c["gid"],
+                    c["valid"], np.array([J_PENALTY_ID[p] for p in c["pens"]]), c["pref"])
+    want = [np.asarray(x) for x in want]
+    got = _port_spec(c, res_mode, t0, res0, chunk)
+    for row, ref in zip(got[:, :-1], want[:4]):
+        np.testing.assert_array_equal(row, ref)
+    np.testing.assert_array_equal(got[:2, -1], want[4])
+    np.testing.assert_array_equal(got[:, :-1], _port_scan(c, res_mode, t0, res0))
+    assert got[0, -1] >= -(-n_groups // chunk)  # chunk_layout's least rounds
+
+
+@pytest.mark.parametrize("chunk", [1, 3, 16])
+@pytest.mark.parametrize("res_mode", ["slot1", "lru"])
+def test_plain_chunked_scan_matches_reference_grouped_program(res_mode, chunk):
+    """The port's ``_grouped_program(..., chunk)`` against the reference's
+    ``_grouped_program(res_mode, chunk)`` (its ``_spec_select``):
+    decisions, starts, latencies, rounds and conflicts bit-equal."""
+    rng = np.random.default_rng(5)
+    n_groups, b_max, m_max = 9, 5, 4
+    c = _scan_case(rng, n_groups, b_max, m_max, 1, n_groups, "lru-chain")
+    lat = c["lat"][:, 0]
+    swap = np.round(rng.uniform(0.0, 0.1, (n_groups, m_max)) * 64) / 64
+    gid, valid = c["gid"][:n_groups], c["valid"][:n_groups]
+    valid[2, 2:] = False
+    gid[2, 2:] = -2
+    pens = rng.choice(list(PENALTY_CODES), n_groups)
+    n_ids = n_groups * m_max
+    sizes = np.tile(c["sizes"][:n_ids], (1, 1))
+    res0 = np.full((1, n_ids), -1, dtype=np.int64)
+    res0[0, :2] = [gid[0, 1], (gid[0, 1] + 1) % n_ids] if res_mode == "lru" else [gid[0, 1], -1]
+    if res_mode == "slot1":
+        res0 = res0[:, :1].copy()
+    t0 = np.array([0.125])
+    prog = jpipe._grouped_program(res_mode, chunk)
+    with jax.enable_x64(True):
+        want = prog(np.float64(t0[0]), res0[0] if res_mode == "lru" else np.int64(res0[0, 0]),
+                    sizes[0], np.float64(c["cap"]), c["acc"], c["mask"], c["deadlines"],
+                    c["bsize"], lat, swap, gid, valid,
+                    np.array([J_PENALTY_ID[p] for p in pens]))
+    want = [np.asarray(x) for x in want]
+    tt = lambda x: torch.as_tensor(x)  # noqa: E731
+    tabs = {"swap": tt(swap), "gid": tt(gid), "valid": tt(valid),
+            "pen": torch.tensor([PENALTY_CODES[p] for p in pens]),
+            "pref": torch.arange(m_max).expand(n_groups, m_max).contiguous()}
+    rows, stats = tpipe._grouped_program(
+        res_mode, (t0, res0, sizes, c["cap"]), tt(c["acc"]), tt(c["mask"]), tt(c["deadlines"]),
+        tt(c["bsize"]), tt(lat), torch.arange(n_groups), tabs, chunk)
+    for row, ref in zip(rows[1:], want[:3]):
+        np.testing.assert_array_equal(row, ref)
+    np.testing.assert_array_equal(stats, want[3])
+
+
+def test_plain_chunked_scan_fixed_choices():
+    """MaxAcc's carry-free choices (``fixed_sel``): the chunked scan threads
+    the carry only, never conflicts, and equals the sequential scan."""
+    rng = np.random.default_rng(8)
+    c = _scan_case(rng, 13, 1, 4, 1, 3, "lru-chain")
+    fixed = torch.as_tensor(rng.integers(0, 4, 13))
+    t0, res0 = np.array([0.25]), np.array([[-1] * 12])
+    tt = {k: torch.as_tensor(v) for k, v in c.items() if k != "pens" and k != "cap"}
+    want = selection_scan(
+        t0, res0, np.tile(c["sizes"], (1, 1)), c["cap"], "lru", tt["acc"], tt["mask"],
+        tt["deadlines"], tt["bsize"], tt["lat"], tt["app_id"], tt["swap"], tt["gid"],
+        tt["valid"], torch.tensor([PENALTY_CODES[p] for p in c["pens"]]), tt["pref"], fixed)
+    for chunk in (1, 4, 13, 40):
+        got = _port_spec(c, "lru", t0, res0, chunk, fixed)
+        np.testing.assert_array_equal(got[:, :-1], want.numpy())
+        assert got[0, -1] == -(-13 // chunk) and got[1, -1] == 0
+
+
+def test_chunked_scan_refuses_a_carry_beyond_shared_memory():
+    """P7 with chunks: the chunked scan keeps each position's pre-state
+    slots in device memory, so the carry's ids do not multiply by the
+    chunk; a 600-id LRU carry runs at chunks 4 and 64, and a carry past
+    one block's 227 KiB is refused on both routes at any chunk, naming
+    it."""
+    from repro_torch.kernels.selection_scan.ops import MAX_SMEM_BYTES, smem_bytes
+
+    n_ids = 600
+    grow = smem_bytes(1, n_ids, 6, chunk=64) - smem_bytes(1, n_ids, 6, chunk=4)
+    assert grow == smem_bytes(1, 0, 6, chunk=64) - smem_bytes(1, 0, 6, chunk=4)
+    assert smem_bytes(1, n_ids, 6, chunk=64) <= MAX_SMEM_BYTES
+    rng = np.random.default_rng(2)
+    c = _scan_case(rng, 70, 2, 6, 1, 1, "lru-chain")  # 70 steps: chunk 64 stays 64
+    tt = {k: torch.as_tensor(v) for k, v in c.items() if k != "pens" and k != "cap"}
+    tabs = (tt["acc"], tt["mask"], tt["deadlines"], tt["bsize"], tt["lat"], tt["app_id"],
+            tt["swap"], tt["gid"], tt["valid"],
+            torch.tensor([PENALTY_CODES[p] for p in c["pens"]]), tt["pref"])
+
+    def run(n, chunk):
+        return spec_scan(np.zeros(1), np.full((1, n), -1), np.ones((1, n)), 10.0, "lru",
+                         *tabs, chunk=chunk)
+
+    seq = selection_scan(np.zeros(1), np.full((1, n_ids), -1), np.ones((1, n_ids)), 10.0,
+                         "lru", *tabs)
+    for chunk in (4, 64):
+        np.testing.assert_array_equal(run(n_ids, chunk)[:, :-1].numpy(), seq.numpy())
+    too_many = MAX_SMEM_BYTES // 8  # (W·K + W)·8 bytes past the block's share
+    assert smem_bytes(1, too_many, 6, chunk=4) > MAX_SMEM_BYTES
+    for chunk in (1, 64):
+        with pytest.raises(ValueError,
+                           match=r"K=%d model ids.*C=%d speculated positions.*P7" % (too_many,
+                                                                                     chunk)):
+            run(too_many, chunk)
+    with pytest.raises(ValueError, match="chunk must be positive"):
+        run(n_ids, 0)
+
+
+@pytest.mark.parametrize("chunk", [3, 16])
+@pytest.mark.parametrize("capacity", CAPACITIES, ids=CAPACITY_IDS)
+@pytest.mark.parametrize("policy", POLICY_NAMES)
+def test_chunked_pipeline_matches_reference(suites, ref_x64, policy, capacity, chunk):
+    """The reference's chunked ``WindowPipeline`` (its compiled per-request
+    and grouped programs with ``chunk``) against the port's on one worker,
+    from a carried state (the evicting capacity gives the LRU carry):
+    schedules field by field and ``Schedule.chunk_stats``."""
+    j_apps, _, t_apps, _ = suites
+    j_state, t_state = _warm_states(suites, policy, capacity)
+    j_reqs, t_reqs = _windows(suites, 70 + chunk, "some", per_app=12, shift=0.1)
+    want = jpipe.WindowPipeline(j_apps, policy=j_make_policy(policy), chunk=chunk,
+                                backend="jax").schedule(j_reqs, 0.2, state=j_state)
+    got = tpipe.WindowPipeline(t_apps, policy=tsched.make_policy(policy), chunk=chunk,
+                               device="cpu").schedule(t_reqs, 0.2, state=t_state)
+    assert _sig(got) == _sig(want)
+    assert got.chunk_stats == want.chunk_stats
+    if policy != "Grouped":  # Grouped's three groups take the brute-force branch
+        assert got.chunk_stats["chunk"] == chunk and got.chunk_stats["rounds"] >= 1
+
+
+@pytest.mark.parametrize("pool", POOLS, ids=POOL_IDS)
+@pytest.mark.parametrize("policy", ["LO-EDF", "SneakPeek"])
+def test_chunked_pool_matches_reference(suites, ref_x64, policy, pool):
+    """The reference's chunked Eq. 15 placement (``_spec_select_mw``) with
+    drift scales and a worker mask against the port's: schedules and
+    ``chunk_stats``."""
+    j_apps, _, t_apps, _ = suites
+    j_reqs, t_reqs = _windows(suites, 80 + POOLS.index(pool), "all")
+    wids = [w for w, _, _ in pool]
+    names = [m.name for app in t_apps.values() for m in app.models]
+    scale = {(wid, name): 1.0 + 0.25 * ((k + i) % 3)
+             for k, wid in enumerate(wids) for i, name in enumerate(names)}
+    for kwargs in ({}, {"lat_scale": scale, "worker_mask": set(wids[1:])}):
+        want = jpipe.WindowPipeline(j_apps, policy=j_make_policy(policy), backend="jax",
+                                    workers=_pool(pool, JWorker), chunk=8).schedule(
+            j_reqs, 0.1, **kwargs)
+        got = tpipe.WindowPipeline(t_apps, policy=tsched.make_policy(policy), device="cpu",
+                                   workers=_pool(pool, Worker), chunk=8).schedule(
+            t_reqs, 0.1, **kwargs)
+        assert _sig(got) == _sig(want)
+        assert got.chunk_stats == want.chunk_stats
+
+
+@pytest.mark.parametrize("carried", [False, True], ids=["fresh", "carried"])
+@pytest.mark.parametrize("capacity", CAPACITIES, ids=CAPACITY_IDS)
+@pytest.mark.parametrize("policy", POLICY_NAMES)
+def test_chunked_equals_sequential(suites, policy, capacity, carried):
+    """On one worker, every chunk size (1, 3, 16, larger than the window)
+    gives ``chunk=0``'s schedule, slot1 and LRU, fresh and carried; the
+    stats count the window's decisions."""
+    _, _, t_apps, _ = suites
+    _, t_reqs = _windows(suites, 90 + POLICY_NAMES.index(policy), "some", per_app=10)
+    t_state = None
+    if carried:
+        _, t_state = _warm_states(suites, policy, capacity)
+    elif capacity is not None:
+        t_state = StreamingState(memory_capacity_bytes=capacity)
+    now = 0.2 if carried else 0.1
+    want = tsched.make_policy(policy, pipeline=True).schedule(t_reqs, t_apps, now,
+                                                              state=t_state, device="cpu")
+    assert want.chunk_stats is None
+    for chunk in CHUNKS:
+        got = tsched.make_policy(policy, pipeline=True, chunk=chunk).schedule(
+            t_reqs, t_apps, now, state=t_state, device="cpu")
+        assert _sig(got) == _sig(want)
+        stats = got.chunk_stats
+        if stats is None:  # the brute-force branch runs no scan
+            assert policy == "Grouped"
+            continue
+        least, _ = tfast.chunk_layout(stats["decisions"], chunk)
+        assert stats["rounds"] >= least and stats["conflicts"] <= stats["rounds"]
+        assert stats["conflict_rate"] == stats["conflicts"] / stats["rounds"]
+
+
+@pytest.mark.parametrize("pool", POOLS, ids=POOL_IDS)
+@pytest.mark.parametrize("policy", POLICY_NAMES)
+def test_chunked_pool_equals_sequential(suites, policy, pool):
+    """The four pools, with drift scales and a worker mask, from a carried
+    LRU state: every chunk size places as ``chunk=0``."""
+    _, _, t_apps, _ = suites
+    wids = [w for w, _, _ in pool]
+    _, ts = _warm_states(suites, policy, CAPACITIES[1], wids=wids, workers=pool)
+    _, t_reqs = _windows(suites, 50 + POOLS.index(pool), "some", shift=0.1)
+    names = [m.name for app in t_apps.values() for m in app.models]
+    scale = {(wid, name): 1.0 + 0.25 * ((k + i) % 3)
+             for k, wid in enumerate(wids) for i, name in enumerate(names)}
+    for kwargs in ({}, {"lat_scale": scale}, {"worker_mask": set(wids[1:])}):
+        want, _ = tsched.schedule_window(tsched.make_policy(policy, pipeline=True), t_reqs,
+                                         t_apps, 0.2, workers=_pool(pool, Worker), state=ts,
+                                         device="cpu", **kwargs)
+        for chunk in CHUNKS:
+            got, _ = tsched.schedule_window(
+                tsched.make_policy(policy, pipeline=True, chunk=chunk), t_reqs, t_apps, 0.2,
+                workers=_pool(pool, Worker), state=ts, device="cpu", **kwargs)
+            assert _sig(got) == _sig(want)
+            assert got.chunk_stats["decisions"] == len({e.batch_id for e in got.entries})
+
+
+@pytest.mark.parametrize("policy", POLICY_NAMES)
+def test_simulation_and_server_chunked(suites, monkeypatch, policy):
+    """``Simulation(pipeline=True, chunk=16)`` commits ``chunk=0``'s
+    schedules window by window, and ``EdgeServer(pipeline=True,
+    chunk=16)`` records what the reference's ``EdgeServer()`` records."""
+    _, _, t_apps, t_sneaks = suites
+    runs = []
+    for chunk in (0, 16):
+        seen = _capture_schedules(monkeypatch, tsim)
+        sim = tsim.Simulation(tsched.make_policy(policy), t_apps, sneakpeeks=t_sneaks,
+                              short_circuit=True, seed=3, memory_capacity_bytes=CAPACITIES[1],
+                              pipeline=True, chunk=chunk, device="cpu")
+        agg = sim.run(_trace(tapps, 41))
+        log = [{k: v for k, v in row.items() if k != "overhead_s"} for row in sim.log]
+        runs.append((list(seen), log, agg))
+        monkeypatch.undo()
+    assert runs[0] == runs[1]
+    assert sim._pipeline.chunk == 16
+    want = closed_loop_reference(policy, True, True, False)
+    got = _sim_serve(T_PKG, policy, True, True, False, pipeline=True, chunk=16)
+    assert got[4]._pipeline.chunk == 16
+    assert got[:4] == want
+
+
 # ------------------------------------------------------- what still raises
 
 
 def test_chunk_and_shard_still_raise(suites):
-    """Speculative chunked selection (item 5) and sharding (item 11) raise
-    on every entry point, naming their ROADMAP item."""
+    """``chunk`` runs on every entry point (item 5 is ported); sharding
+    (item 11) raises on every entry point, naming its ROADMAP item, and a
+    negative chunk is refused."""
     _, _, t_apps, _ = suites
     _, t_reqs = _windows(suites, 0, "all")
     policy = tsched.make_policy("LO-EDF")
-    for call in (
-        lambda: tsched.make_policy("LO-EDF", pipeline=True, chunk=8),
-        lambda: tpipe.WindowPipeline(t_apps, policy=policy, chunk=8, device="cpu"),
-        lambda: tpipe.pipeline_schedule(policy, t_reqs, t_apps, 0.1, chunk=8, device="cpu"),
-        lambda: tsim.Simulation(policy, t_apps, pipeline=True, chunk=8, device="cpu"),
-    ):
-        with pytest.raises(NotImplementedError, match="item 5"):
-            call()
+    assert tsched.make_policy("LO-EDF", pipeline=True, chunk=8).chunk == 8
+    assert tpipe.WindowPipeline(t_apps, policy=policy, chunk=8, device="cpu").chunk == 8
+    got = tpipe.pipeline_schedule(policy, t_reqs, t_apps, 0.1, chunk=8, device="cpu")
+    assert got.chunk_stats["chunk"] == 8 and got.chunk_stats["decisions"] == len(t_reqs)
+    sim = tsim.Simulation(policy, t_apps, pipeline=True, chunk=8, device="cpu")
+    assert sim._pipeline.chunk == 8
+    assert "chunk" not in tsched.NOT_PORTED
     for call in (
         lambda: tsched.make_policy("LO-EDF", shard=True),
         lambda: tpipe.pipeline_schedule(policy, t_reqs, t_apps, 0.1, shard=2, device="cpu"),
@@ -735,6 +1027,8 @@ def test_chunk_and_shard_still_raise(suites):
     ):
         with pytest.raises(NotImplementedError, match="item 11"):
             call()
+    with pytest.raises(ValueError, match="chunk must be >= 0"):
+        tpipe.WindowPipeline(t_apps, policy=policy, chunk=-1, device="cpu")
     # The off values of the reference's fields are accepted.
     assert tsched.make_policy("LO-EDF", chunk=0, shard=False).pipeline is False
     assert tpipe.WindowPipeline(t_apps, policy=policy, chunk=0, device="cpu").chunk == 0

@@ -699,17 +699,26 @@ def test_launch_counts_are_exact_under_threads():
 @pytest.mark.parametrize("option,value", [("pipeline", True), ("chunk", 4), ("shard", True)])
 def test_workers_with_compiled_options_still_raise(suites, option, value):
     """The pool composes with the compiled pipeline, speculative chunks and
-    sharding in the reference.  The port's pipeline is ported
-    (tests/test_torch_pipeline.py); its speculative chunks and sharding
-    still raise (ROADMAP items 5 and 11), with or without workers, so the
-    pipeline's case asks for ``chunk`` too."""
+    sharding in the reference.  The port's pipeline and its speculative
+    chunks are ported (tests/test_torch_pipeline.py) and take workers;
+    sharding still raises (ROADMAP item 11), with or without workers,
+    alone or beside the others."""
     _, _, t_apps, _ = suites
     workers = [Worker(0), Worker(1)]
     kwargs = {option: value, **({"chunk": 4} if option == "pipeline" else {})}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    if option != "shard":
+        srv = EdgeServer(_apps(ModelProfile, Application), make_policy("Grouped"),
+                         device="cpu", workers=workers, **kwargs)
+        sim = TSimulation(tsched.make_policy("LO-EDF"), t_apps, device="cpu", workers=workers,
+                          **kwargs)
+        for obj in (srv, sim):
+            assert obj._pipeline is None or (obj._pipeline.chunk == 4
+                                             and obj._pipeline.workers == workers)
+        kwargs["shard"] = True
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 11"):
         EdgeServer(_apps(ModelProfile, Application), make_policy("Grouped"), device="cpu",
                    workers=workers, **kwargs)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 11"):
         TSimulation(tsched.make_policy("LO-EDF"), t_apps, device="cpu", workers=workers,
                     **kwargs)
 

@@ -308,16 +308,25 @@ def test_entry_points_need_cuda_unless_cpu_is_named(suites):
 
 @pytest.mark.parametrize("option", ["pipeline", "chunk", "shard", "prebatch"])
 def test_unported_options_raise(suites, option):
-    """``pipeline`` and ``prebatch`` are ported (tests/test_torch_pipeline.py);
-    what of them still raises is the speculative chunked selection they
-    take, ``chunk`` > 0 (ROADMAP item 5).  ``chunk`` and ``shard`` raise
-    wherever they are given."""
+    """``pipeline``, its speculative chunks (``chunk`` > 0, ROADMAP item 5)
+    and ``prebatch`` are ported (tests/test_torch_pipeline.py) and run with
+    the reference's values; what still raises is ``shard`` (item 11),
+    wherever it is given, alone or beside the others."""
     _, _, t_apps, _ = suites
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if option == "pipeline":
-            tsched.make_policy("LO-EDF", pipeline=True, chunk=4)
-        elif option in ("chunk", "shard"):
-            tsched.make_policy("LO-EDF", **{option: 1})
-        else:
+    if option == "shard":
+        with pytest.raises(NotImplementedError, match="ROADMAP.*item 11"):
+            tsched.make_policy("LO-EDF", shard=1)
+        return
+    if option == "pipeline":
+        assert tsched.make_policy("LO-EDF", pipeline=True, chunk=4).chunk == 4
+        with pytest.raises(NotImplementedError, match="ROADMAP.*item 11"):
+            tsched.make_policy("LO-EDF", pipeline=True, chunk=4, shard=2)
+    elif option == "chunk":
+        assert tsched.make_policy("LO-EDF", chunk=1).chunk == 1
+    else:
+        sim = TSimulation(tsched.make_policy("LO-EDF"), t_apps, device="cpu", prebatch=4,
+                          pipeline=True, chunk=4)
+        assert sim.prebatch == 4 and sim._pipeline.chunk == 4
+        with pytest.raises(NotImplementedError, match="ROADMAP.*item 11"):
             TSimulation(tsched.make_policy("LO-EDF"), t_apps, device="cpu", prebatch=4,
-                        pipeline=True, chunk=4)
+                        pipeline=True, chunk=4, shard=True)

@@ -310,11 +310,16 @@ def test_swap_manager_matches_reference():
 
 @pytest.mark.parametrize("option,value", [("pipeline", True), ("chunk", 4), ("shard", True)])
 def test_unported_server_options_raise(option, value):
-    """``pipeline=True`` is ported (tests/test_torch_pipeline.py); with it,
-    the speculative chunked selection (``chunk``) still raises."""
+    """``pipeline=True`` and its speculative chunked selection (``chunk``)
+    are ported (tests/test_torch_pipeline.py); sharding (``shard``) still
+    raises, alone or beside them."""
     apps = _apps(ModelProfile, Application)
     kwargs = {option: value, **({"chunk": 4} if option == "pipeline" else {})}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    if option != "shard":
+        srv = EdgeServer(apps, make_policy("Grouped"), device="cpu", **kwargs)
+        assert srv._pipeline is None or srv._pipeline.chunk == 4
+        kwargs["shard"] = True
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 11"):
         EdgeServer(apps, make_policy("Grouped"), device="cpu", **kwargs)
 
 

@@ -4,7 +4,7 @@ For each entry point of both packages the parameter names, kinds, order
 and defaults are equal.  The only differences allowed are the port's
 keyword-only extras — ``device`` everywhere, last, and ``train_n`` of
 ``build_benchmark_suite`` — and labelled refusals: an option the port
-accepts but refuses under its ROADMAP label (``chunk``, ``shard``), or a
+accepts but refuses under its ROADMAP label (``shard``), or a
 name of ``repro.data`` that the port lists in ``NOT_PORTED``.  Also the
 reference's calls that used to fail in the port (ROADMAP fault P6):
 positional ``workers``, ``backend=`` of the k-NN constructors and
