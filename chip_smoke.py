@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py            # the full check, on one card
 
-Builds the port's eight CUDA kernel sources from the checkout, holds
+Builds the port's nine CUDA kernel sources from the checkout, holds
 each kernel against its plain PyTorch version at its path's shapes and
 times both, then drives the paths of the port on the card:
 
@@ -59,7 +59,14 @@ times both, then drives the paths of the port on the card:
   ``EdgeServer`` serving recurrentgemma-9b (38 layers) and llama4-scout
   (full width, 6 layers) in bf16 from CUDA graphs with exact launch
   counts; llama4-maverick's one period (128 experts) alone, graphed
-  decode against eager.
+  decode against eager;
+* sharded window scheduling (phase 15): the ``shard_round`` kernel's two
+  entry points (``score_block``, ``chain``) bit-identical to their plain
+  versions on the calls the sharded selectors make for phase 5's first
+  window, the sharded selectors at 2, 4 and 8 shard blocks on the card (chunks 0
+  and 16, single-slot and LRU carries) deciding as the unsharded scans,
+  then ``Simulation(shard=4, chunk=16)`` over phase 5's trace and
+  ``shard=True`` on this card (one shard: the unsharded launches).
 
 Every check raises on failure.  The last three lines of standard output
 are the card's name and power limit, the kernel table and
@@ -1885,6 +1892,20 @@ class ScanCapture:
         return False
 
 
+def _step_depths(call):
+    """The dependent f64 operations of each step of one scan's inputs:
+    SCAN_CHAIN_FIXED_OPS, one add per member and a compare per (worker,
+    real model) cell; with fixed choices the completion's two adds and the
+    carry's store."""
+    import numpy as np
+
+    _, _, _, _, _, acc, _, _, bsize, lat, step_app, _, _, valid, _, _, *fixed = call
+    if fixed and fixed[0] is not None:
+        return np.full(acc.shape[0], 3.0)
+    mv = valid.cpu().numpy().sum(axis=1)[step_app.cpu().numpy()]
+    return SCAN_CHAIN_FIXED_OPS + bsize.cpu().numpy() + lat.shape[1] * mv
+
+
 def _scan_numbers(call, clock_hz):
     """Bytes, operations and the dependent chain of one scan's inputs:
     (bound ms, bound_by, chain ms, shape).  The bytes are those the
@@ -1919,10 +1940,7 @@ def _scan_numbers(call, clock_hz):
     else:
         ops = 2.0 * s_steps  # MaxAcc: the completion's two adds per step
     byte_ms, op_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP64_FLOP_PER_S * 1e3
-    if fixed is None:
-        chain = float((SCAN_CHAIN_FIXED_OPS + n + n_w * mv).sum()) * F64_DEP_CYCLES
-    else:  # the completion's two adds and the carry's store
-        chain = 3.0 * s_steps * F64_DEP_CYCLES
+    chain = float(_step_depths(call).sum()) * F64_DEP_CYCLES
     shape = f"S={s_steps} B={b_max} M={m} W={n_w} {res_mode}"
     return (float(max(byte_ms, op_ms)), "bytes" if byte_ms >= op_ms else "operations",
             chain / clock_hz * 1e3, shape)
@@ -2116,6 +2134,7 @@ def check_spec_scan(apps, reqs, now, seq_t):
     from repro_torch.kernels.selection_scan import ops as scan_ops
     from repro_torch.kernels.spec_scan import ops as spec_ops
 
+    clock = sm_clock_hz()
     pool = [Worker(0), Worker(1, speed=2.0), Worker(2, speed=0.5), Worker(3, load_scale=2.0)]
     out = {}
     for res_mode, cap in (("slot1", None), ("lru", 400 * 2**20)):
@@ -2130,6 +2149,7 @@ def check_spec_scan(apps, reqs, now, seq_t):
                 schedule_window(make_policy(policy, pipeline=True), reqs, apps, now,
                                 workers=workers, state=state, device="cuda")
             call = cap_calls.calls[0]
+            least_depth = float(_step_depths(call).min())
             mode, t0, res0, sizes, capacity, *tabs = call
             seq = scan_ops.selection_scan(t0, res0, sizes, capacity, mode, *tabs)
             host_tabs = [t.cpu() if t is not None else None for t in tabs]
@@ -2154,16 +2174,27 @@ def check_spec_scan(apps, reqs, now, seq_t):
 
                 ms = timed_ms(kernel, iters=5, warmup=1)
                 rounds, conflicts = int(got_h[0, -1]), int(got_h[1, -1])
+                # The dependent chain: every round scores its positions once
+                # (twice when it has more than one: speculation, then
+                # validation; only the window's last round may have one),
+                # each pass at least the least step's depth, and its chain
+                # carries the rounds' other positions, the completion's two
+                # adds and the carry's store each.
+                s_steps = tabs[0].shape[0]
+                passes = rounds if k_eff == 1 else 2 * rounds - 1
+                chain_ms = ((passes * least_depth + 3.0 * (s_steps - rounds))
+                            * F64_DEP_CYCLES / clock * 1e3)
                 out[f"{label}, {res_mode}, chunk {chunk}"] = {
                     "shape": f"{shape} K={chunk}", "ms": ms, "plain_ms": plain_ms,
                     "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": 0.0,
                     "library_ms": None, "sequential_ms": seq_ms, "rounds": rounds,
-                    "conflicts": conflicts}
+                    "conflicts": conflicts, "chain_bound_ms": chain_ms}
                 print(f"    {label}, {res_mode}, chunk {chunk} ({shape}): bit-identical to its "
                       f"plain version and to the sequential scan; {rounds} rounds, {conflicts} "
                       f"conflicts ({conflicts / rounds:.3f}); kernel {ms:.6f} ms on the device "
                       f"against the sequential {seq_ms:.6f} ms; plain {plain_ms:.1f} ms on the "
-                      f"host; bound {bound_ms:.6f} ms ({bound_by})")
+                      f"host; bound {bound_ms:.6f} ms ({bound_by}), dependent chain "
+                      f"{chain_ms:.6f} ms")
     return out
 
 
@@ -2511,6 +2542,314 @@ def check_maverick(seed):
     del lm, params, dec, cache
 
 
+# Shard counts and chunks of phase 15 (b); the shard count of (a) and (c).
+SHARD_COUNTS = (2, 4, 8)
+SHARD_CHUNKS = (0, PIPELINE_CHUNK)
+MAIN_SHARDS = 4
+
+
+class ShardRoundCapture:
+    """Records the arguments of every ``shard_round`` call the sharded
+    selectors make while entered (``core.shard``'s ``score_block`` and
+    ``chain``), then restores them."""
+
+    def __enter__(self):
+        from repro_torch.core import shard as tshard
+
+        self.score, self.chain = [], []
+        self._real = (tshard.score_block, tshard.chain)
+
+        def score(*a, **kw):
+            self.score.append((a, kw))
+            return self._real[0](*a, **kw)
+
+        def chain(*a, **kw):
+            self.chain.append((a, kw))
+            return self._real[1](*a, **kw)
+
+        tshard.score_block, tshard.chain = score, chain
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core import shard as tshard
+
+        tshard.score_block, tshard.chain = self._real
+        return False
+
+
+def _score_numbers(args, kw):
+    """(bound ms, bound_by, shape) of one ``score_block`` call, counted as
+    ``_scan_numbers`` counts a scan: each input the function needs read
+    once — the rows' real members' accuracies and deadlines (none for
+    fixed choices), the member counts of groups (B > 1), the rows'
+    application ids and fixed choices, the distinct latency rows of the
+    real models, the swap, id, validity, penalty and rank rows of the
+    applications the rows use, the carry (one row when every row shares
+    it) — and the (8, R) outputs written once; the operations are the
+    Eq. 2 cells of the real members and models, SCAN_CELL_FLOPS each
+    (MaxAcc: the completions' two adds)."""
+    import numpy as np
+
+    t, res, _, acc, _, _, bsize, lat, step_app, swap, gid, valid, pen, rank, *rest = args
+    fixed = kw.get("fixed", rest[1] if len(rest) > 1 else None)
+    rows, b_max, m = acc.shape
+    n_w = lat.shape[1]
+    n = bsize.cpu().numpy()
+    app = step_app.cpu().numpy()
+    m_valid = valid.cpu().numpy().sum(axis=1)  # real models per application
+    mv = m_valid[app]
+    used = np.unique(app)
+    lat_rows = np.unique(np.column_stack([app, lat.cpu().numpy().reshape(rows, -1)]), axis=0)
+    nbytes = 8 * (n_w * m_valid[lat_rows[:, 0].astype(np.int64)]).sum()  # distinct l(m, b)
+    nbytes += 8 * (2 * n_w * m_valid[used] + m_valid[used] + 1).sum() + m_valid[used].sum()
+    nbytes += 8 * rows * (1 + (fixed is not None) + (b_max > 1)) + 8 * 8 * rows
+    shared = rows > 1 and t.stride(0) == 0
+    nbytes += 8 * (1 if shared else rows) * (t.shape[1] + res.shape[1] * res.shape[2])
+    if fixed is None:
+        nbytes += 8 * ((n * mv).sum() + n.sum())  # real members' accuracies and deadlines
+        ops = float((n_w * n * mv).sum()) * SCAN_CELL_FLOPS
+    else:
+        ops = 2.0 * rows * n_w * m
+    byte_ms, op_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP64_FLOP_PER_S * 1e3
+    shape = (f"R={rows} B={b_max} M={m} W={n_w} K={res.shape[2]}"
+             f"{' shared carry' if shared else ''}")
+    return float(max(byte_ms, op_ms)), "bytes" if byte_ms >= op_ms else "operations", shape
+
+
+def check_shard_round(apps, reqs, now):
+    """Phase 15 (a): ``shard_round`` against its plain version on the card,
+    on the calls the sharded selectors make for phase 5's first window at
+    MAIN_SHARDS shards, ``chunk=0`` — LO-EDF's per-request rows, SneakPeek's
+    grouped rows, SneakPeek on four workers — each with the single-slot
+    and the LRU carry: the first speculation's ``score_block`` (the
+    largest block) and the longest ``chain``, every output bit-identical.
+    Times each on the device (its kernel only) and the plain version on
+    the card, and works out the bounds: the block's bytes and operations,
+    and the chain's dependent operations (the completion's two adds and
+    the carry's store per position, F64_DEP_CYCLES each, as phase 12 (a)
+    counts a fixed-choice step)."""
+    import torch
+
+    from repro_torch.core import shard as tshard
+    from repro_torch.core.multiworker import Worker
+    from repro_torch.core.scheduler import make_policy, schedule_window
+    from repro_torch.core.streaming import StreamingState
+    from repro_torch.kernels.shard_round import ops as shard_ops
+    from repro_torch.kernels.shard_round.ref import chain_ref, score_block_ref
+
+    clock = sm_clock_hz()
+    pool = [Worker(0), Worker(1, speed=2.0), Worker(2, speed=0.5), Worker(3, load_scale=2.0)]
+    out = {}
+    prev = tshard.force_shard_devices(MAIN_SHARDS)
+    try:
+        for res_mode, cap in (("slot1", None), ("lru", 400 * 2**20)):
+            for label, policy, workers in (("LO-EDF", "LO-EDF", None),
+                                           ("SneakPeek", "SneakPeek", None),
+                                           ("SneakPeek on 4 workers", "SneakPeek", pool)):
+                state = None
+                if cap is not None:
+                    state = StreamingState(
+                        worker_ids=[w.wid for w in workers] if workers else None,
+                        memory_capacity_bytes=cap)
+                with ShardRoundCapture() as calls:
+                    schedule_window(make_policy(policy, shard=MAIN_SHARDS), reqs, apps, now,
+                                    workers=workers, state=state, device="cuda")
+                s_args, s_kw = max(calls.score, key=lambda c: c[0][3].shape[0])
+                c_args, c_kw = max(calls.chain, key=lambda c: c[0][5].shape[0])
+                got = shard_ops.score_block(*s_args, **s_kw)
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                want = score_block_ref(*s_args, **s_kw)
+                torch.cuda.synchronize()
+                plain_ms = (time.perf_counter() - t) * 1e3
+                require(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+                        f"{label}, {res_mode}: score_block differs from its plain version")
+                got_c = shard_ops.chain(*c_args, **c_kw)
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                want_c = chain_ref(*c_args, **c_kw)
+                torch.cuda.synchronize()
+                chain_plain_ms = (time.perf_counter() - t) * 1e3
+                require(torch.equal(got_c[0], want_c[0]) and torch.equal(got_c[1], want_c[1]),
+                        f"{label}, {res_mode}: chain differs from its plain version")
+                ms = device_ms(lambda: shard_ops.score_block(*s_args, **s_kw),
+                               "shard_round_score", iters=5)
+                chain_ms = device_ms(lambda: shard_ops.chain(*c_args, **c_kw),
+                                     "shard_round_chain", iters=5)
+                bound_ms, bound_by, shape = _score_numbers(s_args, s_kw)
+                n_pos = c_args[5].shape[0]
+                chain_bound = 3.0 * n_pos * F64_DEP_CYCLES / clock * 1e3
+                out[f"{label}, {res_mode}"] = {
+                    "shape": shape, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                    "bound_by": bound_by, "max_abs_err": 0.0, "library_ms": None,
+                    "chain_positions": n_pos, "chain_ms": chain_ms,
+                    "chain_plain_ms": chain_plain_ms, "chain_bound_ms": chain_bound,
+                    "calls": (len(calls.score), len(calls.chain))}
+                print(f"    {label}, {res_mode}: score_block ({shape}) and chain ({n_pos} "
+                      f"positions) bit-identical to their plain versions; score_block "
+                      f"{ms:.6f} ms on the device, plain {plain_ms:.3f} ms, bound "
+                      f"{bound_ms:.6f} ms ({bound_by}); chain {chain_ms:.6f} ms, plain "
+                      f"{chain_plain_ms:.3f} ms, dependent chain {chain_bound:.6f} ms; the "
+                      f"window made {len(calls.score)} score_block and {len(calls.chain)} "
+                      "chain calls")
+    finally:
+        tshard.force_shard_devices(prev)
+    return out
+
+
+def _sched_sig(sched):
+    return [(e.request.rid, e.model, e.order, e.batch_id, e.worker, e.est_start_s,
+             e.est_latency_s) for e in sched.sorted_entries()]
+
+
+def check_sharded_selectors(apps, reqs, now):
+    """Phase 15 (b): the sharded selectors on the card at SHARD_COUNTS
+    shard blocks (``force_shard_devices``), ``chunk`` 0 and 16, the
+    single-slot and the LRU carry, on phase 12 (a)'s three shapes: every
+    schedule (workers, models, starts, latencies) equal to the unsharded
+    route's on the card (``selection_scan`` / ``spec_scan``) and its
+    ``chunk_stats`` too; at MAIN_SHARDS shards, on one chunk per shape, the
+    shard stats equal the same selector's on the host.  Returns {case:
+    (seconds per window, shard_round launches, shard stats)}."""
+    import torch
+
+    from repro_torch.core import shard as tshard
+    from repro_torch.core.multiworker import Worker
+    from repro_torch.core.scheduler import make_policy, schedule_window
+    from repro_torch.core.streaming import StreamingState
+    from repro_torch.kernels.shard_round import ops as shard_ops
+
+    pool = [Worker(0), Worker(1, speed=2.0), Worker(2, speed=0.5), Worker(3, load_scale=2.0)]
+    # The chunk whose host run is compared, per shape: the plain chain
+    # takes milliseconds a position on the host.
+    host_chunk = {"LO-EDF": PIPELINE_CHUNK, "SneakPeek": 0,
+                  "SneakPeek on 4 workers": PIPELINE_CHUNK}
+    out = {}
+    prev = tshard.force_shard_devices(max(SHARD_COUNTS))
+    try:
+        for res_mode, cap in (("slot1", None), ("lru", 400 * 2**20)):
+            for label, policy, workers in (("LO-EDF", "LO-EDF", None),
+                                           ("SneakPeek", "SneakPeek", None),
+                                           ("SneakPeek on 4 workers", "SneakPeek", pool)):
+                state = None
+                if cap is not None:
+                    state = StreamingState(
+                        worker_ids=[w.wid for w in workers] if workers else None,
+                        memory_capacity_bytes=cap)
+                for chunk in SHARD_CHUNKS:
+                    want, _ = schedule_window(make_policy(policy, pipeline=True, chunk=chunk),
+                                              reqs, apps, now, workers=workers, state=state,
+                                              device="cuda")
+                    for shards in SHARD_COUNTS:
+                        pipe = tshard.ShardedWindowPipeline(
+                            apps, policy=make_policy(policy, pipeline=True), workers=workers,
+                            chunk=chunk, shard=shards, device="cuda")
+                        torch.cuda.synchronize()
+                        before = shard_ops.counter.count
+                        t = time.perf_counter()
+                        got = pipe.schedule(reqs, now, state=state)
+                        torch.cuda.synchronize()
+                        secs = time.perf_counter() - t
+                        launched = shard_ops.counter.count - before
+                        key = f"{label}, {res_mode}, chunk {chunk}, {shards} shards"
+                        require(_sched_sig(got) == _sched_sig(want),
+                                f"{key}: the sharded schedule differs from the unsharded one")
+                        require(got.chunk_stats == want.chunk_stats,
+                                f"{key}: chunk stats {got.chunk_stats} != {want.chunk_stats}")
+                        require(launched > 0, f"{key}: no shard_round launch")
+                        stats = pipe.last_shard_stats
+                        if shards == MAIN_SHARDS and chunk == host_chunk[label]:
+                            host = tshard.ShardedWindowPipeline(
+                                apps, policy=make_policy(policy, pipeline=True),
+                                workers=workers, chunk=chunk, shard=shards, device="cpu")
+                            host.schedule(reqs, now, state=state)
+                            require(host.last_shard_stats == stats,
+                                    f"{key}: shard stats {stats} != the host's "
+                                    f"{host.last_shard_stats}")
+                        out[key] = (secs, launched, stats)
+                        print(f"    {key}: equal to the unsharded route; {secs:.4f} s, "
+                              f"{launched} shard_round launches, {stats}"
+                              + (" = the host's" if shards == MAIN_SHARDS
+                                 and chunk == host_chunk[label] else ""))
+    finally:
+        tshard.force_shard_devices(prev)
+    return out
+
+
+def check_sharded_simulation(apps, sneaks, trace, seed, want_sigs):
+    """Phase 15 (c): ``Simulation(shard=MAIN_SHARDS, chunk=16)`` over phase
+    5's trace on the card (shard blocks sharing it): every window's
+    schedule equal to phase 12 (b)'s SneakPeek schedules (``want_sigs``),
+    counts set to 0 just before and read just after, ``shard_round``
+    launched and no scan; then ``shard=1`` launching exactly what
+    ``pipeline=True`` launches, and no ``shard_round``; then ``shard=True``
+    on every card of the host: on one card the same delegation, on several
+    one shard per card, ``shard_round`` launched on each and the same
+    schedules.  Returns (the sharded run's launches, its scheduling seconds
+    per window)."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.core import shard as tshard
+    from repro_torch.core import simulator as tsim
+    from repro_torch.core.scheduler import make_policy
+
+    def run(**kwargs):
+        seen, real_eval = [], tsim.evaluate
+
+        def spy(sched, *a, **kw):
+            seen.append(_sched_sig(sched))
+            return real_eval(sched, *a, **kw)
+
+        tsim.evaluate = spy
+        try:
+            sim = tsim.Simulation(make_policy("SneakPeek"), apps, sneakpeeks=sneaks,
+                                  short_circuit=True, seed=seed, chunk=PIPELINE_CHUNK,
+                                  device="cuda", **kwargs)
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            sim.run(trace)
+            torch.cuda.synchronize()
+            launches = kernels.launch_counts()
+        finally:
+            tsim.evaluate = real_eval
+        return sim, seen, {k: n for k, n in launches.items() if n}
+
+    prev = tshard.force_shard_devices(MAIN_SHARDS)
+    try:
+        sim, seen, launches = run(shard=MAIN_SHARDS)
+    finally:
+        tshard.force_shard_devices(prev)
+    require(seen == want_sigs, f"shard={MAIN_SHARDS}: schedules differ from phase 12 (b)'s")
+    require(launches.get("shard_round", 0) > 0 and not launches.get("spec_scan")
+            and not launches.get("selection_scan"),
+            f"shard={MAIN_SHARDS}: launches {launches}")
+    seconds = [row["overhead_s"] for row in sim.log]
+    print(f"    shard={MAIN_SHARDS}: {len(seen)} windows equal to phase 12 (b)'s; launches "
+          f"{launches}; shard stats of the last window {sim._pipeline.last_shard_stats}")
+    print("      scheduling s per window: " + " ".join(f"{x:.4f}" for x in seconds))
+    _, pipe_seen, pipe_launches = run(pipeline=True)
+    one, one_seen, one_launches = run(shard=1)
+    require(one._pipeline.num_shards() == 1 and one_seen == pipe_seen == want_sigs
+            and one_launches == pipe_launches and "shard_round" not in one_launches,
+            f"shard=1 launched {one_launches}, pipeline=True {pipe_launches}")
+    every, every_seen, every_launches = run(shard=True)
+    n_dev = torch.cuda.device_count()
+    require(every._pipeline.num_shards() == n_dev, f"shard=True resolved to "
+            f"{every._pipeline.num_shards()} shards on {n_dev} device(s)")
+    require(every_seen == want_sigs, "shard=True schedules differ")
+    if n_dev == 1:  # one device: one shard, delegated
+        require(every_launches == pipe_launches,
+                f"shard=True launched {every_launches}, pipeline=True {pipe_launches}")
+    else:  # one shard per card, the blocks copied between them
+        require(every_launches.get("shard_round", 0) > 0 and not every_launches.get("spec_scan"),
+                f"shard=True on {n_dev} devices launched {every_launches}")
+    print(f"    shard=1: the same schedules and launches as pipeline=True: {one_launches}; "
+          f"shard=True on {n_dev} device(s): {n_dev} shard(s), the same schedules, launches "
+          f"{every_launches}")
+    return launches, seconds
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
     import torch
@@ -2782,6 +3121,27 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     print(f"    (c) {time.perf_counter() - t0:.1f} s")
 
+    print("[15] sharded window scheduling: ShardedWindowPipeline, the shard_round kernel")
+    gc.collect()
+    torch.cuda.empty_cache()
+    window0 = trace[: args.per_app * len(specs)]
+    t0 = time.perf_counter()
+    print(f"  (a) shard_round against its plain version on phase 5's first window, "
+          f"{MAIN_SHARDS} shards, chunk 0")
+    shard_t = check_shard_round(effective_apps(apps, sneaks, True), window0, 0.1)
+    print(f"    (a) {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    print(f"  (b) the sharded selectors at {SHARD_COUNTS} shards, chunks {SHARD_CHUNKS}, against "
+          "the unsharded route")
+    shard_b = check_sharded_selectors(effective_apps(apps, sneaks, True), window0, 0.1)
+    print(f"    (b) {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    print(f"  (c) Simulation(shard={MAIN_SHARDS}, chunk={PIPELINE_CHUNK}) over phase 5's trace; "
+          "shard=True on this card")
+    shard_launches, _ = check_sharded_simulation(apps, sneaks, trace, args.seed,
+                                                 scan_sigs["SneakPeek"])
+    print(f"    (c) {time.perf_counter() - t0:.1f} s")
+
     rows = [
         ("knn_topk", "knn/csrc/knn.cu", "knn/kernel.py:92", launches, knn_t),
         ("utility_scores", "utility/csrc/utility.cu", "utility/kernel.py:56", launches, util_t),
@@ -2828,7 +3188,7 @@ def main(argv=None) -> int:
         "replaces": "src/repro/core/pipeline.py:244", "launches": spec_by_policy["SneakPeek"],
         **{key: main_spec[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                            "bound_by", "library_ms", "shape", "sequential_ms",
-                                           "rounds", "conflicts")},
+                                           "rounds", "conflicts", "chain_bound_ms")},
         "programs": spec_t, "launches_by_policy": spec_by_policy})
     # The RG-LRU scan replaces the reference's associative scan (no Pallas
     # kernel); its launches are phase 14 (b)'s run, its times those of
@@ -2838,6 +3198,21 @@ def main(argv=None) -> int:
         "source": "src/repro_torch/kernels/rglru_scan/csrc/rglru_scan.cu",
         "replaces": "src/repro/models/rglru.py:77", "launches": rec_launches.get("rglru_scan", 0),
         **rglru_t["prefill"], "decode": rglru_t["decode"]})
+    # The sharded rounds replace the per-shard programs of the reference's
+    # sharded pipeline (no Pallas kernel); the launches are phase 15 (c)'s
+    # run, the times those of LO-EDF's largest block and longest chain in
+    # phase 15 (a).
+    main_shard = shard_t["LO-EDF, slot1"]
+    table["kernels"].append({
+        "name": "shard_round", "route": "cuda",
+        "source": "src/repro_torch/kernels/shard_round/csrc/shard_round.cu",
+        "replaces": "src/repro/core/shard.py:162", "launches": shard_launches["shard_round"],
+        **{key: main_shard[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                            "bound_by", "library_ms", "shape",
+                                            "chain_bound_ms", "chain_ms", "chain_plain_ms")},
+        "programs": shard_t,
+        "selectors": {key: {"s": secs, "launches": n, "stats": st}
+                    for key, (secs, n, st) in shard_b.items()}})
     print(f"    total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps(table))

@@ -25,6 +25,7 @@ _EXPORTS = {
     "priority": ("group_priority", "request_priorities", "request_priority"),
     "scheduler": ("POLICY_NAMES", "SchedulerPolicy", "effective_apps", "make_policy",
                   "schedule_window"),
+    "shard": ("ShardedWindowPipeline",),
     "simulator": ("Simulation", "WindowResult", "run_window"),
     "sneakpeek": ("ConfusionSneakPeek", "DecisionRuleSneakPeek", "KNNSneakPeek",
                   "SneakPeekModel", "attach_sneakpeek", "ingest_window"),

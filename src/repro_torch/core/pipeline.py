@@ -52,7 +52,8 @@ numpy fast path's and the scalar reference's decision for decision and
 time for time.  ``set_pipeline_backend("numpy")`` routes every pipeline
 schedule through the port's fast path instead.
 
-Not ported: sharding (``shard``, ROADMAP item 11) raises under its label.
+``shard`` splits the tiles across shards (``core.shard``,
+``ShardedWindowPipeline``; bit-identical decisions).
 """
 from __future__ import annotations
 
@@ -73,7 +74,6 @@ from repro_torch.core.fastpath import (
     placement_pref,
     precompute_windows,
 )
-from repro_torch.core.scheduler import not_ported
 from repro_torch.core.sneakpeek import ingest_window
 from repro_torch.core.types import Application, Request, Schedule, ScheduleEntry
 from repro_torch.core.utility import PENALTY_CODES, gamma
@@ -344,15 +344,12 @@ def _scan(res_mode, t0, res0, sizes, cap, acc, mask, deadlines, bsize, lat, step
     return out[:, :-1], out[:2, -1].astype(np.int64)
 
 
-def _per_request_program(wa: WindowArrays, ordering, selection, data_aware, res_mode, seed,
-                         app_id, tabs, chunk: int = 0):
-    """Eq. 9/12 head -> ordering -> Eq. 2/13 scan, for one window.
-
-    ``seed`` is ``_state_seed``'s carry; ``app_id`` (N,) host ints index
-    the device ``tabs`` ("swap", "lat1", "gid", "valid", "pen", "pref") in
-    tie-preference column order; ``chunk`` > 0 speculates (MaxAcc's
-    carry-free choices are the chunked scan's ``fixed_sel``).  Returns
-    (order, stacked scan rows, chunk stats or None)."""
+def _per_request_head(wa: WindowArrays, ordering, selection, data_aware, app_id, tabs):
+    """The per-request program's Eq. 9/12 head, for one window: (order,
+    the ordered (N, M) accuracy rows in tie-preference column order, the
+    ordered rows' application ids, MaxAcc's carry-free choices or None).
+    ``app_id`` (N,) host ints index the device ``tabs`` ("swap", "lat1",
+    "gid", "valid", "pen", "pref") of ``_window_tables``."""
     dev = wa.device
     acc_mode = "sharpened" if data_aware else "profiled"
     n_total = len(wa.requests)
@@ -372,13 +369,26 @@ def _per_request_program(wa: WindowArrays, ordering, selection, data_aware, res_
         # preference order, so the first max is the scalar tie-break.
         neg_inf = torch.tensor(float("-inf"), dtype=SCHED_DTYPE, device=dev)
         fixed = torch.argmax(torch.where(tabs["valid"][aid], acc[order_t], neg_inf), dim=1)
-    ones = torch.ones((n_total, 1), dtype=SCHED_DTYPE, device=dev)
+    return order, acc[order_t], aid, fixed
+
+
+def _per_request_program(wa: WindowArrays, ordering, selection, data_aware, res_mode, seed,
+                         app_id, tabs, chunk: int = 0):
+    """Eq. 9/12 head -> ordering -> Eq. 2/13 scan, for one window.
+
+    ``seed`` is ``_state_seed``'s carry; ``app_id`` and ``tabs`` as
+    ``_per_request_head``'s; ``chunk`` > 0 speculates (MaxAcc's carry-free
+    choices are the chunked scan's ``fixed_sel``).  Returns (order,
+    stacked scan rows, chunk stats or None)."""
+    order, acc, aid, fixed = _per_request_head(wa, ordering, selection, data_aware, app_id, tabs)
+    n_total = len(wa.requests)
+    ones = torch.ones((n_total, 1), dtype=SCHED_DTYPE, device=wa.device)
     t0, res0, sizes, cap = seed
     out, stats = _scan(
-        res_mode, t0, res0, sizes, cap, acc[order_t][:, None, :], ones,
-        wa.deadlines_t[order_t][:, None], ones[:, 0], tabs["lat1"][aid][:, None, :], aid,
-        tabs["swap"][:, None, :], tabs["gid"], tabs["valid"], tabs["pen"], tabs["pref"], fixed,
-        chunk=chunk,
+        res_mode, t0, res0, sizes, cap, acc[:, None, :], ones,
+        wa.deadlines_t[wa._tensor(order)][:, None], ones[:, 0], tabs["lat1"][aid][:, None, :],
+        aid, tabs["swap"][:, None, :], tabs["gid"], tabs["valid"], tabs["pen"], tabs["pref"],
+        fixed, chunk=chunk,
     )
     return order, out, stats
 
@@ -858,12 +868,18 @@ class WindowPipeline:
             app_id, tab["dev"], chunk,
         )
         self._record_chunk_stats(chunk, len(wa.requests), stats)
-        local = tab["pref"][app_id[order], out[1].astype(np.int64)]
+        return self._per_request_emit(wa, tab, app_id, order, out[1].astype(np.int64), out[2],
+                                      out[3])
+
+    def _per_request_emit(self, wa, tab, app_id, order, sel, starts, lats):
+        """Host-side emit of the per-request path: one entry per request in
+        the window's order, model names through the tie-pref permutation."""
+        local = tab["pref"][app_id[order], sel]
         # Host assembly off bulk tolist(): this loop runs once per request.
         order_l = order.tolist()
         local_l = local.tolist()
-        starts_l = out[2].tolist()
-        lats_l = out[3].tolist()
+        starts_l = np.asarray(starts).tolist()
+        lats_l = np.asarray(lats).tolist()
         reqs = wa.requests
         app_of = wa.app_of
         names = {name: wa.app_arrays[name].names for name in wa.req_idx}
@@ -1007,11 +1023,16 @@ def pipeline_schedule(
     ``lat_scale``/``worker_mask`` the closed loop's drift corrections and
     health masking, multi-worker only; ``chunk`` overrides the policy's
     speculative chunked selection size).  ``shard`` (or the policy's
-    field) raises under its ROADMAP label."""
+    field) routes through ``core.shard.ShardedWindowPipeline``
+    (bit-identical decisions)."""
     shard = shard if shard is not None else getattr(policy, "shard", False)
     if shard:
-        not_ported("shard")
-    pipe = WindowPipeline(apps, policy=policy, backend=backend, workers=workers, chunk=chunk,
-                          device=device)
+        from repro_torch.core.shard import ShardedWindowPipeline
+
+        pipe = ShardedWindowPipeline(apps, policy=policy, backend=backend, workers=workers,
+                                     chunk=chunk, shard=shard, device=device)
+    else:
+        pipe = WindowPipeline(apps, policy=policy, backend=backend, workers=workers,
+                              chunk=chunk, device=device)
     return pipe.schedule(requests, now, state=state, arrays=arrays, lat_scale=lat_scale,
                          worker_mask=worker_mask)

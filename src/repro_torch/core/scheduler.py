@@ -14,9 +14,8 @@ Fig. 7 incremental study requires.
 The port of ``repro.core.scheduler``, with the §VII multi-worker
 placement (``schedule_window(workers=...)``, Eq. 15) and the compiled
 window pipeline (``pipeline=True``, ``core.pipeline``) with its
-speculative chunked selection (``chunk`` > 0).  Sharding (``shard``) is
-not ported yet: asking for it raises ``NotImplementedError`` naming the
-ROADMAP item that will bring it (``NOT_PORTED``).
+speculative chunked selection (``chunk`` > 0) and its sharded form
+(``shard``, ``core.shard``).
 """
 from __future__ import annotations
 
@@ -31,7 +30,6 @@ from repro_torch.core.selection import locally_optimal, max_accuracy
 from repro_torch.core.types import Application, Request, Schedule, ScheduleEntry
 
 __all__ = [
-    "NOT_PORTED",
     "SchedulerPolicy",
     "make_policy",
     "POLICY_NAMES",
@@ -65,14 +63,12 @@ class SchedulerPolicy:
     # ``spec_scan`` launch per window; decisions stay bit-identical.  0
     # keeps the sequential scan.
     chunk: int = 0
-    # Device sharding: a field of the reference's policy that only takes
-    # its off value here (False); anything else raises under its ROADMAP
-    # label.
+    # Sharded window scheduling (``core.shard``): True splits the tiles
+    # across every device of the scheduling device's kind, an int pins the
+    # shard count (``make_policy(name, shard=True)``).  Implies the
+    # pipeline route; decisions stay bit-identical to the unsharded scan
+    # (one shard delegates to the plain pipeline verbatim).
     shard: bool | int = False
-
-    def __post_init__(self):
-        if self.shard:
-            not_ported("shard")
 
     def schedule(
         self,
@@ -89,10 +85,10 @@ class SchedulerPolicy:
         clone, never committed); ``arrays`` is an optional precomputed
         ``fastpath.WindowArrays``; ``device`` is where the fast path's
         batched math runs (``device.resolve_device``).  With
-        ``pipeline=True`` the window goes through
+        ``pipeline=True`` or ``shard`` the window goes through
         ``pipeline.pipeline_schedule``."""
         t0 = time.perf_counter()
-        if self.pipeline:
+        if self.pipeline or self.shard:
             from repro_torch.core.pipeline import pipeline_schedule
 
             sched = pipeline_schedule(
@@ -183,17 +179,10 @@ _POLICIES: dict[str, SchedulerPolicy] = {
 }
 POLICY_NAMES = list(_POLICIES)
 
-# Options of the reference that this port does not have yet, with the
-# ROADMAP item ("Open items" -> "Modules to port") that brings each: a
-# truthy ``shard``, wherever it is passed.
-NOT_PORTED: dict[str, str] = {
-    "shard": "item 11 (sharded scheduling)",
-}
-
-
-def not_ported(option: str, table: Mapping[str, str] = NOT_PORTED):
+def not_ported(option: str, table: Mapping[str, str]):
     """Raise for a reference option this port does not have yet; ``table``
-    maps each option to its ROADMAP item (the scheduler's by default)."""
+    maps each option to its ROADMAP item ("Open items" -> "Modules to
+    port")."""
     raise NotImplementedError(
         f"{option!r} is not ported to repro_torch yet: see ROADMAP.md, "
         f"'Modules to port', {table[option]}"
@@ -202,8 +191,7 @@ def not_ported(option: str, table: Mapping[str, str] = NOT_PORTED):
 
 def make_policy(name: str, **overrides) -> SchedulerPolicy:
     """Look up one of the paper's five policies, optionally overridden
-    (e.g. ``make_policy("LO-EDF", data_aware=True)`` for Fig. 7).  A
-    ``shard`` raises (``NOT_PORTED``)."""
+    (e.g. ``make_policy("LO-EDF", data_aware=True)`` for Fig. 7)."""
     base = _POLICIES[name]
     if not overrides:
         return base
@@ -262,7 +250,7 @@ def schedule_window(
     data-awareness, label-splitting and fastpath come from the policy,
     placement from ``multiworker_schedule`` (``per_request`` for the
     ungrouped policies), or from the compiled placement program
-    (``core.pipeline``) when the policy has ``pipeline=True``.  ``state``
+    (``core.pipeline``) when the policy has ``pipeline=True`` or ``shard``.  ``state``
     carries streaming backlog + residency; ``arrays`` is a precomputed ``fastpath.WindowArrays``;
     ``device`` is where the k-NN search and the batched equations run
     (the card unless ``"cpu"`` is named).  ``lat_scale`` ({(wid, model):
@@ -278,7 +266,7 @@ def schedule_window(
         attach_sneakpeek(requests, apps, sneakpeeks, device=dev)
     eff_apps = effective_apps(apps, sneakpeeks, short_circuit)
     if workers:
-        if policy.pipeline:
+        if policy.pipeline or policy.shard:
             from repro_torch.core.pipeline import pipeline_schedule
 
             sched = pipeline_schedule(

@@ -16,12 +16,12 @@ The port of ``repro.core.simulator``:
     several windows' Eq. 9/12 matrices as one stacked program,
     ``fastpath.precompute_windows``) and through the compiled window
     pipeline (``pipeline=True``, ``core.pipeline``, with ``chunk=`` its
-    speculative chunked selection).
+    speculative chunked selection), sharded or not (``shard=``,
+    ``core.shard``).
 
 Both take ``device=``: the k-NN search, the batched equations and the
 pipeline's selection scan run there (the card unless ``"cpu"`` is
-named).  Still raising ``NotImplementedError`` under its ROADMAP label:
-``shard`` (item 11).
+named).
 """
 from __future__ import annotations
 
@@ -34,7 +34,6 @@ from repro_torch.core.evaluation import EvalResult, evaluate
 from repro_torch.core.scheduler import (
     SchedulerPolicy,
     effective_apps,
-    not_ported,
     schedule_window,
 )
 from repro_torch.core.streaming import StreamingState
@@ -108,8 +107,10 @@ class Simulation:
         (``pipeline.WindowPipeline``'s ``chunk``): ``None`` defers to the
         policy's ``chunk`` field, 0 forces the sequential scan; without
         ``pipeline`` it is not used, as in the reference.
-      shard: the reference's sharding; False is accepted, anything else
-        raises under its ROADMAP label (``scheduler.NOT_PORTED``).
+      shard: sharded window scheduling (``core.shard``): True splits the
+        pipeline's tiles across every device of ``device``'s kind, an int
+        pins the shard count; implies ``pipeline`` and composes with
+        ``workers`` and ``chunk``.
       device: where the SneakPeek stage, the batched equations and the
         pipeline's scan run.
     """
@@ -133,8 +134,6 @@ class Simulation:
         *,
         device=None,
     ):
-        if shard:
-            not_ported("shard")
         if prebatch_backend not in ("numpy", "jax"):
             raise ValueError(f"unknown precompute backend {prebatch_backend!r}")
         self.policy = policy
@@ -158,7 +157,14 @@ class Simulation:
         # Application objects would also defeat AppArrays memoization).
         self._eff_apps = effective_apps(self.apps, sneakpeeks, short_circuit)
         self._pipeline = None
-        if pipeline:
+        if shard:
+            from repro_torch.core.shard import ShardedWindowPipeline
+
+            self._pipeline = ShardedWindowPipeline(
+                self._eff_apps, policy=policy, workers=self.workers, chunk=chunk, shard=shard,
+                device=self.device,
+            )
+        elif pipeline:
             from repro_torch.core.pipeline import WindowPipeline
 
             self._pipeline = WindowPipeline(

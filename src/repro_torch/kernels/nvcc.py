@@ -76,6 +76,12 @@ SOURCES: dict[str, Source] = {
         "spec_scan", _KERNELS_DIR / "spec_scan" / "csrc" / "spec_scan.cu", ("--fmad=false",),
         (_PENALTY_H, _LRU_H, _STEP_H),
     ),
+    # The sharded rounds score rows with the scans' step and chain the
+    # carry with their update: the same arithmetic and rule.
+    "shard_round": Source(
+        "shard_round", _KERNELS_DIR / "shard_round" / "csrc" / "shard_round.cu",
+        ("--fmad=false",), (_PENALTY_H, _LRU_H, _STEP_H),
+    ),
     "flash_attention": Source(
         "flash_attention", _KERNELS_DIR / "flash_attention" / "csrc" / "flash_attention.cu"
     ),

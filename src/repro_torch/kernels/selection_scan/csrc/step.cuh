@@ -26,7 +26,7 @@ struct ScanArgs {
   const int64_t* gid;        // (A, M) residency ids, -2 for padding
   const unsigned char* valid;  // (A, M) real models
   const int64_t* pen;        // (A,) penalty codes
-  const int64_t* pref;       // (A, W * M) preference permutations
+  const int64_t* pref;       // (A, W * M) preference permutations, or null (no pick)
   const int64_t* fixed;      // (S,) fixed choices, or null
   double* tile;              // (C, W, B, M) scratch (B = 1 with fixed choices)
   double* out;               // (4, ld): worker, model, start, latency
@@ -169,7 +169,9 @@ __device__ void score_steps(const ScanArgs& p, const StepRows& rows, int pos, in
   }
   __syncthreads();
 
-  // D. Each position's first maximum over its preference permutation.
+  // D. Each position's first maximum over its preference permutation
+  // (none without one: the caller picks from the means).
+  if (p.pref == nullptr) return;
   for (int k = k0 + tid; k < kn; k += blockDim.x) {
     if (!One) view_step(p, pos + k, v);
     const int64_t* pr = p.pref + (size_t)v.a * wm;

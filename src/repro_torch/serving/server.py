@@ -20,10 +20,9 @@ corrected from realized ones); ``overlap=True`` schedules window k+1
 while window k runs on the lanes.  ``pipeline=True`` feeds every window
 through one persistent ``core.pipeline.WindowPipeline`` (one
 ``selection_scan`` launch per scheduling pass, or one ``spec_scan``
-launch with ``chunk`` > 0), on every loop mode.  The reference's
-sharding (``shard``) is not ported yet: it raises
-``NotImplementedError`` naming the ROADMAP item that brings it
-(``NOT_PORTED``).
+launch with ``chunk`` > 0), on every loop mode; ``shard`` feeds them
+through ``core.shard.ShardedWindowPipeline`` instead (the tiles split
+across shards, bit-identical decisions).
 """
 from __future__ import annotations
 
@@ -35,13 +34,7 @@ import numpy as np
 
 from repro_torch.core.evaluation import evaluate
 from repro_torch.core.health import HealthTracker
-from repro_torch.core.scheduler import (
-    NOT_PORTED as SCHEDULER_NOT_PORTED,
-    SchedulerPolicy,
-    effective_apps,
-    not_ported,
-    schedule_window,
-)
+from repro_torch.core.scheduler import SchedulerPolicy, effective_apps, schedule_window
 from repro_torch.core.sneakpeek import attach_sneakpeek
 from repro_torch.core.streaming import StreamingState
 from repro_torch.core.types import Application, Request
@@ -49,13 +42,7 @@ from repro_torch.device import resolve_device
 from repro_torch.serving.faults import FaultInjector, FaultPlan
 from repro_torch.serving.runtime import ExecutorPool, LMExecutor, WindowQueue
 
-__all__ = ["EdgeServer", "ServeStats", "NOT_PORTED"]
-
-# Serving options of the reference this port does not have yet, with the
-# ROADMAP item ("Open items" -> "Modules to port") that brings each.
-NOT_PORTED: dict[str, str] = {
-    "shard": SCHEDULER_NOT_PORTED["shard"],
-}
+__all__ = ["EdgeServer", "ServeStats"]
 
 
 @dataclasses.dataclass
@@ -199,12 +186,12 @@ class EdgeServer:
         compiled programs schedule every window (decision-identical to
         the fast path).  ``chunk`` sizes the pipeline's speculative
         chunked selection (bit-identical decisions; ``None`` defers to the
-        policy's ``chunk`` field, 0 = the sequential scan).
+        policy's ``chunk`` field, 0 = the sequential scan).  ``shard``
+        keeps a ``core.shard.ShardedWindowPipeline`` instead (True = every
+        device of ``device``'s kind, N = N shards; implies ``pipeline``).
 
         Every option defaults off, leaving the plain loop's decisions
-        unchanged.  ``shard`` raises."""
-        if shard:
-            not_ported("shard", NOT_PORTED)
+        unchanged."""
         self.device = resolve_device(device)
         self.apps = dict(apps)
         self.policy = policy
@@ -293,7 +280,14 @@ class EdgeServer:
                 name: int(exec_backend.model_bytes(name)) for name in exec_backend.variants
             })
         self._pipeline = None
-        if pipeline:
+        if shard:
+            from repro_torch.core.shard import ShardedWindowPipeline
+
+            self._pipeline = ShardedWindowPipeline(
+                self._eff_apps, sneakpeeks=sneakpeeks, policy=policy,
+                workers=self.workers, chunk=chunk, shard=shard, device=self.device,
+            )
+        elif pipeline:
             from repro_torch.core.pipeline import WindowPipeline
 
             self._pipeline = WindowPipeline(

@@ -17,7 +17,9 @@ stream's long kernel.  The pipeline's selection scan and its chunked
 (speculative) scan are held bit for bit against their plain versions on
 the three programs' table shapes and both residency carries, the chunked
 one also against the sequential kernel, and the pipeline on the card
-against the fast path on the card; the RG-LRU scan against its plain
+against the fast path on the card; the sharded rounds' two entry points
+(``shard_round``) bit for bit against their plain versions, and the
+sharded pipeline on the card against the unsharded one; the RG-LRU scan against its plain
 loop; the decode step of recurrentgemma-9b and llama4-scout (the S = 1
 scan, the routed MoE at batch 2) graphed and under
 ``set_sync_debug_mode("error")``.
@@ -35,6 +37,7 @@ from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.knn import ops as knn_ops
 from repro_torch.kernels.rglru_scan import ops as rglru_ops
 from repro_torch.kernels.selection_scan import ops as scan_ops
+from repro_torch.kernels.shard_round import ops as shard_ops
 from repro_torch.kernels.spec_scan import ops as spec_ops
 from repro_torch.kernels.knn.ref import knn_topk_ref
 from repro_torch.kernels.ssd import ops as ssd_ops
@@ -1302,3 +1305,225 @@ def test_rglru_scan_kernel_matches_plain(cuda, b, s, width, h0, dtype):
     assert y.dtype == dtype and h_last.dtype == torch.float32
     torch.testing.assert_close(y.float(), y_ref.float(), atol=tol, rtol=tol)
     torch.testing.assert_close(h_last, h_ref, atol=1e-4, rtol=1e-4)
+
+
+# ------------------------------------------------ the sharded rounds
+
+
+def _shard_block_inputs(program, res_mode, device, rows=256):
+    """A shard's block of the scan tables of ``program`` (its first
+    ``rows`` steps), a carry per row (tails and resident ids drawn at
+    random), tie-break ranks that invert the preference permutation, and on
+    more than one worker the last worker padded (``wvalid`` False)."""
+    seed_args, tabs, fixed = _scan_inputs(program, res_mode, device)
+    t0, res0, sizes, cap = seed_args
+    rng = np.random.default_rng([len(program), len(res_mode), rows])
+    r = min(rows, tabs["acc"].shape[0])
+    w, k = res0.shape
+    n_ids = sizes.shape[1]
+    t = t0[None, :] + np.round(rng.uniform(0.0, 0.5, (r, w)) * 1024) / 1024
+    res = np.full((r, w, k), -1, dtype=np.int64)
+    for i in range(r):
+        for wi in range(w):
+            held = rng.permutation(n_ids)[: min(k, int(rng.integers(0, 5)))]
+            res[i, wi, : len(held)] = held
+    pref = tabs["pref"].cpu().numpy()
+    rank = np.empty_like(pref)
+    for a in range(len(pref)):
+        rank[a, pref[a]] = np.arange(pref.shape[1])
+    block = {name: tabs[name][:r] for name in ("acc", "mask", "deadlines", "bsize", "lat",
+                                               "step_app")}
+    block.update({name: tabs[name] for name in ("swap", "gid", "valid", "pen")})
+    block["rank"] = torch.as_tensor(rank, device=device)
+    block["wvalid"] = torch.arange(w, device=device) < max(1, w - 1) if w > 1 else None
+    carry = (torch.as_tensor(t, device=device), torch.as_tensor(res, device=device))
+    return carry, block, None if fixed is None else fixed[:r], seed_args
+
+
+def _score(carry, block, fixed, res_mode):
+    return shard_ops.score_block(
+        *carry, res_mode == "slot1", block["acc"], block["mask"], block["deadlines"],
+        block["bsize"], block["lat"], block["step_app"], block["swap"], block["gid"],
+        block["valid"], block["pen"], block["rank"], block["wvalid"], fixed)
+
+
+@pytest.mark.parametrize("res_mode", ["slot1", "lru"])
+@pytest.mark.parametrize("program", sorted(SCAN_SHAPES))
+def test_shard_round_kernels_match_plain(cuda, program, res_mode):
+    """``score_block`` on a block of rows, each against its own carry and
+    against one expanded carry, and ``chain`` over the block's picks:
+    every output bit-identical to the plain versions on host copies, one
+    launch each."""
+    carry, block, fixed, (t0, res0, sizes, cap) = _shard_block_inputs(program, res_mode, cuda)
+    host = {k: v.cpu() if v is not None else None for k, v in block.items()}
+    host_fixed = None if fixed is None else fixed.cpu()
+    r = carry[0].shape[0]
+    frozen = (carry[0][:1].expand(r, -1), carry[1][:1].expand(r, -1, -1))
+    for c in (carry, frozen):
+        before = shard_ops.counter.count
+        got = _score(c, block, fixed, res_mode)
+        assert shard_ops.counter.count == before + 1
+        want = _score(tuple(x.cpu() for x in c), host, host_fixed, res_mode)
+        assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+    m = block["acc"].shape[2]
+    f, i = got
+    args = (torch.as_tensor(t0, device=cuda), torch.as_tensor(res0, device=cuda),
+            torch.as_tensor(sizes, device=cuda), cap, res_mode == "slot1", i[0] // m, i[2],
+            f[1], f[3])
+    before = shard_ops.counter.count
+    t_st, r_st = shard_ops.chain(*args)
+    assert shard_ops.counter.count == before + 1
+    want_t, want_r = shard_ops.chain(*(x.cpu() if isinstance(x, torch.Tensor) else x
+                                       for x in args))
+    assert torch.equal(t_st.cpu(), want_t) and torch.equal(r_st.cpu(), want_r)
+
+
+@pytest.mark.parametrize("pool", [None, [(0, 1.0, 1.0), (1, 2.0, 1.0), (2, 0.5, 2.0)]],
+                         ids=["one-worker", "pool"])
+def test_sharded_pipeline_on_the_card_matches_unsharded(cuda, pool):
+    """2 and 4 shard blocks on the card (``force_shard_devices``), chunk 0
+    and 16, an evicting capacity: the schedules of the unsharded pipeline
+    on the card, the shard stats of the same pipeline on the host, and
+    ``shard_round`` launches only when sharded (``shard=1`` launches what
+    the unsharded pipeline does)."""
+    from repro_torch.core import shard as tshard
+    from repro_torch.core.multiworker import Worker
+    from repro_torch.core.scheduler import POLICY_NAMES, make_policy
+    from repro_torch.core.sneakpeek import attach_sneakpeek
+    from repro_torch.core.streaming import StreamingState
+    from repro_torch.data import applications as apps_mod
+    from repro_torch.kernels import launch_counts
+
+    apps, sneaks = apps_mod.build_benchmark_suite(seed=0, device=cuda)
+    workers = [Worker(w, speed=s, load_scale=ls) for w, s, ls in pool] if pool else None
+    wids = [w.wid for w in workers] if workers else None
+
+    def sig(sched):
+        return [(e.request.rid, e.model, e.order, e.batch_id, e.worker, e.est_start_s,
+                 e.est_latency_s) for e in sched.sorted_entries()]
+
+    prev = tshard.force_shard_devices(4)
+    try:
+        for policy in POLICY_NAMES:
+            reqs = apps_mod.make_requests(list(apps_mod.APP_SPECS.values()), per_app=40,
+                                          deadline_std_s=0.05, seed=5)
+            attach_sneakpeek(reqs, apps, sneaks, device=cuda)
+            state = StreamingState(worker_ids=wids, memory_capacity_bytes=400 * 2**20)
+            for chunk in (0, 16):
+                pol = make_policy(policy, pipeline=True, chunk=chunk)
+                launched = []
+                for pipe in (tshard.WindowPipeline(apps, policy=pol, workers=workers,
+                                                   device=cuda),
+                             tshard.ShardedWindowPipeline(apps, policy=pol, workers=workers,
+                                                          shard=1, device=cuda)):
+                    before = launch_counts()
+                    sched = pipe.schedule(reqs, 0.1, state=state)
+                    after = launch_counts()
+                    launched.append({k: n - before.get(k, 0) for k, n in after.items()
+                                     if n != before.get(k, 0)})
+                    if len(launched) == 1:
+                        want = sched
+                assert sig(sched) == sig(want) and launched[1] == launched[0]
+                assert "shard_round" not in launched[1]
+                for shards in (2, 4):
+                    host = tshard.ShardedWindowPipeline(apps, policy=pol, workers=workers,
+                                                        shard=shards, device="cpu")
+                    host.schedule(reqs, 0.1, state=state)
+                    pipe = tshard.ShardedWindowPipeline(apps, policy=pol, workers=workers,
+                                                        shard=shards, device=cuda)
+                    before = shard_ops.counter.count
+                    got = pipe.schedule(reqs, 0.1, state=state)
+                    assert sig(got) == sig(want), (policy, chunk, shards)
+                    assert got.chunk_stats == want.chunk_stats
+                    assert pipe.last_shard_stats == host.last_shard_stats
+                    assert (shard_ops.counter.count > before) == \
+                        (pipe.last_shard_stats is not None)
+    finally:
+        tshard.force_shard_devices(prev)
+
+
+@pytest.mark.parametrize("pool", [None, [(0, 1.0, 1.0), (1, 2.0, 1.0), (2, 0.5, 2.0)]],
+                         ids=["one-worker", "pool"])
+def test_sharded_pipeline_across_cards_matches_unsharded(cuda, pool):
+    """One shard per card (no forced devices): 2 up to every card of the
+    host, chunk 0 and 16, an evicting capacity, the blocks and carries
+    copied between the cards.  The schedules and ``chunk_stats`` of the
+    unsharded pipeline on the first card, the shard stats of the same
+    count of blocks on the host, ``shard_round`` launched on every card;
+    then ``Simulation(shard=True)`` over three windows equal to
+    ``Simulation(pipeline=True)``."""
+    from repro_torch.core import shard as tshard
+    from repro_torch.core import simulator as tsim
+    from repro_torch.core.multiworker import Worker
+    from repro_torch.core.scheduler import POLICY_NAMES, make_policy
+    from repro_torch.core.sneakpeek import attach_sneakpeek
+    from repro_torch.core.streaming import StreamingState
+    from repro_torch.data import applications as apps_mod
+
+    n_dev = torch.cuda.device_count()
+    if n_dev < 2:
+        pytest.skip("needs two CUDA cards or more: one shard per card")
+    assert tshard.force_shard_devices(None) is None
+    apps, sneaks = apps_mod.build_benchmark_suite(seed=0, device=cuda)
+    workers = [Worker(w, speed=s, load_scale=ls) for w, s, ls in pool] if pool else None
+    wids = [w.wid for w in workers] if workers else None
+
+    def sig(sched):
+        return [(e.request.rid, e.model, e.order, e.batch_id, e.worker, e.est_start_s,
+                 e.est_latency_s) for e in sched.sorted_entries()]
+
+    for policy in POLICY_NAMES:
+        reqs = apps_mod.make_requests(list(apps_mod.APP_SPECS.values()), per_app=40,
+                                      deadline_std_s=0.05, seed=5)
+        attach_sneakpeek(reqs, apps, sneaks, device=cuda)
+        state = StreamingState(worker_ids=wids, memory_capacity_bytes=400 * 2**20)
+        for chunk in (0, 16):
+            pol = make_policy(policy, pipeline=True, chunk=chunk)
+            want = tshard.WindowPipeline(apps, policy=pol, workers=workers,
+                                         device=cuda).schedule(reqs, 0.1, state=state)
+            for shards in range(2, n_dev + 1):
+                prev = tshard.force_shard_devices(shards)
+                try:
+                    host = tshard.ShardedWindowPipeline(apps, policy=pol, workers=workers,
+                                                        shard=shards, device="cpu")
+                    host.schedule(reqs, 0.1, state=state)
+                finally:
+                    tshard.force_shard_devices(prev)
+                pipe = tshard.ShardedWindowPipeline(apps, policy=pol, workers=workers,
+                                                    shard=shards, device=cuda)
+                assert pipe._mesh() == [torch.device("cuda", i) for i in range(shards)]
+                before = shard_ops.counter.count
+                got = pipe.schedule(reqs, 0.1, state=state)
+                assert sig(got) == sig(want), (policy, chunk, shards)
+                assert got.chunk_stats == want.chunk_stats
+                assert pipe.last_shard_stats == host.last_shard_stats
+                assert (shard_ops.counter.count > before) == \
+                    (pipe.last_shard_stats is not None)
+
+    trace = []
+    for w in range(3):
+        window = apps_mod.make_requests(list(apps_mod.APP_SPECS.values()), per_app=30,
+                                        deadline_std_s=0.05, seed=6 + w, start_rid=100 * w)
+        for r in window:
+            r.arrival_s += 0.1 * w
+            r.deadline_s += 0.1 * w
+        trace += window
+    runs = []
+    for kwargs in ({"pipeline": True}, {"shard": True}):
+        sim = tsim.Simulation(make_policy("SneakPeek"), apps, sneakpeeks=sneaks,
+                              workers=workers, short_circuit=True, seed=0, chunk=16,
+                              device=cuda, **kwargs)
+        seen, real_eval = [], tsim.evaluate
+
+        def spy(sched, *a, **kw):
+            seen.append(sig(sched))
+            return real_eval(sched, *a, **kw)
+
+        tsim.evaluate = spy
+        try:
+            sim.run(trace)
+        finally:
+            tsim.evaluate = real_eval
+        runs.append((sim, seen))
+    assert runs[1][0]._pipeline.num_shards() == n_dev
+    assert len(runs[0][1]) > 1 and runs[1][1] == runs[0][1]

@@ -42,8 +42,9 @@ seeds as the reference's windows:
   ``chunk=0`` ones for five policies x chunk 1, 3, 16, > window x slot1
   and LRU, and the four pools with drift scales and masks;
   ``Simulation`` and ``EdgeServer`` with ``chunk=16``;
-* what still raises: ``shard`` (ROADMAP item 11), and a pipeline without
-  ``device="cpu"`` on a host without CUDA.
+* ``shard`` on every entry point that refused it before item 11
+  (tests/test_torch_shard.py holds the sharded pipeline itself), and a
+  pipeline without ``device="cpu"`` on a host without CUDA.
 
 Tolerances: none but the one stated for the Eq. 9 rows.  Decisions and
 times are float64 in the reference's association, so every other
@@ -1007,9 +1008,11 @@ def test_simulation_and_server_chunked(suites, monkeypatch, policy):
 
 
 def test_chunk_and_shard_still_raise(suites):
-    """``chunk`` runs on every entry point (item 5 is ported); sharding
-    (item 11) raises on every entry point, naming its ROADMAP item, and a
-    negative chunk is refused."""
+    """``chunk`` runs on every entry point (item 5 is ported), and so does
+    sharding (item 11, ``core.shard``): each entry point that refused it
+    now gives the unsharded schedule; a negative chunk is refused."""
+    from repro_torch.core import shard as tshard
+
     _, _, t_apps, _ = suites
     _, t_reqs = _windows(suites, 0, "all")
     policy = tsched.make_policy("LO-EDF")
@@ -1019,14 +1022,20 @@ def test_chunk_and_shard_still_raise(suites):
     assert got.chunk_stats["chunk"] == 8 and got.chunk_stats["decisions"] == len(t_reqs)
     sim = tsim.Simulation(policy, t_apps, pipeline=True, chunk=8, device="cpu")
     assert sim._pipeline.chunk == 8
-    assert "chunk" not in tsched.NOT_PORTED
-    for call in (
-        lambda: tsched.make_policy("LO-EDF", shard=True),
-        lambda: tpipe.pipeline_schedule(policy, t_reqs, t_apps, 0.1, shard=2, device="cpu"),
-        lambda: tsim.Simulation(policy, t_apps, shard=True, device="cpu"),
-    ):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            call()
+    assert not hasattr(tsched, "NOT_PORTED")  # nothing of the scheduler is left to port
+    want = _sig(tpipe.pipeline_schedule(policy, t_reqs, t_apps, 0.1, device="cpu"))
+    prev = tshard.force_shard_devices(2)
+    try:
+        sharded = tsched.make_policy("LO-EDF", shard=True)
+        assert sharded.shard is True
+        assert _sig(sharded.schedule(t_reqs, t_apps, 0.1, device="cpu")) == want
+        assert _sig(tpipe.pipeline_schedule(policy, t_reqs, t_apps, 0.1, shard=2,
+                                            device="cpu")) == want
+    finally:
+        tshard.force_shard_devices(prev)
+    sim = tsim.Simulation(policy, t_apps, shard=True, device="cpu")
+    assert isinstance(sim._pipeline, tshard.ShardedWindowPipeline)
+    assert sim._pipeline.num_shards() == 1  # one CPU: shard=True delegates
     with pytest.raises(ValueError, match="chunk must be >= 0"):
         tpipe.WindowPipeline(t_apps, policy=policy, chunk=-1, device="cpu")
     # The off values of the reference's fields are accepted.

@@ -699,10 +699,12 @@ def test_launch_counts_are_exact_under_threads():
 @pytest.mark.parametrize("option,value", [("pipeline", True), ("chunk", 4), ("shard", True)])
 def test_workers_with_compiled_options_still_raise(suites, option, value):
     """The pool composes with the compiled pipeline, speculative chunks and
-    sharding in the reference.  The port's pipeline and its speculative
-    chunks are ported (tests/test_torch_pipeline.py) and take workers;
-    sharding still raises (ROADMAP item 11), with or without workers,
-    alone or beside the others."""
+    sharding in the reference, and in the port: ``EdgeServer`` and
+    ``Simulation`` with workers keep one pipeline with the chunk and the
+    pool, sharded (``core.shard``, ROADMAP item 11) when ``shard`` is
+    given, alone or beside the others."""
+    from repro_torch.core.shard import ShardedWindowPipeline
+
     _, _, t_apps, _ = suites
     workers = [Worker(0), Worker(1)]
     kwargs = {option: value, **({"chunk": 4} if option == "pipeline" else {})}
@@ -715,12 +717,14 @@ def test_workers_with_compiled_options_still_raise(suites, option, value):
             assert obj._pipeline is None or (obj._pipeline.chunk == 4
                                              and obj._pipeline.workers == workers)
         kwargs["shard"] = True
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 11"):
-        EdgeServer(_apps(ModelProfile, Application), make_policy("Grouped"), device="cpu",
-                   workers=workers, **kwargs)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 11"):
-        TSimulation(tsched.make_policy("LO-EDF"), t_apps, device="cpu", workers=workers,
-                    **kwargs)
+    srv = EdgeServer(_apps(ModelProfile, Application), make_policy("Grouped"), device="cpu",
+                     workers=workers, **kwargs)
+    sim = TSimulation(tsched.make_policy("LO-EDF"), t_apps, device="cpu", workers=workers,
+                      **kwargs)
+    for obj in (srv, sim):
+        assert isinstance(obj._pipeline, ShardedWindowPipeline)
+        assert obj._pipeline.workers == workers and obj._pipeline.shard is True
+        assert obj._pipeline.chunk == kwargs.get("chunk")
 
 
 def test_cost_model_backend_still_raises():

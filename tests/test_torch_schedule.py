@@ -308,25 +308,29 @@ def test_entry_points_need_cuda_unless_cpu_is_named(suites):
 
 @pytest.mark.parametrize("option", ["pipeline", "chunk", "shard", "prebatch"])
 def test_unported_options_raise(suites, option):
-    """``pipeline``, its speculative chunks (``chunk`` > 0, ROADMAP item 5)
-    and ``prebatch`` are ported (tests/test_torch_pipeline.py) and run with
-    the reference's values; what still raises is ``shard`` (item 11),
-    wherever it is given, alone or beside the others."""
+    """``pipeline``, its speculative chunks (``chunk`` > 0, ROADMAP item 5),
+    ``prebatch`` and sharding (``shard``, item 11) are ported
+    (tests/test_torch_pipeline.py, tests/test_torch_shard.py) and run with
+    the reference's values, alone or beside the others: nothing of them
+    raises any more."""
+    from repro_torch.core.shard import ShardedWindowPipeline
+
     _, _, t_apps, _ = suites
     if option == "shard":
-        with pytest.raises(NotImplementedError, match="ROADMAP.*item 11"):
-            tsched.make_policy("LO-EDF", shard=1)
+        assert tsched.make_policy("LO-EDF", shard=1).shard == 1
+        assert not hasattr(tsched, "NOT_PORTED")
         return
     if option == "pipeline":
         assert tsched.make_policy("LO-EDF", pipeline=True, chunk=4).chunk == 4
-        with pytest.raises(NotImplementedError, match="ROADMAP.*item 11"):
-            tsched.make_policy("LO-EDF", pipeline=True, chunk=4, shard=2)
+        policy = tsched.make_policy("LO-EDF", pipeline=True, chunk=4, shard=2)
+        assert (policy.pipeline, policy.chunk, policy.shard) == (True, 4, 2)
     elif option == "chunk":
         assert tsched.make_policy("LO-EDF", chunk=1).chunk == 1
     else:
         sim = TSimulation(tsched.make_policy("LO-EDF"), t_apps, device="cpu", prebatch=4,
                           pipeline=True, chunk=4)
         assert sim.prebatch == 4 and sim._pipeline.chunk == 4
-        with pytest.raises(NotImplementedError, match="ROADMAP.*item 11"):
-            TSimulation(tsched.make_policy("LO-EDF"), t_apps, device="cpu", prebatch=4,
-                        pipeline=True, chunk=4, shard=True)
+        sim = TSimulation(tsched.make_policy("LO-EDF"), t_apps, device="cpu", prebatch=4,
+                          pipeline=True, chunk=4, shard=True)
+        assert sim.prebatch == 4 and isinstance(sim._pipeline, ShardedWindowPipeline)
+        assert sim._pipeline.chunk == 4

@@ -310,17 +310,24 @@ def test_swap_manager_matches_reference():
 
 @pytest.mark.parametrize("option,value", [("pipeline", True), ("chunk", 4), ("shard", True)])
 def test_unported_server_options_raise(option, value):
-    """``pipeline=True`` and its speculative chunked selection (``chunk``)
-    are ported (tests/test_torch_pipeline.py); sharding (``shard``) still
-    raises, alone or beside them."""
+    """``pipeline=True``, its speculative chunked selection (``chunk``) and
+    sharding (``shard``, ROADMAP item 11) are ported
+    (tests/test_torch_pipeline.py, tests/test_torch_shard.py): the server
+    keeps one pipeline, sharded when ``shard`` is given, alone or beside
+    the others."""
+    from repro_torch.core.shard import ShardedWindowPipeline
+    from repro_torch.serving import server as tserver
+
     apps = _apps(ModelProfile, Application)
     kwargs = {option: value, **({"chunk": 4} if option == "pipeline" else {})}
     if option != "shard":
         srv = EdgeServer(apps, make_policy("Grouped"), device="cpu", **kwargs)
         assert srv._pipeline is None or srv._pipeline.chunk == 4
         kwargs["shard"] = True
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 11"):
-        EdgeServer(apps, make_policy("Grouped"), device="cpu", **kwargs)
+    srv = EdgeServer(apps, make_policy("Grouped"), device="cpu", **kwargs)
+    assert isinstance(srv._pipeline, ShardedWindowPipeline)
+    assert srv._pipeline.num_shards() == 1 and srv._pipeline.chunk == kwargs.get("chunk")
+    assert not hasattr(tserver, "NOT_PORTED")
 
 
 def test_serving_entry_points_need_cuda_unless_cpu_is_named():

@@ -3,9 +3,8 @@
 For each entry point of both packages the parameter names, kinds, order
 and defaults are equal.  The only differences allowed are the port's
 keyword-only extras — ``device`` everywhere, last, and ``train_n`` of
-``build_benchmark_suite`` — and labelled refusals: an option the port
-accepts but refuses under its ROADMAP label (``shard``), or a
-name of ``repro.data`` that the port lists in ``NOT_PORTED``.  Also the
+``build_benchmark_suite`` — and labelled refusals: a name of
+``repro.data`` that the port lists in ``NOT_PORTED``.  Also the
 reference's calls that used to fail in the port (ROADMAP fault P6):
 positional ``workers``, ``backend=`` of the k-NN constructors and
 ``SwapManager.is_resident``.
@@ -20,6 +19,7 @@ import repro.data as jdata
 import repro_torch.data as tdata
 from repro.core import pipeline as jpipe
 from repro.core import scheduler as jsched
+from repro.core import shard as jshard
 from repro.core import simulator as jsim
 from repro.core import sneakpeek as jsneak
 from repro.data import applications as japps
@@ -27,6 +27,7 @@ from repro.serving import runtime as jruntime
 from repro.serving import server as jserver
 from repro_torch.core import pipeline as tpipe
 from repro_torch.core import scheduler as tsched
+from repro_torch.core import shard as tshard
 from repro_torch.core import simulator as tsim
 from repro_torch.core import sneakpeek as tsneak
 from repro_torch.data import applications as tapps
@@ -46,6 +47,8 @@ ENTRY_POINTS = {
     "WindowPipeline.schedule": (jpipe.WindowPipeline.schedule, tpipe.WindowPipeline.schedule,
                                 set()),
     "WindowPipeline.run": (jpipe.WindowPipeline.run, tpipe.WindowPipeline.run, set()),
+    "ShardedWindowPipeline": (jshard.ShardedWindowPipeline, tshard.ShardedWindowPipeline,
+                              {"device"}),
     "pipeline_schedule": (jpipe.pipeline_schedule, tpipe.pipeline_schedule, {"device"}),
     "set_pipeline_backend": (jpipe.set_pipeline_backend, tpipe.set_pipeline_backend, set()),
     "KNNSneakPeek": (jsneak.KNNSneakPeek, tsneak.KNNSneakPeek, {"device"}),
@@ -79,6 +82,7 @@ def test_public_methods_cover_reference():
     """The reference's public methods of the ported classes exist in the port."""
     for ref, port in ((jruntime.SwapManager, truntime.SwapManager),
                       (jpipe.WindowPipeline, tpipe.WindowPipeline),
+                      (jshard.ShardedWindowPipeline, tshard.ShardedWindowPipeline),
                       (jsched.SchedulerPolicy, tsched.SchedulerPolicy)):
         missing = {n for n in dir(ref) if not n.startswith("_")} - set(dir(port))
         assert not missing, f"{port.__name__} lacks {sorted(missing)}"
