@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py            # the full check, on one card
 
-Builds the port's nine CUDA kernel sources from the checkout, holds
+Builds the port's eleven CUDA kernel sources from the checkout, holds
 each kernel against its plain PyTorch version at its path's shapes and
 times both, then drives the paths of the port on the card:
 
@@ -66,7 +66,16 @@ times both, then drives the paths of the port on the card:
   window, the sharded selectors at 2, 4 and 8 shard blocks on the card (chunks 0
   and 16, single-slot and LRU carries) deciding as the unsharded scans,
   then ``Simulation(shard=4, chunk=16)`` over phase 5's trace and
-  ``shard=True`` on this card (one shard: the unsharded launches).
+  ``shard=True`` on this card (one shard: the unsharded launches);
+* training (phase 16): the backward kernels, K3b (flash attention) and
+  K5b (the SSD chunk scan), against their plain versions at tinyllama's,
+  llama4's and mamba2's training shapes, timed beside SDPA's backward;
+  one training step of 2-layer float32 models at full width, card
+  against host (loss, every gradient, the weights after 3 AdamW steps);
+  then mamba2-130m (24 layers) through ``Trainer`` with checkpoints and
+  an injected fault restored from one, and tinyllama-1.1b (22 layers)
+  through ``make_train_step``, both bf16 at B=8 S=1024 on LMDataset's
+  markov stream, with falling loss and exact K3/K3b/K5/K5b launches.
 
 Every check raises on failure.  The last three lines of standard output
 are the card's name and power limit, the kernel table and
@@ -127,22 +136,34 @@ def timed_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, kernel: str, iters: int, parts=(), attempts: int = 5):
+# Small kernels launched inside the profiler's window before the timed
+# calls: the first window of a measurement has lost its first ~15-20
+# kernel records, with or without 50 ms of host time before the calls.
+PROFILE_PRIMING_LAUNCHES = 64
+
+
+def device_ms(fn, kernel: str, iters: int, parts=(), attempts: int = 8):
     """Mean device time per call, in ms, of the kernels whose name contains
     ``kernel`` (``torch.profiler``), over ``iters`` calls of ``fn``: the
     kernel's own time, whatever the host spends around each launch.  With
     ``parts``, also ``{part: ms}`` for the kernels whose name contains each
-    part (a kernel's stages).  A window in which the profiler recorded
-    fewer kernels than were launched is measured again, up to
-    ``attempts`` times, and never averaged."""
+    part (a kernel's stages).  ``PROFILE_PRIMING_LAUNCHES`` elementwise
+    kernels (which no ``kernel`` name matches) open each window.  A window
+    in which the profiler still recorded fewer kernels than were launched
+    is measured again, up to ``attempts`` times, and never averaged; if
+    none records them all, the check fails."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
+    priming = torch.zeros(1, device="cuda")
     torch.cuda.synchronize()
     for attempt in range(1, attempts + 1):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(PROFILE_PRIMING_LAUNCHES):
+                priming.add_(1)
+            torch.cuda.synchronize()
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
@@ -2850,6 +2871,364 @@ def check_sharded_simulation(apps, sneaks, trace, seed, want_sigs):
     return launches, seconds
 
 
+# ---------------------------------------------------------------- phase 16: training
+
+K3B_STAGES = ("flash_attention_bwd_dot", "flash_attention_bwd_dkdv", "flash_attention_bwd_dq")
+K5B_STAGES = ("ssd_chunk_bwd_scores", "ssd_chunk_bwd_dstate", "ssd_chunk_bwd_pass",
+              "ssd_chunk_bwd_dx", "ssd_chunk_bwd_dscores", "ssd_chunk_bwd_dbc",
+              "ssd_chunk_bwd_dcum", "ssd_chunk_bwd_dgsum", "ssd_chunk_bwd_dbm_dcm")
+TRAIN_BATCH, TRAIN_SEQ = 8, 1024
+MAMBA_STEPS, MAMBA_FAULT_AT, TINY_STEPS = 30, 15, 20
+
+
+def _flash_bwd_plain(q, k, v, o, do, lse, window):
+    """K3b's plain version, model layout in and out."""
+    from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref
+
+    b, sq, hq, d = q.shape
+    hkv = k.shape[2]
+
+    def gqa(t):
+        return t.reshape(b, sq, hkv, hq // hkv, d).permute(0, 2, 3, 1, 4)
+
+    dq, dk, dv = flash_attention_bwd_ref(gqa(q), k.transpose(1, 2), v.transpose(1, 2), gqa(o),
+                                         gqa(do), lse.reshape(b, hkv, hq // hkv, sq),
+                                         window=window)
+    return dq.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, d), dk.transpose(1, 2), dv.transpose(1, 2)
+
+
+def _flash_bwd_case(gen, b, s, hq, hkv, d, window, dtype, timed=False):
+    """K3b at one shape against its plain version on the same forward
+    output and logsumexp; with ``timed``, its device time (and by kernel),
+    the plain version's, SDPA's backward (forward and backward less the
+    forward; with a window, through a boolean causal-and-window mask) and
+    the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    q, k, v, do = randn(b, s, hq, d), randn(b, s, hkv, d), randn(b, s, hkv, d), randn(b, s, hq, d)
+    name = str(dtype).split(".")[1]
+    out, lse = flash_ops.flash_attention(q, k, v, window=window, return_lse=True)
+    grads = flash_ops.flash_attention_bwd(q, k, v, out, do, lse, window=window)
+    refs = _flash_bwd_plain(q, k, v, out, do, lse, window)
+    err = max(_close(g, r, ATTN_TOL[name], f"K3b {name} {(b, s, hq, hkv, d, window)} {n}")
+              for n, g, r in zip(("dq", "dk", "dv"), grads, refs))
+    t = {"max_abs_err": err,
+         "shape": f"B={b} S={s} Hq={hq} Hkv={hkv} D={d} {name} causal"
+                  + (f" window={window}" if window else "")}
+    if not timed:
+        return t
+    del grads, refs
+    pos = torch.arange(s, device="cuda")
+    keys = int((torch.clamp(pos + 1, max=window) if window else pos + 1).sum())
+    flops = 10 * b * hq * keys * d  # five products over the visible (query, key) pairs
+    item = q.element_size()
+    bytes_moved = item * (2 * (3 * b * s * hq * d + 2 * b * s * hkv * d)) + 4 * b * hq * s
+    peak = BF16_FLOP_PER_S if dtype == torch.bfloat16 else FP32_FLOP_PER_S
+    call = lambda: flash_ops.flash_attention_bwd(q, k, v, out, do, lse, window=window)  # noqa: E731
+    ms, stage_ms = device_ms(call, "flash_attention_bwd", iters=5, parts=K3B_STAGES)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+    dot = do.transpose(1, 2)
+
+    if window:
+        mask = (pos[:, None] >= pos[None, :]) & (pos[:, None] - pos[None, :] < window)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)
+    else:
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+
+    def sdpa_fwd_bwd():
+        torch.autograd.grad(sdpa(), (qt, kt, vt), dot)
+
+    t.update({
+        "ms": ms, "stage_ms": stage_ms,
+        "plain_ms": timed_ms(lambda: _flash_bwd_plain(q, k, v, out, do, lse, window), iters=2,
+                             warmup=1),
+        "library_ms": timed_ms(sdpa_fwd_bwd, iters=10) - timed_ms(sdpa, iters=10),
+        "bound_ms": max(flops / peak, bytes_moved / HBM_BYTES_PER_S) * 1e3,
+        "bound_by": "operations" if flops / peak > bytes_moved / HBM_BYTES_PER_S else "bytes",
+    })
+    return t
+
+
+def _ssd_bwd_flops(b, s, h, p, n, chunk):
+    """The multiply-adds K5b's stages do, times 2: per (batch row, chunk)
+    the scores and the two d(scores) products over the lower 64 x 64 tiles;
+    per head dE, the two products of dx, d(scores) and the two of dC/dB."""
+    nc, nt = s // chunk, -(-chunk // 64)
+    tiles = nt * (nt + 1) // 2
+    per_chunk = 2 * (tiles * 64 * 64 * n + 2 * tiles * 64 * 64 * n)
+    per_head = 2 * (chunk * p * n + sum(chunk - 64 * j for j in range(nt)) * 64 * p
+                    + chunk * n * p + tiles * 64 * 64 * p + 2 * chunk * p * n)
+    return b * nc * per_chunk + b * nc * h * per_head
+
+
+def check_backward_kernels(seed):
+    """Phase 16 (a): K3b and K5b against their plain versions at the
+    training shapes, each timed beside its plain version and its bound."""
+    import torch
+
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.kernels.ssd.ref import ssd_chunk_bwd_ref
+    from repro_torch.models.ssd import ssd_scan
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 16)
+    k3b = _flash_bwd_case(gen, 8, 1024, 32, 4, 64, 0, torch.bfloat16, timed=True)
+    print(f"  K3b tinyllama shape {k3b['shape']}: dq, dk, dv within 2e-2 of the plain version, "
+          f"max |d| {k3b['max_abs_err']:.3g}")
+    k3b["f32"] = _flash_bwd_case(gen, 8, 1024, 32, 4, 64, 0, torch.float32, timed=True)
+    print(f"  K3b {k3b['f32']['shape']}: within 2e-5, max |d| {k3b['f32']['max_abs_err']:.3g}")
+    k3b["llama4"] = _flash_bwd_case(gen, 2, 1024, 40, 8, 128, 0, torch.bfloat16, timed=True)
+    k3b["windowed"] = _flash_bwd_case(gen, 2, 2048, 32, 4, 64, 1024, torch.bfloat16, timed=True)
+    for key in ("llama4", "windowed"):
+        print(f"  K3b {k3b[key]['shape']}: within 2e-2, max |d| {k3b[key]['max_abs_err']:.3g}")
+    torch.cuda.empty_cache()
+
+    b, s, h, p, n, chunk = 8, 1024, 24, 64, 128, 128
+    x, dt, a_log, bm, cm = _ssd_inputs(gen, b, s, h, p, n)
+    dA = (dt * -torch.exp(a_log)).contiguous()
+    xdt = (x * dt[..., None]).contiguous()
+    dy = torch.randn((b, s, h, p), generator=gen, device="cuda")
+    _, _, cum, entering = ssd_ops.ssd_chunk_scan_saving(xdt, dA, bm, cm, chunk)
+    grads = ssd_ops.ssd_chunk_bwd(xdt, bm, cm, dy, cum, entering, chunk)
+    refs = ssd_chunk_bwd_ref(xdt, bm, cm, dy, cum, entering, chunk)
+    errs = {name: _close(g, r, SSD_ATOL, f"K5b {name}", SSD_RTOL)
+            for name, g, r in zip(("dxdt", "ddA", "dbm", "dcm"), grads, refs)}
+    del grads, refs
+    print("  K5b mamba2 shape, gradient by gradient within atol 2e-4, rtol 1e-3, max |d|: "
+          + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()))
+    call = lambda: ssd_ops.ssd_chunk_bwd(xdt, bm, cm, dy, cum, entering, chunk)  # noqa: E731
+    ms, stage_ms = device_ms(call, "ssd_chunk_bwd", iters=5, parts=K5B_STAGES)
+    flops = _ssd_bwd_flops(b, s, h, p, n, chunk)
+    bytes_moved = 4 * (2 * b * s * h * p + 2 * b * s * n + b * h * s + b * h * p * n * (s // chunk)
+                       + b * s * h * p + b * s * h + 2 * b * s * n)
+    k5b = {
+        "ms": ms, "stage_ms": stage_ms,
+        "plain_ms": timed_ms(lambda: ssd_chunk_bwd_ref(xdt, bm, cm, dy, cum, entering, chunk),
+                             iters=2, warmup=1),
+        "library_ms": None,  # no single PyTorch call computes the SSD scan's gradient
+        "bound_ms": max(flops / FP32_FLOP_PER_S, bytes_moved / HBM_BYTES_PER_S) * 1e3,
+        "bound_by": ("operations" if flops / FP32_FLOP_PER_S > bytes_moved / HBM_BYTES_PER_S
+                     else "bytes"),
+        "max_abs_err": max(errs.values()),
+        "shape": f"B={b} S={s} H={h} P={p} N={n} chunk={chunk} f32",
+    }
+    print(f"  K5b: {flops / 1e9:.3f} GFLOP, {bytes_moved / 1e6:.1f} MB; device ms by kernel: "
+          + ", ".join(f"{k.removeprefix('ssd_chunk_bwd_')} {v:.6f}" for k, v in stage_ms.items()))
+    del x, dt, a_log, bm, cm, dA, xdt, dy, cum, entering
+
+    # A length padded with dt = 0, through models.ssd's autograd function
+    # (K5 then K5b): every input's gradient, card against host.
+    x, dt, a_log, bm, cm = _ssd_inputs(gen, 2, 300, h, p, n)
+    dy = torch.randn((2, 300, h, p), generator=gen, device="cuda")
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        leaves = [t.detach().to(dev).requires_grad_() for t in (x, dt, a_log, bm, cm)]
+        xx, dd, al, bb, cc = leaves
+        y, _ = ssd_scan(xx, dd, -torch.exp(al), bb[:, :, None], cc[:, :, None], chunk)
+        (y * dy.to(dev)).sum().backward()
+        grads[dev] = [t.grad.cpu() for t in leaves]
+    err = max(_close(g, r, SSD_ATOL, f"K5b padded {name}", SSD_RTOL)
+              for name, g, r in zip(("x", "dt", "a_log", "B", "C"), grads["cuda"], grads["cpu"]))
+    print(f"  K5b through models.ssd.ssd_scan, B=2 S=300 (padded to 384 with dt = 0): the "
+          f"gradients of x, dt, a_log, B and C card against host, max |d| {err:.3g}")
+    return k3b, k5b
+
+
+def check_train_step_card_vs_host(seed, arch, layers=2, batch=2, seq=256, steps=3):
+    """Phase 16 (b): one training step of a float32 model at ``arch``'s
+    widths, ``layers`` layers, card against host: the loss within 1e-4,
+    every gradient leaf within atol 1e-4 + rtol 1e-3, and the weights after
+    ``steps`` AdamW steps within 1e-4.  The learning rate is 1e-3 from the
+    first step, so the steps move the weights by more than ten times that
+    tolerance (required): a missing, reversed or misscaled update on the
+    card would show.  Adam's eps is 1e-4: the first update is
+    g / (|g| + eps), whose change with g is at most 1 / eps, so at eps 1e-8
+    a gradient of ~1e-8 that differs by float32 rounding between card and
+    host moves its weight by a different ~lr (21 embedding values past 1e-4
+    on the card); at 1e-4 the gradients' measured agreement (< 2e-7) bounds
+    the weights' difference to ~lr * 2e-3 a step."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.data import LMDataConfig, LMDataset
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import LM
+    from repro_torch.models.transformer import TransformerParams
+    from repro_torch.training import OptimizerConfig, init_opt_state
+    from repro_torch.training.optimizer import tree_leaves, tree_map
+
+    cfg = dataclasses.replace(ARCHS[arch], num_layers=layers, dtype="float32")
+    lm = LM(cfg)
+    host = lm.init(seed, device="cpu")
+    card = TransformerParams(cfg, tree_map(lambda t: t.to("cuda"), host.to_tree()))
+    data = LMDataset(LMDataConfig(vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch,
+                                  seed=seed))
+
+    def batch_at(step, dev):
+        return {"tokens": torch.as_tensor(data.batch_at(step)["tokens"], device=dev)}
+
+    out = {}
+    for name, params, dev in (("card", card, "cuda"), ("host", host, "cpu")):
+        params.requires_grad_(True)
+        loss, _ = lm.loss(params, batch_at(0, dev))
+        loss.backward()
+        out[name] = (loss.item(), [g.cpu() for g in tree_leaves(params.grad_tree())])
+        params.zero_grad(set_to_none=True)
+    loss_err = abs(out["card"][0] - out["host"][0])
+    require(loss_err <= 1e-4, f"{arch}: the loss {out['card'][0]} on the card, "
+                              f"{out['host'][0]} on the host")
+    grad_err = max(_close(g, h, 1e-4, f"{arch} gradient leaf {i}", rtol=1e-3)
+                   for i, (g, h) in enumerate(zip(out["card"][1], out["host"][1])))
+    opt = OptimizerConfig(learning_rate=1e-3, warmup_steps=1, eps=1e-4)
+    start = [t.clone() for t in tree_leaves(host.to_tree())]
+    step_fn = make_train_step(lm, opt)
+    states = {"card": init_opt_state(card.to_tree(), opt),
+              "host": init_opt_state(host.to_tree(), opt)}
+    for step in range(steps):
+        card, states["card"], _ = step_fn(card, states["card"], batch_at(step, "cuda"))
+        host, states["host"], _ = step_fn(host, states["host"], batch_at(step, "cpu"))
+    weight_err = max(_close(c.cpu(), h, 1e-4, f"{arch} weight leaf {i} after {steps} steps",
+                            rtol=0.0)
+                     for i, (c, h) in enumerate(zip(tree_leaves(card.to_tree()),
+                                                    tree_leaves(host.to_tree()))))
+    moved = max(float((h - w0).abs().max()) for h, w0 in zip(tree_leaves(host.to_tree()), start))
+    require(moved >= 1e-3, f"{arch}: {steps} AdamW steps moved no weight by 1e-3 (max {moved})")
+    print(f"  {arch}, {layers} layers at full width, float32, B={batch} S={seq}: loss "
+          f"{out['card'][0]:.6f}, |d| {loss_err:.3g}; {len(out['card'][1])} gradient leaves, "
+          f"max |d| {grad_err:.3g}; weights after {steps} AdamW steps at lr 1e-3, eps 1e-4 "
+          f"(moved up to {moved:.3g}), max |d| card against host {weight_err:.3g}")
+    return {"loss_err": loss_err, "grad_err": grad_err, "weight_err": weight_err,
+            "weights_moved": moved}
+
+
+def _training_summary(arch, losses, step_s, peak_gb, launches, per_step, executed):
+    import numpy as np
+
+    require(all(np.isfinite(losses)), f"{arch}: a non-finite loss")
+    tail = float(np.mean(losses[-5:]))
+    require(tail < losses[0], f"{arch}: the last 5 steps' mean loss {tail} is not below the "
+                              f"first step's {losses[0]}")
+    for name, n in per_step.items():
+        require(launches.get(name, 0) == n * executed,
+                f"{arch}: {launches.get(name, 0)} {name} launches, expected {n} a step x "
+                f"{executed} steps")
+    med = float(np.median(step_s))
+    print(f"  {arch}: losses {losses[0]:.4f} -> {losses[-1]:.4f} (last 5 mean {tail:.4f}); "
+          f"median step {med:.4f} s, {TRAIN_BATCH * TRAIN_SEQ / med:.1f} tokens/s; peak "
+          f"{peak_gb:.3f} GB; launches a step: "
+          + ", ".join(f"{k} {launches.get(k, 0) / executed:g}" for k in
+                      ("flash_attention", "flash_attention_bwd", "ssd", "ssd_bwd")))
+    return {"first_loss": losses[0], "last5_loss": tail, "step_s_median": med,
+            "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / med, "peak_gb": peak_gb,
+            "steps_run": executed, "launches": launches}
+
+
+def train_full_width(seed):
+    """Phase 16 (c): mamba2-130m through ``Trainer`` (checkpoints every 10
+    steps, a fault injected at step 15 that restores step 10) and
+    tinyllama-1.1b through ``make_train_step``, both at full width in bf16
+    on LMDataset's markov stream, B=8 S=1024."""
+    import tempfile
+
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.configs import ARCHS
+    from repro_torch.data import LMDataConfig, LMDataset
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import LM
+    from repro_torch.training import OptimizerConfig, Trainer, TrainerConfig, init_opt_state
+
+    opt = OptimizerConfig(learning_rate=1e-3, warmup_steps=3, total_steps=1000)
+    out = {}
+
+    cfg = ARCHS["mamba2-130m"]
+    data = LMDataset(LMDataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                                  global_batch=TRAIN_BATCH, seed=seed))
+    attempts, fired = [], []
+
+    def fault(step):
+        attempts.append(step)
+        if step == MAMBA_FAULT_AT and not fired:
+            fired.append(step)
+            raise RuntimeError(f"injected fault at step {step}")
+
+    with tempfile.TemporaryDirectory() as d:
+        trainer = Trainer(LM(cfg), data, opt_cfg=opt,
+                          cfg=TrainerConfig(total_steps=MAMBA_STEPS, checkpoint_every=10,
+                                            checkpoint_dir=d, log_every=1),
+                          fault_hook=fault, device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        step, _, _, summary = trainer.train(seed=seed)
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 1e9
+    executed = len(attempts) - len(fired)
+    require(step == MAMBA_STEPS - 1 and summary["restarts"] == 1 and fired == [MAMBA_FAULT_AT],
+            f"mamba2-130m: final step {step}, restarts {summary['restarts']}, faults {fired}")
+    require(attempts[MAMBA_FAULT_AT + 1] == 11, "the fault did not restore step 10")
+    out["mamba2-130m"] = _training_summary(
+        "mamba2-130m", summary["losses"], trainer.step_times, peak, launches,
+        {"ssd": 2 * cfg.num_layers, "ssd_bwd": cfg.num_layers, "flash_attention": 0,
+         "flash_attention_bwd": 0}, executed)
+    out["mamba2-130m"].update({"wall_s": wall, "restarts": summary["restarts"],
+                               "stragglers": summary["stragglers"]})
+    print(f"    mamba2-130m: {executed} steps run ({MAMBA_STEPS} + the {MAMBA_FAULT_AT - 11} "
+          f"after the checkpoint of step 10, again), checkpoints at 0, 10, 20 and "
+          f"{MAMBA_STEPS - 1}, {wall:.1f} s")
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg = ARCHS["tinyllama-1.1b"]
+    lm = LM(cfg)
+    data = LMDataset(LMDataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                                  global_batch=TRAIN_BATCH, seed=seed))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params = lm.init(seed, device="cuda")
+    state = init_opt_state(params.to_tree(), opt)
+    step_fn = make_train_step(lm, opt)
+    kernels.reset_launch_counts()
+    losses, times = [], []
+    t0 = time.perf_counter()
+    for step in range(TINY_STEPS):
+        t1 = time.perf_counter()
+        batch = {k: torch.as_tensor(v, device="cuda") for k, v in data.batch_at(step).items()}
+        params, state, metrics = step_fn(params, state, batch)
+        losses.append(float(metrics["loss"]))
+        times.append(time.perf_counter() - t1)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    out["tinyllama-1.1b"] = _training_summary(
+        "tinyllama-1.1b", losses, times, peak, launches,
+        {"flash_attention": 2 * cfg.num_layers, "flash_attention_bwd": cfg.num_layers,
+         "ssd": 0, "ssd_bwd": 0}, TINY_STEPS)
+    out["tinyllama-1.1b"]["wall_s"] = wall
+    print(f"    tinyllama-1.1b: {TINY_STEPS} steps through make_train_step, no checkpoint, "
+          f"{wall:.1f} s")
+    del params, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
     import torch
@@ -3142,6 +3521,35 @@ def main(argv=None) -> int:
                                                  scan_sigs["SneakPeek"])
     print(f"    (c) {time.perf_counter() - t0:.1f} s")
 
+    print("[16] training: the backward kernels K3b and K5b, a step card against host, then "
+          "mamba2-130m and tinyllama-1.1b trained at full width in bf16")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t16 = time.perf_counter()
+    t0 = time.perf_counter()
+    print("  (a) K3b and K5b against their plain versions at the training shapes")
+    k3b_t, k5b_t = check_backward_kernels(args.seed)
+    print(f"    (a) {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    print("  (b) one training step, float32, 2 layers at full width, card against host")
+    step_checks = {arch: check_train_step_card_vs_host(args.seed, arch)
+                   for arch in ("mamba2-130m", "tinyllama-1.1b")}
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"    (b) {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    print(f"  (c) training at full width, bf16, LMDataset's markov stream, B={TRAIN_BATCH} "
+          f"S={TRAIN_SEQ}")
+    trained = train_full_width(args.seed)
+    print(f"    (c) {time.perf_counter() - t0:.1f} s; phase 16 {time.perf_counter() - t16:.1f} s")
+    for t, name in ((k3b_t, "flash_attention_bwd"), (k5b_t, "ssd_bwd")):
+        print(f"    {name} at {t['shape']}: kernel {t['ms']:.6f} ms on the device, plain "
+              f"{t['plain_ms']:.6f} ms, library "
+              + ("none" if t["library_ms"] is None else f"{t['library_ms']:.6f} ms (SDPA backward)")
+              + f", bound {t['bound_ms']:.6f} ms ({t['bound_by']})")
+    train_launches = {name: sum(run["launches"].get(name, 0) for run in trained.values())
+                      for name in ("flash_attention", "flash_attention_bwd", "ssd", "ssd_bwd")}
+
     rows = [
         ("knn_topk", "knn/csrc/knn.cu", "knn/kernel.py:92", launches, knn_t),
         ("utility_scores", "utility/csrc/utility.cu", "utility/kernel.py:56", launches, util_t),
@@ -3166,6 +3574,7 @@ def main(argv=None) -> int:
         row["launches_pool"] = pool.get(row["name"], 0)
         row["launches_closed_loop"] = closed.get(row["name"], 0)
         row["launches_new_families"] = rec_launches.get(row["name"], 0)  # phase 14 (b)
+        row["launches_training"] = train_launches.get(row["name"], 0)  # phase 16 (c)
     # The scan replaces the compiled lax.scans of the reference's window
     # programs (no Pallas kernel); its launches are phase 12 (b)'s SneakPeek
     # run, its times those of LO-EDF's 4095-step scan in phase 12 (a).
@@ -3213,6 +3622,21 @@ def main(argv=None) -> int:
         "programs": shard_t,
         "selectors": {key: {"s": secs, "launches": n, "stats": st}
                     for key, (secs, n, st) in shard_b.items()}})
+    # The backward kernels replace the reference's gradients (its flash
+    # attention's custom VJP; jax.grad through its SSD scan); their launches
+    # are phase 16 (c)'s training runs, their times phase 16 (a)'s.
+    for name, source, replaces, t in (
+            ("flash_attention_bwd", "flash_attention/csrc/flash_attention_bwd.cu",
+             "src/repro/models/attention.py:265", k3b_t),
+            ("ssd_bwd", "ssd/csrc/ssd_bwd.cu", "src/repro/models/ssd.py:83", k5b_t)):
+        table["kernels"].append({
+            "name": name, "route": "cuda", "source": f"src/repro_torch/kernels/{source}",
+            "replaces": replaces, "launches": train_launches[name],
+            **{key: t[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                       "library_ms", "shape", "stage_ms")},
+            **{key: t[key] for key in ("f32", "llama4", "windowed") if key in t}})
+    table["training"] = {"step_card_vs_host": step_checks, **{
+        arch: {k: v for k, v in run.items() if k != "launches"} for arch, run in trained.items()}}
     print(f"    total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps(table))

@@ -2,7 +2,9 @@
 
 The scheduler's "weights" are the application tables (per-class
 recalls, latencies, sizes, priors) and the SneakPeek training sets; the
-served language models' are their parameter trees.  The ``*_to_arrays``
+served language models' are their parameter trees, and a trained one's
+also its optimizer state and gradients, in the reference's stacked
+layout.  The ``*_to_arrays``
 functions read them from any object with the reference's attributes or
 layout — a ``repro`` object or a ``repro_torch`` one — into numpy
 arrays; the ``*_from_arrays`` functions build the port's objects from
@@ -30,6 +32,9 @@ __all__ = [
     "knn_sneakpeek_from_arrays",
     "lm_params_to_arrays",
     "lm_params_from_arrays",
+    "opt_state_to_arrays",
+    "opt_state_from_arrays",
+    "grads_to_arrays",
 ]
 
 
@@ -148,3 +153,45 @@ def lm_params_to_arrays(params: TransformerParams) -> dict:
     """The reference's parameter tree of the port's weights, as float32
     numpy arrays (the inverse of ``lm_params_from_arrays``)."""
     return _tree_map(params.to_tree(), lambda t: t.detach().float().cpu().numpy())
+
+
+def _leaf_array(t) -> np.ndarray:
+    """A tensor or array as numpy: floating leaves as float32 (which holds
+    a bfloat16 one exactly), integer leaves in their own type."""
+    if isinstance(t, torch.Tensor):
+        t = t.detach().cpu()
+        return t.float().numpy() if t.is_floating_point() else t.numpy()
+    a = np.asarray(t)
+    return a.astype(np.float32) if a.dtype.kind == "f" or a.dtype.name == "bfloat16" else a
+
+
+def opt_state_to_arrays(opt_state) -> dict:
+    """An optimizer state of either package (``step``, ``master`` or None,
+    ``m``, ``v``, int8 moments as {"q", "scale"}) as numpy arrays in the
+    reference's layout."""
+    return {k: None if v is None else _tree_map(v, _leaf_array) for k, v in opt_state.items()}
+
+
+def opt_state_from_arrays(tree, device=None) -> dict:
+    """The port's optimizer state from arrays in the reference's layout:
+    float leaves float32 and int8 codes on ``device`` (the card unless
+    ``"cpu"`` is named), the step count a 0-dim int32 tensor on the host."""
+    dev = resolve_device(device)
+
+    def leaf(a):
+        a = np.array(a)
+        if a.dtype.kind == "f" or a.dtype.name == "bfloat16":
+            a = a.astype(np.float32)
+        return torch.from_numpy(a).to(dev)
+
+    out = {k: None if v is None else _tree_map(v, leaf) for k, v in tree.items()
+           if k != "step"}
+    out["step"] = torch.tensor(int(np.asarray(tree["step"])), dtype=torch.int32)
+    return out
+
+
+def grads_to_arrays(params: TransformerParams) -> dict:
+    """The gradients a backward left on the port's weights, in the
+    reference's stacked layout, as float32 numpy arrays (zeros for a weight
+    the loss did not reach)."""
+    return _tree_map(params.grad_tree(), lambda t: t.detach().float().cpu().numpy())

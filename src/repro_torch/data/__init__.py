@@ -1,8 +1,9 @@
-"""Synthetic application testbed of the port (``data.applications``).
+"""Synthetic application testbed of the port (``data.applications``) and
+its LM token pipeline (``data.lm_data``).
 
-Exports the names the reference's ``repro.data`` exports.  Its LM data
-pipeline (``LMDataConfig``, ``LMDataset``) is ROADMAP item 12 and not
-ported yet: those names raise under that label (``NOT_PORTED``).
+Exports the names the reference's ``repro.data`` exports.  ``NOT_PORTED``
+would name any the port did not have yet, with the ROADMAP label that
+brings it; it is empty.
 """
 from repro_torch.data.applications import (
     APP_SPECS,
@@ -13,17 +14,16 @@ from repro_torch.data.applications import (
     make_requests,
     make_sneakpeek,
 )
+from repro_torch.data.lm_data import LMDataConfig, LMDataset
 
 # Names of the reference's ``repro.data`` this port does not have yet,
 # with the ROADMAP item ("Open items" -> "Modules to port") that brings each.
-NOT_PORTED: dict[str, str] = {
-    "LMDataConfig": "item 12 (training and distribution, src/repro/data/lm_data.py)",
-    "LMDataset": "item 12 (training and distribution, src/repro/data/lm_data.py)",
-}
+NOT_PORTED: dict[str, str] = {}
 
 __all__ = [
     "APP_SPECS", "AppSpec", "build_benchmark_suite", "make_application",
-    "make_dataset", "make_requests", "make_sneakpeek", "NOT_PORTED",
+    "make_dataset", "make_requests", "make_sneakpeek", "LMDataConfig", "LMDataset",
+    "NOT_PORTED",
 ]
 
 

@@ -21,13 +21,25 @@ attributes to its graph only the launches of the thread that captured
 it, never a concurrent lane's, and a lane can tell its own launches
 apart.  A process lane's launches happen in its own process; its
 parent's lane thread adds them with ``add_launches``.
+
+A kernel's output carries no gradient path of its own: only K3 and K5
+have backward kernels (K3b, K5b), reached through the autograd functions
+of ``models.attention`` and ``models.ssd``.  So every wrapper calls
+``refuse_grad`` before it launches on the card, and a CUDA call whose
+input requires a gradient raises rather than return an output whose
+gradient would silently be zero.
 """
 from __future__ import annotations
 
 import threading
 
+import torch
+
 __all__ = ["LaunchCounter", "launch_counts", "reset_launch_counts", "add_launches",
-           "thread_launch_counts"]
+           "thread_launch_counts", "records_grad", "refuse_grad", "GRADIENTS_RULE"]
+
+# The ROADMAP label of the rule for kernels without a backward.
+GRADIENTS_RULE = "ROADMAP.md, 'Port rules', Gradients"
 
 _LOCK = threading.Lock()
 _LOCAL = threading.local()
@@ -95,3 +107,20 @@ def add_launches(counts: dict[str, int]) -> None:
     tally = _tally()
     for name, n in counts.items():
         tally[name] = tally.get(name, 0) + n
+
+
+def records_grad(*tensors) -> bool:
+    """Whether autograd is recording and one of ``tensors`` (None allowed)
+    requires a gradient."""
+    return torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad for t in tensors)
+
+
+def refuse_grad(kernel: str, where: str, *tensors) -> None:
+    """Raise if ``records_grad(*tensors)``: the CUDA launch of ``kernel``
+    would return an output with no gradient path.  ``where`` names what to
+    call instead, or the ROADMAP label of the backward still to write."""
+    if records_grad(*tensors):
+        raise RuntimeError(
+            f"{kernel}: an input requires a gradient, and the kernel's output on the card "
+            f"would carry none; {where}")

@@ -16,7 +16,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import LaunchCounter, nvcc
+from repro_torch.kernels import GRADIENTS_RULE, LaunchCounter, nvcc, refuse_grad
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.kernels.flash_attention.ops import DTYPES, HEAD_DIMS
 
@@ -109,6 +109,8 @@ def decode_attention(q, k_cache, v_cache, lengths, *, window: int = 0, scale=Non
     lib, max_splits = _library()
     splits = _split_count(b, hkv, s, _sm_count(q.device.index), max_splits)
     out = torch.empty_like(q)
+    refuse_grad("decode_attention", f"it has no backward ({GRADIENTS_RULE})", q, k_cache,
+                v_cache)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.decode_attention_fwd(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),

@@ -96,8 +96,9 @@ constexpr size_t f32_smem_floats() {
 template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                           const float* __restrict__ v, float* __restrict__ o, int Sq,
-                           int Skv, int Hq, int Hkv, int window, float scale) {
+                           const float* __restrict__ v, float* __restrict__ o,
+                           float* __restrict__ lse, int Sq, int Skv, int Hq, int Hkv,
+                           int window, float scale) {
   constexpr int QS = D + 1;  // padded row stride of the q and K tiles
   constexpr int DJ = D / 16;
   extern __shared__ float smem[];
@@ -238,12 +239,13 @@ flash_attention_f32_kernel(const float* __restrict__ q, const float* __restrict_
     float* out = o + ((size_t)(b * Sq + s) * Hq + h) * D;
 #pragma unroll
     for (int j = 0; j < DJ; ++j) out[tx + 16 * j] = acc[i][j] / lc;
+    if (lse != nullptr && tx == 0) lse[(size_t)(b * Hq + h) * Sq + s] = m[i] + logf(lc);
   }
 }
 
 template <int D>
-cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int B, int Sq,
-                       int Skv, int Hq, int Hkv, int window, float scale,
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, float* lse,
+                       int B, int Sq, int Skv, int Hq, int Hkv, int window, float scale,
                        cudaStream_t stream) {
   auto kernel = flash_attention_f32_kernel<D>;
   const size_t smem = f32_smem_floats<D>() * sizeof(float);
@@ -253,7 +255,7 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int
   const dim3 grid((Sq + kBQ - 1) / kBQ, Hq, B);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), Sq, Skv, Hq, Hkv, window, scale);
+      static_cast<float*>(o), lse, Sq, Skv, Hq, Hkv, window, scale);
   return cudaGetLastError();
 }
 
@@ -347,7 +349,8 @@ __global__ void __launch_bounds__(kTcThreads)
 flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                             const __nv_bfloat16* __restrict__ k,
                             const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-                            int Sq, int Skv, int Hq, int Hkv, int window, float scale_log2) {
+                            float* __restrict__ lse, int Sq, int Skv, int Hq, int Hkv,
+                            int window, float scale_log2) {
   constexpr int ST = tc_stride<D>();
   constexpr int BK = tc_keys<D>();
   constexpr bool kQInRegs = D <= 128;  // Q's A fragments held in registers
@@ -523,6 +526,9 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     const int s = q0 + warp * 16 + g + 8 * rr;
     if (s >= Sq) continue;
     const float lc = fmaxf(lt, 1e-30f);
+    // m is in the log2 domain: the natural logsumexp is (m + log2 l) ln 2.
+    if (lse != nullptr && t == 0)
+      lse[(size_t)(b * Hq + h) * Sq + s] = (m[rr] + log2f(lc)) * 0.6931471805599453f;
     __nv_bfloat16* out = o + ((size_t)(b * Sq + s) * Hq + h) * D + 2 * t;
 #pragma unroll
     for (int j = 0; j < ND; ++j)
@@ -532,8 +538,8 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 template <int D>
-cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int Sq,
-                        int Skv, int Hq, int Hkv, int window, float scale,
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, float* lse,
+                        int B, int Sq, int Skv, int Hq, int Hkv, int window, float scale,
                         cudaStream_t stream) {
   auto kernel = flash_attention_bf16_kernel<D>;
   const size_t smem = tc_smem_bytes<D>();
@@ -543,18 +549,18 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, in
   const dim3 grid(Hq, (Sq + kTcBQ - 1) / kTcBQ, B);
   kernel<<<grid, kTcThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), Sq, Skv, Hq, Hkv,
-      window, scale * kLog2e);
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse, Sq, Skv, Hq,
+      Hkv, window, scale * kLog2e);
   return cudaGetLastError();
 }
 
 #define REPRO_FLASH_DISPATCH(LAUNCH)                                                   \
   switch (D) {                                                                         \
-    case 16: return LAUNCH<16>(q, k, v, o, B, Sq, Skv, Hq, Hkv, window, scale, s);     \
-    case 32: return LAUNCH<32>(q, k, v, o, B, Sq, Skv, Hq, Hkv, window, scale, s);     \
-    case 64: return LAUNCH<64>(q, k, v, o, B, Sq, Skv, Hq, Hkv, window, scale, s);     \
-    case 128: return LAUNCH<128>(q, k, v, o, B, Sq, Skv, Hq, Hkv, window, scale, s);   \
-    case 256: return LAUNCH<256>(q, k, v, o, B, Sq, Skv, Hq, Hkv, window, scale, s);   \
+    case 16: return LAUNCH<16>(q, k, v, o, l, B, Sq, Skv, Hq, Hkv, window, scale, s);  \
+    case 32: return LAUNCH<32>(q, k, v, o, l, B, Sq, Skv, Hq, Hkv, window, scale, s);  \
+    case 64: return LAUNCH<64>(q, k, v, o, l, B, Sq, Skv, Hq, Hkv, window, scale, s);  \
+    case 128: return LAUNCH<128>(q, k, v, o, l, B, Sq, Skv, Hq, Hkv, window, scale, s); \
+    case 256: return LAUNCH<256>(q, k, v, o, l, B, Sq, Skv, Hq, Hkv, window, scale, s); \
     default: return cudaErrorInvalidValue;                                             \
   }
 
@@ -563,14 +569,17 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, in
 extern "C" {
 
 // dtype: 0 = fp32 (CUDA cores), 1 = bf16 (tensor cores); anything else is
-// refused.  q, k, v and o must be 16-byte aligned for bf16.  Returns the
-// launch's cudaError_t.
-int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, int dtype, int B,
-                        int Sq, int Skv, int Hq, int Hkv, int D, int window, float scale,
-                        void* stream) {
+// refused.  q, k, v and o must be 16-byte aligned for bf16.  lse, unless
+// null, receives the natural logsumexp of each row's scaled scores, float32
+// (B, Hq, Sq), which the backward (flash_attention_bwd.cu) reads.  Returns
+// the launch's cudaError_t.
+int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
+                        int dtype, int B, int Sq, int Skv, int Hq, int Hkv, int D, int window,
+                        float scale, void* stream) {
   if (B <= 0 || Sq <= 0 || Skv <= 0 || Sq > Skv || Hkv <= 0 || Hq % Hkv != 0)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   if (dtype == 0) {
     REPRO_FLASH_DISPATCH(launch_f32)
   }

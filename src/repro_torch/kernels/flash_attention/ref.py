@@ -1,43 +1,99 @@
-"""Plain PyTorch version of the prefill flash-attention kernel (K3).
+"""Plain PyTorch versions of the prefill flash-attention kernel (K3) and of
+its backward (K3b).
 
-The same function as ``flash_attention_pallas`` in the kernel's GQA
-layout: q (B, Hkv, G, Sq, D), k and v (B, Hkv, Skv, D); query i sits at
-position Skv - Sq + i and sees keys at positions <= its own (and, with
-``window > 0``, > position - window).  Scores, max, sum and the P.V
-accumulator are float32; masked scores take ``_NEG``, not -inf; the
-probabilities are rounded to the input type before the P.V product, as
-the kernel rounds them; a row with nothing valid keeps ``l`` clamped to
-1e-30.  One pass over the whole key axis: the kernel's blocked online
-softmax gives the same values up to float32 summation order.
+``flash_attention_ref`` is the same function as ``flash_attention_pallas``
+in the kernel's GQA layout: q (B, Hkv, G, Sq, D), k and v (B, Hkv, Skv, D);
+query i sits at position Skv - Sq + i and sees keys at positions <= its
+own (and, with ``window > 0``, > position - window).  Scores, max, sum and
+the P.V accumulator are float32; masked scores take ``_NEG``, not -inf;
+the probabilities are rounded to the input type before the P.V product,
+as the kernel rounds them; a row with nothing valid keeps ``l`` clamped
+to 1e-30.  One pass over the whole key axis: the kernel's blocked online
+softmax gives the same values up to float32 summation order.  With
+``return_lse`` it also returns the per-row logsumexp ``L = m + log l``
+(B, Hkv, G, Sq), float32, which the reference's ``_flash_core_fwd``
+(``src/repro/models/attention.py:248``) saves for its backward.
+
+``flash_attention_bwd_ref`` is that backward, ``_flash_core_bwd``
+(``src/repro/models/attention.py:265``) in its blockwise form: D =
+rowsum(dO o O), then per query block and per key block p = exp(s - L),
+rebuilt from the saved logsumexp and never stored whole, dV += p^T dO,
+dP = dO V^T, dS = p (dP - D) scale, dQ += dS K, dK += dS^T Q, all in
+float32, the G query heads of a KV head summed into its dK and dV.
 """
 from __future__ import annotations
 
 import torch
 
-__all__ = ["flash_attention_ref", "NEG"]
+__all__ = ["flash_attention_ref", "flash_attention_bwd_ref", "NEG"]
 
 NEG = -0.7 * float(torch.finfo(torch.float32).max)
 
+_CAUSAL_ONLY = ("flash attention is causal-only here, as its oracle "
+                "src/repro/kernels/flash_attention/ref.py:21 is; flash_attention_pallas also "
+                "takes causal=False (ROADMAP, queue 2, entry 6)")
 
-def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0, scale=None):
-    """q: (B, Hkv, G, Sq, D); k, v: (B, Hkv, Skv, D) -> (B, Hkv, G, Sq, D)."""
+
+def _mask(q_pos, k_pos, window: int):
+    mask = k_pos[None, :] <= q_pos[:, None]
+    if window > 0:
+        mask &= k_pos[None, :] > q_pos[:, None] - window
+    return mask
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0, scale=None,
+                        return_lse: bool = False):
+    """q: (B, Hkv, G, Sq, D); k, v: (B, Hkv, Skv, D) -> (B, Hkv, G, Sq, D),
+    and with ``return_lse`` the logsumexp (B, Hkv, G, Sq) float32."""
     if not causal:
-        raise NotImplementedError(
-            "flash attention is causal-only here, as its oracle "
-            "src/repro/kernels/flash_attention/ref.py:21 is; flash_attention_pallas also "
-            "takes causal=False (ROADMAP, queue 2, entry 6)")
+        raise NotImplementedError(_CAUSAL_ONLY)
     sq, d = q.shape[3], q.shape[4]
     skv = k.shape[2]
     scale = d ** -0.5 if scale is None else scale
     s = torch.einsum("bhgqd,bhkd->bhgqk", q.float(), k.float()) * scale
     q_pos = torch.arange(sq, device=q.device) + (skv - sq)
-    k_pos = torch.arange(skv, device=q.device)
-    mask = k_pos[None, :] <= q_pos[:, None]
-    if window > 0:
-        mask &= k_pos[None, :] > q_pos[:, None] - window
+    mask = _mask(q_pos, torch.arange(skv, device=q.device), window)
     s = torch.where(mask, s, NEG)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.where(mask, torch.exp(s - m), 0.0)
     l = p.sum(dim=-1, keepdim=True)
     acc = torch.einsum("bhgqk,bhkd->bhgqd", p.to(v.dtype).float(), v.float())
-    return (acc / l.clamp_min(1e-30)).to(q.dtype)
+    out = (acc / l.clamp_min(1e-30)).to(q.dtype)
+    if not return_lse:
+        return out
+    return out, (m + torch.log(l.clamp_min(1e-30)))[..., 0]
+
+
+def flash_attention_bwd_ref(q, k, v, o, do, lse, *, window: int = 0, scale=None,
+                            q_block: int = 64, kv_block: int = 64):
+    """Gradients (dq, dk, dv) of ``flash_attention_ref`` in its layout: q, o
+    and do (B, Hkv, G, Sq, D), k and v (B, Hkv, Skv, D), lse (B, Hkv, G, Sq)
+    from the forward.  Each returned in its input's type."""
+    sq, d = q.shape[3], q.shape[4]
+    skv = k.shape[2]
+    scale = d ** -0.5 if scale is None else scale
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    drow = (dof * o.float()).sum(dim=-1)  # D = rowsum(dO o O)
+    dq = torch.zeros_like(qf)
+    dk = torch.zeros_like(kf)
+    dv = torch.zeros_like(vf)
+    offset = skv - sq
+    for q0 in range(0, sq, q_block):
+        q1 = min(q0 + q_block, sq)
+        qc, doc = qf[..., q0:q1, :], dof[..., q0:q1, :]
+        lc, dc = lse[..., q0:q1, None], drow[..., q0:q1, None]
+        q_pos = torch.arange(q0, q1, device=q.device) + offset
+        for k0 in range(0, skv, kv_block):
+            k1 = min(k0 + kv_block, skv)
+            mask = _mask(q_pos, torch.arange(k0, k1, device=q.device), window)
+            if not bool(mask.any()):
+                continue  # a block wholly masked: above the diagonal or left of the window
+            kc, vc = kf[..., k0:k1, :], vf[..., k0:k1, :]
+            s = torch.einsum("bhgqd,bhkd->bhgqk", qc, kc) * scale
+            p = torch.where(mask, torch.exp(s - lc), 0.0)
+            dv[..., k0:k1, :] += torch.einsum("bhgqk,bhgqd->bhkd", p, doc)
+            dp = torch.einsum("bhgqd,bhkd->bhgqk", doc, vc)
+            ds = p * (dp - dc) * scale
+            dq[..., q0:q1, :] += torch.einsum("bhgqk,bhkd->bhgqd", ds, kc)
+            dk[..., k0:k1, :] += torch.einsum("bhgqk,bhgqd->bhkd", ds, qc)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

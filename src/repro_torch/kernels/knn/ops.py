@@ -14,7 +14,7 @@ import dataclasses
 
 import torch
 
-from repro_torch.kernels import LaunchCounter, nvcc
+from repro_torch.kernels import GRADIENTS_RULE, LaunchCounter, nvcc, refuse_grad
 from repro_torch.kernels.knn.ref import knn_topk_ref, votes_from_labels
 
 __all__ = ["knn_topk", "knn_class_votes", "knn_plan", "KnnPlan", "counter", "MAX_K", "MAX_DIM"]
@@ -153,6 +153,7 @@ def knn_topk(queries, train_x, train_norms, train_y, k: int):
     if plan.slices > 1:  # per-slice top-k lists, merged by a second kernel
         part_d = torch.empty((q, plan.slices, k), dtype=torch.float32, device=queries.device)
         part_i = torch.empty((q, plan.slices, k), dtype=torch.int32, device=queries.device)
+    refuse_grad("knn_topk", f"it has no backward ({GRADIENTS_RULE})", queries, train_x)
     with torch.cuda.device(queries.device):
         stream = torch.cuda.current_stream(queries.device).cuda_stream
         err = fn(queries.data_ptr(), train_x.data_ptr(), train_norms.data_ptr(),

@@ -85,10 +85,15 @@ SOURCES: dict[str, Source] = {
     "flash_attention": Source(
         "flash_attention", _KERNELS_DIR / "flash_attention" / "csrc" / "flash_attention.cu"
     ),
+    "flash_attention_bwd": Source(
+        "flash_attention_bwd",
+        _KERNELS_DIR / "flash_attention" / "csrc" / "flash_attention_bwd.cu",
+    ),
     "decode_attention": Source(
         "decode_attention", _KERNELS_DIR / "decode_attention" / "csrc" / "decode_attention.cu"
     ),
     "ssd": Source("ssd", _KERNELS_DIR / "ssd" / "csrc" / "ssd.cu"),
+    "ssd_bwd": Source("ssd_bwd", _KERNELS_DIR / "ssd" / "csrc" / "ssd_bwd.cu"),
     "rglru_scan": Source("rglru_scan", _KERNELS_DIR / "rglru_scan" / "csrc" / "rglru_scan.cu"),
 }
 

@@ -14,7 +14,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import LaunchCounter, nvcc
+from repro_torch.kernels import LaunchCounter, nvcc, refuse_grad
 from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
 
 __all__ = ["rglru_scan", "counter"]
@@ -68,6 +68,8 @@ def rglru_scan(u, gpre, a_w, a_b, x_w, x_b, lam, h0=None):
     y = torch.empty_like(u)
     h_last = torch.empty((b, width), dtype=torch.float32, device=u.device)
     lib, fn = _entry()
+    refuse_grad("rglru_scan", "its backward is still to write (ROADMAP, queue 2, entry 8)",
+                u, gpre, *vecs, h0)
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream(u.device).cuda_stream
         err = fn(u.data_ptr(), gpre.data_ptr(), *[v.data_ptr() for v in vecs],

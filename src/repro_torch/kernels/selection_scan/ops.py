@@ -14,7 +14,7 @@ import ctypes
 import numpy as np
 import torch
 
-from repro_torch.kernels import LaunchCounter, nvcc
+from repro_torch.kernels import GRADIENTS_RULE, LaunchCounter, nvcc, refuse_grad
 from repro_torch.kernels.selection_scan.ref import selection_scan_ref
 
 __all__ = ["selection_scan", "launch", "counter", "smem_bytes", "MAX_SMEM_BYTES"]
@@ -157,6 +157,7 @@ def launch(seed, cap: float, res_mode: str, acc, mask, deadlines, bsize, lat, st
     out = torch.empty((4, s), dtype=torch.float64, device=dev)
     tile = torch.empty((n_w, b if fixed is None else 1, m), dtype=torch.float64, device=dev)
     lib, fn = _entry()
+    refuse_grad("selection_scan", f"it has no backward ({GRADIENTS_RULE})", *tabs)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         seed = [x.contiguous() for x in seed]

@@ -15,7 +15,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import LaunchCounter, nvcc
+from repro_torch.kernels import GRADIENTS_RULE, LaunchCounter, nvcc, refuse_grad
 from repro_torch.kernels.selection_scan.ops import MAX_SMEM_BYTES
 from repro_torch.kernels.shard_round.ref import RANK_INF, chain_ref, score_block_ref
 
@@ -116,6 +116,7 @@ def score_block(t, res, slot1: bool, acc, mask, deadlines, bsize, lat, step_app,
     fixed = fixed.contiguous() if fixed is not None else None
     tile = (torch.empty((n_rows, n_w, b, m), dtype=f64, device=dev) if fixed is None
             else None)
+    refuse_grad("shard_round", f"it has no backward ({GRADIENTS_RULE})", t, res, *tabs)
     lib, fn, _ = _entries()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -163,6 +164,7 @@ def chain(t0, res0, sizes, cap: float, slot1: bool, wi, g, sw, lt):
     t_st = torch.empty((n + 1, n_w), dtype=torch.float64, device=dev)
     r_st = torch.empty((n + 1, n_w, n_slots), dtype=torch.int64, device=dev)
     ins = [x.contiguous() for x in (t0, res0, sizes, wi, g, sw, lt)]
+    refuse_grad("shard_round", f"it has no backward ({GRADIENTS_RULE})", *ins)
     lib, _, fn = _entries()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream

@@ -17,7 +17,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import LaunchCounter, nvcc
+from repro_torch.kernels import GRADIENTS_RULE, LaunchCounter, nvcc, refuse_grad
 from repro_torch.kernels.selection_scan.ops import _check_args, _seed
 from repro_torch.kernels.spec_scan.ref import spec_scan_ref
 
@@ -93,6 +93,7 @@ def launch(seed, cap: float, res_mode: str, acc, mask, deadlines, bsize, lat, st
     seed = [x.contiguous() for x in seed]
     res_st = torch.empty((chunk,) + tuple(seed[1].shape), dtype=torch.int64, device=dev)
     lib, fn = _entry()
+    refuse_grad("spec_scan", f"it has no backward ({GRADIENTS_RULE})", *tabs)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(*[x.data_ptr() for x in seed], cap, *[x.data_ptr() for x in tabs],

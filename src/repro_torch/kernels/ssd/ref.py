@@ -21,13 +21,37 @@ inside ``ssd_scan``; this function, like ``ssd_pallas``, does not
 ``ssd_sequential_ref`` is the step-by-step recurrence of
 ``src/repro/kernels/ssd/ref.py``, kept as a test oracle: one decay and
 one rank-1 update per position.
+
+``ssd_chunk_bwd_ref`` is the backward of ``ssd_chunk_ref`` (K5b's plain
+version): the gradients of y with respect to xdt, dA, bm and cm, given
+the output's gradient dy and what the forward leaves (the cumsum and the
+state entering each chunk), as the reverse of the five stages, cut into
+the stages of the kernel (``csrc/ssd_bwd.cu``):
+
+  1. ``bwd_dstate``: the output stage's y_off backward gives the
+     gradient of each chunk's entering state, dE = sum_i e^cum_i dy_i^T C_i;
+  2. ``bwd_pass``: a reverse scan over the chunks through the state
+     passing gives the gradient of each chunk's own state (dSc) and the
+     chunk totals' share of dcum;
+  3. ``bwd_dx``: dxdt through the scores (y_diag) and the chunk states,
+     and each position's share of dcum through the decay to the chunk's end;
+  4. ``bwd_dscores``: d(scores) per head, and dcum through the causal decay;
+  5. ``bwd_dbc_heads``: per head, dC through y_off and dB through the chunk
+     states, and dcum through y_off;
+  6. ``bwd_dcum``: dcum summed, then the reverse cumsum that gives ddA;
+  7. ``bwd_dbm_dcm``: the heads' d(scores) summed, through C.B^T into dB
+     and dC, plus the heads' own dB and dC.
+
+The final state is not differentiated (the model reads only y).
 """
 from __future__ import annotations
 
 import torch
 
-__all__ = ["ssd_chunk_ref", "ssd_sequential_ref", "chunk_cumsum", "chunk_scores",
-           "chunk_states", "state_passing", "chunk_scan", "causal_decay"]
+__all__ = ["ssd_chunk_ref", "ssd_chunk_ref_saving", "ssd_sequential_ref", "chunk_cumsum",
+           "chunk_scores", "chunk_states", "state_passing", "chunk_scan", "causal_decay",
+           "ssd_chunk_bwd_ref", "bwd_dstate", "bwd_pass", "bwd_dx", "bwd_dscores",
+           "bwd_dbc_heads", "bwd_dcum", "bwd_dbm_dcm"]
 
 
 def _chunks(t, chunk):
@@ -89,13 +113,19 @@ def chunk_scan(xdt, cm, scores, cum, entering, chunk: int):
     return (y_diag + y_off).reshape(b, s, h, p)
 
 
-def ssd_chunk_ref(xdt, dA, bm, cm, chunk: int = 128):
-    """(y (B, S, H, P), final_state (B, H, P, N)), float32: the five
-    stages in order."""
+def ssd_chunk_ref_saving(xdt, dA, bm, cm, chunk: int = 128):
+    """The five stages in order: (y (B, S, H, P), final_state (B, H, P, N),
+    cum (B, H, nc, l), entering (B, nc, H, P, N)), float32; the last two are
+    what the backward (``ssd_chunk_bwd_ref``) reads."""
     cum = chunk_cumsum(dA, chunk)
     scores = chunk_scores(bm, cm, chunk)
     entering, final_state = state_passing(chunk_states(xdt, bm, cum, chunk), cum)
-    return chunk_scan(xdt, cm, scores, cum, entering, chunk), final_state
+    return chunk_scan(xdt, cm, scores, cum, entering, chunk), final_state, cum, entering
+
+
+def ssd_chunk_ref(xdt, dA, bm, cm, chunk: int = 128):
+    """(y (B, S, H, P), final_state (B, H, P, N)), float32."""
+    return ssd_chunk_ref_saving(xdt, dA, bm, cm, chunk)[:2]
 
 
 def ssd_sequential_ref(xdt, dA, bm, cm):
@@ -111,3 +141,103 @@ def ssd_sequential_ref(xdt, dA, bm, cm):
         state = torch.exp(dA[:, t])[:, :, None, None] * state + upd
         ys.append(torch.einsum("bn,bhpn->bhp", cm[:, t], state))
     return torch.stack(ys, dim=1), state
+
+
+# ------------------------------------------------------------ the backward
+
+
+def bwd_dstate(dy, cm, cum, chunk: int):
+    """Stage 1: (B, nc, H, P, N), the gradient of the state entering each
+    chunk through y_off: sum_i exp(cum_i) dy_i[p] C_i[n]."""
+    return torch.einsum("bhci,bcihp,bcin->bchpn", torch.exp(cum), _chunks(dy, chunk),
+                        _chunks(cm, chunk))
+
+
+def bwd_pass(dE, entering, cum):
+    """Stage 2: the reverse scan of ``state_passing``.  With g the gradient
+    of the state leaving chunk c (0 after the last: the final state is not
+    differentiated), dSc_c = g, chunk c's total decay a_c = exp(cum_end,c)
+    takes a_c <g, E_c>, and g <- dE_c + a_c g.  Returns dSc (B, nc, H, P, N)
+    and the chunk totals' dcum (B, H, nc)."""
+    a = torch.exp(cum[..., -1])  # (b, h, nc)
+    g = torch.zeros_like(dE[:, 0])
+    dsc = torch.empty_like(dE)
+    dcend = torch.empty_like(a)
+    for c in reversed(range(dE.shape[1])):
+        dsc[:, c] = g
+        dcend[:, :, c] = a[:, :, c] * (g * entering[:, c]).sum(dim=(-1, -2))
+        g = dE[:, c] + a[:, :, c, None, None] * g
+    return dsc, dcend
+
+
+def bwd_dx(xdt, dy, bm, scores, cum, dsc, chunk: int):
+    """Stage 3: dxdt (B, S, H, P) = sum_{i >= j} (scores o L)_ij dy_i plus
+    w_j sum_n B_j[n] dSc[p, n], w_j = exp(cum_end - cum_j); and r (B, H, nc,
+    l) = w_j dw_j, the chunk states' share of dcum."""
+    b, s, h, p = xdt.shape
+    w_decay = scores[:, None] * causal_decay(cum)  # (b, h, nc, i, j)
+    t1 = torch.einsum("bhcij,bcihp->bcjhp", w_decay, _chunks(dy, chunk))
+    u = torch.einsum("bcjn,bchpn->bcjhp", _chunks(bm, chunk), dsc)
+    w = torch.exp(cum[..., -1:] - cum)  # (b, h, nc, l)
+    dx = t1 + w.permute(0, 2, 3, 1)[..., None] * u
+    r = w * torch.einsum("bcjhp,bcjhp->bhcj", _chunks(xdt, chunk), u)
+    return dx.reshape(b, s, h, p), r
+
+
+def bwd_dscores(xdt, dy, scores, cum, chunk: int):
+    """Stage 4: per head, d(scores) (B, H, nc, l, l) = (dy_i . xdt_j) L_ij on
+    and below the diagonal, and qd (B, H, nc, l), dcum through L: the row
+    sums less the column sums of d(scores) o scores."""
+    dw = torch.einsum("bcihp,bcjhp->bhcij", _chunks(dy, chunk), _chunks(xdt, chunk))
+    dg = dw * causal_decay(cum)
+    q = dg * scores[:, None]
+    return dg, q.sum(dim=-1) - q.sum(dim=-2)
+
+
+def bwd_dbc_heads(xdt, dy, cm, cum, entering, dsc, chunk: int):
+    """Stage 5: per head, dC (B, nc, l, H, N) = exp(cum_i) sum_p dy_i[p]
+    E[p, n] through y_off, dB (B, nc, l, H, N) = w_j sum_p xdt_j[p] dSc[p, n]
+    through the chunk states, and s (B, H, nc, l) = C_i . dC_i, dcum
+    through y_off."""
+    dco = torch.exp(cum).permute(0, 2, 3, 1)[..., None] * torch.einsum(
+        "bcihp,bchpn->bcihn", _chunks(dy, chunk), entering)
+    s = torch.einsum("bcin,bcihn->bhci", _chunks(cm, chunk), dco)
+    w = torch.exp(cum[..., -1:] - cum)
+    dbo = w.permute(0, 2, 3, 1)[..., None] * torch.einsum(
+        "bcihp,bchpn->bcihn", _chunks(xdt, chunk), dsc)
+    return dco, dbo, s
+
+
+def bwd_dcum(qd, s, r, dcend):
+    """Stage 6: dcum = qd + s - r, the chunk's end also taking sum_j r_j and
+    the pass's share; ddA (B, S, H) is its reverse cumsum in each chunk."""
+    dcum = qd + s - r
+    dcum[..., -1] += r.sum(dim=-1) + dcend
+    dda = torch.flip(torch.cumsum(torch.flip(dcum, (-1,)), dim=-1), (-1,))
+    b, h, nc, length = dda.shape
+    return dda.permute(0, 2, 3, 1).reshape(b, nc * length, h)
+
+
+def bwd_dbm_dcm(dg, dco, dbo, bm, cm, chunk: int):
+    """Stage 7: the heads' d(scores) summed, through scores = C.B^T: dC +=
+    d(scores) . B, dB += d(scores)^T . C, plus the heads' own dC and dB.
+    Returns dbm, dcm (B, S, N)."""
+    dgt = dg.sum(dim=1)  # (b, nc, i, j)
+    bc, cc = _chunks(bm, chunk), _chunks(cm, chunk)
+    dc = dco.sum(dim=3) + torch.einsum("bcij,bcjn->bcin", dgt, bc)
+    db = dbo.sum(dim=3) + torch.einsum("bcij,bcin->bcjn", dgt, cc)
+    return db.reshape(bm.shape), dc.reshape(cm.shape)
+
+
+def ssd_chunk_bwd_ref(xdt, bm, cm, dy, cum, entering, chunk: int = 128):
+    """(dxdt (B, S, H, P), ddA (B, S, H), dbm, dcm (B, S, N)), float32: the
+    gradients of ``ssd_chunk_ref``'s y given dy, from the forward's cum
+    (B, H, nc, l) and entering states (B, nc, H, P, N)."""
+    xdt, bm, cm, dy = (t.float() for t in (xdt, bm, cm, dy))
+    scores = chunk_scores(bm, cm, chunk)
+    dsc, dcend = bwd_pass(bwd_dstate(dy, cm, cum, chunk), entering, cum)
+    dx, r = bwd_dx(xdt, dy, bm, scores, cum, dsc, chunk)
+    dg, qd = bwd_dscores(xdt, dy, scores, cum, chunk)
+    dco, dbo, s = bwd_dbc_heads(xdt, dy, cm, cum, entering, dsc, chunk)
+    dbm, dcm = bwd_dbm_dcm(dg, dco, dbo, bm, cm, chunk)
+    return dx, bwd_dcum(qd, s, r, dcend), dbm, dcm

@@ -14,7 +14,7 @@ import dataclasses
 import torch
 
 from repro_torch.core.utility import PENALTY_CODES
-from repro_torch.kernels import LaunchCounter, nvcc
+from repro_torch.kernels import GRADIENTS_RULE, LaunchCounter, nvcc, refuse_grad
 from repro_torch.kernels.utility.ref import utility_scores_ref, utility_tile_ref
 
 __all__ = ["utility_scores", "utility_plan", "UtilityPlan", "counter", "MAX_MODELS"]
@@ -146,6 +146,8 @@ def utility_scores(acc, deadlines, completions, penalty: str = "sigmoid",
     sums = torch.empty(m, dtype=acc.dtype, device=acc.device) if with_means else None
     plan = utility_plan(r, m, acc.element_size(), with_means)
     lib, fn = _entry(acc.dtype)
+    refuse_grad("utility_scores", f"it has no backward ({GRADIENTS_RULE})", acc, deadlines,
+                completions)
     with torch.cuda.device(acc.device):
         stream = torch.cuda.current_stream(acc.device).cuda_stream
         err = fn(acc.data_ptr(), deadlines.data_ptr(), completions.data_ptr(),

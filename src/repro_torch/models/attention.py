@@ -14,19 +14,53 @@ for a ring buffer of L slots), built on the device from the 0-dim
 position tensor.  The int8 KV cache (``kv_quantize``, ``kv_dequantize``)
 is the reference's ``blocks._kv_quant`` and ``_kv_dequant``: per-position
 absmax codes with float32 scales, dequantised to the model's type before
-K4.  Forward only: the flash backward (the custom VJP of the reference)
-comes with training.
+K4.
+
+Training differentiates prefill attention through
+``flash_attention_autograd``, a ``torch.autograd.Function`` over K3 and
+its backward K3b: the counterpart of the reference's custom VJP
+``_flash_core`` (``src/repro/models/attention.py:235``), which saves q,
+k, v, the output and the per-row logsumexp and rebuilds the
+probabilities blockwise in the backward.  ``attn_forward`` takes it only
+while autograd records and an input requires a gradient; serving calls
+K3 alone, as before.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import records_grad
 from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models.layers import rmsnorm, rope
 from repro_torch.models.spec import P
 
-__all__ = ["attn_spec", "attn_forward", "attn_decode", "kv_quantize", "kv_dequantize"]
+__all__ = ["attn_spec", "attn_forward", "attn_decode", "kv_quantize", "kv_dequantize",
+           "flash_attention_autograd"]
+
+
+class _FlashAttention(torch.autograd.Function):
+    """K3 forward (with its logsumexp), K3b backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window):
+        out, lse = flash_ops.flash_attention(q, k, v, causal=True, window=window,
+                                             return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.window = window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_ops.flash_attention_bwd(q, k, v, out, dout.contiguous(), lse,
+                                                   window=ctx.window)
+        return dq, dk, dv, None
+
+
+def flash_attention_autograd(q, k, v, window: int = 0):
+    """Causal GQA attention (B, Sq, Hq, D) whose gradient runs through K3b."""
+    return _FlashAttention.apply(q, k, v, window)
 
 
 def attn_spec(d_model: int, num_heads: int, num_kv_heads: int, head_dim: int,
@@ -76,7 +110,10 @@ def attn_forward(params, x, cfg, *, window: int = 0, theta: float = 10_000.0,
     if positions is None:
         positions = torch.arange(s, device=x.device).expand(b, s)
     q, k, v = _project_qkv(params, x, cfg, positions, theta)
-    o = flash_ops.flash_attention(q, k, v, causal=True, window=window)
+    if records_grad(q, k, v):
+        o = flash_attention_autograd(q, k, v, window)
+    else:
+        o = flash_ops.flash_attention(q, k, v, causal=True, window=window)
     return _out(o, params.wo), (k, v)
 
 

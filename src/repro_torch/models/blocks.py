@@ -21,9 +21,9 @@ With ``kv_quant`` an attention cache holds int8 codes and float32
 (B, L, Hkv, 1) scales: {"k", "k_scale", "v", "v_scale"}.
 
 SSD with more than one group raises ``NotImplementedError`` naming the
-ROADMAP item that brings it.  The MoE's Switch auxiliary term is
-computed by ``moe.moe_forward`` and dropped here: the port's blocks serve
-and score, and return no aux term.
+ROADMAP item that brings it.  ``block_full`` returns the MoE's Switch
+auxiliary term (``moe.moe_forward``) beside x, as the reference's does,
+for the training loss; prefill and decode drop it.
 """
 from __future__ import annotations
 
@@ -106,16 +106,18 @@ def _window(cfg, mixer: str) -> int:
 
 
 def _apply_ffn(params, x, cfg, ffn: str):
+    """(x + FFN(x), the MoE's aux term or 0.0)."""
     if ffn == "none":
-        return x
+        return x, 0.0
     h = rmsnorm(params.mlp_norm, x)
+    aux = 0.0
     if ffn == "mlp":
         y = mlp(params.mlp, h, cfg.activation)
     else:
-        y, _ = moe_mod.moe_forward(params.moe, h, cfg)
+        y, aux = moe_mod.moe_forward(params.moe, h, cfg)
     if cfg.post_norms:
         y = rmsnorm(params.mlp_post_norm, y)
-    return x + y
+    return x + y, aux
 
 
 def _post(params, y, cfg):
@@ -123,7 +125,8 @@ def _post(params, y, cfg):
 
 
 def block_full(params, x, cfg, kind: str):
-    """Scoring pass (no cache).  Returns x."""
+    """Full-sequence pass (no cache).  Returns (x, aux): the MoE's
+    auxiliary term, 0.0 for any other FFN."""
     mixer, ffn = _check_kind(cfg, kind)
     h = rmsnorm(params.pre_norm, x)
     if mixer == "ssd":
@@ -185,7 +188,7 @@ def block_prefill(params, x, cfg, kind: str, max_len: int):
         y, (k, v) = attn_mod.attn_forward(params.attn, h, cfg, window=_window(cfg, mixer),
                                           theta=_theta(cfg, mixer))
         cache = _prefill_cache(cfg, mixer, k, v, max_len)
-    return _apply_ffn(params, x + _post(params, y, cfg), cfg, ffn), cache
+    return _apply_ffn(params, x + _post(params, y, cfg), cfg, ffn)[0], cache
 
 
 def block_decode(params, x, cache, pos, cfg, kind: str, lengths=None, slot=None):
@@ -211,4 +214,4 @@ def block_decode(params, x, cache, pos, cfg, kind: str, lengths=None, slot=None)
         names = _kv_names(cfg)
         y, _ = attn_mod.attn_decode(params.attn, h, tuple(cache[n] for n in names), pos, cfg,
                                     theta=_theta(cfg, mixer), lengths=lengths, slot=slot)
-    return _apply_ffn(params, x + _post(params, y, cfg), cfg, ffn), cache
+    return _apply_ffn(params, x + _post(params, y, cfg), cfg, ffn)[0], cache

@@ -31,10 +31,11 @@ def rmsnorm_spec(dim: int) -> dict:
 
 def rmsnorm(params, x, eps: float = 1e-6):
     """RMSNorm with (1 + scale) parameterisation, computed in float32: the
-    scale is applied as out + out * scale, one kernel that casts it inside."""
+    scale is applied as out + out * scale, one kernel that casts it inside
+    (out of place, so that autograd can differentiate it)."""
     xf = x.float()
     out = xf * torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
-    return out.addcmul_(out, params.scale).to(x.dtype)
+    return torch.addcmul(out, out, params.scale).to(x.dtype)
 
 
 # ---------------------------------------------------------------- rope

@@ -4,7 +4,8 @@ The counterpart of ``repro.models.model.LM``: a thin, stateless wrapper
 that owns only the config; the weights (a ``TransformerParams`` module)
 and the caches flow through the arguments.  ``init`` places the weights
 on the card unless ``device="cpu"`` is named, and raises on a host
-without CUDA.
+without CUDA.  The weights come frozen; a trainer unfreezes them before
+``loss``.
 """
 from __future__ import annotations
 
@@ -39,6 +40,12 @@ class LM:
     def forward(self, params, tokens):
         """Logits (B, S, V) of a (B, S) token batch."""
         return transformer.forward(params, tokens, self.cfg)
+
+    def loss(self, params, batch):
+        """(total loss, metrics) of a {"tokens": (B, S + 1)} batch
+        (``transformer.loss_fn``); differentiable once the weights require
+        gradients."""
+        return transformer.loss_fn(params, batch, self.cfg)
 
     def prefill(self, params, tokens, max_len: int | None = None):
         """(last-position logits (B, V), cache with room for ``max_len``)."""

@@ -13,6 +13,14 @@ place, where the reference returns new arrays.
 In a bf16 model the reference rounds the scores, the decay matrix and
 the carried chunk states to bf16 inside ``ssd_scan``; K5 and its plain
 version keep them float32 (ROADMAP, fault P3).
+
+Training differentiates ``ssd_scan`` through the ``torch.autograd.Function``
+that ``kernels.ssd.ops.ssd_from_a`` applies over the chunk scan (xdt, dA,
+bm, cm): K5 forward, saving the cumsum and the entering states, then K5b
+backward on the card; the plain stages forward and backward on the CPU.
+Serving takes the same route and builds no graph.  The reference has no hand-written
+backward (``jax.grad`` differentiates its jnp scan); the chain to x, dt
+and A stays plain torch, and the final state is not differentiated.
 """
 from __future__ import annotations
 
@@ -82,7 +90,7 @@ def _gated_rmsnorm(scale, x, z, eps: float = 1e-6):
     x = x * F.silu(z)
     xf = x.float()
     out = xf * torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
-    return out.addcmul_(out, scale).to(x.dtype)  # out * (1 + scale), in float32
+    return torch.addcmul(out, out, scale).to(x.dtype)  # out * (1 + scale), in float32
 
 
 def _softplus(x):

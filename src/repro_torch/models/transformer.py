@@ -10,12 +10,23 @@ in a Python loop.  The reference compiles its decode step with
 its position on the device and writes its caches, its next token and its
 logits in place.  ``TransformerParams`` converts between the two: it is
 built from a tree in the reference's stacked layout and gives one back
-(``to_tree``).
+(``to_tree``, and ``grad_tree`` for the gradients), and takes one in
+place (``load_tree_``), which is how the optimizer's update reaches it.
+
+Its weights are frozen (``requires_grad=False``), so serving builds no
+autograd graph; training unfreezes them (``requires_grad_(True)``).  The
+training half is the reference's: ``hidden_states`` (each layer under
+``torch.utils.checkpoint`` when ``cfg.remat``, the counterpart of the
+reference's ``jax.checkpoint`` of its period body, and the MoE layers'
+auxiliary terms summed), ``chunked_xent`` (the logits of one sequence
+chunk at a time, each chunk checkpointed, so the (B, S, V) logits never
+exist whole) and ``loss_fn``.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import blocks
 from repro_torch.models.kvcache import model_dtype, position
@@ -28,7 +39,8 @@ from repro_torch.models.layers import (
 )
 from repro_torch.models.spec import P, stack
 
-__all__ = ["model_spec", "TransformerParams", "forward", "prefill", "decode_step", "decode_into"]
+__all__ = ["model_spec", "TransformerParams", "forward", "prefill", "decode_step", "decode_into",
+           "hidden_states", "chunked_xent", "loss_fn"]
 
 
 def model_spec(cfg) -> dict:
@@ -59,10 +71,21 @@ def _module(tree: dict) -> nn.Module:
     return m
 
 
-def _tensors(m: nn.Module) -> dict:
-    out = {name: p.data for name, p in m.named_parameters(recurse=False)}
-    out.update({name: _tensors(child) for name, child in m.named_children()})
+def _tensors(m: nn.Module, leaf=lambda p: p.data) -> dict:
+    out = {name: leaf(p) for name, p in m.named_parameters(recurse=False)}
+    out.update({name: _tensors(child, leaf) for name, child in m.named_children()})
     return out
+
+
+def _grad(p):
+    return p.grad if p.grad is not None else torch.zeros_like(p)
+
+
+def _copy_into(m: nn.Module, tree: dict) -> None:
+    for name, p in m.named_parameters(recurse=False):
+        p.data.copy_(tree[name])
+    for name, child in m.named_children():
+        _copy_into(child, tree[name])
 
 
 def _map(tree, fn):
@@ -95,18 +118,44 @@ class TransformerParams(nn.Module):
 
     def to_tree(self) -> dict:
         """The reference's stacked layout (the inverse of the constructor)."""
+        return self._tree(lambda p: p.data)
+
+    def grad_tree(self) -> dict:
+        """The gradients in the reference's stacked layout: zeros for a
+        weight the loss did not reach."""
+        return self._tree(_grad)
+
+    def _tree(self, leaf) -> dict:
         cfg = self.cfg
-        layers = [_tensors(m) for m in self.layers]
+        layers = [_tensors(m, leaf) for m in self.layers]
         full = cfg.n_periods * cfg.period
         tree = {
-            "embed": _tensors(self.embed),
+            "embed": _tensors(self.embed, leaf),
             "blocks": [_stack_trees(layers[j:full:cfg.period]) for j in range(cfg.period)],
             "tail": layers[full:],
-            "final_norm": _tensors(self.final_norm),
+            "final_norm": _tensors(self.final_norm, leaf),
         }
         if self.lm_head is not None:
-            tree["lm_head"] = self.lm_head.data
+            tree["lm_head"] = leaf(self.lm_head)
         return tree
+
+    @torch.no_grad()
+    def load_tree_(self, tree: dict) -> "TransformerParams":
+        """Copy a tree in the reference's stacked layout into the weights,
+        in place (each leaf cast to its weight's type)."""
+        cfg = self.cfg
+        full = cfg.n_periods * cfg.period
+        _copy_into(self.embed, tree["embed"])
+        for i, layer in enumerate(self.layers):
+            if i < full:
+                _copy_into(layer, _map(tree["blocks"][i % cfg.period],
+                                       lambda t, p=i // cfg.period: t[p]))
+            else:
+                _copy_into(layer, tree["tail"][i - full])
+        _copy_into(self.final_norm, tree["final_norm"])
+        if self.lm_head is not None:
+            self.lm_head.data.copy_(tree["lm_head"])
+        return self
 
 
 def _stack_trees(trees: list) -> dict:
@@ -134,10 +183,81 @@ def _embed(params, cfg, tokens):
 
 def forward(params, tokens, cfg):
     """Causal LM forward.  tokens: (B, S) int -> logits (B, S, V)."""
-    x = _embed(params, cfg, tokens)
-    for layer, kind in zip(params.layers, _kinds(cfg)):
-        x = blocks.block_full(layer, x, cfg, kind)
+    x, _ = _blocks(params, tokens, cfg)
     return _logits(params, cfg, rmsnorm(params.final_norm, x))
+
+
+def hidden_states(params, tokens, cfg):
+    """Embed + blocks + final norm, WITHOUT the logits projection.  Returns
+    (x, aux), aux the sum of the MoE layers' auxiliary terms (float32).
+    With ``cfg.remat``, while autograd records, each layer runs under
+    ``torch.utils.checkpoint``: its activations are recomputed in the
+    backward, as the reference's ``jax.checkpoint`` recomputes its period
+    body."""
+    x, aux = _blocks(params, tokens, cfg)
+    aux = torch.as_tensor(aux, dtype=torch.float32, device=x.device)
+    return rmsnorm(params.final_norm, x), aux
+
+
+def _blocks(params, tokens, cfg):
+    """Embed + blocks: (x, the MoE terms' sum, 0.0 without MoE layers)."""
+    x = _embed(params, cfg, tokens)
+    remat = cfg.remat and torch.is_grad_enabled()
+    aux = 0.0
+    for layer, kind in zip(params.layers, _kinds(cfg)):
+        if remat:
+            x, a = checkpoint(blocks.block_full, layer, x, cfg, kind, use_reentrant=False)
+        else:
+            x, a = blocks.block_full(layer, x, cfg, kind)
+        aux = aux + a
+    return x, aux
+
+
+def _xent_chunk(xc, table, tc, mc, softcap_value: float):
+    logits = (xc @ table.T).float()
+    if softcap_value and softcap_value > 0:
+        logits = torch.tanh(logits / softcap_value) * softcap_value
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, tc[..., None].long())[..., 0]
+    return ((logz - gold) * mc).sum()
+
+
+def chunked_xent(x, table, targets, mask, softcap_value: float, chunk: int):
+    """Cross-entropy summed over sequence chunks of ``chunk`` positions: the
+    (B, S, V) logits are never materialised.  While autograd records, each
+    chunk runs under ``torch.utils.checkpoint``, so only its (B, c, D)
+    slice is kept for the backward, which recomputes its logits."""
+    s = x.shape[1]
+    chunk = min(chunk, s)
+    grad = torch.is_grad_enabled()
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for s0 in range(0, s, chunk):
+        args = (x[:, s0:s0 + chunk], table, targets[:, s0:s0 + chunk], mask[:, s0:s0 + chunk],
+                softcap_value)
+        part = (checkpoint(_xent_chunk, *args, use_reentrant=False) if grad
+                else _xent_chunk(*args))
+        total = total + part
+    return total
+
+
+def loss_fn(params, batch, cfg):
+    """Next-token cross-entropy via chunked logits (memory-bounded).
+
+    batch: {"tokens": (B, S) int, optional "mask": (B, S)}.  Returns (loss,
+    metrics) as the reference's: the loss plus 0.01 times the MoE
+    auxiliary term, and {"loss", "aux_loss", "tokens"}."""
+    tokens = batch["tokens"]
+    x, aux = hidden_states(params, tokens[:, :-1], cfg)
+    targets = tokens[:, 1:]
+    mask = batch.get("mask")
+    mask = (torch.ones(targets.shape, dtype=torch.float32, device=targets.device)
+            if mask is None else mask[:, 1:].float())
+    table = params.lm_head if params.lm_head is not None else params.embed.embedding
+    nll = chunked_xent(x, table, targets, mask, cfg.logit_softcap, cfg.xent_chunk)
+    denom = mask.sum().clamp_min(1.0)
+    loss = nll / denom
+    total = loss + 0.01 * aux
+    return total, {"loss": loss, "aux_loss": aux, "tokens": denom}
 
 
 def prefill(params, tokens, cfg, max_len: int):

@@ -1527,3 +1527,127 @@ def test_sharded_pipeline_across_cards_matches_unsharded(cuda, pool):
         runs.append((sim, seen))
     assert runs[1][0]._pipeline.num_shards() == n_dev
     assert len(runs[0][1]) > 1 and runs[1][1] == runs[0][1]
+
+
+# ---------------------------------------------------------------- backward kernels (K3b, K5b)
+
+def _gqa_ref(t, hkv):
+    b, s, hq, d = t.shape
+    return t.reshape(b, s, hkv, hq // hkv, d).permute(0, 2, 3, 1, 4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,d,window", [
+    (2, 128, 128, 4, 4, 32, 0), (1, 256, 256, 8, 2, 64, 0), (2, 96, 96, 4, 1, 32, 0),
+    (1, 256, 256, 4, 2, 32, 64), (1, 130, 130, 2, 2, 16, 32),  # tests/test_kernels.py:22
+    (2, 37, 300, 8, 2, 64, 0), (1, 300, 300, 8, 1, 128, 0), (2, 130, 130, 4, 4, 128, 32),
+    (2, 1024, 1024, 32, 4, 64, 0),  # tinyllama's training shape, two rows
+    (1, 1024, 1024, 40, 8, 128, 0), (1, 1536, 1536, 8, 4, 128, 1024),  # llama4, a window
+])
+def test_flash_attention_bwd_kernel_matches_plain(cuda, b, sq, skv, hq, hkv, d, window, dtype):
+    """K3's logsumexp and K3b's dq, dk and dv against the plain versions on
+    the same inputs, forward output and logsumexp (2e-2 bf16, 2e-5 f32)."""
+    from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref
+
+    gen = torch.Generator(device=cuda).manual_seed(sq * 7 + skv)
+    q = torch.randn((b, sq, hq, d), generator=gen, device=cuda).to(dtype)
+    k, v = (torch.randn((b, skv, hkv, d), generator=gen, device=cuda).to(dtype)
+            for _ in range(2))
+    do = torch.randn((b, sq, hq, d), generator=gen, device=cuda).to(dtype)
+    out, lse = flash_ops.flash_attention(q, k, v, window=window, return_lse=True)
+    _, lse_ref = flash_attention_ref(_gqa_ref(q, hkv), k.transpose(1, 2), v.transpose(1, 2),
+                                     window=window, return_lse=True)
+    torch.testing.assert_close(lse, lse_ref.reshape(b, hq, sq), atol=2e-5, rtol=2e-5)
+    before = flash_ops.bwd_counter.count
+    dq, dk, dv = flash_ops.flash_attention_bwd(q, k, v, out, do, lse, window=window)
+    torch.cuda.synchronize()
+    assert flash_ops.bwd_counter.count == before + 1
+    refs = flash_attention_bwd_ref(_gqa_ref(q, hkv), k.transpose(1, 2), v.transpose(1, 2),
+                                   _gqa_ref(out, hkv), _gqa_ref(do, hkv),
+                                   lse.reshape(b, hkv, hq // hkv, sq), window=window)
+    refs = (refs[0].permute(0, 3, 1, 2, 4).reshape(b, sq, hq, d), refs[1].transpose(1, 2),
+            refs[2].transpose(1, 2))
+    tol = ATTN_TOL[dtype]
+    for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), refs):
+        assert got.dtype == dtype and got.shape == ref.shape, name
+        torch.testing.assert_close(got.float(), ref.float(), atol=tol, rtol=tol, msg=name)
+
+
+def test_flash_attention_bwd_refuses_head_dim_256(cuda):
+    q = torch.zeros((1, 64, 2, 256), device=cuda)
+    lse = torch.zeros((1, 2, 64), device=cuda)
+    with pytest.raises(NotImplementedError, match="queue 2, entry 7"):
+        flash_ops.flash_attention_bwd(q, q, q, q, q, lse)
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk", [
+    (2, 64, 4, 8, 16, 16), (1, 128, 2, 16, 8, 32), (2, 48, 8, 8, 32, 16),
+    (3, 40, 2, 5, 7, 8), (2, 512, 2, 8, 128, 32), (1, 256, 5, 64, 128, 16),
+    (2, 1024, 24, 64, 128, 128),  # mamba2-130m's training shape, two rows
+])
+def test_ssd_bwd_kernel_matches_plain(cuda, b, s, h, p, n, chunk):
+    """K5b's four gradients against ``ssd_chunk_bwd_ref`` on the same
+    inputs and saved forward (atol 2e-4, rtol 1e-3)."""
+    from repro_torch.kernels.ssd.ref import ssd_chunk_bwd_ref
+
+    x, dt, a_log, bm, cm = _ssd_case(b, s, h, p, n, cuda)
+    dA = (dt * -torch.exp(a_log)).contiguous()
+    xdt = (x * dt[..., None]).contiguous()
+    dy = torch.randn((b, s, h, p), generator=torch.Generator(device=cuda).manual_seed(s),
+                     device=cuda)
+    y, _, cum, entering = ssd_ops.ssd_chunk_scan_saving(xdt, dA, bm, cm, chunk)
+    before = ssd_ops.bwd_counter.count
+    grads = ssd_ops.ssd_chunk_bwd(xdt, bm, cm, dy, cum, entering, chunk)
+    torch.cuda.synchronize()
+    assert ssd_ops.bwd_counter.count == before + 1  # nine kernels, one K5b launch
+    refs = ssd_chunk_bwd_ref(xdt, bm, cm, dy, cum, entering, chunk)
+    for name, got, ref in zip(("dxdt", "ddA", "dbm", "dcm"), grads, refs):
+        torch.testing.assert_close(got, ref, atol=SSD_ATOL, rtol=SSD_RTOL, msg=name)
+
+
+def test_ssd_scan_gradient_on_the_card_matches_the_host(cuda):
+    """models.ssd.ssd_scan's autograd function (K5 then K5b) on a ragged
+    length, card against host, every input's gradient."""
+    from repro_torch.models.ssd import ssd_scan
+
+    x, dt, a_log, bm, cm = _ssd_case(2, 300, 4, 64, 128, cuda)
+    dy = torch.randn((2, 300, 4, 64), generator=torch.Generator(device=cuda).manual_seed(1),
+                     device=cuda)
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        leaves = [t.detach().to(dev).requires_grad_() for t in (x, dt, a_log, bm, cm)]
+        xx, dd, al, bb, cc = leaves
+        y, _ = ssd_scan(xx, dd, -torch.exp(al), bb[:, :, None], cc[:, :, None], 128)
+        (y * dy.to(dev)).sum().backward()
+        grads[dev] = [t.grad.cpu() for t in leaves]
+    for name, got, ref in zip(("x", "dt", "a_log", "bm", "cm"), grads["cuda"], grads["cpu"]):
+        torch.testing.assert_close(got, ref, atol=SSD_ATOL, rtol=SSD_RTOL, msg=name)
+
+
+def test_kernels_without_a_backward_refuse_gradients(cuda):
+    """A CUDA call whose input requires a gradient raises, naming what to
+    call or the ROADMAP label, rather than return an output that carries
+    no gradient path."""
+    q = torch.randn((2, 1, 4, 32), device=cuda, requires_grad=True)
+    cache = torch.randn((2, 64, 2, 32), device=cuda)
+    lengths = torch.full((2,), 10, dtype=torch.int32, device=cuda)
+    with pytest.raises(RuntimeError, match="Port rules', Gradients"):
+        decode_ops.decode_attention(q, cache, cache, lengths)
+    with torch.no_grad():
+        decode_ops.decode_attention(q, cache, cache, lengths)  # nothing records: it runs
+    qf = torch.randn((2, 64, 4, 32), device=cuda, requires_grad=True)
+    kf = torch.randn((2, 64, 2, 32), device=cuda)
+    with pytest.raises(RuntimeError, match="flash_attention_autograd"):
+        flash_ops.flash_attention(qf, kf, kf)
+    x = torch.randn((1, 32, 2, 8), device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="ssd_scan"):
+        ssd_ops.ssd_chunk_scan(x, torch.zeros((1, 32, 2), device=cuda),
+                               torch.zeros((1, 32, 4), device=cuda),
+                               torch.zeros((1, 32, 4), device=cuda), 16)
+    u = torch.randn((1, 8, 16), device=cuda, requires_grad=True)
+    vec = torch.zeros(16, device=cuda)
+    with pytest.raises(RuntimeError, match="queue 2, entry 8"):
+        rglru_ops.rglru_scan(u, u.detach(), vec, vec, vec, vec, vec)
+    acc = torch.rand((8, 3), device=cuda, dtype=torch.float32, requires_grad=True)
+    with pytest.raises(RuntimeError, match="Port rules', Gradients"):
+        util_ops.utility_scores(acc, torch.ones(8, device=cuda), torch.ones(3, device=cuda))

@@ -23,16 +23,24 @@ from repro.core import shard as jshard
 from repro.core import simulator as jsim
 from repro.core import sneakpeek as jsneak
 from repro.data import applications as japps
+from repro.launch import steps as jsteps
 from repro.serving import runtime as jruntime
 from repro.serving import server as jserver
+from repro.training import checkpoint as jckpt
+from repro.training import optimizer as jopt
+from repro.training import trainer as jtrainer
 from repro_torch.core import pipeline as tpipe
 from repro_torch.core import scheduler as tsched
 from repro_torch.core import shard as tshard
 from repro_torch.core import simulator as tsim
 from repro_torch.core import sneakpeek as tsneak
 from repro_torch.data import applications as tapps
+from repro_torch.launch import steps as tsteps
 from repro_torch.serving import runtime as truntime
 from repro_torch.serving import server as tserver
+from repro_torch.training import checkpoint as tckpt
+from repro_torch.training import optimizer as topt
+from repro_torch.training import trainer as ttrainer
 
 # (reference, port, the port's keyword-only extras)
 ENTRY_POINTS = {
@@ -57,11 +65,32 @@ ENTRY_POINTS = {
                               {"train_n", "device"}),
     "EdgeServer": (jserver.EdgeServer, tserver.EdgeServer, {"device"}),
     "SwapManager": (jruntime.SwapManager, truntime.SwapManager, set()),
+    "Trainer": (jtrainer.Trainer, ttrainer.Trainer, {"device"}),
+    "TrainerConfig": (jtrainer.TrainerConfig, ttrainer.TrainerConfig, set()),
+    "OptimizerConfig": (jopt.OptimizerConfig, topt.OptimizerConfig, set()),
+    "adamw_step": (jopt.adamw_step, topt.adamw_step, set()),
+    "learning_rate": (jopt.learning_rate, topt.learning_rate, set()),
+    "LMDataset": (jdata.LMDataset, tdata.LMDataset, set()),
+    "LMDataConfig": (jdata.LMDataConfig, tdata.LMDataConfig, set()),
+    "checkpoint.save": (jckpt.save, tckpt.save, set()),
+    "checkpoint.restore": (jckpt.restore, tckpt.restore, {"device"}),
+    "make_train_step": (jsteps.make_train_step, tsteps.make_train_step, set()),
 }
 
 
+def _default(value):
+    """A default as compared: a dtype by its name, whichever framework's
+    object names it (``OptimizerConfig.master_dtype``)."""
+    if isinstance(value, torch.dtype):
+        return str(value).removeprefix("torch.")
+    if isinstance(value, type) and hasattr(value, "dtype"):  # jnp.float32 and its kind
+        return np.dtype(value.dtype).name
+    return value
+
+
 def _params(fn):
-    return [(p.name, p.kind, p.default) for p in inspect.signature(fn).parameters.values()]
+    return [(p.name, p.kind, _default(p.default))
+            for p in inspect.signature(fn).parameters.values()]
 
 
 @pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
@@ -89,16 +118,16 @@ def test_public_methods_cover_reference():
 
 
 def test_data_exports_cover_reference():
-    """``repro_torch.data`` exports the reference's names or refuses them
-    under their ROADMAP label."""
+    """``repro_torch.data`` exports every name of the reference's: the
+    testbed's from ``data.applications``, the LM pipeline's from
+    ``data.lm_data``; nothing is left in ``NOT_PORTED``."""
+    from repro_torch.data import lm_data as tlm
+
     for name in jdata.__all__:
-        if name in tdata.NOT_PORTED:
-            with pytest.raises(NotImplementedError, match="item 12"):
-                getattr(tdata, name)
-        else:
-            assert name in tdata.__all__
-            assert getattr(tdata, name) is getattr(tapps, name)
-    assert set(tdata.NOT_PORTED) == {"LMDataConfig", "LMDataset"}
+        assert name in tdata.__all__
+        home = tlm if name in ("LMDataConfig", "LMDataset") else tapps
+        assert getattr(tdata, name) is getattr(home, name)
+    assert tdata.NOT_PORTED == {}
 
 
 def test_positional_calls_bind_like_reference():
