@@ -1,9 +1,11 @@
-"""Probes of what bounds K2 (k-NN) and K1 (Eq. 2 utility) on one NVIDIA GPU.
+"""Probes of what bounds K2 (k-NN), K1 (Eq. 2 utility) and K5b (the SSD
+backward) on one NVIDIA GPU.
 
     python3 benchmarks/torch_kernel_probe.py knn --source OLD/knn.cu
     python3 benchmarks/torch_kernel_probe.py knn-design
     python3 benchmarks/torch_kernel_probe.py utility
     python3 benchmarks/torch_kernel_probe.py chain
+    python3 benchmarks/torch_kernel_probe.py ssd-bwd
 
 ``knn`` takes a k-NN source of the first design (``knn.cu`` as it was
 before the query-tiled design, e.g. from an archive of an earlier commit:
@@ -45,6 +47,15 @@ device time of one launch that adds 1, 1250 or 4096 values read from
 shared memory in groups of 8 (1250 is the main path's group size); the
 same walk with a stride of M = 6 doubles, on 1 to 32 threads; and a walk
 that issues one group's loads before the other group's adds.
+
+``ssd-bwd`` takes the current ``ssd_bwd.cu`` and builds it as it is
+(each product stage's ``__launch_bounds__`` asking for its own number of
+resident blocks an SM) and with every product stage asking for 1, 2, 3
+or 4; it prints each build's ``ptxas`` registers and spills by stage,
+then times each build at mamba2-130m's training shape (B = 8, S = 1024,
+H = 24, P = 64, N = 128, chunk 128) under ``torch.profiler``, stage by
+stage, in turns (as it is, 1, 2, 3, 4, 4, 3, 2, 1, as it is), each
+checked against ``ssd_chunk_bwd_ref`` first.
 
 Builds into ``build/probe/``.  Needs a card and ``nvcc``.
 """
@@ -584,6 +595,57 @@ def probe_chain() -> None:
         print(f"  one launch: 1000 rows, two groups of 8 in turn, {lanes} lanes: {ms:.6f} ms")
 
 
+def probe_ssd_bwd() -> None:
+    import torch
+
+    from chip_smoke import K5B_STAGES, SSD_ATOL, SSD_RTOL, _close, _ssd_inputs, device_ms
+    from repro_torch.kernels import nvcc
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.kernels.ssd.ref import ssd_chunk_bwd_ref
+
+    src = nvcc.SOURCES["ssd_bwd"].path.read_text()
+    bound = re.compile(r"__launch_bounds__\(kThreads, \d\)")
+    if not bound.search(src):
+        raise SystemExit("ssd-bwd: no product stage with a minimum of resident blocks")
+    sources = {"as_is": src, **{f"min{n}": bound.sub(f"__launch_bounds__(kThreads, {n})", src)
+                                for n in (1, 2, 3, 4)}}
+    libs = {}
+    for name, text in sources.items():
+        libs[name] = ctypes.CDLL(str(_build(f"ssd_bwd_{name}", text)))
+        libs[name].repro_cuda_error_string.argtypes = [ctypes.c_int]
+        libs[name].repro_cuda_error_string.restype = ctypes.c_char_p
+        print(f"{name}: " + "; ".join(
+            f"{stage.removeprefix('ssd_chunk_bwd_')} {regs} regs, {spill} B spilled"
+            for stage in K5B_STAGES
+            for regs, _, spill in [_ptxas(f"ssd_bwd_{name}", stage + "_kernel")]))
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    b, s, h, p, n, chunk = 8, 1024, 24, 64, 128, 128
+    x, dt, a_log, bm, cm = _ssd_inputs(gen, b, s, h, p, n)
+    dA = (dt * -torch.exp(a_log)).contiguous()
+    xdt = (x * dt[..., None]).contiguous()
+    dy = torch.randn((b, s, h, p), generator=gen, device="cuda")
+    _, _, cum, entering = ssd_ops.ssd_chunk_scan_saving(xdt, dA, bm, cm, chunk)
+    refs = ssd_chunk_bwd_ref(xdt, bm, cm, dy, cum, entering, chunk)
+    built = nvcc._LIBS.get("ssd_bwd")
+    try:
+        for name in ("as_is", "min1", "min2", "min3", "min4", "min4", "min3", "min2", "min1",
+                     "as_is"):
+            nvcc._LIBS["ssd_bwd"] = libs[name]
+            args = (xdt, bm, cm, dy, cum, entering, chunk)
+            err = max(_close(g, r, SSD_ATOL, f"K5b {name}", SSD_RTOL)
+                      for g, r in zip(ssd_ops.ssd_chunk_bwd(*args), refs))
+            ms, stage_ms = device_ms(lambda: ssd_ops.ssd_chunk_bwd(*args), "ssd_chunk_bwd",
+                                     iters=5, parts=K5B_STAGES)
+            print(f"{name}: {ms:.6f} ms, max |d| {err:.3g}; "
+                  + ", ".join(f"{k.removeprefix('ssd_chunk_bwd_')} {v:.6f}"
+                              for k, v in stage_ms.items()))
+    finally:
+        if built is None:
+            nvcc._LIBS.pop("ssd_bwd", None)
+        else:
+            nvcc._LIBS["ssd_bwd"] = built
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     sub = p.add_subparsers(dest="what", required=True)
@@ -594,6 +656,7 @@ def main(argv=None) -> int:
     sub.add_parser("knn-design").add_argument("--iters", type=int, default=20)
     sub.add_parser("utility").add_argument("--iters", type=int, default=200)
     sub.add_parser("chain")
+    sub.add_parser("ssd-bwd")
     args = p.parse_args(argv)
     import torch
 
@@ -609,6 +672,8 @@ def main(argv=None) -> int:
         probe_knn_design(args.iters)
     elif args.what == "utility":
         probe_utility(args.iters)
+    elif args.what == "ssd-bwd":
+        probe_ssd_bwd()
     else:
         probe_chain()
     return 0

@@ -67,9 +67,11 @@ times both, then drives the paths of the port on the card:
   and 16, single-slot and LRU carries) deciding as the unsharded scans,
   then ``Simulation(shard=4, chunk=16)`` over phase 5's trace and
   ``shard=True`` on this card (one shard: the unsharded launches);
-* training (phase 16): the backward kernels, K3b (flash attention) and
-  K5b (the SSD chunk scan), against their plain versions at tinyllama's,
-  llama4's and mamba2's training shapes, timed beside SDPA's backward;
+* training (phase 16): the backward kernels, K3b (flash attention; bf16
+  on the tensor cores) and K5b (the SSD chunk scan; 3xTF32 products),
+  against their plain versions at tinyllama's, llama4's and mamba2's
+  training shapes, timed beside SDPA's backward and beside their first
+  designs' times, two calls bit-identical;
   one training step of 2-layer float32 models at full width, card
   against host (loss, every gradient, the weights after 3 AdamW steps);
   then mamba2-130m (24 layers) through ``Trainer`` with checkpoints and
@@ -101,6 +103,7 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12  # CUDA cores, no tensor cores (no TF32)
 FP64_FLOP_PER_S = 34e12  # CUDA cores
 BF16_FLOP_PER_S = 989e12  # tensor cores, dense
+TF32_FLOP_PER_S = 495e12  # tensor cores, dense
 
 
 def parse_args(argv):
@@ -238,6 +241,12 @@ D256_INSTANCES = {
     "decode_attention": ("decode_attention_kernelI13__nv_bfloat16Li256E",
                          "decode_attention_kernelIfLi256E"),
 }
+
+
+# K3b's bf16 instances (mangled-name keys): ptxas's registers are printed
+# in phase 2, and a spill fails it.
+K3B_BF16_INSTANCES = tuple(f"flash_attention_bwd_{part}_bf16_kernelILi{d}E"
+                           for d in (16, 32, 64, 128) for part in ("dkdv", "dq"))
 
 
 def card_line() -> str:
@@ -2877,6 +2886,11 @@ K3B_STAGES = ("flash_attention_bwd_dot", "flash_attention_bwd_dkdv", "flash_atte
 K5B_STAGES = ("ssd_chunk_bwd_scores", "ssd_chunk_bwd_dstate", "ssd_chunk_bwd_pass",
               "ssd_chunk_bwd_dx", "ssd_chunk_bwd_dscores", "ssd_chunk_bwd_dbc",
               "ssd_chunk_bwd_dcum", "ssd_chunk_bwd_dgsum", "ssd_chunk_bwd_dbm_dcm")
+# The first designs' times (fp32 on the CUDA cores) at phase 16 (a)'s
+# shapes, from PERF.md's kernel table (NVIDIA H100 80GB HBM3, 700.00 W),
+# printed in brackets beside this run's times.
+K3B_FIRST_MS = {"tinyllama": 7.091728, "f32": 7.265763, "llama4": 5.685508, "windowed": 5.121812}
+K5B_FIRST_MS = 2.239300
 TRAIN_BATCH, TRAIN_SEQ = 8, 1024
 MAMBA_STEPS, MAMBA_FAULT_AT, TINY_STEPS = 30, 15, 20
 
@@ -2899,7 +2913,8 @@ def _flash_bwd_plain(q, k, v, o, do, lse, window):
 
 def _flash_bwd_case(gen, b, s, hq, hkv, d, window, dtype, timed=False):
     """K3b at one shape against its plain version on the same forward
-    output and logsumexp; with ``timed``, its device time (and by kernel),
+    output and logsumexp, and two calls bit-identical; with ``timed``, its
+    device time (and by kernel),
     the plain version's, SDPA's backward (forward and backward less the
     forward; with a window, through a boolean causal-and-window mask) and
     the bound."""
@@ -2915,6 +2930,10 @@ def _flash_bwd_case(gen, b, s, hq, hkv, d, window, dtype, timed=False):
     name = str(dtype).split(".")[1]
     out, lse = flash_ops.flash_attention(q, k, v, window=window, return_lse=True)
     grads = flash_ops.flash_attention_bwd(q, k, v, out, do, lse, window=window)
+    again = flash_ops.flash_attention_bwd(q, k, v, out, do, lse, window=window)
+    require(all(torch.equal(x, y) for x, y in zip(grads, again)),
+            f"K3b {(b, s, hq, hkv, d, window)} {dtype}: two calls differ")
+    del again
     refs = _flash_bwd_plain(q, k, v, out, do, lse, window)
     err = max(_close(g, r, ATTN_TOL[name], f"K3b {name} {(b, s, hq, hkv, d, window)} {n}")
               for n, g, r in zip(("dq", "dk", "dv"), grads, refs))
@@ -2982,13 +3001,15 @@ def check_backward_kernels(seed):
     gen = torch.Generator(device="cuda").manual_seed(seed + 16)
     k3b = _flash_bwd_case(gen, 8, 1024, 32, 4, 64, 0, torch.bfloat16, timed=True)
     print(f"  K3b tinyllama shape {k3b['shape']}: dq, dk, dv within 2e-2 of the plain version, "
-          f"max |d| {k3b['max_abs_err']:.3g}")
+          f"max |d| {k3b['max_abs_err']:.3g}; two calls bit-identical; {k3b['ms']:.6f} ms "
+          f"[first design: {K3B_FIRST_MS['tinyllama']}]")
     k3b["f32"] = _flash_bwd_case(gen, 8, 1024, 32, 4, 64, 0, torch.float32, timed=True)
-    print(f"  K3b {k3b['f32']['shape']}: within 2e-5, max |d| {k3b['f32']['max_abs_err']:.3g}")
     k3b["llama4"] = _flash_bwd_case(gen, 2, 1024, 40, 8, 128, 0, torch.bfloat16, timed=True)
     k3b["windowed"] = _flash_bwd_case(gen, 2, 2048, 32, 4, 64, 1024, torch.bfloat16, timed=True)
-    for key in ("llama4", "windowed"):
-        print(f"  K3b {k3b[key]['shape']}: within 2e-2, max |d| {k3b[key]['max_abs_err']:.3g}")
+    for key in ("f32", "llama4", "windowed"):
+        print(f"  K3b {k3b[key]['shape']}: within {2e-5 if key == 'f32' else 2e-2}, max |d| "
+              f"{k3b[key]['max_abs_err']:.3g}; two calls bit-identical; {k3b[key]['ms']:.6f} ms "
+              f"[first design: {K3B_FIRST_MS[key]}]")
     torch.cuda.empty_cache()
 
     b, s, h, p, n, chunk = 8, 1024, 24, 64, 128, 128
@@ -2998,29 +3019,37 @@ def check_backward_kernels(seed):
     dy = torch.randn((b, s, h, p), generator=gen, device="cuda")
     _, _, cum, entering = ssd_ops.ssd_chunk_scan_saving(xdt, dA, bm, cm, chunk)
     grads = ssd_ops.ssd_chunk_bwd(xdt, bm, cm, dy, cum, entering, chunk)
+    again = ssd_ops.ssd_chunk_bwd(xdt, bm, cm, dy, cum, entering, chunk)
+    require(all(torch.equal(x, y) for x, y in zip(grads, again)), "K5b: two calls differ")
+    del again
     refs = ssd_chunk_bwd_ref(xdt, bm, cm, dy, cum, entering, chunk)
     errs = {name: _close(g, r, SSD_ATOL, f"K5b {name}", SSD_RTOL)
             for name, g, r in zip(("dxdt", "ddA", "dbm", "dcm"), grads, refs)}
     del grads, refs
     print("  K5b mamba2 shape, gradient by gradient within atol 2e-4, rtol 1e-3, max |d|: "
-          + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()))
+          + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()) + "; two calls bit-identical")
     call = lambda: ssd_ops.ssd_chunk_bwd(xdt, bm, cm, dy, cum, entering, chunk)  # noqa: E731
     ms, stage_ms = device_ms(call, "ssd_chunk_bwd", iters=5, parts=K5B_STAGES)
     flops = _ssd_bwd_flops(b, s, h, p, n, chunk)
     bytes_moved = 4 * (2 * b * s * h * p + 2 * b * s * n + b * h * s + b * h * p * n * (s // chunk)
                        + b * s * h * p + b * s * h + 2 * b * s * n)
+    # K5b must keep fp32 accuracy (fault P3), so its least time is that of
+    # the faster fp32-accurate route for its products: three TF32 passes of
+    # an error-compensated split at the TF32 tensor-core peak, or one fp32
+    # pass at the CUDA cores'; or its inputs' and outputs' bytes, if larger.
+    ops_s = min(3 * flops / TF32_FLOP_PER_S, flops / FP32_FLOP_PER_S)
     k5b = {
         "ms": ms, "stage_ms": stage_ms,
         "plain_ms": timed_ms(lambda: ssd_chunk_bwd_ref(xdt, bm, cm, dy, cum, entering, chunk),
                              iters=2, warmup=1),
         "library_ms": None,  # no single PyTorch call computes the SSD scan's gradient
-        "bound_ms": max(flops / FP32_FLOP_PER_S, bytes_moved / HBM_BYTES_PER_S) * 1e3,
-        "bound_by": ("operations" if flops / FP32_FLOP_PER_S > bytes_moved / HBM_BYTES_PER_S
-                     else "bytes"),
+        "bound_ms": max(ops_s, bytes_moved / HBM_BYTES_PER_S) * 1e3,
+        "bound_by": "operations" if ops_s > bytes_moved / HBM_BYTES_PER_S else "bytes",
         "max_abs_err": max(errs.values()),
         "shape": f"B={b} S={s} H={h} P={p} N={n} chunk={chunk} f32",
     }
-    print(f"  K5b: {flops / 1e9:.3f} GFLOP, {bytes_moved / 1e6:.1f} MB; device ms by kernel: "
+    print(f"  K5b: {flops / 1e9:.3f} GFLOP, {bytes_moved / 1e6:.1f} MB; {ms:.6f} ms [first design: "
+          f"{K5B_FIRST_MS}], bound {k5b['bound_ms']:.6f} ms (3xTF32); device ms by kernel: "
           + ", ".join(f"{k.removeprefix('ssd_chunk_bwd_')} {v:.6f}" for k, v in stage_ms.items()))
     del x, dt, a_log, bm, cm, dA, xdt, dy, cum, entering
 
@@ -3285,6 +3314,19 @@ def main(argv=None) -> int:
     k3_bf16 = ptxas_registers("flash_attention", D256_INSTANCES["flash_attention"][:1])
     require(" 0 bytes spill stores" in next(iter(k3_bf16.values())),
             "K3's bf16 instance at head dim 256 spills registers")
+    for name, what in (("flash_attention_bwd", "K3b"), ("ssd_bwd", "K5b")):
+        hmma = hmma_count(nvcc.SOURCES[name].library_path())
+        if hmma is None:
+            print(f"    cuobjdump not found: {what}'s SASS not inspected")
+        else:
+            require(hmma > 0, f"{what}'s library holds no HMMA (tensor-core) instruction")
+            print(f"    {what} library SASS: {hmma} HMMA (tensor-core) instructions")
+    k3b_bf16 = ptxas_registers("flash_attention_bwd", K3B_BF16_INSTANCES)
+    require(sorted(k3b_bf16) == sorted(K3B_BF16_INSTANCES),
+            f"ptxas reported no {set(K3B_BF16_INSTANCES) - set(k3b_bf16)}")
+    for key, line in k3b_bf16.items():
+        print(f"    ptxas K3b bf16, {key}: {line}")
+        require(" 0 bytes spill stores" in line, f"K3b's bf16 instance {key} spills registers")
 
     t0 = time.perf_counter()
     specs = list(APP_SPECS.values())

@@ -76,7 +76,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma.cuh"
+
 namespace {
+
+using namespace repro_mma;
 
 constexpr float kNeg = -0.7f * 3.4028234663852886e38f;  // _NEG of kernel.py:28
 constexpr float kLog2e = 1.4426950408889634f;
@@ -270,78 +274,8 @@ template <int D>
 __host__ __device__ constexpr int tc_keys() { return D <= 128 ? 64 : 32; }
 
 template <int D>
-__host__ __device__ constexpr int tc_stride() { return D + 8; }  // bf16 per shared row: +16 bytes
-
-template <int D>
 constexpr size_t tc_smem_bytes() {
-  return (size_t)(kTcBQ + 2 * kTcStages * tc_keys<D>()) * tc_stride<D>() * sizeof(__nv_bfloat16);
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, asynchronously; zero-filled when !in.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool in) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
-               "r"(in ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p))
-               : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p))
-               : "memory");
-}
-
-// c += a . b for one m16n8k16 tile, bf16 in, fp32 accumulate.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Two floats rounded to bf16 (round to nearest even), lo in the low half.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// Rows row0 .. row0 + ROWS - 1 of a (rows, D) bf16 matrix whose rows are
-// `stride` elements apart, into a padded shared tile; rows >= nrows are
-// zero-filled.
-template <int D, int ROWS>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                          int row0, int nrows, size_t stride, int tid) {
-  constexpr int kChunks = D / 8;  // 16-byte pieces of a row
-#pragma unroll
-  for (int i = tid; i < ROWS * kChunks; i += kTcThreads) {
-    const int r = i / kChunks;
-    const int c = i - r * kChunks;
-    const int s = row0 + r;
-    const bool in = s < nrows;
-    cp_async16(dst + r * tc_stride<D>() + c * 8, src + (size_t)(in ? s : 0) * stride + c * 8, in);
-  }
+  return (size_t)(kTcBQ + 2 * kTcStages * tc_keys<D>()) * row_stride<D>() * sizeof(__nv_bfloat16);
 }
 
 template <int D>
@@ -351,7 +285,7 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                             const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
                             float* __restrict__ lse, int Sq, int Skv, int Hq, int Hkv,
                             int window, float scale_log2) {
-  constexpr int ST = tc_stride<D>();
+  constexpr int ST = row_stride<D>();
   constexpr int BK = tc_keys<D>();
   constexpr bool kQInRegs = D <= 128;  // Q's A fragments held in registers
   constexpr int KD = D / 16;      // k-steps of Q.K^T
@@ -391,9 +325,9 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   }
   const int n_tiles = (k_stop - k_start + BK - 1) / BK;
 
-  load_tile<D, kTcBQ>(qs, qb, q0, Sq, q_stride, tid);
-  load_tile<D, BK>(ks, kb, k_start, Skv, kv_stride, tid);
-  load_tile<D, BK>(vs, vb, k_start, Skv, kv_stride, tid);
+  cp_async_rows<D, kTcBQ, kTcThreads>(qs, qb, q0, Sq, q_stride, tid);
+  cp_async_rows<D, BK, kTcThreads>(ks, kb, k_start, Skv, kv_stride, tid);
+  cp_async_rows<D, BK, kTcThreads>(vs, vb, k_start, Skv, kv_stride, tid);
   cp_async_commit();
 
   // The warp's 16 rows of Q, as ldmatrix reads them for k-step kk.
@@ -411,8 +345,8 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     const int stage = it & 1;
     if (it + 1 < n_tiles) {  // the next tile loads while this one is used
       const int nxt = (it + 1) & 1;
-      load_tile<D, BK>(ks + nxt * BK * ST, kb, k0 + BK, Skv, kv_stride, tid);
-      load_tile<D, BK>(vs + nxt * BK * ST, vb, k0 + BK, Skv, kv_stride, tid);
+      cp_async_rows<D, BK, kTcThreads>(ks + nxt * BK * ST, kb, k0 + BK, Skv, kv_stride, tid);
+      cp_async_rows<D, BK, kTcThreads>(vs + nxt * BK * ST, vb, k0 + BK, Skv, kv_stride, tid);
       cp_async_commit();
       cp_async_wait<1>();
     } else {

@@ -13,7 +13,9 @@ writes the per-row logsumexp (B, Hq, Sq) float32 that its backward reads.
 ``flash_attention_bwd`` is the backward (K3b): dq, dk and dv from q, k,
 v, the forward's output and logsumexp and the output's gradient, through
 ``csrc/flash_attention_bwd.cu`` on the card (counted on its own
-``LaunchCounter``) or ``ref.flash_attention_bwd_ref`` on the CPU.  The
+``LaunchCounter``) or ``ref.flash_attention_bwd_ref`` on the CPU; as the
+forward, bfloat16 runs its products on the tensor cores, float32 on the
+CUDA cores.  The
 model reaches both through the autograd function of ``models.attention``;
 a direct CUDA call of the forward whose input requires a gradient raises
 (``kernels.refuse_grad``).
@@ -155,7 +157,10 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, window: int = 0, scale=None):
         raise NotImplementedError(
             f"the flash-attention backward takes D in {BWD_HEAD_DIMS}, got {d}: head dim 256 "
             "waits for its own design (ROADMAP, queue 2, entry 7)")
+    # The bf16 instance copies rows in 16-byte pieces; an input that starts
+    # off a 16-byte boundary is copied to a fresh (aligned) tensor first.
     q, k, v, o, do, lse = (t.contiguous() for t in (q, k, v, o, do, lse))
+    q, k, v, o, do = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v, o, do))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     drow = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
     lib = nvcc.library("flash_attention_bwd")

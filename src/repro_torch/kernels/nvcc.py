@@ -55,6 +55,7 @@ class Source:
 _PENALTY_H = _KERNELS_DIR / "utility" / "csrc" / "penalty.cuh"
 _LRU_H = _KERNELS_DIR / "selection_scan" / "csrc" / "lru.cuh"
 _STEP_H = _KERNELS_DIR / "selection_scan" / "csrc" / "step.cuh"
+_MMA_H = _KERNELS_DIR / "flash_attention" / "csrc" / "mma.cuh"
 
 SOURCES: dict[str, Source] = {
     "knn": Source("knn", _KERNELS_DIR / "knn" / "csrc" / "knn.cu"),
@@ -83,11 +84,13 @@ SOURCES: dict[str, Source] = {
         ("--fmad=false",), (_PENALTY_H, _LRU_H, _STEP_H),
     ),
     "flash_attention": Source(
-        "flash_attention", _KERNELS_DIR / "flash_attention" / "csrc" / "flash_attention.cu"
+        "flash_attention", _KERNELS_DIR / "flash_attention" / "csrc" / "flash_attention.cu",
+        headers=(_MMA_H,),
     ),
     "flash_attention_bwd": Source(
         "flash_attention_bwd",
         _KERNELS_DIR / "flash_attention" / "csrc" / "flash_attention_bwd.cu",
+        headers=(_MMA_H,),
     ),
     "decode_attention": Source(
         "decode_attention", _KERNELS_DIR / "decode_attention" / "csrc" / "decode_attention.cu"

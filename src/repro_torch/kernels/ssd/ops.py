@@ -48,6 +48,8 @@ bwd_counter = LaunchCounter("ssd_bwd")
 
 # The kernels' limits (csrc/ssd.cu: kMaxL, kMaxP, kMaxN).
 MAX_CHUNK, MAX_HEADDIM, MAX_STATE = 128, 64, 128
+# State rows p of one block of K5b's reverse pass (csrc/ssd_bwd.cu: kPassRows).
+PASS_ROWS = 8
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -188,9 +190,10 @@ def ssd_chunk_bwd(xdt, bm, cm, dy, cum, entering, chunk: int = 128):
     dxdt, dda = empty(b, s, h, p), empty(b, s, h)
     dbm, dcm = empty(b, s, n), empty(b, s, n)
     # Scratch: scores, the entering states' gradients (then the chunk
-    # states'), the pass's dcum, r, qd and s per position, the heads'
-    # d(scores), their sum, and the heads' own dC and dB.
-    scratch = [empty(b, nc, chunk, chunk), empty(b, nc, h, n, p), empty(b, h, nc),
+    # states'), the pass's dcum by block of state rows, r, qd and s per
+    # position, the heads' d(scores), their sum, and the heads' own dC and dB.
+    scratch = [empty(b, nc, chunk, chunk), empty(b, nc, h, n, p),
+               empty(b, h, nc, -(-p // PASS_ROWS)),
                empty(b, h, nc, chunk), empty(b, h, nc, chunk), empty(b, h, nc, chunk),
                empty(b, nc, h, chunk, chunk), empty(b, nc, chunk, chunk),
                empty(b, s, h, n), empty(b, s, h, n)]

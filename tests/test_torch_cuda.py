@@ -1543,6 +1543,14 @@ def _gqa_ref(t, hkv):
     (2, 37, 300, 8, 2, 64, 0), (1, 300, 300, 8, 1, 128, 0), (2, 130, 130, 4, 4, 128, 32),
     (2, 1024, 1024, 32, 4, 64, 0),  # tinyllama's training shape, two rows
     (1, 1024, 1024, 40, 8, 128, 0), (1, 1536, 1536, 8, 4, 128, 1024),  # llama4, a window
+    # The tensor-core design's edges: Sq off a multiple of 64 and of 32,
+    (1, 100, 100, 4, 2, 64, 0), (2, 77, 77, 8, 4, 128, 0),
+    # Sq < Skv (queries at the last Sq positions),
+    (1, 70, 200, 4, 2, 64, 0), (1, 45, 301, 8, 1, 128, 16),
+    # a window smaller than a warp's 16 rows, windows off a multiple of a tile,
+    (1, 200, 200, 4, 2, 64, 7), (2, 160, 160, 4, 2, 64, 100), (1, 300, 300, 4, 4, 128, 50),
+    # G = 1 and G = 16 at D = 128.
+    (1, 256, 256, 4, 4, 128, 0), (1, 256, 256, 16, 1, 128, 0),
 ])
 def test_flash_attention_bwd_kernel_matches_plain(cuda, b, sq, skv, hq, hkv, d, window, dtype):
     """K3's logsumexp and K3b's dq, dk and dv against the plain versions on
@@ -1573,6 +1581,46 @@ def test_flash_attention_bwd_kernel_matches_plain(cuda, b, sq, skv, hq, hkv, d, 
         torch.testing.assert_close(got.float(), ref.float(), atol=tol, rtol=tol, msg=name)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("d,window", [(64, 0), (128, 100)])
+def test_flash_attention_bwd_is_bit_identical_from_call_to_call(cuda, d, window, dtype):
+    """K3b takes no atomics: two calls on the same inputs give the same
+    gradients, bit for bit."""
+    gen = torch.Generator(device=cuda).manual_seed(d + window)
+    b, s, hq, hkv = 2, 300, 8, 2
+    q, do = (torch.randn((b, s, hq, d), generator=gen, device=cuda).to(dtype) for _ in range(2))
+    k, v = (torch.randn((b, s, hkv, d), generator=gen, device=cuda).to(dtype) for _ in range(2))
+    out, lse = flash_ops.flash_attention(q, k, v, window=window, return_lse=True)
+    first = flash_ops.flash_attention_bwd(q, k, v, out, do, lse, window=window)
+    second = flash_ops.flash_attention_bwd(q, k, v, out, do, lse, window=window)
+    for name, x, y in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(x, y), name
+
+
+def test_flash_attention_bwd_takes_inputs_off_a_16_byte_boundary(cuda):
+    """The bf16 instance copies rows in 16-byte pieces; the wrapper copies an
+    input that starts off a 16-byte boundary, and the gradients are those of
+    the aligned inputs."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    b, s, hq, hkv, d = 1, 130, 4, 2, 64
+    shapes = ((b, s, hq, d), (b, s, hkv, d), (b, s, hkv, d), (b, s, hq, d))
+    aligned = [torch.randn(sh, generator=gen, device=cuda).to(torch.bfloat16) for sh in shapes]
+    shifted = []
+    for t in aligned:
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda)
+        view = buf[1:].view(t.shape)  # 2 bytes past an aligned base
+        view.copy_(t)
+        assert view.data_ptr() % 16 != 0 and view.is_contiguous()
+        shifted.append(view)
+    q, k, v, do = aligned
+    out, lse = flash_ops.flash_attention(q, k, v, return_lse=True)
+    want = flash_ops.flash_attention_bwd(q, k, v, out, do, lse)
+    qs, ks, vs, dos = shifted
+    got = flash_ops.flash_attention_bwd(qs, ks, vs, out, dos, lse)
+    for name, x, y in zip(("dq", "dk", "dv"), got, want):
+        assert torch.equal(x, y), name
+
+
 def test_flash_attention_bwd_refuses_head_dim_256(cuda):
     q = torch.zeros((1, 64, 2, 256), device=cuda)
     lse = torch.zeros((1, 2, 64), device=cuda)
@@ -1584,6 +1632,9 @@ def test_flash_attention_bwd_refuses_head_dim_256(cuda):
     (2, 64, 4, 8, 16, 16), (1, 128, 2, 16, 8, 32), (2, 48, 8, 8, 32, 16),
     (3, 40, 2, 5, 7, 8), (2, 512, 2, 8, 128, 32), (1, 256, 5, 64, 128, 16),
     (2, 1024, 24, 64, 128, 128),  # mamba2-130m's training shape, two rows
+    (2, 128, 3, 16, 32, 128), (1, 64, 2, 64, 128, 64),  # one chunk (nc = 1)
+    (2, 256, 3, 12, 64, 64), (1, 128, 2, 37, 128, 32),  # P off a multiple of the pass's 8 rows
+    (2, 256, 4, 64, 16, 128), (1, 192, 3, 24, 48, 64),  # N < 64
 ])
 def test_ssd_bwd_kernel_matches_plain(cuda, b, s, h, p, n, chunk):
     """K5b's four gradients against ``ssd_chunk_bwd_ref`` on the same
@@ -1603,6 +1654,23 @@ def test_ssd_bwd_kernel_matches_plain(cuda, b, s, h, p, n, chunk):
     refs = ssd_chunk_bwd_ref(xdt, bm, cm, dy, cum, entering, chunk)
     for name, got, ref in zip(("dxdt", "ddA", "dbm", "dcm"), grads, refs):
         torch.testing.assert_close(got, ref, atol=SSD_ATOL, rtol=SSD_RTOL, msg=name)
+
+
+def test_ssd_bwd_is_bit_identical_from_call_to_call(cuda):
+    """K5b takes no atomics (the pass's per-block partials are summed in a
+    fixed order): two calls on the same inputs give the same gradients,
+    bit for bit."""
+    b, s, h, p, n, chunk = 2, 512, 6, 60, 128, 128
+    x, dt, a_log, bm, cm = _ssd_case(b, s, h, p, n, cuda)
+    dA = (dt * -torch.exp(a_log)).contiguous()
+    xdt = (x * dt[..., None]).contiguous()
+    dy = torch.randn((b, s, h, p), generator=torch.Generator(device=cuda).manual_seed(2),
+                     device=cuda)
+    _, _, cum, entering = ssd_ops.ssd_chunk_scan_saving(xdt, dA, bm, cm, chunk)
+    first = ssd_ops.ssd_chunk_bwd(xdt, bm, cm, dy, cum, entering, chunk)
+    second = ssd_ops.ssd_chunk_bwd(xdt, bm, cm, dy, cum, entering, chunk)
+    for name, g1, g2 in zip(("dxdt", "ddA", "dbm", "dcm"), first, second):
+        assert torch.equal(g1, g2), name
 
 
 def test_ssd_scan_gradient_on_the_card_matches_the_host(cuda):
