@@ -1,11 +1,13 @@
-"""Probes of what bounds K2 (k-NN), K1 (Eq. 2 utility) and K5b (the SSD
-backward) on one NVIDIA GPU.
+"""Probes of what bounds K2 (k-NN), K1 (Eq. 2 utility), K5b (the SSD
+backward) and the RG-LRU scan on one NVIDIA GPU.
 
     python3 benchmarks/torch_kernel_probe.py knn --source OLD/knn.cu
     python3 benchmarks/torch_kernel_probe.py knn-design
     python3 benchmarks/torch_kernel_probe.py utility
     python3 benchmarks/torch_kernel_probe.py chain
     python3 benchmarks/torch_kernel_probe.py ssd-bwd
+    python3 benchmarks/torch_kernel_probe.py rglru [--old OLD/rglru_scan.cu]
+    python3 benchmarks/torch_kernel_probe.py scan-step
 
 ``knn`` takes a k-NN source of the first design (``knn.cu`` as it was
 before the query-tiled design, e.g. from an archive of an earlier commit:
@@ -56,6 +58,34 @@ then times each build at mamba2-130m's training shape (B = 8, S = 1024,
 H = 24, P = 64, N = 128, chunk 128) under ``torch.profiler``, stage by
 stage, in turns (as it is, 1, 2, 3, 4, 4, 3, 2, 1, as it is), each
 checked against ``ssd_chunk_bwd_ref`` first.
+
+``rglru`` takes the current ``rglru_scan.cu`` (the chunked two-pass
+scan) and builds it with each chunk length T in 32, 64, 128 and 256 (a
+text edit of its ``kChunk``), prints each build's ``ptxas`` registers of
+the two passes, then times each build under ``torch.profiler`` at phase
+14's three shapes in bf16 (B = 8, S = 1024; B = 8, S = 1; B = 1, S =
+1024; L = 4096), pass by pass, in turns (32, 64, 128, 256, 256, 128, 64,
+32), each checked against ``rglru_scan_ref`` first.  With ``--old``, the
+one-thread-a-(batch, channel) source of an earlier commit (its C entry
+has no scratch) is built too and timed at the same shapes at the start
+and the end of the turns.
+
+``scan-step`` takes the current ``selection_scan.cu`` and its headers and
+builds them as they are and in variants made by text edits of
+``ahead.cuh``'s warp step, each of which drops one part of a step's
+dependent chain: ``no_eq2`` (the Eq. 2 value replaced by acc - completion),
+``no_mean_div`` (the member mean's divide dropped), ``no_reduce`` (the
+pick's warp reduction replaced by one shuffle) and ``skeleton`` (no
+scoring: the pick is the first cell of the permutation, so a step is the
+completion, the shuffles of the carry update and the warp's
+synchronisation); the rings of fetched steps, the warp's one and four
+deep (as it is, two) and the block's two and sixteen (as it is, eight);
+and of the block step, ``depth4`` and ``depth16`` (the member loads phase
+C issues before its adds).  It times each, in turns,
+on ``torch_scan_ab.py``'s tables (per-request, S = 4,095, on one worker
+and on four; grouped, on one and on four; single-slot and LRU carry),
+and prints ns a step; ``as_is`` is checked bit for bit against the plain
+version first.
 
 Builds into ``build/probe/``.  Needs a card and ``nvcc``.
 """
@@ -646,6 +676,203 @@ def probe_ssd_bwd() -> None:
             nvcc._LIBS["ssd_bwd"] = built
 
 
+RGLRU_CHUNKS = (32, 64, 128, 256)
+
+
+def probe_rglru(old: Path | None) -> None:
+    import torch
+
+    from chip_smoke import RGLRU_PASSES, RGLRU_SHAPES, _close, device_ms
+    from repro_torch.kernels import nvcc
+    from repro_torch.kernels.rglru_scan import ops as rglru_ops
+    from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
+
+    src = nvcc.SOURCES["rglru_scan"].path.read_text()
+    chunk_line = re.compile(r"constexpr int kChunk = \d+;")
+    if not chunk_line.search(src):
+        raise SystemExit("rglru: no kChunk constant in rglru_scan.cu")
+    libs = {}
+    for t in RGLRU_CHUNKS:
+        name = f"rglru_T{t}"
+        lib = ctypes.CDLL(str(_build(name, chunk_line.sub(f"constexpr int kChunk = {t};", src))))
+        lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.repro_cuda_error_string.restype = ctypes.c_char_p
+        libs[t] = lib
+        print(f"T={t}: " + "; ".join(
+            f"{k} {regs} regs, {spill} B spilled"
+            for k in RGLRU_PASSES for regs, _, spill in [_ptxas(name, k)]))
+    old_fn = None
+    if old is not None:
+        old_lib = ctypes.CDLL(str(_build("rglru_old", old.read_text())))
+        old_fn = old_lib.rglru_scan
+        old_fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        old_fn.restype = ctypes.c_int
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    cases = {}
+    for key, (b, s, width) in RGLRU_SHAPES.items():
+        u, gp = (torch.randn((b, s, width), generator=gen, device="cuda").to(torch.bfloat16)
+                 for _ in range(2))
+        vecs = [(torch.randn(width, generator=gen, device="cuda") * 0.5).to(torch.bfloat16)
+                for _ in range(5)]
+        h0 = torch.randn((b, width), generator=gen, device="cuda")
+        cases[key] = (u, gp, vecs, h0, rglru_scan_ref(u, gp, *vecs, h0))
+
+    def time_old(label):
+        for key, (u, gp, vecs, h0, (y_ref, h_ref)) in cases.items():
+            b, s, width = u.shape
+            y = torch.empty_like(u)
+            h = torch.empty((b, width), dtype=torch.float32, device="cuda")
+
+            def call(u=u, gp=gp, vecs=vecs, h0=h0, y=y, h=h, b=b, s=s, width=width):
+                err = old_fn(u.data_ptr(), gp.data_ptr(), *[v.data_ptr() for v in vecs],
+                             h0.data_ptr(), y.data_ptr(), h.data_ptr(), b, s, width, 1,
+                             torch.cuda.current_stream().cuda_stream)
+                if err:
+                    raise RuntimeError(f"old rglru_scan: CUDA error {err}")
+
+            call()
+            _close(y.float(), y_ref.float(), 2e-2, f"old rglru_scan y {key}")
+            ms = device_ms(call, "rglru_scan_kernel", iters=20)
+            print(f"old {label}, {key} (B={b} S={s} L={width}): {ms:.6f} ms")
+
+    built = nvcc._LIBS.get("rglru_scan")
+    try:
+        if old_fn is not None:
+            time_old("first")
+        for t in RGLRU_CHUNKS + RGLRU_CHUNKS[::-1]:
+            nvcc._LIBS["rglru_scan"] = libs[t]
+            assert rglru_ops.chunk_len() == t
+            for key, (u, gp, vecs, h0, (y_ref, h_ref)) in cases.items():
+                b, s, width = u.shape
+                y, h = rglru_ops.rglru_scan(u, gp, *vecs, h0)
+                err = _close(y.float(), y_ref.float(), 2e-2, f"rglru_scan y T={t} {key}")
+                _close(h, h_ref, 1e-4, f"rglru_scan h_last T={t} {key}")
+                passes = RGLRU_PASSES if -(-s // t) > 1 else RGLRU_PASSES[1:]
+                ms, pass_ms = device_ms(lambda: rglru_ops.rglru_scan(u, gp, *vecs, h0), "rglru_",
+                                        iters=20, parts=passes)
+                print(f"T={t}, {key} (B={b} S={s} L={width}): {ms:.6f} ms, max |d| {err:.3g}; "
+                      + ", ".join(f"{k} {v:.6f}" for k, v in pass_ms.items()))
+        if old_fn is not None:
+            time_old("last")
+    finally:
+        if built is None:
+            nvcc._LIBS.pop("rglru_scan", None)
+        else:
+            nvcc._LIBS["rglru_scan"] = built
+
+
+# Text edits of ahead.cuh's warp step (each anchor must be present).
+_EQ2 = "eq2_utility<double>(static_cast<int>(v.pen), v.acc, v.dl, comp)"
+_MEAN = "const double mean = v.valid ? (v.size == 1.0 ? sum : sum / v.size) : -INFINITY;"
+_REDUCE = "warp_first(ranked ? ranked_value(u, lane) : -INFINITY, ranked ? lane : wm, span)"
+_DEPTH = "constexpr int kDepth = 8;"
+_WARP_AHEAD = "constexpr int kWarpAhead = 2;"
+_BLOCK_AHEAD = "constexpr int kBlockAhead = 8;"
+_H, _CU = "ahead.cuh", "selection_scan.cu"
+SCAN_VARIANTS = {
+    "as_is": [],
+    "no_eq2": [(_H, _EQ2, "(v.acc - comp)")],
+    "no_mean_div": [(_H, _MEAN, "const double mean = v.valid ? sum : -INFINITY;")],
+    "no_reduce": [(_H, _REDUCE, "__shfl_sync(kFullWarp, u > 0.5 ? 1 : 0, 0)")],
+    "skeleton": [(_H, _EQ2, "(v.acc - comp)"), (_H, _MEAN, "const double mean = sum;"),
+                 (_H, _REDUCE, "0")],
+    "warp_ahead1": [(_CU, _WARP_AHEAD, "constexpr int kWarpAhead = 1;")],
+    "warp_ahead4": [(_CU, _WARP_AHEAD, "constexpr int kWarpAhead = 4;")],
+    "block_ahead2": [(_CU, _BLOCK_AHEAD, "constexpr int kBlockAhead = 2;")],
+    "block_ahead16": [(_CU, _BLOCK_AHEAD, "constexpr int kBlockAhead = 16;")],
+    "depth4": [(_H, _DEPTH, "constexpr int kDepth = 4;")],
+    "depth16": [(_H, _DEPTH, "constexpr int kDepth = 16;")],
+}
+
+
+def _build_scan_variant(name: str, edits) -> Path:
+    """selection_scan.cu built from a copy of its tree with ``edits``
+    (file name, old text, new text) made."""
+    from repro_torch.kernels.nvcc import _ARCH, _COMMON, SOURCES, _nvcc
+
+    src = SOURCES["selection_scan"]
+    kernels = src.path.parents[2]
+    tree = OUT / name / "kernels"
+    for rel in ("selection_scan/csrc", "utility/csrc"):
+        (tree / rel).mkdir(parents=True, exist_ok=True)
+    for path in (src.path, *src.headers):
+        text = path.read_text()
+        for file, old, new in edits:
+            if file != path.name:
+                continue
+            if old not in text:
+                raise SystemExit(f"scan-step {name}: anchor not found in {file}: {old}")
+            text = text.replace(old, new)
+        (tree / path.relative_to(kernels)).write_text(text)
+    lib = OUT / f"lib{name}.so"
+    log = subprocess.run([_nvcc(), *_ARCH, *_COMMON, *src.flags, "-o", str(lib),
+                          str(tree / src.path.relative_to(kernels))],
+                         capture_output=True, text=True, timeout=600)
+    if log.returncode:
+        raise RuntimeError(f"{name}: nvcc failed\n{log.stdout}{log.stderr}")
+    (OUT / f"{name}.log").write_text(log.stdout + log.stderr)
+    return lib
+
+
+def probe_scan_step() -> None:
+    import statistics
+
+    import torch
+
+    from benchmarks.torch_scan_ab import tables
+    from repro_torch.kernels import nvcc
+    from repro_torch.kernels.selection_scan import ops as scan_ops
+
+    libs = {}
+    for name, edits in SCAN_VARIANTS.items():
+        lib = ctypes.CDLL(str(_build_scan_variant(f"scan_{name}", edits)))
+        lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.repro_cuda_error_string.restype = ctypes.c_char_p
+        libs[name] = lib
+        regs, _, spill = _ptxas(f"scan_{name}", "selection_scan_warp_kernel")
+        print(f"{name}: warp kernel {regs} registers, {spill} B spilled")
+    cases = {}
+    for shape in ("per-request", "per-request on four workers", "grouped", "four workers"):
+        for res_mode in ("slot1", "lru"):
+            seed, t = tables(shape, res_mode)
+            cases[f"{shape}, {res_mode}"] = (
+                *seed, res_mode, t["acc"], t["mask"], t["deadlines"], t["bsize"], t["lat"],
+                t["step_app"], t["swap"], t["gid"], t["valid"], t["pen"], t["pref"])
+
+    def median_ms(call, iters=10):
+        for _ in range(2):
+            call()
+        times = []
+        for _ in range(iters):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            call()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        return statistics.median(times)
+
+    built = nvcc._LIBS.get("selection_scan")
+    try:
+        for name in list(SCAN_VARIANTS) + list(SCAN_VARIANTS)[::-1]:
+            nvcc._LIBS["selection_scan"] = libs[name]
+            for case, args in cases.items():
+                if name == "as_is":
+                    host = [x.cpu() if torch.is_tensor(x) else x for x in args]
+                    if not torch.equal(scan_ops.selection_scan(*args).cpu(),
+                                       scan_ops.selection_scan(*host)):
+                        raise SystemExit(f"scan-step: as_is differs from the plain version "
+                                         f"({case})")
+                ms = median_ms(lambda: scan_ops.selection_scan(*args))
+                steps = args[5].shape[0]
+                print(f"{name}, {case}: {ms:.6f} ms, {ms * 1e6 / steps:.1f} ns a step")
+    finally:
+        if built is None:
+            nvcc._LIBS.pop("selection_scan", None)
+        else:
+            nvcc._LIBS["selection_scan"] = built
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     sub = p.add_subparsers(dest="what", required=True)
@@ -657,6 +884,8 @@ def main(argv=None) -> int:
     sub.add_parser("utility").add_argument("--iters", type=int, default=200)
     sub.add_parser("chain")
     sub.add_parser("ssd-bwd")
+    sub.add_parser("rglru").add_argument("--old", type=Path, default=None)
+    sub.add_parser("scan-step")
     args = p.parse_args(argv)
     import torch
 
@@ -674,6 +903,10 @@ def main(argv=None) -> int:
         probe_utility(args.iters)
     elif args.what == "ssd-bwd":
         probe_ssd_bwd()
+    elif args.what == "rglru":
+        probe_rglru(args.old)
+    elif args.what == "scan-step":
+        probe_scan_step()
     else:
         probe_chain()
     return 0

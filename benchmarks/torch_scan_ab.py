@@ -9,8 +9,8 @@ earlier commit unpacked with ``git archive`` into a directory that
 process of its own that builds its kernels into its own ``build/kernels``
 and times, with CUDA events, the sequential ``selection_scan`` and, where
 the checkout has it, the chunked ``spec_scan`` at chunks 1, 16 and 64, on
-the same seeded tables at the compiled window's three shapes: the
-per-request scan (S = 4,095 steps, one member, M = 6, one worker), the
+the same seeded tables at the compiled window's shapes: the per-request
+scan (S = 4,095 steps, one member, M = 6) on one worker and on four, the
 grouped scan (17 groups of up to 1,232 members) and the same on four
 workers; each with the single-slot and the LRU carry.  A time is the
 median of ``--iters`` launches, each between its own pair of events,
@@ -31,6 +31,7 @@ from pathlib import Path
 # (steps, members, models, workers, applications) of each shape.
 SHAPES = {
     "per-request": (4095, 1, 6, 1, 3),
+    "per-request on four workers": (4095, 1, 6, 4, 3),
     "grouped": (17, 1232, 6, 1, 17),
     "four workers": (17, 1232, 6, 4, 17),
 }

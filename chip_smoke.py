@@ -2010,6 +2010,7 @@ def check_scan(apps, reqs, now):
             require(call[0] == res_mode, f"{label}: residency {call[0]}, expected {res_mode}")
             mode, t0, res0, sizes, capacity, *tabs = call
 
+            kind = scan_ops.instance(tabs[4].shape[1], *tabs[0].shape[1:])
             got = scan_ops.selection_scan(t0, res0, sizes, capacity, mode, *tabs)
             seed = [torch.as_tensor(x, device="cuda") for x in (t0, res0, sizes)]
 
@@ -2028,12 +2029,12 @@ def check_scan(apps, reqs, now):
             ms = timed_ms(kernel, iters=5, warmup=1)
             bound_ms, bound_by, chain_ms, shape = _scan_numbers(call, clock)
             out[f"{label}, {res_mode}"] = {
-                "shape": shape, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                "bound_by": bound_by, "chain_bound_ms": chain_ms, "max_abs_err": 0.0,
-                "library_ms": None}
-            print(f"    {label}, {res_mode} ({shape}): bit-identical; kernel {ms:.6f} ms on the "
-                  f"device, plain {plain_ms:.3f} ms, bound {bound_ms:.6f} ms ({bound_by}), "
-                  f"dependent chain {chain_ms:.6f} ms")
+                "shape": shape, "instance": kind, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by, "chain_bound_ms": chain_ms,
+                "max_abs_err": 0.0, "library_ms": None}
+            print(f"    {label}, {res_mode} ({shape}), {kind} instance: bit-identical; kernel "
+                  f"{ms:.6f} ms on the device, plain {plain_ms:.3f} ms, bound {bound_ms:.6f} ms "
+                  f"({bound_by}), dependent chain {chain_ms:.6f} ms")
     return out
 
 
@@ -2283,20 +2284,28 @@ def check_chunked_simulation(apps, sneaks, trace, seed, want_sigs):
     return launches_by, stats_by
 
 
-# recurrentgemma-9b's shapes in phase 14: batch, prefill length, LRU width.
-RGLRU_SHAPE = (8, 1024, 4096)
+# recurrentgemma-9b's shapes in phase 14 (batch, length, LRU width): a
+# prefill, a decode step and a lone prompt.
+RGLRU_SHAPES = {"prefill": (8, 1024, 4096), "decode": (8, 1, 4096),
+                "lone_prompt": (1, 1024, 4096)}
+# The RG-LRU scan's two kernels (device-time names): the chunk summaries
+# (not launched when S fits one chunk) and the chunked scan.
+RGLRU_PASSES = ("rglru_summary_kernel", "rglru_scan_kernel")
 
 
 def check_rglru(seed):
     """Phase 14: ``rglru_scan`` against its plain version on the card, at
-    recurrentgemma-9b's width in bf16 (B = 8, S = 1024, L = 4096) and at
-    S = 1 (a decode step): y within 2e-2 (its bf16 rounding), the last
-    state within 1e-4 (float32 kept in both; the kernel's and PyTorch's
-    transcendental functions differ in the last bits).  Times both; the
-    bound is the bytes (u and g read, y written, in bf16; the gate vectors;
-    h0 read and h written in float32) against about thirty float32
-    operations an element.  The device time is ``torch.profiler``'s;
-    back-to-back wrapper calls show the host's rate at S = 1."""
+    recurrentgemma-9b's width in bf16 (B = 8, S = 1024, L = 4096), at S = 1
+    (a decode step) and for a lone prompt (B = 1): y within 2e-2 (its bf16
+    rounding), the last state within 1e-4 (float32 kept in both; the
+    chunked kernel adds its products in another order, and the kernel's
+    and PyTorch's transcendental functions differ in the last bits).  Times
+    each, pass by pass; the bound is the bytes (u and g read, y written, in
+    bf16; the gate vectors; h0 read and h written in float32) against about
+    thirty float32 operations an element, and the design's own bytes read u
+    a second time (its summaries read and written in float32 besides).  The
+    device time is ``torch.profiler``'s; back-to-back wrapper calls show the
+    host's rate at S = 1."""
     import torch
 
     from repro_torch.kernels.rglru_scan import ops as rglru_ops
@@ -2304,7 +2313,8 @@ def check_rglru(seed):
 
     gen = torch.Generator(device="cuda").manual_seed(seed + 14)
     out = {}
-    for b, s, width in (RGLRU_SHAPE, RGLRU_SHAPE[:1] + (1,) + RGLRU_SHAPE[2:]):
+    chunk = rglru_ops.chunk_len()
+    for key, (b, s, width) in RGLRU_SHAPES.items():
         u, gp = (torch.randn((b, s, width), generator=gen, device="cuda").to(torch.bfloat16)
                  for _ in range(2))
         vecs = [(torch.randn(width, generator=gen, device="cuda") * 0.5).to(torch.bfloat16)
@@ -2321,21 +2331,28 @@ def check_rglru(seed):
         def kernel():
             return rglru_ops.rglru_scan(u, gp, *vecs, h0)
 
-        ms = device_ms(kernel, "rglru_scan_kernel", iters=20)
+        n_chunks = -(-s // chunk)
+        passes = RGLRU_PASSES if n_chunks > 1 else RGLRU_PASSES[1:]
+        ms, pass_ms = device_ms(kernel, "rglru_", iters=20, parts=passes)
         call_ms = timed_ms(kernel, iters=20, warmup=3)
         nbytes = 3 * 2 * b * s * width + 5 * 2 * width + 2 * 4 * b * width
         bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        # The design's bytes: u read twice, and each summary (A, H) written
+        # once and read by the chunks after it (from L2, counted once).
+        design_ms = (nbytes + 2 * b * s * width + 2 * 2 * 4 * b * (n_chunks - 1) * width) \
+            / HBM_BYTES_PER_S * 1e3
         op_ms = 30.0 * b * s * width / FP32_FLOP_PER_S * 1e3
-        key = "decode" if s == 1 else "prefill"
         out[key] = {"shape": f"B={b} S={s} L={width} bf16", "ms": ms, "call_ms": call_ms,
-                    "plain_ms": plain_ms,
+                    "pass_ms": pass_ms, "chunk": chunk, "plain_ms": plain_ms,
                     "bound_ms": max(bound_ms, op_ms),
                     "bound_by": "bytes" if bound_ms >= op_ms else "operations",
-                    "max_abs_err": err, "library_ms": None}
-        print(f"    rglru_scan at B={b} S={s} L={width} bf16: y within 2e-2 (max |d| {err:.3g}), "
-              f"h within 1e-4; kernel {ms:.6f} ms on the device, {call_ms:.6f} ms per wrapper "
-              f"call back to back, plain {plain_ms:.3f} ms, bound {max(bound_ms, op_ms):.6f} ms "
-              f"({out[key]['bound_by']}), no library call")
+                    "design_bytes_ms": design_ms, "max_abs_err": err, "library_ms": None}
+        print(f"    rglru_scan at B={b} S={s} L={width} bf16, chunk {chunk}: y within 2e-2 (max "
+              f"|d| {err:.3g}), h within 1e-4; kernel {ms:.6f} ms on the device ("
+              + ", ".join(f"{k} {v:.6f}" for k, v in pass_ms.items())
+              + f"), {call_ms:.6f} ms per wrapper call back to back, plain {plain_ms:.3f} ms, "
+              f"bound {max(bound_ms, op_ms):.6f} ms ({out[key]['bound_by']}), the design's "
+              f"bytes {design_ms:.6f} ms, no library call")
     return out
 
 
@@ -3648,7 +3665,7 @@ def main(argv=None) -> int:
         "name": "rglru_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/rglru_scan/csrc/rglru_scan.cu",
         "replaces": "src/repro/models/rglru.py:77", "launches": rec_launches.get("rglru_scan", 0),
-        **rglru_t["prefill"], "decode": rglru_t["decode"]})
+        **rglru_t["prefill"], "decode": rglru_t["decode"], "lone_prompt": rglru_t["lone_prompt"]})
     # The sharded rounds replace the per-shard programs of the reference's
     # sharded pipeline (no Pallas kernel); the launches are phase 15 (c)'s
     # run, the times those of LO-EDF's largest block and longest chain in

@@ -55,6 +55,7 @@ class Source:
 _PENALTY_H = _KERNELS_DIR / "utility" / "csrc" / "penalty.cuh"
 _LRU_H = _KERNELS_DIR / "selection_scan" / "csrc" / "lru.cuh"
 _STEP_H = _KERNELS_DIR / "selection_scan" / "csrc" / "step.cuh"
+_AHEAD_H = _KERNELS_DIR / "selection_scan" / "csrc" / "ahead.cuh"
 _MMA_H = _KERNELS_DIR / "flash_attention" / "csrc" / "mma.cuh"
 
 SOURCES: dict[str, Source] = {
@@ -69,7 +70,7 @@ SOURCES: dict[str, Source] = {
     # bit-identity rule: no FMA contraction either.
     "selection_scan": Source(
         "selection_scan", _KERNELS_DIR / "selection_scan" / "csrc" / "selection_scan.cu",
-        ("--fmad=false",), (_PENALTY_H, _LRU_H, _STEP_H),
+        ("--fmad=false",), (_PENALTY_H, _LRU_H, _STEP_H, _AHEAD_H),
     ),
     # The chunked scan: the same arithmetic and rule, through the sequential
     # scan's step.

@@ -1,10 +1,14 @@
 """Wrapper of the RG-LRU scan kernel: the gates, the gated linear
 recurrence and the product with the GeLU branch of one Griffin recurrent
-block, in one launch.
+block, in one launch (two kernels, the chunk summaries and the chunked
+scan, counted as one; the scan alone when S is at most a chunk).
 
 Tensors on the CPU take the plain version (``ref.py``); CUDA tensors
 launch ``csrc/rglru_scan.cu`` on the current stream, or raise.  There is
-no other route.  The launch's grid depends on the shapes only and nothing
+no other route.  The wrapper allocates the output and the kernels'
+(2, B, ceil(S / chunk) - 1, L) float32 summary scratch with
+``torch.empty``; the chunk length is the library's
+(``rglru_scan_chunk``).  The grid depends on the shapes only and nothing
 is read on the host, so a decode step (S = 1) that calls it can be
 captured in a CUDA graph.
 """
@@ -17,7 +21,7 @@ import torch
 from repro_torch.kernels import LaunchCounter, nvcc, refuse_grad
 from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
 
-__all__ = ["rglru_scan", "counter"]
+__all__ = ["rglru_scan", "chunk_len", "counter"]
 
 counter = LaunchCounter("rglru_scan")
 
@@ -29,9 +33,15 @@ _I = ctypes.c_int
 def _entry():
     lib = nvcc.library("rglru_scan")
     fn = lib.rglru_scan
-    fn.argtypes = [_P] * 10 + [_I] * 4 + [_P]
+    fn.argtypes = [_P] * 11 + [_I] * 4 + [_P]
     fn.restype = _I
-    return lib, fn
+    lib.rglru_scan_chunk.restype = _I
+    return lib, fn, lib.rglru_scan_chunk()
+
+
+def chunk_len() -> int:
+    """The chunk length of the built kernel library (built on first use)."""
+    return _entry()[2]
 
 
 def rglru_scan(u, gpre, a_w, a_b, x_w, x_b, lam, h0=None):
@@ -67,14 +77,18 @@ def rglru_scan(u, gpre, a_w, a_b, x_w, x_b, lam, h0=None):
     h0 = h0.contiguous() if h0 is not None else None
     y = torch.empty_like(u)
     h_last = torch.empty((b, width), dtype=torch.float32, device=u.device)
-    lib, fn = _entry()
+    lib, fn, chunk = _entry()
+    n_chunks = -(-s // chunk)
+    scratch = None if n_chunks == 1 else torch.empty(
+        (2, b, n_chunks - 1, width), dtype=torch.float32, device=u.device)
     refuse_grad("rglru_scan", "its backward is still to write (ROADMAP, queue 2, entry 8)",
                 u, gpre, *vecs, h0)
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream(u.device).cuda_stream
         err = fn(u.data_ptr(), gpre.data_ptr(), *[v.data_ptr() for v in vecs],
                  h0.data_ptr() if h0 is not None else None, y.data_ptr(), h_last.data_ptr(),
-                 b, s, width, _DTYPES[u.dtype], stream)
+                 scratch.data_ptr() if scratch is not None else None, b, s, width,
+                 _DTYPES[u.dtype], stream)
     counter.add()
     nvcc.check(lib, err, "rglru_scan")
     return y, h_last

@@ -4,8 +4,11 @@ per window.
 
 Tensors on the CPU take the plain version (``ref.py``); CUDA tensors
 launch ``csrc/selection_scan.cu`` on the current stream, or raise.  There
-is no other route.  The wrapper allocates the outputs and the kernel's
-scratch tile with ``torch.empty`` and synchronises nothing.
+is no other route.  The kernel has two instances, chosen by ``instance``
+from the shapes alone: one warp when a step's W * B * M cells fit it,
+else one block.  The wrapper allocates the outputs and, for the block
+instance, the kernel's scratch tile with ``torch.empty`` and synchronises
+nothing.
 """
 from __future__ import annotations
 
@@ -17,7 +20,8 @@ import torch
 from repro_torch.kernels import GRADIENTS_RULE, LaunchCounter, nvcc, refuse_grad
 from repro_torch.kernels.selection_scan.ref import selection_scan_ref
 
-__all__ = ["selection_scan", "launch", "counter", "smem_bytes", "MAX_SMEM_BYTES"]
+__all__ = ["selection_scan", "launch", "instance", "counter", "smem_bytes", "MAX_SMEM_BYTES",
+           "WARP"]
 
 counter = LaunchCounter("selection_scan")
 
@@ -25,6 +29,7 @@ counter = LaunchCounter("selection_scan")
 # scan's carry and step rows must fit it (ROADMAP §3, P7).
 MAX_SMEM_BYTES = 227 * 1024
 _EXACT = float(2**53)  # integers below it add exactly in float64
+WARP = 32  # lanes of a warp: the warp instance's cells a step
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -34,7 +39,9 @@ def smem_bytes(n_w: int, n_slots: int, m: int, chunk: int = 0) -> int:
     """Shared bytes of one launch of the sequential scan (``chunk`` 0;
     csrc: scan_smem_bytes) — the (W, K) LRU slots, the (W,) queue tails,
     the step's (W, M) completions and means (8 bytes each) and its (W, M)
-    residency flags (one byte each) — or of the chunked scan
+    residency flags (one byte each), which the block instance keeps and
+    the warp instance, with the slots and tails alone, stays under — or of
+    the chunked scan
     (``kernels.spec_scan``; csrc: spec_smem_bytes): the (W, K) slots, and
     per position of a round, C = ``chunk`` of them, its (W,) pre-state
     tails, (W, M) completions, means and flags and its two picks (4 bytes
@@ -46,10 +53,17 @@ def smem_bytes(n_w: int, n_slots: int, m: int, chunk: int = 0) -> int:
     return 8 * (n_w * n_slots + n_w + 2 * n_w * m) + n_w * m
 
 
+def instance(n_w: int, members: int, m: int) -> str:
+    """The kernel instance a scan of ``n_w`` workers, ``members`` (the
+    tables' padded member count B) and ``m`` models runs: ``"warp"`` when a
+    step's W * B * M cells fit one warp, a lane each, else ``"block"``."""
+    return "warp" if n_w * members * m <= WARP else "block"
+
+
 def _entry():
     lib = nvcc.library("selection_scan")
     fn = lib.selection_scan_f64
-    fn.argtypes = [_P, _P, _P, ctypes.c_double] + [_P] * 14 + [_I] * 7 + [_P]
+    fn.argtypes = [_P, _P, _P, ctypes.c_double] + [_P] * 14 + [_I] * 8 + [_P]
     fn.restype = _I
     return lib, fn
 
@@ -146,8 +160,8 @@ def launch(seed, cap: float, res_mode: str, acc, mask, deadlines, bsize, lat, st
            gid, valid, pen, pref, fixed_sel=None) -> torch.Tensor:
     """The kernel's launch for arguments ``selection_scan`` has checked,
     with the carry seed (t0, res0, sizes) already on the card: allocates
-    the outputs and the scratch tile, launches on the current stream and
-    returns without synchronising."""
+    the outputs and, for the block instance, the scratch tile, launches on
+    the current stream and returns without synchronising."""
     dev = acc.device
     s, b, m = acc.shape
     n_w = lat.shape[1]
@@ -155,7 +169,9 @@ def launch(seed, cap: float, res_mode: str, acc, mask, deadlines, bsize, lat, st
                                      valid, pen, pref)]
     fixed = fixed_sel.contiguous() if fixed_sel is not None else None
     out = torch.empty((4, s), dtype=torch.float64, device=dev)
-    tile = torch.empty((n_w, b if fixed is None else 1, m), dtype=torch.float64, device=dev)
+    warp = instance(n_w, b, m) == "warp"
+    tile = None if warp else torch.empty((n_w, b if fixed is None else 1, m),
+                                         dtype=torch.float64, device=dev)
     lib, fn = _entry()
     refuse_grad("selection_scan", f"it has no backward ({GRADIENTS_RULE})", *tabs)
     with torch.cuda.device(dev):
@@ -163,9 +179,9 @@ def launch(seed, cap: float, res_mode: str, acc, mask, deadlines, bsize, lat, st
         seed = [x.contiguous() for x in seed]
         err = fn(*[x.data_ptr() for x in seed], cap, *[x.data_ptr() for x in tabs],
                  fixed.data_ptr() if fixed is not None else None,
-                 tile.data_ptr(), out.data_ptr(),
+                 tile.data_ptr() if tile is not None else None, out.data_ptr(),
                  s, b, m, n_w, seed[1].shape[1], seed[2].shape[1], int(res_mode == "slot1"),
-                 stream)
+                 int(warp), stream)
     counter.add()
     nvcc.check(lib, err, "selection_scan")
     return out

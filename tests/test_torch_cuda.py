@@ -19,9 +19,10 @@ the three programs' table shapes and both residency carries, the chunked
 one also against the sequential kernel, and the pipeline on the card
 against the fast path on the card; the sharded rounds' two entry points
 (``shard_round``) bit for bit against their plain versions, and the
-sharded pipeline on the card against the unsharded one; the RG-LRU scan against its plain
-loop; the decode step of recurrentgemma-9b and llama4-scout (the S = 1
-scan, the routed MoE at batch 2) graphed and under
+sharded pipeline on the card against the unsharded one; the selection
+scan's warp instance on the shapes that take it; the RG-LRU scan against
+its plain loop; the decode step of recurrentgemma-9b and llama4-scout
+(the S = 1 scan, the routed MoE at batch 2) graphed and under
 ``set_sync_debug_mode("error")``.
 """
 import threading
@@ -1081,16 +1082,33 @@ SCAN_SHAPES = {
 }
 
 
-def _scan_inputs(program, res_mode, device, seed=0):
+# Tables whose steps fit the selection scan's warp instance (W * B * M <=
+# 32): (steps, members, models, workers, applications) and what they
+# stress — exact ties everywhere, applications of one or two real models
+# (the rest padded), MaxAcc's fixed choices.
+WARP_SCAN_CASES = {
+    "pool": ((4095, 1, 6, 4, 3), None),
+    "members": ((300, 5, 6, 1, 3), None),
+    "ties": ((2000, 1, 6, 4, 3), "ties"),
+    "padded": ((2000, 1, 6, 4, 5), "padded"),
+    "fixed": ((700, 1, 6, 4, 3), "fixed"),
+}
+
+
+def _scan_inputs(program, res_mode, device, seed=0, shape=None, kind=None):
     """Random step and application tables of one scan, quantized so exact
-    ties happen, with integer byte sizes and a capacity that evicts."""
+    ties happen, with integer byte sizes and a capacity that evicts.
+    ``shape`` overrides the program's; ``kind`` "ties" draws accuracies
+    from two values with equal latencies and no swap cost, "padded" keeps
+    one or two real models an application, "fixed" gives MaxAcc's
+    choices."""
     rng = np.random.default_rng([seed, len(program), len(res_mode)])
-    s, b, m, w, a = SCAN_SHAPES[program]
+    s, b, m, w, a = shape or SCAN_SHAPES[program]
     n_ids = a * m  # the window's model universe, as the pipeline numbers it
     gid = np.full((a, m), -2, dtype=np.int64)
     valid = np.zeros((a, m), dtype=bool)
     for i in range(a):
-        mi = int(rng.integers(1, m + 1))
+        mi = int(rng.integers(1, 3 if kind == "padded" else m + 1))
         gid[i, :mi] = rng.permutation(n_ids)[:mi]
         valid[i, :mi] = True
     counts = rng.integers(1, b + 1, s)
@@ -1114,9 +1132,16 @@ def _scan_inputs(program, res_mode, device, seed=0):
         "pen": rng.integers(0, 4, a),
         "pref": np.stack([rng.permutation(w * m) for _ in range(a)]),
     }
+    if kind == "ties":
+        tabs["acc"] = rng.choice([0.5, 1.0], (s, b, m))
+        tabs["lat"] = np.full((s, w, m), 1.0 / 256)
+        tabs["swap"] = np.zeros((a, w, m))
     fixed = None
     if program == "max_accuracy":
         fixed = np.array([rng.integers(0, valid[i].sum()) for i in tabs["step_app"]])
+    elif kind == "fixed":  # a (worker, model) cell of a real model
+        fixed = np.array([rng.integers(0, w) * m + rng.integers(0, valid[i].sum())
+                          for i in tabs["step_app"]])
     sizes = np.tile(rng.integers(1, 600, n_ids).astype(np.float64) * 2**20, (w, 1))
     seed_args = (np.round(rng.uniform(0.1, 0.3, w) * 1024) / 1024, res0, sizes, 900.0 * 2**20)
     as_t = {k: torch.as_tensor(v, device=device) for k, v in tabs.items()}
@@ -1138,6 +1163,24 @@ def test_selection_scan_kernel_matches_plain(cuda, program, res_mode):
     """Workers, models, starts and latencies bit-identical to the plain
     version (float64, no FMA contraction, the same association)."""
     seed_args, tabs, fixed = _scan_inputs(program, res_mode, cuda)
+    got = _run_scan(seed_args, tabs, fixed, res_mode)
+    host = {k: v.cpu() for k, v in tabs.items()}
+    want = _run_scan(seed_args, host, None if fixed is None else fixed.cpu(), res_mode)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("res_mode", ["slot1", "lru"])
+@pytest.mark.parametrize("case", sorted(WARP_SCAN_CASES))
+def test_selection_scan_warp_instance_matches_plain(cuda, case, res_mode):
+    """The warp instance (a lane a cell, shuffles for the member means and
+    the pick) bit-identical to the plain version: LO-EDF on four workers,
+    groups of up to five members, ties, padded models, fixed choices; the
+    LRU carry holds every id (K > 1)."""
+    shape, kind = WARP_SCAN_CASES[case]
+    seed_args, tabs, fixed = _scan_inputs(case, res_mode, cuda, shape=shape, kind=kind)
+    s, b, m = tabs["acc"].shape
+    assert scan_ops.instance(tabs["lat"].shape[1], b, m) == "warp"
+    assert res_mode == "slot1" or seed_args[1].shape[1] > 1
     got = _run_scan(seed_args, tabs, fixed, res_mode)
     host = {k: v.cpu() for k, v in tabs.items()}
     want = _run_scan(seed_args, host, None if fixed is None else fixed.cpu(), res_mode)
@@ -1286,11 +1329,16 @@ def test_chunked_pipeline_on_the_card_matches_the_host(cuda, pool):
 @pytest.mark.parametrize("b,s,width,h0", [
     (2, 37, 64, False), (3, 1, 256, True), (8, 1024, 4096, True), (8, 1, 4096, True),
     (1, 300, 200, True),  # a width no multiple of the block
+    (2, 100, 256, True),  # S no multiple of the chunk
+    (3, 40, 512, False),  # S below the chunk: the scan pass alone
+    (1, 1024, 4096, True),  # a lone prompt at recurrentgemma-9b's width
+    (2, 70, 36, True),  # bf16 rows no whole number of 16 bytes: read unstaged
 ])
 def test_rglru_scan_kernel_matches_plain(cuda, b, s, width, h0, dtype):
     """y and the last state against the plain sequential loop on the card:
-    float32 within 1e-4 (the same recurrence, transcendental functions of
-    another library), bf16 y within 2e-2 of its own rounding."""
+    float32 within 1e-4 (the chunked recurrence, its products added in
+    another order, transcendental functions of another library), bf16 y
+    within 2e-2 of its own rounding; one launch a call."""
     from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
 
     g = torch.Generator(device=cuda).manual_seed(b * s + width)

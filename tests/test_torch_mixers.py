@@ -168,6 +168,51 @@ def test_rglru_scan_plain_matches_its_closed_form():
         rglru_scan(u, g, *vecs, torch.zeros(b, width + 1))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("with_h0", [False, True], ids=["zero", "h0"])
+@pytest.mark.parametrize("s,chunk", [
+    (24, 8),  # chunks that divide S
+    (37, 8),  # a last chunk of 5 steps
+    (5, 8),  # S below the chunk: one chunk, no summaries
+    (1, 8),  # the decode step
+    (130, 64),  # the kernel's chunk, a last chunk of 2 steps
+])
+def test_rglru_scan_chunked_plain_matches_sequential_and_reference(s, chunk, with_h0, dtype):
+    """The chunked two-pass order the kernel runs (chunk summaries, the
+    carry pushed through them, each chunk scanned again from its carry)
+    against the sequential plain scan and against the reference's
+    ``_gates`` and ``jax.lax.associative_scan`` (``rglru_forward``'s
+    combine, h0 folded into the first step): f32 y within 1e-4, bf16 y
+    within 2e-2 (its own rounding), h_last within 1e-4."""
+    from repro_torch.kernels.rglru_scan.ref import rglru_scan_chunked_ref, rglru_scan_ref
+
+    rng = np.random.default_rng([s, chunk, with_h0])
+    b, width = 2, 16
+    inputs = [rng.normal(size=(b, s, width)).astype(np.float32) for _ in range(2)]
+    inputs += [rng.normal(size=width).astype(np.float32) * 0.5 for _ in range(5)]
+    h0 = rng.normal(size=(b, width)).astype(np.float32) if with_h0 else None
+    port = [torch.as_tensor(v).to(dtype) for v in inputs]
+    h0_t = torch.as_tensor(h0) if with_h0 else None
+    y, h_last = rglru_scan_chunked_ref(*port, h0_t, chunk=chunk)
+    y_seq, h_seq = rglru_scan_ref(*port, h0_t)
+    assert y.dtype == dtype and h_last.dtype == torch.float32 and y.shape == (b, s, width)
+    tol = TOL if dtype == torch.float32 else 2e-2
+    _close(y.float(), y_seq.float(), tol)
+    _close(h_last, h_seq, TOL)
+
+    u, g, *vecs = [t.float().numpy() for t in port]  # the values the scan reads
+    params = dict(zip(("a_gate_w", "a_gate_b", "x_gate_w", "x_gate_b", "Lambda"), vecs))
+    a, bx = j_rglru._gates({k: jnp.asarray(v) for k, v in params.items()}, jnp.asarray(u))
+    if with_h0:
+        bx = bx.at[:, 0, :].add(a[:, 0, :] * jnp.asarray(h0))
+    _, hs = jax.lax.associative_scan(
+        lambda left, right: (left[0] * right[0], right[0] * left[1] + right[1]), (a, bx),
+        axis=1)
+    want = np.asarray(hs) * np.asarray(jax.nn.gelu(jnp.asarray(g), approximate=True))
+    _close(y.float(), want, tol)
+    _close(h_last, np.asarray(hs)[:, -1], TOL)
+
+
 # ---------------------------------------------------------------- MoE
 
 

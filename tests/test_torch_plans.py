@@ -1,15 +1,19 @@
-"""Launch plans of the port's K2 (k-NN) and K1 (Eq. 2 utility) kernels.
+"""Launch plans of the port's K2 (k-NN) and K1 (Eq. 2 utility) kernels,
+and the selection scan's choice of instance.
 
-The plans are plain Python (``knn_plan``, ``utility_plan``), computed on
-the host and validated again by the kernels' C entries, so their rules
-are checked here on the CPU: the slices of the training set are non-empty
-and cover it exactly, the shared memory fits a block of an H100, the grid
-covers its SMs wherever the shapes allow, and the chunks of a utility
-tile cover its rows in order.
+The plans are plain Python (``knn_plan``, ``utility_plan``,
+``selection_scan.ops.instance``), computed on the host and validated
+again by the kernels' C entries, so their rules are checked here on the
+CPU: the slices of the training set are non-empty and cover it exactly,
+the shared memory fits a block of an H100, the grid covers its SMs
+wherever the shapes allow, the chunks of a utility tile cover its rows in
+order, and a scan takes its warp instance exactly when a step's cells fit
+one warp.
 """
 import pytest
 
 from repro_torch.kernels.knn import ops as knn_ops
+from repro_torch.kernels.selection_scan import ops as scan_ops
 from repro_torch.kernels.utility import ops as util_ops
 
 SMS = 132  # an H100 SXM
@@ -118,3 +122,25 @@ def test_utility_plan_rejects_what_the_kernel_cannot_take():
     for args in ((0, 6, 8), (10, 0, 8), (10, util_ops.MAX_MODELS + 1, 8), (10, 6, 2)):
         with pytest.raises(ValueError):
             util_ops.utility_plan(*args, True)
+
+
+@pytest.mark.parametrize("n_w,members,m,want", [
+    (1, 1, 6, "warp"),  # LO-EDF's per-request window
+    (4, 1, 6, "warp"),  # LO-EDF on a four-worker pool: 24 cells
+    (5, 1, 6, "warp"),  # 30 cells
+    (6, 1, 6, "block"),  # 36 cells
+    (1, 5, 6, "warp"),  # groups of up to five members
+    (1, 6, 6, "block"),
+    (1, 32, 1, "warp"),  # exactly one warp
+    (1, 33, 1, "block"),
+    (1, 1232, 6, "block"),  # SneakPeek's grouped window
+    (4, 1232, 6, "block"),  # the same on four workers
+])
+def test_selection_scan_instance_by_shape(n_w, members, m, want):
+    """The warp instance exactly when W * B * M cells fit one warp, B the
+    tables' padded member count; its shared bytes (slots and tails) stay
+    under P7's formula, which the block instance fills."""
+    assert scan_ops.instance(n_w, members, m) == want
+    assert (want == "warp") == (n_w * members * m <= scan_ops.WARP)
+    for n_slots in (1, 9, 75):
+        assert 8 * (n_w * n_slots + n_w) <= scan_ops.smem_bytes(n_w, n_slots, m)
