@@ -12,9 +12,16 @@ the checkout has it, the chunked ``spec_scan`` at chunks 1, 16 and 64, on
 the same seeded tables at the compiled window's shapes: the per-request
 scan (S = 4,095 steps, one member, M = 6) on one worker and on four, the
 grouped scan (17 groups of up to 1,232 members) and the same on four
-workers; each with the single-slot and the LRU carry.  A time is the
-median of ``--iters`` launches, each between its own pair of events,
-after three warm-up launches.  Give the roots in turns (A, B, B, A), so a
+workers; each with the single-slot and the LRU carry.  Then the sharded
+rounds: ``shard_round``'s ``chain`` over 4,094 positions (the longest
+chain of phase 15 (a)'s LO-EDF window) with each carry, and LO-EDF's
+window of 4,095 requests through ``ShardedWindowPipeline`` on four shard
+blocks of the one card at ``chunk=16`` and ``chunk=0``, its scheduling
+seconds (host clock, the card synchronised) and ``shard_round`` launches.
+A device time is the median of ``--iters`` launches, each between its own
+pair of events, after three warm-up launches; a window's seconds the
+median of ``--iters`` windows after one.  Give the roots in turns (A, B,
+B, A), so a
 drift of the card over the run shows as a difference between the two
 times of one root.  Prints one line per (root, case) and a JSON line per
 root.  Needs a card and ``nvcc``.
@@ -36,6 +43,9 @@ SHAPES = {
     "four workers": (17, 1232, 6, 4, 17),
 }
 CHUNKS = (1, 16, 64)
+CHAIN_POSITIONS = 4094
+SHARD_BLOCKS = 4
+WINDOW_PER_APP = 1365  # three applications: a window of 4,095 requests
 
 
 def tables(shape, res_mode, seed=0):
@@ -126,6 +136,67 @@ def time_one(root: Path, iters: int) -> dict:
                     row[f"chunk {chunk}"] = median_ms(
                         lambda: spec_ops.spec_scan(*args, chunk=chunk))
             out[f"{shape}, {res_mode}"] = row
+    out.update(time_sharded(iters, median_ms))
+    return out
+
+
+def time_sharded(iters: int, median_ms) -> dict:
+    """The sharded rounds of one checkout: the chain's device time, and
+    LO-EDF's window on SHARD_BLOCKS blocks of the card."""
+    import time
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import shard as tshard
+    from repro_torch.core.scheduler import make_policy
+    from repro_torch.data import applications as apps_mod
+    from repro_torch.kernels.shard_round import ops as shard_ops
+
+    out = {}
+    rng = np.random.default_rng(7)
+    cuda = torch.device("cuda")
+    n, n_ids = CHAIN_POSITIONS, 18
+    for res_mode in ("slot1", "lru"):
+        k = 1 if res_mode == "slot1" else n_ids
+        res0 = np.full((1, k), -1, dtype=np.int64)
+        res0[0, : min(k, 4)] = rng.permutation(n_ids)[: min(k, 4)]
+        args = (torch.tensor([0.25], device=cuda, dtype=torch.float64),
+                torch.as_tensor(res0, device=cuda),
+                torch.as_tensor(rng.integers(1, 600, (1, n_ids)) * 2.0**20, device=cuda),
+                900.0 * 2**20, res_mode == "slot1",
+                torch.zeros(n, dtype=torch.int64, device=cuda),
+                torch.as_tensor(rng.integers(0, n_ids, n), device=cuda),
+                torch.as_tensor(np.round(rng.uniform(0.0, 0.05, n) * 1024) / 1024, device=cuda),
+                torch.as_tensor(np.round(rng.uniform(0.001, 0.01, n) * 1024) / 1024,
+                                device=cuda))
+        # Five chains back to back between the events: the host's time to
+        # enqueue one (~0.05 ms) hides behind the one before.
+        out[f"chain {n}, {res_mode}"] = {
+            "ms": median_ms(lambda: [shard_ops.chain(*args) for _ in range(5)]) / 5}
+    apps, _ = apps_mod.build_benchmark_suite(seed=0, device=cuda)
+    reqs = apps_mod.make_requests(list(apps_mod.APP_SPECS.values()), per_app=WINDOW_PER_APP,
+                                  deadline_std_s=0.05, seed=0)
+    prev = tshard.force_shard_devices(SHARD_BLOCKS)
+    try:
+        for chunk in (16, 0):
+            pipe = tshard.ShardedWindowPipeline(apps, policy=make_policy("LO-EDF", pipeline=True),
+                                                chunk=chunk, shard=SHARD_BLOCKS, device=cuda)
+            seconds = []
+            for i in range(iters + 1):
+                torch.cuda.synchronize()
+                before = shard_ops.counter.count
+                t0 = time.perf_counter()
+                pipe.schedule(reqs, 0.1)
+                torch.cuda.synchronize()
+                if i:
+                    seconds.append(time.perf_counter() - t0)
+                launches = shard_ops.counter.count - before
+            out[f"LO-EDF window, {SHARD_BLOCKS} blocks, chunk {chunk}"] = {
+                "s": statistics.median(seconds), "shard_round launches": launches,
+                "rounds": pipe.last_shard_stats["rounds"]}
+    finally:
+        tshard.force_shard_devices(prev)
     return out
 
 
@@ -148,8 +219,9 @@ def main(argv=None) -> int:
             return proc.returncode
         times = json.loads(proc.stdout.strip().splitlines()[-1])
         for case, row in times.items():
-            print(f"[{k}] {root}: {case}: " + ", ".join(f"{n} {ms:.6f} ms"
-                                                       for n, ms in row.items()))
+            print(f"[{k}] {root}: {case}: " + ", ".join(
+                f"{n} {v:.6f} ms" if n not in ("s", "shard_round launches", "rounds") else
+                (f"{v:.6f} s" if n == "s" else f"{n} {v}") for n, v in row.items()))
         print(json.dumps({"run": k, "root": str(root), "ms": times}))
     return 0
 

@@ -2204,6 +2204,10 @@ def check_spec_scan(apps, reqs, now, seq_t):
                     return spec_ops.launch(seed, capacity, mode, *tabs, chunk=k)
 
                 ms = timed_ms(kernel, iters=5, warmup=1)
+                n_w, (b, m) = tabs[4].shape[1], tabs[0].shape[1:]
+                kind = spec_ops.instance(n_w, b, m)
+                fixed = tabs[11] if len(tabs) > 11 else None
+                n_blocks = spec_ops.blocks(k_eff, n_w, b, m, fixed is not None)
                 rounds, conflicts = int(got_h[0, -1]), int(got_h[1, -1])
                 # The dependent chain: every round scores its positions once
                 # (twice when it has more than one: speculation, then
@@ -2219,8 +2223,10 @@ def check_spec_scan(apps, reqs, now, seq_t):
                     "shape": f"{shape} K={chunk}", "ms": ms, "plain_ms": plain_ms,
                     "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": 0.0,
                     "library_ms": None, "sequential_ms": seq_ms, "rounds": rounds,
-                    "conflicts": conflicts, "chain_bound_ms": chain_ms}
-                print(f"    {label}, {res_mode}, chunk {chunk} ({shape}): bit-identical to its "
+                    "conflicts": conflicts, "chain_bound_ms": chain_ms, "instance": kind,
+                    "cluster_blocks": n_blocks}
+                print(f"    {label}, {res_mode}, chunk {chunk} ({shape}; {kind} instance, "
+                      f"{n_blocks} block(s)): bit-identical to its "
                       f"plain version and to the sequential scan; {rounds} rounds, {conflicts} "
                       f"conflicts ({conflicts / rounds:.3f}); kernel {ms:.6f} ms on the device "
                       f"against the sequential {seq_ms:.6f} ms; plain {plain_ms:.1f} ms on the "
@@ -2597,31 +2603,58 @@ MAIN_SHARDS = 4
 
 class ShardRoundCapture:
     """Records the arguments of every ``shard_round`` call the sharded
-    selectors make while entered (``core.shard``'s ``score_block`` and
-    ``chain``), then restores them."""
+    selectors make while entered (``core.shard``'s ``score_block``,
+    ``chain`` and ``accept``; a graph's replays call none), then restores
+    them."""
 
     def __enter__(self):
         from repro_torch.core import shard as tshard
 
-        self.score, self.chain = [], []
-        self._real = (tshard.score_block, tshard.chain)
+        self.score, self.chain, self.accept = [], [], []
+        self._real = (tshard.score_block, tshard.chain, tshard.accept)
 
-        def score(*a, **kw):
-            self.score.append((a, kw))
-            return self._real[0](*a, **kw)
+        def record(calls, real):
+            def call(*a, **kw):
+                calls.append((a, kw))
+                return real(*a, **kw)
+            return call
 
-        def chain(*a, **kw):
-            self.chain.append((a, kw))
-            return self._real[1](*a, **kw)
-
-        tshard.score_block, tshard.chain = score, chain
+        tshard.score_block, tshard.chain, tshard.accept = (
+            record(calls, real) for calls, real in zip((self.score, self.chain, self.accept),
+                                                      self._real))
         return self
 
     def __exit__(self, *exc):
         from repro_torch.core import shard as tshard
 
-        tshard.score_block, tshard.chain = self._real
+        tshard.score_block, tshard.chain, tshard.accept = self._real
         return False
+
+
+def _from_start(args, kw):
+    """A recorded round call made to run from the window's first position:
+    its position tensor replaced by a fresh 0 (the recorded one has reached
+    the window's end) and its outputs by fresh ones."""
+    import torch
+
+    if kw.get("pos") is None:
+        return args, kw
+    kw = dict(kw, pos=torch.zeros_like(kw["pos"]))
+    kw.pop("out", None)
+    return args, kw
+
+
+def _accept_fresh(args):
+    """A recorded ``accept`` call on clones of the state it moves (position
+    0, the carry, the rows and counts), so every call starts alike."""
+    import torch
+
+    pos, total, span, spec, val, t_st, r_st, sizes, cap, slot1, t, res, out, stats, m = args
+    t, res = t.clone(), res.clone()
+    if span == 1:  # the round's pre-state is the carry itself
+        t_st, r_st = t[None], res[None]
+    return (torch.zeros_like(pos), total, span, spec, val, t_st, r_st, sizes, cap, slot1, t, res,
+            out.clone(), stats.clone(), m)
 
 
 def _score_numbers(args, kw):
@@ -2639,6 +2672,13 @@ def _score_numbers(args, kw):
 
     t, res, _, acc, _, _, bsize, lat, step_app, swap, gid, valid, pen, rank, *rest = args
     fixed = kw.get("fixed", rest[1] if len(rest) > 1 else None)
+    if kw.get("pos") is not None:  # only the rows of the round the block holds
+        p, lo, hi, row0 = int(kw["pos"].item()), kw["lo"], kw["hi"], kw["row0"]
+        g0, g1 = max(p + lo, row0), min(p + hi, row0 + acc.shape[0], kw["total"])
+        loc, rel = slice(g0 - row0, g1 - row0), slice(g0 - p - lo, g1 - p - lo)
+        acc, bsize, lat, step_app = acc[loc], bsize[loc], lat[loc], step_app[loc]
+        fixed = None if fixed is None else fixed[loc]
+        t, res = t[rel], res[rel]
     rows, b_max, m = acc.shape
     n_w = lat.shape[1]
     n = bsize.cpu().numpy()
@@ -2663,13 +2703,33 @@ def _score_numbers(args, kw):
     return float(max(byte_ms, op_ms)), "bytes" if byte_ms >= op_ms else "operations", shape
 
 
+def score_rows(args, kw):
+    """(workers, padded members, models) of a recorded ``score_block`` call."""
+    acc, lat = args[3], args[7]
+    return lat.shape[1], acc.shape[1], acc.shape[2]
+
+
+def _accept_bytes(args) -> int:
+    """Bytes one ``accept`` call must move, each read or written once: the
+    picks of the positions it compares (cell of each; the accepted ones'
+    effective swap and latency), their pre-state tails, the last accepted
+    position's slots, id, raw swap and latency, the carry written, the
+    accepted rows (4 float64 each), the position and counts."""
+    pos, total, span, spec, val, t_st, r_st, sizes, cap, slot1, t, res, out, stats, m = args
+    n_w, k = res.shape
+    a = int(pos.item())  # the call ran from position 0: it accepted pos rows
+    return (8 * span + 8 * 2 * a + 8 * a + 8 * (k + 3) + 8 * (n_w + n_w * k) + 32 * a
+            + 8 * 2 + 8 * 4)
+
+
 def check_shard_round(apps, reqs, now):
     """Phase 15 (a): ``shard_round`` against its plain version on the card,
     on the calls the sharded selectors make for phase 5's first window at
     MAIN_SHARDS shards, ``chunk=0`` — LO-EDF's per-request rows, SneakPeek's
     grouped rows, SneakPeek on four workers — each with the single-slot
     and the LRU carry: the first speculation's ``score_block`` (the
-    largest block) and the longest ``chain``, every output bit-identical.
+    largest block), the longest ``chain`` and the widest ``accept``, each
+    run from the window's first position, every output bit-identical.
     Times each on the device (its kernel only) and the plain version on
     the card, and works out the bounds: the block's bytes and operations,
     and the chain's dependent operations (the completion's two adds and
@@ -2682,7 +2742,7 @@ def check_shard_round(apps, reqs, now):
     from repro_torch.core.scheduler import make_policy, schedule_window
     from repro_torch.core.streaming import StreamingState
     from repro_torch.kernels.shard_round import ops as shard_ops
-    from repro_torch.kernels.shard_round.ref import chain_ref, score_block_ref
+    from repro_torch.kernels.shard_round.ref import accept_ref, chain_ref, score_block_ref
 
     clock = sm_clock_hz()
     pool = [Worker(0), Worker(1, speed=2.0), Worker(2, speed=0.5), Worker(3, load_scale=2.0)]
@@ -2701,8 +2761,8 @@ def check_shard_round(apps, reqs, now):
                 with ShardRoundCapture() as calls:
                     schedule_window(make_policy(policy, shard=MAIN_SHARDS), reqs, apps, now,
                                     workers=workers, state=state, device="cuda")
-                s_args, s_kw = max(calls.score, key=lambda c: c[0][3].shape[0])
-                c_args, c_kw = max(calls.chain, key=lambda c: c[0][5].shape[0])
+                s_args, s_kw = _from_start(*max(calls.score, key=lambda c: c[0][3].shape[0]))
+                a_args = max(calls.accept, key=lambda c: c[0][2])[0]
                 got = shard_ops.score_block(*s_args, **s_kw)
                 torch.cuda.synchronize()
                 t = time.perf_counter()
@@ -2711,34 +2771,63 @@ def check_shard_round(apps, reqs, now):
                 plain_ms = (time.perf_counter() - t) * 1e3
                 require(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
                         f"{label}, {res_mode}: score_block differs from its plain version")
-                got_c = shard_ops.chain(*c_args, **c_kw)
+                # Rounds of one position (the pool's placement at chunk 0) chain
+                # nothing: the accept moves the carry.
+                n_pos, chain_ms, chain_plain_ms, chain_bound = 0, None, None, None
+                if calls.chain:
+                    c_args, c_kw = _from_start(*max(calls.chain, key=lambda c: c[0][5].shape[0]))
+                    got_c = shard_ops.chain(*c_args, **c_kw)
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    want_c = chain_ref(*c_args, **c_kw)
+                    torch.cuda.synchronize()
+                    chain_plain_ms = (time.perf_counter() - t) * 1e3
+                    require(torch.equal(got_c[0], want_c[0]) and torch.equal(got_c[1], want_c[1]),
+                            f"{label}, {res_mode}: chain differs from its plain version")
+                    chain_ms = device_ms(lambda: shard_ops.chain(*c_args, **c_kw),
+                                         "shard_round_chain", iters=5)
+                    n_pos = c_args[5].shape[0]
+                    chain_bound = 3.0 * n_pos * F64_DEP_CYCLES / clock * 1e3
+                got_a, want_a = _accept_fresh(a_args), _accept_fresh(a_args)
+                shard_ops.accept(*got_a)
                 torch.cuda.synchronize()
                 t = time.perf_counter()
-                want_c = chain_ref(*c_args, **c_kw)
+                accept_ref(*want_a)
                 torch.cuda.synchronize()
-                chain_plain_ms = (time.perf_counter() - t) * 1e3
-                require(torch.equal(got_c[0], want_c[0]) and torch.equal(got_c[1], want_c[1]),
-                        f"{label}, {res_mode}: chain differs from its plain version")
+                accept_plain_ms = (time.perf_counter() - t) * 1e3
+                moved = (0, 10, 11, 12, 13)  # pos, t, res, out, stats
+                require(all(torch.equal(got_a[i], want_a[i]) for i in moved),
+                        f"{label}, {res_mode}: accept differs from its plain version")
                 ms = device_ms(lambda: shard_ops.score_block(*s_args, **s_kw),
                                "shard_round_score", iters=5)
-                chain_ms = device_ms(lambda: shard_ops.chain(*c_args, **c_kw),
-                                     "shard_round_chain", iters=5)
+                accept_ms = device_ms(lambda: shard_ops.accept(*_accept_fresh(a_args)),
+                                      "shard_round_accept", iters=5)
                 bound_ms, bound_by, shape = _score_numbers(s_args, s_kw)
-                n_pos = c_args[5].shape[0]
-                chain_bound = 3.0 * n_pos * F64_DEP_CYCLES / clock * 1e3
+                accept_bound = _accept_bytes(got_a) / HBM_BYTES_PER_S * 1e3
+                rows = score_rows(s_args, s_kw)
                 out[f"{label}, {res_mode}"] = {
                     "shape": shape, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                     "bound_by": bound_by, "max_abs_err": 0.0, "library_ms": None,
+                    "instance": shard_ops.score_instance(*rows),
+                    "cluster_blocks": shard_ops.score_blocks(*rows),
                     "chain_positions": n_pos, "chain_ms": chain_ms,
                     "chain_plain_ms": chain_plain_ms, "chain_bound_ms": chain_bound,
-                    "calls": (len(calls.score), len(calls.chain))}
-                print(f"    {label}, {res_mode}: score_block ({shape}) and chain ({n_pos} "
-                      f"positions) bit-identical to their plain versions; score_block "
-                      f"{ms:.6f} ms on the device, plain {plain_ms:.3f} ms, bound "
-                      f"{bound_ms:.6f} ms ({bound_by}); chain {chain_ms:.6f} ms, plain "
-                      f"{chain_plain_ms:.3f} ms, dependent chain {chain_bound:.6f} ms; the "
-                      f"window made {len(calls.score)} score_block and {len(calls.chain)} "
-                      "chain calls")
+                    "accept_span": a_args[2], "accept_ms": accept_ms,
+                    "accept_plain_ms": accept_plain_ms, "accept_bound_ms": accept_bound,
+                    "calls": (len(calls.score), len(calls.chain), len(calls.accept))}
+                chain_text = ("no chain (rounds of one position)" if not n_pos else
+                              f"chain {chain_ms:.6f} ms, plain {chain_plain_ms:.3f} ms, dependent "
+                              f"chain {chain_bound:.6f} ms")
+                print(f"    {label}, {res_mode}: score_block ({shape}, "
+                      f"{out[f'{label}, {res_mode}']['instance']} instance, "
+                      f"{out[f'{label}, {res_mode}']['cluster_blocks']} block(s) a row), chain "
+                      f"({n_pos} positions) and accept ({a_args[2]} positions) bit-identical to "
+                      f"their plain versions; score_block {ms:.6f} ms on the device, plain "
+                      f"{plain_ms:.3f} ms, bound {bound_ms:.6f} ms ({bound_by}); {chain_text}; "
+                      f"accept {accept_ms:.6f} ms, plain "
+                      f"{accept_plain_ms:.3f} ms, bound {accept_bound:.6f} ms (bytes); the window "
+                      f"made {len(calls.score)} score_block, {len(calls.chain)} chain and "
+                      f"{len(calls.accept)} accept calls")
     finally:
         tshard.force_shard_devices(prev)
     return out
@@ -2757,7 +2846,7 @@ def check_sharded_selectors(apps, reqs, now):
     route's on the card (``selection_scan`` / ``spec_scan``) and its
     ``chunk_stats`` too; at MAIN_SHARDS shards, on one chunk per shape, the
     shard stats equal the same selector's on the host.  Returns {case:
-    (seconds per window, shard_round launches, shard stats)}."""
+    (seconds per window, shard_round launches, shard stats, read-backs)}."""
     import torch
 
     from repro_torch.core import shard as tshard
@@ -2813,9 +2902,10 @@ def check_sharded_selectors(apps, reqs, now):
                             require(host.last_shard_stats == stats,
                                     f"{key}: shard stats {stats} != the host's "
                                     f"{host.last_shard_stats}")
-                        out[key] = (secs, launched, stats)
+                        out[key] = (secs, launched, stats, pipe.last_read_backs)
                         print(f"    {key}: equal to the unsharded route; {secs:.4f} s, "
-                              f"{launched} shard_round launches, {stats}"
+                              f"{launched} shard_round launches, {pipe.last_read_backs} "
+                              f"read-backs of the position, {stats}"
                               + (" = the host's" if shards == MAIN_SHARDS
                                  and chunk == host_chunk[label] else ""))
     finally:
@@ -3677,10 +3767,12 @@ def main(argv=None) -> int:
         "replaces": "src/repro/core/shard.py:162", "launches": shard_launches["shard_round"],
         **{key: main_shard[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                             "bound_by", "library_ms", "shape",
-                                            "chain_bound_ms", "chain_ms", "chain_plain_ms")},
+                                            "chain_bound_ms", "chain_ms", "chain_plain_ms",
+                                            "accept_ms", "accept_plain_ms", "accept_bound_ms",
+                                            "instance", "cluster_blocks")},
         "programs": shard_t,
-        "selectors": {key: {"s": secs, "launches": n, "stats": st}
-                    for key, (secs, n, st) in shard_b.items()}})
+        "selectors": {key: {"s": secs, "launches": n, "stats": st, "read_backs": rb}
+                      for key, (secs, n, st, rb) in shard_b.items()}})
     # The backward kernels replace the reference's gradients (its flash
     # attention's custom VJP; jax.grad through its SSD scan); their launches
     # are phase 16 (c)'s training runs, their times phase 16 (a)'s.

@@ -27,8 +27,9 @@ reference's does:
   * **The carry chain is shared.**  Queue tails and residency are
     sequential: the rounds speculate rows against the carry frozen at the
     round's start, rebuild the carries the speculated picks imply (the
-    kernel's ``chain``, one thread, from the gathered picks), validate
-    every row under its carry and accept through the first conflict.
+    kernel's ``chain``, from the gathered picks), validate every row under
+    its carry and accept through the first conflict (the kernel's
+    ``accept``, which also moves the carry and the position).
     With ``chunk=K`` a round accepts at most K decisions (the unsharded
     chunked scan's rounds and conflicts); with ``chunk=0`` one round
     speculates the whole remaining window, so the rounds and conflicts
@@ -36,9 +37,16 @@ reference's does:
     (``chunk=0`` on a pool) takes one step per group.
 
 One controller drives every shard: each shard's blocks are tensors on that
-shard's device, "all-gather" is a concatenation on the first shard's
-device and "pmax"/"pmin" are maxima and minima over the stacked
-per-shard values.  Copies between devices move exact bits and the
+shard's device, "all-gather" is each shard writing the rows it holds
+into the first shard's buffers (copied there from another device) and
+"pmax"/"pmin" are maxima and minima over the stacked per-shard values.
+The round's position, the carry and the rounds and conflicts stay in
+tensors on the first shard's device: every launch reads the position
+there and does nothing once the window is decided, so the host enqueues
+the rounds a window needs if none conflicts, reads the position back
+once, and repeats (``last_read_backs`` counts the reads).  When every
+shard's block is on one card, a round is captured as a CUDA graph after
+its first run and replayed.  Copies between devices move exact bits and the
 reductions only compare, so the exchange cannot change a decision; no
 process group is involved, and the entry points are called as the
 reference's are.  A round scores only the rows it can accept (the
@@ -60,10 +68,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch import kernels
 from repro_torch.core.pipeline import WindowPipeline, _per_request_head
 from repro_torch.device import SCHED_DTYPE, resolve_device
 from repro_torch.kernels.selection_scan.ops import _seed
-from repro_torch.kernels.shard_round.ops import RANK_INF, chain, score_block
+from repro_torch.kernels.shard_round.ops import RANK_INF, accept, chain, score_block
 
 __all__ = [
     "ShardedWindowPipeline",
@@ -199,65 +208,112 @@ def _owner_bcast(mine, val):
 # --------------------------------------------------------------------------
 
 
+# Rounds a batch must still hold for its rounds to be captured as a CUDA
+# graph (one eager round first, then the capture): a capture costs about
+# what a few eager rounds' launches do.
+GRAPH_MIN_ROUNDS = 4
+
+
+def _capture(one_round, dev):
+    """A CUDA graph of ``one_round`` on ``dev`` (captured on a side stream
+    in thread-local mode, as ``serving.backends.DecodeGraph`` does) and the
+    launches one replay makes, taken back off the counts the capture's
+    wrappers added (``kernels.add_launches``)."""
+    before = kernels.thread_launch_counts()
+    graph = torch.cuda.CUDAGraph()
+    current = torch.cuda.current_stream(dev)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(current)
+    with torch.cuda.stream(side):
+        graph.capture_begin(capture_error_mode="thread_local")
+        try:
+            one_round()
+        finally:
+            graph.capture_end()
+    current.wait_stream(side)
+    after = kernels.thread_launch_counts()
+    launches = {name: n - before.get(name, 0) for name, n in after.items()
+                if n != before.get(name, 0)}
+    kernels.add_launches({name: -n for name, n in launches.items()})
+    return graph, launches
+
+
 def _rounds(mesh, res_mode: str, seed, pick, n_total: int, m: int, k_eff: int):
     """The speculate/validate rounds over ``n_total`` decisions, a round
-    covering the next ``min(k_eff, n_total - p)`` of them.
+    covering the next ``min(k_eff, n_total - p)`` of them, p the window's
+    next undecided position — held on the first shard's device, with the
+    carry, the rows and the rounds and conflicts, and never read inside a
+    round.
 
-    ``pick(lo, hi, t, res)`` scores decisions [lo, hi) on every shard's
-    block, decision r against the carry ``t[r]`` (W,) tails and ``res[r]``
-    (W, K) slots, and returns their (cell ``w * m + model``, model id, raw
-    swap, effective swap, latency) on the first shard's device.  A round
-    scores its decisions under the frozen carry; the chain rebuilds each
-    position's carry from those picks; positions 1.. are scored again
-    under their carries; the first conflict (the least position whose pick
-    changed) ends the accepted run, inclusive, and a second chain moves
-    the carry past it.  ``seed`` is the carry (t0, res0, sizes, cap).
-    Returns ((4, n_total) host rows: worker, model column, start, latency;
-    (rounds, conflicts))."""
+    ``pick(pos, lo, hi, t, res, bufs)`` scores positions [p + lo, p + hi)
+    on every shard's block, position p + lo + j against the carry ``t[j]``
+    (W,) tails and ``res[j]`` (W, K) slots, and writes their picks into
+    ``bufs`` on the first shard's device, in ``score_block``'s (5, hi - lo)
+    float64 and (3, hi - lo) int64 form (the cell ``w * m + model`` and
+    model id in int rows 0 and 2; raw swap, effective swap and latency in
+    float rows 1-3).  A round scores its positions under the frozen carry;
+    the chain rebuilds each position's carry from those picks; positions
+    1.. are scored again under their carries; ``accept`` finds the first
+    conflict (the least position whose pick changed), writes the accepted
+    rows, moves the carry by the last accepted decision and the position
+    by the accepted count.  Each batch enqueues the rounds the window
+    needs if none conflicts, then reads the position back.  ``seed`` is
+    the carry (t0, res0, sizes, cap).  Returns ((4, n_total) host rows:
+    worker, model column, start, latency; (rounds, conflicts); the
+    position's read-backs)."""
     dev0 = mesh[0]
     slot1 = res_mode == "slot1"
     t0, res0, sizes, cap = _seed(*seed, res_mode)
-    t = torch.as_tensor(t0, device=dev0)
-    res = torch.as_tensor(res0, device=dev0)
+    t = torch.tensor(t0, device=dev0)
+    res = torch.tensor(res0, device=dev0)
     sizes = torch.as_tensor(sizes, device=dev0)
     out = torch.zeros((4, n_total), dtype=SCHED_DTYPE, device=dev0)
-    p = rounds = conflicts = 0
-    while p < n_total:
-        kn = min(k_eff, n_total - p)
+    pos = torch.zeros(1, dtype=torch.int64, device=dev0)
+    stats = torch.zeros(2, dtype=torch.int64, device=dev0)
+    k = k_eff
+
+    def bufs(span):
+        return (torch.zeros((5, span), dtype=SCHED_DTYPE, device=dev0),
+                torch.zeros((3, span), dtype=torch.int64, device=dev0))
+
+    spec = bufs(k)
+    val = bufs(k - 1) if k > 1 else None
+    t_frozen, res_frozen = t.expand(k, -1), res.expand(k, -1, -1)
+
+    def one_round():
         # 1. Speculate under the frozen carry.
-        spec = pick(p, p + kn, t.expand(kn, -1), res.expand(kn, -1, -1))
-        cell, g, sw, swe, lt = spec
-        first = RANK_INF
-        if kn > 1:
+        pick(pos, 0, k, t_frozen, res_frozen, spec)
+        if k > 1:
             # 2. Rebuild each position's carry from the speculated picks;
             # position 0's is the frozen carry itself.
-            t_st, r_st = chain(t, res, sizes, cap, slot1, cell[:-1] // m, g[:-1], sw[:-1],
-                               lt[:-1])
+            t_st, r_st = chain(t, res, sizes, cap, slot1, spec[1][0, :-1], spec[1][2, :-1],
+                               spec[0][1, :-1], spec[0][3, :-1], models=m, pos=pos,
+                               total=n_total)
             # 3. Validate positions 1.. under their carries.
-            val = pick(p + 1, p + kn, t_st[1:], r_st[1:])
-            cell, g, sw, swe, lt = (torch.cat([x[:1], y]) for x, y in zip(spec, val))
-            first = int(torch.where(cell != spec[0], torch.arange(kn, device=dev0),
-                                    RANK_INF).min())
+            pick(pos, 1, k, t_st[1:], r_st[1:], val)
         else:
             t_st, r_st = t[None], res[None]
-        # 4. Accept through the first conflict, inclusive.
-        any_m = first < RANK_INF
-        a = first + 1 if any_m else kn
-        wi = cell[:a] // m
-        start = t_st[torch.arange(a, device=dev0), wi]
-        out[0, p:p + a] = wi.to(SCHED_DTYPE)
-        out[1, p:p + a] = (cell[:a] % m).to(SCHED_DTYPE)
-        out[2, p:p + a] = start
-        out[3, p:p + a] = ((start + swe[:a]) + lt[:a]) - start
-        # The next carry: the last accepted decision on its pre-state.
-        k = a - 1
-        t_n, r_n = chain(t_st[k], r_st[k], sizes, cap, slot1, wi[k:], g[k:a], sw[k:a],
-                         lt[k:a])
-        t, res = t_n[1], r_n[1]
-        p += a
-        rounds += 1
-        conflicts += int(any_m)
-    return out.cpu().numpy(), (rounds, conflicts)
+        # 4. Accept through the first conflict, inclusive; move the carry.
+        accept(pos, n_total, k, spec, val, t_st, r_st, sizes, cap, slot1, t, res, out, stats, m)
+
+    graphs = dev0.type == "cuda" and all(dev == dev0 for dev in mesh)
+    graph, launches, ran = None, {}, False
+    p = read_backs = 0
+    while p < n_total:
+        todo = -(-(n_total - p) // k)
+        for i in range(todo):
+            if graph is None and graphs and ran and todo - i >= GRAPH_MIN_ROUNDS:
+                graph, launches = _capture(one_round, dev0)
+            if graph is not None:
+                graph.replay()
+                kernels.add_launches(launches)
+            else:
+                one_round()
+                ran = True
+        p = int(pos.item())
+        read_backs += 1
+    rounds, conflicts = stats.tolist()
+    return out.cpu().numpy(), (rounds, conflicts), read_backs
 
 
 # --------------------------------------------------------------------------
@@ -275,8 +331,7 @@ def _sharded_select(mesh, res_mode: str, seed, tabs: dict, k_eff: int):
     (S,); per application "swap" (A, 1, M), "gid", "valid", "pen" and
     "rank" — and ``seed`` the carry (t0, res0, sizes, cap).  Each shard
     scores the rows of a round that it holds (``_rounds``).  Returns
-    ((4, S) host rows as ``_rounds``'; (rounds, conflicts))."""
-    dev0 = mesh[0]
+    ``_rounds``' ((4, S) host rows, (rounds, conflicts), read-backs)."""
     n_total, _, m = tabs["acc"].shape
     n_pad = pad_rows(n_total, len(mesh))
     nb = n_pad // len(mesh)
@@ -285,24 +340,27 @@ def _sharded_select(mesh, res_mode: str, seed, tabs: dict, k_eff: int):
     specs = row_specs(mesh, {k: tuple(v.shape) for k, v in padded.items()},
                       axis={k: (0 if k in row_tabs else None) for k in padded})
     blocks = _place(mesh, padded, specs)
+    dev0 = mesh[0]
+    slot1 = res_mode == "slot1"
+    steps = torch.arange(max(k_eff, 1), device=dev0)
 
-    def pick(lo, hi, t, res):
-        # Every shard's rows of [lo, hi), gathered in row order on dev0.
-        fs, is_ = [], []
+    def pick(pos, lo, hi, t, res, bufs):
+        # Every shard writes the rows of [p + lo, p + hi) it holds into the
+        # first shard's buffers (from another device: where it holds them).
         for s, (dev, blk) in enumerate(zip(mesh, blocks)):
-            a0, a1 = max(lo, s * nb), min(hi, (s + 1) * nb)
-            if a0 >= a1:
+            kw = {"pos": pos.to(dev), "lo": lo, "hi": hi, "row0": s * nb, "total": n_total}
+            args = (t.to(dev), res.to(dev), slot1, blk["acc"], blk["mask"], blk["dl"],
+                    blk["size"], blk["lat"], blk["app"], blk["swap"], blk["gid"], blk["valid"],
+                    blk["pen"], blk["rank"])
+            fixed = blk.get("sel")
+            if dev == dev0:
+                score_block(*args, fixed=fixed, out=bufs, **kw)
                 continue
-            b0, b1 = a0 - s * nb, a1 - s * nb
-            f, i = score_block(
-                t[a0 - lo:a1 - lo].to(dev), res[a0 - lo:a1 - lo].to(dev), res_mode == "slot1",
-                blk["acc"][b0:b1], blk["mask"][b0:b1], blk["dl"][b0:b1], blk["size"][b0:b1],
-                blk["lat"][b0:b1], blk["app"][b0:b1], blk["swap"], blk["gid"], blk["valid"],
-                blk["pen"], blk["rank"], fixed=blk["sel"][b0:b1] if "sel" in blk else None)
-            fs.append(f.to(dev0))
-            is_.append(i.to(dev0))
-        f, i = torch.cat(fs, dim=1), torch.cat(is_, dim=1)
-        return i[0], i[2], f[1], f[2], f[3]
+            f, i = score_block(*args, fixed=fixed, **kw)
+            row = pos + lo + steps[:hi - lo]
+            held = (row >= s * nb) & (row < (s + 1) * nb) & (row < n_total)
+            bufs[0].copy_(torch.where(held, f.to(dev0), bufs[0]))
+            bufs[1].copy_(torch.where(held, i.to(dev0), bufs[1]))
 
     return _rounds(mesh, res_mode, seed, pick, n_total, m, k_eff)
 
@@ -355,31 +413,50 @@ def _sharded_mw(mesh, res_mode, seed, blocks, wl, m_max, pref, gid, app, chunk: 
     chain); with ``chunk`` > 0 its ``_sharded_mw_spec_program`` (rounds of
     ``chunk`` groups over the pool carry, ``_rounds``).  The chain takes
     each pick's RAW swap, as the unsharded chunked scan does.  ``gid`` (A,
-    M) and ``app`` (G,) on the first shard's device.  Returns ((4, G) host
-    rows: worker, model, start, latency; (rounds, conflicts))."""
+    M) and ``app`` (G,) on the first shard's device.  Returns ``_rounds``'
+    ((4, G) host rows: worker, model, start, latency; (rounds, conflicts);
+    read-backs)."""
     dev0 = mesh[0]
+    n_total = app.shape[0]
+    k_eff = chunk if chunk else 1
+    n_cells = pref.shape[1]
+    steps = torch.arange(k_eff, device=dev0)
+    shard_ids = torch.arange(len(mesh), device=dev0)[:, None]
+    # Each shard's picks of a pass, stacked, by the pass's width.
+    stacks = {span: (torch.zeros((len(mesh), 5, span), dtype=SCHED_DTYPE, device=dev0),
+                     torch.zeros((len(mesh), 3, span), dtype=torch.int64, device=dev0))
+              for span in {k_eff, k_eff - 1} if span > 0}
 
-    def pick(lo, hi, t, res):
+    def pick(pos, lo, hi, t, res, bufs):
         # Every shard scores its worker block, then the exact cross-shard
         # pick and the owner's values.
-        fs, is_ = [], []
+        span = hi - lo
+        sf, si = stacks[span]
         for s, (dev, blk) in enumerate(zip(mesh, blocks)):
             w0, w1 = s * wl, (s + 1) * wl
-            f, i = score_block(t[:, w0:w1].to(dev), res[:, w0:w1].to(dev), res_mode == "slot1",
-                               blk["acc"][lo:hi], blk["mask"][lo:hi], blk["dl"][lo:hi],
-                               blk["size"][lo:hi], blk["lat"][lo:hi], blk["app"][lo:hi],
-                               blk["swap"], blk["gid"], blk["valid"], blk["pen"], blk["rank"],
-                               blk["wvalid"])
-            fs.append(f.to(dev0))
-            is_.append(i.to(dev0))
-        f, i = torch.stack(fs), torch.stack(is_)  # (N, 5, R), (N, 3, R)
-        r_star = _pick_allreduce(f[:, 0], i[:, 1])
-        cell = pref[app[lo:hi]].gather(1, r_star[:, None])[:, 0]
-        mine = (cell // m_max) // wl == torch.arange(len(mesh), device=dev0)[:, None]
-        return (cell, gid[app[lo:hi], cell % m_max], _owner_bcast(mine, f[:, 1]),
-                _owner_bcast(mine, f[:, 2]), _owner_bcast(mine, f[:, 3]))
+            args = (t[:, w0:w1].to(dev), res[:, w0:w1].to(dev), res_mode == "slot1",
+                    blk["acc"], blk["mask"], blk["dl"], blk["size"], blk["lat"], blk["app"],
+                    blk["swap"], blk["gid"], blk["valid"], blk["pen"], blk["rank"],
+                    blk["wvalid"])
+            kw = {"pos": pos.to(dev), "lo": lo, "hi": hi, "row0": 0, "total": n_total}
+            if dev == dev0:
+                score_block(*args, out=(sf[s], si[s]), **kw)
+            else:
+                f, i = score_block(*args, **kw)
+                sf[s].copy_(f)
+                si[s].copy_(i)
+        # Columns past the window's end hold earlier passes' values; their
+        # indices are clamped, and the accept never reads them.
+        r_star = _pick_allreduce(sf[:, 0], si[:, 1]).clamp(0, n_cells - 1)
+        apps = app[(pos + lo + steps[:span]).clamp(max=n_total - 1)]
+        cell = pref[apps].gather(1, r_star[:, None])[:, 0]
+        mine = (cell // m_max) // wl == shard_ids
+        bufs[1][0].copy_(cell)
+        bufs[1][2].copy_(gid[apps, cell % m_max])
+        for row in (1, 2, 3):
+            bufs[0][row].copy_(_owner_bcast(mine, sf[:, row]))
 
-    return _rounds(mesh, res_mode, seed, pick, app.shape[0], m_max, chunk if chunk else 1)
+    return _rounds(mesh, res_mode, seed, pick, n_total, m_max, k_eff)
 
 
 # --------------------------------------------------------------------------
@@ -405,6 +482,9 @@ class ShardedWindowPipeline(WindowPipeline):
         # speculation rounds; the sequential Eq. 15 placement reports
         # rounds = group count, conflicts = 0).
         self.last_shard_stats: dict | None = None
+        # How many times the LAST sharded schedule read its round position
+        # back to the host (None when delegated).
+        self.last_read_backs: int | None = None
 
     def num_shards(self) -> int:
         """Resolved shard count (1 on the numpy backend)."""
@@ -420,6 +500,7 @@ class ShardedWindowPipeline(WindowPipeline):
         """``WindowPipeline.schedule``, recording ``last_shard_stats`` when
         the window is sharded (None when it delegates)."""
         self.last_shard_stats = None
+        self.last_read_backs = None
         return super().schedule(requests, now, policy=policy, state=state, arrays=arrays,
                                 workers=workers, lat_scale=lat_scale, worker_mask=worker_mask)
 
@@ -461,8 +542,8 @@ class ShardedWindowPipeline(WindowPipeline):
         }
         if fixed is not None:
             tabs["sel"] = fixed
-        out, stats = _sharded_select(self._mesh(), res_mode, seed, tabs,
-                                     chunk if chunk else n_total)
+        out, stats, self.last_read_backs = _sharded_select(self._mesh(), res_mode, seed, tabs,
+                                                           chunk if chunk else n_total)
         self._record_shard_stats(*stats)
         if chunk:
             self._record_chunk_stats(chunk, n_total, stats)
@@ -485,8 +566,8 @@ class ShardedWindowPipeline(WindowPipeline):
             "app": setup["wa"]._tensor(setup["app_id"]), "swap": dt["swap"][:, None, :],
             "gid": dt["gid"], "valid": dt["valid"], "pen": dt["pen"], "rank": dt["pref"],
         }
-        out, stats = _sharded_select(self._mesh(), setup["res_mode"], setup["seed"], tabs,
-                                     chunk if chunk else n_groups)
+        out, stats, self.last_read_backs = _sharded_select(
+            self._mesh(), setup["res_mode"], setup["seed"], tabs, chunk if chunk else n_groups)
         self._record_shard_stats(*stats)
         if chunk:
             self._record_chunk_stats(chunk, n_groups, stats)
@@ -512,9 +593,9 @@ class ShardedWindowPipeline(WindowPipeline):
                 float(pool.capacity))
         blocks, wl, pref = _mw_blocks(mesh, setup, tab, n_w)
         chunk = self._chunk_of(policy)
-        out, stats = _sharded_mw(mesh, res_mode, seed, blocks, wl, tab["m_max"],
-                                 pref.to(mesh[0]), tab["dev"]["gid"].to(mesh[0]),
-                                 setup["app_id"].to(mesh[0]), chunk)
+        out, stats, self.last_read_backs = _sharded_mw(
+            mesh, res_mode, seed, blocks, wl, tab["m_max"], pref.to(mesh[0]),
+            tab["dev"]["gid"].to(mesh[0]), setup["app_id"].to(mesh[0]), chunk)
         n_groups = len(setup["ordered_groups"])
         if chunk:
             self._record_chunk_stats(chunk, n_groups, stats)

@@ -73,10 +73,10 @@ SOURCES: dict[str, Source] = {
         ("--fmad=false",), (_PENALTY_H, _LRU_H, _STEP_H, _AHEAD_H),
     ),
     # The chunked scan: the same arithmetic and rule, through the sequential
-    # scan's step.
+    # scan's step (its warp instance through ahead.cuh's).
     "spec_scan": Source(
         "spec_scan", _KERNELS_DIR / "spec_scan" / "csrc" / "spec_scan.cu", ("--fmad=false",),
-        (_PENALTY_H, _LRU_H, _STEP_H),
+        (_PENALTY_H, _LRU_H, _STEP_H, _AHEAD_H),
     ),
     # The sharded rounds score rows with the scans' step and chain the
     # carry with their update: the same arithmetic and rule.

@@ -1,6 +1,8 @@
 // The two instances of the sequential selection scan's step, and the
 // fetch of a step's tables while earlier steps resolve.  Included by
-// selection_scan.cu, which is compiled with --fmad=false; both instances
+// selection_scan.cu and ../../spec_scan/csrc/spec_scan.cu (whose warp
+// instance scores a round's positions a warp each with `warp_pick`), both
+// compiled with --fmad=false; both instances
 // repeat step.cuh's arithmetic, so they take every decision with the same
 // operations in the same order: completions (t + swap_eff) + lat,
 // penalty.cuh's Eq. 2, a member mean as one chain of adds in member order
@@ -110,14 +112,21 @@ __device__ __forceinline__ void fetch_lane(const ScanArgs& p, int s, int64_t a, 
   if (p.fixed != nullptr) v.fixed = p.fixed[s];
 }
 
-// Step s of the warp instance against the carry (tails t, slots res, in
-// shared memory); lane 0 moves the carry and writes the decision's column
-// (step.cuh's `emit`, its worker and model taken from the shuffles).
-// `span` is pow2_span(W * M).  The caller synchronises the warp before the
-// next step reads the carry.
-__device__ __forceinline__ void warp_step(const ScanArgs& p, int s, const LaneStep& v,
-                                          const LaneCell& c, int lane, int span, double* t,
-                                          int64_t* res) {
+// A warp's decision on one step: the worker and model column, the
+// completion, whether the model was resident, its id.
+struct WarpPick {
+  int wi, mi;
+  double done;
+  bool was;
+  int64_t g;
+};
+
+// The decision of the step whose tables `v` holds, scored by the warp
+// against the carry (tails t, slots res, in shared memory), in every lane.
+// `span` is pow2_span(W * M).
+__device__ __forceinline__ WarpPick warp_pick(const ScanArgs& p, const LaneStep& v,
+                                              const LaneCell& c, int lane, int span,
+                                              const double* t, const int64_t* res) {
   const int B = p.B, M = p.M, wm = p.W * M;
   bool resident = false;
   double comp = 0.0;
@@ -172,20 +181,32 @@ __device__ __forceinline__ void warp_step(const ScanArgs& p, int s, const LaneSt
     was = __shfl_sync(kFullWarp, ru, r) != 0;
     g = __shfl_sync(kFullWarp, gu, r);
   }
+  return {wi, mi, done, was, g};
+}
+
+// Step s of the warp instance against the carry (tails t, slots res, in
+// shared memory): `warp_pick`, then lane 0 moves the carry and writes the
+// decision's column (step.cuh's `emit`, its worker and model taken from
+// the shuffles).  The caller synchronises the warp before the next step
+// reads the carry.
+__device__ __forceinline__ void warp_step(const ScanArgs& p, int s, const LaneStep& v,
+                                          const LaneCell& c, int lane, int span, double* t,
+                                          int64_t* res) {
+  const WarpPick d = warp_pick(p, v, c, lane, span, t, res);
   if (lane == 0) {
-    const double start = t[wi];
-    advance(p, wi, g, was, done, t, res);
-    p.out[s] = wi;
-    p.out[(size_t)p.ld + s] = mi;
+    const double start = t[d.wi];
+    advance(p, d.wi, d.g, d.was, d.done, t, res);
+    p.out[s] = d.wi;
+    p.out[(size_t)p.ld + s] = d.mi;
     p.out[2 * (size_t)p.ld + s] = start;
-    p.out[3 * (size_t)p.ld + s] = done - start;
+    p.out[3 * (size_t)p.ld + s] = d.done - start;
   }
 }
 
 // --------------------------------------------------------- block instance
 
-// Member values phase C loads before it adds them.
-constexpr int kDepth = 8;
+// Member values phase C loads before it adds them (step.cuh's depth).
+constexpr int kDepth = kMeanDepth;
 
 // One thread's tables of one step, raw as loaded: the step's application,
 // member count, penalty and fixed choice; of the (w, m) cell `tid` (tid <

@@ -1,9 +1,10 @@
 // The step of the port's selection scans: the arguments, the scoring of a
 // run of positions against their carries, and the carry update of one
 // decision.  Included by selection_scan.cu (the sequential scan: one
-// position at a time) and ../../spec_scan/csrc/spec_scan.cu (the chunked
-// scan: C positions a round); both are compiled with --fmad=false, so the
-// two scans take each decision with the same arithmetic.
+// position at a time), ../../spec_scan/csrc/spec_scan.cu (the chunked
+// scan: C positions a round) and ../../shard_round/csrc/shard_round.cu
+// (the sharded rounds); all are compiled with --fmad=false, so every scan
+// takes each decision with the same arithmetic.
 #pragma once
 
 #include <math.h>
@@ -50,32 +51,6 @@ __device__ __forceinline__ bool resident_in(const ScanArgs& p, const int64_t* sl
   return was;
 }
 
-// Scores positions k in [k0, kn) of the run starting at step `pos`, each
-// against its carry — tails t + (k - k0) * ts, slots r + (k - k0) * rs
-// (ts = rs = 0: one carry for every position) — and writes each pick to
-// picks[k].  Phase B covers members below the most any of these positions
-// has, not the table's padded B: warp 0 finds it during phase A of a
-// speculation pass (k0 = 0), and the validation pass (k0 = 1) that
-// follows reuses it.  Four phases, the first three ended by a barrier:
-//   A. per (position, worker, model) cell: whether the model is resident
-//      under the carry, and the completion (t + swap_eff) + lat;
-//   B. per (position, worker, member, model) cell of the position's real
-//      members: the Eq. 2 value (K1's arithmetic, penalty.cuh), into the
-//      tile in device memory (a group of 1,300 members on four workers
-//      does not fit shared memory);
-//   C. per (position, worker, model) column: one chain of member adds in
-//      member order, then one divide; -inf for an invalid (padded) model;
-//   D. per position: the first maximum over the preference permutation,
-//      or the fixed choice (MaxAcc: B and C are skipped).
-// Members past a step's count add exact zeros in the reference and are
-// skipped.  A thread keeps its position's step values (application,
-// member count, penalty) while its cells stay in that position; `One`
-// instantiates the run of one position (the sequential scan's step), where
-// they are loop-invariant and the loops index one step's rows.  Cell
-// indices are 32-bit (the launch refuses a (C, W, B, M)
-// tile of 2^32 cells).  D ends with no barrier: picks[k] is written by
-// thread k - k0 (mod the block), and a caller that reads it from another
-// thread synchronises first.
 // One step's values that a scoring thread keeps while its cells stay in
 // that step.
 struct StepView {
@@ -92,24 +67,48 @@ __device__ __forceinline__ void view_step(const ScanArgs& p, int s, StepView& v)
   v.pen = static_cast<int>(p.pen[v.a]);
 }
 
-template <bool One>
-__device__ void score_steps(const ScanArgs& p, const StepRows& rows, int pos, int k0, int kn,
-                            const double* t, int ts, const int64_t* r, int rs, int* picks) {
-  const int W = p.W, M = p.M, K = p.K, B = p.B;
+// The block routines of a pass over positions k in [k0, kn) of the run
+// starting at step `pos`, each scored against its carry — tails t + (k -
+// k0) * ts, slots r + (k - k0) * rs (ts = rs = 0: one carry for every
+// position).  The chunked scan's block instance (spec_scan.cu) and the
+// sharded rounds' wide rows (shard_round.cu) run them in this order, a
+// barrier after each:
+//   A. pass_completions: per (position, worker, model) cell, whether the
+//      model is resident under the carry, and the completion (t +
+//      swap_eff) + lat; `run_most` (warp 0) the most members any of the
+//      run's positions has, phase B's bound;
+//   B. pass_tile: per (position, worker, member, model) cell of the
+//      positions' real members, the Eq. 2 value (K1's arithmetic,
+//      penalty.cuh) into the tile in device memory (a group of 1,300
+//      members on four workers does not fit shared memory), or into a
+//      tile in shared memory.  A pass takes a slice [c0, c1) of the cells,
+//      so the blocks of a cluster can share the work: whole (position,
+//      worker) rows each, or each a slice of one row's cells written into
+//      the leader block's shared memory;
+//   C. pass_means: per (position, worker, model) column of a range of
+//      (position, worker) rows, one chain of member adds in member order,
+//      then one divide; -inf for an invalid (padded) model, from a tile
+//      the block wrote itself (in device or shared memory); or
+//      pass_means_warps: the same chain a warp a column, from a tile the
+//      blocks of a cluster wrote, 32 members' loads at a time;
+//   D. pass_picks: per position, the first maximum over its preference
+//      permutation, or the fixed choice (MaxAcc: B and C are skipped).
+// Members past a step's count add exact zeros in the reference and are
+// skipped.  A thread keeps its position's step values (application,
+// member count, penalty) while its cells stay in that position.  Cell
+// indices are 32-bit (the launches refuse a tile of 2^32 cells).
+__device__ void pass_completions(const ScanArgs& p, const StepRows& rows, int pos, int k0,
+                                 int kn, const double* t, int ts, const int64_t* r, int rs) {
+  const int W = p.W, M = p.M, K = p.K;
   const int wm = W * M;
-  const int tid = threadIdx.x;
-  const int n = One ? 1 : kn - k0;
   StepView v;
-  if (One) view_step(p, pos + k0, v);
-
-  // A. Completions and residency flags.
-  for (int c = tid; c < n * wm; c += blockDim.x) {
-    const int j = One ? 0 : c / wm;
+  for (int c = threadIdx.x; c < (kn - k0) * wm; c += blockDim.x) {
+    const int j = c / wm;
     const int k = k0 + j;
     const int cell = c - j * wm;
     const int w = cell / M;
     const int m = cell - w * M;
-    if (!One) view_step(p, pos + k, v);
+    view_step(p, pos + k, v);
     const bool resident =
         resident_in(p, r + (size_t)j * rs + (size_t)w * K, p.gid[(size_t)v.a * M + m]);
     rows.flag[(size_t)k * wm + cell] = resident;
@@ -117,64 +116,141 @@ __device__ void score_steps(const ScanArgs& p, const StepRows& rows, int pos, in
     rows.comp[(size_t)k * wm + cell] =
         (t[(size_t)j * ts + w] + sw) + p.lat[((size_t)v.s * W + w) * M + m];
   }
-  __shared__ unsigned most;  // the run's most members: phase B's bound
-  if (!One && B > 1 && k0 == 0 && tid < warpSize) {
-    unsigned mine = 0;
-    for (int k = k0 + tid; k < kn; k += warpSize) {
-      mine = max(mine, static_cast<unsigned>(p.bsize[pos + k]));
-    }
-    mine = __reduce_max_sync(0xffffffffu, mine);
-    if (tid == 0) most = mine;
-  }
-  __syncthreads();
+}
 
-  if (p.fixed != nullptr) {
-    for (int k = k0 + tid; k < kn; k += blockDim.x) picks[k] = static_cast<int>(p.fixed[pos + k]);
-    return;
+// The most members of positions [0, kn) of the run at `pos`, in every lane
+// of the calling warp (1 for tables of one member).
+__device__ __forceinline__ unsigned run_most(const ScanArgs& p, int pos, int kn) {
+  if (p.B == 1) return 1u;
+  unsigned mine = 0;
+  for (int k = threadIdx.x % warpSize; k < kn; k += warpSize) {
+    mine = max(mine, static_cast<unsigned>(p.bsize[pos + k]));
   }
+  return __reduce_max_sync(0xffffffffu, mine);
+}
 
-  // B. The Eq. 2 tile of every position over its real members.
-  const unsigned per_w = (One ? static_cast<unsigned>(v.members) : B > 1 ? most : 1u) * M;
+// Phase B over cells [c0, c1) of the (kn - k0, W, per_w) cells of the
+// pass, per_w = most * M; `comp` holds the pass's completions, indexed as
+// StepRows.comp.
+__device__ void pass_tile(const ScanArgs& p, const double* comp, int pos, int k0, int kn,
+                          unsigned per_w, unsigned c0, unsigned c1) {
+  const int W = p.W, M = p.M, B = p.B;
+  const int wm = W * M;
   const unsigned per_k = (unsigned)W * per_w;
-  for (unsigned c = tid; c < (unsigned)n * per_k; c += blockDim.x) {
-    const unsigned j = One ? 0u : c / per_k;
+  StepView v;
+  for (unsigned c = c0 + threadIdx.x; c < c1; c += blockDim.x) {
+    const unsigned j = c / per_k;
     const unsigned r0 = c - j * per_k;
     const unsigned w = r0 / per_w;
     const unsigned r1 = r0 - w * per_w;
     const int b = static_cast<int>(r1 / M);
     const int m = static_cast<int>(r1 - b * M);
     const int k = k0 + static_cast<int>(j);
-    if (!One) {
-      view_step(p, pos + k, v);
-      if (b >= v.members) continue;
-    }
+    view_step(p, pos + k, v);
+    if (b >= v.members) continue;
     p.tile[((size_t)k * W + w) * B * M + (size_t)b * M + m] =
         eq2_utility<double>(v.pen, p.acc[((size_t)v.s * B + b) * M + m],
-                            p.deadlines[(size_t)v.s * B + b], rows.comp[(size_t)k * wm + w * M + m]);
+                            p.deadlines[(size_t)v.s * B + b], comp[(size_t)k * wm + w * M + m]);
   }
-  __syncthreads();
+  (void)kn;
+}
 
-  // C. Member means.
-  for (int c = tid; c < n * wm; c += blockDim.x) {
-    const int k = k0 + (One ? 0 : c / wm);
-    const int cell = c - (k - k0) * wm;
-    const int w = cell / M;
-    const int m = cell - w * M;
-    if (!One) view_step(p, pos + k, v);
-    const double* col = p.tile + ((size_t)k * W + w) * B * M + m;
+// Member values phase C loads before it adds them.
+constexpr int kMeanDepth = 8;
+
+// Phase C over the (position, worker) rows r in [r0, r1) of the pass, row
+// r = (k - k0) * W + w: each of the row's M columns summed from `tile`
+// (the (C, W, B, M) tile of p's shape, in device or shared memory),
+// written to umean[k * W * M + w * M + m] (the caller's rows, or another
+// block's through distributed shared memory).
+__device__ void pass_means(const ScanArgs& p, const double* tile, double* umean, int pos, int k0,
+                           int r0, int r1) {
+  const int W = p.W, M = p.M, B = p.B;
+  const int wm = W * M;
+  StepView v;
+  for (int c = threadIdx.x; c < (r1 - r0) * M; c += blockDim.x) {
+    const int r = r0 + c / M;
+    const int m = c - (c / M) * M;
+    const int k = k0 + r / W;
+    const int w = r - (r / W) * W;
+    view_step(p, pos + k, v);
+    const double* col = tile + ((size_t)k * W + w) * B * M + m;
     const double* mk = p.mask + (size_t)v.s * B;
     double sum = 0.0;
-    for (int b = 0; b < v.members; ++b) sum = sum + col[(size_t)b * M] * mk[b];
-    rows.umean[(size_t)k * wm + cell] = p.valid[(size_t)v.a * M + m] ? sum / v.size : -INFINITY;
+    int b = 0;
+    for (; b + kMeanDepth <= v.members; b += kMeanDepth) {
+      double x[kMeanDepth], y[kMeanDepth];
+#pragma unroll
+      for (int i = 0; i < kMeanDepth; ++i) {
+        x[i] = col[(size_t)(b + i) * M];
+        y[i] = mk[b + i];
+      }
+#pragma unroll
+      for (int i = 0; i < kMeanDepth; ++i) sum = sum + x[i] * y[i];
+    }
+    for (; b < v.members; ++b) sum = sum + col[(size_t)b * M] * mk[b];
+    umean[(size_t)k * wm + w * M + m] = p.valid[(size_t)v.a * M + m] ? sum / v.size : -INFINITY;
   }
-  __syncthreads();
+}
 
-  // D. Each position's first maximum over its preference permutation
-  // (none without one: the caller picks from the means).
-  if (p.pref == nullptr) return;
-  for (int k = k0 + tid; k < kn; k += blockDim.x) {
-    if (!One) view_step(p, pos + k, v);
-    const int64_t* pr = p.pref + (size_t)v.a * wm;
+// Phase C by warps, for a tile that other blocks of a cluster wrote: the
+// pass's (kn - k0) * W * M columns a warp each (warp `gw` of `nwarps`
+// takes columns gw, gw + nwarps, ...).  The lanes load 32 members' values
+// at a time (through L2), the next 32 in flight while the warp adds these,
+// and every lane runs the same chain of adds in member order over the
+// products shuffled from their lanes; lane 0 writes the mean to umean[k *
+// W * M + cell] (the leader's rows, through distributed shared memory).
+__device__ void pass_means_warps(const ScanArgs& p, const double* tile, double* umean, int pos,
+                                 int k0, int kn, int gw, int nwarps) {
+  const int W = p.W, M = p.M, B = p.B;
+  const int wm = W * M;
+  const int lane = threadIdx.x % warpSize;
+  StepView v;
+  for (int c = gw; c < (kn - k0) * wm; c += nwarps) {
+    const int k = k0 + c / wm;
+    const int cell = c - (c / wm) * wm;
+    const int w = cell / M;
+    const int m = cell - w * M;
+    view_step(p, pos + k, v);
+    const double* col = tile + ((size_t)k * W + w) * B * M + m;
+    const double* mk = p.mask + (size_t)v.s * B;
+    double x = 0.0, y = 0.0;
+    if (lane < v.members) {
+      x = __ldcg(col + (size_t)lane * M);
+      y = mk[lane];
+    }
+    double sum = 0.0;
+    for (int b0 = 0; b0 < v.members; b0 += warpSize) {
+      const int bn = b0 + warpSize + lane;
+      double xn = 0.0, yn = 0.0;
+      if (bn < v.members) {
+        xn = __ldcg(col + (size_t)bn * M);
+        yn = mk[bn];
+      }
+      const double prod = x * y;
+      const int cnt = min(warpSize, v.members - b0);
+#pragma unroll 8
+      for (int i = 0; i < cnt; ++i) sum = sum + __shfl_sync(0xffffffffu, prod, i);
+      x = xn;
+      y = yn;
+    }
+    if (lane == 0) {
+      umean[(size_t)k * wm + cell] = p.valid[(size_t)v.a * M + m] ? sum / v.size : -INFINITY;
+    }
+  }
+}
+
+// Each position's first maximum over its preference permutation, or its
+// fixed choice, into picks[k] (thread k - k0 of the block writes it).
+__device__ void pass_picks(const ScanArgs& p, const StepRows& rows, int pos, int k0, int kn,
+                           int* picks) {
+  const int wm = p.W * p.M;
+  for (int k = k0 + threadIdx.x; k < kn; k += blockDim.x) {
+    if (p.fixed != nullptr) {
+      picks[k] = static_cast<int>(p.fixed[pos + k]);
+      continue;
+    }
+    const int64_t* pr = p.pref + (size_t)p.step_app[pos + k] * wm;
     const double* u = rows.umean + (size_t)k * wm;
     int pick = static_cast<int>(pr[0]);
     double best = u[pick];
@@ -186,18 +262,6 @@ __device__ void score_steps(const ScanArgs& p, const StepRows& rows, int pos, in
       }
     }
     picks[k] = pick;
-  }
-}
-
-// score_steps over positions [k0, kn), through the one-position instance
-// when the run has one.
-__device__ __forceinline__ void score(const ScanArgs& p, const StepRows& rows, int pos, int k0,
-                                      int kn, const double* t, int ts, const int64_t* r, int rs,
-                                      int* picks) {
-  if (kn - k0 == 1) {
-    score_steps<true>(p, rows, pos, k0, kn, t, ts, r, rs, picks);
-  } else {
-    score_steps<false>(p, rows, pos, k0, kn, t, ts, r, rs, picks);
   }
 }
 

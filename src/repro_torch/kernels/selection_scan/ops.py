@@ -45,8 +45,11 @@ def smem_bytes(n_w: int, n_slots: int, m: int, chunk: int = 0) -> int:
     (``kernels.spec_scan``; csrc: spec_smem_bytes): the (W, K) slots, and
     per position of a round, C = ``chunk`` of them, its (W,) pre-state
     tails, (W, M) completions, means and flags and its two picks (4 bytes
-    each).  The chunked scan keeps each position's pre-state slots in
-    device memory, so its ids K do not multiply by the chunk."""
+    each).  The chunked scan stages more there only where it fits
+    beside this sum (the rebuild's inputs, each position's pre-state
+    slots, the LRU sizes), and keeps in device memory what does not; so
+    what must fit, and what P7 bounds, is this sum, whose ids K do not
+    multiply by the chunk."""
     if chunk:
         cells = chunk * n_w * m
         return 8 * (n_w * n_slots + chunk * n_w + 2 * cells + chunk) + cells

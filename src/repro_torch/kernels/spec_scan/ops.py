@@ -7,9 +7,15 @@ launch ``csrc/spec_scan.cu`` on the current stream, or raise.  There is
 no other route.  The arguments are ``selection_scan``'s, checked by its
 wrapper's rules (``selection_scan.ops``), with the chunk size; the carry's
 slots and a round's per-position rows must fit one block's shared memory
-(``selection_scan.ops.smem_bytes``, ROADMAP §3 P7).  The wrapper
-allocates the output, the kernel's scratch tile and the (chunk, W, K)
-pre-state slots with ``torch.empty`` and synchronises nothing.
+(``selection_scan.ops.smem_bytes``, ROADMAP §3 P7).  The kernel has two
+instances, chosen from the shapes alone: a warp a position when a step's
+W * B * M cells fit one (``instance``, the sequential scan's rule), else
+a block of 512 threads in a cluster of ``blocks`` blocks that share each
+pass's Eq. 2 tile, a slice of its cells each, and its member sums, a warp
+a column.  The wrapper allocates the output, the kernel's
+scratch tile, the (chunk - 1, W, K) pre-state slots and the (3, chunk)
+chain inputs (used where they do not fit shared memory) with
+``torch.empty`` and synchronises nothing.
 """
 from __future__ import annotations
 
@@ -18,21 +24,36 @@ import ctypes
 import torch
 
 from repro_torch.kernels import GRADIENTS_RULE, LaunchCounter, nvcc, refuse_grad
-from repro_torch.kernels.selection_scan.ops import _check_args, _seed
+from repro_torch.kernels.selection_scan.ops import _check_args, _seed, instance
 from repro_torch.kernels.spec_scan.ref import spec_scan_ref
 
-__all__ = ["spec_scan", "launch", "counter"]
+__all__ = ["spec_scan", "launch", "counter", "instance", "blocks", "TILE_CELLS_A_BLOCK",
+           "MAX_CLUSTER"]
 
 counter = LaunchCounter("spec_scan")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+# A round's Eq. 2 tile cells one block of the cluster takes, at most, and
+# the cluster's most blocks (the portable size).
+TILE_CELLS_A_BLOCK = 8192
+MAX_CLUSTER = 8
+
+
+def blocks(chunk: int, n_w: int, members: int, m: int, fixed: bool = False) -> int:
+    """Blocks of the cluster the block instance spreads a round's (chunk,
+    W, B, M) Eq. 2 tile over, a slice of its cells each: one per
+    TILE_CELLS_A_BLOCK cells, at most MAX_CLUSTER; one for the warp
+    instance and for fixed choices (no tile)."""
+    if fixed or instance(n_w, members, m) == "warp":
+        return 1
+    return max(1, min(MAX_CLUSTER, -(-chunk * n_w * members * m // TILE_CELLS_A_BLOCK)))
 
 
 def _entry():
     lib = nvcc.library("spec_scan")
     fn = lib.spec_scan_f64
-    fn.argtypes = [_P, _P, _P, ctypes.c_double] + [_P] * 15 + [_I] * 8 + [_P]
+    fn.argtypes = [_P, _P, _P, ctypes.c_double] + [_P] * 16 + [_I] * 10 + [_P]
     fn.restype = _I
     return lib, fn
 
@@ -78,9 +99,9 @@ def launch(seed, cap: float, res_mode: str, acc, mask, deadlines, bsize, lat, st
            gid, valid, pen, pref, fixed_sel=None, *, chunk: int) -> torch.Tensor:
     """The kernel's launch for arguments ``spec_scan`` has checked, with
     the carry seed (t0, res0, sizes) already on the card: allocates the
-    output, the (chunk, W, B, M) scratch tile and the (chunk, W, K)
-    pre-state slots, launches on the current stream and returns without
-    synchronising."""
+    output, the (chunk, W, B, M) scratch tile (the block instance's), the
+    (chunk - 1, W, K) pre-state slots and the (3, chunk) chain inputs,
+    launches on the current stream and returns without synchronising."""
     dev = acc.device
     s, b, m = acc.shape
     n_w = lat.shape[1]
@@ -88,19 +109,24 @@ def launch(seed, cap: float, res_mode: str, acc, mask, deadlines, bsize, lat, st
                                      valid, pen, pref)]
     fixed = fixed_sel.contiguous() if fixed_sel is not None else None
     out = torch.empty((4, s + 1), dtype=torch.float64, device=dev)
-    tile = torch.empty((chunk, n_w, b if fixed is None else 1, m), dtype=torch.float64,
-                       device=dev)
+    warp = instance(n_w, b, m) == "warp"
+    n_blocks = blocks(chunk, n_w, b, m, fixed is not None)
+    tile = None if warp else torch.empty((chunk, n_w, b if fixed is None else 1, m),
+                                         dtype=torch.float64, device=dev)
     seed = [x.contiguous() for x in seed]
-    res_st = torch.empty((chunk,) + tuple(seed[1].shape), dtype=torch.int64, device=dev)
+    res_st = torch.empty((max(chunk - 1, 1),) + tuple(seed[1].shape), dtype=torch.int64,
+                         device=dev)
+    stage = torch.empty((3, chunk), dtype=torch.float64, device=dev)
     lib, fn = _entry()
     refuse_grad("spec_scan", f"it has no backward ({GRADIENTS_RULE})", *tabs)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(*[x.data_ptr() for x in seed], cap, *[x.data_ptr() for x in tabs],
                  fixed.data_ptr() if fixed is not None else None,
-                 tile.data_ptr(), out.data_ptr(), res_st.data_ptr(),
+                 tile.data_ptr() if tile is not None else None, out.data_ptr(),
+                 res_st.data_ptr(), stage.data_ptr(),
                  s, b, m, n_w, seed[1].shape[1], seed[2].shape[1], int(res_mode == "slot1"),
-                 chunk, stream)
+                 chunk, int(warp), n_blocks, stream)
     counter.add()
     nvcc.check(lib, err, "spec_scan")
     return out

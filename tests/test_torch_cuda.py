@@ -1322,6 +1322,37 @@ def test_chunked_pipeline_on_the_card_matches_the_host(cuda, pool):
             (int(scanned), 0)
 
 
+# Tables whose chunked rounds spread their Eq. 2 tile over a cluster of
+# blocks (spec_ops.blocks > 1 from chunk 4 up): (steps, members, models,
+# workers, applications); member counts drawn per step, so the cells of a
+# round split unevenly over the blocks.
+WIDE_SPEC_SHAPES = {
+    "grouped": (40, 700, 6, 1, 10),
+    "pooled": (30, 300, 6, 4, 5),
+}
+
+
+@pytest.mark.parametrize("chunk", [1, 4, 16, 64, None], ids=["1", "4", "16", "64", "S"])
+@pytest.mark.parametrize("res_mode", ["slot1", "lru"])
+@pytest.mark.parametrize("program", sorted(WIDE_SPEC_SHAPES))
+def test_spec_scan_cluster_rounds_match_plain_and_sequential(cuda, program, res_mode, chunk):
+    """The block instance with a round's tile spread over a cluster: rows
+    bit-identical to the plain version and the sequential kernel, rounds
+    and conflicts equal the plain version's, at chunks 1, 4, 16, 64 and the
+    window's length."""
+    shape = WIDE_SPEC_SHAPES[program]
+    seed_args, tabs, fixed = _scan_inputs(program, res_mode, cuda, seed=3, shape=shape)
+    s, b, m = tabs["acc"].shape
+    chunk = chunk or s
+    assert spec_ops.instance(shape[3], b, m) == "block"
+    assert (spec_ops.blocks(min(chunk, s), shape[3], b, m) > 1) == (chunk >= 4)
+    got = _run_spec(seed_args, tabs, fixed, res_mode, chunk)
+    host = {k: v.cpu() for k, v in tabs.items()}
+    want = _run_spec(seed_args, host, None, res_mode, chunk)
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(got[:, :-1], _run_scan(seed_args, tabs, fixed, res_mode))
+
+
 # ------------------------------------------------------------ the RG-LRU scan
 
 
@@ -1424,6 +1455,216 @@ def test_shard_round_kernels_match_plain(cuda, program, res_mode):
     want_t, want_r = shard_ops.chain(*(x.cpu() if isinstance(x, torch.Tensor) else x
                                        for x in args))
     assert torch.equal(t_st.cpu(), want_t) and torch.equal(r_st.cpu(), want_r)
+
+
+@pytest.mark.parametrize("res_mode", ["slot1", "lru"])
+@pytest.mark.parametrize("n_w", [1, 4])
+def test_shard_round_chain_past_one_tile(cuda, n_w, res_mode):
+    """``chain`` over 5,000 positions (past one staged tile, and with LRU
+    slots the touch on every position), given workers or (worker, model)
+    cells, and with a position that stops it before the window's end:
+    every state bit-identical to the plain version on host copies."""
+    rng = np.random.default_rng([n_w, len(res_mode)])
+    n, n_ids, m = 5000, 18, 6
+    k = 1 if res_mode == "slot1" else n_ids
+    res0 = np.full((n_w, k), -1, dtype=np.int64)
+    for w in range(n_w):
+        held = rng.permutation(n_ids)[: min(k, 4)]
+        res0[w, : len(held)] = held
+    args = [torch.as_tensor(np.round(rng.uniform(0.1, 0.3, n_w) * 1024) / 1024),
+            torch.as_tensor(res0),
+            torch.as_tensor(np.tile(rng.integers(1, 600, n_ids) * 2.0**20, (n_w, 1))),
+            900.0 * 2**20, res_mode == "slot1",
+            torch.as_tensor(rng.integers(0, n_w * m, n)), torch.as_tensor(rng.integers(0, n_ids, n)),
+            torch.as_tensor(np.round(rng.uniform(0.0, 0.05, n) * 1024) / 1024),
+            torch.as_tensor(np.round(rng.uniform(0.001, 0.01, n) * 1024) / 1024)]
+    for kw in ({"models": m}, {"models": m, "pos": 1234, "total": 3000}):
+        dev_args = [x.to(cuda) if isinstance(x, torch.Tensor) else x for x in args]
+        host_kw = dict(kw)
+        if "pos" in kw:
+            kw = dict(kw, pos=torch.tensor([kw["pos"]], device=cuda))
+            host_kw["pos"] = torch.tensor([host_kw["pos"]])
+        before = shard_ops.counter.count
+        t_st, r_st = shard_ops.chain(*dev_args, **kw)
+        assert shard_ops.counter.count == before + 1
+        want_t, want_r = shard_ops.chain(*args, **host_kw)
+        rows = n + 1 if "pos" not in host_kw else 3000 - 1234
+        assert torch.equal(t_st[:rows].cpu(), want_t[:rows])
+        assert torch.equal(r_st[:rows].cpu(), want_r[:rows])
+
+
+@pytest.mark.parametrize("shape", [(1, 1, 6), (4, 1, 6), (1, 5, 6), (2, 20, 6), (1, 1232, 6),
+                                   (4, 1232, 6)],
+                         ids=["6-cells", "24-cells", "30-cells", "240-cells", "7392-cells",
+                              "29568-cells"])
+def test_shard_round_score_block_rows(cuda, shape):
+    """``score_block`` on rows of at most 32 cells (a warp a row) and more
+    (a row a cluster of up to 8 blocks writing its tile into the leader's
+    shared memory; one block with the tile in device memory past that),
+    every row against its own carry,
+    in the plain form and reading the round's position (rows of a block
+    held at an offset, past the window's end skipped): every output
+    bit-identical to the plain version on host copies."""
+    n_w, b, m = shape
+    kind = shard_ops.score_instance(n_w, b, m)
+    assert (kind == "warp") == (n_w * b * m <= 32)
+    assert shard_ops.score_blocks(n_w, b, m) == (8 if (n_w, b) == (1, 1232) else 1)
+    assert shard_ops.tile_in_smem(n_w, b, m) == (n_w * b * m < 20000)
+    rows = 40 if b < 1000 else 12
+    seed_args, tabs, _ = _scan_inputs("grouped", "lru", cuda, seed=5, shape=(rows, b, m, n_w, 4))
+    rng = np.random.default_rng(list(shape))
+    k = seed_args[1].shape[1]
+    t = torch.as_tensor(seed_args[0][None, :] + np.round(rng.uniform(0, 0.5, (rows, n_w)) * 1024)
+                        / 1024, device=cuda)
+    res = torch.as_tensor(np.stack([seed_args[1]] * rows), device=cuda)
+    pref = tabs["pref"].cpu().numpy()
+    rank = np.empty_like(pref)
+    for a in range(len(pref)):
+        rank[a, pref[a]] = np.arange(pref.shape[1])
+    tables = [tabs[x] for x in ("acc", "mask", "deadlines", "bsize", "lat", "step_app", "swap",
+                                "gid", "valid", "pen")] + [torch.as_tensor(rank, device=cuda)]
+    wvalid = torch.arange(n_w, device=cuda) < max(1, n_w - 1) if n_w > 1 else None
+    host = [x.cpu() for x in tables]
+    got = shard_ops.score_block(t, res, False, *tables, wvalid)
+    want = shard_ops.score_block(t.cpu(), res.cpu(), False, *host,
+                                 None if wvalid is None else wvalid.cpu())
+    assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+    # The block holds rows [row0, row0 + rows) of a window of `total`; the
+    # round at p covers [p + lo, p + hi).
+    row0, total, p, lo, hi = 100, 100 + rows - 3, 95, 1, 40
+    span = hi - lo
+    kw = {"lo": lo, "hi": hi, "row0": row0, "total": total}
+    t_r, r_r = t[:1].expand(span, -1), res[:1].expand(span, -1, -1)
+    out = (torch.full((5, span), -5.0, dtype=torch.float64, device=cuda),
+           torch.full((3, span), -5, dtype=torch.int64, device=cuda))
+    shard_ops.score_block(t_r, r_r, False, *tables, wvalid, pos=torch.tensor([p], device=cuda),
+                          out=out, **kw)
+    want = shard_ops.score_block(t_r.cpu(), r_r.cpu(), False, *host,
+                                 None if wvalid is None else wvalid.cpu(),
+                                 pos=torch.tensor([p]),
+                                 out=(torch.full((5, span), -5.0, dtype=torch.float64),
+                                      torch.full((3, span), -5, dtype=torch.int64)), **kw)
+    assert torch.equal(out[0].cpu(), want[0]) and torch.equal(out[1].cpu(), want[1])
+
+
+def _accept_case(seed, slot1, span, device, m=6, n_w=2, n_ids=18):
+    """A round's picks with some validated cells changed, pre-states and an
+    evicting LRU capacity, on ``device``."""
+    rng = np.random.default_rng([seed, span, int(slot1)])
+    k = 1 if slot1 else n_ids
+    cells = rng.integers(0, n_w * m, span)
+    vcells = cells[1:].copy()
+    flip = rng.random(span - 1) < 0.2
+    vcells[flip] = (vcells[flip] + 1) % (n_w * m)
+
+    def picks(c):
+        f = np.round(rng.uniform(0.0, 0.05, (5, len(c))) * 1024) / 1024
+        f[2] = np.where(rng.random(len(c)) < 0.5, 0.0, f[1])
+        i = np.stack([c, rng.integers(0, 9, len(c)), rng.integers(0, n_ids, len(c))])
+        return (torch.as_tensor(f, device=device), torch.as_tensor(i, device=device))
+
+    r_st = np.full((span, n_w, k), -1, dtype=np.int64)
+    for j in range(span):
+        for w in range(n_w):
+            held = rng.permutation(n_ids)[: int(rng.integers(0, k + 1))]
+            r_st[j, w, : len(held)] = held
+    return (picks(cells), picks(vcells) if span > 1 else None,
+            torch.as_tensor(np.round(rng.uniform(0.1, 0.5, (span, n_w)) * 1024) / 1024,
+                            device=device),
+            torch.as_tensor(r_st, device=device),
+            torch.as_tensor(np.tile(rng.integers(1, 600, n_ids) * 2.0**20, (n_w, 1)),
+                            device=device))
+
+
+@pytest.mark.parametrize("slot1", [True, False], ids=["slot1", "lru"])
+@pytest.mark.parametrize("span,p,total", [(1, 3, 9), (16, 0, 4095), (16, 4090, 4095),
+                                          (70, 100, 400), (16, 4095, 4095)])
+def test_shard_round_accept_matches_plain(cuda, span, p, total, slot1):
+    """``accept`` on the card against its plain version on host copies:
+    rows, carry, position and counts bit-identical, on rounds cut by the
+    window's end, a round of more than 32 positions, and a round past the
+    end (nothing changes)."""
+    m = 6
+    for seed in range(6):
+        case = _accept_case(seed, slot1, span, cuda, m)
+        results = []
+        for dev in (cuda, torch.device("cpu")):
+            spec, val, t_st, r_st, sizes = [
+                None if x is None else (tuple(y.to(dev) for y in x) if isinstance(x, tuple)
+                                        else x.to(dev)) for x in case]
+            if span == 1:
+                t, res = t_st[0].clone(), r_st[0].clone()
+                t_st, r_st = t[None], res[None]
+            else:
+                t, res = torch.zeros_like(t_st[0]), torch.zeros_like(r_st[0])
+            out = torch.full((4, total), 7.0, dtype=torch.float64, device=dev)
+            pos = torch.tensor([p], device=dev)
+            stats = torch.tensor([2, 1], device=dev)
+            shard_ops.accept(pos, total, span, spec, val, t_st, r_st, sizes, 900.0 * 2**20,
+                             slot1, t, res, out, stats, m)
+            results.append([x.cpu() for x in (out, t, res, pos, stats)])
+        for got, want in zip(*results):
+            assert torch.equal(got, want), seed
+        if p >= total:
+            assert int(results[0][3]) == p and results[0][4].tolist() == [2, 1]
+
+
+@pytest.mark.parametrize("pool", [None, [(0, 1.0, 1.0), (1, 2.0, 1.0), (2, 0.5, 2.0)]],
+                         ids=["one-worker", "pool"])
+def test_sharded_window_batches_match_unsharded(cuda, pool):
+    """2, 4 and 8 shard blocks on the card at ``chunk=3``, whose conflicts
+    cut batches of rounds short: the unsharded pipeline's schedules and
+    ``chunk_stats``, the host's shard stats and read-backs, more than one
+    read-back on some policy, and ``shard_round`` launched 2N + 2 times a
+    round (N blocks scored twice, the chain, the accept), graph replays
+    included."""
+    from repro_torch.core import shard as tshard
+    from repro_torch.core.multiworker import Worker
+    from repro_torch.core.scheduler import POLICY_NAMES, make_policy
+    from repro_torch.core.sneakpeek import attach_sneakpeek
+    from repro_torch.core.streaming import StreamingState
+    from repro_torch.data import applications as apps_mod
+
+    apps, sneaks = apps_mod.build_benchmark_suite(seed=0, device=cuda)
+    workers = [Worker(w, speed=s, load_scale=ls) for w, s, ls in pool] if pool else None
+    wids = [w.wid for w in workers] if workers else None
+
+    def sig(sched):
+        return [(e.request.rid, e.model, e.order, e.batch_id, e.worker, e.est_start_s,
+                 e.est_latency_s) for e in sched.sorted_entries()]
+
+    read_backs = []
+    prev = tshard.force_shard_devices(8)
+    try:
+        for policy in POLICY_NAMES:
+            # Seeded so that a conflict before a round's last position cuts a
+            # batch short (SneakPeek's on one worker; most policies' on the pool).
+            reqs = apps_mod.make_requests(list(apps_mod.APP_SPECS.values()), per_app=60,
+                                          deadline_std_s=0.05, seed=11)
+            attach_sneakpeek(reqs, apps, sneaks, device=cuda)
+            state = StreamingState(worker_ids=wids, memory_capacity_bytes=400 * 2**20)
+            pol = make_policy(policy, pipeline=True, chunk=3)
+            want = tshard.WindowPipeline(apps, policy=pol, workers=workers,
+                                         device=cuda).schedule(reqs, 0.1, state=state)
+            for shards in (2, 4, 8):
+                host = tshard.ShardedWindowPipeline(apps, policy=pol, workers=workers,
+                                                    shard=shards, device="cpu")
+                host.schedule(reqs, 0.1, state=state)
+                pipe = tshard.ShardedWindowPipeline(apps, policy=pol, workers=workers,
+                                                    shard=shards, device=cuda)
+                before = shard_ops.counter.count
+                got = pipe.schedule(reqs, 0.1, state=state)
+                assert sig(got) == sig(want), (policy, shards)
+                assert got.chunk_stats == want.chunk_stats
+                assert pipe.last_shard_stats == host.last_shard_stats
+                assert pipe.last_read_backs == host.last_read_backs
+                if pipe.last_shard_stats is not None:
+                    rounds = pipe.last_shard_stats["rounds"]
+                    assert shard_ops.counter.count - before == rounds * (2 * shards + 2)
+                    read_backs.append(pipe.last_read_backs)
+    finally:
+        tshard.force_shard_devices(prev)
+    assert max(read_backs) > 1
 
 
 @pytest.mark.parametrize("pool", [None, [(0, 1.0, 1.0), (1, 2.0, 1.0), (2, 0.5, 2.0)]],

@@ -70,6 +70,7 @@ from repro.data import applications as japps
 from repro_torch.core import fastpath as tfast
 from repro_torch.core import pipeline as tpipe
 from repro_torch.core import scheduler as tsched
+from repro_torch.core import shard as tshard
 from repro_torch.core import simulator as tsim
 from repro_torch.core.evaluation import evaluate as t_evaluate
 from repro_torch.core.multiworker import Worker
@@ -900,6 +901,35 @@ def test_chunked_pipeline_matches_reference(suites, ref_x64, policy, capacity, c
     assert got.chunk_stats == want.chunk_stats
     if policy != "Grouped":  # Grouped's three groups take the brute-force branch
         assert got.chunk_stats["chunk"] == chunk and got.chunk_stats["rounds"] >= 1
+
+
+@pytest.mark.parametrize("shards", [2, 3, 4, 8])
+@pytest.mark.parametrize("policy", ["LO-EDF", "SneakPeek"])
+def test_sharded_batched_rounds_match_reference(suites, ref_x64, policy, shards):
+    """The sharded rounds with the position on the device, enqueued a
+    batch at a time and read back once a batch, at ``chunk=3`` (conflicts
+    cut batches short): the reference's chunked ``WindowPipeline``'s
+    decisions and ``chunk_stats``, ``last_shard_stats`` its rounds and
+    conflicts, and more than one read-back (the windows are seeded so that
+    a conflict before a round's last position cuts a batch short)."""
+    j_apps, _, t_apps, _ = suites
+    j_reqs, t_reqs = _windows(suites, {"LO-EDF": 63, "SneakPeek": 65}[policy], "all",
+                              per_app=12, shift=0.1)
+    want = jpipe.WindowPipeline(j_apps, policy=j_make_policy(policy), chunk=3,
+                                backend="jax").schedule(j_reqs, 0.2)
+    prev = tshard.force_shard_devices(8)
+    try:
+        pipe = tshard.ShardedWindowPipeline(t_apps, policy=tsched.make_policy(policy), chunk=3,
+                                            shard=shards, device="cpu")
+        got = pipe.schedule(t_reqs, 0.2)
+    finally:
+        tshard.force_shard_devices(prev)
+    assert _sig(got) == _sig(want)
+    assert got.chunk_stats == want.chunk_stats
+    stats = want.chunk_stats
+    assert pipe.last_shard_stats == {"num_shards": shards, "rounds": stats["rounds"],
+                                     "conflicts": stats["conflicts"]}
+    assert stats["conflicts"] > 0 and pipe.last_read_backs > 1
 
 
 @pytest.mark.parametrize("pool", POOLS, ids=POOL_IDS)

@@ -1,5 +1,6 @@
 """Launch plans of the port's K2 (k-NN) and K1 (Eq. 2 utility) kernels,
-and the selection scan's choice of instance.
+the scans' choice of instance and the clusters of the chunked scan and
+the sharded rounds.
 
 The plans are plain Python (``knn_plan``, ``utility_plan``,
 ``selection_scan.ops.instance``), computed on the host and validated
@@ -7,8 +8,9 @@ again by the kernels' C entries, so their rules are checked here on the
 CPU: the slices of the training set are non-empty and cover it exactly,
 the shared memory fits a block of an H100, the grid covers its SMs
 wherever the shapes allow, the chunks of a utility tile cover its rows in
-order, and a scan takes its warp instance exactly when a step's cells fit
-one warp.
+order, a scan takes its warp instance exactly when a step's cells fit
+one warp, and a wide round or row spreads its Eq. 2 tile over a cluster
+sized by its cells.
 """
 import pytest
 
@@ -144,3 +146,51 @@ def test_selection_scan_instance_by_shape(n_w, members, m, want):
     assert (want == "warp") == (n_w * members * m <= scan_ops.WARP)
     for n_slots in (1, 9, 75):
         assert 8 * (n_w * n_slots + n_w) <= scan_ops.smem_bytes(n_w, n_slots, m)
+
+
+@pytest.mark.parametrize("chunk,n_w,members,m,fixed,want", [
+    (16, 1, 1, 6, False, 1),  # LO-EDF: the warp instance
+    (16, 4, 1, 6, False, 1),  # LO-EDF on four workers: still a warp a position
+    (1, 1, 1232, 6, False, 1),  # a grouped round of one position: 7,392 cells
+    (2, 1, 1232, 6, False, 2),  # 14,784 cells
+    (2, 1, 4000, 6, False, 6),  # 48,000 cells
+    (16, 1, 1232, 6, False, 8),  # SneakPeek's grouped window at K = 16
+    (16, 4, 1232, 6, False, 8),  # the same on four workers
+    (4, 1, 700, 6, False, 3),  # 16,800 cells
+    (16, 1, 1232, 6, True, 1),  # fixed choices: no tile
+])
+def test_spec_scan_cluster_by_shape(chunk, n_w, members, m, fixed, want):
+    """The chunked scan takes the sequential scan's instance rule; its
+    block instance spreads a round's (chunk, W, B, M) tile over one block
+    per TILE_CELLS_A_BLOCK cells, at most the portable cluster of 8, and
+    one block with fixed choices."""
+    from repro_torch.kernels.spec_scan import ops as spec_ops
+
+    assert spec_ops.instance(n_w, members, m) == scan_ops.instance(n_w, members, m)
+    got = spec_ops.blocks(chunk, n_w, members, m, fixed)
+    assert got == want
+    if spec_ops.instance(n_w, members, m) == "block" and not fixed:
+        cells = chunk * n_w * members * m
+        assert got == min(spec_ops.MAX_CLUSTER, -(-cells // spec_ops.TILE_CELLS_A_BLOCK))
+
+
+@pytest.mark.parametrize("n_w,members,m,want,blocks", [
+    (1, 1, 6, "warp", 1),  # LO-EDF's per-request rows
+    (5, 1, 6, "warp", 1),  # 30 cells
+    (1, 6, 6, "wide", 1),  # 36 cells
+    (2, 20, 6, "wide", 1),  # 240 cells
+    (1, 300, 6, "wide", 2),  # 1,800 cells
+    (1, 1232, 6, "wide", 8),  # a SneakPeek group of 1,232 members
+    (4, 1232, 6, "wide", 1),  # the same on four workers: its tile stays in device memory
+])
+def test_score_block_instance_by_shape(n_w, members, m, want, blocks):
+    """``score_block`` runs a row a warp when its W * B * M cells fit one,
+    else a row a cluster of one block per ROW_CELLS_A_BLOCK cells (at most
+    8; one with fixed choices, or when the row's tile does not fit the
+    leader's shared memory)."""
+    from repro_torch.kernels.shard_round import ops as shard_ops
+
+    assert shard_ops.score_instance(n_w, members, m) == want
+    assert shard_ops.tile_in_smem(n_w, members, m) == (8 * n_w * members * m < 150 * 1024)
+    assert shard_ops.score_blocks(n_w, members, m) == blocks
+    assert shard_ops.score_blocks(n_w, members, m, fixed=True) == 1

@@ -420,6 +420,190 @@ def test_chain_refuses_a_carry_beyond_shared_memory():
     assert t_st.shape == (2, n_w) and r_st[1, 0, 0] == 0
 
 
+# ------------------------------------------------- the round on the device
+
+
+def _round_case(seed, slot1, span, m=3, n_w=2, n_ids=5):
+    """A round's speculated and validated picks (some validated cells
+    changed), pre-states, sizes and an LRU capacity that evicts, as
+    ``score_block`` and ``chain`` would hand them to ``accept``."""
+    rng = np.random.default_rng([seed, span, int(slot1)])
+    k = 1 if slot1 else n_ids
+    cells = rng.integers(0, n_w * m, span)
+    vcells = cells[1:].copy()
+    flip = rng.random(span - 1) < 0.3
+    vcells[flip] = (vcells[flip] + 1 + rng.integers(0, n_w * m - 1, flip.sum())) % (n_w * m)
+
+    def picks(c):
+        n = len(c)
+        f = np.round(rng.uniform(0.0, 0.05, (5, n)) * 1024) / 1024
+        f[2] = np.where(rng.random(n) < 0.5, 0.0, f[1])  # resident: no effective swap
+        i = np.stack([c, rng.integers(0, 9, n), rng.integers(0, n_ids, n)])
+        return torch.as_tensor(f), torch.as_tensor(i)
+
+    t_st = torch.as_tensor(np.round(rng.uniform(0.1, 0.5, (span, n_w)) * 1024) / 1024)
+    r_st = np.full((span, n_w, k), -1, dtype=np.int64)
+    for j in range(span):
+        for w in range(n_w):
+            held = rng.permutation(n_ids)[: int(rng.integers(0, k + 1))]
+            r_st[j, w, : len(held)] = held
+    sizes = torch.as_tensor(np.tile(rng.integers(1, 600, n_ids).astype(np.float64) * 2**20,
+                                    (n_w, 1)))
+    return picks(cells), picks(vcells) if span > 1 else None, t_st, torch.as_tensor(r_st), sizes
+
+
+def _old_accept(p, total, span, spec, val, t_st, r_st, sizes, cap, slot1, m, out):
+    """The accept and carry step of the sharded rounds as they ran with the
+    position on the host: merge the picks, find the first conflict with a
+    read-back, write the rows, move the carry with a chain of one."""
+    from repro_torch.kernels.shard_round.ref import chain_ref
+
+    kn = min(span, total - p)
+    sf, si = spec
+    pick = (si[0, :kn], si[2, :kn], sf[1, :kn], sf[2, :kn], sf[3, :kn])
+    cell, g, sw, swe, lt = pick
+    first = tshard.RANK_INF
+    if kn > 1:
+        vf, vi = val
+        vpick = (vi[0, :kn - 1], vi[2, :kn - 1], vf[1, :kn - 1], vf[2, :kn - 1], vf[3, :kn - 1])
+        cell, g, sw, swe, lt = (torch.cat([x[:1], y]) for x, y in zip(pick, vpick))
+        first = int(torch.where(cell != pick[0], torch.arange(kn), tshard.RANK_INF).min())
+    any_m = first < tshard.RANK_INF
+    a = first + 1 if any_m else kn
+    wi = cell[:a] // m
+    start = t_st[torch.arange(a), wi]
+    out[0, p:p + a] = wi.to(torch.float64)
+    out[1, p:p + a] = (cell[:a] % m).to(torch.float64)
+    out[2, p:p + a] = start
+    out[3, p:p + a] = ((start + swe[:a]) + lt[:a]) - start
+    k = a - 1
+    t_n, r_n = chain_ref(t_st[k], r_st[k], sizes, cap, slot1, wi[k:], g[k:a], sw[k:a],
+                         lt[k:a])
+    return t_n[1], r_n[1], a, int(any_m)
+
+
+@pytest.mark.parametrize("slot1", [True, False], ids=["slot1", "lru"])
+@pytest.mark.parametrize("span,p,total", [(1, 3, 9), (5, 0, 20), (5, 7, 10), (6, 4, 30),
+                                          (6, 25, 30)])
+@pytest.mark.parametrize("seed", range(4))
+def test_accept_matches_the_host_loop(seed, span, p, total, slot1):
+    """``accept``'s plain version (the CPU route of the round on the device)
+    against the old loop's accept and carry step: the same first conflict,
+    rows, carry, position and counts, on rounds cut by the window's end."""
+    m, cap = 3, 900.0 * 2**20
+    spec, val, t_st, r_st, sizes = _round_case(seed, slot1, span, m)
+    want_out = torch.zeros((4, total), dtype=torch.float64)
+    want_t, want_r, a, conflict = _old_accept(p, total, span, spec, val, t_st, r_st, sizes,
+                                              cap, slot1, m, want_out)
+    out = torch.zeros((4, total), dtype=torch.float64)
+    pos = torch.tensor([p])
+    stats = torch.tensor([4, 1])
+    if span == 1:  # a round of one position moves the carry it was scored on
+        t, res = t_st[0].clone(), r_st[0].clone()
+        rows_t, rows_r = t[None], res[None]
+    else:
+        t, res = torch.zeros_like(t_st[0]), torch.zeros_like(r_st[0])
+        rows_t, rows_r = t_st, r_st
+    shard_ops.accept(pos, total, span, spec, val, rows_t, rows_r, sizes, cap, slot1, t, res, out,
+                     stats, m)
+    assert torch.equal(out, want_out)
+    assert torch.equal(t, want_t) and torch.equal(res, want_r)
+    assert int(pos) == p + a and stats.tolist() == [5, 1 + conflict]
+
+
+def test_a_round_past_the_window_changes_nothing():
+    """Every entry of a round enqueued after the position has reached the
+    window's end leaves every tensor as it was: ``score_block`` writes no
+    column, ``chain`` no state, ``accept`` no row, carry, position or
+    count."""
+    m, total, span, cap = 3, 12, 4, 900.0 * 2**20
+    spec, val, t_st, r_st, sizes = _round_case(0, False, span, m)
+    rng = np.random.default_rng(1)
+    rows, n_w, k = 6, t_st.shape[1], r_st.shape[2]
+    f64 = {"dtype": torch.float64}
+    tabs = (torch.as_tensor(rng.uniform(0.5, 1.0, (rows, 1, m))), torch.ones((rows, 1), **f64),
+            torch.full((rows, 1), 0.3, **f64), torch.ones(rows, **f64),
+            torch.full((rows, n_w, m), 0.01, **f64), torch.zeros(rows, dtype=torch.int64),
+            torch.zeros((1, n_w, m), **f64), torch.tensor([[0, 1, 2]]),
+            torch.ones((1, m), dtype=torch.bool), torch.tensor([1]),
+            torch.arange(n_w * m)[None])
+    pos = torch.tensor([total])
+    bufs = tuple(x.clone() for x in spec)
+    got = shard_ops.score_block(t_st, r_st, False, *tabs, pos=pos, lo=0, hi=span, row0=6,
+                                total=total, out=bufs)
+    assert all(torch.equal(x, y) for x, y in zip(got, spec))
+    t_c, r_c = shard_ops.chain(t_st[0], r_st[0], sizes, cap, False, spec[1][0, :-1],
+                               spec[1][2, :-1], spec[0][1, :-1], spec[0][3, :-1], models=m,
+                               pos=pos, total=total)
+    assert not t_c.any() and not r_c.any()
+    out = torch.full((4, total), 7.0, **f64)
+    t, res, stats = t_st[0].clone(), r_st[0].clone(), torch.tensor([3, 2])
+    shard_ops.accept(pos, total, span, spec, val, t_st, r_st, sizes, cap, False, t, res, out,
+                     stats, m)
+    assert (out == 7.0).all() and torch.equal(t, t_st[0]) and torch.equal(res, r_st[0])
+    assert int(pos) == total and stats.tolist() == [3, 2]
+
+
+def test_score_block_position_rows_match_the_plain_block():
+    """``score_block`` with a position: the rows of [p + lo, p + hi) a block
+    holds, scored into their columns, equal the same rows scored as a
+    plain block; columns of rows the block does not hold keep their
+    values."""
+    rng = np.random.default_rng(3)
+    rows, n_w, m, k, total = 8, 1, 6, 1, 30
+    row0, p, lo, hi = 10, 6, 1, 7  # rows 10..13 of [7, 13)
+    t = torch.as_tensor(np.round(rng.uniform(0.1, 0.3, (hi - lo, n_w)) * 1024) / 1024)
+    res = torch.as_tensor(rng.integers(0, 18, (hi - lo, n_w, k)))
+    f64 = {"dtype": torch.float64}
+    tabs = (torch.as_tensor(np.round(rng.uniform(0.5, 1.0, (rows, 1, m)) * 16) / 16),
+            torch.ones((rows, 1), **f64), torch.as_tensor(rng.uniform(0.05, 3.0, (rows, 1))),
+            torch.ones(rows, **f64), torch.as_tensor(np.round(rng.uniform(0.001, 0.01, (rows, n_w, m))
+                                                       * 1024) / 1024),
+            torch.as_tensor(rng.integers(0, 3, rows)),
+            torch.as_tensor(np.round(rng.uniform(0.0, 0.05, (3, n_w, m)) * 1024) / 1024),
+            torch.as_tensor(rng.permutation(18)[:18].reshape(3, m)),
+            torch.ones((3, m), dtype=torch.bool), torch.tensor([0, 1, 2]),
+            torch.stack([torch.as_tensor(rng.permutation(n_w * m)) for _ in range(3)]))
+    out = (torch.full((5, hi - lo), -3.0, **f64), torch.full((3, hi - lo), -3, dtype=torch.int64))
+    shard_ops.score_block(t, res, True, *tabs, pos=torch.tensor([p]), lo=lo, hi=hi, row0=row0,
+                          total=total, out=out)
+    held = slice(row0 - p - lo, hi - lo)  # columns 3..5: rows 10..12
+    want = shard_ops.score_block(t[held], res[held], True,
+                                 *(x[:3] for x in tabs[:6]), *tabs[6:])
+    assert torch.equal(out[0][:, held], want[0]) and torch.equal(out[1][:, held], want[1])
+    assert (out[0][:, :held.start] == -3.0).all() and (out[1][:, :held.start] == -3).all()
+
+
+@pytest.mark.parametrize("chunk", [0, 3])
+@pytest.mark.parametrize("shards", [2, 4])
+@pytest.mark.parametrize("pool", [None, "three"], ids=["one-worker", "pool"])
+@pytest.mark.parametrize("policy", ["LO-EDF", "SneakPeek"])
+def test_rounds_across_devices_merge_exactly(suite, monkeypatch, policy, pool, shards, chunk):
+    """The rounds' route for shards on devices other than the first (one
+    shard per card): every other shard's device is ``cpu:0``, which differs
+    from the first shard's ``cpu``, so its picks are scored into buffers of
+    its own and merged into the first device's (rows it holds, or the
+    cross-shard pick).  Decisions, ``chunk_stats``, shard stats and
+    read-backs equal the blocks' run on one device."""
+    apps, sneaks = suite
+    reqs = _window(suite, 13, per_app=6)
+    workers = _pool(pool) if pool else None
+    state = StreamingState(worker_ids=[w.wid for w in workers] if workers else None,
+                           memory_capacity_bytes=400 * 2**20)
+    pol = tsched.make_policy(policy, pipeline=True, chunk=chunk)
+    runs = []
+    for mesh in (None, [torch.device("cpu", i % 2) if i % 2 else torch.device("cpu")
+                        for i in range(shards)]):
+        if mesh is not None:
+            monkeypatch.setattr(tshard, "shard_mesh", lambda n, device=None, mesh=mesh: mesh)
+        pipe = tshard.ShardedWindowPipeline(apps, policy=pol, workers=workers, shard=shards,
+                                            device="cpu")
+        got = pipe.schedule(reqs, 0.1, state=state)
+        runs.append((_sig(got), got.chunk_stats, pipe.last_shard_stats, pipe.last_read_backs))
+    assert mesh[1] != mesh[0]
+    assert runs[1] == runs[0]
+
+
 # ------------------------------------------------- simulation and serving
 
 
