@@ -1,5 +1,5 @@
 """Probes of what bounds K2 (k-NN), K1 (Eq. 2 utility), K5b (the SSD
-backward) and the RG-LRU scan on one NVIDIA GPU.
+backward) and the RG-LRU scan, and of K3b in training, on one NVIDIA GPU.
 
     python3 benchmarks/torch_kernel_probe.py knn --source OLD/knn.cu
     python3 benchmarks/torch_kernel_probe.py knn-design
@@ -8,6 +8,7 @@ backward) and the RG-LRU scan on one NVIDIA GPU.
     python3 benchmarks/torch_kernel_probe.py ssd-bwd
     python3 benchmarks/torch_kernel_probe.py rglru [--old OLD/rglru_scan.cu]
     python3 benchmarks/torch_kernel_probe.py scan-step
+    python3 benchmarks/torch_kernel_probe.py k3b-train [--steps 24] [--lr 1e-3]
 
 ``knn`` takes a k-NN source of the first design (``knn.cu`` as it was
 before the query-tiled design, e.g. from an archive of an earlier commit:
@@ -61,14 +62,27 @@ checked against ``ssd_chunk_bwd_ref`` first.
 
 ``rglru`` takes the current ``rglru_scan.cu`` (the chunked two-pass
 scan) and builds it with each chunk length T in 32, 64, 128 and 256 (a
-text edit of its ``kChunk``), prints each build's ``ptxas`` registers of
-the two passes, then times each build under ``torch.profiler`` at phase
-14's three shapes in bf16 (B = 8, S = 1024; B = 8, S = 1; B = 1, S =
-1024; L = 4096), pass by pass, in turns (32, 64, 128, 256, 256, 128, 64,
-32), each checked against ``rglru_scan_ref`` first.  With ``--old``, the
-one-thread-a-(batch, channel) source of an earlier commit (its C entry
-has no scratch) is built too and timed at the same shapes at the start
-and the end of the turns.
+text edit of ``kChunk`` in its header ``rglru.cuh``, inlined), prints
+each build's ``ptxas`` registers of the two passes, then times each
+build under ``torch.profiler`` at phase 14's three shapes in bf16 (B =
+8, S = 1024; B = 8, S = 1; B = 1, S = 1024; L = 4096), pass by pass,
+in turns (32, 64, 128, 256, 256, 128, 64, 32), each checked against
+``rglru_scan_ref`` first.  With ``--old``, the ``rglru_scan.cu`` of an
+earlier commit is built too and timed at the same shapes at the start
+and the end of the turns: the one-thread-a-(batch, channel) source (its
+C entry has no scratch) or a chunked one that includes no header (its C
+entry takes the summary scratch, sized by its own ``rglru_scan_chunk``),
+and the SASS instruction counts of its kernels are printed beside those
+of the current source's T = 64 build.
+
+``k3b-train`` trains gemma-7b at phase 16 (c)'s cut depth and shape (3
+layers, bf16, B = 8, S = 1024, LMDataset's markov stream, the same seed)
+through ``make_train_step`` at ``--lr`` (1e-3 by default) for
+``--steps`` steps twice: with the attention backward through K3b, then
+through its plain version (``flash_attention_bwd_ref``, on the card).
+It first compares the two routes' gradients at the first step, leaf by
+leaf, then prints both runs' losses step by step, so a loss that rises
+with the kernel and not with the plain version points at the kernel.
 
 ``scan-step`` takes the current ``selection_scan.cu`` and its headers and
 builds them as they are and in variants made by text edits of
@@ -687,26 +701,41 @@ def probe_rglru(old: Path | None) -> None:
     from repro_torch.kernels.rglru_scan import ops as rglru_ops
     from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
 
-    src = nvcc.SOURCES["rglru_scan"].path.read_text()
+    path = nvcc.SOURCES["rglru_scan"].path
+    header = (path.parent / "rglru.cuh").read_text().replace("#pragma once\n", "")
     chunk_line = re.compile(r"constexpr int kChunk = \d+;")
-    if not chunk_line.search(src):
-        raise SystemExit("rglru: no kChunk constant in rglru_scan.cu")
+    if not chunk_line.search(header):
+        raise SystemExit("rglru: no kChunk constant in rglru.cuh")
     libs = {}
     for t in RGLRU_CHUNKS:
         name = f"rglru_T{t}"
-        lib = ctypes.CDLL(str(_build(name, chunk_line.sub(f"constexpr int kChunk = {t};", src))))
+        # The shared header inlined with its chunk length edited.
+        src = path.read_text().replace('#include "rglru.cuh"',
+                                       chunk_line.sub(f"constexpr int kChunk = {t};", header))
+        lib = ctypes.CDLL(str(_build(name, src)))
         lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
         libs[t] = lib
         print(f"T={t}: " + "; ".join(
             f"{k} {regs} regs, {spill} B spilled"
             for k in RGLRU_PASSES for regs, _, spill in [_ptxas(name, k)]))
-    old_fn = None
+    old_fn = old_chunk = None
     if old is not None:
-        old_lib = ctypes.CDLL(str(_build("rglru_old", old.read_text())))
+        old_src = old.read_text()
+        old_lib_path = _build("rglru_old", old_src)
+        old_lib = ctypes.CDLL(str(old_lib_path))
         old_fn = old_lib.rglru_scan
-        old_fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        chunked = "void* scratch" in old_src
+        old_fn.argtypes = ([ctypes.c_void_p] * (11 if chunked else 10) + [ctypes.c_int] * 4
+                           + [ctypes.c_void_p])
         old_fn.restype = ctypes.c_int
+        if chunked:
+            old_lib.rglru_scan_chunk.restype = ctypes.c_int
+            old_chunk = old_lib.rglru_scan_chunk()
+        for k in RGLRU_PASSES:
+            for label, lib_path in (("old", old_lib_path), ("T=64", OUT / "librglru_T64.so")):
+                total, _ = _sass_mix(lib_path, k)
+                print(f"{label} {k} SASS: " + (_fmt(total) if total else "none"))
     gen = torch.Generator(device="cuda").manual_seed(26)
     cases = {}
     for key, (b, s, width) in RGLRU_SHAPES.items():
@@ -722,17 +751,22 @@ def probe_rglru(old: Path | None) -> None:
             b, s, width = u.shape
             y = torch.empty_like(u)
             h = torch.empty((b, width), dtype=torch.float32, device="cuda")
+            nc = -(-s // old_chunk) if old_chunk else 1
+            buf = (torch.empty((2, b, nc - 1, width), device="cuda")
+                   if old_chunk and nc > 1 else None)
+            scratch = [buf.data_ptr() if buf is not None else None] if old_chunk else []
 
-            def call(u=u, gp=gp, vecs=vecs, h0=h0, y=y, h=h, b=b, s=s, width=width):
+            def call(u=u, gp=gp, vecs=vecs, h0=h0, y=y, h=h, b=b, s=s, width=width,
+                     scratch=scratch, buf=buf):
                 err = old_fn(u.data_ptr(), gp.data_ptr(), *[v.data_ptr() for v in vecs],
-                             h0.data_ptr(), y.data_ptr(), h.data_ptr(), b, s, width, 1,
-                             torch.cuda.current_stream().cuda_stream)
+                             h0.data_ptr(), y.data_ptr(), h.data_ptr(), *scratch, b, s, width,
+                             1, torch.cuda.current_stream().cuda_stream)
                 if err:
                     raise RuntimeError(f"old rglru_scan: CUDA error {err}")
 
             call()
             _close(y.float(), y_ref.float(), 2e-2, f"old rglru_scan y {key}")
-            ms = device_ms(call, "rglru_scan_kernel", iters=20)
+            ms = device_ms(call, "rglru_", iters=20)
             print(f"old {label}, {key} (B={b} S={s} L={width}): {ms:.6f} ms")
 
     built = nvcc._LIBS.get("rglru_scan")
@@ -740,7 +774,7 @@ def probe_rglru(old: Path | None) -> None:
         if old_fn is not None:
             time_old("first")
         for t in RGLRU_CHUNKS + RGLRU_CHUNKS[::-1]:
-            nvcc._LIBS["rglru_scan"] = libs[t]
+            nvcc._LIBS["rglru_scan"] = libs[t]  # the wrapper sizes its scratch by its chunk
             assert rglru_ops.chunk_len() == t
             for key, (u, gp, vecs, h0, (y_ref, h_ref)) in cases.items():
                 b, s, width = u.shape
@@ -759,6 +793,79 @@ def probe_rglru(old: Path | None) -> None:
             nvcc._LIBS.pop("rglru_scan", None)
         else:
             nvcc._LIBS["rglru_scan"] = built
+
+
+def probe_k3b_train(steps: int, lr: float) -> None:
+    import dataclasses
+    import gc
+
+    import torch
+
+    from chip_smoke import NEW_TRAIN, TRAIN_BATCH, TRAIN_SEQ, _flash_bwd_plain
+    from repro_torch.configs import ARCHS
+    from repro_torch.data import LMDataConfig, LMDataset
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import LM
+    from repro_torch.training import OptimizerConfig, init_opt_state
+    from repro_torch.training.optimizer import tree_leaves
+
+    cfg = dataclasses.replace(ARCHS["gemma-7b"], num_layers=NEW_TRAIN["gemma-7b"][0])
+    # phase 16 (c)'s optimizer settings, at ``lr``
+    opt = OptimizerConfig(learning_rate=lr, warmup_steps=3, total_steps=1000)
+    lm = LM(cfg)
+    data = LMDataset(LMDataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                                  global_batch=TRAIN_BATCH, seed=0))
+    kernel_bwd = flash_ops.flash_attention_bwd
+
+    def plain_bwd(q, k, v, o, do, lse, *, window=0, scale=None):
+        return _flash_bwd_plain(q, k, v, o, do, lse, window)
+
+    routes = {"kernel": kernel_bwd, "plain": plain_bwd}
+
+    def batch_at(step):
+        return {k: torch.as_tensor(v, device="cuda") for k, v in data.batch_at(step).items()}
+
+    print(f"gemma-7b, {cfg.num_layers} layers at full width, bf16, B={TRAIN_BATCH} "
+          f"S={TRAIN_SEQ}, lr {lr:g}, {steps} steps a route")
+    try:
+        grads = {}
+        for name, fn in routes.items():
+            flash_ops.flash_attention_bwd = fn
+            params = lm.init(0, device="cuda")
+            params.requires_grad_(True)
+            loss, _ = lm.loss(params, batch_at(0))
+            loss.backward()
+            grads[name] = [g.float() for g in tree_leaves(params.grad_tree())]
+            print(f"{name}: first loss {loss.item():.6f}")
+            del params, loss
+            gc.collect()
+            torch.cuda.empty_cache()
+        for i, (g, r) in enumerate(zip(grads["kernel"], grads["plain"])):
+            scale = float(r.abs().max())
+            diff = float((g - r).abs().max())
+            print(f"gradient leaf {i} {tuple(g.shape)}: max |kernel - plain| {diff:.4g}, "
+                  f"max |plain| {scale:.4g}, relative {diff / max(scale, 1e-30):.4g}")
+        del grads
+        losses = {}
+        for name, fn in routes.items():
+            flash_ops.flash_attention_bwd = fn
+            params = lm.init(0, device="cuda")
+            state = init_opt_state(params.to_tree(), opt)
+            step_fn = make_train_step(lm, opt)
+            losses[name] = []
+            for step in range(steps):
+                params, state, metrics = step_fn(params, state, batch_at(step))
+                losses[name].append(float(metrics["loss"]))
+            del params, state, step_fn
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        flash_ops.flash_attention_bwd = kernel_bwd
+    for name, xs in losses.items():
+        tail = sum(xs[-5:]) / len(xs[-5:])
+        print(f"{name}: losses {' '.join(f'{x:.4f}' for x in xs)}; first {xs[0]:.4f}, "
+              f"last 5 mean {tail:.4f} ({'falls' if tail < xs[0] else 'rises'})")
 
 
 # Text edits of ahead.cuh's warp step (each anchor must be present).
@@ -886,6 +993,9 @@ def main(argv=None) -> int:
     sub.add_parser("ssd-bwd")
     sub.add_parser("rglru").add_argument("--old", type=Path, default=None)
     sub.add_parser("scan-step")
+    t = sub.add_parser("k3b-train")
+    t.add_argument("--steps", type=int, default=24)
+    t.add_argument("--lr", type=float, default=1e-3)
     args = p.parse_args(argv)
     import torch
 
@@ -907,6 +1017,8 @@ def main(argv=None) -> int:
         probe_rglru(args.old)
     elif args.what == "scan-step":
         probe_scan_step()
+    elif args.what == "k3b-train":
+        probe_k3b_train(args.steps, args.lr)
     else:
         probe_chain()
     return 0

@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py            # the full check, on one card
 
-Builds the port's eleven CUDA kernel sources from the checkout, holds
+Builds the port's twelve CUDA kernel sources from the checkout, holds
 each kernel against its plain PyTorch version at its path's shapes and
 times both, then drives the paths of the port on the card:
 
@@ -71,13 +71,18 @@ times both, then drives the paths of the port on the card:
   on the tensor cores) and K5b (the SSD chunk scan; 3xTF32 products),
   against their plain versions at tinyllama's, llama4's and mamba2's
   training shapes, timed beside SDPA's backward and beside their first
-  designs' times, two calls bit-identical;
-  one training step of 2-layer float32 models at full width, card
-  against host (loss, every gradient, the weights after 3 AdamW steps);
+  designs' times, two calls bit-identical; K3b at head dim 256 (gemma-7b's,
+  recurrentgemma-9b's local and gemma3-4b's shapes, and float32) and the
+  RG-LRU scan's backward (``rglru_scan_bwd``) the same, the latter also
+  through its autograd function card against host;
+  one training step of float32 models at full width, card against host
+  (loss, every gradient, the weights after 3 AdamW steps): 2 layers of
+  mamba2, tinyllama and gemma-7b, and recurrentgemma-9b's one period;
   then mamba2-130m (24 layers) through ``Trainer`` with checkpoints and
-  an injected fault restored from one, and tinyllama-1.1b (22 layers)
-  through ``make_train_step``, both bf16 at B=8 S=1024 on LMDataset's
-  markov stream, with falling loss and exact K3/K3b/K5/K5b launches.
+  an injected fault restored from one, and tinyllama-1.1b (22 layers),
+  recurrentgemma-9b (one period) and gemma-7b (3 layers) through
+  ``make_train_step``, all bf16 at B=8 S=1024 on LMDataset's markov
+  stream, with falling loss and exact K3/K3b/K5/K5b/RG-LRU launches.
 
 Every check raises on failure.  The last three lines of standard output
 are the card's name and power limit, the kernel table and
@@ -234,19 +239,23 @@ def ptxas_registers(name: str, keys) -> dict:
     return out
 
 
-# The head-dim-256 instances of K3 and K4 (mangled-name keys): ptxas's
+# The head-dim-256 instances of K3, K4 and K3b (mangled-name keys): ptxas's
 # registers and spills are printed in phase 2.
 D256_INSTANCES = {
     "flash_attention": ("flash_attention_bf16_kernelILi256E", "flash_attention_f32_kernelILi256E"),
     "decode_attention": ("decode_attention_kernelI13__nv_bfloat16Li256E",
                          "decode_attention_kernelIfLi256E"),
+    "flash_attention_bwd": ("flash_attention_bwd_dkdv_bf16_kernelILi256E",
+                            "flash_attention_bwd_dq_bf16_kernelILi256E",
+                            "flash_attention_bwd_dkdv_kernelILi256EfE",
+                            "flash_attention_bwd_dq_kernelILi256EfE"),
 }
 
 
 # K3b's bf16 instances (mangled-name keys): ptxas's registers are printed
 # in phase 2, and a spill fails it.
 K3B_BF16_INSTANCES = tuple(f"flash_attention_bwd_{part}_bf16_kernelILi{d}E"
-                           for d in (16, 32, 64, 128) for part in ("dkdv", "dq"))
+                           for d in (16, 32, 64, 128, 256) for part in ("dkdv", "dq"))
 
 
 def card_line() -> str:
@@ -2998,8 +3007,45 @@ K5B_STAGES = ("ssd_chunk_bwd_scores", "ssd_chunk_bwd_dstate", "ssd_chunk_bwd_pas
 # printed in brackets beside this run's times.
 K3B_FIRST_MS = {"tinyllama": 7.091728, "f32": 7.265763, "llama4": 5.685508, "windowed": 5.121812}
 K5B_FIRST_MS = 2.239300
+# K3b at head dim 256 (batch, length, query heads, KV heads, window, dtype):
+# gemma-7b's training shape (MHA), recurrentgemma-9b's local layers (16
+# over 1, a 2048 window that binds at S = 4096), gemma3-4b's local layers (8
+# over 4, window 1024), and float32 at gemma-7b's width.
+K3B_D256_SHAPES = {"gemma7b": (8, 1024, 16, 16, 0, "bfloat16"),
+                   "recurrentgemma_local": (2, 4096, 16, 1, 2048, "bfloat16"),
+                   "gemma3": (2, 2048, 8, 4, 1024, "bfloat16"),
+                   "f32_d256": (1, 1024, 16, 16, 0, "float32")}
+# rglru_scan_bwd's cases (batch, length, LRU width, dtype, h0, dh_last):
+# recurrentgemma-9b's training shape (timed), a length off a multiple of the
+# chunk, one below a chunk, and float32 with both states given.
+RGLRU_BWD_CASES = {"train": (8, 1024, 4096, "bfloat16", False, False),
+                   "ragged": (2, 300, 512, "bfloat16", True, False),
+                   "one_chunk": (3, 40, 256, "bfloat16", False, True),
+                   "f32": (2, 300, 200, "float32", True, True)}
+# Its tolerances against the plain reverse loop (tests/test_torch_cuda.py).
+RGLRU_BWD_TOL = {"float32": (1e-4, 1e-3), "bfloat16": (2e-2, 2e-2)}
+RGLRU_BWD_PARTS = ("rglru_bwd_summary", "rglru_bwd_scan", "rglru_bwd_reduce")
 TRAIN_BATCH, TRAIN_SEQ = 8, 1024
 MAMBA_STEPS, MAMBA_FAULT_AT, TINY_STEPS = 30, 15, 20
+# The two families trained through make_train_step at published widths and
+# cut depths.  At the update one card holds the weights, the gradients, the
+# stacked trees and AdamW's fp32 master and two moments, old and new side
+# by side: about 35 bytes a parameter at the peak on the H100, beside the
+# 4.2 GB logit chunks of a 256,000-token vocabulary.  So recurrentgemma-9b
+# runs its one period (3 of 38 layers: rglru, rglru, local; 1.64 B
+# parameters) and gemma-7b 3 of 28 layers (1.62 B; 4 layers, 1.89 B, would
+# need about 66 GB).  Each with its learning rate: gemma-7b's loss rose
+# at the other runs' 1e-3 (last 5 steps' mean 13.022 against the first
+# step's 12.931 over 12 steps, NVIDIA H100 80GB HBM3, 700.00 W), so it
+# takes 3e-4.  It rises as much with the attention backward through K3b's
+# plain version (benchmarks/torch_kernel_probe.py k3b-train: 24 steps at
+# 1e-3, last 5 means 13.539 through K3b and 13.477 through the plain
+# version, the first step's gradients within 0.7 % of each other, same
+# card): the model and optimizer's, not the kernel's.
+NEW_TRAIN = {"recurrentgemma-9b": (3, 1e-3), "gemma-7b": (3, 3e-4)}
+NEW_TRAIN_STEPS = 12
+TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd", "ssd", "ssd_bwd", "rglru_scan",
+                 "rglru_scan_bwd")
 
 
 def _flash_bwd_plain(q, k, v, o, do, lse, window):
@@ -3054,7 +3100,9 @@ def _flash_bwd_case(gen, b, s, hq, hkv, d, window, dtype, timed=False):
     keys = int((torch.clamp(pos + 1, max=window) if window else pos + 1).sum())
     flops = 10 * b * hq * keys * d  # five products over the visible (query, key) pairs
     item = q.element_size()
-    bytes_moved = item * (2 * (3 * b * s * hq * d + 2 * b * s * hkv * d)) + 4 * b * hq * s
+    # q, o, dO read and dq written (Hq wide); k, v read and dk, dv written
+    # (Hkv wide); the float32 logsumexp read
+    bytes_moved = item * (4 * b * s * hq * d + 4 * b * s * hkv * d) + 4 * b * hq * s
     peak = BF16_FLOP_PER_S if dtype == torch.bfloat16 else FP32_FLOP_PER_S
     call = lambda: flash_ops.flash_attention_bwd(q, k, v, out, do, lse, window=window)  # noqa: E731
     ms, stage_ms = device_ms(call, "flash_attention_bwd", iters=5, parts=K3B_STAGES)
@@ -3117,6 +3165,16 @@ def check_backward_kernels(seed):
         print(f"  K3b {k3b[key]['shape']}: within {2e-5 if key == 'f32' else 2e-2}, max |d| "
               f"{k3b[key]['max_abs_err']:.3g}; two calls bit-identical; {k3b[key]['ms']:.6f} ms "
               f"[first design: {K3B_FIRST_MS[key]}]")
+    for key, (b, s, hq, hkv, window, dtype) in K3B_D256_SHAPES.items():
+        k3b[key] = t = _flash_bwd_case(gen, b, s, hq, hkv, 256, window, getattr(torch, dtype),
+                                       timed=True)
+        print(f"  K3b {t['shape']}: within {ATTN_TOL[dtype]}, max |d| {t['max_abs_err']:.3g}; "
+              f"two calls bit-identical; {t['ms']:.6f} ms on the device ("
+              + ", ".join(f"{k.removeprefix('flash_attention_bwd_')} {v:.6f}"
+                          for k, v in t["stage_ms"].items())
+              + f"), bound {t['bound_ms']:.6f} ms ({t['bound_by']}), SDPA backward "
+              f"{t['library_ms']:.6f} ms, plain {t['plain_ms']:.3f} ms")
+        torch.cuda.empty_cache()
     torch.cuda.empty_cache()
 
     b, s, h, p, n, chunk = 8, 1024, 24, 64, 128, 128
@@ -3175,10 +3233,105 @@ def check_backward_kernels(seed):
               for name, g, r in zip(("x", "dt", "a_log", "B", "C"), grads["cuda"], grads["cpu"]))
     print(f"  K5b through models.ssd.ssd_scan, B=2 S=300 (padded to 384 with dt = 0): the "
           f"gradients of x, dt, a_log, B and C card against host, max |d| {err:.3g}")
-    return k3b, k5b
+    return k3b, k5b, check_rglru_backward(gen)
 
 
-def check_train_step_card_vs_host(seed, arch, layers=2, batch=2, seq=256, steps=3):
+def check_rglru_backward(gen):
+    """Phase 16 (a): ``rglru_scan_bwd`` against ``rglru_scan_bwd_ref`` on
+    the card at ``RGLRU_BWD_CASES``, on the carries the forward kept: all
+    eight gradients within ``RGLRU_BWD_TOL``, one launch a call, two calls
+    bit-identical; the training shape timed, kernel by kernel, beside the
+    plain version and the bytes bound (u, gpre and dy read, du and dgpre
+    written, the carries and vectors besides); then the model's autograd
+    function (``rglru_scan_autograd``: the forward kernel keeping its
+    carries, then the backward) card against host at recurrentgemma-9b's
+    width in float32."""
+    import torch
+
+    from repro_torch.kernels.rglru_scan import ops as rglru_ops
+    from repro_torch.kernels.rglru_scan.ref import rglru_scan_bwd_ref
+
+    names = ("du", "dgpre", "da_w", "da_b", "dx_w", "dx_b", "dlam", "dh0")
+    out = {}
+    for key, (b, s, width, dtype, with_h0, with_dh) in RGLRU_BWD_CASES.items():
+        dt = getattr(torch, dtype)
+
+        def randn(*shape, scale=1.0):
+            return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dt)
+
+        u, gp, dy = randn(b, s, width), randn(b, s, width), randn(b, s, width)
+        vecs = [randn(width, scale=0.5) for _ in range(5)]
+        h0 = torch.randn((b, width), generator=gen, device="cuda") if with_h0 else None
+        dh = torch.randn((b, width), generator=gen, device="cuda") if with_dh else None
+        _, _, carries = rglru_ops.rglru_scan_saving(u, gp, *vecs, h0)
+        before = rglru_ops.bwd_counter.count
+        got = rglru_ops.rglru_scan_bwd(u, gp, *vecs, carries, dy, dh, want_dh0=with_h0)
+        again = rglru_ops.rglru_scan_bwd(u, gp, *vecs, carries, dy, dh, want_dh0=with_h0)
+        torch.cuda.synchronize()
+        launched = rglru_ops.bwd_counter.count - before
+        require(launched == 2, f"rglru_scan_bwd {key}: {launched} launches for 2 calls")
+        require(all(x is None or torch.equal(x, y) for x, y in zip(got, again)),
+                f"rglru_scan_bwd {key}: two calls differ")
+        del again
+        want = rglru_scan_bwd_ref(u, gp, *vecs, dy, h0=h0, dh_last=dh)
+        atol, rtol = RGLRU_BWD_TOL[dtype]
+        errs = {n: _close(x, r, atol, f"rglru_scan_bwd {key} {n}", rtol)
+                for n, x, r in zip(names, got, want) if r is not None}
+        shape = f"B={b} S={s} L={width} {dtype}" + (" h0" if with_h0 else "") \
+            + (" dh_last" if with_dh else "")
+        out[key] = t = {"shape": shape, "max_abs_err": max(errs.values())}
+        print(f"  rglru_scan_bwd {shape}: {len(errs)} gradients within {atol} + {rtol} |ref| of "
+              f"the plain reverse loop, max |d| {t['max_abs_err']:.3g}; one launch a call, two "
+              f"calls bit-identical")
+        if key != "train":
+            continue
+        del got, want
+
+        def call():
+            return rglru_ops.rglru_scan_bwd(u, gp, *vecs, carries, dy, dh, want_dh0=with_h0)
+
+        ms, part_ms = device_ms(call, "rglru_bwd", iters=10, parts=RGLRU_BWD_PARTS)
+        item = u.element_size()
+        nbytes = 5 * item * b * s * width + 4 * carries.numel() + 2 * 5 * item * width
+        t.update({"ms": ms, "stage_ms": part_ms, "library_ms": None,
+                  "plain_ms": timed_ms(lambda: rglru_scan_bwd_ref(u, gp, *vecs, dy, h0=h0,
+                                                                  dh_last=dh),
+                                       iters=2, warmup=1),
+                  "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"})
+        print(f"    {nbytes / 1e6:.1f} MB; kernel {ms:.6f} ms on the device ("
+              + ", ".join(f"{k.removeprefix('rglru_bwd_')} {v:.6f}" for k, v in part_ms.items())
+              + f"), bound {t['bound_ms']:.6f} ms (bytes), plain {t['plain_ms']:.3f} ms, no "
+              "library call")
+        del u, gp, dy, carries
+        torch.cuda.empty_cache()
+
+    # The model's autograd function, card against host, float32.
+    b, s, width = 2, 300, 4096
+    ins = [torch.randn((b, s, width), generator=gen, device="cuda") for _ in range(2)]
+    ins += [torch.randn(width, generator=gen, device="cuda") * 0.5 for _ in range(5)]
+    ins += [torch.randn((b, width), generator=gen, device="cuda")]
+    dy = torch.randn((b, s, width), generator=gen, device="cuda")
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        leaves = [t.detach().to(dev).requires_grad_() for t in ins]
+        before = rglru_ops.bwd_counter.count
+        y, h_last = rglru_ops.rglru_scan_autograd(*leaves)
+        ((y * dy.to(dev)).sum() + h_last.sum()).backward()
+        if dev == "cuda":
+            require(rglru_ops.bwd_counter.count == before + 1,
+                    "rglru_scan_autograd: not one rglru_scan_bwd launch on the card")
+        grads[dev] = [t.grad.cpu() for t in leaves]
+    err = max(_close(g, h, 1e-4, f"rglru_scan_autograd {n}", 1e-3)
+              for n, g, h in zip(("u", "gpre", "a_w", "a_b", "x_w", "x_b", "Lambda", "h0"),
+                                 grads["cuda"], grads["cpu"]))
+    out["train"]["autograd_card_vs_host_err"] = err
+    print(f"  rglru_scan_autograd B={b} S={s} L={width} float32 with h0, the gradients of its "
+          f"eight inputs card against host within 1e-4 + 1e-3 |ref|, max |d| {err:.3g}")
+    return out
+
+
+def check_train_step_card_vs_host(seed, arch, layers=2, batch=2, seq=256, steps=3,
+                                  regrad=True):
     """Phase 16 (b): one training step of a float32 model at ``arch``'s
     widths, ``layers`` layers, card against host: the loss within 1e-4,
     every gradient leaf within atol 1e-4 + rtol 1e-3, and the weights after
@@ -3190,7 +3343,16 @@ def check_train_step_card_vs_host(seed, arch, layers=2, batch=2, seq=256, steps=
     a gradient of ~1e-8 that differs by float32 rounding between card and
     host moves its weight by a different ~lr (21 embedding values past 1e-4
     on the card); at 1e-4 the gradients' measured agreement (< 2e-7) bounds
-    the weights' difference to ~lr * 2e-3 a step."""
+    the weights' difference to ~lr * 2e-3 a step.  The first step applies
+    the gradients just compared, as ``make_train_step``'s step applies its
+    own (``adamw_step``, then ``load_tree_``).  With ``regrad`` the others
+    run through ``make_train_step`` on the next batches; without, they
+    apply the same gradients again, so the host runs one float32 forward
+    and backward rather than ``steps`` (the families with a 256,000-token
+    vocabulary, whose host steps take tens of seconds each).  The weights
+    are made on the card and copied to the host, and both sides' gradients
+    and weights are compared on the card.  The seconds spent on each side
+    are returned."""
     import dataclasses
 
     import torch
@@ -3200,51 +3362,73 @@ def check_train_step_card_vs_host(seed, arch, layers=2, batch=2, seq=256, steps=
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models import LM
     from repro_torch.models.transformer import TransformerParams
-    from repro_torch.training import OptimizerConfig, init_opt_state
+    from repro_torch.training import OptimizerConfig, adamw_step, init_opt_state
     from repro_torch.training.optimizer import tree_leaves, tree_map
 
     cfg = dataclasses.replace(ARCHS[arch], num_layers=layers, dtype="float32")
     lm = LM(cfg)
-    host = lm.init(seed, device="cpu")
-    card = TransformerParams(cfg, tree_map(lambda t: t.to("cuda"), host.to_tree()))
+    seconds = {"card": 0.0, "host": 0.0}
+    card = lm.init(seed, device="cuda")
+    host = TransformerParams(cfg, tree_map(lambda t: t.cpu(), card.to_tree()))
     data = LMDataset(LMDataConfig(vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch,
                                   seed=seed))
+    opt = OptimizerConfig(learning_rate=1e-3, warmup_steps=1, eps=1e-4)
+    start = [t.clone() for t in tree_leaves(card.to_tree())]
+    step_fn = make_train_step(lm, opt)
+    params = {"card": card, "host": host}
+    devices = {"card": "cuda", "host": "cpu"}
 
     def batch_at(step, dev):
         return {"tokens": torch.as_tensor(data.batch_at(step)["tokens"], device=dev)}
 
-    out = {}
-    for name, params, dev in (("card", card, "cuda"), ("host", host, "cpu")):
-        params.requires_grad_(True)
-        loss, _ = lm.loss(params, batch_at(0, dev))
+    out, states = {}, {}
+    for name, dev in devices.items():
+        t0 = time.perf_counter()
+        model = params[name]
+        model.requires_grad_(True)
+        loss, _ = lm.loss(model, batch_at(0, dev))
         loss.backward()
-        out[name] = (loss.item(), [g.cpu() for g in tree_leaves(params.grad_tree())])
-        params.zero_grad(set_to_none=True)
+        grads = model.grad_tree()
+        out[name] = (loss.item(), tree_leaves(grads))
+        model.zero_grad(set_to_none=True)
+        states[name] = init_opt_state(model.to_tree(), opt)
+        for step in range(steps):
+            if step == 0 or not regrad:
+                new_tree, states[name], _ = adamw_step(grads, states[name], model.to_tree(), opt)
+                model.load_tree_(new_tree)
+                del new_tree
+            else:
+                params[name], states[name], _ = step_fn(params[name], states[name],
+                                                        batch_at(step, dev))
+        del grads
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        seconds[name] += time.perf_counter() - t0
+    card, host = params["card"], params["host"]
     loss_err = abs(out["card"][0] - out["host"][0])
     require(loss_err <= 1e-4, f"{arch}: the loss {out['card'][0]} on the card, "
                               f"{out['host'][0]} on the host")
-    grad_err = max(_close(g, h, 1e-4, f"{arch} gradient leaf {i}", rtol=1e-3)
+    grad_err = max(_close(g, h.to("cuda"), 1e-4, f"{arch} gradient leaf {i}", rtol=1e-3)
                    for i, (g, h) in enumerate(zip(out["card"][1], out["host"][1])))
-    opt = OptimizerConfig(learning_rate=1e-3, warmup_steps=1, eps=1e-4)
-    start = [t.clone() for t in tree_leaves(host.to_tree())]
-    step_fn = make_train_step(lm, opt)
-    states = {"card": init_opt_state(card.to_tree(), opt),
-              "host": init_opt_state(host.to_tree(), opt)}
-    for step in range(steps):
-        card, states["card"], _ = step_fn(card, states["card"], batch_at(step, "cuda"))
-        host, states["host"], _ = step_fn(host, states["host"], batch_at(step, "cpu"))
-    weight_err = max(_close(c.cpu(), h, 1e-4, f"{arch} weight leaf {i} after {steps} steps",
-                            rtol=0.0)
-                     for i, (c, h) in enumerate(zip(tree_leaves(card.to_tree()),
-                                                    tree_leaves(host.to_tree()))))
-    moved = max(float((h - w0).abs().max()) for h, w0 in zip(tree_leaves(host.to_tree()), start))
+    n_leaves, card_loss = len(out["card"][1]), out["card"][0]
+    del out
+    weight_err = moved = 0.0
+    for i, (c, h, w0) in enumerate(zip(tree_leaves(card.to_tree()), tree_leaves(host.to_tree()),
+                                       start)):
+        h = h.to("cuda")
+        weight_err = max(weight_err, _close(c, h, 1e-4, f"{arch} weight leaf {i} after {steps} "
+                                                        f"steps", rtol=0.0))
+        moved = max(moved, float((h - w0).abs().max()))
     require(moved >= 1e-3, f"{arch}: {steps} AdamW steps moved no weight by 1e-3 (max {moved})")
+    how = ("the others through make_train_step" if regrad
+           else "the others on the same gradients")
     print(f"  {arch}, {layers} layers at full width, float32, B={batch} S={seq}: loss "
-          f"{out['card'][0]:.6f}, |d| {loss_err:.3g}; {len(out['card'][1])} gradient leaves, "
-          f"max |d| {grad_err:.3g}; weights after {steps} AdamW steps at lr 1e-3, eps 1e-4 "
-          f"(moved up to {moved:.3g}), max |d| card against host {weight_err:.3g}")
+          f"{card_loss:.6f}, |d| {loss_err:.3g}; {n_leaves} gradient leaves, max |d| "
+          f"{grad_err:.3g}; weights after {steps} AdamW steps at lr 1e-3, eps 1e-4 ({how}; "
+          f"moved up to {moved:.3g}), max |d| card against host {weight_err:.3g}; "
+          f"{seconds['card']:.1f} s on the card, {seconds['host']:.1f} s on the host")
     return {"loss_err": loss_err, "grad_err": grad_err, "weight_err": weight_err,
-            "weights_moved": moved}
+            "weights_moved": moved, "card_s": seconds["card"], "host_s": seconds["host"]}
 
 
 def _training_summary(arch, losses, step_s, peak_gb, launches, per_step, executed):
@@ -3262,8 +3446,7 @@ def _training_summary(arch, losses, step_s, peak_gb, launches, per_step, execute
     print(f"  {arch}: losses {losses[0]:.4f} -> {losses[-1]:.4f} (last 5 mean {tail:.4f}); "
           f"median step {med:.4f} s, {TRAIN_BATCH * TRAIN_SEQ / med:.1f} tokens/s; peak "
           f"{peak_gb:.3f} GB; launches a step: "
-          + ", ".join(f"{k} {launches.get(k, 0) / executed:g}" for k in
-                      ("flash_attention", "flash_attention_bwd", "ssd", "ssd_bwd")))
+          + ", ".join(f"{k} {launches.get(k, 0) / executed:g}" for k in TRAIN_KERNELS))
     return {"first_loss": losses[0], "last5_loss": tail, "step_s_median": med,
             "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / med, "peak_gb": peak_gb,
             "steps_run": executed, "launches": launches}
@@ -3272,8 +3455,11 @@ def _training_summary(arch, losses, step_s, peak_gb, launches, per_step, execute
 def train_full_width(seed):
     """Phase 16 (c): mamba2-130m through ``Trainer`` (checkpoints every 10
     steps, a fault injected at step 15 that restores step 10) and
-    tinyllama-1.1b through ``make_train_step``, both at full width in bf16
-    on LMDataset's markov stream, B=8 S=1024."""
+    tinyllama-1.1b, then recurrentgemma-9b and gemma-7b at ``NEW_TRAIN``'s
+    depths, through ``make_train_step``, all at full width in bf16 on
+    LMDataset's markov stream, B=8 S=1024, with exact launches a step (K3
+    and ``rglru_scan`` twice a layer with remat, their backwards once)."""
+    import dataclasses
     import tempfile
 
     import torch
@@ -3281,9 +3467,8 @@ def train_full_width(seed):
     from repro_torch import kernels
     from repro_torch.configs import ARCHS
     from repro_torch.data import LMDataConfig, LMDataset
-    from repro_torch.launch.steps import make_train_step
     from repro_torch.models import LM
-    from repro_torch.training import OptimizerConfig, Trainer, TrainerConfig, init_opt_state
+    from repro_torch.training import OptimizerConfig, Trainer, TrainerConfig
 
     opt = OptimizerConfig(learning_rate=1e-3, warmup_steps=3, total_steps=1000)
     out = {}
@@ -3319,8 +3504,8 @@ def train_full_width(seed):
     require(attempts[MAMBA_FAULT_AT + 1] == 11, "the fault did not restore step 10")
     out["mamba2-130m"] = _training_summary(
         "mamba2-130m", summary["losses"], trainer.step_times, peak, launches,
-        {"ssd": 2 * cfg.num_layers, "ssd_bwd": cfg.num_layers, "flash_attention": 0,
-         "flash_attention_bwd": 0}, executed)
+        {**dict.fromkeys(TRAIN_KERNELS, 0), "ssd": 2 * cfg.num_layers,
+         "ssd_bwd": cfg.num_layers}, executed)
     out["mamba2-130m"].update({"wall_s": wall, "restarts": summary["restarts"],
                                "stragglers": summary["stragglers"]})
     print(f"    mamba2-130m: {executed} steps run ({MAMBA_STEPS} + the {MAMBA_FAULT_AT - 11} "
@@ -3330,19 +3515,42 @@ def train_full_width(seed):
     gc.collect()
     torch.cuda.empty_cache()
 
-    cfg = ARCHS["tinyllama-1.1b"]
+    out["tinyllama-1.1b"] = train_through_steps(seed, ARCHS["tinyllama-1.1b"], opt, TINY_STEPS)
+    for arch, (layers, lr) in NEW_TRAIN.items():
+        out[arch] = train_through_steps(seed, dataclasses.replace(ARCHS[arch], num_layers=layers),
+                                        dataclasses.replace(opt, learning_rate=lr),
+                                        NEW_TRAIN_STEPS)
+    return out
+
+
+def train_through_steps(seed, cfg, opt, steps):
+    """``steps`` bf16 training steps of ``cfg`` at full width through
+    ``make_train_step`` on LMDataset's markov stream, B=8 S=1024: the loss
+    falling, peak device memory under 80 GB, and the launches a step exact
+    (with remat K3 and ``rglru_scan`` twice a layer, K3b and
+    ``rglru_scan_bwd`` once)."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.configs import ARCHS
+    from repro_torch.data import LMDataConfig, LMDataset
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import LM
+    from repro_torch.training import init_opt_state
+
     lm = LM(cfg)
     data = LMDataset(LMDataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
                                   global_batch=TRAIN_BATCH, seed=seed))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     params = lm.init(seed, device="cuda")
+    n_params = sum(t.numel() for t in params.parameters())
     state = init_opt_state(params.to_tree(), opt)
     step_fn = make_train_step(lm, opt)
     kernels.reset_launch_counts()
     losses, times = [], []
     t0 = time.perf_counter()
-    for step in range(TINY_STEPS):
+    for step in range(steps):
         t1 = time.perf_counter()
         batch = {k: torch.as_tensor(v, device="cuda") for k, v in data.batch_at(step).items()}
         params, state, metrics = step_fn(params, state, batch)
@@ -3352,14 +3560,21 @@ def train_full_width(seed):
     launches = kernels.launch_counts()
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 1e9
-    out["tinyllama-1.1b"] = _training_summary(
-        "tinyllama-1.1b", losses, times, peak, launches,
-        {"flash_attention": 2 * cfg.num_layers, "flash_attention_bwd": cfg.num_layers,
-         "ssd": 0, "ssd_bwd": 0}, TINY_STEPS)
-    out["tinyllama-1.1b"]["wall_s"] = wall
-    print(f"    tinyllama-1.1b: {TINY_STEPS} steps through make_train_step, no checkpoint, "
-          f"{wall:.1f} s")
-    del params, state
+    require(peak < 80.0, f"{cfg.name}: peak device memory {peak:.3f} GB")
+    kinds = [cfg.layer_kind(i).split(":")[0] for i in range(cfg.num_layers)]
+    attn = sum(k in ("attn", "local") for k in kinds)
+    rec = kinds.count("rglru")
+    out = _training_summary(
+        cfg.name, losses, times, peak, launches,
+        {**dict.fromkeys(TRAIN_KERNELS, 0), "flash_attention": 2 * attn,
+         "flash_attention_bwd": attn, "rglru_scan": 2 * rec, "rglru_scan_bwd": rec}, steps)
+    out.update({"wall_s": wall, "layers": cfg.num_layers, "params": n_params,
+                "learning_rate": opt.learning_rate, "losses": losses})
+    print(f"    {cfg.name}: {cfg.num_layers} of {ARCHS[cfg.name].num_layers} layers at full width "
+          f"({n_params / 1e9:.3f} B parameters), {steps} steps through make_train_step at lr "
+          f"{opt.learning_rate:g}, no checkpoint, {wall:.1f} s; losses "
+          + " ".join(f"{x:.4f}" for x in losses))
+    del params, state, step_fn
     gc.collect()
     torch.cuda.empty_cache()
     return out
@@ -3670,19 +3885,26 @@ def main(argv=None) -> int:
                                                  scan_sigs["SneakPeek"])
     print(f"    (c) {time.perf_counter() - t0:.1f} s")
 
-    print("[16] training: the backward kernels K3b and K5b, a step card against host, then "
-          "mamba2-130m and tinyllama-1.1b trained at full width in bf16")
+    print("[16] training: the backward kernels K3b, K5b and rglru_scan_bwd, a step card against "
+          "host, then mamba2-130m, tinyllama-1.1b, recurrentgemma-9b and gemma-7b trained at "
+          "full width in bf16")
     gc.collect()
     torch.cuda.empty_cache()
     t16 = time.perf_counter()
     t0 = time.perf_counter()
-    print("  (a) K3b and K5b against their plain versions at the training shapes")
-    k3b_t, k5b_t = check_backward_kernels(args.seed)
+    print("  (a) K3b (head dims 64, 128 and 256), K5b and rglru_scan_bwd against their plain "
+          "versions at the training shapes")
+    k3b_t, k5b_t, rglru_bwd_t = check_backward_kernels(args.seed)
     print(f"    (a) {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    print("  (b) one training step, float32, 2 layers at full width, card against host")
-    step_checks = {arch: check_train_step_card_vs_host(args.seed, arch)
-                   for arch in ("mamba2-130m", "tinyllama-1.1b")}
+    print("  (b) one training step, float32, at full width, card against host: 2 layers, and "
+          "recurrentgemma-9b's one period")
+    step_checks = {arch: check_train_step_card_vs_host(args.seed, arch, layers=layers,
+                                                       regrad=regrad)
+                   for arch, layers, regrad in (("mamba2-130m", 2, True),
+                                                ("tinyllama-1.1b", 2, True),
+                                                ("recurrentgemma-9b", 3, False),
+                                                ("gemma-7b", 2, False))}
     gc.collect()
     torch.cuda.empty_cache()
     print(f"    (b) {time.perf_counter() - t0:.1f} s")
@@ -3691,13 +3913,14 @@ def main(argv=None) -> int:
           f"S={TRAIN_SEQ}")
     trained = train_full_width(args.seed)
     print(f"    (c) {time.perf_counter() - t0:.1f} s; phase 16 {time.perf_counter() - t16:.1f} s")
-    for t, name in ((k3b_t, "flash_attention_bwd"), (k5b_t, "ssd_bwd")):
+    for t, name in ((k3b_t, "flash_attention_bwd"), (k5b_t, "ssd_bwd"),
+                    (rglru_bwd_t["train"], "rglru_scan_bwd")):
         print(f"    {name} at {t['shape']}: kernel {t['ms']:.6f} ms on the device, plain "
               f"{t['plain_ms']:.6f} ms, library "
               + ("none" if t["library_ms"] is None else f"{t['library_ms']:.6f} ms (SDPA backward)")
               + f", bound {t['bound_ms']:.6f} ms ({t['bound_by']})")
     train_launches = {name: sum(run["launches"].get(name, 0) for run in trained.values())
-                      for name in ("flash_attention", "flash_attention_bwd", "ssd", "ssd_bwd")}
+                      for name in TRAIN_KERNELS}
 
     rows = [
         ("knn_topk", "knn/csrc/knn.cu", "knn/kernel.py:92", launches, knn_t),
@@ -3774,18 +3997,22 @@ def main(argv=None) -> int:
         "selectors": {key: {"s": secs, "launches": n, "stats": st, "read_backs": rb}
                       for key, (secs, n, st, rb) in shard_b.items()}})
     # The backward kernels replace the reference's gradients (its flash
-    # attention's custom VJP; jax.grad through its SSD scan); their launches
-    # are phase 16 (c)'s training runs, their times phase 16 (a)'s.
+    # attention's custom VJP; jax.grad through its SSD scan and its RG-LRU
+    # gates and associative scan); their launches are phase 16 (c)'s
+    # training runs, their times phase 16 (a)'s.
     for name, source, replaces, t in (
             ("flash_attention_bwd", "flash_attention/csrc/flash_attention_bwd.cu",
              "src/repro/models/attention.py:265", k3b_t),
-            ("ssd_bwd", "ssd/csrc/ssd_bwd.cu", "src/repro/models/ssd.py:83", k5b_t)):
+            ("ssd_bwd", "ssd/csrc/ssd_bwd.cu", "src/repro/models/ssd.py:83", k5b_t),
+            ("rglru_scan_bwd", "rglru_scan/csrc/rglru_scan_bwd.cu",
+             "src/repro/models/rglru.py:77", {**rglru_bwd_t["train"], "cases": rglru_bwd_t})):
         table["kernels"].append({
             "name": name, "route": "cuda", "source": f"src/repro_torch/kernels/{source}",
             "replaces": replaces, "launches": train_launches[name],
             **{key: t[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                        "library_ms", "shape", "stage_ms")},
-            **{key: t[key] for key in ("f32", "llama4", "windowed") if key in t}})
+            **{key: t[key] for key in ("f32", "llama4", "windowed", "cases", *K3B_D256_SHAPES)
+               if key in t}})
     table["training"] = {"step_card_vs_host": step_checks, **{
         arch: {k: v for k, v in run.items() if k != "launches"} for arch, run in trained.items()}}
     print(f"    total {time.perf_counter() - t_start:.1f} s")

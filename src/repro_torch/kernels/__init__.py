@@ -22,9 +22,10 @@ it, never a concurrent lane's, and a lane can tell its own launches
 apart.  A process lane's launches happen in its own process; its
 parent's lane thread adds them with ``add_launches``.
 
-A kernel's output carries no gradient path of its own: only K3 and K5
-have backward kernels (K3b, K5b), reached through the autograd functions
-of ``models.attention`` and ``models.ssd``.  So every wrapper calls
+A kernel's output carries no gradient path of its own: only K3, K5 and
+the RG-LRU scan have backward kernels (K3b, K5b, ``rglru_scan_bwd``),
+reached through the autograd functions of ``models.attention``,
+``models.ssd`` and ``models.rglru``.  So every wrapper calls
 ``refuse_grad`` before it launches on the card, and a CUDA call whose
 input requires a gradient raises rather than return an output whose
 gradient would silently be zero.

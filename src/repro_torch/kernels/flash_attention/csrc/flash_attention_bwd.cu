@@ -37,8 +37,8 @@
 //            registers; the heaviest tiles go first.
 // S and dP are recomputed by both 2 and 3 (seven products where the bound
 // counts five), which keeps every sum in one block and the result
-// deterministic, bit for bit from call to call.  Head dims 16, 32, 64 and
-// 128; 256 waits for its own design (ROADMAP, queue 2, entry 7).
+// deterministic, bit for bit from call to call.  Head dims 16, 32, 64, 128
+// and 256.
 //
 // Two instances, picked by dtype (no fallback from one to the other):
 //
@@ -57,12 +57,22 @@
 //     next A fragment, as K3 packs p); dP^T = V.dO^T; dS^T = P^T o (dP^T -
 //     D) scale; dK += dS^T.Q.  dK and dV stay in fp32 registers, 16 x D a
 //     warp each; at D = 128 the query tiles are 32 rows, so S^T and dP^T
-//     take 16 registers each beside them.
+//     take 16 registers each beside them.  At D = 256 those two
+//     accumulators alone would take 256 registers a thread, so the block
+//     has 8 warps, two to each 16 keys, and each warp owns half of D: it
+//     computes S^T and dP^T over its half, the two warps of a key group
+//     exchange their halves through shared memory (16 x 32 fp32 each) and
+//     add them, and each then adds P^T.dO and dS^T.Q into its half of dV
+//     and dK (64 + 64 registers).  No product is done twice: each warp
+//     does its half of each of the block's four.  K, V, the ring and the
+//     exchange take 168,448 B of shared memory, one block an SM.
 //   - dq: a warp owns 16 of the block's 64 queries, with its L and D rows in
-//     registers (and, at D <= 64, Q's A fragments; dO's, and Q's at D =
+//     registers (and, at D <= 64, Q's A fragments; dO's, and Q's at D >=
 //     128, are read again from the resident tiles, which keeps the
-//     registers within the 255 a thread has without a spill).  K and V tiles (64 keys, 32
-//     at D = 128) come through the ring.  Per tile: S = Q.K^T; dP = dO.V^T;
+//     registers within the 255 a thread has).  K and V tiles (64 keys, 32
+//     at D >= 128) come through the ring.  At D = 256 this is K3's forward
+//     at D = 256 with dP beside S: a 16 x 256 accumulator of 128
+//     registers, 135,168 B of shared memory.  Per tile: S = Q.K^T; dP = dO.V^T;
 //     dS = P o (dP - D) scale, packed as an A fragment; dQ += dS.K.  The
 //     grid's x axis is the query head, so the G heads of a KV head share
 //     its K/V tiles in L2.
@@ -75,8 +85,10 @@
 // * fp32, on the CUDA cores (`*_kernel<D, float>`), in IEEE fp32: one block
 //   of 256 threads per 64-key or 64-query tile, everything staged in shared
 //   memory as fp32, 4 x 4 register tiles per thread, p and dS staged in
-//   shared memory between the products.  The models' f32 paths and the f32
-//   tests take it, as K3's fp32 instance stays on the CUDA cores.
+//   shared memory between the products.  At D = 256 the tiles are 32 rows
+//   (2 x 2 register tiles; 136,064 B, where 64 rows would take 280,320 B).
+//   The models' f32 paths and the f32 tests take it, as K3's fp32 instance
+//   stays on the CUDA cores.
 //
 // Measured by chip_smoke.py phase 16 (a) (NVIDIA H100 80GB HBM3, 700.00
 // W; PERF.md): the bf16 instance 0.807 ms at tinyllama's shape (dkdv 0.425,
@@ -86,7 +98,14 @@
 // (40 over 8, D = 128, B = 2) and 0.688 ms with a 1024 window (B = 2, S =
 // 2048).  What holds it back, by count: seven mma.sync products where the
 // bound counts five, at mma.sync's rate where the bound assumes wgmma's,
-// with 72 ldmatrix.x4 per 128 MMAs a warp in dkdv.
+// with 72 ldmatrix.x4 per 128 MMAs a warp in dkdv.  At D = 256 (the same
+// card): 1.682 ms at gemma-7b's training shape (B = 8, S = 1024, 16 over
+// 16; dkdv 0.932, dq 0.702), 9.7 times its bound (five products, 0.174
+// ms) and 2.3 times SDPA's backward (0.719); 5.177 ms at recurrentgemma-9b's
+// local shape (B = 2, S = 4096, 16 over 1, window 2048), where SDPA's
+// backward through a boolean mask takes 7.030; the fp32 instance 3.207 ms
+// at B = 1.  ptxas: 237
+// registers (dkdv) and 240 (dq) a thread in bf16, no spill.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -98,9 +117,12 @@ namespace {
 
 using namespace repro_mma;
 
-constexpr int kB = 64;         // query rows, and keys, per tile
 constexpr int kThreads = 256;  // 16 x 16: a thread owns rows ty + 16 i, columns tx + 16 j
-constexpr int kPS = kB + 1;    // row stride of the p / dS tile
+
+// Query rows, and keys, per tile of the fp32 instance: 64, or 32 at D = 256,
+// where four 64-row tiles would pass the 227 KB a block may have.
+template <int D>
+__host__ __device__ constexpr int f32_rows() { return D > 128 ? 32 : 64; }
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -110,9 +132,11 @@ __device__ __forceinline__ T from_f(float x);
 template <>
 __device__ __forceinline__ float from_f<float>(float x) { return x; }
 
+// Four (R, D + 1) tiles, the (R, R + 1) p / dS tile and the L and D rows.
 template <int D>
 constexpr size_t smem_bytes() {
-  return (4 * (size_t)kB * (D + 1) + (size_t)kB * kPS + 2 * kB) * sizeof(float);
+  constexpr size_t R = f32_rows<D>();
+  return (4 * R * (D + 1) + R * (R + 1) + 2 * R) * sizeof(float);
 }
 
 // D = rowsum(dO o O) in float32, one warp per (b, s, h) row, into (B, Hq, Sq).
@@ -138,13 +162,13 @@ flash_attention_bwd_dot_kernel(const T* __restrict__ o, const T* __restrict__ do
   }
 }
 
-// Rows row0 .. row0 + 63 of a (rows, D) matrix whose rows are `stride`
-// elements apart, widened to float32 into a (64, D + 1) shared tile; rows
+// Rows row0 .. row0 + R - 1 of a (rows, D) matrix whose rows are `stride`
+// elements apart, widened to float32 into a (R, D + 1) shared tile; rows
 // >= nrows are zero.
-template <int D, class T>
+template <int D, int R, class T>
 __device__ __forceinline__ void load_rows(float* dst, const T* src, int row0, int nrows,
                                           size_t stride, int tid) {
-  for (int i = tid; i < kB * D; i += kThreads) {
+  for (int i = tid; i < R * D; i += kThreads) {
     const int r = i / D;
     const int c = i - r * D;
     const int s = row0 + r;
@@ -152,25 +176,26 @@ __device__ __forceinline__ void load_rows(float* dst, const T* src, int row0, in
   }
 }
 
-// s[i][j] = a[ty + 16 i] . bt[tx + 16 j] over D, both (64, D + 1) tiles.
-template <int D>
-__device__ __forceinline__ void tile_dot(float (&s)[4][4], const float* a, const float* bt,
+// s[i][j] = a[ty + 16 i] . bt[tx + 16 j] over D, both (R, D + 1) tiles,
+// RI = R / 16.
+template <int D, int RI>
+__device__ __forceinline__ void tile_dot(float (&s)[RI][RI], const float* a, const float* bt,
                                          int tx, int ty) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < RI; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = 0.0f;
+    for (int j = 0; j < RI; ++j) s[i][j] = 0.0f;
 #pragma unroll 16
   for (int d = 0; d < D; ++d) {
-    float av[4], bv[4];
+    float av[RI], bv[RI];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) av[i] = a[(ty + 16 * i) * (D + 1) + d];
+    for (int i = 0; i < RI; ++i) av[i] = a[(ty + 16 * i) * (D + 1) + d];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) bv[j] = bt[(tx + 16 * j) * (D + 1) + d];
+    for (int j = 0; j < RI; ++j) bv[j] = bt[(tx + 16 * j) * (D + 1) + d];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < RI; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] += av[i] * bv[j];
+      for (int j = 0; j < RI; ++j) s[i][j] += av[i] * bv[j];
   }
 }
 
@@ -178,7 +203,7 @@ __device__ __forceinline__ bool visible(int qpos, int kpos, int Skv, int window)
   return kpos < Skv && kpos <= qpos && (window <= 0 || kpos > qpos - window);
 }
 
-// dK and dV of one 64-key tile of one KV head: K and V stay resident while
+// dK and dV of one tile of R keys of one KV head: K and V stay resident while
 // the block walks the G query heads and the query tiles that see the tile.
 template <int D, class T>
 __global__ void __launch_bounds__(kThreads)
@@ -187,18 +212,21 @@ flash_attention_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k
                                 const float* __restrict__ lse, const float* __restrict__ drow,
                                 T* __restrict__ dk, T* __restrict__ dv, int Sq, int Skv, int Hq,
                                 int Hkv, int window, float scale) {
+  constexpr int R = f32_rows<D>();
+  constexpr int RI = R / 16;
+  constexpr int PS = R + 1;  // row stride of the p / dS tile
   constexpr int RS = D + 1;
   constexpr int DJ = D / 16;
   extern __shared__ float smem[];
   float* ks = smem;
-  float* vs = ks + kB * RS;
-  float* qs = vs + kB * RS;
-  float* dos = qs + kB * RS;
-  float* ps = dos + kB * RS;  // p, then dS: (64 queries, 64 keys)
-  float* ls = ps + kB * kPS;
-  float* dls = ls + kB;
+  float* vs = ks + R * RS;
+  float* qs = vs + R * RS;
+  float* dos = qs + R * RS;
+  float* ps = dos + R * RS;  // p, then dS: (R queries, R keys)
+  float* ls = ps + R * PS;
+  float* dls = ls + R;
 
-  const int k0 = blockIdx.x * kB;
+  const int k0 = blockIdx.x * R;
   const int hk = blockIdx.y;
   const int b = blockIdx.z;
   const int G = Hq / Hkv;
@@ -209,22 +237,22 @@ flash_attention_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k
   const size_t kv_stride = (size_t)Hkv * D;
   const size_t q_stride = (size_t)Hq * D;
 
-  load_rows<D>(ks, k + ((size_t)b * Skv * Hkv + hk) * D, k0, Skv, kv_stride, tid);
-  load_rows<D>(vs, v + ((size_t)b * Skv * Hkv + hk) * D, k0, Skv, kv_stride, tid);
+  load_rows<D, R>(ks, k + ((size_t)b * Skv * Hkv + hk) * D, k0, Skv, kv_stride, tid);
+  load_rows<D, R>(vs, v + ((size_t)b * Skv * Hkv + hk) * D, k0, Skv, kv_stride, tid);
 
-  float dka[4][DJ], dva[4][DJ];
+  float dka[RI][DJ], dva[RI][DJ];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < RI; ++i)
 #pragma unroll
     for (int j = 0; j < DJ; ++j) dka[i][j] = dva[i][j] = 0.0f;
 
   // The query rows that see a key of this tile: position >= k0 and, with a
   // window, position <= the tile's last key + window - 1.
-  const int k_last = min(k0 + kB, Skv) - 1;
+  const int k_last = min(k0 + R, Skv) - 1;
   const int i_lo = max(0, k0 - offset);
   const int i_hi = window > 0 ? min(Sq - 1, k_last + window - 1 - offset) : Sq - 1;
-  const int qt_lo = i_lo / kB;
-  const int qt_hi = i_hi >= i_lo ? i_hi / kB : qt_lo - 1;
+  const int qt_lo = i_lo / R;
+  const int qt_hi = i_hi >= i_lo ? i_hi / R : qt_lo - 1;
 
   for (int g = 0; g < G; ++g) {
     const int h = hk * G + g;
@@ -233,64 +261,64 @@ flash_attention_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k
     const float* lb = lse + ((size_t)b * Hq + h) * Sq;
     const float* drb = drow + ((size_t)b * Hq + h) * Sq;
     for (int qt = qt_lo; qt <= qt_hi; ++qt) {
-      const int q0 = qt * kB;
+      const int q0 = qt * R;
       __syncthreads();  // the previous query tile is consumed
-      load_rows<D>(qs, qb, q0, Sq, q_stride, tid);
-      load_rows<D>(dos, db, q0, Sq, q_stride, tid);
-      for (int r = tid; r < kB; r += kThreads) {
+      load_rows<D, R>(qs, qb, q0, Sq, q_stride, tid);
+      load_rows<D, R>(dos, db, q0, Sq, q_stride, tid);
+      for (int r = tid; r < R; r += kThreads) {
         const bool in = q0 + r < Sq;
         ls[r] = in ? lb[q0 + r] : 0.0f;
         dls[r] = in ? drb[q0 + r] : 0.0f;
       }
       __syncthreads();
 
-      float p[4][4], dp[4][4];
-      tile_dot<D>(p, qs, ks, tx, ty);
-      tile_dot<D>(dp, dos, vs, tx, ty);
+      float p[RI][RI], dp[RI][RI];
+      tile_dot<D, RI>(p, qs, ks, tx, ty);
+      tile_dot<D, RI>(dp, dos, vs, tx, ty);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < RI; ++i) {
         const int r = ty + 16 * i;
         const int qpos = offset + q0 + r;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < RI; ++j) {
           const int c = tx + 16 * j;
           const bool ok = q0 + r < Sq && visible(qpos, k0 + c, Skv, window);
           p[i][j] = ok ? expf(p[i][j] * scale - ls[r]) : 0.0f;
-          ps[r * kPS + c] = p[i][j];
+          ps[r * PS + c] = p[i][j];
         }
       }
       __syncthreads();
       // dV[c][d] += sum_r p[r][c] dO[r][d]
 #pragma unroll 4
-      for (int r = 0; r < kB; ++r) {
-        float pr[4], dov[DJ];
+      for (int r = 0; r < R; ++r) {
+        float pr[RI], dov[DJ];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) pr[i] = ps[r * kPS + ty + 16 * i];
+        for (int i = 0; i < RI; ++i) pr[i] = ps[r * PS + ty + 16 * i];
 #pragma unroll
         for (int j = 0; j < DJ; ++j) dov[j] = dos[r * RS + tx + 16 * j];
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < RI; ++i)
 #pragma unroll
           for (int j = 0; j < DJ; ++j) dva[i][j] += pr[i] * dov[j];
       }
       __syncthreads();  // p is read; dS takes its place
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < RI; ++i) {
         const int r = ty + 16 * i;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) ps[r * kPS + tx + 16 * j] = p[i][j] * (dp[i][j] - dls[r]) * scale;
+        for (int j = 0; j < RI; ++j) ps[r * PS + tx + 16 * j] = p[i][j] * (dp[i][j] - dls[r]) * scale;
       }
       __syncthreads();
       // dK[c][d] += sum_r dS[r][c] q[r][d]
 #pragma unroll 4
-      for (int r = 0; r < kB; ++r) {
-        float sr[4], qv[DJ];
+      for (int r = 0; r < R; ++r) {
+        float sr[RI], qv[DJ];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) sr[i] = ps[r * kPS + ty + 16 * i];
+        for (int i = 0; i < RI; ++i) sr[i] = ps[r * PS + ty + 16 * i];
 #pragma unroll
         for (int j = 0; j < DJ; ++j) qv[j] = qs[r * RS + tx + 16 * j];
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < RI; ++i)
 #pragma unroll
           for (int j = 0; j < DJ; ++j) dka[i][j] += sr[i] * qv[j];
       }
@@ -298,7 +326,7 @@ flash_attention_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < RI; ++i) {
     const int kpos = k0 + ty + 16 * i;
     if (kpos >= Skv) continue;
     const size_t base = ((size_t)(b * Skv + kpos) * Hkv + hk) * D;
@@ -310,7 +338,7 @@ flash_attention_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k
   }
 }
 
-// dQ of one 64-row query tile of one query head: the forward's walk over
+// dQ of one R-row query tile of one query head: the forward's walk over
 // the key tiles it sees.
 template <int D, class T>
 __global__ void __launch_bounds__(kThreads)
@@ -319,22 +347,25 @@ flash_attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                               const float* __restrict__ lse, const float* __restrict__ drow,
                               T* __restrict__ dq, int Sq, int Skv, int Hq, int Hkv, int window,
                               float scale) {
+  constexpr int R = f32_rows<D>();
+  constexpr int RI = R / 16;
+  constexpr int PS = R + 1;  // row stride of the dS tile
   constexpr int RS = D + 1;
   constexpr int DJ = D / 16;
   extern __shared__ float smem[];
   float* qs = smem;
-  float* dos = qs + kB * RS;
-  float* ks = dos + kB * RS;
-  float* vs = ks + kB * RS;
-  float* ps = vs + kB * RS;  // dS: (64 queries, 64 keys)
-  float* ls = ps + kB * kPS;
-  float* dls = ls + kB;
+  float* dos = qs + R * RS;
+  float* ks = dos + R * RS;
+  float* vs = ks + R * RS;
+  float* ps = vs + R * RS;  // dS: (R queries, R keys)
+  float* ls = ps + R * PS;
+  float* dls = ls + R;
 
   const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest (last) tiles first
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int hk = h / (Hq / Hkv);
-  const int q0 = qt * kB;
+  const int q0 = qt * R;
   const int offset = Skv - Sq;
   const int tid = threadIdx.x;
   const int tx = tid & 15;
@@ -342,69 +373,69 @@ flash_attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const size_t kv_stride = (size_t)Hkv * D;
   const size_t q_stride = (size_t)Hq * D;
 
-  load_rows<D>(qs, q + ((size_t)b * Sq * Hq + h) * D, q0, Sq, q_stride, tid);
-  load_rows<D>(dos, dout + ((size_t)b * Sq * Hq + h) * D, q0, Sq, q_stride, tid);
-  for (int r = tid; r < kB; r += kThreads) {
+  load_rows<D, R>(qs, q + ((size_t)b * Sq * Hq + h) * D, q0, Sq, q_stride, tid);
+  load_rows<D, R>(dos, dout + ((size_t)b * Sq * Hq + h) * D, q0, Sq, q_stride, tid);
+  for (int r = tid; r < R; r += kThreads) {
     const bool in = q0 + r < Sq;
     ls[r] = in ? lse[((size_t)b * Hq + h) * Sq + q0 + r] : 0.0f;
     dls[r] = in ? drow[((size_t)b * Hq + h) * Sq + q0 + r] : 0.0f;
   }
 
-  float dqa[4][DJ];
+  float dqa[RI][DJ];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < RI; ++i)
 #pragma unroll
     for (int j = 0; j < DJ; ++j) dqa[i][j] = 0.0f;
 
   const int q_first = offset + q0;
-  const int q_last = offset + min(q0 + kB, Sq) - 1;
+  const int q_last = offset + min(q0 + R, Sq) - 1;
   const int k_stop = min(Skv, q_last + 1);
   int k_start = 0;
   if (window > 0) {
     const int lo = q_first - window + 1;
-    k_start = lo > 0 ? (lo / kB) * kB : 0;
+    k_start = lo > 0 ? (lo / R) * R : 0;
   }
   const T* kb = k + ((size_t)b * Skv * Hkv + hk) * D;
   const T* vb = v + ((size_t)b * Skv * Hkv + hk) * D;
 
-  for (int k0 = k_start; k0 < k_stop; k0 += kB) {
+  for (int k0 = k_start; k0 < k_stop; k0 += R) {
     __syncthreads();  // the previous key tile is consumed (and q, dO are staged)
-    load_rows<D>(ks, kb, k0, Skv, kv_stride, tid);
-    load_rows<D>(vs, vb, k0, Skv, kv_stride, tid);
+    load_rows<D, R>(ks, kb, k0, Skv, kv_stride, tid);
+    load_rows<D, R>(vs, vb, k0, Skv, kv_stride, tid);
     __syncthreads();
-    float p[4][4], dp[4][4];
-    tile_dot<D>(p, qs, ks, tx, ty);
-    tile_dot<D>(dp, dos, vs, tx, ty);
+    float p[RI][RI], dp[RI][RI];
+    tile_dot<D, RI>(p, qs, ks, tx, ty);
+    tile_dot<D, RI>(dp, dos, vs, tx, ty);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < RI; ++i) {
       const int r = ty + 16 * i;
       const int qpos = q_first + r;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < RI; ++j) {
         const int c = tx + 16 * j;
         const bool ok = q0 + r < Sq && visible(qpos, k0 + c, Skv, window);
         const float pv = ok ? expf(p[i][j] * scale - ls[r]) : 0.0f;
-        ps[r * kPS + c] = pv * (dp[i][j] - dls[r]) * scale;
+        ps[r * PS + c] = pv * (dp[i][j] - dls[r]) * scale;
       }
     }
     __syncthreads();
     // dQ[r][d] += sum_c dS[r][c] k[c][d]
 #pragma unroll 4
-    for (int c = 0; c < kB; ++c) {
-      float sr[4], kv[DJ];
+    for (int c = 0; c < R; ++c) {
+      float sr[RI], kv[DJ];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) sr[i] = ps[(ty + 16 * i) * kPS + c];
+      for (int i = 0; i < RI; ++i) sr[i] = ps[(ty + 16 * i) * PS + c];
 #pragma unroll
       for (int j = 0; j < DJ; ++j) kv[j] = ks[c * RS + tx + 16 * j];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RI; ++i)
 #pragma unroll
         for (int j = 0; j < DJ; ++j) dqa[i][j] += sr[i] * kv[j];
     }
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < RI; ++i) {
     const int s = q0 + ty + 16 * i;
     if (s >= Sq) continue;
     T* out = dq + ((size_t)(b * Sq + s) * Hq + h) * D;
@@ -419,20 +450,35 @@ constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kTcThreads = 128;  // 4 warps, 16 keys (dkdv) or queries (dq) each
 constexpr int kTcRows = 64;      // keys of a dkdv block, queries of a dq block
 
-// Queries per dkdv tile and keys per dq tile: 64, or 32 at D = 128, which
+// Queries per dkdv tile and keys per dq tile: 64, or 32 at D >= 128, which
 // keeps the two score-sized accumulators at 16 registers each.
 template <int D>
 __host__ __device__ constexpr int tc_cols() { return D <= 64 ? 64 : 32; }
 
+// Warps that share a dkdv block's 16 keys, each owning D / kv_split of the
+// columns of their dK and dV: 2 at D = 256, where one warp's two 16 x 256
+// fp32 accumulators would need 256 registers a thread.
+template <int D>
+__host__ __device__ constexpr int kv_split() { return D > 128 ? 2 : 1; }
+
+template <int D>
+__host__ __device__ constexpr int dkdv_threads() { return kTcThreads * kv_split<D>(); }
+
 // Both kernels hold two 64-row tiles and a ring of two stages of two
-// tc_cols-row tiles; dkdv also stages the L and D rows of its query tiles.
+// tc_cols-row tiles; dkdv also stages the L and D rows of its query tiles
+// and, with a split, each warp's partial S^T and dP^T (16 x tc_cols fp32
+// each), which the two warps of a key group exchange.
 template <int D>
 constexpr size_t tc_tiles_bytes() {
   return (size_t)(2 * kTcRows + 4 * tc_cols<D>()) * row_stride<D>() * sizeof(__nv_bfloat16);
 }
 
 template <int D>
-constexpr size_t dkdv_smem_bytes() { return tc_tiles_bytes<D>() + 4 * tc_cols<D>() * sizeof(float); }
+constexpr size_t dkdv_smem_bytes() {
+  constexpr size_t exchange =
+      kv_split<D>() > 1 ? (size_t)(dkdv_threads<D>() / 32) * 2 * 16 * tc_cols<D>() : 0;
+  return tc_tiles_bytes<D>() + (4 * tc_cols<D>() + exchange) * sizeof(float);
+}
 
 template <int N>
 __device__ __forceinline__ void zero_acc(float (&acc)[N][4]) {
@@ -440,15 +486,16 @@ __device__ __forceinline__ void zero_acc(float (&acc)[N][4]) {
   for (int j = 0; j < N; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
 }
 
-// acc (n-tiles over the tile's rows r) += A . rows^T, the A fragments read
-// by ldmatrix at `arow` (16 rows, D wide) or taken from `af`, B from the
-// shared tile `rows` (NR rows, D wide).
-template <int D, int NR, bool kHeld>
+// acc (n-tiles over the tile's rows r) += A . rows^T over K of the columns
+// (all D unless given), the A fragments read by ldmatrix at `arow` (16 rows)
+// or taken from `af`, B from the shared tile `rows` (NR rows); both tiles
+// have D-wide rows.
+template <int D, int NR, bool kHeld, int K = D>
 __device__ __forceinline__ void mma_rows(float (&acc)[NR / 8][4], uint32_t (*af)[4],
                                          const __nv_bfloat16* arow, const __nv_bfloat16* rows,
                                          int lane) {
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
+  for (int kk = 0; kk < K / 16; ++kk) {
     uint32_t a[4];
     if constexpr (kHeld) {
 #pragma unroll
@@ -466,11 +513,11 @@ __device__ __forceinline__ void mma_rows(float (&acc)[NR / 8][4], uint32_t (*af)
   }
 }
 
-// out (16 x D) += X . cols, X the warp's 16 x NR accumulator rounded to
-// bf16 as A fragments, cols the shared tile (NR rows, D wide) through
-// ldmatrix.trans.
-template <int D, int NR>
-__device__ __forceinline__ void mma_acc_cols(float (&out)[D / 8][4], const float (&x)[NR / 8][4],
+// out (16 x N) += X . cols, X the warp's 16 x NR accumulator rounded to
+// bf16 as A fragments, cols N columns (all D unless given) of the shared
+// tile (NR rows, D wide) through ldmatrix.trans.
+template <int D, int NR, int N = D>
+__device__ __forceinline__ void mma_acc_cols(float (&out)[N / 8][4], const float (&x)[NR / 8][4],
                                              const __nv_bfloat16* cols, int lane) {
 #pragma unroll
   for (int kk = 0; kk < NR / 16; ++kk) {
@@ -481,7 +528,7 @@ __device__ __forceinline__ void mma_acc_cols(float (&out)[D / 8][4], const float
         pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3]),
     };
 #pragma unroll
-    for (int nd = 0; nd < D / 16; ++nd) {
+    for (int nd = 0; nd < N / 16; ++nd) {
       uint32_t bf[4];
       ldmatrix_x4_trans(bf, a_frag_at<D>(cols + kk * 16 * row_stride<D>() + nd * 16, lane));
       mma_bf16(out[2 * nd], a, bf[0], bf[1]);
@@ -491,8 +538,9 @@ __device__ __forceinline__ void mma_acc_cols(float (&out)[D / 8][4], const float
 }
 
 // Rows 16 x D of a warp's fp32 accumulator, rounded to bf16, to rows
-// row0 .. row0 + 15 (those < nrows) of a (rows, D) matrix with row stride
-// `stride`; the lane writes columns 2t, 2t + 1 of every n-tile.
+// row0 .. row0 + 15 (those < nrows) of a matrix with row stride `stride`
+// (the first D columns at dst); the lane writes columns 2t, 2t + 1 of every
+// n-tile.
 template <int D>
 __device__ __forceinline__ void store_rows(__nv_bfloat16* dst, const float (&acc)[D / 8][4],
                                            int row0, int nrows, size_t stride, int lane) {
@@ -511,7 +559,7 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* dst, const float (&acc
 }
 
 template <int D>
-__global__ void __launch_bounds__(kTcThreads)
+__global__ void __launch_bounds__(dkdv_threads<D>())
 flash_attention_bwd_dkdv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                                      const __nv_bfloat16* __restrict__ k,
                                      const __nv_bfloat16* __restrict__ v,
@@ -522,8 +570,11 @@ flash_attention_bwd_dkdv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                                      int Hkv, int window, float scale, float scale_log2) {
   constexpr int ST = row_stride<D>();
   constexpr int BQ = tc_cols<D>();
-  constexpr int ND = D / 8;   // n-tiles of dK and dV
-  constexpr int NQ = BQ / 8;  // n-tiles of S^T and dP^T
+  constexpr int SPLIT = kv_split<D>();
+  constexpr int THREADS = dkdv_threads<D>();
+  constexpr int DW = D / SPLIT;  // columns of dK and dV a warp owns
+  constexpr int ND = DW / 8;     // n-tiles of dK and dV
+  constexpr int NQ = BQ / 8;     // n-tiles of S^T and dP^T
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // 64 x ST
   __nv_bfloat16* vs = ks + kTcRows * ST;                           // 64 x ST
@@ -531,6 +582,7 @@ flash_attention_bwd_dkdv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   __nv_bfloat16* dos = qs + 2 * BQ * ST;                           // stages x BQ x ST
   float* ls = reinterpret_cast<float*>(dos + 2 * BQ * ST);         // stages x BQ
   float* dls = ls + 2 * BQ;                                        // stages x BQ
+  float4* xs = reinterpret_cast<float4*>(dls + 2 * BQ);  // warps x 2 NQ x 32 lanes (SPLIT > 1)
 
   const int hk = blockIdx.x;
   const int b = blockIdx.y;
@@ -542,7 +594,9 @@ flash_attention_bwd_dkdv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   const int lane = tid & 31;
   const int g = lane >> 2;  // the accumulator rows (keys) g and g + 8 of the warp
   const int t = lane & 3;   // the accumulator columns 2t and 2t + 1 of each n-tile
-  const int kw = k0 + warp * 16;  // the warp's first key
+  const int kg = warp / SPLIT;   // the warp's 16 keys: kg * 16 .. kg * 16 + 15 of the block's
+  const int dc = (warp % SPLIT) * DW;  // the warp's first column of dK and dV
+  const int kw = k0 + kg * 16;  // the warp's first key
   const size_t kv_stride = (size_t)Hkv * D;
   const size_t q_stride = (size_t)Hq * D;
 
@@ -561,8 +615,8 @@ flash_attention_bwd_dkdv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     const int h = hk * G + it / n_qt;
     const int q0 = (qt_lo + it % n_qt) * BQ;
     const size_t head = ((size_t)b * Sq * Hq + h) * D;
-    cp_async_rows<D, BQ, kTcThreads>(qs + stage * BQ * ST, q + head, q0, Sq, q_stride, tid);
-    cp_async_rows<D, BQ, kTcThreads>(dos + stage * BQ * ST, dout + head, q0, Sq, q_stride, tid);
+    cp_async_rows<D, BQ, THREADS>(qs + stage * BQ * ST, q + head, q0, Sq, q_stride, tid);
+    cp_async_rows<D, BQ, THREADS>(dos + stage * BQ * ST, dout + head, q0, Sq, q_stride, tid);
     if (tid < BQ) {
       const bool in = q0 + tid < Sq;
       const size_t at = ((size_t)b * Hq + h) * Sq + (in ? q0 + tid : 0);
@@ -571,15 +625,15 @@ flash_attention_bwd_dkdv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     }
   };
 
-  cp_async_rows<D, kTcRows, kTcThreads>(ks, k + ((size_t)b * Skv * Hkv + hk) * D, k0, Skv,
-                                        kv_stride, tid);
-  cp_async_rows<D, kTcRows, kTcThreads>(vs, v + ((size_t)b * Skv * Hkv + hk) * D, k0, Skv,
-                                        kv_stride, tid);
+  cp_async_rows<D, kTcRows, THREADS>(ks, k + ((size_t)b * Skv * Hkv + hk) * D, k0, Skv,
+                                     kv_stride, tid);
+  cp_async_rows<D, kTcRows, THREADS>(vs, v + ((size_t)b * Skv * Hkv + hk) * D, k0, Skv,
+                                     kv_stride, tid);
   if (n_it > 0) issue(0, 0);
   cp_async_commit();
 
-  const __nv_bfloat16* krow = a_frag_at<D>(ks + warp * 16 * ST, lane);
-  const __nv_bfloat16* vrow = a_frag_at<D>(vs + warp * 16 * ST, lane);
+  const __nv_bfloat16* krow = a_frag_at<D>(ks + kg * 16 * ST + dc, lane);
+  const __nv_bfloat16* vrow = a_frag_at<D>(vs + kg * 16 * ST + dc, lane);
   float dka[ND][4], dva[ND][4];
   zero_acc(dka);
   zero_acc(dva);
@@ -601,9 +655,31 @@ flash_attention_bwd_dkdv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     const float* dlst = dls + stage * BQ;
 
     // S^T = K . Q^T for the warp's 16 keys and the tile's BQ queries.
-    float st[NQ][4];
+    float st[NQ][4], dpt[NQ][4];
     zero_acc(st);
-    mma_rows<D, BQ, false>(st, nullptr, krow, qst, lane);
+    mma_rows<D, BQ, false, DW>(st, nullptr, krow, qst + dc, lane);
+    if constexpr (SPLIT > 1) {
+      // Each warp of the pair has summed over its half of D: dP^T's half too,
+      // then the halves are exchanged through shared memory and added, own +
+      // other (the same sum in both warps: fp32 addition commutes).
+      zero_acc(dpt);
+      mma_rows<D, BQ, false, DW>(dpt, nullptr, vrow, dost + dc, lane);
+      float4* mine = xs + warp * 2 * NQ * 32 + lane;
+#pragma unroll
+      for (int j = 0; j < NQ; ++j) {
+        mine[j * 32] = make_float4(st[j][0], st[j][1], st[j][2], st[j][3]);
+        mine[(NQ + j) * 32] = make_float4(dpt[j][0], dpt[j][1], dpt[j][2], dpt[j][3]);
+      }
+      __syncthreads();
+      const float4* other = xs + (warp ^ 1) * 2 * NQ * 32 + lane;
+#pragma unroll
+      for (int j = 0; j < NQ; ++j) {
+        const float4 o = other[j * 32];
+        const float4 od = other[(NQ + j) * 32];
+        st[j][0] += o.x, st[j][1] += o.y, st[j][2] += o.z, st[j][3] += o.w;
+        dpt[j][0] += od.x, dpt[j][1] += od.y, dpt[j][2] += od.z, dpt[j][3] += od.w;
+      }
+    }
 
     // P^T, in the log2 domain; the masks only where the warp's keys and the
     // tile's queries are not all visible to each other.
@@ -627,12 +703,14 @@ flash_attention_bwd_dkdv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     }
 
     // dV += P^T . dO
-    mma_acc_cols<D, BQ>(dva, st, dost, lane);
+    mma_acc_cols<D, BQ, DW>(dva, st, dost + dc, lane);
 
-    // dP^T = V . dO^T, then dS^T = P^T o (dP^T - D) scale in its place.
-    float dpt[NQ][4];
-    zero_acc(dpt);
-    mma_rows<D, BQ, false>(dpt, nullptr, vrow, dost, lane);
+    // dP^T = V . dO^T (computed above with a split), then dS^T = P^T o
+    // (dP^T - D) scale in its place.
+    if constexpr (SPLIT == 1) {
+      zero_acc(dpt);
+      mma_rows<D, BQ, false>(dpt, nullptr, vrow, dost, lane);
+    }
 #pragma unroll
     for (int j = 0; j < NQ; ++j) {
 #pragma unroll
@@ -645,14 +723,14 @@ flash_attention_bwd_dkdv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     }
 
     // dK += dS^T . Q
-    mma_acc_cols<D, BQ>(dka, dpt, qst, lane);
-    __syncthreads();  // this stage is consumed before the next load overwrites it
+    mma_acc_cols<D, BQ, DW>(dka, dpt, qst + dc, lane);
+    __syncthreads();  // this stage (and the exchange) is consumed before the next overwrites it
   }
 
   cp_async_wait<0>();  // (K and V were loaded even where no query sees the tile)
-  const size_t base = ((size_t)b * Skv * Hkv + hk) * D;
-  store_rows<D>(dk + base, dka, kw, Skv, kv_stride, lane);
-  store_rows<D>(dv + base, dva, kw, Skv, kv_stride, lane);
+  const size_t base = ((size_t)b * Skv * Hkv + hk) * D + dc;
+  store_rows<DW>(dk + base, dka, kw, Skv, kv_stride, lane);
+  store_rows<DW>(dv + base, dva, kw, Skv, kv_stride, lane);
 }
 
 template <int D>
@@ -814,12 +892,13 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, const void* 
   auto drp = static_cast<float*>(drow);
   err = launch_dot<T>(o, dout, drow, B, Sq, Hq, D, s);
   if (err != cudaSuccess) return err;
-  kv_kernel<<<dim3((Skv + kB - 1) / kB, Hkv, B), kThreads, smem, s>>>(
+  constexpr int R = f32_rows<D>();
+  kv_kernel<<<dim3((Skv + R - 1) / R, Hkv, B), kThreads, smem, s>>>(
       qp, kp, vp, dop, lp, drp, static_cast<T*>(dk), static_cast<T*>(dv), Sq, Skv, Hq, Hkv,
       window, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  q_kernel<<<dim3((Sq + kB - 1) / kB, Hq, B), kThreads, smem, s>>>(
+  q_kernel<<<dim3((Sq + R - 1) / R, Hq, B), kThreads, smem, s>>>(
       qp, kp, vp, dop, lp, drp, static_cast<T*>(dq), Sq, Skv, Hq, Hkv, window, scale);
   return cudaGetLastError();
 }
@@ -848,7 +927,7 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, const void*
   err = launch_dot<T>(o, dout, drow, B, Sq, Hq, D, s);
   if (err != cudaSuccess) return err;
   const float scale_log2 = scale * kLog2e;
-  kv_kernel<<<dim3(Hkv, B, (Skv + kTcRows - 1) / kTcRows), kTcThreads, kv_smem, s>>>(
+  kv_kernel<<<dim3(Hkv, B, (Skv + kTcRows - 1) / kTcRows), dkdv_threads<D>(), kv_smem, s>>>(
       qp, kp, vp, dop, lp, drp, static_cast<T*>(dk), static_cast<T*>(dv), Sq, Skv, Hq, Hkv,
       window, scale, scale_log2);
   err = cudaGetLastError();
@@ -867,6 +946,8 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, const void*
     case 64: return LAUNCH<64>(q, k, v, o, dout, lse, drow, dq, dk, dv, B, Sq, Skv, Hq, Hkv,  \
                                window, scale, s);                                           \
     case 128: return LAUNCH<128>(q, k, v, o, dout, lse, drow, dq, dk, dv, B, Sq, Skv, Hq,     \
+                                 Hkv, window, scale, s);                                    \
+    case 256: return LAUNCH<256>(q, k, v, o, dout, lse, drow, dq, dk, dv, B, Sq, Skv, Hq,     \
                                  Hkv, window, scale, s);                                    \
     default: return cudaErrorInvalidValue;                                                  \
   }

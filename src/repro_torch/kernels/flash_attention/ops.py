@@ -30,15 +30,14 @@ from repro_torch.kernels import LaunchCounter, nvcc, refuse_grad
 from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref, flash_attention_ref
 
 __all__ = ["flash_attention", "flash_attention_bwd", "counter", "bwd_counter", "HEAD_DIMS",
-           "BWD_HEAD_DIMS", "DTYPES"]
+           "DTYPES"]
 
 counter = LaunchCounter("flash_attention")
 bwd_counter = LaunchCounter("flash_attention_bwd")
 
-# K3b's instances; head dim 256 waits for its own design (ROADMAP, queue 2, entry 7).
-BWD_HEAD_DIMS = (16, 32, 64, 128)
-
-HEAD_DIMS = (16, 32, 64, 128, 256)  # the kernel's instances (K4 shares them)
+# The kernels' instances, K3's, K3b's and K4's (at 256 a K3b dkdv block
+# splits D between two warps a key group).
+HEAD_DIMS = (16, 32, 64, 128, 256)
 # dtype -> the C entry point's instance: 0 the fp32 CUDA-core kernel, 1 the
 # bf16 tensor-core kernel.
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -153,10 +152,8 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, window: int = 0, scale=None):
         raise TypeError(f"the flash-attention backward takes float32 or bfloat16, got {q.dtype}")
     if o.dtype != q.dtype or do.dtype != q.dtype:
         raise TypeError(f"o and do must be {q.dtype}, got {o.dtype} and {do.dtype}")
-    if d not in BWD_HEAD_DIMS:
-        raise NotImplementedError(
-            f"the flash-attention backward takes D in {BWD_HEAD_DIMS}, got {d}: head dim 256 "
-            "waits for its own design (ROADMAP, queue 2, entry 7)")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"the flash-attention backward takes D in {HEAD_DIMS}, got {d}")
     # The bf16 instance copies rows in 16-byte pieces; an input that starts
     # off a 16-byte boundary is copied to a fresh (aligned) tensor first.
     q, k, v, o, do, lse = (t.contiguous() for t in (q, k, v, o, do, lse))

@@ -57,6 +57,7 @@ _LRU_H = _KERNELS_DIR / "selection_scan" / "csrc" / "lru.cuh"
 _STEP_H = _KERNELS_DIR / "selection_scan" / "csrc" / "step.cuh"
 _AHEAD_H = _KERNELS_DIR / "selection_scan" / "csrc" / "ahead.cuh"
 _MMA_H = _KERNELS_DIR / "flash_attention" / "csrc" / "mma.cuh"
+_RGLRU_H = _KERNELS_DIR / "rglru_scan" / "csrc" / "rglru.cuh"
 
 SOURCES: dict[str, Source] = {
     "knn": Source("knn", _KERNELS_DIR / "knn" / "csrc" / "knn.cu"),
@@ -98,7 +99,14 @@ SOURCES: dict[str, Source] = {
     ),
     "ssd": Source("ssd", _KERNELS_DIR / "ssd" / "csrc" / "ssd.cu"),
     "ssd_bwd": Source("ssd_bwd", _KERNELS_DIR / "ssd" / "csrc" / "ssd_bwd.cu"),
-    "rglru_scan": Source("rglru_scan", _KERNELS_DIR / "rglru_scan" / "csrc" / "rglru_scan.cu"),
+    # The scan and its backward share the gate arithmetic of rglru.cuh, so
+    # the backward's recomputed h is the forward's.
+    "rglru_scan": Source("rglru_scan", _KERNELS_DIR / "rglru_scan" / "csrc" / "rglru_scan.cu",
+                         headers=(_RGLRU_H,)),
+    "rglru_scan_bwd": Source(
+        "rglru_scan_bwd", _KERNELS_DIR / "rglru_scan" / "csrc" / "rglru_scan_bwd.cu",
+        headers=(_RGLRU_H,),
+    ),
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

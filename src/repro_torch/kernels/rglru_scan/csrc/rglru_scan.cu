@@ -54,7 +54,10 @@
 // device memory (the same arithmetic).  At S <= kChunk (the decode step)
 // pass 2 runs alone, with no summaries: one launch.  The grid depends on
 // the shapes only and nothing is read back, so the decode step can be
-// captured in a CUDA graph.
+// captured in a CUDA graph.  For training, pass 2 also writes the carry
+// entering each chunk, (B, nc, L) float32, from which the backward
+// (rglru_scan_bwd.cu) recomputes h; the gate arithmetic lives in
+// rglru.cuh, shared with it, so the two kernels' h agree bit for bit.
 //
 // Numerics: the chunk combine adds the products in another order than a
 // sequential loop, and the reference's associative scan in a third, so the
@@ -68,46 +71,14 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "rglru.cuh"
+
 namespace {
 
-constexpr int kChunk = 64;  // steps of a chunk
-constexpr int kCh = 128;    // channels of a block, one a thread
+using namespace rglru;
+
 constexpr int kRows = 16;   // rows of a staged tile
 static_assert(kChunk % kRows == 0, "a chunk is a whole number of staged tiles");
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as torch's cast
-}
-
-// A sigmoid's argument is held above -kSigmoidFloor, where the sigmoid is
-// below 7e-13: its denominator 1 + exp(-x) stays below 1.5e12, so the
-// product of two stays finite and a fast reciprocal takes it.
-constexpr float kSigmoidFloor = 28.0f;
-
-// sigmoid(x) and sigmoid(y) from two exponentials and one reciprocal, by
-// the special-function unit's approximations (each within a few ulp).
-__device__ __forceinline__ void sigmoid2(float x, float y, float& sx, float& sy) {
-  const float dx = 1.0f + __expf(-fmaxf(x, -kSigmoidFloor));
-  const float dy = 1.0f + __expf(-fmaxf(y, -kSigmoidFloor));
-  const float inv = __fdividef(1.0f, dx * dy);
-  sx = dy * inv;
-  sy = dx * inv;
-}
-
-// log(1 + exp(x)), and x itself above 20, as torch's softplus (once a
-// channel: the accurate functions).
-__device__ __forceinline__ float softplus(float x) { return x > 20.0f ? x : log1pf(expf(x)); }
-
-// GeLU, tanh approximation: 0.5 x (1 + tanh(z)) = x * sigmoid(2 z).
-__device__ __forceinline__ float gelu_tanh(float x) {
-  const float k2 = 1.5957691216057308f;  // 2 sqrt(2 / pi)
-  const float z2 = k2 * (x + 0.044715f * x * x * x);
-  return __fdividef(x, 1.0f + __expf(-fmaxf(z2, -kSigmoidFloor)));
-}
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
@@ -133,24 +104,9 @@ struct Args {
   float* h_last;
   float* sum_a;  // (B, nc - 1, L): each chunk's prod a
   float* sum_h;  // (B, nc - 1, L): each chunk's h from a zero start
+  float* carries;  // (B, nc, L): the h entering each chunk, for the backward; or null
   int B, S, L, nc;
 };
-
-// A channel's gate weights: a = exp(neg_c_sp * sigmoid(u * aw + ab)).
-struct Gates {
-  float aw, ab, xw, xb, neg_c_sp;
-};
-
-// a and b·x of one element: five special-function operations (three
-// exponentials, a reciprocal, a reciprocal square root), the same in both
-// passes.
-__device__ __forceinline__ void gates(const Gates& q, float uf, float& a, float& bx) {
-  float r, i;
-  sigmoid2(uf * q.aw + q.ab, uf * q.xw + q.xb, r, i);
-  a = __expf(q.neg_c_sp * r);
-  const float v = fminf(fmaxf(1.0f - a * a, 1e-12f), 1.0f);
-  bx = v * rsqrtf(v) * i * uf;  // sqrt(v) i u
-}
 
 // cp.async of `rows` rows of the block's kCh channels of u (and g, into the
 // second half of the tile), starting at row `row` of the (B * S, L) rows.
@@ -194,19 +150,16 @@ __device__ __forceinline__ void chunk(const Args<T>& p) {
   Gates q{};
   float h = 0.0f, prod = 1.0f;
   if (live) {
-    q.aw = to_f(p.a_w[c]);
-    q.ab = to_f(p.a_b[c]);
-    q.xw = to_f(p.x_w[c]);
-    q.xb = to_f(p.x_b[c]);
-    q.neg_c_sp = -8.0f * softplus(to_f(p.lam[c]));
+    q = load_gates(p.a_w, p.a_b, p.x_w, p.x_b, p.lam, c);
     if (kGate) {
       // The carry into this chunk: h0 through the summaries before it.
       h = p.h0 != nullptr ? p.h0[(size_t)b * p.L + c] : 0.0f;
       const size_t base = (size_t)b * (p.nc - 1) * p.L + c;
 #pragma unroll 4
       for (int j = 0; j < k; ++j) {
-        h = p.sum_a[base + (size_t)j * p.L] * h + p.sum_h[base + (size_t)j * p.L];
+        h = step(p.sum_a[base + (size_t)j * p.L], h, p.sum_h[base + (size_t)j * p.L]);
       }
+      if (p.carries != nullptr) p.carries[((size_t)b * p.nc + k) * p.L + c] = h;
     }
   }
   for (int tt = 0; tt < tiles_n; ++tt) {
@@ -222,9 +175,9 @@ __device__ __forceinline__ void chunk(const Args<T>& p) {
       for (int r = 0; r < rows; ++r) {
         const size_t off = (row0 + r0 + r) * p.L + c;
         const float uf = to_f(kStaged ? tile[r * kCh + threadIdx.x] : p.u[off]);
-        float a, bx;
-        gates(q, uf, a, bx);
-        h = a * h + bx;
+        const GateParts gp = gate_parts(q, uf);
+        const float a = gp.a;
+        h = step(a, h, gate_bx(gp, uf));
         if (kGate) {
           const float gf = to_f(kStaged ? tile[(kRows + r) * kCh + threadIdx.x] : p.g[off]);
           p.y[off] = from_f<T>(h * gelu_tanh(gf));
@@ -278,7 +231,7 @@ int launch(const Args<T>& p, cudaStream_t stream) {
 template <typename T>
 int launch(const void* u, const void* g, const void* a_w, const void* a_b, const void* x_w,
            const void* x_b, const void* lam, const void* h0, void* y, void* h_last,
-           void* scratch, int B, int S, int L, cudaStream_t stream) {
+           void* scratch, void* carries, int B, int S, int L, cudaStream_t stream) {
   Args<T> p;
   p.u = static_cast<const T*>(u);
   p.g = static_cast<const T*>(g);
@@ -296,6 +249,7 @@ int launch(const void* u, const void* g, const void* a_w, const void* a_b, const
   p.nc = (S + kChunk - 1) / kChunk;
   p.sum_a = static_cast<float*>(scratch);
   p.sum_h = p.sum_a + (size_t)B * (p.nc - 1) * L;
+  p.carries = static_cast<float*>(carries);
   const bool staged = (L * sizeof(T)) % 16 == 0 && reinterpret_cast<uintptr_t>(u) % 16 == 0 &&
                       reinterpret_cast<uintptr_t>(g) % 16 == 0;
   return staged ? launch<T, true>(p, stream) : launch<T, false>(p, stream);
@@ -311,22 +265,25 @@ int rglru_scan_chunk() { return kChunk; }
 
 // u, g, y: (B, S, L); a_w, a_b, x_w, x_b, lam: (L,), all of `dtype` (0
 // float32, 1 bfloat16); h0 (B, L) float32 or null; h_last (B, L) float32;
-// scratch (2, B, ceil(S / chunk) - 1, L) float32, null when S <= chunk.
-// Returns a cudaError_t (0 on success).
+// scratch (2, B, ceil(S / chunk) - 1, L) float32, null when S <= chunk;
+// carries (B, ceil(S / chunk), L) float32, the h entering each chunk, which
+// the backward (rglru_scan_bwd.cu) reads, or null.  Returns a cudaError_t
+// (0 on success).
 int rglru_scan(const void* u, const void* g, const void* a_w, const void* a_b, const void* x_w,
                const void* x_b, const void* lam, const void* h0, void* y, void* h_last,
-               void* scratch, int B, int S, int L, int dtype, void* stream) {
+               void* scratch, void* carries, int B, int S, int L, int dtype, void* stream) {
   const int nc = S >= 1 ? (S + kChunk - 1) / kChunk : 0;
   if (B < 1 || S < 1 || L < 1 || B > 65535 || nc > 65535 || (nc > 1 && scratch == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    return launch<float>(u, g, a_w, a_b, x_w, x_b, lam, h0, y, h_last, scratch, B, S, L, st);
+    return launch<float>(u, g, a_w, a_b, x_w, x_b, lam, h0, y, h_last, scratch, carries, B, S,
+                         L, st);
   }
   if (dtype == 1) {
-    return launch<__nv_bfloat16>(u, g, a_w, a_b, x_w, x_b, lam, h0, y, h_last, scratch, B, S, L,
-                                 st);
+    return launch<__nv_bfloat16>(u, g, a_w, a_b, x_w, x_b, lam, h0, y, h_last, scratch, carries,
+                                 B, S, L, st);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -9,15 +9,23 @@ another order).  Used for tensors on the CPU and, on the card, as the
 kernel's comparison.  ``rglru_scan_chunked_ref`` is the kernel's own
 order of operations (chunk summaries, the carry pushed through them,
 each chunk scanned again from its carry), for the tests only.
+
+``rglru_scan_bwd_ref`` is the backward's plain version: h recomputed by
+the same loop, then an explicit float32 reverse loop over the adjoint
+recurrence and the chain rule through the gates, written out (the
+gradient that ``jax.grad`` takes through the reference's ``_gates`` and
+``associative_scan``, src/repro/models/rglru.py:65-97).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-__all__ = ["rglru_scan_ref", "rglru_scan_chunked_ref", "GATE_C"]
+__all__ = ["rglru_scan_ref", "rglru_scan_saving_ref", "rglru_scan_chunked_ref",
+           "rglru_scan_bwd_ref", "GATE_C", "CLAMP_LO"]
 
 GATE_C = 8.0  # log a_t = -c * softplus(Lambda) * r_t (Griffin's c)
+CLAMP_LO = 1e-12  # 1 - a^2 is clamped to [CLAMP_LO, 1]
 
 
 def _gates(u, a_w, a_b, x_w, x_b, lam):
@@ -27,22 +35,86 @@ def _gates(u, a_w, a_b, x_w, x_b, lam):
     i = torch.sigmoid(uf * x_w.float() + x_b.float())
     a = torch.exp(-GATE_C * F.softplus(lam.float()) * r)
     # sqrt(1 - a^2) input normalisation (Griffin eq. 2), clamped.
-    return a, torch.sqrt(torch.clamp(1.0 - a * a, 1e-12, 1.0)) * i * uf
+    return a, torch.sqrt(torch.clamp(1.0 - a * a, CLAMP_LO, 1.0)) * i * uf
+
+
+def _states(a, bx, h0):
+    """h (B, S, L) float32 of every step, from h0 (or zeros)."""
+    h = h0.float() if h0 is not None else a.new_zeros((a.shape[0], a.shape[2]))
+    hs = torch.empty_like(a)
+    for t in range(a.shape[1]):
+        h = a[:, t] * h + bx[:, t]
+        hs[:, t] = h
+    return hs
 
 
 def rglru_scan_ref(u, gpre, a_w, a_b, x_w, x_b, lam, h0=None):
     """(y, h_last) of one recurrent block's scan; arguments as
     ``ops.rglru_scan``."""
-    uf = u.float()
     gate = F.gelu(gpre.float(), approximate="tanh")
-    a, bx = _gates(u, a_w, a_b, x_w, x_b, lam)
+    hs = _states(*_gates(u, a_w, a_b, x_w, x_b, lam), h0)
+    return (hs * gate).to(u.dtype), hs[:, -1]
+
+
+def rglru_scan_saving_ref(u, gpre, a_w, a_b, x_w, x_b, lam, h0=None, chunk=64):
+    """``rglru_scan_ref``'s (y, h_last) and the carries (B, ceil(S /
+    chunk), L) float32: the h entering each chunk of ``chunk`` steps, h0
+    (or zeros) first."""
+    gate = F.gelu(gpre.float(), approximate="tanh")
+    hs = _states(*_gates(u, a_w, a_b, x_w, x_b, lam), h0)
     b, s, width = u.shape
-    h = h0.float() if h0 is not None else uf.new_zeros((b, width))
-    hs = torch.empty_like(uf)
-    for t in range(s):
-        h = a[:, t] * h + bx[:, t]
-        hs[:, t] = h
-    return (hs * gate).to(u.dtype), h
+    first = h0.float() if h0 is not None else hs.new_zeros((b, width))
+    carries = torch.cat([first[:, None], hs[:, chunk - 1:s - 1:chunk]], dim=1)
+    return (hs * gate).to(u.dtype), hs[:, -1], carries.contiguous()
+
+
+def rglru_scan_bwd_ref(u, gpre, a_w, a_b, x_w, x_b, lam, dy, h0=None, dh_last=None):
+    """The gradients of ``rglru_scan_ref`` given the output's gradient
+    ``dy`` (B, S, L) and the last state's ``dh_last`` (B, L) float32 or
+    None (zeros): (du, dgpre) in u's type, (da_w, da_b, dx_w, dx_b, dlam)
+    in the vectors' type, and dh0 (B, L) float32, or None when ``h0`` is.
+    The clamp of 1 - a^2 passes its gradient inside [CLAMP_LO, 1], bounds
+    included, as torch's ``clamp`` does."""
+    uf, gf, dyf = u.float(), gpre.float(), dy.float()
+    aw, ab, xw, xb, lm = (v.float() for v in (a_w, a_b, x_w, x_b, lam))
+    r = torch.sigmoid(uf * aw + ab)
+    i = torch.sigmoid(uf * xw + xb)
+    neg_c_sp = -GATE_C * F.softplus(lm)
+    a = torch.exp(neg_c_sp * r)
+    pre = 1.0 - a * a
+    v = torch.clamp(pre, CLAMP_LO, 1.0)
+    sq = torch.sqrt(v)
+    hs = _states(a, sq * i * uf, h0)
+    b, s, width = u.shape
+    h_prev = torch.cat([(h0.float() if h0 is not None else hs.new_zeros((b, width)))[:, None],
+                        hs[:, :-1]], dim=1)
+    # GeLU (tanh form) and its derivative, with z = sqrt(2 / pi) (x + 0.044715 x^3).
+    k = (2.0 / torch.pi) ** 0.5
+    th = torch.tanh(k * (gf + 0.044715 * gf ** 3))
+    gelu = 0.5 * gf * (1.0 + th)
+    dgelu = 0.5 * (1.0 + th) + 0.5 * gf * (1.0 - th * th) * k * (1.0 + 3 * 0.044715 * gf * gf)
+    e = dyf * gelu
+    # The adjoint recurrence, backwards: g_t = e_t + a_{t+1} g_{t+1}.
+    g = torch.empty_like(e)
+    w = dh_last.float() if dh_last is not None else e.new_zeros((b, width))
+    for t in range(s - 1, -1, -1):
+        g[:, t] = e[:, t] + w
+        w = a[:, t] * g[:, t]
+    d_i = g * sq * uf
+    inside = (pre >= CLAMP_LO) & (pre <= 1.0)
+    d_v = torch.where(inside, 0.5 * g * i * uf / sq, torch.zeros_like(g))
+    d_loga = (g * h_prev - 2.0 * a * d_v) * a
+    d_pre_r = d_loga * neg_c_sp * r * (1.0 - r)
+    d_pre_i = d_i * i * (1.0 - i)
+    du = g * sq * i + d_pre_r * aw + d_pre_i * xw
+    dlam = (d_loga * r).sum((0, 1)) * -GATE_C * torch.sigmoid(lm)
+    vec_grads = (
+        (d_pre_r * uf).sum((0, 1)), d_pre_r.sum((0, 1)), (d_pre_i * uf).sum((0, 1)),
+        d_pre_i.sum((0, 1)), dlam,
+    )
+    return ((du.to(u.dtype), (dyf * hs * dgelu).to(u.dtype))
+            + tuple(gv.to(t.dtype) for gv, t in zip(vec_grads, (a_w, a_b, x_w, x_b, lam)))
+            + (w if h0 is not None else None,))
 
 
 def rglru_scan_chunked_ref(u, gpre, a_w, a_b, x_w, x_b, lam, h0=None, chunk=64):

@@ -15,16 +15,23 @@ Gates are per-channel diagonal (weight + bias per channel), as the
 reference's.  The reference runs the recurrence as a
 ``jax.lax.associative_scan``; PyTorch has none, so the gates, the
 recurrence and the product with the GeLU branch are one kernel,
-``kernels.rglru_scan`` (one thread per (batch, channel) walking the
-sequence in float32; its plain version on the CPU), the same kernel at
-S = 1 for decode.  The two differ only in the order their float32
-products are added.  The projections and the 4-tap causal conv stay
-plain PyTorch, as the reference computes them in jnp.  Decode writes the
-conv window and the state into the layer's cache tensors in place, where
-the reference returns new arrays.
+``kernels.rglru_scan`` (a chunked two-pass scan in float32: chunk
+summaries, then every chunk from its carry; its plain version on the
+CPU), the same kernel at S = 1 for decode.  The two differ only in the
+order their float32 products are added.  Training differentiates the
+scan through ``rglru_scan_autograd``, an autograd function whose forward
+also keeps the h entering each chunk and whose backward is the kernel
+``rglru_scan_bwd`` (its plain reverse loop on the CPU): the gradient
+that ``jax.grad`` takes through the reference's gates and scan.
+``_scan`` takes it only while autograd records and an input requires a
+gradient; serving calls the scan alone.  The projections and the 4-tap
+causal conv stay plain PyTorch, as the reference computes them in jnp.
+Decode writes the conv window and the state into the layer's cache
+tensors in place, where the reference returns new arrays.
 """
 from __future__ import annotations
 
+from repro_torch.kernels import records_grad
 from repro_torch.kernels.rglru_scan import ops as rglru_ops
 from repro_torch.models.spec import P
 # The reference's ``rglru._conv1d`` computes what its ``ssd._causal_conv``
@@ -52,9 +59,13 @@ def rglru_spec(cfg) -> dict:
 
 def _scan(params, u, gpre, h0=None):
     """The reference's ``_gates``, its scan and ``(h * gate)`` in one call:
-    (y in u's type, h_last float32)."""
-    return rglru_ops.rglru_scan(u, gpre, params.a_gate_w, params.a_gate_b, params.x_gate_w,
-                                params.x_gate_b, params.Lambda, h0)
+    (y in u's type, h_last float32); through the autograd function while
+    autograd records and an input requires a gradient."""
+    args = (u, gpre, params.a_gate_w, params.a_gate_b, params.x_gate_w, params.x_gate_b,
+            params.Lambda, h0)
+    if records_grad(*args):
+        return rglru_ops.rglru_scan_autograd(*args)
+    return rglru_ops.rglru_scan(*args)
 
 
 def rglru_forward(params, x, cfg, conv_state=None, h0=None):

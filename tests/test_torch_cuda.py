@@ -20,10 +20,11 @@ one also against the sequential kernel, and the pipeline on the card
 against the fast path on the card; the sharded rounds' two entry points
 (``shard_round``) bit for bit against their plain versions, and the
 sharded pipeline on the card against the unsharded one; the selection
-scan's warp instance on the shapes that take it; the RG-LRU scan against
-its plain loop; the decode step of recurrentgemma-9b and llama4-scout
-(the S = 1 scan, the routed MoE at batch 2) graphed and under
-``set_sync_debug_mode("error")``.
+scan's warp instance on the shapes that take it; the RG-LRU scan and its
+backward against their plain loops, and the RG-LRU block's gradient card
+against host; K3b at head dim 256; the decode step of recurrentgemma-9b
+and llama4-scout (the S = 1 scan, the routed MoE at batch 2) graphed and
+under ``set_sync_debug_mode("error")``.
 """
 import threading
 
@@ -1386,6 +1387,95 @@ def test_rglru_scan_kernel_matches_plain(cuda, b, s, width, h0, dtype):
     torch.testing.assert_close(h_last, h_ref, atol=1e-4, rtol=1e-4)
 
 
+# The RG-LRU backward against its plain reverse loop: float32 within 1e-4 +
+# 1e-3 |ref| (the chunked adjoint recurrence, its products added in another
+# order, the gates by the special-function unit), bf16's du and dgpre within
+# 2e-2 + 2e-2 |ref| of their own rounding, and bf16's vector gradients (sums
+# of B * S terms, rounded to bf16 once) the same.
+RGLRU_BWD_TOL = {torch.float32: (1e-4, 1e-3), torch.bfloat16: (2e-2, 2e-2)}
+
+
+def _rglru_bwd_case(b, s, width, dtype, device, h0, dh_last, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    u, gp, dy = (torch.randn((b, s, width), generator=g, device=device).to(dtype)
+                 for _ in range(3))
+    vecs = [(torch.randn(width, generator=g, device=device) * 0.5).to(dtype) for _ in range(5)]
+    hs = torch.randn((b, width), generator=g, device=device) if h0 else None
+    dh = torch.randn((b, width), generator=g, device=device) if dh_last else None
+    return u, gp, vecs, hs, dy, dh
+
+
+@pytest.mark.parametrize("b,s,width,dtype,h0,dh_last", [
+    (8, 1024, 4096, torch.bfloat16, False, False),  # recurrentgemma-9b's training shape
+    (2, 300, 512, torch.bfloat16, True, False),  # S no multiple of the chunk
+    (3, 40, 256, torch.bfloat16, False, True),  # S below the chunk: no summaries
+    (2, 300, 200, torch.float32, True, True),  # f32, h0 and dh_last, a width no multiple of 128
+    (1, 64, 96, torch.float32, True, False), (2, 129, 64, torch.float32, False, True),
+])
+def test_rglru_scan_bwd_kernel_matches_plain(cuda, b, s, width, dtype, h0, dh_last):
+    """``rglru_scan_bwd`` (three kernels, one launch) on the carries that
+    ``rglru_scan_saving`` kept, against ``rglru_scan_bwd_ref``: all eight
+    gradients, and two calls bit-identical."""
+    from repro_torch.kernels.rglru_scan.ref import rglru_scan_bwd_ref, rglru_scan_ref
+
+    u, gp, vecs, hs, dy, dh = _rglru_bwd_case(b, s, width, dtype, cuda, h0, dh_last, s + width)
+    y, h_last, carries = rglru_ops.rglru_scan_saving(u, gp, *vecs, hs)
+    assert carries.shape == (b, -(-s // rglru_ops.chunk_len()), width)
+    assert torch.equal(carries[:, 0], hs if h0 else torch.zeros_like(h_last))
+    y_ref, _ = rglru_scan_ref(u, gp, *vecs, hs)
+    torch.testing.assert_close(y.float(), y_ref.float(), atol=RGLRU_BWD_TOL[dtype][0],
+                               rtol=RGLRU_BWD_TOL[dtype][0])
+    before = rglru_ops.bwd_counter.count
+    got = rglru_ops.rglru_scan_bwd(u, gp, *vecs, carries, dy, dh, want_dh0=h0)
+    again = rglru_ops.rglru_scan_bwd(u, gp, *vecs, carries, dy, dh, want_dh0=h0)
+    torch.cuda.synchronize()
+    assert rglru_ops.bwd_counter.count == before + 2
+    want = rglru_scan_bwd_ref(u, gp, *vecs, dy, h0=hs, dh_last=dh)
+    atol, rtol = RGLRU_BWD_TOL[dtype]
+    names = ("du", "dgpre", "da_w", "da_b", "dx_w", "dx_b", "dlam", "dh0")
+    for name, x, x2, ref in zip(names, got, again, want):
+        if ref is None:
+            assert x is None, name
+            continue
+        assert x.dtype == ref.dtype and x.shape == ref.shape, name
+        assert torch.equal(x, x2), name
+        torch.testing.assert_close(x.float(), ref.float(), atol=atol, rtol=rtol, msg=name)
+
+
+def test_rglru_block_gradient_on_the_card_matches_the_host(cuda):
+    """``models.rglru.rglru_forward`` (the projections, the conv, then the
+    scan's autograd function: the forward kernel keeping its carries, then
+    ``rglru_scan_bwd``) over a ragged length from a carried state, float32,
+    card against host: the gradients of x, h0 and every weight."""
+    import dataclasses
+    import types
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import LM
+    from repro_torch.models import rglru as rglru_mod
+
+    cfg = dataclasses.replace(ARCHS["recurrentgemma-9b"], d_model=256, lru_width=384,
+                              num_layers=1, vocab_size=64, dtype="float32")
+    host = dict(LM(cfg).init(3, device="cpu").layers[0].rec.named_parameters())
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=(2, 150, cfg.d_model)).astype(np.float32)
+    h0 = rng.normal(size=(2, cfg.lru_width)).astype(np.float32)
+    dy = rng.normal(size=(2, 150, cfg.d_model)).astype(np.float32)
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        weights = [t.detach().to(dev).requires_grad_() for t in host.values()]
+        layer = types.SimpleNamespace(**dict(zip(host, weights)))
+        xs, hs = (torch.as_tensor(a, device=dev).requires_grad_() for a in (x, h0))
+        before = rglru_ops.bwd_counter.count
+        y, _ = rglru_mod.rglru_forward(layer, xs, cfg, None, hs)
+        (y * torch.as_tensor(dy, device=dev)).sum().backward()
+        if dev == "cuda":
+            assert rglru_ops.bwd_counter.count == before + 1
+        grads[dev] = [t.grad.cpu() for t in [xs, hs] + weights]
+    for i, (got, ref) in enumerate(zip(grads["cuda"], grads["cpu"])):
+        torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-3, msg=f"leaf {i}")
+
+
 # ------------------------------------------------ the sharded rounds
 
 
@@ -1910,11 +2000,43 @@ def test_flash_attention_bwd_takes_inputs_off_a_16_byte_boundary(cuda):
         assert torch.equal(x, y), name
 
 
-def test_flash_attention_bwd_refuses_head_dim_256(cuda):
-    q = torch.zeros((1, 64, 2, 256), device=cuda)
-    lse = torch.zeros((1, 2, 64), device=cuda)
-    with pytest.raises(NotImplementedError, match="queue 2, entry 7"):
-        flash_ops.flash_attention_bwd(q, q, q, q, q, lse)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,window", [
+    (2, 128, 128, 4, 4, 0),  # G = 1 (gemma-7b's MHA)
+    (1, 200, 200, 8, 4, 64),  # G = 2, windowed (gemma3-4b's local layers)
+    (1, 300, 300, 16, 1, 100),  # G = 16, windowed (recurrentgemma-9b's local layers)
+    (2, 77, 77, 16, 16, 0), (1, 45, 301, 4, 2, 16),  # ragged S; Sq < Skv
+    (1, 1024, 1024, 16, 16, 0),  # gemma-7b's training length, one row
+])
+def test_flash_attention_bwd_head_dim_256_matches_plain(cuda, b, sq, skv, hq, hkv, window,
+                                                        dtype):
+    """K3b at head dim 256 (the bf16 dkdv block splits D between the two
+    warps of a key group; the fp32 instance takes 32-row tiles): dq, dk, dv
+    against the plain version on the same forward output and logsumexp
+    (2e-2 bf16, 2e-5 f32), one launch a call, and two calls bit-identical."""
+    from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref
+
+    d = 256
+    gen = torch.Generator(device=cuda).manual_seed(sq * 5 + hq)
+    q, do = (torch.randn((b, sq, hq, d), generator=gen, device=cuda).to(dtype) for _ in range(2))
+    k, v = (torch.randn((b, skv, hkv, d), generator=gen, device=cuda).to(dtype)
+            for _ in range(2))
+    out, lse = flash_ops.flash_attention(q, k, v, window=window, return_lse=True)
+    before = flash_ops.bwd_counter.count
+    grads = flash_ops.flash_attention_bwd(q, k, v, out, do, lse, window=window)
+    again = flash_ops.flash_attention_bwd(q, k, v, out, do, lse, window=window)
+    torch.cuda.synchronize()
+    assert flash_ops.bwd_counter.count == before + 2
+    refs = flash_attention_bwd_ref(_gqa_ref(q, hkv), k.transpose(1, 2), v.transpose(1, 2),
+                                   _gqa_ref(out, hkv), _gqa_ref(do, hkv),
+                                   lse.reshape(b, hkv, hq // hkv, sq), window=window)
+    refs = (refs[0].permute(0, 3, 1, 2, 4).reshape(b, sq, hq, d), refs[1].transpose(1, 2),
+            refs[2].transpose(1, 2))
+    tol = ATTN_TOL[dtype]
+    for name, got, twice, ref in zip(("dq", "dk", "dv"), grads, again, refs):
+        assert got.dtype == dtype and got.shape == ref.shape, name
+        assert torch.equal(got, twice), name
+        torch.testing.assert_close(got.float(), ref.float(), atol=tol, rtol=tol, msg=name)
 
 
 @pytest.mark.parametrize("b,s,h,p,n,chunk", [
@@ -2003,7 +2125,7 @@ def test_kernels_without_a_backward_refuse_gradients(cuda):
                                torch.zeros((1, 32, 4), device=cuda), 16)
     u = torch.randn((1, 8, 16), device=cuda, requires_grad=True)
     vec = torch.zeros(16, device=cuda)
-    with pytest.raises(RuntimeError, match="queue 2, entry 8"):
+    with pytest.raises(RuntimeError, match="rglru_scan_autograd"):
         rglru_ops.rglru_scan(u, u.detach(), vec, vec, vec, vec, vec)
     acc = torch.rand((8, 3), device=cuda, dtype=torch.float32, requires_grad=True)
     with pytest.raises(RuntimeError, match="Port rules', Gradients"):

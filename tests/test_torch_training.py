@@ -30,6 +30,7 @@ from repro.data import LMDataConfig as JLMDataConfig
 from repro.data import LMDataset as JLMDataset
 from repro.models import LM as JLM
 from repro.models import attention as j_attn
+from repro.models import rglru as j_rglru
 from repro.models import ssd as j_ssd
 from repro.training import OptimizerConfig as JOptimizerConfig
 from repro.training import Trainer as JTrainer
@@ -45,8 +46,11 @@ from repro_torch import convert
 from repro_torch.configs import ARCHS, ModelConfig
 from repro_torch.data import LMDataConfig, LMDataset
 from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.rglru_scan import ops as rglru_ops
+from repro_torch.kernels.rglru_scan.ref import rglru_scan_bwd_ref, rglru_scan_ref
 from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.models import LM
+from repro_torch.models import rglru as t_rglru
 from repro_torch.models.attention import flash_attention_autograd
 from repro_torch.models.ssd import ssd_scan
 from repro_torch.training import (
@@ -311,6 +315,9 @@ def test_checkpoints_cross_between_packages():
     (2, 128, 4, 4, 32, 0), (1, 256, 8, 2, 64, 0), (2, 96, 4, 1, 32, 0),
     (1, 256, 4, 2, 32, 64), (1, 130, 2, 2, 16, 32),  # tests/test_kernels.py:22
     (1, 100, 4, 2, 16, 7), (2, 70, 6, 3, 16, 48),  # more windows
+    # head dim 256: causal (gemma-7b's MHA), windowed at 8 over 4 (gemma3-4b)
+    # and 16 over 1 (recurrentgemma-9b's local layers)
+    (1, 64, 4, 4, 256, 0), (1, 80, 8, 4, 256, 16), (1, 70, 16, 1, 256, 24),
 ])
 def test_flash_attention_backward_matches_reference_vjp(b, s, hq, hkv, d, window):
     """The autograd function (K3 forward with its logsumexp, then
@@ -388,6 +395,89 @@ def test_ssd_chunk_bwd_ref_is_the_gradient_of_the_chunk_scan():
     got = ssd_ops.ssd_chunk_bwd(xdt, bm, cm, dy, cum, entering, chunk)
     for name, g, t in zip(("dxdt", "ddA", "dbm", "dcm"), got, leaves):
         torch.testing.assert_close(g, t.grad, atol=2e-5, rtol=2e-5, msg=name)
+
+
+@pytest.mark.parametrize("b,s,width,h0,dh_last", [
+    (2, 150, 8, False, False), (2, 150, 8, True, True), (1, 64, 5, True, False),
+    (3, 1, 4, False, True), (2, 200, 6, True, True),
+])
+def test_rglru_scan_bwd_ref_is_the_gradient_of_the_scan(b, s, width, h0, dh_last):
+    """The plain backward (the explicit reverse loop) against autograd
+    through the plain forward loop, every input's gradient, with and
+    without h0 and the last state's gradient; and the autograd function
+    on the CPU (the saving forward, then the plain backward) the same."""
+    rng = np.random.default_rng([b, s, width])
+    u, gp, dy = (torch.as_tensor(rng.normal(size=(b, s, width)).astype(np.float32))
+                 for _ in range(3))
+    vecs = [torch.as_tensor((rng.normal(size=width) * 0.5).astype(np.float32)) for _ in range(5)]
+    hs = torch.as_tensor(rng.normal(size=(b, width)).astype(np.float32)) if h0 else None
+    dh = torch.as_tensor(rng.normal(size=(b, width)).astype(np.float32)) if dh_last else None
+    got = rglru_scan_bwd_ref(u, gp, *vecs, dy, h0=hs, dh_last=dh)
+    for scan in (rglru_scan_ref, rglru_ops.rglru_scan_autograd):
+        leaves = [t.clone().requires_grad_() for t in [u, gp, *vecs] + ([hs] if h0 else [])]
+        y, h_last = scan(*leaves[:7], leaves[7] if h0 else None)
+        loss = (y * dy).sum() + ((h_last * dh).sum() if dh_last else 0.0)
+        want = torch.autograd.grad(loss, leaves)
+        assert (got[7] is None) == (not h0)
+        for name, g, w in zip(("du", "dgpre", "da_w", "da_b", "dx_w", "dx_b", "dlam", "dh0"),
+                              got, want):
+            torch.testing.assert_close(g, w, atol=1e-5, rtol=1e-5, msg=name)
+
+
+def _rglru_block_params(cfg, rng):
+    d, lru, w = cfg.d_model, cfg.lru_width, cfg.conv_width
+
+    def normal(*shape, scale=1.0):
+        return (rng.normal(size=shape) * scale).astype(np.float32)
+
+    return {"w_rec": normal(d, lru, scale=d ** -0.5),
+            "w_gate_branch": normal(d, lru, scale=d ** -0.5),
+            "conv_w": normal(w, lru, scale=0.3), "conv_b": normal(lru, scale=0.1),
+            "a_gate_w": normal(lru, scale=0.5), "a_gate_b": normal(lru, scale=0.5),
+            "x_gate_w": normal(lru, scale=0.5), "x_gate_b": normal(lru, scale=0.5),
+            "Lambda": normal(lru, scale=0.5) + 1.0, "w_out": normal(lru, d, scale=lru ** -0.5)}
+
+
+@pytest.mark.parametrize("b,s,h0", [(2, 21, False), (2, 21, True), (1, 150, True),
+                                    (2, 130, False)])
+def test_rglru_backward_matches_reference_vjp(b, s, h0):
+    """``models.rglru.rglru_forward`` (the projections, the conv, then the
+    scan's autograd function: the saving forward and the plain backward)
+    against ``jax.vjp`` of the reference's ``rglru_forward``
+    (src/repro/models/rglru.py:77), whose gradient ``jax.grad`` takes
+    through ``_gates`` and ``associative_scan``: the gradients of x, h0 and
+    every weight, given cotangents of the output and of the last state; with
+    and without h0, lengths off a multiple of the kernel's chunk (atol
+    1e-5, rtol 1e-4)."""
+    cfg = J_ARCHS["recurrentgemma-9b"].reduced()
+    rng = np.random.default_rng([b, s, int(h0)])
+    params = _rglru_block_params(cfg, rng)
+    x = rng.normal(size=(b, s, cfg.d_model)).astype(np.float32)
+    hs = rng.normal(size=(b, cfg.lru_width)).astype(np.float32) if h0 else None
+    dy = rng.normal(size=(b, s, cfg.d_model)).astype(np.float32)
+    dh = rng.normal(size=(b, cfg.lru_width)).astype(np.float32)
+
+    def ref(p, x, *h):
+        y, (_, h_last) = j_rglru.rglru_forward(p, x, cfg, None, h[0] if h else None)
+        return y, h_last
+
+    jargs = (jax.tree.map(jnp.asarray, params), jnp.asarray(x)) + ((jnp.asarray(hs),) if h0 else ())
+    _, vjp = jax.vjp(ref, *jargs)
+    want = vjp((jnp.asarray(dy), jnp.asarray(dh)))
+    leaves = {k: torch.as_tensor(v).requires_grad_() for k, v in params.items()}
+    xs = torch.as_tensor(x).requires_grad_()
+    h0s = torch.as_tensor(hs).requires_grad_() if h0 else None
+    layer = type("Rec", (), leaves)
+    y, (_, h_last) = t_rglru.rglru_forward(layer, xs, ModelConfig(**dataclasses.asdict(cfg)),
+                                           None, h0s)
+    ((y * torch.as_tensor(dy)).sum() + (h_last * torch.as_tensor(dh)).sum()).backward()
+    tol = dict(atol=1e-5, rtol=1e-4)
+    for k in params:
+        np.testing.assert_allclose(leaves[k].grad.numpy(), np.asarray(want[0][k]), **tol,
+                                   err_msg=k)
+    np.testing.assert_allclose(xs.grad.numpy(), np.asarray(want[1]), **tol, err_msg="x")
+    if h0:
+        np.testing.assert_allclose(h0s.grad.numpy(), np.asarray(want[2]), **tol, err_msg="h0")
 
 
 def test_serving_with_frozen_weights_builds_no_graph():

@@ -6,8 +6,9 @@ Identical weights (the reference's ``LM.init`` through
 The port's gradients run through its autograd functions (K3's and K5's
 plain forward and backward here), ``torch.utils.checkpoint`` with remat,
 and the MoE's auxiliary term; reduced mamba2-130m, tinyllama-1.1b,
-gemma3-4b (one period: five windowed layers and a global one) and
-llama4-scout (the routed MoE).
+gemma3-4b (one period: five windowed layers and a global one),
+llama4-scout (the routed MoE), recurrentgemma-9b (the RG-LRU scan's
+autograd function) and gemma-7b.
 """
 import dataclasses
 
@@ -55,6 +56,10 @@ GRAD_MODELS = {
     "tinyllama-remat": ("tinyllama-1.1b", {"remat": True, "xent_chunk": 7}, 2, 20),
     "gemma3": ("gemma3-4b", {"num_layers": 6}, 1, 40),  # one period: 5 windowed (16 keys), 1 global
     "llama4-scout": ("llama4-scout-17b-16e", {}, 2, 16),  # routed MoE: the aux loss
+    # two periods (rglru, rglru, local: 16 keys) and a tail rglru: the scan's
+    # autograd function (its saving forward and plain backward)
+    "recurrentgemma": ("recurrentgemma-9b", {}, 2, 20),
+    "gemma-7b": ("gemma-7b", {}, 2, 20),  # MHA, GeGLU, tied readout
 }
 
 
