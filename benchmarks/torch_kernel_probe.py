@@ -1,5 +1,6 @@
 """Probes of what bounds K2 (k-NN), K1 (Eq. 2 utility), K5b (the SSD
-backward) and the RG-LRU scan, and of K3b in training, on one NVIDIA GPU.
+backward) and the RG-LRU scan, of K3b in training, and A/B timings of
+K3b's and the RG-LRU backward's designs, on one NVIDIA GPU.
 
     python3 benchmarks/torch_kernel_probe.py knn --source OLD/knn.cu
     python3 benchmarks/torch_kernel_probe.py knn-design
@@ -9,6 +10,8 @@ backward) and the RG-LRU scan, and of K3b in training, on one NVIDIA GPU.
     python3 benchmarks/torch_kernel_probe.py rglru [--old OLD/rglru_scan.cu]
     python3 benchmarks/torch_kernel_probe.py scan-step
     python3 benchmarks/torch_kernel_probe.py k3b-train [--steps 24] [--lr 1e-3]
+    python3 benchmarks/torch_kernel_probe.py k3b --old OLD/flash_attention_bwd.cu
+    python3 benchmarks/torch_kernel_probe.py rglru-bwd --old OLD/rglru_scan_bwd.cu
 
 ``knn`` takes a k-NN source of the first design (``knn.cu`` as it was
 before the query-tiled design, e.g. from an archive of an earlier commit:
@@ -70,10 +73,32 @@ in turns (32, 64, 128, 256, 256, 128, 64, 32), each checked against
 ``rglru_scan_ref`` first.  With ``--old``, the ``rglru_scan.cu`` of an
 earlier commit is built too and timed at the same shapes at the start
 and the end of the turns: the one-thread-a-(batch, channel) source (its
-C entry has no scratch) or a chunked one that includes no header (its C
-entry takes the summary scratch, sized by its own ``rglru_scan_chunk``),
-and the SASS instruction counts of its kernels are printed beside those
-of the current source's T = 64 build.
+C entry has no scratch), a chunked one (its C entry takes the summary
+scratch, sized by its own ``rglru_scan_chunk``) or one whose entry also
+takes the carries for the backward (passed null, as prefill and decode
+pass them), built in its own directory for its headers, and the SASS instruction counts of its
+kernels are printed beside those of the current source's T = 64 build.
+
+``k3b --old`` builds an earlier tree's ``flash_attention_bwd.cu`` as it
+is (its own directory on the include path) and times its bf16 instance
+at head dim 256 against this tree's in one process, at phase 16 (a)'s
+bf16 shapes (gemma-7b's and recurrentgemma-9b's training shapes,
+recurrentgemma-9b's local layers at S = 4096 and gemma3-4b's), in turns
+(old, new, new, old), kernel by kernel, each checked against
+``flash_attention_bwd_ref`` first.  ``rglru-bwd --old`` does the same for
+``rglru_scan_bwd.cu`` at the training shape (B = 8, S = 1024, L = 4096)
+and a lone prompt's (B = 1), the earlier design fed every 64th step's
+carry; the new one is also run twice bit-identically.  ``k3b --old`` then
+takes ``tests/test_torch_cuda.py``'s head-dim-256 cases at G = 16
+(recurrentgemma-9b's training shape and B = 2, S = 3000; its seeds), in
+bf16 and float32, and reports without failing, gradient by gradient,
+each design's largest difference from a plain version and the share of
+the card test's tolerance it uses (1 is the limit): in bf16 against
+``flash_attention_bwd_ref`` as the test runs it (p and dS in fp32) and
+against it doing the design's own rounding (``rounding="bf16"``: p and
+dS rounded to bf16 as operands, the earlier design; ``"bf16x2"``: p as
+two bf16 terms, this one), in float32 against it in float32 and in
+float64, and the float32 plain version against the float64 one.
 
 ``k3b-train`` trains gemma-7b at phase 16 (c)'s cut depth and shape (3
 layers, bf16, B = 8, S = 1024, LMDataset's markov stream, the same seed)
@@ -722,20 +747,26 @@ def probe_rglru(old: Path | None) -> None:
     old_fn = old_chunk = None
     if old is not None:
         old_src = old.read_text()
-        old_lib_path = _build("rglru_old", old_src)
-        old_lib = ctypes.CDLL(str(old_lib_path))
+        old_lib = _build_in_place("rglru_old", old)  # (its headers beside it)
+        old_lib_path = OUT / "librglru_old.so"
         old_fn = old_lib.rglru_scan
         chunked = "void* scratch" in old_src
-        old_fn.argtypes = ([ctypes.c_void_p] * (11 if chunked else 10) + [ctypes.c_int] * 4
+        saving = "void* carries" in old_src  # passed null: prefill and decode save none
+        old_fn.argtypes = ([ctypes.c_void_p] * (10 + chunked + saving) + [ctypes.c_int] * 4
                            + [ctypes.c_void_p])
         old_fn.restype = ctypes.c_int
         if chunked:
             old_lib.rglru_scan_chunk.restype = ctypes.c_int
             old_chunk = old_lib.rglru_scan_chunk()
+        # The bf16 staged instances prefill runs (the current scan kernel's
+        # without the carries' store; an earlier source has one instance).
         for k in RGLRU_PASSES:
-            for label, lib_path in (("old", old_lib_path), ("T=64", OUT / "librglru_T64.so")):
-                total, _ = _sass_mix(lib_path, k)
-                print(f"{label} {k} SASS: " + (_fmt(total) if total else "none"))
+            key = f"{k}I13__nv_bfloat16Lb1E"
+            for label, lib_path, want in (("old", old_lib_path, key),
+                                          ("T=64", OUT / "librglru_T64.so",
+                                           key + ("Lb0E" if k == "rglru_scan_kernel" else ""))):
+                total, _ = _sass_mix(lib_path, want)
+                print(f"{label} {want} SASS: " + (_fmt(total) if total else "none"))
     gen = torch.Generator(device="cuda").manual_seed(26)
     cases = {}
     for key, (b, s, width) in RGLRU_SHAPES.items():
@@ -755,6 +786,7 @@ def probe_rglru(old: Path | None) -> None:
             buf = (torch.empty((2, b, nc - 1, width), device="cuda")
                    if old_chunk and nc > 1 else None)
             scratch = [buf.data_ptr() if buf is not None else None] if old_chunk else []
+            scratch += [None] if saving else []
 
             def call(u=u, gp=gp, vecs=vecs, h0=h0, y=y, h=h, b=b, s=s, width=width,
                      scratch=scratch, buf=buf):
@@ -793,6 +825,216 @@ def probe_rglru(old: Path | None) -> None:
             nvcc._LIBS.pop("rglru_scan", None)
         else:
             nvcc._LIBS["rglru_scan"] = built
+
+
+def _build_in_place(name: str, source: Path) -> ctypes.CDLL:
+    """An earlier tree's CUDA source built as it is (its own directory on the
+    include path, for its headers) into ``OUT``, loaded."""
+    from repro_torch.kernels.nvcc import _ARCH, _COMMON, _nvcc
+
+    OUT.mkdir(parents=True, exist_ok=True)
+    lib_path = OUT / f"lib{name}.so"
+    log = subprocess.run([_nvcc(), *_ARCH, *_COMMON, "-I", str(source.parent), "-o",
+                          str(lib_path), str(source)], capture_output=True, text=True,
+                         timeout=600)
+    if log.returncode:
+        raise RuntimeError(f"{name}: nvcc failed\n{log.stdout}{log.stderr}")
+    (OUT / f"{name}.log").write_text(log.stdout + log.stderr)
+    lib = ctypes.CDLL(str(lib_path))
+    lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.repro_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+K3B_AB_SHAPES = {"gemma7b": (8, 1024, 16, 16, 0), "recurrentgemma_train": (8, 1024, 16, 1, 2048),
+                 "recurrentgemma_local": (2, 4096, 16, 1, 2048), "gemma3": (2, 2048, 8, 4, 1024)}
+
+
+def _accuracy_report(key, pairs, tol):
+    """For each (label, grads, refs): per gradient the largest |d| and the
+    largest |d| / (tol + tol |ref|), the share of the card test's
+    tolerance used (past 1 the test fails), with the element where it is
+    largest."""
+    for label, grads, refs in pairs:
+        for name, g, r in zip(("dq", "dk", "dv"), grads, refs):
+            g, r = g.double(), r.double()
+            d = (g - r).abs()
+            share = d / (tol + tol * r.abs())
+            i = int(share.flatten().argmax())
+            print(f"  {key} {name} {label}: max |d| {d.max().item():.6g}, tolerance share "
+                  f"{share.flatten()[i].item():.4f} (at {g.flatten()[i].item():.7g} against "
+                  f"{r.flatten()[i].item():.7g})")
+
+
+def probe_k3b_old(old: Path) -> None:
+    """K3b's bf16 instance at head dim 256: an earlier tree's
+    ``flash_attention_bwd.cu`` (the first design, whose C entry takes no
+    head groups) against this tree's, in one process, at phase 16 (a)'s
+    bf16 shapes, timed old, new, new, old under ``torch.profiler``, with
+    each design's differences from the plain version reported (not
+    failed on); then the card test's two G = 16 cases in bf16 and float32
+    against the plain version with and without the designs' rounding and
+    in float64."""
+    import torch
+
+    from chip_smoke import K3B_STAGES, _flash_bwd_plain, device_ms
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+
+    old_lib = _build_in_place("k3b_old", old)
+    old_fn = old_lib.flash_attention_bwd
+    old_fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_float,
+                                                                      ctypes.c_void_p]
+    old_fn.restype = ctypes.c_int
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    for key, (b, s, hq, hkv, window) in K3B_AB_SHAPES.items():
+        def randn(*shape):
+            return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+        q, k, v, do = randn(b, s, hq, 256), randn(b, s, hkv, 256), randn(b, s, hkv, 256), \
+            randn(b, s, hq, 256)
+        out, lse = flash_ops.flash_attention(q, k, v, window=window, return_lse=True)
+        drow = torch.empty((b, hq, s), dtype=torch.float32, device="cuda")
+        old_grads = [torch.empty_like(t) for t in (q, k, v)]
+
+        def call_old():
+            err = old_fn(*(t.data_ptr() for t in (q, k, v, out, do, lse, drow, *old_grads)), 1,
+                         b, s, s, hq, hkv, 256, window, 256 ** -0.5,
+                         torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"old flash_attention_bwd: CUDA error {err}")
+
+        def call_new():
+            return flash_ops.flash_attention_bwd(q, k, v, out, do, lse, window=window)
+
+        call_old()
+        refs = _flash_bwd_plain(q, k, v, out, do, lse, window)
+        _accuracy_report(key, [("old - plain", old_grads, refs), ("new - plain", call_new(), refs)],
+                         2e-2)
+        del refs
+        plan = flash_ops.bwd_plan(b, s, hq, hkv, 256, torch.bfloat16,
+                                  torch.cuda.get_device_properties(0).multi_processor_count)
+        parts_new = K3B_STAGES + (("flash_attention_bwd_sum",) if plan["groups"] > 1 else ())
+        times = []
+        for label, fn, parts in (("old", call_old, K3B_STAGES), ("new", call_new, parts_new),
+                                 ("new", call_new, parts_new), ("old", call_old, K3B_STAGES)):
+            ms, stage_ms = device_ms(fn, "flash_attention_bwd", iters=5, parts=parts)
+            times.append((label, ms))
+            print(f"{key} (B={b} S={s} {hq} over {hkv}, window {window}) {label}: {ms:.6f} ms ("
+                  + ", ".join(f"{k.removeprefix('flash_attention_bwd_')} {v:.6f}"
+                              for k, v in stage_ms.items()) + ")")
+        old_ms = (times[0][1] + times[3][1]) / 2
+        new_ms = (times[1][1] + times[2][1]) / 2
+        print(f"{key}: old {old_ms:.6f} ms, new {new_ms:.6f} ms, {old_ms / new_ms:.3f} times "
+              f"faster ({plan['groups']} head groups)")
+        del q, k, v, do, out, lse, drow, old_grads
+        torch.cuda.empty_cache()
+
+    # tests/test_torch_cuda.py's head-dim-256 cases at G = 16 (its seeds).
+    for dtype, code in ((torch.bfloat16, 1), (torch.float32, 0)):
+        tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+        for b, s, hq, hkv, window in ((8, 1024, 16, 1, 2048), (2, 3000, 16, 1, 0)):
+            gen = torch.Generator(device="cuda").manual_seed(s * 5 + hq)
+            q, do = (torch.randn((b, s, hq, 256), generator=gen, device="cuda").to(dtype)
+                     for _ in range(2))
+            k, v = (torch.randn((b, s, hkv, 256), generator=gen, device="cuda").to(dtype)
+                    for _ in range(2))
+            out, lse = flash_ops.flash_attention(q, k, v, window=window, return_lse=True)
+            drow = torch.empty((b, hq, s), dtype=torch.float32, device="cuda")
+            old_grads = [torch.empty_like(t) for t in (q, k, v)]
+            err = old_fn(*(t.data_ptr() for t in (q, k, v, out, do, lse, drow, *old_grads)),
+                         code, b, s, s, hq, hkv, 256, window, 256 ** -0.5,
+                         torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"old flash_attention_bwd: CUDA error {err}")
+            torch.cuda.synchronize()
+            new_grads = flash_ops.flash_attention_bwd(q, k, v, out, do, lse, window=window)
+            key = f"card test B={b} S={s} {hq} over {hkv}, window {window}, {dtype}"
+            if dtype == torch.bfloat16:
+                sides = {"plain": {}, "plain rounding=bf16": {"rounding": "bf16"},
+                         "plain rounding=bf16x2": {"rounding": "bf16x2"}}
+                wide = (q, k, v, out, do, lse)
+            else:
+                sides = {"plain f32": {}, "plain f64": {}}
+                wide = [t.double() for t in (q, k, v, out, do, lse)]
+            refs = {side: _flash_bwd_plain(*(wide if side == "plain f64" else
+                                              (q, k, v, out, do, lse)), window, **kw)
+                    for side, kw in sides.items()}
+            pairs = [(f"old - {side}", old_grads, r) for side, r in refs.items()]
+            pairs += [(f"new - {side}", new_grads, r) for side, r in refs.items()]
+            if dtype == torch.float32:
+                pairs.append(("plain f32 - plain f64", refs["plain f32"], refs["plain f64"]))
+            _accuracy_report(key, pairs, tol)
+            del q, k, v, do, out, lse, drow, old_grads, new_grads, refs, wide
+            torch.cuda.empty_cache()
+
+
+def probe_rglru_bwd_old(old: Path) -> None:
+    """``rglru_scan_bwd``: an earlier tree's ``rglru_scan_bwd.cu`` (the first
+    design: a summary and a scan kernel, the carries every 64 steps) against
+    this tree's, in one process, at phase 16 (a)'s training shape and a lone
+    prompt's, timed old, new, new, old under ``torch.profiler``, each
+    checked against the plain reverse loop and both run twice
+    bit-identically."""
+    import torch
+
+    from chip_smoke import RGLRU_BWD_TOL, _close, device_ms
+    from repro_torch.kernels.rglru_scan import ops as rglru_ops
+    from repro_torch.kernels.rglru_scan.ref import rglru_scan_bwd_ref
+
+    old_lib = _build_in_place("rglru_bwd_old", old)
+    old_fn = old_lib.rglru_scan_bwd
+    old_fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    old_fn.restype = ctypes.c_int
+    old_lib.rglru_scan_bwd_chunk.restype = ctypes.c_int
+    old_chunk = old_lib.rglru_scan_bwd_chunk()
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    atol, rtol = RGLRU_BWD_TOL["bfloat16"]
+    for key, (b, s, width) in {"train": (8, 1024, 4096), "lone_prompt": (1, 1024, 4096)}.items():
+        u, gp, dy = (torch.randn((b, s, width), generator=gen, device="cuda").to(torch.bfloat16)
+                     for _ in range(3))
+        vecs = [(torch.randn(width, generator=gen, device="cuda") * 0.5).to(torch.bfloat16)
+                for _ in range(5)]
+        _, _, carries = rglru_ops.rglru_scan_saving(u, gp, *vecs)
+        # The first design reads the h entering each of its chunks: every
+        # (chunk / carry)-th of this tree's carries.
+        old_carries = carries[:, ::old_chunk // rglru_ops.carry_len()].contiguous()
+        nc = -(-s // old_chunk)
+        scratch = torch.empty(((5 * nc + 2 * (nc - 1)) * b * width,), device="cuda")
+        ins = [t.contiguous() for t in (u, gp, dy, *vecs)]
+        outs = [torch.empty_like(u), torch.empty_like(gp)] + [torch.empty_like(x) for x in vecs]
+        in_ptrs = (ctypes.c_void_p * len(ins))(*(t.data_ptr() for t in ins))
+        out_ptrs = (ctypes.c_void_p * len(outs))(*(t.data_ptr() for t in outs))
+
+        def call_old():
+            err = old_fn(in_ptrs, old_carries.data_ptr(), None, out_ptrs, None,
+                         scratch.data_ptr(), b, s, width, 1,
+                         torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"old rglru_scan_bwd: CUDA error {err}")
+
+        def call_new():
+            return rglru_ops.rglru_scan_bwd(u, gp, *vecs, carries, dy)
+
+        call_old()
+        got = call_new()
+        again = call_new()
+        if not all(x is None or torch.equal(x, y) for x, y in zip(got, again)):
+            raise AssertionError(f"rglru_scan_bwd {key}: two calls differ")
+        want = rglru_scan_bwd_ref(u, gp, *vecs, dy)
+        names = ("du", "dgpre", "da_w", "da_b", "dx_w", "dx_b", "dlam")
+        for name, o, n, r in zip(names, outs, got, want):
+            _close(o.float(), r.float(), atol, f"old rglru_scan_bwd {key} {name}", rtol)
+            _close(n.float(), r.float(), atol, f"new rglru_scan_bwd {key} {name}", rtol)
+        del got, again, want
+        times = []
+        for label, fn in (("old", call_old), ("new", call_new), ("new", call_new),
+                          ("old", call_old)):
+            ms = device_ms(fn, "rglru_bwd", iters=10)
+            times.append(ms)
+            print(f"rglru_scan_bwd {key} (B={b} S={s} L={width} bf16) {label}: {ms:.6f} ms")
+        old_ms, new_ms = (times[0] + times[3]) / 2, (times[1] + times[2]) / 2
+        print(f"rglru_scan_bwd {key}: old {old_ms:.6f} ms, new {new_ms:.6f} ms, "
+              f"{old_ms / new_ms:.3f} times faster")
 
 
 def probe_k3b_train(steps: int, lr: float) -> None:
@@ -996,6 +1238,8 @@ def main(argv=None) -> int:
     t = sub.add_parser("k3b-train")
     t.add_argument("--steps", type=int, default=24)
     t.add_argument("--lr", type=float, default=1e-3)
+    sub.add_parser("k3b").add_argument("--old", type=Path, required=True)
+    sub.add_parser("rglru-bwd").add_argument("--old", type=Path, required=True)
     args = p.parse_args(argv)
     import torch
 
@@ -1019,6 +1263,10 @@ def main(argv=None) -> int:
         probe_scan_step()
     elif args.what == "k3b-train":
         probe_k3b_train(args.steps, args.lr)
+    elif args.what == "k3b":
+        probe_k3b_old(args.old)
+    elif args.what == "rglru-bwd":
+        probe_rglru_bwd_old(args.old)
     else:
         probe_chain()
     return 0

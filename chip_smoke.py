@@ -203,9 +203,10 @@ def require(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
-def hmma_count(lib_path) -> int | None:
-    """Tensor-core (HMMA) instructions in a built library's SASS, or None
-    where the toolkit has no ``cuobjdump``."""
+def hmma_count(lib_path, op: str = "HMMA") -> int | None:
+    """Tensor-core instructions (``op``: HMMA for mma.sync, HGMMA for
+    wgmma) in a built library's SASS, or None where the toolkit has no
+    ``cuobjdump``."""
     import shutil
 
     from torch.utils.cpp_extension import CUDA_HOME
@@ -217,7 +218,7 @@ def hmma_count(lib_path) -> int | None:
         return None
     sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
                           timeout=120, check=True).stdout
-    return sum("HMMA" in line for line in sass.splitlines())
+    return sum(f" {op}." in line or f" {op} " in line for line in sass.splitlines())
 
 
 def ptxas_registers(name: str, keys) -> dict:
@@ -245,17 +246,19 @@ D256_INSTANCES = {
     "flash_attention": ("flash_attention_bf16_kernelILi256E", "flash_attention_f32_kernelILi256E"),
     "decode_attention": ("decode_attention_kernelI13__nv_bfloat16Li256E",
                          "decode_attention_kernelIfLi256E"),
-    "flash_attention_bwd": ("flash_attention_bwd_dkdv_bf16_kernelILi256E",
-                            "flash_attention_bwd_dq_bf16_kernelILi256E",
+    "flash_attention_bwd": ("flash_attention_bwd_dkdv_wgmma_kernel",
+                            "flash_attention_bwd_dq_wgmma_kernel",
                             "flash_attention_bwd_dkdv_kernelILi256EfE",
                             "flash_attention_bwd_dq_kernelILi256EfE"),
 }
 
 
 # K3b's bf16 instances (mangled-name keys): ptxas's registers are printed
-# in phase 2, and a spill fails it.
+# in phase 2, and a spill fails it.  Head dims 16-128 on mma.sync, 256 on
+# warpgroup products (wgmma).
 K3B_BF16_INSTANCES = tuple(f"flash_attention_bwd_{part}_bf16_kernelILi{d}E"
-                           for d in (16, 32, 64, 128, 256) for part in ("dkdv", "dq"))
+                           for d in (16, 32, 64, 128) for part in ("dkdv", "dq")) + (
+    "flash_attention_bwd_dkdv_wgmma_kernel", "flash_attention_bwd_dq_wgmma_kernel")
 
 
 def card_line() -> str:
@@ -3008,13 +3011,19 @@ K5B_STAGES = ("ssd_chunk_bwd_scores", "ssd_chunk_bwd_dstate", "ssd_chunk_bwd_pas
 K3B_FIRST_MS = {"tinyllama": 7.091728, "f32": 7.265763, "llama4": 5.685508, "windowed": 5.121812}
 K5B_FIRST_MS = 2.239300
 # K3b at head dim 256 (batch, length, query heads, KV heads, window, dtype):
-# gemma-7b's training shape (MHA), recurrentgemma-9b's local layers (16
-# over 1, a 2048 window that binds at S = 4096), gemma3-4b's local layers (8
-# over 4, window 1024), and float32 at gemma-7b's width.
+# gemma-7b's training shape (MHA), recurrentgemma-9b's training shape (16
+# over 1 at B = 8, S = 1024, where its 2048 window does not bind: causal),
+# its local layers at S = 4096 (a window that binds), gemma3-4b's local
+# layers (8 over 4, window 1024), and float32 at gemma-7b's width.
 K3B_D256_SHAPES = {"gemma7b": (8, 1024, 16, 16, 0, "bfloat16"),
+                   "recurrentgemma_train": (8, 1024, 16, 1, 2048, "bfloat16"),
                    "recurrentgemma_local": (2, 4096, 16, 1, 2048, "bfloat16"),
                    "gemma3": (2, 2048, 8, 4, 1024, "bfloat16"),
                    "f32_d256": (1, 1024, 16, 16, 0, "float32")}
+# The first bf16 design's times at head dim 256 (mma.sync; its chip_smoke.py run, NVIDIA
+# H100 80GB HBM3, 700.00 W; PERF.md), printed in brackets beside this run's.
+K3B_D256_FIRST_MS = {"gemma7b": 1.682459, "recurrentgemma_local": 5.177276,
+                     "gemma3": 0.687855}
 # rglru_scan_bwd's cases (batch, length, LRU width, dtype, h0, dh_last):
 # recurrentgemma-9b's training shape (timed), a length off a multiple of the
 # chunk, one below a chunk, and float32 with both states given.
@@ -3024,7 +3033,10 @@ RGLRU_BWD_CASES = {"train": (8, 1024, 4096, "bfloat16", False, False),
                    "f32": (2, 300, 200, "float32", True, True)}
 # Its tolerances against the plain reverse loop (tests/test_torch_cuda.py).
 RGLRU_BWD_TOL = {"float32": (1e-4, 1e-3), "bfloat16": (2e-2, 2e-2)}
-RGLRU_BWD_PARTS = ("rglru_bwd_summary", "rglru_bwd_scan", "rglru_bwd_reduce")
+RGLRU_BWD_PARTS = ("rglru_bwd_chain", "rglru_bwd_reduce")
+# Its first design's time at the training shape (three kernels; its chip_smoke.py run,
+# NVIDIA H100 80GB HBM3, 700.00 W; PERF.md), printed in brackets.
+RGLRU_BWD_FIRST_MS = 0.442952
 TRAIN_BATCH, TRAIN_SEQ = 8, 1024
 MAMBA_STEPS, MAMBA_FAULT_AT, TINY_STEPS = 30, 15, 20
 # The two families trained through make_train_step at published widths and
@@ -3043,13 +3055,17 @@ MAMBA_STEPS, MAMBA_FAULT_AT, TINY_STEPS = 30, 15, 20
 # version, the first step's gradients within 0.7 % of each other, same
 # card): the model and optimizer's, not the kernel's.
 NEW_TRAIN = {"recurrentgemma-9b": (3, 1e-3), "gemma-7b": (3, 3e-4)}
+# Their tokens/s with the first designs of both kernels (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md),
+# printed beside this run's.
+NEW_TRAIN_FIRST_TOKENS_PER_S = {"recurrentgemma-9b": 18947.6, "gemma-7b": 21643.9}
 NEW_TRAIN_STEPS = 12
 TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd", "ssd", "ssd_bwd", "rglru_scan",
                  "rglru_scan_bwd")
 
 
-def _flash_bwd_plain(q, k, v, o, do, lse, window):
-    """K3b's plain version, model layout in and out."""
+def _flash_bwd_plain(q, k, v, o, do, lse, window, rounding=None):
+    """K3b's plain version, model layout in and out (``rounding``: that of
+    ``flash_attention_bwd_ref``)."""
     from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref
 
     b, sq, hq, d = q.shape
@@ -3060,17 +3076,17 @@ def _flash_bwd_plain(q, k, v, o, do, lse, window):
 
     dq, dk, dv = flash_attention_bwd_ref(gqa(q), k.transpose(1, 2), v.transpose(1, 2), gqa(o),
                                          gqa(do), lse.reshape(b, hkv, hq // hkv, sq),
-                                         window=window)
+                                         window=window, rounding=rounding)
     return dq.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, d), dk.transpose(1, 2), dv.transpose(1, 2)
 
 
-def _flash_bwd_case(gen, b, s, hq, hkv, d, window, dtype, timed=False):
+def _flash_bwd_case(gen, b, s, hq, hkv, d, window, dtype, timed=False, plain_once=False):
     """K3b at one shape against its plain version on the same forward
     output and logsumexp, and two calls bit-identical; with ``timed``, its
     device time (and by kernel),
-    the plain version's, SDPA's backward (forward and backward less the
-    forward; with a window, through a boolean causal-and-window mask) and
-    the bound."""
+    the plain version's (one call, not warmed up, with ``plain_once``),
+    SDPA's backward (forward and backward less the forward; with a window,
+    through a boolean causal-and-window mask) and the bound."""
     import torch
     import torch.nn.functional as F
 
@@ -3105,7 +3121,10 @@ def _flash_bwd_case(gen, b, s, hq, hkv, d, window, dtype, timed=False):
     bytes_moved = item * (4 * b * s * hq * d + 4 * b * s * hkv * d) + 4 * b * hq * s
     peak = BF16_FLOP_PER_S if dtype == torch.bfloat16 else FP32_FLOP_PER_S
     call = lambda: flash_ops.flash_attention_bwd(q, k, v, out, do, lse, window=window)  # noqa: E731
-    ms, stage_ms = device_ms(call, "flash_attention_bwd", iters=5, parts=K3B_STAGES)
+    plan = flash_ops.bwd_plan(b, s, hq, hkv, d, dtype,
+                              torch.cuda.get_device_properties(0).multi_processor_count)
+    parts = K3B_STAGES + (("flash_attention_bwd_sum",) if plan["groups"] > 1 else ())
+    ms, stage_ms = device_ms(call, "flash_attention_bwd", iters=5, parts=parts)
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
     dot = do.transpose(1, 2)
 
@@ -3122,9 +3141,9 @@ def _flash_bwd_case(gen, b, s, hq, hkv, d, window, dtype, timed=False):
         torch.autograd.grad(sdpa(), (qt, kt, vt), dot)
 
     t.update({
-        "ms": ms, "stage_ms": stage_ms,
-        "plain_ms": timed_ms(lambda: _flash_bwd_plain(q, k, v, out, do, lse, window), iters=2,
-                             warmup=1),
+        "ms": ms, "stage_ms": stage_ms, "head_groups": plan["groups"],
+        "plain_ms": timed_ms(lambda: _flash_bwd_plain(q, k, v, out, do, lse, window),
+                             iters=1 if plain_once else 2, warmup=0 if plain_once else 1),
         "library_ms": timed_ms(sdpa_fwd_bwd, iters=10) - timed_ms(sdpa, iters=10),
         "bound_ms": max(flops / peak, bytes_moved / HBM_BYTES_PER_S) * 1e3,
         "bound_by": "operations" if flops / peak > bytes_moved / HBM_BYTES_PER_S else "bytes",
@@ -3167,12 +3186,15 @@ def check_backward_kernels(seed):
               f"[first design: {K3B_FIRST_MS[key]}]")
     for key, (b, s, hq, hkv, window, dtype) in K3B_D256_SHAPES.items():
         k3b[key] = t = _flash_bwd_case(gen, b, s, hq, hkv, 256, window, getattr(torch, dtype),
-                                       timed=True)
+                                       timed=True, plain_once=key == "recurrentgemma_train")
+        first = K3B_D256_FIRST_MS.get(key)
         print(f"  K3b {t['shape']}: within {ATTN_TOL[dtype]}, max |d| {t['max_abs_err']:.3g}; "
-              f"two calls bit-identical; {t['ms']:.6f} ms on the device ("
+              f"two calls bit-identical; {t['ms']:.6f} ms on the device"
+              + (f" [first design: {first}]" if first else "") + " ("
               + ", ".join(f"{k.removeprefix('flash_attention_bwd_')} {v:.6f}"
                           for k, v in t["stage_ms"].items())
-              + f"), bound {t['bound_ms']:.6f} ms ({t['bound_by']}), SDPA backward "
+              + f"; {t['head_groups']} head group{'s' if t['head_groups'] > 1 else ''}), bound "
+              f"{t['bound_ms']:.6f} ms ({t['bound_by']}), SDPA backward "
               f"{t['library_ms']:.6f} ms, plain {t['plain_ms']:.3f} ms")
         torch.cuda.empty_cache()
     torch.cuda.empty_cache()
@@ -3298,7 +3320,8 @@ def check_rglru_backward(gen):
                                                                   dh_last=dh),
                                        iters=2, warmup=1),
                   "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"})
-        print(f"    {nbytes / 1e6:.1f} MB; kernel {ms:.6f} ms on the device ("
+        print(f"    {nbytes / 1e6:.1f} MB; kernel {ms:.6f} ms on the device "
+              f"[first design: {RGLRU_BWD_FIRST_MS}] ("
               + ", ".join(f"{k.removeprefix('rglru_bwd_')} {v:.6f}" for k, v in part_ms.items())
               + f"), bound {t['bound_ms']:.6f} ms (bytes), plain {t['plain_ms']:.3f} ms, no "
               "library call")
@@ -3443,8 +3466,10 @@ def _training_summary(arch, losses, step_s, peak_gb, launches, per_step, execute
                 f"{arch}: {launches.get(name, 0)} {name} launches, expected {n} a step x "
                 f"{executed} steps")
     med = float(np.median(step_s))
+    first = NEW_TRAIN_FIRST_TOKENS_PER_S.get(arch)
     print(f"  {arch}: losses {losses[0]:.4f} -> {losses[-1]:.4f} (last 5 mean {tail:.4f}); "
-          f"median step {med:.4f} s, {TRAIN_BATCH * TRAIN_SEQ / med:.1f} tokens/s; peak "
+          f"median step {med:.4f} s, {TRAIN_BATCH * TRAIN_SEQ / med:.1f} tokens/s"
+          + (f" [first designs: {first}]" if first else "") + "; peak "
           f"{peak_gb:.3f} GB; launches a step: "
           + ", ".join(f"{k} {launches.get(k, 0) / executed:g}" for k in TRAIN_KERNELS))
     return {"first_loss": losses[0], "last5_loss": tail, "step_s_median": med,
@@ -3636,13 +3661,14 @@ def main(argv=None) -> int:
     k3_bf16 = ptxas_registers("flash_attention", D256_INSTANCES["flash_attention"][:1])
     require(" 0 bytes spill stores" in next(iter(k3_bf16.values())),
             "K3's bf16 instance at head dim 256 spills registers")
-    for name, what in (("flash_attention_bwd", "K3b"), ("ssd_bwd", "K5b")):
-        hmma = hmma_count(nvcc.SOURCES[name].library_path())
+    for name, what, op in (("flash_attention_bwd", "K3b", "HMMA"),
+                           ("flash_attention_bwd", "K3b", "HGMMA"), ("ssd_bwd", "K5b", "HMMA")):
+        hmma = hmma_count(nvcc.SOURCES[name].library_path(), op)
         if hmma is None:
             print(f"    cuobjdump not found: {what}'s SASS not inspected")
         else:
-            require(hmma > 0, f"{what}'s library holds no HMMA (tensor-core) instruction")
-            print(f"    {what} library SASS: {hmma} HMMA (tensor-core) instructions")
+            require(hmma > 0, f"{what}'s library holds no {op} (tensor-core) instruction")
+            print(f"    {what} library SASS: {hmma} {op} (tensor-core) instructions")
     k3b_bf16 = ptxas_registers("flash_attention_bwd", K3B_BF16_INSTANCES)
     require(sorted(k3b_bf16) == sorted(K3B_BF16_INSTANCES),
             f"ptxas reported no {set(K3B_BF16_INSTANCES) - set(k3b_bf16)}")

@@ -25,7 +25,8 @@
 // causal triangle, 0.087 ms at the bf16 tensor-core peak of 989 TFLOP/s.
 // So the bf16 instance has to run its products on the tensor cores.
 //
-// Three kernels on one stream, all named `flash_attention_bwd_*`:
+// Three kernels on one stream (four with head groups, below), all named
+// `flash_attention_bwd_*`:
 //   1. dot   (a warp per row): D = rowsum(dO o O), fp32.
 //   2. dkdv  (per 64-key tile, KV head and batch row): K and V stay in
 //            shared memory while the block walks the G query heads of the
@@ -40,9 +41,10 @@
 // deterministic, bit for bit from call to call.  Head dims 16, 32, 64, 128
 // and 256.
 //
-// Two instances, picked by dtype (no fallback from one to the other):
+// Three designs, picked by dtype and head dim (no fallback from one to
+// another):
 //
-// * bf16, on the tensor cores (`*_bf16_kernel`), the design of K3's
+// * bf16 at D <= 128, on the tensor cores (`*_bf16_kernel`), the design of K3's
 //   forward (flash_attention.cu; helpers in mma.cuh): blocks of 4 warps,
 //   mma.sync.m16n8k16 with bf16 in and fp32 accumulate, fragments by
 //   ldmatrix (ldmatrix.trans where a tile is the product's B operand along
@@ -57,22 +59,12 @@
 //     next A fragment, as K3 packs p); dP^T = V.dO^T; dS^T = P^T o (dP^T -
 //     D) scale; dK += dS^T.Q.  dK and dV stay in fp32 registers, 16 x D a
 //     warp each; at D = 128 the query tiles are 32 rows, so S^T and dP^T
-//     take 16 registers each beside them.  At D = 256 those two
-//     accumulators alone would take 256 registers a thread, so the block
-//     has 8 warps, two to each 16 keys, and each warp owns half of D: it
-//     computes S^T and dP^T over its half, the two warps of a key group
-//     exchange their halves through shared memory (16 x 32 fp32 each) and
-//     add them, and each then adds P^T.dO and dS^T.Q into its half of dV
-//     and dK (64 + 64 registers).  No product is done twice: each warp
-//     does its half of each of the block's four.  K, V, the ring and the
-//     exchange take 168,448 B of shared memory, one block an SM.
+//     take 16 registers each beside them.
 //   - dq: a warp owns 16 of the block's 64 queries, with its L and D rows in
-//     registers (and, at D <= 64, Q's A fragments; dO's, and Q's at D >=
+//     registers (and, at D <= 64, Q's A fragments; dO's, and Q's at D =
 //     128, are read again from the resident tiles, which keeps the
 //     registers within the 255 a thread has).  K and V tiles (64 keys, 32
-//     at D >= 128) come through the ring.  At D = 256 this is K3's forward
-//     at D = 256 with dP beside S: a 16 x 256 accumulator of 128
-//     registers, 135,168 B of shared memory.  Per tile: S = Q.K^T; dP = dO.V^T;
+//     at D = 128) come through the ring.  Per tile: S = Q.K^T; dP = dO.V^T;
 //     dS = P o (dP - D) scale, packed as an A fragment; dQ += dS.K.  The
 //     grid's x axis is the query head, so the G heads of a KV head share
 //     its K/V tiles in L2.
@@ -82,11 +74,66 @@
 //   - p and dS are rounded to bf16 where they become a product's operand,
 //     as FlashAttention-2 does; the reference keeps them in fp32
 //     (src/repro/models/attention.py:294-303).  ROADMAP, queue 3, P10.
+// * bf16 at D = 256, on warpgroup products (`*_wgmma_kernel`; helpers in
+//   wgmma.cuh): every operand a 64 x 256 tile, 32 KB, in shared memory
+//   with the 128-byte swizzle, filled by cp.async 16-byte pieces on
+//   1024-byte boundaries, read by wgmma through matrix descriptors.  Two
+//   products: m64n64k16 with both operands in shared memory (S^T = K.Q^T,
+//   dP^T = V.dO^T, S = Q.K^T, dP = dO.V^T: 16 a tile) and m64n256k16 with
+//   A in registers (the score-sized accumulator rounded to bf16) and
+//   B MN-major in shared memory (dV += P^T.dO, dK += dS^T.Q, dQ += dS.K:
+//   4 a tile; dV's 8, below).  The same masks as the D <= 128 design, and
+//   its rounding but for p: dV's product takes P^T as two bf16 terms, its
+//   rounding and what that rounding left (P10).  With p rounded once, one
+//   dv element of recurrentgemma-9b's training shape (16 over 1, B = 8, S =
+//   1024), summed over 16 heads x 1024 queries, left 2e-2 + 2e-2 |ref|
+//   (-0.0933 against -0.0698; the plain version with that rounding gives
+//   -0.0933 too: benchmarks/torch_kernel_probe.py k3b --old, NVIDIA H100
+//   80GB HBM3, 700.00 W); with two terms it uses 0.29 of it.
+//   - dkdv (`flash_attention_bwd_dkdv_wgmma_kernel`): 64 keys a block, K
+//     and V resident, Q and dO tiles (64 queries) and their L and D rows
+//     through a ring of two stages; two warpgroups.  The first computes
+//     S^T and P^T (masks only on a straddling tile) and dV += P^T.dO (two
+//     bf16 terms, 8 products a tile); the second dP^T, then, once the first has put P^T in shared memory in
+//     fp32 (its accumulator layout is the second's, thread for thread),
+//     dS^T and dK += dS^T.Q.  dV and dK are 64 x 256 fp32, 128 registers a
+//     thread.  215,040 B of shared memory, 256 threads, one block an SM;
+//     ptxas 255 registers, no spill.  When a KV head's (key tile, KV head,
+//     batch row) blocks would be fewer than the SMs (recurrentgemma-9b's
+//     16 over 1), ops.bwd_plan spreads its G query heads over head groups
+//     (enough for two waves; the groups' sizes differ by at most one); a
+//     group's block writes fp32 partial dK and dV, and
+//     `flash_attention_bwd_sum` adds the groups' partials in group order
+//     and rounds once.  The grid's slowest axis is the key tile, so the
+//     first key tiles, the longest causal walks, are issued first.
+//   - dq (`flash_attention_bwd_dq_wgmma_kernel`): 64 queries of a query
+//     head a block, one warpgroup, Q and dO resident, K and V tiles (64
+//     keys) through a ring of two stages; S and dP as two chains of 16
+//     products, P's exponentials issued while the second runs (ptxas adds
+//     a warpgroup wait there; measured no faster than one chain), dS = P
+//     o (dP - D) scale, dQ += dS.K.  197,632 B of shared memory, 128
+//     threads; ptxas 252 registers, no spill.  The heaviest
+//     query tiles go first; the grid's fastest axis is the query head, so
+//     a KV head's G query heads share its K and V tiles in L2.
+//   - What holds it: one block an SM, so a tile's loads, its
+//     shared-memory product chains (both operands from shared memory,
+//     nothing filling their waits), its exponentials and its register-A
+//     products run in sequence.  p's second term makes the first
+//     warpgroup's register-A products 8 a tile where the second's are 4:
+//     at gemma-7b's shape dkdv went from 0.593 to 0.670 ms
+//     (benchmarks/torch_kernel_probe.py k3b --old, NVIDIA H100 80GB HBM3,
+//     700.00 W).
 // * fp32, on the CUDA cores (`*_kernel<D, float>`), in IEEE fp32: one block
 //   of 256 threads per 64-key or 64-query tile, everything staged in shared
 //   memory as fp32, 4 x 4 register tiles per thread, p and dS staged in
 //   shared memory between the products.  At D = 256 the tiles are 32 rows
 //   (2 x 2 register tiles; 136,064 B, where 64 rows would take 280,320 B).
+//   dkdv sums dK and dV over each query head's walk, then over the heads
+//   in order: one running sum of G S terms left 2e-5 + 2e-5 |ref| at 16
+//   over 1 (dv 1.18 times the tolerance against the float64 plain version
+//   at B = 8, S = 1024, 1.40 at B = 2, S = 3000, where the float32 plain
+//   version uses 0.43 and 0.22 of it); per-head sums use 0.71 and 0.85
+//   (k3b --old, the same card).
 //   The models' f32 paths and the f32 tests take it, as K3's fp32 instance
 //   stays on the CUDA cores.
 //
@@ -98,20 +145,22 @@
 // (40 over 8, D = 128, B = 2) and 0.688 ms with a 1024 window (B = 2, S =
 // 2048).  What holds it back, by count: seven mma.sync products where the
 // bound counts five, at mma.sync's rate where the bound assumes wgmma's,
-// with 72 ldmatrix.x4 per 128 MMAs a warp in dkdv.  At D = 256 (the same
-// card): 1.682 ms at gemma-7b's training shape (B = 8, S = 1024, 16 over
-// 16; dkdv 0.932, dq 0.702), 9.7 times its bound (five products, 0.174
-// ms) and 2.3 times SDPA's backward (0.719); 5.177 ms at recurrentgemma-9b's
-// local shape (B = 2, S = 4096, 16 over 1, window 2048), where SDPA's
-// backward through a boolean mask takes 7.030; the fp32 instance 3.207 ms
-// at B = 1.  ptxas: 237
-// registers (dkdv) and 240 (dq) a thread in bf16, no spill.
+// with 72 ldmatrix.x4 per 128 MMAs a warp in dkdv.  At D = 256,
+// benchmarks/torch_kernel_probe.py k3b --old (the first design's source
+// against this one in one call, the same card): gemma-7b's training shape
+// (B = 8, S = 1024, 16 over 16) 1.034 ms against the first design's 1.698
+// (dkdv 0.670, dq 0.315), 5.9 times its bound (five products, 0.174 ms);
+// recurrentgemma-9b's training shape (16 over 1, 3 head groups) 0.988
+// against 2.336; its local layers (B = 2, S = 4096, window 2048) 2.605
+// against 5.186; gemma3-4b's (B = 2, S = 2048, 8 over 4, window 1024) 0.416
+// against 0.705.  The fp32 instance 3.207 ms at B = 1 (chip_smoke.py).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "mma.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -240,7 +289,10 @@ flash_attention_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k
   load_rows<D, R>(ks, k + ((size_t)b * Skv * Hkv + hk) * D, k0, Skv, kv_stride, tid);
   load_rows<D, R>(vs, v + ((size_t)b * Skv * Hkv + hk) * D, k0, Skv, kv_stride, tid);
 
-  float dka[RI][DJ], dva[RI][DJ];
+  // dK and dV summed over each query head's walk (hka, hva), then over the
+  // heads in order (dka, dva): G S terms in one running sum left fp32
+  // rounding past 2e-5 at recurrentgemma-9b's 16 over 1 (the header).
+  float dka[RI][DJ], dva[RI][DJ], hka[RI][DJ], hva[RI][DJ];
 #pragma unroll
   for (int i = 0; i < RI; ++i)
 #pragma unroll
@@ -260,6 +312,10 @@ flash_attention_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k
     const T* db = dout + ((size_t)b * Sq * Hq + h) * D;
     const float* lb = lse + ((size_t)b * Hq + h) * Sq;
     const float* drb = drow + ((size_t)b * Hq + h) * Sq;
+#pragma unroll
+    for (int i = 0; i < RI; ++i)
+#pragma unroll
+      for (int j = 0; j < DJ; ++j) hka[i][j] = hva[i][j] = 0.0f;
     for (int qt = qt_lo; qt <= qt_hi; ++qt) {
       const int q0 = qt * R;
       __syncthreads();  // the previous query tile is consumed
@@ -299,7 +355,7 @@ flash_attention_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k
 #pragma unroll
         for (int i = 0; i < RI; ++i)
 #pragma unroll
-          for (int j = 0; j < DJ; ++j) dva[i][j] += pr[i] * dov[j];
+          for (int j = 0; j < DJ; ++j) hva[i][j] += pr[i] * dov[j];
       }
       __syncthreads();  // p is read; dS takes its place
 #pragma unroll
@@ -320,9 +376,16 @@ flash_attention_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k
 #pragma unroll
         for (int i = 0; i < RI; ++i)
 #pragma unroll
-          for (int j = 0; j < DJ; ++j) dka[i][j] += sr[i] * qv[j];
+          for (int j = 0; j < DJ; ++j) hka[i][j] += sr[i] * qv[j];
       }
     }
+#pragma unroll
+    for (int i = 0; i < RI; ++i)
+#pragma unroll
+      for (int j = 0; j < DJ; ++j) {
+        dka[i][j] += hka[i][j];
+        dva[i][j] += hva[i][j];
+      }
   }
 
 #pragma unroll
@@ -450,24 +513,13 @@ constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kTcThreads = 128;  // 4 warps, 16 keys (dkdv) or queries (dq) each
 constexpr int kTcRows = 64;      // keys of a dkdv block, queries of a dq block
 
-// Queries per dkdv tile and keys per dq tile: 64, or 32 at D >= 128, which
+// Queries per dkdv tile and keys per dq tile: 64, or 32 at D = 128, which
 // keeps the two score-sized accumulators at 16 registers each.
 template <int D>
 __host__ __device__ constexpr int tc_cols() { return D <= 64 ? 64 : 32; }
 
-// Warps that share a dkdv block's 16 keys, each owning D / kv_split of the
-// columns of their dK and dV: 2 at D = 256, where one warp's two 16 x 256
-// fp32 accumulators would need 256 registers a thread.
-template <int D>
-__host__ __device__ constexpr int kv_split() { return D > 128 ? 2 : 1; }
-
-template <int D>
-__host__ __device__ constexpr int dkdv_threads() { return kTcThreads * kv_split<D>(); }
-
 // Both kernels hold two 64-row tiles and a ring of two stages of two
-// tc_cols-row tiles; dkdv also stages the L and D rows of its query tiles
-// and, with a split, each warp's partial S^T and dP^T (16 x tc_cols fp32
-// each), which the two warps of a key group exchange.
+// tc_cols-row tiles; dkdv also stages the L and D rows of its query tiles.
 template <int D>
 constexpr size_t tc_tiles_bytes() {
   return (size_t)(2 * kTcRows + 4 * tc_cols<D>()) * row_stride<D>() * sizeof(__nv_bfloat16);
@@ -475,9 +527,7 @@ constexpr size_t tc_tiles_bytes() {
 
 template <int D>
 constexpr size_t dkdv_smem_bytes() {
-  constexpr size_t exchange =
-      kv_split<D>() > 1 ? (size_t)(dkdv_threads<D>() / 32) * 2 * 16 * tc_cols<D>() : 0;
-  return tc_tiles_bytes<D>() + (4 * tc_cols<D>() + exchange) * sizeof(float);
+  return tc_tiles_bytes<D>() + 4 * tc_cols<D>() * sizeof(float);
 }
 
 template <int N>
@@ -486,16 +536,15 @@ __device__ __forceinline__ void zero_acc(float (&acc)[N][4]) {
   for (int j = 0; j < N; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
 }
 
-// acc (n-tiles over the tile's rows r) += A . rows^T over K of the columns
-// (all D unless given), the A fragments read by ldmatrix at `arow` (16 rows)
-// or taken from `af`, B from the shared tile `rows` (NR rows); both tiles
-// have D-wide rows.
-template <int D, int NR, bool kHeld, int K = D>
+// acc (n-tiles over the tile's rows r) += A . rows^T over the D columns,
+// the A fragments read by ldmatrix at `arow` (16 rows) or taken from `af`,
+// B from the shared tile `rows` (NR rows); both tiles have D-wide rows.
+template <int D, int NR, bool kHeld>
 __device__ __forceinline__ void mma_rows(float (&acc)[NR / 8][4], uint32_t (*af)[4],
                                          const __nv_bfloat16* arow, const __nv_bfloat16* rows,
                                          int lane) {
 #pragma unroll
-  for (int kk = 0; kk < K / 16; ++kk) {
+  for (int kk = 0; kk < D / 16; ++kk) {
     uint32_t a[4];
     if constexpr (kHeld) {
 #pragma unroll
@@ -513,11 +562,11 @@ __device__ __forceinline__ void mma_rows(float (&acc)[NR / 8][4], uint32_t (*af)
   }
 }
 
-// out (16 x N) += X . cols, X the warp's 16 x NR accumulator rounded to
-// bf16 as A fragments, cols N columns (all D unless given) of the shared
-// tile (NR rows, D wide) through ldmatrix.trans.
-template <int D, int NR, int N = D>
-__device__ __forceinline__ void mma_acc_cols(float (&out)[N / 8][4], const float (&x)[NR / 8][4],
+// out (16 x D) += X . cols, X the warp's 16 x NR accumulator rounded to
+// bf16 as A fragments, cols the shared tile (NR rows, D wide) through
+// ldmatrix.trans.
+template <int D, int NR>
+__device__ __forceinline__ void mma_acc_cols(float (&out)[D / 8][4], const float (&x)[NR / 8][4],
                                              const __nv_bfloat16* cols, int lane) {
 #pragma unroll
   for (int kk = 0; kk < NR / 16; ++kk) {
@@ -528,7 +577,7 @@ __device__ __forceinline__ void mma_acc_cols(float (&out)[N / 8][4], const float
         pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3]),
     };
 #pragma unroll
-    for (int nd = 0; nd < N / 16; ++nd) {
+    for (int nd = 0; nd < D / 16; ++nd) {
       uint32_t bf[4];
       ldmatrix_x4_trans(bf, a_frag_at<D>(cols + kk * 16 * row_stride<D>() + nd * 16, lane));
       mma_bf16(out[2 * nd], a, bf[0], bf[1]);
@@ -559,7 +608,7 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* dst, const float (&acc
 }
 
 template <int D>
-__global__ void __launch_bounds__(dkdv_threads<D>())
+__global__ void __launch_bounds__(kTcThreads)
 flash_attention_bwd_dkdv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                                      const __nv_bfloat16* __restrict__ k,
                                      const __nv_bfloat16* __restrict__ v,
@@ -570,11 +619,9 @@ flash_attention_bwd_dkdv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                                      int Hkv, int window, float scale, float scale_log2) {
   constexpr int ST = row_stride<D>();
   constexpr int BQ = tc_cols<D>();
-  constexpr int SPLIT = kv_split<D>();
-  constexpr int THREADS = dkdv_threads<D>();
-  constexpr int DW = D / SPLIT;  // columns of dK and dV a warp owns
-  constexpr int ND = DW / 8;     // n-tiles of dK and dV
-  constexpr int NQ = BQ / 8;     // n-tiles of S^T and dP^T
+  constexpr int THREADS = kTcThreads;
+  constexpr int ND = D / 8;   // n-tiles of dK and dV
+  constexpr int NQ = BQ / 8;  // n-tiles of S^T and dP^T
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // 64 x ST
   __nv_bfloat16* vs = ks + kTcRows * ST;                           // 64 x ST
@@ -582,7 +629,6 @@ flash_attention_bwd_dkdv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   __nv_bfloat16* dos = qs + 2 * BQ * ST;                           // stages x BQ x ST
   float* ls = reinterpret_cast<float*>(dos + 2 * BQ * ST);         // stages x BQ
   float* dls = ls + 2 * BQ;                                        // stages x BQ
-  float4* xs = reinterpret_cast<float4*>(dls + 2 * BQ);  // warps x 2 NQ x 32 lanes (SPLIT > 1)
 
   const int hk = blockIdx.x;
   const int b = blockIdx.y;
@@ -594,9 +640,7 @@ flash_attention_bwd_dkdv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   const int lane = tid & 31;
   const int g = lane >> 2;  // the accumulator rows (keys) g and g + 8 of the warp
   const int t = lane & 3;   // the accumulator columns 2t and 2t + 1 of each n-tile
-  const int kg = warp / SPLIT;   // the warp's 16 keys: kg * 16 .. kg * 16 + 15 of the block's
-  const int dc = (warp % SPLIT) * DW;  // the warp's first column of dK and dV
-  const int kw = k0 + kg * 16;  // the warp's first key
+  const int kw = k0 + warp * 16;  // the warp's first key
   const size_t kv_stride = (size_t)Hkv * D;
   const size_t q_stride = (size_t)Hq * D;
 
@@ -632,8 +676,8 @@ flash_attention_bwd_dkdv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   if (n_it > 0) issue(0, 0);
   cp_async_commit();
 
-  const __nv_bfloat16* krow = a_frag_at<D>(ks + kg * 16 * ST + dc, lane);
-  const __nv_bfloat16* vrow = a_frag_at<D>(vs + kg * 16 * ST + dc, lane);
+  const __nv_bfloat16* krow = a_frag_at<D>(ks + warp * 16 * ST, lane);
+  const __nv_bfloat16* vrow = a_frag_at<D>(vs + warp * 16 * ST, lane);
   float dka[ND][4], dva[ND][4];
   zero_acc(dka);
   zero_acc(dva);
@@ -657,29 +701,7 @@ flash_attention_bwd_dkdv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     // S^T = K . Q^T for the warp's 16 keys and the tile's BQ queries.
     float st[NQ][4], dpt[NQ][4];
     zero_acc(st);
-    mma_rows<D, BQ, false, DW>(st, nullptr, krow, qst + dc, lane);
-    if constexpr (SPLIT > 1) {
-      // Each warp of the pair has summed over its half of D: dP^T's half too,
-      // then the halves are exchanged through shared memory and added, own +
-      // other (the same sum in both warps: fp32 addition commutes).
-      zero_acc(dpt);
-      mma_rows<D, BQ, false, DW>(dpt, nullptr, vrow, dost + dc, lane);
-      float4* mine = xs + warp * 2 * NQ * 32 + lane;
-#pragma unroll
-      for (int j = 0; j < NQ; ++j) {
-        mine[j * 32] = make_float4(st[j][0], st[j][1], st[j][2], st[j][3]);
-        mine[(NQ + j) * 32] = make_float4(dpt[j][0], dpt[j][1], dpt[j][2], dpt[j][3]);
-      }
-      __syncthreads();
-      const float4* other = xs + (warp ^ 1) * 2 * NQ * 32 + lane;
-#pragma unroll
-      for (int j = 0; j < NQ; ++j) {
-        const float4 o = other[j * 32];
-        const float4 od = other[(NQ + j) * 32];
-        st[j][0] += o.x, st[j][1] += o.y, st[j][2] += o.z, st[j][3] += o.w;
-        dpt[j][0] += od.x, dpt[j][1] += od.y, dpt[j][2] += od.z, dpt[j][3] += od.w;
-      }
-    }
+    mma_rows<D, BQ, false>(st, nullptr, krow, qst, lane);
 
     // P^T, in the log2 domain; the masks only where the warp's keys and the
     // tile's queries are not all visible to each other.
@@ -703,14 +725,11 @@ flash_attention_bwd_dkdv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     }
 
     // dV += P^T . dO
-    mma_acc_cols<D, BQ, DW>(dva, st, dost + dc, lane);
+    mma_acc_cols<D, BQ>(dva, st, dost, lane);
 
-    // dP^T = V . dO^T (computed above with a split), then dS^T = P^T o
-    // (dP^T - D) scale in its place.
-    if constexpr (SPLIT == 1) {
-      zero_acc(dpt);
-      mma_rows<D, BQ, false>(dpt, nullptr, vrow, dost, lane);
-    }
+    // dP^T = V . dO^T, then dS^T = P^T o (dP^T - D) scale in its place.
+    zero_acc(dpt);
+    mma_rows<D, BQ, false>(dpt, nullptr, vrow, dost, lane);
 #pragma unroll
     for (int j = 0; j < NQ; ++j) {
 #pragma unroll
@@ -723,14 +742,14 @@ flash_attention_bwd_dkdv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     }
 
     // dK += dS^T . Q
-    mma_acc_cols<D, BQ, DW>(dka, dpt, qst + dc, lane);
-    __syncthreads();  // this stage (and the exchange) is consumed before the next overwrites it
+    mma_acc_cols<D, BQ>(dka, dpt, qst, lane);
+    __syncthreads();  // this stage is consumed before the next load overwrites it
   }
 
   cp_async_wait<0>();  // (K and V were loaded even where no query sees the tile)
-  const size_t base = ((size_t)b * Skv * Hkv + hk) * D + dc;
-  store_rows<DW>(dk + base, dka, kw, Skv, kv_stride, lane);
-  store_rows<DW>(dv + base, dva, kw, Skv, kv_stride, lane);
+  const size_t base = ((size_t)b * Skv * Hkv + hk) * D;
+  store_rows<D>(dk + base, dka, kw, Skv, kv_stride, lane);
+  store_rows<D>(dv + base, dva, kw, Skv, kv_stride, lane);
 }
 
 template <int D>
@@ -858,6 +877,421 @@ flash_attention_bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   store_rows<D>(dq + head, dqa, q0 + warp * 16, Sq, q_stride, lane);
 }
 
+// ------------------------------------- bf16 instance at D = 256, on wgmma
+
+namespace wg = repro_wgmma;
+
+constexpr int kWgD = 256;
+constexpr int kWgRows = 64;                     // a block's keys (dkdv) or queries (dq); a tile's
+constexpr int kWgThreads = 128;                 // one warpgroup
+constexpr int kWgTile = kWgRows * kWgD * 2;     // bytes of a swizzled 64 x 256 bf16 tile
+constexpr int kAlign = 1024;                    // the swizzle's period: every tile starts on it
+constexpr int kPBytes = kWgRows * kWgRows * 4;  // P^T, 64 x 64 fp32, handed between warpgroups
+constexpr int kRowsBytes = 4 * kWgRows * 4;     // two stages of 64 L and 64 D values
+// dkdv: K, V, two stages of Q and dO, P^T, the L and D rows; dq: Q, dO, two
+// stages of K and V.  (ops.py's WGMMA_SMEM states the same sums.)
+constexpr size_t kDkdvSmem = kAlign + 6 * kWgTile + kPBytes + kRowsBytes;  // 215,040 B
+constexpr size_t kDqSmem = kAlign + 6 * kWgTile;                           // 197,632 B
+
+__device__ __forceinline__ unsigned char* align_tiles(unsigned char* raw) {
+  const uint32_t a = smem_u32(raw);
+  return raw + ((kAlign - (a & (kAlign - 1))) & (kAlign - 1));
+}
+
+// A warpgroup's 64 x N fp32 accumulator as m64k16 A fragments of bf16 for
+// the reduction columns 16 kk .. 16 kk + 15: wgmma's accumulator and A
+// layouts are mma.sync's, warp by warp.
+template <int N>
+__device__ __forceinline__ void acc_to_a(uint32_t (&a)[N / 16][4], const float (&x)[N / 2]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk) {
+    a[kk][0] = pack_bf16(x[8 * kk + 0], x[8 * kk + 1]);
+    a[kk][1] = pack_bf16(x[8 * kk + 2], x[8 * kk + 3]);
+    a[kk][2] = pack_bf16(x[8 * kk + 4], x[8 * kk + 5]);
+    a[kk][3] = pack_bf16(x[8 * kk + 6], x[8 * kk + 7]);
+  }
+}
+
+// A warpgroup's 64 x N fp32 accumulator (rows row0 + 16 warp + g + 8 rr,
+// columns 8 j + 2 t + e) to rows < nrows of a matrix with row stride
+// `stride` (its first N columns at dst), as bf16 or, for a head group's
+// partial, fp32.
+template <int N, class T>
+__device__ __forceinline__ void store_acc(T* dst, const float (&acc)[N / 2], int row0, int nrows,
+                                          size_t stride, int wt) {
+  const int warp = wt >> 5;
+  const int g = (wt & 31) >> 2;
+  const int t = wt & 3;
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int r = row0 + warp * 16 + g + 8 * rr;
+    if (r >= nrows) continue;
+    T* out = dst + (size_t)r * stride + 2 * t;
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j) {
+      if constexpr (sizeof(T) == 2) {
+        *reinterpret_cast<__nv_bfloat162*>(out + 8 * j) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * rr], acc[4 * j + 2 * rr + 1]);
+      } else {
+        *reinterpret_cast<float2*>(out + 8 * j) =
+            make_float2(acc[4 * j + 2 * rr], acc[4 * j + 2 * rr + 1]);
+      }
+    }
+  }
+}
+
+// dK and dV of 64 keys of one KV head, over the query heads of one head
+// group (all G when `groups` is 1).  Two warpgroups: the first computes S^T
+// = K.Q^T, P^T and dV += P^T.dO; the second dP^T = V.dO^T, dS^T and dK +=
+// dS^T.Q, taking P^T (fp32) from the first through shared memory.
+__global__ void __launch_bounds__(2 * kWgThreads, 1)
+flash_attention_bwd_dkdv_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
+                                      const __nv_bfloat16* __restrict__ k,
+                                      const __nv_bfloat16* __restrict__ v,
+                                      const __nv_bfloat16* __restrict__ dout,
+                                      const float* __restrict__ lse,
+                                      const float* __restrict__ drow,
+                                      __nv_bfloat16* __restrict__ dk,
+                                      __nv_bfloat16* __restrict__ dv, float* __restrict__ part,
+                                      int Sq, int Skv, int Hq, int Hkv, int window, int groups,
+                                      float scale, float scale_log2) {
+  constexpr int D = kWgD;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* ks = align_tiles(smem_raw);
+  unsigned char* vs = ks + kWgTile;
+  unsigned char* qs = vs + kWgTile;       // two stages
+  unsigned char* dos = qs + 2 * kWgTile;  // two stages
+  float4* xs = reinterpret_cast<float4*>(dos + 2 * kWgTile);  // P^T, 8 float4 a thread
+  float* ls = reinterpret_cast<float*>(xs + 8 * kWgThreads);  // two stages of 64
+  float* dls = ls + 2 * kWgRows;                              // two stages of 64
+
+  const int hk = blockIdx.x / groups;
+  const int grp = blockIdx.x - hk * groups;
+  const int b = blockIdx.y;
+  const int k0 = blockIdx.z * kWgRows;  // the first key tiles, the longest walks, go first
+  const int G = Hq / Hkv;
+  const int h_first = hk * G + grp * G / groups;
+  const int n_heads = hk * G + (grp + 1) * G / groups - h_first;
+  const int offset = Skv - Sq;  // query i sits at position offset + i
+  const int tid = threadIdx.x;
+  const int role = tid / kWgThreads;  // 0: S^T, P^T, dV; 1: dP^T, dS^T, dK
+  const int wt = tid % kWgThreads;
+  const int warp = wt >> 5;
+  const int g = (wt & 31) >> 2;  // the accumulator rows (keys) g and g + 8 of the warp's 16
+  const int t = wt & 3;          // the accumulator columns 8 j + 2 t, 8 j + 2 t + 1
+  const size_t kv_stride = (size_t)Hkv * D;
+  const size_t q_stride = (size_t)Hq * D;
+
+  // The query tiles holding a row that sees a key of this tile, walked for
+  // each head of the group in turn.
+  const int k_last = min(k0 + kWgRows, Skv) - 1;
+  const int i_lo = max(0, k0 - offset);
+  const int i_hi = window > 0 ? min(Sq - 1, k_last + window - 1 - offset) : Sq - 1;
+  const int qt_lo = i_lo / kWgRows;
+  const int n_qt = i_hi >= i_lo ? i_hi / kWgRows - qt_lo + 1 : 0;
+  const int n_it = n_heads * n_qt;
+
+  // Stage `stage` <- the Q and dO tiles, L and D rows of step `it`.
+  auto issue = [&](int it, int stage) {
+    const int h = h_first + it / n_qt;
+    const int q0 = (qt_lo + it % n_qt) * kWgRows;
+    const size_t head = ((size_t)b * Sq * Hq + h) * D;
+    wg::cp_async_tile<D, kWgRows, 2 * kWgThreads>(qs + stage * kWgTile, q + head, q0, Sq,
+                                                   q_stride, tid);
+    wg::cp_async_tile<D, kWgRows, 2 * kWgThreads>(dos + stage * kWgTile, dout + head, q0, Sq,
+                                                   q_stride, tid);
+    if (tid < 2 * kWgRows) {
+      const int r = tid & (kWgRows - 1);
+      const bool in = q0 + r < Sq;
+      const size_t at = ((size_t)b * Hq + h) * Sq + (in ? q0 + r : 0);
+      if (tid < kWgRows) {
+        cp_async4(ls + stage * kWgRows + r, lse + at, in);
+      } else {
+        cp_async4(dls + stage * kWgRows + r, drow + at, in);
+      }
+    }
+  };
+
+  wg::cp_async_tile<D, kWgRows, 2 * kWgThreads>(ks, k + ((size_t)b * Skv * Hkv + hk) * D, k0,
+                                                 Skv, kv_stride, tid);
+  wg::cp_async_tile<D, kWgRows, 2 * kWgThreads>(vs, v + ((size_t)b * Skv * Hkv + hk) * D, k0,
+                                                 Skv, kv_stride, tid);
+  if (n_it > 0) issue(0, 0);
+  cp_async_commit();
+
+  float acc[128];  // dV (role 0) or dK (role 1): the warpgroup's 64 keys x 256
+#pragma unroll
+  for (int i = 0; i < 128; ++i) acc[i] = 0.0f;
+  const int kw = k0 + warp * 16;  // the warp's first key
+
+  for (int it = 0; it < n_it; ++it) {
+    const int stage = it & 1;
+    if (it + 1 < n_it) {  // the next tile loads while this one is used
+      issue(it + 1, stage ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    wg::fence_proxy_async();
+    __syncthreads();
+    const int q0 = (qt_lo + it % n_qt) * kWgRows;
+    const unsigned char* qst = qs + stage * kWgTile;
+    const unsigned char* dost = dos + stage * kWgTile;
+
+    // S^T = K . Q^T (role 0) or dP^T = V . dO^T (role 1), over all D.
+    float s[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = 0.0f;
+    const unsigned char* at = role == 0 ? ks : vs;
+    const unsigned char* bt = role == 0 ? qst : dost;
+    wg::fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wg::wgmma_m64n64k16_ss(s, wg::desc_k<kWgRows>(at, kk), wg::desc_k<kWgRows>(bt, kk), 1);
+    wg::commit();
+    wg::wait<0>();
+    wg::keep(s);
+
+    uint32_t a[4][4];
+    if (role == 0) {
+      // P^T in the log2 domain; the masks only where the warp's keys and the
+      // tile's queries are not all visible to each other.
+      const int qpos0 = offset + q0;
+      const bool full = q0 + kWgRows <= Sq && kw + 16 <= Skv && kw + 15 <= qpos0 &&
+                        (window <= 0 || kw > qpos0 + kWgRows - 1 - window);
+      const float* lst = ls + stage * kWgRows;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = 8 * j + 2 * t + e;
+          const float l2 = lst[c] * kLog2e;
+#pragma unroll
+          for (int rr = 0; rr < 2; ++rr) {
+            float p = exp2f(fmaf(s[4 * j + 2 * rr + e], scale_log2, -l2));
+            if (!full && !(q0 + c < Sq && visible(qpos0 + c, kw + g + 8 * rr, Skv, window)))
+              p = 0.0f;
+            s[4 * j + 2 * rr + e] = p;
+          }
+        }
+        xs[j * kWgThreads + wt] = make_float4(s[4 * j], s[4 * j + 1], s[4 * j + 2], s[4 * j + 3]);
+      }
+      wg::bar_arrive(1, 2 * kWgThreads);  // P^T is in shared memory
+    } else {
+      // dS^T = P^T o (dP^T - D) scale, P^T in fp32 from the first warpgroup.
+      wg::bar_sync(1, 2 * kWgThreads);
+      const float* dlst = dls + stage * kWgRows;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float4 p = xs[j * kWgThreads + wt];
+        const float d0 = dlst[8 * j + 2 * t];
+        const float d1 = dlst[8 * j + 2 * t + 1];
+        s[4 * j + 0] = p.x * (s[4 * j + 0] - d0) * scale;
+        s[4 * j + 1] = p.y * (s[4 * j + 1] - d1) * scale;
+        s[4 * j + 2] = p.z * (s[4 * j + 2] - d0) * scale;
+        s[4 * j + 3] = p.w * (s[4 * j + 3] - d1) * scale;
+      }
+    }
+    // dV += P^T . dO (role 0) or dK += dS^T . Q (role 1); the tile's 64
+    // queries are the reduction.  dS^T goes in rounded to bf16; P^T as two
+    // bf16 terms, its rounding and what that rounding left (P10).
+    acc_to_a<64>(a, s);
+    uint32_t lo[4][4];
+    if (role == 0) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s[i] -= __bfloat162float(__float2bfloat16_rn(s[i]));
+      acc_to_a<64>(lo, s);
+    }
+    const unsigned char* mt = role == 0 ? dost : qst;
+    wg::fence();
+#pragma unroll
+    for (int kk = 0; kk < kWgRows / 16; ++kk)
+      wg::wgmma_m64n256k16_rs(acc, a[kk], wg::desc_mn<kWgRows>(mt, kk), 1);
+    if (role == 0) {
+#pragma unroll
+      for (int kk = 0; kk < kWgRows / 16; ++kk)
+        wg::wgmma_m64n256k16_rs(acc, lo[kk], wg::desc_mn<kWgRows>(mt, kk), 1);
+    }
+    wg::commit();
+    wg::wait<0>();
+    wg::keep(acc);
+    wg::keep(a);
+    if (role == 0) wg::keep(lo);
+    __syncthreads();  // this stage and P^T are consumed before they are overwritten
+  }
+
+  cp_async_wait<0>();  // (K and V were loaded even where no query sees the tile)
+  const size_t at = ((size_t)b * Skv * Hkv + hk) * D;
+  if (groups == 1) {
+    store_acc<kWgD>(role == 0 ? dv + at : dk + at, acc, k0, Skv, kv_stride, wt);
+  } else {  // the group's fp32 partial: (2, groups, B, Skv, Hkv, D), dK's first
+    const size_t n = (size_t)gridDim.y * Skv * Hkv * D;
+    store_acc<kWgD>(part + (size_t)((1 - role) * groups + grp) * n + at, acc, k0, Skv, kv_stride,
+                    wt);
+  }
+}
+
+// dK and dV from the head groups' fp32 partials, added in group order and
+// rounded to bf16 once: four elements a thread.
+__global__ void __launch_bounds__(256)
+flash_attention_bwd_sum_kernel(const float4* __restrict__ part, int groups, size_t n4,
+                               __nv_bfloat162* __restrict__ dk, __nv_bfloat162* __restrict__ dv) {
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= 2 * n4) return;
+  const int which = i >= n4;  // 0: dK, 1: dV
+  const size_t j = i - which * n4;
+  const float4* src = part + (size_t)which * groups * n4 + j;
+  float4 s = src[0];
+  for (int gi = 1; gi < groups; ++gi) {
+    const float4 x = src[(size_t)gi * n4];
+    s.x += x.x, s.y += x.y, s.z += x.z, s.w += x.w;
+  }
+  __nv_bfloat162* out = (which ? dv : dk) + 2 * j;
+  out[0] = __floats2bfloat162_rn(s.x, s.y);
+  out[1] = __floats2bfloat162_rn(s.z, s.w);
+}
+
+// dQ of 64 queries of one query head: one warpgroup, Q and dO resident,
+// the K and V tiles it sees through a ring of two stages.  Per tile: S =
+// Q.K^T and dP = dO.V^T, dS = P o (dP - D) scale, dQ += dS.K.
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_attention_bwd_dq_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
+                                    const __nv_bfloat16* __restrict__ k,
+                                    const __nv_bfloat16* __restrict__ v,
+                                    const __nv_bfloat16* __restrict__ dout,
+                                    const float* __restrict__ lse, const float* __restrict__ drow,
+                                    __nv_bfloat16* __restrict__ dq, int Sq, int Skv, int Hq,
+                                    int Hkv, int window, float scale, float scale_log2) {
+  constexpr int D = kWgD;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* qs = align_tiles(smem_raw);
+  unsigned char* dos = qs + kWgTile;
+  unsigned char* ks = dos + kWgTile;     // two stages
+  unsigned char* vs = ks + 2 * kWgTile;  // two stages
+
+  const int h = blockIdx.x;
+  const int qt = gridDim.y - 1 - blockIdx.y;  // heaviest (last) tiles first
+  const int b = blockIdx.z;
+  const int hk = h / (Hq / Hkv);
+  const int q0 = qt * kWgRows;
+  const int offset = Skv - Sq;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int g = (tid & 31) >> 2;  // the accumulator rows (queries) g and g + 8 of the warp's 16
+  const int t = tid & 3;          // the accumulator columns 8 j + 2 t, 8 j + 2 t + 1
+  const size_t q_stride = (size_t)Hq * D;
+  const size_t kv_stride = (size_t)Hkv * D;
+  const size_t head = ((size_t)b * Sq * Hq + h) * D;
+  const __nv_bfloat16* kb = k + ((size_t)b * Skv * Hkv + hk) * D;
+  const __nv_bfloat16* vb = v + ((size_t)b * Skv * Hkv + hk) * D;
+
+  // Key tiles this query tile can see (at least one).
+  const int q_first = offset + q0;
+  const int q_last = offset + min(q0 + kWgRows, Sq) - 1;
+  const int k_stop = min(Skv, q_last + 1);
+  int k_start = 0;
+  if (window > 0) {
+    const int lo = q_first - window + 1;
+    k_start = lo > 0 ? (lo / kWgRows) * kWgRows : 0;
+  }
+  const int n_tiles = (k_stop - k_start + kWgRows - 1) / kWgRows;
+
+  wg::cp_async_tile<D, kWgRows, kWgThreads>(qs, q + head, q0, Sq, q_stride, tid);
+  wg::cp_async_tile<D, kWgRows, kWgThreads>(dos, dout + head, q0, Sq, q_stride, tid);
+  wg::cp_async_tile<D, kWgRows, kWgThreads>(ks, kb, k_start, Skv, kv_stride, tid);
+  wg::cp_async_tile<D, kWgRows, kWgThreads>(vs, vb, k_start, Skv, kv_stride, tid);
+  cp_async_commit();
+
+  // L (log2 domain) and D of the lane's rows g and g + 8.
+  float l2[2], dr[2];
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int s = q0 + warp * 16 + g + 8 * rr;
+    const size_t at = ((size_t)b * Hq + h) * Sq + s;
+    l2[rr] = s < Sq ? lse[at] * kLog2e : 0.0f;
+    dr[rr] = s < Sq ? drow[at] : 0.0f;
+  }
+  const int qw = q_first + warp * 16;  // the warp's first query position
+  float acc[128];                      // dQ, the warpgroup's 64 queries x 256
+#pragma unroll
+  for (int i = 0; i < 128; ++i) acc[i] = 0.0f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = k_start + it * kWgRows;
+    const int stage = it & 1;
+    if (it + 1 < n_tiles) {
+      const int nxt = stage ^ 1;
+      wg::cp_async_tile<D, kWgRows, kWgThreads>(ks + nxt * kWgTile, kb, k0 + kWgRows, Skv,
+                                                 kv_stride, tid);
+      wg::cp_async_tile<D, kWgRows, kWgThreads>(vs + nxt * kWgTile, vb, k0 + kWgRows, Skv,
+                                                 kv_stride, tid);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    wg::fence_proxy_async();
+    __syncthreads();
+    const unsigned char* kst = ks + stage * kWgTile;
+    const unsigned char* vst = vs + stage * kWgTile;
+
+    // S = Q . K^T and dP = dO . V^T as two groups: P's exponentials run
+    // while the second is on the tensor cores.
+    float s[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.0f;
+    wg::fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wg::wgmma_m64n64k16_ss(s, wg::desc_k<kWgRows>(qs, kk), wg::desc_k<kWgRows>(kst, kk), 1);
+    wg::commit();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wg::wgmma_m64n64k16_ss(dp, wg::desc_k<kWgRows>(dos, kk), wg::desc_k<kWgRows>(vst, kk), 1);
+    wg::commit();
+    wg::wait<1>();
+    wg::keep(s);
+
+    // P in S's place, masks only on a straddling tile; then dS = P o (dP -
+    // D) scale.
+    const bool full = k0 + kWgRows - 1 <= qw && k0 + kWgRows <= Skv &&
+                      (window <= 0 || k0 > qw + 15 - window);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = 4 * j + 2 * rr + e;
+          float p = exp2f(fmaf(s[i], scale_log2, -l2[rr]));
+          if (!full && !visible(qw + g + 8 * rr, k0 + 8 * j + 2 * t + e, Skv, window)) p = 0.0f;
+          s[i] = p;
+        }
+      }
+    }
+    wg::wait<0>();
+    wg::keep(dp);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = s[i] * (dp[i] - dr[(i >> 1) & 1]) * scale;
+
+    // dQ += dS . K, dS rounded to bf16; the tile's 64 keys are the reduction.
+    uint32_t a[4][4];
+    acc_to_a<64>(a, s);
+    wg::fence();
+#pragma unroll
+    for (int kk = 0; kk < kWgRows / 16; ++kk)
+      wg::wgmma_m64n256k16_rs(acc, a[kk], wg::desc_mn<kWgRows>(kst, kk), 1);
+    wg::commit();
+    wg::wait<0>();
+    wg::keep(acc);
+    wg::keep(a);
+    __syncthreads();  // this stage is consumed before the next load overwrites it
+  }
+
+  store_acc<kWgD>(dq + head, acc, q0, Sq, q_stride, tid);
+}
+
 // ------------------------------------------------------------------ launches
 
 template <class T>
@@ -927,12 +1361,55 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, const void*
   err = launch_dot<T>(o, dout, drow, B, Sq, Hq, D, s);
   if (err != cudaSuccess) return err;
   const float scale_log2 = scale * kLog2e;
-  kv_kernel<<<dim3(Hkv, B, (Skv + kTcRows - 1) / kTcRows), dkdv_threads<D>(), kv_smem, s>>>(
+  kv_kernel<<<dim3(Hkv, B, (Skv + kTcRows - 1) / kTcRows), kTcThreads, kv_smem, s>>>(
       qp, kp, vp, dop, lp, drp, static_cast<T*>(dk), static_cast<T*>(dv), Sq, Skv, Hq, Hkv,
       window, scale, scale_log2);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   q_kernel<<<dim3(Hq, (Sq + kTcRows - 1) / kTcRows, B), kTcThreads, q_smem, s>>>(
+      qp, kp, vp, dop, lp, drp, static_cast<T*>(dq), Sq, Skv, Hq, Hkv, window, scale, scale_log2);
+  return cudaGetLastError();
+}
+
+// The bf16 instance at D = 256: the two warpgroup kernels and, with head
+// groups, the sum of their partials.
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v, const void* o,
+                         const void* dout, const void* lse, void* drow, void* dq, void* dk,
+                         void* dv, void* part, int B, int Sq, int Skv, int Hq, int Hkv,
+                         int window, int groups, float scale, cudaStream_t s) {
+  using T = __nv_bfloat16;
+  cudaError_t err = cudaFuncSetAttribute(flash_attention_bwd_dkdv_wgmma_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)kDkdvSmem);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(flash_attention_bwd_dq_wgmma_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kDqSmem);
+  if (err != cudaSuccess) return err;
+  auto qp = static_cast<const T*>(q);
+  auto kp = static_cast<const T*>(k);
+  auto vp = static_cast<const T*>(v);
+  auto dop = static_cast<const T*>(dout);
+  auto lp = static_cast<const float*>(lse);
+  auto drp = static_cast<const float*>(drow);
+  err = launch_dot<T>(o, dout, drow, B, Sq, Hq, kWgD, s);
+  if (err != cudaSuccess) return err;
+  const float scale_log2 = scale * kLog2e;
+  flash_attention_bwd_dkdv_wgmma_kernel<<<dim3(Hkv * groups, B, (Skv + kWgRows - 1) / kWgRows),
+                                          2 * kWgThreads, kDkdvSmem, s>>>(
+      qp, kp, vp, dop, lp, drp, static_cast<T*>(dk), static_cast<T*>(dv),
+      static_cast<float*>(part), Sq, Skv, Hq, Hkv, window, groups, scale, scale_log2);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  if (groups > 1) {
+    const size_t n4 = (size_t)B * Skv * Hkv * kWgD / 4;
+    flash_attention_bwd_sum_kernel<<<(unsigned)((2 * n4 + 255) / 256), 256, 0, s>>>(
+        static_cast<const float4*>(part), groups, n4, static_cast<__nv_bfloat162*>(dk),
+        static_cast<__nv_bfloat162*>(dv));
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  flash_attention_bwd_dq_wgmma_kernel<<<dim3(Hq, (Sq + kWgRows - 1) / kWgRows, B), kWgThreads,
+                                        kDqSmem, s>>>(
       qp, kp, vp, dop, lp, drp, static_cast<T*>(dq), Sq, Skv, Hq, Hkv, window, scale, scale_log2);
   return cudaGetLastError();
 }
@@ -958,14 +1435,20 @@ extern "C" {
 
 // dtype: 0 = fp32 (CUDA cores), 1 = bf16 (tensor cores; q, k, v and dout
 // 16-byte aligned); anything else is refused.  lse from
-// flash_attention_fwd; drow is float32 (B, Hq, Sq) scratch for D.  Returns
-// the first failing launch's cudaError_t, or 0.
+// flash_attention_fwd; drow is float32 (B, Hq, Sq) scratch for D.  groups:
+// the head groups a KV head's G query heads are spread over, 1 <= groups
+// <= G, and more than 1 only for bf16 at D = 256, where `part` is float32
+// (2, groups, B, Skv, Hkv, D) scratch for their partial dK and dV (else
+// null).  Returns the first failing launch's cudaError_t, or 0.
 int flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
                         const void* dout, const void* lse, void* drow, void* dq, void* dk,
-                        void* dv, int dtype, int B, int Sq, int Skv, int Hq, int Hkv, int D,
-                        int window, float scale, void* stream) {
-  if (B <= 0 || Sq <= 0 || Skv <= 0 || Sq > Skv || Hkv <= 0 || Hq % Hkv != 0 || window < 0)
+                        void* dv, void* part, int dtype, int B, int Sq, int Skv, int Hq, int Hkv,
+                        int D, int window, int groups, float scale, void* stream) {
+  if (B <= 0 || Sq <= 0 || Skv <= 0 || Sq > Skv || Hkv <= 0 || Hq % Hkv != 0 || window < 0 ||
+      groups < 1 || groups > Hq / Hkv || B > 65535)
     return cudaErrorInvalidValue;
+  const bool wgmma = dtype == 1 && D == kWgD;
+  if (groups > 1 && (!wgmma || part == nullptr)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     REPRO_FLASH_BWD_DISPATCH(launch_f32)
@@ -974,7 +1457,19 @@ int flash_attention_bwd(const void* q, const void* k, const void* v, const void*
     const uintptr_t bases = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
                             reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(dout);
     if (bases & 15) return cudaErrorMisalignedAddress;
-    REPRO_FLASH_BWD_DISPATCH(launch_bf16)
+    switch (D) {
+      case 16: return launch_bf16<16>(q, k, v, o, dout, lse, drow, dq, dk, dv, B, Sq, Skv, Hq,
+                                      Hkv, window, scale, s);
+      case 32: return launch_bf16<32>(q, k, v, o, dout, lse, drow, dq, dk, dv, B, Sq, Skv, Hq,
+                                      Hkv, window, scale, s);
+      case 64: return launch_bf16<64>(q, k, v, o, dout, lse, drow, dq, dk, dv, B, Sq, Skv, Hq,
+                                      Hkv, window, scale, s);
+      case 128: return launch_bf16<128>(q, k, v, o, dout, lse, drow, dq, dk, dv, B, Sq, Skv, Hq,
+                                        Hkv, window, scale, s);
+      case kWgD: return launch_wgmma(q, k, v, o, dout, lse, drow, dq, dk, dv, part, B, Sq, Skv,
+                                     Hq, Hkv, window, groups, scale, s);
+      default: return cudaErrorInvalidValue;
+    }
   }
   return cudaErrorInvalidValue;
 }

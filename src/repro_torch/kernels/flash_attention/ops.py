@@ -15,7 +15,10 @@ v, the forward's output and logsumexp and the output's gradient, through
 ``csrc/flash_attention_bwd.cu`` on the card (counted on its own
 ``LaunchCounter``) or ``ref.flash_attention_bwd_ref`` on the CPU; as the
 forward, bfloat16 runs its products on the tensor cores, float32 on the
-CUDA cores.  The
+CUDA cores.  At D = 256 the bf16 instance runs its products as warpgroup
+products (``wgmma``), and ``bwd_plan`` spreads a KV head's G query heads
+over head groups when one block per (key tile, KV head, batch row) would
+not fill the card.  The
 model reaches both through the autograd function of ``models.attention``;
 a direct CUDA call of the forward whose input requires a gradient raises
 (``kernels.refuse_grad``).
@@ -29,14 +32,14 @@ import torch
 from repro_torch.kernels import LaunchCounter, nvcc, refuse_grad
 from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref, flash_attention_ref
 
-__all__ = ["flash_attention", "flash_attention_bwd", "counter", "bwd_counter", "HEAD_DIMS",
-           "DTYPES"]
+__all__ = ["flash_attention", "flash_attention_bwd", "bwd_plan", "counter", "bwd_counter",
+           "HEAD_DIMS", "DTYPES", "WGMMA_SMEM", "SMEM_LIMIT"]
 
 counter = LaunchCounter("flash_attention")
 bwd_counter = LaunchCounter("flash_attention_bwd")
 
-# The kernels' instances, K3's, K3b's and K4's (at 256 a K3b dkdv block
-# splits D between two warps a key group).
+# The kernels' instances, K3's, K3b's and K4's (K3b's bf16 one at 256 on
+# warpgroup products).
 HEAD_DIMS = (16, 32, 64, 128, 256)
 # dtype -> the C entry point's instance: 0 the fp32 CUDA-core kernel, 1 the
 # bf16 tensor-core kernel.
@@ -44,6 +47,37 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+
+# K3b's bf16 design at D = 256 (csrc/flash_attention_bwd.cu): 64-row tiles
+# of 64 x 256 bf16 (32,768 B) on 1024-byte boundaries.  dkdv holds K, V, two
+# stages of Q and dO, P^T (64 x 64 fp32) and two stages of 64 L and 64 D
+# values; dq Q, dO, two stages of K and V, P (fp32) and dS (bf16).
+WGMMA_ROWS = 64
+_TILE = WGMMA_ROWS * 256 * 2
+_PBYTES = WGMMA_ROWS * WGMMA_ROWS * 4
+WGMMA_SMEM = {"dkdv": 1024 + 6 * _TILE + _PBYTES + 4 * WGMMA_ROWS * 4,
+              "dq": 1024 + 6 * _TILE + _PBYTES + _PBYTES // 2}
+SMEM_LIMIT = 232_448  # shared memory a block may have on the H100
+H100_SMS = 132
+
+
+def bwd_plan(b: int, skv: int, hq: int, hkv: int, d: int, dtype, sms: int = H100_SMS) -> dict:
+    """K3b's launch plan: ``groups``, the head groups a KV head's G query
+    heads are spread over (``heads``: each group's [first, end) of the G),
+    and ``scratch``, the float32 elements of their partial dK and dV.  Only
+    the bf16 instance at D = 256 splits: when its (key tile, KV head, batch
+    row) blocks, one an SM, are fewer than the ``sms`` SMs, into enough
+    groups for two waves; each group's blocks write fp32 partials that a
+    small pass adds in group order."""
+    g = hq // hkv
+    groups = 1
+    if dtype == torch.bfloat16 and d == 256:
+        blocks = -(-skv // WGMMA_ROWS) * hkv * b
+        if blocks < sms:
+            groups = min(g, -(-2 * sms // blocks))
+    heads = [(i * g // groups, (i + 1) * g // groups) for i in range(groups)]
+    scratch = 2 * groups * b * skv * hkv * d if groups > 1 else 0
+    return {"groups": groups, "heads": heads, "scratch": scratch}
 
 
 def _check_args(q, k, v, causal, window):
@@ -160,14 +194,19 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, window: int = 0, scale=None):
     q, k, v, o, do = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v, o, do))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     drow = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    plan = bwd_plan(b, skv, hq, hkv, d, q.dtype,
+                    torch.cuda.get_device_properties(q.device).multi_processor_count)
+    part = (torch.empty(plan["scratch"], dtype=torch.float32, device=q.device)
+            if plan["scratch"] else None)
     lib = nvcc.library("flash_attention_bwd")
     fn = lib.flash_attention_bwd
-    fn.argtypes = [_P] * 10 + [_I] * 8 + [ctypes.c_float, _P]
+    fn.argtypes = [_P] * 11 + [_I] * 9 + [ctypes.c_float, _P]
     fn.restype = _I
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(*(t.data_ptr() for t in (q, k, v, o, do, lse, drow, dq, dk, dv)),
-                 DTYPES[q.dtype], b, sq, skv, hq, hkv, d, window, scale, stream)
+                 None if part is None else part.data_ptr(), DTYPES[q.dtype], b, sq, skv, hq,
+                 hkv, d, window, plan["groups"], scale, stream)
     bwd_counter.add()
     nvcc.check(lib, err, "flash_attention_bwd")
     return dq, dk, dv

@@ -19,7 +19,12 @@ softmax gives the same values up to float32 summation order.  With
 rowsum(dO o O), then per query block and per key block p = exp(s - L),
 rebuilt from the saved logsumexp and never stored whole, dV += p^T dO,
 dP = dO V^T, dS = p (dP - D) scale, dQ += dS K, dK += dS^T Q, all in
-float32, the G query heads of a KV head summed into its dK and dV.
+float32 (float64 for float64 inputs), the G query heads of a KV head
+summed into its dK and dV.  With ``rounding`` it does the bf16 kernel's
+arithmetic instead (ROADMAP, queue 3, P10): ``"bf16"`` rounds p and dS to
+bf16 where they become a product's operand (the D <= 128 design);
+``"bf16x2"`` rounds dS so and takes p to dV's product as two bf16 terms,
+its rounding and what that rounding left (the D = 256 design).
 """
 from __future__ import annotations
 
@@ -64,16 +69,25 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0, scale=
     return out, (m + torch.log(l.clamp_min(1e-30)))[..., 0]
 
 
+def _bf16(t):
+    return t.to(torch.bfloat16).to(t.dtype)
+
+
 def flash_attention_bwd_ref(q, k, v, o, do, lse, *, window: int = 0, scale=None,
-                            q_block: int = 64, kv_block: int = 64):
+                            q_block: int = 64, kv_block: int = 64, rounding=None):
     """Gradients (dq, dk, dv) of ``flash_attention_ref`` in its layout: q, o
     and do (B, Hkv, G, Sq, D), k and v (B, Hkv, Skv, D), lse (B, Hkv, G, Sq)
-    from the forward.  Each returned in its input's type."""
+    from the forward.  Each returned in its input's type.  ``rounding``:
+    None, ``"bf16"`` or ``"bf16x2"`` (the module's docstring)."""
+    if rounding not in (None, "bf16", "bf16x2"):
+        raise ValueError(f"rounding {rounding!r}: None, 'bf16' or 'bf16x2'")
     sq, d = q.shape[3], q.shape[4]
     skv = k.shape[2]
     scale = d ** -0.5 if scale is None else scale
-    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
-    drow = (dof * o.float()).sum(dim=-1)  # D = rowsum(dO o O)
+    work = torch.float64 if q.dtype == torch.float64 else torch.float32
+    qf, kf, vf, dof = (t.to(work) for t in (q, k, v, do))
+    lse = lse.to(work)
+    drow = (dof * o.to(work)).sum(dim=-1)  # D = rowsum(dO o O)
     dq = torch.zeros_like(qf)
     dk = torch.zeros_like(kf)
     dv = torch.zeros_like(vf)
@@ -91,9 +105,17 @@ def flash_attention_bwd_ref(q, k, v, o, do, lse, *, window: int = 0, scale=None,
             kc, vc = kf[..., k0:k1, :], vf[..., k0:k1, :]
             s = torch.einsum("bhgqd,bhkd->bhgqk", qc, kc) * scale
             p = torch.where(mask, torch.exp(s - lc), 0.0)
-            dv[..., k0:k1, :] += torch.einsum("bhgqk,bhgqd->bhkd", p, doc)
+            if rounding == "bf16":
+                pv = _bf16(p)
+            elif rounding == "bf16x2":
+                pv = _bf16(p) + _bf16(p - _bf16(p))
+            else:
+                pv = p
+            dv[..., k0:k1, :] += torch.einsum("bhgqk,bhgqd->bhkd", pv, doc)
             dp = torch.einsum("bhgqd,bhkd->bhgqk", doc, vc)
             ds = p * (dp - dc) * scale
+            if rounding:
+                ds = _bf16(ds)
             dq[..., q0:q1, :] += torch.einsum("bhgqk,bhkd->bhgqd", ds, kc)
             dk[..., k0:k1, :] += torch.einsum("bhgqk,bhgqd->bhkd", ds, qc)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

@@ -57,6 +57,7 @@ _LRU_H = _KERNELS_DIR / "selection_scan" / "csrc" / "lru.cuh"
 _STEP_H = _KERNELS_DIR / "selection_scan" / "csrc" / "step.cuh"
 _AHEAD_H = _KERNELS_DIR / "selection_scan" / "csrc" / "ahead.cuh"
 _MMA_H = _KERNELS_DIR / "flash_attention" / "csrc" / "mma.cuh"
+_WGMMA_H = _KERNELS_DIR / "flash_attention" / "csrc" / "wgmma.cuh"
 _RGLRU_H = _KERNELS_DIR / "rglru_scan" / "csrc" / "rglru.cuh"
 
 SOURCES: dict[str, Source] = {
@@ -92,7 +93,7 @@ SOURCES: dict[str, Source] = {
     "flash_attention_bwd": Source(
         "flash_attention_bwd",
         _KERNELS_DIR / "flash_attention" / "csrc" / "flash_attention_bwd.cu",
-        headers=(_MMA_H,),
+        headers=(_MMA_H, _WGMMA_H),
     ),
     "decode_attention": Source(
         "decode_attention", _KERNELS_DIR / "decode_attention" / "csrc" / "decode_attention.cu"

@@ -12,6 +12,11 @@ namespace rglru {
 
 constexpr int kChunk = 64;  // steps of a chunk (both kernels)
 constexpr int kCh = 128;    // channels of a block, one a thread
+// Steps between the carries the forward saves for the backward: the h
+// entering every kCarry steps, so a backward warp walks kCarry steps from
+// its own carry.
+constexpr int kCarry = 16;
+static_assert(kChunk % kCarry == 0, "a chunk is a whole number of carry spans");
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -86,15 +91,21 @@ struct GateParts {
   bool inside;
 };
 
+// v = clip(1 - a^2, 1e-12, 1) and whether 1 - a^2 lay inside the bounds:
+// no special-function operation, so the backward takes it again from a.
+__device__ __forceinline__ float clamp_v(float a, bool& inside) {
+  const float pre = fmaf(-a, a, 1.0f);
+  inside = pre >= 1e-12f && pre <= 1.0f;
+  return fminf(fmaxf(pre, 1e-12f), 1.0f);
+}
+
 // Five special-function operations (three exponentials, a reciprocal, a
 // reciprocal square root), the same in both kernels.
 __device__ __forceinline__ GateParts gate_parts(const Gates& q, float uf) {
   GateParts g;
   sigmoid2(fmaf(uf, q.aw, q.ab), fmaf(uf, q.xw, q.xb), g.r, g.i);
   g.a = __expf(q.neg_c_sp * g.r);
-  const float pre = fmaf(-g.a, g.a, 1.0f);
-  g.inside = pre >= 1e-12f && pre <= 1.0f;
-  g.v = fminf(fmaxf(pre, 1e-12f), 1.0f);
+  g.v = clamp_v(g.a, g.inside);
   g.rs = rsqrtf(g.v);
   return g;
 }

@@ -55,9 +55,13 @@
 // pass 2 runs alone, with no summaries: one launch.  The grid depends on
 // the shapes only and nothing is read back, so the decode step can be
 // captured in a CUDA graph.  For training, pass 2 also writes the carry
-// entering each chunk, (B, nc, L) float32, from which the backward
-// (rglru_scan_bwd.cu) recomputes h; the gate arithmetic lives in
-// rglru.cuh, shared with it, so the two kernels' h agree bit for bit.
+// entering every kCarry = 16 steps (rglru.cuh), (B, ceil(S / 16), L)
+// float32: the first at the chunk's start, the others at the ends of its
+// staged tiles, outside the step loop, in an instance of its own (prefill
+// and decode, which save nothing, run one without it).  From them the backward
+// (rglru_scan_bwd.cu) recomputes h, each warp over its own 16 steps; the
+// gate arithmetic lives in rglru.cuh, shared with it, so the two kernels'
+// h agree bit for bit.
 //
 // Numerics: the chunk combine adds the products in another order than a
 // sequential loop, and the reference's associative scan in a third, so the
@@ -79,6 +83,8 @@ using namespace rglru;
 
 constexpr int kRows = 16;   // rows of a staged tile
 static_assert(kChunk % kRows == 0, "a chunk is a whole number of staged tiles");
+static_assert(kRows == kCarry, "a carry is saved at each staged tile's end");
+constexpr int kCarriesPerChunk = kChunk / kCarry;
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
@@ -104,8 +110,8 @@ struct Args {
   float* h_last;
   float* sum_a;  // (B, nc - 1, L): each chunk's prod a
   float* sum_h;  // (B, nc - 1, L): each chunk's h from a zero start
-  float* carries;  // (B, nc, L): the h entering each chunk, for the backward; or null
-  int B, S, L, nc;
+  float* carries;  // (B, ncar, L): the h entering every kCarry steps, for the backward; or null
+  int B, S, L, nc, ncar;
 };
 
 // cp.async of `rows` rows of the block's kCh channels of u (and g, into the
@@ -127,8 +133,10 @@ __device__ __forceinline__ void stage(T* tile, const Args<T>& p, size_t row, int
 }
 
 // One (batch, chunk, channel) a thread: pass 1 (kGate false) or pass 2.
-// kStaged: u and g come through shared memory by cp.async.
-template <typename T, bool kStaged, bool kGate>
+// kStaged: u and g come through shared memory by cp.async.  kSave: pass 2
+// also writes the carries for the backward (an instance of its own, so
+// prefill and decode run no code of it).
+template <typename T, bool kStaged, bool kGate, bool kSave = false>
 __device__ __forceinline__ void chunk(const Args<T>& p) {
   constexpr int kTile = (kGate ? 2 : 1) * kRows * kCh;  // elements of a staged tile
   __shared__ __align__(16) unsigned char raw[2 * kTile * sizeof(T)];
@@ -159,7 +167,7 @@ __device__ __forceinline__ void chunk(const Args<T>& p) {
       for (int j = 0; j < k; ++j) {
         h = step(p.sum_a[base + (size_t)j * p.L], h, p.sum_h[base + (size_t)j * p.L]);
       }
-      if (p.carries != nullptr) p.carries[((size_t)b * p.nc + k) * p.L + c] = h;
+      if (kSave) p.carries[((size_t)b * p.ncar + (size_t)k * kCarriesPerChunk) * p.L + c] = h;
     }
   }
   for (int tt = 0; tt < tiles_n; ++tt) {
@@ -184,6 +192,9 @@ __device__ __forceinline__ void chunk(const Args<T>& p) {
         } else {
           prod = prod * a;
         }
+      }
+      if (kSave && tt + 1 < tiles_n) {  // entering the next kCarry steps
+        p.carries[((size_t)b * p.ncar + (size_t)k * kCarriesPerChunk + tt + 1) * p.L + c] = h;
       }
     }
     if (kStaged) {
@@ -210,9 +221,9 @@ __global__ void __launch_bounds__(kCh) rglru_summary_kernel(Args<T> p) {
   chunk<T, kStaged, false>(p);
 }
 
-template <typename T, bool kStaged>
+template <typename T, bool kStaged, bool kSave>
 __global__ void __launch_bounds__(kCh) rglru_scan_kernel(Args<T> p) {
-  chunk<T, kStaged, true>(p);
+  chunk<T, kStaged, true, kSave>(p);
 }
 
 template <typename T, bool kStaged>
@@ -224,7 +235,11 @@ int launch(const Args<T>& p, cudaStream_t stream) {
     if (err != cudaSuccess) return (int)err;
   }
   grid.y = p.nc;
-  rglru_scan_kernel<T, kStaged><<<grid, kCh, 0, stream>>>(p);
+  if (p.carries != nullptr) {
+    rglru_scan_kernel<T, kStaged, true><<<grid, kCh, 0, stream>>>(p);
+  } else {
+    rglru_scan_kernel<T, kStaged, false><<<grid, kCh, 0, stream>>>(p);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -247,6 +262,7 @@ int launch(const void* u, const void* g, const void* a_w, const void* a_b, const
   p.S = S;
   p.L = L;
   p.nc = (S + kChunk - 1) / kChunk;
+  p.ncar = (S + kCarry - 1) / kCarry;
   p.sum_a = static_cast<float*>(scratch);
   p.sum_h = p.sum_a + (size_t)B * (p.nc - 1) * L;
   p.carries = static_cast<float*>(carries);
@@ -263,11 +279,14 @@ extern "C" {
 // scratch from it.
 int rglru_scan_chunk() { return kChunk; }
 
+// The steps between the carries it saves for the backward.
+int rglru_scan_carry() { return kCarry; }
+
 // u, g, y: (B, S, L); a_w, a_b, x_w, x_b, lam: (L,), all of `dtype` (0
 // float32, 1 bfloat16); h0 (B, L) float32 or null; h_last (B, L) float32;
 // scratch (2, B, ceil(S / chunk) - 1, L) float32, null when S <= chunk;
-// carries (B, ceil(S / chunk), L) float32, the h entering each chunk, which
-// the backward (rglru_scan_bwd.cu) reads, or null.  Returns a cudaError_t
+// carries (B, ceil(S / carry), L) float32, the h entering every carry
+// steps, which the backward (rglru_scan_bwd.cu) reads, or null.  Returns a cudaError_t
 // (0 on success).
 int rglru_scan(const void* u, const void* g, const void* a_w, const void* a_b, const void* x_w,
                const void* x_b, const void* lam, const void* h0, void* y, void* h_last,

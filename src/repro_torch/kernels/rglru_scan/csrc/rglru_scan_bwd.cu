@@ -24,40 +24,59 @@
 // What bounds it on the H100: bytes.  It reads u, gpre and dy and writes
 // du and dgpre, 2 bytes each an element in bf16: at B = 8, S = 1024, L =
 // 4096 that is 336 MB, 0.100 ms at 3.35 TB/s, against some sixty float32
-// operations and ten special-function ones an element (the gates twice,
-// GeLU and its derivative).
+// operations and seven special-function ones an element (the gates' five,
+// GeLU's two), about 0.063 ms of the special-function unit at 16 a clock
+// an SM.
 //
-// The design: the forward's chunking (rglru.cuh's kChunk), run from the
-// right.  The adjoint recurrence has the forward's linear form reversed: a
-// chunk hands its left neighbour a_{t0} g_{t0} = A w + E, where w is what
-// enters from the right, A = prod a over the chunk and E the same from w
-// = 0.  Three kernels on one stream, all named `rglru_bwd_*`, one thread a
-// (batch, chunk, channel) as in the forward:
-//   1. summary (chunks 1 .. nc-1): A and E of the chunk, walking it
-//      backwards from u, gpre and dy, into a (2, B, nc-1, L) scratch.
-//   2. scan (every chunk): w, from dh_last pushed through the summaries of
-//      the chunks to the right; h recomputed forwards over the chunk from
-//      the carry the forward saved ((B, nc, L), written by rglru_scan.cu's
-//      pass 2) into shared memory, with the forward's gate arithmetic
-//      (rglru.cuh), so it equals the forward's h bit for bit, not from a
-//      saved (B, S, L) h (134 MB a layer at the shape above against the
-//      carries' 2 MB); then the chunk backwards: du and dgpre, and the
-//      thread's partial sums of the five vector gradients' terms, into a
-//      (5, B, nc, L) scratch; chunk 0 writes dh0.
-//   3. reduce: each vector gradient summed over (b, chunk) in a fixed
+// The design: the forward's chunks (rglru.cuh's kChunk), walked from the
+// right by a chained scan in one kernel, then a small reduce.  Both named
+// `rglru_bwd_*`, on one stream.
+//   1. chain: a block is a (batch, chunk, group of kGroup = 32 channels),
+//      one channel a lane, and four warps, warp j on the chunk's span of
+//      steps 16 j .. 16 j + 15 (kCarry: the forward saves the h entering
+//      every 16 steps).  The block takes its batch row from blockIdx and
+//      its chunk and channel group from that row's ticket, in arrival
+//      order, the rightmost chunks first: it waits only on the block of
+//      the chunk to its right, which took an earlier ticket of the same
+//      counter and so is running, and every chain of waits ends at the
+//      last chunk.  Each warp stages its span's u, gpre and dy through
+//      shared memory by cp.async (16-byte pieces): each read from device
+//      memory once.  Walking the span forwards from its carry it evaluates
+//      each element's gates once, with rglru.cuh's arithmetic, so its h
+//      equals the forward's bit for bit; it writes dgpre, keeps h, a, r, i,
+//      1/sqrt(v) and e = dy gelu(gpre) in shared memory (e over the staged
+//      gpre and dy, once every lane has read them), and sums up the span:
+//      A = prod a, E = sum_t (prod_{s <= t} a_s) e_t, so that the w the span
+//      hands to its left is A w + E for the w entering it from the right.
+//      The top warp then takes the w entering the chunk (dh_last, or 0, at
+//      the last chunk; else what the chunk to the right published), passes
+//      it through the four summaries (one fmaf each), publishes the chunk's
+//      own at once for the chunk to the left (chunk 0 writes it as dh0),
+//      and leaves each span its entering w.  The four walks back then run
+//      side by side (g_t = e_t + w, w = a_t g_t), each writing du and its
+//      span's sums of the five vector gradients' terms; the block adds the
+//      spans' sums from the right into a (5, B, nc, L) scratch.  56,336 B
+//      of shared memory a block in bf16 (68,624 in float32): four blocks,
+//      16 warps, an SM.
+//   2. reduce: each vector gradient summed over (b, chunk) in a fixed
 //      order, times -8 sigmoid(Lambda) for Lambda's, in the parameters'
 //      type.
-// No atomics: every sum is one thread's, in a fixed order, so two calls
-// give the same gradients bit for bit.  u, gpre and dy are read twice (the
-// summary and the scan; u a third time from L2 in the scan's forward
-// walk): 8 x 2 bytes an element in bf16 against the bound's 5 x 2.
+// No atomics in any sum (the ticket counters only order the blocks), and a
+// chunk always takes its right neighbour's published w, whatever the
+// timing: two calls give the same gradients bit for bit.  ref.py's
+// rglru_scan_bwd_chunked_ref follows this order of operations.
 //
-// Measured by chip_smoke.py phase 16 (a) (NVIDIA H100 80GB HBM3, 700.00
-// W; PERF.md): 0.443 ms at the shape above (summary 0.082, scan 0.350,
-// reduce 0.011), 4.4 times the bound.  The scan kernel holds most of it:
-// each step evaluates the gates again (five special-function operations),
-// GeLU and its derivative, reads three inputs without staging, and a
-// thread walks its chunk twice (forwards for h, backwards for g).
+// Measured (benchmarks/torch_kernel_probe.py rglru-bwd --old, the first
+// design's source against this one in one call; NVIDIA H100 80GB HBM3,
+// 700.00 W; PERF.md): 0.333 ms at the shape above against the first
+// design's 0.442 (a summary kernel and a scan kernel that evaluated the
+// gates three times and read u, gpre and dy twice, unstaged), 3.3 times
+// the bound; 0.053 against 0.076 for a lone prompt (B = 1).  What holds it:
+// its blocks are latency-bound, four an SM as shared memory allows, and
+// each block's ticket, staged loads, hand-overs and stores are work that
+// nothing else in the block overlaps.  Persistent blocks fetching the next
+// chunk's rows during the walk back, and u and e held in registers under a
+// four-block register cap, measured slower as drafts of this design.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -70,112 +89,279 @@ namespace {
 
 using namespace rglru;
 
-constexpr int kVecs = 5;  // a_w, a_b, x_w, x_b, Lambda
+constexpr int kVecs = 5;      // a_w, a_b, x_w, x_b, Lambda
+constexpr int kGroup = 32;    // channels of a chain block: a channel a lane
+constexpr int kSub = kCarry;  // steps of a warp
+constexpr int kWarps = kChunk / kSub;
+constexpr int kHand = (1 + kVecs) * kGroup;  // a span's A, E and w, then sums: floats a warp
 
 template <typename T>
 struct BwdArgs {
   const T *u, *g, *dy, *a_w, *a_b, *x_w, *x_b, *lam;
-  const float* carries;  // (B, nc, L): the h entering each chunk
+  const float* carries;  // (B, ncar, L): the h entering every kCarry steps
   const float* dh_last;  // (B, L) or null
   T *du, *dg;            // (B, S, L)
   T* dvec[kVecs];        // (L,) each
   float* dh0;            // (B, L) or null
-  float* sum_a;          // (B, nc - 1, L): chunk k's prod a at k - 1
-  float* sum_e;          // (B, nc - 1, L): chunk k's a_{t0} g_{t0} from w = 0
-  float* part;           // (kVecs, B, nc, L): one thread's sums of each vector's terms
-  int B, S, L, nc;
+  float* part;           // (kVecs, B, nc, L): each chunk's sums of each vector's terms
+  float* wbuf;           // (B, nc, L): the w each chunk hands its left neighbour
+  int* sync;             // B ticket counters, then (B, nc, ng) published flags
+  int B, S, L, nc, ncar, ng;
 };
 
+// A warp's shared memory: u (kSub x kGroup of T); gpre and dy row by row
+// (kSub x 2 kGroup of T), then e over them (row r's fp32 e at the start of
+// row r's bytes); h, a, r, i and 1/sqrt(v) (kSub x kGroup fp32 each).  A
+// block's: its warps', then each span's summary, entering w and sums.
 template <typename T>
-__global__ void __launch_bounds__(kCh) rglru_bwd_summary_kernel(BwdArgs<T> p) {
-  const int b = blockIdx.z;
-  const int k = blockIdx.y + 1;
-  const int c = blockIdx.x * kCh + threadIdx.x;
-  if (c >= p.L) return;
-  const Gates q = load_gates(p.a_w, p.a_b, p.x_w, p.x_b, p.lam, c);
-  const int n = min(kChunk, p.S - k * kChunk);
-  const size_t row0 = (size_t)b * p.S + (size_t)k * kChunk;
-  float w = 0.0f, prod = 1.0f;
-#pragma unroll 4
-  for (int r = n - 1; r >= 0; --r) {
-    const size_t off = (row0 + r) * p.L + c;
-    const float a = gate_parts(q, to_f(p.u[off])).a;
-    const float gt = fmaf(to_f(p.dy[off]), gelu_tanh(to_f(p.g[off])), w);
-    w = a * gt;
-    prod = prod * a;
-  }
-  const size_t at = ((size_t)b * (p.nc - 1) + (k - 1)) * p.L + c;
-  p.sum_a[at] = prod;
-  p.sum_e[at] = w;
+struct Smem {
+  static constexpr int kU = kSub * kGroup * sizeof(T);
+  static constexpr int kRow = 2 * kGroup * sizeof(T);  // bytes of a staged gpre-and-dy row
+  static constexpr int kF = kSub * kGroup * 4;
+  static constexpr int kWarp = kU + kSub * kRow + 5 * kF;
+  static constexpr int kBytes = kWarps * kWarp + kWarps * kHand * 4;
+};
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kCh) rglru_bwd_scan_kernel(BwdArgs<T> p) {
-  __shared__ float hs[kChunk][kCh];  // the chunk's h, one column a thread
-  const int b = blockIdx.z;
-  const int k = blockIdx.y;
-  const int c = blockIdx.x * kCh + threadIdx.x;
-  if (c >= p.L) return;
-  const int tid = threadIdx.x;
-  const Gates q = load_gates(p.a_w, p.a_b, p.x_w, p.x_b, p.lam, c);
-  const int n = min(kChunk, p.S - k * kChunk);
-  const size_t row0 = (size_t)b * p.S + (size_t)k * kChunk;
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
 
-  // What enters from the right: dh_last through the summaries of chunks
-  // nc-1 .. k+1.
-  float w = p.dh_last != nullptr ? p.dh_last[(size_t)b * p.L + c] : 0.0f;
-  const size_t base = (size_t)b * (p.nc - 1) * p.L + c;
-#pragma unroll 4
-  for (int j = p.nc - 1; j > k; --j) {
-    w = fmaf(p.sum_a[base + (size_t)(j - 1) * p.L], w, p.sum_e[base + (size_t)(j - 1) * p.L]);
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release(int* p, int v) {
+  asm volatile("st.release.gpu.global.b32 [%0], %1;\n" ::"l"(p), "r"(v) : "memory");
+}
+
+// `rows` rows (device rows row ..) of u, gpre and dy for the group's
+// channels from c0, into a warp's shared memory: by 16-byte cp.async pieces
+// (kStaged: the width is a whole number of pieces, so a piece is in or
+// out), or element by element, zero past L.
+// `rows` rows (device rows row ..) of u, gpre and dy for the group's
+// channels from c0, into a warp's shared memory: by 16-byte cp.async pieces
+// (kStaged: the width is a whole number of pieces, so a piece is in or
+// out), or element by element, zero past L.
+template <typename T, bool kStaged>
+__device__ __forceinline__ void stage(T* us, unsigned char* gd, const BwdArgs<T>& p, size_t row,
+                                      int rows, int c0, int lane) {
+  if constexpr (kStaged) {
+    constexpr int kPer = 16 / sizeof(T);    // elements of a piece
+    constexpr int kPieces = kGroup / kPer;  // pieces of a group's row
+    for (int i = lane; i < rows * kPieces * 3; i += kGroup) {
+      const int arr = i / (rows * kPieces);  // 0: u, 1: gpre, 2: dy
+      const int j = i - arr * rows * kPieces;
+      const int r = j / kPieces;
+      const int q = j % kPieces;
+      const int ch = c0 + q * kPer;
+      if (ch >= p.L) continue;
+      const size_t off = (row + r) * p.L + ch;
+      if (arr == 0) {
+        cp_async16(us + r * kGroup + q * kPer, p.u + off);
+      } else {
+        T* dst = reinterpret_cast<T*>(gd + r * Smem<T>::kRow) + (arr - 1) * kGroup + q * kPer;
+        cp_async16(dst, (arr == 1 ? p.g : p.dy) + off);
+      }
+    }
+    cp_async_commit();
+    cp_async_wait_all();
+  } else {
+    const int c = c0 + lane;
+    const bool in = c < p.L;
+    for (int r = 0; r < rows; ++r) {
+      const size_t off = (row + r) * p.L + c;
+      T* gdr = reinterpret_cast<T*>(gd + r * Smem<T>::kRow);
+      us[r * kGroup + lane] = in ? p.u[off] : from_f<T>(0.0f);
+      gdr[lane] = in ? p.g[off] : from_f<T>(0.0f);
+      gdr[kGroup + lane] = in ? p.dy[off] : from_f<T>(0.0f);
+    }
   }
+  __syncwarp();
+}
 
-  // h over the chunk, from the forward's carry, as the forward computed it.
-  const float h_in = p.carries[((size_t)b * p.nc + k) * p.L + c];
-  float h = h_in;
-#pragma unroll 4
-  for (int r = 0; r < n; ++r) {
-    const float uf = to_f(p.u[(row0 + r) * p.L + c]);
-    const GateParts gp = gate_parts(q, uf);
-    h = step(gp.a, h, gate_bx(gp, uf));
-    hs[r][tid] = h;
+template <typename T, bool kStaged>
+__global__ void __launch_bounds__(kWarps * kGroup) rglru_bwd_chain_kernel(BwdArgs<T> p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int ticket_s;
+  const int warp = threadIdx.x / kGroup;
+  const int lane = threadIdx.x % kGroup;
+  unsigned char* mine = smem + warp * Smem<T>::kWarp;
+  T* us = reinterpret_cast<T*>(mine);
+  unsigned char* gd = mine + Smem<T>::kU;
+  float* hs = reinterpret_cast<float*>(gd + kSub * Smem<T>::kRow);
+  float* as = hs + kSub * kGroup;
+  float* rs = as + kSub * kGroup;
+  float* is = rs + kSub * kGroup;
+  float* qs = is + kSub * kGroup;  // 1 / sqrt(v)
+  // Per warp and lane: its span's A and E, then the w entering it, then
+  // its five sums (over A and E once those are consumed).
+  float* spans = reinterpret_cast<float*>(smem + kWarps * Smem<T>::kWarp);
+  float* span = spans + warp * kHand + lane;
+
+  // The batch row from blockIdx, the chunk and channel group from that
+  // row's ticket: the rightmost chunks first.
+  const int b = blockIdx.x % p.B;
+  if (threadIdx.x == 0) ticket_s = atomicAdd(p.sync + b, 1);
+  __syncthreads();
+  const int ticket = ticket_s;
+  const int k = p.nc - 1 - ticket / p.ng;
+  const int cg = ticket % p.ng;
+  const int c = cg * kGroup + lane;
+  const bool live = c < p.L;
+  const int n = max(0, min(kSub, p.S - k * kChunk - warp * kSub));  // this warp's steps
+  const size_t row0 = (size_t)b * p.S + (size_t)k * kChunk + warp * kSub;
+
+  Gates q{};
+  float h_in = 0.0f;
+  if (live) {  // issued before the staged rows are waited for
+    q = load_gates(p.a_w, p.a_b, p.x_w, p.x_b, p.lam, c);
+    if (n > 0) h_in = p.carries[((size_t)b * p.ncar + (size_t)k * kWarps + warp) * p.L + c];
   }
+  if (n > 0) stage<T, kStaged>(us, gd, p, row0, n, cg * kGroup, lane);
 
+  // Forwards: the gates once, h as the forward computed it, dgpre; what the
+  // walk back needs kept in shared memory; and the span's summary: A =
+  // prod a and E = sum_t (prod_{s <= t} a_s) e_t, so that the w it hands to
+  // the left is A w + E for the w that enters it from the right.
+  float prod = 1.0f, esum = 0.0f;
+  {
+    float gv[kSub], dv[kSub];
+#pragma unroll
+    for (int r = 0; r < kSub; ++r) {
+      const T* gdr = reinterpret_cast<const T*>(gd + r * Smem<T>::kRow);
+      gv[r] = r < n ? to_f(gdr[lane]) : 0.0f;
+      dv[r] = r < n ? to_f(gdr[kGroup + lane]) : 0.0f;
+    }
+    __syncwarp();  // every lane has read gpre and dy before e takes their place
+    float h = h_in;
+#pragma unroll
+    for (int r = 0; r < kSub; ++r) {
+      if (r >= n) break;
+      const float uf = to_f(us[r * kGroup + lane]);
+      const GateParts gp = gate_parts(q, uf);
+      h = step(gp.a, h, gate_bx(gp, uf));
+      float gelu, dgelu;
+      gelu_tanh_grad(gv[r], gelu, dgelu);
+      if (live) p.dg[(row0 + r) * p.L + c] = from_f<T>(dv[r] * h * dgelu);
+      const float e = dv[r] * gelu;
+      prod = prod * gp.a;
+      esum = fmaf(prod, e, esum);
+      const int at = r * kGroup + lane;
+      hs[at] = h;
+      as[at] = gp.a;
+      rs[at] = gp.r;
+      is[at] = gp.i;
+      qs[at] = gp.rs;
+      reinterpret_cast<float*>(gd + r * Smem<T>::kRow)[lane] = e;
+    }
+  }
+  span[0] = prod;
+  span[kGroup] = esum;
+  __syncthreads();
+
+  // The top warp takes the w entering the chunk (dh_last, or 0, at the last
+  // chunk; else what the chunk to the right published), passes it through
+  // the spans' summaries from the right, publishes the chunk's own for the
+  // chunk to the left (chunk 0: dh0) and leaves each span its entering w.
+  if (warp == kWarps - 1) {
+    float w = 0.0f;
+    if (k == p.nc - 1) {
+      if (live && p.dh_last != nullptr) w = p.dh_last[(size_t)b * p.L + c];
+    } else {
+      // The right neighbour is running (its ticket came first); a wait of
+      // seconds means a fault, which traps rather than hangs the card.
+      const int* flag = p.sync + p.B + ((size_t)b * p.nc + k + 1) * p.ng + cg;
+      for (long long spin = 0; ld_acquire(flag) == 0; ++spin) {
+        if (spin > (1ll << 26)) __trap();
+        __nanosleep(32);
+      }
+      if (live) w = __ldcg(p.wbuf + ((size_t)b * p.nc + k + 1) * p.L + c);
+    }
+#pragma unroll
+    for (int j = kWarps - 1; j >= 0; --j) {
+      float* sj = spans + j * kHand + lane;
+      const float w_left = fmaf(sj[0], w, sj[kGroup]);
+      sj[2 * kGroup] = w;
+      w = w_left;
+    }
+    const size_t at = ((size_t)b * p.nc + k) * p.L + c;
+    if (k > 0) {
+      if (live) p.wbuf[at] = w;
+      __threadfence();
+      __syncwarp();
+      if (lane == 0) st_release(p.sync + p.B + ((size_t)b * p.nc + k) * p.ng + cg, 1);
+    } else if (live && p.dh0 != nullptr) {
+      p.dh0[(size_t)b * p.L + c] = w;
+    }
+  }
+  __syncthreads();
+
+  // Backwards over the span, all four at once: g_t = e_t + w, du, the
+  // vector gradients' terms, w = a_t g_t.
+  float w = span[2 * kGroup];
   float acc_aw = 0.0f, acc_ab = 0.0f, acc_xw = 0.0f, acc_xb = 0.0f, acc_lam = 0.0f;
-#pragma unroll 2
+#pragma unroll 4
   for (int r = n - 1; r >= 0; --r) {
-    const size_t off = (row0 + r) * p.L + c;
-    const float uf = to_f(p.u[off]);
-    const float dyf = to_f(p.dy[off]);
-    float gelu, dgelu;
-    gelu_tanh_grad(to_f(p.g[off]), gelu, dgelu);
-    const GateParts gp = gate_parts(q, uf);
-    const float h_prev = r > 0 ? hs[r - 1][tid] : h_in;
-    const float gt = fmaf(dyf, gelu, w);  // e_t + a_{t+1} g_{t+1}
-    p.dg[off] = from_f<T>(dyf * hs[r][tid] * dgelu);
-    const float sq = gp.v * gp.rs;  // sqrt(v)
+    const int at = r * kGroup + lane;
+    const float uf = to_f(us[at]);
+    const float a = as[at];
+    const float ri = rs[at];
+    const float ii = is[at];
+    const float h_prev = r > 0 ? hs[at - kGroup] : h_in;
+    const float gt = reinterpret_cast<const float*>(gd + r * Smem<T>::kRow)[lane] + w;
+    bool inside;
+    const float v = clamp_v(a, inside);
+    const float sq = v * qs[at];  // sqrt(v)
     const float d_i = gt * sq * uf;
-    const float d_v = gp.inside ? 0.5f * gt * gp.i * uf * gp.rs : 0.0f;
-    const float d_a = fmaf(-2.0f * gp.a, d_v, gt * h_prev);
-    const float d_loga = d_a * gp.a;  // d(log a) = d(-8 softplus(Lambda) r)
-    const float d_pre_r = d_loga * q.neg_c_sp * gp.r * (1.0f - gp.r);
-    const float d_pre_i = d_i * gp.i * (1.0f - gp.i);
-    p.du[off] = from_f<T>(fmaf(d_pre_r, q.aw, fmaf(d_pre_i, q.xw, gt * sq * gp.i)));
+    const float d_v = inside ? 0.5f * gt * ii * uf * qs[at] : 0.0f;
+    const float d_a = fmaf(-2.0f * a, d_v, gt * h_prev);
+    const float d_loga = d_a * a;  // d(log a) = d(-8 softplus(Lambda) r)
+    const float d_pre_r = d_loga * q.neg_c_sp * ri * (1.0f - ri);
+    const float d_pre_i = d_i * ii * (1.0f - ii);
+    if (live) {
+      p.du[(row0 + r) * p.L + c] =
+          from_f<T>(fmaf(d_pre_r, q.aw, fmaf(d_pre_i, q.xw, gt * sq * ii)));
+    }
     acc_aw = fmaf(d_pre_r, uf, acc_aw);
     acc_ab += d_pre_r;
     acc_xw = fmaf(d_pre_i, uf, acc_xw);
     acc_xb += d_pre_i;
-    acc_lam = fmaf(d_loga, gp.r, acc_lam);
-    w = gp.a * gt;
+    acc_lam = fmaf(d_loga, ri, acc_lam);
+    w = a * gt;
   }
-  if (k == 0 && p.dh0 != nullptr) p.dh0[(size_t)b * p.L + c] = w;
-  const size_t plane = (size_t)p.B * p.nc * p.L;
-  const size_t at = ((size_t)b * p.nc + k) * p.L + c;
-  p.part[at] = acc_aw;
-  p.part[plane + at] = acc_ab;
-  p.part[2 * plane + at] = acc_xw;
-  p.part[3 * plane + at] = acc_xb;
-  p.part[4 * plane + at] = acc_lam;
+  span[0] = acc_aw;  // (A and E are consumed)
+  span[kGroup] = acc_ab;
+  span[3 * kGroup] = acc_xw;
+  span[4 * kGroup] = acc_xb;
+  span[5 * kGroup] = acc_lam;
+  __syncthreads();
+
+  // The chunk's sums: the spans' added from the right, in a fixed order.
+  if (warp == 0 && live) {
+    constexpr int kSlot[kVecs] = {0, 1, 3, 4, 5};
+    const size_t plane = (size_t)p.B * p.nc * p.L;
+    const size_t at = ((size_t)b * p.nc + k) * p.L + c;
+#pragma unroll
+    for (int v = 0; v < kVecs; ++v) {
+      float s = spans[(kWarps - 1) * kHand + kSlot[v] * kGroup + lane];
+#pragma unroll
+      for (int j = kWarps - 2; j >= 0; --j) s += spans[j * kHand + kSlot[v] * kGroup + lane];
+      p.part[v * plane + at] = s;
+    }
+  }
 }
 
 // Vector blockIdx.y's gradient, channel by channel: its partials summed over
@@ -196,17 +382,16 @@ __global__ void __launch_bounds__(kCh) rglru_bwd_reduce_kernel(BwdArgs<T> p) {
   p.dvec[v][c] = from_f<T>(s);
 }
 
-template <typename T>
+template <typename T, bool kStaged>
 int launch(BwdArgs<T>& p, cudaStream_t stream) {
-  dim3 grid((p.L + kCh - 1) / kCh, p.nc - 1, p.B);
-  if (p.nc > 1) {
-    rglru_bwd_summary_kernel<T><<<grid, kCh, 0, stream>>>(p);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  grid.y = p.nc;
-  rglru_bwd_scan_kernel<T><<<grid, kCh, 0, stream>>>(p);
-  cudaError_t err = cudaGetLastError();
+  auto chain = rglru_bwd_chain_kernel<T, kStaged>;
+  cudaError_t err = cudaFuncSetAttribute(chain, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         Smem<T>::kBytes);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaMemsetAsync(p.sync, 0, sizeof(int) * (p.B + (size_t)p.B * p.nc * p.ng), stream);
+  if (err != cudaSuccess) return (int)err;
+  chain<<<p.B * p.nc * p.ng, kWarps * kGroup, Smem<T>::kBytes, stream>>>(p);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   rglru_bwd_reduce_kernel<T><<<dim3((p.L + kCh - 1) / kCh, kVecs), kCh, 0, stream>>>(p);
   return (int)cudaGetLastError();
@@ -234,10 +419,15 @@ int launch(const void* const* in, const void* carries, const void* dh_last, void
   p.S = S;
   p.L = L;
   p.nc = (S + kChunk - 1) / kChunk;
+  p.ncar = (S + kCarry - 1) / kCarry;
+  p.ng = (L + kGroup - 1) / kGroup;
   p.part = static_cast<float*>(scratch);
-  p.sum_a = p.part + (size_t)kVecs * B * p.nc * L;
-  p.sum_e = p.sum_a + (size_t)B * (p.nc - 1) * L;
-  return launch<T>(p, stream);
+  p.wbuf = p.part + (size_t)kVecs * B * p.nc * L;
+  p.sync = reinterpret_cast<int*>(p.wbuf + (size_t)B * p.nc * L);
+  const bool staged = (L * sizeof(T)) % 16 == 0 && reinterpret_cast<uintptr_t>(p.u) % 16 == 0 &&
+                      reinterpret_cast<uintptr_t>(p.g) % 16 == 0 &&
+                      reinterpret_cast<uintptr_t>(p.dy) % 16 == 0;
+  return staged ? launch<T, true>(p, stream) : launch<T, false>(p, stream);
 }
 
 }  // namespace
@@ -245,17 +435,18 @@ int launch(const void* const* in, const void* carries, const void* dh_last, void
 extern "C" {
 
 // in: u, gpre, dy (B, S, L) and a_w, a_b, x_w, x_b, lam (L,), all of `dtype`
-// (0 float32, 1 bfloat16); carries (B, ceil(S / chunk), L) float32 from the
+// (0 float32, 1 bfloat16); carries (B, ceil(S / carry), L) float32 from the
 // forward (rglru_scan's `carries`); dh_last (B, L) float32 or null.  out:
 // du, dgpre (B, S, L) and the five vector gradients (L,), of `dtype`; dh0
-// (B, L) float32 or null.  scratch: (5 nc + 2 (nc - 1)) B L float32, nc =
-// ceil(S / chunk).  Returns a cudaError_t (0 on success).
+// (B, L) float32 or null.  scratch: 6 nc B L float32 and then B + B nc
+// ceil(L / group) int32, nc = ceil(S / chunk).  Returns a cudaError_t (0 on
+// success).
 int rglru_scan_bwd(const void* const* in, const void* carries, const void* dh_last,
                    void* const* out, void* dh0, void* scratch, int B, int S, int L, int dtype,
                    void* stream) {
   const int nc = S >= 1 ? (S + kChunk - 1) / kChunk : 0;
-  if (B < 1 || S < 1 || L < 1 || B > 65535 || nc > 65535 || carries == nullptr ||
-      scratch == nullptr) {
+  if (B < 1 || S < 1 || L < 1 || (long long)B * nc * ((L + kGroup - 1) / kGroup) > 0x7fffffff ||
+      carries == nullptr || scratch == nullptr) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -266,8 +457,12 @@ int rglru_scan_bwd(const void* const* in, const void* carries, const void* dh_la
   return (int)cudaErrorInvalidValue;
 }
 
-// The chunk length the carries are read at (rglru.cuh's kChunk).
+// The chunk of the partial sums and the flags (rglru.cuh's kChunk), the
+// steps between the carries it reads (kCarry) and the channels of a chain
+// block, which size the scratch.
 int rglru_scan_bwd_chunk() { return kChunk; }
+int rglru_scan_bwd_carry() { return kCarry; }
+int rglru_scan_bwd_group() { return kGroup; }
 
 const char* repro_cuda_error_string(int e) {
   return cudaGetErrorString(static_cast<cudaError_t>(e));

@@ -13,10 +13,11 @@ nothing is read on the host, so a decode step (S = 1) that calls it can
 be captured in a CUDA graph.
 
 ``rglru_scan_bwd`` is the backward: the gradients of all eight inputs
-from the output's gradient, the last state's, and the h entering each
-chunk that ``rglru_scan_saving`` keeps, through ``csrc/rglru_scan_bwd.cu``
-on the card (three kernels, one launch on its own counter) or
-``ref.rglru_scan_bwd_ref`` on the CPU.  ``rglru_scan_autograd`` (the
+from the output's gradient, the last state's, and the h entering every
+16 steps that ``rglru_scan_saving`` keeps, through ``csrc/rglru_scan_bwd.cu``
+on the card (a chained scan and a reduce, one launch on its own counter;
+``bwd_scratch_elems`` sizes its scratch) or ``ref.rglru_scan_bwd_ref`` on
+the CPU.  ``rglru_scan_autograd`` (the
 model's route while autograd records) runs the scan through an autograd
 function over both; a direct CUDA call of ``rglru_scan`` whose input
 requires a gradient raises (``kernels.refuse_grad``).
@@ -35,7 +36,7 @@ from repro_torch.kernels.rglru_scan.ref import (
 )
 
 __all__ = ["rglru_scan", "rglru_scan_saving", "rglru_scan_bwd", "rglru_scan_autograd",
-           "chunk_len", "counter", "bwd_counter"]
+           "bwd_scratch_elems", "chunk_len", "carry_len", "counter", "bwd_counter"]
 
 counter = LaunchCounter("rglru_scan")
 bwd_counter = LaunchCounter("rglru_scan_bwd")
@@ -51,7 +52,8 @@ def _entry():
     fn.argtypes = [_P] * 12 + [_I] * 4 + [_P]
     fn.restype = _I
     lib.rglru_scan_chunk.restype = _I
-    return lib, fn, lib.rglru_scan_chunk()
+    lib.rglru_scan_carry.restype = _I
+    return lib, fn, lib.rglru_scan_chunk(), lib.rglru_scan_carry()
 
 
 def _bwd_entry():
@@ -59,13 +61,30 @@ def _bwd_entry():
     fn = lib.rglru_scan_bwd
     fn.argtypes = [_P] * 6 + [_I] * 4 + [_P]
     fn.restype = _I
-    lib.rglru_scan_bwd_chunk.restype = _I
-    return lib, fn, lib.rglru_scan_bwd_chunk()
+    for name in ("chunk", "carry", "group"):
+        getattr(lib, f"rglru_scan_bwd_{name}").restype = _I
+    return (lib, fn, lib.rglru_scan_bwd_chunk(), lib.rglru_scan_bwd_carry(),
+            lib.rglru_scan_bwd_group())
+
+
+def bwd_scratch_elems(b: int, s: int, width: int, chunk: int = 64, group: int = 32) -> int:
+    """4-byte elements of the backward's scratch: per (batch, chunk,
+    channel) the five vector gradients' partial sums and the w handed to
+    the chunk on the left (float32), then a ticket counter per batch row
+    and a flag per (batch, chunk, group of ``group`` channels) (int32)."""
+    n_chunks = -(-s // chunk)
+    return 6 * n_chunks * b * width + b + b * n_chunks * -(-width // group)
 
 
 def chunk_len() -> int:
     """The chunk length of the built kernel library (built on first use)."""
     return _entry()[2]
+
+
+def carry_len() -> int:
+    """The steps between the carries ``rglru_scan_saving`` keeps on the card
+    (the built library's; built on first use)."""
+    return _entry()[3]
 
 
 def _check(u, gpre, vecs, h0):
@@ -97,7 +116,7 @@ def _launch(u, gpre, vecs, h0, carries):
     h0 = h0.contiguous() if h0 is not None else None
     y = torch.empty_like(u)
     h_last = torch.empty((b, width), dtype=torch.float32, device=u.device)
-    lib, fn, chunk = _entry()
+    lib, fn, chunk, _ = _entry()
     n_chunks = -(-s // chunk)
     scratch = None if n_chunks == 1 else torch.empty(
         (2, b, n_chunks - 1, width), dtype=torch.float32, device=u.device)
@@ -132,16 +151,15 @@ def rglru_scan(u, gpre, a_w, a_b, x_w, x_b, lam, h0=None):
 
 def rglru_scan_saving(u, gpre, a_w, a_b, x_w, x_b, lam, h0=None):
     """The forward of the autograd function: ``rglru_scan``'s (y, h_last)
-    and the carries (B, ceil(S / chunk), L) float32, the h entering each
-    chunk (h0 or 0 first), which the backward reads.  On the card one
-    ``rglru_scan`` launch at the library's chunk, on the CPU the plain loop
-    at the plain version's."""
+    and the carries (B, ceil(S / carry), L) float32, the h entering every
+    ``carry_len()`` steps (h0 or 0 first), which the backward reads.  On
+    the card one ``rglru_scan`` launch, on the CPU the plain loop."""
     vecs = (a_w, a_b, x_w, x_b, lam)
     _check(u, gpre, vecs, h0)
     if u.device.type == "cpu":
         return rglru_scan_saving_ref(u, gpre, *vecs, h0)
     b, s, width = u.shape
-    carries = torch.empty((b, -(-s // chunk_len()), width), dtype=torch.float32,
+    carries = torch.empty((b, -(-s // carry_len()), width), dtype=torch.float32,
                           device=u.device)
     y, h_last = _launch(u, gpre, vecs, h0, carries)
     return y, h_last, carries
@@ -154,8 +172,8 @@ def rglru_scan_bwd(u, gpre, a_w, a_b, x_w, x_b, lam, carries, dy, dh_last=None,
     None unless ``want_dh0``) from the output's gradient ``dy`` (B, S, L)
     in u's type, the last state's ``dh_last`` (B, L) float32 or None
     (zeros), and ``carries`` from ``rglru_scan_saving``.  On the card one
-    launch of ``csrc/rglru_scan_bwd.cu`` (three kernels), which takes the
-    carries at its library's chunk."""
+    launch of ``csrc/rglru_scan_bwd.cu`` (two kernels), which takes the
+    carries at its library's carry span."""
     vecs = (a_w, a_b, x_w, x_b, lam)
     _check(u, gpre, vecs, None)
     b, s, width = u.shape
@@ -173,10 +191,9 @@ def rglru_scan_bwd(u, gpre, a_w, a_b, x_w, x_b, lam, carries, dy, dh_last=None,
     if u.device.type == "cpu":
         grads = rglru_scan_bwd_ref(u, gpre, *vecs, dy, h0=carries[:, 0], dh_last=dh_last)
         return grads[:7] + (grads[7] if want_dh0 else None,)
-    lib, fn, chunk = _bwd_entry()
-    n_chunks = -(-s // chunk)
-    if carries.shape[1] != n_chunks:
-        raise ValueError(f"carries must hold {n_chunks} chunks of {chunk} steps, got "
+    lib, fn, chunk, carry, group = _bwd_entry()
+    if carries.shape[1] != -(-s // carry):
+        raise ValueError(f"carries must hold {-(-s // carry)} spans of {carry} steps, got "
                          f"{carries.shape[1]}")
     ins = [t.contiguous() for t in (u, gpre, dy) + vecs]
     carries = carries.contiguous()
@@ -184,8 +201,8 @@ def rglru_scan_bwd(u, gpre, a_w, a_b, x_w, x_b, lam, carries, dy, dh_last=None,
     outs = [torch.empty_like(ins[0]), torch.empty_like(ins[1])] + [
         torch.empty_like(v) for v in ins[3:]]
     dh0 = torch.empty((b, width), dtype=torch.float32, device=u.device) if want_dh0 else None
-    scratch = torch.empty(((5 * n_chunks + 2 * (n_chunks - 1)) * b * width,),
-                          dtype=torch.float32, device=u.device)
+    scratch = torch.empty((bwd_scratch_elems(b, s, width, chunk, group),), dtype=torch.float32,
+                          device=u.device)
     in_ptrs = (_P * len(ins))(*(t.data_ptr() for t in ins))
     out_ptrs = (_P * len(outs))(*(t.data_ptr() for t in outs))
     with torch.cuda.device(u.device):
@@ -199,7 +216,7 @@ def rglru_scan_bwd(u, gpre, a_w, a_b, x_w, x_b, lam, carries, dy, dh_last=None,
 
 
 class _RglruScan(torch.autograd.Function):
-    """``rglru_scan`` forward (saving the chunk carries), ``rglru_scan_bwd``
+    """``rglru_scan`` forward (saving the carries), ``rglru_scan_bwd``
     backward; the plain versions on the CPU."""
 
     @staticmethod

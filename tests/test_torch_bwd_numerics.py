@@ -33,17 +33,22 @@ def _bf16(t):
     return t.to(torch.bfloat16).float()
 
 
-def _k3b_emulated(q, k, v, do, window, rounded=True):
+def _k3b_emulated(q, k, v, do, window, rounding="bf16"):
     """dq, dk, dv of causal GQA attention in K3b's bf16 arithmetic: the
     forward's o (rounded to bf16, as K3 writes it) and logsumexp in fp32;
-    p and dS rounded to bf16 before the products that take them when
-    ``rounded``; every sum in fp32.  q, do (B, S, Hq, D), k, v (B, S, Hkv,
-    D), float32 holding the inputs' values; gradients in float32."""
+    with ``rounding`` "bf16" (the D <= 128 design), p and dS rounded to
+    bf16 before the products that take them; with "bf16x2" (D = 256), dS
+    so and p taken to dV's product as two bf16 terms, its rounding and what
+    that rounding left; with None, nothing rounded; every sum in fp32.
+    q, do (B, S, Hq, D), k, v (B, S, Hkv, D), float32 holding the inputs'
+    values; gradients in float32."""
     b, s, hq, d = q.shape
     hkv = k.shape[2]
     g = hq // hkv
     scale = d ** -0.5
+    rounded = rounding is not None
     rnd = _bf16 if rounded else (lambda t: t)
+    rnd_p = (lambda t: _bf16(t) + _bf16(t - _bf16(t))) if rounding == "bf16x2" else rnd
     qh, doh = q.permute(0, 2, 1, 3), do.permute(0, 2, 1, 3)  # (B, Hq, S, D)
     kh = k.permute(0, 2, 1, 3).repeat_interleave(g, dim=1)
     vh = v.permute(0, 2, 1, 3).repeat_interleave(g, dim=1)
@@ -57,7 +62,7 @@ def _k3b_emulated(q, k, v, do, window, rounded=True):
     p = torch.exp(sc - lse)
     o = _bf16(p @ vh) if rounded else p @ vh
     drow = (doh * o).sum(-1, keepdim=True)
-    dv = rnd(p).transpose(-1, -2) @ doh
+    dv = rnd_p(p).transpose(-1, -2) @ doh
     dp = doh @ vh.transpose(-1, -2)
     ds = p * (dp - drow) * scale
     dq = rnd(ds) @ kh
@@ -79,11 +84,14 @@ def _inputs(b, s, hq, hkv, d, seed):
     (1, 256, 8, 1, 64, 0),    # tinyllama's G = 8 at D = 64
     (1, 128, 16, 2, 128, 0),  # G = 8 at D = 128 (32-row tiles in the kernel)
     (2, 256, 8, 1, 64, 48),   # a window that is not a multiple of a tile
+    (1, 128, 2, 2, 256, 0),   # D = 256, G = 1 (gemma-7b's MHA)
+    (1, 128, 16, 1, 256, 48),  # D = 256, G = 16 with a window (recurrentgemma-9b's local)
 ])
 def test_k3b_bf16_rounding_matches_reference_vjp(b, s, hq, hkv, d, window):
-    """K3b's bf16 arithmetic (p and dS rounded to bf16 as operands) against
-    ``jax.vjp`` of the reference's ``flash_attention`` on bf16 inputs
-    (its custom VJP keeps p and dS in fp32), within 2e-2."""
+    """K3b's bf16 arithmetic (p and dS rounded to bf16 as operands; at D =
+    256 p as two bf16 terms) against ``jax.vjp`` of the reference's
+    ``flash_attention`` on bf16 inputs (its custom VJP keeps p and dS in
+    fp32), within 2e-2."""
     q, k, v, do = _inputs(b, s, hq, hkv, d, [b, s, hq, d, window])
     chunk = max(s // 4, 16)
 
@@ -93,7 +101,8 @@ def test_k3b_bf16_rounding_matches_reference_vjp(b, s, hq, hkv, d, window):
 
     _, vjp = jax.vjp(ref, *(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)))
     want = vjp(jnp.asarray(do, jnp.bfloat16))
-    got = _k3b_emulated(*(torch.as_tensor(x) for x in (q, k, v, do)), window)
+    got = _k3b_emulated(*(torch.as_tensor(x) for x in (q, k, v, do)), window,
+                        "bf16x2" if d == 256 else "bf16")
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         assert w.dtype == jnp.bfloat16, name
         np.testing.assert_allclose(_bf16(g).numpy(), np.asarray(w, np.float32),
@@ -106,7 +115,7 @@ def test_k3b_emulation_without_rounding_is_the_plain_backward():
     computes the kernel's function, and only its rounding differs."""
     b, s, hq, hkv, d, window = 2, 96, 6, 2, 32, 40
     q, k, v, do = (torch.as_tensor(x) for x in _inputs(b, s, hq, hkv, d, 5))
-    got = _k3b_emulated(q, k, v, do, window, rounded=False)
+    got = _k3b_emulated(q, k, v, do, window, rounding=None)
     qg, dog = (t.reshape(b, s, hkv, hq // hkv, d).permute(0, 2, 3, 1, 4) for t in (q, do))
     kt, vt = k.transpose(1, 2), v.transpose(1, 2)
     o, lse = flash_attention_ref(qg, kt, vt, window=window, return_lse=True)
@@ -115,6 +124,46 @@ def test_k3b_emulation_without_rounding_is_the_plain_backward():
             dv.transpose(1, 2))
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         torch.testing.assert_close(g, w, atol=2e-5, rtol=2e-5, msg=name)
+
+
+@pytest.mark.parametrize("rounding", ["bf16", "bf16x2"])
+def test_plain_backward_rounding_is_the_emulation(rounding):
+    """``flash_attention_bwd_ref(rounding=...)``, which the card's probe
+    holds K3b's bf16 instances against, does this file's emulation of
+    their arithmetic, given the emulation's forward output and logsumexp:
+    equal but for fp32 summation order, which can move a bf16 rounding of
+    p or dS by one step (1e-3 allows a few such steps)."""
+    b, s, hq, hkv, d, window = 1, 96, 8, 1, 64, 40
+    q, k, v, do = (torch.as_tensor(x) for x in _inputs(b, s, hq, hkv, d, 7))
+    got = _k3b_emulated(q, k, v, do, window, rounding)
+    qg, dog = (t.reshape(b, s, hkv, hq // hkv, d).permute(0, 2, 3, 1, 4) for t in (q, do))
+    kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+    o, lse = flash_attention_ref(qg, kt, vt, window=window, return_lse=True)
+    dq, dk, dv = flash_attention_bwd_ref(qg, kt, vt, _bf16(o), dog, lse, window=window,
+                                         rounding=rounding)
+    want = (dq.permute(0, 3, 1, 2, 4).reshape(b, s, hq, d), dk.transpose(1, 2),
+            dv.transpose(1, 2))
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        torch.testing.assert_close(g, w, atol=1e-3, rtol=1e-3, msg=name)
+    with pytest.raises(ValueError):
+        flash_attention_bwd_ref(qg, kt, vt, o, dog, lse, rounding="fp8")
+
+
+def test_plain_backward_in_float64_agrees_with_float32():
+    """Given float64 inputs, ``flash_attention_bwd_ref`` works in float64
+    (the card's probe uses it as the exact side of K3b's fp32 instance):
+    within float32 rounding of the float32 run on the same values."""
+    b, s, hq, hkv, d, window = 2, 80, 4, 2, 32, 0
+    q, k, v, do = (torch.as_tensor(x) for x in _inputs(b, s, hq, hkv, d, 11))
+    qg, dog = (t.reshape(b, s, hkv, hq // hkv, d).permute(0, 2, 3, 1, 4) for t in (q, do))
+    kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+    o, lse = flash_attention_ref(qg, kt, vt, window=window, return_lse=True)
+    single = flash_attention_bwd_ref(qg, kt, vt, o, dog, lse, window=window)
+    double = flash_attention_bwd_ref(*(t.double() for t in (qg, kt, vt, o, dog, lse)),
+                                     window=window)
+    for name, x, y in zip(("dq", "dk", "dv"), single, double):
+        assert y.dtype == torch.float64, name
+        torch.testing.assert_close(x.double(), y, atol=2e-5, rtol=2e-5, msg=name)
 
 
 # ---------------------------------------------------------------- (b) K5b's 3xTF32 products

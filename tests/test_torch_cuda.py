@@ -1411,16 +1411,21 @@ def _rglru_bwd_case(b, s, width, dtype, device, h0, dh_last, seed):
     (3, 40, 256, torch.bfloat16, False, True),  # S below the chunk: no summaries
     (2, 300, 200, torch.float32, True, True),  # f32, h0 and dh_last, a width no multiple of 128
     (1, 64, 96, torch.float32, True, False), (2, 129, 64, torch.float32, False, True),
+    (2, 65, 256, torch.bfloat16, True, True),  # one step past a chunk
+    (2, 70, 36, torch.bfloat16, True, True),  # bf16 rows no whole number of 16 bytes: unstaged
+    # 4 x 40 chunks, more than the card's SMs: blocks wait on their right
+    # neighbours' tickets across waves
+    (4, 2500, 128, torch.bfloat16, False, True),
 ])
 def test_rglru_scan_bwd_kernel_matches_plain(cuda, b, s, width, dtype, h0, dh_last):
-    """``rglru_scan_bwd`` (three kernels, one launch) on the carries that
-    ``rglru_scan_saving`` kept, against ``rglru_scan_bwd_ref``: all eight
-    gradients, and two calls bit-identical."""
+    """``rglru_scan_bwd`` (a chained scan and a reduce, one launch) on the
+    carries that ``rglru_scan_saving`` kept, against ``rglru_scan_bwd_ref``:
+    all eight gradients, and two calls bit-identical."""
     from repro_torch.kernels.rglru_scan.ref import rglru_scan_bwd_ref, rglru_scan_ref
 
     u, gp, vecs, hs, dy, dh = _rglru_bwd_case(b, s, width, dtype, cuda, h0, dh_last, s + width)
     y, h_last, carries = rglru_ops.rglru_scan_saving(u, gp, *vecs, hs)
-    assert carries.shape == (b, -(-s // rglru_ops.chunk_len()), width)
+    assert carries.shape == (b, -(-s // rglru_ops.carry_len()), width)
     assert torch.equal(carries[:, 0], hs if h0 else torch.zeros_like(h_last))
     y_ref, _ = rglru_scan_ref(u, gp, *vecs, hs)
     torch.testing.assert_close(y.float(), y_ref.float(), atol=RGLRU_BWD_TOL[dtype][0],
@@ -2007,13 +2012,16 @@ def test_flash_attention_bwd_takes_inputs_off_a_16_byte_boundary(cuda):
     (1, 300, 300, 16, 1, 100),  # G = 16, windowed (recurrentgemma-9b's local layers)
     (2, 77, 77, 16, 16, 0), (1, 45, 301, 4, 2, 16),  # ragged S; Sq < Skv
     (1, 1024, 1024, 16, 16, 0),  # gemma-7b's training length, one row
+    (8, 1024, 1024, 16, 1, 2048),  # recurrentgemma-9b's training shape: 3 head groups in bf16
+    (2, 3000, 3000, 16, 1, 0),  # G = 16 over 3 head groups of 5, 5 and 6 heads, ragged S
 ])
 def test_flash_attention_bwd_head_dim_256_matches_plain(cuda, b, sq, skv, hq, hkv, window,
                                                         dtype):
-    """K3b at head dim 256 (the bf16 dkdv block splits D between the two
-    warps of a key group; the fp32 instance takes 32-row tiles): dq, dk, dv
-    against the plain version on the same forward output and logsumexp
-    (2e-2 bf16, 2e-5 f32), one launch a call, and two calls bit-identical."""
+    """K3b at head dim 256 (bf16 on warpgroup products, a KV head's query
+    heads spread over head groups when the blocks would not fill the card;
+    the fp32 instance on 32-row tiles): dq, dk, dv against the plain
+    version on the same forward output and logsumexp (2e-2 bf16, 2e-5 f32),
+    one launch a call, and two calls bit-identical."""
     from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref
 
     d = 256
@@ -2037,6 +2045,10 @@ def test_flash_attention_bwd_head_dim_256_matches_plain(cuda, b, sq, skv, hq, hk
         assert got.dtype == dtype and got.shape == ref.shape, name
         assert torch.equal(got, twice), name
         torch.testing.assert_close(got.float(), ref.float(), atol=tol, rtol=tol, msg=name)
+    plan = flash_ops.bwd_plan(b, skv, hq, hkv, d, dtype,
+                              torch.cuda.get_device_properties(cuda).multi_processor_count)
+    if dtype == torch.bfloat16 and (b, sq, hkv) in ((8, 1024, 1), (2, 3000, 1)):
+        assert len({hi - lo for lo, hi in plan["heads"]}) > 1, plan  # uneven head groups
 
 
 @pytest.mark.parametrize("b,s,h,p,n,chunk", [

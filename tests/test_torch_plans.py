@@ -194,3 +194,53 @@ def test_score_block_instance_by_shape(n_w, members, m, want, blocks):
     assert shard_ops.tile_in_smem(n_w, members, m) == (8 * n_w * members * m < 150 * 1024)
     assert shard_ops.score_blocks(n_w, members, m) == blocks
     assert shard_ops.score_blocks(n_w, members, m, fixed=True) == 1
+
+
+@pytest.mark.parametrize("b,skv,hq,hkv", [
+    (8, 1024, 16, 16), (8, 1024, 16, 1), (2, 4096, 16, 1), (2, 2048, 8, 4), (1, 100, 16, 1),
+    (2, 3000, 16, 1), (1, 64, 1, 1), (1, 64, 64, 1), (4, 2048, 32, 4), (1, 8192, 8, 8),
+])
+def test_k3b_plan_head_groups_cover_g(b, skv, hq, hkv):
+    """K3b's plan at head dim 256 in bf16: the head groups cover a KV
+    head's G query heads exactly, in order, each non-empty and within one
+    head of the others; a single group wherever one block per (key tile, KV
+    head, batch row) already fills the SMs, and then no scratch; else
+    enough groups for two waves, at most G, with fp32 partials of dK and dV
+    for each.  Other head dims and float32 never split.  The wgmma kernels'
+    shared memory fits a block of an H100."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+
+    g = hq // hkv
+    plan = flash_ops.bwd_plan(b, skv, hq, hkv, 256, torch.bfloat16, SMS)
+    heads = plan["heads"]
+    assert len(heads) == plan["groups"] >= 1
+    assert heads[0][0] == 0 and heads[-1][1] == g
+    assert all(lo < hi for lo, hi in heads)
+    assert all(a[1] == b_[0] for a, b_ in zip(heads, heads[1:]))
+    sizes = [hi - lo for lo, hi in heads]
+    assert max(sizes) - min(sizes) <= 1
+    blocks = -(-skv // flash_ops.WGMMA_ROWS) * hkv * b
+    if blocks >= SMS:
+        assert plan["groups"] == 1 and plan["scratch"] == 0
+    else:
+        assert plan["groups"] == min(g, -(-2 * SMS // blocks))
+        if plan["groups"] > 1:
+            assert plan["scratch"] == 2 * plan["groups"] * b * skv * hkv * 256
+    for d, dtype in ((128, torch.bfloat16), (256, torch.float32)):
+        other = flash_ops.bwd_plan(b, skv, hq, hkv, d, dtype, SMS)
+        assert other["groups"] == 1 and other["scratch"] == 0
+    assert all(n <= flash_ops.SMEM_LIMIT for n in flash_ops.WGMMA_SMEM.values())
+
+
+@pytest.mark.parametrize("b,s,width", [(8, 1024, 4096), (2, 300, 200), (3, 40, 256),
+                                       (1, 1, 36), (4, 2500, 128)])
+def test_rglru_bwd_scratch_holds_its_parts(b, s, width):
+    """The RG-LRU backward's scratch: five partial sums and a handed-over w
+    per (batch row, 64-step chunk, channel), a ticket counter per batch
+    row and a flag per (batch row, chunk, 32-channel group)."""
+    from repro_torch.kernels.rglru_scan import ops as rglru_ops
+
+    nc, ng = -(-s // 64), -(-width // 32)
+    assert rglru_ops.bwd_scratch_elems(b, s, width) == 6 * b * nc * width + b + b * nc * ng

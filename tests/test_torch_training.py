@@ -424,6 +424,61 @@ def test_rglru_scan_bwd_ref_is_the_gradient_of_the_scan(b, s, width, h0, dh_last
             torch.testing.assert_close(g, w, atol=1e-5, rtol=1e-5, msg=name)
 
 
+@pytest.mark.parametrize("b,s,width,h0,dh_last", [
+    (2, 150, 8, True, True),  # ragged: two chunks and a span of 22 steps
+    (2, 40, 8, False, True),  # S below a chunk
+    (1, 65, 6, True, False),  # one step past a chunk
+    (3, 300, 5, True, True), (2, 16, 4, False, False), (1, 1, 4, True, True),
+])
+def test_rglru_scan_bwd_chunked_ref_matches_sequential_and_reference_vjp(b, s, width, h0,
+                                                                          dh_last):
+    """The backward kernel's order (16-step span summaries, the adjoint
+    pushed through them from the right, each span walked back from its
+    entering value, sums by span, chunk and batch row) against the
+    sequential reverse loop and against ``jax.vjp`` of the reference's
+    ``_gates`` and ``associative_scan`` (``rglru_forward``'s combine, h0
+    folded into the first step; src/repro/models/rglru.py:77), every
+    input's gradient in float32 within 1e-4 + 1e-3 |ref| (the kernel's
+    tolerance, tests/test_torch_cuda.py's RGLRU_BWD_TOL)."""
+    from repro_torch.kernels.rglru_scan.ref import rglru_scan_bwd_chunked_ref
+
+    rng = np.random.default_rng([b, s, width, int(h0), int(dh_last)])
+    u, gp, dy = (rng.normal(size=(b, s, width)).astype(np.float32) for _ in range(3))
+    vecs = [(rng.normal(size=width) * 0.5).astype(np.float32) for _ in range(5)]
+    hs = rng.normal(size=(b, width)).astype(np.float32) if h0 else None
+    dh = rng.normal(size=(b, width)).astype(np.float32) if dh_last else None
+    t = [torch.as_tensor(x) for x in (u, gp, *vecs)]
+    t_h0 = torch.as_tensor(hs) if h0 else None
+    t_dh = torch.as_tensor(dh) if dh_last else None
+    got = rglru_scan_bwd_chunked_ref(*t, torch.as_tensor(dy), h0=t_h0, dh_last=t_dh)
+    seq = rglru_scan_bwd_ref(*t, torch.as_tensor(dy), h0=t_h0, dh_last=t_dh)
+    tol = dict(atol=1e-4, rtol=1e-3)
+    names = ("du", "dgpre", "da_w", "da_b", "dx_w", "dx_b", "dlam", "dh0")
+    for name, g, w in zip(names, got, seq):
+        assert (g is None) == (w is None), name
+        if g is not None:
+            torch.testing.assert_close(g, w, **tol, msg=name)
+
+    keys = ("a_gate_w", "a_gate_b", "x_gate_w", "x_gate_b", "Lambda")
+
+    def ref(u, gp, *rest):
+        params = dict(zip(keys, rest[:5]))
+        a, bx = j_rglru._gates(params, u)
+        if h0:
+            bx = bx.at[:, 0, :].add(a[:, 0, :] * rest[5])
+        _, h = jax.lax.associative_scan(
+            lambda left, right: (left[0] * right[0], right[0] * left[1] + right[1]), (a, bx),
+            axis=1)
+        return h * jax.nn.gelu(gp, approximate=True), h[:, -1]
+
+    args = [jnp.asarray(x) for x in (u, gp, *vecs)] + ([jnp.asarray(hs)] if h0 else [])
+    _, vjp = jax.vjp(ref, *args)
+    want = vjp((jnp.asarray(dy), jnp.asarray(dh if dh_last else np.zeros((b, width),
+                                                                         np.float32))))
+    for name, g, w in zip(names, got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **tol, err_msg=name)
+
+
 def _rglru_block_params(cfg, rng):
     d, lru, w = cfg.d_model, cfg.lru_width, cfg.conv_width
 
