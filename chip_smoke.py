@@ -82,7 +82,14 @@ times both, then drives the paths of the port on the card:
   an injected fault restored from one, and tinyllama-1.1b (22 layers),
   recurrentgemma-9b (one period) and gemma-7b (3 layers) through
   ``make_train_step``, all bf16 at B=8 S=1024 on LMDataset's markov
-  stream, with falling loss and exact K3/K3b/K5/K5b/RG-LRU launches.
+  stream, with falling loss and exact K3/K3b/K5/K5b/RG-LRU launches;
+* the launchers (phase 17): ``python -m repro_torch.launch.train`` at
+  mamba2-130m's full width on a one-rank NCCL mesh (``--mesh
+  data,model=1,1``: ZeRO-3 through DTensors) beside the unsharded
+  ``Trainer`` on the same seed and steps (tokens/s, peak memory, losses
+  within 1e-4); ``python -m repro_torch.launch.serve`` (K1-K4 launched,
+  K5 by the train launcher); ``EdgeServer`` over ``CostModelBackend``
+  lanes on two workers, card against host.
 
 Every check raises on failure.  The last three lines of standard output
 are the card's name and power limit, the kernel table and
@@ -94,6 +101,7 @@ result, when CUDA is absent or the port's sources are not beside it.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import subprocess
@@ -3454,6 +3462,42 @@ def check_train_step_card_vs_host(seed, arch, layers=2, batch=2, seq=256, steps=
             "weights_moved": moved, "card_s": seconds["card"], "host_s": seconds["host"]}
 
 
+# glibc's mallopt parameters: the mmap threshold count, the trim threshold
+# and the pad kept at the heap's top on a trim, with their defaults.
+_M_TRIM_THRESHOLD, _M_TOP_PAD, _M_MMAP_MAX = -1, -2, -4
+_MMAP_MAX_DEFAULT, _TRIM_THRESHOLD_DEFAULT, _TOP_PAD_DEFAULT = 65536, 128 * 1024, 128 * 1024
+
+
+@contextlib.contextmanager
+def heap_allocations():
+    """This process's large host allocations from glibc's heap, kept there
+    when freed (up to 2 GB at its top), instead of a fresh ``mmap`` each:
+    phase 16 (b)'s host steps allocate and free tensors of up to 4.2 GB
+    many times, and each fresh mapping is faulted in page by page.  The
+    defaults come back after, and the heap is trimmed."""
+    import ctypes
+
+    try:
+        libc = ctypes.CDLL("libc.so.6")
+    except OSError:  # not glibc: allocations as they were
+        yield
+        return
+    libc.mallopt.argtypes = [ctypes.c_int, ctypes.c_int]
+    libc.malloc_trim.argtypes = [ctypes.c_size_t]
+    for param, value in ((_M_MMAP_MAX, 0), (_M_TRIM_THRESHOLD, 2**31 - 1),
+                         (_M_TOP_PAD, 2**31 - 1)):
+        libc.mallopt(param, value)
+    try:
+        yield
+    finally:
+        for param, value in ((_M_MMAP_MAX, _MMAP_MAX_DEFAULT),
+                             (_M_TRIM_THRESHOLD, _TRIM_THRESHOLD_DEFAULT),
+                             (_M_TOP_PAD, _TOP_PAD_DEFAULT)):
+            libc.mallopt(param, value)
+        gc.collect()
+        libc.malloc_trim(0)
+
+
 def _training_summary(arch, losses, step_s, peak_gb, launches, per_step, executed):
     import numpy as np
 
@@ -3603,6 +3647,211 @@ def train_through_steps(seed, cfg, opt, steps):
     gc.collect()
     torch.cuda.empty_cache()
     return out
+
+
+# ---------------------------------------------------------------- phase 17: the launchers
+
+# Phase 17 (a): the train launcher's run at full width; the unsharded
+# Trainer beside it takes the launcher's config (lr 3e-3, warmup
+# max(steps // 20, 1), checkpoints every 50 steps, seed 0).
+LAUNCH_ARCH, LAUNCH_STEPS, LAUNCH_BATCH, LAUNCH_SEQ = "mamba2-130m", 10, 8, 1024
+# The sharded Trainer's losses against the unsharded one's, as
+# tests/test_torch_launch.py holds them on gloo ranks.
+LAUNCH_LOSS_TOL = 1e-4
+# Phase 17 (b): the serve launcher's arguments.
+LAUNCH_SERVE = ["--policy", "SneakPeek", "--requests", "24", "--windows", "3"]
+# The kernels the two launchers' runs must launch between them (K1-K5).
+LAUNCHER_KERNELS = ("utility_scores", "knn_topk", "flash_attention", "decode_attention", "ssd")
+
+
+def _launcher(module: str, args: list, timeout: float) -> tuple[list, float]:
+    """``python -m module args`` from the checkout: its standard output's
+    lines and its seconds; it must exit 0."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", module, *args], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=timeout)
+    wall = time.perf_counter() - t0
+    require(proc.returncode == 0, f"{module} exited {proc.returncode}: {proc.stderr[-3000:]}")
+    return proc.stdout.splitlines(), wall
+
+
+def _run_numbers(losses, step_s, peak_bytes, launches, steps):
+    """tokens/s at the median step, peak GB (above what the process held
+    before the run) and the launches a step."""
+    import statistics
+
+    return {"losses": losses, "step_s": step_s,
+            "tokens_per_s": LAUNCH_BATCH * LAUNCH_SEQ / statistics.median(step_s),
+            "peak_gb": peak_bytes / 1e9,
+            "per_step": {k: v / steps for k, v in launches.items() if v}}
+
+
+def check_train_launcher():
+    """Phase 17 (a): ``python -m repro_torch.launch.train`` at mamba2-130m's
+    full width, B=8 S=1024, 10 steps, ``--mesh data,model=1,1``: a real NCCL
+    group of one rank and the DTensor route (ZeRO-3 on one card), with its
+    checkpoints; then the unsharded ``Trainer`` on the same seed, config and
+    steps in this process.  Both runs' tokens/s, peak memory and losses;
+    the largest loss difference within ``LAUNCH_LOSS_TOL``; the launches a
+    step equal.  Returns both runs' numbers, the difference and the
+    launcher's launches."""
+    import tempfile
+
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.configs import ARCHS
+    from repro_torch.data import LMDataConfig, LMDataset
+    from repro_torch.models import LM
+    from repro_torch.training import OptimizerConfig, Trainer, TrainerConfig
+
+    shape = ["--arch", LAUNCH_ARCH, "--steps", str(LAUNCH_STEPS), "--batch", str(LAUNCH_BATCH),
+             "--seq", str(LAUNCH_SEQ)]
+    with tempfile.TemporaryDirectory() as d:
+        lines, wall = _launcher("repro_torch.launch.train",
+                                shape + ["--mesh", "data,model=1,1", "--ckpt-dir", d], 900)
+        saved = sorted(p.name for p in Path(d).iterdir())
+    require(any(line.startswith(f"arch={LAUNCH_ARCH} ") and line.endswith(" devices=1")
+                for line in lines), f"no arch line: {lines[:3]}")
+    require(any(line.startswith(f"done @ step {LAUNCH_STEPS - 1}:") for line in lines),
+            "no done line")
+    require(saved == ["LATEST", "step_00000000", f"step_{LAUNCH_STEPS - 1:08d}"],
+            f"the sharded run's checkpoints: {saved}")
+    got = json.loads(lines[-1].removeprefix("summary "))
+    sharded = _run_numbers(got["losses"], got["step_s"], got["peak_bytes"], got["launches"],
+                           LAUNCH_STEPS)
+
+    cfg = ARCHS[LAUNCH_ARCH]
+    data = LMDataset(LMDataConfig(vocab_size=cfg.vocab_size, seq_len=LAUNCH_SEQ,
+                                  global_batch=LAUNCH_BATCH, kind="markov"))
+    opt = OptimizerConfig(learning_rate=3e-3, warmup_steps=max(LAUNCH_STEPS // 20, 1),
+                          total_steps=LAUNCH_STEPS)
+    with tempfile.TemporaryDirectory() as d:
+        trainer = Trainer(LM(cfg), data, opt_cfg=opt,
+                          cfg=TrainerConfig(total_steps=LAUNCH_STEPS, checkpoint_every=50,
+                                            checkpoint_dir=d, log_every=1), device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()  # earlier phases' tensors, not this run's
+        kernels.reset_launch_counts()
+        step, _, _, summary = trainer.train()
+        torch.cuda.synchronize()
+        unsharded = _run_numbers(summary["losses"], trainer.step_times,
+                                 torch.cuda.max_memory_allocated() - held,
+                                 kernels.launch_counts(), LAUNCH_STEPS)
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    require(step == LAUNCH_STEPS - 1, f"the unsharded run stopped at step {step}")
+    require(len(sharded["losses"]) == len(unsharded["losses"]) == LAUNCH_STEPS,
+            "a run logged another number of losses")
+    diff = max(abs(a - b) for a, b in zip(sharded["losses"], unsharded["losses"]))
+    for label, run in (("launcher, data,model=1,1", sharded), ("unsharded Trainer", unsharded)):
+        print(f"    {label}: {run['tokens_per_s']:.1f} tokens/s at the median step, peak "
+              f"{run['peak_gb']:.3f} GB, launches a step {run['per_step']}; losses "
+              + " ".join(f"{x:.6f}" for x in run["losses"]))
+    print(f"    largest loss difference {diff:.3g} (tolerance {LAUNCH_LOSS_TOL:g}); the "
+          f"launcher's process {wall:.1f} s; its weights and AdamW state on the card "
+          f"{got['state_bytes'] / 1e9:.3f} GB")
+    require(diff <= LAUNCH_LOSS_TOL, f"the sharded losses differ from the unsharded by {diff}")
+    require(sharded["per_step"] == unsharded["per_step"],
+            f"launches a step: sharded {sharded['per_step']}, unsharded {unsharded['per_step']}")
+    require(sharded["per_step"].get("ssd") == 2 * cfg.num_layers
+            and sharded["per_step"].get("ssd_bwd") == cfg.num_layers,
+            f"K5/K5b a step: {sharded['per_step']}")
+    return {"sharded": sharded, "unsharded": unsharded, "max_loss_diff": diff,
+            "launcher_s": wall, "state_gb": got["state_bytes"] / 1e9}, got["launches"]
+
+
+def check_serve_launcher():
+    """Phase 17 (b): ``python -m repro_torch.launch.serve --policy SneakPeek
+    --requests 24 --windows 3`` on the card: the ``mean utility`` and
+    ``batch[`` lines, and the launches its last line counts."""
+    lines, wall = _launcher("repro_torch.launch.serve", LAUNCH_SERVE, 600)
+    require(any(line.startswith("mean utility ") for line in lines), "no mean utility line")
+    batches = [line for line in lines if line.strip().startswith("batch[")]
+    require(batches, "no batch[ line")
+    launches = json.loads(lines[-1].removeprefix("kernel launches "))
+    for line in lines:
+        if line.startswith(("variant ", "policy=", "mean utility ")):
+            print(f"    {line}")
+    print(f"    {len(batches)} batches; launches {launches}; {wall:.1f} s")
+    return launches, wall
+
+
+def serve_costmodel_pool(args, sneak):
+    """Phase 17 (c): ``EdgeServer`` over ``CostModelBackend`` lanes on two
+    workers (one twice as fast), mamba2-130m, tinyllama-1.1b and gemma-7b
+    at full width as modelled by ``serving.profiles`` (no model runs),
+    SneakPeek on phase 9's traffic, on the card (SneakPeek through K2,
+    placement steps and commits through K1) and on the host (the card's
+    evidence carried on copies of the requests): every request decided
+    once, decisions and the served stats equal, the host launching
+    nothing."""
+    import copy
+
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.core.multiworker import Worker
+    from repro_torch.core.scheduler import make_policy
+    from repro_torch.core.types import Application
+    from repro_torch.serving.backends import CostModelBackend
+
+    variants = {name: name for name in ("mamba2-130m", "tinyllama-1.1b", "gemma-7b")}
+    recalls = {"mamba2-130m": [0.72, 0.70], "tinyllama-1.1b": [0.84, 0.82],
+               "gemma-7b": [0.94, 0.92]}
+    profiles = CostModelBackend(variants).profiles(recalls)
+    app = {"assistant": Application(name="assistant", models=list(profiles.values()),
+                                    penalty="sigmoid")}
+    workers = [Worker(0), Worker(1, speed=2.0)]
+    server_cls = _pass_counting_server()
+    views, evidenced = {}, None
+    for device in ("cuda", "cpu"):
+        on_card = device == "cuda"
+        reqs = serving_trace(args, 95_000) if on_card else copy.deepcopy(evidenced)
+        server = server_cls(app, make_policy("SneakPeek"), backend=CostModelBackend(variants),
+                            sneakpeeks={"assistant": sneak} if on_card else None,
+                            prompt_fn=serving_prompt_fn(32_000), workers=workers,
+                            device=device)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t = time.perf_counter()
+        with server:
+            outs, stats = server.run(reqs)
+        wall = time.perf_counter() - t
+        launches = kernels.launch_counts()
+        if on_card:
+            evidenced = copy.deepcopy(reqs)
+        views[device] = {
+            "stats": {k: getattr(stats, k) for k in ("windows", "requests", "mean_utility",
+                                                     "violations", "swaps")},
+            "decisions": [(e.request.rid, e.model, e.worker, e.order, e.batch_id)
+                          for o in outs for e in o["schedule"].sorted_entries()]}
+        steps = sum(len({e.batch_id for e in sched.entries}) for sched in server.passes)
+        models = sorted({d[1] for d in views[device]["decisions"]})
+        print(f"    {device}: windows={stats.windows} requests={stats.requests} "
+              f"mean_utility={stats.mean_utility:.6f} violations={stats.violations} "
+              f"swaps={stats.swaps}; models {models}; {len(server.passes)} scheduling passes, "
+              f"{steps} placement steps; wall {wall:.3f} s; launches {launches}")
+        require(sorted(d[0] for d in views[device]["decisions"]) == sorted(r.rid for r in reqs),
+                f"{device}: not every request was decided exactly once")
+        if on_card:
+            require(launches.get("knn_topk", 0) > 0, "the cost-model pool ran no k-NN kernel")
+            require(launches.get("utility_scores", 0) == steps + stats.windows,
+                    f"K1 launched {launches.get('utility_scores')} times, expected {steps} "
+                    f"placement steps + {stats.windows} commits")
+        else:
+            require(not any(launches.values()), f"the host run launched {launches}")
+    for key in ("stats", "decisions"):
+        require(views["cuda"][key] == views["cpu"][key],
+                f"phase 17 (c): the host's {key} differ from the card's")
+    print(f"    card and host agree: {len(views['cuda']['decisions'])} decisions, "
+          f"{views['cuda']['stats']}")
+    return {"decisions": len(views["cuda"]["decisions"]), **views["cuda"]["stats"]}
 
 
 def main(argv=None) -> int:
@@ -3925,12 +4174,13 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     print("  (b) one training step, float32, at full width, card against host: 2 layers, and "
           "recurrentgemma-9b's one period")
-    step_checks = {arch: check_train_step_card_vs_host(args.seed, arch, layers=layers,
-                                                       regrad=regrad)
-                   for arch, layers, regrad in (("mamba2-130m", 2, True),
-                                                ("tinyllama-1.1b", 2, True),
-                                                ("recurrentgemma-9b", 3, False),
-                                                ("gemma-7b", 2, False))}
+    with heap_allocations():
+        step_checks = {arch: check_train_step_card_vs_host(args.seed, arch, layers=layers,
+                                                           regrad=regrad)
+                       for arch, layers, regrad in (("mamba2-130m", 2, True),
+                                                    ("tinyllama-1.1b", 2, True),
+                                                    ("recurrentgemma-9b", 3, False),
+                                                    ("gemma-7b", 2, False))}
     gc.collect()
     torch.cuda.empty_cache()
     print(f"    (b) {time.perf_counter() - t0:.1f} s")
@@ -3947,6 +4197,30 @@ def main(argv=None) -> int:
               + f", bound {t['bound_ms']:.6f} ms ({t['bound_by']})")
     train_launches = {name: sum(run["launches"].get(name, 0) for run in trained.values())
                       for name in TRAIN_KERNELS}
+
+    print("[17] the launchers: python -m repro_torch.launch.train --mesh data,model=1,1 beside "
+          "the unsharded Trainer, python -m repro_torch.launch.serve, EdgeServer over "
+          "CostModelBackend lanes")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t17 = time.perf_counter()
+    t0 = time.perf_counter()
+    print(f"  (a) {LAUNCH_ARCH} at full width, B={LAUNCH_BATCH} S={LAUNCH_SEQ}, {LAUNCH_STEPS} "
+          "steps: the train launcher on a one-rank NCCL mesh, then the unsharded Trainer")
+    launch_train, train_cli_launches = check_train_launcher()
+    print(f"    (a) {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    print(f"  (b) python -m repro_torch.launch.serve {' '.join(LAUNCH_SERVE)}")
+    serve_cli_launches, serve_cli_s = check_serve_launcher()
+    print(f"    (b) {time.perf_counter() - t0:.1f} s")
+    launcher_launches = {name: train_cli_launches.get(name, 0) + serve_cli_launches.get(name, 0)
+                         for name in set(train_cli_launches) | set(serve_cli_launches)}
+    missing = [name for name in LAUNCHER_KERNELS if not launcher_launches.get(name)]
+    require(not missing, f"the launchers' runs launched no {missing}")
+    t0 = time.perf_counter()
+    print("  (c) EdgeServer over CostModelBackend lanes, two workers, card against host")
+    costmodel_pool = serve_costmodel_pool(args, closed_sneak)
+    print(f"    (c) {time.perf_counter() - t0:.1f} s; phase 17 {time.perf_counter() - t17:.1f} s")
 
     rows = [
         ("knn_topk", "knn/csrc/knn.cu", "knn/kernel.py:92", launches, knn_t),
@@ -3973,6 +4247,7 @@ def main(argv=None) -> int:
         row["launches_closed_loop"] = closed.get(row["name"], 0)
         row["launches_new_families"] = rec_launches.get(row["name"], 0)  # phase 14 (b)
         row["launches_training"] = train_launches.get(row["name"], 0)  # phase 16 (c)
+        row["launches_launchers"] = launcher_launches.get(row["name"], 0)  # phase 17 (a), (b)
     # The scan replaces the compiled lax.scans of the reference's window
     # programs (no Pallas kernel); its launches are phase 12 (b)'s SneakPeek
     # run, its times those of LO-EDF's 4095-step scan in phase 12 (a).
@@ -4039,6 +4314,9 @@ def main(argv=None) -> int:
                                        "library_ms", "shape", "stage_ms")},
             **{key: t[key] for key in ("f32", "llama4", "windowed", "cases", *K3B_D256_SHAPES)
                if key in t}})
+    table["launchers"] = {"train": launch_train, "train_launches": train_cli_launches,
+                          "serve_launches": serve_cli_launches, "serve_s": serve_cli_s,
+                          "costmodel_pool": costmodel_pool}
     table["training"] = {"step_card_vs_host": step_checks, **{
         arch: {k: v for k, v in run.items() if k != "launches"} for arch, run in trained.items()}}
     print(f"    total {time.perf_counter() - t_start:.1f} s")

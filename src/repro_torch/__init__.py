@@ -2,7 +2,8 @@
 
 The JAX package (``repro``) is the reference; this package imports
 nothing of it and mirrors its module layout (``core``, ``data``,
-``configs``, ``models``, ``serving``, ``kernels``).  Batched math runs as
+``configs``, ``models``, ``serving``, ``kernels``, ``training``,
+``launch``, ``distributed``).  Batched math runs as
 torch tensors on an explicit device, the card unless a caller names the
 CPU (``device.resolve_device``).  The k-NN search, the Eq. 2 utility
 tiles, prefill attention, decode attention and the Mamba-2 SSD chunk

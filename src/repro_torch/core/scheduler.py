@@ -179,16 +179,6 @@ _POLICIES: dict[str, SchedulerPolicy] = {
 }
 POLICY_NAMES = list(_POLICIES)
 
-def not_ported(option: str, table: Mapping[str, str]):
-    """Raise for a reference option this port does not have yet; ``table``
-    maps each option to its ROADMAP item ("Open items" -> "Modules to
-    port")."""
-    raise NotImplementedError(
-        f"{option!r} is not ported to repro_torch yet: see ROADMAP.md, "
-        f"'Modules to port', {table[option]}"
-    )
-
-
 def make_policy(name: str, **overrides) -> SchedulerPolicy:
     """Look up one of the paper's five policies, optionally overridden
     (e.g. ``make_policy("LO-EDF", data_aware=True)`` for Fig. 7)."""

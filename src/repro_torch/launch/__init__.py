@@ -1,4 +1,6 @@
-"""Launch helpers of the port: the step factories (``launch.steps``).
-
-The reference's meshes, shardings, cost and memory models and launchers
-are ROADMAP item 13."""
+"""Launch tooling of the port: the step factories (``steps``), meshes
+(``mesh``), the specs of params, optimizer state, caches and inputs
+(``shardings``), the roofline terms (``hlo_analysis``) and the two
+command-line launchers, ``python -m repro_torch.launch.train`` and
+``python -m repro_torch.launch.serve``.  The reference's cost and memory
+models and its dry-run are not ported yet."""

@@ -25,7 +25,7 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.models.blocks import cache_spec
 
-__all__ = ["init_cache", "cache_bytes", "model_dtype", "position"]
+__all__ = ["init_cache", "abstract_cache", "cache_bytes", "model_dtype", "position"]
 
 
 def model_dtype(cfg) -> torch.dtype:
@@ -44,6 +44,16 @@ def init_cache(cfg, batch: int, max_len: int, start_pos: int = 0, device=None) -
         layers.append({name: torch.zeros(shape, dtype=dtype, device=dev)
                        for name, (shape, dtype) in tpl.items()})
     return {"layers": layers, "pos": position(start_pos, dev)}
+
+
+def abstract_cache(cfg, batch: int, max_len: int) -> dict:
+    """``init_cache``'s tree as ``meta`` tensors (shapes and dtypes)."""
+    layers = []
+    for i in range(cfg.num_layers):
+        tpl = cache_spec(cfg, cfg.layer_kind(i), batch, max_len)
+        layers.append({name: torch.empty(shape, dtype=dtype, device="meta")
+                       for name, (shape, dtype) in tpl.items()})
+    return {"layers": layers, "pos": torch.empty((), dtype=torch.int32, device="meta")}
 
 
 def position(pos: int, device) -> torch.Tensor:

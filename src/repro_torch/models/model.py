@@ -13,7 +13,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models import kvcache, transformer
-from repro_torch.models.spec import count_params, init_params
+from repro_torch.models.spec import abstract_params, count_params, init_params, logical_axes
 
 __all__ = ["LM"]
 
@@ -25,12 +25,23 @@ class LM:
 
     # ----------------------------------------------------------- params
 
-    def init(self, seed: int = 0, device=None) -> transformer.TransformerParams:
+    def init(self, seed: int = 0, device=None, *, shardings=None) -> transformer.TransformerParams:
         """Random weights by the reference's laws (``models.spec``), drawn
-        on ``device`` from per-path ``torch.Generator``s."""
+        on ``device`` from per-path ``torch.Generator``s; with ``shardings``
+        (``launch.shardings``' tree of ``NamedSharding``), this rank's shards
+        of them as DTensors, no leaf kept whole."""
         dev = resolve_device(device)
-        tree = init_params(self.spec, seed, kvcache.model_dtype(self.cfg), dev)
+        tree = init_params(self.spec, seed, kvcache.model_dtype(self.cfg), dev, shardings)
         return transformer.TransformerParams(self.cfg, tree)
+
+    def abstract_params(self):
+        """The weights' tree in the reference's stacked layout, as tensors on
+        the ``meta`` device (shapes and dtypes, no storage)."""
+        return abstract_params(self.spec, kvcache.model_dtype(self.cfg))
+
+    def param_axes(self):
+        """The logical axes of every weight, in the same tree."""
+        return logical_axes(self.spec)
 
     def num_params(self) -> int:
         return count_params(self.spec)
@@ -65,6 +76,10 @@ class LM:
 
     def init_cache(self, batch: int, max_len: int, start_pos: int = 0, device=None):
         return kvcache.init_cache(self.cfg, batch, max_len, start_pos, device=device)
+
+    def abstract_cache(self, batch: int, max_len: int):
+        """``init_cache``'s tree as ``meta`` tensors."""
+        return kvcache.abstract_cache(self.cfg, batch, max_len)
 
     # ----------------------------------------------------------- sampling
 

@@ -20,7 +20,9 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-__all__ = ["P", "init_params", "stack", "count_params"]
+from repro_torch.distributed.fsdp import shard_tensor
+
+__all__ = ["P", "init_params", "abstract_params", "logical_axes", "stack", "count_params"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,9 +80,34 @@ def _walk(tree, fn: Callable[[P, str], Any], path: str = ""):
     raise TypeError(f"unexpected spec node {type(tree)} at {path!r}")
 
 
-def init_params(spec, seed: int, dtype: torch.dtype, device: torch.device):
-    """Materialise a spec into a tree of tensors on ``device`` (seeded by path)."""
-    return _walk(spec, lambda p, path: _init_leaf(p, path, seed, dtype, device))
+def init_params(spec, seed: int, dtype: torch.dtype, device: torch.device, shardings=None):
+    """Materialise a spec into a tree of tensors on ``device`` (seeded by path).
+
+    With ``shardings`` (a tree of ``NamedSharding`` in the same layout),
+    each leaf is drawn whole and only this rank's shard of it kept
+    (``distributed.fsdp.shard_tensor``), one leaf at a time: the shards of
+    the unsharded init's weights, at the memory of the shards and one leaf.
+    """
+    if shardings is None:
+        return _walk(spec, lambda p, path: _init_leaf(p, path, seed, dtype, device))
+
+    def leaf(p, path):
+        sharding = shardings
+        for part in path.split("/")[1:]:
+            sharding = sharding[int(part) if isinstance(sharding, list) else part]
+        return shard_tensor(_init_leaf(p, path, seed, dtype, device), sharding)
+
+    return _walk(spec, leaf)
+
+
+def abstract_params(spec, dtype: torch.dtype):
+    """The spec's tree as ``meta`` tensors (shapes and dtypes, no storage)."""
+    return _walk(spec, lambda p, path: torch.empty(p.shape, dtype=dtype, device="meta"))
+
+
+def logical_axes(spec):
+    """The spec's tree of logical axes tuples."""
+    return _walk(spec, lambda p, path: tuple(p.axes))
 
 
 def stack(spec, n: int):

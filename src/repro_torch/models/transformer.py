@@ -28,6 +28,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed.fsdp import local_params, local_view
 from repro_torch.models import blocks
 from repro_torch.models.kvcache import model_dtype, position
 from repro_torch.models.layers import (
@@ -183,6 +184,7 @@ def _embed(params, cfg, tokens):
 
 def forward(params, tokens, cfg):
     """Causal LM forward.  tokens: (B, S) int -> logits (B, S, V)."""
+    params = local_params(params)
     x, _ = _blocks(params, tokens, cfg)
     return _logits(params, cfg, rmsnorm(params.final_norm, x))
 
@@ -194,6 +196,7 @@ def hidden_states(params, tokens, cfg):
     ``torch.utils.checkpoint``: its activations are recomputed in the
     backward, as the reference's ``jax.checkpoint`` recomputes its period
     body."""
+    params = local_params(params)
     x, aux = _blocks(params, tokens, cfg)
     aux = torch.as_tensor(aux, dtype=torch.float32, device=x.device)
     return rmsnorm(params.final_norm, x), aux
@@ -206,11 +209,18 @@ def _blocks(params, tokens, cfg):
     aux = 0.0
     for layer, kind in zip(params.layers, _kinds(cfg)):
         if remat:
-            x, a = checkpoint(blocks.block_full, layer, x, cfg, kind, use_reentrant=False)
+            x, a = checkpoint(_block_full, layer, x, cfg, kind, use_reentrant=False)
         else:
-            x, a = blocks.block_full(layer, x, cfg, kind)
+            x, a = _block_full(layer, x, cfg, kind)
         aux = aux + a
     return x, aux
+
+
+def _block_full(layer, x, cfg, kind):
+    """``blocks.block_full`` on one layer; sharded weights (``Trainer(
+    shardings=)``) are gathered whole here, inside the layer's checkpoint,
+    so that its backward gathers them again (``distributed.fsdp``)."""
+    return blocks.block_full(local_view(layer), x, cfg, kind)
 
 
 def _xent_chunk(xc, table, tc, mc, softcap_value: float):
@@ -245,7 +255,9 @@ def loss_fn(params, batch, cfg):
 
     batch: {"tokens": (B, S) int, optional "mask": (B, S)}.  Returns (loss,
     metrics) as the reference's: the loss plus 0.01 times the MoE
-    auxiliary term, and {"loss", "aux_loss", "tokens"}."""
+    auxiliary term, and {"loss", "aux_loss", "tokens"}.  Sharded weights
+    are gathered as ``distributed.fsdp`` says."""
+    params = local_params(params)
     tokens = batch["tokens"]
     x, aux = hidden_states(params, tokens[:, :-1], cfg)
     targets = tokens[:, 1:]

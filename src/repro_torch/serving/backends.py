@@ -35,8 +35,8 @@ Sizes are weight bytes at the declared dtype; swap cost is bytes over a
 a multiple), fuses a window's same-model batches (``run_batches``) and
 fits its latency model from its own warm runs (provenance
 ``"realized"``).  ``SimulatedBackend`` runs no model: its reports are
-the profiles' modelled seconds.  ``CostModelBackend`` is not ported yet
-(ROADMAP "Modules to port", item 13).
+the profiles' modelled seconds.  ``CostModelBackend`` runs no model
+either: its reports are ``serving.profiles``' roofline census.
 """
 from __future__ import annotations
 
@@ -52,19 +52,12 @@ import torch
 
 from repro_torch import kernels
 from repro_torch.core.accuracy import ModelProfile
-from repro_torch.core.scheduler import not_ported
 from repro_torch.device import resolve_device
 from repro_torch.models import LM, kvcache, transformer
 
 __all__ = ["ExecutionReport", "ExecutorBackend", "ProfiledBackend", "CompiledBackend",
            "SimulatedBackend", "CostModelBackend", "DecodeGraph", "weight_bytes",
-           "bucket_capacity", "CAPACITY_MULTIPLE", "NOT_PORTED"]
-
-# Backends of the reference this port does not have yet, with the ROADMAP
-# item ("Open items" -> "Modules to port") that brings each.
-NOT_PORTED: dict[str, str] = {
-    "CostModelBackend": "item 13 (launch tooling: the roofline cost model)",
-}
+           "bucket_capacity", "CAPACITY_MULTIPLE"]
 
 _STAGING_BW = 25e9  # host->device weight staging bandwidth (B/s)
 # Decode caches are sized to a multiple of this many positions, so batches
@@ -803,11 +796,110 @@ class SimulatedBackend(ExecutorBackend):
 
 
 class CostModelBackend(ExecutorBackend):
-    """Latencies from the roofline cost model: not ported yet; it needs
-    the launch tooling's cost model (ROADMAP item 13), so making one
-    raises ``NotImplementedError``."""
+    """Latency from the roofline cost model — no device execution.
+
+    Every estimate flows through ``serving.profiles``: dry-run roofline
+    records when ``results_dir`` has them, cost-model totals when passed
+    via ``costs=``, and the analytic roofline census
+    (``launch.hlo_analysis.HW``, one H100, and ``models.kvcache.
+    cache_bytes`` for decode cache reads) otherwise.  ``run_batch``
+    returns a synthetic ``ExecutionReport`` whose timing fields carry the
+    MODELLED seconds (split prefill/decode by the census's proportions)
+    with no generated tokens — this backend drives schedulers and
+    capacity planning for variants too large to execute.  Provenance
+    ``"costmodel"``.  ``n_devices`` defaults to the one card the port
+    serves on (the reference's to 16).
+
+    ``variants`` accepts the executor convention ``{name: (cfg, seed)}``
+    or bare configs / registry arch names.
+    """
 
     provenance = "costmodel"
 
-    def __init__(self, *args, **kwargs):
-        not_ported("CostModelBackend", NOT_PORTED)
+    def __init__(self, variants: Mapping, prompt_tokens: int = 512,
+                 new_tokens: int = 64, results_dir=None, mesh: str = "pod",
+                 n_devices: int = 1, costs: Mapping[str, Mapping] | None = None,
+                 batch_hint: int = 8):
+        from repro_torch.configs import get_config
+
+        norm = {}
+        for name, v in dict(variants).items():
+            if isinstance(v, tuple):
+                norm[name] = v
+            elif isinstance(v, str):
+                norm[name] = (get_config(v), 0)
+            else:
+                norm[name] = (v, 0)
+        super().__init__(norm, new_tokens)
+        self.prompt_tokens = int(prompt_tokens)
+        self.results_dir = results_dir
+        self.mesh = mesh
+        self.n_devices = int(n_devices)
+        self.costs = dict(costs) if costs else {}
+        self.batch_hint = int(batch_hint)
+        self._affine_cache: dict[str, tuple[float, float]] = {}
+
+    def spawn(self) -> "CostModelBackend":
+        """Fresh lane instance sharing the cost-model parameters."""
+        return CostModelBackend(
+            self.variants, prompt_tokens=self.prompt_tokens,
+            new_tokens=self.new_tokens, results_dir=self.results_dir,
+            mesh=self.mesh, n_devices=self.n_devices, costs=self.costs,
+            batch_hint=self.batch_hint,
+        )
+
+    def affine(self, model_name: str) -> tuple[float, float]:
+        """(fixed_s, per_item_s) from the roofline cost model (cached)."""
+        if model_name not in self._affine_cache:
+            from repro_torch.serving.profiles import costmodel_latency_model
+
+            cfg, _ = self.variants[model_name]
+            self._affine_cache[model_name] = costmodel_latency_model(
+                cfg, prompt_tokens=self.prompt_tokens,
+                new_tokens=self.new_tokens, results_dir=self.results_dir,
+                mesh=self.mesh, n_devices=self.n_devices,
+                costs=self.costs.get(model_name),
+            )
+        return self._affine_cache[model_name]
+
+    def run_batch(self, model_name: str, prompts: np.ndarray, request_ids: list,
+                  class_token_ids: Optional[np.ndarray] = None) -> ExecutionReport:
+        """Synthetic report: modelled seconds (census prefill/decode
+        split), zero generated tokens, no predictions."""
+        from repro_torch.serving.profiles import costmodel_terms
+
+        b = prompts.shape[0]
+        fixed, per_item = self.affine(model_name)
+        total = fixed + per_item * b
+        cfg, _ = self.variants[model_name]
+        terms = costmodel_terms(cfg, prompt_tokens=self.prompt_tokens,
+                                new_tokens=self.new_tokens,
+                                n_devices=self.n_devices)
+        census_prefill = terms["prefill_fixed_s"] + terms["prefill_item_s"] * b
+        census_total = census_prefill + terms["decode_fixed_s"] + terms["decode_item_s"] * b
+        pf = census_prefill / census_total if census_total > 0 else 0.0
+        return ExecutionReport(
+            request_ids=request_ids, model=model_name, batch_size=b,
+            swap_s=0.0, prefill_s=total * pf, decode_s=total * (1.0 - pf),
+            tokens=np.zeros((b, 0), np.int32),
+            predictions=[None] * b,
+        )
+
+    def model_bytes(self, model_name: str, batch: int | None = None,
+                    max_len: int | None = None) -> int:
+        """Weights plus the KV cache at the modelled serving shape."""
+        cfg, _ = self.variants[model_name]
+        b = batch if batch is not None else self.batch_hint
+        if max_len is None:
+            max_len = self.prompt_tokens + self.new_tokens
+        return weight_bytes(cfg) + kvcache.cache_bytes(cfg, b, max_len)
+
+    def swap_cost(self, model_name: str) -> float:
+        """Per-device weight shards stage in parallel, at the rate
+        ``lm_profile`` charges."""
+        cfg, _ = self.variants[model_name]
+        return weight_bytes(cfg) / _STAGING_BW / self.n_devices
+
+    def profiles(self, recalls: Mapping[str, Sequence[float]]) -> dict[str, ModelProfile]:
+        """Mint one costmodel-provenance ``ModelProfile`` per variant."""
+        return {name: self.profile(name, rec) for name, rec in recalls.items()}

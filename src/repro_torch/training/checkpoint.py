@@ -15,8 +15,16 @@ integer view and its logical dtype named in the manifest, as the
 reference stores it; the views are taken with torch, without
 ``ml_dtypes``.  So a checkpoint written by either package restores in
 the other.  Leaves may be tensors (on any device), numpy arrays or
-Python scalars; ``restore`` returns tensors on ``device``.  Restoring
-onto shardings is the port's distribution, ROADMAP item 13.
+Python scalars; ``restore`` returns tensors on ``device``.
+
+Sharded state (DTensor leaves, ``Trainer(shardings=)``) is saved whole:
+each leaf in turn, the ranks send their shards to rank 0, which puts the
+full array together on its host (``distributed.fsdp.full_on_rank0``) and
+writes the files; the ranks meet at a barrier before ``save`` returns.
+``restore(shardings=)`` reads each full array on the host and copies only
+this rank's shard of it to ``device`` (a DTensor), a leaf at a time, so
+no card holds a whole leaf.  So a checkpoint written on N ranks restores
+on one, and in the reference, and the other way round.
 """
 from __future__ import annotations
 
@@ -28,14 +36,13 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed.fsdp import full_on_rank0, shard_tensor
 
-__all__ = ["save", "restore", "latest_step", "list_steps", "DISTRIBUTION_ITEM"]
-
-# The ROADMAP label under which the training modules refuse shardings and
-# named-axis collectives.
-DISTRIBUTION_ITEM = "item 13 (launch tooling and distribution)"
+__all__ = ["save", "restore", "latest_step", "list_steps"]
 
 # Logical dtype -> (stored numpy view, a numpy and a torch type of the same
 # width that both packages hold, the torch dtype).
@@ -124,18 +131,32 @@ def _digest(a: np.ndarray) -> str:
 
 
 def save(directory, step: int, state, metadata: dict | None = None, keep: int = 3) -> Path:
-    """Atomically write ``state`` (any tree of tensors, arrays or scalars)."""
+    """Atomically write ``state`` (any tree of tensors, arrays or scalars);
+    with DTensor leaves, on every rank (rank 0 writes)."""
     directory = Path(directory)
-    directory.mkdir(parents=True, exist_ok=True)
     final = directory / f"step_{step:08d}"
+    flat = _flatten(state)
+    sharded = any(isinstance(v, DTensor) for v in flat.values())
+    writer = not sharded or dist.get_rank() == 0
+    arrays, dtypes = {}, {}
+    for k, v in flat.items():  # the same order on every rank
+        if isinstance(v, DTensor):
+            v = full_on_rank0(v)
+        if writer:
+            arrays[k], dtypes[k] = _to_savable(v)
+    if writer:
+        _write(directory, final, step, state, arrays, dtypes, metadata, keep)
+    if sharded:
+        dist.barrier()
+    return final
+
+
+def _write(directory, final, step, state, arrays, dtypes, metadata, keep) -> None:
+    directory.mkdir(parents=True, exist_ok=True)
     tmp = directory / f"step_{step:08d}.tmp"
     if tmp.exists():
         shutil.rmtree(tmp)
     tmp.mkdir(parents=True)
-
-    arrays, dtypes = {}, {}
-    for k, v in _flatten(state).items():
-        arrays[k], dtypes[k] = _to_savable(v)
     np.savez(tmp / "arrays.npz", **arrays)
     manifest = {
         "step": step,
@@ -156,7 +177,6 @@ def save(directory, step: int, state, metadata: dict | None = None, keep: int = 
 
     for s in list_steps(directory)[:-keep]:  # retention
         shutil.rmtree(directory / f"step_{s:08d}", ignore_errors=True)
-    return final
 
 
 def list_steps(directory) -> list[int]:
@@ -186,11 +206,10 @@ def latest_step(directory) -> int | None:
 def restore(directory, step: int | None = None, shardings=None, verify: bool = True, *,
             device=None):
     """Load a checkpoint; returns (state with tensor leaves on ``device``,
-    metadata).  Every leaf's digest is checked unless ``verify`` is off."""
-    if shardings is not None:
-        raise NotImplementedError(
-            "restoring onto shardings is not ported to repro_torch yet: see ROADMAP.md, "
-            f"'Modules to port', {DISTRIBUTION_ITEM}")
+    metadata).  Every leaf's digest is checked unless ``verify`` is off.
+    ``shardings``: a tree of ``NamedSharding``/None matching the state (or
+    None for a whole subtree); each leaf it names becomes this rank's
+    shard (elastic reshard), cut on the host."""
     dev = resolve_device(device)
     directory = Path(directory)
     if step is None:
@@ -199,11 +218,16 @@ def restore(directory, step: int | None = None, shardings=None, verify: bool = T
             raise FileNotFoundError(f"no checkpoints in {directory}")
     path = directory / f"step_{step:08d}"
     manifest = json.loads((path / "manifest.json").read_text())
+    cuts = _flatten(shardings)
     flat = {}
     with np.load(path / "arrays.npz") as npz:
         for k in npz.files:
             a = npz[k]
             if verify and _digest(a) != manifest["digests"][k]:
                 raise IOError(f"checksum mismatch for {k!r} in {path}")
-            flat[k] = _from_savable(a, manifest["dtypes"][k], dev)
+            if k in cuts:
+                flat[k] = shard_tensor(_from_savable(a, manifest["dtypes"][k], "cpu"), cuts[k],
+                                       dev)
+            else:
+                flat[k] = _from_savable(a, manifest["dtypes"][k], dev)
     return _rebuild(manifest["structure"], flat), manifest["metadata"]

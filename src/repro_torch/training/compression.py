@@ -4,19 +4,20 @@ counterpart of ``repro.training.compression``.
     e    <- residual carried from the previous step
     q    <- quant8(g + e)            (per-row absmax scales)
     e'   <- (g + e) - dequant(q)     (local quantization error, kept)
-    g_out = dequant(q)
+    g_out = psum(dequant(q)) / n     (exchange int8 payload + fp32 scales)
 
-``compressed_psum_tree`` is the local round (``axis_name=None``, one
-participant): the reference's unit of the error-feedback contraction.
-Its all-reduce across a named axis belongs with the port's distribution,
-ROADMAP item 13, and raises until then.
+``compressed_psum_tree`` with ``axis_name`` all-reduces each dequantized
+payload over the process group of that dim of the ``DeviceMesh`` given as
+``mesh=`` and divides by the group's size, as the reference's two
+``psum``s under ``shard_map`` do; without, it is the local round (one
+participant), the reference's unit of the error-feedback contraction.
 """
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
-from repro_torch.training.checkpoint import DISTRIBUTION_ITEM
-from repro_torch.training.optimizer import tree_map, tree_map_n
+from repro_torch.trees import tree_map, tree_map_n
 
 __all__ = ["quantize8", "dequantize8", "compressed_psum_tree", "init_error_feedback"]
 
@@ -39,17 +40,25 @@ def init_error_feedback(grads):
     return tree_map(lambda g: torch.zeros(g.shape, dtype=torch.float32, device=g.device), grads)
 
 
-def compressed_psum_tree(grads, error_feedback, axis_name: str | None = None):
-    """Returns (grads after one quantize/dequantize round, new error
-    feedback).  A named axis (the cross-device all-reduce) raises."""
+def compressed_psum_tree(grads, error_feedback, axis_name: str | None = None, *, mesh=None):
+    """Returns (mean grads, new error feedback).  With ``axis_name``, the
+    int8 payloads times their scales are summed over the ranks of that
+    mesh dim and divided by their number; without, a local round."""
+    group, n = None, 1
     if axis_name is not None:
-        raise NotImplementedError(
-            f"compressed_psum_tree over axis {axis_name!r} is not ported to repro_torch yet: "
-            f"see ROADMAP.md, 'Modules to port', {DISTRIBUTION_ITEM}")
+        if mesh is None:
+            raise ValueError(f"axis {axis_name!r} needs the DeviceMesh it names (mesh=)")
+        group = mesh.get_group(axis_name)
+        n = dist.get_world_size(group)
 
     def one(g, e):
         gf = g.float() + e
         deq = dequantize8(*quantize8(gf))
-        return deq, gf - deq
+        new_e = gf - deq
+        if group is None:
+            return deq, new_e
+        total = deq.clone()
+        dist.all_reduce(total, group=group)
+        return total / n, new_e
 
     return tree_map_n(one, 2, grads, error_feedback)

@@ -24,6 +24,8 @@ from typing import Any
 
 import torch
 
+from repro_torch.trees import tree_leaves, tree_map, tree_map_n
+
 __all__ = ["OptimizerConfig", "init_opt_state", "adamw_step", "learning_rate", "tree_map",
            "tree_map_n", "tree_leaves"]
 
@@ -57,51 +59,6 @@ def learning_rate(cfg: OptimizerConfig, step) -> torch.Tensor:
     cos = 0.5 * (1.0 + torch.cos(_f32(math.pi) * t))
     decay = cfg.min_lr_ratio + (1.0 - cfg.min_lr_ratio) * cos
     return cfg.learning_rate * warm * decay
-
-
-# ------------------------------------------------------------------ trees
-
-
-def tree_map(fn, tree, *rest):
-    """``fn`` over the leaves of ``tree`` (dicts, lists and tuples of
-    tensors), with the matching subtrees of ``rest`` (which may hold more
-    structure below a leaf of ``tree``, as quantized moments do)."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        out = [tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree)]
-        return out if isinstance(tree, list) else tuple(out)
-    return fn(tree, *rest)
-
-
-class _Results(tuple):
-    """The values ``tree_map_n``'s function returned for one leaf."""
-
-
-def _pick(tree, i):
-    if isinstance(tree, _Results):
-        return tree[i]
-    if isinstance(tree, dict):
-        return {k: _pick(v, i) for k, v in tree.items()}
-    out = [_pick(v, i) for v in tree]
-    return out if isinstance(tree, list) else tuple(out)
-
-
-def tree_map_n(fn, n: int, tree, *rest) -> tuple:
-    """``tree_map`` for a function that returns ``n`` values per leaf: ``n``
-    trees of ``tree``'s structure."""
-    out = tree_map(lambda *leaves: _Results(fn(*leaves)), tree, *rest)
-    return tuple(_pick(out, i) for i in range(n))
-
-
-def tree_leaves(tree) -> list:
-    if tree is None:
-        return []
-    if isinstance(tree, dict):
-        return [x for v in tree.values() for x in tree_leaves(v)]
-    if isinstance(tree, (list, tuple)):
-        return [x for v in tree for x in tree_leaves(v)]
-    return [tree]
 
 
 # ----------------------------------------------------------- int8 moments

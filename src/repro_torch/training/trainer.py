@@ -18,7 +18,25 @@ The weights are a ``TransformerParams`` on ``device`` (the card unless
 the checkpoints hold ``{"params", "opt"}`` in the reference's stacked
 layout, so either package resumes the other's.  ``donate`` is accepted
 for the reference's signature: the port always updates in place.
-Shardings are the port's distribution, ROADMAP item 13.
+
+``shardings`` = (param shardings, opt-state shardings), trees of
+``distributed.sharding.NamedSharding`` over a ``DeviceMesh`` that spans
+the world (``distributed.sharding.named_sharding_tree``): the weights and
+AdamW's state are DTensors on them and each step is ``launch.steps.
+make_sharded_train_step`` (ZeRO-3, ``distributed.fsdp``) under the mesh's
+train policy (``make_policy(cfg, "train", mesh)``).  Every rank draws the
+weights from the seed a leaf at a time and keeps its shards; checkpoints
+hold the full arrays (rank 0 writes, every rank restores its shards).
+
+With more than one rank, the ranks agree before each step, in one
+all-reduce, on preemption and on a fault from ``fault_hook`` on any rank,
+so all of them save and stop, or restore and retry, together.  A
+non-finite loss and the step timeout are read from the world's loss and
+slowest step, the same on every rank.  Any other failure inside a
+sharded step is raised: its peers may wait in one of the step's
+collectives, where no agreement can reach them, so the process ends and
+the launcher (``launch.train``) starts every rank again from the last
+checkpoint.
 """
 from __future__ import annotations
 
@@ -29,12 +47,14 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed import fsdp
 from repro_torch.models.transformer import TransformerParams
 from repro_torch.training import checkpoint as ckpt
-from repro_torch.training.checkpoint import DISTRIBUTION_ITEM
 from repro_torch.training.optimizer import OptimizerConfig, init_opt_state
+from repro_torch.trees import tree_map
 
 __all__ = ["TrainerConfig", "Trainer"]
 
@@ -64,10 +84,6 @@ class Trainer:
         *,
         device=None,
     ):
-        if shardings is not None:
-            raise NotImplementedError(
-                "Trainer(shardings=...) is not ported to repro_torch yet: see ROADMAP.md, "
-                f"'Modules to port', {DISTRIBUTION_ITEM}")
         self.model = model
         self.dataset = dataset
         self.opt_cfg = opt_cfg or OptimizerConfig()
@@ -80,16 +96,33 @@ class Trainer:
         self.restarts = 0
         self.metrics_log: list[dict] = []
 
-        from repro_torch.launch.steps import make_train_step  # lazy: avoids import cycle
+        self.shardings = shardings
+        # lazy: avoids an import cycle
+        from repro_torch.launch.steps import make_sharded_train_step, make_train_step
 
-        self._step = make_train_step(model, self.opt_cfg)
+        if shardings is None:
+            self._step = make_train_step(model, self.opt_cfg)
+        else:
+            from repro_torch.distributed.policies import make_policy
+
+            policy = make_policy(model.cfg, "train", fsdp.first_mesh(shardings[0]))
+            self._step = make_sharded_train_step(model, self.opt_cfg, shardings, policy)
+        # ranks that must agree on faults and preemption
+        self._peers = shardings is not None and dist.get_world_size() > 1
 
     # ------------------------------------------------------------ state
 
     def init_state(self, seed: int = 0):
-        params = self.model.init(seed, device=self.device)
-        opt_state = init_opt_state(params.to_tree(), self.opt_cfg)
-        return params, opt_state
+        if self.shardings is None:
+            params = self.model.init(seed, device=self.device)
+            return params, init_opt_state(params.to_tree(), self.opt_cfg)
+        p_sh, o_sh = self.shardings
+        params = self.model.init(seed, device=self.device, shardings=p_sh)
+        # The state of the local shards is the shards of the state: the
+        # moments start at zero and the master copy is the weights'.
+        opt = init_opt_state(tree_map(lambda x: x.to_local(), params.to_tree()), self.opt_cfg)
+        return params, {**opt, **{k: fsdp.from_local_tree(opt[k], o_sh[k])
+                                  for k in ("master", "m", "v")}}
 
     def _save(self, step, params, opt_state):
         ckpt.save(
@@ -104,7 +137,12 @@ class Trainer:
         step = ckpt.latest_step(self.cfg.checkpoint_dir)
         if step is None:
             return None
-        state, _ = ckpt.restore(self.cfg.checkpoint_dir, step, device=self.device)
+        shardings = None
+        if self.shardings is not None:
+            p_sh, o_sh = self.shardings
+            shardings = {"params": p_sh, "opt": {**o_sh, "step": None}}
+        state, _ = ckpt.restore(self.cfg.checkpoint_dir, step, shardings=shardings,
+                                device=self.device)
         params = TransformerParams(self.model.cfg, state["params"])
         opt = state["opt"]
         opt["step"] = opt["step"].cpu()  # the step count lives on the host
@@ -120,6 +158,32 @@ class Trainer:
             signal.signal(signal.SIGTERM, handler)
         except ValueError:
             pass  # not on main thread (tests)
+
+    def _on_any_rank(self, *flags: bool) -> list[bool]:
+        """Each flag as on this rank, or, with peers, on any rank of the world."""
+        if not self._peers:
+            return list(flags)
+        t = torch.tensor([float(f) for f in flags], device=self.device)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX)
+        return [bool(x) for x in t.tolist()]
+
+    def _fault(self, step: int) -> Exception | None:
+        """The exception ``fault_hook`` raised at ``step``, or None."""
+        if self.fault_hook is None:
+            return None
+        try:
+            self.fault_hook(step)
+        except Exception as e:  # noqa: BLE001 — any fault takes the restart path
+            return e
+        return None
+
+    def _slowest(self, dt: float) -> float:
+        """``dt``, or, with peers, the largest step time of the world's ranks."""
+        if not self._peers:
+            return dt
+        t = torch.tensor([dt], dtype=torch.float64, device=self.device)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX)
+        return float(t.item())
 
     # ------------------------------------------------------------ loop
 
@@ -143,22 +207,32 @@ class Trainer:
 
         step = start_step
         while step < self.cfg.total_steps:
-            if self._preempted:
+            t0 = time.perf_counter()
+            preempted = self._preempted
+            fault = None if preempted and not self._peers else self._fault(step)
+            preempted, failed = self._on_any_rank(preempted, fault is not None)
+            if preempted:
+                self._preempted = True
                 self._save(step - 1, params, opt_state)
                 break
-            t0 = time.perf_counter()
+            stepped = False
             try:
-                if self.fault_hook is not None:
-                    self.fault_hook(step)
+                if failed:
+                    raise fault or RuntimeError(f"a fault on another rank at step {step}")
                 params, opt_state, metrics = self._step(params, opt_state, self._batch(step))
+                stepped = True
                 loss = float(metrics["loss"])
                 if not np.isfinite(loss):
                     raise FloatingPointError(f"non-finite loss at step {step}: {loss}")
-                dt = time.perf_counter() - t0
+                dt = self._slowest(time.perf_counter() - t0)
                 if self.cfg.step_timeout_s and dt > self.cfg.step_timeout_s:
                     raise TimeoutError(
                         f"step {step} exceeded {self.cfg.step_timeout_s}s ({dt:.1f}s)")
             except Exception as e:  # noqa: BLE001 — the restart path IS the feature
+                if self._peers and not failed and not stepped:
+                    # This rank alone failed inside the step: its peers may
+                    # wait in one of the step's collectives, beyond reach.
+                    raise
                 self.restarts += 1
                 if self.restarts > self.cfg.max_restarts:
                     raise RuntimeError(f"exceeded max_restarts={self.cfg.max_restarts}") from e

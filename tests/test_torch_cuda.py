@@ -24,7 +24,10 @@ scan's warp instance on the shapes that take it; the RG-LRU scan and its
 backward against their plain loops, and the RG-LRU block's gradient card
 against host; K3b at head dim 256; the decode step of recurrentgemma-9b
 and llama4-scout (the S = 1 scan, the routed MoE at batch 2) graphed and
-under ``set_sync_debug_mode("error")``.
+under ``set_sync_debug_mode("error")``.  Last, ZeRO-3 training
+(``Trainer(shardings=)``'s step) on a one-rank NCCL mesh against the
+unsharded step, and the train launcher across every card of the host
+against one card (two cards or more; skips on one).
 """
 import threading
 
@@ -2142,3 +2145,106 @@ def test_kernels_without_a_backward_refuse_gradients(cuda):
     acc = torch.rand((8, 3), device=cuda, dtype=torch.float32, requires_grad=True)
     with pytest.raises(RuntimeError, match="Port rules', Gradients"):
         util_ops.utility_scores(acc, torch.ones(8, device=cuda), torch.ones(3, device=cuda))
+
+
+# The sharded steps against the unsharded ones, as tests/test_torch_launch.py
+# holds them on gloo ranks.
+SHARDED_TOL = 1e-4
+
+
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "mamba2-130m"])
+def test_sharded_step_on_one_card_matches_unsharded(cuda, arch, tmp_path):
+    """``data,model=1,1``: a real NCCL group of one rank and the DTensor
+    route (per-layer gathers, ``Partial`` gradients, AdamW on DTensors)
+    through K3/K3b or K5/K5b, three steps of a reduced float32 model
+    against ``make_train_step`` from the same weights: losses and weights
+    within 1e-4, the kernels launched as often."""
+    import torch.distributed as dist
+
+    from repro_torch import kernels
+    from repro_torch.configs import ARCHS
+    from repro_torch.data import LMDataConfig, LMDataset
+    from repro_torch.distributed import fsdp
+    from repro_torch.distributed.policies import make_policy
+    from repro_torch.distributed.sharding import named_sharding_tree
+    from repro_torch.launch import shardings as shd
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import make_sharded_train_step, make_train_step
+    from repro_torch.models import LM
+    from repro_torch.models.transformer import TransformerParams
+    from repro_torch.training import OptimizerConfig, init_opt_state
+    from repro_torch.training.optimizer import tree_leaves
+
+    cfg = ARCHS[arch].reduced()
+    lm = LM(cfg)
+    data = LMDataset(LMDataConfig(vocab_size=cfg.vocab_size, seq_len=64, global_batch=4))
+    opt = OptimizerConfig(learning_rate=1e-3, warmup_steps=1)
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        policy = make_policy(cfg, "train", mesh)
+        p_sh = named_sharding_tree(shd.param_pspecs(lm, policy, mesh), mesh)
+        o_sh = named_sharding_tree(shd.opt_state_pspecs(lm, policy, mesh, opt), mesh)
+        runs = {}
+        for label in ("unsharded", "sharded"):
+            params = lm.init(0, device=cuda)
+            state = init_opt_state(params.to_tree(), opt)
+            if label == "sharded":
+                params = TransformerParams(cfg, fsdp.shard_tree(params.to_tree(), p_sh))
+                state = {**state, **{k: fsdp.shard_tree(state[k], o_sh[k])
+                                     for k in ("master", "m", "v")}}
+                step = make_sharded_train_step(lm, opt, (p_sh, o_sh), policy)
+                assert isinstance(params.layers[0].pre_norm.scale, fsdp.DTensor)
+            else:
+                step = make_train_step(lm, opt)
+            kernels.reset_launch_counts()
+            losses = []
+            for i in range(3):
+                batch = {k: torch.as_tensor(v, device=cuda) for k, v in data.batch_at(i).items()}
+                params, state, metrics = step(params, state, batch)
+                losses.append(float(metrics["loss"]))
+            torch.cuda.synchronize()
+            leaves = [t.full_tensor() if isinstance(t, fsdp.DTensor) else t
+                      for t in tree_leaves(params.to_tree())]
+            runs[label] = (losses, leaves, kernels.launch_counts())
+    finally:
+        dist.destroy_process_group()
+    (l0, w0, n0), (l1, w1, n1) = runs["unsharded"], runs["sharded"]
+    np.testing.assert_allclose(l1, l0, atol=SHARDED_TOL, rtol=0)
+    for a, b in zip(w1, w0):
+        torch.testing.assert_close(a, b, atol=SHARDED_TOL, rtol=0)
+    assert n1 == n0 and any(n0.values())
+
+
+def test_sharded_training_across_cards_matches_one_card(cuda, tmp_path):
+    """The train launcher with one rank per card (``--devices N --mesh
+    data,model=N,1``, NCCL) against the same run on a one-rank mesh:
+    reduced tinyllama-1.1b (float32, K3 and K3b), 6 steps, every loss
+    within 1e-4, and a rank's weights and AdamW state on its card about
+    1/N of the one card's.  Needs two cards or more."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two CUDA cards or more: one rank per card")
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    losses, state = {}, {}
+    for ranks in (1, n):
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", "--arch", "tinyllama-1.1b",
+             "--reduced", "--steps", "6", "--batch", str(4 * n), "--seq", "64",
+             "--devices", str(ranks), "--mesh", f"data,model={ranks},1",
+             "--ckpt-dir", str(tmp_path / f"ranks-{ranks}")],
+            env=env, capture_output=True, text=True, timeout=600)
+        assert proc.returncode == 0, proc.stderr[-3000:]
+        assert f"devices={ranks}" in proc.stdout
+        summary = json.loads(proc.stdout.splitlines()[-1].removeprefix("summary "))
+        losses[ranks], state[ranks] = summary["losses"], summary["state_bytes"]
+    np.testing.assert_allclose(losses[n], losses[1], atol=SHARDED_TOL, rtol=0)
+    assert state[n] * n <= state[1] * 1.05  # a few small leaves stay whole on every card

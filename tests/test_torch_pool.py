@@ -728,8 +728,14 @@ def test_workers_with_compiled_options_still_raise(suites, option, value):
 
 
 def test_cost_model_backend_still_raises():
-    with pytest.raises(NotImplementedError, match="item 13"):
-        CostModelBackend({"m": "mamba2-130m"})
+    """``CostModelBackend`` is ported (held against the reference's in
+    tests/test_torch_launch.py): it builds, models a batch without running
+    one and spawns lanes; an unknown arch name still raises."""
+    backend = CostModelBackend({"m": "mamba2-130m"})
+    report = backend.spawn().run_batch("m", np.zeros((2, 5), np.int32), [0, 1])
+    assert report.batch_size == 2 and report.prefill_s > 0 and report.decode_s > 0
+    with pytest.raises(KeyError):
+        CostModelBackend({"m": "no-such-arch"})
 
 
 def test_pool_rejects_unknown_lanes_and_misplaced_pools():
