@@ -89,7 +89,15 @@ times both, then drives the paths of the port on the card:
   ``Trainer`` on the same seed and steps (tokens/s, peak memory, losses
   within 1e-4); ``python -m repro_torch.launch.serve`` (K1-K4 launched,
   K5 by the train launcher); ``EdgeServer`` over ``CostModelBackend``
-  lanes on two workers, card against host.
+  lanes on two workers, card against host;
+* the dry run (phase 18): in a child process, ``launch.dryrun`` on
+  mamba2-130m ``train_4k``, tinyllama-1.1b ``decode_32k`` and gemma-7b
+  ``prefill_32k`` over a fake (16, 16) world, each record ``ok``; then its
+  predictions for a one-rank mesh against the real steps on this card:
+  mamba2-130m's ZeRO-3 train step (B=8 S=1024) and tinyllama-1.1b's
+  sharded bf16 prefill (B=8 S=1024), the predicted peaks within 10 % of
+  ``torch.cuda.max_memory_allocated``, the fake launches equal to the
+  real ones, the roofline's ``t_max`` beside the measured seconds.
 
 Every check raises on failure.  The last three lines of standard output
 are the card's name and power limit, the kernel table and
@@ -3854,6 +3862,240 @@ def serve_costmodel_pool(args, sneak):
     return {"decisions": len(views["cuda"]["decisions"]), **views["cuda"]["stats"]}
 
 
+# ---------------------------------------------------------------- phase 18: the dry run
+
+# Phase 18 (a): three production cells of the dry run on the (16, 16) pod,
+# in a child process (a fake world of 256 ranks, fake tensors).
+DRYRUN_CELLS = (("mamba2-130m", "train_4k"), ("tinyllama-1.1b", "decode_32k"),
+                ("gemma-7b", "prefill_32k"))
+# Phase 18 (b) and (c): the dry run's prediction for a one-rank mesh at
+# phase 17 (a)'s cell (the ZeRO-3 train step) and at tinyllama-1.1b's
+# prefill (the tensor-parallel prefill step), against the real steps on
+# the card: the peaks within PREDICT_TOL of torch.cuda.max_memory_allocated.
+PREDICT = {"train": ("mamba2-130m", "train", 8, 1024),
+           "prefill": ("tinyllama-1.1b", "prefill", 8, 1024)}
+PREDICT_TOL = 0.10
+# The sharded prefill's logits against the unsharded prefill's on the same
+# weights (one rank: the same kernels on the same tensors).
+PREFILL_LOGITS_TOL = 1e-3
+
+_DRYRUN_CHILD = """
+import json, sys, tempfile
+from repro_torch.configs import get_config
+from repro_torch.configs.shapes import ShapeSpec
+from repro_torch.launch.dryrun import dry_run, run_cell
+job = json.loads(sys.argv[1])
+out = {"cells": [], "predictions": {}}
+with tempfile.TemporaryDirectory() as d:
+    for arch, shape in job["cells"]:
+        rec = run_cell(arch, shape, "pod", force=True, out_dir=d)
+        out["cells"].append({k: rec.get(k) for k in (
+            "arch", "shape", "status", "error", "total_s", "compile_s", "hbm_per_device_bytes",
+            "roofline", "launches", "collectives", "cost_analysis", "model_flops_per_device")})
+for name, (arch, step, b, s) in job["predict"].items():
+    rec = dry_run(get_config(arch), ShapeSpec(name, s, b, step), {"data": 1, "model": 1})
+    out["predictions"][name] = {k: rec[k] for k in (
+        "hbm_per_device_bytes", "memory_analysis", "launches", "roofline", "cost_analysis")}
+print("RESULT " + json.dumps(out))
+"""
+
+
+def run_dryrun_child() -> tuple[dict, float]:
+    """Phase 18 (a) and the predictions of (b) and (c), in one child
+    process from the checkout (the dry run starts a process group of its
+    own, which this process must not hold)."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    job = {"cells": DRYRUN_CELLS, "predict": PREDICT}
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", _DRYRUN_CHILD, json.dumps(job)], cwd=ROOT,
+                          env=env, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    require(proc.returncode == 0, f"the dry run exited {proc.returncode}: {proc.stderr[-3000:]}")
+    line = [x for x in proc.stdout.splitlines() if x.startswith("RESULT ")][-1]
+    return json.loads(line.removeprefix("RESULT ")), wall
+
+
+@contextlib.contextmanager
+def one_rank_group():
+    """A one-rank NCCL process group on this card, and its (1, 1) mesh."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+
+    with tempfile.TemporaryDirectory() as d:
+        dist.init_process_group("nccl", store=dist.FileStore(str(Path(d) / "store"), 1),
+                                rank=0, world_size=1)
+        try:
+            yield make_mesh((1, 1), ("data", "model"), device="cuda")
+        finally:
+            dist.destroy_process_group()
+
+
+def measure_sharded_train(mesh, seed: int) -> dict:
+    """Phase 18 (b): the ZeRO-3 train step (``make_sharded_train_step``) at
+    phase 17 (a)'s cell on the one-rank mesh, its state built as
+    ``Trainer(shardings=)`` builds it: the peak above what the process held
+    before the state (the state included), the launches of one step and
+    the median of four steps' seconds."""
+    import statistics
+
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.configs import ARCHS
+    from repro_torch.data import LMDataConfig, LMDataset
+    from repro_torch.distributed.policies import make_policy
+    from repro_torch.distributed.sharding import named_sharding_tree
+    from repro_torch.launch import shardings as shd
+    from repro_torch.launch.steps import make_sharded_train_step
+    from repro_torch.models import LM
+    from repro_torch.training.optimizer import OptimizerConfig
+    from repro_torch.training.trainer import sharded_opt_state
+
+    arch, _, b, s = PREDICT["train"]
+    cfg = ARCHS[arch]
+    model, opt_cfg = LM(cfg), OptimizerConfig(quantize_moments=cfg.param_count() > 100e9)
+    policy = make_policy(cfg, "train", mesh)
+    p_sh = named_sharding_tree(shd.param_pspecs(model, policy, mesh), mesh)
+    o_sh = named_sharding_tree(shd.opt_state_pspecs(model, policy, mesh, opt_cfg), mesh)
+    data = LMDataset(LMDataConfig(vocab_size=cfg.vocab_size, seq_len=s, global_batch=b,
+                                  kind="markov"))
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    params = model.init(seed, device="cuda", shardings=p_sh)
+    opt = sharded_opt_state(model, params, o_sh, opt_cfg, "cuda")
+    step = make_sharded_train_step(model, opt_cfg, (p_sh, o_sh), policy)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, losses, launches = [], [], None
+    for i in range(5):
+        batch = {k: torch.as_tensor(v, device="cuda") for k, v in data.batch_at(i).items()}
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        params, opt, metrics = step(params, opt, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(metrics["total_loss"]))
+        if i == 1:
+            launches = {k: v for k, v in kernels.launch_counts().items() if v}
+    peak = torch.cuda.max_memory_allocated() - held
+    require(all(map(lambda x: x == x and abs(x) < 1e4, losses)), f"losses {losses}")
+    del params, opt, batch, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"peak_bytes": peak, "launches": launches, "median_step_s": statistics.median(times[1:]),
+            "losses": losses}
+
+
+def measure_sharded_prefill(mesh, seed: int) -> dict:
+    """Phase 18 (c): the tensor-parallel prefill step
+    (``make_sharded_prefill_step``) at tinyllama-1.1b's bf16 B=8 S=1024 on
+    the one-rank mesh: the peak above what the process held before the
+    weights, K3's launches, the median of three calls' seconds, and the
+    logits against the unsharded prefill's on the same weights."""
+    import statistics
+
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch import shardings as shd
+    from repro_torch.launch.steps import make_prefill_step, make_sharded_prefill_step
+    from repro_torch.models import LM
+
+    arch, _, b, s = PREDICT["prefill"]
+    cfg = ARCHS[arch]
+    model = LM(cfg)
+    p_sh, serve_sh = shd.serve_shardings(model, mesh, b, s, step="prefill")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device="cuda",
+                           dtype=torch.int32)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    params = model.init(seed, device="cuda", shardings=p_sh)
+    step = make_sharded_prefill_step(model, s, serve_sh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    logits, cache = step(params, tokens)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in kernels.launch_counts().items() if v}
+    peak = torch.cuda.max_memory_allocated() - held
+    sharded = logits.full_tensor().float()
+    del logits, cache
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        out = step(params, tokens)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        del out
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    whole = model.init(seed, device="cuda")
+    plain = make_prefill_step(model, s)(whole, tokens)[0].float()
+    diff = float((sharded - plain).abs().max())
+    require(bool(torch.isfinite(sharded).all()) and tuple(sharded.shape) == (b, cfg.vocab_size),
+            f"the sharded prefill's logits: {tuple(sharded.shape)}")
+    del whole, plain, sharded
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"peak_bytes": peak, "launches": launches, "median_s": statistics.median(times),
+            "logits_max_diff": diff}
+
+
+def check_dryrun(seed: int, card: str) -> dict:
+    """Phase 18: (a) the child's three production records, each ``ok``; (b)
+    and (c) the one-rank predictions against the real steps: peaks within
+    ``PREDICT_TOL``, fake launches equal to the real ones."""
+    res, wall = run_dryrun_child()
+    for rec in res["cells"]:
+        require(rec["status"] == "ok", f"dry run {rec['arch']} {rec['shape']}: {rec['error']}")
+        rt = rec["roofline"]
+        print(f"    (a) {rec['arch']} {rec['shape']} pod: {rec['total_s']} s (trace "
+              f"{rec['compile_s']} s), hbm_per_device_bytes {rec['hbm_per_device_bytes']}, "
+              f"bound {rt['bound']}, roofline_fraction {rt['roofline_fraction']:.6f}, "
+              f"t_max {rt['t_max_s']:.6g} s, fake launches {rec['launches']}, collectives "
+              f"{rec['collectives']['total_bytes']} B ({card})")
+    print(f"    (a) the child process {wall:.1f} s")
+    out = {"cells": res["cells"], "child_s": wall, "predictions": res["predictions"]}
+    with one_rank_group() as mesh:
+        for name, measure, launch_keys in (("train", measure_sharded_train, ("ssd", "ssd_bwd")),
+                                           ("prefill", measure_sharded_prefill,
+                                            ("flash_attention",))):
+            pred = res["predictions"][name]
+            t0 = time.perf_counter()
+            got = measure(mesh, seed)
+            ratio = pred["hbm_per_device_bytes"] / got["peak_bytes"]
+            real = {k: got["launches"].get(k, 0) for k in launch_keys}
+            fake = {k: pred["launches"].get(k, 0) for k in launch_keys}
+            arch, _, b, s = PREDICT[name]
+            print(f"    ({'b' if name == 'train' else 'c'}) {arch} {name} B={b} S={s}, "
+                  f"data,model=1,1: predicted peak {pred['hbm_per_device_bytes']} B, measured "
+                  f"{got['peak_bytes']} B (torch.cuda.max_memory_allocated above the process's "
+                  f"earlier tensors), ratio {ratio:.4f}; fake launches {fake}, real {real}; "
+                  f"roofline t_max {pred['roofline']['t_max_s']:.6g} s ({pred['roofline']['bound']})"
+                  f", measured median {got.get('median_step_s', got.get('median_s')):.6f} s; "
+                  + (f"losses {got['losses']}" if name == "train"
+                     else f"logits against the unsharded prefill {got['logits_max_diff']:.3g}")
+                  + f"; {time.perf_counter() - t0:.1f} s ({card})")
+            require(abs(ratio - 1.0) <= PREDICT_TOL,
+                    f"phase 18 {name}: the predicted peak is {ratio:.4f} of the measured")
+            require(fake == real and all(real.values()),
+                    f"phase 18 {name}: fake launches {fake}, real {real}")
+            if name == "prefill":
+                require(got["logits_max_diff"] <= PREFILL_LOGITS_TOL,
+                        f"the sharded prefill's logits differ by {got['logits_max_diff']}")
+            out[name] = {**got, "predicted_bytes": pred["hbm_per_device_bytes"], "ratio": ratio,
+                         "t_max_s": pred["roofline"]["t_max_s"]}
+    return out
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
     import torch
@@ -4222,6 +4464,14 @@ def main(argv=None) -> int:
     costmodel_pool = serve_costmodel_pool(args, closed_sneak)
     print(f"    (c) {time.perf_counter() - t0:.1f} s; phase 17 {time.perf_counter() - t17:.1f} s")
 
+    print("[18] the dry run: three production cells on a fake (16, 16) world, and its "
+          "one-rank predictions against the sharded train and prefill steps on the card")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t18 = time.perf_counter()
+    dry = check_dryrun(args.seed, card)
+    print(f"    phase 18 {time.perf_counter() - t18:.1f} s")
+
     rows = [
         ("knn_topk", "knn/csrc/knn.cu", "knn/kernel.py:92", launches, knn_t),
         ("utility_scores", "utility/csrc/utility.cu", "utility/kernel.py:56", launches, util_t),
@@ -4317,6 +4567,10 @@ def main(argv=None) -> int:
     table["launchers"] = {"train": launch_train, "train_launches": train_cli_launches,
                           "serve_launches": serve_cli_launches, "serve_s": serve_cli_s,
                           "costmodel_pool": costmodel_pool}
+    table["dry_run"] = dry
+    for row in table["kernels"]:  # phase 18 (b), (c): the real steps' launches
+        row["launches_dry_run_steps"] = sum(
+            dry[k]["launches"].get(row["name"], 0) for k in ("train", "prefill"))
     table["training"] = {"step_card_vs_host": step_checks, **{
         arch: {k: v for k, v in run.items() if k != "launches"} for arch, run in trained.items()}}
     print(f"    total {time.perf_counter() - t_start:.1f} s")

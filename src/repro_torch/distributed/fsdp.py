@@ -46,8 +46,9 @@ from torch.distributed.tensor import DTensor, Partial, Replicate
 from repro_torch.distributed.sharding import act_spec, mesh_sizes
 from repro_torch.trees import tree_leaves, tree_map
 
-__all__ = ["shard_tensor", "shard_tree", "from_local_tree", "place_tree", "full_on_rank0",
-           "local_view", "local_params", "batch_rows", "all_reduce_sum", "first_mesh"]
+__all__ = ["shard_tensor", "shard_tree", "zeros_tree", "from_local_tree", "place_tree",
+           "full_on_rank0", "local_view", "local_params", "serving_view", "batch_rows",
+           "all_reduce_sum", "first_mesh"]
 
 
 def _box(shape, placements, mesh, coords) -> tuple:
@@ -88,6 +89,18 @@ def shard_tree(tree, shardings):
     """Every full leaf that ``shardings`` (a tree of the same structure,
     None for a leaf left whole) names, replaced by its shard."""
     return tree_map(lambda x, sh: x if sh is None else shard_tensor(x, sh), tree, shardings)
+
+
+def zeros_tree(tree, shardings, device):
+    """A DTensor of zeros for every leaf of ``tree`` (tensors whose shapes and
+    types are the whole leaves', ``meta`` ones for instance), this rank's
+    shard of it on ``shardings`` made on ``device`` alone."""
+    def zeros(x, sh):
+        box = _box(x.shape, tuple(sh.placements), sh.mesh, sh.mesh.get_coordinate())
+        local = torch.zeros(tuple(b.stop - b.start for b in box), dtype=x.dtype, device=device)
+        return DTensor.from_local(local, sh.mesh, tuple(sh.placements), run_check=False)
+
+    return tree_map(zeros, tree, shardings)
 
 
 def from_local_tree(tree, shardings):
@@ -161,6 +174,37 @@ def local_view(m: torch.nn.Module):
     gathered whole."""
     first = next(m.parameters(), None)
     return _view(m) if isinstance(first, DTensor) else m
+
+
+def _tp_only(p: torch.Tensor) -> torch.Tensor:
+    """A DTensor weight gathered over every mesh axis but ``model``."""
+    names = p.device_mesh.mesh_dim_names
+    want = tuple(place if name == "model" else Replicate()
+                 for name, place in zip(names, p.placements))
+    return p if want == tuple(p.placements) else p.redistribute(p.device_mesh, want)
+
+
+def _tp_view(m: torch.nn.Module) -> _View:
+    v = _View()
+    for name, p in m.named_parameters(recurse=False):
+        setattr(v, name, _tp_only(p))
+    for name, child in m.named_children():
+        setattr(v, name, _tp_view(child))
+    return v
+
+
+def serving_view(m: torch.nn.Module):
+    """``m`` itself, or, when a weight is a DTensor sharded over a mesh axis
+    other than ``model`` (the ``ep_tp`` rules' 2-D leaves: a dense layer's
+    embed or ffn dim, an expert's embed dim, over ``data``), a view whose
+    weights are gathered over those axes and keep their ``model`` shards:
+    the layer then runs tensor-parallel as the ``tp`` rules' layers do."""
+    def data_sharded(p):
+        return isinstance(p, DTensor) and any(
+            place.is_shard() and name != "model"
+            for name, place in zip(p.device_mesh.mesh_dim_names, p.placements))
+
+    return _tp_view(m) if any(data_sharded(p) for p in m.parameters()) else m
 
 
 def local_params(params):

@@ -20,9 +20,14 @@ list otherwise) — this is what lets one policy cover head counts like 24
 or 40 that don't divide a 16-way model axis.
 
 The reference's ``use_sharding`` context and ``shard_act`` have no
-counterpart: the port's activations stay local tensors (under the fsdp
-rules each rank's batch rows are its own, ``distributed.fsdp``), so
-nothing places them, and the trainer takes its policy from its mesh.
+general counterpart: under the fsdp rules the port's activations stay
+local tensors (each rank's batch rows are its own, ``distributed.fsdp``),
+so nothing places them, and the trainer takes its policy from its mesh.
+The sharded serving steps (``launch.steps``) propagate DTensor
+activations; there the residual stream is held where the reference's
+``shard_act(x, "act_btd")`` holds it, rows over the data axes and whole
+on ``model`` (``rows_over_data``, at each layer's entry), so that DTensor
+does not move it elsewhere between layers.
 """
 from __future__ import annotations
 
@@ -40,6 +45,7 @@ __all__ = [
     "params_pspecs",
     "named_sharding_tree",
     "mesh_sizes",
+    "rows_over_data",
 ]
 
 
@@ -209,3 +215,22 @@ def act_spec(shape: tuple[int, ...], name: str, mesh, policy: ShardingPolicy):
             break
         spec.append(chosen)
     return PartitionSpec(*spec)
+
+
+def rows_over_data(x):
+    """A DTensor (B, ...) placed as the serving rules' ``act_btd``: rows over
+    every mesh axis but ``model`` when B divides by their size, else over
+    ``data`` when it divides, else whole; whole on ``model``."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = x.device_mesh
+    names = list(mesh.mesh_dim_names)
+    sizes = dict(zip(names, mesh.mesh.shape))
+    data = [n for n in names if n != "model"]
+    n_data = 1
+    for n in data:
+        n_data *= int(sizes[n])
+    if x.shape[0] % n_data:
+        data = ["data"] if "data" in names and x.shape[0] % int(sizes["data"]) == 0 else []
+    want = tuple(Shard(0) if n in data else Replicate() for n in names)
+    return x if tuple(x.placements) == want else x.redistribute(mesh, want)

@@ -29,6 +29,19 @@ reached through the autograd functions of ``models.attention``,
 ``refuse_grad`` before it launches on the card, and a CUDA call whose
 input requires a gradient raises rather than return an output whose
 gradient would silently be zero.
+
+Two more routes exist for tracing a step without running it (the dry
+run, ``launch.dryrun``).  On a ``FakeTensor`` (``is_fake``: shapes and
+types, no storage) a wrapper takes a branch that only fake tensors reach:
+it allocates the kernel's outputs and scratch as fake tensors, calls the
+kernel's shape-only operator (``torch.ops.repro_torch.<name>``, whose
+work a formula registered with ``torch.utils.flop_counter`` counts) and
+counts a launch on its counter's ``fake`` tally (``fake_launch_counts``),
+never on the real one.  On a ``DTensor`` (a sharded serving step,
+``launch.steps.make_sharded_prefill_step``) a wrapper calls itself on each
+rank's shards through ``on_shards``: batch rows over the mesh's data
+axes and heads (or channels) over its ``model`` axis where they divide,
+so no DTensor reaches a kernel.
 """
 from __future__ import annotations
 
@@ -37,7 +50,8 @@ import threading
 import torch
 
 __all__ = ["LaunchCounter", "launch_counts", "reset_launch_counts", "add_launches",
-           "thread_launch_counts", "records_grad", "refuse_grad", "GRADIENTS_RULE"]
+           "thread_launch_counts", "records_grad", "refuse_grad", "GRADIENTS_RULE",
+           "fake_launch_counts", "is_fake", "is_sharded", "on_shards"]
 
 # The ROADMAP label of the rule for kernels without a backward.
 GRADIENTS_RULE = "ROADMAP.md, 'Port rules', Gradients"
@@ -49,13 +63,15 @@ _LOCAL = threading.local()
 class LaunchCounter:
     """Number of times one kernel was launched (host-side, not synchronised).
 
-    Registering a name that ``add_launches`` met first keeps its count."""
+    Registering a name that ``add_launches`` met first keeps its count.
+    ``fake`` counts the calls that took the fake-tensor branch instead."""
 
     def __init__(self, name: str):
         self.name = name
         with _LOCK:
             old = _COUNTERS.get(name)
             self.count = old.count if old is not None else 0
+            self.fake = old.fake if old is not None else 0
             _COUNTERS[name] = self
 
     def add(self) -> None:
@@ -64,6 +80,11 @@ class LaunchCounter:
             self.count += 1
         tally = _tally()
         tally[self.name] = tally.get(self.name, 0) + 1
+
+    def add_fake(self) -> None:
+        """Record one call of the fake-tensor branch (no launch)."""
+        with _LOCK:
+            self.fake += 1
 
 
 _COUNTERS: dict[str, LaunchCounter] = {}
@@ -89,11 +110,20 @@ def thread_launch_counts() -> dict[str, int]:
     return dict(_tally())
 
 
+def fake_launch_counts() -> dict[str, int]:
+    """{kernel name: calls of its fake-tensor branch} (the launches a traced
+    step would make)."""
+    with _LOCK:
+        return {name: c.fake for name, c in _COUNTERS.items()}
+
+
 def reset_launch_counts() -> None:
-    """Set every launch count to 0 (done just before a measured run)."""
+    """Set every launch count, real and fake, to 0 (done just before a
+    measured run)."""
     with _LOCK:
         for c in _COUNTERS.values():
             c.count = 0
+            c.fake = 0
 
 
 def add_launches(counts: dict[str, int]) -> None:
@@ -125,3 +155,68 @@ def refuse_grad(kernel: str, where: str, *tensors) -> None:
         raise RuntimeError(
             f"{kernel}: an input requires a gradient, and the kernel's output on the card "
             f"would carry none; {where}")
+
+
+def is_fake(t) -> bool:
+    """Whether ``t`` is a ``FakeTensor`` (a traced step's stand-in)."""
+    from torch._subclasses.fake_tensor import is_fake as _is_fake
+
+    return isinstance(t, torch.Tensor) and _is_fake(t)
+
+
+def is_sharded(t) -> bool:
+    """Whether ``t`` is a ``DTensor``."""
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(t, DTensor)
+
+
+def on_shards(fn, args: tuple, dims: tuple, out_dims: tuple):
+    """``fn(*args)`` on every rank's shards, through ``local_map``.
+
+    ``dims`` gives, per argument, (batch dim, head dim) or None for an
+    argument that is no tensor (None included) or is kept whole; one
+    entry of the pair may be None.  The batch dims are split over the
+    mesh's axes other than ``model`` when every one divides by their
+    size, the head dims over ``model`` when every one divides; anything
+    else is replicated.  Plain tensors among the arguments count as
+    replicated.  ``out_dims`` gives the same pairs for ``fn``'s outputs
+    (a tuple of tensors, or one tensor when ``out_dims`` has one entry)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = next(a.device_mesh for a in args if isinstance(a, DTensor))
+    names = list(mesh.mesh_dim_names)
+    sizes = dict(zip(names, mesh.mesh.shape))
+    batch_axes = [n for n in names if n != "model"]
+    n_batch = 1
+    for n in batch_axes:
+        n_batch *= int(sizes[n])
+    n_model = int(sizes.get("model", 1))
+    tensors = [(a, d) for a, d in zip(args, dims) if d is not None]
+    split_batch = all(d[0] is None or a.shape[d[0]] % n_batch == 0 for a, d in tensors)
+    split_heads = "model" in names and all(d[1] is None or a.shape[d[1]] % n_model == 0
+                                           for a, d in tensors)
+
+    def placements(pair):
+        if pair is None:
+            return None
+        bdim, hdim = pair
+        out = []
+        for name in names:
+            if name == "model":
+                out.append(Shard(hdim) if split_heads and hdim is not None else Replicate())
+            else:
+                out.append(Shard(bdim) if split_batch and bdim is not None else Replicate())
+        return tuple(out)
+
+    ins = []
+    for a, d in zip(args, dims):
+        if d is not None and not isinstance(a, DTensor):
+            a = DTensor.from_local(a, mesh, [Replicate()] * len(names), run_check=False)
+        ins.append(a)
+    outs = tuple(placements(p) for p in out_dims)
+    mapped = local_map(fn, out_placements=outs,
+                       in_placements=tuple(placements(d) for d in dims),
+                       redistribute_inputs=True, device_mesh=mesh)
+    return mapped(*ins)

@@ -8,6 +8,13 @@ launch ``csrc/decode_attention.cu`` on the current stream, one launch
 per call, or raise.  There is no other route.  The launch depends on the
 shapes and the card's SM count alone, allocates only its output and
 reads ``lengths`` on the device, so a CUDA graph can hold it.
+
+Fake tensors take a branch only they reach (``kernels.is_fake``): the
+output as a fake tensor and the shape-only operator
+``repro_torch::decode_attention``, whose FLOP formula counts q.K and p.V
+over the whole cache, 4 D per (query head, cache position): the valid
+lengths are data the trace does not see.  DTensors run on each rank's
+batch rows and KV-head shards (``kernels.on_shards``).
 """
 from __future__ import annotations
 
@@ -15,8 +22,17 @@ import ctypes
 import functools
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
-from repro_torch.kernels import GRADIENTS_RULE, LaunchCounter, nvcc, refuse_grad
+from repro_torch.kernels import (
+    GRADIENTS_RULE,
+    LaunchCounter,
+    is_fake,
+    is_sharded,
+    nvcc,
+    on_shards,
+    refuse_grad,
+)
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.kernels.flash_attention.ops import DTYPES, HEAD_DIMS
 
@@ -46,6 +62,24 @@ def _library():
 @functools.cache
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@torch.library.custom_op("repro_torch::decode_attention", mutates_args=())
+def _k4_op(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+           lengths: torch.Tensor, window: int) -> torch.Tensor:
+    raise RuntimeError("repro_torch::decode_attention is K4's shape-only operator: it runs "
+                       "on fake tensors alone")
+
+
+@_k4_op.register_fake
+def _(q, k_cache, v_cache, lengths, window):
+    return torch.empty_like(q)
+
+
+@register_flop_formula(torch.ops.repro_torch.decode_attention)
+def _k4_flops(q_shape, k_shape, *args, **kwargs) -> int:
+    b, _, hq, d = q_shape
+    return 4 * b * hq * k_shape[1] * d
 
 
 def _split_count(b: int, hkv: int, s: int, sms: int, max_splits: int) -> int:
@@ -82,6 +116,15 @@ def decode_attention(q, k_cache, v_cache, lengths, *, window: int = 0, scale=Non
     ``lengths[b]`` (at most S) positions of row b are valid; the new
     token's K/V must already be written at ``lengths[b] - 1``."""
     _check_args(q, k_cache, v_cache, lengths, window)
+    if is_sharded(q):
+        def local(q, k_cache, v_cache, lengths):
+            return decode_attention(q, k_cache, v_cache, lengths, window=window, scale=scale)
+
+        return on_shards(local, (q, k_cache, v_cache, lengths),
+                         ((0, 2), (0, 2), (0, 2), (0, None)), ((0, 2),))
+    if is_fake(q):
+        counter.add_fake()
+        return _k4_op(q, k_cache, v_cache, lengths, window)
     b, _, hq, d = q.shape
     s, hkv = k_cache.shape[1], k_cache.shape[2]
     g = hq // hkv

@@ -22,18 +22,37 @@ not fill the card.  The
 model reaches both through the autograd function of ``models.attention``;
 a direct CUDA call of the forward whose input requires a gradient raises
 (``kernels.refuse_grad``).
+
+On fake tensors both take a branch that only fake tensors reach
+(``kernels.is_fake``): the outputs and the scratch of the launch as fake
+tensors, and the shape-only operators ``repro_torch::flash_attention`` and
+``repro_torch::flash_attention_bwd``, whose FLOP formulas count the full
+Sq x Skv square (the reference's unrolled attention) unless
+``models.attention.attention_options(skip_masked_blocks=True)`` is on,
+when they count the key tiles the kernels run (``key_tiles``).  On
+DTensors both run on each rank's batch rows and head shards
+(``kernels.on_shards``).
 """
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
-from repro_torch.kernels import LaunchCounter, nvcc, refuse_grad
+from repro_torch.kernels import (
+    LaunchCounter,
+    is_fake,
+    is_sharded,
+    nvcc,
+    on_shards,
+    refuse_grad,
+)
 from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref, flash_attention_ref
 
 __all__ = ["flash_attention", "flash_attention_bwd", "bwd_plan", "counter", "bwd_counter",
-           "HEAD_DIMS", "DTYPES", "WGMMA_SMEM", "SMEM_LIMIT"]
+           "key_tiles", "HEAD_DIMS", "DTYPES", "WGMMA_SMEM", "SMEM_LIMIT"]
 
 counter = LaunchCounter("flash_attention")
 bwd_counter = LaunchCounter("flash_attention_bwd")
@@ -80,6 +99,111 @@ def bwd_plan(b: int, skv: int, hq: int, hkv: int, d: int, dtype, sms: int = H100
     return {"groups": groups, "heads": heads, "scratch": scratch}
 
 
+# This thread's ``models.attention.attention_options``: with ``skip`` a
+# traced step counts the key tiles the kernels run instead of the full square.
+COUNTING = threading.local()
+QUERY_ROWS = 64  # K3's and K3b's query rows per block
+
+
+def _skip_masked() -> bool:
+    opts = getattr(COUNTING, "opts", None)
+    return bool(opts and opts["skip"])
+
+
+def _key_tile(dtype, d: int) -> int:
+    """K3's keys per staged tile: 64, 32 in its bf16 instance at D = 256."""
+    return 32 if dtype == torch.bfloat16 and d > 128 else 64
+
+
+def key_tiles(sq: int, skv: int, window: int, key_tile: int, rows: int = QUERY_ROWS) -> int:
+    """The (query block, key tile) pairs one (batch row, head) runs: each
+    block of ``rows`` queries (the last Sq of Skv positions) reads the
+    ``key_tile``-key tiles from the first its window reaches (tile-aligned)
+    to its last row's position, as K3's ``k_start``/``k_stop`` do."""
+    offset, total = skv - sq, 0
+    for q0 in range(0, sq, rows):
+        first, last = offset + q0, offset + min(q0 + rows, sq) - 1
+        stop = min(skv, last + 1)
+        start = 0
+        if window > 0 and first - window + 1 > 0:
+            start = (first - window + 1) // key_tile * key_tile
+        total += -(-(stop - start) // key_tile)
+    return total
+
+
+def _area(q_shape, k_shape, window: int, key_tile: int, rows: int = QUERY_ROWS) -> int:
+    """Query-key pairs a kernel multiplies, per head dim element: the full
+    square, or (``key_tile`` > 0) the tiles it runs, padded."""
+    b, sq, hq, _ = q_shape
+    skv = k_shape[1]
+    if key_tile <= 0:
+        return b * hq * sq * skv
+    return b * hq * key_tiles(sq, skv, window, key_tile, rows) * rows * key_tile
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
+def _k3_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int, key_tile: int,
+           lse_rows: int) -> tuple[torch.Tensor, torch.Tensor]:
+    raise RuntimeError("repro_torch::flash_attention is K3's shape-only operator: it runs "
+                       "on fake tensors alone")
+
+
+@_k3_op.register_fake
+def _(q, k, v, window, key_tile, lse_rows):
+    b, sq, hq, _ = q.shape
+    return torch.empty_like(q), q.new_empty((b, hq, sq) if lse_rows else (0,),
+                                            dtype=torch.float32)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def _k3_flops(q_shape, k_shape, v_shape, window, key_tile, lse_rows, *args, **kwargs) -> int:
+    """Q.K^T and P.V: 4 D per query-key pair."""
+    return 4 * q_shape[-1] * _area(q_shape, k_shape, window, key_tile)
+
+
+@torch.library.custom_op("repro_torch::flash_attention_bwd", mutates_args=())
+def _k3b_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+            do: torch.Tensor, lse: torch.Tensor, window: int,
+            key_tile: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    raise RuntimeError("repro_torch::flash_attention_bwd is K3b's shape-only operator: it "
+                       "runs on fake tensors alone")
+
+
+@_k3b_op.register_fake
+def _(q, k, v, o, do, lse, window, key_tile):
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_bwd)
+def _k3b_flops(q_shape, k_shape, v_shape, o_shape, do_shape, lse_shape, window, key_tile,
+               *args, **kwargs) -> int:
+    """S = Q.K^T again, dV += P^T.dO, dP = dO.V^T, dQ += dS.K, dK += dS^T.Q:
+    10 D per query-key pair."""
+    return 10 * q_shape[-1] * _area(q_shape, k_shape, window, key_tile)
+
+
+def _fake_forward(q, k, v, window, return_lse):
+    """The fake-tensor branch of ``flash_attention``."""
+    key_tile = _key_tile(q.dtype, q.shape[-1]) if _skip_masked() else 0
+    out, lse = _k3_op(q, k, v, window, key_tile, int(return_lse))
+    counter.add_fake()
+    return (out, lse) if return_lse else out
+
+
+def _fake_backward(q, k, v, o, do, lse, window):
+    """The fake-tensor branch of ``flash_attention_bwd``: its row sums and
+    head-group partials as scratch."""
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    drow = q.new_empty((b, hq, sq), dtype=torch.float32)
+    plan = bwd_plan(b, skv, hq, hkv, d, q.dtype)
+    part = q.new_empty((plan["scratch"],), dtype=torch.float32) if plan["scratch"] else None
+    grads = _k3b_op(q, k, v, o, do, lse, window, 64 if _skip_masked() else 0)
+    del drow, part
+    bwd_counter.add_fake()
+    return grads
+
+
 def _check_args(q, k, v, causal, window):
     if not causal:
         raise NotImplementedError(
@@ -121,6 +245,15 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0, scale=None
     """Causal (optionally sliding-window) GQA attention, (B, Sq, Hq, D);
     with ``return_lse`` also the logsumexp (B, Hq, Sq) float32."""
     _check_args(q, k, v, causal, window)
+    if is_sharded(q):
+        def local(q, k, v):
+            return flash_attention(q, k, v, causal=causal, window=window, scale=scale,
+                                   return_lse=return_lse)
+
+        return on_shards(local, (q, k, v), ((0, 2),) * 3,
+                         ((0, 2), (0, 1)) if return_lse else ((0, 2),))
+    if is_fake(q):
+        return _fake_forward(q, k, v, window, return_lse)
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     scale = d ** -0.5 if scale is None else float(scale)
@@ -174,6 +307,8 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, window: int = 0, scale=None):
     if tuple(lse.shape) != (b, hq, sq) or lse.dtype != torch.float32:
         raise ValueError(f"lse must be float32 {(b, hq, sq)}, got {lse.dtype} "
                          f"{tuple(lse.shape)}")
+    if is_fake(q):
+        return _fake_backward(q, k, v, o, do, lse, window)
     scale = d ** -0.5 if scale is None else float(scale)
     if q.device.type == "cpu":
         dq, dk, dv = flash_attention_bwd_ref(

@@ -21,14 +21,24 @@ the CPU.  ``rglru_scan_autograd`` (the
 model's route while autograd records) runs the scan through an autograd
 function over both; a direct CUDA call of ``rglru_scan`` whose input
 requires a gradient raises (``kernels.refuse_grad``).
+
+Fake tensors take a branch only they reach (``kernels.is_fake``): the
+outputs, carries and scratch as fake tensors, at the chunk (``CHUNK``),
+carry span (``CARRY``) and channel group (``GROUP``) of ``csrc/rglru.cuh``
+and ``csrc/rglru_scan_bwd.cu``, and the shape-only operators
+``repro_torch::rglru_scan`` and ``repro_torch::rglru_scan_bwd``, whose
+FLOP formulas count ``FLOPS_PER_STEP`` (twice that backward) per (row,
+step, channel).  DTensors run on each rank's batch rows and channel
+shards (``kernels.on_shards``).
 """
 from __future__ import annotations
 
 import ctypes
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
-from repro_torch.kernels import LaunchCounter, nvcc, refuse_grad
+from repro_torch.kernels import LaunchCounter, is_fake, is_sharded, nvcc, on_shards, refuse_grad
 from repro_torch.kernels.rglru_scan.ref import (
     rglru_scan_bwd_ref,
     rglru_scan_ref,
@@ -42,6 +52,82 @@ counter = LaunchCounter("rglru_scan")
 bwd_counter = LaunchCounter("rglru_scan_bwd")
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+# The built kernels' constants (csrc/rglru.cuh: kChunk, kCarry;
+# csrc/rglru_scan_bwd.cu: kGroup), which a fake trace cannot ask a library.
+CHUNK, CARRY, GROUP = 64, 16, 32
+# The arithmetic of one (row, step, channel): the two gates' multiply-adds
+# (4), log a = -8 softplus(Lambda) r (2), sqrt(1 - a^2) (2), its product
+# with i x (2), the recurrence a h + b (2) and the GeLU branch's product
+# (1); transcendentals not counted.
+FLOPS_PER_STEP = 13
+
+
+@torch.library.custom_op("repro_torch::rglru_scan", mutates_args=())
+def _scan_op(u: torch.Tensor, gpre: torch.Tensor, carry_spans: int
+             ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    raise RuntimeError("repro_torch::rglru_scan is the RG-LRU scan's shape-only operator: "
+                       "it runs on fake tensors alone")
+
+
+@_scan_op.register_fake
+def _(u, gpre, carry_spans):
+    b, _, width = u.shape
+    return (torch.empty_like(u), u.new_empty((b, width), dtype=torch.float32),
+            u.new_empty((b, carry_spans, width) if carry_spans else (0,), dtype=torch.float32))
+
+
+@register_flop_formula(torch.ops.repro_torch.rglru_scan)
+def _scan_flops(u_shape, *args, **kwargs) -> int:
+    b, s, width = u_shape
+    return FLOPS_PER_STEP * b * s * width
+
+
+@torch.library.custom_op("repro_torch::rglru_scan_bwd", mutates_args=())
+def _bwd_op(u: torch.Tensor, gpre: torch.Tensor, vecs: list[torch.Tensor],
+            want_dh0: bool) -> tuple[torch.Tensor, torch.Tensor, list[torch.Tensor],
+                                     torch.Tensor]:
+    raise RuntimeError("repro_torch::rglru_scan_bwd is the RG-LRU backward's shape-only "
+                       "operator: it runs on fake tensors alone")
+
+
+@_bwd_op.register_fake
+def _(u, gpre, vecs, want_dh0):
+    b, _, width = u.shape
+    return (torch.empty_like(u), torch.empty_like(gpre), [torch.empty_like(v) for v in vecs],
+            u.new_empty((b, width) if want_dh0 else (0,), dtype=torch.float32))
+
+
+@register_flop_formula(torch.ops.repro_torch.rglru_scan_bwd)
+def _bwd_flops(u_shape, *args, **kwargs) -> int:
+    b, s, width = u_shape
+    return 2 * FLOPS_PER_STEP * b * s * width
+
+
+def _fake_scan(u, gpre, carries: bool):
+    """The fake-tensor branch of the forward: (y, h_last, carries or None),
+    with the chunk summaries as scratch beside them."""
+    b, s, width = u.shape
+    n_chunks = -(-s // CHUNK)
+    scratch = (u.new_empty((2, b, n_chunks - 1, width), dtype=torch.float32)
+               if n_chunks > 1 else None)
+    y, h_last, saved = _scan_op(u, gpre, -(-s // CARRY) if carries else 0)
+    del scratch
+    counter.add_fake()
+    return y, h_last, (saved if carries else None)
+
+
+def _sharded(fn, u, gpre, vecs, h0):
+    """``fn`` (``rglru_scan`` or ``rglru_scan_saving``) on each rank's batch
+    rows and channel shards."""
+    def local(u, gpre, a_w, a_b, x_w, x_b, lam, h0=None):
+        return fn(u, gpre, a_w, a_b, x_w, x_b, lam, h0)
+
+    dims = ((0, 2), (0, 2)) + ((None, 0),) * 5
+    outs = ((0, 2), (0, 1)) + (((0, 2),) if fn is rglru_scan_saving else ())
+    if h0 is None:
+        return on_shards(local, (u, gpre, *vecs), dims, outs)
+    return on_shards(local, (u, gpre, *vecs, h0), dims + ((0, 1),), outs)
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
@@ -142,6 +228,10 @@ def rglru_scan(u, gpre, a_w, a_b, x_w, x_b, lam, h0=None):
     and the last state ``h`` (B, L) in float32."""
     vecs = (a_w, a_b, x_w, x_b, lam)
     _check(u, gpre, vecs, h0)
+    if is_sharded(u):
+        return _sharded(rglru_scan, u, gpre, vecs, h0)
+    if is_fake(u):
+        return _fake_scan(u, gpre, False)[:2]
     if u.device.type == "cpu":
         return rglru_scan_ref(u, gpre, *vecs, h0)
     refuse_grad("rglru_scan", "train through rglru_scan_autograd (models.rglru), whose "
@@ -156,6 +246,10 @@ def rglru_scan_saving(u, gpre, a_w, a_b, x_w, x_b, lam, h0=None):
     the card one ``rglru_scan`` launch, on the CPU the plain loop."""
     vecs = (a_w, a_b, x_w, x_b, lam)
     _check(u, gpre, vecs, h0)
+    if is_sharded(u):
+        return _sharded(rglru_scan_saving, u, gpre, vecs, h0)
+    if is_fake(u):
+        return _fake_scan(u, gpre, True)
     if u.device.type == "cpu":
         return rglru_scan_saving_ref(u, gpre, *vecs, h0)
     b, s, width = u.shape
@@ -188,6 +282,13 @@ def rglru_scan_bwd(u, gpre, a_w, a_b, x_w, x_b, lam, carries, dy, dh_last=None,
                                 or dh_last.dtype != torch.float32
                                 or dh_last.device != u.device):
         raise ValueError(f"dh_last must be ({b}, {width}) float32 on {u.device}")
+    if is_fake(u):
+        scratch = u.new_empty((bwd_scratch_elems(b, s, width, CHUNK, GROUP),),
+                              dtype=torch.float32)
+        du, dgpre, dvecs, dh0 = _bwd_op(u, gpre, list(vecs), want_dh0)
+        del scratch
+        bwd_counter.add_fake()
+        return (du, dgpre, *dvecs, dh0 if want_dh0 else None)
     if u.device.type == "cpu":
         grads = rglru_scan_bwd_ref(u, gpre, *vecs, dy, h0=carries[:, 0], dh_last=dh_last)
         return grads[:7] + (grads[7] if want_dh0 else None,)

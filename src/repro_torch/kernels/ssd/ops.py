@@ -24,6 +24,14 @@ function over both: the forward saves what the backward reads, and
 builds no graph where nothing requires a gradient.  A direct CUDA call of
 ``ssd_chunk_scan`` whose input requires a gradient raises
 (``kernels.refuse_grad``).
+
+Fake tensors take a branch only they reach (``kernels.is_fake``): every
+stage's output and scratch as fake tensors and the shape-only operators
+``repro_torch::ssd_chunk_scan`` and ``repro_torch::ssd_chunk_bwd``, whose
+FLOP formulas count K5's products (chunk scores, chunk states, state
+passing, the output's two terms) and twice them for K5b.  DTensors run on
+each rank's batch rows and head shards (``kernels.on_shards``), bm and cm
+whole on every rank.
 """
 from __future__ import annotations
 
@@ -31,8 +39,9 @@ import collections
 import ctypes
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
-from repro_torch.kernels import LaunchCounter, nvcc, refuse_grad
+from repro_torch.kernels import LaunchCounter, is_fake, is_sharded, nvcc, on_shards, refuse_grad
 from repro_torch.kernels.ssd.ref import (
     ssd_chunk_bwd_ref,
     ssd_chunk_ref,
@@ -53,6 +62,87 @@ PASS_ROWS = 8
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+
+
+def ssd_flops(b: int, s: int, h: int, p: int, n: int, chunk: int) -> int:
+    """K5's products: the chunk scores C.B^T (l x l x N a chunk), the chunk
+    states (H P N l), their passing (H P N a chunk), and the output's
+    intra-chunk (H l l P) and inter-chunk (H l P N) terms, 2 FLOPs each."""
+    nc = s // chunk
+    return 2 * b * nc * (chunk * chunk * n + h * p * n * chunk + h * p * n
+                         + h * chunk * chunk * p + h * chunk * p * n)
+
+
+@torch.library.custom_op("repro_torch::ssd_chunk_scan", mutates_args=())
+def _k5_op(xdt: torch.Tensor, dA: torch.Tensor, bm: torch.Tensor, cm: torch.Tensor,
+           chunk: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    raise RuntimeError("repro_torch::ssd_chunk_scan is K5's shape-only operator: it runs on "
+                       "fake tensors alone")
+
+
+@_k5_op.register_fake
+def _(xdt, dA, bm, cm, chunk):
+    b, s, h, p = xdt.shape
+    n, nc = bm.shape[-1], s // chunk
+    f32 = torch.float32
+    return (xdt.new_empty((b, s, h, p), dtype=f32), xdt.new_empty((b, h, p, n), dtype=f32),
+            xdt.new_empty((b, h, nc, chunk), dtype=f32),
+            xdt.new_empty((b, nc, h, n, p), dtype=f32))
+
+
+@register_flop_formula(torch.ops.repro_torch.ssd_chunk_scan)
+def _k5_flops(xdt_shape, dA_shape, bm_shape, cm_shape, chunk, *args, **kwargs) -> int:
+    b, s, h, p = xdt_shape
+    return ssd_flops(b, s, h, p, bm_shape[-1], chunk)
+
+
+@torch.library.custom_op("repro_torch::ssd_chunk_bwd", mutates_args=())
+def _k5b_op(xdt: torch.Tensor, bm: torch.Tensor, cm: torch.Tensor, dy: torch.Tensor,
+            cum: torch.Tensor, entering: torch.Tensor,
+            chunk: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    raise RuntimeError("repro_torch::ssd_chunk_bwd is K5b's shape-only operator: it runs on "
+                       "fake tensors alone")
+
+
+@_k5b_op.register_fake
+def _(xdt, bm, cm, dy, cum, entering, chunk):
+    b, s, h, p = xdt.shape
+    f32 = torch.float32
+    return (xdt.new_empty((b, s, h, p), dtype=f32), xdt.new_empty((b, s, h), dtype=f32),
+            xdt.new_empty(tuple(bm.shape), dtype=f32), xdt.new_empty(tuple(bm.shape), dtype=f32))
+
+
+@register_flop_formula(torch.ops.repro_torch.ssd_chunk_bwd)
+def _k5b_flops(xdt_shape, bm_shape, cm_shape, dy_shape, cum_shape, entering_shape, chunk,
+               *args, **kwargs) -> int:
+    b, s, h, p = xdt_shape
+    return 2 * ssd_flops(b, s, h, p, bm_shape[-1], chunk)
+
+
+def _fake_scan(xdt, dA, bm, cm, chunk):
+    """The fake-tensor branch of K5: (y, final_state, cum, the chunk states
+    (B, nc, H, N, P)), with the cumsum's chunk ends and the scores as
+    scratch beside them, as ``ssd_chunk_scan_stages`` allocates."""
+    b, s, h, _ = xdt.shape
+    nc = s // chunk
+    wend = xdt.new_empty((b, h, nc, chunk), dtype=torch.float32)
+    scores = xdt.new_empty((b, nc, chunk, chunk), dtype=torch.float32)
+    out = _k5_op(xdt, dA, bm, cm, chunk)
+    del wend, scores
+    counter.add_fake()
+    return out
+
+
+def _sharded(fn, xdt, dA, bm, cm, chunk):
+    """``fn`` (a chunk scan returning (y, final_state[, cum, entering])) on
+    each rank's batch rows and head shards."""
+    def local(xdt, dA, bm, cm):
+        return fn(xdt, dA, bm, cm, chunk)
+
+    outs = ((0, 2), (0, 1))
+    if fn is ssd_chunk_scan_saving:
+        outs += ((0, 1), (0, 2))
+    return on_shards(local, (xdt, dA, bm, cm), ((0, 2), (0, 2), (0, None), (0, None)), outs)
 
 
 def _check_args(xdt, dA, bm, cm, chunk):
@@ -85,6 +175,11 @@ def ssd_chunk_scan_stages(xdt, dA, bm, cm, chunk: int = 128) -> SsdStages:
     output (the chunk states are overwritten in place by the entering
     states).  Counts one K5 launch."""
     _check_args(xdt, dA, bm, cm, chunk)
+    if is_fake(xdt):
+        y, final_state, cum, states_t = _fake_scan(xdt, dA, bm, cm, chunk)
+        b, s, h, _ = xdt.shape
+        scores = xdt.new_empty((b, s // chunk, chunk, chunk), dtype=torch.float32)
+        return SsdStages(cum, scores, states_t.transpose(-1, -2), final_state, y)
     if xdt.device.type != "cuda":
         raise ValueError(f"the SSD kernel stages run on CUDA, not {xdt.device}")
     b, s, h, p = xdt.shape
@@ -135,6 +230,10 @@ def ssd_chunk_scan_stages(xdt, dA, bm, cm, chunk: int = 128) -> SsdStages:
 def ssd_chunk_scan(xdt, dA, bm, cm, chunk: int = 128):
     """``ssd_pallas``: (y (B, S, H, P), final_state (B, H, P, N)), float32."""
     _check_args(xdt, dA, bm, cm, chunk)
+    if is_sharded(xdt):
+        return _sharded(ssd_chunk_scan, xdt, dA, bm, cm, chunk)
+    if is_fake(xdt):
+        return _fake_scan(xdt, dA, bm, cm, chunk)[:2]
     if xdt.device.type == "cpu":
         return ssd_chunk_ref(xdt, dA, bm, cm, chunk)
     if xdt.device.type != "cuda":
@@ -151,6 +250,11 @@ def ssd_chunk_scan_saving(xdt, dA, bm, cm, chunk: int = 128):
     On the card one K5 launch (its stages' outputs), on the CPU the plain
     stages."""
     _check_args(xdt, dA, bm, cm, chunk)
+    if is_sharded(xdt):
+        return _sharded(ssd_chunk_scan_saving, xdt, dA, bm, cm, chunk)
+    if is_fake(xdt):
+        y, final_state, cum, states_t = _fake_scan(xdt, dA, bm, cm, chunk)
+        return y, final_state, cum, states_t.transpose(-1, -2)
     if xdt.device.type == "cpu":
         return ssd_chunk_ref_saving(xdt, dA, bm, cm, chunk)
     if xdt.device.type != "cuda":
@@ -174,6 +278,12 @@ def ssd_chunk_bwd(xdt, bm, cm, dy, cum, entering, chunk: int = 128):
     if tuple(cum.shape) != (b, h, nc, chunk) or tuple(entering.shape) != (b, nc, h, p, n):
         raise ValueError(f"cum must be {(b, h, nc, chunk)} and entering {(b, nc, h, p, n)}, "
                          f"got {tuple(cum.shape)} and {tuple(entering.shape)}")
+    if is_fake(xdt):
+        scratch = _bwd_scratch(xdt, b, s, h, p, n, chunk)
+        grads = _k5b_op(xdt, bm, cm, dy, cum, entering, chunk)
+        del scratch
+        bwd_counter.add_fake()
+        return grads
     if xdt.device.type == "cpu":
         return ssd_chunk_bwd_ref(xdt, bm, cm, dy, cum, entering, chunk)
     if xdt.device.type != "cuda":
@@ -189,14 +299,7 @@ def ssd_chunk_bwd(xdt, bm, cm, dy, cum, entering, chunk: int = 128):
 
     dxdt, dda = empty(b, s, h, p), empty(b, s, h)
     dbm, dcm = empty(b, s, n), empty(b, s, n)
-    # Scratch: scores, the entering states' gradients (then the chunk
-    # states'), the pass's dcum by block of state rows, r, qd and s per
-    # position, the heads' d(scores), their sum, and the heads' own dC and dB.
-    scratch = [empty(b, nc, chunk, chunk), empty(b, nc, h, n, p),
-               empty(b, h, nc, -(-p // PASS_ROWS)),
-               empty(b, h, nc, chunk), empty(b, h, nc, chunk), empty(b, h, nc, chunk),
-               empty(b, nc, h, chunk, chunk), empty(b, nc, chunk, chunk),
-               empty(b, s, h, n), empty(b, s, h, n)]
+    scratch = _bwd_scratch(xdt, b, s, h, p, n, chunk)
     lib = nvcc.library("ssd_bwd")
     fn = lib.ssd_chunk_bwd
     fn.argtypes = [_P] * 20 + [_I] * 6 + [_P]
@@ -208,6 +311,23 @@ def ssd_chunk_bwd(xdt, bm, cm, dy, cum, entering, chunk: int = 128):
                  b, s, h, p, n, chunk, stream)
     nvcc.check(lib, err, "ssd_chunk_bwd")
     return dxdt, dda, dbm, dcm
+
+
+def _bwd_scratch(xdt, b, s, h, p, n, chunk) -> list:
+    """K5b's float32 scratch: scores, the entering states' gradients (then
+    the chunk states'), the pass's dcum by block of state rows, r, qd and s
+    per position, the heads' d(scores), their sum, and the heads' own dC
+    and dB."""
+    nc = s // chunk
+
+    def empty(*shape):
+        return xdt.new_empty(shape, dtype=torch.float32)
+
+    return [empty(b, nc, chunk, chunk), empty(b, nc, h, n, p),
+            empty(b, h, nc, -(-p // PASS_ROWS)),
+            empty(b, h, nc, chunk), empty(b, h, nc, chunk), empty(b, h, nc, chunk),
+            empty(b, nc, h, chunk, chunk), empty(b, nc, chunk, chunk),
+            empty(b, s, h, n), empty(b, s, h, n)]
 
 
 def ssd(x, dt, a_log, bm, cm, chunk: int = 128):

@@ -25,6 +25,7 @@ __all__ = [
     "cache_pspecs",
     "token_pspec",
     "logits_pspec",
+    "serve_shardings",
 ]
 
 
@@ -137,3 +138,18 @@ def logits_pspec(cfg, batch: int, mesh) -> PartitionSpec:
     v_axis = "model" if cfg.vocab_size % sizes["model"] == 0 else None
     return PartitionSpec(b_axis, v_axis)
 
+
+
+def serve_shardings(model, mesh, batch: int, max_len: int, step: str = "decode"):
+    """The placements of a sharded serving step (``launch.steps.
+    make_sharded_prefill_step``/``make_sharded_decode_step``) under the
+    policy of ``step``: (params, (tokens, cache, logits)), each a tree of
+    ``NamedSharding`` on ``mesh``."""
+    from repro_torch.distributed.policies import make_policy
+    from repro_torch.distributed.sharding import NamedSharding, named_sharding_tree
+
+    policy = make_policy(model.cfg, step, mesh)
+    params = named_sharding_tree(param_pspecs(model, policy, mesh), mesh)
+    cache = named_sharding_tree(cache_pspecs(model.abstract_cache(batch, max_len), mesh), mesh)
+    return params, (NamedSharding(mesh, token_pspec(batch, mesh)), cache,
+                    NamedSharding(mesh, logits_pspec(model.cfg, batch, mesh)))

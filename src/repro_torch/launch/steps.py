@@ -10,6 +10,18 @@ copied back into the weights (``load_tree_``).  ``input_specs`` gives
 a cell's inputs as ``meta`` tensors, the reference's ``ShapeDtypeStruct``
 stand-ins.  With sharded weights the trainer takes
 ``make_sharded_train_step`` instead (``distributed.fsdp``).
+
+The serving steps have sharded counterparts too, the reference's dry-run
+steps under its ``tp`` and ``ep_tp`` rules: ``make_sharded_prefill_step``
+and ``make_sharded_decode_step`` run the model on DTensor weights placed
+by those rules (``launch.shardings.serve_shardings``), the tokens' rows
+over the data axes, and let DTensor propagate the placements through
+every operation (plain tensors the model makes count as replicated,
+``implicit_replication``); the kernels run on each rank's shards
+(``kernels.on_shards``), and a decode step writes the sequence-sharded
+cache on its local shards (``models.attention``).  The steps return the
+logits and the cache placed as the reference's ``out_shardings`` place
+them.
 """
 from __future__ import annotations
 
@@ -22,7 +34,8 @@ from repro_torch.distributed.sharding import mesh_sizes
 from repro_torch.training.optimizer import OptimizerConfig, adamw_step
 
 __all__ = ["make_train_step", "make_sharded_train_step", "sharded_loss_and_grads",
-           "make_prefill_step", "make_decode_step", "input_specs"]
+           "make_prefill_step", "make_decode_step", "make_sharded_prefill_step",
+           "make_sharded_decode_step", "placed", "input_specs"]
 
 
 def make_train_step(model, opt_cfg: OptimizerConfig):
@@ -103,6 +116,54 @@ def make_prefill_step(model, max_len: int):
 def make_decode_step(model):
     def decode_step(params, cache, tokens):
         return model.decode_step(params, cache, tokens)
+
+    return decode_step
+
+
+def placed(x, sharding):
+    """``x`` as a DTensor on ``sharding``: a plain tensor is taken as the
+    whole value (every rank holds it) and cut without communication."""
+    if not isinstance(x, fsdp.DTensor):
+        return fsdp.shard_tensor(x, sharding)
+    want = tuple(sharding.placements)
+    return x if tuple(x.placements) == want else x.redistribute(sharding.mesh, want)
+
+
+def _place_cache(cache, shardings):
+    return {"layers": [{k: placed(v, shardings["layers"][i][k]) for k, v in layer.items()}
+                       for i, layer in enumerate(cache["layers"])],
+            "pos": placed(cache["pos"], shardings["pos"])}
+
+
+def make_sharded_prefill_step(model, max_len: int, shardings):
+    """``make_prefill_step`` on DTensor weights; ``shardings`` = (token,
+    cache, logits shardings) from ``launch.shardings.serve_shardings``.
+    The step takes the whole (B, S) token batch on every rank, or its
+    DTensor, and returns (logits (B, V), cache) as DTensors."""
+    tok_sh, cache_sh, logits_sh = shardings
+
+    def prefill_step(params, tokens):
+        from torch.distributed.tensor.experimental import implicit_replication
+
+        with implicit_replication(), torch.no_grad():
+            logits, cache = model.prefill(params, placed(tokens, tok_sh), max_len=max_len)
+            return placed(logits, logits_sh), _place_cache(cache, cache_sh)
+
+    return prefill_step
+
+
+def make_sharded_decode_step(model, shardings):
+    """``make_decode_step`` on DTensor weights and a cache placed by
+    ``shardings`` (as ``make_sharded_prefill_step``'s); the cache is
+    written in place and returned."""
+    tok_sh, cache_sh, logits_sh = shardings
+
+    def decode_step(params, cache, tokens):
+        from torch.distributed.tensor.experimental import implicit_replication
+
+        with implicit_replication(), torch.no_grad():
+            logits, cache = model.decode_step(params, cache, placed(tokens, tok_sh))
+            return placed(logits, logits_sh), cache
 
     return decode_step
 

@@ -24,19 +24,45 @@ k, v, the output and the per-row logsumexp and rebuilds the
 probabilities blockwise in the backward.  ``attn_forward`` takes it only
 while autograd records and an input requires a gradient; serving calls
 K3 alone, as before.
+
+``attention_options(unroll=, skip_masked_blocks=)`` is the reference's
+thread-local switch of the dry run's cost model.  The port's attention
+always runs its kernels, so the options change only how a traced step
+counts them: with ``skip_masked_blocks=False`` (the default) K3's and
+K3b's FLOP formulas count the full Sq x Skv square, as the reference's
+unrolled attention computes it; with ``True`` the key tiles K3 runs.
+``unroll`` is recorded and changes nothing: an eager trace counts every
+block anyway.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
-from repro_torch.kernels import records_grad
+from repro_torch.kernels import is_sharded, records_grad
 from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models.layers import rmsnorm, rope
 from repro_torch.models.spec import P
 
 __all__ = ["attn_spec", "attn_forward", "attn_decode", "kv_quantize", "kv_dequantize",
-           "flash_attention_autograd"]
+           "flash_attention_autograd", "attention_options"]
+
+@contextlib.contextmanager
+def attention_options(unroll: bool = False, skip_masked_blocks: bool = False):
+    """The reference's options for this thread (restored on exit), kept
+    where K3's and K3b's FLOP formulas read them (``flash_ops.COUNTING``)."""
+    prev = getattr(flash_ops.COUNTING, "opts", None)
+    flash_ops.COUNTING.opts = {"unroll": unroll, "skip": skip_masked_blocks}
+    try:
+        yield
+    finally:
+        flash_ops.COUNTING.opts = prev
+
+
+def _attn_opts() -> dict:
+    return getattr(flash_ops.COUNTING, "opts", None) or {"unroll": False, "skip": False}
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -131,6 +157,35 @@ def kv_dequantize(codes, scale, dtype):
     return (codes.float() * scale).to(dtype)
 
 
+def _write_slot(buf, index, t):
+    """``buf[:, index] = t`` in place.  A DTensor cache whose slots are
+    sharded over a mesh axis (``launch.shardings.cache_pspecs``: seq over
+    ``model``) is written on its local shards: the rank whose slots hold
+    ``index`` writes, every other rank writes back what it holds (one
+    branch-free path, no value read on the host)."""
+    if not is_sharded(buf):
+        buf.index_copy_(1, index, t)
+        return
+    from torch.distributed.tensor import DTensor, Replicate
+
+    mesh, placements = buf.device_mesh, tuple(buf.placements)
+    seq_axes = [i for i, p in enumerate(placements) if p.is_shard() and p.dim == 1]
+    whole_seq = tuple(Replicate() if p.is_shard() and p.dim == 1 else p for p in placements)
+    if not isinstance(t, DTensor):
+        t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    src = t.redistribute(mesh, whole_seq).to_local()
+    if isinstance(index, DTensor):
+        index = index.to_local()
+    local = buf.to_local()
+    offset = 0
+    for i in seq_axes:  # the first slot this rank holds
+        offset = offset * mesh.size(i) + mesh.get_local_rank(i)
+    at = index - offset * local.shape[1]
+    held = (at >= 0) & (at < local.shape[1])
+    at = at.clamp(0, local.shape[1] - 1)
+    local.index_copy_(1, at, torch.where(held, src, local.index_select(1, at)))
+
+
 def attn_decode(params, x, kv_cache, pos, cfg, *, window: int = 0,
                 theta: float = 10_000.0, lengths=None, slot=None):
     """One decode step through K4.  x: (B, 1, D); ``pos`` the new token's
@@ -150,7 +205,7 @@ def attn_decode(params, x, kv_cache, pos, cfg, *, window: int = 0,
     index = (pos if slot is None else slot).reshape(1).long()
     new = kv_quantize(k) + kv_quantize(v) if cfg.kv_quant else (k, v)
     for buf, t in zip(kv_cache, new):
-        buf.index_copy_(1, index, t.to(buf.dtype))
+        _write_slot(buf, index, t.to(buf.dtype))
     if cfg.kv_quant:
         k_codes, k_scale, v_codes, v_scale = kv_cache
         k_cache = kv_dequantize(k_codes, k_scale, q.dtype)

@@ -29,13 +29,16 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed.sharding import rows_over_data
+from repro_torch.kernels import is_sharded
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssd as ssd_mod
 from repro_torch.models.layers import mlp, mlp_spec, rmsnorm, rmsnorm_spec
 
-__all__ = ["block_spec", "cache_spec", "block_full", "block_prefill", "block_decode"]
+__all__ = ["block_spec", "cache_spec", "block_full", "block_prefill", "block_decode",
+           "residual"]
 
 
 def _check_kind(cfg, kind: str) -> tuple[str, str]:
@@ -124,6 +127,15 @@ def _post(params, y, cfg):
     return rmsnorm(params.post_norm, y) if cfg.post_norms else y
 
 
+def residual(x):
+    """x itself, or a DTensor residual stream (a sharded serving step)
+    placed where the reference's ``shard_act(x, "act_btd")`` holds it,
+    rows over the data axes and whole on ``model``
+    (``distributed.sharding.rows_over_data``): a layer's output sum is
+    all-reduced there, not left to DTensor's choice of a layout."""
+    return rows_over_data(x) if is_sharded(x) else x
+
+
 def block_full(params, x, cfg, kind: str):
     """Full-sequence pass (no cache).  Returns (x, aux): the MoE's
     auxiliary term, 0.0 for any other FFN."""
@@ -139,16 +151,28 @@ def block_full(params, x, cfg, kind: str):
     return _apply_ffn(params, x + _post(params, y, cfg), cfg, ffn)
 
 
+def _pad_seq(t, length: int):
+    """(B, S, ...) followed by zeros to (B, length, ...), or t itself when S
+    is the length.  A concatenation, which DTensors place as t is placed
+    (their ``F.pad`` fails to redistribute in some PyTorch releases)."""
+    s = t.shape[1]
+    if s == length:
+        return t
+    return torch.cat([t, t.new_zeros((t.shape[0], length - s) + tuple(t.shape[2:]))], dim=1)
+
+
 def _ring_from_prefill(t, length: int):
     """Full-sequence keys or values (B, S, ...) in a ring buffer of
     ``length`` slots: slot p % length holds position p, for the last
     ``length`` positions (the reference's ``_ring_from_prefill``)."""
-    b, s = t.shape[:2]
+    s = t.shape[1]
     if s < length:
-        buf = torch.zeros((b, length) + tuple(t.shape[2:]), dtype=t.dtype, device=t.device)
-        buf[:, :s] = t
-        return buf
-    return torch.roll(t[:, s - length:], shifts=(s - length) % length, dims=1).contiguous()
+        return _pad_seq(t, length)
+    shift = (s - length) % length
+    last = t[:, s - length:]
+    # torch.roll's rotation as one concatenation (a DTensor may have no
+    # strategy for roll; it has one for cat).
+    return torch.cat([last[:, length - shift:], last[:, :length - shift]], dim=1)
 
 
 def _prefill_cache(cfg, mixer: str, k, v, max_len: int) -> dict:
@@ -163,13 +187,7 @@ def _prefill_cache(cfg, mixer: str, k, v, max_len: int) -> dict:
     if mixer == "local":
         length = min(cfg.window_size, max_len)
         return {name: _ring_from_prefill(t, length) for name, t in stored.items()}
-    cache = {}
-    for name, t in stored.items():
-        buf = torch.zeros((t.shape[0], max_len) + tuple(t.shape[2:]), dtype=t.dtype,
-                          device=t.device)
-        buf[:, :t.shape[1]] = t
-        cache[name] = buf
-    return cache
+    return {name: _pad_seq(t, max_len) for name, t in stored.items()}
 
 
 def block_prefill(params, x, cfg, kind: str, max_len: int):
@@ -188,7 +206,7 @@ def block_prefill(params, x, cfg, kind: str, max_len: int):
         y, (k, v) = attn_mod.attn_forward(params.attn, h, cfg, window=_window(cfg, mixer),
                                           theta=_theta(cfg, mixer))
         cache = _prefill_cache(cfg, mixer, k, v, max_len)
-    return _apply_ffn(params, x + _post(params, y, cfg), cfg, ffn)[0], cache
+    return _apply_ffn(params, residual(x + _post(params, y, cfg)), cfg, ffn)[0], cache
 
 
 def block_decode(params, x, cache, pos, cfg, kind: str, lengths=None, slot=None):
@@ -214,4 +232,4 @@ def block_decode(params, x, cache, pos, cfg, kind: str, lengths=None, slot=None)
         names = _kv_names(cfg)
         y, _ = attn_mod.attn_decode(params.attn, h, tuple(cache[n] for n in names), pos, cfg,
                                     theta=_theta(cfg, mixer), lengths=lengths, slot=slot)
-    return _apply_ffn(params, x + _post(params, y, cfg), cfg, ffn)[0], cache
+    return _apply_ffn(params, residual(x + _post(params, y, cfg)), cfg, ffn)[0], cache

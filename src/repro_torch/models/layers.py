@@ -53,10 +53,17 @@ def _rope_freqs(head_dim: int, theta: float, device: torch.device) -> torch.Tens
     return freqs
 
 
+def _tracing() -> bool:
+    """Whether a ``FakeTensorMode`` is active (a dry run's trace), whose
+    tensors must not enter a cache that real calls read afterwards."""
+    return torch._C._get_dispatch_mode(torch._C._TorchDispatchModeKey.FAKE) is not None
+
+
 def rope(x, positions, theta: float = 10_000.0):
     """Rotary embedding on split halves (not interleaved), angles in
     float32.  x: (..., S, H, Dh); positions: (..., S)."""
-    freqs = _rope_freqs(x.shape[-1], float(theta), x.device)
+    freqs = (_rope_freqs.__wrapped__ if _tracing() else _rope_freqs)(
+        x.shape[-1], float(theta), x.device)
     angles = positions[..., None].float() * freqs  # (..., S, Dh/2)
     angles = angles[..., None, :]  # broadcast over heads: (..., S, 1, Dh/2)
     sin, cos = torch.sin(angles), torch.cos(angles)
@@ -89,12 +96,24 @@ def _act(name: str, x):
     raise ValueError(f"unknown activation {name!r}")
 
 
+def _summed(t):
+    """t itself, or a DTensor product whose pending sums (``Partial``, a
+    weight split on its input dim over ``model``: the ``ep_tp`` rules' dense
+    layers) are all-reduced before a nonlinearity reads it."""
+    if not hasattr(t, "placements") or not any(p.is_partial() for p in t.placements):
+        return t
+    from torch.distributed.tensor import Replicate
+
+    return t.redistribute(t.device_mesh, tuple(Replicate() if p.is_partial() else p
+                                               for p in t.placements))
+
+
 def mlp(params, x, activation: str = "swiglu"):
     """(Gated) MLP: SwiGLU, GeGLU (tanh GELU) or plain GELU.  x: (..., d_model)."""
     if hasattr(params, "w_gate"):
-        h = _act(activation, x @ params.w_gate) * (x @ params.w_up)
+        h = _act(activation, _summed(x @ params.w_gate)) * _summed(x @ params.w_up)
     else:
-        h = _act(activation, x @ params.w_up)
+        h = _act(activation, _summed(x @ params.w_up))
     return h @ params.w_down
 
 

@@ -21,6 +21,14 @@ reference's ``jax.checkpoint`` of its period body, and the MoE layers'
 auxiliary terms summed), ``chunked_xent`` (the logits of one sequence
 chunk at a time, each chunk checkpointed, so the (B, S, V) logits never
 exist whole) and ``loss_fn``.
+
+The layer loops are ``layers_full``, ``layers_prefill`` and
+``layers_decode``, which the dry run's cost pieces call on their own
+(``launch.costmodel``).  On DTensor weights (the sharded serving steps,
+``launch.steps``) the prefill and decode loops hold the residual stream
+on the data axes at each layer's entry (``blocks.residual``) and gather a
+layer's weights over the data axes where the rules split them there
+(``distributed.fsdp.serving_view``); on plain tensors both are no-ops.
 """
 from __future__ import annotations
 
@@ -28,7 +36,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.distributed.fsdp import local_params, local_view
+from repro_torch.distributed.fsdp import local_params, local_view, serving_view
 from repro_torch.models import blocks
 from repro_torch.models.kvcache import model_dtype, position
 from repro_torch.models.layers import (
@@ -41,7 +49,8 @@ from repro_torch.models.layers import (
 from repro_torch.models.spec import P, stack
 
 __all__ = ["model_spec", "TransformerParams", "forward", "prefill", "decode_step", "decode_into",
-           "hidden_states", "chunked_xent", "loss_fn"]
+           "hidden_states", "chunked_xent", "loss_fn", "layers_full", "layers_prefill",
+           "layers_decode"]
 
 
 def model_spec(cfg) -> dict:
@@ -112,6 +121,9 @@ class TransformerParams(nn.Module):
                 layer = tree["tail"][i - cfg.n_periods * cfg.period]
             self.layers.append(_module(layer))
         self.final_norm = _module(tree["final_norm"])
+        # With no whole period (a dry run's pieces) the stacks hold no layer;
+        # kept as given, so that ``to_tree`` returns the spec's layout.
+        self._empty_stacks = tree["blocks"] if cfg.n_periods == 0 else None
         if "lm_head" in tree:
             self.lm_head = nn.Parameter(tree["lm_head"], requires_grad=False)
         else:
@@ -132,7 +144,9 @@ class TransformerParams(nn.Module):
         full = cfg.n_periods * cfg.period
         tree = {
             "embed": _tensors(self.embed, leaf),
-            "blocks": [_stack_trees(layers[j:full:cfg.period]) for j in range(cfg.period)],
+            "blocks": ([_map(b, leaf) for b in self._empty_stacks]
+                       if self._empty_stacks is not None else
+                       [_stack_trees(layers[j:full:cfg.period]) for j in range(cfg.period)]),
             "tail": layers[full:],
             "final_norm": _tensors(self.final_norm, leaf),
         }
@@ -204,10 +218,16 @@ def hidden_states(params, tokens, cfg):
 
 def _blocks(params, tokens, cfg):
     """Embed + blocks: (x, the MoE terms' sum, 0.0 without MoE layers)."""
-    x = _embed(params, cfg, tokens)
+    return layers_full(params.layers, _embed(params, cfg, tokens), cfg)
+
+
+def layers_full(layers, x, cfg):
+    """The layers' full-sequence passes on the residual stream x (layer i
+    of kind ``cfg.layer_kind(i)``), each under ``torch.utils.checkpoint``
+    when ``cfg.remat`` and autograd records: (x, the MoE terms' sum)."""
     remat = cfg.remat and torch.is_grad_enabled()
     aux = 0.0
-    for layer, kind in zip(params.layers, _kinds(cfg)):
+    for layer, kind in zip(layers, _kinds(cfg)):
         if remat:
             x, a = checkpoint(_block_full, layer, x, cfg, kind, use_reentrant=False)
         else:
@@ -276,14 +296,30 @@ def prefill(params, tokens, cfg, max_len: int):
     """Process a full prompt; returns (logits at the last position (B, V),
     cache) with ``cache = {"layers": [...], "pos": S}``, the position a
     0-dim int32 tensor on the tokens' device."""
-    x = _embed(params, cfg, tokens)
-    caches = []
-    for layer, kind in zip(params.layers, _kinds(cfg)):
-        x, cache = blocks.block_prefill(layer, x, cfg, kind, max_len)
-        caches.append(cache)
+    x, caches = layers_prefill(params.layers, _embed(params, cfg, tokens), cfg, max_len)
     x = rmsnorm(params.final_norm, x[:, -1:, :])[:, 0]
     pos = position(tokens.shape[1], tokens.device)
     return _logits(params, cfg, x), {"layers": caches, "pos": pos}
+
+
+def layers_prefill(layers, x, cfg, max_len: int):
+    """The layers' prefill passes on x: (x, their caches)."""
+    caches = []
+    for layer, kind in zip(layers, _kinds(cfg)):
+        x, cache = blocks.block_prefill(serving_view(layer), blocks.residual(x), cfg, kind,
+                                        max_len)
+        caches.append(cache)
+    return x, caches
+
+
+def layers_decode(layers, x, caches, pos, cfg):
+    """The layers' decode steps on x (B, 1, D) at ``pos``, each writing its
+    cache in place: x."""
+    slots = _slots(cfg, caches, pos, x.shape[0])
+    for layer, c, kind, (slot, lengths) in zip(layers, caches, _kinds(cfg), slots):
+        x, _ = blocks.block_decode(serving_view(layer), blocks.residual(x), c, pos, cfg, kind,
+                                   lengths=lengths, slot=slot)
+    return x
 
 
 def _slots(cfg, caches, pos, batch: int) -> list:
@@ -317,11 +353,7 @@ def decode_step(params, cache, tokens, cfg):
     slot in each ring buffer and K4's per-row lengths (``_slots``, built
     once per step) stay on the device."""
     pos = cache["pos"]
-    x = _embed(params, cfg, tokens)
-    slots = _slots(cfg, cache["layers"], pos, tokens.shape[0])
-    for layer, c, kind, (slot, lengths) in zip(params.layers, cache["layers"], _kinds(cfg),
-                                               slots):
-        x, _ = blocks.block_decode(layer, x, c, pos, cfg, kind, lengths=lengths, slot=slot)
+    x = layers_decode(params.layers, _embed(params, cfg, tokens), cache["layers"], pos, cfg)
     x = rmsnorm(params.final_norm, x)
     logits = _logits(params, cfg, x[:, -1, :])
     pos.add_(1)

@@ -3,8 +3,11 @@
 
 The paper's scheduler consumes per-variant ``ModelProfile``s (latency,
 swap cost, per-class recalls).  The latency model comes from the dry-run
-roofline records when a results directory holds them, else from the
-analytic census below:
+roofline records when a results directory holds them (the port's own,
+``python -m repro_torch.launch.dryrun``, write to ``DRYRUN_DIR``,
+``results/dryrun_torch/``, never to the reference's ``results/dryrun/``,
+whose TPU records would set an H100's profiles), else from the analytic
+census below:
 
     l_decode(b)  = t_max(decode cell)   (per generated token)
     l_prefill(b) = t_max(prefill cell) * (prompt_tokens / cell tokens)
@@ -35,10 +38,12 @@ __all__ = [
     "costmodel_terms",
     "costmodel_latency_model",
     "costmodel_profile",
+    "DRYRUN_DIR",
 ]
 
 _DCN_BW = 25e9  # host->HBM staging bandwidth for cold weight loads (B/s)
 N_DEVICES = 1  # the cards one variant is served from
+DRYRUN_DIR = Path(__file__).resolve().parents[3] / "results" / "dryrun_torch"
 
 
 def load_dryrun_record(results_dir, arch: str, shape: str, mesh: str = "pod") -> dict | None:

@@ -56,7 +56,23 @@ from repro_torch.training import checkpoint as ckpt
 from repro_torch.training.optimizer import OptimizerConfig, init_opt_state
 from repro_torch.trees import tree_map
 
-__all__ = ["TrainerConfig", "Trainer"]
+__all__ = ["TrainerConfig", "Trainer", "sharded_opt_state"]
+
+
+def sharded_opt_state(model, params, o_sh, opt_cfg, device) -> dict:
+    """AdamW's state of sharded weights ``params``, every leaf placed by
+    ``o_sh``: the master copy the weights' own shards cast to
+    ``master_dtype``, the moments zeros made shard by shard from the whole
+    leaves' shapes (an int8 moment's scale may be whole on a dim its codes
+    split: its spec is the codes' spec without the last entry)."""
+    whole = init_opt_state(model.abstract_params(), opt_cfg)
+    master = None
+    if whole["master"] is not None:
+        local = tree_map(lambda x: x.to_local().detach().to(opt_cfg.master_dtype, copy=True),
+                         params.to_tree())
+        master = fsdp.from_local_tree(local, o_sh["master"])
+    return {"step": whole["step"], "master": master,
+            **{k: fsdp.zeros_tree(whole[k], o_sh[k], device) for k in ("m", "v")}}
 
 
 @dataclasses.dataclass
@@ -118,11 +134,7 @@ class Trainer:
             return params, init_opt_state(params.to_tree(), self.opt_cfg)
         p_sh, o_sh = self.shardings
         params = self.model.init(seed, device=self.device, shardings=p_sh)
-        # The state of the local shards is the shards of the state: the
-        # moments start at zero and the master copy is the weights'.
-        opt = init_opt_state(tree_map(lambda x: x.to_local(), params.to_tree()), self.opt_cfg)
-        return params, {**opt, **{k: fsdp.from_local_tree(opt[k], o_sh[k])
-                                  for k in ("master", "m", "v")}}
+        return params, sharded_opt_state(self.model, params, o_sh, self.opt_cfg, self.device)
 
     def _save(self, step, params, opt_state):
         ckpt.save(

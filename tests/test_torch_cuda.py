@@ -27,7 +27,9 @@ and llama4-scout (the S = 1 scan, the routed MoE at batch 2) graphed and
 under ``set_sync_debug_mode("error")``.  Last, ZeRO-3 training
 (``Trainer(shardings=)``'s step) on a one-rank NCCL mesh against the
 unsharded step, and the train launcher across every card of the host
-against one card (two cards or more; skips on one).
+against one card (two cards or more; skips on one); the wrappers'
+fake-tensor branches silent on card tensors, and the sharded serving
+steps on a one-rank mesh against the unsharded ones.
 """
 import threading
 
@@ -2248,3 +2250,104 @@ def test_sharded_training_across_cards_matches_one_card(cuda, tmp_path):
         losses[ranks], state[ranks] = summary["losses"], summary["state_bytes"]
     np.testing.assert_allclose(losses[n], losses[1], atol=SHARDED_TOL, rtol=0)
     assert state[n] * n <= state[1] * 1.05  # a few small leaves stay whole on every card
+
+
+def test_fake_branches_never_fire_on_card_tensors(cuda):
+    """Every wrapper with a fake-tensor branch, called on CUDA tensors,
+    launches its kernel: its real counter moves and its fake counter
+    does not."""
+    from repro_torch import kernels
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+
+    def rnd(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device=cuda).to(dtype)
+
+    q, k, v = rnd(2, 64, 4, 64), rnd(2, 64, 2, 64), rnd(2, 64, 2, 64)
+    lengths = torch.full((2,), 64, dtype=torch.int32, device=cuda)
+    xdt, da = rnd(2, 64, 4, 16, dtype=torch.float32), -rnd(2, 64, 4, dtype=torch.float32).abs()
+    bm, cm = rnd(2, 64, 16, dtype=torch.float32), rnd(2, 64, 16, dtype=torch.float32)
+    u = [rnd(2, 70, 32)] * 2 + [rnd(32) * 0.1 for _ in range(5)]
+    kernels.reset_launch_counts()
+    o, lse = flash_ops.flash_attention(q, k, v, return_lse=True)
+    flash_ops.flash_attention_bwd(q, k, v, o, rnd(*q.shape), lse)
+    decode_ops.decode_attention(q[:, :1].contiguous(), k, v, lengths)
+    _, _, cum, entering = ssd_ops.ssd_chunk_scan_saving(xdt, da, bm, cm, 32)
+    ssd_ops.ssd_chunk_scan(xdt, da, bm, cm, 32)
+    ssd_ops.ssd_chunk_bwd(xdt, bm, cm, rnd(*xdt.shape, dtype=torch.float32), cum, entering, 32)
+    rglru_ops.rglru_scan(*u)
+    _, _, carries = rglru_ops.rglru_scan_saving(*u)
+    rglru_ops.rglru_scan_bwd(*u, carries, rnd(2, 70, 32))
+    torch.cuda.synchronize()
+    counts, fakes = kernels.launch_counts(), kernels.fake_launch_counts()
+    want = {"flash_attention": 1, "flash_attention_bwd": 1, "decode_attention": 1, "ssd": 2,
+            "ssd_bwd": 1, "rglru_scan": 2, "rglru_scan_bwd": 1}
+    assert {name: counts[name] for name in want} == want
+    assert not any(fakes.values()), fakes
+    # the constants the fake branches size the RG-LRU scratch with are the
+    # built libraries'
+    assert (rglru_ops.chunk_len(), rglru_ops.carry_len()) == (rglru_ops.CHUNK, rglru_ops.CARRY)
+    assert rglru_ops._bwd_entry()[2:] == (rglru_ops.CHUNK, rglru_ops.CARRY, rglru_ops.GROUP)
+
+
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "mamba2-130m", "recurrentgemma-9b"])
+def test_sharded_serving_steps_one_rank_match_unsharded(cuda, tmp_path, arch):
+    """``make_sharded_prefill_step`` and three ``make_sharded_decode_step``s
+    on a one-rank NCCL mesh (data,model=1,1) against the unsharded steps
+    on the same weights, reduced configs in bf16: logits and caches
+    within 1e-3, and the same kernels launched."""
+    import dataclasses
+
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.launch import shardings as shd
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import (
+        make_decode_step,
+        make_prefill_step,
+        make_sharded_decode_step,
+        make_sharded_prefill_step,
+    )
+    from repro_torch.models import LM
+
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="bfloat16")
+    lm, b, s, steps = LM(cfg), 4, 40, 3
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), device="cuda")
+        p_sh, serve_sh = shd.serve_shardings(lm, mesh, b, s + steps)
+        tokens = torch.randint(0, cfg.vocab_size, (b, s), device=cuda, dtype=torch.int32)
+        runs = {}
+        for label in ("unsharded", "sharded"):
+            if label == "sharded":
+                params = lm.init(1, device=cuda, shardings=p_sh)
+                prefill = make_sharded_prefill_step(lm, s + steps, serve_sh)
+                decode = make_sharded_decode_step(lm, serve_sh)
+            else:
+                params = lm.init(1, device=cuda)
+                prefill, decode = make_prefill_step(lm, s + steps), make_decode_step(lm)
+            kernels.reset_launch_counts()
+            logits, cache = prefill(params, tokens)
+            outs = [logits]
+            tok = tokens[:, -1:]
+            for _ in range(steps):
+                logits, cache = decode(params, cache, tok)
+                outs.append(logits)
+            torch.cuda.synchronize()
+            full = [o.full_tensor() if isinstance(o, DTensor) else o for o in outs]
+            layers = [{k: (c.full_tensor() if isinstance(c, DTensor) else c)
+                       for k, c in layer.items()} for layer in cache["layers"]]
+            runs[label] = (full, layers, kernels.launch_counts())
+    finally:
+        dist.destroy_process_group()
+    (o0, c0, n0), (o1, c1, n1) = runs["unsharded"], runs["sharded"]
+    for a, b_ in zip(o1, o0):
+        torch.testing.assert_close(a.float(), b_.float(), atol=1e-3, rtol=0)
+    for la, lb in zip(c1, c0):
+        for key in lb:
+            torch.testing.assert_close(la[key].float(), lb[key].float(), atol=1e-3, rtol=0)
+    assert n1 == n0 and any(n0.values())

@@ -25,7 +25,10 @@ training and checkpoints) against the JAX package's, on the CPU.
   ``fault_hook`` on every rank and on rank 1 alone (every rank restores),
   and inside rank 1's step (``launch.train.run_ranks`` starts every rank
   again; the run from the seed ends on the unsharded Trainer's weights).
-* The launchers through ``--device cpu``, the sharded one on 4 gloo ranks.
+* The launchers through ``--device cpu``, the sharded one on 4 gloo ranks;
+  the serving launcher's requests (arrivals, deadlines, labels) and
+  ``Application`` against the reference launcher's, whose ``main`` runs
+  with a server that records what it is given (P11).
 
 The multi-rank cases run ``tests/_torch_ranks.py`` in a child process
 with a timeout of its own.
@@ -651,3 +654,86 @@ def test_serve_launcher_cpu(port_hw):
         line = (f"variant {name:16s} l(m)={fixed+per_item:8.4f}s load={load:7.3f}s "
                 f"({'roofline' if results_dir.exists() else 'analytic'} profile)")
         assert line in proc.stdout.splitlines(), (line, proc.stdout[:600])
+
+
+# ----------------------------------------------------------- the serving launcher's workload (P11)
+
+
+class _Captured(Exception):
+    pass
+
+
+def _reference_workload(monkeypatch, policy: str, requests: int, windows: int, seed: int):
+    """The reference launcher's ``Application`` and requests: its ``main``
+    run with a server that records what it is given and an executor that
+    builds nothing."""
+    import repro.serving as j_serving
+    from repro.launch import serve as j_serve
+    from repro.serving.server import WindowQueue
+
+    seen = {}
+
+    class Server:
+        def __init__(self, apps, policy, executor=None, prompt_fn=None, **kw):
+            seen["app"] = apps["assistant"]
+            self.queue = WindowQueue()
+
+        def run(self, reqs, horizon_s):
+            seen["requests"], seen["horizon"] = reqs, horizon_s
+            raise _Captured
+
+    monkeypatch.setattr(j_serving, "EdgeServer", Server)
+    monkeypatch.setattr(j_serving, "LMExecutor", lambda *a, **k: None)
+    with pytest.raises(_Captured):
+        j_serve.main(["--policy", policy, "--requests", str(requests), "--windows",
+                      str(windows), "--seed", str(seed)])
+    return seen
+
+
+@pytest.mark.parametrize("policy", ["LO-EDF", "MaxAcc-EDF", "SneakPeek"])
+def test_serve_launcher_requests_match_reference(monkeypatch, policy):
+    """Arrivals, deadlines and labels from the same seed equal the
+    reference's under every policy; under SneakPeek the port's requests
+    also carry features (a generator of their own), centred on their labels."""
+    from repro_torch.launch import serve as t_serve
+    from repro_torch.serving.server import WindowQueue as TWindowQueue
+
+    for seed, n, windows in ((0, 12, 2), (7, 40, 3)):
+        ref = _reference_workload(monkeypatch, policy, n, windows, seed)
+        horizon = windows * TWindowQueue().window_s
+        assert horizon == ref["horizon"]
+        rng = np.random.default_rng(seed)
+        feats = seed + 2 if policy == "SneakPeek" else None
+        got = t_serve.build_requests(rng, n, horizon, 400.0, features_seed=feats)
+        want = ref["requests"]
+        assert [(r.rid, r.app, r.arrival_s, r.deadline_s, r.true_label) for r in got] == [
+            (r.rid, r.app, r.arrival_s, r.deadline_s, r.true_label) for r in want]
+        assert all(r.features is None for r in want)
+        if feats is None:
+            assert all(r.features is None for r in got)
+        else:
+            x = np.stack([r.features for r in got])
+            labels = np.array([r.true_label for r in got])
+            assert x.shape == (n, t_serve.FEATURE_DIM) and x.dtype == np.float32
+            assert x[labels == 1].mean() > 0 > x[labels == 0].mean()
+
+
+def test_serve_launcher_application_matches_reference(monkeypatch, port_hw):
+    """Recalls, latency models and load latencies at the reference's 16
+    devices equal the reference launcher's; the port's launcher itself
+    stages its weights over one card."""
+    from repro_torch.launch import serve as t_serve
+
+    ref = _reference_workload(monkeypatch, "LO-EDF", 4, 1, 0)["app"]
+    with tempfile.TemporaryDirectory() as d:
+        app, variants = t_serve.build_application(d, n_devices=16)
+        one, _ = t_serve.build_application(d)
+    assert app.name == ref.name and app.penalty == ref.penalty
+    assert [m.name for m in app.models] == [m.name for m in ref.models] == list(variants)
+    for got, want, single in zip(app.models, ref.models, one.models):
+        _rel(got.recalls, want.recalls)
+        _rel(got.latency_model, want.latency_model)
+        _rel([got.latency_s, got.load_latency_s], [want.latency_s, want.load_latency_s])
+        _rel(single.load_latency_s, want.load_latency_s * 16 / t_profiles.N_DEVICES)
+    for name, (cfg, seed) in variants.items():
+        assert cfg == ARCHS[name].reduced() and 0 <= seed < 100

@@ -276,15 +276,17 @@ def _imported_modules(path):
 def test_port_imports_neither_jax_nor_reference():
     """Every module of the port (the launchers and the distribution
     among them), ``chip_smoke.py`` and the gloo ranks' helper of
-    tests/test_torch_launch.py."""
+    tests/test_torch_launch.py and of tests/test_torch_dryrun.py."""
     files = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
-        REPO / "chip_smoke.py", REPO / "tests" / "_torch_ranks.py"]
+        REPO / "chip_smoke.py", REPO / "tests" / "_torch_ranks.py",
+        REPO / "tests" / "_torch_tp_ranks.py"]
     assert len(files) > 20
     names = {str(path.relative_to(REPO / "src" / "repro_torch")) for path in files
              if "repro_torch" in path.parts}
     assert {"launch/train.py", "launch/serve.py", "launch/mesh.py", "launch/shardings.py",
             "launch/hlo_analysis.py", "distributed/sharding.py", "distributed/policies.py",
-            "distributed/fsdp.py", "serving/profiles.py", "configs/shapes.py"} <= names
+            "distributed/fsdp.py", "serving/profiles.py", "configs/shapes.py",
+            "launch/memmodel.py", "launch/costmodel.py", "launch/dryrun.py"} <= names
     bad = [
         f"{path.relative_to(REPO)}: {mod}"
         for path in files
