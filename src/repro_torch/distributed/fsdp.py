@@ -157,15 +157,16 @@ def _gather(p: torch.Tensor) -> torch.Tensor:
 
 
 class _View:
-    """A module's weights as plain tensors, under the module's names."""
+    """A module's weights under the module's names, each through a leaf
+    function."""
 
 
-def _view(m: torch.nn.Module) -> _View:
+def _view(m: torch.nn.Module, leaf=_gather) -> _View:
     v = _View()
     for name, p in m.named_parameters(recurse=False):
-        setattr(v, name, _gather(p))
+        setattr(v, name, leaf(p))
     for name, child in m.named_children():
-        setattr(v, name, _view(child))
+        setattr(v, name, _view(child, leaf))
     return v
 
 
@@ -184,27 +185,21 @@ def _tp_only(p: torch.Tensor) -> torch.Tensor:
     return p if want == tuple(p.placements) else p.redistribute(p.device_mesh, want)
 
 
-def _tp_view(m: torch.nn.Module) -> _View:
-    v = _View()
-    for name, p in m.named_parameters(recurse=False):
-        setattr(v, name, _tp_only(p))
-    for name, child in m.named_children():
-        setattr(v, name, _tp_view(child))
-    return v
-
-
 def serving_view(m: torch.nn.Module):
     """``m`` itself, or, when a weight is a DTensor sharded over a mesh axis
     other than ``model`` (the ``ep_tp`` rules' 2-D leaves: a dense layer's
     embed or ffn dim, an expert's embed dim, over ``data``), a view whose
     weights are gathered over those axes and keep their ``model`` shards:
-    the layer then runs tensor-parallel as the ``tp`` rules' layers do."""
-    def data_sharded(p):
-        return isinstance(p, DTensor) and any(
-            place.is_shard() and name != "model"
-            for name, place in zip(p.device_mesh.mesh_dim_names, p.placements))
+    the layer then runs tensor-parallel as the ``tp`` rules' layers do.
+    A layer of plain tensors (the first weight tells) is returned at once."""
+    if not isinstance(next(m.parameters(), None), DTensor):
+        return m
 
-    return _tp_view(m) if any(data_sharded(p) for p in m.parameters()) else m
+    def data_sharded(p):
+        return any(place.is_shard() and name != "model"
+                   for name, place in zip(p.device_mesh.mesh_dim_names, p.placements))
+
+    return _view(m, _tp_only) if any(data_sharded(p) for p in m.parameters()) else m
 
 
 def local_params(params):

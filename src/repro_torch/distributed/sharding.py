@@ -46,6 +46,9 @@ __all__ = [
     "named_sharding_tree",
     "mesh_sizes",
     "rows_over_data",
+    "row_axes",
+    "heads_divide",
+    "rows_heads",
 ]
 
 
@@ -217,20 +220,52 @@ def act_spec(shape: tuple[int, ...], name: str, mesh, policy: ShardingPolicy):
     return PartitionSpec(*spec)
 
 
-def rows_over_data(x):
-    """A DTensor (B, ...) placed as the serving rules' ``act_btd``: rows over
-    every mesh axis but ``model`` when B divides by their size, else over
-    ``data`` when it divides, else whole; whole on ``model``."""
-    from torch.distributed.tensor import Replicate, Shard
-
-    mesh = x.device_mesh
+def row_axes(mesh, *rows: int) -> list[str]:
+    """The mesh axes that a sharded serving step splits batch rows over
+    (the serving rules' ``act_btd``): every axis but ``model`` when each of
+    ``rows`` divides by their size, else ``data`` when each divides by its
+    size, else none.  Heads (or channels) go over ``model``."""
     names = list(mesh.mesh_dim_names)
-    sizes = dict(zip(names, mesh.mesh.shape))
+    sizes = dict(zip(names, (int(n) for n in mesh.mesh.shape)))
     data = [n for n in names if n != "model"]
     n_data = 1
     for n in data:
-        n_data *= int(sizes[n])
-    if x.shape[0] % n_data:
-        data = ["data"] if "data" in names and x.shape[0] % int(sizes["data"]) == 0 else []
-    want = tuple(Shard(0) if n in data else Replicate() for n in names)
+        n_data *= sizes[n]
+    if all(r % n_data == 0 for r in rows):
+        return data
+    if "data" in names and all(r % sizes["data"] == 0 for r in rows):
+        return ["data"]
+    return []
+
+
+def heads_divide(mesh, *heads: int) -> bool:
+    """Whether each of ``heads`` (head or channel counts) splits over the
+    ``model`` axis; False on a mesh without one."""
+    names = list(mesh.mesh_dim_names)
+    if "model" not in names:
+        return False
+    n = int(mesh.size(names.index("model")))
+    return all(h % n == 0 for h in heads)
+
+
+def rows_heads(mesh, rows_on: list[str], row_dim: int | None, head_dim: int | None) -> tuple:
+    """DTensor placements on ``mesh``: ``Shard(row_dim)`` on the axes
+    ``rows_on``, ``Shard(head_dim)`` on ``model``, whole elsewhere (a None
+    dim is whole everywhere)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    out = []
+    for name in mesh.mesh_dim_names:
+        if name == "model":
+            out.append(Replicate() if head_dim is None else Shard(head_dim))
+        else:
+            out.append(Shard(row_dim) if row_dim is not None and name in rows_on else Replicate())
+    return tuple(out)
+
+
+def rows_over_data(x):
+    """A DTensor (B, ...) placed as the serving rules' ``act_btd``: rows over
+    ``row_axes``, whole on ``model``."""
+    mesh = x.device_mesh
+    want = rows_heads(mesh, row_axes(mesh, x.shape[0]), 0, None)
     return x if tuple(x.placements) == want else x.redistribute(mesh, want)

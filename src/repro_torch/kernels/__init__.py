@@ -48,6 +48,8 @@ from __future__ import annotations
 import threading
 
 import torch
+from torch._subclasses.fake_tensor import is_fake as _is_fake
+from torch.distributed.tensor import DTensor
 
 __all__ = ["LaunchCounter", "launch_counts", "reset_launch_counts", "add_launches",
            "thread_launch_counts", "records_grad", "refuse_grad", "GRADIENTS_RULE",
@@ -158,16 +160,14 @@ def refuse_grad(kernel: str, where: str, *tensors) -> None:
 
 
 def is_fake(t) -> bool:
-    """Whether ``t`` is a ``FakeTensor`` (a traced step's stand-in)."""
-    from torch._subclasses.fake_tensor import is_fake as _is_fake
-
-    return isinstance(t, torch.Tensor) and _is_fake(t)
+    """Whether ``t`` is a ``FakeTensor`` (a traced step's stand-in), or a
+    DTensor whose shards are.  A plain ``torch.Tensor`` is answered at
+    once: the wrappers ask on every call."""
+    return isinstance(t, torch.Tensor) and type(t) is not torch.Tensor and _is_fake(t)
 
 
 def is_sharded(t) -> bool:
     """Whether ``t`` is a ``DTensor``."""
-    from torch.distributed.tensor import DTensor
-
     return isinstance(t, DTensor)
 
 
@@ -176,44 +176,32 @@ def on_shards(fn, args: tuple, dims: tuple, out_dims: tuple):
 
     ``dims`` gives, per argument, (batch dim, head dim) or None for an
     argument that is no tensor (None included) or is kept whole; one
-    entry of the pair may be None.  The batch dims are split over the
-    mesh's axes other than ``model`` when every one divides by their
-    size, the head dims over ``model`` when every one divides; anything
-    else is replicated.  Plain tensors among the arguments count as
-    replicated.  ``out_dims`` gives the same pairs for ``fn``'s outputs
-    (a tuple of tensors, or one tensor when ``out_dims`` has one entry)."""
-    from torch.distributed.tensor import DTensor, Replicate, Shard
+    entry of the pair may be None.  The batch dims are split over
+    ``distributed.sharding.row_axes`` of every batch size, the head dims
+    over ``model`` when every one divides (``heads_divide``); anything
+    else is replicated.
+    Plain tensors among the arguments count as replicated.  ``out_dims``
+    gives the same pairs for ``fn``'s outputs (a tuple of tensors, or one
+    tensor when ``out_dims`` has one entry)."""
+    from torch.distributed.tensor import Replicate
     from torch.distributed.tensor.experimental import local_map
 
+    from repro_torch.distributed.sharding import heads_divide, row_axes, rows_heads
+
     mesh = next(a.device_mesh for a in args if isinstance(a, DTensor))
-    names = list(mesh.mesh_dim_names)
-    sizes = dict(zip(names, mesh.mesh.shape))
-    batch_axes = [n for n in names if n != "model"]
-    n_batch = 1
-    for n in batch_axes:
-        n_batch *= int(sizes[n])
-    n_model = int(sizes.get("model", 1))
     tensors = [(a, d) for a, d in zip(args, dims) if d is not None]
-    split_batch = all(d[0] is None or a.shape[d[0]] % n_batch == 0 for a, d in tensors)
-    split_heads = "model" in names and all(d[1] is None or a.shape[d[1]] % n_model == 0
-                                           for a, d in tensors)
+    rows_on = row_axes(mesh, *(a.shape[d[0]] for a, d in tensors if d[0] is not None))
+    split_heads = heads_divide(mesh, *(a.shape[d[1]] for a, d in tensors if d[1] is not None))
 
     def placements(pair):
         if pair is None:
             return None
-        bdim, hdim = pair
-        out = []
-        for name in names:
-            if name == "model":
-                out.append(Shard(hdim) if split_heads and hdim is not None else Replicate())
-            else:
-                out.append(Shard(bdim) if split_batch and bdim is not None else Replicate())
-        return tuple(out)
+        return rows_heads(mesh, rows_on, pair[0], pair[1] if split_heads else None)
 
     ins = []
     for a, d in zip(args, dims):
         if d is not None and not isinstance(a, DTensor):
-            a = DTensor.from_local(a, mesh, [Replicate()] * len(names), run_check=False)
+            a = DTensor.from_local(a, mesh, [Replicate()] * mesh.ndim, run_check=False)
         ins.append(a)
     outs = tuple(placements(p) for p in out_dims)
     mapped = local_map(fn, out_placements=outs,

@@ -13,9 +13,11 @@ XLA's ``cost_analysis`` counts a scan's body once:
   * tail   — the remainder layers.
 
 The port runs its layers in a Python loop and traces them eagerly, so a
-trace of the whole step already counts every layer; the pieces are kept
-because their sum must equal that trace (``tests/test_torch_dryrun.py``
-holds it), and because a period's cost is the unit a reader compares.
+trace of the whole step already counts every layer: the dry run takes
+its totals from that trace, and composes only when asked for the
+breakdown (``launch.dryrun --composed``), a period's cost being the unit
+a reader compares.  The sum equals the whole trace's FLOPs
+(``tests/test_torch_dryrun.py`` holds it).
 Each piece runs the model's own code on fake tensors (``FakeTensorMode``)
 over the caller's mesh, weights as fake DTensors placed by ``policy``
 (``models.spec.abstract_params`` through ``launch.shardings``): the stub
@@ -38,9 +40,10 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch.distributed import fsdp
-from repro_torch.distributed.sharding import NamedSharding, act_spec, named_sharding_tree
+from repro_torch.distributed.sharding import named_sharding_tree, rows_over_data
 from repro_torch.launch import shardings as shd
 from repro_torch.launch.hlo_analysis import StepTrace, collective_bytes
 from repro_torch.launch.steps import (
@@ -50,7 +53,7 @@ from repro_torch.launch.steps import (
     placed,
     sharded_loss_and_grads,
 )
-from repro_torch.models import LM, transformer
+from repro_torch.models import LM, blocks, transformer
 from repro_torch.models.attention import attention_options
 from repro_torch.models.kvcache import model_dtype
 from repro_torch.training.optimizer import OptimizerConfig
@@ -169,8 +172,11 @@ def _piece(cfg, kinds, shape, mesh, policy) -> dict:
     seq = s if shape.step == "prefill" else 1
     p_sh, (_, cache_sh, _) = shd.serve_shardings(model, mesh, b, s, step=shape.step)
     params = fake_params(model, p_sh)
-    spec = act_spec((b, seq, d), "act_btd", mesh, policy)
-    x = fsdp.shard_tensor(torch.empty((b, seq, d), dtype=dtype), NamedSharding(mesh, spec))
+    # The residual stream where each layer's entry holds it (``blocks.residual``),
+    # in and out: the whole step reduces a layer's pending output sum where
+    # the next layer or the final norm reads it, so a piece ends with it.
+    x = rows_over_data(DTensor.from_local(torch.empty((b, seq, d), dtype=dtype), mesh,
+                                          [Replicate()] * mesh.ndim, run_check=False))
 
     def run(fn):
         from torch.distributed.tensor.experimental import implicit_replication
@@ -182,16 +188,17 @@ def _piece(cfg, kinds, shape, mesh, policy) -> dict:
         def piece(params, x):
             def go():
                 y, caches = transformer.layers_prefill(params.layers, x, cfg_p, s)
-                return y, [{k: placed(v, cache_sh["layers"][i][k]) for k, v in c.items()}
-                           for i, c in enumerate(caches)]
+                return blocks.residual(y), [
+                    {k: placed(v, cache_sh["layers"][i][k]) for k, v in c.items()}
+                    for i, c in enumerate(caches)]
             return run(go)
 
         return trace(piece, (params, x), (params, x))
     cache = _fake_cache(model, cache_sh, b, s, s - 1)
 
     def piece(params, x, cache):
-        return run(lambda: transformer.layers_decode(params.layers, x, cache["layers"],
-                                                     cache["pos"], cfg_p))
+        return run(lambda: blocks.residual(transformer.layers_decode(
+            params.layers, x, cache["layers"], cache["pos"], cfg_p)))
 
     return trace(piece, (params, x, cache), (params, x, cache))
 

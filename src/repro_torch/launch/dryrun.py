@@ -14,9 +14,8 @@ forces no device count: for every supported cell it
   3. runs the whole step once under ``launch.hlo_analysis.StepTrace`` on
      fake tensors: rank 0's FLOPs, bytes accessed, collectives and peak
      live bytes, and the kernels' fake launches,
-  4. composes the roofline's FLOPs and collective bytes from the stub,
-     one period and the tail (``launch.costmodel.composed_cost``) and its
-     memory term from ``launch.memmodel``, on the H100's ``HW``,
+  4. builds the roofline from that trace's FLOPs and collective bytes and
+     from ``launch.memmodel``'s memory term, on the H100's ``HW``,
 
 and writes the reference's record to
 ``results/dryrun_torch/<arch>__<shape>__<mesh><suffix>.json`` (never the
@@ -25,16 +24,25 @@ reference's ``results/dryrun/``).  ``lower_s`` is the set-up's seconds,
 it ran; ``memory_analysis`` holds the traced peak as ``argument`` (the
 inputs) plus ``temp`` bytes, so ``hbm_per_device_bytes`` is that peak.
 
+The reference composes its FLOPs from a stub, one period and the tail
+because XLA counts a scan's body once; the port's eager trace counts
+every layer, so its whole step is the total (``cost_source``
+``"whole_step"``).  ``--composed`` adds the breakdown
+(``launch.costmodel.composed_cost``, a second trace of the pieces) as the
+record's ``composed``.
+
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch tinyllama-1.1b --shape train_4k
   PYTHONPATH=src python -m repro_torch.launch.dryrun                  # every cell, both meshes
   PYTHONPATH=src python -m repro_torch.launch.dryrun --mesh pod --out /tmp/records
 
-The reference's environment switches are flags here: ``--attn-chunk``
-(``REPRO_ATTN_CHUNK``), ``--kv-quant`` (``REPRO_KV_QUANT``), ``--suffix``
-(``REPRO_CELL_SUFFIX``) and ``--skip-masked-blocks``
-(``REPRO_ATTN_UNROLL_SKIP``: K3 and K3b counted by the key tiles they
-run).  Runs on the CPU or beside a card alike; it touches no device.
+The reference's environment switches are flags here: ``--kv-quant``
+(``REPRO_KV_QUANT``), ``--suffix`` (``REPRO_CELL_SUFFIX``) and
+``--skip-masked-blocks`` (``REPRO_ATTN_UNROLL_SKIP``: K3 and K3b counted
+by the key tiles they run).  ``REPRO_ATTN_CHUNK`` has none: it sets the
+chunks of the reference's XLA attention, and K3's tiles are fixed
+(ROADMAP.md, P14).  Runs on the CPU or beside a card alike; it touches no
+device.
 """
 from __future__ import annotations
 
@@ -59,60 +67,62 @@ def _opt_cfg(cfg):
     return OptimizerConfig(quantize_moments=cfg.param_count() > 100e9)
 
 
-def dry_run(cfg, shape, mesh_shape: dict, *, skip_masked_blocks: bool = False) -> dict:
+def dry_run(cfg, shape, mesh_shape: dict, *, composed: bool = False) -> dict:
     """One cell's record without status, file or timings of its own: the
-    whole step traced and the composed cost, on a fake world of
-    ``mesh_shape`` ({axis: size}, in mesh order)."""
+    whole step traced on a fake world of ``mesh_shape`` ({axis: size}, in
+    mesh order), under the caller's ``models.attention.attention_options``
+    (recorded); ``composed`` adds ``composed_cost``'s breakdown."""
     from repro_torch import kernels
     from repro_torch.distributed.policies import make_policy
     from repro_torch.launch.costmodel import composed_cost, fake_mode, step_setup, trace
     from repro_torch.launch.hlo_analysis import roofline_terms
     from repro_torch.launch.memmodel import analytic_hbm_bytes, roofline_fraction_for
     from repro_torch.launch.mesh import fake_world, make_mesh
-    from repro_torch.models.attention import attention_options
+    from repro_torch.models.attention import _attn_opts
 
+    opts = _attn_opts()
     n_dev = math.prod(mesh_shape.values())
-    rec: dict = {}
+    rec: dict = {"attention_options": {"unroll": opts["unroll"],
+                                       "skip_masked_blocks": opts["skip"]}}
     with fake_world(n_dev):
         mesh = make_mesh(tuple(mesh_shape.values()), tuple(mesh_shape))
         policy = make_policy(cfg, shape.step, mesh)
         opt_cfg = _opt_cfg(cfg) if shape.step == "train" else None
         t0 = time.time()
-        with attention_options(unroll=skip_masked_blocks, skip_masked_blocks=skip_masked_blocks):
-            with fake_mode():
-                fn, args, inputs = step_setup(cfg, shape, mesh, policy, opt_cfg)
-                t_lower = time.time()
-                kernels.reset_launch_counts()
-                whole = trace(fn, args, inputs)
-                del fn, args, inputs
-            t_compile = time.time()
+        with fake_mode():
+            fn, args, inputs = step_setup(cfg, shape, mesh, policy, opt_cfg)
+            t_lower = time.time()
+            kernels.reset_launch_counts()
+            whole = trace(fn, args, inputs)
+            del fn, args, inputs
+        t_compile = time.time()
         rec["launches"] = {k: v for k, v in kernels.fake_launch_counts().items() if v}
-        if opt_cfg is not None:
-            rec["opt_quantized_moments"] = opt_cfg.quantize_moments
-        rec["lower_s"] = round(t_lower - t0, 2)
-        rec["compile_s"] = round(t_compile - t_lower, 2)
-        rec["memory_analysis"] = {
-            "argument_size_in_bytes": whole["start_bytes"],
-            "output_size_in_bytes": 0,
-            "temp_size_in_bytes": whole["peak_bytes"] - whole["start_bytes"],
-            "alias_size_in_bytes": 0,
-            "generated_code_size_in_bytes": 0,
-        }
-        rec["hbm_per_device_bytes"] = whole["peak_bytes"]
-        rec["cost_analysis"] = {"flops": whole["flops"], "bytes accessed": whole["bytes"]}
-        rec["collectives"] = whole["collectives"]
-        rec["hlo_len"] = whole["ops"]
-        comp = composed_cost(cfg, shape, mesh, policy, opt_cfg,
-                             skip_masked_blocks=skip_masked_blocks)
-    rec["composed"] = comp
-    rec["cost_source"] = "composed"
-    flops_dev = comp["totals"]["flops"]
-    coll_dev = float(comp["totals"]["collective_bytes"])
+        if composed:
+            rec["composed"] = composed_cost(cfg, shape, mesh, policy, opt_cfg,
+                                            skip_masked_blocks=opts["skip"])
+    if opt_cfg is not None:
+        rec["opt_quantized_moments"] = opt_cfg.quantize_moments
+    rec["lower_s"] = round(t_lower - t0, 2)
+    rec["compile_s"] = round(t_compile - t_lower, 2)
+    rec["memory_analysis"] = {
+        "argument_size_in_bytes": whole["start_bytes"],
+        "output_size_in_bytes": 0,
+        "temp_size_in_bytes": whole["peak_bytes"] - whole["start_bytes"],
+        "alias_size_in_bytes": 0,
+        "generated_code_size_in_bytes": 0,
+    }
+    rec["hbm_per_device_bytes"] = whole["peak_bytes"]
+    rec["cost_analysis"] = {"flops": whole["flops"], "bytes accessed": whole["bytes"]}
+    rec["collectives"] = whole["collectives"]
+    rec["hlo_len"] = whole["ops"]
+    rec["cost_source"] = "whole_step"
+    flops_dev = whole["flops"]
     mem_model = analytic_hbm_bytes(cfg, shape, mesh_shape,
                                    opt_quantized=rec.get("opt_quantized_moments", False))
     rec["hbm_traffic_model"] = mem_model
-    rec["hlo_bytes_accessed_upper_bound"] = comp["totals"]["bytes"]
-    rec["roofline"] = roofline_terms(flops_dev, mem_model["total"], coll_dev)
+    rec["hlo_bytes_accessed_upper_bound"] = whole["bytes"]
+    rec["roofline"] = roofline_terms(flops_dev, mem_model["total"],
+                                     float(whole["collectives"]["total_bytes"]))
     tokens = shape.global_batch * (shape.seq_len if shape.step != "decode" else 1)
     model_flops = cfg.model_flops_per_token() * tokens
     if shape.step != "train":
@@ -128,16 +138,15 @@ def dry_run(cfg, shape, mesh_shape: dict, *, skip_masked_blocks: bool = False) -
 
 
 def run_cell(arch: str, shape_name: str, mesh_kind: str, force: bool = False, *,
-             out_dir=None, attn_chunk: int = 0, kv_quant: bool = False, suffix: str = "",
-             skip_masked_blocks: bool = False) -> dict:
+             out_dir=None, kv_quant: bool = False, suffix: str = "",
+             skip_masked_blocks: bool = False, composed: bool = False) -> dict:
     """Trace one cell and write its record (a cached record is returned
     unless ``force``).  Skipped and failed cells are written too."""
     from repro_torch.configs import get_config
     from repro_torch.configs.shapes import SHAPES, cell_supported
+    from repro_torch.models.attention import attention_options
 
     cfg = get_config(arch)
-    if attn_chunk:
-        cfg = dataclasses.replace(cfg, attn_q_chunk=attn_chunk, attn_kv_chunk=attn_chunk)
     if kv_quant:
         cfg = dataclasses.replace(cfg, kv_quant=True)
     shape = SHAPES[shape_name]
@@ -163,7 +172,9 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, force: bool = False, *,
     if skip_masked_blocks:
         rec["attn_impl"] = "unrolled_causal_skip"
     try:
-        rec.update(dry_run(cfg, shape, mesh_shape, skip_masked_blocks=skip_masked_blocks))
+        # The reference's REPRO_ATTN_UNROLL_SKIP sets both options.
+        with attention_options(unroll=skip_masked_blocks, skip_masked_blocks=skip_masked_blocks):
+            rec.update(dry_run(cfg, shape, mesh_shape, composed=composed))
         rec["status"] = "ok"
     except Exception as e:
         rec["status"] = "error"
@@ -187,12 +198,12 @@ def main(argv=None) -> int:
     ap.add_argument("--force", action="store_true", help="recompute cached cells")
     ap.add_argument("--list", action="store_true", help="list cells and exit")
     ap.add_argument("--out", default=None, help=f"record directory (default {RESULTS})")
-    ap.add_argument("--attn-chunk", type=int, default=0,
-                    help="attention q/kv chunk of the configs (recorded; K3 keeps its tiles)")
     ap.add_argument("--kv-quant", action="store_true", help="int8 KV caches")
     ap.add_argument("--suffix", default="", help="suffix of the record files")
     ap.add_argument("--skip-masked-blocks", action="store_true",
                     help="count the key tiles K3 and K3b run, not the full square")
+    ap.add_argument("--composed", action="store_true",
+                    help="add the stub / period / tail breakdown (a second trace)")
     args = ap.parse_args(argv)
 
     archs = args.arch or list(ARCHS)
@@ -207,8 +218,8 @@ def main(argv=None) -> int:
     failures = 0
     for arch, shape_name, mesh_kind in cells:
         rec = run_cell(arch, shape_name, mesh_kind, force=args.force, out_dir=args.out,
-                       attn_chunk=args.attn_chunk, kv_quant=args.kv_quant, suffix=args.suffix,
-                       skip_masked_blocks=args.skip_masked_blocks)
+                       kv_quant=args.kv_quant, suffix=args.suffix,
+                       skip_masked_blocks=args.skip_masked_blocks, composed=args.composed)
         status = rec.get("status")
         if status == "ok":
             rt = rec["roofline"]

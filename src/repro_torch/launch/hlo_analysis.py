@@ -39,16 +39,29 @@ dense bf16 tensor-core rate, the HBM3 bandwidth and NVLink's 900 GB/s to
 the host's other cards, 450 GB/s each way.  The reference's ``HW`` holds
 a TPU v5e's.  A card set below 700 W runs slower under load than these
 peaks say.
+
+The dry run leans on three private names of PyTorch (``INTERNALS``):
+``StepTrace`` pauses itself while DTensor propagates an output's shape
+(``ShardingPropagator._propagate_tensor_meta_non_cached``, which runs the
+op on global fake shapes; uncounted, layer 0 counted 2.8x), ``launch.
+mesh.fake_world`` takes its store from ``torch.testing._internal``, and
+``models.layers.rope`` asks whether a fake mode is active.  Both
+``StepTrace`` and ``fake_world`` check them first (``require_internals``)
+and name the PyTorch release that lacks one.
 """
 from __future__ import annotations
 
+import importlib
+import importlib.util
 import weakref
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import flop_registry
 
-__all__ = ["StepTrace", "collective_bytes", "roofline_terms", "HW", "KINDS"]
+__all__ = ["StepTrace", "collective_bytes", "roofline_terms", "HW", "KINDS", "INTERNALS",
+           "missing_internals", "require_internals"]
 
 # One H100 SXM at its 700 W limit (NVIDIA data sheet, dense rates).
 HW = {
@@ -72,6 +85,40 @@ KINDS = {
 }
 _COLLECTIVE_NS = ("_c10d_functional", "c10d")
 ROUND = 512  # the caching allocator's block granularity
+
+# (module, attribute path) of the private PyTorch names the dry run uses.
+INTERNALS = (
+    ("torch.distributed.tensor._sharding_prop",
+     "ShardingPropagator._propagate_tensor_meta_non_cached"),
+    ("torch.testing._internal.distributed.fake_pg", "FakeStore"),
+    ("torch._C", "_get_dispatch_mode"),
+    ("torch._C", "_TorchDispatchModeKey.FAKE"),
+)
+
+
+def missing_internals() -> list[str]:
+    """The names of ``INTERNALS`` that this PyTorch lacks."""
+    missing = []
+    for module, path in INTERNALS:
+        if importlib.util.find_spec(module) is None:
+            missing.append(module)
+            continue
+        obj = importlib.import_module(module)
+        for part in path.split("."):
+            obj = getattr(obj, part, None)
+            if obj is None:
+                missing.append(f"{module}.{path}")
+                break
+    return missing
+
+
+def require_internals() -> None:
+    """Raise, naming the PyTorch release, when ``INTERNALS`` are missing:
+    without them the dry run would fail midway or miscount."""
+    missing = missing_internals()
+    if missing:
+        raise RuntimeError(f"the dry run needs PyTorch internals that torch {torch.__version__} "
+                           f"lacks: {', '.join(missing)}")
 
 
 def _tensors(x):
@@ -111,6 +158,8 @@ class StepTrace(TorchDispatchMode):
     def __enter__(self):
         from torch.distributed.tensor._sharding_prop import ShardingPropagator
 
+        require_internals()
+
         orig = ShardingPropagator._propagate_tensor_meta_non_cached
         trace = self
 
@@ -135,7 +184,7 @@ class StepTrace(TorchDispatchMode):
         self.live -= self._held.pop(key, 0)
 
     def _hold(self, t: torch.Tensor) -> None:
-        if t.device.type == "meta" and not _fake(t):
+        if t.device.type == "meta" and not is_fake(t):
             return
         st = t.untyped_storage()
         key = st._cdata
@@ -174,12 +223,6 @@ class StepTrace(TorchDispatchMode):
         for t in _tensors(out):
             self._hold(t)
         return out
-
-
-def _fake(t) -> bool:
-    from torch._subclasses.fake_tensor import is_fake
-
-    return is_fake(t)
 
 
 def _leaves(tree):

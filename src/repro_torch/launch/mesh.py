@@ -28,6 +28,10 @@ def fake_world(n: int):
     collectives return tensors of their results' shapes and move nothing.
     Refuses when a process group is already up; destroys its own on exit."""
     import torch.distributed as dist
+
+    from repro_torch.launch.hlo_analysis import require_internals
+
+    require_internals()
     from torch.testing._internal.distributed.fake_pg import FakeStore
 
     if dist.is_initialized():

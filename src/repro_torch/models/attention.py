@@ -31,8 +31,8 @@ always runs its kernels, so the options change only how a traced step
 counts them: with ``skip_masked_blocks=False`` (the default) K3's and
 K3b's FLOP formulas count the full Sq x Skv square, as the reference's
 unrolled attention computes it; with ``True`` the key tiles K3 runs.
-``unroll`` is recorded and changes nothing: an eager trace counts every
-block anyway.
+``unroll`` changes nothing (an eager trace counts every block anyway);
+the dry run writes both options into its record.
 """
 from __future__ import annotations
 

@@ -12,6 +12,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import is_sharded
 from repro_torch.models.spec import P
 
 __all__ = [
@@ -100,7 +101,7 @@ def _summed(t):
     """t itself, or a DTensor product whose pending sums (``Partial``, a
     weight split on its input dim over ``model``: the ``ep_tp`` rules' dense
     layers) are all-reduced before a nonlinearity reads it."""
-    if not hasattr(t, "placements") or not any(p.is_partial() for p in t.placements):
+    if not is_sharded(t) or not any(p.is_partial() for p in t.placements):
         return t
     from torch.distributed.tensor import Replicate
 

@@ -37,6 +37,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.distributed.fsdp import local_params, local_view, serving_view
+from repro_torch.kernels import is_sharded
 from repro_torch.models import blocks
 from repro_torch.models.kvcache import model_dtype, position
 from repro_torch.models.layers import (
@@ -303,21 +304,26 @@ def prefill(params, tokens, cfg, max_len: int):
 
 
 def layers_prefill(layers, x, cfg, max_len: int):
-    """The layers' prefill passes on x: (x, their caches)."""
+    """The layers' prefill passes on x: (x, their caches).  On a DTensor x
+    (a sharded serving step) each layer runs through its ``serving_view``
+    and x is held on the data axes at its entry (``blocks.residual``)."""
+    sharded = is_sharded(x)
     caches = []
     for layer, kind in zip(layers, _kinds(cfg)):
-        x, cache = blocks.block_prefill(serving_view(layer), blocks.residual(x), cfg, kind,
-                                        max_len)
+        x, cache = blocks.block_prefill(serving_view(layer) if sharded else layer,
+                                        blocks.residual(x), cfg, kind, max_len)
         caches.append(cache)
     return x, caches
 
 
 def layers_decode(layers, x, caches, pos, cfg):
     """The layers' decode steps on x (B, 1, D) at ``pos``, each writing its
-    cache in place: x."""
+    cache in place: x.  A DTensor x runs as in ``layers_prefill``."""
+    sharded = is_sharded(x)
     slots = _slots(cfg, caches, pos, x.shape[0])
     for layer, c, kind, (slot, lengths) in zip(layers, caches, _kinds(cfg), slots):
-        x, _ = blocks.block_decode(serving_view(layer), blocks.residual(x), c, pos, cfg, kind,
+        x, _ = blocks.block_decode(serving_view(layer) if sharded else layer,
+                                   blocks.residual(x), c, pos, cfg, kind,
                                    lengths=lengths, slot=slot)
     return x
 

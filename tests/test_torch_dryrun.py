@@ -29,11 +29,17 @@ the CPU.
   ``tp`` rules and llama4-scout and llama4-maverick under ``ep_tp``.
 * ``python -m repro_torch.launch.dryrun --out`` as a child process writes
   records with the reference's keys, which the port's and the reference's
-  ``lm_latency_model`` read alike.
+  ``lm_latency_model`` read alike; ``--composed`` adds the breakdown,
+  whose FLOPs equal the whole step's; no flag stands for the reference's
+  attention chunk (P14); the private PyTorch names the trace uses are
+  checked.
+* One placement rule (``distributed.sharding.row_axes``) for the kernels'
+  shards and the residual stream; ``fsdp.serving_view``.
 """
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -530,9 +536,11 @@ def test_sharded_decode_writes_the_sequence_sharded_cache():
 # ----------------------------------------------------------- the command line
 
 
+# The reference's keys of an ok record ("composed" only with --composed:
+# the whole step's one trace is the total, cost_source "whole_step").
 _REF_KEYS = {"arch", "shape", "mesh", "mesh_shape", "step", "params", "active_params",
              "seq_len", "global_batch", "lower_s", "compile_s", "memory_analysis",
-             "hbm_per_device_bytes", "cost_analysis", "collectives", "hlo_len", "composed",
+             "hbm_per_device_bytes", "cost_analysis", "collectives", "hlo_len",
              "cost_source", "hbm_traffic_model", "hlo_bytes_accessed_upper_bound", "roofline",
              "model_flops_total", "model_flops_per_device", "useful_flops_ratio", "status",
              "total_s"}
@@ -549,6 +557,7 @@ def test_dryrun_cli_records_read_by_both_profiles():
         for shape in ("prefill_32k", "decode_32k"):
             rec = json.loads(Path(d, f"{arch}__{shape}__pod.json").read_text())
             assert rec["status"] == "ok" and _REF_KEYS <= set(rec)
+            assert rec["cost_source"] == "whole_step" and "composed" not in rec
             assert rec["mesh_shape"] == PROD["pod"]
             assert rec["hbm_per_device_bytes"] == (
                 rec["memory_analysis"]["argument_size_in_bytes"]
@@ -559,6 +568,121 @@ def test_dryrun_cli_records_read_by_both_profiles():
         with tempfile.TemporaryDirectory() as empty:
             assert got != t_profiles.lm_latency_model(empty, arch)  # the roofline branch
     assert not (REPO / "results" / "dryrun").exists()
+
+
+def test_dryrun_composed_breakdown_and_options_in_the_record():
+    """``composed=True`` adds the breakdown, whose FLOPs equal the whole
+    step's that the roofline uses; the attention options in force are
+    written into the record."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.hlo_analysis import HW
+
+    cfg = get_config("tinyllama-1.1b").reduced()
+    shape = ShapeSpec("cell", 256, 8, "prefill")  # 4 query tiles of K3
+    rec = dryrun.dry_run(cfg, shape, {"data": 2, "model": 2})
+    assert "composed" not in rec and rec["cost_source"] == "whole_step"
+    assert rec["attention_options"] == {"unroll": False, "skip_masked_blocks": False}
+    assert rec["roofline"]["t_compute_s"] == rec["cost_analysis"]["flops"] / HW["peak_flops_bf16"]
+    assert rec["roofline"]["t_collective_s"] == (rec["collectives"]["total_bytes"]
+                                                 / HW["ici_bw"])
+    with attention_options(unroll=True, skip_masked_blocks=True):
+        skip = dryrun.dry_run(cfg, shape, {"data": 2, "model": 2}, composed=True)
+    assert skip["attention_options"] == {"unroll": True, "skip_masked_blocks": True}
+    assert skip["composed"]["totals"]["flops"] == skip["cost_analysis"]["flops"]
+    assert skip["cost_analysis"]["flops"] < rec["cost_analysis"]["flops"]
+    assert set(skip["composed"]) == {"stub", "period", "tail", "totals"}
+
+
+def test_dryrun_has_no_attention_chunk_flag():
+    """P14: the reference's REPRO_ATTN_CHUNK sets its XLA attention's
+    chunks; K3's tiles are fixed, so the port offers no flag for it."""
+    import inspect
+
+    from repro_torch.launch import dryrun
+
+    with pytest.raises(SystemExit) as exc:
+        dryrun.main(["--attn-chunk", "256", "--list"])
+    assert exc.value.code == 2
+    assert "attn_chunk" not in inspect.signature(dryrun.run_cell).parameters
+    assert dryrun.main(["--list", "--arch", "mamba2-130m", "--mesh", "pod"]) == 0
+
+
+def test_dryrun_checks_the_torch_internals_it_uses(monkeypatch):
+    """The private PyTorch names the dry run leans on are present here, and
+    a release without one is refused by name before any trace runs."""
+    from torch.distributed.tensor._sharding_prop import ShardingPropagator
+
+    from repro_torch.launch import hlo_analysis
+
+    assert hlo_analysis.missing_internals() == []
+    monkeypatch.delattr(ShardingPropagator, "_propagate_tensor_meta_non_cached")
+    want = (f"torch {torch.__version__} lacks: torch.distributed.tensor._sharding_prop."
+            "ShardingPropagator._propagate_tensor_meta_non_cached")
+    with pytest.raises(RuntimeError, match=re.escape(want)):
+        StepTrace().__enter__()
+    with pytest.raises(RuntimeError, match="lacks"):
+        with fake_world(4):
+            pass
+    assert not torch.distributed.is_initialized()
+
+
+def test_row_axes_one_rule_for_rows_and_heads():
+    """``distributed.sharding.row_axes``: rows over every axis but
+    ``model`` when they divide, else over ``data``, else whole; the
+    kernels' shards and the residual stream take it alike."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.distributed.sharding import heads_divide, row_axes, rows_heads, rows_over_data
+
+    with fake_world(8):
+        mesh = make_mesh((2, 2, 2), ("pod", "data", "model"))
+        assert row_axes(mesh, 8, 4) == ["pod", "data"]
+        assert row_axes(mesh, 8, 2) == ["data"]
+        assert row_axes(mesh, 3) == []
+        assert heads_divide(mesh, 4, 2) and not heads_divide(mesh, 4, 3)
+        assert rows_heads(mesh, ["data"], 0, 2) == (Replicate(), Shard(0), Shard(2))
+        assert rows_heads(mesh, ["pod", "data"], None, None) == (Replicate(),) * 3
+        with cm.fake_mode():
+            from torch.distributed.tensor import DTensor
+
+            x = DTensor.from_local(torch.empty((2, 5, 4)), mesh, [Replicate()] * 3,
+                                   run_check=False)
+            assert tuple(rows_over_data(x).placements) == (Replicate(), Shard(0), Replicate())
+            seen = {}
+
+            def local(a):
+                seen["shape"] = tuple(a.shape)
+                return a
+
+            kernels.on_shards(local, (x,), ((0, 2),), ((0, 2),))
+            assert seen["shape"] == (1, 5, 2)
+
+
+def test_serving_view_gathers_data_shards_and_passes_plain_layers():
+    """``fsdp.serving_view``: a layer of plain tensors is itself; a layer
+    whose weights are split over ``data`` keeps only its ``model`` shards."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.distributed import fsdp
+
+    plain = torch.nn.Linear(4, 4)
+    assert fsdp.serving_view(plain) is plain
+    with fake_world(4):
+        mesh = make_mesh((2, 2), ("data", "model"))
+        with cm.fake_mode():
+            from torch.distributed.tensor import DTensor
+
+            m = torch.nn.Module()
+            m.w = torch.nn.Parameter(DTensor.from_local(
+                torch.empty((4, 2)), mesh, [Shard(0), Shard(1)], run_check=False))
+            m.scale = torch.nn.Parameter(DTensor.from_local(
+                torch.empty((4,)), mesh, [Replicate(), Replicate()], run_check=False))
+            view = fsdp.serving_view(m)
+            assert tuple(view.w.placements) == (Replicate(), Shard(1))
+            assert tuple(view.scale.placements) == (Replicate(), Replicate())
+            m.w = torch.nn.Parameter(DTensor.from_local(
+                torch.empty((8, 2)), mesh, [Replicate(), Shard(1)], run_check=False))
+            assert fsdp.serving_view(m) is m
 
 
 def test_dryrun_records_skipped_and_failed_cells():

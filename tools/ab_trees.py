@@ -1,0 +1,145 @@
+"""Compare two source trees of the port on one card, in one run.
+
+Each tree is a directory holding ``chip_smoke.py`` and ``src/`` (a
+checkout, or ``git archive`` of a commit unpacked).  Every tree runs in
+a child process of its own, in the order given, so that a list such as
+``parent change change parent`` spreads the card's and the host's drift
+over both.
+
+  smoke   runs each tree's ``chip_smoke.py`` and stamps the moment each
+          phase header (a line starting ``[N]``) appears: the seconds of
+          every phase, the whole run's and its exit code.  Each run's
+          output goes to ``--out/<i>_<tree name>.log``.
+  decode  times the eager decode step (the kernels, no CUDA graph) of
+          the tree's ``repro_torch`` at full width with random weights:
+          tinyllama-1.1b (22 layers) and mamba2-130m (24 layers), batch 1,
+          a 128-token prompt, 200 steps after 8 warm-up steps.
+          ``host_ms`` is the median time to issue one step (no
+          synchronisation inside the step), ``cpu_ms`` the issuing
+          thread's CPU time for it (blind to time the thread spends
+          descheduled), ``step_ms`` the median step with the card
+          synchronised after it.  At batch 1 the card waits on the host,
+          so all three read the host's time for a step.
+
+Each prints one JSON object per tree and, last, the card's name and power
+limit.  Usage, from the repository root on a machine with a card:
+
+  python3 tools/ab_trees.py decode scratch_checkout/parent . . scratch_checkout/parent
+  python3 tools/ab_trees.py smoke --out chiprun_out/ab scratch_checkout/parent .
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import re
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+PHASE = re.compile(r"^\[(\d+[a-z]?)\]")
+DECODE_ARCHS = (("tinyllama-1.1b", 22), ("mamba2-130m", 24))
+STEPS = 200
+
+
+def card_line() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True)
+    return out.stdout.strip() or f"nvidia-smi failed: {out.stderr.strip()}"
+
+
+def smoke(tree: Path, log: Path) -> dict:
+    """One run of ``tree``'s chip_smoke.py: {"phases": {name: s}, "total_s", "rc"}."""
+    t0 = time.perf_counter()
+    marks: list[tuple[str, float]] = []
+    with open(log, "w") as f:
+        proc = subprocess.Popen([sys.executable, "-u", "chip_smoke.py"], cwd=tree,
+                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for line in proc.stdout:
+            f.write(line)
+            m = PHASE.match(line)
+            if m:
+                marks.append((m.group(1), time.perf_counter() - t0))
+        rc = proc.wait()
+    total = time.perf_counter() - t0
+    ends = [t for _, t in marks[1:]] + [total]
+    return {"tree": str(tree), "rc": rc, "total_s": round(total, 3),
+            "phases": {name: round(end - start, 3)
+                       for (name, start), end in zip(marks, ends)}}
+
+
+def decode_one() -> dict:
+    """The eager decode step of the ``repro_torch`` on ``sys.path``."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import LM
+
+    out = {}
+    for arch, layers in DECODE_ARCHS:
+        cfg = get_config(arch)
+        assert cfg.num_layers == layers, (arch, cfg.num_layers)
+        model = LM(cfg)
+        params = model.init(0, device="cuda")
+        gen = torch.Generator().manual_seed(0)
+        prompt = torch.randint(0, cfg.vocab_size, (1, 128), generator=gen).to("cuda")
+        with torch.no_grad():
+            logits, cache = model.prefill(params, prompt, max_len=128 + 8 + STEPS)
+            tok = logits.argmax(-1, keepdim=True).to(torch.int32)
+            host, cpu, step = [], [], []
+            for i in range(8 + STEPS):
+                torch.cuda.synchronize()
+                c0, t0 = time.thread_time(), time.perf_counter()
+                logits, cache = model.decode_step(params, cache, tok)
+                c1, t1 = time.thread_time(), time.perf_counter()
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                if i >= 8:
+                    host.append((t1 - t0) * 1e3)
+                    cpu.append((c1 - c0) * 1e3)
+                    step.append((t2 - t0) * 1e3)
+                tok = logits.argmax(-1, keepdim=True).to(torch.int32)
+        out[arch] = {name: {"median": statistics.median(v), "min": min(v)}
+                     for name, v in (("host_ms", host), ("cpu_ms", cpu), ("step_ms", step))}
+        del params, cache
+        torch.cuda.empty_cache()
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__,
+                                 formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("what", choices=["smoke", "decode", "decode-one"])
+    ap.add_argument("trees", nargs="*", type=Path)
+    ap.add_argument("--out", type=Path, default=Path("chiprun_out/ab"),
+                    help="directory of the smoke runs' logs")
+    args = ap.parse_intermixed_args(argv)
+    if args.what == "decode-one":
+        print(json.dumps(decode_one()))
+        return 0
+    rc = 0
+    args.out.mkdir(parents=True, exist_ok=True)
+    for i, tree in enumerate(args.trees):
+        tree = tree.resolve()
+        if args.what == "smoke":
+            res = smoke(tree, args.out / f"{i}_{tree.name}.log")
+        else:
+            env = dict(os.environ, PYTHONPATH=str(tree / "src"))
+            proc = subprocess.run([sys.executable, __file__, "decode-one"], env=env,
+                                  capture_output=True, text=True)
+            lines = proc.stdout.strip().splitlines()
+            res = {"tree": str(tree), "rc": proc.returncode}
+            if proc.returncode == 0 and lines:
+                res.update(json.loads(lines[-1]))
+            else:
+                res["error"] = proc.stderr[-2000:]
+        rc = rc or res["rc"]
+        print(json.dumps(res), flush=True)
+    print(f"card: {card_line()}")
+    return rc
+
+
+if __name__ == "__main__":
+    sys.exit(main())
