@@ -256,10 +256,14 @@ def ptxas_registers(name: str, keys) -> dict:
     return out
 
 
-# The head-dim-256 instances of K3, K4 and K3b (mangled-name keys): ptxas's
-# registers and spills are printed in phase 2.
+# The head-dim-256 instances of K3 (causal and not: Lb1 and Lb0), K4 and
+# K3b (mangled-name keys): ptxas's registers and spills are printed in
+# phase 2.
 D256_INSTANCES = {
-    "flash_attention": ("flash_attention_bf16_kernelILi256E", "flash_attention_f32_kernelILi256E"),
+    "flash_attention": ("flash_attention_bf16_kernelILi256ELb1E",
+                        "flash_attention_bf16_kernelILi256ELb0E",
+                        "flash_attention_f32_kernelILi256ELb1E",
+                        "flash_attention_f32_kernelILi256ELb0E"),
     "decode_attention": ("decode_attention_kernelI13__nv_bfloat16Li256E",
                          "decode_attention_kernelIfLi256E"),
     "flash_attention_bwd": ("flash_attention_bwd_dkdv_wgmma_kernel",
@@ -575,14 +579,15 @@ def _close(out, ref, tol: float, what: str, rtol: float | None = None) -> float:
     return float(diff.max())
 
 
-def _flash_plain(q, k, v, window):
+def _flash_plain(q, k, v, window, causal=True):
     """K3's plain version, model layout in and out."""
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
     b, sq, hq, d = q.shape
     hkv = k.shape[2]
     qk = q.reshape(b, sq, hkv, hq // hkv, d).permute(0, 2, 3, 1, 4)
-    out = flash_attention_ref(qk, k.transpose(1, 2), v.transpose(1, 2), window=window)
+    out = flash_attention_ref(qk, k.transpose(1, 2), v.transpose(1, 2), causal=causal,
+                              window=window)
     return out.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, d)
 
 
@@ -597,33 +602,36 @@ def _decode_plain(q, k, v, lengths, window):
     return out.reshape(b, 1, hq, d)
 
 
-def _flash_timing(q, k, v, window, flops, library):
+def _flash_timing(q, k, v, window, flops, library, causal=True):
     """K3 at one shape, checked against its plain version: device time,
     wrapper time, plain time, ``library`` time, and the bound from
-    ``flops`` (bf16 operations) and the bytes of q, k, v and o."""
+    ``flops`` (at the peak of q's type: bf16 on the tensor cores, f32 on the
+    CUDA cores) and the bytes of q, k, v and o."""
     import torch
 
     from repro_torch.kernels.flash_attention import ops as flash_ops
 
     b, s, hq, d = q.shape
     hkv = k.shape[2]
-    out = flash_ops.flash_attention(q, k, v, window=window)
-    err = _close(out, _flash_plain(q, k, v, window), ATTN_TOL["bfloat16"],
-                 f"K3 at {tuple(q.shape)} window {window}")
+    name = str(q.dtype).split(".")[1]
+    peak = BF16_FLOP_PER_S if q.dtype == torch.bfloat16 else FP32_FLOP_PER_S
+    out = flash_ops.flash_attention(q, k, v, causal=causal, window=window)
+    err = _close(out, _flash_plain(q, k, v, window, causal), ATTN_TOL[name],
+                 f"K3 at {tuple(q.shape)} {name} causal={causal} window {window}")
     torch.testing.assert_close(library().transpose(1, 2).float(), out.float(),
                                atol=ATTN_TOL["bfloat16"], rtol=ATTN_TOL["bfloat16"])
-    call = lambda: flash_ops.flash_attention(q, k, v, window=window)  # noqa: E731
-    bytes_moved = 2 * (2 * b * s * hq * d + 2 * b * s * hkv * d)
+    call = lambda: flash_ops.flash_attention(q, k, v, causal=causal, window=window)  # noqa: E731
+    bytes_moved = q.element_size() * (2 * b * s * hq * d + 2 * b * s * hkv * d)
     return {
         "ms": device_ms(call, "flash_attention", iters=10),
         "call_ms": timed_ms(call, iters=10),
-        "plain_ms": timed_ms(lambda: _flash_plain(q, k, v, window), iters=3, warmup=1),
+        "plain_ms": timed_ms(lambda: _flash_plain(q, k, v, window, causal), iters=3, warmup=1),
         "library_ms": timed_ms(library, iters=10),
-        "bound_ms": max(flops / BF16_FLOP_PER_S, bytes_moved / HBM_BYTES_PER_S) * 1e3,
-        "bound_by": ("operations" if flops / BF16_FLOP_PER_S > bytes_moved / HBM_BYTES_PER_S
-                     else "bytes"),
+        "bound_ms": max(flops / peak, bytes_moved / HBM_BYTES_PER_S) * 1e3,
+        "bound_by": "operations" if flops / peak > bytes_moved / HBM_BYTES_PER_S else "bytes",
         "max_abs_err": err,
-        "shape": f"B={b} S={s} Hq={hq} Hkv={hkv} D={d} bf16 causal"
+        "shape": f"B={b} S={s} Hq={hq} Hkv={hkv} D={d} {name} "
+                 + ("causal" if causal else "non-causal")
                  + (f" window={window}" if window else ""),
     }
 
@@ -631,9 +639,10 @@ def _flash_timing(q, k, v, window, flops, library):
 def check_flash(seed):
     """K3 against its plain version: the sweep of tests/test_kernels.py:22
     in f32 (the CUDA-core instance) and bf16 (the tensor-core instance),
-    at its head dims and again at 256; then the serving shapes in bf16,
-    timed beside SDPA: tinyllama's, gemma-7b's and gemma3-4b's windowed
-    prefill."""
+    at its head dims and again at 256, causal and not (with one Sq < Skv
+    case each); then the serving shapes in bf16, timed beside SDPA:
+    tinyllama's, gemma-7b's and gemma3-4b's windowed prefill; then
+    tinyllama's shape not causal in bf16 and causal in f32."""
     import torch
     import torch.nn.functional as F
 
@@ -642,20 +651,26 @@ def check_flash(seed):
     gen = torch.Generator(device="cuda").manual_seed(seed + 6)
     sweep = [(2, 128, 4, 4, 32, 0), (1, 256, 8, 2, 64, 0), (2, 96, 4, 1, 32, 0),
              (1, 256, 4, 2, 32, 64), (1, 130, 2, 2, 16, 32)]
-    for dims in ("its head dims", "head dim 256"):
-        for dtype in (torch.float32, torch.bfloat16):
-            name = str(dtype).split(".")[1]
-            errs = []
-            for b, s, hq, hkv, d, window in sweep:
-                d = d if dims == "its head dims" else 256
-                q = torch.randn((b, s, hq, d), generator=gen, device="cuda").to(dtype)
-                k, v = (torch.randn((b, s, hkv, d), generator=gen, device="cuda").to(dtype)
-                        for _ in range(2))
-                out = flash_ops.flash_attention(q, k, v, window=window)
-                errs.append(_close(out, _flash_plain(q, k, v, window), ATTN_TOL[name],
-                                   f"K3 {name} {(b, s, hq, hkv, d, window)}"))
-            print(f"  K3 {name}: 5 configurations of tests/test_kernels.py at {dims} within "
-                  f"{ATTN_TOL[name]}, max |d| {max(errs):.3g}")
+    for causal in (True, False):
+        # Sq < Skv: 37 queries at the last positions of 200 keys.
+        cases = [(b, s, s, hq, hkv, d, w) for b, s, hq, hkv, d, w in sweep]
+        cases.append((2, 37, 200, 4, 2, 32, 0 if causal else 64))
+        for dims in ("its head dims", "head dim 256"):
+            for dtype in (torch.float32, torch.bfloat16):
+                name = str(dtype).split(".")[1]
+                errs = []
+                for b, sq, skv, hq, hkv, d, window in cases:
+                    d = d if dims == "its head dims" else 256
+                    q = torch.randn((b, sq, hq, d), generator=gen, device="cuda").to(dtype)
+                    k, v = (torch.randn((b, skv, hkv, d), generator=gen,
+                                        device="cuda").to(dtype) for _ in range(2))
+                    out = flash_ops.flash_attention(q, k, v, causal=causal, window=window)
+                    errs.append(_close(out, _flash_plain(q, k, v, window, causal),
+                                       ATTN_TOL[name], f"K3 {name} causal={causal} "
+                                       f"{(b, sq, skv, hq, hkv, d, window)}"))
+                print(f"  K3 {name} {'causal' if causal else 'non-causal'}: the 5 "
+                      f"configurations of tests/test_kernels.py and Sq < Skv at {dims} within "
+                      f"{ATTN_TOL[name]}, max |d| {max(errs):.3g}")
 
     def inputs(b, s, hq, hkv, d):
         q = torch.randn((b, s, hq, d), generator=gen, device="cuda").to(torch.bfloat16)
@@ -663,9 +678,9 @@ def check_flash(seed):
                 for _ in range(2))
         return q, k, v
 
-    def causal(q, k, v):
+    def causal(q, k, v, is_causal=True):
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        return lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+        return lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=is_causal,
                                                       enable_gqa=True)
 
     b, s, hq, hkv, d = 8, 1024, 32, 4, 64
@@ -674,7 +689,17 @@ def check_flash(seed):
     t = _flash_timing(q, k, v, 0, 2 * b * hq * s * s * d, causal(q, k, v))
     print(f"  K3 serving shape {t['shape']}: max |d| {t['max_abs_err']:.3g} (tolerance 2e-2); "
           "SDPA agrees within 2e-2")
-    del q, k, v
+    # Not causal: the full square, 4 B Hq S^2 D; SDPA with is_causal=False.
+    t["non_causal"] = _flash_timing(q, k, v, 0, 4 * b * hq * s * s * d,
+                                    causal(q, k, v, False), causal=False)
+    # The f32 instance (CUDA cores) at the same shape, beside SDPA in f32.
+    qf, kf, vf = (x.float() for x in (q, k, v))
+    t["f32"] = _flash_timing(qf, kf, vf, 0, 2 * b * hq * s * s * d, causal(qf, kf, vf))
+    for key in ("non_causal", "f32"):
+        print(f"  K3 serving shape {t[key]['shape']}: max |d| {t[key]['max_abs_err']:.3g} "
+              f"(tolerance {ATTN_TOL['bfloat16' if key == 'non_causal' else 'float32']}); "
+              "SDPA agrees within 2e-2")
+    del q, k, v, qf, kf, vf
 
     b, s, hq, hkv, d = 8, 1024, 16, 16, 256  # gemma-7b's prefill, MHA
     q, k, v = inputs(b, s, hq, hkv, d)
@@ -824,6 +849,8 @@ def _decode_timing(q, k, v, lengths, mask, what, ms=None):
 # K5 against its plain version: tests/test_kernels.py:192.
 SSD_ATOL, SSD_RTOL = 2e-4, 1e-3
 # K5's five kernels, launched in this order by one ssd_chunk_scan call.
+# Phase 7b and 16 (a): K5 and K5b with B and C of this many groups.
+SSD_GROUPS = (2, 4)
 SSD_STAGES = ("ssd_chunk_scan_cumsum", "ssd_chunk_scan_scores", "ssd_chunk_scan_states",
               "ssd_chunk_scan_pass", "ssd_chunk_scan_output")
 
@@ -845,7 +872,8 @@ def check_ssd(seed):
     a length that is no multiple of the chunk through ``models.ssd``'s
     padding (card against host), then the serving shape: each of the five
     kernels against its plain stage, and the whole call and each stage
-    timed."""
+    timed; then the serving shape with B and C of 2 and 4 groups, two calls
+    bit-identical, timed beside one group."""
     import torch
 
     from repro_torch.kernels.ssd import ops as ssd_ops
@@ -939,6 +967,40 @@ def check_ssd(seed):
           f"{SSD_RTOL}, max |d| {err:.3g}; {flops / 1e9:.3f} GFLOP, {bytes_moved / 1e6:.1f} MB")
     print("  K5 device ms by stage: " + ", ".join(
         f"{k.removeprefix('ssd_chunk_scan_')} {v:.6f}" for k, v in stage_ms.items()))
+    t["groups"] = {}
+    for g in SSD_GROUPS:
+        # B and C of g groups, head h reading group h // (H / g): the scores
+        # once per (batch row, chunk, group).
+        bg, cg = (torch.randn((b, s, g, n), generator=gen, device="cuda") * 0.3
+                  for _ in range(2))
+        y, st = ssd_ops.ssd_chunk_scan(xdt, dA, bg, cg, chunk)
+        again = ssd_ops.ssd_chunk_scan(xdt, dA, bg, cg, chunk)
+        require(torch.equal(y, again[0]) and torch.equal(st, again[1]),
+                f"K5 with {g} groups: two calls differ")
+        y_ref, st_ref = ssd_chunk_ref(xdt, dA, bg, cg, chunk)
+        gerr = max(_close(y, y_ref, SSD_ATOL, f"K5 {g} groups y", SSD_RTOL),
+                   _close(st, st_ref, SSD_ATOL, f"K5 {g} groups state", SSD_RTOL))
+        del y, st, again, y_ref, st_ref
+        call = lambda: ssd_ops.ssd_chunk_scan(xdt, dA, bg, cg, chunk)  # noqa: E731
+        gflops = flops + 2 * b * nc * (g - 1) * tri * n
+        gbytes = bytes_moved + 4 * 2 * b * s * (g - 1) * n
+        gms, gstage = device_ms(call, "ssd_chunk_scan", iters=10, parts=SSD_STAGES)
+        t["groups"][g] = {
+            "ms": gms, "stage_ms": gstage,
+            "plain_ms": timed_ms(lambda: ssd_chunk_ref(xdt, dA, bg, cg, chunk), iters=3,
+                                 warmup=1),
+            "library_ms": None,
+            "bound_ms": max(gflops / FP32_FLOP_PER_S, gbytes / HBM_BYTES_PER_S) * 1e3,
+            "bound_by": ("operations" if gflops / FP32_FLOP_PER_S > gbytes / HBM_BYTES_PER_S
+                         else "bytes"),
+            "max_abs_err": gerr, "shape": f"{t['shape']} G={g}",
+        }
+        print(f"  K5 with {g} groups at {t['shape']}: within atol {SSD_ATOL}, rtol {SSD_RTOL}, "
+              f"max |d| {gerr:.3g}; two calls bit-identical; {gms:.6f} ms on the device "
+              f"(one group {ms:.6f}), bound {t['groups'][g]['bound_ms']:.6f} ms; by stage: "
+              + ", ".join(f"{k.removeprefix('ssd_chunk_scan_')} {v:.6f}"
+                          for k, v in gstage.items()))
+        del bg, cg
     return t
 
 
@@ -3167,13 +3229,14 @@ def _flash_bwd_case(gen, b, s, hq, hkv, d, window, dtype, timed=False, plain_onc
     return t
 
 
-def _ssd_bwd_flops(b, s, h, p, n, chunk):
-    """The multiply-adds K5b's stages do, times 2: per (batch row, chunk)
-    the scores and the two d(scores) products over the lower 64 x 64 tiles;
-    per head dE, the two products of dx, d(scores) and the two of dC/dB."""
+def _ssd_bwd_flops(b, s, h, p, n, chunk, g=1):
+    """The multiply-adds K5b's stages do, times 2: per (batch row, chunk,
+    group) the scores and the two d(scores) products over the lower 64 x 64
+    tiles; per head dE, the two products of dx, d(scores) and the two of
+    dC/dB."""
     nc, nt = s // chunk, -(-chunk // 64)
     tiles = nt * (nt + 1) // 2
-    per_chunk = 2 * (tiles * 64 * 64 * n + 2 * tiles * 64 * 64 * n)
+    per_chunk = 2 * g * (tiles * 64 * 64 * n + 2 * tiles * 64 * 64 * n)
     per_head = 2 * (chunk * p * n + sum(chunk - 64 * j for j in range(nt)) * 64 * p
                     + chunk * n * p + tiles * 64 * 64 * p + 2 * chunk * p * n)
     return b * nc * per_chunk + b * nc * h * per_head
@@ -3254,7 +3317,43 @@ def check_backward_kernels(seed):
     print(f"  K5b: {flops / 1e9:.3f} GFLOP, {bytes_moved / 1e6:.1f} MB; {ms:.6f} ms [first design: "
           f"{K5B_FIRST_MS}], bound {k5b['bound_ms']:.6f} ms (3xTF32); device ms by kernel: "
           + ", ".join(f"{k.removeprefix('ssd_chunk_bwd_')} {v:.6f}" for k, v in stage_ms.items()))
-    del x, dt, a_log, bm, cm, dA, xdt, dy, cum, entering
+    # B and C of 2 and 4 groups: d(scores), dB and dC summed over a group's
+    # heads in head order, no atomics.
+    k5b["groups"] = {}
+    for g in SSD_GROUPS:
+        bg, cg = (torch.randn((b, s, g, n), generator=gen, device="cuda") * 0.3
+                  for _ in range(2))
+        _, _, cum, entering = ssd_ops.ssd_chunk_scan_saving(xdt, dA, bg, cg, chunk)
+        grads = ssd_ops.ssd_chunk_bwd(xdt, bg, cg, dy, cum, entering, chunk)
+        again = ssd_ops.ssd_chunk_bwd(xdt, bg, cg, dy, cum, entering, chunk)
+        require(all(torch.equal(x, y) for x, y in zip(grads, again)),
+                f"K5b with {g} groups: two calls differ")
+        refs = ssd_chunk_bwd_ref(xdt, bg, cg, dy, cum, entering, chunk)
+        gerrs = {name: _close(gr, r, SSD_ATOL, f"K5b {g} groups {name}", SSD_RTOL)
+                 for name, gr, r in zip(("dxdt", "ddA", "dbm", "dcm"), grads, refs)}
+        del grads, again, refs
+        call = lambda: ssd_ops.ssd_chunk_bwd(xdt, bg, cg, dy, cum, entering, chunk)  # noqa: E731
+        gms, gstage = device_ms(call, "ssd_chunk_bwd", iters=5, parts=K5B_STAGES)
+        gflops = _ssd_bwd_flops(b, s, h, p, n, chunk, g)
+        gbytes = bytes_moved + 4 * 4 * b * s * (g - 1) * n
+        gops = min(3 * gflops / TF32_FLOP_PER_S, gflops / FP32_FLOP_PER_S)
+        k5b["groups"][g] = {
+            "ms": gms, "stage_ms": gstage,
+            "plain_ms": timed_ms(lambda: ssd_chunk_bwd_ref(xdt, bg, cg, dy, cum, entering,
+                                                           chunk), iters=2, warmup=1),
+            "library_ms": None,
+            "bound_ms": max(gops, gbytes / HBM_BYTES_PER_S) * 1e3,
+            "bound_by": "operations" if gops > gbytes / HBM_BYTES_PER_S else "bytes",
+            "max_abs_err": max(gerrs.values()), "shape": f"{k5b['shape']} G={g}",
+        }
+        print(f"  K5b with {g} groups: gradient by gradient within atol 2e-4, rtol 1e-3, max "
+              "|d|: " + ", ".join(f"{k} {v:.3g}" for k, v in gerrs.items())
+              + f"; two calls bit-identical; {gms:.6f} ms on the device (one group {ms:.6f}), "
+              f"bound {k5b['groups'][g]['bound_ms']:.6f} ms; by kernel: "
+              + ", ".join(f"{k.removeprefix('ssd_chunk_bwd_')} {v:.6f}"
+                          for k, v in gstage.items()))
+        del bg, cg, cum, entering
+    del x, dt, a_log, bm, cm, dA, xdt, dy
 
     # A length padded with dt = 0, through models.ssd's autograd function
     # (K5 then K5b): every input's gradient, card against host.
@@ -3370,9 +3469,10 @@ def check_rglru_backward(gen):
 
 
 def check_train_step_card_vs_host(seed, arch, layers=2, batch=2, seq=256, steps=3,
-                                  regrad=True):
+                                  regrad=True, groups=1):
     """Phase 16 (b): one training step of a float32 model at ``arch``'s
-    widths, ``layers`` layers, card against host: the loss within 1e-4,
+    widths (an SSD's B and C in ``groups`` groups), ``layers`` layers, card
+    against host: the loss within 1e-4,
     every gradient leaf within atol 1e-4 + rtol 1e-3, and the weights after
     ``steps`` AdamW steps within 1e-4.  The learning rate is 1e-3 from the
     first step, so the steps move the weights by more than ten times that
@@ -3404,7 +3504,8 @@ def check_train_step_card_vs_host(seed, arch, layers=2, batch=2, seq=256, steps=
     from repro_torch.training import OptimizerConfig, adamw_step, init_opt_state
     from repro_torch.training.optimizer import tree_leaves, tree_map
 
-    cfg = dataclasses.replace(ARCHS[arch], num_layers=layers, dtype="float32")
+    cfg = dataclasses.replace(ARCHS[arch], num_layers=layers, dtype="float32",
+                              ssd_ngroups=groups)
     lm = LM(cfg)
     seconds = {"card": 0.0, "host": 0.0}
     card = lm.init(seed, device="cuda")
@@ -3864,10 +3965,13 @@ def serve_costmodel_pool(args, sneak):
 
 # ---------------------------------------------------------------- phase 18: the dry run
 
-# Phase 18 (a): three production cells of the dry run on the (16, 16) pod,
-# in a child process (a fake world of 256 ranks, fake tensors).
+# Phase 18 (a): five production cells of the dry run on the (16, 16) pod,
+# in a child process (a fake world of 256 ranks, fake tensors); the two of
+# llama4-scout run its routed MoE on each rank's shards under the ep_tp
+# rules (torch 2.11 has no DTensor strategy for the dispatch's index_put_).
 DRYRUN_CELLS = (("mamba2-130m", "train_4k"), ("tinyllama-1.1b", "decode_32k"),
-                ("gemma-7b", "prefill_32k"))
+                ("gemma-7b", "prefill_32k"), ("llama4-scout-17b-16e", "prefill_32k"),
+                ("llama4-scout-17b-16e", "decode_32k"))
 # Phase 18 (b) and (c): the dry run's prediction for a one-rank mesh at
 # phase 17 (a)'s cell (the ZeRO-3 train step) and at tinyllama-1.1b's
 # prefill (the tensor-parallel prefill step), against the real steps on
@@ -4050,7 +4154,7 @@ def measure_sharded_prefill(mesh, seed: int) -> dict:
 
 
 def check_dryrun(seed: int, card: str) -> dict:
-    """Phase 18: (a) the child's three production records, each ``ok``; (b)
+    """Phase 18: (a) the child's five production records, each ``ok``; (b)
     and (c) the one-rank predictions against the real steps: peaks within
     ``PREDICT_TOL``, fake launches equal to the real ones."""
     res, wall = run_dryrun_child()
@@ -4149,9 +4253,10 @@ def main(argv=None) -> int:
         require(sorted(found) == sorted(keys), f"ptxas reported no {set(keys) - set(found)}")
         for key, line in found.items():
             print(f"    ptxas head dim 256, {key}: {line}")
-    k3_bf16 = ptxas_registers("flash_attention", D256_INSTANCES["flash_attention"][:1])
-    require(" 0 bytes spill stores" in next(iter(k3_bf16.values())),
-            "K3's bf16 instance at head dim 256 spills registers")
+    for key, line in ptxas_registers("flash_attention",
+                                     D256_INSTANCES["flash_attention"][:2]).items():
+        require(" 0 bytes spill stores" in line,
+                f"K3's bf16 instance at head dim 256 spills registers ({key})")
     for name, what, op in (("flash_attention_bwd", "K3b", "HMMA"),
                            ("flash_attention_bwd", "K3b", "HGMMA"), ("ssd_bwd", "K5b", "HMMA")):
         hmma = hmma_count(nvcc.SOURCES[name].library_path(), op)
@@ -4254,7 +4359,9 @@ def main(argv=None) -> int:
     print("[7] flash-decode kernel (K4) against its plain version")
     decode_t = check_decode(args.seed)
     for t, name in ((flash_t, "flash_attention"), (flash_t["at_d256"], "flash_attention"),
-                    (flash_t["windowed"], "flash_attention"), (decode_t, "decode_attention"),
+                    (flash_t["windowed"], "flash_attention"),
+                    (flash_t["non_causal"], "flash_attention"),
+                    (flash_t["f32"], "flash_attention"), (decode_t, "decode_attention"),
                     (decode_t["at_d256"], "decode_attention")):
         print(f"    {name} at {t['shape']}: kernel {t['ms']:.6f} ms on the device, "
               f"{t['call_ms']:.6f} ms per wrapper call back to back, plain "
@@ -4414,15 +4521,18 @@ def main(argv=None) -> int:
     k3b_t, k5b_t, rglru_bwd_t = check_backward_kernels(args.seed)
     print(f"    (a) {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    print("  (b) one training step, float32, at full width, card against host: 2 layers, and "
-          "recurrentgemma-9b's one period")
+    print("  (b) one training step, float32, at full width, card against host: 2 layers "
+          "(mamba2-130m also with 2 SSD groups), and recurrentgemma-9b's one period")
     with heap_allocations():
-        step_checks = {arch: check_train_step_card_vs_host(args.seed, arch, layers=layers,
-                                                           regrad=regrad)
-                       for arch, layers, regrad in (("mamba2-130m", 2, True),
-                                                    ("tinyllama-1.1b", 2, True),
-                                                    ("recurrentgemma-9b", 3, False),
-                                                    ("gemma-7b", 2, False))}
+        step_checks = {
+            label: check_train_step_card_vs_host(args.seed, arch, layers=layers, regrad=regrad,
+                                                 groups=groups)
+            for label, arch, layers, regrad, groups in (
+                ("mamba2-130m", "mamba2-130m", 2, True, 1),
+                ("mamba2-130m/g2", "mamba2-130m", 2, True, 2),
+                ("tinyllama-1.1b", "tinyllama-1.1b", 2, True, 1),
+                ("recurrentgemma-9b", "recurrentgemma-9b", 3, False, 1),
+                ("gemma-7b", "gemma-7b", 2, False, 1))}
     gc.collect()
     torch.cuda.empty_cache()
     print(f"    (b) {time.perf_counter() - t0:.1f} s")
@@ -4464,7 +4574,7 @@ def main(argv=None) -> int:
     costmodel_pool = serve_costmodel_pool(args, closed_sneak)
     print(f"    (c) {time.perf_counter() - t0:.1f} s; phase 17 {time.perf_counter() - t17:.1f} s")
 
-    print("[18] the dry run: three production cells on a fake (16, 16) world, and its "
+    print("[18] the dry run: five production cells on a fake (16, 16) world, and its "
           "one-rank predictions against the sharded train and prefill steps on the card")
     gc.collect()
     torch.cuda.empty_cache()
@@ -4488,7 +4598,8 @@ def main(argv=None) -> int:
          "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
          "shape": t["shape"],
          **{key: t[key] for key in ("stage_ms", "at_d256", "windowed", "placement",
-                                    "recurrentgemma_local", "llama4")
+                                    "recurrentgemma_local", "llama4", "non_causal", "f32",
+                                    "groups")
             if key in t}}
         for name, source, replaces, counts, t in rows
     ]}
@@ -4562,7 +4673,8 @@ def main(argv=None) -> int:
             "replaces": replaces, "launches": train_launches[name],
             **{key: t[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                        "library_ms", "shape", "stage_ms")},
-            **{key: t[key] for key in ("f32", "llama4", "windowed", "cases", *K3B_D256_SHAPES)
+            **{key: t[key] for key in ("f32", "llama4", "windowed", "cases", "groups",
+                                       *K3B_D256_SHAPES)
                if key in t}})
     table["launchers"] = {"train": launch_train, "train_launches": train_cli_launches,
                           "serve_launches": serve_cli_launches, "serve_s": serve_cli_s,

@@ -1,17 +1,23 @@
-// Causal GQA prefill attention (flash attention, forward) for Hopper, sm_90a.
+// GQA prefill attention (flash attention, forward) for Hopper, sm_90a.
 //
 // Replaces the Pallas TPU kernel `flash_attention_pallas`
 // (src/repro/kernels/flash_attention/kernel.py:89, its pallas_call at
 // :123): for every query row i, sitting at absolute position Skv - Sq + i,
 // the softmax over the keys at positions <= its own (and, with a window
-// w > 0, > position - w) of q.k * scale, applied to v.  It reads the model
+// w > 0, > position - w) of q.k * scale, applied to v.  Not causal
+// (`causal` = 0 in the C entry, kernel.py:65-68), a row sees every key,
+// later ones too, and only the window masks; the key-tile walk then ends
+// at the last key tile instead of the diagonal's, and a tile's mask drops
+// the diagonal compare.  Both cases are a template argument of each
+// instance, so the causal instances' code is that of the causal-only
+// design.  It reads the model
 // layout directly: q and o (B, Sq, Hq, D), k and v (B, Skv, Hkv, D); query
 // head h reads KV head h / G (G = Hq / Hkv) without copying K/V.  Scores,
 // the running max m, the running sum l and the output accumulator are
 // fp32.  Masked scores take _NEG = -0.7 * FLT_MAX, not -inf, and a row with
 // nothing valid keeps l clamped to 1e-30, as kernel.py:28 and :80 do.
-// KV tiles wholly above the diagonal or left of the window are skipped
-// (kernel.py:46-50); the ragged last tile is masked in the kernel rather
+// KV tiles wholly above the diagonal (causal) or left of the window are
+// skipped (kernel.py:46-50); the ragged last tile is masked in the kernel rather
 // than padded in memory (kernel.py:105-113).
 //
 // What bounds it on the H100: operations.  Causal attention does
@@ -97,7 +103,7 @@ constexpr size_t f32_smem_floats() {
   return (size_t)kBQ * (D + 1) + (size_t)kBK * (D + 1) + (size_t)kBK * D + (size_t)kBQ * kPS;
 }
 
-template <int D>
+template <int D, bool Causal>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                            const float* __restrict__ v, float* __restrict__ o,
@@ -140,7 +146,7 @@ flash_attention_f32_kernel(const float* __restrict__ q, const float* __restrict_
   // KV tiles this query tile can see.
   const int q_first = offset + q0;                      // first row's position
   const int q_last = offset + min(q0 + kBQ, Sq) - 1;   // last real row's position
-  const int k_stop = min(Skv, q_last + 1);              // causal: keys <= q_last
+  const int k_stop = Causal ? min(Skv, q_last + 1) : Skv;  // causal: keys <= q_last
   int k_start = 0;
   if (window > 0) {
     const int lo = q_first - window + 1;  // the first row's oldest visible key
@@ -187,7 +193,7 @@ flash_attention_f32_kernel(const float* __restrict__ q, const float* __restrict_
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int kpos = k0 + tx + 16 * j;
-        ok[j] = kpos < Skv && kpos <= qpos && (window <= 0 || kpos > qpos - window);
+        ok[j] = kpos < Skv && (!Causal || kpos <= qpos) && (window <= 0 || kpos > qpos - window);
         s[i][j] = ok[j] ? s[i][j] * scale : kNeg;
         mx = fmaxf(mx, s[i][j]);
       }
@@ -247,11 +253,11 @@ flash_attention_f32_kernel(const float* __restrict__ q, const float* __restrict_
   }
 }
 
-template <int D>
+template <int D, bool Causal>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, float* lse,
                        int B, int Sq, int Skv, int Hq, int Hkv, int window, float scale,
                        cudaStream_t stream) {
-  auto kernel = flash_attention_f32_kernel<D>;
+  auto kernel = flash_attention_f32_kernel<D, Causal>;
   const size_t smem = f32_smem_floats<D>() * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
@@ -278,7 +284,7 @@ constexpr size_t tc_smem_bytes() {
   return (size_t)(kTcBQ + 2 * kTcStages * tc_keys<D>()) * row_stride<D>() * sizeof(__nv_bfloat16);
 }
 
-template <int D>
+template <int D, bool Causal>
 __global__ void __launch_bounds__(kTcThreads)
 flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                             const __nv_bfloat16* __restrict__ k,
@@ -317,7 +323,7 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   // KV tiles this query tile can see (at least one: k_start <= q_first < k_stop).
   const int q_first = offset + q0;
   const int q_last = offset + min(q0 + kTcBQ, Sq) - 1;
-  const int k_stop = min(Skv, q_last + 1);
+  const int k_stop = Causal ? min(Skv, q_last + 1) : Skv;
   int k_start = 0;
   if (window > 0) {
     const int lo = q_first - window + 1;
@@ -387,7 +393,7 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 
     // Online softmax, in the log2 domain: s * scale * log2(e).  Masks are
     // computed only in a tile that is not wholly visible to the block's rows.
-    const bool full = k0 + BK - 1 <= q_first && k0 + BK <= Skv &&
+    const bool full = (!Causal || k0 + BK - 1 <= q_first) && k0 + BK <= Skv &&
                       (window <= 0 || k0 > q_last - window);
 #pragma unroll
     for (int rr = 0; rr < 2; ++rr) {
@@ -400,7 +406,8 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
           float s = sacc[j][2 * rr + e] * scale_log2;
           if (!full) {
             const int kpos = k0 + 8 * j + 2 * t + e;
-            const bool ok = kpos < Skv && kpos <= qpos && (window <= 0 || kpos > qpos - window);
+            const bool ok = kpos < Skv && (!Causal || kpos <= qpos) &&
+                            (window <= 0 || kpos > qpos - window);
             s = ok ? s : kNeg;
           }
           sacc[j][2 * rr + e] = s;
@@ -471,11 +478,11 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <int D>
+template <int D, bool Causal>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, float* lse,
                         int B, int Sq, int Skv, int Hq, int Hkv, int window, float scale,
                         cudaStream_t stream) {
-  auto kernel = flash_attention_bf16_kernel<D>;
+  auto kernel = flash_attention_bf16_kernel<D, Causal>;
   const size_t smem = tc_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
@@ -488,14 +495,14 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, fl
   return cudaGetLastError();
 }
 
-#define REPRO_FLASH_DISPATCH(LAUNCH)                                                   \
-  switch (D) {                                                                         \
-    case 16: return LAUNCH<16>(q, k, v, o, l, B, Sq, Skv, Hq, Hkv, window, scale, s);  \
-    case 32: return LAUNCH<32>(q, k, v, o, l, B, Sq, Skv, Hq, Hkv, window, scale, s);  \
-    case 64: return LAUNCH<64>(q, k, v, o, l, B, Sq, Skv, Hq, Hkv, window, scale, s);  \
-    case 128: return LAUNCH<128>(q, k, v, o, l, B, Sq, Skv, Hq, Hkv, window, scale, s); \
-    case 256: return LAUNCH<256>(q, k, v, o, l, B, Sq, Skv, Hq, Hkv, window, scale, s); \
-    default: return cudaErrorInvalidValue;                                             \
+#define REPRO_FLASH_DISPATCH(LAUNCH, C)                                                   \
+  switch (D) {                                                                            \
+    case 16: return LAUNCH<16, C>(q, k, v, o, l, B, Sq, Skv, Hq, Hkv, window, scale, s);  \
+    case 32: return LAUNCH<32, C>(q, k, v, o, l, B, Sq, Skv, Hq, Hkv, window, scale, s);  \
+    case 64: return LAUNCH<64, C>(q, k, v, o, l, B, Sq, Skv, Hq, Hkv, window, scale, s);  \
+    case 128: return LAUNCH<128, C>(q, k, v, o, l, B, Sq, Skv, Hq, Hkv, window, scale, s); \
+    case 256: return LAUNCH<256, C>(q, k, v, o, l, B, Sq, Skv, Hq, Hkv, window, scale, s); \
+    default: return cudaErrorInvalidValue;                                                \
   }
 
 }  // namespace
@@ -503,25 +510,33 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, fl
 extern "C" {
 
 // dtype: 0 = fp32 (CUDA cores), 1 = bf16 (tensor cores); anything else is
-// refused.  q, k, v and o must be 16-byte aligned for bf16.  lse, unless
+// refused.  causal: 1 = keys at positions <= the query's, 0 = every key.
+// q, k, v and o must be 16-byte aligned for bf16.  lse, unless
 // null, receives the natural logsumexp of each row's scaled scores, float32
 // (B, Hq, Sq), which the backward (flash_attention_bwd.cu) reads.  Returns
 // the launch's cudaError_t.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
-                        int dtype, int B, int Sq, int Skv, int Hq, int Hkv, int D, int window,
-                        float scale, void* stream) {
-  if (B <= 0 || Sq <= 0 || Skv <= 0 || Sq > Skv || Hkv <= 0 || Hq % Hkv != 0)
+                        int dtype, int B, int Sq, int Skv, int Hq, int Hkv, int D, int causal,
+                        int window, float scale, void* stream) {
+  if (B <= 0 || Sq <= 0 || Skv <= 0 || Sq > Skv || Hkv <= 0 || Hq % Hkv != 0 ||
+      (causal != 0 && causal != 1))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
   if (dtype == 0) {
-    REPRO_FLASH_DISPATCH(launch_f32)
+    if (causal) {
+      REPRO_FLASH_DISPATCH(launch_f32, true)
+    }
+    REPRO_FLASH_DISPATCH(launch_f32, false)
   }
   if (dtype == 1) {
     const uintptr_t bases = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
                             reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o);
     if (bases & 15) return cudaErrorMisalignedAddress;
-    REPRO_FLASH_DISPATCH(launch_bf16)
+    if (causal) {
+      REPRO_FLASH_DISPATCH(launch_bf16, true)
+    }
+    REPRO_FLASH_DISPATCH(launch_bf16, false)
   }
   return cudaErrorInvalidValue;
 }

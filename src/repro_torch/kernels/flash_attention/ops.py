@@ -9,6 +9,10 @@ is no other route.  The kernel's instance follows the dtype: bfloat16
 runs on the tensor cores (``mma.sync``), float32 on the CUDA cores in
 IEEE fp32; any other dtype raises.  With ``return_lse`` the forward also
 writes the per-row logsumexp (B, Hq, Sq) float32 that its backward reads.
+The forward takes ``causal=False`` as ``flash_attention_pallas`` does
+(every key visible, the window alone masking); the backward is
+causal-only, as the reference's model, the one route to its VJP, refuses
+non-causal attention (``src/repro/models/attention.py:149-150``).
 
 ``flash_attention_bwd`` is the backward (K3b): dq, dk and dv from q, k,
 v, the forward's output and logsumexp and the output's gradient, through
@@ -29,7 +33,8 @@ tensors, and the shape-only operators ``repro_torch::flash_attention`` and
 ``repro_torch::flash_attention_bwd``, whose FLOP formulas count the full
 Sq x Skv square (the reference's unrolled attention) unless
 ``models.attention.attention_options(skip_masked_blocks=True)`` is on,
-when they count the key tiles the kernels run (``key_tiles``).  On
+when they count the key tiles the kernels run (``key_tiles``; every tile
+the window reaches when not causal).  On
 DTensors both run on each rank's batch rows and head shards
 (``kernels.on_shards``).
 """
@@ -115,15 +120,17 @@ def _key_tile(dtype, d: int) -> int:
     return 32 if dtype == torch.bfloat16 and d > 128 else 64
 
 
-def key_tiles(sq: int, skv: int, window: int, key_tile: int, rows: int = QUERY_ROWS) -> int:
+def key_tiles(sq: int, skv: int, window: int, key_tile: int, rows: int = QUERY_ROWS,
+              causal: bool = True) -> int:
     """The (query block, key tile) pairs one (batch row, head) runs: each
     block of ``rows`` queries (the last Sq of Skv positions) reads the
     ``key_tile``-key tiles from the first its window reaches (tile-aligned)
-    to its last row's position, as K3's ``k_start``/``k_stop`` do."""
+    to its last row's position (to the last key when not ``causal``), as
+    K3's ``k_start``/``k_stop`` do."""
     offset, total = skv - sq, 0
     for q0 in range(0, sq, rows):
         first, last = offset + q0, offset + min(q0 + rows, sq) - 1
-        stop = min(skv, last + 1)
+        stop = min(skv, last + 1) if causal else skv
         start = 0
         if window > 0 and first - window + 1 > 0:
             start = (first - window + 1) // key_tile * key_tile
@@ -131,34 +138,36 @@ def key_tiles(sq: int, skv: int, window: int, key_tile: int, rows: int = QUERY_R
     return total
 
 
-def _area(q_shape, k_shape, window: int, key_tile: int, rows: int = QUERY_ROWS) -> int:
+def _area(q_shape, k_shape, window: int, key_tile: int, rows: int = QUERY_ROWS,
+          causal: bool = True) -> int:
     """Query-key pairs a kernel multiplies, per head dim element: the full
     square, or (``key_tile`` > 0) the tiles it runs, padded."""
     b, sq, hq, _ = q_shape
     skv = k_shape[1]
     if key_tile <= 0:
         return b * hq * sq * skv
-    return b * hq * key_tiles(sq, skv, window, key_tile, rows) * rows * key_tile
+    return b * hq * key_tiles(sq, skv, window, key_tile, rows, causal) * rows * key_tile
 
 
 @torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
 def _k3_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int, key_tile: int,
-           lse_rows: int) -> tuple[torch.Tensor, torch.Tensor]:
+           lse_rows: int, causal: bool) -> tuple[torch.Tensor, torch.Tensor]:
     raise RuntimeError("repro_torch::flash_attention is K3's shape-only operator: it runs "
                        "on fake tensors alone")
 
 
 @_k3_op.register_fake
-def _(q, k, v, window, key_tile, lse_rows):
+def _(q, k, v, window, key_tile, lse_rows, causal):
     b, sq, hq, _ = q.shape
     return torch.empty_like(q), q.new_empty((b, hq, sq) if lse_rows else (0,),
                                             dtype=torch.float32)
 
 
 @register_flop_formula(torch.ops.repro_torch.flash_attention)
-def _k3_flops(q_shape, k_shape, v_shape, window, key_tile, lse_rows, *args, **kwargs) -> int:
+def _k3_flops(q_shape, k_shape, v_shape, window, key_tile, lse_rows, causal, *args,
+              **kwargs) -> int:
     """Q.K^T and P.V: 4 D per query-key pair."""
-    return 4 * q_shape[-1] * _area(q_shape, k_shape, window, key_tile)
+    return 4 * q_shape[-1] * _area(q_shape, k_shape, window, key_tile, causal=causal)
 
 
 @torch.library.custom_op("repro_torch::flash_attention_bwd", mutates_args=())
@@ -182,10 +191,10 @@ def _k3b_flops(q_shape, k_shape, v_shape, o_shape, do_shape, lse_shape, window, 
     return 10 * q_shape[-1] * _area(q_shape, k_shape, window, key_tile)
 
 
-def _fake_forward(q, k, v, window, return_lse):
+def _fake_forward(q, k, v, causal, window, return_lse):
     """The fake-tensor branch of ``flash_attention``."""
     key_tile = _key_tile(q.dtype, q.shape[-1]) if _skip_masked() else 0
-    out, lse = _k3_op(q, k, v, window, key_tile, int(return_lse))
+    out, lse = _k3_op(q, k, v, window, key_tile, int(return_lse), causal)
     counter.add_fake()
     return (out, lse) if return_lse else out
 
@@ -204,12 +213,7 @@ def _fake_backward(q, k, v, o, do, lse, window):
     return grads
 
 
-def _check_args(q, k, v, causal, window):
-    if not causal:
-        raise NotImplementedError(
-            "flash attention is causal-only here, as its oracle "
-            "src/repro/kernels/flash_attention/ref.py:21 is; flash_attention_pallas also "
-            "takes causal=False (ROADMAP, queue 2, entry 6)")
+def _check_args(q, k, v, window):
     if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
         raise ValueError(f"q (B, Sq, Hq, D), k and v (B, Skv, Hkv, D): got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
@@ -242,9 +246,9 @@ def _model(t):
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0, scale=None,
                     return_lse: bool = False):
-    """Causal (optionally sliding-window) GQA attention, (B, Sq, Hq, D);
-    with ``return_lse`` also the logsumexp (B, Hq, Sq) float32."""
-    _check_args(q, k, v, causal, window)
+    """Causal or not (optionally sliding-window) GQA attention, (B, Sq, Hq,
+    D); with ``return_lse`` also the logsumexp (B, Hq, Sq) float32."""
+    _check_args(q, k, v, window)
     if is_sharded(q):
         def local(q, k, v):
             return flash_attention(q, k, v, causal=causal, window=window, scale=scale,
@@ -253,20 +257,23 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0, scale=None
         return on_shards(local, (q, k, v), ((0, 2),) * 3,
                          ((0, 2), (0, 1)) if return_lse else ((0, 2),))
     if is_fake(q):
-        return _fake_forward(q, k, v, window, return_lse)
+        return _fake_forward(q, k, v, causal, window, return_lse)
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     scale = d ** -0.5 if scale is None else float(scale)
     if q.device.type == "cpu":
         out = flash_attention_ref(_gqa(q, hkv), k.transpose(1, 2), v.transpose(1, 2),
-                                  window=window, scale=scale, return_lse=return_lse)
+                                  causal=causal, window=window, scale=scale,
+                                  return_lse=return_lse)
         if not return_lse:
             return _model(out)
         return _model(out[0]), out[1].reshape(b, hq, sq)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on CUDA or the CPU, not {q.device}")
     refuse_grad("flash_attention", "train through models.attention.flash_attention_autograd, "
-                "whose backward is K3b", q, k, v)
+                "whose backward is K3b" if causal else
+                "K3b is causal-only: the reference's model refuses non-causal attention "
+                "(src/repro/models/attention.py:149-150), the one route to its VJP", q, k, v)
     if q.dtype not in DTYPES:
         raise TypeError(f"the flash-attention kernel takes float32 or bfloat16, got {q.dtype}")
     if d not in HEAD_DIMS:
@@ -281,13 +288,13 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0, scale=None
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device) if return_lse else None
     lib = nvcc.library("flash_attention")
     fn = lib.flash_attention_fwd
-    fn.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P]
+    fn.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P]
     fn.restype = _I
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  None if lse is None else lse.data_ptr(), DTYPES[q.dtype],
-                 b, sq, skv, hq, hkv, d, window, scale, stream)
+                 b, sq, skv, hq, hkv, d, int(causal), window, scale, stream)
     counter.add()
     nvcc.check(lib, err, "flash_attention")
     return (out, lse) if return_lse else out
@@ -297,7 +304,7 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, window: int = 0, scale=None):
     """K3b: (dq, dk, dv) of causal GQA attention, each in its input's type
     and layout: q, o and do (B, Sq, Hq, D), k and v (B, Skv, Hkv, D), lse
     (B, Hq, Sq) float32 from ``flash_attention(..., return_lse=True)``."""
-    _check_args(q, k, v, True, window)
+    _check_args(q, k, v, window)
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     for name, t in (("o", o), ("do", do)):

@@ -4,7 +4,9 @@ its backward (K3b).
 ``flash_attention_ref`` is the same function as ``flash_attention_pallas``
 in the kernel's GQA layout: q (B, Hkv, G, Sq, D), k and v (B, Hkv, Skv, D);
 query i sits at position Skv - Sq + i and sees keys at positions <= its
-own (and, with ``window > 0``, > position - window).  Scores, max, sum and
+own (and, with ``window > 0``, > position - window); with ``causal=False``
+it sees every key, later ones too, and the window alone masks
+(kernel.py:64-68).  Scores, max, sum and
 the P.V accumulator are float32; masked scores take ``_NEG``, not -inf;
 the probabilities are rounded to the input type before the P.V product,
 as the kernel rounds them; a row with nothing valid keeps ``l`` clamped
@@ -34,13 +36,11 @@ __all__ = ["flash_attention_ref", "flash_attention_bwd_ref", "NEG"]
 
 NEG = -0.7 * float(torch.finfo(torch.float32).max)
 
-_CAUSAL_ONLY = ("flash attention is causal-only here, as its oracle "
-                "src/repro/kernels/flash_attention/ref.py:21 is; flash_attention_pallas also "
-                "takes causal=False (ROADMAP, queue 2, entry 6)")
 
-
-def _mask(q_pos, k_pos, window: int):
-    mask = k_pos[None, :] <= q_pos[:, None]
+def _mask(q_pos, k_pos, window: int, causal: bool = True):
+    mask = torch.ones((len(q_pos), len(k_pos)), dtype=torch.bool, device=q_pos.device)
+    if causal:
+        mask &= k_pos[None, :] <= q_pos[:, None]
     if window > 0:
         mask &= k_pos[None, :] > q_pos[:, None] - window
     return mask
@@ -50,14 +50,12 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0, scale=
                         return_lse: bool = False):
     """q: (B, Hkv, G, Sq, D); k, v: (B, Hkv, Skv, D) -> (B, Hkv, G, Sq, D),
     and with ``return_lse`` the logsumexp (B, Hkv, G, Sq) float32."""
-    if not causal:
-        raise NotImplementedError(_CAUSAL_ONLY)
     sq, d = q.shape[3], q.shape[4]
     skv = k.shape[2]
     scale = d ** -0.5 if scale is None else scale
     s = torch.einsum("bhgqd,bhkd->bhgqk", q.float(), k.float()) * scale
     q_pos = torch.arange(sq, device=q.device) + (skv - sq)
-    mask = _mask(q_pos, torch.arange(skv, device=q.device), window)
+    mask = _mask(q_pos, torch.arange(skv, device=q.device), window, causal)
     s = torch.where(mask, s, NEG)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.where(mask, torch.exp(s - m), 0.0)

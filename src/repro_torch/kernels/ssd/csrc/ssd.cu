@@ -1,15 +1,18 @@
-// Mamba-2 SSD chunk scan (state-space duality, ngroups = 1) for Hopper, sm_90a.
+// Mamba-2 SSD chunk scan (state-space duality) for Hopper, sm_90a.
 //
 // Replaces the Pallas TPU kernel `ssd_pallas`
-// (src/repro/kernels/ssd/kernel.py:91, its pallas_call at :103): for every
-// batch row b and head h, over the chunks of l positions in order, with
+// (src/repro/kernels/ssd/kernel.py:91, its pallas_call at :103), which
+// takes one group, and the reference model's grouped scan beside it
+// (src/repro/models/ssd.py:83), B and C shared by the H / G heads of a
+// group: for every batch row b and head h, reading B and C of group
+// g = h / (H / G), over the chunks of l positions in order, with
 // cum = cumsum(dA) inside the chunk,
 //   L[i, j]  = exp(cum_i - cum_j) for i >= j, else 0
 //   y_diag   = (C . B^T o L) . xdt
 //   y_off    = exp(cum_i) * (C . S_prev^T)
 //   S       <- exp(cum_end) * S + sum_j exp(cum_end - cum_j) * xdt_j^T B_j
 // and returns y and the final state S.  Layouts as the reference's:
-// xdt and y (B, S, H, P), dA (B, S, H), bm and cm (B, S, N), the final
+// xdt and y (B, S, H, P), dA (B, S, H), bm and cm (B, S, G, N), the final
 // state (B, H, P, N), all fp32; S is a multiple of l (the model pads with
 // dt = 0 steps, which leave the state unchanged).  L is formed as
 // exp(cum_i - cum_j), never as a quotient of exponentials, which would
@@ -31,11 +34,12 @@
 // name contains `ssd_chunk_scan`.
 //   1. cumsum  (B x nc blocks, a warp per head): cum of dA inside each
 //      chunk, and exp(cum_end - cum), into (B, H, nc, l).
-//   2. scores  (B x nc x 3 blocks at the serving shape): C . B^T once per
-//      (batch row, chunk), 64 x 64 tiles of the lower triangle only, into
-//      (B, nc, l, l).  With ngroups = 1 the scores are the same for every
-//      head; the TPU kernel computes them once per (batch, chunk) and
-//      shares them (kernel.py:56-59), and so does this one.
+//   2. scores  (B x nc x G x 3 blocks at the serving shape): C . B^T once
+//      per (batch row, chunk, group), 64 x 64 tiles of the lower triangle
+//      only, into (B, nc, G, l, l).  The scores are the same for every
+//      head of a group; the TPU kernel computes them once per (batch,
+//      chunk) for its one group and shares them (kernel.py:56-59), and so
+//      does this one per group.
 //   3. states  (B x nc x H blocks, 1,536 at the serving shape): each
 //      chunk's own state sum_j exp(cum_end - cum_j) xdt_j^T B_j, an N x P
 //      tile per block, into (B, nc, H, N, P): transposed, so that stages 4
@@ -49,6 +53,8 @@
 //      y = exp(cum_i) C_i . S_enter^T, then + (scores o L) . xdt over the
 //      causal column slices only, for a block of 64 rows; a warp skips a
 //      slice that lies wholly right of its rows.
+// Stages 3 and 5 read their head's group's B, C and scores; with one group
+// every index is the one-group design's, so G = 1 runs the same arithmetic.
 // Stages 3 and 5 keep a register tile of 8 x 4 outputs per thread and walk
 // the depth of each product in slices of 32 through a two-stage cp.async
 // ring in shared memory (about 50 and 35 KB a block), so the next slice
@@ -136,7 +142,7 @@ ssd_chunk_scan_cumsum_kernel(const float* __restrict__ dA, float* __restrict__ c
 
 __global__ void __launch_bounds__(256)
 ssd_chunk_scan_scores_kernel(const float* __restrict__ bm, const float* __restrict__ cm,
-                             float* __restrict__ scores, int S, int N, int L) {
+                             float* __restrict__ scores, int S, int G, int N, int L) {
   __shared__ float cs[kTile][kSlice + 1];
   __shared__ float bs[kTile][kSlice + 1];
   int t = blockIdx.x;  // the t-th tile of the lower triangle, row by row
@@ -147,15 +153,17 @@ ssd_chunk_scan_scores_kernel(const float* __restrict__ bm, const float* __restri
   }
   const int tj = t;
   const int c = blockIdx.y;
-  const int b = blockIdx.z;
+  const int b = blockIdx.z / G;
+  const int g = blockIdx.z - b * G;
   const int nc = gridDim.y;
   const int tid = threadIdx.x;
   const int ty = tid >> 4;  // rows i0 + ty + 16 a
   const int tx = tid & 15;  // columns j0 + tx + 16 k
   const int i0 = ti * kTile;
   const int j0 = tj * kTile;
-  const float* crow = cm + (size_t)(b * S + c * L) * N;
-  const float* brow = bm + (size_t)(b * S + c * L) * N;
+  const int GN = G * N;  // row stride of B and C
+  const float* crow = cm + (size_t)(b * S + c * L) * GN + g * N;
+  const float* brow = bm + (size_t)(b * S + c * L) * GN + g * N;
 
   float acc[4][4];
 #pragma unroll
@@ -168,8 +176,8 @@ ssd_chunk_scan_scores_kernel(const float* __restrict__ bm, const float* __restri
       const int r = e / kSlice;
       const int nn = e - r * kSlice;
       const int n = n0 + nn;
-      cs[r][nn] = i0 + r < L && n < N ? crow[(size_t)(i0 + r) * N + n] : 0.0f;
-      bs[r][nn] = j0 + r < L && n < N ? brow[(size_t)(j0 + r) * N + n] : 0.0f;
+      cs[r][nn] = i0 + r < L && n < N ? crow[(size_t)(i0 + r) * GN + n] : 0.0f;
+      bs[r][nn] = j0 + r < L && n < N ? brow[(size_t)(j0 + r) * GN + n] : 0.0f;
     }
     __syncthreads();
 #pragma unroll 8
@@ -185,7 +193,7 @@ ssd_chunk_scan_scores_kernel(const float* __restrict__ bm, const float* __restri
         for (int k = 0; k < 4; ++k) acc[a][k] += cv[a] * bv[k];
     }
   }
-  float* out = scores + (size_t)(b * nc + c) * L * L;
+  float* out = scores + ((size_t)(b * nc + c) * G + g) * L * L;
 #pragma unroll
   for (int a = 0; a < 4; ++a) {
     const int row = i0 + ty + 16 * a;
@@ -229,16 +237,18 @@ __device__ __forceinline__ void cp_async_wait() {
 constexpr size_t kStatesSmem = (2 * kSlice * (kMaxP + kMaxN) + kMaxL) * sizeof(float);
 
 // Each chunk's own state, transposed: states_t[n][p] = sum_j B_j[n] w_j xdt_j[p]
-// with w_j = exp(cum_end - cum_j).  A thread owns 8 n by 4 p.  kVec: P, N
+// with w_j = exp(cum_end - cum_j), B of the head's group.  A thread owns 8 n by 4 p.  kVec: P, N
 // and L multiples of 4 and every pointer 16-byte aligned; the slices of B
 // and xdt then go through a two-stage cp.async ring, so the next slice
 // loads while this one is multiplied, and each thread scales the xdt rows
-// it copied by w_j once they have landed.  Otherwise plain loads.
-template <bool kVec>
+// it copied by w_j once they have landed.  Otherwise plain loads.  kGroups
+// false: one group, whose index and row stride fold to constants, so that
+// instance keeps the registers of the design without groups.
+template <bool kVec, bool kGroups>
 __global__ void __launch_bounds__(256)
 ssd_chunk_scan_states_kernel(const float* __restrict__ xdt, const float* __restrict__ bm,
                              const float* __restrict__ wend, float* __restrict__ states_t,
-                             int S, int H, int P, int N, int L) {
+                             int S, int H, int P, int G, int N, int L) {
   extern __shared__ __align__(16) float states_smem[];  // kStatesSmem bytes
   auto xs = reinterpret_cast<float (*)[kSlice][kMaxP]>(states_smem);  // [2]: w_j xdt_j
   auto bs = reinterpret_cast<float (*)[kSlice][kMaxN]>(states_smem + 2 * kSlice * kMaxP);
@@ -252,6 +262,8 @@ ssd_chunk_scan_states_kernel(const float* __restrict__ xdt, const float* __restr
   const int tn = tid >> 4;  // n = 8 tn + i
   const float* w = wend + ((size_t)(b * H + h) * nc + c) * L;
   const size_t pos0 = (size_t)b * S + (size_t)c * L;
+  const int GN = (kGroups ? G : 1) * N;                  // row stride of B
+  const float* bg = kGroups ? bm + (h / (H / G)) * N : bm;  // the head's group
   for (int j = tid; j < L; j += 256) w_s[j] = w[j];
   __syncthreads();
 
@@ -269,7 +281,7 @@ ssd_chunk_scan_states_kernel(const float* __restrict__ xdt, const float* __restr
         const int n = 4 * (e - jj * (kMaxN / 4));
         const int j = j0 + jj;
         const bool in = j < L && n < N;
-        cp_async16(&bs[buf][jj][n], in ? bm + (pos0 + j) * N + n : bm, in);
+        cp_async16(&bs[buf][jj][n], in ? bg + (pos0 + j) * GN + n : bm, in);
       }
     } else {
       for (int e = tid; e < kSlice * kMaxP; e += 256) {
@@ -282,7 +294,7 @@ ssd_chunk_scan_states_kernel(const float* __restrict__ xdt, const float* __restr
         const int jj = e / kMaxN;
         const int n = e - jj * kMaxN;
         const int j = j0 + jj;
-        bs[buf][jj][n] = j < L && n < N ? bm[(pos0 + j) * N + n] : 0.0f;
+        bs[buf][jj][n] = j < L && n < N ? bg[(pos0 + j) * GN + n] : 0.0f;
       }
     }
   };
@@ -401,7 +413,8 @@ ssd_chunk_scan_pass_kernel(const float* __restrict__ cum, float* __restrict__ st
 
 // ---------------------------------------------------------------- 5. output
 
-// y for 64 rows of one (batch row, chunk, head): first y_off = C . S_enter^T
+// y for 64 rows of one (batch row, chunk, head), C and the scores of its
+// group: first y_off = C . S_enter^T
 // scaled by exp(cum_i) per row, then y_diag = (scores o L) . xdt over the
 // causal column slices.  A thread owns 8 rows by 4 p.  The row operand (C,
 // or the scores o L) is staged row by row and read as float4 along the
@@ -410,13 +423,14 @@ ssd_chunk_scan_pass_kernel(const float* __restrict__ cum, float* __restrict__ st
 // multiples of 4, 16-byte aligned pointers): the slices go through a
 // two-stage cp.async ring, the next slice loading while this one is
 // multiplied, and each thread applies L = exp(cum_i - cum_j) (0 above the
-// diagonal) to the scores it copied once they have landed.
-template <bool kVec>
+// diagonal) to the scores it copied once they have landed.  kGroups as the
+// states stage's.
+template <bool kVec, bool kGroups>
 __global__ void __launch_bounds__(128)
 ssd_chunk_scan_output_kernel(const float* __restrict__ xdt, const float* __restrict__ cm,
                              const float* __restrict__ scores, const float* __restrict__ cum,
                              const float* __restrict__ entering_t, float* __restrict__ y, int S,
-                             int H, int P, int N, int L) {
+                             int H, int P, int G, int N, int L) {
   constexpr int AS = kSlice + 4;  // row stride of the row operand: 16-byte rows
   __shared__ float cum_s[kMaxL];
   __shared__ __align__(16) float sa[2][kTile * AS];      // [row][n or j]: C, or scores o L
@@ -435,7 +449,11 @@ ssd_chunk_scan_output_kernel(const float* __restrict__ xdt, const float* __restr
   const int rows = min(kTile, L - i0);
   const int jend = i0 + rows;  // causal: columns before the block's end
   const size_t pos0 = (size_t)b * S + (size_t)c * L;
-  const float* sc = scores + (size_t)(b * nc + c) * L * L;
+  const int Gs = kGroups ? G : 1;
+  const int g = kGroups ? h / (H / G) : 0;  // the head's group
+  const int GN = Gs * N;                    // row stride of C
+  const float* cg = cm + g * N;
+  const float* sc = scores + ((size_t)(b * nc + c) * Gs + g) * L * L;
   const float* st = entering_t + ((size_t)(b * nc + c) * H + h) * P * N;
   const float* cb = cum + ((size_t)(b * H + h) * nc + c) * L;
   for (int j = tid; j < L; j += 128) cum_s[j] = cb[j];
@@ -457,7 +475,7 @@ ssd_chunk_scan_output_kernel(const float* __restrict__ xdt, const float* __restr
           const int nn = 4 * (e - r * (kSlice / 4));
           const int n = n0 + nn;
           const bool in = r < rows && n < N;
-          cp_async16(&a[r * AS + nn], in ? cm + (pos0 + i0 + r) * N + n : cm, in);
+          cp_async16(&a[r * AS + nn], in ? cg + (pos0 + i0 + r) * GN + n : cm, in);
         }
         for (int e = tid; e < kSlice * kMaxP / 4; e += 128) {
           const int nn = e / (kMaxP / 4);
@@ -471,7 +489,7 @@ ssd_chunk_scan_output_kernel(const float* __restrict__ xdt, const float* __restr
           const int r = e / kSlice;
           const int nn = e - r * kSlice;
           const int n = n0 + nn;
-          a[r * AS + nn] = r < rows && n < N ? cm[(pos0 + i0 + r) * N + n] : 0.0f;
+          a[r * AS + nn] = r < rows && n < N ? cg[(pos0 + i0 + r) * GN + n] : 0.0f;
         }
         for (int e = tid; e < kSlice * kMaxP; e += 128) {
           const int nn = e / kMaxP;
@@ -603,9 +621,9 @@ ssd_chunk_scan_output_kernel(const float* __restrict__ xdt, const float* __restr
   }
 }
 
-bool shape_ok(int B, int S, int H, int P, int N, int L) {
-  return B > 0 && S > 0 && H > 0 && P > 0 && N > 0 && L > 0 && L <= kMaxL && P <= kMaxP &&
-         N <= kMaxN && S % L == 0;
+bool shape_ok(int B, int S, int H, int P, int G, int N, int L) {
+  return B > 0 && S > 0 && H > 0 && P > 0 && G > 0 && N > 0 && L > 0 && L <= kMaxL &&
+         P <= kMaxP && N <= kMaxN && S % L == 0 && H % G == 0;
 }
 
 // float4 copies: P, N and L multiples of 4 and every pointer 16-byte aligned.
@@ -620,52 +638,56 @@ bool vec_ok(int P, int N, int L, std::initializer_list<const void*> ptrs) {
 extern "C" {
 
 // The five stages, in this order, on one stream; each returns the launch's
-// cudaError_t.  Scratch (B = batch, nc = S / L): cum and wend (B, H, nc, L),
-// scores (B, nc, L, L), written in the 64 x 64 tiles on and below the
-// diagonal, states_t (B, nc, H, N, P): each chunk's state, transposed, then
-// (after the pass) the state entering each chunk.
+// cudaError_t.  bm and cm are (B, S, G, N), G dividing H.  Scratch (B =
+// batch, nc = S / L): cum and wend (B, H, nc, L), scores (B, nc, G, L, L),
+// written in the 64 x 64 tiles on and below the diagonal, states_t (B, nc,
+// H, N, P): each chunk's state, transposed, then (after the pass) the state
+// entering each chunk.
 
 int ssd_chunk_scan_cumsum(const void* dA, void* cum, void* wend, int B, int S, int H, int L,
                           void* stream) {
-  if (!shape_ok(B, S, H, 1, 1, L)) return cudaErrorInvalidValue;
+  if (!shape_ok(B, S, H, 1, 1, 1, L)) return cudaErrorInvalidValue;
   ssd_chunk_scan_cumsum_kernel<<<dim3(S / L, B), 128, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(dA), static_cast<float*>(cum), static_cast<float*>(wend), S, H,
       L);
   return cudaGetLastError();
 }
 
-int ssd_chunk_scan_scores(const void* bm, const void* cm, void* scores, int B, int S, int N,
-                          int L, void* stream) {
-  if (!shape_ok(B, S, 1, 1, N, L)) return cudaErrorInvalidValue;
+int ssd_chunk_scan_scores(const void* bm, const void* cm, void* scores, int B, int S, int G,
+                          int N, int L, void* stream) {
+  if (!shape_ok(B, S, G, 1, G, N, L)) return cudaErrorInvalidValue;
   const int nt = (L + kTile - 1) / kTile;
-  ssd_chunk_scan_scores_kernel<<<dim3(nt * (nt + 1) / 2, S / L, B), 256, 0,
+  ssd_chunk_scan_scores_kernel<<<dim3(nt * (nt + 1) / 2, S / L, B * G), 256, 0,
                                  static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(bm), static_cast<const float*>(cm), static_cast<float*>(scores),
-      S, N, L);
+      S, G, N, L);
   return cudaGetLastError();
 }
 
 int ssd_chunk_scan_states(const void* xdt, const void* bm, const void* wend, void* states_t,
-                          int B, int S, int H, int P, int N, int L, void* stream) {
-  if (!shape_ok(B, S, H, P, N, L)) return cudaErrorInvalidValue;
+                          int B, int S, int H, int P, int G, int N, int L, void* stream) {
+  if (!shape_ok(B, S, H, P, G, N, L)) return cudaErrorInvalidValue;
   const dim3 grid(H, S / L, B);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto x = static_cast<const float*>(xdt);
   auto bmf = static_cast<const float*>(bm);
   auto w = static_cast<const float*>(wend);
   auto out = static_cast<float*>(states_t);
-  auto kernel = vec_ok(P, N, L, {xdt, bm, states_t}) ? ssd_chunk_scan_states_kernel<true>
-                                                    : ssd_chunk_scan_states_kernel<false>;
+  const bool vec = vec_ok(P, N, L, {xdt, bm, states_t});
+  auto kernel = G == 1 ? (vec ? ssd_chunk_scan_states_kernel<true, false>
+                              : ssd_chunk_scan_states_kernel<false, false>)
+                       : (vec ? ssd_chunk_scan_states_kernel<true, true>
+                              : ssd_chunk_scan_states_kernel<false, true>);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)kStatesSmem);
   if (err != cudaSuccess) return err;
-  kernel<<<grid, 256, kStatesSmem, s>>>(x, bmf, w, out, S, H, P, N, L);
+  kernel<<<grid, 256, kStatesSmem, s>>>(x, bmf, w, out, S, H, P, G, N, L);
   return cudaGetLastError();
 }
 
 int ssd_chunk_scan_pass(const void* cum, void* states_t, void* final_state, int B, int S, int H,
                         int P, int N, int L, void* stream) {
-  if (!shape_ok(B, S, H, P, N, L)) return cudaErrorInvalidValue;
+  if (!shape_ok(B, S, H, P, 1, N, L)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto c = static_cast<const float*>(cum);
   auto st = static_cast<float*>(states_t);
@@ -680,9 +702,9 @@ int ssd_chunk_scan_pass(const void* cum, void* states_t, void* final_state, int 
 }
 
 int ssd_chunk_scan_output(const void* xdt, const void* cm, const void* scores, const void* cum,
-                          const void* entering_t, void* y, int B, int S, int H, int P, int N,
-                          int L, void* stream) {
-  if (!shape_ok(B, S, H, P, N, L)) return cudaErrorInvalidValue;
+                          const void* entering_t, void* y, int B, int S, int H, int P, int G,
+                          int N, int L, void* stream) {
+  if (!shape_ok(B, S, H, P, G, N, L)) return cudaErrorInvalidValue;
   const int nrb = (L + kTile - 1) / kTile;
   const dim3 grid(nrb * H, S / L, B);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -691,12 +713,15 @@ int ssd_chunk_scan_output(const void* xdt, const void* cm, const void* scores, c
                                 static_cast<const float*>(scores),
                                 static_cast<const float*>(cum),
                                 static_cast<const float*>(entering_t), static_cast<float*>(y),
-                                S, H, P, N, L);
+                                S, H, P, G, N, L);
   };
-  if (vec_ok(P, N, L, {xdt, cm, scores, entering_t, y}))
-    args(ssd_chunk_scan_output_kernel<true>);
+  const bool vec = vec_ok(P, N, L, {xdt, cm, scores, entering_t, y});
+  if (G == 1)
+    args(vec ? ssd_chunk_scan_output_kernel<true, false>
+             : ssd_chunk_scan_output_kernel<false, false>);
   else
-    args(ssd_chunk_scan_output_kernel<false>);
+    args(vec ? ssd_chunk_scan_output_kernel<true, true>
+             : ssd_chunk_scan_output_kernel<false, true>);
   return cudaGetLastError();
 }
 

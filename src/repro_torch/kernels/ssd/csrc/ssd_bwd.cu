@@ -8,16 +8,18 @@
 // forward leaves (cum, the cumsum of dA inside each chunk, and the state
 // entering each chunk, in K5's transposed (N, P) layout), it returns the
 // gradients with respect to xdt (B, S, H, P), dA (B, S, H), bm and cm
-// (B, S, N), all fp32.  Per (batch row b, chunk c, head h), with e_i =
-// exp(cum_i), w_j = exp(cum_end - cum_j), L_ij = exp(cum_i - cum_j) for
-// i >= j, G = C . B^T (the scores, shared by the heads), E the entering state
-// and Sc the chunk's own state, the forward is
+// (B, S, Gr, N) (Gr groups, head h reading group h / (H / Gr)), all fp32.
+// Per (batch row b, chunk c, head h), with e_i = exp(cum_i), w_j =
+// exp(cum_end - cum_j), L_ij = exp(cum_i - cum_j) for i >= j, G = C . B^T
+// (the scores of the head's group, shared by its heads), E the entering
+// state and Sc the chunk's own state, the forward is
 //   y_i = sum_{j <= i} G_ij L_ij xdt_j + e_i C_i . E^T,
 //   Sc = sum_j w_j xdt_j^T B_j,   E_{c+1} = exp(cum_end) E_c + Sc_c,
 // and the backward is its reverse, nine kernels on one stream, all named
 // `ssd_chunk_bwd_*`, the stages of the plain version (kernels/ssd/ref.py,
 // `ssd_chunk_bwd_ref`):
-//   1. scores  C . B^T per (b, c), the lower tiles (recomputed, not saved).
+//   1. scores  C . B^T per (b, c, group), the lower tiles (recomputed, not
+//              saved).
 //   2. dstate  dE = sum_i e_i dy_i^T C_i per (b, c, h): the gradient of the
 //              entering state through y_off, into (B, nc, H, N, P).
 //   3. pass    per (b, h) and 8 state rows p, the reverse scan over the chunks: with g the
@@ -36,12 +38,14 @@
 //              through y_off.
 //   7. dcum    dcum = qd + s - r, the chunk's end also taking sum_j r_j and
 //              the pass's share; ddA is its reverse cumsum in the chunk.
-//   8. dgsum   the heads' dG summed per (b, c).
-//   9. dbm_dcm dC = sum_h dC_h + dG . B, dB = sum_h dB_h + dG^T . C.
+//   8. dgsum   each group's heads' dG summed per (b, c, group), in head order.
+//   9. dbm_dcm per group, dC = sum_h dC_h + dG . B, dB = sum_h dB_h + dG^T . C
+//              over the group's heads h, in head order.
 // Every sum is taken inside one block (per-head and per-block partials in
 // scratch, summed by a later kernel in a fixed order, no atomics), so the
-// result is deterministic, bit for bit from call to call.  K5's limits: l <=
-// 128, P <= 64, N <= 128, ngroups = 1.
+// result is deterministic, bit for bit from call to call.  With one group
+// every index is the one-group design's, and so is the arithmetic.  K5's
+// limits: l <= 128, P <= 64, N <= 128.
 //
 // What bounds it on the H100: operations.  At mamba2-130m's training shape
 // (B = 8, S = 1024, H = 24, P = 64, N = 128, l = 128) the products are 18.3
@@ -270,7 +274,7 @@ __device__ __forceinline__ void load_cum(float* cum_s, const float* cum, int b, 
 
 __global__ void __launch_bounds__(kThreads, 2)
 ssd_chunk_bwd_scores_kernel(const float* __restrict__ bm, const float* __restrict__ cm,
-                            float* __restrict__ scores, int S, int N, int L) {
+                            float* __restrict__ scores, int S, int Gr, int N, int L) {
   __shared__ float tiles[kTileFloats];
   int t = blockIdx.x;  // the t-th tile of the lower triangle, row by row
   int ti = 0;
@@ -279,18 +283,22 @@ ssd_chunk_bwd_scores_kernel(const float* __restrict__ bm, const float* __restric
     ++ti;
   }
   const int c = blockIdx.y;
-  const int b = blockIdx.z;
+  const int b = blockIdx.z / Gr;
+  const int gr = blockIdx.z - b * Gr;
   const int nc = gridDim.y;
   const size_t pos0 = (size_t)b * S + (size_t)c * L;
-  auto fa = [&](int i, int n) { return i < L ? cm[(pos0 + i) * N + n] : 0.0f; };
-  auto fb = [&](int n, int j) { return j < L ? bm[(pos0 + j) * N + n] : 0.0f; };
+  const size_t GN = (size_t)Gr * N;  // row stride of B and C
+  const float* cg = cm + gr * N;
+  const float* bg = bm + gr * N;
+  auto fa = [&](int i, int n) { return i < L ? cg[(pos0 + i) * GN + n] : 0.0f; };
+  auto fb = [&](int n, int j) { return j < L ? bg[(pos0 + j) * GN + n] : 0.0f; };
   float acc[4][4];
   zero(acc);
   mm_tile<false, false>(acc, fa, fb, ti * kT, t * kT, 0, N, tiles);
   __syncthreads();
   to_tile(acc, tiles);
   __syncthreads();
-  float* out = scores + (size_t)(b * nc + c) * L * L;
+  float* out = scores + ((size_t)(b * nc + c) * Gr + gr) * L * L;
 #pragma unroll
   for (int a = 0; a < 8; ++a) {
 #pragma unroll
@@ -305,11 +313,15 @@ ssd_chunk_bwd_scores_kernel(const float* __restrict__ bm, const float* __restric
 
 // ---------------------------------------------------------------- 2. dstate
 
-// dE[n][p] = sum_i e_i C_i[n] dy_i[p], an (n, p) tile per block.
+// dE[n][p] = sum_i e_i C_i[n] dy_i[p], an (n, p) tile per block.  kGroups
+// false: one group, whose group index and row stride fold to constants, so
+// the one-group instance keeps the registers of the design without groups
+// (the stages capped at 80 registers spill more with them live).
+template <bool kGroups>
 __global__ void __launch_bounds__(kThreads, 3)
 ssd_chunk_bwd_dstate_kernel(const float* __restrict__ dy, const float* __restrict__ cm,
                             const float* __restrict__ cum, float* __restrict__ de, int S, int H,
-                            int P, int N, int L) {
+                            int P, int Gr, int N, int L) {
   __shared__ float tiles[kTileFloats];
   __shared__ float e_s[kMaxL];
   const int ntn = (N + kT - 1) / kT;
@@ -323,7 +335,9 @@ ssd_chunk_bwd_dstate_kernel(const float* __restrict__ dy, const float* __restric
   __syncthreads();
   for (int i = threadIdx.x; i < L; i += kThreads) e_s[i] = expf(e_s[i]);
   __syncthreads();  // e_s is read by the staging functor
-  auto fa = [&](int n, int i) { return n < N ? e_s[i] * cm[(pos0 + i) * N + n] : 0.0f; };
+  const size_t GN = (size_t)(kGroups ? Gr : 1) * N;
+  const float* cg = kGroups ? cm + (h / (H / Gr)) * N : cm;  // the head's group
+  auto fa = [&](int n, int i) { return n < N ? e_s[i] * cg[(pos0 + i) * GN + n] : 0.0f; };
   auto fb = [&](int i, int p) { return p < P ? dy[((pos0 + i) * H + h) * P + p] : 0.0f; };
   float acc[4][4];
   zero(acc);
@@ -422,13 +436,14 @@ ssd_chunk_bwd_pass_kernel(const float* __restrict__ cum, const float* __restrict
 
 // -------------------------------------------------------------------- 4. dx
 
-// dxdt and r for 64 positions j of one (b, c, h).
+// dxdt and r for 64 positions j of one (b, c, h); kGroups as dstate's.
+template <bool kGroups>
 __global__ void __launch_bounds__(kThreads, 3)
 ssd_chunk_bwd_dx_kernel(const float* __restrict__ xdt, const float* __restrict__ dy,
                         const float* __restrict__ bm, const float* __restrict__ scores,
                         const float* __restrict__ cum, const float* __restrict__ dsc,
                         float* __restrict__ dxdt, float* __restrict__ rw, int S, int H, int P,
-                        int N, int L) {
+                        int Gr, int N, int L) {
   __shared__ float tiles[kTileFloats];
   __shared__ float cum_s[kMaxL];
   const int nrt = (L + kT - 1) / kT;
@@ -438,7 +453,11 @@ ssd_chunk_bwd_dx_kernel(const float* __restrict__ xdt, const float* __restrict__
   const int b = blockIdx.z;
   const int nc = gridDim.y;
   const size_t pos0 = (size_t)b * S + (size_t)c * L;
-  const float* sc = scores + (size_t)(b * nc + c) * L * L;
+  const int Gs = kGroups ? Gr : 1;
+  const int gr = kGroups ? h / (H / Gr) : 0;  // the head's group
+  const size_t GN = (size_t)Gs * N;
+  const float* bg = bm + gr * N;
+  const float* sc = scores + ((size_t)(b * nc + c) * Gs + gr) * L * L;
   const float* st = dsc + ((size_t)(b * nc + c) * H + h) * N * P;
   load_cum(cum_s, cum, b, h, c, H, nc, L);
   __syncthreads();  // cum_s is read by the staging functor
@@ -446,7 +465,7 @@ ssd_chunk_bwd_dx_kernel(const float* __restrict__ xdt, const float* __restrict__
     return j < L && i < L && i >= j ? sc[(size_t)i * L + j] * expf(cum_s[i] - cum_s[j]) : 0.0f;
   };
   auto fdy = [&](int i, int p) { return p < P ? dy[((pos0 + i) * H + h) * P + p] : 0.0f; };
-  auto fbm = [&](int j, int n) { return j < L ? bm[(pos0 + j) * N + n] : 0.0f; };
+  auto fbm = [&](int j, int n) { return j < L ? bg[(pos0 + j) * GN + n] : 0.0f; };
   auto fsc = [&](int n, int p) { return p < P ? st[(size_t)n * P + p] : 0.0f; };
   float acc1[4][4], acc2[4][4];
   zero(acc1);
@@ -485,7 +504,7 @@ __global__ void __launch_bounds__(kThreads, 2)
 ssd_chunk_bwd_dscores_kernel(const float* __restrict__ xdt, const float* __restrict__ dy,
                              const float* __restrict__ scores, const float* __restrict__ cum,
                              float* __restrict__ dg, float* __restrict__ qd, int S, int H, int P,
-                             int L) {
+                             int Gr, int L) {
   __shared__ float tiles[kTileFloats];
   __shared__ float cum_s[kMaxL];
   __shared__ float qrow_s[kMaxL];
@@ -497,7 +516,7 @@ ssd_chunk_bwd_dscores_kernel(const float* __restrict__ xdt, const float* __restr
   const int nc = gridDim.y;
   const int tid = threadIdx.x;
   const size_t pos0 = (size_t)b * S + (size_t)c * L;
-  const float* sc = scores + (size_t)(b * nc + c) * L * L;
+  const float* sc = scores + ((size_t)(b * nc + c) * Gr + h / (H / Gr)) * L * L;
   float* dgb = dg + ((size_t)(b * nc + c) * H + h) * L * L;
   load_cum(cum_s, cum, b, h, c, H, nc, L);
   for (int i = tid; i < L; i += kThreads) qrow_s[i] = qcol_s[i] = 0.0f;
@@ -555,13 +574,14 @@ ssd_chunk_bwd_dscores_kernel(const float* __restrict__ xdt, const float* __restr
 // ------------------------------------------------------------------- 6. dbc
 
 // The heads' own dC (through y_off) and dB (through the chunk states) for 64
-// positions of one (b, c, h), and s_i = C_i . dC_i.
+// positions of one (b, c, h), and s_i = C_i . dC_i; kGroups as dstate's.
+template <bool kGroups>
 __global__ void __launch_bounds__(kThreads, 3)
 ssd_chunk_bwd_dbc_kernel(const float* __restrict__ xdt, const float* __restrict__ dy,
                          const float* __restrict__ cm, const float* __restrict__ cum,
                          const float* __restrict__ entering_t, const float* __restrict__ dsc,
                          float* __restrict__ dch, float* __restrict__ dbh,
-                         float* __restrict__ sp, int S, int H, int P, int N, int L) {
+                         float* __restrict__ sp, int S, int H, int P, int Gr, int N, int L) {
   __shared__ float tiles[kTileFloats];
   __shared__ float cum_s[kMaxL];
   const int nrt = (L + kT - 1) / kT;
@@ -574,6 +594,8 @@ ssd_chunk_bwd_dbc_kernel(const float* __restrict__ xdt, const float* __restrict_
   const size_t sbase = ((size_t)(b * nc + c) * H + h) * N * P;
   const float* ent = entering_t + sbase;
   const float* st = dsc + sbase;
+  const size_t GN = (size_t)(kGroups ? Gr : 1) * N;
+  const float* cg = kGroups ? cm + (h / (H / Gr)) * N : cm;  // the head's group
   load_cum(cum_s, cum, b, h, c, H, nc, L);
   auto fdy = [&](int i, int p) { return i < L ? dy[((pos0 + i) * H + h) * P + p] : 0.0f; };
   auto fx = [&](int i, int p) { return i < L ? xdt[((pos0 + i) * H + h) * P + p] : 0.0f; };
@@ -605,7 +627,7 @@ ssd_chunk_bwd_dbc_kernel(const float* __restrict__ xdt, const float* __restrict_
         const float dco = e * tiles[at.row * kOS + at.col];
         dch[o] = dco;
         dbh[o] = w * tiles[kT * kOS + at.row * kOS + at.col];
-        spart[a] += cm[(pos0 + i) * N + n] * dco;
+        spart[a] += cg[(pos0 + i) * GN + n] * dco;
       }
     }
   }
@@ -651,49 +673,60 @@ ssd_chunk_bwd_dcum_kernel(const float* __restrict__ qd, const float* __restrict_
 
 // ----------------------------------------------------------------- 8. dgsum
 
+// dgt (B, nc, Gr, L, L): group gr's heads gr * hg .. gr * hg + hg - 1 (hg =
+// H / Gr), in order.
 __global__ void __launch_bounds__(kThreads)
-ssd_chunk_bwd_dgsum_kernel(const float* __restrict__ dg, float* __restrict__ dgt, int H, int L,
-                           size_t total) {
+ssd_chunk_bwd_dgsum_kernel(const float* __restrict__ dg, float* __restrict__ dgt, int H, int Gr,
+                           int L, size_t total) {
   const size_t e = (size_t)blockIdx.x * kThreads + threadIdx.x;
   if (e >= total) return;
   const size_t LL = (size_t)L * L;
-  const size_t bc = e / LL;
-  const int ij = (int)(e - bc * LL);
+  const size_t bcg = e / LL;
+  const size_t bc = bcg / Gr;
+  const int hg = H / Gr;
+  const int h0 = (int)(bcg - bc * Gr) * hg;
+  const int ij = (int)(e - bcg * LL);
   const int i = ij / L;
   const int j = ij - i * L;
   float v = 0.0f;
   if (j <= i)
-    for (int h = 0; h < H; ++h) v += dg[(bc * H + h) * LL + ij];
+    for (int h = h0; h < h0 + hg; ++h) v += dg[(bc * H + h) * LL + ij];
   dgt[e] = v;
 }
 
 // --------------------------------------------------------------- 9. dbm_dcm
 
-// dC (blockIdx.z even) or dB (odd) for a 64 x 64 (position, n) tile.
+// dC (blockIdx.z even) or dB (odd) of one group for a 64 x 64 (position,
+// n) tile.
 __global__ void __launch_bounds__(kThreads, 2)
 ssd_chunk_bwd_dbm_dcm_kernel(const float* __restrict__ bm, const float* __restrict__ cm,
                              const float* __restrict__ dgt, const float* __restrict__ dch,
                              const float* __restrict__ dbh, float* __restrict__ dbm,
-                             float* __restrict__ dcm, int S, int H, int N, int L) {
+                             float* __restrict__ dcm, int S, int H, int Gr, int N, int L) {
   __shared__ float tiles[kTileFloats];
   const int ntn = (N + kT - 1) / kT;
   const int r0 = (blockIdx.x / ntn) * kT;
   const int n0 = (blockIdx.x % ntn) * kT;
   const int c = blockIdx.y;
   const int which = blockIdx.z & 1;
-  const int b = blockIdx.z >> 1;
+  const int b = (blockIdx.z >> 1) / Gr;
+  const int gr = (blockIdx.z >> 1) - b * Gr;
   const int nc = gridDim.y;
   const size_t pos0 = (size_t)b * S + (size_t)c * L;
-  const float* g = dgt + (size_t)(b * nc + c) * L * L;
+  const size_t GN = (size_t)Gr * N;  // row stride of B, C, dB and dC
+  const float* bg = bm + gr * N;
+  const float* cg = cm + gr * N;
+  const int hg = H / Gr;
+  const float* g = dgt + ((size_t)(b * nc + c) * Gr + gr) * L * L;
   float acc[4][4];
   zero(acc);
   if (which == 0) {  // dC_i += sum_{j <= i} dG_ij B_j
     auto fa = [&](int i, int j) { return i < L && j <= i ? g[(size_t)i * L + j] : 0.0f; };
-    auto fb = [&](int j, int n) { return n < N ? bm[(pos0 + j) * N + n] : 0.0f; };
+    auto fb = [&](int j, int n) { return n < N ? bg[(pos0 + j) * GN + n] : 0.0f; };
     mm_tile<false, true>(acc, fa, fb, r0, n0, 0, min(L, r0 + kT), tiles);
   } else {  // dB_j += sum_{i >= j} dG_ij C_i
     auto fa = [&](int j, int i) { return j < L && i >= j ? g[(size_t)i * L + j] : 0.0f; };
-    auto fb = [&](int i, int n) { return n < N ? cm[(pos0 + i) * N + n] : 0.0f; };
+    auto fb = [&](int i, int n) { return n < N ? cg[(pos0 + i) * GN + n] : 0.0f; };
     mm_tile<true, true>(acc, fa, fb, r0, n0, r0, L, tiles);
   }
   __syncthreads();
@@ -710,15 +743,15 @@ ssd_chunk_bwd_dbm_dcm_kernel(const float* __restrict__ bm, const float* __restri
       const int n = n0 + at.col;
       if (i >= L || n >= N) continue;
       float v = tiles[at.row * kOS + at.col];
-      for (int h = 0; h < H; ++h) v += heads[((pos0 + i) * H + h) * N + n];
-      out[(pos0 + i) * N + n] = v;
+      for (int h = gr * hg; h < (gr + 1) * hg; ++h) v += heads[((pos0 + i) * H + h) * N + n];
+      out[(pos0 + i) * GN + gr * N + n] = v;
     }
   }
 }
 
-bool shape_ok(int B, int S, int H, int P, int N, int L) {
-  return B > 0 && S > 0 && H > 0 && P > 0 && N > 0 && L > 0 && L <= kMaxL && P <= kMaxP &&
-         N <= kMaxN && S % L == 0;
+bool shape_ok(int B, int S, int H, int P, int Gr, int N, int L) {
+  return B > 0 && S > 0 && H > 0 && P > 0 && Gr > 0 && N > 0 && L > 0 && L <= kMaxL &&
+         P <= kMaxP && N <= kMaxN && S % L == 0 && H % Gr == 0;
 }
 
 }  // namespace
@@ -726,19 +759,19 @@ bool shape_ok(int B, int S, int H, int P, int N, int L) {
 extern "C" {
 
 // One backward: the nine stages in order on one stream.  Inputs: xdt, dy
-// (B, S, H, P); bm, cm (B, S, N); cum (B, H, nc, L); entering_t (B, nc, H, N,
-// P).  Outputs: dxdt (B, S, H, P), dda (B, S, H), dbm, dcm (B, S, N).
-// Scratch: scores (B, nc, L, L), de (B, nc, H, N, P), dcend_parts (B, H, nc,
-// ceil(P / 8)), rw,
-// qd and sp (B, H, nc, L), dg (B, nc, H, L, L), dgt (B, nc, L, L), dch and
-// dbh (B, S, H, N).  Returns the first failing launch's cudaError_t, or 0.
+// (B, S, H, P); bm, cm (B, S, Gr, N), Gr dividing H; cum (B, H, nc, L);
+// entering_t (B, nc, H, N, P).  Outputs: dxdt (B, S, H, P), dda (B, S, H),
+// dbm, dcm (B, S, Gr, N).  Scratch: scores (B, nc, Gr, L, L), de (B, nc, H,
+// N, P), dcend_parts (B, H, nc, ceil(P / 8)), rw, qd and sp (B, H, nc, L),
+// dg (B, nc, H, L, L), dgt (B, nc, Gr, L, L), dch and dbh (B, S, H, N).
+// Returns the first failing launch's cudaError_t, or 0.
 int ssd_chunk_bwd(const void* xdt, const void* bm, const void* cm, const void* dy,
                   const void* cum, const void* entering_t, void* dxdt, void* dda, void* dbm,
                   void* dcm, void* scores, void* de, void* dcend_parts, void* rw, void* qd,
                   void* sp,
-                  void* dg, void* dgt, void* dch, void* dbh, int B, int S, int H, int P, int N,
-                  int L, void* stream) {
-  if (!shape_ok(B, S, H, P, N, L)) return cudaErrorInvalidValue;
+                  void* dg, void* dgt, void* dch, void* dbh, int B, int S, int H, int P, int Gr,
+                  int N, int L, void* stream) {
+  if (!shape_ok(B, S, H, P, Gr, N, L)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int nc = S / L;
   const int nt = (L + kT - 1) / kT;
@@ -750,35 +783,40 @@ int ssd_chunk_bwd(const void* xdt, const void* bm, const void* cm, const void* d
   err = cudaGetLastError();              \
   if (err != cudaSuccess) return err;
 
-  ssd_chunk_bwd_scores_kernel<<<dim3(nt * (nt + 1) / 2, nc, B), kThreads, 0, s>>>(
-      f(bm), f(cm), w(scores), S, N, L);
+  ssd_chunk_bwd_scores_kernel<<<dim3(nt * (nt + 1) / 2, nc, B * Gr), kThreads, 0, s>>>(
+      f(bm), f(cm), w(scores), S, Gr, N, L);
   REPRO_SSD_BWD_CHECK()
-  ssd_chunk_bwd_dstate_kernel<<<dim3(H * ntn, nc, B), kThreads, 0, s>>>(
-      f(dy), f(cm), f(cum), w(de), S, H, P, N, L);
+  const bool one = Gr == 1;
+  auto dstate = one ? ssd_chunk_bwd_dstate_kernel<false> : ssd_chunk_bwd_dstate_kernel<true>;
+  dstate<<<dim3(H * ntn, nc, B), kThreads, 0, s>>>(
+      f(dy), f(cm), f(cum), w(de), S, H, P, Gr, N, L);
   REPRO_SSD_BWD_CHECK()
   const int splits = (P + kPassRows - 1) / kPassRows;
   ssd_chunk_bwd_pass_kernel<<<dim3(splits, H, B), kPassThreads, 0, s>>>(
       f(cum), f(entering_t), w(de), w(dcend_parts), H, P, N, L, nc);
   REPRO_SSD_BWD_CHECK()
-  ssd_chunk_bwd_dx_kernel<<<dim3(H * nt, nc, B), kThreads, 0, s>>>(
-      f(xdt), f(dy), f(bm), f(scores), f(cum), f(de), w(dxdt), w(rw), S, H, P, N, L);
+  auto dx = one ? ssd_chunk_bwd_dx_kernel<false> : ssd_chunk_bwd_dx_kernel<true>;
+  dx<<<dim3(H * nt, nc, B), kThreads, 0, s>>>(
+      f(xdt), f(dy), f(bm), f(scores), f(cum), f(de), w(dxdt), w(rw), S, H, P, Gr, N, L);
   REPRO_SSD_BWD_CHECK()
   ssd_chunk_bwd_dscores_kernel<<<dim3(H, nc, B), kThreads, 0, s>>>(
-      f(xdt), f(dy), f(scores), f(cum), w(dg), w(qd), S, H, P, L);
+      f(xdt), f(dy), f(scores), f(cum), w(dg), w(qd), S, H, P, Gr, L);
   REPRO_SSD_BWD_CHECK()
-  ssd_chunk_bwd_dbc_kernel<<<dim3(H * nt, nc, B), kThreads, 0, s>>>(
-      f(xdt), f(dy), f(cm), f(cum), f(entering_t), f(de), w(dch), w(dbh), w(sp), S, H, P, N, L);
+  auto dbc = one ? ssd_chunk_bwd_dbc_kernel<false> : ssd_chunk_bwd_dbc_kernel<true>;
+  dbc<<<dim3(H * nt, nc, B), kThreads, 0, s>>>(
+      f(xdt), f(dy), f(cm), f(cum), f(entering_t), f(de), w(dch), w(dbh), w(sp), S, H, P, Gr,
+      N, L);
   REPRO_SSD_BWD_CHECK()
   ssd_chunk_bwd_dcum_kernel<<<dim3(H, nc, B), kMaxL, 0, s>>>(f(qd), f(sp), f(rw),
                                                              f(dcend_parts), w(dda), S, H, L,
                                                              splits);
   REPRO_SSD_BWD_CHECK()
-  const size_t total = (size_t)B * nc * L * L;
+  const size_t total = (size_t)B * nc * Gr * L * L;
   ssd_chunk_bwd_dgsum_kernel<<<(unsigned)((total + kThreads - 1) / kThreads), kThreads, 0, s>>>(
-      f(dg), w(dgt), H, L, total);
+      f(dg), w(dgt), H, Gr, L, total);
   REPRO_SSD_BWD_CHECK()
-  ssd_chunk_bwd_dbm_dcm_kernel<<<dim3(nt * ntn, nc, 2 * B), kThreads, 0, s>>>(
-      f(bm), f(cm), f(dgt), f(dch), f(dbh), w(dbm), w(dcm), S, H, N, L);
+  ssd_chunk_bwd_dbm_dcm_kernel<<<dim3(nt * ntn, nc, 2 * B * Gr), kThreads, 0, s>>>(
+      f(bm), f(cm), f(dgt), f(dch), f(dbh), w(dbm), w(dcm), S, H, Gr, N, L);
   REPRO_SSD_BWD_CHECK()
 #undef REPRO_SSD_BWD_CHECK
   return cudaSuccess;

@@ -4,8 +4,10 @@
 ``ssd(x, dt, a_log, bm, cm, chunk)`` is the model-facing call of the
 reference: it forms ``dA = dt * -exp(a_log)`` and ``xdt = x * dt`` in
 float32 and hands them to ``ssd_chunk_scan``, which has
-``ssd_pallas``'s contract: xdt (B, S, H, P), dA (B, S, H), bm and cm
-(B, S, N), ngroups = 1, ``S % chunk == 0``; y (B, S, H, P) and the
+``ssd_pallas``'s contract widened to the reference model's groups
+(``src/repro/models/ssd.py:83``): xdt (B, S, H, P), dA (B, S, H), bm
+and cm (B, S, G, N) with G dividing H, head h reading group h // (H / G),
+or (B, S, N) for one group, ``S % chunk == 0``; y (B, S, H, P) and the
 final state (B, H, P, N), float32.  Tensors on the CPU take the plain
 version (``ref.ssd_chunk_ref``); CUDA tensors launch the five kernels of
 ``csrc/ssd.cu`` in order on the current stream (cumsum, scores, chunk
@@ -30,8 +32,10 @@ stage's output and scratch as fake tensors and the shape-only operators
 ``repro_torch::ssd_chunk_scan`` and ``repro_torch::ssd_chunk_bwd``, whose
 FLOP formulas count K5's products (chunk scores, chunk states, state
 passing, the output's two terms) and twice them for K5b.  DTensors run on
-each rank's batch rows and head shards (``kernels.on_shards``), bm and cm
-whole on every rank.
+each rank's batch rows and head shards (``kernels.on_shards``); bm and cm
+are split over ``model`` with the heads when there are several groups and
+the groups divide it too, else whole on every rank (one group; or, when
+the groups do not divide, every head whole on every rank).
 """
 from __future__ import annotations
 
@@ -64,13 +68,19 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 
-def ssd_flops(b: int, s: int, h: int, p: int, n: int, chunk: int) -> int:
-    """K5's products: the chunk scores C.B^T (l x l x N a chunk), the chunk
-    states (H P N l), their passing (H P N a chunk), and the output's
-    intra-chunk (H l l P) and inter-chunk (H l P N) terms, 2 FLOPs each."""
+def ssd_flops(b: int, s: int, h: int, p: int, n: int, chunk: int, g: int = 1) -> int:
+    """K5's products: the chunk scores C.B^T (l x l x N a chunk and group),
+    the chunk states (H P N l), their passing (H P N a chunk), and the
+    output's intra-chunk (H l l P) and inter-chunk (H l P N) terms, 2 FLOPs
+    each."""
     nc = s // chunk
-    return 2 * b * nc * (chunk * chunk * n + h * p * n * chunk + h * p * n
+    return 2 * b * nc * (g * chunk * chunk * n + h * p * n * chunk + h * p * n
                          + h * chunk * chunk * p + h * chunk * p * n)
+
+
+def _groups(shape) -> int:
+    """The groups of B or C of ``shape``: (B, S, G, N), or (B, S, N) for one."""
+    return shape[2] if len(shape) == 4 else 1
 
 
 @torch.library.custom_op("repro_torch::ssd_chunk_scan", mutates_args=())
@@ -93,7 +103,7 @@ def _(xdt, dA, bm, cm, chunk):
 @register_flop_formula(torch.ops.repro_torch.ssd_chunk_scan)
 def _k5_flops(xdt_shape, dA_shape, bm_shape, cm_shape, chunk, *args, **kwargs) -> int:
     b, s, h, p = xdt_shape
-    return ssd_flops(b, s, h, p, bm_shape[-1], chunk)
+    return ssd_flops(b, s, h, p, bm_shape[-1], chunk, _groups(bm_shape))
 
 
 @torch.library.custom_op("repro_torch::ssd_chunk_bwd", mutates_args=())
@@ -116,7 +126,7 @@ def _(xdt, bm, cm, dy, cum, entering, chunk):
 def _k5b_flops(xdt_shape, bm_shape, cm_shape, dy_shape, cum_shape, entering_shape, chunk,
                *args, **kwargs) -> int:
     b, s, h, p = xdt_shape
-    return 2 * ssd_flops(b, s, h, p, bm_shape[-1], chunk)
+    return 2 * ssd_flops(b, s, h, p, bm_shape[-1], chunk, _groups(bm_shape))
 
 
 def _fake_scan(xdt, dA, bm, cm, chunk):
@@ -126,7 +136,7 @@ def _fake_scan(xdt, dA, bm, cm, chunk):
     b, s, h, _ = xdt.shape
     nc = s // chunk
     wend = xdt.new_empty((b, h, nc, chunk), dtype=torch.float32)
-    scores = xdt.new_empty((b, nc, chunk, chunk), dtype=torch.float32)
+    scores = xdt.new_empty((b, nc, _groups(bm.shape), chunk, chunk), dtype=torch.float32)
     out = _k5_op(xdt, dA, bm, cm, chunk)
     del wend, scores
     counter.add_fake()
@@ -135,25 +145,28 @@ def _fake_scan(xdt, dA, bm, cm, chunk):
 
 def _sharded(fn, xdt, dA, bm, cm, chunk):
     """``fn`` (a chunk scan returning (y, final_state[, cum, entering])) on
-    each rank's batch rows and head shards."""
+    each rank's batch rows and head shards: with several groups, B and C
+    are split with the heads (a rank's heads read its own groups), which
+    ``on_shards`` does only when the groups divide ``model`` too."""
     def local(xdt, dA, bm, cm):
         return fn(xdt, dA, bm, cm, chunk)
 
     outs = ((0, 2), (0, 1))
     if fn is ssd_chunk_scan_saving:
         outs += ((0, 1), (0, 2))
-    return on_shards(local, (xdt, dA, bm, cm), ((0, 2), (0, 2), (0, None), (0, None)), outs)
+    bc = (0, 2) if _groups(bm.shape) > 1 else (0, None)
+    return on_shards(local, (xdt, dA, bm, cm), ((0, 2), (0, 2), bc, bc), outs)
 
 
 def _check_args(xdt, dA, bm, cm, chunk):
-    if xdt.ndim != 4 or dA.ndim != 3 or bm.ndim != 3 or bm.shape != cm.shape:
-        raise ValueError(f"xdt (B, S, H, P), dA (B, S, H), bm and cm (B, S, N): got "
-                         f"{tuple(xdt.shape)}, {tuple(dA.shape)}, {tuple(bm.shape)}, "
-                         f"{tuple(cm.shape)}")
+    if xdt.ndim != 4 or dA.ndim != 3 or bm.ndim not in (3, 4) or bm.shape != cm.shape:
+        raise ValueError(f"xdt (B, S, H, P), dA (B, S, H), bm and cm (B, S, G, N) or "
+                         f"(B, S, N): got {tuple(xdt.shape)}, {tuple(dA.shape)}, "
+                         f"{tuple(bm.shape)}, {tuple(cm.shape)}")
     b, s, h, _ = xdt.shape
-    if tuple(dA.shape) != (b, s, h) or tuple(bm.shape[:2]) != (b, s):
+    if tuple(dA.shape) != (b, s, h) or tuple(bm.shape[:2]) != (b, s) or h % _groups(bm.shape):
         raise ValueError(f"xdt {tuple(xdt.shape)}, dA {tuple(dA.shape)} and bm "
-                         f"{tuple(bm.shape)} disagree (ngroups must be 1)")
+                         f"{tuple(bm.shape)} disagree (the groups must divide the heads)")
     if chunk <= 0 or s % chunk:
         raise ValueError(f"sequence length {s} must be a multiple of the chunk {chunk}")
     for name, t in (("dA", dA), ("bm", bm), ("cm", cm)):
@@ -164,8 +177,8 @@ def _check_args(xdt, dA, bm, cm, chunk):
 SsdStages = collections.namedtuple(
     "SsdStages", ["cum", "scores", "entering", "final_state", "y"])
 SsdStages.__doc__ = """What the five stages of K5 leave on the card, in the
-layouts of ``ref``'s stages: cum (B, H, nc, l); scores (B, nc, l, l), valid
-on and below the diagonal only; the state entering each chunk
+layouts of ``ref``'s stages: cum (B, H, nc, l); scores (B, nc, G, l, l),
+valid on and below the diagonal only; the state entering each chunk
 (B, nc, H, P, N), a view of the kernels' (B, nc, H, N, P); the final state
 (B, H, P, N); y (B, S, H, P)."""
 
@@ -178,12 +191,13 @@ def ssd_chunk_scan_stages(xdt, dA, bm, cm, chunk: int = 128) -> SsdStages:
     if is_fake(xdt):
         y, final_state, cum, states_t = _fake_scan(xdt, dA, bm, cm, chunk)
         b, s, h, _ = xdt.shape
-        scores = xdt.new_empty((b, s // chunk, chunk, chunk), dtype=torch.float32)
+        scores = xdt.new_empty((b, s // chunk, _groups(bm.shape), chunk, chunk),
+                               dtype=torch.float32)
         return SsdStages(cum, scores, states_t.transpose(-1, -2), final_state, y)
     if xdt.device.type != "cuda":
         raise ValueError(f"the SSD kernel stages run on CUDA, not {xdt.device}")
     b, s, h, p = xdt.shape
-    n = bm.shape[-1]
+    g, n = _groups(bm.shape), bm.shape[-1]
     for name, t in (("xdt", xdt), ("dA", dA), ("bm", bm), ("cm", cm)):
         if t.dtype != torch.float32:
             raise TypeError(f"the SSD kernel takes float32, as ssd_pallas; {name} is {t.dtype}")
@@ -198,7 +212,7 @@ def ssd_chunk_scan_stages(xdt, dA, bm, cm, chunk: int = 128) -> SsdStages:
         return torch.empty(shape, dtype=torch.float32, device=xdt.device)
 
     cum, wend = empty(b, h, nc, chunk), empty(b, h, nc, chunk)
-    scores = empty(b, nc, chunk, chunk)
+    scores = empty(b, nc, g, chunk, chunk)
     states_t = empty(b, nc, h, n, p)  # (N, P): chunk states, then the entering states
     final_state = empty(b, h, p, n)
     y = torch.empty_like(xdt)
@@ -206,14 +220,14 @@ def ssd_chunk_scan_stages(xdt, dA, bm, cm, chunk: int = 128) -> SsdStages:
     launches = (
         ("ssd_chunk_scan_cumsum", [_P, _P, _P, _I, _I, _I, _I, _P],
          (dA, cum, wend, b, s, h, chunk)),
-        ("ssd_chunk_scan_scores", [_P, _P, _P, _I, _I, _I, _I, _P],
-         (bm, cm, scores, b, s, n, chunk)),
-        ("ssd_chunk_scan_states", [_P, _P, _P, _P] + [_I] * 6 + [_P],
-         (xdt, bm, wend, states_t, b, s, h, p, n, chunk)),
+        ("ssd_chunk_scan_scores", [_P, _P, _P] + [_I] * 5 + [_P],
+         (bm, cm, scores, b, s, g, n, chunk)),
+        ("ssd_chunk_scan_states", [_P, _P, _P, _P] + [_I] * 7 + [_P],
+         (xdt, bm, wend, states_t, b, s, h, p, g, n, chunk)),
         ("ssd_chunk_scan_pass", [_P, _P, _P] + [_I] * 6 + [_P],
          (cum, states_t, final_state, b, s, h, p, n, chunk)),
-        ("ssd_chunk_scan_output", [_P] * 6 + [_I] * 6 + [_P],
-         (xdt, cm, scores, cum, states_t, y, b, s, h, p, n, chunk)),
+        ("ssd_chunk_scan_output", [_P] * 6 + [_I] * 7 + [_P],
+         (xdt, cm, scores, cum, states_t, y, b, s, h, p, g, n, chunk)),
     )
     with torch.cuda.device(xdt.device):
         stream = torch.cuda.current_stream(xdt.device).cuda_stream
@@ -264,14 +278,14 @@ def ssd_chunk_scan_saving(xdt, dA, bm, cm, chunk: int = 128):
 
 
 def ssd_chunk_bwd(xdt, bm, cm, dy, cum, entering, chunk: int = 128):
-    """K5b: (dxdt (B, S, H, P), ddA (B, S, H), dbm, dcm (B, S, N)), float32,
-    the gradients of ``ssd_chunk_scan``'s y given dy (B, S, H, P), from the
+    """K5b: (dxdt (B, S, H, P), ddA (B, S, H), dbm, dcm in bm's shape),
+    float32, the gradients of ``ssd_chunk_scan``'s y given dy (B, S, H, P), from the
     forward's cum (B, H, nc, l) and entering states (B, nc, H, P, N) of
     ``ssd_chunk_scan_saving``.  One call is one K5b launch, whatever the
     number of CUDA kernels it starts."""
     b, s, h, p = xdt.shape
     _check_args(xdt, cum.new_empty((b, s, h)), bm, cm, chunk)
-    n, nc = bm.shape[-1], s // chunk
+    g, n, nc = _groups(bm.shape), bm.shape[-1], s // chunk
     if tuple(dy.shape) != (b, s, h, p) or dy.device != xdt.device:
         raise ValueError(f"dy must be {(b, s, h, p)} on {xdt.device}, got {tuple(dy.shape)} "
                          f"on {dy.device}")
@@ -279,7 +293,7 @@ def ssd_chunk_bwd(xdt, bm, cm, dy, cum, entering, chunk: int = 128):
         raise ValueError(f"cum must be {(b, h, nc, chunk)} and entering {(b, nc, h, p, n)}, "
                          f"got {tuple(cum.shape)} and {tuple(entering.shape)}")
     if is_fake(xdt):
-        scratch = _bwd_scratch(xdt, b, s, h, p, n, chunk)
+        scratch = _bwd_scratch(xdt, b, s, h, p, g, n, chunk)
         grads = _k5b_op(xdt, bm, cm, dy, cum, entering, chunk)
         del scratch
         bwd_counter.add_fake()
@@ -298,42 +312,42 @@ def ssd_chunk_bwd(xdt, bm, cm, dy, cum, entering, chunk: int = 128):
         return torch.empty(shape, dtype=torch.float32, device=xdt.device)
 
     dxdt, dda = empty(b, s, h, p), empty(b, s, h)
-    dbm, dcm = empty(b, s, n), empty(b, s, n)
-    scratch = _bwd_scratch(xdt, b, s, h, p, n, chunk)
+    dbm, dcm = empty(*bm.shape), empty(*bm.shape)
+    scratch = _bwd_scratch(xdt, b, s, h, p, g, n, chunk)
     lib = nvcc.library("ssd_bwd")
     fn = lib.ssd_chunk_bwd
-    fn.argtypes = [_P] * 20 + [_I] * 6 + [_P]
+    fn.argtypes = [_P] * 20 + [_I] * 7 + [_P]
     fn.restype = _I
     with torch.cuda.device(xdt.device):
         stream = torch.cuda.current_stream(xdt.device).cuda_stream
         bwd_counter.add()
         err = fn(*(t.data_ptr() for t in args + [dxdt, dda, dbm, dcm] + scratch),
-                 b, s, h, p, n, chunk, stream)
+                 b, s, h, p, g, n, chunk, stream)
     nvcc.check(lib, err, "ssd_chunk_bwd")
     return dxdt, dda, dbm, dcm
 
 
-def _bwd_scratch(xdt, b, s, h, p, n, chunk) -> list:
-    """K5b's float32 scratch: scores, the entering states' gradients (then
-    the chunk states'), the pass's dcum by block of state rows, r, qd and s
-    per position, the heads' d(scores), their sum, and the heads' own dC
-    and dB."""
+def _bwd_scratch(xdt, b, s, h, p, g, n, chunk) -> list:
+    """K5b's float32 scratch: the groups' scores, the entering states'
+    gradients (then the chunk states'), the pass's dcum by block of state
+    rows, r, qd and s per position, the heads' d(scores), their sums per
+    group, and the heads' own dC and dB."""
     nc = s // chunk
 
     def empty(*shape):
         return xdt.new_empty(shape, dtype=torch.float32)
 
-    return [empty(b, nc, chunk, chunk), empty(b, nc, h, n, p),
+    return [empty(b, nc, g, chunk, chunk), empty(b, nc, h, n, p),
             empty(b, h, nc, -(-p // PASS_ROWS)),
             empty(b, h, nc, chunk), empty(b, h, nc, chunk), empty(b, h, nc, chunk),
-            empty(b, nc, h, chunk, chunk), empty(b, nc, chunk, chunk),
+            empty(b, nc, h, chunk, chunk), empty(b, nc, g, chunk, chunk),
             empty(b, s, h, n), empty(b, s, h, n)]
 
 
 def ssd(x, dt, a_log, bm, cm, chunk: int = 128):
     """Model-facing API: x (B, S, H, P); dt (B, S, H) after softplus;
-    a_log (H,); bm and cm (B, S, N) (ngroups = 1).  Returns (y,
-    final_state), float32."""
+    a_log (H,); bm and cm (B, S, G, N), or (B, S, N) for one group.
+    Returns (y, final_state), float32."""
     if a_log.ndim != 1 or x.ndim != 4 or a_log.shape[0] != x.shape[2]:
         raise ValueError(f"a_log must be (H,) for x {tuple(x.shape)}, got {tuple(a_log.shape)}")
     return ssd_from_a(x, dt, -torch.exp(a_log.float()), bm, cm, chunk)

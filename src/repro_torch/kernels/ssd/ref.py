@@ -1,15 +1,17 @@
 """Plain PyTorch versions of the Mamba-2 SSD chunk-scan kernel (K5).
 
-``ssd_chunk_ref`` is the same function as ``ssd_pallas``: xdt
-(B, S, H, P), dA (B, S, H), bm and cm (B, S, N), float32, ngroups = 1,
-``S % chunk == 0``; it returns y (B, S, H, P) and the final state
-(B, H, P, N), float32.  It is written in the chunked algebra of the
-reference model's ``ssd_scan`` (``src/repro/models/ssd.py:83``), in the
-same order of operations with ngroups = 1, cut into the five stages
-the kernel launches (``csrc/ssd.cu``), each a plain function here so
-that each kernel stage is held against its own: ``chunk_cumsum`` (cum
-of dA per chunk and head), ``chunk_scores`` (``C.B^T`` once per chunk,
-shared by the heads), ``chunk_states`` (each chunk's own state),
+``ssd_chunk_ref`` is the same function as the reference model's
+``ssd_scan`` (``src/repro/models/ssd.py:83``) after its padding, and as
+``ssd_pallas`` where that takes one group: xdt (B, S, H, P), dA (B, S,
+H), bm and cm (B, S, G, N) with G dividing H, head h reading group
+h // (H / G) (or (B, S, N), one group), float32, ``S % chunk == 0``; it
+returns y (B, S, H, P) and the final state (B, H, P, N), float32.  It is
+written in the chunked algebra of ``ssd_scan``, in the same order of
+operations, cut into the five stages the kernel launches
+(``csrc/ssd.cu``), each a plain function here so that each kernel stage
+is held against its own: ``chunk_cumsum`` (cum of dA per chunk and
+head), ``chunk_scores`` (``C.B^T`` once per chunk and group, shared by
+the group's heads), ``chunk_states`` (each chunk's own state),
 ``state_passing`` (the short scan over chunks: the state entering each
 chunk, and the final state) and ``chunk_scan`` (``y_diag`` through the
 scores and the causal decay ``L = exp(cum_i - cum_j)``, plus ``y_off``
@@ -39,8 +41,8 @@ the stages of the kernel (``csrc/ssd_bwd.cu``):
   5. ``bwd_dbc_heads``: per head, dC through y_off and dB through the chunk
      states, and dcum through y_off;
   6. ``bwd_dcum``: dcum summed, then the reverse cumsum that gives ddA;
-  7. ``bwd_dbm_dcm``: the heads' d(scores) summed, through C.B^T into dB
-     and dC, plus the heads' own dB and dC.
+  7. ``bwd_dbm_dcm``: each group's heads' d(scores) summed, through C.B^T
+     into dB and dC, plus the group's heads' own dB and dC.
 
 The final state is not differentiated (the model reads only y).
 """
@@ -57,6 +59,22 @@ __all__ = ["ssd_chunk_ref", "ssd_chunk_ref_saving", "ssd_sequential_ref", "chunk
 def _chunks(t, chunk):
     """(B, S, ...) -> (B, nc, l, ...), float32."""
     return t.float().reshape(t.shape[0], t.shape[1] // chunk, chunk, *t.shape[2:])
+
+
+def _grouped(t):
+    """B or C as (B, S, G, N): (B, S, N) is one group."""
+    return t[:, :, None] if t.ndim == 3 else t
+
+
+def _head_groups(h: int, g: int, device=None):
+    """(H,) int64: the group each head reads, h // (H / G)."""
+    return torch.arange(h, device=device) // (h // g)
+
+
+def _per_head(t, h: int):
+    """B or C (B, S, G, N) (or (B, S, N)) -> (B, S, H, N), each head's group."""
+    t = _grouped(t)
+    return t[:, :, _head_groups(h, t.shape[2], t.device)]
 
 
 def causal_decay(cum):
@@ -76,17 +94,18 @@ def chunk_cumsum(dA, chunk: int):
 
 
 def chunk_scores(bm, cm, chunk: int):
-    """Stage 2: (B, nc, l, l), the scores C.B^T of each chunk, one set
-    for every head (ngroups = 1)."""
-    return torch.einsum("bcln,bcsn->bcls", _chunks(cm, chunk), _chunks(bm, chunk))
+    """Stage 2: (B, nc, G, l, l), the scores C.B^T of each chunk and group,
+    one set for the group's heads."""
+    return torch.einsum("bclgn,bcsgn->bcgls", _chunks(_grouped(cm), chunk),
+                        _chunks(_grouped(bm), chunk))
 
 
 def chunk_states(xdt, bm, cum, chunk: int):
     """Stage 3: (B, nc, H, P, N), each chunk's own contribution to the
-    state, sum_j exp(cum_end - cum_j) xdt_j^T B_j."""
+    state, sum_j exp(cum_end - cum_j) xdt_j^T B_j (B of the head's group)."""
     decay_to_end = torch.exp(cum[..., -1:] - cum)
-    return torch.einsum("bcsn,bhcs,bcshp->bchpn", _chunks(bm, chunk), decay_to_end,
-                        _chunks(xdt, chunk))
+    return torch.einsum("bcshn,bhcs,bcshp->bchpn", _chunks(_per_head(bm, xdt.shape[2]), chunk),
+                        decay_to_end, _chunks(xdt, chunk))
 
 
 def state_passing(states, cum):
@@ -102,13 +121,20 @@ def state_passing(states, cum):
     return torch.stack(entering, dim=1), carry
 
 
+def _scores_per_head(scores, h: int):
+    """(B, nc, G, l, l) -> (B, nc, H, l, l), each head's group's scores."""
+    return scores[:, :, _head_groups(h, scores.shape[2], scores.device)]
+
+
 def chunk_scan(xdt, cm, scores, cum, entering, chunk: int):
     """Stage 5: y (B, S, H, P) = (scores o L) . xdt within each chunk
-    plus exp(cum_i) C_i . S_enter^T from the state entering it."""
+    plus exp(cum_i) C_i . S_enter^T from the state entering it (scores and
+    C of the head's group)."""
     b, s, h, p = xdt.shape
     xc = _chunks(xdt, chunk)
-    y_diag = torch.einsum("bcls,bhcls,bcshp->bclhp", scores, causal_decay(cum), xc)
-    y_off = torch.einsum("bcln,bchpn,bhcl->bclhp", _chunks(cm, chunk), entering,
+    y_diag = torch.einsum("bchls,bhcls,bcshp->bclhp", _scores_per_head(scores, h),
+                          causal_decay(cum), xc)
+    y_off = torch.einsum("bclhn,bchpn,bhcl->bclhp", _chunks(_per_head(cm, h), chunk), entering,
                          torch.exp(cum))
     return (y_diag + y_off).reshape(b, s, h, p)
 
@@ -133,13 +159,14 @@ def ssd_sequential_ref(xdt, dA, bm, cm):
     ``state <- exp(dA_t) state + xdt_t (x) B_t``, ``y_t = state . C_t``."""
     b, s, h, p = xdt.shape
     n = bm.shape[-1]
-    xdt, dA, bm, cm = (t.float() for t in (xdt, dA, bm, cm))
+    xdt, dA = xdt.float(), dA.float()
+    bm, cm = (_per_head(t, h).float() for t in (bm, cm))
     state = torch.zeros((b, h, p, n), dtype=torch.float32, device=xdt.device)
     ys = []
     for t in range(s):
-        upd = torch.einsum("bn,bhp->bhpn", bm[:, t], xdt[:, t])
+        upd = torch.einsum("bhn,bhp->bhpn", bm[:, t], xdt[:, t])
         state = torch.exp(dA[:, t])[:, :, None, None] * state + upd
-        ys.append(torch.einsum("bn,bhpn->bhp", cm[:, t], state))
+        ys.append(torch.einsum("bhn,bhpn->bhp", cm[:, t], state))
     return torch.stack(ys, dim=1), state
 
 
@@ -149,8 +176,8 @@ def ssd_sequential_ref(xdt, dA, bm, cm):
 def bwd_dstate(dy, cm, cum, chunk: int):
     """Stage 1: (B, nc, H, P, N), the gradient of the state entering each
     chunk through y_off: sum_i exp(cum_i) dy_i[p] C_i[n]."""
-    return torch.einsum("bhci,bcihp,bcin->bchpn", torch.exp(cum), _chunks(dy, chunk),
-                        _chunks(cm, chunk))
+    return torch.einsum("bhci,bcihp,bcihn->bchpn", torch.exp(cum), _chunks(dy, chunk),
+                        _chunks(_per_head(cm, dy.shape[2]), chunk))
 
 
 def bwd_pass(dE, entering, cum):
@@ -175,9 +202,9 @@ def bwd_dx(xdt, dy, bm, scores, cum, dsc, chunk: int):
     w_j sum_n B_j[n] dSc[p, n], w_j = exp(cum_end - cum_j); and r (B, H, nc,
     l) = w_j dw_j, the chunk states' share of dcum."""
     b, s, h, p = xdt.shape
-    w_decay = scores[:, None] * causal_decay(cum)  # (b, h, nc, i, j)
+    w_decay = _scores_per_head(scores, h).transpose(1, 2) * causal_decay(cum)  # (b, h, nc, i, j)
     t1 = torch.einsum("bhcij,bcihp->bcjhp", w_decay, _chunks(dy, chunk))
-    u = torch.einsum("bcjn,bchpn->bcjhp", _chunks(bm, chunk), dsc)
+    u = torch.einsum("bcjhn,bchpn->bcjhp", _chunks(_per_head(bm, h), chunk), dsc)
     w = torch.exp(cum[..., -1:] - cum)  # (b, h, nc, l)
     dx = t1 + w.permute(0, 2, 3, 1)[..., None] * u
     r = w * torch.einsum("bcjhp,bcjhp->bhcj", _chunks(xdt, chunk), u)
@@ -190,7 +217,7 @@ def bwd_dscores(xdt, dy, scores, cum, chunk: int):
     sums less the column sums of d(scores) o scores."""
     dw = torch.einsum("bcihp,bcjhp->bhcij", _chunks(dy, chunk), _chunks(xdt, chunk))
     dg = dw * causal_decay(cum)
-    q = dg * scores[:, None]
+    q = dg * _scores_per_head(scores, xdt.shape[2]).transpose(1, 2)
     return dg, q.sum(dim=-1) - q.sum(dim=-2)
 
 
@@ -201,7 +228,7 @@ def bwd_dbc_heads(xdt, dy, cm, cum, entering, dsc, chunk: int):
     through y_off."""
     dco = torch.exp(cum).permute(0, 2, 3, 1)[..., None] * torch.einsum(
         "bcihp,bchpn->bcihn", _chunks(dy, chunk), entering)
-    s = torch.einsum("bcin,bcihn->bhci", _chunks(cm, chunk), dco)
+    s = torch.einsum("bcihn,bcihn->bhci", _chunks(_per_head(cm, dy.shape[2]), chunk), dco)
     w = torch.exp(cum[..., -1:] - cum)
     dbo = w.permute(0, 2, 3, 1)[..., None] * torch.einsum(
         "bcihp,bchpn->bcihn", _chunks(xdt, chunk), dsc)
@@ -219,19 +246,24 @@ def bwd_dcum(qd, s, r, dcend):
 
 
 def bwd_dbm_dcm(dg, dco, dbo, bm, cm, chunk: int):
-    """Stage 7: the heads' d(scores) summed, through scores = C.B^T: dC +=
-    d(scores) . B, dB += d(scores)^T . C, plus the heads' own dC and dB.
-    Returns dbm, dcm (B, S, N)."""
-    dgt = dg.sum(dim=1)  # (b, nc, i, j)
-    bc, cc = _chunks(bm, chunk), _chunks(cm, chunk)
-    dc = dco.sum(dim=3) + torch.einsum("bcij,bcjn->bcin", dgt, bc)
-    db = dbo.sum(dim=3) + torch.einsum("bcij,bcin->bcjn", dgt, cc)
+    """Stage 7: each group's heads' d(scores) summed, through scores =
+    C.B^T: dC += d(scores) . B, dB += d(scores)^T . C, plus the group's
+    heads' own dC and dB.  Returns dbm, dcm in bm's and cm's shapes."""
+    bg, cg = _grouped(bm), _grouped(cm)
+    b, h, nc, length, _ = dg.shape
+    g = bg.shape[2]
+    dgt = dg.reshape(b, g, h // g, nc, length, length).sum(dim=2)  # (b, g, nc, i, j)
+    bc, cc = _chunks(bg, chunk), _chunks(cg, chunk)
+    own_c = dco.reshape(*dco.shape[:3], g, h // g, -1).sum(dim=4)
+    own_b = dbo.reshape(*dbo.shape[:3], g, h // g, -1).sum(dim=4)
+    dc = own_c + torch.einsum("bgcij,bcjgn->bcign", dgt, bc)
+    db = own_b + torch.einsum("bgcij,bcign->bcjgn", dgt, cc)
     return db.reshape(bm.shape), dc.reshape(cm.shape)
 
 
 def ssd_chunk_bwd_ref(xdt, bm, cm, dy, cum, entering, chunk: int = 128):
-    """(dxdt (B, S, H, P), ddA (B, S, H), dbm, dcm (B, S, N)), float32: the
-    gradients of ``ssd_chunk_ref``'s y given dy, from the forward's cum
+    """(dxdt (B, S, H, P), ddA (B, S, H), dbm, dcm in bm's shape), float32:
+    the gradients of ``ssd_chunk_ref``'s y given dy, from the forward's cum
     (B, H, nc, l) and entering states (B, nc, H, P, N)."""
     xdt, bm, cm, dy = (t.float() for t in (xdt, bm, cm, dy))
     scores = chunk_scores(bm, cm, chunk)

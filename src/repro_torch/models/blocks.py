@@ -41,12 +41,9 @@ __all__ = ["block_spec", "cache_spec", "block_full", "block_prefill", "block_dec
            "residual"]
 
 
-def _check_kind(cfg, kind: str) -> tuple[str, str]:
-    """(mixer, ffn) of a layer kind (``ModelConfig`` validated it); raises
-    for SSD with ngroups > 1."""
+def _split_kind(kind: str) -> tuple[str, str]:
+    """(mixer, ffn) of a layer kind (``ModelConfig`` validated it)."""
     mixer, _, ffn = kind.partition(":")
-    if mixer == "ssd":
-        ssd_mod.check_groups(cfg.ssd_ngroups)
     return mixer, ffn
 
 
@@ -56,7 +53,7 @@ def _kv_names(cfg) -> tuple[str, ...]:
 
 
 def block_spec(cfg, kind: str) -> dict:
-    mixer, ffn = _check_kind(cfg, kind)
+    mixer, ffn = _split_kind(kind)
     d = cfg.d_model
     spec: dict = {"pre_norm": rmsnorm_spec(d)}
     if mixer in ("attn", "local"):
@@ -83,7 +80,7 @@ def block_spec(cfg, kind: str) -> dict:
 
 def cache_spec(cfg, kind: str, batch: int, max_len: int) -> dict:
     """{name: (shape, dtype)} of one layer's cache."""
-    mixer, _ = _check_kind(cfg, kind)
+    mixer, _ = _split_kind(kind)
     kv_dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
     if mixer == "ssd":
         conv, state = ssd_mod.ssd_init_cache_shapes(cfg, batch)
@@ -139,7 +136,7 @@ def residual(x):
 def block_full(params, x, cfg, kind: str):
     """Full-sequence pass (no cache).  Returns (x, aux): the MoE's
     auxiliary term, 0.0 for any other FFN."""
-    mixer, ffn = _check_kind(cfg, kind)
+    mixer, ffn = _split_kind(kind)
     h = rmsnorm(params.pre_norm, x)
     if mixer == "ssd":
         y, _ = ssd_mod.ssd_forward(params.ssd, h, cfg)
@@ -194,7 +191,7 @@ def block_prefill(params, x, cfg, kind: str, max_len: int):
     """Full-sequence pass that also builds the decode cache: for attention
     the prompt's K/V (``_prefill_cache``), for SSD and RG-LRU the conv
     window and the final state.  Returns (x, cache)."""
-    mixer, ffn = _check_kind(cfg, kind)
+    mixer, ffn = _split_kind(kind)
     h = rmsnorm(params.pre_norm, x)
     if mixer == "ssd":
         y, (conv, state) = ssd_mod.ssd_forward(params.ssd, h, cfg)
@@ -218,7 +215,7 @@ def block_decode(params, x, cache, pos, cfg, kind: str, lengths=None, slot=None)
     by the caller.  A ring holds exactly the window, so K4 takes no
     window of its own (the reference's ``window=0``).  Writes the layer's
     cache in place; returns (x, cache)."""
-    mixer, ffn = _check_kind(cfg, kind)
+    mixer, ffn = _split_kind(kind)
     h = rmsnorm(params.pre_norm, x)
     if mixer == "ssd":
         y, (conv, state) = ssd_mod.ssd_decode_step(params.ssd, h,

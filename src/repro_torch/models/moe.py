@@ -20,11 +20,25 @@ any Pallas kernel.  The shapes depend on the batch and sequence only and
 nothing is read on the host, so a decode step (group = min(moe_group,
 B)) can be captured in a CUDA graph.  The Switch load-balancing term E *
 sum_e f_e * p_e is computed and returned; the serving path ignores it.
+
+In a sharded serving step (``launch.steps.make_sharded_prefill_step``)
+the stream is a DTensor, and DTensor has no sharding strategy for the
+dispatch's ``index_put_`` or the combine's advanced index on every
+PyTorch release (torch 2.11 has none).  So routing, dispatch, the expert
+products and the combine run on each rank's local shards
+(``_routed_on_shards``): whole token groups over the data axes and the
+experts over ``model``, the placement of the reference's ``ep_tp`` rule
+``moe_expert_in``.
 """
 from __future__ import annotations
 
-import torch
+from math import prod
+from types import SimpleNamespace
 
+import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+from repro_torch.distributed.sharding import heads_divide, row_axes, rows_heads, rows_over_data
 from repro_torch.models.layers import _act, mlp, mlp_spec
 from repro_torch.models.spec import P
 
@@ -72,48 +86,128 @@ def _routes(probs, top_k: int, cap: int):
     return routes
 
 
-def moe_forward(params, x, cfg):
-    """x: (B, S, D) -> (y, aux)."""
-    b, s, d = x.shape
+def _routed(params, xg, cfg, cap: int, lo: int = 0):
+    """The routed experts of (G, Tg, D) token groups: (y (G, Tg, D), the
+    router probabilities (G, Tg, E)).  ``params``' expert weights hold the
+    experts lo, lo + 1, ... (all E unless a sharded step cut them); a token
+    routed to an expert outside them adds nothing to y."""
+    ng, group, d = xg.shape
     e = cfg.num_experts
-    tokens = x.reshape(-1, d)
-    t_total = tokens.shape[0]
-    group = min(cfg.moe_group, t_total)
-    if t_total % group:
-        raise ValueError(f"token count {t_total} not divisible by moe_group {group}")
-    ng = t_total // group
-    xg = tokens.reshape(ng, group, d)
-
+    el = params.w_up.shape[0]
     logits = torch.einsum("gtd,de->gte", xg, params.router).float()
     probs = torch.softmax(logits, dim=-1)  # (G, Tg, E)
-    cap = _capacity(group, cfg.moe_top_k, e, cfg.capacity_factor)
     routes = _routes(probs, cfg.moe_top_k, cap)
 
     # Dispatch: each kept token to its (expert, group, slot) row; dropped
-    # tokens go to a spare slot C that is never read.
-    rows = torch.arange(ng, device=x.device)[:, None].expand(ng, group)
-    expert_in = x.new_zeros((e, ng, cap + 1, d))
-    for eidx, pos, keep, _ in routes:
-        expert_in[eidx, rows, torch.where(keep, pos, cap)] = xg
-    expert_in = expert_in[:, :, :cap].reshape(e, ng * cap, d)
+    # tokens, and tokens of experts held elsewhere, go to a spare slot C
+    # that is never read.
+    rows = torch.arange(ng, device=xg.device)[:, None].expand(ng, group)
+    # Per round: (expert index among those held, kept here).  All experts
+    # held (no sharded step): the routes as they are, no extra kernels in a
+    # decode step.
+    locs = []
+    for eidx, _, keep, _ in routes:
+        if el == e:
+            locs.append((eidx, keep))
+        else:
+            here = (eidx >= lo) & (eidx < lo + el)
+            locs.append(((eidx - lo).clamp(0, el - 1), keep & here))
+    expert_in = xg.new_zeros((el, ng, cap + 1, d))
+    for (_, pos, _, _), (local, kept) in zip(routes, locs):
+        expert_in[local, rows, torch.where(kept, pos, cap)] = xg
+    expert_in = expert_in[:, :, :cap].reshape(el, ng * cap, d)
     up = torch.bmm(expert_in, params.w_up)
     if hasattr(params, "w_gate"):
         h = _act(cfg.activation, torch.bmm(expert_in, params.w_gate)) * up
     else:
         h = _act(cfg.activation, up)
-    out_e = torch.bmm(h, params.w_down).reshape(e, ng, cap, d)
+    out_e = torch.bmm(h, params.w_down).reshape(el, ng, cap, d)
 
     # Combine: each round's rows back, times its gate (zero when dropped).
     y = torch.zeros_like(xg)
-    for eidx, pos, keep, gate in routes:
-        routed = out_e[eidx, rows, pos.clamp(max=cap - 1)] * keep[..., None].to(x.dtype)
+    for (_, pos, _, gate), (local, kept) in zip(routes, locs):
+        routed = out_e[local, rows, pos.clamp(max=cap - 1)] * kept[..., None].to(xg.dtype)
         y = y + gate[..., None].to(routed.dtype) * routed
+    return y, probs
 
-    # Switch aux loss (per-token mean): E * sum_e f_e * p_e.
-    top = torch.argmax(probs, dim=-1)
-    f_e = (top[..., None] == torch.arange(e, device=x.device)).float().mean(dim=(0, 1))
-    aux = e * torch.sum(f_e * probs.mean(dim=(0, 1)))
 
+def moe_forward(params, x, cfg):
+    """x: (B, S, D) -> (y, aux)."""
+    b, s, d = x.shape
+    e = cfg.num_experts
+    t_total = b * s
+    group = min(cfg.moe_group, t_total)
+    if t_total % group:
+        raise ValueError(f"token count {t_total} not divisible by moe_group {group}")
+    cap = _capacity(group, cfg.moe_top_k, e, cfg.capacity_factor)
+    if isinstance(x, DTensor):
+        y, aux = _routed_on_shards(params, x, cfg, group, cap)
+    else:
+        xg = x.reshape(t_total // group, group, d)
+        y, probs = _routed(params, xg, cfg, cap)
+        y = y.reshape(b, s, d)
+        aux = e * torch.sum(_aux_terms(probs, e).prod(dim=0))
     if hasattr(params, "shared"):
-        y = y + mlp(params.shared, xg, cfg.activation)
-    return y.reshape(b, s, d).to(x.dtype), aux
+        y = y + mlp(params.shared, x, cfg.activation)
+    return y.to(x.dtype), aux
+
+
+def _aux_terms(probs, e: int):
+    """(2, E) float32: the share of tokens whose top expert is e (f_e), and
+    the mean router probability of e (p_e), over the groups' tokens."""
+    top = torch.argmax(probs, dim=-1)
+    f_e = (top[..., None] == torch.arange(e, device=probs.device)).float().mean(dim=(0, 1))
+    return torch.stack([f_e, probs.mean(dim=(0, 1))])
+
+
+def _local(t, mesh, placements):
+    """This rank's shard of ``t`` on ``placements`` (a plain tensor is the
+    whole value, held by every rank)."""
+    if not isinstance(t, DTensor):
+        t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    return (t if tuple(t.placements) == placements else t.redistribute(mesh, placements)).to_local()
+
+
+def _routed_on_shards(params, x, cfg, group: int, cap: int):
+    """The routed experts of a DTensor stream (a sharded serving step) on
+    each rank's shards, so that no DTensor reaches the dispatch's and the
+    combine's indexing: (y, a DTensor placed as ``rows_over_data`` places
+    the stream; aux, the whole batch's).
+
+    The groups are the whole batch's (``group`` and ``cap`` come from the
+    global token count): a rank takes whole groups of token rows over the
+    data axes when the batch rows and the groups both divide them
+    (``row_axes``), else every row, and routes them all.  The experts go
+    over ``model`` when their count divides it (the ``ep_tp`` rules'
+    ``moe_expert_in``), each rank running its own and adding nothing for a
+    token routed elsewhere; the ranks' partial outputs are then summed over
+    ``model``.  The llama4 configs route top-1, so each token's routed
+    output comes from one expert on one rank and the sum only adds zeros
+    to it: exact.  With top-k > 1 a token's k terms may sit on different
+    ranks and are summed in another order than the unsharded combine's:
+    equal to rounding, not bit for bit."""
+    mesh = x.device_mesh
+    b, s, d = x.shape
+    e = cfg.num_experts
+    names = mesh.mesh_dim_names
+    rows_on = row_axes(mesh, b, b * s // group)
+    split = heads_divide(mesh, e)
+    el = e // mesh.size(names.index("model")) if split else e
+    lo = mesh.get_local_rank("model") * el if split else 0
+    xl = _local(x, mesh, rows_heads(mesh, rows_on, 0, None))
+    experts = rows_heads(mesh, [], None, 0 if split else None)
+    local = SimpleNamespace(router=_local(params.router, mesh, rows_heads(mesh, [], None, None)),
+                            **{k: _local(getattr(params, k), mesh, experts)
+                               for k in ("w_up", "w_gate", "w_down") if hasattr(params, k)})
+    y, probs = _routed(local, xl.reshape(-1, group, d), cfg, cap, lo)
+    shards = prod(mesh.size(names.index(n)) for n in rows_on)
+    place = tuple(Partial() if n == "model" and split else Shard(0) if n in rows_on
+                  else Replicate() for n in names)
+    y = DTensor.from_local(y.reshape(-1, s, d), mesh, place, run_check=False,
+                           shape=torch.Size((b, s, d)), stride=(s * d, d, 1))
+    # Each rank's means over its rows, over their count: summed over the
+    # data axes, the whole batch's means.
+    terms = DTensor.from_local(_aux_terms(probs, e) / shards, mesh,
+                               tuple(Partial() if n in rows_on else Replicate() for n in names),
+                               run_check=False).full_tensor()
+    return rows_over_data(y), e * torch.sum(terms.prod(dim=0))

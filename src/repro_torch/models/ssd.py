@@ -2,11 +2,12 @@
 
 The counterpart of ``repro.models.ssd``.  Layout as the reference's:
 x (B, S, H, P) heads by head dim; B and C (B, S, G, N) state projections
-shared by the H / G heads of a group; A one scalar per head.  The
-chunked scan of a prefill runs through K5 (``kernels.ssd``), which takes
-ngroups = 1 as ``ssd_pallas`` does; ``ngroups > 1`` raises.  The 4-tap
-causal convolution and the one-token decode step are plain PyTorch, as
-the reference computes them in jnp outside any Pallas kernel.  Decode
+shared by the H / G heads of a group (head h reads group h // (H / G));
+A one scalar per head.  The chunked scan of a prefill runs through K5
+(``kernels.ssd``), which takes every group count the reference's
+``ssd_scan`` takes (``ssd_pallas`` itself takes one).  The 4-tap causal
+convolution and the one-token decode step are plain PyTorch, as the
+reference computes them in jnp outside any Pallas kernel.  Decode
 writes the conv window and the state into the layer's cache tensors in
 place, where the reference returns new arrays.
 
@@ -30,11 +31,7 @@ import torch.nn.functional as F
 from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.models.spec import P
 
-__all__ = ["ssd_spec", "ssd_forward", "ssd_decode_step", "ssd_init_cache_shapes", "ssd_scan",
-           "check_groups"]
-
-# Where ngroups > 1 is taken up: K5's contract, like ssd_pallas's, is one group.
-NGROUPS_ITEM = "item 9 (recurrent and sparse mixers: SSD with ngroups > 1)"
+__all__ = ["ssd_spec", "ssd_forward", "ssd_decode_step", "ssd_init_cache_shapes", "ssd_scan"]
 
 
 def ssd_spec(cfg) -> dict:
@@ -51,14 +48,6 @@ def ssd_spec(cfg) -> dict:
         "norm_scale": P((din,), ("ssd_inner",), init="zeros"),
         "out_proj": P((din, d), ("ssd_inner", "embed")),
     }
-
-
-def check_groups(ngroups: int) -> None:
-    """Raise for a group count K5 does not take."""
-    if ngroups != 1:
-        raise NotImplementedError(
-            f"ssd with ngroups={ngroups} is not ported to repro_torch yet: K5, like "
-            f"ssd_pallas, takes ngroups = 1; see ROADMAP.md, 'Modules to port', {NGROUPS_ITEM}")
 
 
 def _causal_conv(x, w, b, state=None):
@@ -109,21 +98,20 @@ def _split_zxbcdt(cfg, zxbcdt):
 
 def ssd_scan(x, dt, a_per_head, B, C, chunk: int):
     """Core chunked SSD through K5.  x: (b, s, h, p); dt: (b, s, h) after
-    softplus; a_per_head: (h,) negative; B, C: (b, s, g, n) with g = 1.
+    softplus; a_per_head: (h,) negative; B, C: (b, s, g, n), g dividing h.
     Returns (y in x's type, final_state (b, h, p, n) float32).
 
     A length that is no multiple of the chunk is padded with dt = 0 steps
     (decay exp(0) = 1, zero input), as the reference pads: the state
     after the padding is the state after the last real step."""
     s = x.shape[1]
-    check_groups(B.shape[2])
-    bm, cm = B[:, :, 0], C[:, :, 0]
+    bm, cm = B, C
     pad = -s % chunk
     if pad:
         x = F.pad(x, (0, 0, 0, 0, 0, pad))
         dt = F.pad(dt, (0, 0, 0, pad))
-        bm = F.pad(bm, (0, 0, 0, pad))
-        cm = F.pad(cm, (0, 0, 0, pad))
+        bm = F.pad(bm, (0, 0, 0, 0, 0, pad))
+        cm = F.pad(cm, (0, 0, 0, 0, 0, pad))
     y, final_state = ssd_ops.ssd_from_a(x, dt, a_per_head, bm, cm, chunk)
     return y[:, :s].to(x.dtype), final_state
 
@@ -137,7 +125,6 @@ def ssd_forward(params, x, cfg):
     h, p = cfg.ssd_heads, cfg.ssd_headdim
     g, n = cfg.ssd_ngroups, cfg.ssd_state
     din = cfg.d_inner
-    check_groups(g)
 
     zxbcdt = x @ params.in_proj
     z, xbc, dt = _split_zxbcdt(cfg, zxbcdt)
@@ -164,13 +151,14 @@ def ssd_decode_step(params, x, cache, cfg):
     arithmetic (a float32 tensor times a bfloat16 one is computed in
     float32), and the state is decayed and updated in place,
     S <- decay * S + (dt x) (outer) B, then read as y = S . C by one
-    batched product."""
+    batched product; each head reads its group's B and C, the state viewed
+    as (B, G, H / G, P, N) (with one group, the shapes of a state without
+    groups)."""
     conv_state, ssm_state = cache
     b = x.shape[0]
     h, p = cfg.ssd_heads, cfg.ssd_headdim
     g, n = cfg.ssd_ngroups, cfg.ssd_state
     din = cfg.d_inner
-    check_groups(g)
 
     zxbcdt = x @ params.in_proj  # (B, 1, ...)
     z, xbc, dt = _split_zxbcdt(cfg, zxbcdt)
@@ -178,14 +166,15 @@ def ssd_decode_step(params, x, cache, cfg):
     conv_state.copy_(new_conv)
     xbc = F.silu(xbc)[:, 0]  # (B, d_xbc)
     xin = xbc[:, :din].reshape(b, h, p)
-    bv = xbc[:, din:din + n]
-    cv = xbc[:, din + n:]
+    bv = xbc[:, din:din + g * n].reshape(b, g, 1, 1, n)
+    cv = xbc[:, din + g * n:].reshape(b * g, n, 1)
     dt1 = _softplus(dt[:, 0].float() + params.dt_bias)  # (B, h)
     decay = torch.exp(dt1 * -torch.exp(params.A_log.float()))  # (B, h)
 
     ssm_state.mul_(decay[:, :, None, None])
-    ssm_state.addcmul_((xin * dt1[:, :, None])[..., None], bv[:, None, None, :])
-    y = torch.bmm(ssm_state.view(b, h * p, n), cv.float()[:, :, None]).view(b, h, p)
+    ssm_state.view(b, g, h // g, p, n).addcmul_(
+        (xin * dt1[:, :, None]).view(b, g, h // g, p, 1), bv)
+    y = torch.bmm(ssm_state.view(b * g, h // g * p, n), cv.float()).view(b, h, p)
     y = torch.addcmul(y, params.D[:, None], xin)  # y + D * x in float32
     y = _gated_rmsnorm(params.norm_scale, y.reshape(b, 1, din).to(x.dtype), z)
     return y @ params.out_proj, (conv_state, ssm_state)

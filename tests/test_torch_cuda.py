@@ -183,17 +183,17 @@ def test_utility_kernel_matches_plain(cuda, penalty, r, m, shared):
 # ------------------------------------------------ prefill attention (K3)
 
 
-def _flash_plain(q, k, v, window):
+def _flash_plain(q, k, v, window, causal=True):
     """The plain version, model layout in and out."""
     b, sq, hq, d = q.shape
     hkv = k.shape[2]
     qk = q.reshape(b, sq, hkv, hq // hkv, d).permute(0, 2, 3, 1, 4)
-    out = flash_attention_ref(qk, k.transpose(1, 2), v.transpose(1, 2), window=window)
+    out = flash_attention_ref(qk, k.transpose(1, 2), v.transpose(1, 2), causal=causal,
+                              window=window)
     return out.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, d)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("b,sq,skv,hq,hkv,d,window", [
+FLASH_CASES = [
     (2, 128, 128, 4, 4, 32, 0), (1, 256, 256, 8, 2, 64, 0), (2, 96, 96, 4, 1, 32, 0),
     (1, 256, 256, 4, 2, 32, 64), (1, 130, 130, 2, 2, 16, 32),  # tests/test_kernels.py:22
     (2, 37, 300, 8, 2, 64, 0), (1, 200, 200, 4, 1, 128, 0), (1, 65, 65, 32, 4, 64, 100),
@@ -218,7 +218,11 @@ def _flash_plain(q, k, v, window):
     # rows of the serving prefill and an offset query block.
     (2, 1024, 1024, 16, 1, 256, 2048), (1, 2200, 2200, 16, 1, 256, 2048),
     (2, 1024, 1024, 40, 8, 128, 0), (1, 130, 300, 40, 8, 128, 0),
-])
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,d,window", FLASH_CASES)
 def test_flash_attention_kernel_matches_plain(cuda, b, sq, skv, hq, hkv, d, window, dtype):
     """bf16 runs on the tensor cores, f32 on the CUDA cores; each against
     the plain version at 2e-2 (bf16) or 2e-5 (f32)."""
@@ -234,6 +238,26 @@ def test_flash_attention_kernel_matches_plain(cuda, b, sq, skv, hq, hkv, d, wind
     assert out.dtype == dtype and out.shape == q.shape
     tol = ATTN_TOL[dtype]
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,d,window", FLASH_CASES)
+def test_flash_attention_kernel_non_causal_matches_plain(cuda, b, sq, skv, hq, hkv, d, window,
+                                                        dtype):
+    """``causal=False`` (flash_attention_pallas's, kernel.py:65-68): every
+    key visible, the window alone masking, on both instances against the
+    plain version at the same tolerances; one launch a call."""
+    gen = torch.Generator(device=cuda).manual_seed(sq * 1000 + skv + 1)
+    q = torch.randn((b, sq, hq, d), generator=gen, device=cuda).to(dtype)
+    k, v = (torch.randn((b, skv, hkv, d), generator=gen, device=cuda).to(dtype)
+            for _ in range(2))
+    before = flash_ops.counter.count
+    out = flash_ops.flash_attention(q, k, v, causal=False, window=window)
+    torch.cuda.synchronize()
+    assert flash_ops.counter.count == before + 1
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(out.float(), _flash_plain(q, k, v, window, False).float(),
+                               atol=tol, rtol=tol)
 
 
 def test_flash_attention_kernel_takes_unaligned_views(cuda):
@@ -338,13 +362,18 @@ def test_decode_attention_kernel_head_dims_and_groups(cuda, d, g, dtype, window)
 
 
 def test_attention_kernels_refuse_what_they_do_not_take(cuda):
-    """On the card a head dim outside HEAD_DIMS, G > 32 and causal=False
-    raise; nothing falls back to the plain versions."""
+    """On the card a head dim outside HEAD_DIMS and G > 32 raise, and so
+    does causal=False under a gradient (K3b is causal-only); nothing falls
+    back to the plain versions.  causal=False itself runs the kernel."""
     q = torch.zeros((1, 8, 2, 96), device=cuda)
     with pytest.raises(ValueError, match="takes D in"):
         flash_ops.flash_attention(q, q, q)
-    with pytest.raises(NotImplementedError):
-        flash_ops.flash_attention(q, q, q, causal=False)
+    q64 = torch.zeros((1, 8, 2, 64), device=cuda)
+    before = flash_ops.counter.count
+    flash_ops.flash_attention(q64, q64, q64, causal=False)
+    assert flash_ops.counter.count == before + 1
+    with pytest.raises(RuntimeError, match="causal-only"):
+        flash_ops.flash_attention(q64.requires_grad_(), q64, q64, causal=False)
     lengths = torch.ones(1, dtype=torch.int32, device=cuda)
     cache = torch.zeros((1, 8, 1, 96), device=cuda)
     with pytest.raises(ValueError, match="takes D in"):
@@ -522,6 +551,74 @@ def test_ssd_kernel_stages_match_plain_stages(cuda, b, s, h, p, n, chunk):
     torch.testing.assert_close(out.final_state, final_state, atol=SSD_ATOL, rtol=SSD_RTOL)
     y_ref, _ = ssd_chunk_ref(xdt, dA, bm, cm, chunk)
     torch.testing.assert_close(out.y, y_ref, atol=SSD_ATOL, rtol=SSD_RTOL)
+
+
+# (b, s, h, p, n, chunk, groups): mamba2-130m's width with 2 and 4 groups,
+# a ragged P and N, one chunk, and one group per head.
+SSD_GROUP_CASES = [(2, 1024, 24, 64, 128, 128, 2), (2, 1024, 24, 64, 128, 128, 4),
+                   (2, 256, 6, 5, 7, 64, 3), (1, 128, 4, 16, 32, 128, 2),
+                   (2, 96, 4, 8, 16, 32, 4)]
+
+
+def _ssd_group_case(b, s, h, p, n, chunk, g, device):
+    """(xdt, dA, bm, cm (B, S, G, N), dy) on ``device``."""
+    x, dt, a_log, _, _ = _ssd_case(b, s, h, p, n, device)
+    gen = torch.Generator(device=device).manual_seed(g * 1000 + s)
+    bm, cm = (torch.randn((b, s, g, n), generator=gen, device=device) * 0.3 for _ in range(2))
+    dy = torch.randn((b, s, h, p), generator=gen, device=device)
+    return ((x * dt[..., None]).contiguous(), (dt * -torch.exp(a_log)).contiguous(), bm, cm,
+            dy)
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk,g", SSD_GROUP_CASES)
+def test_ssd_kernels_with_groups_match_plain(cuda, b, s, h, p, n, chunk, g):
+    """B and C of several groups, head h reading group h // (H / G): K5's
+    stages (the scores one set per group) and K5b's four gradients (dB and
+    dC (B, S, G, N), summed over each group's heads) against the plain
+    versions, and two calls of each bit-identical."""
+    from repro_torch.kernels.ssd.ref import ssd_chunk_bwd_ref
+
+    xdt, dA, bm, cm, dy = _ssd_group_case(b, s, h, p, n, chunk, g, cuda)
+    out = ssd_ops.ssd_chunk_scan_stages(xdt, dA, bm, cm, chunk)
+    again = ssd_ops.ssd_chunk_scan_stages(xdt, dA, bm, cm, chunk)
+    assert torch.equal(out.y, again.y) and torch.equal(out.final_state, again.final_state)
+    lower = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=cuda))
+    scores = chunk_scores(bm, cm, chunk)
+    assert out.scores.shape == scores.shape == (b, s // chunk, g, chunk, chunk)
+    torch.testing.assert_close(out.scores[..., lower], scores[..., lower], atol=SSD_ATOL,
+                               rtol=SSD_RTOL)
+    y_ref, state_ref = ssd_chunk_ref(xdt, dA, bm, cm, chunk)
+    torch.testing.assert_close(out.y, y_ref, atol=SSD_ATOL, rtol=SSD_RTOL)
+    torch.testing.assert_close(out.final_state, state_ref, atol=SSD_ATOL, rtol=SSD_RTOL)
+    grads = ssd_ops.ssd_chunk_bwd(xdt, bm, cm, dy, out.cum, out.entering, chunk)
+    twice = ssd_ops.ssd_chunk_bwd(xdt, bm, cm, dy, out.cum, out.entering, chunk)
+    refs = ssd_chunk_bwd_ref(xdt, bm, cm, dy, out.cum, out.entering, chunk)
+    for name, got, again_, ref in zip(("dxdt", "ddA", "dbm", "dcm"), grads, twice, refs):
+        assert torch.equal(got, again_), name
+        assert got.shape == ref.shape, name
+        torch.testing.assert_close(got, ref, atol=SSD_ATOL, rtol=SSD_RTOL, msg=name)
+
+
+def test_ssd_scan_with_groups_trains_card_against_host(cuda):
+    """``models.ssd.ssd_scan`` with 2 groups on a padded length through the
+    autograd function (K5, then K5b): y, the final state and every input's
+    gradient, the card against the host."""
+    from repro_torch.models.ssd import ssd_scan
+
+    x, dt, a_log, _, _ = _ssd_case(2, 300, 8, 64, 128, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    bm, cm = (torch.randn((2, 300, 2, 128), generator=gen, device=cuda) * 0.3
+              for _ in range(2))
+    dy = torch.randn((2, 300, 8, 64), generator=gen, device=cuda)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        leaves = [t.detach().to(dev).requires_grad_() for t in (x, dt, -torch.exp(a_log), bm, cm)]
+        y, state = ssd_scan(*leaves, 128)
+        (y * dy.to(dev)).sum().backward()
+        runs[dev] = [y.detach().cpu(), state.cpu()] + [t.grad.cpu() for t in leaves]
+    for name, a, b_ in zip(("y", "state", "dx", "ddt", "da", "dB", "dC"), runs["cuda"],
+                           runs["cpu"]):
+        torch.testing.assert_close(a, b_, atol=SSD_ATOL, rtol=SSD_RTOL, msg=name)
 
 
 def test_ssd_kernel_strong_decay(cuda):
@@ -2290,7 +2387,8 @@ def test_fake_branches_never_fire_on_card_tensors(cuda):
     assert rglru_ops._bwd_entry()[2:] == (rglru_ops.CHUNK, rglru_ops.CARRY, rglru_ops.GROUP)
 
 
-@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "mamba2-130m", "recurrentgemma-9b"])
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "mamba2-130m", "recurrentgemma-9b",
+                                  "llama4-scout-17b-16e"])
 def test_sharded_serving_steps_one_rank_match_unsharded(cuda, tmp_path, arch):
     """``make_sharded_prefill_step`` and three ``make_sharded_decode_step``s
     on a one-rank NCCL mesh (data,model=1,1) against the unsharded steps

@@ -49,6 +49,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import FlopCounterMode
 
 from repro.configs import ARCHS as J_ARCHS
@@ -83,6 +84,12 @@ BOUND_B, BOUND_S = 8, 256
 TP_ARCHS = ("tinyllama-1.1b", "mamba2-130m", "recurrentgemma-9b", "llama4-scout-17b-16e",
             "llama4-maverick-400b-128e")
 TP_ATOL = 1e-5
+# Reduced llama4-scout whose MoE capacity drops tokens, top-1 and top-2
+# (tests/_torch_tp_ranks.py, VARIANTS).
+TP_DROPS = ("llama4-scout-17b-16e/drops", "llama4-scout-17b-16e/drops-top2")
+# Reduced mamba2-130m with two SSD groups: B and C split over ``model`` with
+# the heads (tests/_torch_tp_ranks.py, VARIANTS).
+TP_GROUPED = ("mamba2-130m/g2",)
 
 
 class _RefMesh:
@@ -498,7 +505,7 @@ def test_real_cpu_tensors_take_the_plain_versions():
 def tp_run():
     with tempfile.TemporaryDirectory() as d:
         job = {"world": 4, "store": str(Path(d) / "store"), "out": d, "mesh": [2, 2],
-               "batch": 4, "seq": 24, "steps": 3, "archs": list(TP_ARCHS)}
+               "batch": 4, "seq": 24, "steps": 3, "archs": list(TP_ARCHS + TP_DROPS + TP_GROUPED)}
         Path(d, "job.json").write_text(json.dumps(job))
         proc = _run([str(REPO / "tests" / "_torch_tp_ranks.py"), str(Path(d, "job.json"))],
                     timeout=300)
@@ -506,13 +513,82 @@ def tp_run():
         return json.loads(Path(d, "tp.json").read_text())
 
 
-@pytest.mark.parametrize("arch", TP_ARCHS)
+@pytest.mark.parametrize("arch", TP_ARCHS + TP_GROUPED)
 def test_sharded_serving_steps_match_unsharded(tp_run, arch):
     diffs = tp_run[arch]
     assert diffs.pop("pos") == 24 + 3
     assert len(diffs) == 2 + 2 * 3
     bad = {k: v for k, v in diffs.items() if not v <= TP_ATOL}
     assert not bad, bad
+
+
+@pytest.mark.parametrize("arch", TP_DROPS)
+def test_sharded_moe_drops_route_as_unsharded(tp_run, arch):
+    """A capacity that drops tokens: every sharded MoE call routes its
+    groups' tokens to the experts and slots the unsharded call gives them,
+    drops included, and the logits and caches agree as in the drop-free
+    configs (top-2's two terms are summed over ``model``: rounding)."""
+    diffs = tp_run[arch]
+    assert diffs.pop("pos") == 24 + 3
+    assert diffs.pop("routes") == 0
+    assert diffs.pop("dropped") > 0
+    bad = {k: v for k, v in diffs.items() if not v <= TP_ATOL}
+    assert not bad, bad
+
+
+class _DTensorOps(TorchDispatchMode):
+    """Records every aten op called with a DTensor argument, and whether
+    the routed MoE (``models.moe.moe_forward``) was running."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops: set = set()
+        self.in_moe = False
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch.distributed.tensor import DTensor
+
+        if any(issubclass(t, DTensor) for t in types):
+            self.ops.add((str(func), self.in_moe))
+            return NotImplemented
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("step", ["prefill", "decode"])
+def test_sharded_moe_indexes_no_dtensor(monkeypatch, step):
+    """The sharded llama4-scout prefill and decode steps (reduced, bf16,
+    ``ep_tp`` rules on a fake (2, 2) world) call no indexing op on a
+    DTensor inside the MoE: torch 2.11 has no sharding strategy for the
+    dispatch's ``index_put_``.  The one ``aten.index.Tensor`` on DTensors
+    is the token embedding's lookup ``table[tokens]``, which DTensor
+    shards on every release the port runs on."""
+    from repro_torch.models import blocks
+    from repro_torch.models import moe as t_moe
+
+    cfg = dataclasses.replace(get_config("llama4-scout-17b-16e").reduced(), dtype="bfloat16")
+    mode = _DTensorOps()
+    orig = t_moe.moe_forward
+
+    def moe_forward(*args):
+        mode.in_moe = True
+        try:
+            return orig(*args)
+        finally:
+            mode.in_moe = False
+
+    monkeypatch.setattr(blocks.moe_mod, "moe_forward", moe_forward)
+    with fake_world(4):
+        mesh = make_mesh((2, 2), ("data", "model"))
+        with cm.fake_mode():
+            fn, args, _ = cm.step_setup(cfg, ShapeSpec("cell", 32, 4, step), mesh,
+                                        make_policy(cfg, step, mesh))
+            with mode:
+                logits, _ = fn(*args)
+    assert tuple(logits.shape)[0] == 4
+    indexing = {"aten.index_put_.default", "aten.index_put.default", "aten.index.Tensor"}
+    assert any(in_moe for _, in_moe in mode.ops)  # the MoE ran on DTensors
+    assert not {(op, True) for op in indexing} & mode.ops
+    assert {op for op, _ in mode.ops} & indexing == {"aten.index.Tensor"}
 
 
 def test_sharded_decode_writes_the_sequence_sharded_cache():

@@ -223,6 +223,41 @@ def test_flash_plain_matches_pallas(b, s, hq, hkv, d, window, dtype):
                                atol=TOL[dtype], rtol=TOL[dtype])
 
 
+# causal=False (kernel.py:65-68): the five configurations of
+# tests/test_kernels.py:22, then Sq < Skv (37 queries at the last positions
+# of 200 keys) without and with a window, as (b, sq, skv, hq, hkv, d, window).
+FLASH_FULL_SHAPES = [(b, s, s, hq, hkv, d, w) for b, s, hq, hkv, d, w in FLASH_SHAPES[:5]]
+FLASH_FULL_SHAPES += [(2, 37, 200, 4, 2, 32, 0), (2, 37, 200, 4, 2, 32, 64)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,d,window", FLASH_FULL_SHAPES)
+def test_flash_plain_non_causal_matches_pallas(b, sq, skv, hq, hkv, d, window, dtype):
+    """causal=False: the plain version against flash_attention_pallas(...,
+    causal=False) in interpret mode, in the kernel's layout, on the inputs
+    rounded to ``dtype``: every key visible, the window alone masking."""
+    from repro.kernels.flash_attention.kernel import flash_attention_pallas
+
+    rng = np.random.default_rng([b, sq, skv, hq, hkv, d, window, 1])
+    q = rng.normal(size=(b, sq, hq, d))
+    k, v = rng.normal(size=(b, skv, hkv, d)), rng.normal(size=(b, skv, hkv, d))
+    qk = q.reshape(b, sq, hkv, hq // hkv, d).transpose(0, 2, 3, 1, 4)
+    ref = flash_attention_pallas(*(_as_jnp(x, dtype) for x in (qk, k.transpose(0, 2, 1, 3),
+                                                                 v.transpose(0, 2, 1, 3))),
+                                 causal=False, window=window, interpret=True)
+    ref = np.asarray(ref, np.float32).transpose(0, 3, 1, 2, 4).reshape(b, sq, hq, d)
+    out = flash_ops.flash_attention(*(_port(_as_jnp(x, dtype), dtype) for x in (q, k, v)),
+                                    causal=False, window=window)
+    assert out.dtype == getattr(torch, dtype) and out.shape == (b, sq, hq, d)
+    np.testing.assert_allclose(out.float().numpy(), ref, atol=TOL[dtype], rtol=TOL[dtype])
+    if window == 0:  # not causal: a later key moves an earlier query's output
+        k2 = k.copy()
+        k2[:, -1] += 5.0
+        moved = flash_ops.flash_attention(*(_port(_as_jnp(x, dtype), dtype) for x in (q, k2, v)),
+                                          causal=False)
+        assert not torch.equal(moved[:, 0], out[:, 0])
+
+
 def test_flash_plain_causality():
     """Future keys do not move the output (tests/test_kernels.py:49)."""
     rng = np.random.default_rng(0)
@@ -302,8 +337,9 @@ def test_attention_wrappers_reject_bad_inputs():
     with pytest.raises(ValueError):
         flash_ops.flash_attention(torch.zeros((1, 8, 4, 16)), torch.zeros((1, 4, 2, 16)),
                                   torch.zeros((1, 4, 2, 16)))  # Sq > Skv
-    with pytest.raises(NotImplementedError):
-        flash_ops.flash_attention(q, q, q, causal=False)
+    full = flash_ops.flash_attention(q, q, q, causal=False)  # runs: every key visible
+    torch.testing.assert_close(full, flash_ops._model(flash_ops.flash_attention_ref(
+        flash_ops._gqa(q, 4), q.transpose(1, 2), q.transpose(1, 2), causal=False)))
     with pytest.raises(TypeError):
         flash_ops.flash_attention(q, q.double(), q.double())
     cache = torch.zeros((2, 8, 2, 16))
@@ -424,7 +460,7 @@ def test_ssd_plain_stages_mean_what_they_say(b, s, h, p, n, chunk):
     _ssd_close(cum, want_cum)
     scores = chunk_scores(args[2], args[3], chunk)
     cc, bc = (t.reshape(b, nc, chunk, n).astype(np.float64) for t in (cm, bm))
-    _ssd_close(scores, np.einsum("bcln,bcsn->bcls", cc, bc))
+    _ssd_close(scores, np.einsum("bcln,bcsn->bcls", cc, bc)[:, :, None])  # one group
     entering, final_state = state_passing(chunk_states(args[0], args[2], cum, chunk), cum)
     assert entering.shape == (b, nc, h, p, n)
     assert not bool(entering[:, 0].any())  # nothing enters the first chunk

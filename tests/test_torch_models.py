@@ -509,7 +509,9 @@ def test_bf16_config_runs_on_cpu():
 
 
 def test_unported_layer_kinds_raise():
-    """SSD with more than one group raises, naming its ROADMAP item; the
+    """No layer kind of the reference raises any more: SSD with more than
+    one group builds, its in_proj and conv widened by the groups' B and C
+    (tests/test_torch_ssd_groups.py runs it against the reference); the
     ``ssd:none`` kind runs, and so do the recurrent mixers and MoE FFNs
     (tests/test_torch_mixers.py)."""
     base = ARCHS["tinyllama-1.1b"].reduced()
@@ -518,8 +520,11 @@ def test_unported_layer_kinds_raise():
                                   num_experts=4, moe_d_ff=128)
         assert key in LM(cfg).spec["blocks"][0]
     mamba = ARCHS["mamba2-130m"].reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP.*ngroups"):
-        LM(dataclasses.replace(mamba, ssd_ngroups=2))
+    grouped = dataclasses.replace(mamba, ssd_ngroups=2)
+    spec = LM(grouped).spec["blocks"][0]["ssd"]
+    din, n, h = grouped.d_inner, grouped.ssd_state, grouped.ssd_heads
+    assert spec["in_proj"].shape[-2:] == (grouped.d_model, 2 * din + 2 * 2 * n + h)
+    assert spec["conv_w"].shape[-2:] == (grouped.conv_width, din + 2 * 2 * n)
     assert "ssd" in LM(mamba).spec["blocks"][0]  # the ssd:none kind builds
 
 

@@ -5,7 +5,8 @@ Identical weights (the reference's ``LM.init`` through
 ``convert.lm_params_from_arrays``) and tokens made with numpy; float32.
 The port's gradients run through its autograd functions (K3's and K5's
 plain forward and backward here), ``torch.utils.checkpoint`` with remat,
-and the MoE's auxiliary term; reduced mamba2-130m, tinyllama-1.1b,
+and the MoE's auxiliary term; reduced mamba2-130m (one, two and four SSD
+groups), tinyllama-1.1b,
 gemma3-4b (one period: five windowed layers and a global one),
 llama4-scout (the routed MoE), recurrentgemma-9b (the RG-LRU scan's
 autograd function) and gemma-7b.
@@ -52,6 +53,10 @@ def _flat(tree, prefix=""):
 GRAD_MODELS = {
     "mamba2": ("mamba2-130m", {}, 2, 24),
     "mamba2-remat": ("mamba2-130m", {"remat": True}, 2, 24),
+    # B and C of 2 and 4 groups, each shared by its heads: K5b's plain
+    # version sums d(scores), dB and dC over a group's heads
+    "mamba2-g2": ("mamba2-130m", {"ssd_ngroups": 2}, 2, 24),
+    "mamba2-g4": ("mamba2-130m", {"ssd_ngroups": 4}, 2, 24),
     "tinyllama": ("tinyllama-1.1b", {}, 2, 20),
     "tinyllama-remat": ("tinyllama-1.1b", {"remat": True, "xent_chunk": 7}, 2, 20),
     "gemma3": ("gemma3-4b", {"num_layers": 6}, 1, 40),  # one period: 5 windowed (16 keys), 1 global

@@ -20,12 +20,23 @@ over both.
           descheduled), ``step_ms`` the median step with the card
           synchronised after it.  At batch 1 the card waits on the host,
           so all three read the host's time for a step.
+  kernels runs K3 (causal, bf16 and f32, head dims 64 and 256, a
+          window) and K5 and K5b (mamba2-130m's width, one group: B=8,
+          S=1024, H=24, P=64, N=128, chunk 128) of the tree on inputs made
+          from fixed seeds, through the wrappers both trees share, and
+          saves their outputs to ``--out/<i>_<tree name>.pt`` (about 0.5
+          GB a tree: keep ``--out`` out of the returned directory); then
+          times K5 and K5b with the tree's ``chip_smoke.device_ms`` (the
+          kernels' device time under torch.profiler).  Each tree's line
+          says whether every output is bit-identical to the first tree's.
 
 Each prints one JSON object per tree and, last, the card's name and power
 limit.  Usage, from the repository root on a machine with a card:
 
   python3 tools/ab_trees.py decode scratch_checkout/parent . . scratch_checkout/parent
   python3 tools/ab_trees.py smoke --out chiprun_out/ab scratch_checkout/parent .
+  python3 tools/ab_trees.py kernels --out build/ab scratch_checkout/parent . . \
+      scratch_checkout/parent
 """
 from __future__ import annotations
 
@@ -108,10 +119,61 @@ def decode_one() -> dict:
     return out
 
 
+# K3's causal cases of ``kernels``: (B, Sq, Skv, Hq, Hkv, D, window, dtype).
+K3_CASES = ((8, 1024, 1024, 32, 4, 64, 0, "bfloat16"), (2, 1024, 1024, 16, 16, 256, 0, "bfloat16"),
+            (1, 1536, 1536, 8, 4, 256, 1024, "bfloat16"), (2, 37, 300, 8, 2, 64, 0, "bfloat16"),
+            (2, 1024, 1024, 32, 4, 64, 0, "float32"), (1, 130, 130, 4, 2, 256, 32, "float32"))
+SSD_SHAPE = (8, 1024, 24, 64, 128, 128)  # B, S, H, P, N, chunk
+
+
+def kernels_one(out: Path) -> dict:
+    """K3, K5 and K5b of the ``repro_torch`` on ``sys.path`` on seeded
+    inputs: their outputs saved to ``out``, K5's and K5b's device ms."""
+    import torch
+
+    from chip_smoke import device_ms
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    saved = {}
+    for b, sq, skv, hq, hkv, d, window, dtype in K3_CASES:
+        q = torch.randn((b, sq, hq, d), generator=gen, device="cuda").to(getattr(torch, dtype))
+        k, v = (torch.randn((b, skv, hkv, d), generator=gen, device="cuda").to(q.dtype)
+                for _ in range(2))
+        o, lse = flash_ops.flash_attention(q, k, v, window=window, return_lse=True)
+        key = f"k3 {b} {sq} {skv} {hq} {hkv} {d} {window} {dtype}"
+        saved[key], saved[key + " lse"] = o.cpu(), lse.cpu()
+    b, s, h, p, n, chunk = SSD_SHAPE
+    xdt = torch.randn((b, s, h, p), generator=gen, device="cuda") * 0.5
+    dA = -torch.rand((b, s, h), generator=gen, device="cuda") * 0.3
+    bm, cm = (torch.randn((b, s, n), generator=gen, device="cuda") * 0.3 for _ in range(2))
+    dy = torch.randn((b, s, h, p), generator=gen, device="cuda")
+    y, final, cum, entering = ssd_ops.ssd_chunk_scan_saving(xdt, dA, bm, cm, chunk)
+    grads = ssd_ops.ssd_chunk_bwd(xdt, bm, cm, dy, cum, entering, chunk)
+    saved.update({"k5 y": y.cpu(), "k5 final": final.cpu(),
+                  **{f"k5b {name}": g.cpu() for name, g in zip(("dxdt", "dda", "dbm", "dcm"),
+                                                                 grads)}})
+    torch.save(saved, out)
+    return {"ssd_ms": device_ms(lambda: ssd_ops.ssd_chunk_scan(xdt, dA, bm, cm, chunk),
+                                "ssd_chunk_scan", iters=20),
+            "ssd_bwd_ms": device_ms(lambda: ssd_ops.ssd_chunk_bwd(xdt, bm, cm, dy, cum, entering,
+                                                                  chunk),
+                                    "ssd_chunk_bwd", iters=10)}
+
+
+def same_as(first: Path, other: Path) -> dict:
+    """{output: bit-identical} of two ``kernels`` runs' saved outputs."""
+    import torch
+
+    a, b = torch.load(first), torch.load(other)
+    return {k: bool(k in b and torch.equal(a[k], b[k])) for k in a}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("what", choices=["smoke", "decode", "decode-one"])
+    ap.add_argument("what", choices=["smoke", "decode", "decode-one", "kernels", "kernels-one"])
     ap.add_argument("trees", nargs="*", type=Path)
     ap.add_argument("--out", type=Path, default=Path("chiprun_out/ab"),
                     help="directory of the smoke runs' logs")
@@ -119,20 +181,31 @@ def main(argv=None) -> int:
     if args.what == "decode-one":
         print(json.dumps(decode_one()))
         return 0
+    if args.what == "kernels-one":
+        print(json.dumps(kernels_one(args.out)))
+        return 0
     rc = 0
     args.out.mkdir(parents=True, exist_ok=True)
+    saved = []
     for i, tree in enumerate(args.trees):
         tree = tree.resolve()
         if args.what == "smoke":
             res = smoke(tree, args.out / f"{i}_{tree.name}.log")
         else:
-            env = dict(os.environ, PYTHONPATH=str(tree / "src"))
-            proc = subprocess.run([sys.executable, __file__, "decode-one"], env=env,
-                                  capture_output=True, text=True)
+            env = dict(os.environ, PYTHONPATH=f"{tree / 'src'}{os.pathsep}{tree}")
+            cmd = [sys.executable, str(Path(__file__).resolve()), f"{args.what}-one"]
+            if args.what == "kernels":
+                saved.append(args.out.resolve() / f"{i}_{tree.name}.pt")
+                cmd += ["--out", str(saved[-1])]
+            proc = subprocess.run(cmd, env=env, cwd=tree, capture_output=True, text=True)
             lines = proc.stdout.strip().splitlines()
             res = {"tree": str(tree), "rc": proc.returncode}
             if proc.returncode == 0 and lines:
                 res.update(json.loads(lines[-1]))
+                if args.what == "kernels":
+                    same = same_as(saved[0], saved[-1])
+                    res["bit_identical_to_first"] = all(same.values())
+                    res["differing"] = sorted(k for k, v in same.items() if not v)
             else:
                 res["error"] = proc.stderr[-2000:]
         rc = rc or res["rc"]
