@@ -1,6 +1,6 @@
 """Probes of what bounds K2 (k-NN), K1 (Eq. 2 utility), K5b (the SSD
 backward) and the RG-LRU scan, of K3b in training, and A/B timings of
-K3b's and the RG-LRU backward's designs, on one NVIDIA GPU.
+K3's, K3b's and the RG-LRU backward's designs, on one NVIDIA GPU.
 
     python3 benchmarks/torch_kernel_probe.py knn --source OLD/knn.cu
     python3 benchmarks/torch_kernel_probe.py knn-design
@@ -10,6 +10,8 @@ K3b's and the RG-LRU backward's designs, on one NVIDIA GPU.
     python3 benchmarks/torch_kernel_probe.py rglru [--old OLD/rglru_scan.cu]
     python3 benchmarks/torch_kernel_probe.py scan-step
     python3 benchmarks/torch_kernel_probe.py k3b-train [--steps 24] [--lr 1e-3]
+    python3 benchmarks/torch_kernel_probe.py k3 --old OLD/flash_attention.cu
+    python3 benchmarks/torch_kernel_probe.py f32-split [--tiles]
     python3 benchmarks/torch_kernel_probe.py k3b --old OLD/flash_attention_bwd.cu
     python3 benchmarks/torch_kernel_probe.py rglru-bwd --old OLD/rglru_scan_bwd.cu
 
@@ -79,26 +81,46 @@ takes the carries for the backward (passed null, as prefill and decode
 pass them), built in its own directory for its headers, and the SASS instruction counts of its
 kernels are printed beside those of the current source's T = 64 build.
 
-``k3b --old`` builds an earlier tree's ``flash_attention_bwd.cu`` as it
-is (its own directory on the include path) and times its bf16 instance
-at head dim 256 against this tree's in one process, at phase 16 (a)'s
-bf16 shapes (gemma-7b's and recurrentgemma-9b's training shapes,
-recurrentgemma-9b's local layers at S = 4096 and gemma3-4b's), in turns
-(old, new, new, old), kernel by kernel, each checked against
-``flash_attention_bwd_ref`` first.  ``rglru-bwd --old`` does the same for
-``rglru_scan_bwd.cu`` at the training shape (B = 8, S = 1024, L = 4096)
-and a lone prompt's (B = 1), the earlier design fed every 64th step's
-carry; the new one is also run twice bit-identically.  ``k3b --old`` then
-takes ``tests/test_torch_cuda.py``'s head-dim-256 cases at G = 16
-(recurrentgemma-9b's training shape and B = 2, S = 3000; its seeds), in
-bf16 and float32, and reports without failing, gradient by gradient,
-each design's largest difference from a plain version and the share of
-the card test's tolerance it uses (1 is the limit): in bf16 against
-``flash_attention_bwd_ref`` as the test runs it (p and dS in fp32) and
-against it doing the design's own rounding (``rounding="bf16"``: p and
-dS rounded to bf16 as operands, the earlier design; ``"bf16x2"``: p as
-two bf16 terms, this one), in float32 against it in float32 and in
-float64, and the float32 plain version against the float64 one.
+``k3 --old`` and ``k3b --old`` build an earlier tree's
+``flash_attention.cu`` or ``flash_attention_bwd.cu`` as it is (its own
+directory on the include path; a C entry of this tree's signature: the
+backward's takes the head groups) and time its float32 instance against
+this tree's in one process, in turns (old, new, new, old), under
+``torch.profiler``, kernel by kernel, each checked against the plain
+version first (reported, not failed on), beside one PyTorch call on the
+same inputs (SDPA in float32: the forward; the backward as forward and
+backward less the forward): ``k3`` at tinyllama's prefill shape (B = 8,
+S = 1024, 32 over 4, D = 64) causal and not and gemma-7b's (16 over 16,
+D = 256) causal; ``k3b`` at phase 16 (a)'s float32 shapes (tinyllama's,
+and B = 1, S = 1024, 16 over 16, D = 256).  ``k3b --old`` then takes
+``tests/test_torch_cuda.py``'s head-dim-256 cases at G = 16
+(recurrentgemma-9b's training shape and B = 2, S = 3000; its seeds) in
+float32 and reports without failing, gradient by gradient, each design's
+largest difference from a plain version and the share of the card
+test's tolerance it uses (1 is the limit): against
+``flash_attention_bwd_ref`` in float32, in float64 and with
+``rounding="tf32x3"`` (this design's arithmetic), and the float32 plain
+version against the float64 one.  ``rglru-bwd --old`` times an earlier
+tree's ``rglru_scan_bwd.cu`` against this one at the training shape (B =
+8, S = 1024, L = 4096) and a lone prompt's (B = 1), the earlier design
+fed every 64th step's carry; the new one is also run twice
+bit-identically.
+
+``f32-split`` builds K3's and K3b's sources as they are and in variants
+made by text edits of ``mma.cuh``'s split and 3xTF32 product: ``cvt``
+(each split by ``cvt.rna.tf32.f32``, the PTX instruction, where the
+source rounds with two integer ops to the same bits), ``no_split`` (hi the
+raw bits, lo 0: no split work, wrong sums) and ``one_pass`` (hi.hi alone:
+a third of the products, wrong sums), prints each build's ptxas registers
+and spills of the float32 kernels, and times each in turns (as it is,
+cvt, no_split, one_pass, one_pass, no_split, cvt, as it is) under
+``torch.profiler``, kernel by kernel: K3 f32 at tinyllama's prefill shape
+and gemma-7b's (B = 8, 16 over 16, D = 256), K3b f32 at phase 16 (a)'s
+two shapes; each variant's largest difference from the plain version is
+printed.  With ``--tiles`` the variants keep the arithmetic and change
+tile sizes at D = 64 (dkdv's query tiles 64 or 16, dq's key tiles 64,
+the forward's key tiles 32) or how many n-tiles ``mma_pairs_add`` sums
+together (always 4, or 8; as built, 8 where a warp holds 16 or more).
 
 ``k3b-train`` trains gemma-7b at phase 16 (c)'s cut depth and shape (3
 layers, bf16, B = 8, S = 1024, LMDataset's markov stream, the same seed)
@@ -846,10 +868,6 @@ def _build_in_place(name: str, source: Path) -> ctypes.CDLL:
     return lib
 
 
-K3B_AB_SHAPES = {"gemma7b": (8, 1024, 16, 16, 0), "recurrentgemma_train": (8, 1024, 16, 1, 2048),
-                 "recurrentgemma_local": (2, 4096, 16, 1, 2048), "gemma3": (2, 2048, 8, 4, 1024)}
-
-
 def _accuracy_report(key, pairs, tol):
     """For each (label, grads, refs): per gradient the largest |d| and the
     largest |d| / (tol + tol |ref|), the share of the card test's
@@ -866,106 +884,162 @@ def _accuracy_report(key, pairs, tol):
                   f"{r.flatten()[i].item():.7g})")
 
 
-def probe_k3b_old(old: Path) -> None:
-    """K3b's bf16 instance at head dim 256: an earlier tree's
-    ``flash_attention_bwd.cu`` (the first design, whose C entry takes no
-    head groups) against this tree's, in one process, at phase 16 (a)'s
-    bf16 shapes, timed old, new, new, old under ``torch.profiler``, with
-    each design's differences from the plain version reported (not
-    failed on); then the card test's two G = 16 cases in bf16 and float32
-    against the plain version with and without the designs' rounding and
-    in float64."""
-    import torch
+def _ab_turns(key, call_old, call_new, kernel, iters, parts=()):
+    """Device ms of the old and the new design in turns (old, new, new,
+    old) under ``torch.profiler``; prints each turn and the means."""
+    from chip_smoke import device_ms
 
-    from chip_smoke import K3B_STAGES, _flash_bwd_plain, device_ms
+    times = {"old": [], "new": []}
+    for label, fn in (("old", call_old), ("new", call_new), ("new", call_new),
+                      ("old", call_old)):
+        got = device_ms(fn, kernel, iters=iters, parts=parts)
+        ms, stage_ms = got if parts else (got, {})
+        times[label].append(ms)
+        print(f"{key} {label}: {ms:.6f} ms"
+              + (" (" + ", ".join(f"{k.removeprefix(kernel + '_')} {v:.6f}"
+                                  for k, v in stage_ms.items()) + ")" if stage_ms else ""))
+    old_ms, new_ms = (sum(times[k]) / 2 for k in ("old", "new"))
+    print(f"{key}: old {old_ms:.6f} ms, new {new_ms:.6f} ms, {old_ms / new_ms:.3f} times faster")
+    return old_ms, new_ms
+
+
+# K3's float32 shapes of ``k3 --old``: (B, S, Hq, Hkv, D, causal).
+K3_AB_SHAPES = {"tinyllama causal": (8, 1024, 32, 4, 64, True),
+                "tinyllama non-causal": (8, 1024, 32, 4, 64, False),
+                "gemma7b causal": (8, 1024, 16, 16, 256, True)}
+
+
+def probe_k3_old(old: Path) -> None:
+    """K3's float32 instance: an earlier tree's ``flash_attention.cu``
+    against this tree's, in one process, at ``K3_AB_SHAPES``, timed old,
+    new, new, old under ``torch.profiler``, beside SDPA in float32."""
+    import torch
+    import torch.nn.functional as F
+
+    from chip_smoke import _flash_plain, f32_ops_s, timed_ms
     from repro_torch.kernels.flash_attention import ops as flash_ops
 
-    old_lib = _build_in_place("k3b_old", old)
-    old_fn = old_lib.flash_attention_bwd
-    old_fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_float,
-                                                                      ctypes.c_void_p]
+    old_fn = _build_in_place("k3_old", old).flash_attention_fwd
+    old_fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_float,
+                                                                     ctypes.c_void_p]
     old_fn.restype = ctypes.c_int
-    gen = torch.Generator(device="cuda").manual_seed(29)
-    for key, (b, s, hq, hkv, window) in K3B_AB_SHAPES.items():
-        def randn(*shape):
-            return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
-
-        q, k, v, do = randn(b, s, hq, 256), randn(b, s, hkv, 256), randn(b, s, hkv, 256), \
-            randn(b, s, hq, 256)
-        out, lse = flash_ops.flash_attention(q, k, v, window=window, return_lse=True)
-        drow = torch.empty((b, hq, s), dtype=torch.float32, device="cuda")
-        old_grads = [torch.empty_like(t) for t in (q, k, v)]
+    gen = torch.Generator(device="cuda").manual_seed(33)
+    for key, (b, s, hq, hkv, d, causal) in K3_AB_SHAPES.items():
+        q = torch.randn((b, s, hq, d), generator=gen, device="cuda")
+        k, v = (torch.randn((b, s, hkv, d), generator=gen, device="cuda") for _ in range(2))
+        old_out = torch.empty_like(q)
 
         def call_old():
-            err = old_fn(*(t.data_ptr() for t in (q, k, v, out, do, lse, drow, *old_grads)), 1,
-                         b, s, s, hq, hkv, 256, window, 256 ** -0.5,
+            err = old_fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), old_out.data_ptr(), None, 0,
+                         b, s, s, hq, hkv, d, int(causal), 0, d ** -0.5,
                          torch.cuda.current_stream().cuda_stream)
             if err:
-                raise RuntimeError(f"old flash_attention_bwd: CUDA error {err}")
+                raise RuntimeError(f"old flash_attention_fwd: CUDA error {err}")
 
         def call_new():
-            return flash_ops.flash_attention_bwd(q, k, v, out, do, lse, window=window)
+            return flash_ops.flash_attention(q, k, v, causal=causal)
 
         call_old()
-        refs = _flash_bwd_plain(q, k, v, out, do, lse, window)
-        _accuracy_report(key, [("old - plain", old_grads, refs), ("new - plain", call_new(), refs)],
-                         2e-2)
+        plain = _flash_plain(q, k, v, 0, causal)
+        for label, out in (("old", old_out), ("new", call_new())):
+            print(f"{key} {label} - plain: max |d| {(out - plain).abs().max().item():.6g}")
+        del plain
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        sdpa = timed_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, enable_gqa=True), iters=10)
+        flops = (2 if causal else 4) * b * hq * s * s * d
+        _ab_turns(f"K3 f32 {key} (B={b} S={s} {hq} over {hkv}, D={d})", call_old, call_new,
+                  "flash_attention", iters=10)
+        print(f"K3 f32 {key}: SDPA f32 {sdpa:.6f} ms, bound {f32_ops_s(flops) * 1e3:.6f} ms "
+              f"(3xTF32; one fp32 pass {flops / 67e12 * 1e3:.6f})")
+        del q, k, v, old_out
+        torch.cuda.empty_cache()
+
+
+# K3b's float32 shapes of ``k3b --old``, phase 16 (a)'s: (B, S, Hq, Hkv, D).
+K3B_AB_SHAPES = {"tinyllama": (8, 1024, 32, 4, 64), "d256": (1, 1024, 16, 16, 256)}
+
+
+def probe_k3b_old(old: Path) -> None:
+    """K3b's float32 instance: an earlier tree's ``flash_attention_bwd.cu``
+    against this tree's, in one process, at ``K3B_AB_SHAPES``, timed old,
+    new, new, old under ``torch.profiler``, beside SDPA's float32
+    backward; then the card test's two G = 16 cases at head dim 256 against
+    the plain version in float32, float64 and with the new arithmetic."""
+    import torch
+    import torch.nn.functional as F
+
+    from chip_smoke import K3B_STAGES, _flash_bwd_plain, f32_ops_s, timed_ms
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+
+    old_fn = _build_in_place("k3b_old", old).flash_attention_bwd
+    old_fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9 + [ctypes.c_float,
+                                                                      ctypes.c_void_p]
+    old_fn.restype = ctypes.c_int
+
+    def old_grads(q, k, v, out, do, lse, window):
+        b, s, hq, d = q.shape
+        grads = [torch.empty_like(t) for t in (q, k, v)]
+        drow = torch.empty((b, hq, s), dtype=torch.float32, device="cuda")
+        err = old_fn(*(t.data_ptr() for t in (q, k, v, out, do, lse, drow, *grads)), None, 0,
+                     b, s, s, hq, k.shape[2], d, window, 1, d ** -0.5,
+                     torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"old flash_attention_bwd: CUDA error {err}")
+        return grads
+
+    gen = torch.Generator(device="cuda").manual_seed(34)
+    for key, (b, s, hq, hkv, d) in K3B_AB_SHAPES.items():
+        q, do = (torch.randn((b, s, hq, d), generator=gen, device="cuda") for _ in range(2))
+        k, v = (torch.randn((b, s, hkv, d), generator=gen, device="cuda") for _ in range(2))
+        out, lse = flash_ops.flash_attention(q, k, v, return_lse=True)
+
+        def call_new():
+            return flash_ops.flash_attention_bwd(q, k, v, out, do, lse)
+
+        refs = _flash_bwd_plain(q, k, v, out, do, lse, 0)
+        _accuracy_report(key, [("old - plain", old_grads(q, k, v, out, do, lse, 0), refs),
+                               ("new - plain", call_new(), refs)], 2e-5)
         del refs
-        plan = flash_ops.bwd_plan(b, s, hq, hkv, 256, torch.bfloat16,
-                                  torch.cuda.get_device_properties(0).multi_processor_count)
-        parts_new = K3B_STAGES + (("flash_attention_bwd_sum",) if plan["groups"] > 1 else ())
-        times = []
-        for label, fn, parts in (("old", call_old, K3B_STAGES), ("new", call_new, parts_new),
-                                 ("new", call_new, parts_new), ("old", call_old, K3B_STAGES)):
-            ms, stage_ms = device_ms(fn, "flash_attention_bwd", iters=5, parts=parts)
-            times.append((label, ms))
-            print(f"{key} (B={b} S={s} {hq} over {hkv}, window {window}) {label}: {ms:.6f} ms ("
-                  + ", ".join(f"{k.removeprefix('flash_attention_bwd_')} {v:.6f}"
-                              for k, v in stage_ms.items()) + ")")
-        old_ms = (times[0][1] + times[3][1]) / 2
-        new_ms = (times[1][1] + times[2][1]) / 2
-        print(f"{key}: old {old_ms:.6f} ms, new {new_ms:.6f} ms, {old_ms / new_ms:.3f} times "
-              f"faster ({plan['groups']} head groups)")
-        del q, k, v, do, out, lse, drow, old_grads
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+        dot = do.transpose(1, 2)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+
+        sdpa_bwd = (timed_ms(lambda: torch.autograd.grad(sdpa(), (qt, kt, vt), dot), iters=10)
+                    - timed_ms(sdpa, iters=10))
+        flops = 10 * b * hq * (s * (s + 1) // 2) * d
+        _ab_turns(f"K3b f32 {key} (B={b} S={s} {hq} over {hkv}, D={d})",
+                  lambda: old_grads(q, k, v, out, do, lse, 0), call_new,
+                  "flash_attention_bwd", iters=5, parts=K3B_STAGES)
+        print(f"K3b f32 {key}: SDPA f32 backward {sdpa_bwd:.6f} ms, bound "
+              f"{f32_ops_s(flops) * 1e3:.6f} ms (3xTF32; one fp32 pass "
+              f"{flops / 67e12 * 1e3:.6f})")
+        del q, k, v, do, out, lse, qt, kt, vt, dot
         torch.cuda.empty_cache()
 
     # tests/test_torch_cuda.py's head-dim-256 cases at G = 16 (its seeds).
-    for dtype, code in ((torch.bfloat16, 1), (torch.float32, 0)):
-        tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
-        for b, s, hq, hkv, window in ((8, 1024, 16, 1, 2048), (2, 3000, 16, 1, 0)):
-            gen = torch.Generator(device="cuda").manual_seed(s * 5 + hq)
-            q, do = (torch.randn((b, s, hq, 256), generator=gen, device="cuda").to(dtype)
-                     for _ in range(2))
-            k, v = (torch.randn((b, s, hkv, 256), generator=gen, device="cuda").to(dtype)
-                    for _ in range(2))
-            out, lse = flash_ops.flash_attention(q, k, v, window=window, return_lse=True)
-            drow = torch.empty((b, hq, s), dtype=torch.float32, device="cuda")
-            old_grads = [torch.empty_like(t) for t in (q, k, v)]
-            err = old_fn(*(t.data_ptr() for t in (q, k, v, out, do, lse, drow, *old_grads)),
-                         code, b, s, s, hq, hkv, 256, window, 256 ** -0.5,
-                         torch.cuda.current_stream().cuda_stream)
-            if err:
-                raise RuntimeError(f"old flash_attention_bwd: CUDA error {err}")
-            torch.cuda.synchronize()
-            new_grads = flash_ops.flash_attention_bwd(q, k, v, out, do, lse, window=window)
-            key = f"card test B={b} S={s} {hq} over {hkv}, window {window}, {dtype}"
-            if dtype == torch.bfloat16:
-                sides = {"plain": {}, "plain rounding=bf16": {"rounding": "bf16"},
-                         "plain rounding=bf16x2": {"rounding": "bf16x2"}}
-                wide = (q, k, v, out, do, lse)
-            else:
-                sides = {"plain f32": {}, "plain f64": {}}
-                wide = [t.double() for t in (q, k, v, out, do, lse)]
-            refs = {side: _flash_bwd_plain(*(wide if side == "plain f64" else
-                                              (q, k, v, out, do, lse)), window, **kw)
-                    for side, kw in sides.items()}
-            pairs = [(f"old - {side}", old_grads, r) for side, r in refs.items()]
-            pairs += [(f"new - {side}", new_grads, r) for side, r in refs.items()]
-            if dtype == torch.float32:
-                pairs.append(("plain f32 - plain f64", refs["plain f32"], refs["plain f64"]))
-            _accuracy_report(key, pairs, tol)
-            del q, k, v, do, out, lse, drow, old_grads, new_grads, refs, wide
-            torch.cuda.empty_cache()
+    for b, s, hq, hkv, window in ((8, 1024, 16, 1, 2048), (2, 3000, 16, 1, 0)):
+        gen = torch.Generator(device="cuda").manual_seed(s * 5 + hq)
+        q, do = (torch.randn((b, s, hq, 256), generator=gen, device="cuda") for _ in range(2))
+        k, v = (torch.randn((b, s, hkv, 256), generator=gen, device="cuda") for _ in range(2))
+        out, lse = flash_ops.flash_attention(q, k, v, window=window, return_lse=True)
+        olds = old_grads(q, k, v, out, do, lse, window)
+        news = flash_ops.flash_attention_bwd(q, k, v, out, do, lse, window=window)
+        wide = [t.double() for t in (q, k, v, out, do, lse)]
+        refs = {"plain f32": _flash_bwd_plain(q, k, v, out, do, lse, window),
+                "plain f64": _flash_bwd_plain(*wide, window),
+                "plain tf32x3": _flash_bwd_plain(q, k, v, out, do, lse, window,
+                                                 rounding="tf32x3")}
+        pairs = [(f"{label} - {side}", grads, r) for label, grads in (("old", olds),
+                                                                       ("new", news))
+                 for side, r in refs.items()]
+        pairs.append(("plain f32 - plain f64", refs["plain f32"], refs["plain f64"]))
+        _accuracy_report(f"card test B={b} S={s} {hq} over {hkv}, window {window}, float32",
+                         pairs, 2e-5)
+        del q, k, v, do, out, lse, olds, news, refs, wide
+        torch.cuda.empty_cache()
 
 
 def probe_rglru_bwd_old(old: Path) -> None:
@@ -1110,6 +1184,148 @@ def probe_k3b_train(steps: int, lr: float) -> None:
               f"last 5 mean {tail:.4f} ({'falls' if tail < xs[0] else 'rises'})")
 
 
+# Text edits of mma.cuh's fp32 split and product (each anchor must be present).
+_SPLIT = """  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));"""
+_CVT = """  asm("cvt.rna.tf32.f32 %0, %1;\\n" : "=r"(hi) : "f"(x));
+  asm("cvt.rna.tf32.f32 %0, %1;\\n" : "=r"(lo) : "f"(x - __uint_as_float(hi)));"""
+_PASSES = """  mma_tf32(c, a.lo, b.hi[0], b.hi[1]);
+  mma_tf32(c, a.hi, b.lo[0], b.lo[1]);
+  mma_tf32(c, a.hi, b.hi[0], b.hi[1]);"""
+_DKDV_COLS = "constexpr int f32_dkdv_cols() { return D <= 32 ? 64 : D <= 128 ? 32 : 16; }"
+_DQ_COLS = "constexpr int f32_dq_cols() { return D <= 32 ? 64 : D <= 128 ? 32 : 16; }"
+_KEYS = "constexpr int f32_keys() { return D <= 64 ? 64 : 32; }"
+_NG = "constexpr int NG = NW >= 16 ? 8 : NW < 4 ? NW : 4;"
+_M, _B, _F = "mma.cuh", "flash_attention_bwd.cu", "flash_attention.cu"
+# (file, old text, new text) edits of each variant.
+F32_VARIANTS = {
+    "as_is": [],
+    "cvt": [(_M, _SPLIT, _CVT)],
+    "no_split": [(_M, _SPLIT, "  hi = __float_as_uint(x);\n  lo = 0u;")],
+    "one_pass": [(_M, _PASSES, "  mma_tf32(c, a.hi, b.hi[0], b.hi[1]);")],
+}
+# Tile sizes and accumulator groups of the same arithmetic (``--tiles``).
+F32_TILE_VARIANTS = {
+    "as_is": [],
+    "dkdv_q64": [(_B, _DKDV_COLS, _DKDV_COLS.replace("D <= 32 ? 64", "D <= 64 ? 64"))],
+    "dkdv_q16": [(_B, _DKDV_COLS, _DKDV_COLS.replace("D <= 128 ? 32", "D <= 32 ? 32"))],
+    "dq_k64": [(_B, _DQ_COLS, _DQ_COLS.replace("D <= 32 ? 64", "D <= 64 ? 64"))],
+    "fwd_k32": [(_F, _KEYS, _KEYS.replace("D <= 64 ? 64", "D <= 32 ? 64"))],
+    "groups4": [(_M, _NG, "constexpr int NG = NW < 4 ? NW : 4;")],
+    "groups8": [(_M, _NG, "constexpr int NG = NW < 8 ? NW : 8;")],
+}
+
+
+def _build_f32_variant(name: str, edits) -> dict:
+    """K3's and K3b's sources built from a copy of their directory with
+    ``edits`` (file name, old text, new text) made: {source: library}."""
+    from repro_torch.kernels.nvcc import _ARCH, _COMMON, SOURCES, _nvcc
+
+    csrc = SOURCES["flash_attention"].path.parent
+    tree = OUT / "f32" / name
+    tree.mkdir(parents=True, exist_ok=True)
+    for path in csrc.iterdir():
+        text = path.read_text()
+        for file, old, new in edits:
+            if file != path.name:
+                continue
+            if old not in text:
+                raise SystemExit(f"f32-split {name}: anchor not found in {file}: {old}")
+            text = text.replace(old, new)
+        (tree / path.name).write_text(text)
+    procs = {}
+    for src in ("flash_attention", "flash_attention_bwd"):
+        lib = tree / f"lib{src}.so"
+        procs[src] = (lib, subprocess.Popen(
+            [_nvcc(), *_ARCH, *_COMMON, "-o", str(lib), str(tree / f"{src}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for src, (lib, proc) in procs.items():
+        out = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f"f32-split {name} {src}: nvcc failed\n{out}")
+        (tree / f"{src}.log").write_text(out)
+        for block in re.split(r"Compiling entry function", out)[1:]:
+            m = re.search(r"(\w+_f32_kernelILi\d+E\w{0,4})", block.split("\n", 1)[0])
+            regs = re.search(r"Used (\d+) registers", block)
+            spill = re.search(r"(\d+) bytes spill stores", block)
+            if m and regs:
+                key = m.group(1).split("flash_attention_", 1)[-1]
+                print(f"{name} {key}: {regs.group(1)} registers, "
+                      f"{spill.group(1) if spill else 0} bytes spill stores")
+        libs[src] = lib
+    return libs
+
+
+def probe_f32_split(tiles: bool = False) -> None:
+    """K3's and K3b's float32 instances with their split and product
+    edited (``F32_VARIANTS``), or with ``tiles`` their tile sizes and
+    accumulator groups (``F32_TILE_VARIANTS``), timed in turns under
+    ``torch.profiler``."""
+    import torch
+
+    from chip_smoke import K3B_STAGES, _flash_bwd_plain, _flash_plain, device_ms
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+
+    variants = F32_TILE_VARIANTS if tiles else F32_VARIANTS
+    calls = {}
+    for name, edits in variants.items():
+        libs = _build_f32_variant(name, edits)
+        fwd = ctypes.CDLL(str(libs["flash_attention"])).flash_attention_fwd
+        fwd.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_float,
+                                                                     ctypes.c_void_p]
+        bwd = ctypes.CDLL(str(libs["flash_attention_bwd"])).flash_attention_bwd
+        bwd.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9 + [ctypes.c_float,
+                                                                      ctypes.c_void_p]
+        calls[name] = (fwd, bwd)
+    gen = torch.Generator(device="cuda").manual_seed(35)
+    order = list(variants) + list(variants)[::-1]
+    for what, (b, s, hq, hkv, d) in (("K3", (8, 1024, 32, 4, 64)), ("K3", (8, 1024, 16, 16, 256)),
+                                     ("K3b", (8, 1024, 32, 4, 64)),
+                                     ("K3b", (1, 1024, 16, 16, 256))):
+        q, do = (torch.randn((b, s, hq, d), generator=gen, device="cuda") for _ in range(2))
+        k, v = (torch.randn((b, s, hkv, d), generator=gen, device="cuda") for _ in range(2))
+        o, lse = flash_ops.flash_attention(q, k, v, return_lse=True)
+        out = torch.empty_like(q)
+        grads = [torch.empty_like(t) for t in (q, k, v)]
+        drow = torch.empty_like(lse)
+        ref = (_flash_plain(q, k, v, 0),) if what == "K3" else _flash_bwd_plain(q, k, v, o, do,
+                                                                               lse, 0)
+
+        def run(name):
+            fwd, bwd = calls[name]
+            stream = torch.cuda.current_stream().cuda_stream
+            if what == "K3":
+                err = fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None, 0, b, s,
+                          s, hq, hkv, d, 1, 0, d ** -0.5, stream)
+            else:
+                err = bwd(*(t.data_ptr() for t in (q, k, v, o, do, lse, drow, *grads)), None, 0,
+                          b, s, s, hq, hkv, d, 0, 1, d ** -0.5, stream)
+            if err:
+                raise RuntimeError(f"f32-split {name}: CUDA error {err}")
+
+        for name in variants:
+            run(name)
+            torch.cuda.synchronize()
+            got = (out,) if what == "K3" else grads
+            print(f"{what} B={b} S={s} {hq} over {hkv} D={d} {name}: max |d| from the plain "
+                  "version " + ", ".join(f"{(g - r).abs().max().item():.3g}"
+                                         for g, r in zip(got, ref)))
+        del ref
+        for name in order:
+            if what == "K3":
+                ms = device_ms(lambda: run(name), "flash_attention_f32", iters=10)
+                print(f"{what} B={b} S={s} {hq} over {hkv} D={d} {name}: {ms:.6f} ms")
+            else:
+                ms, stage_ms = device_ms(lambda: run(name), "flash_attention_bwd", iters=5,
+                                         parts=K3B_STAGES)
+                print(f"{what} B={b} S={s} {hq} over {hkv} D={d} {name}: {ms:.6f} ms ("
+                      + ", ".join(f"{k.removeprefix('flash_attention_bwd_')} {x:.6f}"
+                                  for k, x in stage_ms.items()) + ")")
+        del q, k, v, do, o, lse, out, grads, drow
+        torch.cuda.empty_cache()
+
+
 # Text edits of ahead.cuh's warp step (each anchor must be present).
 _EQ2 = "eq2_utility<double>(static_cast<int>(v.pen), v.acc, v.dl, comp)"
 _MEAN = "const double mean = v.valid ? (v.size == 1.0 ? sum : sum / v.size) : -INFINITY;"
@@ -1238,6 +1454,8 @@ def main(argv=None) -> int:
     t = sub.add_parser("k3b-train")
     t.add_argument("--steps", type=int, default=24)
     t.add_argument("--lr", type=float, default=1e-3)
+    sub.add_parser("k3").add_argument("--old", type=Path, required=True)
+    sub.add_parser("f32-split").add_argument("--tiles", action="store_true")
     sub.add_parser("k3b").add_argument("--old", type=Path, required=True)
     sub.add_parser("rglru-bwd").add_argument("--old", type=Path, required=True)
     args = p.parse_args(argv)
@@ -1263,6 +1481,10 @@ def main(argv=None) -> int:
         probe_scan_step()
     elif args.what == "k3b-train":
         probe_k3b_train(args.steps, args.lr)
+    elif args.what == "k3":
+        probe_k3_old(args.old)
+    elif args.what == "f32-split":
+        probe_f32_split(args.tiles)
     elif args.what == "k3b":
         probe_k3b_old(args.old)
     elif args.what == "rglru-bwd":

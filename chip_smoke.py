@@ -10,10 +10,10 @@ times both, then drives the paths of the port on the card:
 * scheduling (phases 3-5): a SneakPeek ``Simulation`` over a stream of
   4096-request windows against k-NN training sets of 100,000 points per
   application (K2, K1), plus one window of each other policy;
-* serving (phases 6-9): K3 (its bf16 tensor-core instance and its f32
-  CUDA-core one), K4 and K5 (five kernels per call, each stage also held
-  against its plain stage and timed) against their plain versions, K3
-  and K4 also at head dim 256 (gemma-7b's shapes, gemma3-4b's windowed
+* serving (phases 6-9): K3 (its bf16 instance and its f32 one, 3xTF32,
+  both on the tensor cores), K4 and K5 (five kernels per call, each stage
+  also held against its plain stage and timed) against their plain
+  versions, K3 and K4 also at head dim 256 (gemma-7b's shapes, gemma3-4b's windowed
   prefill), K4 also at the serving backend's bucketed capacity, float32
   models at tinyllama's, mamba2's, gemma-7b's and gemma3-4b's widths
   (one period of 5 sliding-window layers and 1 global, a wrapped ring)
@@ -219,10 +219,9 @@ def require(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
-def hmma_count(lib_path, op: str = "HMMA") -> int | None:
-    """Tensor-core instructions (``op``: HMMA for mma.sync, HGMMA for
-    wgmma) in a built library's SASS, or None where the toolkit has no
-    ``cuobjdump``."""
+def _sass(lib_path) -> str | None:
+    """``cuobjdump -sass`` of a built library, or None where the toolkit has
+    no ``cuobjdump``."""
     import shutil
 
     from torch.utils.cpp_extension import CUDA_HOME
@@ -232,9 +231,34 @@ def hmma_count(lib_path, op: str = "HMMA") -> int | None:
         tool = str(Path(CUDA_HOME) / "bin" / "cuobjdump")
     if tool is None:
         return None
-    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
+    return subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
                           timeout=120, check=True).stdout
+
+
+def hmma_count(lib_path, op: str = "HMMA") -> int | None:
+    """Tensor-core instructions (``op``: HMMA for mma.sync, HGMMA for
+    wgmma) in a built library's SASS, or None without ``cuobjdump``."""
+    sass = _sass(lib_path)
+    if sass is None:
+        return None
     return sum(f" {op}." in line or f" {op} " in line for line in sass.splitlines())
+
+
+def sass_counts(lib_path, keys, op: str = "HMMA", kind: str = "TF32") -> dict | None:
+    """{key: the ``op`` instructions of type ``kind`` (``HMMA.1688.F32.TF32``
+    for mma.sync.m16n8k8 on TF32) in the SASS of the kernel whose mangled
+    name contains key}, the kernel's own and not its library's; None
+    without ``cuobjdump``."""
+    sass = _sass(lib_path)
+    if sass is None:
+        return None
+    out = {}
+    for body in sass.split("Function : ")[1:]:
+        head = body.split("\n", 1)[0]
+        for key in keys:
+            if key in head:
+                out[key] = sum(f" {op}." in line and kind in line for line in body.splitlines())
+    return out
 
 
 def ptxas_registers(name: str, keys) -> dict:
@@ -268,8 +292,19 @@ D256_INSTANCES = {
                          "decode_attention_kernelIfLi256E"),
     "flash_attention_bwd": ("flash_attention_bwd_dkdv_wgmma_kernel",
                             "flash_attention_bwd_dq_wgmma_kernel",
-                            "flash_attention_bwd_dkdv_kernelILi256EfE",
-                            "flash_attention_bwd_dq_kernelILi256EfE"),
+                            "flash_attention_bwd_dkdv_f32_kernelILi256EE",
+                            "flash_attention_bwd_dq_f32_kernelILi256EE"),
+}
+
+# K3's and K3b's float32 instances (mangled-name keys), every product as
+# three TF32 products on mma.sync: phase 2 counts the TF32 HMMA in each
+# one's own SASS (more than none), prints ptxas's registers and spills and
+# fails on a spill at D <= 128.
+F32_INSTANCES = {
+    "flash_attention": tuple(f"flash_attention_f32_kernelILi{d}ELb{c}E"
+                             for d in (16, 32, 64, 128, 256) for c in (1, 0)),
+    "flash_attention_bwd": tuple(f"flash_attention_bwd_{part}_f32_kernelILi{d}EE"
+                                 for d in (16, 32, 64, 128, 256) for part in ("dkdv", "dq")),
 }
 
 
@@ -602,11 +637,19 @@ def _decode_plain(q, k, v, lengths, window):
     return out.reshape(b, 1, hq, d)
 
 
+def f32_ops_s(flops: float) -> float:
+    """The least seconds for ``flops`` of products at fp32's accuracy: three
+    TF32 passes of an error-compensated split (3xTF32) at the TF32
+    tensor-core peak, or one fp32 pass at the CUDA cores', whichever is
+    shorter (K3's, K3b's and K5b's float32 products)."""
+    return min(3 * flops / TF32_FLOP_PER_S, flops / FP32_FLOP_PER_S)
+
+
 def _flash_timing(q, k, v, window, flops, library, causal=True):
     """K3 at one shape, checked against its plain version: device time,
     wrapper time, plain time, ``library`` time, and the bound from
-    ``flops`` (at the peak of q's type: bf16 on the tensor cores, f32 on the
-    CUDA cores) and the bytes of q, k, v and o."""
+    ``flops`` (bf16 at the tensor cores' peak; f32 at fp32's accuracy,
+    ``f32_ops_s``) and the bytes of q, k, v and o."""
     import torch
 
     from repro_torch.kernels.flash_attention import ops as flash_ops
@@ -614,7 +657,7 @@ def _flash_timing(q, k, v, window, flops, library, causal=True):
     b, s, hq, d = q.shape
     hkv = k.shape[2]
     name = str(q.dtype).split(".")[1]
-    peak = BF16_FLOP_PER_S if q.dtype == torch.bfloat16 else FP32_FLOP_PER_S
+    ops_s = flops / BF16_FLOP_PER_S if q.dtype == torch.bfloat16 else f32_ops_s(flops)
     out = flash_ops.flash_attention(q, k, v, causal=causal, window=window)
     err = _close(out, _flash_plain(q, k, v, window, causal), ATTN_TOL[name],
                  f"K3 at {tuple(q.shape)} {name} causal={causal} window {window}")
@@ -627,8 +670,8 @@ def _flash_timing(q, k, v, window, flops, library, causal=True):
         "call_ms": timed_ms(call, iters=10),
         "plain_ms": timed_ms(lambda: _flash_plain(q, k, v, window, causal), iters=3, warmup=1),
         "library_ms": timed_ms(library, iters=10),
-        "bound_ms": max(flops / peak, bytes_moved / HBM_BYTES_PER_S) * 1e3,
-        "bound_by": "operations" if flops / peak > bytes_moved / HBM_BYTES_PER_S else "bytes",
+        "bound_ms": max(ops_s, bytes_moved / HBM_BYTES_PER_S) * 1e3,
+        "bound_by": "operations" if ops_s > bytes_moved / HBM_BYTES_PER_S else "bytes",
         "max_abs_err": err,
         "shape": f"B={b} S={s} Hq={hq} Hkv={hkv} D={d} {name} "
                  + ("causal" if causal else "non-causal")
@@ -636,13 +679,20 @@ def _flash_timing(q, k, v, window, flops, library, causal=True):
     }
 
 
+# K3's first float32 design's times (fp32 on the CUDA cores) at phase 6's
+# f32 shapes, printed in brackets beside this run's
+# (benchmarks/torch_kernel_probe.py k3 --old, NVIDIA H100 80GB HBM3,
+# 700.00 W; PERF.md).
+K3_F32_FIRST_MS = {"f32": 1.574682, "f32_non_causal": 2.791151, "f32_d256": 3.791087}
+
+
 def check_flash(seed):
     """K3 against its plain version: the sweep of tests/test_kernels.py:22
-    in f32 (the CUDA-core instance) and bf16 (the tensor-core instance),
-    at its head dims and again at 256, causal and not (with one Sq < Skv
-    case each); then the serving shapes in bf16, timed beside SDPA:
-    tinyllama's, gemma-7b's and gemma3-4b's windowed prefill; then
-    tinyllama's shape not causal in bf16 and causal in f32."""
+    in f32 (3xTF32) and bf16, at its head dims and again at 256, causal
+    and not (with one Sq < Skv case each); then the serving shapes in bf16,
+    timed beside SDPA: tinyllama's, gemma-7b's and gemma3-4b's windowed
+    prefill; then tinyllama's shape not causal in bf16, and in f32 causal
+    and not, and gemma-7b's in f32, each beside SDPA in f32."""
     import torch
     import torch.nn.functional as F
 
@@ -692,13 +742,18 @@ def check_flash(seed):
     # Not causal: the full square, 4 B Hq S^2 D; SDPA with is_causal=False.
     t["non_causal"] = _flash_timing(q, k, v, 0, 4 * b * hq * s * s * d,
                                     causal(q, k, v, False), causal=False)
-    # The f32 instance (CUDA cores) at the same shape, beside SDPA in f32.
+    # The f32 instance (3xTF32 on the tensor cores) at the same shape, causal
+    # and not, beside SDPA in f32.
     qf, kf, vf = (x.float() for x in (q, k, v))
     t["f32"] = _flash_timing(qf, kf, vf, 0, 2 * b * hq * s * s * d, causal(qf, kf, vf))
-    for key in ("non_causal", "f32"):
+    t["f32_non_causal"] = _flash_timing(qf, kf, vf, 0, 4 * b * hq * s * s * d,
+                                        causal(qf, kf, vf, False), causal=False)
+    for key in ("non_causal", "f32", "f32_non_causal"):
+        first = K3_F32_FIRST_MS.get(key)
         print(f"  K3 serving shape {t[key]['shape']}: max |d| {t[key]['max_abs_err']:.3g} "
               f"(tolerance {ATTN_TOL['bfloat16' if key == 'non_causal' else 'float32']}); "
-              "SDPA agrees within 2e-2")
+              f"SDPA agrees within 2e-2; {t[key]['ms']:.6f} ms"
+              + (f" [first design: {first}]" if first else ""))
     del q, k, v, qf, kf, vf
 
     b, s, hq, hkv, d = 8, 1024, 16, 16, 256  # gemma-7b's prefill, MHA
@@ -706,7 +761,14 @@ def check_flash(seed):
     t["at_d256"] = _flash_timing(q, k, v, 0, 2 * b * hq * s * s * d, causal(q, k, v))
     print(f"  K3 gemma-7b shape {t['at_d256']['shape']}: max |d| "
           f"{t['at_d256']['max_abs_err']:.3g} (tolerance 2e-2); SDPA agrees within 2e-2")
+    qf, kf, vf = (x.float() for x in (q, k, v))
     del q, k, v
+    t["f32_d256"] = _flash_timing(qf, kf, vf, 0, 2 * b * hq * s * s * d, causal(qf, kf, vf))
+    first = K3_F32_FIRST_MS.get("f32_d256")
+    print(f"  K3 gemma-7b shape {t['f32_d256']['shape']}: max |d| "
+          f"{t['f32_d256']['max_abs_err']:.3g} (tolerance 2e-5); SDPA agrees within 2e-2; "
+          f"{t['f32_d256']['ms']:.6f} ms" + (f" [first design: {first}]" if first else ""))
+    del qf, kf, vf
 
     b, s, hq, hkv, d, window = 1, 1536, 8, 4, 256, 1024  # gemma3-4b's local layers
     q, k, v = inputs(b, s, hq, hkv, d)
@@ -3085,8 +3147,9 @@ K5B_STAGES = ("ssd_chunk_bwd_scores", "ssd_chunk_bwd_dstate", "ssd_chunk_bwd_pas
               "ssd_chunk_bwd_dcum", "ssd_chunk_bwd_dgsum", "ssd_chunk_bwd_dbm_dcm")
 # The first designs' times (fp32 on the CUDA cores) at phase 16 (a)'s
 # shapes, from PERF.md's kernel table (NVIDIA H100 80GB HBM3, 700.00 W),
-# printed in brackets beside this run's times.
-K3B_FIRST_MS = {"tinyllama": 7.091728, "f32": 7.265763, "llama4": 5.685508, "windowed": 5.121812}
+# printed in brackets beside this run's times; the f32 one the first f32
+# design's last measured time (PR 32's run).
+K3B_FIRST_MS = {"tinyllama": 7.091728, "f32": 7.176184, "llama4": 5.685508, "windowed": 5.121812}
 K5B_FIRST_MS = 2.239300
 # K3b at head dim 256 (batch, length, query heads, KV heads, window, dtype):
 # gemma-7b's training shape (MHA), recurrentgemma-9b's training shape (16
@@ -3099,9 +3162,10 @@ K3B_D256_SHAPES = {"gemma7b": (8, 1024, 16, 16, 0, "bfloat16"),
                    "gemma3": (2, 2048, 8, 4, 1024, "bfloat16"),
                    "f32_d256": (1, 1024, 16, 16, 0, "float32")}
 # The first bf16 design's times at head dim 256 (mma.sync; its chip_smoke.py run, NVIDIA
-# H100 80GB HBM3, 700.00 W; PERF.md), printed in brackets beside this run's.
+# H100 80GB HBM3, 700.00 W; PERF.md), and the first f32 design's (CUDA
+# cores, PR 32's run), printed in brackets beside this run's.
 K3B_D256_FIRST_MS = {"gemma7b": 1.682459, "recurrentgemma_local": 5.177276,
-                     "gemma3": 0.687855}
+                     "gemma3": 0.687855, "f32_d256": 3.207369}
 # rglru_scan_bwd's cases (batch, length, LRU width, dtype, h0, dh_last):
 # recurrentgemma-9b's training shape (timed), a length off a multiple of the
 # chunk, one below a chunk, and float32 with both states given.
@@ -3197,7 +3261,7 @@ def _flash_bwd_case(gen, b, s, hq, hkv, d, window, dtype, timed=False, plain_onc
     # q, o, dO read and dq written (Hq wide); k, v read and dk, dv written
     # (Hkv wide); the float32 logsumexp read
     bytes_moved = item * (4 * b * s * hq * d + 4 * b * s * hkv * d) + 4 * b * hq * s
-    peak = BF16_FLOP_PER_S if dtype == torch.bfloat16 else FP32_FLOP_PER_S
+    ops_s = flops / BF16_FLOP_PER_S if dtype == torch.bfloat16 else f32_ops_s(flops)
     call = lambda: flash_ops.flash_attention_bwd(q, k, v, out, do, lse, window=window)  # noqa: E731
     plan = flash_ops.bwd_plan(b, s, hq, hkv, d, dtype,
                               torch.cuda.get_device_properties(0).multi_processor_count)
@@ -3223,8 +3287,8 @@ def _flash_bwd_case(gen, b, s, hq, hkv, d, window, dtype, timed=False, plain_onc
         "plain_ms": timed_ms(lambda: _flash_bwd_plain(q, k, v, out, do, lse, window),
                              iters=1 if plain_once else 2, warmup=0 if plain_once else 1),
         "library_ms": timed_ms(sdpa_fwd_bwd, iters=10) - timed_ms(sdpa, iters=10),
-        "bound_ms": max(flops / peak, bytes_moved / HBM_BYTES_PER_S) * 1e3,
-        "bound_by": "operations" if flops / peak > bytes_moved / HBM_BYTES_PER_S else "bytes",
+        "bound_ms": max(ops_s, bytes_moved / HBM_BYTES_PER_S) * 1e3,
+        "bound_by": "operations" if ops_s > bytes_moved / HBM_BYTES_PER_S else "bytes",
     })
     return t
 
@@ -3303,7 +3367,7 @@ def check_backward_kernels(seed):
     # the faster fp32-accurate route for its products: three TF32 passes of
     # an error-compensated split at the TF32 tensor-core peak, or one fp32
     # pass at the CUDA cores'; or its inputs' and outputs' bytes, if larger.
-    ops_s = min(3 * flops / TF32_FLOP_PER_S, flops / FP32_FLOP_PER_S)
+    ops_s = f32_ops_s(flops)
     k5b = {
         "ms": ms, "stage_ms": stage_ms,
         "plain_ms": timed_ms(lambda: ssd_chunk_bwd_ref(xdt, bm, cm, dy, cum, entering, chunk),
@@ -3336,7 +3400,7 @@ def check_backward_kernels(seed):
         gms, gstage = device_ms(call, "ssd_chunk_bwd", iters=5, parts=K5B_STAGES)
         gflops = _ssd_bwd_flops(b, s, h, p, n, chunk, g)
         gbytes = bytes_moved + 4 * 4 * b * s * (g - 1) * n
-        gops = min(3 * gflops / TF32_FLOP_PER_S, gflops / FP32_FLOP_PER_S)
+        gops = f32_ops_s(gflops)
         k5b["groups"][g] = {
             "ms": gms, "stage_ms": gstage,
             "plain_ms": timed_ms(lambda: ssd_chunk_bwd_ref(xdt, bg, cg, dy, cum, entering,
@@ -4271,6 +4335,21 @@ def main(argv=None) -> int:
     for key, line in k3b_bf16.items():
         print(f"    ptxas K3b bf16, {key}: {line}")
         require(" 0 bytes spill stores" in line, f"K3b's bf16 instance {key} spills registers")
+    for name, keys in F32_INSTANCES.items():
+        what = "K3" if name == "flash_attention" else "K3b"
+        regs = ptxas_registers(name, keys)
+        require(sorted(regs) == sorted(keys), f"ptxas reported no {set(keys) - set(regs)}")
+        tf32 = sass_counts(nvcc.SOURCES[name].library_path(), keys)
+        if tf32 is None:
+            print(f"    cuobjdump not found: {what}'s f32 SASS not inspected")
+        for key in keys:
+            print(f"    ptxas {what} f32, {key}: {regs[key]}"
+                  + ("" if tf32 is None else f"; {tf32.get(key, 0)} HMMA TF32 in its SASS"))
+            if tf32 is not None:
+                require(tf32.get(key, 0) > 0, f"{what}'s f32 instance {key} holds no TF32 HMMA")
+            if "ILi256E" not in key:
+                require(" 0 bytes spill stores" in regs[key],
+                        f"{what}'s f32 instance {key} spills registers")
 
     t0 = time.perf_counter()
     specs = list(APP_SPECS.values())
@@ -4361,7 +4440,9 @@ def main(argv=None) -> int:
     for t, name in ((flash_t, "flash_attention"), (flash_t["at_d256"], "flash_attention"),
                     (flash_t["windowed"], "flash_attention"),
                     (flash_t["non_causal"], "flash_attention"),
-                    (flash_t["f32"], "flash_attention"), (decode_t, "decode_attention"),
+                    (flash_t["f32"], "flash_attention"),
+                    (flash_t["f32_non_causal"], "flash_attention"),
+                    (flash_t["f32_d256"], "flash_attention"), (decode_t, "decode_attention"),
                     (decode_t["at_d256"], "decode_attention")):
         print(f"    {name} at {t['shape']}: kernel {t['ms']:.6f} ms on the device, "
               f"{t['call_ms']:.6f} ms per wrapper call back to back, plain "
@@ -4599,7 +4680,7 @@ def main(argv=None) -> int:
          "shape": t["shape"],
          **{key: t[key] for key in ("stage_ms", "at_d256", "windowed", "placement",
                                     "recurrentgemma_local", "llama4", "non_causal", "f32",
-                                    "groups")
+                                    "f32_non_causal", "f32_d256", "groups")
             if key in t}}
         for name, source, replaces, counts, t in rows
     ]}

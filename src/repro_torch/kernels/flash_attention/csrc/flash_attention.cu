@@ -61,16 +61,48 @@
 //     product), which is the reference's own rounding of p before P.V
 //     (kernel.py:73); l sums the unrounded p.  O += P.V with ldmatrix.trans
 //     on V.
-// * fp32, on the CUDA cores (`flash_attention_f32_kernel`), in IEEE fp32
-//   with no TF32: one block of 256 threads per (64-row query tile, query
-//   head, batch row), q, K and V staged in shared memory as fp32, a 4 x 4
-//   register tile of the score block per thread, the online softmax
-//   reduced over the 16 threads of a row with warp shuffles.  The models'
-//   f32 paths and the f32 tests take it.  At D = 256 its tiles take
-//   217,600 B of shared memory, one block per SM.
+// * fp32 at fp32 accuracy, on the tensor cores (`flash_attention_f32_kernel`),
+//   the bf16 design's blocks, walk, ring and softmax with TF32 operands:
+//   - every product (S = Q.K^T, O += P.V) runs as three TF32 products of
+//     mma.sync.m16n8k8 (fp32 accumulate): each operand is split into hi =
+//     tf32(x) and lo = tf32(x - hi) (round to nearest, ties away: cvt.rna's
+//     rounding, by integer ops) as its fragment is loaded, and
+//     lo.hi, hi.lo, then hi.hi are accumulated (mma.cuh), which keeps
+//     fp32's accuracy where one TF32 product keeps three digits.  The
+//     softmax, the masks, exp2 and the logsumexp stay IEEE fp32 on the CUDA
+//     cores, and p is not rounded: the reference keeps it in fp32;
+//   - TF32 has no ldmatrix, so fragments come from 32-bit shared loads;
+//     every tile's rows are D + 4 floats, which puts a warp's loads on 32
+//     banks whether it reads a tile along its rows (Q, K) or across them
+//     (V);
+//   - the S accumulator is P's A fragment as it stands: m16n8k8's C layout
+//     gives a lane columns 2t and 2t + 1 where A wants t and t + 4, so the
+//     product's 8 keys are taken in that lane's order (k = t is key 2t, k =
+//     t + 4 key 2t + 1) and V's rows are read in the same order; no value
+//     moves between lanes.  Each tile's P.V is summed in fresh accumulators
+//     and added to O by fp32 adds (mma.cuh's mma_pairs_add);
+//   - 64-key tiles for D <= 64, where Q's split fragments stay in registers
+//     (64 at D = 64); 32-key tiles above, Q's fragments re-read from its
+//     shared tile.  At D = 256 a 16-row group takes two warps, each holding
+//     half of O's columns (64 registers, where all 256 would take 128) and
+//     computing S over its half of D; the pair sums its two partial S
+//     through shared memory (both warps get the same bits: fp32 addition
+//     commutes) and runs the softmax on the whole.  216,064 B of shared
+//     memory at D = 256, one block of 8 warps an SM; 101,376 B at D = 128
+//     and 87,040 B at D = 64, two blocks an SM.
+//   The bound counts each product three times at the TF32 tensor-core peak
+//   (495 TFLOP/s), or once at fp32's 67 TFLOP/s if that is shorter: at
+//   tinyllama's shape 103 GFLOP of TF32 products, 0.208 ms.  Measured
+//   (benchmarks/torch_kernel_probe.py k3 --old, NVIDIA H100 80GB HBM3,
+//   700.00 W; PERF.md): 0.765 ms there, against 1.575 for its first design
+//   (fp32 on the CUDA cores) and 5.30 for SDPA in f32; not causal 1.44;
+//   gemma-7b's D = 256 (B = 8) 1.65, SDPA f32 1.92.  What holds it: the two
+//   extra TF32 passes take about half of it and the splits a fifth
+//   (torch_kernel_probe.py f32-split): mma.sync's TF32 rate, not bytes.
+//   The models' f32 paths and the f32 tests take it.
 //
-// Measured by chip_smoke.py at the serving shape under torch.profiler
-// (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md): 0.217-0.218 ms, 6.3 times
+// The bf16 instance, measured by chip_smoke.py at the serving shape under
+// torch.profiler (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md): 0.217-0.218 ms, 6.3 times
 // the bound, against 0.109-0.112 ms for PyTorch's SDPA and 1.580-1.587 ms
 // for the earlier design of this file (bf16 staged as fp32, scalar FMAs on
 // the CUDA cores) in the same call.  What holds it back is issue and
@@ -90,184 +122,6 @@ using namespace repro_mma;
 
 constexpr float kNeg = -0.7f * 3.4028234663852886e38f;  // _NEG of kernel.py:28
 constexpr float kLog2e = 1.4426950408889634f;
-
-// ------------------------------------------------------------ fp32 instance
-
-constexpr int kBQ = 64;        // query rows per block
-constexpr int kBK = 64;        // keys per staged tile
-constexpr int kThreads = 256;  // 16 x 16 threads
-constexpr int kPS = kBK + 16;  // row stride of the probability tile
-
-template <int D>
-constexpr size_t f32_smem_floats() {
-  return (size_t)kBQ * (D + 1) + (size_t)kBK * (D + 1) + (size_t)kBK * D + (size_t)kBQ * kPS;
-}
-
-template <int D, bool Causal>
-__global__ void __launch_bounds__(kThreads)
-flash_attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                           const float* __restrict__ v, float* __restrict__ o,
-                           float* __restrict__ lse, int Sq, int Skv, int Hq, int Hkv,
-                           int window, float scale) {
-  constexpr int QS = D + 1;  // padded row stride of the q and K tiles
-  constexpr int DJ = D / 16;
-  extern __shared__ float smem[];
-  float* qs = smem;             // kBQ x QS
-  float* ks = qs + kBQ * QS;    // kBK x QS
-  float* vs = ks + kBK * QS;    // kBK x D
-  float* ps = vs + kBK * D;     // kBQ x kPS
-
-  const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest (last) tiles first
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int hk = h / (Hq / Hkv);
-  const int q0 = qt * kBQ;
-  const int offset = Skv - Sq;  // query i sits at position offset + i
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-
-  for (int i = tid; i < kBQ * D; i += kThreads) {
-    const int r = i / D;
-    const int c = i - r * D;
-    const int s = q0 + r;
-    qs[r * QS + c] = s < Sq ? q[((size_t)(b * Sq + s) * Hq + h) * D + c] : 0.0f;
-  }
-
-  float m[4], l[4], acc[4][DJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNeg;
-    l[i] = 0.0f;
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) acc[i][j] = 0.0f;
-  }
-
-  // KV tiles this query tile can see.
-  const int q_first = offset + q0;                      // first row's position
-  const int q_last = offset + min(q0 + kBQ, Sq) - 1;   // last real row's position
-  const int k_stop = Causal ? min(Skv, q_last + 1) : Skv;  // causal: keys <= q_last
-  int k_start = 0;
-  if (window > 0) {
-    const int lo = q_first - window + 1;  // the first row's oldest visible key
-    k_start = lo > 0 ? (lo / kBK) * kBK : 0;
-  }
-
-  for (int k0 = k_start; k0 < k_stop; k0 += kBK) {
-    __syncthreads();  // the previous tile is consumed (and qs is written)
-    for (int i = tid; i < kBK * D; i += kThreads) {
-      const int r = i / D;
-      const int c = i - r * D;
-      const int s = k0 + r;
-      const size_t g = ((size_t)(b * Skv + s) * Hkv + hk) * D + c;
-      const bool in = s < Skv;
-      ks[r * QS + c] = in ? k[g] : 0.0f;
-      vs[r * D + c] = in ? v[g] : 0.0f;
-    }
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.0f;
-#pragma unroll 16
-    for (int d = 0; d < D; ++d) {
-      float qv[4], kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = qs[(ty + 16 * i) * QS + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = ks[(tx + 16 * j) * QS + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] += qv[i] * kv[j];
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty + 16 * i;
-      const int qpos = q_first + r;
-      bool ok[4];
-      float mx = kNeg;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kpos = k0 + tx + 16 * j;
-        ok[j] = kpos < Skv && (!Causal || kpos <= qpos) && (window <= 0 || kpos > qpos - window);
-        s[i][j] = ok[j] ? s[i][j] * scale : kNeg;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      // The 16 threads of a row are lanes tx of one half-warp.
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      const float alpha = expf(m[i] - m_new);
-      float psum = 0.0f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = ok[j] ? expf(s[i][j] - m_new) : 0.0f;
-        psum += p;
-        ps[r * kPS + tx + 16 * j] = p;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1) psum += __shfl_xor_sync(0xffffffffu, psum, off);
-      l[i] = l[i] * alpha + psum;
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) acc[i][j] *= alpha;
-    }
-    __syncthreads();  // the probability tile is complete
-
-    float pv[4][DJ];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) pv[i][j] = 0.0f;
-#pragma unroll 8
-    for (int c = 0; c < kBK; ++c) {
-      float pr[4], vv[DJ];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pr[i] = ps[(ty + 16 * i) * kPS + c];
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) vv[j] = vs[c * D + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < DJ; ++j) pv[i][j] += pr[i] * vv[j];
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) acc[i][j] += pv[i][j];
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int s = q0 + ty + 16 * i;
-    if (s >= Sq) continue;
-    const float lc = fmaxf(l[i], 1e-30f);
-    float* out = o + ((size_t)(b * Sq + s) * Hq + h) * D;
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) out[tx + 16 * j] = acc[i][j] / lc;
-    if (lse != nullptr && tx == 0) lse[(size_t)(b * Hq + h) * Sq + s] = m[i] + logf(lc);
-  }
-}
-
-template <int D, bool Causal>
-cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, float* lse,
-                       int B, int Sq, int Skv, int Hq, int Hkv, int window, float scale,
-                       cudaStream_t stream) {
-  auto kernel = flash_attention_f32_kernel<D, Causal>;
-  const size_t smem = f32_smem_floats<D>() * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((Sq + kBQ - 1) / kBQ, Hq, B);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), lse, Sq, Skv, Hq, Hkv, window, scale);
-  return cudaGetLastError();
-}
 
 // ---------------------------------------------------- bf16 tensor-core instance
 
@@ -495,6 +349,227 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, fl
   return cudaGetLastError();
 }
 
+// ------------------------------------------ fp32 tensor-core instance (3xTF32)
+
+// Warps sharing a 16-row group: 2 at D = 256, each holding half of the
+// output's columns (O whole would take 128 registers a thread) and the
+// scores' partial sum over its half of D, summed through shared memory.
+template <int D>
+__host__ __device__ constexpr int f32_split() { return D > 128 ? 2 : 1; }
+
+// Keys per K/V tile: 64 for D <= 64, 32 above (see the header).
+template <int D>
+__host__ __device__ constexpr int f32_keys() { return D <= 64 ? 64 : 32; }
+
+// Q, the K/V ring and, with a split, the pairs' partial scores.
+template <int D>
+constexpr size_t f32_smem_bytes() {
+  constexpr int BK = f32_keys<D>();
+  constexpr size_t xch = f32_split<D>() > 1 ? (size_t)4 * 2 * (BK / 8) * 4 * 32 : 0;
+  return ((size_t)(kTcBQ + 2 * kTcStages * BK) * f32_stride<D>() + xch) * sizeof(float);
+}
+
+template <int D, bool Causal>
+__global__ void __launch_bounds__(kTcThreads * f32_split<D>(), 1)
+flash_attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                           const float* __restrict__ v, float* __restrict__ o,
+                           float* __restrict__ lse, int Sq, int Skv, int Hq, int Hkv,
+                           int window, float scale_log2) {
+  constexpr int SPLIT = f32_split<D>();
+  constexpr int THREADS = kTcThreads * SPLIT;
+  constexpr int ST = f32_stride<D>();
+  constexpr int BK = f32_keys<D>();
+  constexpr int DW = D / SPLIT;       // the warp's share of D
+  constexpr bool kQInRegs = D <= 64;  // Q's split A fragments held in registers
+  constexpr int KW = DW / 8;          // k-steps of the warp's (partial) scores
+  constexpr int NW = DW / 8;          // n-tiles of the warp's output columns
+  constexpr int NK = BK / 8;          // n-tiles of the scores
+  extern __shared__ __align__(16) float smem_f[];
+  float* qs = smem_f;                    // kTcBQ x ST
+  float* ks = qs + kTcBQ * ST;           // stages x BK x ST
+  float* vs = ks + kTcStages * BK * ST;  // stages x BK x ST
+  float* xs = vs + kTcStages * BK * ST;  // 4 pairs x 2 x NK x 4 x 32 partial scores
+
+  const int h = blockIdx.x;
+  const int qt = gridDim.y - 1 - blockIdx.y;  // heaviest (last) tiles first
+  const int b = blockIdx.z;
+  const int hk = h / (Hq / Hkv);
+  const int q0 = qt * kTcBQ;
+  const int offset = Skv - Sq;  // query i sits at position offset + i
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int rw = warp & 3;      // the warp's rows: 16 rw .. 16 rw + 15 of the tile
+  const int half = warp >> 2;   // its share of D: columns d0 .. d0 + DW - 1
+  const int d0 = half * DW;
+  const int g = lane >> 2;  // the accumulator rows g and g + 8 of the warp
+  const int t = lane & 3;   // the accumulator columns 2t and 2t + 1 of each n-tile
+
+  const size_t q_stride = (size_t)Hq * D;
+  const size_t kv_stride = (size_t)Hkv * D;
+  const float* qb = q + ((size_t)b * Sq * Hq + h) * D;
+  const float* kb = k + ((size_t)b * Skv * Hkv + hk) * D;
+  const float* vb = v + ((size_t)b * Skv * Hkv + hk) * D;
+
+  // KV tiles this query tile can see (at least one: k_start <= q_first < k_stop).
+  const int q_first = offset + q0;
+  const int q_last = offset + min(q0 + kTcBQ, Sq) - 1;
+  const int k_stop = Causal ? min(Skv, q_last + 1) : Skv;
+  int k_start = 0;
+  if (window > 0) {
+    const int lo = q_first - window + 1;
+    k_start = lo > 0 ? (lo / BK) * BK : 0;
+  }
+  const int n_tiles = (k_stop - k_start + BK - 1) / BK;
+
+  cp_async_rows_f32<D, kTcBQ, THREADS>(qs, qb, q0, Sq, q_stride, tid);
+  cp_async_rows_f32<D, BK, THREADS>(ks, kb, k_start, Skv, kv_stride, tid);
+  cp_async_rows_f32<D, BK, THREADS>(vs, vb, k_start, Skv, kv_stride, tid);
+  cp_async_commit();
+
+  const float* qrow = qs + rw * 16 * ST + d0;
+  FragA qf[kQInRegs ? KW : 1];
+  float oacc[NW][4];
+  float m[2] = {kNeg, kNeg};
+  float l[2] = {0.0f, 0.0f};  // this lane's share of the row sums
+#pragma unroll
+  for (int j = 0; j < NW; ++j) oacc[j][0] = oacc[j][1] = oacc[j][2] = oacc[j][3] = 0.0f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = k_start + it * BK;
+    const int stage = it & 1;
+    if (it + 1 < n_tiles) {  // the next tile loads while this one is used
+      const int nxt = (it + 1) & 1;
+      cp_async_rows_f32<D, BK, THREADS>(ks + nxt * BK * ST, kb, k0 + BK, Skv, kv_stride, tid);
+      cp_async_rows_f32<D, BK, THREADS>(vs + nxt * BK * ST, vb, k0 + BK, Skv, kv_stride, tid);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if constexpr (kQInRegs) {
+      if (it == 0) {
+#pragma unroll
+        for (int kk = 0; kk < KW; ++kk) qf[kk] = a_tf32<ST>(qrow + kk * 8, g, t);
+      }
+    }
+    const float* kst = ks + stage * BK * ST;
+    const float* vst = vs + stage * BK * ST;
+
+    // S = Q . K^T for the warp's 16 rows and the tile's BK keys (with a
+    // split, over the warp's half of D, then summed with its partner's).
+    float sacc[NK][4];
+#pragma unroll
+    for (int j = 0; j < NK; ++j) sacc[j][0] = sacc[j][1] = sacc[j][2] = sacc[j][3] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < KW; ++kk) {
+      FragA a;
+      if constexpr (kQInRegs) {
+        a = qf[kk];
+      } else {
+        a = a_tf32<ST>(qrow + kk * 8, g, t);
+      }
+#pragma unroll
+      for (int n = 0; n < NK; ++n)
+        mma_3xtf32(sacc[n], a, b_rows_tf32<ST>(kst + n * 8 * ST + d0 + kk * 8, g, t));
+    }
+    if constexpr (SPLIT > 1) pair_sum<NK>(sacc, xs + rw * (2 * NK * 4 * 32), half, rw, lane);
+
+    // Online softmax, in the log2 domain: s * scale * log2(e).  Masks are
+    // computed only in a tile that is not wholly visible to the block's rows.
+    const bool full = (!Causal || k0 + BK - 1 <= q_first) && k0 + BK <= Skv &&
+                      (window <= 0 || k0 > q_last - window);
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int qpos = q_first + rw * 16 + g + 8 * rr;
+      float mx = kNeg;
+#pragma unroll
+      for (int j = 0; j < NK; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float s = sacc[j][2 * rr + e] * scale_log2;
+          if (!full) {
+            const int kpos = k0 + 8 * j + 2 * t + e;
+            const bool ok = kpos < Skv && (!Causal || kpos <= qpos) &&
+                            (window <= 0 || kpos > qpos - window);
+            s = ok ? s : kNeg;
+          }
+          sacc[j][2 * rr + e] = s;
+          mx = fmaxf(mx, s);
+        }
+      }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[rr], mx);
+      const float alpha = exp2f(m[rr] - m_new);
+      m[rr] = m_new;
+      float psum = 0.0f;
+#pragma unroll
+      for (int j = 0; j < NK; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float s = sacc[j][2 * rr + e];
+          const float p = s == kNeg ? 0.0f : exp2f(s - m_new);  // masked: p = 0
+          psum += p;
+          sacc[j][2 * rr + e] = p;
+        }
+      }
+      l[rr] = l[rr] * alpha + psum;
+#pragma unroll
+      for (int j = 0; j < NW; ++j) {
+        oacc[j][2 * rr] *= alpha;
+        oacc[j][2 * rr + 1] *= alpha;
+      }
+    }
+
+    // O += P . V over the warp's columns: each 8-key n-tile of p is an A
+    // fragment as it stands (acc_a_tf32's k order), V read in that order.
+    FragA pa[NK];
+#pragma unroll
+    for (int kk = 0; kk < NK; ++kk) pa[kk] = acc_a_tf32(sacc[kk]);
+    mma_pairs_add<ST>(oacc, pa, vst + d0, g, t);
+    __syncthreads();  // this stage (and the partial scores) is consumed before it is overwritten
+  }
+
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    float lt = l[rr];
+    lt += __shfl_xor_sync(0xffffffffu, lt, 1);
+    lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+    const int s = q0 + rw * 16 + g + 8 * rr;
+    if (s >= Sq) continue;
+    const float lc = fmaxf(lt, 1e-30f);
+    // m is in the log2 domain: the natural logsumexp is (m + log2 l) ln 2.
+    if (lse != nullptr && t == 0 && half == 0)
+      lse[(size_t)(b * Hq + h) * Sq + s] = (m[rr] + log2f(lc)) * 0.6931471805599453f;
+    // 1 / l to about an ulp (lc lies in [1e-30, 2^24]): IEEE division calls
+    // a slow-path subroutine, whose calling convention spilled registers.
+    const float inv = __fdividef(1.0f, lc);
+    float* out = o + ((size_t)(b * Sq + s) * Hq + h) * D + d0 + 2 * t;
+#pragma unroll
+    for (int j = 0; j < NW; ++j)
+      *reinterpret_cast<float2*>(out + 8 * j) =
+          make_float2(oacc[j][2 * rr] * inv, oacc[j][2 * rr + 1] * inv);
+  }
+}
+
+template <int D, bool Causal>
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, float* lse,
+                       int B, int Sq, int Skv, int Hq, int Hkv, int window, float scale,
+                       cudaStream_t stream) {
+  auto kernel = flash_attention_f32_kernel<D, Causal>;
+  const size_t smem = f32_smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(Hq, (Sq + kTcBQ - 1) / kTcBQ, B);
+  kernel<<<grid, kTcThreads * f32_split<D>(), smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), lse, Sq, Skv, Hq, Hkv, window, scale * kLog2e);
+  return cudaGetLastError();
+}
+
 #define REPRO_FLASH_DISPATCH(LAUNCH, C)                                                   \
   switch (D) {                                                                            \
     case 16: return LAUNCH<16, C>(q, k, v, o, l, B, Sq, Skv, Hq, Hkv, window, scale, s);  \
@@ -509,18 +584,21 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, fl
 
 extern "C" {
 
-// dtype: 0 = fp32 (CUDA cores), 1 = bf16 (tensor cores); anything else is
-// refused.  causal: 1 = keys at positions <= the query's, 0 = every key.
-// q, k, v and o must be 16-byte aligned for bf16.  lse, unless
-// null, receives the natural logsumexp of each row's scaled scores, float32
+// dtype: 0 = fp32 (3xTF32 on the tensor cores), 1 = bf16 (tensor cores);
+// anything else is refused.  causal: 1 = keys at positions <= the query's,
+// 0 = every key.  q, k, v and o must be 16-byte aligned.  lse, unless null,
+// receives the natural logsumexp of each row's scaled scores, float32
 // (B, Hq, Sq), which the backward (flash_attention_bwd.cu) reads.  Returns
 // the launch's cudaError_t.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                         int dtype, int B, int Sq, int Skv, int Hq, int Hkv, int D, int causal,
                         int window, float scale, void* stream) {
   if (B <= 0 || Sq <= 0 || Skv <= 0 || Sq > Skv || Hkv <= 0 || Hq % Hkv != 0 ||
-      (causal != 0 && causal != 1))
+      (causal != 0 && causal != 1) || (dtype != 0 && dtype != 1))
     return cudaErrorInvalidValue;
+  const uintptr_t bases = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                          reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o);
+  if (bases & 15) return cudaErrorMisalignedAddress;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
   if (dtype == 0) {
@@ -529,16 +607,10 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, vo
     }
     REPRO_FLASH_DISPATCH(launch_f32, false)
   }
-  if (dtype == 1) {
-    const uintptr_t bases = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
-                            reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o);
-    if (bases & 15) return cudaErrorMisalignedAddress;
-    if (causal) {
-      REPRO_FLASH_DISPATCH(launch_bf16, true)
-    }
-    REPRO_FLASH_DISPATCH(launch_bf16, false)
+  if (causal) {
+    REPRO_FLASH_DISPATCH(launch_bf16, true)
   }
-  return cudaErrorInvalidValue;
+  REPRO_FLASH_DISPATCH(launch_bf16, false)
 }
 
 const char* repro_cuda_error_string(int err) {

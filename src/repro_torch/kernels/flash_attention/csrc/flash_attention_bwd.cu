@@ -42,7 +42,7 @@
 // and 256.
 //
 // Three designs, picked by dtype and head dim (no fallback from one to
-// another):
+// another), all on the tensor cores:
 //
 // * bf16 at D <= 128, on the tensor cores (`*_bf16_kernel`), the design of K3's
 //   forward (flash_attention.cu; helpers in mma.cuh): blocks of 4 warps,
@@ -123,25 +123,49 @@
 //     at gemma-7b's shape dkdv went from 0.593 to 0.670 ms
 //     (benchmarks/torch_kernel_probe.py k3b --old, NVIDIA H100 80GB HBM3,
 //     700.00 W).
-// * fp32, on the CUDA cores (`*_kernel<D, float>`), in IEEE fp32: one block
-//   of 256 threads per 64-key or 64-query tile, everything staged in shared
-//   memory as fp32, 4 x 4 register tiles per thread, p and dS staged in
-//   shared memory between the products.  At D = 256 the tiles are 32 rows
-//   (2 x 2 register tiles; 136,064 B, where 64 rows would take 280,320 B).
-//   dkdv sums dK and dV over each query head's walk, then over the heads
-//   in order: one running sum of G S terms left 2e-5 + 2e-5 |ref| at 16
-//   over 1 (dv 1.18 times the tolerance against the float64 plain version
-//   at B = 8, S = 1024, 1.40 at B = 2, S = 3000, where the float32 plain
-//   version uses 0.43 and 0.22 of it); per-head sums use 0.71 and 0.85
-//   (k3b --old, the same card).
-//   The models' f32 paths and the f32 tests take it, as K3's fp32 instance
-//   stays on the CUDA cores.
+// * fp32 at fp32 accuracy, on the tensor cores (`*_f32_kernel`): the bf16
+//   D <= 128 design's blocks, walks and masks with every product (S, dP,
+//   dV, dK, dQ) as three TF32 products on mma.sync.m16n8k8 (K3's fp32
+//   instance, flash_attention.cu, has the arithmetic; mma.cuh the helpers):
+//   operands split hi = tf32(x), lo = tf32(x - hi) as their fragments load,
+//   lo.hi, hi.lo, then hi.hi; p, dS, the masks, exp2 and D in IEEE fp32 on
+//   the CUDA cores.  Fragments by 32-bit shared loads from tiles whose rows
+//   are D + 4 floats (conflict-free either way a tile is read: dO and Q are
+//   read along their rows for dP^T and S^T and across them for dV and dK);
+//   P^T, dS^T and dS become the next product's A fragments as they stand,
+//   the 8 keys or queries of each n-tile taken in the lane's order.  Each
+//   tile's dV, dK or dQ products are summed in fresh accumulators and added
+//   to the running sums by fp32 adds: kept in the accumulator itself, a sum
+//   over a head's 1024 queries took the tensor cores' rounding at every
+//   product and dv left 2e-5 of the plain version at tinyllama's shape.
+//   - dkdv: 64 keys a block, K and V resident, 64-query tiles through the
+//     ring for D <= 32, 32 for D = 64 and 128, 16 at 256; dK and dV summed
+//     over each query head's walk and added to the output head by head in
+//     order (one running sum of G heads' terms left 2e-5 at 16 over 1; the
+//     first design, fp32 on the CUDA cores, measured it: dv 1.18 times the
+//     tolerance against the float64 plain version, per-head sums 0.71).
+//   - dq: 64 queries a block, Q and dO resident, 64-key tiles for D <= 32,
+//     32 at 64 and 128, 16 at 256.
+//   - From D = 128 two warps share each 16-row group, each holding half
+//     of the gradients' columns (dK and dV whole took 128 registers a
+//     thread at D = 128 and spilled) and the partial S and dP over its half
+//     of D, which the pair sums through shared memory; 8 warps a block.
+//     At D = 256 dkdv spills 148 bytes (ptxas, 255 registers); below 256
+//     nothing spills.
+//   The bound counts each of the five products three times at the TF32
+//   tensor-core peak (495 TFLOP/s): 0.521 ms at tinyllama's shape, 0.130
+//   ms at B = 1, S = 1024, 16 over 16, D = 256.  Measured
+//   (benchmarks/torch_kernel_probe.py k3b --old, NVIDIA H100 80GB HBM3,
+//   700.00 W; PERF.md): 2.76 ms at tinyllama's shape (dkdv 1.61, dq 1.08)
+//   against 7.28 for the first design and 5.79 for SDPA's f32 backward;
+//   0.857 ms at D = 256, B = 1, against 3.18 and 1.11.  As in K3's, the
+//   two extra TF32 passes take about half of it (f32-split).
 //
 // Measured by chip_smoke.py phase 16 (a) (NVIDIA H100 80GB HBM3, 700.00
 // W; PERF.md): the bf16 instance 0.807 ms at tinyllama's shape (dkdv 0.425,
 // dq 0.319, dot 0.063), 9.3 times the bound and 1.8 times SDPA's backward
 // (0.447 ms), where its first design (fp32 on the CUDA cores, as the fp32
-// instance, which takes 7.18 ms) took 7.09 ms; 0.559 ms at llama4's shape
+// instance's first design, which took 7.18 ms) took 7.09 ms; 0.559 ms at llama4's shape
 // (40 over 8, D = 128, B = 2) and 0.688 ms with a 1024 window (B = 2, S =
 // 2048).  What holds it back, by count: seven mma.sync products where the
 // bound counts five, at mma.sync's rate where the bound assumes wgmma's,
@@ -153,7 +177,7 @@
 // recurrentgemma-9b's training shape (16 over 1, 3 head groups) 0.988
 // against 2.336; its local layers (B = 2, S = 4096, window 2048) 2.605
 // against 5.186; gemma3-4b's (B = 2, S = 2048, 8 over 4, window 1024) 0.416
-// against 0.705.  The fp32 instance 3.207 ms at B = 1 (chip_smoke.py).
+// against 0.705.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -166,27 +190,8 @@ namespace {
 
 using namespace repro_mma;
 
-constexpr int kThreads = 256;  // 16 x 16: a thread owns rows ty + 16 i, columns tx + 16 j
-
-// Query rows, and keys, per tile of the fp32 instance: 64, or 32 at D = 256,
-// where four 64-row tiles would pass the 227 KB a block may have.
-template <int D>
-__host__ __device__ constexpr int f32_rows() { return D > 128 ? 32 : 64; }
-
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <class T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-
-// Four (R, D + 1) tiles, the (R, R + 1) p / dS tile and the L and D rows.
-template <int D>
-constexpr size_t smem_bytes() {
-  constexpr size_t R = f32_rows<D>();
-  return (4 * R * (D + 1) + R * (R + 1) + 2 * R) * sizeof(float);
-}
 
 // D = rowsum(dO o O) in float32, one warp per (b, s, h) row, into (B, Hq, Sq).
 template <class T>
@@ -211,300 +216,8 @@ flash_attention_bwd_dot_kernel(const T* __restrict__ o, const T* __restrict__ do
   }
 }
 
-// Rows row0 .. row0 + R - 1 of a (rows, D) matrix whose rows are `stride`
-// elements apart, widened to float32 into a (R, D + 1) shared tile; rows
-// >= nrows are zero.
-template <int D, int R, class T>
-__device__ __forceinline__ void load_rows(float* dst, const T* src, int row0, int nrows,
-                                          size_t stride, int tid) {
-  for (int i = tid; i < R * D; i += kThreads) {
-    const int r = i / D;
-    const int c = i - r * D;
-    const int s = row0 + r;
-    dst[r * (D + 1) + c] = s < nrows ? to_f(src[(size_t)s * stride + c]) : 0.0f;
-  }
-}
-
-// s[i][j] = a[ty + 16 i] . bt[tx + 16 j] over D, both (R, D + 1) tiles,
-// RI = R / 16.
-template <int D, int RI>
-__device__ __forceinline__ void tile_dot(float (&s)[RI][RI], const float* a, const float* bt,
-                                         int tx, int ty) {
-#pragma unroll
-  for (int i = 0; i < RI; ++i)
-#pragma unroll
-    for (int j = 0; j < RI; ++j) s[i][j] = 0.0f;
-#pragma unroll 16
-  for (int d = 0; d < D; ++d) {
-    float av[RI], bv[RI];
-#pragma unroll
-    for (int i = 0; i < RI; ++i) av[i] = a[(ty + 16 * i) * (D + 1) + d];
-#pragma unroll
-    for (int j = 0; j < RI; ++j) bv[j] = bt[(tx + 16 * j) * (D + 1) + d];
-#pragma unroll
-    for (int i = 0; i < RI; ++i)
-#pragma unroll
-      for (int j = 0; j < RI; ++j) s[i][j] += av[i] * bv[j];
-  }
-}
-
 __device__ __forceinline__ bool visible(int qpos, int kpos, int Skv, int window) {
   return kpos < Skv && kpos <= qpos && (window <= 0 || kpos > qpos - window);
-}
-
-// dK and dV of one tile of R keys of one KV head: K and V stay resident while
-// the block walks the G query heads and the query tiles that see the tile.
-template <int D, class T>
-__global__ void __launch_bounds__(kThreads)
-flash_attention_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                                const T* __restrict__ v, const T* __restrict__ dout,
-                                const float* __restrict__ lse, const float* __restrict__ drow,
-                                T* __restrict__ dk, T* __restrict__ dv, int Sq, int Skv, int Hq,
-                                int Hkv, int window, float scale) {
-  constexpr int R = f32_rows<D>();
-  constexpr int RI = R / 16;
-  constexpr int PS = R + 1;  // row stride of the p / dS tile
-  constexpr int RS = D + 1;
-  constexpr int DJ = D / 16;
-  extern __shared__ float smem[];
-  float* ks = smem;
-  float* vs = ks + R * RS;
-  float* qs = vs + R * RS;
-  float* dos = qs + R * RS;
-  float* ps = dos + R * RS;  // p, then dS: (R queries, R keys)
-  float* ls = ps + R * PS;
-  float* dls = ls + R;
-
-  const int k0 = blockIdx.x * R;
-  const int hk = blockIdx.y;
-  const int b = blockIdx.z;
-  const int G = Hq / Hkv;
-  const int offset = Skv - Sq;  // query i sits at position offset + i
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  const size_t kv_stride = (size_t)Hkv * D;
-  const size_t q_stride = (size_t)Hq * D;
-
-  load_rows<D, R>(ks, k + ((size_t)b * Skv * Hkv + hk) * D, k0, Skv, kv_stride, tid);
-  load_rows<D, R>(vs, v + ((size_t)b * Skv * Hkv + hk) * D, k0, Skv, kv_stride, tid);
-
-  // dK and dV summed over each query head's walk (hka, hva), then over the
-  // heads in order (dka, dva): G S terms in one running sum left fp32
-  // rounding past 2e-5 at recurrentgemma-9b's 16 over 1 (the header).
-  float dka[RI][DJ], dva[RI][DJ], hka[RI][DJ], hva[RI][DJ];
-#pragma unroll
-  for (int i = 0; i < RI; ++i)
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) dka[i][j] = dva[i][j] = 0.0f;
-
-  // The query rows that see a key of this tile: position >= k0 and, with a
-  // window, position <= the tile's last key + window - 1.
-  const int k_last = min(k0 + R, Skv) - 1;
-  const int i_lo = max(0, k0 - offset);
-  const int i_hi = window > 0 ? min(Sq - 1, k_last + window - 1 - offset) : Sq - 1;
-  const int qt_lo = i_lo / R;
-  const int qt_hi = i_hi >= i_lo ? i_hi / R : qt_lo - 1;
-
-  for (int g = 0; g < G; ++g) {
-    const int h = hk * G + g;
-    const T* qb = q + ((size_t)b * Sq * Hq + h) * D;
-    const T* db = dout + ((size_t)b * Sq * Hq + h) * D;
-    const float* lb = lse + ((size_t)b * Hq + h) * Sq;
-    const float* drb = drow + ((size_t)b * Hq + h) * Sq;
-#pragma unroll
-    for (int i = 0; i < RI; ++i)
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) hka[i][j] = hva[i][j] = 0.0f;
-    for (int qt = qt_lo; qt <= qt_hi; ++qt) {
-      const int q0 = qt * R;
-      __syncthreads();  // the previous query tile is consumed
-      load_rows<D, R>(qs, qb, q0, Sq, q_stride, tid);
-      load_rows<D, R>(dos, db, q0, Sq, q_stride, tid);
-      for (int r = tid; r < R; r += kThreads) {
-        const bool in = q0 + r < Sq;
-        ls[r] = in ? lb[q0 + r] : 0.0f;
-        dls[r] = in ? drb[q0 + r] : 0.0f;
-      }
-      __syncthreads();
-
-      float p[RI][RI], dp[RI][RI];
-      tile_dot<D, RI>(p, qs, ks, tx, ty);
-      tile_dot<D, RI>(dp, dos, vs, tx, ty);
-#pragma unroll
-      for (int i = 0; i < RI; ++i) {
-        const int r = ty + 16 * i;
-        const int qpos = offset + q0 + r;
-#pragma unroll
-        for (int j = 0; j < RI; ++j) {
-          const int c = tx + 16 * j;
-          const bool ok = q0 + r < Sq && visible(qpos, k0 + c, Skv, window);
-          p[i][j] = ok ? expf(p[i][j] * scale - ls[r]) : 0.0f;
-          ps[r * PS + c] = p[i][j];
-        }
-      }
-      __syncthreads();
-      // dV[c][d] += sum_r p[r][c] dO[r][d]
-#pragma unroll 4
-      for (int r = 0; r < R; ++r) {
-        float pr[RI], dov[DJ];
-#pragma unroll
-        for (int i = 0; i < RI; ++i) pr[i] = ps[r * PS + ty + 16 * i];
-#pragma unroll
-        for (int j = 0; j < DJ; ++j) dov[j] = dos[r * RS + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < RI; ++i)
-#pragma unroll
-          for (int j = 0; j < DJ; ++j) hva[i][j] += pr[i] * dov[j];
-      }
-      __syncthreads();  // p is read; dS takes its place
-#pragma unroll
-      for (int i = 0; i < RI; ++i) {
-        const int r = ty + 16 * i;
-#pragma unroll
-        for (int j = 0; j < RI; ++j) ps[r * PS + tx + 16 * j] = p[i][j] * (dp[i][j] - dls[r]) * scale;
-      }
-      __syncthreads();
-      // dK[c][d] += sum_r dS[r][c] q[r][d]
-#pragma unroll 4
-      for (int r = 0; r < R; ++r) {
-        float sr[RI], qv[DJ];
-#pragma unroll
-        for (int i = 0; i < RI; ++i) sr[i] = ps[r * PS + ty + 16 * i];
-#pragma unroll
-        for (int j = 0; j < DJ; ++j) qv[j] = qs[r * RS + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < RI; ++i)
-#pragma unroll
-          for (int j = 0; j < DJ; ++j) hka[i][j] += sr[i] * qv[j];
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < RI; ++i)
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) {
-        dka[i][j] += hka[i][j];
-        dva[i][j] += hva[i][j];
-      }
-  }
-
-#pragma unroll
-  for (int i = 0; i < RI; ++i) {
-    const int kpos = k0 + ty + 16 * i;
-    if (kpos >= Skv) continue;
-    const size_t base = ((size_t)(b * Skv + kpos) * Hkv + hk) * D;
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) {
-      dk[base + tx + 16 * j] = from_f<T>(dka[i][j]);
-      dv[base + tx + 16 * j] = from_f<T>(dva[i][j]);
-    }
-  }
-}
-
-// dQ of one R-row query tile of one query head: the forward's walk over
-// the key tiles it sees.
-template <int D, class T>
-__global__ void __launch_bounds__(kThreads)
-flash_attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                              const T* __restrict__ v, const T* __restrict__ dout,
-                              const float* __restrict__ lse, const float* __restrict__ drow,
-                              T* __restrict__ dq, int Sq, int Skv, int Hq, int Hkv, int window,
-                              float scale) {
-  constexpr int R = f32_rows<D>();
-  constexpr int RI = R / 16;
-  constexpr int PS = R + 1;  // row stride of the dS tile
-  constexpr int RS = D + 1;
-  constexpr int DJ = D / 16;
-  extern __shared__ float smem[];
-  float* qs = smem;
-  float* dos = qs + R * RS;
-  float* ks = dos + R * RS;
-  float* vs = ks + R * RS;
-  float* ps = vs + R * RS;  // dS: (R queries, R keys)
-  float* ls = ps + R * PS;
-  float* dls = ls + R;
-
-  const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest (last) tiles first
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int hk = h / (Hq / Hkv);
-  const int q0 = qt * R;
-  const int offset = Skv - Sq;
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  const size_t kv_stride = (size_t)Hkv * D;
-  const size_t q_stride = (size_t)Hq * D;
-
-  load_rows<D, R>(qs, q + ((size_t)b * Sq * Hq + h) * D, q0, Sq, q_stride, tid);
-  load_rows<D, R>(dos, dout + ((size_t)b * Sq * Hq + h) * D, q0, Sq, q_stride, tid);
-  for (int r = tid; r < R; r += kThreads) {
-    const bool in = q0 + r < Sq;
-    ls[r] = in ? lse[((size_t)b * Hq + h) * Sq + q0 + r] : 0.0f;
-    dls[r] = in ? drow[((size_t)b * Hq + h) * Sq + q0 + r] : 0.0f;
-  }
-
-  float dqa[RI][DJ];
-#pragma unroll
-  for (int i = 0; i < RI; ++i)
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) dqa[i][j] = 0.0f;
-
-  const int q_first = offset + q0;
-  const int q_last = offset + min(q0 + R, Sq) - 1;
-  const int k_stop = min(Skv, q_last + 1);
-  int k_start = 0;
-  if (window > 0) {
-    const int lo = q_first - window + 1;
-    k_start = lo > 0 ? (lo / R) * R : 0;
-  }
-  const T* kb = k + ((size_t)b * Skv * Hkv + hk) * D;
-  const T* vb = v + ((size_t)b * Skv * Hkv + hk) * D;
-
-  for (int k0 = k_start; k0 < k_stop; k0 += R) {
-    __syncthreads();  // the previous key tile is consumed (and q, dO are staged)
-    load_rows<D, R>(ks, kb, k0, Skv, kv_stride, tid);
-    load_rows<D, R>(vs, vb, k0, Skv, kv_stride, tid);
-    __syncthreads();
-    float p[RI][RI], dp[RI][RI];
-    tile_dot<D, RI>(p, qs, ks, tx, ty);
-    tile_dot<D, RI>(dp, dos, vs, tx, ty);
-#pragma unroll
-    for (int i = 0; i < RI; ++i) {
-      const int r = ty + 16 * i;
-      const int qpos = q_first + r;
-#pragma unroll
-      for (int j = 0; j < RI; ++j) {
-        const int c = tx + 16 * j;
-        const bool ok = q0 + r < Sq && visible(qpos, k0 + c, Skv, window);
-        const float pv = ok ? expf(p[i][j] * scale - ls[r]) : 0.0f;
-        ps[r * PS + c] = pv * (dp[i][j] - dls[r]) * scale;
-      }
-    }
-    __syncthreads();
-    // dQ[r][d] += sum_c dS[r][c] k[c][d]
-#pragma unroll 4
-    for (int c = 0; c < R; ++c) {
-      float sr[RI], kv[DJ];
-#pragma unroll
-      for (int i = 0; i < RI; ++i) sr[i] = ps[(ty + 16 * i) * PS + c];
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) kv[j] = ks[c * RS + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < RI; ++i)
-#pragma unroll
-        for (int j = 0; j < DJ; ++j) dqa[i][j] += sr[i] * kv[j];
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < RI; ++i) {
-    const int s = q0 + ty + 16 * i;
-    if (s >= Sq) continue;
-    T* out = dq + ((size_t)(b * Sq + s) * Hq + h) * D;
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) out[tx + 16 * j] = from_f<T>(dqa[i][j]);
-  }
 }
 
 // ---------------------------------------------------- bf16 tensor-core instance
@@ -1292,6 +1005,397 @@ flash_attention_bwd_dq_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
   store_acc<kWgD>(dq + head, acc, q0, Sq, q_stride, tid);
 }
 
+// ------------------------------------------ fp32 tensor-core instance (3xTF32)
+
+// Warps sharing a 16-row group (keys in dkdv, queries in dq): 2 at D >=
+// 128, each holding half of the gradients' columns (dK and dV together would
+// take 128 registers a thread at D = 128, and spill) and the scores' partial
+// sums over its half of D (pair_sum adds them), 1 below.
+template <int D>
+__host__ __device__ constexpr int f32_split() { return D >= 128 ? 2 : 1; }
+
+// Queries per dkdv tile and keys per dq tile: 64 for D <= 32, 32 at D =
+// 64 and 128, 16 at 256 (the tiles within 227 KB).  dq's 64-key tiles at
+// D = 64 took 1.33 ms where 32 take 1.07 (torch_kernel_probe.py f32-split
+// --tiles).
+template <int D>
+__host__ __device__ constexpr int f32_dkdv_cols() { return D <= 32 ? 64 : D <= 128 ? 32 : 16; }
+
+template <int D>
+__host__ __device__ constexpr int f32_dq_cols() { return D <= 32 ? 64 : D <= 128 ? 32 : 16; }
+
+// Floats of the pairs' partial S and dP (S^T and dP^T) over COLS columns:
+// 4 pairs x 2 warps x 2 accumulators of COLS / 8 n-tiles x 4 x 32 lanes.
+template <int D, int COLS>
+constexpr size_t f32_xch_floats() {
+  return f32_split<D>() > 1 ? (size_t)4 * 2 * 2 * (COLS / 8) * 4 * 32 : 0;
+}
+
+// Both kernels hold two 64-row tiles and a ring of two stages of two
+// COLS-row tiles; dkdv also stages the L and D rows of its query tiles.
+template <int D>
+constexpr size_t f32_dkdv_smem_bytes() {
+  constexpr int C = f32_dkdv_cols<D>();
+  return ((size_t)(2 * kTcRows + 4 * C) * f32_stride<D>() + 4 * C + f32_xch_floats<D, C>()) *
+         sizeof(float);
+}
+
+template <int D>
+constexpr size_t f32_dq_smem_bytes() {
+  constexpr int C = f32_dq_cols<D>();
+  return ((size_t)(2 * kTcRows + 4 * C) * f32_stride<D>() + f32_xch_floats<D, C>()) *
+         sizeof(float);
+}
+
+// out (the lane's rows g, g + 8 of row0's 16, columns 2t, 2t + 1 of each of
+// N n-tiles from dst) = acc, or += acc when !first, for rows < nrows.
+template <int N>
+__device__ __forceinline__ void add_rows_f32(float* dst, const float (&acc)[N][4], int row0,
+                                             int nrows, size_t stride, bool first, int lane) {
+  const int g = lane >> 2;
+  const int t = lane & 3;
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int r = row0 + g + 8 * rr;
+    if (r >= nrows) continue;
+    float* out = dst + (size_t)r * stride + 2 * t;
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      float2 x = make_float2(acc[j][2 * rr], acc[j][2 * rr + 1]);
+      if (!first) {
+        const float2 y = *reinterpret_cast<const float2*>(out + 8 * j);
+        x = make_float2(y.x + x.x, y.y + x.y);
+      }
+      *reinterpret_cast<float2*>(out + 8 * j) = x;
+    }
+  }
+}
+
+// dK and dV of 64 keys of one KV head in fp32 at fp32 accuracy: the bf16
+// design's walk (K and V resident, the G heads' query tiles through the
+// ring) with every product as 3xTF32.
+template <int D>
+__global__ void __launch_bounds__(kTcThreads * f32_split<D>(), 1)
+flash_attention_bwd_dkdv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                    const float* __restrict__ v, const float* __restrict__ dout,
+                                    const float* __restrict__ lse,
+                                    const float* __restrict__ drow, float* __restrict__ dk,
+                                    float* __restrict__ dv, int Sq, int Skv, int Hq, int Hkv,
+                                    int window, float scale, float scale_log2) {
+  constexpr int SPLIT = f32_split<D>();
+  constexpr int THREADS = kTcThreads * SPLIT;
+  constexpr int ST = f32_stride<D>();
+  constexpr int BQ = f32_dkdv_cols<D>();
+  constexpr int DW = D / SPLIT;  // the warp's share of D
+  constexpr int KW = DW / 8;     // k-steps of the warp's (partial) S^T and dP^T
+  constexpr int NW = DW / 8;     // n-tiles of the warp's dK and dV columns
+  constexpr int NQ = BQ / 8;     // n-tiles of S^T and dP^T
+  extern __shared__ __align__(16) float smem_f[];
+  float* ks = smem_f;                 // 64 x ST
+  float* vs = ks + kTcRows * ST;      // 64 x ST
+  float* qs = vs + kTcRows * ST;      // stages x BQ x ST
+  float* dos = qs + 2 * BQ * ST;      // stages x BQ x ST
+  float* ls = dos + 2 * BQ * ST;      // stages x BQ
+  float* dls = ls + 2 * BQ;           // stages x BQ
+  float* xs = dls + 2 * BQ;           // 4 pairs x 2 x 2 x NQ x 4 x 32
+
+  const int hk = blockIdx.x;
+  const int b = blockIdx.y;
+  const int k0 = blockIdx.z * kTcRows;  // the first key tiles, the longest walks, go first
+  const int G = Hq / Hkv;
+  const int offset = Skv - Sq;  // query i sits at position offset + i
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int rw = warp & 3;     // the warp's keys: 16 rw .. 16 rw + 15 of the block's
+  const int half = warp >> 2;  // its share of D: columns d0 .. d0 + DW - 1
+  const int d0 = half * DW;
+  const int g = lane >> 2;  // the accumulator rows (keys) g and g + 8 of the warp
+  const int t = lane & 3;   // the accumulator columns 2t and 2t + 1 of each n-tile
+  const int kw = k0 + rw * 16;  // the warp's first key
+  const size_t kv_stride = (size_t)Hkv * D;
+  const size_t q_stride = (size_t)Hq * D;
+
+  // The query tiles holding a row that sees a key of this tile: position >=
+  // k0 and, with a window, position <= the tile's last key + window - 1;
+  // walked for each of the G heads in turn.
+  const int k_last = min(k0 + kTcRows, Skv) - 1;
+  const int i_lo = max(0, k0 - offset);
+  const int i_hi = window > 0 ? min(Sq - 1, k_last + window - 1 - offset) : Sq - 1;
+  const int qt_lo = i_lo / BQ;
+  const int n_qt = i_hi >= i_lo ? i_hi / BQ - qt_lo + 1 : 0;
+  const int n_it = G * n_qt;
+
+  // Stage `stage` <- the Q and dO tiles, L and D rows of step `it` of the walk.
+  auto issue = [&](int it, int stage) {
+    const int h = hk * G + it / n_qt;
+    const int q0 = (qt_lo + it % n_qt) * BQ;
+    const size_t head = ((size_t)b * Sq * Hq + h) * D;
+    cp_async_rows_f32<D, BQ, THREADS>(qs + stage * BQ * ST, q + head, q0, Sq, q_stride, tid);
+    cp_async_rows_f32<D, BQ, THREADS>(dos + stage * BQ * ST, dout + head, q0, Sq, q_stride, tid);
+    if (tid < BQ) {
+      const bool in = q0 + tid < Sq;
+      const size_t at = ((size_t)b * Hq + h) * Sq + (in ? q0 + tid : 0);
+      cp_async4(ls + stage * BQ + tid, lse + at, in);
+      cp_async4(dls + stage * BQ + tid, drow + at, in);
+    }
+  };
+
+  cp_async_rows_f32<D, kTcRows, THREADS>(ks, k + ((size_t)b * Skv * Hkv + hk) * D, k0, Skv,
+                                         kv_stride, tid);
+  cp_async_rows_f32<D, kTcRows, THREADS>(vs, v + ((size_t)b * Skv * Hkv + hk) * D, k0, Skv,
+                                         kv_stride, tid);
+  if (n_it > 0) issue(0, 0);
+  cp_async_commit();
+
+  const float* krow = ks + rw * 16 * ST + d0;
+  const float* vrow = vs + rw * 16 * ST + d0;
+  float* xpair = xs + rw * (2 * 2 * NQ * 4 * 32);
+  const size_t base = ((size_t)b * Skv * Hkv + hk) * D + d0;
+  // dK and dV summed over each query head's walk, then added to the output
+  // head by head in order: one running sum of G heads' terms left fp32
+  // rounding past 2e-5 at recurrentgemma-9b's 16 over 1 (the header).
+  float dka[NW][4], dva[NW][4];
+  zero_acc(dka);
+  zero_acc(dva);
+
+  for (int it = 0; it < n_it; ++it) {
+    const int stage = it & 1;
+    if (it + 1 < n_it) {  // the next tile loads while this one is used
+      issue(it + 1, stage ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int q0 = (qt_lo + it % n_qt) * BQ;
+    const float* qst = qs + stage * BQ * ST;
+    const float* dost = dos + stage * BQ * ST;
+    const float* lst = ls + stage * BQ;
+    const float* dlst = dls + stage * BQ;
+
+    // S^T = K . Q^T and dP^T = V . dO^T for the warp's 16 keys and the
+    // tile's BQ queries (with a split, over the warp's half of D, then
+    // summed with its partner's).
+    float st[NQ][4], dpt[NQ][4];
+    zero_acc(st);
+    zero_acc(dpt);
+#pragma unroll
+    for (int kk = 0; kk < KW; ++kk) {
+      const FragA ak = a_tf32<ST>(krow + kk * 8, g, t);
+      const FragA av = a_tf32<ST>(vrow + kk * 8, g, t);
+#pragma unroll
+      for (int n = 0; n < NQ; ++n) {
+        mma_3xtf32(st[n], ak, b_rows_tf32<ST>(qst + n * 8 * ST + d0 + kk * 8, g, t));
+        mma_3xtf32(dpt[n], av, b_rows_tf32<ST>(dost + n * 8 * ST + d0 + kk * 8, g, t));
+      }
+    }
+    if constexpr (SPLIT > 1) {
+      pair_sum<NQ>(st, xpair, half, rw, lane);
+      pair_sum<NQ>(dpt, xpair + 2 * NQ * 4 * 32, half, rw, lane);
+    }
+
+    // P^T, in the log2 domain; the masks only where the warp's keys and the
+    // tile's queries are not all visible to each other.
+    const int qpos0 = offset + q0;
+    const bool full = q0 + BQ <= Sq && kw + 16 <= Skv && kw + 15 <= qpos0 &&
+                      (window <= 0 || kw > qpos0 + BQ - 1 - window);
+#pragma unroll
+    for (int j = 0; j < NQ; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = 8 * j + 2 * t + e;
+        const float l2 = lst[c] * kLog2e;
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          float p = exp2f(fmaf(st[j][2 * rr + e], scale_log2, -l2));
+          if (!full && !(q0 + c < Sq && visible(qpos0 + c, kw + g + 8 * rr, Skv, window)))
+            p = 0.0f;
+          st[j][2 * rr + e] = p;
+        }
+      }
+    }
+
+    // dS^T = P^T o (dP^T - D) scale in dP^T's place; then each 8-query
+    // n-tile of P^T and of dS^T is an A fragment as it stands (acc_a_tf32's
+    // k order), dO's and Q's rows read in that order: dV += P^T . dO, dK +=
+    // dS^T . Q.
+    FragA xa[NQ];
+#pragma unroll
+    for (int j = 0; j < NQ; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float dr = dlst[8 * j + 2 * t + e];
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr)
+          dpt[j][2 * rr + e] = st[j][2 * rr + e] * (dpt[j][2 * rr + e] - dr) * scale;
+      }
+      xa[j] = acc_a_tf32(st[j]);
+    }
+    mma_pairs_add<ST>(dva, xa, dost + d0, g, t);
+#pragma unroll
+    for (int j = 0; j < NQ; ++j) xa[j] = acc_a_tf32(dpt[j]);
+    mma_pairs_add<ST>(dka, xa, qst + d0, g, t);
+
+    if (it % n_qt == n_qt - 1) {  // a head's walk is done: add its sums in head order
+      add_rows_f32<NW>(dk + base, dka, kw, Skv, kv_stride, it < n_qt, lane);
+      add_rows_f32<NW>(dv + base, dva, kw, Skv, kv_stride, it < n_qt, lane);
+      zero_acc(dka);
+      zero_acc(dva);
+    }
+    __syncthreads();  // this stage (and the partial sums) is consumed before it is overwritten
+  }
+
+  cp_async_wait<0>();  // (K and V were loaded even where no query sees the tile)
+  if (n_it == 0) {     // no query sees these keys: their gradients are 0
+    add_rows_f32<NW>(dk + base, dka, kw, Skv, kv_stride, true, lane);
+    add_rows_f32<NW>(dv + base, dva, kw, Skv, kv_stride, true, lane);
+  }
+}
+
+// dQ of 64 queries of one query head in fp32 at fp32 accuracy: the bf16
+// design's walk over the key tiles (Q and dO resident, K and V through the
+// ring) with every product as 3xTF32.
+template <int D>
+__global__ void __launch_bounds__(kTcThreads * f32_split<D>(), 1)
+flash_attention_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                  const float* __restrict__ v, const float* __restrict__ dout,
+                                  const float* __restrict__ lse, const float* __restrict__ drow,
+                                  float* __restrict__ dq, int Sq, int Skv, int Hq, int Hkv,
+                                  int window, float scale, float scale_log2) {
+  constexpr int SPLIT = f32_split<D>();
+  constexpr int THREADS = kTcThreads * SPLIT;
+  constexpr int ST = f32_stride<D>();
+  constexpr int BK = f32_dq_cols<D>();
+  constexpr int DW = D / SPLIT;  // the warp's share of D
+  constexpr int KW = DW / 8;     // k-steps of the warp's (partial) S and dP
+  constexpr int NW = DW / 8;     // n-tiles of the warp's dQ columns
+  constexpr int NK = BK / 8;     // n-tiles of S and dP
+  extern __shared__ __align__(16) float smem_f[];
+  float* qs = smem_f;              // 64 x ST
+  float* dos = qs + kTcRows * ST;  // 64 x ST
+  float* ks = dos + kTcRows * ST;  // stages x BK x ST
+  float* vs = ks + 2 * BK * ST;    // stages x BK x ST
+  float* xs = vs + 2 * BK * ST;    // 4 pairs x 2 x 2 x NK x 4 x 32
+
+  const int h = blockIdx.x;
+  const int qt = gridDim.y - 1 - blockIdx.y;  // heaviest (last) tiles first
+  const int b = blockIdx.z;
+  const int hk = h / (Hq / Hkv);
+  const int q0 = qt * kTcRows;
+  const int offset = Skv - Sq;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int rw = warp & 3;     // the warp's queries: 16 rw .. 16 rw + 15 of the block's
+  const int half = warp >> 2;  // its share of D: columns d0 .. d0 + DW - 1
+  const int d0 = half * DW;
+  const int g = lane >> 2;  // the accumulator rows (queries) g and g + 8 of the warp
+  const int t = lane & 3;   // the accumulator columns 2t and 2t + 1 of each n-tile
+  const size_t q_stride = (size_t)Hq * D;
+  const size_t kv_stride = (size_t)Hkv * D;
+  const size_t head = ((size_t)b * Sq * Hq + h) * D;
+  const float* kb = k + ((size_t)b * Skv * Hkv + hk) * D;
+  const float* vb = v + ((size_t)b * Skv * Hkv + hk) * D;
+
+  // Key tiles this query tile can see (at least one: k_start <= q_first < k_stop).
+  const int q_first = offset + q0;
+  const int q_last = offset + min(q0 + kTcRows, Sq) - 1;
+  const int k_stop = min(Skv, q_last + 1);
+  int k_start = 0;
+  if (window > 0) {
+    const int lo = q_first - window + 1;
+    k_start = lo > 0 ? (lo / BK) * BK : 0;
+  }
+  const int n_tiles = (k_stop - k_start + BK - 1) / BK;
+
+  cp_async_rows_f32<D, kTcRows, THREADS>(qs, q + head, q0, Sq, q_stride, tid);
+  cp_async_rows_f32<D, kTcRows, THREADS>(dos, dout + head, q0, Sq, q_stride, tid);
+  cp_async_rows_f32<D, BK, THREADS>(ks, kb, k_start, Skv, kv_stride, tid);
+  cp_async_rows_f32<D, BK, THREADS>(vs, vb, k_start, Skv, kv_stride, tid);
+  cp_async_commit();
+
+  // L (log2 domain) and D of the lane's rows g and g + 8.
+  float l2[2], dr[2];
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int s = q0 + rw * 16 + g + 8 * rr;
+    const size_t at = ((size_t)b * Hq + h) * Sq + s;
+    l2[rr] = s < Sq ? lse[at] * kLog2e : 0.0f;
+    dr[rr] = s < Sq ? drow[at] : 0.0f;
+  }
+  const int qw = q_first + rw * 16;  // the warp's first query position
+  const float* qrow = qs + rw * 16 * ST + d0;
+  const float* dorow = dos + rw * 16 * ST + d0;
+  float* xpair = xs + rw * (2 * 2 * NK * 4 * 32);
+  float dqa[NW][4];
+  zero_acc(dqa);
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = k_start + it * BK;
+    const int stage = it & 1;
+    if (it + 1 < n_tiles) {
+      const int nxt = stage ^ 1;
+      cp_async_rows_f32<D, BK, THREADS>(ks + nxt * BK * ST, kb, k0 + BK, Skv, kv_stride, tid);
+      cp_async_rows_f32<D, BK, THREADS>(vs + nxt * BK * ST, vb, k0 + BK, Skv, kv_stride, tid);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* kst = ks + stage * BK * ST;
+    const float* vst = vs + stage * BK * ST;
+
+    // S = Q . K^T and dP = dO . V^T for the warp's 16 rows and BK keys
+    // (with a split, over the warp's half of D, then summed with its
+    // partner's).
+    float sacc[NK][4], dpa[NK][4];
+    zero_acc(sacc);
+    zero_acc(dpa);
+#pragma unroll
+    for (int kk = 0; kk < KW; ++kk) {
+      const FragA aq = a_tf32<ST>(qrow + kk * 8, g, t);
+      const FragA ado = a_tf32<ST>(dorow + kk * 8, g, t);
+#pragma unroll
+      for (int n = 0; n < NK; ++n) {
+        mma_3xtf32(sacc[n], aq, b_rows_tf32<ST>(kst + n * 8 * ST + d0 + kk * 8, g, t));
+        mma_3xtf32(dpa[n], ado, b_rows_tf32<ST>(vst + n * 8 * ST + d0 + kk * 8, g, t));
+      }
+    }
+    if constexpr (SPLIT > 1) {
+      pair_sum<NK>(sacc, xpair, half, rw, lane);
+      pair_sum<NK>(dpa, xpair + 2 * NK * 4 * 32, half, rw, lane);
+    }
+
+    // dS = P o (dP - D) scale in S's place; masks only on a straddling tile.
+    const bool full = k0 + BK - 1 <= qw && k0 + BK <= Skv &&
+                      (window <= 0 || k0 > qw + 15 - window);
+#pragma unroll
+    for (int j = 0; j < NK; ++j) {
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float p = exp2f(fmaf(sacc[j][2 * rr + e], scale_log2, -l2[rr]));
+          if (!full && !visible(qw + g + 8 * rr, k0 + 8 * j + 2 * t + e, Skv, window)) p = 0.0f;
+          sacc[j][2 * rr + e] = p * (dpa[j][2 * rr + e] - dr[rr]) * scale;
+        }
+      }
+    }
+
+    // dQ += dS . K over the warp's columns, K's rows read in acc_a_tf32's order.
+    FragA sa[NK];
+#pragma unroll
+    for (int kk = 0; kk < NK; ++kk) sa[kk] = acc_a_tf32(sacc[kk]);
+    mma_pairs_add<ST>(dqa, sa, kst + d0, g, t);
+    __syncthreads();  // this stage (and the partial sums) is consumed before it is overwritten
+  }
+
+  add_rows_f32<NW>(dq + head + d0, dqa, q0 + rw * 16, Sq, q_stride, true, lane);
+}
+
 // ------------------------------------------------------------------ launches
 
 template <class T>
@@ -1310,30 +1414,32 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, const void* 
                        int B, int Sq, int Skv, int Hq, int Hkv, int window, float scale,
                        cudaStream_t s) {
   using T = float;
-  const size_t smem = smem_bytes<D>();
-  auto kv_kernel = flash_attention_bwd_dkdv_kernel<D, T>;
-  auto q_kernel = flash_attention_bwd_dq_kernel<D, T>;
+  auto kv_kernel = flash_attention_bwd_dkdv_f32_kernel<D>;
+  auto q_kernel = flash_attention_bwd_dq_f32_kernel<D>;
+  const size_t kv_smem = f32_dkdv_smem_bytes<D>();
+  const size_t q_smem = f32_dq_smem_bytes<D>();
   cudaError_t err =
-      cudaFuncSetAttribute(kv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      cudaFuncSetAttribute(kv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kv_smem);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(q_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  err = cudaFuncSetAttribute(q_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)q_smem);
   if (err != cudaSuccess) return err;
   auto qp = static_cast<const T*>(q);
   auto kp = static_cast<const T*>(k);
   auto vp = static_cast<const T*>(v);
   auto dop = static_cast<const T*>(dout);
   auto lp = static_cast<const float*>(lse);
-  auto drp = static_cast<float*>(drow);
+  auto drp = static_cast<const float*>(drow);
   err = launch_dot<T>(o, dout, drow, B, Sq, Hq, D, s);
   if (err != cudaSuccess) return err;
-  constexpr int R = f32_rows<D>();
-  kv_kernel<<<dim3((Skv + R - 1) / R, Hkv, B), kThreads, smem, s>>>(
+  const float scale_log2 = scale * kLog2e;
+  constexpr int threads = kTcThreads * f32_split<D>();
+  kv_kernel<<<dim3(Hkv, B, (Skv + kTcRows - 1) / kTcRows), threads, kv_smem, s>>>(
       qp, kp, vp, dop, lp, drp, static_cast<T*>(dk), static_cast<T*>(dv), Sq, Skv, Hq, Hkv,
-      window, scale);
+      window, scale, scale_log2);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  q_kernel<<<dim3((Sq + R - 1) / R, Hq, B), kThreads, smem, s>>>(
-      qp, kp, vp, dop, lp, drp, static_cast<T*>(dq), Sq, Skv, Hq, Hkv, window, scale);
+  q_kernel<<<dim3(Hq, (Sq + kTcRows - 1) / kTcRows, B), threads, q_smem, s>>>(
+      qp, kp, vp, dop, lp, drp, static_cast<T*>(dq), Sq, Skv, Hq, Hkv, window, scale, scale_log2);
   return cudaGetLastError();
 }
 
@@ -1433,8 +1539,8 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, const void
 
 extern "C" {
 
-// dtype: 0 = fp32 (CUDA cores), 1 = bf16 (tensor cores; q, k, v and dout
-// 16-byte aligned); anything else is refused.  lse from
+// dtype: 0 = fp32 (3xTF32 on the tensor cores), 1 = bf16 (tensor cores);
+// anything else is refused.  q, k, v and dout must be 16-byte aligned.  lse from
 // flash_attention_fwd; drow is float32 (B, Hq, Sq) scratch for D.  groups:
 // the head groups a KV head's G query heads are spread over, 1 <= groups
 // <= G, and more than 1 only for bf16 at D = 256, where `part` is float32
@@ -1450,13 +1556,13 @@ int flash_attention_bwd(const void* q, const void* k, const void* v, const void*
   const bool wgmma = dtype == 1 && D == kWgD;
   if (groups > 1 && (!wgmma || part == nullptr)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const uintptr_t bases = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                          reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(dout);
+  if ((dtype == 0 || dtype == 1) && (bases & 15)) return cudaErrorMisalignedAddress;
   if (dtype == 0) {
     REPRO_FLASH_BWD_DISPATCH(launch_f32)
   }
   if (dtype == 1) {
-    const uintptr_t bases = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
-                            reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(dout);
-    if (bases & 15) return cudaErrorMisalignedAddress;
     switch (D) {
       case 16: return launch_bf16<16>(q, k, v, o, dout, lse, drow, dq, dk, dv, B, Sq, Skv, Hq,
                                       Hkv, window, scale, s);

@@ -6,9 +6,13 @@ Tensors on the CPU take the plain version (``ref.py``, in the kernel's
 GQA layout); CUDA tensors launch ``csrc/flash_attention.cu`` on the
 current stream, which reads the model layout directly, or raise.  There
 is no other route.  The kernel's instance follows the dtype: bfloat16
-runs on the tensor cores (``mma.sync``), float32 on the CUDA cores in
-IEEE fp32; any other dtype raises.  With ``return_lse`` the forward also
-writes the per-row logsumexp (B, Hq, Sq) float32 that its backward reads.
+runs on the tensor cores (``mma.sync``), float32 on them too at fp32's
+accuracy, each product as three TF32 products of an error-compensated
+split (3xTF32; ``ref.py``'s ``rounding="tf32x3"`` emulates it), bound by
+``mma.sync``'s TF32 rate (0.77 ms at tinyllama's prefill shape on an
+H100, 3.7 times its bound; PERF.md §6); any other dtype raises.  With
+``return_lse`` the forward also writes the per-row logsumexp (B, Hq, Sq)
+float32 that its backward reads.
 The forward takes ``causal=False`` as ``flash_attention_pallas`` does
 (every key visible, the window alone masking); the backward is
 causal-only, as the reference's model, the one route to its VJP, refuses
@@ -18,8 +22,9 @@ non-causal attention (``src/repro/models/attention.py:149-150``).
 v, the forward's output and logsumexp and the output's gradient, through
 ``csrc/flash_attention_bwd.cu`` on the card (counted on its own
 ``LaunchCounter``) or ``ref.flash_attention_bwd_ref`` on the CPU; as the
-forward, bfloat16 runs its products on the tensor cores, float32 on the
-CUDA cores.  At D = 256 the bf16 instance runs its products as warpgroup
+forward, both instances run their products on the tensor cores, bfloat16
+on bf16 operands, float32 as 3xTF32 (2.76 ms at tinyllama's training
+shape, 5.3 times its bound).  At D = 256 the bf16 instance runs its products as warpgroup
 products (``wgmma``), and ``bwd_plan`` spreads a KV head's G query heads
 over head groups when one block per (key tile, KV head, batch row) would
 not fill the card.  The
@@ -65,8 +70,8 @@ bwd_counter = LaunchCounter("flash_attention_bwd")
 # The kernels' instances, K3's, K3b's and K4's (K3b's bf16 one at 256 on
 # warpgroup products).
 HEAD_DIMS = (16, 32, 64, 128, 256)
-# dtype -> the C entry point's instance: 0 the fp32 CUDA-core kernel, 1 the
-# bf16 tensor-core kernel.
+# dtype -> the C entry point's instance: 0 the fp32 kernel (3xTF32 on the
+# tensor cores), 1 the bf16 one.  Both take 16-byte-aligned inputs.
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _P = ctypes.c_void_p
@@ -116,7 +121,9 @@ def _skip_masked() -> bool:
 
 
 def _key_tile(dtype, d: int) -> int:
-    """K3's keys per staged tile: 64, 32 in its bf16 instance at D = 256."""
+    """K3's keys per staged tile: 64, 32 in its bf16 instance at D = 256
+    (the fp32 instance stages 32 at D = 128 and 256 too; the count takes 64
+    there, the padding of the square it counts)."""
     return 32 if dtype == torch.bfloat16 and d > 128 else 64
 
 
@@ -281,8 +288,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0, scale=None
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    # The bf16 instance copies rows in 16-byte pieces; a view that starts
-    # off a 16-byte boundary is copied to a fresh (aligned) tensor first.
+    # Both instances copy rows in 16-byte pieces; a view that starts off a
+    # 16-byte boundary is copied to a fresh (aligned) tensor first.
     q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
     out = torch.empty_like(q)
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device) if return_lse else None
@@ -330,8 +337,8 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, window: int = 0, scale=None):
         raise TypeError(f"o and do must be {q.dtype}, got {o.dtype} and {do.dtype}")
     if d not in HEAD_DIMS:
         raise ValueError(f"the flash-attention backward takes D in {HEAD_DIMS}, got {d}")
-    # The bf16 instance copies rows in 16-byte pieces; an input that starts
-    # off a 16-byte boundary is copied to a fresh (aligned) tensor first.
+    # Both instances copy rows in 16-byte pieces; an input that starts off a
+    # 16-byte boundary is copied to a fresh (aligned) tensor first.
     q, k, v, o, do, lse = (t.contiguous() for t in (q, k, v, o, do, lse))
     q, k, v, o, do = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v, o, do))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)

@@ -14,7 +14,13 @@ to 1e-30.  One pass over the whole key axis: the kernel's blocked online
 softmax gives the same values up to float32 summation order.  With
 ``return_lse`` it also returns the per-row logsumexp ``L = m + log l``
 (B, Hkv, G, Sq), float32, which the reference's ``_flash_core_fwd``
-(``src/repro/models/attention.py:248``) saves for its backward.
+(``src/repro/models/attention.py:248``) saves for its backward.  With
+``rounding="tf32x3"`` it does the float32 kernel's arithmetic instead:
+each product's operands split as the kernel splits them (``hi`` the
+nearest TF32 value, ties away from zero, as ``cvt.rna.tf32.f32`` rounds,
+``lo`` that of what ``hi`` left), the product lo.hi + hi.lo, then + hi.hi,
+each term exact in float32 and summed in float32 (3xTF32: float32's
+accuracy, on the tensor cores).
 
 ``flash_attention_bwd_ref`` is that backward, ``_flash_core_bwd``
 (``src/repro/models/attention.py:265``) in its blockwise form: D =
@@ -26,15 +32,44 @@ summed into its dK and dV.  With ``rounding`` it does the bf16 kernel's
 arithmetic instead (ROADMAP, queue 3, P10): ``"bf16"`` rounds p and dS to
 bf16 where they become a product's operand (the D <= 128 design);
 ``"bf16x2"`` rounds dS so and takes p to dV's product as two bf16 terms,
-its rounding and what that rounding left (the D = 256 design).
+its rounding and what that rounding left (the D = 256 design);
+``"tf32x3"`` runs its five products as the float32 kernel runs them, as
+the forward's ``rounding="tf32x3"`` does, on float32 inputs.
 """
 from __future__ import annotations
 
 import torch
 
-__all__ = ["flash_attention_ref", "flash_attention_bwd_ref", "NEG"]
+__all__ = ["flash_attention_ref", "flash_attention_bwd_ref", "NEG", "split_tf32"]
 
 NEG = -0.7 * float(torch.finfo(torch.float32).max)
+
+
+def _tf32(t):
+    """float32 -> the nearest TF32 value, ties away from zero (10 explicit
+    mantissa bits: 2^12 added to the bits, the low 13 cleared)."""
+    bits = t.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def split_tf32(t):
+    """(hi, lo) of a float32 tensor: hi its nearest TF32 value, lo that of
+    t - hi; t = hi + lo to within 2^-21 |t|."""
+    hi = _tf32(t)
+    return hi, _tf32(t - hi)
+
+
+def _product(eq, a, b, rounding=None):
+    """einsum(eq, a, b), or with ``rounding="tf32x3"`` the float32 kernel's
+    three TF32 products of the operands' splits."""
+    if rounding != "tf32x3":
+        return torch.einsum(eq, a, b)
+    if a.dtype != torch.float32 or b.dtype != torch.float32:
+        raise ValueError(f"rounding='tf32x3' splits float32 operands, not {a.dtype}, {b.dtype}")
+    a_hi, a_lo = split_tf32(a)
+    b_hi, b_lo = split_tf32(b)
+    return (torch.einsum(eq, a_lo, b_hi) + torch.einsum(eq, a_hi, b_lo)) + torch.einsum(
+        eq, a_hi, b_hi)
 
 
 def _mask(q_pos, k_pos, window: int, causal: bool = True):
@@ -47,20 +82,23 @@ def _mask(q_pos, k_pos, window: int, causal: bool = True):
 
 
 def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0, scale=None,
-                        return_lse: bool = False):
+                        return_lse: bool = False, rounding=None):
     """q: (B, Hkv, G, Sq, D); k, v: (B, Hkv, Skv, D) -> (B, Hkv, G, Sq, D),
-    and with ``return_lse`` the logsumexp (B, Hkv, G, Sq) float32."""
+    and with ``return_lse`` the logsumexp (B, Hkv, G, Sq) float32.
+    ``rounding``: None or ``"tf32x3"`` (the module's docstring)."""
+    if rounding not in (None, "tf32x3"):
+        raise ValueError(f"rounding {rounding!r}: None or 'tf32x3'")
     sq, d = q.shape[3], q.shape[4]
     skv = k.shape[2]
     scale = d ** -0.5 if scale is None else scale
-    s = torch.einsum("bhgqd,bhkd->bhgqk", q.float(), k.float()) * scale
+    s = _product("bhgqd,bhkd->bhgqk", q.float(), k.float(), rounding) * scale
     q_pos = torch.arange(sq, device=q.device) + (skv - sq)
     mask = _mask(q_pos, torch.arange(skv, device=q.device), window, causal)
     s = torch.where(mask, s, NEG)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.where(mask, torch.exp(s - m), 0.0)
     l = p.sum(dim=-1, keepdim=True)
-    acc = torch.einsum("bhgqk,bhkd->bhgqd", p.to(v.dtype).float(), v.float())
+    acc = _product("bhgqk,bhkd->bhgqd", p.to(v.dtype).float(), v.float(), rounding)
     out = (acc / l.clamp_min(1e-30)).to(q.dtype)
     if not return_lse:
         return out
@@ -76,9 +114,10 @@ def flash_attention_bwd_ref(q, k, v, o, do, lse, *, window: int = 0, scale=None,
     """Gradients (dq, dk, dv) of ``flash_attention_ref`` in its layout: q, o
     and do (B, Hkv, G, Sq, D), k and v (B, Hkv, Skv, D), lse (B, Hkv, G, Sq)
     from the forward.  Each returned in its input's type.  ``rounding``:
-    None, ``"bf16"`` or ``"bf16x2"`` (the module's docstring)."""
-    if rounding not in (None, "bf16", "bf16x2"):
-        raise ValueError(f"rounding {rounding!r}: None, 'bf16' or 'bf16x2'")
+    None, ``"bf16"``, ``"bf16x2"`` or ``"tf32x3"`` (the module's
+    docstring)."""
+    if rounding not in (None, "bf16", "bf16x2", "tf32x3"):
+        raise ValueError(f"rounding {rounding!r}: None, 'bf16', 'bf16x2' or 'tf32x3'")
     sq, d = q.shape[3], q.shape[4]
     skv = k.shape[2]
     scale = d ** -0.5 if scale is None else scale
@@ -101,7 +140,7 @@ def flash_attention_bwd_ref(q, k, v, o, do, lse, *, window: int = 0, scale=None,
             if not bool(mask.any()):
                 continue  # a block wholly masked: above the diagonal or left of the window
             kc, vc = kf[..., k0:k1, :], vf[..., k0:k1, :]
-            s = torch.einsum("bhgqd,bhkd->bhgqk", qc, kc) * scale
+            s = _product("bhgqd,bhkd->bhgqk", qc, kc, rounding) * scale
             p = torch.where(mask, torch.exp(s - lc), 0.0)
             if rounding == "bf16":
                 pv = _bf16(p)
@@ -109,11 +148,11 @@ def flash_attention_bwd_ref(q, k, v, o, do, lse, *, window: int = 0, scale=None,
                 pv = _bf16(p) + _bf16(p - _bf16(p))
             else:
                 pv = p
-            dv[..., k0:k1, :] += torch.einsum("bhgqk,bhgqd->bhkd", pv, doc)
-            dp = torch.einsum("bhgqd,bhkd->bhgqk", doc, vc)
+            dv[..., k0:k1, :] += _product("bhgqk,bhgqd->bhkd", pv, doc, rounding)
+            dp = _product("bhgqd,bhkd->bhgqk", doc, vc, rounding)
             ds = p * (dp - dc) * scale
-            if rounding:
+            if rounding in ("bf16", "bf16x2"):
                 ds = _bf16(ds)
-            dq[..., q0:q1, :] += torch.einsum("bhgqk,bhkd->bhgqd", ds, kc)
-            dk[..., k0:k1, :] += torch.einsum("bhgqk,bhgqd->bhkd", ds, qc)
+            dq[..., q0:q1, :] += _product("bhgqk,bhkd->bhgqd", ds, kc, rounding)
+            dk[..., k0:k1, :] += _product("bhgqk,bhgqd->bhkd", ds, qc, rounding)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

@@ -11,18 +11,31 @@ emulates the kernel's rounding in plain numpy or PyTorch and holds the
 emulation against the reference: (a) ``jax.vjp`` of the JAX package's
 ``flash_attention`` on bf16 inputs, at the card tests' bf16 tolerance
 (2e-2); (b) the float64 product, within K5b's tolerance (atol 2e-4,
-rtol 1e-3), where one TF32 pass is not.
+rtol 1e-3), where one TF32 pass is not.  (c) K3's and K3b's float32
+instances run every product as K5b does (3xTF32); their plain versions
+emulate it (``rounding="tf32x3"``), held against
+``flash_attention_pallas`` in interpret mode and against ``jax.vjp`` of
+the reference's ``flash_attention`` on float32 inputs at the card tests'
+float32 tolerance (2e-5).
 """
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.kernels.flash_attention.kernel import flash_attention_pallas
 from repro.models import attention as j_attn
-from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref, flash_attention_ref
+from repro_torch.kernels.flash_attention.ref import (
+    flash_attention_bwd_ref,
+    flash_attention_ref,
+    split_tf32,
+)
 
 ATTN_BF16_TOL = 2e-2  # tests/test_torch_cuda.py's ATTN_TOL for bfloat16
+ATTN_F32_TOL = 2e-5  # and for float32
 SSD_ATOL, SSD_RTOL = 2e-4, 1e-3  # K5b's, tests/test_torch_cuda.py
 
 
@@ -246,3 +259,144 @@ def test_tf32_rounding_is_round_to_nearest_ties_away():
     y = np.random.default_rng(0).normal(size=4096).astype(np.float32)
     hi, lo = _split(y)
     assert np.all(np.abs((hi.astype(np.float64) + lo) - y) <= 2.0 ** -21 * np.abs(y))
+
+
+# ---------------------------------------------------------------- (c) K3's and K3b's 3xTF32
+
+
+def test_plain_tf32_split_is_cvt_rna():
+    """``ref.split_tf32``, which the plain versions' ``rounding="tf32x3"``
+    splits every operand with, is K5b's emulated split bit for bit
+    (``_tf32``: ``cvt.rna.tf32.f32``), ties and signs included."""
+    one_ulp = 2.0 ** -10
+    x = np.concatenate([
+        np.array([0.0, -0.0, 1.0, 1.0 + one_ulp / 2, -(1.0 + one_ulp / 2), 1.0 + one_ulp / 4,
+                  3e-39, -7e30], np.float32),
+        np.random.default_rng(1).normal(size=4096).astype(np.float32) * 10.0])
+    hi, lo = split_tf32(torch.as_tensor(x))
+    want_hi, want_lo = _split(x)
+    np.testing.assert_array_equal(hi.numpy().view(np.uint32), want_hi.view(np.uint32))
+    np.testing.assert_array_equal(lo.numpy().view(np.uint32), want_lo.view(np.uint32))
+
+
+@pytest.mark.parametrize("depth", [16, 64, 256])
+def test_plain_tf32x3_product_is_k5b_product(depth):
+    """The plain versions' product with ``rounding="tf32x3"`` is
+    ``_mm_3xtf32`` (K5b's three passes) up to float32 summation order,
+    and within 100 times fp32's own error of the float64 product, where
+    one TF32 pass is not."""
+    from repro_torch.kernels.flash_attention.ref import _product
+
+    rng = np.random.default_rng(depth)
+    a = rng.normal(size=(64, depth)).astype(np.float32)
+    b = rng.normal(size=(64, depth)).astype(np.float32)
+    got = _product("qd,kd->qk", torch.as_tensor(a), torch.as_tensor(b), "tf32x3").numpy()
+    exact = a.astype(np.float64) @ b.T.astype(np.float64)
+    np.testing.assert_allclose(got, _mm_3xtf32(a, b.T), atol=1e-5, rtol=1e-6)
+    err = np.abs(got - exact).max()
+    assert err <= 100 * np.abs(a @ b.T - exact).max()
+    assert np.abs(_tf32(a) @ _tf32(b.T) - exact).max() > 20 * err
+    with pytest.raises(ValueError):
+        flash_attention_ref(*(torch.zeros((1, 1, 1, 4, 16)) for _ in range(1)),
+                            torch.zeros((1, 1, 4, 16)), torch.zeros((1, 1, 4, 16)),
+                            rounding="bf16")
+
+
+# (b, sq, skv, hq, hkv, d, window): every head dim, G = 1, 2 and 16, windows,
+# Sq < Skv and lengths off a multiple of the kernels' tiles; the G = 16,
+# D = 256 cases are recurrentgemma-9b's local layers (16 over 1, windowed).
+TF32X3_CASES = [
+    (2, 64, 64, 2, 2, 16, 0), (1, 100, 100, 4, 2, 32, 24), (1, 96, 160, 8, 4, 64, 0),
+    (1, 130, 130, 16, 1, 64, 0), (1, 70, 70, 4, 2, 128, 32), (1, 40, 90, 2, 1, 128, 0),
+    (1, 130, 130, 16, 1, 256, 48), (1, 77, 77, 2, 2, 256, 0), (1, 45, 150, 16, 1, 256, 0),
+]
+
+
+def _f32_inputs(b, sq, skv, hq, hkv, d, seed):
+    rng = np.random.default_rng(seed)
+    q, do = (rng.normal(size=(b, sq, hq, d)).astype(np.float32) for _ in range(2))
+    k, v = (rng.normal(size=(b, skv, hkv, d)).astype(np.float32) for _ in range(2))
+    return q, k, v, do
+
+
+def _kernel_layout(q, hkv):
+    b, s, hq, d = q.shape
+    return q.reshape(b, s, hkv, hq // hkv, d).transpose(0, 2, 3, 1, 4)
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "non_causal"])
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,d,window", TF32X3_CASES)
+def test_k3_tf32x3_matches_pallas(b, sq, skv, hq, hkv, d, window, causal):
+    """K3's float32 arithmetic (``flash_attention_ref(rounding="tf32x3")``:
+    Q.K^T and P.V as three TF32 products of the split operands) against
+    ``flash_attention_pallas`` in interpret mode on float32 inputs, within
+    2e-5, causal and not; ``rounding=None`` stays the plain float32
+    version."""
+    q, k, v, _ = _f32_inputs(b, sq, skv, hq, hkv, d, [b, sq, skv, hq, d, window, causal])
+    qk = _kernel_layout(q, hkv)
+    kt, vt = k.transpose(0, 2, 1, 3), v.transpose(0, 2, 1, 3)
+    want = np.asarray(flash_attention_pallas(jnp.asarray(qk), jnp.asarray(kt), jnp.asarray(vt),
+                                             causal=causal, window=window, interpret=True))
+    args = (torch.as_tensor(qk), torch.as_tensor(kt), torch.as_tensor(vt))
+    got = flash_attention_ref(*args, causal=causal, window=window, rounding="tf32x3")
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, atol=ATTN_F32_TOL, rtol=ATTN_F32_TOL)
+    plain = flash_attention_ref(*args, causal=causal, window=window)
+    assert torch.equal(plain, flash_attention_ref(*args, causal=causal, window=window,
+                                                  rounding=None))
+    np.testing.assert_allclose(plain.numpy(), want, atol=ATTN_F32_TOL, rtol=ATTN_F32_TOL)
+
+
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,d,window", TF32X3_CASES)
+def test_k3b_tf32x3_matches_reference_vjp(b, sq, skv, hq, hkv, d, window):
+    """K3b's float32 arithmetic (``flash_attention_bwd_ref(rounding=
+    "tf32x3")``: S, dP, dV, dK and dQ as three TF32 products of the split
+    operands, on the emulated forward's output and logsumexp) against
+    ``jax.vjp`` of the reference's ``flash_attention`` on float32 inputs,
+    within 2e-5."""
+    q, k, v, do = _f32_inputs(b, sq, skv, hq, hkv, d, [b, sq, skv, hq, d, window, 2])
+    # With Sq < Skv the reference puts query i at Skv - Sq + i only when
+    # neither axis is padded to its chunk: chunks that divide both.
+    chunk = max(sq // 4, 16) if sq == skv else math.gcd(sq, skv)
+
+    def ref(q, k, v):
+        return j_attn.flash_attention(q, k, v, causal=True, window=window, q_chunk=chunk,
+                                      kv_chunk=chunk)
+
+    _, vjp = jax.vjp(ref, *(jnp.asarray(x) for x in (q, k, v)))
+    want = vjp(jnp.asarray(do))
+    qg, dog = (torch.as_tensor(_kernel_layout(x, hkv)) for x in (q, do))
+    kt, vt = (torch.as_tensor(x.transpose(0, 2, 1, 3)) for x in (k, v))
+    o, lse = flash_attention_ref(qg, kt, vt, window=window, return_lse=True, rounding="tf32x3")
+    dq, dk, dv = flash_attention_bwd_ref(qg, kt, vt, o, dog, lse, window=window,
+                                         rounding="tf32x3")
+    got = (dq.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, d), dk.transpose(1, 2),
+           dv.transpose(1, 2))
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert w.dtype == jnp.float32 and g.dtype == torch.float32, name
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=ATTN_F32_TOL,
+                                   rtol=ATTN_F32_TOL, err_msg=name)
+    with pytest.raises(ValueError):
+        flash_attention_bwd_ref(*(t.double() for t in (qg, kt, vt, o, dog, lse)),
+                                window=window, rounding="tf32x3")
+
+
+def test_reference_offset_holds_only_without_uneven_padding():
+    """Pins ROADMAP §3, C6: with Sq < Skv the reference's ``flash_attention``
+    places query i at Skv - Sq + i only when its chunks pad neither axis
+    (or both alike); chunks of 24 pad 160 keys by 8 and 96 queries by
+    none, and its output leaves the plain version (which the Pallas
+    kernel matches) by far more than float32 rounding."""
+    b, sq, skv, hq, hkv, d = 1, 96, 160, 8, 4, 64
+    q, k, v, _ = _f32_inputs(b, sq, skv, hq, hkv, d, 6)
+    plain = flash_attention_ref(torch.as_tensor(_kernel_layout(q, hkv)),
+                                torch.as_tensor(k.transpose(0, 2, 1, 3)),
+                                torch.as_tensor(v.transpose(0, 2, 1, 3)))
+    plain = plain.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, d).numpy()
+    for chunk, right in ((32, True), (24, False)):
+        got = np.asarray(j_attn.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                                q_chunk=chunk, kv_chunk=chunk))
+        err = np.abs(got - plain).max()
+        assert (err < ATTN_F32_TOL) == right, (chunk, err)
+        if not right:
+            assert err > 0.1, err

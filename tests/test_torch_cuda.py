@@ -224,8 +224,9 @@ FLASH_CASES = [
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("b,sq,skv,hq,hkv,d,window", FLASH_CASES)
 def test_flash_attention_kernel_matches_plain(cuda, b, sq, skv, hq, hkv, d, window, dtype):
-    """bf16 runs on the tensor cores, f32 on the CUDA cores; each against
-    the plain version at 2e-2 (bf16) or 2e-5 (f32)."""
+    """bf16 runs on the tensor cores, f32 on them too as three TF32
+    products a product (3xTF32); each against the plain version at 2e-2
+    (bf16) or 2e-5 (f32)."""
     gen = torch.Generator(device=cuda).manual_seed(sq * 1000 + skv)
     q = torch.randn((b, sq, hq, d), generator=gen, device=cuda).to(dtype)
     k, v = (torch.randn((b, skv, hkv, d), generator=gen, device=cuda).to(dtype)
@@ -2068,7 +2069,7 @@ def test_flash_attention_bwd_kernel_matches_plain(cuda, b, sq, skv, hq, hkv, d, 
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("d,window", [(64, 0), (128, 100)])
+@pytest.mark.parametrize("d,window", [(64, 0), (128, 100), (256, 0)])
 def test_flash_attention_bwd_is_bit_identical_from_call_to_call(cuda, d, window, dtype):
     """K3b takes no atomics: two calls on the same inputs give the same
     gradients, bit for bit."""
@@ -2081,6 +2082,38 @@ def test_flash_attention_bwd_is_bit_identical_from_call_to_call(cuda, d, window,
     second = flash_ops.flash_attention_bwd(q, k, v, out, do, lse, window=window)
     for name, x, y in zip(("dq", "dk", "dv"), first, second):
         assert torch.equal(x, y), name
+
+
+@pytest.mark.parametrize("b,s,hq,hkv,d,window", [
+    (2, 300, 8, 2, 64, 0), (1, 200, 16, 4, 64, 48),  # D = 64, G = 4, a window
+    (1, 300, 16, 1, 256, 100), (2, 130, 4, 4, 256, 0),  # D = 256: G = 16 windowed, G = 1
+])
+def test_flash_attention_f32_kernels_match_tf32x3_plain(cuda, b, s, hq, hkv, d, window):
+    """K3's and K3b's float32 instances against the plain versions doing
+    their arithmetic (``rounding="tf32x3"``: every product as three TF32
+    products of the split operands, ref.py), within 2e-5: the output and
+    logsumexp, then dq, dk and dv on the kernel's forward output and
+    logsumexp."""
+    from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref
+
+    gen = torch.Generator(device=cuda).manual_seed(s * 3 + d + window)
+    q, do = (torch.randn((b, s, hq, d), generator=gen, device=cuda) for _ in range(2))
+    k, v = (torch.randn((b, s, hkv, d), generator=gen, device=cuda) for _ in range(2))
+    out, lse = flash_ops.flash_attention(q, k, v, window=window, return_lse=True)
+    want, want_lse = flash_attention_ref(_gqa_ref(q, hkv), k.transpose(1, 2), v.transpose(1, 2),
+                                         window=window, return_lse=True, rounding="tf32x3")
+    torch.testing.assert_close(out, want.permute(0, 3, 1, 2, 4).reshape(b, s, hq, d),
+                               atol=2e-5, rtol=2e-5)
+    torch.testing.assert_close(lse, want_lse.reshape(b, hq, s), atol=2e-5, rtol=2e-5)
+    grads = flash_ops.flash_attention_bwd(q, k, v, out, do, lse, window=window)
+    refs = flash_attention_bwd_ref(_gqa_ref(q, hkv), k.transpose(1, 2), v.transpose(1, 2),
+                                   _gqa_ref(out, hkv), _gqa_ref(do, hkv),
+                                   lse.reshape(b, hkv, hq // hkv, s), window=window,
+                                   rounding="tf32x3")
+    refs = (refs[0].permute(0, 3, 1, 2, 4).reshape(b, s, hq, d), refs[1].transpose(1, 2),
+            refs[2].transpose(1, 2))
+    for name, got, ref in zip(("dq", "dk", "dv"), grads, refs):
+        torch.testing.assert_close(got, ref, atol=2e-5, rtol=2e-5, msg=name)
 
 
 def test_flash_attention_bwd_takes_inputs_off_a_16_byte_boundary(cuda):

@@ -21,14 +21,20 @@ over both.
           synchronised after it.  At batch 1 the card waits on the host,
           so all three read the host's time for a step.
   kernels runs K3 (causal, bf16 and f32, head dims 64 and 256, a
-          window) and K5 and K5b (mamba2-130m's width, one group: B=8,
-          S=1024, H=24, P=64, N=128, chunk 128) of the tree on inputs made
-          from fixed seeds, through the wrappers both trees share, and
-          saves their outputs to ``--out/<i>_<tree name>.pt`` (about 0.5
-          GB a tree: keep ``--out`` out of the returned directory); then
-          times K5 and K5b with the tree's ``chip_smoke.device_ms`` (the
-          kernels' device time under torch.profiler).  Each tree's line
-          says whether every output is bit-identical to the first tree's.
+          window), K3b (bf16 and f32: tinyllama's shape, 40 over 8 at
+          head dim 128 with a window, head dim 256 with one head group
+          and with several) and K5 and K5b (mamba2-130m's width, one
+          group: B=8, S=1024, H=24, P=64, N=128, chunk 128) of the tree
+          on inputs made from fixed seeds, through the wrappers both
+          trees share, and saves their outputs to ``--out/<i>_<tree
+          name>.pt`` (about 1 GB a tree: keep ``--out`` out of the
+          returned directory); then times K5, K5b and the f32 instances
+          of K3 and K3b (tinyllama's shape) with the tree's
+          ``chip_smoke.device_ms`` (the kernels' device time under
+          torch.profiler).  Each tree's line says whether every output is
+          bit-identical to the first tree's, and whether every output but
+          the f32 ones is (``bf16_and_ssd_bit_identical``): a tree that
+          changed only the f32 instances keeps the rest bit for bit.
 
 Each prints one JSON object per tree and, last, the card's name and power
 limit.  Usage, from the repository root on a machine with a card:
@@ -123,6 +129,10 @@ def decode_one() -> dict:
 K3_CASES = ((8, 1024, 1024, 32, 4, 64, 0, "bfloat16"), (2, 1024, 1024, 16, 16, 256, 0, "bfloat16"),
             (1, 1536, 1536, 8, 4, 256, 1024, "bfloat16"), (2, 37, 300, 8, 2, 64, 0, "bfloat16"),
             (2, 1024, 1024, 32, 4, 64, 0, "float32"), (1, 130, 130, 4, 2, 256, 32, "float32"))
+# K3b's cases of ``kernels`` (causal): (B, S, Hq, Hkv, D, window, dtype).
+K3B_CASES = ((8, 1024, 32, 4, 64, 0, "bfloat16"), (2, 300, 40, 8, 128, 64, "bfloat16"),
+             (2, 1024, 16, 16, 256, 0, "bfloat16"), (2, 1024, 16, 1, 256, 0, "bfloat16"),
+             (2, 1024, 32, 4, 64, 0, "float32"), (1, 300, 16, 1, 256, 100, "float32"))
 SSD_SHAPE = (8, 1024, 24, 64, 128, 128)  # B, S, H, P, N, chunk
 
 
@@ -144,6 +154,24 @@ def kernels_one(out: Path) -> dict:
         o, lse = flash_ops.flash_attention(q, k, v, window=window, return_lse=True)
         key = f"k3 {b} {sq} {skv} {hq} {hkv} {d} {window} {dtype}"
         saved[key], saved[key + " lse"] = o.cpu(), lse.cpu()
+    for b, s, hq, hkv, d, window, dtype in K3B_CASES:
+        q, do = (torch.randn((b, s, hq, d), generator=gen, device="cuda").to(getattr(torch, dtype))
+                 for _ in range(2))
+        k, v = (torch.randn((b, s, hkv, d), generator=gen, device="cuda").to(q.dtype)
+                for _ in range(2))
+        o, lse = flash_ops.flash_attention(q, k, v, window=window, return_lse=True)
+        grads = flash_ops.flash_attention_bwd(q, k, v, o, do, lse, window=window)
+        key = f"k3b {b} {s} {hq} {hkv} {d} {window} {dtype}"
+        saved.update({f"{key} {name}": g.cpu() for name, g in zip(("dq", "dk", "dv"), grads)})
+    timed = {}
+    q, do = (torch.randn((8, 1024, 32, 64), generator=gen, device="cuda") for _ in range(2))
+    k, v = (torch.randn((8, 1024, 4, 64), generator=gen, device="cuda") for _ in range(2))
+    o, lse = flash_ops.flash_attention(q, k, v, return_lse=True)
+    timed["k3_f32_ms"] = device_ms(lambda: flash_ops.flash_attention(q, k, v), "flash_attention",
+                                   iters=10)
+    timed["k3b_f32_ms"] = device_ms(lambda: flash_ops.flash_attention_bwd(q, k, v, o, do, lse),
+                                    "flash_attention_bwd", iters=5)
+    del q, k, v, do, o, lse
     b, s, h, p, n, chunk = SSD_SHAPE
     xdt = torch.randn((b, s, h, p), generator=gen, device="cuda") * 0.5
     dA = -torch.rand((b, s, h), generator=gen, device="cuda") * 0.3
@@ -155,7 +183,7 @@ def kernels_one(out: Path) -> dict:
                   **{f"k5b {name}": g.cpu() for name, g in zip(("dxdt", "dda", "dbm", "dcm"),
                                                                  grads)}})
     torch.save(saved, out)
-    return {"ssd_ms": device_ms(lambda: ssd_ops.ssd_chunk_scan(xdt, dA, bm, cm, chunk),
+    return {**timed, "ssd_ms": device_ms(lambda: ssd_ops.ssd_chunk_scan(xdt, dA, bm, cm, chunk),
                                 "ssd_chunk_scan", iters=20),
             "ssd_bwd_ms": device_ms(lambda: ssd_ops.ssd_chunk_bwd(xdt, bm, cm, dy, cum, entering,
                                                                   chunk),
@@ -205,6 +233,8 @@ def main(argv=None) -> int:
                 if args.what == "kernels":
                     same = same_as(saved[0], saved[-1])
                     res["bit_identical_to_first"] = all(same.values())
+                    res["bf16_and_ssd_bit_identical"] = all(
+                        v for k, v in same.items() if "float32" not in k)
                     res["differing"] = sorted(k for k, v in same.items() if not v)
             else:
                 res["error"] = proc.stderr[-2000:]
