@@ -97,7 +97,14 @@ times both, then drives the paths of the port on the card:
   mamba2-130m's ZeRO-3 train step (B=8 S=1024) and tinyllama-1.1b's
   sharded bf16 prefill (B=8 S=1024), the predicted peaks within 10 % of
   ``torch.cuda.max_memory_allocated``, the fake launches equal to the
-  real ones, the roofline's ``t_max`` beside the measured seconds.
+  real ones, the roofline's ``t_max`` beside the measured seconds;
+* the examples (phase 19): the six counterparts of the JAX package's
+  examples (``examples/torch_*.py``) imported by path and run through
+  their ``main`` in this process, ``torch_edge_serving`` (mamba2-130m,
+  tinyllama-1.1b and gemma-7b) and ``torch_executor_backends`` at
+  published widths, each with its seconds, launches and peak device
+  memory; the other four also with ``--device cpu``, their decision lines
+  (``examples/_example_lines.py``) equal to the card's.
 
 Every check raises on failure.  The last three lines of standard output
 are the card's name and power limit, the kernel table and
@@ -4264,6 +4271,107 @@ def check_dryrun(seed: int, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 19: the examples
+
+# The port's examples as phase 19 runs them: examples/torch_<name>.py, its
+# arguments and the kernels it must launch on the card.  Those run at their
+# default width run again with --device cpu, and the lines that carry
+# their decisions must be equal.
+EXAMPLE_RUNS = (
+    ("quickstart", (), ("knn_topk", "utility_scores")),
+    ("multiworker_sim", (), ("knn_topk", "utility_scores", "ssd")),
+    ("edge_serving", ("--full",),
+     ("utility_scores", "flash_attention", "decode_attention", "ssd")),
+    ("async_serving", (), ("utility_scores",)),
+    ("executor_backends", ("--full",), ("flash_attention", "decode_attention", "ssd")),
+    ("fault_tolerant_serving", (), ("utility_scores",)),
+)
+EXAMPLE_FAMILIES = ("mamba2-130m", "tinyllama-1.1b", "gemma-7b")  # torch_edge_serving's
+
+
+def load_example(name: str):
+    """``examples/<name>.py`` imported by path, afresh."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(f"_example_{name}",
+                                                  ROOT / "examples" / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _run_example(name: str, argv) -> tuple[str, object, float]:
+    """``main(argv)`` of examples/torch_<name>.py: its output, what it
+    returned, its seconds (the card synchronised at the end)."""
+    import io
+
+    import torch
+
+    module = load_example(f"torch_{name}")
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        result = module.main(list(argv))
+    if "cpu" not in argv:
+        torch.cuda.synchronize()
+    return buf.getvalue(), result, time.perf_counter() - t0
+
+
+def run_examples(card: str) -> tuple[dict, dict]:
+    """Phase 19: each example on the card, its launch counts set to 0 just
+    before and read just after, its seconds and peak device memory; the
+    kernels of ``EXAMPLE_RUNS`` launched; the default-width ones' decision
+    lines equal to a ``--device cpu`` run's.  Returns each example's
+    numbers and the launches of all the card runs."""
+    import torch
+
+    from repro_torch import kernels
+
+    lines = load_example("_example_lines")
+    numbers, total = {}, {}
+    for name, argv, wanted in EXAMPLE_RUNS:
+        label = " ".join([f"torch_{name}", *argv])
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        out, result, secs = _run_example(name, argv)
+        launches = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated() - held
+        for line in out.splitlines():
+            print(f"      | {line}")
+        missing = [k for k in wanted if not launches.get(k)]
+        require(not missing, f"{label} launched no {missing}")
+        row = {"argv": list(argv), "s": secs, "launches": launches, "peak_bytes": peak}
+        if name in ("multiworker_sim", "edge_serving"):
+            problems = lines.closed_loop_problems(result)
+            require(not problems, f"{label}'s closed loop: {problems}")
+        if name == "edge_serving":
+            ran = set().union(*map(set, result["models_ran"].values()))
+            require(ran == set(EXAMPLE_FAMILIES), f"torch_edge_serving --full ran only {ran}")
+            row["models_ran"] = result["models_ran"]
+        if "--full" not in argv:
+            cpu_out, cpu_result, cpu_s = _run_example(name, ["--device", "cpu", *argv])
+            card_lines, cpu_lines = lines.decision_lines(out), lines.decision_lines(cpu_out)
+            differ = [(a, b) for a, b in zip(card_lines, cpu_lines) if a != b]
+            require(len(card_lines) == len(cpu_lines) and not differ,
+                    f"{label}: the card's decision lines differ from the CPU's: {differ}")
+            if name == "multiworker_sim":
+                problems = lines.closed_loop_problems(cpu_result)
+                require(not problems, f"{label} --device cpu's closed loop: {problems}")
+            row.update(cpu_s=cpu_s, decision_lines=len(card_lines))
+        print(f"    {label}: {secs:.3f} s on the card, peak "
+              f"{peak / 1e9:.3f} GB above the {held / 1e9:.3f} GB held, launches {launches}"
+              + (f"; --device cpu {row['cpu_s']:.3f} s, {row['decision_lines']} decision lines "
+                 "equal" if "cpu_s" in row else "") + f" ({card})")
+        numbers[name] = row
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+    return numbers, total
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
     import torch
@@ -4663,6 +4771,14 @@ def main(argv=None) -> int:
     dry = check_dryrun(args.seed, card)
     print(f"    phase 18 {time.perf_counter() - t18:.1f} s")
 
+    print("[19] the examples: examples/torch_*.py through their main, edge_serving and "
+          "executor_backends at published widths, the other four card against host")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t19 = time.perf_counter()
+    examples, examples_launches = run_examples(card)
+    print(f"    phase 19 {time.perf_counter() - t19:.1f} s")
+
     rows = [
         ("knn_topk", "knn/csrc/knn.cu", "knn/kernel.py:92", launches, knn_t),
         ("utility_scores", "utility/csrc/utility.cu", "utility/kernel.py:56", launches, util_t),
@@ -4761,6 +4877,9 @@ def main(argv=None) -> int:
                           "serve_launches": serve_cli_launches, "serve_s": serve_cli_s,
                           "costmodel_pool": costmodel_pool}
     table["dry_run"] = dry
+    table["examples"] = examples
+    for row in table["kernels"]:  # phase 19: the card's runs of the six examples
+        row["launches_examples"] = examples_launches.get(row["name"], 0)
     for row in table["kernels"]:  # phase 18 (b), (c): the real steps' launches
         row["launches_dry_run_steps"] = sum(
             dry[k]["launches"].get(row["name"], 0) for k in ("train", "prefill"))

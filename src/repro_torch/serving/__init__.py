@@ -1,7 +1,8 @@
 """Serving plane of the port: ``EdgeServer`` over a single ``LMExecutor``
 or an ``ExecutorPool`` of worker lanes, the executor backends
 (``ProfiledBackend``, ``CompiledBackend``, ``SimulatedBackend``) and the
-fault injection of the closed loop (``FaultPlan``, ``FaultInjector``).
+fault injection of the closed loop (``FaultPlan``, ``FaultInjector``)
+and the scheduler profiles of ``serving.profiles``.
 
 The names the reference's ``repro.serving`` exports that the port has
 are exported here, imported on first access.
@@ -14,6 +15,8 @@ _EXPORTS = {
     "backends": ("CompiledBackend", "CostModelBackend", "ExecutorBackend",
                  "ProfiledBackend", "SimulatedBackend"),
     "faults": ("FaultInjector", "FaultPlan", "FaultSpec"),
+    "profiles": ("costmodel_latency_model", "costmodel_profile", "costmodel_terms",
+                 "lm_latency_model", "lm_profile", "load_dryrun_record"),
     "runtime": ("LANE_NAMES", "BatchFailure", "ExecutionReport", "ExecutorPool",
                 "LMExecutor", "PendingExecution", "PoolOutcome", "ProcessLaneBackend",
                 "SwapManager", "WindowQueue", "WorkerExecutor"),

@@ -275,11 +275,19 @@ def _imported_modules(path):
 
 def test_port_imports_neither_jax_nor_reference():
     """Every module of the port (the launchers and the distribution
-    among them), ``chip_smoke.py`` and the gloo ranks' helper of
-    tests/test_torch_launch.py and of tests/test_torch_dryrun.py."""
+    among them), ``chip_smoke.py``, the gloo ranks' helper of
+    tests/test_torch_launch.py and of tests/test_torch_dryrun.py, and the
+    port's examples (``examples/torch_*.py`` and the masks they are
+    compared under, which ``chip_smoke.py`` imports)."""
+    examples = sorted((REPO / "examples").glob("torch_*.py"))
+    assert {path.stem for path in examples} >= {
+        "torch_quickstart", "torch_multiworker_sim", "torch_edge_serving",
+        "torch_async_serving", "torch_executor_backends", "torch_fault_tolerant_serving",
+        "torch_train_100m"}
     files = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
         REPO / "chip_smoke.py", REPO / "tests" / "_torch_ranks.py",
-        REPO / "tests" / "_torch_tp_ranks.py"]
+        REPO / "tests" / "_torch_tp_ranks.py", REPO / "examples" / "_example_lines.py",
+        *examples]
     assert len(files) > 20
     names = {str(path.relative_to(REPO / "src" / "repro_torch")) for path in files
              if "repro_torch" in path.parts}

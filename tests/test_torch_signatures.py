@@ -9,7 +9,10 @@ reference's calls that used to fail in the port (ROADMAP fault P6):
 positional ``workers``, ``backend=`` of the k-NN constructors and
 ``SwapManager.is_resident``.
 """
+import ast
+import importlib
 import inspect
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -128,6 +131,58 @@ def test_data_exports_cover_reference():
         home = tlm if name in ("LMDataConfig", "LMDataset") else tapps
         assert getattr(tdata, name) is getattr(home, name)
     assert tdata.NOT_PORTED == {}
+
+
+# ROADMAP §3, P15: the reference's switch between numpy and Pallas for the
+# batched Eq. 2 scores.  In the port the device decides (K1 on the card,
+# its plain float64 version on the CPU); a switch to the host on a CUDA
+# device would be the fallback the port's rules forbid.
+NOT_EXPORTED = {"core": {"set_utility_backend", "get_utility_backend"}}
+
+
+def _defining_module(package, name: str) -> str:
+    """The submodule of ``package`` (the reference's) whose top level
+    defines ``name``: a def, a class or an assignment."""
+    homes = []
+    for path in sorted(Path(package.__path__[0]).glob("*.py")):
+        for node in ast.parse(path.read_text()).body:
+            if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+                bound = {node.name}
+            elif isinstance(node, ast.Assign):
+                bound = {t.id for t in node.targets if isinstance(t, ast.Name)}
+            elif isinstance(node, ast.AnnAssign) and isinstance(node.target, ast.Name):
+                bound = {node.target.id}
+            else:
+                continue
+            if name in bound:
+                homes.append(path.stem)
+                break
+    assert len(homes) == 1, f"{package.__name__}.{name} is defined in {homes}"
+    return homes[0]
+
+
+@pytest.mark.parametrize("sub", ["core", "serving", "configs"])
+def test_package_exports_cover_reference(sub):
+    """Every name of the reference's ``repro.<sub>.__all__`` is in the
+    port's and is the object of the port's module of the same name as the
+    reference's defining one; the one exclusion is P15's pair, which the
+    port neither exports nor resolves."""
+    ref = importlib.import_module(f"repro.{sub}")
+    port = importlib.import_module(f"repro_torch.{sub}")
+    excluded = NOT_EXPORTED.get(sub, set())
+    for name in ref.__all__:
+        if name in excluded:
+            continue
+        assert name in port.__all__, f"repro_torch.{sub} does not export {name}"
+        home = _defining_module(ref, name)
+        assert getattr(ref, name) is getattr(
+            importlib.import_module(f"repro.{sub}.{home}"), name)
+        assert getattr(port, name) is getattr(
+            importlib.import_module(f"repro_torch.{sub}.{home}"), name), name
+    for name in excluded:
+        assert name not in port.__all__
+        with pytest.raises(AttributeError):
+            getattr(port, name)
 
 
 def test_positional_calls_bind_like_reference():
