@@ -1,6 +1,7 @@
 """Probes of what bounds K2 (k-NN), K1 (Eq. 2 utility), K5b (the SSD
-backward) and the RG-LRU scan, of K3b in training, and A/B timings of
-K3's, K3b's and the RG-LRU backward's designs, on one NVIDIA GPU.
+backward), the RG-LRU scan and K3's bf16 instance at head dim 256, of
+K3b in training, and A/B timings of K3's, K4's, K3b's and the RG-LRU
+backward's designs, on one NVIDIA GPU.
 
     python3 benchmarks/torch_kernel_probe.py knn --source OLD/knn.cu
     python3 benchmarks/torch_kernel_probe.py knn-design
@@ -11,6 +12,10 @@ K3's, K3b's and the RG-LRU backward's designs, on one NVIDIA GPU.
     python3 benchmarks/torch_kernel_probe.py scan-step
     python3 benchmarks/torch_kernel_probe.py k3b-train [--steps 24] [--lr 1e-3]
     python3 benchmarks/torch_kernel_probe.py k3 --old OLD/flash_attention.cu
+    python3 benchmarks/torch_kernel_probe.py k3-split [--old OLD/flash_attention.cu]
+    python3 benchmarks/torch_kernel_probe.py k3-phases
+    python3 benchmarks/torch_kernel_probe.py wgmma-rate
+    python3 benchmarks/torch_kernel_probe.py k4 --old OLD/decode_attention.cu
     python3 benchmarks/torch_kernel_probe.py f32-split [--tiles]
     python3 benchmarks/torch_kernel_probe.py k3b --old OLD/flash_attention_bwd.cu
     python3 benchmarks/torch_kernel_probe.py rglru-bwd --old OLD/rglru_scan_bwd.cu
@@ -84,15 +89,36 @@ kernels are printed beside those of the current source's T = 64 build.
 ``k3 --old`` and ``k3b --old`` build an earlier tree's
 ``flash_attention.cu`` or ``flash_attention_bwd.cu`` as it is (its own
 directory on the include path; a C entry of this tree's signature: the
-backward's takes the head groups) and time its float32 instance against
-this tree's in one process, in turns (old, new, new, old), under
-``torch.profiler``, kernel by kernel, each checked against the plain
-version first (reported, not failed on), beside one PyTorch call on the
-same inputs (SDPA in float32: the forward; the backward as forward and
-backward less the forward): ``k3`` at tinyllama's prefill shape (B = 8,
-S = 1024, 32 over 4, D = 64) causal and not and gemma-7b's (16 over 16,
-D = 256) causal; ``k3b`` at phase 16 (a)'s float32 shapes (tinyllama's,
-and B = 1, S = 1024, 16 over 16, D = 256).  ``k3b --old`` then takes
+backward's takes the head groups) and time it against this tree's in one
+process, in turns (old, new, new, old), under ``torch.profiler``, kernel
+by kernel, each checked against the plain version first (reported, not
+failed on), beside one PyTorch call on the same inputs (SDPA in the
+shape's type: the forward; the backward as forward and backward less the
+forward): ``k3`` at ``K3_AB_SHAPES`` (float32: tinyllama's prefill shape,
+B = 8, S = 1024, 32 over 4, D = 64, causal and not, and gemma-7b's, 16
+over 16, D = 256; bf16: tinyllama's and llama4's, which must stay
+bit-identical, and at D = 256 gemma-7b's causal and not,
+recurrentgemma-9b's local layers, 16 over 1, and gemma3-4b's window of
+1024), printing max |old - new| and whether two calls of this tree's are
+bit-identical; ``k3b`` at phase 16 (a)'s float32 shapes (tinyllama's,
+and B = 1, S = 1024, 16 over 16, D = 256).  ``k4 --old`` does the same for
+an earlier ``decode_attention.cu`` (with the old split rule, every block
+an SM of its own) at ``K4_AB_SHAPES`` (bf16 at D = 256 with G = 1, 2, 4
+and 16, and the instances that must stay bit-identical: bf16 at D = 64
+and 128, f32 at 64 and 256), phase 7's lengths, beside SDPA with a
+mask and the bound; it then times this tree's bf16 D = 256 instances at
+every split count from 1 to 8 and with one valid position per row.
+``k3-split`` builds this tree's ``flash_attention.cu`` (and with
+``--old`` an earlier one) as it is and with parts of a tile's work
+dropped by text edits (``K3_SPLIT_EDITS``: the warpgroups' order, S, P.V,
+the softmax's exponentials and rescale, then the products alone, S alone
+and P.V alone; the sums are wrong), prints each build's registers and
+times them in turns at gemma-7b's prefill and recurrentgemma-9b's local
+shape.  ``k3-phases`` builds it with clock64 stamps at its phases
+(``K3_PHASE_EDITS``) and prints each phase's cycles an iteration, per
+warpgroup.  ``wgmma-rate`` runs K3's product chains alone
+(``_WGMMA_RATE_SRC``) on one and two warpgroups an SM: the tensor cores'
+rate on those shapes.  ``k3b --old`` then takes
 ``tests/test_torch_cuda.py``'s head-dim-256 cases at G = 16
 (recurrentgemma-9b's training shape and B = 2, S = 3000; its seeds) in
 float32 and reports without failing, gradient by gradient, each design's
@@ -158,6 +184,7 @@ import re
 import subprocess
 import sys
 from collections import Counter
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -903,56 +930,514 @@ def _ab_turns(key, call_old, call_new, kernel, iters, parts=()):
     return old_ms, new_ms
 
 
-# K3's float32 shapes of ``k3 --old``: (B, S, Hq, Hkv, D, causal).
-K3_AB_SHAPES = {"tinyllama causal": (8, 1024, 32, 4, 64, True),
-                "tinyllama non-causal": (8, 1024, 32, 4, 64, False),
-                "gemma7b causal": (8, 1024, 16, 16, 256, True)}
+# K3's shapes of ``k3 --old``: (B, S, Hq, Hkv, D, causal, window, dtype).
+# The float32 instances and bf16 below D = 256 must stay bit-identical to
+# an earlier tree's where it did not change them; the bf16 D = 256 shapes
+# are gemma-7b's prefill, recurrentgemma-9b's local layers and gemma3-4b's.
+K3_AB_SHAPES = {"tinyllama causal": (8, 1024, 32, 4, 64, True, 0, "float32"),
+                "tinyllama non-causal": (8, 1024, 32, 4, 64, False, 0, "float32"),
+                "gemma7b causal": (8, 1024, 16, 16, 256, True, 0, "float32"),
+                "tinyllama bf16": (8, 1024, 32, 4, 64, True, 0, "bfloat16"),
+                "llama4 bf16": (8, 1024, 40, 8, 128, True, 0, "bfloat16"),
+                "gemma7b bf16": (8, 1024, 16, 16, 256, True, 0, "bfloat16"),
+                "gemma7b bf16 non-causal": (8, 1024, 16, 16, 256, False, 0, "bfloat16"),
+                "recurrentgemma local bf16": (8, 1024, 16, 1, 256, True, 2048, "bfloat16"),
+                "gemma3 window bf16": (1, 1536, 8, 4, 256, True, 1024, "bfloat16")}
+
+
+def _k3_inputs(gen, b, s, hq, hkv, d, dtype):
+    import torch
+
+    q = torch.randn((b, s, hq, d), generator=gen, device="cuda").to(dtype)
+    k, v = (torch.randn((b, s, hkv, d), generator=gen, device="cuda").to(dtype)
+            for _ in range(2))
+    return q, k, v
+
+
+def _k3_flops(b, s, hq, d, causal, window):
+    keys = sum(min(i + 1, window) if window else (i + 1 if causal else s) for i in range(s))
+    return 4 * b * hq * keys * d
+
+
+def _k3_entry(lib):
+    fn = lib.flash_attention_fwd
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _k3_call(fn, q, k, v, out, causal, window, what):
+    """A closure launching the C entry ``fn`` of K3 on q, k, v into ``out``."""
+    import torch
+
+    b, s, hq, d = q.shape
+    hkv = k.shape[2]
+    dtype = 1 if q.dtype == torch.bfloat16 else 0
+
+    def call():
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None, dtype, b, s, s,
+                 hq, hkv, d, int(causal), window, d ** -0.5,
+                 torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"{what} flash_attention_fwd: CUDA error {err}")
+    return call
 
 
 def probe_k3_old(old: Path) -> None:
-    """K3's float32 instance: an earlier tree's ``flash_attention.cu``
-    against this tree's, in one process, at ``K3_AB_SHAPES``, timed old,
-    new, new, old under ``torch.profiler``, beside SDPA in float32."""
+    """K3: an earlier tree's ``flash_attention.cu`` against this tree's, in
+    one process, at ``K3_AB_SHAPES``, each checked against the plain
+    version, with max |old - new|, timed old, new, new, old under
+    ``torch.profiler``, beside SDPA in the shape's type and the bound."""
     import torch
     import torch.nn.functional as F
 
-    from chip_smoke import _flash_plain, f32_ops_s, timed_ms
+    from chip_smoke import (BF16_FLOP_PER_S, HBM_BYTES_PER_S, _flash_plain, f32_ops_s,
+                            timed_ms)
     from repro_torch.kernels.flash_attention import ops as flash_ops
 
-    old_fn = _build_in_place("k3_old", old).flash_attention_fwd
-    old_fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_float,
-                                                                     ctypes.c_void_p]
-    old_fn.restype = ctypes.c_int
+    old_fn = _k3_entry(_build_in_place("k3_old", old))
     gen = torch.Generator(device="cuda").manual_seed(33)
-    for key, (b, s, hq, hkv, d, causal) in K3_AB_SHAPES.items():
-        q = torch.randn((b, s, hq, d), generator=gen, device="cuda")
-        k, v = (torch.randn((b, s, hkv, d), generator=gen, device="cuda") for _ in range(2))
+    for key, (b, s, hq, hkv, d, causal, window, dt) in K3_AB_SHAPES.items():
+        dtype = getattr(torch, dt)
+        q, k, v = _k3_inputs(gen, b, s, hq, hkv, d, dtype)
         old_out = torch.empty_like(q)
-
-        def call_old():
-            err = old_fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), old_out.data_ptr(), None, 0,
-                         b, s, s, hq, hkv, d, int(causal), 0, d ** -0.5,
-                         torch.cuda.current_stream().cuda_stream)
-            if err:
-                raise RuntimeError(f"old flash_attention_fwd: CUDA error {err}")
+        call_old = _k3_call(old_fn, q, k, v, old_out, causal, window, "old")
 
         def call_new():
-            return flash_ops.flash_attention(q, k, v, causal=causal)
+            return flash_ops.flash_attention(q, k, v, causal=causal, window=window)
 
         call_old()
-        plain = _flash_plain(q, k, v, 0, causal)
-        for label, out in (("old", old_out), ("new", call_new())):
-            print(f"{key} {label} - plain: max |d| {(out - plain).abs().max().item():.6g}")
-        del plain
+        new_out = call_new()
+        plain = _flash_plain(q, k, v, window, causal)
+        for label, out in (("old", old_out), ("new", new_out)):
+            print(f"{key} {label} - plain: max |d| {(out - plain).float().abs().max().item():.6g}")
+        print(f"{key}: max |old - new| {(old_out - new_out).float().abs().max().item():.6g}; "
+              f"new twice bit-identical: {torch.equal(new_out, call_new())}")
+        del plain, new_out
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        sdpa = timed_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=causal, enable_gqa=True), iters=10)
-        flops = (2 if causal else 4) * b * hq * s * s * d
-        _ab_turns(f"K3 f32 {key} (B={b} S={s} {hq} over {hkv}, D={d})", call_old, call_new,
-                  "flash_attention", iters=10)
-        print(f"K3 f32 {key}: SDPA f32 {sdpa:.6f} ms, bound {f32_ops_s(flops) * 1e3:.6f} ms "
-              f"(3xTF32; one fp32 pass {flops / 67e12 * 1e3:.6f})")
+        if window and window < s:
+            pos = torch.arange(s, device="cuda")
+            mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
+            sdpa_call = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qt, kt, vt, attn_mask=mask, enable_gqa=True)
+        else:
+            sdpa_call = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qt, kt, vt, is_causal=causal, enable_gqa=True)
+        sdpa = timed_ms(sdpa_call, iters=10)
+        flops = _k3_flops(b, s, hq, d, causal, window)
+        byts = q.element_size() * (2 * b * s * hq * d + 2 * b * s * hkv * d)
+        ops_s = flops / BF16_FLOP_PER_S if dt == "bfloat16" else f32_ops_s(flops)
+        _ab_turns(f"K3 {dt} {key} (B={b} S={s} {hq} over {hkv}, D={d}, window {window})",
+                  call_old, call_new, "flash_attention", iters=10)
+        bound = max(ops_s, byts / HBM_BYTES_PER_S) * 1e3
+        print(f"K3 {key}: SDPA {dt} {sdpa:.6f} ms, bound {bound:.6f} ms "
+              f"({'operations' if ops_s > byts / HBM_BYTES_PER_S else 'bytes'})")
         del q, k, v, old_out
+        torch.cuda.empty_cache()
+
+
+# Text edits of K3's bf16 instance at D = 256 for ``k3-split``: each drops
+# one part of a tile's work (the sums are wrong; only the time is read).
+# "tree" is this tree's wgmma instance, "old" an earlier tree's mma.sync one.
+K3_SPLIT_EDITS = {
+    "tree": {
+        "no_order": [("  if (grp == 1) wg::bar_sync(kOrderBar, kWgThreads);\n", ""),
+                     ("  if (grp == 0) wg::bar_arrive(kOrderBar, kWgThreads);\n", "")],
+        "no_qk": [("      wg::wgmma_m64n64k16_ss(s, k_step(dq, kk), k_step(dk, kk), kk > 0);\n", "")],
+        "no_pv": [("      for (int kk = 0; kk < 4; ++kk) wg::wgmma_m64n256k16_rs(acc, pa[kk], "
+                   "mn_step(dvs, kk), 1);\n", "")],
+        "no_softmax_alu": [("x = ex2(fmaf(x, scale_log2, -m_new));", "x = fmaf(x, scale_log2, -m_new);"),
+                           ("      acc[4 * j + 2 * rr] *= alpha;\n"
+                            "      acc[4 * j + 2 * rr + 1] *= alpha;\n", "")],
+    },
+    "old": {
+        "no_pv": [("        mma_bf16(oacc[2 * nd], pa, bf[0], bf[1]);\n"
+                   "        mma_bf16(oacc[2 * nd + 1], pa, bf[2], bf[3]);\n", "")],
+        "no_exp": [("exp2f(s - m_new)", "(s - m_new)")],
+        "no_rescale": [("        oacc[j][2 * rr] *= alpha;\n"
+                        "        oacc[j][2 * rr + 1] *= alpha;\n", "")],
+    },
+}
+# The products alone: no softmax arithmetic, no ordering; then S alone and
+# P.V alone.
+_GEMM_ONLY = K3_SPLIT_EDITS["tree"]["no_softmax_alu"] + K3_SPLIT_EDITS["tree"]["no_order"]
+K3_SPLIT_EDITS["tree"] |= {"gemm_only": _GEMM_ONLY,
+                           "s_only": _GEMM_ONLY + K3_SPLIT_EDITS["tree"]["no_pv"],
+                           "pv_only": _GEMM_ONLY + K3_SPLIT_EDITS["tree"]["no_qk"]}
+
+
+def _build_edited(name: str, source: Path, edits) -> ctypes.CDLL:
+    """``source`` with each (old, new) text edit made once (the first
+    occurrence: the bf16 instance comes first), built beside its headers."""
+    from repro_torch.kernels.nvcc import _ARCH, _COMMON, _nvcc
+
+    text = source.read_text()
+    for a, b in edits:
+        if a not in text:
+            raise SystemExit(f"{name}: edit not found in {source}: {a[:60]!r}")
+        text = text.replace(a, b, 1)
+    OUT.mkdir(parents=True, exist_ok=True)
+    cu = OUT / f"{name}.cu"
+    cu.write_text(text)
+    lib_path = OUT / f"lib{name}.so"
+    log = subprocess.run([_nvcc(), *_ARCH, *_COMMON, "-I", str(source.parent), "-o",
+                          str(lib_path), str(cu)], capture_output=True, text=True, timeout=600)
+    if log.returncode:
+        raise RuntimeError(f"{name}: nvcc failed\n{log.stdout}{log.stderr}")
+    (OUT / f"{name}.log").write_text(log.stdout + log.stderr)
+    lib = ctypes.CDLL(str(lib_path))
+    lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.repro_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def probe_k3_split(old: Path | None) -> None:
+    """Where K3's bf16 instance at D = 256 spends its time: this tree's
+    source (and an earlier tree's) as it is and with one part of a tile's
+    work dropped (``K3_SPLIT_EDITS``), each build's ptxas registers, timed
+    in turns (as it is, the variants, then back) under ``torch.profiler`` at
+    gemma-7b's prefill (B = 8, S = 1024, 16 over 16) and recurrentgemma-9b's
+    local layers (16 over 1)."""
+    import torch
+
+    from chip_smoke import device_ms
+
+    tree = ROOT / "src" / "repro_torch" / "kernels" / "flash_attention" / "csrc"
+    tree = tree / "flash_attention.cu"
+    sources = {"tree": tree} | ({"old": old} if old is not None else {})
+    gen = torch.Generator(device="cuda").manual_seed(35)
+    shapes = {"gemma7b": (8, 1024, 16, 16), "recurrentgemma local": (8, 1024, 16, 1)}
+    inputs = {key: _k3_inputs(gen, b, s, hq, hkv, 256, torch.bfloat16)
+              for key, (b, s, hq, hkv) in shapes.items()}
+    for label, source in sources.items():
+        variants = {"as_is": []} | K3_SPLIT_EDITS[label]
+        with ThreadPoolExecutor(len(variants)) as pool:  # one nvcc a variant, all at once
+            libs = dict(zip(variants, pool.map(
+                lambda kv: _build_edited(f"k3_split_{label}_{kv[0]}", source, kv[1]),
+                variants.items())))
+        fns = {}
+        for name, lib in libs.items():
+            fns[name] = _k3_entry(lib)
+            key = "Li256ELb1E" if label == "old" else "wgmma_kernelILb1E"
+            regs, _, spill = _ptxas(f"k3_split_{label}_{name}", key)
+            print(f"{label} {name}: causal D = 256 bf16 kernel {regs} registers, {spill} B spilled")
+        order = list(variants) + list(variants)[::-1]
+        for key, (q, k, v) in inputs.items():
+            out = torch.empty_like(q)
+            times = {n: [] for n in variants}
+            for name in order:
+                times[name].append(device_ms(_k3_call(fns[name], q, k, v, out, True, 0, name),
+                                             "flash_attention", iters=10))
+            base = sum(times["as_is"]) / 2
+            for name in variants:
+                ms = sum(times[name]) / 2
+                print(f"{label} {key} {name}: {ms:.6f} ms ({base - ms:+.6f} ms dropped)")
+
+
+# ``wgmma-rate``: K3's products alone, on one or two warpgroups a block and
+# one block an SM, in a loop of committed and waited groups: MODE 0 the S
+# chain (16 m64n64k16 with both operands in shared memory on one
+# accumulator), 1 the same on two accumulators (8 each), 2 the P.V chain (4
+# m64n256k16, A in registers, B MN-major), 3 both in one group, 4 both
+# with a wait between (S, then P.V).  Operands are bf16 1.0 in shared
+# memory; clock64 around the loop gives cycles an iteration.
+_WGMMA_RATE_SRC = r"""
+#include <stdint.h>
+#include "wgmma.cuh"
+namespace wg = repro_wgmma;
+
+__device__ __forceinline__ uint64_t kstep(uint64_t d, int kk) {
+  return d + (uint64_t)(((kk >> 2) * 8192 + (kk & 3) * 32) >> 4);
+}
+
+template <int MODE>
+__global__ void __launch_bounds__(256, 1) rate_kernel(float* out, long long* cycles, int iters) {
+  extern __shared__ __align__(16) unsigned char raw[];
+  unsigned char* base = raw + ((1024 - (repro_mma::smem_u32(raw) & 1023)) & 1023);
+  const int wgi = __shfl_sync(0xffffffffu, (int)(threadIdx.x >> 7), 0);
+  uint32_t* fill = reinterpret_cast<uint32_t*>(base);
+  for (int i = threadIdx.x; i < (int)(blockDim.x / 128) * 16384; i += blockDim.x) fill[i] = 0x3F803F80u;
+  wg::fence_proxy_async();
+  __syncthreads();
+  const unsigned char* a = base + wgi * 65536;
+  const unsigned char* b = a + 32768;
+  const uint64_t da = wg::desc_k<64>(a, 0), db = wg::desc_k<64>(b, 0), dm = wg::desc_mn<64>(b, 0);
+  float s[32], s2[32], acc[128];
+  uint32_t pa[4][4];
+  for (int i = 0; i < 32; ++i) s[i] = s2[i] = 0.0f;
+  for (int i = 0; i < 128; ++i) acc[i] = 0.0f;
+  for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < 4; ++j) pa[i][j] = 0x3F803F80u;
+  const long long t0 = clock64();
+  for (int it = 0; it < iters; ++it) {
+    wg::fence();
+    if (MODE == 0 || MODE == 3 || MODE == 4) {
+#pragma unroll
+      for (int kk = 0; kk < 16; ++kk) wg::wgmma_m64n64k16_ss(s, kstep(da, kk), kstep(db, kk), 1);
+    }
+    if (MODE == 1) {
+#pragma unroll
+      for (int kk = 0; kk < 16; kk += 2) {
+        wg::wgmma_m64n64k16_ss(s, kstep(da, kk), kstep(db, kk), 1);
+        wg::wgmma_m64n64k16_ss(s2, kstep(da, kk + 1), kstep(db, kk + 1), 1);
+      }
+    }
+    if (MODE == 4) {
+      wg::commit();
+      wg::wait<0>();
+      wg::keep(s);
+      wg::fence();
+    }
+    if (MODE >= 2) {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wg::wgmma_m64n256k16_rs(acc, pa[kk], dm + kk * 128, 1);
+    }
+    wg::commit();
+    wg::wait<0>();
+    wg::keep(s);
+    wg::keep(s2);
+    wg::keep(acc);
+  }
+  const long long t1 = clock64();
+  float sum = 0.0f;
+  for (int i = 0; i < 32; ++i) sum += s[i] + s2[i];
+  for (int i = 0; i < 128; ++i) sum += acc[i];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = sum;
+  if (threadIdx.x == 0) cycles[blockIdx.x] = t1 - t0;
+}
+
+template <int MODE>
+static int launch_rate(int wgs, float* out, long long* cyc, int iters, void* stream) {
+  const int smem = 1024 + wgs * 65536;
+  cudaError_t err = cudaFuncSetAttribute(rate_kernel<MODE>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  rate_kernel<MODE><<<132, wgs * 128, smem, (cudaStream_t)stream>>>(out, cyc, iters);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int wgmma_rate(int mode, int wgs, void* out, void* cyc, int iters, void* stream) {
+  float* o = (float*)out;
+  long long* c = (long long*)cyc;
+  switch (mode) {
+    case 0: return launch_rate<0>(wgs, o, c, iters, stream);
+    case 1: return launch_rate<1>(wgs, o, c, iters, stream);
+    case 2: return launch_rate<2>(wgs, o, c, iters, stream);
+    case 3: return launch_rate<3>(wgs, o, c, iters, stream);
+    case 4: return launch_rate<4>(wgs, o, c, iters, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+"""
+# MACs an iteration of each mode, per warpgroup.
+_WGMMA_RATE_MACS = {0: 16 * 64 * 64 * 16, 1: 16 * 64 * 64 * 16, 2: 4 * 64 * 256 * 16,
+                    3: 16 * 64 * 64 * 16 + 4 * 64 * 256 * 16,
+                    4: 16 * 64 * 64 * 16 + 4 * 64 * 256 * 16}
+
+
+def probe_wgmma_rate(iters: int = 2000) -> None:
+    """Cycles an iteration of K3's product chains (``_WGMMA_RATE_SRC``) on
+    one and two warpgroups a block, and the MACs a cycle an SM they reach
+    against the bf16 peak (2,048 an SM a cycle: 989 TFLOP/s at 1.83 GHz)."""
+    import statistics
+
+    import torch
+
+    csrc = ROOT / "src" / "repro_torch" / "kernels" / "flash_attention" / "csrc"
+    lib = ctypes.CDLL(str(_build("wgmma_rate", _WGMMA_RATE_SRC, ("-I", str(csrc)))))
+    lib.wgmma_rate.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2 + [ctypes.c_int,
+                                                                              ctypes.c_void_p]
+    lib.wgmma_rate.restype = ctypes.c_int
+    out = torch.empty(132 * 256, device="cuda")
+    cyc = torch.empty(132, dtype=torch.int64, device="cuda")
+    names = {0: "S chain", 1: "S on two accumulators", 2: "P.V chain", 3: "S and P.V, one group",
+             4: "S, wait, P.V"}
+    for mode in range(5):
+        for wgs in (1, 2):
+            err = lib.wgmma_rate(mode, wgs, out.data_ptr(), cyc.data_ptr(), iters,
+                                 torch.cuda.current_stream().cuda_stream)
+            torch.cuda.synchronize()
+            if err:
+                raise RuntimeError(f"wgmma_rate mode {mode}: CUDA error {err}")
+            per_it = statistics.median(cyc.tolist()) / iters
+            macs = wgs * _WGMMA_RATE_MACS[mode]
+            print(f"wgmma-rate {names[mode]}, {wgs} warpgroup(s): {per_it:.1f} cycles an "
+                  f"iteration, {macs / per_it:.1f} MAC a cycle an SM "
+                  f"({macs / per_it / 2048:.3f} of the peak)")
+
+
+# ``k3-phases``: this tree's bf16 D = 256 instance with clock64 stamps at
+# its loop's phase boundaries, summed per warpgroup (thread 0 of each) over
+# every block into a device array the library hands back.
+K3_PHASE_EDITS = [
+    ("    __syncthreads();  // both warpgroups are done with tile it - 1's stages\n",
+     "    long long c0 = clock64();\n    __syncthreads();\n    long long c1 = clock64();\n"
+     "    ph[0] += c1 - c0;\n"),
+    ("    load(ks, bar_k, &tk, it + 2);\n",
+     "    load(ks, bar_k, &tk, it + 2);\n    long long c2 = clock64();\n    ph[1] += c2 - c1;\n"),
+    ("    issue_scores(sn, next, grp, dq, dk + ((it + 1) & 1) * (kWgTile >> 4));\n",
+     "    issue_scores(sn, next, grp, dq, dk + ((it + 1) & 1) * (kWgTile >> 4));\n"
+     "    long long c3 = clock64();\n    ph[2] += c3 - c2;\n"),
+    ("      // O += P . V: p rounded", "      ph[3] += clock64() - c3;\n      // O += P . V: p rounded"),
+    ("    wg::wait<0>();\n    wg::keep(acc);\n",
+     "    long long c5 = clock64();\n    wg::wait<0>();\n    wg::keep(acc);\n"
+     "    ph[4] += clock64() - c5;\n    ph[6] += 1;\n"),
+    ("  for (int it = 0; it < n_tiles; ++it) {\n    const int k0 = k_start + it * kWgRows;\n",
+     "  ph[7] += clock64() - c_entry;\n  const long long cl = clock64();\n"
+     "  for (int it = 0; it < n_tiles; ++it) {\n    const int k0 = k_start + it * kWgRows;\n"),
+    ("  uint64_t* bar_v = bar_q + 3;  // two stages\n",
+     "  uint64_t* bar_v = bar_q + 3;  // two stages\n"
+     "  long long ph[9] = {0, 0, 0, 0, 0, 0, 0, 0, 0};\n  const long long c_entry = clock64();\n"),
+    ("  if (!has_rows) return;\n  unsigned char* ot = qs + grp * kWgTile;\n",
+     "  ph[5] = clock64() - cl;\n  const long long c_epi = clock64();\n"
+     "  if (!has_rows) return;\n  unsigned char* ot = qs + grp * kWgTile;\n"),
+    ('    asm volatile("cp.async.bulk.wait_group.read 0;\\n" ::: "memory");  '
+     '// before the tile is freed\n  }\n}\n',
+     '    asm volatile("cp.async.bulk.wait_group.read 0;\\n" ::: "memory");\n  }\n'
+     "  ph[8] = clock64() - c_epi;\n  if (wt == 0)\n    for (int i = 0; i < 9; ++i) "
+     "atomicAdd(&g_phase[grp][i], (unsigned long long)ph[i]);\n}\n"),
+    ("__device__ __forceinline__ unsigned char* align_tiles(",
+     "__device__ unsigned long long g_phase[2][9];\n\n"
+     "__device__ __forceinline__ unsigned char* align_tiles("),
+    ('extern "C" {\n', 'extern "C" {\n\nint k3_phases(void* dst, int reset) {\n  if (reset) {\n'
+     '    static const unsigned long long zero[2][9] = {};\n'
+     '    return (int)cudaMemcpyToSymbol(g_phase, zero, sizeof(zero));\n  }\n'
+     '  return (int)cudaMemcpyFromSymbol(dst, g_phase, sizeof(g_phase));\n}\n'),
+]
+K3_PHASES = ("barrier", "loads issued", "K landed, S issued (in turn)", "softmax",
+             "P.V issued", "the walk", "iterations", "set-up, Q landed and the first S",
+             "the output written")
+
+
+def probe_k3_phases() -> None:
+    """Cycles of each phase of the bf16 D = 256 instance's loop, per
+    warpgroup and iteration, at gemma-7b's prefill shape (B = 8, S = 1024,
+    16 over 16) and recurrentgemma-9b's local shape (16 over 1)."""
+    import torch
+
+    tree = ROOT / "src" / "repro_torch" / "kernels" / "flash_attention" / "csrc"
+    lib = _build_edited("k3_phases", tree / "flash_attention.cu", K3_PHASE_EDITS)
+    fn = _k3_entry(lib)
+    lib.k3_phases.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    lib.k3_phases.restype = ctypes.c_int
+    regs, _, spill = _ptxas("k3_phases", "wgmma_kernelILb1E")
+    print(f"k3-phases build: {regs} registers, {spill} B spilled")
+    gen = torch.Generator(device="cuda").manual_seed(36)
+    for key, (b, s, hq, hkv) in {"gemma7b": (8, 1024, 16, 16),
+                                 "recurrentgemma local": (8, 1024, 16, 1)}.items():
+        q, k, v = _k3_inputs(gen, b, s, hq, hkv, 256, torch.bfloat16)
+        out = torch.empty_like(q)
+        call = _k3_call(fn, q, k, v, out, True, 0, "k3-phases")
+        call()
+        torch.cuda.synchronize()
+        host = torch.zeros(18, dtype=torch.int64)
+        lib.k3_phases(None, 1)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        call()
+        end.record()
+        torch.cuda.synchronize()
+        if lib.k3_phases(host.data_ptr(), 0):
+            raise RuntimeError("k3_phases: copy failed")
+        for grp in range(2):
+            row = host[9 * grp:9 * grp + 9].tolist()
+            its = max(row[6], 1)
+            print(f"k3-phases {key} warpgroup {grp} ({its} iterations, {start.elapsed_time(end):.4f} "
+                  "ms with stamps): " + ", ".join(f"{name} {row[i] / its:.0f}"
+                                                  for i, name in enumerate(K3_PHASES)
+                                                  if i != 6)
+                  + " cycles an iteration")
+
+
+# K4's shapes of ``k4 --old``: (B, Hkv, G, S, D, dtype), phase 7's lengths.
+# bf16 at D = 256 is the fitted instance; the others must stay
+# bit-identical to an earlier tree's where it did not change them.
+K4_AB_SHAPES = {"gemma7b": (8, 16, 1, 1040, 256, "bfloat16"),
+                "gemma3 G=2": (8, 4, 2, 1040, 256, "bfloat16"),
+                "G=4": (8, 4, 4, 1040, 256, "bfloat16"),
+                "recurrentgemma local": (8, 1, 16, 1040, 256, "bfloat16"),
+                "tinyllama": (8, 4, 8, 1040, 64, "bfloat16"),
+                "llama4": (8, 8, 5, 1040, 128, "bfloat16"),
+                "tinyllama f32": (8, 4, 8, 1040, 64, "float32"),
+                "gemma7b f32": (8, 16, 1, 1040, 256, "float32")}
+K4_LENGTHS = [1040, 129, 700, 1024, 300, 1039, 512, 890]
+
+
+def probe_k4_old(old: Path) -> None:
+    """K4: an earlier tree's ``decode_attention.cu`` (with its own split
+    rule: every block an SM of its own) against this tree's, in one
+    process, at ``K4_AB_SHAPES``, each checked against the plain version,
+    with max |old - new|, timed old, new, new, old under ``torch.profiler``
+    beside SDPA and the bound; then the fitted instances at every split
+    count 1-8, and with one valid position per row."""
+    import torch
+    import torch.nn.functional as F
+
+    from chip_smoke import _decode_bound, _decode_plain, device_ms, timed_ms
+    from repro_torch.kernels.decode_attention import ops as decode_ops
+
+    lib = _build_in_place("k4_old", old)
+    old_fn = lib.decode_attention_fwd
+    old_fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_float,
+                                                                     ctypes.c_int, ctypes.c_void_p]
+    old_fn.restype = ctypes.c_int
+    new_lib, _ = decode_ops._library()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    gen = torch.Generator(device="cuda").manual_seed(34)
+    lengths = torch.tensor(K4_LENGTHS, dtype=torch.int32, device="cuda")
+    for key, (b, hkv, g, s, d, dt) in K4_AB_SHAPES.items():
+        dtype = getattr(torch, dt)
+        q = torch.randn((b, 1, hkv * g, d), generator=gen, device="cuda").to(dtype)
+        k, v = (torch.randn((b, s, hkv, d), generator=gen, device="cuda").to(dtype)
+                for _ in range(2))
+        old_out = torch.empty_like(q)
+        old_splits = max(1, min(8, sms // (b * hkv), -(-s // 32)))
+
+        def launch(fn, out, splits, lens=lengths, what="old"):
+            err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(), out.data_ptr(),
+                     int(dtype == torch.bfloat16), b, s, hkv, g, d, 0, d ** -0.5, splits,
+                     torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"{what} decode_attention_fwd: CUDA error {err}")
+
+        def call_old():
+            launch(old_fn, old_out, old_splits)
+
+        def call_new():
+            return decode_ops.decode_attention(q, k, v, lengths)
+
+        call_old()
+        new_out = call_new()
+        plain = _decode_plain(q, k, v, lengths, 0)
+        for label, out in (("old", old_out), ("new", new_out)):
+            print(f"{key} {label} - plain: max |d| {(out - plain).float().abs().max().item():.6g}")
+        inst = decode_ops.instance(dtype, d, g)
+        splits = decode_ops.split_count(b, hkv, s, sms, inst)
+        print(f"{key}: instance {inst}, splits {splits} (old {old_splits}); max |old - new| "
+              f"{(old_out - new_out).float().abs().max().item():.6g}")
+        mask = (torch.arange(s, device="cuda")[None, :] < lengths[:, None])[:, None, None, :]
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        sdpa = timed_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, enable_gqa=g > 1), iters=50)
+        _ab_turns(f"K4 {dt} {key} (B={b} Hkv={hkv} G={g} D={d} S={s})", call_old, call_new,
+                  "decode_", iters=50)
+        bound = ("bound {:.6f} ms ({})".format(*_decode_bound(lengths, hkv, g, d))
+                 if dt == "bfloat16" else "")
+        print(f"K4 {key}: SDPA {dt} {sdpa:.6f} ms {bound}")
+        if inst["fitted"]:
+            out = torch.empty_like(q)
+            by_split = []
+            for n in range(1, 9):
+                by_split.append(device_ms(lambda n=n: launch(new_lib.decode_attention_fwd, out,
+                                                             n, what="new"),
+                                          "decode_", iters=50))
+            print(f"K4 {key} fitted instance by splits 1-8: "
+                  + ", ".join(f"{n + 1}: {ms:.6f}" for n, ms in enumerate(by_split)))
+            ones = torch.ones_like(lengths)
+            one = device_ms(lambda: decode_ops.decode_attention(q, k, v, ones), "decode_",
+                            iters=50)
+            print(f"K4 {key}: one valid position per row {one:.6f} ms (the fixed cost)")
+        del q, k, v, old_out, new_out, plain
         torch.cuda.empty_cache()
 
 
@@ -1455,6 +1940,10 @@ def main(argv=None) -> int:
     t.add_argument("--steps", type=int, default=24)
     t.add_argument("--lr", type=float, default=1e-3)
     sub.add_parser("k3").add_argument("--old", type=Path, required=True)
+    sub.add_parser("k3-split").add_argument("--old", type=Path, default=None)
+    sub.add_parser("k4").add_argument("--old", type=Path, required=True)
+    sub.add_parser("wgmma-rate")
+    sub.add_parser("k3-phases")
     sub.add_parser("f32-split").add_argument("--tiles", action="store_true")
     sub.add_parser("k3b").add_argument("--old", type=Path, required=True)
     sub.add_parser("rglru-bwd").add_argument("--old", type=Path, required=True)
@@ -1483,6 +1972,14 @@ def main(argv=None) -> int:
         probe_k3b_train(args.steps, args.lr)
     elif args.what == "k3":
         probe_k3_old(args.old)
+    elif args.what == "k3-split":
+        probe_k3_split(args.old)
+    elif args.what == "k4":
+        probe_k4_old(args.old)
+    elif args.what == "wgmma-rate":
+        probe_wgmma_rate()
+    elif args.what == "k3-phases":
+        probe_k3_phases()
     elif args.what == "f32-split":
         probe_f32_split(args.tiles)
     elif args.what == "k3b":

@@ -287,16 +287,20 @@ def ptxas_registers(name: str, keys) -> dict:
     return out
 
 
-# The head-dim-256 instances of K3 (causal and not: Lb1 and Lb0), K4 and
-# K3b (mangled-name keys): ptxas's registers and spills are printed in
-# phase 2.
+# The head-dim-256 instances of K3 (causal and not: Lb1 and Lb0; bf16 on
+# warpgroup products), K4 (bf16: 1, 2, 4 and 8 query heads a pass, with 8,
+# 8, 4 and 2 rows in flight; f32: 8 and 2) and K3b (mangled-name keys):
+# ptxas's registers and spills are printed in phase 2.
 D256_INSTANCES = {
-    "flash_attention": ("flash_attention_bf16_kernelILi256ELb1E",
-                        "flash_attention_bf16_kernelILi256ELb0E",
+    "flash_attention": ("flash_attention_wgmma_kernelILb1E",
+                        "flash_attention_wgmma_kernelILb0E",
                         "flash_attention_f32_kernelILi256ELb1E",
                         "flash_attention_f32_kernelILi256ELb0E"),
-    "decode_attention": ("decode_attention_kernelI13__nv_bfloat16Li256E",
-                         "decode_attention_kernelIfLi256E"),
+    "decode_attention": ("decode_attention_kernelI13__nv_bfloat16Li256ELi1ELi8E",
+                         "decode_attention_kernelI13__nv_bfloat16Li256ELi2ELi8E",
+                         "decode_attention_kernelI13__nv_bfloat16Li256ELi4ELi4E",
+                         "decode_attention_kernelI13__nv_bfloat16Li256ELi8ELi2E",
+                         "decode_attention_kernelIfLi256ELi8ELi2E"),
     "flash_attention_bwd": ("flash_attention_bwd_dkdv_wgmma_kernel",
                             "flash_attention_bwd_dq_wgmma_kernel",
                             "flash_attention_bwd_dkdv_f32_kernelILi256EE",
@@ -692,6 +696,20 @@ def _flash_timing(q, k, v, window, flops, library, causal=True):
 # 700.00 W; PERF.md).
 K3_F32_FIRST_MS = {"f32": 1.574682, "f32_non_causal": 2.791151, "f32_d256": 3.791087}
 
+# The first designs' times of K3's and K4's bf16 instances at head dim 256
+# (K3 on mma.sync with 32-key tiles; K4 with 8 heads a pass and one block
+# an SM), printed in brackets beside this run's (chip_smoke.py phases 6, 7
+# and 14 (a), NVIDIA H100 80GB HBM3, 700.00 W; PERF.md).
+D256_FIRST_MS = {("K3", "at_d256"): 0.401031, ("K3", "windowed"): 0.078477,
+                 ("K3", "recurrentgemma_local"): 0.391837, ("K4", "at_d256"): 0.171290,
+                 ("K4", "recurrentgemma_local"): 0.044996}
+
+
+def first_design(kernel: str, key: str) -> str:
+    """`` [first design: ms]`` for a head-dim-256 bf16 timing, else ``""``."""
+    ms = D256_FIRST_MS.get((kernel, key))
+    return f" [first design: {ms}]" if ms else ""
+
 
 def check_flash(seed):
     """K3 against its plain version: the sweep of tests/test_kernels.py:22
@@ -767,7 +785,9 @@ def check_flash(seed):
     q, k, v = inputs(b, s, hq, hkv, d)
     t["at_d256"] = _flash_timing(q, k, v, 0, 2 * b * hq * s * s * d, causal(q, k, v))
     print(f"  K3 gemma-7b shape {t['at_d256']['shape']}: max |d| "
-          f"{t['at_d256']['max_abs_err']:.3g} (tolerance 2e-2); SDPA agrees within 2e-2")
+          f"{t['at_d256']['max_abs_err']:.3g} (tolerance 2e-2); SDPA agrees within 2e-2; "
+          f"{t['at_d256']['ms']:.6f} ms{first_design('K3', 'at_d256')}, SDPA "
+          f"{t['at_d256']['library_ms']:.6f} ms, bound {t['at_d256']['bound_ms']:.6f} ms")
     qf, kf, vf = (x.float() for x in (q, k, v))
     del q, k, v
     t["f32_d256"] = _flash_timing(qf, kf, vf, 0, 2 * b * hq * s * s * d, causal(qf, kf, vf))
@@ -788,7 +808,8 @@ def check_flash(seed):
         lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True))
     print(f"  K3 gemma3-4b windowed shape {t['windowed']['shape']}: max |d| "
           f"{t['windowed']['max_abs_err']:.3g} (tolerance 2e-2); SDPA with the window as a "
-          "mask agrees within 2e-2")
+          f"mask agrees within 2e-2; {t['windowed']['ms']:.6f} ms"
+          f"{first_design('K3', 'windowed')}, SDPA {t['windowed']['library_ms']:.6f} ms")
     return t
 
 
@@ -874,6 +895,9 @@ def check_decode(seed):
     k, v = (torch.randn((b, s, hkv, d), generator=gen, device="cuda").to(torch.bfloat16)
             for _ in range(2))
     t["at_d256"] = _decode_timing(q, k, v, lengths, mask, "gemma-7b shape")
+    print(f"    K4 gemma-7b: {t['at_d256']['ms']:.6f} ms on the device"
+          f"{first_design('K4', 'at_d256')}, SDPA {t['at_d256']['library_ms']:.6f} ms, bound "
+          f"{t['at_d256']['bound_ms']:.6f} ms ({t['at_d256']['bound_by']})")
     return t
 
 
@@ -2552,7 +2576,7 @@ def check_new_attention_shapes(seed):
             lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True))
         print(f"  K3 {key} shape {flash[key]['shape']}: max |d| {flash[key]['max_abs_err']:.3g} "
               f"(tolerance 2e-2); SDPA agrees within 2e-2; {flash[key]['ms']:.6f} ms on the "
-              f"device, plain {flash[key]['plain_ms']:.3f} ms, SDPA "
+              f"device{first_design('K3', key)}, plain {flash[key]['plain_ms']:.3f} ms, SDPA "
               f"{flash[key]['library_ms']:.6f} ms, bound {flash[key]['bound_ms']:.6f} ms "
               f"({flash[key]['bound_by']})")
         del q, k, v, qt, kt, vt
@@ -2560,7 +2584,8 @@ def check_new_attention_shapes(seed):
         k, v = (torch.randn((b, cap, hkv, d), generator=gen, device="cuda").to(torch.bfloat16)
                 for _ in range(2))
         decode[key] = _decode_timing(q, k, v, lengths, mask, f"{key} shape")
-        print(f"    K4 {key}: {decode[key]['ms']:.6f} ms on the device, plain "
+        print(f"    K4 {key}: {decode[key]['ms']:.6f} ms on the device"
+              f"{first_design('K4', key)}, plain "
               f"{decode[key]['plain_ms']:.3f} ms, SDPA {decode[key]['library_ms']:.6f} ms, "
               f"bound {decode[key]['bound_ms']:.6f} ms ({decode[key]['bound_by']})")
         del q, k, v
@@ -4429,7 +4454,8 @@ def main(argv=None) -> int:
                                      D256_INSTANCES["flash_attention"][:2]).items():
         require(" 0 bytes spill stores" in line,
                 f"K3's bf16 instance at head dim 256 spills registers ({key})")
-    for name, what, op in (("flash_attention_bwd", "K3b", "HMMA"),
+    for name, what, op in (("flash_attention", "K3", "HGMMA"),
+                           ("flash_attention_bwd", "K3b", "HMMA"),
                            ("flash_attention_bwd", "K3b", "HGMMA"), ("ssd_bwd", "K5b", "HMMA")):
         hmma = hmma_count(nvcc.SOURCES[name].library_path(), op)
         if hmma is None:

@@ -34,11 +34,30 @@
 //     in flight.  A row of more than 32 pieces (f32, D = 256: 64) takes PL
 //     pieces per lane, pieces l, l + LPR, ..., so a row still fits a warp
 //     and each load of the warp reads 512 contiguous bytes.  The group's
-//     lanes hold their slice of up to 8 query heads in registers, reduce
+//     lanes hold their slice of kHeads query heads in registers, reduce
 //     each dot product with shuffles across the lanes of the row, run the
 //     online softmax per head in registers and fold P.V into per-lane fp32
-//     accumulators.  More than 8 heads per KV
-//     head (G <= 32) take several passes over the slice.
+//     accumulators.  More heads per KV head than a pass holds (G <= 32)
+//     take several passes over the slice.
+//   * Heads and rows fitted to G in bf16 at D = 256 (the `fitted`
+//     instances; every other one holds 8 heads and 2 rows).  There a row
+//     is one warp's 16-byte loads, so a block of 4 warps kept 8 K rows in
+//     flight; at gemma-7b's decode (G = 1) 7 of the 8 head slots idled and
+//     the split rule gave 132 // 128 = 1 block to each (batch row, KV
+//     head): 16 KB in flight an SM, latency-bound at 0.171 ms, 6.2 times
+//     its bound.  Now a pass holds 1, 2, 4 or 8 heads (G = 1, 2, 3-4, 5+),
+//     the registers of the slots that would idle hold 8, 8, 4 or 2 rows in
+//     flight a lane group (127-128 registers below 8 heads: 4 blocks an
+//     SM), and ops.split_count gives each (batch row, KV head) enough
+//     blocks for 4 on every SM (at most 8, a cluster; at most one per pass
+//     of the block's lane groups), fixed by the shapes.  Measured
+//     (benchmarks/torch_kernel_probe.py k4 --old, NVIDIA H100 80GB HBM3,
+//     700.00 W; PERF.md): 0.038 ms at gemma-7b's decode (5 blocks a
+//     pair), 1.37 times its bound, against 0.171 for the first design and
+//     0.067 for SDPA; 0.016 at G = 2 and 0.019 at G = 4 (0.038 and 0.039
+//     before); G = 16 unchanged, 0.044.  At gemma-7b's shape 2 to 8
+//     blocks a pair give 0.036-0.038 ms, one 0.048; one valid position a
+//     row costs 0.009 (launch, merge and cluster barriers).
 //   * One merge.  Every lane group leaves its partial (m, l, acc) in shared
 //     memory and the block merges them once, per (head, column), with the
 //     groups' weights exp(m_group - m_block) computed once per head; the
@@ -64,10 +83,25 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int kThreads = 128;  // four warps
-constexpr int kHeads = 8;      // query heads per pass, held in registers
-constexpr int kRows = 2;       // rows per lane group in flight
 constexpr int kMaxSplits = 8;  // blocks per cluster (portable limit)
 constexpr float kNeg = -0.7f * 3.4028234663852886e38f;  // _NEG of kernel.py:28
+
+// The instances: query heads per pass (held in registers), rows per lane
+// group in flight and blocks an SM are 8, 2 and 2, but for bf16 at D =
+// 256 (`fitted`), where a row is one warp's 16-byte loads, the heads per
+// pass follow G (1, 2, 4, or 8 from G = 5) and the registers of the head
+// slots that would sit idle hold rows in flight: 8 for one or two heads,
+// 4 for four, with 4 blocks an SM.
+template <typename T, int D>
+__host__ __device__ constexpr bool fitted() { return sizeof(T) == 2 && D == 256; }
+
+__host__ __device__ constexpr int fitted_heads(int G) {
+  return G <= 1 ? 1 : G <= 2 ? 2 : G <= 4 ? 4 : 8;
+}
+
+__host__ __device__ constexpr int fitted_rows(int H) { return H <= 2 ? 8 : H == 4 ? 4 : 2; }
+
+__host__ __device__ constexpr int resident(int H) { return H <= 4 ? 4 : 2; }
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float v);
@@ -104,8 +138,8 @@ __device__ __forceinline__ uint4 load16(const void* p) {
   return __ldg(static_cast<const uint4*>(p));
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads, 2)
+template <typename T, int D, int kHeads, int kRows>
+__global__ void __launch_bounds__(kThreads, resident(kHeads))
 decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ kc,
                         const T* __restrict__ vc, const int32_t* __restrict__ lengths,
                         T* __restrict__ o, int S, int Hkv, int G, int window, float scale) {
@@ -303,7 +337,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ kc,
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, int H, int R>
 cudaError_t launch(const void* q, const void* k, const void* v, const int32_t* lengths,
                    void* o, int B, int S, int Hkv, int G, int window, float scale, int splits,
                    cudaStream_t stream) {
@@ -319,7 +353,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int32_t* l
   attr[0].val.clusterDim.z = 1;
   config.attrs = attr;
   config.numAttrs = 1;
-  cudaError_t err = cudaLaunchKernelEx(&config, decode_attention_kernel<T, D>,
+  cudaError_t err = cudaLaunchKernelEx(&config, decode_attention_kernel<T, D, H, R>,
                                        static_cast<const T*>(q), static_cast<const T*>(k),
                                        static_cast<const T*>(v), lengths, static_cast<T*>(o),
                                        S, Hkv, G, window, scale);
@@ -327,16 +361,38 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int32_t* l
   return cudaGetLastError();
 }
 
+// The instance of (T, D) for G: 8 heads a pass and 2 rows in flight, or
+// the fitted heads and rows.
+template <typename T, int D>
+cudaError_t launch_for(const void* q, const void* k, const void* v, const int32_t* lengths,
+                       void* o, int B, int S, int Hkv, int G, int window, float scale,
+                       int splits, cudaStream_t s) {
+  if constexpr (fitted<T, D>()) {
+    switch (fitted_heads(G)) {
+      case 1: return launch<T, D, 1, fitted_rows(1)>(q, k, v, lengths, o, B, S, Hkv, G, window,
+                                                     scale, splits, s);
+      case 2: return launch<T, D, 2, fitted_rows(2)>(q, k, v, lengths, o, B, S, Hkv, G, window,
+                                                     scale, splits, s);
+      case 4: return launch<T, D, 4, fitted_rows(4)>(q, k, v, lengths, o, B, S, Hkv, G, window,
+                                                     scale, splits, s);
+      default: break;
+    }
+  }
+  return launch<T, D, 8, 2>(q, k, v, lengths, o, B, S, Hkv, G, window, scale, splits, s);
+}
+
 template <typename T>
 cudaError_t dispatch(const void* q, const void* k, const void* v, const int32_t* lengths,
                      void* o, int B, int S, int Hkv, int G, int D, int window, float scale,
                      int splits, cudaStream_t s) {
   switch (D) {
-    case 16: return launch<T, 16>(q, k, v, lengths, o, B, S, Hkv, G, window, scale, splits, s);
-    case 32: return launch<T, 32>(q, k, v, lengths, o, B, S, Hkv, G, window, scale, splits, s);
-    case 64: return launch<T, 64>(q, k, v, lengths, o, B, S, Hkv, G, window, scale, splits, s);
-    case 128: return launch<T, 128>(q, k, v, lengths, o, B, S, Hkv, G, window, scale, splits, s);
-    case 256: return launch<T, 256>(q, k, v, lengths, o, B, S, Hkv, G, window, scale, splits, s);
+    case 16: return launch_for<T, 16>(q, k, v, lengths, o, B, S, Hkv, G, window, scale, splits, s);
+    case 32: return launch_for<T, 32>(q, k, v, lengths, o, B, S, Hkv, G, window, scale, splits, s);
+    case 64: return launch_for<T, 64>(q, k, v, lengths, o, B, S, Hkv, G, window, scale, splits, s);
+    case 128:
+      return launch_for<T, 128>(q, k, v, lengths, o, B, S, Hkv, G, window, scale, splits, s);
+    case 256:
+      return launch_for<T, 256>(q, k, v, lengths, o, B, S, Hkv, G, window, scale, splits, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -347,6 +403,16 @@ extern "C" {
 
 // Largest cluster (blocks per (batch row, KV head)) the kernel takes.
 int decode_max_splits() { return kMaxSplits; }
+
+// The instance a call of (dtype, D, G) launches: its query heads per pass
+// (bits 0-7), rows in flight per lane group (8-15) and blocks an SM
+// (16-23).  ops.py's `instance` states the same rule for the split count.
+int decode_instance(int dtype, int D, int G) {
+  const bool fit = dtype == 1 && D == 256;
+  const int h = fit ? fitted_heads(G) : 8;
+  const int r = fit ? fitted_rows(h) : 2;
+  return h | (r << 8) | (resident(h) << 16);
+}
 
 // dtype: 0 = fp32, 1 = bf16.  q, o (B, 1, Hkv * G, D); k, v (B, S, Hkv, D);
 // lengths (B,) int32; all 16-byte aligned.  `splits` blocks, 1 to

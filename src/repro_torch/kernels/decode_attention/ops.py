@@ -7,7 +7,10 @@ the plain version (``ref.py``, in the kernel's layout); CUDA tensors
 launch ``csrc/decode_attention.cu`` on the current stream, one launch
 per call, or raise.  There is no other route.  The launch depends on the
 shapes and the card's SM count alone, allocates only its output and
-reads ``lengths`` on the device, so a CUDA graph can hold it.
+reads ``lengths`` on the device, so a CUDA graph can hold it.  Its
+instance (``instance``) follows (dtype, D, G): in bf16 at D = 256 the
+query heads a pass fit G and the registers they free hold more rows in
+flight, and ``split_count`` puts several blocks on each SM.
 
 Fake tensors take a branch only they reach (``kernels.is_fake``): the
 output as a fake tensor and the shape-only operator
@@ -36,11 +39,11 @@ from repro_torch.kernels import (
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.kernels.flash_attention.ops import DTYPES, HEAD_DIMS
 
-__all__ = ["decode_attention", "counter", "MAX_GROUP"]
+__all__ = ["decode_attention", "counter", "MAX_GROUP", "instance", "split_count"]
 
 counter = LaunchCounter("decode_attention")
 
-MAX_GROUP = 32  # query heads per KV head (the kernel takes them 8 at a time)
+MAX_GROUP = 32  # query heads per KV head (the kernel takes them 8 at a time at most)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -56,6 +59,8 @@ def _library():
     lib.decode_attention_fwd.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                          ctypes.c_float, _I, _P]
     lib.decode_attention_fwd.restype = _I
+    lib.decode_instance.argtypes = [_I, _I, _I]
+    lib.decode_instance.restype = _I
     return lib, lib.decode_max_splits()
 
 
@@ -82,11 +87,31 @@ def _k4_flops(q_shape, k_shape, *args, **kwargs) -> int:
     return 4 * b * hq * k_shape[1] * d
 
 
-def _split_count(b: int, hkv: int, s: int, sms: int, max_splits: int) -> int:
-    """Blocks per (batch row, KV head): as many as leave every block an SM
-    of its own, at most ``max_splits`` (one cluster) and at most one per 32
-    cache positions."""
-    return max(1, min(max_splits, sms // (b * hkv), -(-s // 32)))
+def instance(dtype, d: int, g: int) -> dict:
+    """The kernel instance a call of (dtype, D, G) launches, as the C entry
+    ``decode_instance`` picks it: ``heads`` query heads a pass, ``rows`` in
+    flight per lane group, ``resident`` blocks an SM.  8 heads and 2 rows,
+    2 blocks an SM; but bf16 at D = 256 is ``fitted``: a row is one warp's
+    16-byte loads, the heads follow G (1, 2, 4, or 8 from G = 5), and the
+    registers of the head slots that would sit idle hold rows: 8 for one
+    or two heads, 4 for four, which keep 4 blocks on an SM."""
+    fitted = dtype == torch.bfloat16 and d == 256
+    heads = next(h for h in (1, 2, 4, 8) if g <= h or h == 8) if fitted else 8
+    rows = 8 if heads <= 2 else 4 if heads == 4 else 2
+    return {"fitted": fitted, "heads": heads, "rows": rows, "resident": 4 if heads <= 4 else 2}
+
+
+def split_count(b: int, hkv: int, s: int, sms: int, inst: dict, max_splits: int = 8) -> int:
+    """Blocks per (batch row, KV head), 1 to ``max_splits`` (one cluster),
+    fixed by the shapes.  Below D = 256 and in f32: as many as leave every
+    block an SM of its own, at most one per 32 cache positions.  A fitted
+    instance: enough for ``resident`` blocks on each of the ``sms`` SMs,
+    at most one per pass of its four lane groups over the cache (4 x
+    ``rows`` positions)."""
+    if not inst["fitted"]:
+        return max(1, min(max_splits, sms // (b * hkv), -(-s // 32)))
+    return max(1, min(max_splits, -(-inst["resident"] * sms // (b * hkv)),
+                      -(-s // (4 * inst["rows"]))))
 
 
 def _check_args(q, k_cache, v_cache, lengths, window):
@@ -150,7 +175,8 @@ def decode_attention(q, k_cache, v_cache, lengths, *, window: int = 0, scale=Non
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must start on a 16-byte boundary (the kernel's loads)")
     lib, max_splits = _library()
-    splits = _split_count(b, hkv, s, _sm_count(q.device.index), max_splits)
+    splits = split_count(b, hkv, s, _sm_count(q.device.index), instance(q.dtype, d, g),
+                         max_splits)
     out = torch.empty_like(q)
     refuse_grad("decode_attention", f"it has no backward ({GRADIENTS_RULE})", q, k_cache,
                 v_cache)

@@ -6,7 +6,8 @@ Tensors on the CPU take the plain version (``ref.py``, in the kernel's
 GQA layout); CUDA tensors launch ``csrc/flash_attention.cu`` on the
 current stream, which reads the model layout directly, or raise.  There
 is no other route.  The kernel's instance follows the dtype: bfloat16
-runs on the tensor cores (``mma.sync``), float32 on them too at fp32's
+runs on the tensor cores (``mma.sync``; at D = 256 warpgroup products,
+``wgmma``, two warpgroups of 64 query rows a block), float32 on them too at fp32's
 accuracy, each product as three TF32 products of an error-compensated
 split (3xTF32; ``ref.py``'s ``rounding="tf32x3"`` emulates it), bound by
 ``mma.sync``'s TF32 rate (0.77 ms at tinyllama's prefill shape on an
@@ -112,7 +113,7 @@ def bwd_plan(b: int, skv: int, hq: int, hkv: int, d: int, dtype, sms: int = H100
 # This thread's ``models.attention.attention_options``: with ``skip`` a
 # traced step counts the key tiles the kernels run instead of the full square.
 COUNTING = threading.local()
-QUERY_ROWS = 64  # K3's and K3b's query rows per block
+QUERY_ROWS = 64  # K3's and K3b's query rows per block, or per warpgroup (K3 bf16 at D = 256)
 
 
 def _skip_masked() -> bool:
@@ -121,10 +122,12 @@ def _skip_masked() -> bool:
 
 
 def _key_tile(dtype, d: int) -> int:
-    """K3's keys per staged tile: 64, 32 in its bf16 instance at D = 256
-    (the fp32 instance stages 32 at D = 128 and 256 too; the count takes 64
-    there, the padding of the square it counts)."""
-    return 32 if dtype == torch.bfloat16 and d > 128 else 64
+    """K3's keys per tile in the count: 64, what its bf16 instances stage
+    (at D = 256 each warpgroup of a 128-row block walks exactly the 64-key
+    tiles a 64-row block would, ``QUERY_ROWS``); the fp32 instance stages
+    32 at D = 128 and 256, and the count takes 64 there too, the padding of
+    the square it counts."""
+    return 64
 
 
 def key_tiles(sq: int, skv: int, window: int, key_tile: int, rows: int = QUERY_ROWS,

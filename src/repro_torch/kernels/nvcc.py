@@ -88,7 +88,7 @@ SOURCES: dict[str, Source] = {
     ),
     "flash_attention": Source(
         "flash_attention", _KERNELS_DIR / "flash_attention" / "csrc" / "flash_attention.cu",
-        headers=(_MMA_H,),
+        headers=(_MMA_H, _WGMMA_H),
     ),
     "flash_attention_bwd": Source(
         "flash_attention_bwd",

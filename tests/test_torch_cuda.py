@@ -286,6 +286,45 @@ def test_flash_attention_kernel_is_causal(cuda):
     torch.testing.assert_close(out1[:, :70], out2[:, :70], atol=1e-6, rtol=0)
 
 
+# The bf16 instance at D = 256 (warpgroup products): blocks of 128 query
+# rows, 64 a warpgroup, and 64-key tiles.  Sq off a multiple of 128 and of
+# 64 (a block whose second warpgroup has some rows, or none), Sq < Skv at
+# offsets off a tile, windows at a tile's edge and one key from it, and
+# rows that see one key (Sq = Skv = 1, window 1).
+WGMMA_CASES = [
+    (1, 200, 200, 4, 2, 0), (2, 100, 100, 2, 1, 0), (1, 64, 64, 4, 4, 0), (1, 129, 129, 2, 2, 0),
+    (1, 191, 191, 4, 1, 0), (1, 77, 300, 4, 2, 0), (2, 130, 1000, 2, 2, 0), (1, 1, 301, 8, 1, 0),
+    (1, 400, 400, 4, 2, 63), (1, 400, 400, 4, 2, 64), (1, 400, 400, 4, 2, 65),
+    (1, 400, 400, 2, 1, 127), (1, 400, 400, 2, 1, 128), (1, 400, 400, 2, 1, 129),
+    (1, 300, 700, 4, 2, 100), (1, 1, 1, 4, 1, 0), (2, 150, 150, 4, 2, 1), (1, 40, 90, 2, 2, 1),
+]
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "non-causal"])
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,window", WGMMA_CASES)
+def test_flash_attention_wgmma_instance_matches_plain(cuda, b, sq, skv, hq, hkv, window, causal):
+    """K3 bf16 at D = 256 across its tile edges: output and logsumexp
+    against the plain version's (2e-2; the logsumexp, fp32 sums of bf16
+    products, 2e-5), and two calls bit for bit the same."""
+    gen = torch.Generator(device=cuda).manual_seed(sq * 1000 + skv + window)
+    q = torch.randn((b, sq, hq, 256), generator=gen, device=cuda).to(torch.bfloat16)
+    k, v = (torch.randn((b, skv, hkv, 256), generator=gen, device=cuda).to(torch.bfloat16)
+            for _ in range(2))
+    before = flash_ops.counter.count
+    out, lse = flash_ops.flash_attention(q, k, v, causal=causal, window=window,
+                                         return_lse=True)
+    torch.cuda.synchronize()
+    assert flash_ops.counter.count == before + 1
+    ref, lse_ref = flash_attention_ref(_gqa_ref(q, hkv), k.transpose(1, 2), v.transpose(1, 2),
+                                       causal=causal, window=window, return_lse=True)
+    ref = ref.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, 256)
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(lse, lse_ref.reshape(b, hq, sq), atol=2e-5, rtol=2e-5)
+    again, lse_again = flash_ops.flash_attention(q, k, v, causal=causal, window=window,
+                                                 return_lse=True)
+    assert torch.equal(out, again) and torch.equal(lse, lse_again)
+
+
 # ---------------------------------------------------------- flash decode (K4)
 
 
@@ -360,6 +399,48 @@ def test_decode_attention_kernel_head_dims_and_groups(cuda, d, g, dtype, window)
     tol = ATTN_TOL[dtype]
     torch.testing.assert_close(out.float(), _decode_plain(q, k, v, lengths, window).float(),
                                atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("window", [0, 100])
+@pytest.mark.parametrize("g", [1, 2, 4, 8, 16])
+def test_decode_attention_fitted_instance_matches_plain_and_replays(cuda, g, window):
+    """K4 bf16 at D = 256, whose heads a pass and rows in flight follow G:
+    the C entry launches the instance ``instance`` names; lengths of 1, of
+    fewer positions than blocks, at a block's pass and one past it, and
+    the full cache, against the plain version at 2e-2; then the call
+    replayed from a CUDA graph gives the eager call's bits."""
+    b, hkv, s = 6, 2, 1000
+    inst = decode_ops.instance(torch.bfloat16, 256, g)
+    lib, max_splits = decode_ops._library()
+    code = lib.decode_instance(1, 256, g)
+    assert (code & 255, (code >> 8) & 255, code >> 16) == (
+        inst["heads"], inst["rows"], inst["resident"])
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    splits = decode_ops.split_count(b, hkv, s, sms, inst, max_splits)
+    edge = splits * 4 * inst["rows"]  # every block one pass of its lane groups
+    lengths = torch.tensor([1, splits - 1, edge, edge + 1, 777, s], dtype=torch.int32,
+                           device=cuda).clamp_min(1)
+    gen = torch.Generator(device=cuda).manual_seed(g * 10 + window)
+    q = torch.randn((b, 1, hkv * g, 256), generator=gen, device=cuda).to(torch.bfloat16)
+    k, v = (torch.randn((b, s, hkv, 256), generator=gen, device=cuda).to(torch.bfloat16)
+            for _ in range(2))
+    eager = decode_ops.decode_attention(q, k, v, lengths, window=window)
+    torch.testing.assert_close(eager.float(), _decode_plain(q, k, v, lengths, window).float(),
+                               atol=2e-2, rtol=2e-2)
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        decode_ops.decode_attention(q, k, v, lengths, window=window)
+        graph.capture_begin()
+        out = decode_ops.decode_attention(q, k, v, lengths, window=window)
+        graph.capture_end()
+    torch.cuda.current_stream().wait_stream(side)
+    out.zero_()
+    before = decode_ops.counter.count
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager) and decode_ops.counter.count == before
 
 
 def test_attention_kernels_refuse_what_they_do_not_take(cuda):

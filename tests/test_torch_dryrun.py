@@ -156,7 +156,7 @@ def test_attention_options_thread_local():
 
     with attention_options(unroll=True, skip_masked_blocks=True):
         assert _attn_opts() == {"unroll": True, "skip": True} and flash_ops._skip_masked()
-        assert flash_ops._key_tile(torch.bfloat16, 256) == 32
+        assert flash_ops._key_tile(torch.bfloat16, 256) == 64
         assert flash_ops._key_tile(torch.float32, 256) == flash_ops._key_tile(torch.bfloat16, 64)
         with attention_options():
             assert not flash_ops._skip_masked()

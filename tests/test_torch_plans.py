@@ -244,3 +244,110 @@ def test_rglru_bwd_scratch_holds_its_parts(b, s, width):
 
     nc, ng = -(-s // 64), -(-width // 32)
     assert rglru_ops.bwd_scratch_elems(b, s, width) == 6 * b * nc * width + b + b * nc * ng
+
+
+# K4's shapes: (B, Hkv, G, S, D), gemma-7b's decode, recurrentgemma-9b's
+# local decode, gemma3-4b's (G = 2), llama4's, tinyllama's, and edges.
+K4_SHAPES = [(8, 16, 1, 1040, 256), (8, 1, 16, 1040, 256), (8, 4, 2, 1024, 256),
+             (8, 8, 5, 1040, 128), (8, 4, 8, 1040, 64), (1, 1, 1, 1, 256), (1, 1, 4, 40, 256),
+             (64, 16, 1, 4096, 256), (3, 2, 32, 300, 256), (2, 2, 3, 256, 256)]
+
+
+@pytest.mark.parametrize("b,hkv,g,s,d", K4_SHAPES)
+def test_k4_split_rule(b, hkv, g, s, d):
+    """K4's blocks per (batch row, KV head): 1 to 8 (one cluster), fixed by
+    the shapes; the instances of 8 heads a pass below D = 256 and in f32
+    keep one block an SM; the bf16 instances at D = 256 fill every SM with
+    as many blocks as it keeps resident, within a block's pass per split."""
+    import torch
+
+    from repro_torch.kernels.decode_attention import ops as decode_ops
+
+    for dtype in (torch.bfloat16, torch.float32):
+        inst = decode_ops.instance(dtype, d, g)
+        n = decode_ops.split_count(b, hkv, s, SMS, inst)
+        assert 1 <= n <= 8
+        assert n == decode_ops.split_count(b, hkv, s, SMS, dict(inst))
+        if inst["fitted"]:
+            want = min(8, -(-inst["resident"] * SMS // (b * hkv)), -(-s // (4 * inst["rows"])))
+            assert n == max(1, want)
+        else:
+            assert n == max(1, min(8, SMS // (b * hkv), -(-s // 32)))
+
+
+def test_k4_split_rule_fills_the_card_at_gemma7b_decode():
+    """gemma-7b's decode (B = 8, 16 KV heads, G = 1, D = 256, 1,040
+    positions): 128 (batch row, KV head) pairs left 4 of 132 SMs idle and
+    each block alone on its SM; the fitted instance splits each pair."""
+    import torch
+
+    from repro_torch.kernels.decode_attention import ops as decode_ops
+
+    inst = decode_ops.instance(torch.bfloat16, 256, 1)
+    n = decode_ops.split_count(8, 16, 1040, SMS, inst)
+    assert n > 1 and n * 8 * 16 >= inst["resident"] * SMS
+    f32 = decode_ops.instance(torch.float32, 256, 1)
+    assert decode_ops.split_count(8, 16, 1040, SMS, f32) == 1
+
+
+@pytest.mark.parametrize("g,heads,rows", [(1, 1, 8), (2, 2, 8), (3, 4, 4), (4, 4, 4), (5, 8, 2),
+                                          (8, 8, 2), (16, 8, 2), (32, 8, 2)])
+def test_k4_heads_per_pass_follow_g(g, heads, rows):
+    """bf16 at D = 256: the heads a pass fitted to G (1, 2, 4, then 8 a
+    pass for G >= 5), rows in flight 8, 8, 4, 2, residency 4 blocks an SM
+    below 8 heads; every other (dtype, D) keeps 8 heads and 2 rows."""
+    import torch
+
+    from repro_torch.kernels.decode_attention import ops as decode_ops
+
+    inst = decode_ops.instance(torch.bfloat16, 256, g)
+    assert (inst["heads"], inst["rows"]) == (heads, rows)
+    assert inst["resident"] == (4 if heads <= 4 else 2) and inst["fitted"]
+    passes = -(-g // inst["heads"])
+    assert passes * inst["heads"] >= g and (passes - 1) * inst["heads"] < g
+    for dtype, d in ((torch.bfloat16, 128), (torch.float32, 256), (torch.bfloat16, 64)):
+        other = decode_ops.instance(dtype, d, g)
+        assert (other["heads"], other["rows"], other["resident"], other["fitted"]) == (
+            8, 2, 2, False)
+
+
+def _wgmma_walk(sq, skv, window, causal):
+    """K3's bf16 instance at D = 256 walked as the kernel walks it: blocks of
+    128 query rows, 64-key tiles from the block's first visible tile to its
+    last; each of the two warpgroups (64 rows) computes a tile only where
+    some query-key pair in it is visible.  Returns the (warpgroup, tile)
+    pairs that compute, by brute force over every pair of each tile."""
+    offset, pairs = skv - sq, 0
+    for q0 in range(0, sq, 128):
+        first, last = offset + q0, offset + min(q0 + 128, sq) - 1
+        stop = min(skv, last + 1) if causal else skv
+        start = (first - window + 1) // 64 * 64 if window and first - window + 1 > 0 else 0
+        for k0 in range(start, stop, 64):
+            for r0 in (q0, q0 + 64):
+                rows = range(offset + r0, offset + min(r0 + 64, sq))
+                pairs += any((not causal or j <= p) and (not window or j > p - window)
+                             for p in rows for j in range(k0, min(k0 + 64, skv)))
+    return pairs
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "non-causal"])
+@pytest.mark.parametrize("sq,skv,window", [
+    (1024, 1024, 0), (1024, 1024, 2048), (200, 200, 0), (129, 129, 0), (64, 64, 0),
+    (77, 300, 0), (130, 1000, 0), (400, 400, 63), (400, 400, 64), (400, 400, 129),
+    (300, 700, 100), (1, 1, 0), (150, 150, 1), (1536, 1536, 1024), (1, 301, 0),
+])
+def test_k3_key_tiles_count_the_wgmma_walk(sq, skv, window, causal):
+    """The count the dry run takes for K3 bf16 at D = 256 (``key_tiles``
+    with ``_key_tile``'s 64 keys and ``QUERY_ROWS`` rows, and ``_area``)
+    equals a brute-force count of the (warpgroup, key tile) pairs the
+    wgmma instance computes."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+
+    tile = flash_ops._key_tile(torch.bfloat16, 256)
+    assert tile == 64 == flash_ops.QUERY_ROWS
+    walked = _wgmma_walk(sq, skv, window, causal)
+    assert flash_ops.key_tiles(sq, skv, window, tile, causal=causal) == walked
+    assert flash_ops._area((2, sq, 3, 256), (2, skv, 1, 256), window, tile,
+                           causal=causal) == 2 * 3 * walked * 64 * 64
